@@ -345,6 +345,13 @@ def main() -> int:
                                      for t in cB) - 2) \
         + 4 * qp.p + shared_bytes(qp, (op.Pwarm,))
     sf_bound, sf_by = bound(sf_flops, sf_bytes)
+    # breakdown: the QP half alone on the same lanes (the step kernel's
+    # remainder is the plant, the freeze and the carry advance)
+    qp_ms = cuda_ms(lambda: BL.bilin_lift_cuda(
+        qp, cB.ysc, cB.upsc, cB.x0, cB.lamc, wins[0], op.iters, 1e-2),
+        reps=10)
+    log(f"breakdown at B={B_MAIN}: QP alone (bilin_lift) {qp_ms:.4f} ms "
+        f"of the step's {sf_ms:.4f} ms")
     del cB, oB
     cG = op.init_carry(XG, WG)
     ins = (qp, cG.ysc, cG.upsc, cG.x0, cG.lamc, wins[0], op.iters, 1e-2)

@@ -9,7 +9,6 @@ field for field.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Optional, Sequence, Tuple
 
 
@@ -46,7 +45,6 @@ class ArmConfig:
     g: float = 9.81
     ku: float = 10.0
     Ts: float = 0.05
-    umax: float = math.pi / 2
     output_type: str = "markers"
     substeps: int = 10
     integrator: str = "sdirk2"
@@ -68,10 +66,6 @@ class ArmConfig:
     @property
     def nx(self) -> int:
         return self.Nlinks * 2
-
-    @property
-    def nu(self) -> int:
-        return self.Nmods
 
     @property
     def ny(self) -> int:

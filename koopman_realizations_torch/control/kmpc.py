@@ -265,7 +265,6 @@ class BilinearKmpc(nn.Module):
             self.register_buffer(f"poly_par{d}", pi)
             self.register_buffer(f"poly_dim{d}", di)
         t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
-        self.register_buffer("sqq_t", t(self.sqq))
         self.register_buffer("Tb_t", t(self.Tb))
         self.register_buffer("Sel_t", t(self.Sel))
 

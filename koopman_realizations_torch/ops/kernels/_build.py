@@ -50,8 +50,7 @@ class BuildResult:
     path: Path
     seconds: float
     cached: bool
-    log: str = ""
-    ptxas: list = field(default_factory=list)
+    ptxas: list = field(default_factory=list)   # `ptxas -v` lines
 
 
 _LOADED: dict = {}      # library path -> CDLL
@@ -118,14 +117,23 @@ class _Pending:
             lib = _LOADED[str(self.so)] = ctypes.CDLL(str(self.so))
         return BuildResult(
             lib=lib, path=self.so, seconds=time.perf_counter() - self.t0,
-            cached=cached, log=log,
+            cached=cached,
             ptxas=[ln for ln in log.splitlines() if "ptxas" in ln])
 
 
 def build_all(specs) -> list:
-    """Build (or load) every spec, all nvcc processes running at once."""
-    pending = [_Pending(s) for s in specs]
-    return [p.finish() for p in pending]
+    """Build (or load) every spec, all nvcc processes running at once;
+    if one fails, the others are stopped before the error propagates."""
+    pending = []
+    try:
+        for s in specs:
+            pending.append(_Pending(s))
+        return [p.finish() for p in pending]
+    finally:
+        for p in pending:
+            if p.proc is not None and p.proc.poll() is None:
+                p.proc.kill()
+                p.proc.wait()
 
 
 def load(spec: KernelSpec) -> ctypes.CDLL:

@@ -30,7 +30,6 @@ import torch
 from koopman_realizations_torch.models.arm import markers_rows
 from koopman_realizations_torch.ops.kernels import _build
 from koopman_realizations_torch.ops.kernels.bilin_lift import (
-    THREADS,
     QPStruct,
     check_operands,
     qp_config,

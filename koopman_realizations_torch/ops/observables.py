@@ -10,7 +10,6 @@ zeta is (nz, B), features are (rows, B).
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -100,23 +99,6 @@ class KoopmanBasis:
     @property
     def nzeta_aug(self) -> int:
         return self.nzeta + (self.m if self.model_type == "nonlinear" else 0)
-
-    @property
-    def N_full(self) -> int:
-        nz = self.nzeta_aug
-        total = nz + 1
-        for kind, degree in self.families:
-            if kind != "poly":
-                raise NotImplementedError(
-                    f"observable family {kind!r} is not ported yet")
-            total += math.comb(nz + degree, degree) - 1 - nz
-        return total
-
-    @property
-    def N(self) -> int:
-        if self.pcs is None:
-            return self.N_full
-        return self.nzeta_aug + self.pcs.shape[1] + 1
 
     def poly_tables(self):
         (kind, degree), = self.families

@@ -4,7 +4,8 @@ CUDA kernels have no CPU mode, so these tests need an NVIDIA GPU with the
 CUDA toolkit and skip elsewhere.  They import no JAX; on a machine without
 it run them past the repository's JAX-configuring conftest:
 
-    python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
+    python -m pytest --noconftest -o addopts="" -m cuda \\
+        tests/test_torch_cuda.py
 """
 
 import numpy as np
@@ -26,14 +27,16 @@ from koopman_realizations_torch.ops.kernels.step_fused import (
     build_step_fused,
 )
 from koopman_realizations_torch.utils.checkpoint import load_model
+from koopman_realizations_torch.utils.metrics import lane_tracking_error
 from koopman_realizations_torch.utils.trajectories import blockM_reference
 
 pytestmark = pytest.mark.cuda
 
 # the bench configuration (bench.py:95-122)
-MPC = dict(horizon=10, qp_iters=4, qp_dual_warm=True, input_blocks=(1, 1, 2, 5),
-           input_bounds=(-7 * np.pi / 8, 7 * np.pi / 8), input_slopeConst=1e-1,
-           cost_running=10.0, cost_terminal=100.0,
+MPC = dict(horizon=10, qp_iters=4, qp_dual_warm=True,
+           input_blocks=(1, 1, 2, 5),
+           input_bounds=(-7 * np.pi / 8, 7 * np.pi / 8),
+           input_slopeConst=1e-1, cost_running=10.0, cost_terminal=100.0,
            cost_input=(0.1 * 3e-2, 0.1 * 2e-2, 0.1 * 1e-2), proj_idx=(4, 5))
 ARM = dict(Nmods=3, nlinks=1, L=1.0, m=0.1, output_type="markers",
            substeps=3, newton_iters=1, jac_mode="step")
@@ -95,7 +98,8 @@ def test_step_fused_kernel_matches_plain(gpu):
     assert torch.equal(k.alive, p.alive) and bool(k.alive.all())
     for f in ("upsc", "x0", "lamc"):
         scale = max(1.0, getattr(p, f).abs().max().item())
-        assert (getattr(k, f) - getattr(p, f)).abs().max().item() < 1e-3 * scale
+        d = (getattr(k, f) - getattr(p, f)).abs().max().item()
+        assert d < 1e-3 * scale, (f, d)
     for f in ("ysc", "xpl", "yp"):
         assert (getattr(k, f) - getattr(p, f)).abs().max().item() < 2e-2
 
@@ -108,7 +112,6 @@ def test_fused_runner_on_card_tracks(gpu):
     out = sim.fused_runner(blockM_reference(), steps=301)(
         X0, np.zeros((B, 2), np.float32))
     assert out["alive"].all()
-    from koopman_realizations_torch.utils.metrics import lane_tracking_error
     err = lane_tracking_error(out["Yp"], blockM_reference())
     header = load_model()[2]
     assert abs(err.mean().item() - header["jax_reference"]["err_mean"]) < 1e-3

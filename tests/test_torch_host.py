@@ -129,6 +129,7 @@ def test_step_operands_match_jax(both):
     eq(pwarm_matrix(port.Sel, port.Tb, port.Np, port.m).astype(np.float32),
        Pwarm, "Pwarm")
     sq_jax = np.sqrt(np.asarray(jmpc.Qd, np.float32))
-    np.testing.assert_allclose(port.sqq_t.numpy(), sq_jax, rtol=1e-7)
+    np.testing.assert_allclose(port.sqq.astype(np.float32), sq_jax,
+                               rtol=1e-7)
     np.testing.assert_allclose(port.sqq, np.sqrt(np.asarray(jmpc.Qd)),
                                rtol=1e-15)
