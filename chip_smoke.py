@@ -180,9 +180,9 @@ def main() -> int:
         return c
 
     # ---- phase 1: bilin_lift kernel against its plain version, B=8192
-    c = carry_after(B_CHECK, 3)
-    bl_err = 0.0
-    for warm in (True, False):
+    def check_bilin(c, warm, label) -> float:
+        """bilin_lift kernel against its plain version on one carry's
+        lanes; returns max |dx|."""
         args = (qp, c.ysc, c.upsc, c.x0 if warm else torch.zeros_like(c.x0),
                 c.lamc if warm else None, wins[3], mpc.cfg.qp_iters,
                 1e-2 if warm else 1.0)
@@ -195,36 +195,43 @@ def main() -> int:
         dx = (xk - xp).abs().max().item()
         dl = (lk - lp).abs().max().item() / lp.abs().max().item()
         dobj = ((objk - objp) / objp).abs().max().item()
-        log(f"bilin_lift {'warm' if warm else 'cold'}: max|dx| {dx:.3e} "
-            f"max|dlam|/max|lam| {dl:.3e} max rel dobj {dobj:.3e} "
-            f"ok {int(okk.sum())}/{int(okp.sum())} of {B_CHECK}")
+        log(f"bilin_lift {label}: max|dx| {dx:.3e} max|dlam|/max|lam| "
+            f"{dl:.3e} max rel dobj {dobj:.3e} ok "
+            f"{int(okk.sum())}/{int(okp.sum())} of {c.ysc.shape[1]}")
         # two f32 evaluations in different operation orders; each is
         # ~1e-5 from the f64 solution in the CPU tests
         if not (dx < 1e-3 and dl < 1e-3 and dobj < 1e-5
                 and torch.equal(okk, okp) and bool(okk.all())):
             raise AssertionError("bilin_lift kernel disagrees with plain")
-        bl_err = max(bl_err, dx)
+        return dx
+
+    def check_step(c, sq, label) -> float:
+        """step_fused kernel against its plain version on one carry;
+        returns the max |d| over the outputs."""
+        out = SF.StepCarry(*(torch.empty_like(t) for t in c))
+        ck = op.step(c, sq, out=out)
+        torch.cuda.synchronize()
+        cp = op.step_plain(c, sq)
+        d = {f: (getattr(ck, f) - getattr(cp, f)).abs().max().item()
+             for f in SF.StepCarry._fields}
+        log(f"step_fused {label}: " + " ".join(
+            f"max|d{f}| {v:.3e}" for f, v in d.items()))
+        # QP outputs: f32 orderings (<1e-3 of scale); plant outputs: the
+        # f32 chord-Newton SDIRK2 is noisy at ~3e-3 in any two orderings
+        if not (torch.equal(ck.alive, cp.alive) and d["upsc"] < 1e-3
+                and d["x0"] < 1e-3
+                and d["lamc"] < 1e-3 * cp.lamc.abs().max().item()
+                and d["xpl"] < 2e-2):
+            raise AssertionError("step_fused kernel disagrees with plain")
+        return max(d.values())
+
+    c = carry_after(B_CHECK, 3)
+    bl_err = max(check_bilin(c, True, f"warm B={B_CHECK}"),
+                 check_bilin(c, False, f"cold B={B_CHECK}"))
 
     # ---- phase 2: step_fused kernel against its plain version, B=8192
-    c = carry_after(B_CHECK, 5)
-    out = SF.StepCarry(*(torch.empty_like(t) for t in c))
-    ck = op.step(c, wins[5], out=out)
-    torch.cuda.synchronize()
-    cp = op.step_plain(c, wins[5])
-    sf_err = 0.0
-    for f in SF.StepCarry._fields:
-        d = (getattr(ck, f) - getattr(cp, f)).abs().max().item()
-        sf_err = max(sf_err, d)
-        log(f"step_fused one step: max|d{f}| {d:.3e}")
-    # QP outputs: f32 orderings (<1e-3 of scale); plant outputs: the f32
-    # chord-Newton SDIRK2 is noisy at ~3e-3 in any two f32 orderings
-    if not (torch.equal(ck.alive, cp.alive)
-            and (ck.upsc - cp.upsc).abs().max() < 1e-3
-            and (ck.x0 - cp.x0).abs().max() < 1e-3
-            and (ck.lamc - cp.lamc).abs().max()
-            < 1e-3 * cp.lamc.abs().max()
-            and (ck.xpl - cp.xpl).abs().max() < 2e-2):
-        raise AssertionError("step_fused kernel disagrees with plain")
+    sf_err = check_step(carry_after(B_CHECK, 5), wins[5],
+                        f"one step B={B_CHECK}")
 
     # 20-step runners: kernel vs plain f32 vs plain f64 reference
     K = 20
@@ -335,8 +342,10 @@ def main() -> int:
         raise AssertionError("general runner lost lanes")
     del gout
 
-    # ---- phase 6: kernel times at the main path's shapes
+    # ---- phase 6: each kernel against its plain version, and its time, at
+    # the main path's shapes
     cB = op.init_carry(XB, WB)
+    sf_err = max(sf_err, check_step(cB, wins[0], f"one step B={B_MAIN}"))
     oB = SF.StepCarry(*(torch.empty_like(t) for t in cB))
     sf_ms = cuda_ms(lambda: op.step(cB, wins[0], out=oB), reps=10)
     sf_plain = cuda_ms(lambda: op.step_plain(cB, wins[0]), reps=2, warmup=1)
@@ -354,6 +363,7 @@ def main() -> int:
         f"of the step's {sf_ms:.4f} ms")
     del cB, oB
     cG = op.init_carry(XG, WG)
+    bl_err = max(bl_err, check_bilin(cG, True, f"warm B={B_GENERAL}"))
     ins = (qp, cG.ysc, cG.upsc, cG.x0, cG.lamc, wins[0], op.iters, 1e-2)
     bl_ms = cuda_ms(lambda: BL.bilin_lift_cuda(*ins), reps=10)
     bl_plain = cuda_ms(lambda: BL.bilin_lift_plain(*ins), reps=2, warmup=1)

@@ -98,6 +98,7 @@ class Ksim:
         mpc, plant, sc = self.mpc, self.plant, self.scaler
         m, Np = mpc.m, mpc.Np
         proj = list(mpc.proj_idx)
+        qp = mpc.lift_qp()
 
         def runner(X0, W):
             x, Wt = self._lanes(X0, W)
@@ -115,7 +116,7 @@ class Ksim:
             for k in range(K - 1):
                 shifted = torch.cat([U_plan[2 * m:], U_plan[-m:]])
                 sol = solve_qp_bilinear_lifted(
-                    mpc.lift_qp(), ysc, upsc, windows[k],
+                    qp, ysc, upsc, windows[k],
                     x0=mpc.Sel_t @ shifted, lam0=lam,
                     iters=mpc.cfg.qp_iters)
                 U = torch.cat([upsc, mpc.Tb_t @ sol.x])

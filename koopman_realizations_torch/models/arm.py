@@ -67,16 +67,13 @@ class Arm(nn.Module):
         self.register_buffer("G", torch.as_tensor(G, device=dev))
         self.register_buffer("b", torch.as_tensor(b, device=dev))
 
-    def step_rows(self, xs, us, w1, w2):
-        """One control period Ts for tuples of (B,) rows (lanes-minor)."""
-        cfg = self.cfg
-        return sdirk2_rows(cfg, self.G_host, self.b_host, tuple(xs),
-                           list(us), w1, w2, cfg.Ts, cfg.substeps,
-                           cfg.newton_iters, cfg.jac_mode)
-
     def step(self, X: torch.Tensor, U: torch.Tensor, W: torch.Tensor):
-        """Lanes-minor batched step: X (nx, B), U (m, B), W (2, B)."""
-        return torch.stack(self.step_rows(tuple(X), tuple(U), W[0], W[1]))
+        """One control period Ts, lanes-minor: X (nx, B), U (m, B) in
+        original units, W (2, B) loads."""
+        cfg = self.cfg
+        return torch.stack(sdirk2_rows(
+            cfg, self.G_host, self.b_host, tuple(X), list(U), W[0], W[1],
+            cfg.Ts, cfg.substeps, cfg.newton_iters, cfg.jac_mode))
 
     def get_y(self, X: torch.Tensor) -> torch.Tensor:
         """Lanes-minor outputs: X (nx, B) -> (ny, B)."""

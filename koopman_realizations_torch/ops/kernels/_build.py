@@ -27,7 +27,9 @@ import time
 from dataclasses import dataclass, field
 from pathlib import Path
 
-PKG = Path(__file__).resolve().parents[2]
+import numpy as np
+
+PKG =Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -53,8 +55,7 @@ class BuildResult:
     ptxas: list = field(default_factory=list)   # `ptxas -v` lines
 
 
-_LOADED: dict = {}      # library path -> CDLL
-_BY_SPEC: dict = {}     # KernelSpec -> CDLL
+_BY_SPEC: dict = {}     # KernelSpec -> loaded CDLL
 
 
 def nvcc_path() -> str:
@@ -89,7 +90,7 @@ class _Pending:
         self.t0 = time.perf_counter()
         self.proc = None
         self.tmp = None
-        if self.so.is_file() or str(self.so) in _LOADED:
+        if self.so.is_file():
             return
         BUILD.mkdir(parents=True, exist_ok=True)
         self.tu.write_text(
@@ -112,9 +113,9 @@ class _Pending:
                     f"(rc {self.proc.returncode}):\n{log}")
             os.replace(self.tmp, self.so)
         log = self.logp.read_text() if self.logp.is_file() else ""
-        lib = _LOADED.get(str(self.so))
+        lib = _BY_SPEC.get(self.spec)
         if lib is None:
-            lib = _LOADED[str(self.so)] = ctypes.CDLL(str(self.so))
+            lib = _BY_SPEC[self.spec] = ctypes.CDLL(str(self.so))
         return BuildResult(
             lib=lib, path=self.so, seconds=time.perf_counter() - self.t0,
             cached=cached,
@@ -139,20 +140,16 @@ def build_all(specs) -> list:
 def load(spec: KernelSpec) -> ctypes.CDLL:
     """The loaded library of one spec, built on first use."""
     lib = _BY_SPEC.get(spec)
-    if lib is None:
-        lib = _BY_SPEC[spec] = build_all([spec])[0].lib
-    return lib
+    return lib if lib is not None else build_all([spec])[0].lib
 
 
 def hexf(v) -> str:
     """Exact C++ literal of v rounded to f32 (hex float)."""
-    import numpy as np
     return float(np.float32(v)).hex() + "f"
 
 
 def c_array(values, fmt=hexf) -> str:
     """C initializer list (nested for 2-D) of f32 or int values."""
-    import numpy as np
     a = np.asarray(values)
     if a.ndim == 1:
         return "{" + ", ".join(fmt(v) for v in a) + "}"

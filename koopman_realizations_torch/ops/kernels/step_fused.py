@@ -27,7 +27,6 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from koopman_realizations_torch.models.arm import markers_rows
 from koopman_realizations_torch.ops.kernels import _build
 from koopman_realizations_torch.ops.kernels.bilin_lift import (
     QPStruct,
@@ -185,12 +184,10 @@ class StepFused:
         x, s, lam, obj, b = qp_core_plain(qp, c.ysc, c.upsc, sqYr, c.x0,
                                           c.lamc, self.iters, 1e-2)
         ok, _ = ok_mask(qp, b, x, s, lam, const.tol, const.gap_sane)
-        up_orig = sc.u_up(c.upsc, axis=0)
-        xs = arm.step_rows(tuple(c.xpl), tuple(up_orig), c.w[0], c.w[1])
-        xs = torch.stack(xs)
+        xs = arm.step(c.xpl, sc.u_up(c.upsc, axis=0), c.w)
         fin = torch.isfinite(xs).all(0)
-        y = torch.stack(markers_rows(arm.cfg, list(xs[:arm.cfg.Nlinks])))
-        keep = (c.alive > 0.5) & ok & fin
+        y = arm.get_y(xs)
+        keep =(c.alive > 0.5) & ok & fin
         sel = lambda new, old: torch.where(keep, new, old)
         return StepCarry(
             ysc=sel(sc.y_down(y, axis=0), c.ysc),

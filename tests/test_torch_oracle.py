@@ -94,13 +94,13 @@ def jax_model():
 
 
 @functools.lru_cache(maxsize=None)
-def jax_bench(**arm_overrides):
+def jax_bench():
     """(Ksim, BilinearKmpc, Arm) of the JAX package at the bench config."""
     from koopman_realizations_tpu.control import Ksim, make_kmpc
     from koopman_realizations_tpu.models.arm import Arm
     model, scaler = jax_model()
     mpc = make_kmpc(model, scaler, MpcConfig(**BENCH_MPC))
-    arm = Arm(ArmConfig(**{**BENCH_ARM, **arm_overrides}))
+    arm = Arm(ArmConfig(**BENCH_ARM))
     return Ksim(arm, mpc), mpc, arm
 
 
