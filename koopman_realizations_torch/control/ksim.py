@@ -24,6 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from koopman_realizations_torch import resolve_device
 from koopman_realizations_torch.control.kmpc import BilinearKmpc
 from koopman_realizations_torch.ops.kernels.bilin_lift import (
     solve_qp_bilinear_lifted,
@@ -39,7 +40,8 @@ class Ksim:
 
     RECORD = ("Yp", "alive")
 
-    def __init__(self, plant, mpc: BilinearKmpc):
+    def __init__(self, plant, mpc: BilinearKmpc, device="cuda"):
+        self.device = resolve_device(device)
         self.plant = plant
         self.mpc = mpc
         self.scaler = mpc.scaler
@@ -47,13 +49,10 @@ class Ksim:
         if self.meta.nd != 0 or self.meta.nw != 0:
             raise NotImplementedError("delays and loads are not ported")
         self._dual_warm = bool(mpc.cfg.qp_dual_warm)
-        if plant.G.device != mpc.gens.device:
-            raise ValueError("plant and controller live on different "
-                             "devices")
-
-    @property
-    def device(self) -> torch.device:
-        return self.mpc.gens.device
+        if plant.G.device.type != self.device.type \
+                or mpc.gens.device.type != self.device.type:
+            raise ValueError(f"plant ({plant.G.device}) and controller "
+                             f"({mpc.gens.device}) must live on {device}")
 
     # ---------------------------------------------------------- host prep
 

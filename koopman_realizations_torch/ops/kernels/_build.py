@@ -52,7 +52,7 @@ class BuildResult:
     path: Path
     seconds: float
     cached: bool
-    ptxas: list = field(default_factory=list)   # `ptxas -v` lines
+    ptxas: list = field(default_factory=list)   # `ptxas -v` + spill lines
 
 
 _BY_SPEC: dict = {}     # KernelSpec -> loaded CDLL
@@ -119,7 +119,8 @@ class _Pending:
         return BuildResult(
             lib=lib, path=self.so, seconds=time.perf_counter() - self.t0,
             cached=cached,
-            ptxas=[ln for ln in log.splitlines() if "ptxas" in ln])
+            ptxas=[ln for ln in log.splitlines()
+                   if "ptxas" in ln or "spill" in ln])
 
 
 def build_all(specs) -> list:

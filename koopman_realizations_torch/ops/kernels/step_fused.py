@@ -95,17 +95,18 @@ class StepFused:
 
     # ------------------------------------------------------------ carry
 
-    def init_carry(self, X0, W, u0=None) -> StepCarry:
+    def init_carry(self, X0, W) -> StepCarry:
         """Carry at step 0 from initial plant states X0 (B, nx) and loads
-        W (B, 2), row-major as the JAX runner takes them."""
+        W (B, 2), row-major as the JAX runner takes them; the previous
+        input is zero."""
         qp, sc = self.qp, self.scaler
         dev, dt = qp.gens.device, qp.gens.dtype
         X0 = torch.as_tensor(np.asarray(X0), dtype=dt, device=dev).T
         B = X0.shape[1]
         y0 = self.arm.get_y(X0)
         ysc0 = sc.y_down(y0.double(), axis=0).to(dt)
-        u0 = np.zeros(qp.m) if u0 is None else np.asarray(u0, float)
-        u0_sc = torch.as_tensor(sc.u_down(u0), dtype=dt, device=dev)
+        u0_sc = torch.as_tensor(sc.u_down(np.zeros(qp.m)), dtype=dt,
+                                device=dev)
         nf = qp.n // qp.m
         ones = torch.ones(B, dtype=dt, device=dev)
         return StepCarry(

@@ -49,7 +49,8 @@ def _run(runner_name, dtype):
     model, scaler, header = load_model()
     mpc = BilinearKmpc(model, scaler, MpcConfig(**BENCH_MPC), device="cpu",
                        dtype=dtype)
-    sim = Ksim(Arm(ArmConfig(**BENCH_ARM), device="cpu"), mpc)
+    sim = Ksim(Arm(ArmConfig(**BENCH_ARM), device="cpu"), mpc,
+               device="cpu")
     run = getattr(sim, runner_name)(blockM_reference(), steps=REF_STEPS)
     out = run(bench_X0(REF_B), np.zeros((REF_B, 2), np.float32))
     return out, header

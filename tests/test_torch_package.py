@@ -14,8 +14,14 @@ PORT = ROOT / "koopman_realizations_torch"
 FORBIDDEN = ("jax", "jaxlib", "koopman_realizations_tpu")
 
 
+def _port_modules():
+    """The port's Python files (not its build outputs)."""
+    build = PORT / "build"
+    return sorted(p for p in PORT.rglob("*.py") if build not in p.parents)
+
+
 def _port_sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return _port_modules() + [ROOT / "chip_smoke.py"]
 
 
 def _imported_roots(path: Path):
@@ -44,10 +50,8 @@ def test_no_jax_import_anywhere_in_the_port():
 def test_port_imports_with_jax_blocked():
     """Every module of the port (and chip_smoke) imports in a process where
     importing jax or the JAX package raises."""
-    mods = sorted(
-        ".".join(p.relative_to(ROOT).with_suffix("").parts)
-        .replace(".__init__", "")
-        for p in PORT.rglob("*.py"))
+    mods = [".".join(p.relative_to(ROOT).with_suffix("").parts)
+            .replace(".__init__", "") for p in _port_modules()]
     code = (
         "import sys, importlib\n"
         f"for name in {FORBIDDEN!r}:\n"
@@ -69,6 +73,7 @@ def test_entry_points_default_to_the_card():
     it they raise instead of moving to the CPU."""
     from koopman_realizations_torch.config import ArmConfig, MpcConfig
     from koopman_realizations_torch.control.kmpc import BilinearKmpc
+    from koopman_realizations_torch.control.ksim import Ksim
     from koopman_realizations_torch.models.arm import Arm
     from koopman_realizations_torch.utils.checkpoint import load_model
 
@@ -85,7 +90,12 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Arm(ArmConfig())
     # asked for explicitly, the CPU path is there
-    assert not BilinearKmpc(model, scaler, cfg, device="cpu").gens.is_cuda
+    mpc = BilinearKmpc(model, scaler, cfg, device="cpu")
+    arm = Arm(ArmConfig(), device="cpu")
+    assert not mpc.gens.is_cuda
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Ksim(arm, mpc)
+    assert Ksim(arm, mpc, device="cpu").device.type == "cpu"
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

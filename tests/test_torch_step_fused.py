@@ -57,7 +57,7 @@ def _port(dtype):
     mpc = BilinearKmpc(model, scaler, MpcConfig(**BENCH_MPC), device="cpu",
                        dtype=dtype)
     arm = Arm(ArmConfig(**BENCH_ARM), device="cpu")
-    return Ksim(arm, mpc)
+    return Ksim(arm, mpc, device="cpu")
 
 
 @pytest.fixture(scope="module")
