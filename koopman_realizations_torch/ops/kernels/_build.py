@@ -29,7 +29,7 @@ from pathlib import Path
 
 import numpy as np
 
-PKG =Path(__file__).resolve().parents[2]
+PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

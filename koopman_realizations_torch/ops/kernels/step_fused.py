@@ -188,7 +188,7 @@ class StepFused:
         xs = arm.step(c.xpl, sc.u_up(c.upsc, axis=0), c.w)
         fin = torch.isfinite(xs).all(0)
         y = arm.get_y(xs)
-        keep =(c.alive > 0.5) & ok & fin
+        keep = (c.alive > 0.5) & ok & fin
         sel = lambda new, old: torch.where(keep, new, old)
         return StepCarry(
             ysc=sel(sc.y_down(y, axis=0), c.ysc),
