@@ -67,39 +67,91 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def qp_flops(qp, iters: int) -> int:
-    """Operations of one lane's QP as the kernel does them (FMA = 2;
-    divide, sqrt and compare-select = 1), counted from csrc/."""
-    n, mc, p, m, band = qp.n, qp.mc, qp.p, qp.m, qp.band
-    rows = p * n + m * p + p
+def nnz(t) -> int:
+    return int((t != 0).sum())
+
+
+def qp_ops(qp, iters: int) -> int:
+    """Operations one lane's QP needs, counted from csrc/kmpc_device.cuh
+    (FMA = 2; divide, sqrt, compare and min/max = 1), leaving out the
+    structural zeros of this run's lane-shared operands: no product with
+    a zero entry of the generators, A, Wd, Wo or F0r, and no Gram term of
+    an all-zero W generator row (a stage no move reaches)."""
+    n, mc, p, m = qp.n, qp.mc, qp.p, qp.m
     nf = qp.nz + qp.nmono
-    prologue = (qp.nmono                                  # monomials
-                + 2 * rows * nf + rows + 2 * m * p + p    # generators, v
-                + 2 * mc * m                              # b
-                + p * (n * (n + 1) + 2 * n)               # Gram, W^T v
-                + n * (n + 1) + 2 * n * n + 2)            # x2, scale, reg
-    form = (2 * n * mc + 2 * (n - band) * mc) if band is not None \
-        else mc * n * (n + 1)
-    chol = n * n * n // 3 + n * n
-    direction = 3 * mc + 2 * n * mc + n + 2 * n * n + 2 * mc * n + 4 * mc
-    per_iter = (2 * mc + 2 * mc * n + 3 * mc + 2 * n * n + 2 * n * mc
-                + 2 * n + mc + form + chol + 2 * direction
-                + 4 * mc + 4 * mc + 4 * mc + 2 * (n + 2 * mc))
-    ok = 2 * mc + 2 * mc * n + 2 * mc + n
-    return prologue + iters * per_iter + ok
+    feat = (qp.gens[:, :nf] != 0).sum(1).tolist()
+    const = (qp.gens[:, nf] != 0).tolist()
+    gen = [2 * f + c for f, c in zip(feat, const)]     # one row against f
+    live = [g > 0 for g in gen]
+    pn, mp, nA = p * n, m * p, nnz(qp.A)
+    ops = qp.nmono                                      # monomials
+    ops += sum(gen[pn + mp:]) + p                       # v = Pgen f - sqYr
+    ops += sum(gen[pn:pn + mp]) + 2 * sum(live[pn:pn + mp])   # + CB0 u
+    for r in range(p):                                  # W rows -> Gram, qv
+        k = sum(live[r * n:(r + 1) * n])
+        ops += sum(gen[r * n:(r + 1) * n]) + 2 * k + k * (k + 1)
+    ops += n + n * (n + 1) // 2 + 2 * nnz(qp.F0r)       # x2, b
+    ops += 2 * n + 1 + n * (n + 1) // 2 + n + 4 * mc    # obj, Pr, q, lam0
+    chol = 2 * n + n * (n + 1) // 2 + (n - 1) * n * (n + 1) // 3
+    direction = 4 * nA + 7 * mc + n + 2 * n * n         # A^T t, solve, A dx
+    per_iter = (2 * mc + 1                              # mu
+                + 2 * nA + 3 * mc                       # r_p, max |r_p|
+                + 2 * nA + 2 * n * n + 2 * n + 2        # r_d, active
+                + 3 * mc                                # D
+                + 2 * nnz(qp.Wd) + n + 2 * nnz(qp.Wo) + n - qp.band
+                + chol + mc                             # factor, r_slam
+                + 2 * direction + 4 * 3 * mc + 2        # dirs, step ratios
+                + 6 * mc + 4 + 4 * mc + 1               # mu_aff, corrector
+                + 3 * n + 6 * mc)                       # update
+    return ops + 2 * nA + 2 * mc + iters * per_iter    # + slack start
 
 
-def plant_flops(cfg) -> int:
-    """Operations of one lane's SDIRK2 period (same conventions; sin and
-    cos count 1): ~150 per right-hand side, (1 + nx) times that for the
-    dual-number Jacobian pass, normal equations and 6x6 Cholesky."""
-    nx = cfg.nx
-    rhs = 150
-    factor = rhs * (1 + nx) + 2 * nx * nx + nx ** 3 + nx ** 3 // 3
-    newton = rhs + 4 * nx * nx + 4 * nx
-    substep = rhs + 2 * cfg.newton_iters * newton + 6 * nx
-    nfac = cfg.substeps if cfg.jac_mode == "substep" else 1
-    return nfac * factor + cfg.substeps * substep + 40
+def ok_ops(qp) -> int:
+    """Operations of the ok mask (gap, primal residual, finite x)."""
+    return 2 * qp.mc + 1 + 2 * nnz(qp.A) + 3 * qp.mc + qp.n
+
+
+def rhs_ops(nl: int, k: int) -> int:
+    """Operations of arm_rhs in csrc/kmpc_device.cuh on floats (k = 0) or
+    on dual numbers with k tangents, each operation costed on its type as
+    the source does it (zero tangents of constants included)."""
+    dual = k > 0
+    add, smul = 1 + k, 1 + k                            # T + T, float * T
+    mul = 1 + 3 * k                                     # T * T
+    div = 3 + 4 * k if dual else 1                      # T / T
+    trig = sqrt = 2 + k if dual else 1                  # sin, cos, sqrt
+    pairs = nl * (nl - 1) // 2
+    ops = 2 * (nl - 1) * add                            # joint angle sums
+    ops += pairs * (add + 2 * trig)                     # sin, cos of diffs
+    ops += 1 + 2 * nl + pairs * (1 + smul)              # mass matrix
+    ops += 2 * nl * (nl - 1) * add + nl * mul           # suffix sums, rates^2
+    ops += nl * ((nl - 1) * (1 + smul + mul) + (nl - 2) * add)  # Coriolis
+    ops += (nl - 1) * add                               # its suffix sum
+    ops += nl * (2 + trig + 3 * smul + add) + (nl - 1) * add  # gravity
+    ops += nl * (1 + 2 * smul + 3 * add)                # damping, torques
+    ops += sum(j * (mul + add) + sqrt + (nl - 1 - j) * (j * (mul + add) + div)
+               for j in range(nl))                      # Cholesky
+    return ops + nl * (nl - 1) * (mul + add) + 2 * nl * div    # solve
+
+
+def plant_ops(cfg) -> int:
+    """Operations of one lane's SDIRK2 period and markers, counted from
+    csrc/kmpc_device.cuh (jac_mode 'step': one dual-number Jacobian)."""
+    nl, nx = cfg.Nlinks, cfg.nx
+    chol = sum(2 * j + 1 + (nx - 1 - j) * (2 * j + 1) for j in range(nx))
+    solve = 2 * nx * (nx - 1) + 2 * nx
+    factor = (rhs_ops(nl, nx) + 2 * nx * nx
+              + nx * (nx + 1) // 2 * (2 * nx - 1) + chol)
+    newton = 2 * nx + rhs_ops(nl, 0) + nx + nx * (2 * nx - 1) + solve + nx
+    substep = rhs_ops(nl, 0) + 2 * cfg.newton_iters * newton + 7 * nx
+    markers = 7 * nl - 3
+    return 6 + factor + cfg.substeps * substep + markers
+
+
+def step_tail_ops(qp, op, cfg) -> int:
+    """The step kernel's epilogue: input unscaling, finite check, output
+    scaling, Pwarm @ x by its nonzeros, the dual carry."""
+    return 2 * qp.m + cfg.nx + 2 * cfg.ny + 2 * nnz(op.Pwarm) + qp.mc
 
 
 def bound(flops: float, nbytes: float) -> tuple:
@@ -180,11 +232,17 @@ def main() -> int:
         return c
 
     # ---- phase 1: bilin_lift kernel against its plain version, B=8192
-    def check_bilin(c, warm, label) -> float:
+    def lane_windows(B, k0):
+        """Per-lane reference windows (p, B): lane b takes the window of
+        step k0 + b % 8, so neighbouring lanes track different targets."""
+        k = k0 + torch.arange(B, device=dev) % 8
+        return wins[k].T.contiguous()
+
+    def check_bilin(c, warm, sq, label) -> float:
         """bilin_lift kernel against its plain version on one carry's
         lanes; returns max |dx|."""
         args = (qp, c.ysc, c.upsc, c.x0 if warm else torch.zeros_like(c.x0),
-                c.lamc if warm else None, wins[3], mpc.cfg.qp_iters,
+                c.lamc if warm else None, sq, mpc.cfg.qp_iters,
                 1e-2 if warm else 1.0)
         xk, sk, lk, objk = BL.bilin_lift_cuda(*args)
         torch.cuda.synchronize()
@@ -226,12 +284,16 @@ def main() -> int:
         return max(d.values())
 
     c = carry_after(B_CHECK, 3)
-    bl_err = max(check_bilin(c, True, f"warm B={B_CHECK}"),
-                 check_bilin(c, False, f"cold B={B_CHECK}"))
+    bl_err = max(check_bilin(c, True, wins[3], f"warm B={B_CHECK}"),
+                 check_bilin(c, False, wins[3], f"cold B={B_CHECK}"),
+                 check_bilin(c, True, lane_windows(B_CHECK, 3),
+                             f"warm, per-lane windows B={B_CHECK}"))
 
     # ---- phase 2: step_fused kernel against its plain version, B=8192
-    sf_err = check_step(carry_after(B_CHECK, 5), wins[5],
-                        f"one step B={B_CHECK}")
+    c = carry_after(B_CHECK, 5)
+    sf_err = max(check_step(c, wins[5], f"one step B={B_CHECK}"),
+                 check_step(c, lane_windows(B_CHECK, 5),
+                            f"one step, per-lane windows B={B_CHECK}"))
 
     # 20-step runners: kernel vs plain f32 vs plain f64 reference
     K = 20
@@ -349,7 +411,8 @@ def main() -> int:
     oB = SF.StepCarry(*(torch.empty_like(t) for t in cB))
     sf_ms = cuda_ms(lambda: op.step(cB, wins[0], out=oB), reps=10)
     sf_plain = cuda_ms(lambda: op.step_plain(cB, wins[0]), reps=2, warmup=1)
-    sf_flops = (qp_flops(qp, op.iters) + plant_flops(arm.cfg)) * B_MAIN
+    sf_flops = (qp_ops(qp, op.iters) + ok_ops(qp) + plant_ops(arm.cfg)
+                + step_tail_ops(qp, op, arm.cfg)) * B_MAIN
     sf_bytes = 4 * B_MAIN * (2 * sum(t.shape[0] if t.ndim == 2 else 1
                                      for t in cB) - 2) \
         + 4 * qp.p + shared_bytes(qp, (op.Pwarm,))
@@ -363,11 +426,12 @@ def main() -> int:
         f"of the step's {sf_ms:.4f} ms")
     del cB, oB
     cG = op.init_carry(XG, WG)
-    bl_err = max(bl_err, check_bilin(cG, True, f"warm B={B_GENERAL}"))
+    bl_err = max(bl_err, check_bilin(cG, True, wins[0],
+                                     f"warm B={B_GENERAL}"))
     ins = (qp, cG.ysc, cG.upsc, cG.x0, cG.lamc, wins[0], op.iters, 1e-2)
     bl_ms = cuda_ms(lambda: BL.bilin_lift_cuda(*ins), reps=10)
     bl_plain = cuda_ms(lambda: BL.bilin_lift_plain(*ins), reps=2, warmup=1)
-    bl_flops = qp_flops(qp, op.iters) * B_GENERAL
+    bl_flops = qp_ops(qp, op.iters) * B_GENERAL
     bl_bytes = 4 * B_GENERAL * (qp.nz + qp.m + qp.n + qp.mc
                                 + qp.n + 2 * qp.mc + 1) \
         + 4 * qp.p + shared_bytes(qp)

@@ -38,8 +38,6 @@ from koopman_realizations_torch.ops.kernels.step_fused import (
 class Ksim:
     """Closed-loop harness binding the arm plant and the controller."""
 
-    RECORD = ("Yp", "alive")
-
     def __init__(self, plant, mpc: BilinearKmpc, device="cuda"):
         self.device = resolve_device(device)
         self.plant = plant
@@ -87,11 +85,9 @@ class Ksim:
 
     # ------------------------------------------------------- general path
 
-    def batched_runner(self, ref, steps: Optional[int] = None,
-                       record=RECORD):
+    def batched_runner(self, ref, steps: Optional[int] = None):
         """fn(X0 (B, nx), W (B, 2)) -> {"Yp": (B, steps-1, nproj),
         "alive": (B, steps-1) bool} for the general closed loop."""
-        self._check_record(record)
         K = self._steps(ref, steps)
         windows = self.reference_windows(ref, K)
         mpc, plant, sc = self.mpc, self.plant, self.scaler
@@ -141,27 +137,24 @@ class Ksim:
     # --------------------------------------------------------- fused path
 
     def fused_step_eligible(self) -> bool:
-        """Whether the one-launch step applies: the arm with SDIRK2 and
-        marker/angle outputs, the dual warm start without stage shift, and
-        f32 throughout (the kernel's type; an f64 model is not silently
-        cast)."""
+        """Whether the one-launch step applies: the arm with SDIRK2, its
+        Jacobian once per period and marker outputs, the dual warm start
+        without stage shift, and f32 throughout (the kernel's type; an f64
+        model is not silently cast)."""
         cfg = self.plant.cfg
-        return (cfg.integrator == "sdirk2"
-                and cfg.jac_mode in ("step", "substep")
-                and cfg.output_type in ("markers", "angles")
+        return (cfg.integrator == "sdirk2" and cfg.jac_mode == "step"
+                and cfg.output_type == "markers"
                 and self._dual_warm and not self.mpc.cfg.qp_dual_shift
                 and self.mpc.model.dtype == np.float32
                 and self.mpc.dtype == torch.float32)
 
-    def fused_runner(self, ref, steps: Optional[int] = None,
-                     record=RECORD):
+    def fused_runner(self, ref, steps: Optional[int] = None):
         """fn(X0 (B, nx), W (B, 2)) -> {"Yp", "alive"} as
         ``batched_runner``, one fused-step launch per closed-loop step."""
         if not self.fused_step_eligible():
             raise ValueError("fused_runner: configuration not eligible "
                              "(see fused_step_eligible); use "
                              "batched_runner")
-        self._check_record(record)
         K = self._steps(ref, steps)
         windows = self.reference_windows(ref, K)
         op = build_step_fused(self.mpc, self.plant, self.scaler)
@@ -181,8 +174,3 @@ class Ksim:
             return {"Yp": Yp.permute(2, 0, 1), "alive": alive.T > 0.5}
 
         return runner
-
-    def _check_record(self, record):
-        if not set(record) <= set(self.RECORD):
-            raise ValueError(f"runners record only {self.RECORD}, got "
-                             f"{record}")

@@ -9,9 +9,11 @@
 // (ops/kernels/bilin_lift.py), as they do in the JAX wrapper.
 //
 // Bound on an H100: compute.  At the bench shape (n=12, mc=48, p=22,
-// 84 generator columns, 4 iterations) a lane does ~1.2e5 FLOPs on ~0.5 KB
-// of lane input and output, so the card's f32 rate (67 TFLOP/s outside
-// the tensor cores), not its 3.35 TB/s, sets the floor.  The design keeps
+// 84 generator columns, 4 iterations) a lane needs ~6.6e4 operations
+// (the kernel does ~1.1e5, structural zeros of the shared operands
+// included) on ~0.5 KB of lane input and output, so the card's f32 rate
+// (67 TFLOP/s outside the tensor cores), not its 3.35 TB/s, sets the
+// floor.  The design keeps
 // every per-lane intermediate in registers or thread-local memory (the
 // p*n W block is streamed row by row into the Gram, never stored), reads
 // the 118 KB of shared generators as warp-uniform 16-byte broadcasts

@@ -28,6 +28,9 @@
 #ifndef KM_N
 #error "kmpc_device.cuh needs the generated configuration header"
 #endif
+#if KM_BAND < 0
+#error "the kernels form A^T D A from the banded tables only"
+#endif
 
 #define KM_PN (KM_P * KM_N)           // W rows of the generator stack
 #define KM_MP (KM_M * KM_P)           // CB0 rows
@@ -197,7 +200,8 @@ __device__ __forceinline__ void matvec_At(const float* __restrict__ A,
   }
 }
 
-// M = Pr + A^T diag(D) A, lower triangle (qp_ipm.py:209-233).
+// M = Pr + A^T diag(D) A, lower triangle, banded (qp_ipm.py:209-233):
+// the diagonal from Wd, the one off-diagonal at KM_BAND from Wo.
 __device__ __forceinline__ void form_newton(const QP& qp,
                                             const float (&Pr)[KM_N][KM_N],
                                             const float (&D)[KM_MC],
@@ -207,7 +211,6 @@ __device__ __forceinline__ void form_newton(const QP& qp,
 #pragma unroll
     for (int k = 0; k <= i; ++k) M[i][k] = Pr[i][k];
   }
-#if KM_BAND >= 0
 #pragma unroll
   for (int i = 0; i < KM_N; ++i) {
     float dg = 0.0f;
@@ -222,21 +225,6 @@ __device__ __forceinline__ void form_newton(const QP& qp,
 #pragma unroll
     for (int c = 0; c < KM_MC; ++c) og = fmaf(ldg(qp.Wo + i * KM_MC + c), D[c], og);
     M[i + KM_BAND][i] += og;
-  }
-#endif
-#else
-  // dense: sum_c D_c a_c a_c^T
-#pragma unroll 1
-  for (int c = 0; c < KM_MC; ++c) {
-    float a[KM_N];
-#pragma unroll
-    for (int i = 0; i < KM_N; ++i) a[i] = ldg(qp.A + c * KM_N + i);
-#pragma unroll
-    for (int i = 0; i < KM_N; ++i) {
-      const float da = D[c] * a[i];
-#pragma unroll
-      for (int k = 0; k <= i; ++k) M[i][k] = fmaf(da, a[k], M[i][k]);
-    }
   }
 #endif
 }
@@ -773,7 +761,8 @@ __device__ __forceinline__ void sdirk2_stage(const float (&xb)[KM_NX],
 }
 
 // SDIRK2 over one control period in place (sdirk2_rows): gamma =
-// 1 - 1/sqrt(2), chord Newton refreshed per period or per substep.
+// 1 - 1/sqrt(2), chord Newton with the Jacobian taken once per period
+// (jac_mode 'step').
 __device__ __forceinline__ void sdirk2(float (&x)[KM_NX], const float (&u)[KM_M],
                                        float w1, float w2) {
   const float gamma = 1.0f - kdiv(1.0f, ksqrt(2.0f));
@@ -781,14 +770,9 @@ __device__ __forceinline__ void sdirk2(float (&x)[KM_NX], const float (&u)[KM_M]
   const float omg = 1.0f - gamma;
   const float omg_dt = omg * KM_DT;
   float M[KM_NX][KM_NX], L[KM_NX][KM_NX];
-#if !KM_JAC_SUBSTEP
   sdirk2_factor(x, u, w1, w2, gdt, M, L);
-#endif
 #pragma unroll 1
   for (int sub = 0; sub < KM_SUBSTEPS; ++sub) {
-#if KM_JAC_SUBSTEP
-    sdirk2_factor(x, u, w1, w2, gdt, M, L);
-#endif
     float k1[KM_NX], k2[KM_NX], xb[KM_NX];
     arm_rhs<float>(x, u, w1, w2, k1);
     sdirk2_stage(x, u, w1, w2, gdt, M, L, k1);
@@ -803,10 +787,9 @@ __device__ __forceinline__ void sdirk2(float (&x)[KM_NX], const float (&u)[KM_M]
   }
 }
 
-// Outputs from the joint angles (Arm.get_y): markers = xy of every
-// nlinks-th joint, origin dropped; or the angles themselves.
+// Marker outputs from the joint angles (Arm.get_y): xy of every
+// nlinks-th joint, origin dropped.
 __device__ __forceinline__ void arm_outputs(const float (&x)[KM_NX], float (&y)[KM_NY]) {
-#if KM_OUT_MARKERS
   float th = 0.0f, rx = 0.0f, ry = 0.0f;
   int o = 0;
 #pragma unroll
@@ -821,10 +804,6 @@ __device__ __forceinline__ void arm_outputs(const float (&x)[KM_NX], float (&y)[
       y[o++] = ry;
     }
   }
-#else
-#pragma unroll
-  for (int j = 0; j < KM_NL; ++j) y[j] = x[j];
-#endif
 }
 
 #endif  // KM_NL

@@ -9,9 +9,12 @@
 // PREVIOUS input, the marker outputs, the alive freeze and the carry
 // advance (Pwarm @ x primal start, lam * obj dual carry).
 //
-// Bound on an H100: compute.  A lane-step is ~1.3e5 FLOPs (QP ~1.2e5,
-// plant ~8e3) on ~0.7 KB of carry read and written, so at B=262144 the
-// floor is ~0.5 ms of f32 arithmetic against ~0.05 ms of memory traffic.
+// Bound on an H100: compute.  A lane-step needs ~7.0e4 operations (QP
+// ~6.6e4 counting only the nonzeros of the shared operands, plant ~4e3)
+// on ~0.6 KB of carry read and written, so at B=262144 the floor is
+// ~0.28 ms of f32 arithmetic against ~0.05 ms of memory traffic.  As
+// written the kernel does ~1.2e5: it also multiplies the structural
+// zeros of the generators (stages no move reaches) and of A, Wd, Wo.
 // The design is the simple one: the QP and the plant are independent
 // within a step (the plant consumes the previous input), they run back to
 // back in one thread with everything per lane in registers or thread-local

@@ -6,8 +6,8 @@ Replaces the TPU kernel ``_bilin_lift_kernel``
 ``solve_qp_bilinear_lifted_batched`` :850 from ``ops/qp.py:423-532``):
 one batched solve of the bench controller's QP from the raw measurement
 zeta -- poly lift, assembly, factored Gram, objective scale, banded
-A^T D A, Mehrotra.  The kernel is compute-bound on the card (~1.2e5 FLOPs
-per lane on ~0.5 KB of lane data); see the note in the source.
+A^T D A, Mehrotra.  The kernel is compute-bound on the card (~6.6e4
+operations per lane on ~0.5 KB of lane data); see the note in the source.
 
 ``bilin_lift`` takes the plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.  ``solve_qp_bilinear_lifted``
@@ -48,10 +48,13 @@ class QPSolution(NamedTuple):
 def qp_config(qp: LiftQP) -> str:
     """``#define`` lines of the QP half of a kernel configuration: the
     dimensions and the monomial recurrence as straight-line statements
-    (static indices, so the features stay in registers)."""
-    band = -1 if qp.band is None else qp.band
+    (static indices, so the features stay in registers).  The kernels
+    form A^T D A from the banded tables only."""
+    if qp.band is None:
+        raise NotImplementedError(
+            "the CUDA kernels need a banded A^T D A (band offset is None)")
     return _qp_config(qp.tables_host, qp.nz, qp.nmono, qp.gens.shape[1],
-                      qp.n, qp.mc, qp.p, qp.m, band)
+                      qp.n, qp.mc, qp.p, qp.m, qp.band)
 
 
 @functools.lru_cache(maxsize=None)

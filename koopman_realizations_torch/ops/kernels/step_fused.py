@@ -7,7 +7,7 @@ Replaces the TPU kernel ``_step_kernel``
 ``build_step_fused`` :527): per lane, the lift-fused QP of the bilinear
 controller, the ok mask, SDIRK2 of the arm on the PREVIOUS input, the
 marker outputs, the alive freeze and the carry advance.  The kernel is
-compute-bound on the card (~1.3e5 FLOPs per lane-step on ~0.7 KB of
+compute-bound on the card (~7e4 operations per lane-step on ~0.6 KB of
 carry); see the note in the source.
 
 Carry semantics (step_fused.py:23-31 of the JAX package): zeta IS the
@@ -81,8 +81,9 @@ class StepFused:
 
     def __init__(self, mpc, arm, scaler):
         cfg = arm.cfg
-        if cfg.output_type not in ("markers", "angles"):
-            raise NotImplementedError("fused step outputs markers/angles")
+        if cfg.output_type != "markers" or cfg.jac_mode != "step":
+            raise NotImplementedError(
+                "the fused step takes marker outputs and jac_mode 'step'")
         self.mpc, self.arm, self.scaler = mpc, arm, scaler
         self.qp = mpc.lift_qp()
         self.iters = int(mpc.cfg.qp_iters)
@@ -139,7 +140,6 @@ class StepFused:
             f"#define KM_NY {cfg.ny}",
             f"#define KM_NPROJ {len(self.proj_idx)}",
             f"#define KM_PROJ {arr(self.proj_idx, str)}",
-            f"#define KM_OUT_MARKERS {int(cfg.output_type == 'markers')}",
             f"#define KM_ARM_C0 {arr(c0)}",
             f"#define KM_ARM_C1 {arr([cfg.m * float(v) for v in b])}",
             f"#define KM_ARM_L2 {hexf(l2)}",
@@ -153,7 +153,6 @@ class StepFused:
             f"#define KM_DT {hexf(cfg.Ts / cfg.substeps)}",
             f"#define KM_SUBSTEPS {cfg.substeps}",
             f"#define KM_NEWTON {cfg.newton_iters}",
-            f"#define KM_JAC_SUBSTEP {int(cfg.jac_mode == 'substep')}",
             f"#define KM_UF {arr(np.asarray(sc.u_factor).ravel())}",
             f"#define KM_UO {arr(np.asarray(sc.u_offset).ravel())}",
             f"#define KM_YF {arr(np.asarray(sc.y_factor).ravel())}",

@@ -13,6 +13,9 @@ with warm and cold starts.
     against the f64 solution: the port's f32 error may be at most twice
     the TPU kernel's plus 1e-5 (measured: 2e-6..8e-6 against the
     kernel's 3e-5..1.2e-4), and the ok masks must be equal.
+
+Both hold also with a different reference window in every lane (sqYr of
+shape (p, B)), which the port's kernels take as the JAX ones do.
 """
 
 import numpy as np
@@ -55,10 +58,11 @@ def setup():
     return mpc, qp64, jmpc
 
 
-def _inputs(mpc, B, seed):
+def _inputs(mpc, B, seed, per_lane=False):
     """Closed-loop-like lane inputs: scaled outputs of random arm states,
     scaled previous inputs, a held-input primal start, positive duals in
-    original units, and the reference window of a random step."""
+    original units, and the reference window of a random step (per lane:
+    windows 11 steps apart, (B, p))."""
     rng = np.random.default_rng(seed)
     arm = Arm(ArmConfig(**BENCH_ARM), device="cpu")
     X = np.concatenate([rng.normal(0, 0.25, (B, 3)),
@@ -71,13 +75,17 @@ def _inputs(mpc, B, seed):
     ref = mpc.scaler.ref_down(blockM_y(), mpc.proj_idx)
     k = int(rng.integers(0, ref.shape[0] - mpc.Np - 1))
     sqYr = mpc.sqq * ref[k:k + mpc.Np + 1].reshape(-1)
+    if per_lane:
+        ks = (k + 11 * np.arange(B)) % (ref.shape[0] - mpc.Np - 1)
+        sqYr = np.stack([mpc.sqq * ref[j:j + mpc.Np + 1].reshape(-1)
+                         for j in ks])
     return zeta, u, x0, lam0, sqYr
 
 
 def _port(qp, zeta, u, x0, lam0, sqYr, warm_x, warm_lam, dtype):
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype)
     sol = solve_qp_bilinear_lifted(
-        qp, t(zeta.T), t(u.T), t(sqYr), x0=t(x0.T) if warm_x else None,
+        qp, t(zeta.T), t(u.T), t(sqYr.T), x0=t(x0.T) if warm_x else None,
         lam0=t(lam0.T) if warm_lam else None, iters=4)
     return sol.x.numpy().T, sol.lam.numpy().T, sol.ok.numpy()
 
@@ -86,14 +94,15 @@ def _jax_pure(jmpc, zeta, u, x0, lam0, sqYr, warm_x, warm_lam):
     c = jmpc.consts()
     gens = [c["LF_" + k] for k in GEN_KEYS]
 
-    def one(z, up, x, lam):
+    def one(z, up, x, lam, sq):
         return _solve_qp_bilinear_lifted(
-            z, up, jnp.asarray(sqYr), *gens, c["RdT"], c["FjT"], c["cFjT"],
+            z, up, sq, *gens, c["RdT"], c["FjT"], c["cFjT"],
             c["F0T"], jmpc._lift_tables, 4, x if warm_x else None, "jax",
             jmpc._band, lam if warm_lam else None)
 
-    sol = jax.vmap(one)(jnp.asarray(zeta), jnp.asarray(u), jnp.asarray(x0),
-                        jnp.asarray(lam0))
+    sol = jax.vmap(one, in_axes=(0, 0, 0, 0, 0 if sqYr.ndim == 2 else None))(
+        jnp.asarray(zeta), jnp.asarray(u), jnp.asarray(x0),
+        jnp.asarray(lam0), jnp.asarray(sqYr))
     return np.asarray(sol.x), np.asarray(sol.lam), np.asarray(sol.ok)
 
 
@@ -103,8 +112,19 @@ CASES = [(16, True, True), (16, True, False), (16, False, False),
 
 @pytest.mark.parametrize("B,warm_x,warm_lam", CASES)
 def test_f64_matches_jax_pure_path(setup, B, warm_x, warm_lam):
+    _check_f64(setup, B, warm_x, warm_lam, per_lane=False)
+
+
+@pytest.mark.parametrize("B,warm_x,warm_lam", CASES[::3])
+def test_f64_per_lane_windows_match_jax_pure_path(setup, B, warm_x,
+                                                  warm_lam):
+    _check_f64(setup, B, warm_x, warm_lam, per_lane=True)
+
+
+def _check_f64(setup, B, warm_x, warm_lam, per_lane):
     mpc, qp64, jmpc = setup
-    zeta, u, x0, lam0, sqYr = _inputs(mpc, B, seed=B + 2 * warm_lam)
+    zeta, u, x0, lam0, sqYr = _inputs(mpc, B, seed=B + 2 * warm_lam,
+                                      per_lane=per_lane)
     x, lam, ok = _port(qp64, zeta, u, x0, lam0, sqYr, warm_x, warm_lam,
                        torch.float64)
     jx, jlam, jok = _jax_pure(jmpc, zeta, u, x0, lam0, sqYr, warm_x,
@@ -116,8 +136,19 @@ def test_f64_matches_jax_pure_path(setup, B, warm_x, warm_lam):
 
 @pytest.mark.parametrize("B,warm_x,warm_lam", CASES)
 def test_f32_matches_tpu_kernel_interpret(setup, B, warm_x, warm_lam):
+    _check_f32(setup, B, warm_x, warm_lam, per_lane=False)
+
+
+@pytest.mark.parametrize("B,warm_x,warm_lam", CASES[::3])
+def test_f32_per_lane_windows_match_tpu_kernel_interpret(setup, B, warm_x,
+                                                         warm_lam):
+    _check_f32(setup, B, warm_x, warm_lam, per_lane=True)
+
+
+def _check_f32(setup, B, warm_x, warm_lam, per_lane):
     mpc, qp64, jmpc = setup
-    zeta, u, x0, lam0, sqYr = _inputs(mpc, B, seed=B + 2 * warm_lam)
+    zeta, u, x0, lam0, sqYr = _inputs(mpc, B, seed=B + 2 * warm_lam,
+                                      per_lane=per_lane)
     x64, lam64, _ = _port(qp64, zeta, u, x0, lam0, sqYr, warm_x, warm_lam,
                           torch.float64)
     x, lam, ok = _port(mpc.lift_qp(), zeta, u, x0, lam0, sqYr, warm_x,

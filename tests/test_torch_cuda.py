@@ -104,6 +104,30 @@ def test_step_fused_kernel_matches_plain(gpu):
         assert (getattr(k, f) - getattr(p, f)).abs().max().item() < 2e-2
 
 
+def test_kernels_take_per_lane_windows(gpu):
+    """Both kernels with a different reference window in every lane
+    (sqYr of shape (p, B)) against their plain versions."""
+    sim, op = gpu
+    c, win = _carry(op, 1000, 3)
+    sq = win[3 + torch.arange(1000, device=win.device) % 8].T.contiguous()
+    args = (op.qp, c.ysc, c.upsc, c.x0, c.lamc, sq, 4, 1e-2)
+    xk, _, lk, objk = bilin_lift_cuda(*args)
+    torch.cuda.synchronize()
+    xp, _, lp, objp = bilin_lift_plain(*args)
+    assert (xk - xp).abs().max().item() < 1e-3
+    assert (lk - lp).abs().max().item() < 1e-3 * lp.abs().max().item()
+    assert torch.allclose(objk, objp, rtol=1e-5)
+    out = StepCarry(*(torch.empty_like(t) for t in c))
+    k = op.step(c, sq, out=out)
+    torch.cuda.synchronize()
+    p = op.step_plain(c, sq)
+    assert torch.equal(k.alive, p.alive) and bool(k.alive.all())
+    for f in ("upsc", "x0", "lamc"):
+        scale = max(1.0, getattr(p, f).abs().max().item())
+        d = (getattr(k, f) - getattr(p, f)).abs().max().item()
+        assert d < 1e-3 * scale, (f, d)
+
+
 def test_fused_runner_on_card_tracks(gpu):
     sim, _ = gpu
     B = 16
