@@ -5,15 +5,19 @@ the CUDA toolkit:
 
     python chip_smoke.py
 
-It builds the two CUDA kernels of the closed loop from ``csrc/`` (one nvcc
-per source, in parallel), holds each against its plain PyTorch version on
-the card, checks the fused loop's tracking quality against the JAX
-reference value recorded in the model asset, drives the fused closed loop
-at the bench's size (B=262144 lanes, 301 blockM steps) and the general
-runner at B=65536, and prints: the card's name and power limit, one JSON
-line with every kernel's launches, error, times and bound, and as the last
-line {"ok": true, "device": {...}}.  Any failed phase raises; without CUDA
-or outside a checkout it exits non-zero and prints no result.
+It builds the four CUDA kernels of the two closed loops from ``csrc/``
+(one nvcc per source, in parallel) and holds each against its plain
+PyTorch version on the card.  For each controller -- the bilinear bench
+controller and the linear one -- it checks the fused loop's tracking
+quality against the JAX reference value recorded in the model asset,
+drives the fused closed loop at the bench's size (B=262144 lanes, 301
+blockM steps) and the general runner at B=65536, each with the launch
+counts set to 0 just before and read just after, and times every kernel
+at its path's shapes next to its bound and its plain version.  It prints
+the card's name and power limit, one JSON line with every kernel's
+launches, error, times and bound, and as the last line
+{"ok": true, "device": {...}}.  Any failed phase raises; without CUDA or
+outside a checkout it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -33,6 +37,9 @@ MPC = dict(horizon=10, qp_iters=4, qp_dual_warm=True,
                          7 * 3.141592653589793 / 8),
            input_slopeConst=1e-1, cost_running=10.0, cost_terminal=100.0,
            cost_input=(0.1 * 3e-2, 0.1 * 2e-2, 0.1 * 1e-2), proj_idx=(4, 5))
+# the linear controller: the bench's horizon, blocks, bounds and costs at
+# qp_iters=6 with cold duals (tests/test_torch_oracle.py:LINEAR_MPC)
+LINEAR_MPC = dict(MPC, qp_iters=6, qp_dual_warm=False)
 ARM = dict(Nmods=3, nlinks=1, L=1.0, m=0.1, output_type="markers",
            substeps=3, newton_iters=1, jac_mode="step")
 B_MAIN, B_GENERAL, B_CHECK, STEPS = 262144, 65536, 8192, 301
@@ -71,19 +78,41 @@ def nnz(t) -> int:
     return int((t != 0).sum())
 
 
+def mehrotra_ops(cons, iters: int, p_nnz: int) -> int:
+    """Operations of one lane's Mehrotra loop and slack start, counted
+    from csrc/kmpc_device.cuh (FMA = 2; divide, sqrt, compare and
+    min/max = 1), leaving out the structural zeros of this run's
+    lane-shared A, Wd and Wo; ``p_nnz`` entries of the Hessian take part
+    in r_d = Pr x."""
+    n, mc = cons.n, cons.mc
+    nA = nnz(cons.A)
+    chol = 2 * n + n * (n + 1) // 2 + (n - 1) * n * (n + 1) // 3
+    direction = 4 * nA + 7 * mc + n + 2 * n * n         # A^T t, solve, A dx
+    per_iter = (2 * mc + 1                              # mu
+                + 2 * nA + 3 * mc                       # r_p, max |r_p|
+                + 2 * nA + 2 * p_nnz + 2 * n + 2        # r_d, active
+                + 3 * mc                                # D
+                + 2 * nnz(cons.Wd) + n + 2 * nnz(cons.Wo) + n - cons.band
+                + chol + mc                             # factor, r_slam
+                + 2 * direction + 4 * 3 * mc + 2        # dirs, step ratios
+                + 6 * mc + 4 + 4 * mc + 1               # mu_aff, corrector
+                + 3 * n + 6 * mc)                       # update
+    return 2 * nA + 2 * mc + iters * per_iter           # slack start + loop
+
+
 def qp_ops(qp, iters: int) -> int:
-    """Operations one lane's QP needs, counted from csrc/kmpc_device.cuh
-    (FMA = 2; divide, sqrt, compare and min/max = 1), leaving out the
-    structural zeros of this run's lane-shared operands: no product with
-    a zero entry of the generators, A, Wd, Wo or F0r, and no Gram term of
-    an all-zero W generator row (a stage no move reaches)."""
+    """Operations one lane's bilinear QP needs, counted from
+    csrc/kmpc_device.cuh, leaving out the structural zeros of this run's
+    lane-shared operands: no product with a zero entry of the generators,
+    A, Wd, Wo or F0r, and no Gram term of an all-zero W generator row (a
+    stage no move reaches)."""
     n, mc, p, m = qp.n, qp.mc, qp.p, qp.m
     nf = qp.nz + qp.nmono
     feat = (qp.gens[:, :nf] != 0).sum(1).tolist()
     const = (qp.gens[:, nf] != 0).tolist()
     gen = [2 * f + c for f, c in zip(feat, const)]     # one row against f
     live = [g > 0 for g in gen]
-    pn, mp, nA = p * n, m * p, nnz(qp.A)
+    pn, mp = p * n, m * p
     ops = qp.nmono                                      # monomials
     ops += sum(gen[pn + mp:]) + p                       # v = Pgen f - sqYr
     ops += sum(gen[pn:pn + mp]) + 2 * sum(live[pn:pn + mp])   # + CB0 u
@@ -92,23 +121,23 @@ def qp_ops(qp, iters: int) -> int:
         ops += sum(gen[r * n:(r + 1) * n]) + 2 * k + k * (k + 1)
     ops += n + n * (n + 1) // 2 + 2 * nnz(qp.F0r)       # x2, b
     ops += 2 * n + 1 + n * (n + 1) // 2 + n + 4 * mc    # obj, Pr, q, lam0
-    chol = 2 * n + n * (n + 1) // 2 + (n - 1) * n * (n + 1) // 3
-    direction = 4 * nA + 7 * mc + n + 2 * n * n         # A^T t, solve, A dx
-    per_iter = (2 * mc + 1                              # mu
-                + 2 * nA + 3 * mc                       # r_p, max |r_p|
-                + 2 * nA + 2 * n * n + 2 * n + 2        # r_d, active
-                + 3 * mc                                # D
-                + 2 * nnz(qp.Wd) + n + 2 * nnz(qp.Wo) + n - qp.band
-                + chol + mc                             # factor, r_slam
-                + 2 * direction + 4 * 3 * mc + 2        # dirs, step ratios
-                + 6 * mc + 4 + 4 * mc + 1               # mu_aff, corrector
-                + 3 * n + 6 * mc)                       # update
-    return ops + 2 * nA + 2 * mc + iters * per_iter    # + slack start
+    return ops + mehrotra_ops(qp.cons, iters, n * n)
 
 
-def ok_ops(qp) -> int:
+def linear_grad_ops(op) -> int:
+    """Operations of the linear step's gradient and right-hand side: the
+    monomials, the nonzeros of the gradient generators, the reference
+    column, the u_prev coupling and b = cFr - F0r u_prev."""
+    nf = op.nz + op.nmono
+    feat = (op.G1[:, :nf] != 0).sum(1).tolist()
+    const = (op.G1[:, nf] != 0).tolist()
+    return (op.nmono + sum(2 * f + c for f, c in zip(feat, const))
+            + op.cons.n + 2 * nnz(op.P21) + 2 * nnz(op.F0r))
+
+
+def ok_ops(cons) -> int:
     """Operations of the ok mask (gap, primal residual, finite x)."""
-    return 2 * qp.mc + 1 + 2 * nnz(qp.A) + 3 * qp.mc + qp.n
+    return 2 * cons.mc + 1 + 2 * nnz(cons.A) + 3 * cons.mc + cons.n
 
 
 def rhs_ops(nl: int, k: int) -> int:
@@ -148,10 +177,12 @@ def plant_ops(cfg) -> int:
     return 6 + factor + cfg.substeps * substep + markers
 
 
-def step_tail_ops(qp, op, cfg) -> int:
-    """The step kernel's epilogue: input unscaling, finite check, output
-    scaling, Pwarm @ x by its nonzeros, the dual carry."""
-    return 2 * qp.m + cfg.nx + 2 * cfg.ny + 2 * nnz(op.Pwarm) + qp.mc
+def step_tail_ops(op, cfg, lam_scaled: bool) -> int:
+    """The step kernels' epilogue: input unscaling, finite check, output
+    scaling, Pwarm @ x by its nonzeros, the dual carry's scaling (the
+    bilinear step's lam * obj; the linear step carries lam as it is)."""
+    return (2 * op.mpc.m + cfg.nx + 2 * cfg.ny + 2 * nnz(op.Pwarm)
+            + (op.cons.mc if lam_scaled else 0))
 
 
 def bound(flops: float, nbytes: float) -> tuple:
@@ -160,9 +191,14 @@ def bound(flops: float, nbytes: float) -> tuple:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def shared_bytes(qp, extra=()) -> int:
-    return 4 * sum(t.numel() for t in (qp.gens, qp.rdiag, qp.A, qp.cFr,
-                                       qp.F0r, qp.Wd, qp.Wo, *extra))
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def carry_bytes(c) -> int:
+    """Each carry field read once and written once (the loads are not
+    written)."""
+    return 2 * nbytes(*c) - nbytes(c.w)
 
 
 def main() -> int:
@@ -182,14 +218,22 @@ def main() -> int:
     import numpy as np
 
     from koopman_realizations_torch.config import ArmConfig, MpcConfig
-    from koopman_realizations_torch.control.kmpc import BilinearKmpc
+    from koopman_realizations_torch.control.kmpc import (
+        BilinearKmpc,
+        LinearKmpc,
+    )
     from koopman_realizations_torch.control.ksim import Ksim
     from koopman_realizations_torch.models.arm import Arm
     from koopman_realizations_torch.ops.kernels import _build
     from koopman_realizations_torch.ops.kernels import bilin_lift as BL
+    from koopman_realizations_torch.ops.kernels import ipm_shared as IS
+    from koopman_realizations_torch.ops.kernels import linear_step_fused as LS
     from koopman_realizations_torch.ops.kernels import step_fused as SF
     from koopman_realizations_torch.ops.qp import ok_mask
-    from koopman_realizations_torch.utils.checkpoint import load_model
+    from koopman_realizations_torch.utils.checkpoint import (
+        LINEAR_MODEL,
+        load_model,
+    )
     from koopman_realizations_torch.utils.metrics import lane_tracking_error
     from koopman_realizations_torch.utils.trajectories import (
         blockM_reference,
@@ -202,33 +246,66 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind} x{torch.cuda.device_count()} | {smi} | torch "
         f"{torch.__version__} cuda {torch.version.cuda}")
+    wrappers = {"step_fused": SF.step_fused_cuda,
+                "bilin_lift": BL.bilin_lift_cuda,
+                "linear_step_fused": LS.linear_step_fused_cuda,
+                "ipm_shared": IS.ipm_shared_cuda}
 
-    # ---- model, controller, plant; build both kernels at once
+    def drive(name, fn):
+        """Run one main path with every launch count set to 0 just before
+        and read just after: (result, seconds by CUDA events, counts).
+        Fails unless ``name`` launched once per closed-loop step and no
+        other kernel launched."""
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        out = fn()
+        t1.record()
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in wrappers.items()}
+        if counts[name] != STEPS - 1 or sum(counts.values()) != STEPS - 1:
+            raise AssertionError(f"{name} path launches: {counts}")
+        return out, t0.elapsed_time(t1) / 1e3, counts[name]
+
+    # ---- models, controllers, plant; build all four kernels at once
     model, scaler, header = load_model()
     jref = header["jax_reference"]
+    lmodel, lscaler, lheader = load_model(LINEAR_MODEL)
+    ljref = lheader["jax_reference"]
     dev = torch.device("cuda")
     mpc = BilinearKmpc(model, scaler, MpcConfig(**MPC), device=dev)
+    lmpc = LinearKmpc(lmodel, lscaler, MpcConfig(**LINEAR_MPC), device=dev)
     arm = Arm(ArmConfig(**ARM), device=dev)
     sim = Ksim(arm, mpc)
+    lsim = Ksim(arm, lmpc)
     op = SF.build_step_fused(mpc, arm, scaler)
-    qp = op.qp
+    lop = LS.build_linear_step_fused(lmpc, arm, lscaler)
+    qp, cons = op.qp, lmpc.constraints()
     ref = blockM_reference()
     wins = sim.reference_windows(ref, STEPS)
-    builds = _build.build_all([BL.kernel_spec(qp), op.kernel_spec()])
+    fY = lop.fYr(lsim.reference_windows(ref, STEPS))
+    builds = _build.build_all([BL.kernel_spec(qp), op.kernel_spec(),
+                               IS.kernel_spec(cons), lop.kernel_spec()])
     for r in builds:
         log(f"built {r.path.name} in {r.seconds:.1f} s "
             f"({'cached' if r.cached else 'nvcc'})")
         for ln in r.ptxas:
             log("  " + ln.strip())
 
-    def carry_after(B, steps, step_op=op, w=wins):
-        """Carry after ``steps`` plain closed-loop steps from the bench's
-        initial states spread over B lanes."""
+    def spread_X0(B):
         X0 = np.zeros((B, 6), np.float32)
         X0[:, 0] = np.linspace(-0.2, 0.2, B)
-        c = step_op.init_carry(X0, np.zeros((B, 2), np.float32))
+        return X0
+
+    def carry_after(step_op, vecs, B, steps):
+        """Carry after ``steps`` plain closed-loop steps from the bench's
+        initial states spread over B lanes."""
+        c = step_op.init_carry(spread_X0(B), np.zeros((B, 2), np.float32))
         for k in range(steps):
-            c = step_op.step_plain(c, w[k])
+            c = step_op.step_plain(c, vecs[k])
         return c
 
     # ---- phase 1: bilin_lift kernel against its plain version, B=8192
@@ -248,8 +325,8 @@ def main() -> int:
         torch.cuda.synchronize()
         xp, sp, lp, objp = BL.bilin_lift_plain(*args)
         b = qp.cFr[:, None] - qp.F0r @ c.upsc
-        okk = ok_mask(qp, b, xk, sk, lk, 3e-3, 5e-2)[0]
-        okp = ok_mask(qp, b, xp, sp, lp, 3e-3, 5e-2)[0]
+        okk = ok_mask(qp.cons, b, xk, sk, lk, 3e-3, 5e-2)[0]
+        okp = ok_mask(qp.cons, b, xp, sp, lp, 3e-3, 5e-2)[0]
         dx = (xk - xp).abs().max().item()
         dl = (lk - lp).abs().max().item() / lp.abs().max().item()
         dobj = ((objk - objp) / objp).abs().max().item()
@@ -263,159 +340,192 @@ def main() -> int:
             raise AssertionError("bilin_lift kernel disagrees with plain")
         return dx
 
-    def check_step(c, sq, label) -> float:
-        """step_fused kernel against its plain version on one carry;
+    def check_step(step_op, c, v, label) -> float:
+        """A fused step kernel against its plain version on one carry;
         returns the max |d| over the outputs."""
         out = SF.StepCarry(*(torch.empty_like(t) for t in c))
-        ck = op.step(c, sq, out=out)
+        ck = step_op.step(c, v, out=out)
         torch.cuda.synchronize()
-        cp = op.step_plain(c, sq)
+        cp = step_op.step_plain(c, v)
         d = {f: (getattr(ck, f) - getattr(cp, f)).abs().max().item()
              for f in SF.StepCarry._fields}
-        log(f"step_fused {label}: " + " ".join(
+        log(f"{label}: " + " ".join(
             f"max|d{f}| {v:.3e}" for f, v in d.items()))
         # QP outputs: f32 orderings (<1e-3 of scale); plant outputs: the
         # f32 chord-Newton SDIRK2 is noisy at ~3e-3 in any two orderings
         if not (torch.equal(ck.alive, cp.alive) and d["upsc"] < 1e-3
                 and d["x0"] < 1e-3
-                and d["lamc"] < 1e-3 * cp.lamc.abs().max().item()
+                and d["lamc"] < 1e-3 * max(1.0, cp.lamc.abs().max().item())
                 and d["xpl"] < 2e-2):
-            raise AssertionError("step_fused kernel disagrees with plain")
+            raise AssertionError(f"{label}: kernel disagrees with plain")
         return max(d.values())
 
-    c = carry_after(B_CHECK, 3)
+    def check_runners(name, step_op, op64, vecs, vecs64, K=20) -> float:
+        """K-step runners from the same lanes: kernel vs plain f32 vs plain
+        f64; returns the max |dYp| of kernel and plain f32."""
+        ck = carry_after(step_op, vecs, B_CHECK, 0)
+        cp = carry_after(step_op, vecs, B_CHECK, 0)
+        c64 = carry_after(op64, vecs64, B_CHECK, 0)
+        dY = []
+        for k in range(K):
+            ck = step_op.step(ck, vecs[k])
+            cp = step_op.step_plain(cp, vecs[k])
+            c64 = op64.step_plain(c64, vecs64[k])
+            if not torch.equal(ck.alive, cp.alive):
+                raise AssertionError(f"{name}: alive masks differ at step "
+                                     f"{k}")
+            dY.append((ck.yp - cp.yp).abs().max().item())
+        ek = (ck.yp.double() - c64.yp).abs().max(0).values
+        ep = (cp.yp.double() - c64.yp).abs().max(0).values
+        med = (ck.yp - cp.yp).abs().max(0).values.median().item()
+        log(f"{name} {K}-step runners: max|dYp| first 5 {max(dY[:5]):.3e},"
+            f" all {K} {max(dY):.3e}, median lane at {K} {med:.3e}; error "
+            f"vs f64: kernel max {ek.max():.3e} median {ek.median():.3e}, "
+            f"plain max {ep.max():.3e} median {ep.median():.3e}; alive "
+            f"{ck.alive.mean().item():.4f}")
+        # single lanes of the early blockM transient amplify f32 plant
+        # noise; the kernel must be as accurate as the plain f32 runner
+        # against f64
+        if not (max(dY[:5]) < 2e-2 and max(dY) < 0.2 and med < 2e-3
+                and ek.median() <= 2 * ep.median() + 1e-4
+                and ek.max() <= 2 * ep.max() + 1e-2
+                and bool(ck.alive.all())):
+            raise AssertionError(f"{name} runner disagrees with plain")
+        return max(dY)
+
+    c = carry_after(op, wins, B_CHECK, 3)
     bl_err = max(check_bilin(c, True, wins[3], f"warm B={B_CHECK}"),
                  check_bilin(c, False, wins[3], f"cold B={B_CHECK}"),
                  check_bilin(c, True, lane_windows(B_CHECK, 3),
                              f"warm, per-lane windows B={B_CHECK}"))
 
     # ---- phase 2: step_fused kernel against its plain version, B=8192
-    c = carry_after(B_CHECK, 5)
-    sf_err = max(check_step(c, wins[5], f"one step B={B_CHECK}"),
-                 check_step(c, lane_windows(B_CHECK, 5),
-                            f"one step, per-lane windows B={B_CHECK}"))
-
-    # 20-step runners: kernel vs plain f32 vs plain f64 reference
-    K = 20
-    ck = carry_after(B_CHECK, 0)
-    cp = carry_after(B_CHECK, 0)
+    c = carry_after(op, wins, B_CHECK, 5)
+    sf_err = max(check_step(op, c, wins[5], f"step_fused one step "
+                            f"B={B_CHECK}"),
+                 check_step(op, c, lane_windows(B_CHECK, 5),
+                            f"step_fused one step, per-lane windows "
+                            f"B={B_CHECK}"))
     mpc64 = BilinearKmpc(model, scaler, MpcConfig(**MPC), device=dev,
                          dtype=torch.float64)
     op64 = SF.build_step_fused(mpc64, arm, scaler)
     wins64 = Ksim(arm, mpc64).reference_windows(ref, STEPS)
-    c64 = carry_after(B_CHECK, 0, step_op=op64, w=wins64)
-    dY = []
-    for k in range(K):
-        ck = op.step(ck, wins[k])
-        cp = op.step_plain(cp, wins[k])
-        c64 = op64.step_plain(c64, wins64[k])
-        if not torch.equal(ck.alive, cp.alive):
-            raise AssertionError(f"alive masks differ at step {k}")
-        dY.append((ck.yp - cp.yp).abs().max().item())
-    ek = (ck.yp.double() - c64.yp).abs().max(0).values
-    ep = (cp.yp.double() - c64.yp).abs().max(0).values
-    med = (ck.yp - cp.yp).abs().max(0).values.median().item()
-    log(f"step_fused 20-step runners: max|dYp| first 5 {max(dY[:5]):.3e}, "
-        f"all 20 {max(dY):.3e}, median lane at 20 {med:.3e}; error vs f64: "
-        f"kernel max {ek.max():.3e} median {ek.median():.3e}, plain max "
-        f"{ep.max():.3e} median {ep.median():.3e}; alive "
-        f"{ck.alive.mean().item():.4f}")
-    # single lanes of the early blockM transient amplify f32 plant noise
-    # (CPU emulation of this kernel: 6.4e-3 / 7.1e-2 / 4e-4 at B=8192);
-    # the kernel must be as accurate as the plain f32 runner against f64
-    if not (max(dY[:5]) < 2e-2 and max(dY) < 0.2 and med < 2e-3
-            and ek.median() <= 2 * ep.median() + 1e-4
-            and ek.max() <= 2 * ep.max() + 1e-2
-            and bool(ck.alive.all())):
-        raise AssertionError("step_fused runner disagrees with plain")
-    del c64, op64, mpc64, wins64
+    check_runners("step_fused", op, op64, wins, wins64)
+    del op64, mpc64, wins64
 
-    # ---- phase 3: quality through the kernel, bench X0, B=16, 301 steps
-    X16 = np.zeros((16, 6), np.float32)
-    X16[:, 0] = np.linspace(-0.2, 0.2, 16)
-    o16 = sim.fused_runner(ref, steps=STEPS)(X16, np.zeros((16, 2),
-                                                             np.float32))
-    e16 = lane_tracking_error(o16["Yp"], ref)
-    log(f"quality B=16: alive {o16['alive'][:, -1].float().mean():.4f} "
-        f"err_mean {e16.mean():.6f} err_worst {e16.max():.6f} (JAX general "
-        f"runner {jref['err_mean']:.6f} / {jref['err_worst']:.6f})")
-    # f32 plant noise moves the mean by ~1e-4 on the CPU (tests); 1e-3 = 3%
-    if not (bool(o16["alive"].all()) and torch.isfinite(o16["Yp"]).all()
-            and abs(e16.mean().item() - jref["err_mean"]) < 1e-3):
-        raise AssertionError("fused loop quality off the JAX reference")
+    # ---- phase L1: ipm_shared kernel against its plain version, B=8192,
+    # on the linear general path's QPs from a carry after 3 plain steps
+    def linear_qp(c, k):
+        """LinearKmpc.solve's equilibrated QP at carry c, reference step k:
+        (Psh, q, b) as solve_qp_shared hands them to the kernel."""
+        z = lmpc.lift(c.ysc)
+        Yr = lsim.reference_windows(ref, k + 2)[k][:, None]
+        f = 2.0 * lmpc.CB_t.T @ (lmpc.Qd_t[:, None] * (lmpc.CA_t @ z - Yr))
+        b = lmpc.c_t[:, None] - lmpc.Mc_t @ z
+        P, q, bz = lmpc.eliminate_u0(2.0 * lmpc.H_t, f, b, c.upsc)
+        obj = P.abs().amax()
+        return ((P / obj).contiguous(), (q / obj).contiguous(),
+                (bz / cons.row[:, None]).contiguous())
 
-    # ---- phase 4: main path at size -- fused runner, B=262144, 301 steps
-    XB = np.zeros((B_MAIN, 6), np.float32)
-    XB[:, 0] = np.linspace(-0.2, 0.2, B_MAIN)
-    WB = np.zeros((B_MAIN, 2), np.float32)
-    run = sim.fused_runner(ref, steps=STEPS)
-    run(XB[:1024], WB[:1024])                       # warm-up (allocator)
-    SF.step_fused_cuda.launches = 0
-    BL.bilin_lift_cuda.launches = 0
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    main_out = run(XB, WB)
-    t1.record()
-    torch.cuda.synchronize()
-    wall = t0.elapsed_time(t1) / 1e3
-    launches_sf = SF.step_fused_cuda.launches
-    if BL.bilin_lift_cuda.launches or launches_sf != STEPS - 1:
-        raise AssertionError(f"fused path launches: step_fused "
-                             f"{launches_sf}, bilin_lift "
-                             f"{BL.bilin_lift_cuda.launches}")
-    eB = lane_tracking_error(main_out["Yp"], ref)
-    aliveB = main_out["alive"][:, -1].float().mean().item()
-    rate = B_MAIN * (STEPS - 1) / wall
-    log(f"fused main path B={B_MAIN} steps={STEPS}: {wall:.3f} s (incl. "
-        f"carry init and reference setup), {rate:.4e} lane-steps/s, alive "
-        f"{aliveB:.6f}, err_mean {eB.mean():.6f}, err_worst {eB.max():.6f}"
-        f" | {smi}")
-    if aliveB != 1.0 or not torch.isfinite(eB).all():
-        raise AssertionError("fused main path lost lanes")
-    del main_out
+    def check_ipm(c, k, label) -> float:
+        Psh, q, b = linear_qp(c, k)
+        args = (cons, Psh, q, b, c.x0, lmpc.cfg.qp_iters, 1e-2)
+        xk, sk, lk = IS.ipm_shared_cuda(*args)
+        torch.cuda.synchronize()
+        xp, sp, lp = IS.ipm_shared_plain(*args)
+        okk = ok_mask(cons, b, xk, sk, lk, 3e-3, 5e-2)[0]
+        okp = ok_mask(cons, b, xp, sp, lp, 3e-3, 5e-2)[0]
+        dx = (xk - xp).abs().max().item()
+        dl = (lk - lp).abs().max().item() / lp.abs().max().item()
+        log(f"ipm_shared {label}: max|dx| {dx:.3e} max|dlam|/max|lam| "
+            f"{dl:.3e} ok {int(okk.sum())}/{int(okp.sum())} of "
+            f"{q.shape[1]}")
+        # two f32 orderings of six unconverged iterations; each is ~1e-4
+        # from the f64 solution in the CPU tests
+        if not (dx < 1e-3 and dl < 1e-3 and torch.equal(okk, okp)
+                and bool(okk.all())):
+            raise AssertionError("ipm_shared kernel disagrees with plain")
+        return dx
 
-    # ---- phase 5: the general runner (bilin_lift path) at B=65536
-    grun = sim.batched_runner(ref, steps=STEPS)
-    sim.batched_runner(ref, steps=3)(XB[:1024], WB[:1024])   # warm-up
-    XG = np.zeros((B_GENERAL, 6), np.float32)
-    XG[:, 0] = np.linspace(-0.2, 0.2, B_GENERAL)
-    WG = np.zeros((B_GENERAL, 2), np.float32)
-    SF.step_fused_cuda.launches = 0
-    BL.bilin_lift_cuda.launches = 0
-    torch.cuda.synchronize()
-    t0.record()
-    gout = grun(XG, WG)
-    t1.record()
-    torch.cuda.synchronize()
-    gwall = t0.elapsed_time(t1) / 1e3
-    launches_bl = BL.bilin_lift_cuda.launches
-    if SF.step_fused_cuda.launches or launches_bl != STEPS - 1:
-        raise AssertionError(f"general path launches: bilin_lift "
-                             f"{launches_bl}")
-    eG = lane_tracking_error(gout["Yp"], ref)
-    aliveG = gout["alive"][:, -1].float().mean().item()
-    log(f"general runner B={B_GENERAL} steps={STEPS}: {gwall:.3f} s, "
-        f"{B_GENERAL * (STEPS - 1) / gwall:.4e} lane-steps/s, alive "
-        f"{aliveG:.6f}, err_mean {eG.mean():.6f}, err_worst "
-        f"{eG.max():.6f} | {smi}")
-    if aliveG != 1.0:
-        raise AssertionError("general runner lost lanes")
-    del gout
+    lc = carry_after(lop, fY, B_CHECK, 3)
+    is_err = check_ipm(lc, 3, f"B={B_CHECK}")
 
-    # ---- phase 6: each kernel against its plain version, and its time, at
-    # the main path's shapes
+    # ---- phase L2: linear_step_fused kernel against its plain version
+    lc = carry_after(lop, fY, B_CHECK, 5)
+    ls_err = check_step(lop, lc, fY[5], f"linear_step_fused one step "
+                        f"B={B_CHECK}")
+    lmpc64 = LinearKmpc(lmodel, lscaler, MpcConfig(**LINEAR_MPC),
+                        device=dev, dtype=torch.float64)
+    lop64 = LS.build_linear_step_fused(lmpc64, arm, lscaler)
+    fY64 = lop64.fYr(Ksim(arm, lmpc64).reference_windows(ref, STEPS))
+    check_runners("linear_step_fused", lop, lop64, fY, fY64)
+    del lop64, lmpc64, fY64
+
+    # ---- phases 3, L3: quality through the kernels, bench X0, B=16, 301
+    # steps; f32 plant noise moves the mean by ~1e-4 on the CPU (tests)
+    W16 = np.zeros((16, 2), np.float32)
+    for name, s, jr in (("bilinear", sim, jref), ("linear", lsim, ljref)):
+        o16 = s.fused_runner(ref, steps=STEPS)(spread_X0(16), W16)
+        e16 = lane_tracking_error(o16["Yp"], ref)
+        log(f"{name} quality B=16: alive "
+            f"{o16['alive'][:, -1].float().mean():.4f} err_mean "
+            f"{e16.mean():.6f} err_worst {e16.max():.6f} (JAX general "
+            f"runner {jr['err_mean']:.6f} / {jr['err_worst']:.6f})")
+        if not (bool(o16["alive"].all()) and torch.isfinite(o16["Yp"]).all()
+                and abs(e16.mean().item() - jr["err_mean"]) < 1e-3):
+            raise AssertionError(f"{name} fused loop quality off the JAX "
+                                 f"reference")
+
+    # ---- phases 4, L4: the fused main paths at size, B=262144, 301 steps
+    XB, WB = spread_X0(B_MAIN), np.zeros((B_MAIN, 2), np.float32)
+    fused_main = {}
+    for name, s in (("step_fused", sim), ("linear_step_fused", lsim)):
+        run = s.fused_runner(ref, steps=STEPS)
+        run(XB[:1024], WB[:1024])                   # warm-up (allocator)
+        out, wall, launches = drive(name, lambda: run(XB, WB))
+        eB = lane_tracking_error(out["Yp"], ref)
+        aliveB = out["alive"][:, -1].float().mean().item()
+        log(f"{name} fused main path B={B_MAIN} steps={STEPS}: {wall:.3f} s"
+            f" (incl. carry init and reference setup), "
+            f"{B_MAIN * (STEPS - 1) / wall:.4e} lane-steps/s, alive "
+            f"{aliveB:.6f}, err_mean {eB.mean():.6f}, err_worst "
+            f"{eB.max():.6f} | {smi}")
+        if aliveB != 1.0 or not torch.isfinite(eB).all():
+            raise AssertionError(f"{name} fused main path lost lanes")
+        fused_main[name] = launches
+        del out
+
+    # ---- phases 5, L5: the general runners at B=65536 (the bilinear
+    # runner's depth may be cut to keep the run inside its time limit)
+    XG, WG = spread_X0(B_GENERAL), np.zeros((B_GENERAL, 2), np.float32)
+    general_main = {}
+    for name, s in (("bilin_lift", sim), ("ipm_shared", lsim)):
+        grun = s.batched_runner(ref, steps=STEPS)
+        s.batched_runner(ref, steps=3)(XB[:1024], WB[:1024])   # warm-up
+        gout, gwall, launches = drive(name, lambda: grun(XG, WG))
+        eG = lane_tracking_error(gout["Yp"], ref)
+        aliveG = gout["alive"][:, -1].float().mean().item()
+        log(f"{name} general runner B={B_GENERAL} steps={STEPS}: "
+            f"{gwall:.3f} s, {B_GENERAL * (STEPS - 1) / gwall:.4e} "
+            f"lane-steps/s, alive {aliveG:.6f}, err_mean {eG.mean():.6f}, "
+            f"err_worst {eG.max():.6f} | {smi}")
+        if aliveG != 1.0:
+            raise AssertionError(f"{name} general runner lost lanes")
+        general_main[name] = launches
+        del gout
+
+    # ---- phases 6, L6: each kernel against its plain version, and its
+    # time, at its path's shapes
     cB = op.init_carry(XB, WB)
-    sf_err = max(sf_err, check_step(cB, wins[0], f"one step B={B_MAIN}"))
+    sf_err = max(sf_err, check_step(op, cB, wins[0],
+                                    f"step_fused one step B={B_MAIN}"))
     oB = SF.StepCarry(*(torch.empty_like(t) for t in cB))
     sf_ms = cuda_ms(lambda: op.step(cB, wins[0], out=oB), reps=10)
     sf_plain = cuda_ms(lambda: op.step_plain(cB, wins[0]), reps=2, warmup=1)
-    sf_flops = (qp_ops(qp, op.iters) + ok_ops(qp) + plant_ops(arm.cfg)
-                + step_tail_ops(qp, op, arm.cfg)) * B_MAIN
-    sf_bytes = 4 * B_MAIN * (2 * sum(t.shape[0] if t.ndim == 2 else 1
-                                     for t in cB) - 2) \
-        + 4 * qp.p + shared_bytes(qp, (op.Pwarm,))
+    sf_flops = (qp_ops(qp, op.iters) + ok_ops(qp.cons) + plant_ops(arm.cfg)
+                + step_tail_ops(op, arm.cfg, True)) * B_MAIN
+    sf_bytes = carry_bytes(cB) + nbytes(wins[0]) + nbytes(
+        qp.gens, qp.rdiag, qp.A, qp.cFr, qp.F0r, qp.Wd, qp.Wo, op.Pwarm)
     sf_bound, sf_by = bound(sf_flops, sf_bytes)
     # breakdown: the QP half alone on the same lanes (the step kernel's
     # remainder is the plant, the freeze and the carry advance)
@@ -432,29 +542,73 @@ def main() -> int:
     bl_ms = cuda_ms(lambda: BL.bilin_lift_cuda(*ins), reps=10)
     bl_plain = cuda_ms(lambda: BL.bilin_lift_plain(*ins), reps=2, warmup=1)
     bl_flops = qp_ops(qp, op.iters) * B_GENERAL
-    bl_bytes = 4 * B_GENERAL * (qp.nz + qp.m + qp.n + qp.mc
-                                + qp.n + 2 * qp.mc + 1) \
-        + 4 * qp.p + shared_bytes(qp)
+    bl_bytes = nbytes(cG.ysc, cG.upsc, cG.x0, cG.lamc, wins[0]) \
+        + 4 * B_GENERAL * (qp.n + 2 * qp.mc + 1) + nbytes(
+            qp.gens, qp.rdiag, qp.A, qp.cFr, qp.F0r, qp.Wd, qp.Wo)
     bl_bound, bl_by = bound(bl_flops, bl_bytes)
+    del cG
+
+    lcB = lop.init_carry(XB, WB)
+    ls_err = max(ls_err, check_step(lop, lcB, fY[0],
+                                    f"linear_step_fused one step "
+                                    f"B={B_MAIN}"))
+    loB = SF.StepCarry(*(torch.empty_like(t) for t in lcB))
+    ls_ms = cuda_ms(lambda: lop.step(lcB, fY[0], out=loB), reps=10)
+    ls_plain = cuda_ms(lambda: lop.step_plain(lcB, fY[0]), reps=2,
+                       warmup=1)
+    ls_flops = (linear_grad_ops(lop)
+                + mehrotra_ops(cons, lop.iters, nnz(lop.Psh))
+                + ok_ops(cons) + plant_ops(arm.cfg)
+                + step_tail_ops(lop, arm.cfg, False)) * B_MAIN
+    ls_bytes = carry_bytes(lcB) + nbytes(
+        fY[0], lop.Psh, lop.G1, lop.P21, lop.cFr, lop.F0r, cons.A, cons.Wd,
+        cons.Wo, lop.Pwarm)
+    ls_bound, ls_by = bound(ls_flops, ls_bytes)
+    # breakdown: the shared-Hessian QP alone on the same lanes' QPs
+    Psh, q, b = linear_qp(lcB, 0)
+    lqp_ms = cuda_ms(lambda: IS.ipm_shared_cuda(
+        cons, Psh, q, b, lcB.x0, lop.iters, 1e-2), reps=10)
+    log(f"breakdown at B={B_MAIN}: QP alone (ipm_shared) {lqp_ms:.4f} ms "
+        f"of the linear step's {ls_ms:.4f} ms")
+    del lcB, loB, q, b
+    lcG = lop.init_carry(XG, WG)
+    is_err = max(is_err, check_ipm(lcG, 0, f"B={B_GENERAL}"))
+    Psh, q, b = linear_qp(lcG, 0)
+    ins = (cons, Psh, q, b, lcG.x0, lop.iters, 1e-2)
+    is_ms = cuda_ms(lambda: IS.ipm_shared_cuda(*ins), reps=10)
+    is_plain = cuda_ms(lambda: IS.ipm_shared_plain(*ins), reps=2, warmup=1)
+    is_flops = mehrotra_ops(cons, lop.iters, nnz(Psh)) * B_GENERAL
+    is_bytes = nbytes(q, b, lcG.x0) + 4 * B_GENERAL * (cons.n + 2 * cons.mc) \
+        + nbytes(Psh, cons.A, cons.Wd, cons.Wo)
+    is_bound, is_by = bound(is_flops, is_bytes)
+    del lcG, q, b
+
     log(f"kernel times | {smi}: step_fused {sf_ms:.4f} ms (plain "
         f"{sf_plain:.2f} ms, bound {sf_bound:.4f} ms by {sf_by}, "
         f"{sf_flops / B_MAIN:.0f} op/lane) at B={B_MAIN}; bilin_lift "
         f"{bl_ms:.4f} ms (plain {bl_plain:.2f} ms, bound {bl_bound:.4f} ms "
-        f"by {bl_by}, {bl_flops / B_GENERAL:.0f} op/lane) at B={B_GENERAL}")
+        f"by {bl_by}, {bl_flops / B_GENERAL:.0f} op/lane) at B={B_GENERAL}; "
+        f"linear_step_fused {ls_ms:.4f} ms (plain {ls_plain:.2f} ms, bound "
+        f"{ls_bound:.4f} ms by {ls_by}, {ls_flops / B_MAIN:.0f} op/lane) at "
+        f"B={B_MAIN}; ipm_shared {is_ms:.4f} ms (plain {is_plain:.2f} ms, "
+        f"bound {is_bound:.4f} ms by {is_by}, {is_flops / B_GENERAL:.0f} "
+        f"op/lane) at B={B_GENERAL}")
 
     tpu = "koopman_realizations_tpu/ops/pallas/"
-    kernels = [
-        {"name": "step_fused", "route": "cuda",
-         "source": "koopman_realizations_torch/csrc/step_fused.cu",
-         "replaces": tpu + "step_fused.py:90", "launches": launches_sf,
-         "max_abs_err": sf_err, "ms": sf_ms, "plain_ms": sf_plain,
-         "bound_ms": sf_bound, "bound_by": sf_by, "library_ms": None},
-        {"name": "bilin_lift", "route": "cuda",
-         "source": "koopman_realizations_torch/csrc/bilin_lift.cu",
-         "replaces": tpu + "qp_ipm.py:772", "launches": launches_bl,
-         "max_abs_err": bl_err, "ms": bl_ms, "plain_ms": bl_plain,
-         "bound_ms": bl_bound, "bound_by": bl_by, "library_ms": None},
-    ]
+    src = "koopman_realizations_torch/csrc/"
+    rows = [("step_fused", "step_fused.py:90", fused_main, sf_err, sf_ms,
+             sf_plain, sf_bound, sf_by),
+            ("bilin_lift", "qp_ipm.py:772", general_main, bl_err, bl_ms,
+             bl_plain, bl_bound, bl_by),
+            ("linear_step_fused", "step_fused.py:185", fused_main, ls_err,
+             ls_ms, ls_plain, ls_bound, ls_by),
+            ("ipm_shared", "qp_ipm.py:299", general_main, is_err, is_ms,
+             is_plain, is_bound, is_by)]
+    kernels = [{"name": name, "route": "cuda", "source": src + name + ".cu",
+                "replaces": tpu + tpu_at, "launches": paths[name],
+                "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": bms, "bound_by": by, "library_ms": None}
+               for name, tpu_at, paths, err, ms, plain, bms, by in rows]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,17 +1,21 @@
-"""Bilinear Koopman MPC of the port: the blocked, lift-fused ``BilinearKmpc``.
+"""Koopman MPC controllers of the port: the blocked, lift-fused
+``BilinearKmpc`` and the blocked static condensed ``LinearKmpc``.
 
 Host constants are built in f64 numpy exactly as the JAX package builds
 them (``control/kmpc.py``): the input constraint stack
 (``input_constraint_rows`` :54, ``_smooth_ts2`` :280), move blocking
 (``move_blocking`` :103, checked against ``expected_blocked_keep`` :155),
-the ``_KmpcBase`` pieces (:298-355), the blocked input cost ``RdT`` (:551)
-and the lift-fused generator fold (:768-902).  Rows that lose every
-coefficient under u0 elimination are dropped (they poison the interior
-point's row equilibration).
+the ``_KmpcBase`` pieces (:295-423), the linear controller's condensed
+matrices (:426-485), the blocked input cost ``RdT`` (:551) and the
+lift-fused generator fold (:768-902).  Rows that lose every coefficient
+under u0 elimination are dropped (they poison the interior point's row
+equilibration).
 
-The lane-shared device operands are registered buffers of the module; the
-per-step solve runs in ``ops/kernels/bilin_lift.py`` (general runner) or
-inside the fused step (``ops/kernels/step_fused.py``).
+The lane-shared device operands are registered buffers of the modules.
+The bilinear per-step solve runs in ``ops/kernels/bilin_lift.py``
+(general runner) or inside the fused step (``ops/kernels/step_fused.py``);
+the linear one in ``ops/kernels/ipm_shared.py`` (general runner) or inside
+its fused step (``ops/kernels/linear_step_fused.py``).
 """
 
 from __future__ import annotations
@@ -22,10 +26,21 @@ from torch import nn
 
 from koopman_realizations_torch import resolve_device
 from koopman_realizations_torch.config import MpcConfig
-from koopman_realizations_torch.ops.observables import poly_parent_tables
+from koopman_realizations_torch.ops.kernels.bilin_lift import (
+    solve_qp_bilinear_lifted,
+)
+from koopman_realizations_torch.ops.kernels.ipm_shared import (
+    solve_qp_shared,
+)
+from koopman_realizations_torch.ops.observables import (
+    poly_features,
+    poly_parent_tables,
+)
 from koopman_realizations_torch.ops.qp import (
+    Constraints,
     LiftQP,
     band_offset_of,
+    constraint_tables,
     lift_qp_operands,
 )
 
@@ -191,30 +206,32 @@ def lift_fused_generators(model, q_diag, proj_idx, Np: int, m: int, Tb):
     return gens, tables
 
 
-class BilinearKmpc(nn.Module):
-    """Blocked lift-fused bilinear MPC (the bench controller).
+class _KmpcBase(nn.Module):
+    """What the blocked controllers share (``_KmpcBase``, kmpc.py:295-423):
+    dimensions, projection, the Q/R diagonals over the horizon, the input
+    constraint stack under move blocking and its band, the poly lift's
+    tables, and the lane-shared device operands of the constraints
+    (row-equilibrated A with its A^T D A tables, cFr, F0r) and of the
+    blocking (Tb, Sel).
 
-    One QP per step about Beta(z) held constant over the horizon; the
-    decision variable is one free move per input block (u_0 pinned to the
-    previous input).  Only this configuration is ported: input blocks set,
-    no smoothness or state bounds, no loads, a single poly family with a
-    PCA basis, ``bilinear_iters=1``, no dual stage shift.
+    Only the blocked configuration is ported: input blocks set, no
+    smoothness, state bounds or loads, no dual stage shift, a single poly
+    family with a PCA basis.
     """
 
-    def __init__(self, model, scaler, cfg: MpcConfig, device="cuda",
-                 dtype=torch.float32):
+    def __init__(self, model, scaler, cfg: MpcConfig, device, dtype):
         super().__init__()
         dev = resolve_device(device)
         basis = model.basis
         if (cfg.input_blocks is None or cfg.input_smoothConst is not None
                 or cfg.state_bounds is not None or model.meta.nw != 0
-                or cfg.bilinear_iters != 1 or cfg.qp_dual_shift
-                or basis.pcs is None or len(basis.families) != 1
+                or cfg.qp_dual_shift or basis.pcs is None
+                or len(basis.families) != 1
                 or basis.families[0][0] != "poly"):
             raise NotImplementedError(
-                "the port has the blocked lift-fused bilinear controller "
-                "only (input_blocks, no smoothness/state bounds/loads, one "
-                "poly family with PCA, bilinear_iters=1, no dual shift)")
+                "the port has the blocked controllers only (input_blocks, "
+                "no smoothness/state bounds/loads, no dual shift, one poly "
+                "family with PCA)")
         self.model = model
         self.meta = meta = model.meta
         self.scaler = scaler
@@ -226,6 +243,7 @@ class BilinearKmpc(nn.Module):
         self.proj_idx = tuple(cfg.proj_idx) if cfg.proj_idx is not None \
             else tuple(range(self.n))
         self.nproj = len(self.proj_idx)
+        self.projmtx = np.asarray(model.C)[list(self.proj_idx), :]
 
         q_diag = np.full((Np + 1, self.nproj), cfg.cost_running)
         q_diag[-1] = cfg.cost_terminal
@@ -246,27 +264,23 @@ class BilinearKmpc(nn.Module):
                 f"move_blocking kept-row layout drift: got {kept}, "
                 f"expected {exp}")
         self.band = band_offset_of(self.F_red)
-        # Tb^T diag(Rd) Tb is diagonal (disjoint groups)
-        self.RdT = self.Tb.T @ self.r_diag[m:]
-        self.sqq = np.sqrt(self.q_diag)
-        self.lift_gens, self.lift_tables = lift_fused_generators(
-            model, self.q_diag, self.proj_idx, Np, m, self.Tb)
+        _, tables = poly_parent_tables(basis.nzeta_aug, basis.families[0][1])
+        self.tables_host = tuple(
+            (tuple(int(v) for v in pi), tuple(int(v) for v in di))
+            for pi, di in tables)
 
-        qp = lift_qp_operands(self.lift_gens, self.lift_tables, self.RdT,
-                              self.F_red, self.cF_red, self.F0_red,
-                              self.band, dtype=dtype, device=dev)
-        self._qp_static = {k: getattr(qp, k) for k in
-                           ("tables_host", "n", "mc", "p", "m", "nz",
-                            "nmono", "band")}
-        self._ntables = len(qp.tables)
-        for k in ("gens", "rdiag", "A", "cFr", "F0r", "row", "Wd", "Wo"):
-            self.register_buffer(k, getattr(qp, k))
-        for d, (pi, di) in enumerate(qp.tables):
-            self.register_buffer(f"poly_par{d}", pi)
-            self.register_buffer(f"poly_dim{d}", di)
-        t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
-        self.register_buffer("Tb_t", t(self.Tb))
-        self.register_buffer("Sel_t", t(self.Sel))
+        t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                      device=dev)
+        row, A_eq, Wd, Wo = constraint_tables(self.F_red, self.band)
+        for k, v in (("A", A_eq), ("row", row), ("Wd", Wd), ("Wo", Wo),
+                     ("cFr", self.cF_red / row),
+                     ("F0r", self.F0_red / row[:, None]),
+                     ("Tb_t", self.Tb), ("Sel_t", self.Sel)):
+            self.register_buffer(k, t(v))
+        for d, (pi, di) in enumerate(self.tables_host):
+            idx = lambda a: torch.as_tensor(a, dtype=torch.long, device=dev)
+            self.register_buffer(f"poly_par{d}", idx(pi))
+            self.register_buffer(f"poly_dim{d}", idx(di))
 
     @property
     def n_con(self) -> int:
@@ -274,13 +288,162 @@ class BilinearKmpc(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.gens.dtype
+        return self.A.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.A.device
+
+    def constraints(self) -> Constraints:
+        """The reduced constraint rows as a ``Constraints`` view of this
+        module's buffers."""
+        return Constraints(A=self.A, row=self.row, Wd=self.Wd, Wo=self.Wo,
+                           n=self.A.shape[1], mc=self.A.shape[0],
+                           band=self.band)
+
+    def poly_tables(self):
+        """The poly lift's (parent, dim) index tables on the device."""
+        return tuple((getattr(self, f"poly_par{d}"),
+                      getattr(self, f"poly_dim{d}"))
+                     for d in range(len(self.tables_host)))
+
+    def warm_start(self, U_plan) -> torch.Tensor:
+        """Primal start of the reduced decision (``_warm_start`` with
+        ``Sel``, kmpc.py:412-423, 514): the previous plan U_plan
+        (Np*m, B) shifted by one stage, one move per group."""
+        m = self.m
+        return self.Sel_t @ torch.cat([U_plan[2 * m:], U_plan[-m:]])
+
+
+class BilinearKmpc(_KmpcBase):
+    """Blocked lift-fused bilinear MPC (the bench controller).
+
+    One QP per step about Beta(z) held constant over the horizon; the
+    decision variable is one free move per input block (u_0 pinned to the
+    previous input).  Beyond the blocked configuration of ``_KmpcBase``,
+    only ``bilinear_iters=1`` is ported.
+    """
+
+    def __init__(self, model, scaler, cfg: MpcConfig, device="cuda",
+                 dtype=torch.float32):
+        if model.meta.model_type != "bilinear" or cfg.bilinear_iters != 1:
+            raise NotImplementedError(
+                "BilinearKmpc takes a bilinear model with bilinear_iters=1")
+        super().__init__(model, scaler, cfg, device, dtype)
+        m = self.m
+        # Tb^T diag(Rd) Tb is diagonal (disjoint groups)
+        self.RdT = self.Tb.T @ self.r_diag[m:]
+        self.sqq = np.sqrt(self.q_diag)
+        self.lift_gens, self.lift_tables = lift_fused_generators(
+            model, self.q_diag, self.proj_idx, self.Np, m, self.Tb)
+        qp = lift_qp_operands(self.lift_gens, self.lift_tables, self.RdT,
+                              self.F_red, self.cF_red, self.F0_red,
+                              self.band, dtype=dtype, device=self.device)
+        self._qp_static = {k: getattr(qp, k) for k in
+                           ("tables_host", "n", "mc", "p", "m", "nz",
+                            "nmono", "band")}
+        for k in ("gens", "rdiag"):
+            self.register_buffer(k, getattr(qp, k))
 
     def lift_qp(self) -> LiftQP:
         """The QP operands as a ``LiftQP`` view of this module's buffers."""
-        tables = tuple((getattr(self, f"poly_par{d}"),
-                        getattr(self, f"poly_dim{d}"))
-                       for d in range(self._ntables))
-        return LiftQP(gens=self.gens, tables=tables, rdiag=self.rdiag,
-                      A=self.A, cFr=self.cFr, F0r=self.F0r, row=self.row,
-                      Wd=self.Wd, Wo=self.Wo, **self._qp_static)
+        return LiftQP(gens=self.gens, tables=self.poly_tables(),
+                      rdiag=self.rdiag, A=self.A, cFr=self.cFr,
+                      F0r=self.F0r, row=self.row, Wd=self.Wd, Wo=self.Wo,
+                      **self._qp_static)
+
+    def solve(self, zeta, u_prev, sqYr, U_plan, lam0=None):
+        """One batched MPC solve (``BilinearKmpc.solve``), lanes-minor:
+        zeta (nz, B) scaled outputs (the kernel lifts them), u_prev (m, B)
+        the scaled previous input, sqYr (p,) or (p, B) the sqrt(Q)-scaled
+        reference window, U_plan (Np*m, B) the previous plan, lam0 (mc, B)
+        the previous multipliers (None: cold).  Returns the plan
+        U (Np*m, B) and the ``QPSolution``."""
+        sol = solve_qp_bilinear_lifted(
+            self.lift_qp(), zeta, u_prev, sqYr, x0=self.warm_start(U_plan),
+            lam0=lam0, iters=self.cfg.qp_iters)
+        return torch.cat([u_prev, self.Tb_t @ sol.x]), sol
+
+
+class LinearKmpc(_KmpcBase):
+    """Linear-model MPC with static condensed matrices (``LinearKmpc``,
+    kmpc.py:426-523), blocked form: the decision is [u_0 | one move per
+    group] with u_0 pinned to the previous input and eliminated, so the
+    QP has the lane-shared Hessian P22 of 2H and per-lane gradients.
+    Beyond the blocked configuration of ``_KmpcBase``, its duals start
+    cold every step (``qp_dual_warm`` is not ported for it).
+
+    Host constants (f64 numpy, as the JAX package): ``CA``, ``CB`` (with
+    Tfull = blockdiag(I_m, Tb) folded in), ``H``, ``L`` = [F0_red | F_red],
+    ``Mc`` = 0 and ``c`` = cF_red.
+    """
+
+    def __init__(self, model, scaler, cfg: MpcConfig, device="cuda",
+                 dtype=torch.float32):
+        if model.meta.model_type != "linear" or cfg.qp_dual_warm:
+            raise NotImplementedError(
+                "LinearKmpc takes a linear model, with cold duals")
+        super().__init__(model, scaler, cfg, device, dtype)
+        A = np.asarray(model.A)
+        B = np.asarray(model.B)
+        NL, m, Np = self.NL, self.m, self.Np
+        powers = [np.eye(NL)]
+        for _ in range(Np):
+            powers.append(powers[-1] @ A)
+        # stacked prediction: z_i = A^i z0 + sum_j A^(i-1-j) B u_j
+        Abig = np.concatenate(powers, axis=0)
+        Bbig = np.zeros((NL * (Np + 1), m * Np))
+        for i in range(1, Np + 1):
+            for j in range(i):
+                Bbig[i * NL:(i + 1) * NL, j * m:(j + 1) * m] = \
+                    powers[i - 1 - j] @ B
+        Cbig = np.kron(np.eye(Np + 1), self.projmtx)
+        Tfull = np.zeros((Np * m, m + self.Tb.shape[1]))
+        Tfull[:m, :m] = np.eye(m)
+        Tfull[m:, m:] = self.Tb
+        self.CA = Cbig @ Abig
+        self.CB = (Cbig @ Bbig) @ Tfull
+        self.L = np.concatenate([self.F0_red, self.F_red], axis=1)
+        self.Mc = np.zeros((self.L.shape[0], NL))
+        self.c = self.cF_red
+        self.H = self.CB.T @ (self.q_diag[:, None] * self.CB) + np.diag(
+            np.concatenate([self.r_diag[:m], self.Tb.T @ self.r_diag[m:]]))
+
+        t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                      device=self.device)
+        for k in ("CA", "CB", "H", "L", "Mc", "c"):
+            self.register_buffer(k + "_t", t(getattr(self, k)))
+        self.register_buffer("Qd_t", t(self.q_diag))
+        self.register_buffer("pcsT_t", t(model.basis.pcs.T))
+
+    def lift(self, zeta) -> torch.Tensor:
+        """The econ basis z = [zeta; pcs^T g(zeta); 1] of lanes-minor
+        zeta (nz, B): (NL, B) (``KoopmanBasis.lift`` on the device
+        tables)."""
+        ones = zeta.new_ones((1, zeta.shape[1]))
+        g = torch.cat([zeta, poly_features(zeta, self.poly_tables()), ones])
+        return torch.cat([zeta, self.pcsT_t @ g, ones])
+
+    def eliminate_u0(self, P, f, b, u0):
+        """Pin the first input block to u0 and reduce the QP
+        (``_eliminate_u0``, kmpc.py:397-407): (P22, fz, bz); the reduced
+        rows L[:, m:] are ``constraints()``."""
+        m = self.m
+        return (P[m:, m:], f[m:] + P[m:, :m] @ u0,
+                b - self.L_t[:, :m] @ u0)
+
+    def solve(self, z, u_prev, Yr, U_plan):
+        """One batched MPC solve (``LinearKmpc.solve``), lanes-minor:
+        z (NL, B) lifted states, u_prev (m, B) the scaled previous input,
+        Yr (p,) or (p, B) the scaled reference window, U_plan (Np*m, B)
+        the previous plan.  Returns the plan U (Np*m, B) and the
+        ``QPSolution``."""
+        Yr = Yr if Yr.ndim == 2 else Yr[:, None]
+        # f = 2 CB^T Q (CA z - Yr)
+        f = 2.0 * self.CB_t.T @ (self.Qd_t[:, None] * (self.CA_t @ z - Yr))
+        b = self.c_t[:, None] - self.Mc_t @ z
+        Pz, fz, bz = self.eliminate_u0(2.0 * self.H_t, f, b, u_prev)
+        sol = solve_qp_shared(Pz, fz, self.constraints(), bz,
+                              x0=self.warm_start(U_plan),
+                              iters=self.cfg.qp_iters)
+        return torch.cat([u_prev, self.Tb_t @ sol.x]), sol

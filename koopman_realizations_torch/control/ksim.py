@@ -1,14 +1,20 @@
 """Closed-loop plant-in-the-loop MPC simulation (port of ``control/ksim.py``).
 
-Two runners over a batch of scenario lanes, carries lanes-minor ``(r, B)``:
+Two runners over a batch of scenario lanes, carries lanes-minor ``(r, B)``,
+for either controller (the bilinear lift-fused ``BilinearKmpc`` or the
+linear ``LinearKmpc``):
 
 - ``batched_runner``: the general path of ``Ksim.make_body`` (:116-230)
-  for the bilinear lift-fused controller -- per step one batched QP
-  (``solve_qp_bilinear_lifted``: the ``bilin_lift`` kernel on the card)
-  and the plain batched arm step;
+  -- per step the controller's batched solve (bilinear:
+  ``solve_qp_bilinear_lifted``, the ``bilin_lift`` kernel on the card;
+  linear: the poly+PCA lift, the condensed gradient and
+  ``solve_qp_shared``, the ``ipm_shared`` kernel on the card) and the
+  plain batched arm step;
 - ``fused_runner`` (:439-502): a Python loop over steps that launches the
-  ``step_fused`` kernel once per step (its plain version on the CPU).  The
-  per-step reference windows are computed on the device up front and the
+  controller's fused step kernel once per step (``step_fused`` or
+  ``linear_step_fused``; the plain versions on the CPU).  The per-step
+  reference operands (sqrt(Q)-scaled windows, or the linear step's
+  gradient columns G2 @ Yr) are computed on the device up front and the
   tracked outputs go into a preallocated (steps-1, nproj, B) record.
 
 Reference quirks kept (``Ksim.m:199,225,239-246``): the applied input is
@@ -25,9 +31,9 @@ import numpy as np
 import torch
 
 from koopman_realizations_torch import resolve_device
-from koopman_realizations_torch.control.kmpc import BilinearKmpc
-from koopman_realizations_torch.ops.kernels.bilin_lift import (
-    solve_qp_bilinear_lifted,
+from koopman_realizations_torch.control.kmpc import BilinearKmpc, LinearKmpc
+from koopman_realizations_torch.ops.kernels.linear_step_fused import (
+    build_linear_step_fused,
 )
 from koopman_realizations_torch.ops.kernels.step_fused import (
     StepCarry,
@@ -38,7 +44,8 @@ from koopman_realizations_torch.ops.kernels.step_fused import (
 class Ksim:
     """Closed-loop harness binding the arm plant and the controller."""
 
-    def __init__(self, plant, mpc: BilinearKmpc, device="cuda"):
+    def __init__(self, plant, mpc: BilinearKmpc | LinearKmpc,
+                 device="cuda"):
         self.device = resolve_device(device)
         self.plant = plant
         self.mpc = mpc
@@ -48,9 +55,9 @@ class Ksim:
             raise NotImplementedError("delays and loads are not ported")
         self._dual_warm = bool(mpc.cfg.qp_dual_warm)
         if plant.G.device.type != self.device.type \
-                or mpc.gens.device.type != self.device.type:
+                or mpc.device.type != self.device.type:
             raise ValueError(f"plant ({plant.G.device}) and controller "
-                             f"({mpc.gens.device}) must live on {device}")
+                             f"({mpc.device}) must live on {device}")
 
     # ---------------------------------------------------------- host prep
 
@@ -62,14 +69,17 @@ class Ksim:
             [ref_sc, np.tile(ref_sc[-1:], (self.mpc.Np + 1, 1))], axis=0)
 
     def reference_windows(self, ref, steps: int) -> torch.Tensor:
-        """sqrt(Q) * Yr for every step k = 1..steps-1: (steps-1, p), built
-        on the device (window k starts at reference row k-1)."""
+        """The scaled reference window of every step k = 1..steps-1 as the
+        controller's solve takes it -- sqrt(Q) * Yr (bilinear) or Yr
+        (linear): (steps-1, p), built on the device (window k starts at
+        reference row k-1)."""
         mpc = self.mpc
         rp = torch.as_tensor(self.prep_ref(ref), device=self.device)
         win = rp.unfold(0, mpc.Np + 1, 1)[: steps - 1]   # (K-1, nproj, Np+1)
         win = win.transpose(1, 2).reshape(steps - 1, -1)
-        sq = torch.as_tensor(mpc.sqq, device=self.device)
-        return (sq * win).to(mpc.dtype).contiguous()
+        if isinstance(mpc, BilinearKmpc):
+            win = torch.as_tensor(mpc.sqq, device=self.device) * win
+        return win.to(mpc.dtype).contiguous()
 
     def _steps(self, ref, steps: Optional[int]) -> int:
         K = np.asarray(ref).shape[0] if steps is None else int(steps)
@@ -93,7 +103,8 @@ class Ksim:
         mpc, plant, sc = self.mpc, self.plant, self.scaler
         m, Np = mpc.m, mpc.Np
         proj = list(mpc.proj_idx)
-        qp = mpc.lift_qp()
+        # the bilinear kernel lifts zeta itself (``wants_zeta``)
+        lift = mpc.lift if isinstance(mpc, LinearKmpc) else (lambda z: z)
 
         def runner(X0, W):
             x, Wt = self._lanes(X0, W)
@@ -109,12 +120,8 @@ class Ksim:
             alive_rec = torch.empty((K - 1, B), dtype=torch.bool,
                                     device=x.device)
             for k in range(K - 1):
-                shifted = torch.cat([U_plan[2 * m:], U_plan[-m:]])
-                sol = solve_qp_bilinear_lifted(
-                    qp, ysc, upsc, windows[k],
-                    x0=mpc.Sel_t @ shifted, lam0=lam,
-                    iters=mpc.cfg.qp_iters)
-                U = torch.cat([upsc, mpc.Tb_t @ sol.x])
+                U, sol = mpc.solve(lift(ysc), upsc, windows[k], U_plan,
+                                   *(() if lam is None else (lam,)))
                 u_next_sc = U[m:2 * m]
                 x_new = plant.step(x, u_prev, Wt)
                 y_new = plant.get_y(x_new)
@@ -138,15 +145,21 @@ class Ksim:
 
     def fused_step_eligible(self) -> bool:
         """Whether the one-launch step applies: the arm with SDIRK2, its
-        Jacobian once per period and marker outputs, the dual warm start
-        without stage shift, and f32 throughout (the kernel's type; an f64
-        model is not silently cast)."""
+        Jacobian once per period and marker outputs, f32 throughout (the
+        kernels' type; an f64 model is not silently cast), and for the
+        bilinear controller the dual warm start without stage shift.  The
+        linear controller's branch (``ksim.py:429-436``: blocked, cold
+        duals, no shift, one poly family with PCA) is every configuration
+        ``LinearKmpc`` takes."""
         cfg = self.plant.cfg
-        return (cfg.integrator == "sdirk2" and cfg.jac_mode == "step"
-                and cfg.output_type == "markers"
-                and self._dual_warm and not self.mpc.cfg.qp_dual_shift
-                and self.mpc.model.dtype == np.float32
-                and self.mpc.dtype == torch.float32)
+        common = (cfg.integrator == "sdirk2" and cfg.jac_mode == "step"
+                  and cfg.output_type == "markers"
+                  and self.mpc.model.dtype == np.float32
+                  and self.mpc.dtype == torch.float32)
+        if isinstance(self.mpc, LinearKmpc):
+            return common
+        return common and self._dual_warm \
+            and not self.mpc.cfg.qp_dual_shift
 
     def fused_runner(self, ref, steps: Optional[int] = None):
         """fn(X0 (B, nx), W (B, 2)) -> {"Yp", "alive"} as
@@ -157,7 +170,12 @@ class Ksim:
                              "batched_runner")
         K = self._steps(ref, steps)
         windows = self.reference_windows(ref, K)
-        op = build_step_fused(self.mpc, self.plant, self.scaler)
+        if isinstance(self.mpc, LinearKmpc):
+            op = build_linear_step_fused(self.mpc, self.plant, self.scaler)
+            vecs = op.fYr(windows)                  # (K-1, n) G2 @ Yr
+        else:
+            op = build_step_fused(self.mpc, self.plant, self.scaler)
+            vecs = windows                          # (K-1, p) sqrt(Q) Yr
         nproj = len(self.mpc.proj_idx)
 
         def runner(X0, W):
@@ -170,7 +188,7 @@ class Ksim:
                 # records, whose previous row is the next step's input
                 out = StepCarry(c.ysc, c.upsc, c.xpl, c.w, alive[k], c.x0,
                                 c.lamc, Yp[k])
-                c = op.step(c, windows[k], out=out)
+                c = op.step(c, vecs[k], out=out)
             return {"Yp": Yp.permute(2, 0, 1), "alive": alive.T > 0.5}
 
         return runner

@@ -1,21 +1,27 @@
-// Device functions shared by the two CUDA kernels of the bilinear Koopman
-// MPC closed loop (bilin_lift.cu, step_fused.cu): the poly lift and QP
-// assembly, the factored Gram, the objective scale, the banded A^T D A,
-// the Cholesky factor and solve, the Mehrotra predictor-corrector, the ok
-// mask, the arm's closed-form right-hand side with dual numbers, SDIRK2
-// and the marker kinematics.
+// Device functions shared by the CUDA kernels of the Koopman MPC closed
+// loops: the Mehrotra predictor-corrector with its banded A^T D A,
+// Cholesky factor and solve, and the ok mask (all four kernels); the poly
+// lift (the two step kernels and bilin_lift.cu); the bilinear QP assembly,
+// factored Gram and objective scale (bilin_lift.cu, step_fused.cu); the
+// arm's closed-form right-hand side with dual numbers, SDIRK2, the marker
+// kinematics and the plant/freeze/carry tail (step_fused.cu,
+// linear_step_fused.cu).
 //
 // They replace the shared Pallas device functions of the JAX package
-// (ops/pallas/qp_ipm.py:143-296 and :686-769, models/arm_lanes.py
-// sdirk2_rows), one CUDA thread per scenario lane.  Per-lane operands are
-// lanes-minor (row r of lane b at r * B + b), so every per-lane load and
-// store of a warp is coalesced; lane-shared operands are read through the
-// read-only cache, where a warp's identical addresses are one broadcast.
+// (ops/pallas/qp_ipm.py:143-296 and :686-769, ops/pallas/step_fused.py
+// _plant_freeze_epilogue :150, models/arm_lanes.py sdirk2_rows), one CUDA
+// thread per scenario lane.  Per-lane operands are lanes-minor (row r of
+// lane b at r * B + b), so every per-lane load and store of a warp is
+// coalesced; lane-shared operands are read through the read-only cache,
+// where a warp's identical addresses are one broadcast.
 //
 // The dimensions, the monomial recurrence and the plant constants are
 // compile-time constants of one configuration: the build generates a
 // header with them (ops/kernels/_build.py), so every per-lane array has a
-// static size and static indices after unrolling.
+// static size and static indices after unrolling.  A section below is
+// compiled only where its part of the configuration is defined: KM_N,
+// KM_MC, KM_BAND (the interior point), KM_M (the right-hand side b),
+// KM_NZ (the lift), KM_P (the bilinear assembly), KM_NL (the plant).
 //
 // Numerics follow the JAX kernels: f32 throughout, IEEE-rounded divides
 // and square roots (never an approximate reciprocal square root: it kills
@@ -43,15 +49,12 @@ constexpr float kMuFloor = 1e-8f;     // converged-lane freeze
 constexpr float kTol = 3e-3f;         // ok: primal residual tolerance
 constexpr float kGapSane = 5e-2f;     // ok: complementarity gap bound
 
-// Lane-shared operands of the lift-fused QP (ops/qp.py:LiftQP).
-struct QP {
-  const float* gens;    // (KM_PN + KM_MP + KM_P, KM_NCP) generator stack
-  const float* rdiag;   // (KM_N) blocked input cost
-  const float* A;       // (KM_MC, KM_N) row-equilibrated constraints
-  const float* cFr;     // (KM_MC)
-  const float* F0r;     // (KM_MC, KM_M)
+// Lane-shared constraint rows A x <= b, row-equilibrated, and the banded
+// A^T D A tables (ops/qp.py:Constraints).
+struct Cons {
+  const float* A;       // (KM_MC, KM_N)
   const float* Wd;      // (KM_N, KM_MC) diagonal A^T D A table
-  const float* Wo;      // (KM_NWO, KM_MC) off-band A^T D A table
+  const float* Wo;      // (KM_N - KM_BAND, KM_MC) off-band table
 };
 
 __device__ __forceinline__ float kdiv(float a, float b) {
@@ -70,7 +73,273 @@ __device__ __forceinline__ float nclip(float a, float lo, float hi) {
 }
 __device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
 
-// ------------------------------------------------------------- lift + QP
+// The regularized, objective-scaled Hessian Pr as the interior point
+// reads it: per lane (the bilinear kernels: the array the lane assembled)
+// or lane-shared (the linear kernels: P / obj, equilibrated on the host
+// and read as warp-uniform broadcasts, with the regularization added as
+// the JAX kernel's Psh + reg * eye).
+struct LaneHessian {
+  const float (&P)[KM_N][KM_N];
+  __device__ __forceinline__ float operator()(int i, int j) const {
+    return P[i][j];
+  }
+};
+struct SharedHessian {
+  const float* P;       // (KM_N, KM_N)
+  __device__ __forceinline__ float operator()(int i, int j) const {
+    const float v = ldg(P + i * KM_N + j);
+    return i == j ? v + kReg : v;
+  }
+};
+
+// y = A x (mc rows) and y = A^T v (n rows) against the shared A.
+__device__ __forceinline__ void matvec_A(const float* __restrict__ A,
+                                         const float (&x)[KM_N],
+                                         float (&y)[KM_MC]) {
+#pragma unroll
+  for (int c = 0; c < KM_MC; ++c) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int i = 0; i < KM_N; ++i) acc = fmaf(ldg(A + c * KM_N + i), x[i], acc);
+    y[c] = acc;
+  }
+}
+__device__ __forceinline__ void matvec_At(const float* __restrict__ A,
+                                          const float (&v)[KM_MC],
+                                          float (&y)[KM_N]) {
+#pragma unroll
+  for (int i = 0; i < KM_N; ++i) y[i] = 0.0f;
+#pragma unroll
+  for (int c = 0; c < KM_MC; ++c) {
+#pragma unroll
+    for (int i = 0; i < KM_N; ++i) y[i] = fmaf(ldg(A + c * KM_N + i), v[c], y[i]);
+  }
+}
+
+// M = Pr + A^T diag(D) A, lower triangle, banded (qp_ipm.py:209-233):
+// the diagonal from Wd, the one off-diagonal at KM_BAND from Wo.
+template <class H>
+__device__ __forceinline__ void form_newton(const Cons& con, const H& Pr,
+                                            const float (&D)[KM_MC],
+                                            float (&M)[KM_N][KM_N]) {
+#pragma unroll
+  for (int i = 0; i < KM_N; ++i) {
+#pragma unroll
+    for (int k = 0; k <= i; ++k) M[i][k] = Pr(i, k);
+  }
+#pragma unroll
+  for (int i = 0; i < KM_N; ++i) {
+    float dg = 0.0f;
+#pragma unroll
+    for (int c = 0; c < KM_MC; ++c) dg = fmaf(ldg(con.Wd + i * KM_MC + c), D[c], dg);
+    M[i][i] += dg;
+  }
+#if KM_BAND > 0
+#pragma unroll
+  for (int i = 0; i < KM_N - KM_BAND; ++i) {
+    float og = 0.0f;
+#pragma unroll
+    for (int c = 0; c < KM_MC; ++c) og = fmaf(ldg(con.Wo + i * KM_MC + c), D[c], og);
+    M[i + KM_BAND][i] += og;
+  }
+#endif
+}
+
+// Lower Cholesky, one IEEE reciprocal of an exact sqrt per column
+// (qp_ipm.py:143-176; L[j][j] = M[j][j] / sqrt(M[j][j]) as there).
+__device__ __forceinline__ void chol(float (&M)[KM_N][KM_N],
+                                     float (&L)[KM_N][KM_N]) {
+#pragma unroll
+  for (int j = 0; j < KM_N; ++j) {
+    const float rd = kdiv(1.0f, ksqrt(M[j][j]));
+#pragma unroll
+    for (int i = j; i < KM_N; ++i) L[i][j] = M[i][j] * rd;
+#pragma unroll
+    for (int i = j + 1; i < KM_N; ++i) {
+#pragma unroll
+      for (int k = j + 1; k <= i; ++k) M[i][k] -= L[i][j] * L[k][j];
+    }
+  }
+}
+
+// Solve L L^T x = rhs (qp_ipm.py:179-206), IEEE divides by the diagonal.
+__device__ __forceinline__ void chol_solve(const float (&L)[KM_N][KM_N],
+                                           float (&r)[KM_N]) {
+#pragma unroll
+  for (int k = 0; k < KM_N; ++k) {
+    r[k] = kdiv(r[k], L[k][k]);
+#pragma unroll
+    for (int i = k + 1; i < KM_N; ++i) r[i] -= L[i][k] * r[k];
+  }
+#pragma unroll
+  for (int i = KM_N - 1; i >= 0; --i) {
+    r[i] = kdiv(r[i], L[i][i]);
+#pragma unroll
+    for (int j = 0; j < i; ++j) r[j] -= L[i][j] * r[i];
+  }
+}
+
+// Largest alpha in (0, 1] keeping v + alpha dv >= 0.01 v (NaN propagates).
+__device__ __forceinline__ float max_step(const float (&v)[KM_MC],
+                                          const float (&dv)[KM_MC]) {
+  float mn = INFINITY;
+#pragma unroll
+  for (int c = 0; c < KM_MC; ++c)
+    if (dv[c] < 0.0f) mn = nmin(mn, kdiv(-v[c], dv[c]));
+  return nmin(1.0f, 0.99f * mn);
+}
+
+// One Newton direction for the complementarity residual r_slam.
+__device__ __forceinline__ void direction(const Cons& con,
+                                          const float (&L)[KM_N][KM_N],
+                                          const float (&r_d)[KM_N],
+                                          const float (&r_p)[KM_MC],
+                                          const float (&s)[KM_MC],
+                                          const float (&lam)[KM_MC],
+                                          const float (&r_slam)[KM_MC],
+                                          float (&dx)[KM_N],
+                                          float (&ds)[KM_MC],
+                                          float (&dlam)[KM_MC]) {
+  float t[KM_MC];
+#pragma unroll
+  for (int c = 0; c < KM_MC; ++c)
+    t[c] = kdiv(-r_slam[c] + lam[c] * r_p[c], s[c]);
+  float At_t[KM_N];
+  matvec_At(con.A, t, At_t);
+#pragma unroll
+  for (int i = 0; i < KM_N; ++i) dx[i] = -r_d[i] - At_t[i];
+  chol_solve(L, dx);
+  float Adx[KM_MC];
+  matvec_A(con.A, dx, Adx);
+#pragma unroll
+  for (int c = 0; c < KM_MC; ++c) {
+    ds[c] = -r_p[c] - Adx[c];
+    dlam[c] = kdiv(-r_slam[c] - lam[c] * ds[c], s[c]);
+  }
+}
+
+// Fixed-iteration Mehrotra predictor-corrector (qp_ipm.py:236-296): x/lam
+// hold the starts on entry (lam already damped), s is formed here.
+template <class H>
+__device__ __forceinline__ void mehrotra(const Cons& con, int iters,
+                                         float slack_floor, const H& Pr,
+                                         const float (&q)[KM_N],
+                                         const float (&b)[KM_MC],
+                                         float (&x)[KM_N],
+                                         float (&s)[KM_MC],
+                                         float (&lam)[KM_MC]) {
+  {
+    float Ax[KM_MC];
+    matvec_A(con.A, x, Ax);
+#pragma unroll
+    for (int c = 0; c < KM_MC; ++c) s[c] = nmax(b[c] - Ax[c], slack_floor);
+  }
+#pragma unroll 1
+  for (int it = 0; it < iters; ++it) {
+    float mu = 0.0f;
+#pragma unroll
+    for (int c = 0; c < KM_MC; ++c) mu = fmaf(s[c], lam[c], mu);
+    mu = kdiv(mu, (float)KM_MC);
+    float r_p[KM_MC];
+    matvec_A(con.A, x, r_p);
+    float rp_max = 0.0f;
+#pragma unroll
+    for (int c = 0; c < KM_MC; ++c) {
+      r_p[c] = r_p[c] + s[c] - b[c];
+      rp_max = nmax(rp_max, fabsf(r_p[c]));
+    }
+    float r_d[KM_N];
+    matvec_At(con.A, lam, r_d);
+#pragma unroll
+    for (int i = 0; i < KM_N; ++i) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int j = 0; j < KM_N; ++j) acc = fmaf(Pr(i, j), x[j], acc);
+      r_d[i] = acc + q[i] + r_d[i];
+    }
+    const bool active = (mu > kMuFloor) || (rp_max > kMuFloor);
+
+    float L[KM_N][KM_N];
+    {
+      float D[KM_MC];
+#pragma unroll
+      for (int c = 0; c < KM_MC; ++c) D[c] = nclip(kdiv(lam[c], s[c]), 1e-14f, 1e14f);
+      float M[KM_N][KM_N];
+      form_newton(con, Pr, D, M);
+      chol(M, L);
+    }
+    float r_slam[KM_MC], dx_a[KM_N], ds_a[KM_MC], dlam_a[KM_MC];
+#pragma unroll
+    for (int c = 0; c < KM_MC; ++c) r_slam[c] = s[c] * lam[c];
+    direction(con, L, r_d, r_p, s, lam, r_slam, dx_a, ds_a, dlam_a);
+    const float alpha_a = nmin(max_step(s, ds_a), max_step(lam, dlam_a));
+    float mu_aff = 0.0f;
+#pragma unroll
+    for (int c = 0; c < KM_MC; ++c)
+      mu_aff = fmaf(s[c] + alpha_a * ds_a[c], lam[c] + alpha_a * dlam_a[c], mu_aff);
+    mu_aff = kdiv(mu_aff, (float)KM_MC);
+    const float ratio = kdiv(mu_aff, mu + 1e-30f);
+    const float sigma = ratio * ratio * ratio;
+#pragma unroll
+    for (int c = 0; c < KM_MC; ++c)
+      r_slam[c] = s[c] * lam[c] + ds_a[c] * dlam_a[c] - sigma * mu;
+    // the corrector reuses the predictor's storage
+    direction(con, L, r_d, r_p, s, lam, r_slam, dx_a, ds_a, dlam_a);
+    const float alpha = active ? nmin(max_step(s, ds_a), max_step(lam, dlam_a)) : 0.0f;
+#pragma unroll
+    for (int i = 0; i < KM_N; ++i)
+      if (isfinite(dx_a[i])) x[i] = x[i] + alpha * dx_a[i];
+#pragma unroll
+    for (int c = 0; c < KM_MC; ++c) {
+      if (isfinite(ds_a[c])) s[c] = s[c] + alpha * ds_a[c];
+      if (isfinite(dlam_a[c])) lam[c] = lam[c] + alpha * dlam_a[c];
+    }
+  }
+}
+
+// The solve's ok rule (qp_ipm.py:986-995): finite iterate, sane gap and
+// primal residual within kTol of the row scale.
+__device__ __forceinline__ bool ok_mask(const Cons& con,
+                                        const float (&b)[KM_MC],
+                                        const float (&x)[KM_N],
+                                        const float (&s)[KM_MC],
+                                        const float (&lam)[KM_MC]) {
+  float gap = 0.0f;
+#pragma unroll
+  for (int c = 0; c < KM_MC; ++c) gap = fmaf(s[c], lam[c], gap);
+  gap = kdiv(gap, (float)KM_MC);
+  float Ax[KM_MC];
+  matvec_A(con.A, x, Ax);
+  float r_p = 0.0f, bmax = 1.0f;
+#pragma unroll
+  for (int c = 0; c < KM_MC; ++c) {
+    r_p = nmax(r_p, Ax[c] - b[c]);
+    bmax = nmax(bmax, fabsf(b[c]));
+  }
+  bool finite = true;
+#pragma unroll
+  for (int i = 0; i < KM_N; ++i) finite = finite && isfinite(x[i]);
+  return finite && (gap < kGapSane) && (r_p < kTol * bmax);
+}
+
+#ifdef KM_M
+// b = cFr - F0r u_prev: one lane's constraint right-hand side.
+__device__ __forceinline__ void rhs_b(const float* cFr, const float* F0r,
+                                      const float (&up)[KM_M],
+                                      float (&b)[KM_MC]) {
+#pragma unroll
+  for (int c = 0; c < KM_MC; ++c) {
+    float bc = ldg(cFr + c);
+#pragma unroll
+    for (int j = 0; j < KM_M; ++j)
+      bc = bc - ldg(F0r + c * KM_M + j) * up[j];
+    b[c] = bc;
+  }
+}
+#endif  // KM_M
+
+// ------------------------------------------------------------------ lift
+#ifdef KM_NZ
 
 // f = [zeta; monomials; 1; 0-pad] for the generator columns.
 __device__ __forceinline__ void lift_features(const float (&zeta)[KM_NZ],
@@ -98,6 +367,20 @@ __device__ __forceinline__ float gen_row(const float* __restrict__ g,
   }
   return acc;
 }
+
+#endif  // KM_NZ
+
+// -------------------------------------------------------- bilinear QP
+#ifdef KM_P
+
+// Lane-shared operands of the lift-fused bilinear QP (ops/qp.py:LiftQP).
+struct QP {
+  const float* gens;    // (KM_PN + KM_MP + KM_P, KM_NCP) generator stack
+  const float* rdiag;   // (KM_N) blocked input cost
+  const float* cFr;     // (KM_MC)
+  const float* F0r;     // (KM_MC, KM_M)
+  Cons con;
+};
 
 // Lift, assembly and factored Gram (qp_ipm.py:727-769), streaming W: v is
 // formed first, then each W row is formed, accumulated into P and qv, and
@@ -158,14 +441,7 @@ __device__ __forceinline__ void assemble(const QP& qp,
       P[k][i] = P[i][k];
     }
   }
-#pragma unroll
-  for (int c = 0; c < KM_MC; ++c) {
-    float bc = ldg(qp.cFr + c);
-#pragma unroll
-    for (int j = 0; j < KM_M; ++j)
-      bc = bc - ldg(qp.F0r + c * KM_M + j) * up[j];
-    b[c] = bc;
-  }
+  rhs_b(qp.cFr, qp.F0r, up, b);
 }
 
 // Per-lane objective scale: max |P| is the max diagonal of the PSD Gram.
@@ -176,215 +452,10 @@ __device__ __forceinline__ float diag_obj_scale(const float (&P)[KM_N][KM_N]) {
   return nmax(obj, 1e-8f);
 }
 
-// y = A x (mc rows) and y = A^T v (n rows) against the shared A.
-__device__ __forceinline__ void matvec_A(const float* __restrict__ A,
-                                         const float (&x)[KM_N],
-                                         float (&y)[KM_MC]) {
-#pragma unroll
-  for (int c = 0; c < KM_MC; ++c) {
-    float acc = 0.0f;
-#pragma unroll
-    for (int i = 0; i < KM_N; ++i) acc = fmaf(ldg(A + c * KM_N + i), x[i], acc);
-    y[c] = acc;
-  }
-}
-__device__ __forceinline__ void matvec_At(const float* __restrict__ A,
-                                          const float (&v)[KM_MC],
-                                          float (&y)[KM_N]) {
-#pragma unroll
-  for (int i = 0; i < KM_N; ++i) y[i] = 0.0f;
-#pragma unroll
-  for (int c = 0; c < KM_MC; ++c) {
-#pragma unroll
-    for (int i = 0; i < KM_N; ++i) y[i] = fmaf(ldg(A + c * KM_N + i), v[c], y[i]);
-  }
-}
-
-// M = Pr + A^T diag(D) A, lower triangle, banded (qp_ipm.py:209-233):
-// the diagonal from Wd, the one off-diagonal at KM_BAND from Wo.
-__device__ __forceinline__ void form_newton(const QP& qp,
-                                            const float (&Pr)[KM_N][KM_N],
-                                            const float (&D)[KM_MC],
-                                            float (&M)[KM_N][KM_N]) {
-#pragma unroll
-  for (int i = 0; i < KM_N; ++i) {
-#pragma unroll
-    for (int k = 0; k <= i; ++k) M[i][k] = Pr[i][k];
-  }
-#pragma unroll
-  for (int i = 0; i < KM_N; ++i) {
-    float dg = 0.0f;
-#pragma unroll
-    for (int c = 0; c < KM_MC; ++c) dg = fmaf(ldg(qp.Wd + i * KM_MC + c), D[c], dg);
-    M[i][i] += dg;
-  }
-#if KM_BAND > 0
-#pragma unroll
-  for (int i = 0; i < KM_N - KM_BAND; ++i) {
-    float og = 0.0f;
-#pragma unroll
-    for (int c = 0; c < KM_MC; ++c) og = fmaf(ldg(qp.Wo + i * KM_MC + c), D[c], og);
-    M[i + KM_BAND][i] += og;
-  }
-#endif
-}
-
-// Lower Cholesky, one IEEE reciprocal of an exact sqrt per column
-// (qp_ipm.py:143-176; L[j][j] = M[j][j] / sqrt(M[j][j]) as there).
-__device__ __forceinline__ void chol(float (&M)[KM_N][KM_N],
-                                     float (&L)[KM_N][KM_N]) {
-#pragma unroll
-  for (int j = 0; j < KM_N; ++j) {
-    const float rd = kdiv(1.0f, ksqrt(M[j][j]));
-#pragma unroll
-    for (int i = j; i < KM_N; ++i) L[i][j] = M[i][j] * rd;
-#pragma unroll
-    for (int i = j + 1; i < KM_N; ++i) {
-#pragma unroll
-      for (int k = j + 1; k <= i; ++k) M[i][k] -= L[i][j] * L[k][j];
-    }
-  }
-}
-
-// Solve L L^T x = rhs (qp_ipm.py:179-206), IEEE divides by the diagonal.
-__device__ __forceinline__ void chol_solve(const float (&L)[KM_N][KM_N],
-                                           float (&r)[KM_N]) {
-#pragma unroll
-  for (int k = 0; k < KM_N; ++k) {
-    r[k] = kdiv(r[k], L[k][k]);
-#pragma unroll
-    for (int i = k + 1; i < KM_N; ++i) r[i] -= L[i][k] * r[k];
-  }
-#pragma unroll
-  for (int i = KM_N - 1; i >= 0; --i) {
-    r[i] = kdiv(r[i], L[i][i]);
-#pragma unroll
-    for (int j = 0; j < i; ++j) r[j] -= L[i][j] * r[i];
-  }
-}
-
-// Largest alpha in (0, 1] keeping v + alpha dv >= 0.01 v (NaN propagates).
-__device__ __forceinline__ float max_step(const float (&v)[KM_MC],
-                                          const float (&dv)[KM_MC]) {
-  float mn = INFINITY;
-#pragma unroll
-  for (int c = 0; c < KM_MC; ++c)
-    if (dv[c] < 0.0f) mn = nmin(mn, kdiv(-v[c], dv[c]));
-  return nmin(1.0f, 0.99f * mn);
-}
-
-// One Newton direction for the complementarity residual r_slam.
-__device__ __forceinline__ void direction(const QP& qp,
-                                          const float (&L)[KM_N][KM_N],
-                                          const float (&r_d)[KM_N],
-                                          const float (&r_p)[KM_MC],
-                                          const float (&s)[KM_MC],
-                                          const float (&lam)[KM_MC],
-                                          const float (&r_slam)[KM_MC],
-                                          float (&dx)[KM_N],
-                                          float (&ds)[KM_MC],
-                                          float (&dlam)[KM_MC]) {
-  float t[KM_MC];
-#pragma unroll
-  for (int c = 0; c < KM_MC; ++c)
-    t[c] = kdiv(-r_slam[c] + lam[c] * r_p[c], s[c]);
-  float At_t[KM_N];
-  matvec_At(qp.A, t, At_t);
-#pragma unroll
-  for (int i = 0; i < KM_N; ++i) dx[i] = -r_d[i] - At_t[i];
-  chol_solve(L, dx);
-  float Adx[KM_MC];
-  matvec_A(qp.A, dx, Adx);
-#pragma unroll
-  for (int c = 0; c < KM_MC; ++c) {
-    ds[c] = -r_p[c] - Adx[c];
-    dlam[c] = kdiv(-r_slam[c] - lam[c] * ds[c], s[c]);
-  }
-}
-
-// Fixed-iteration Mehrotra predictor-corrector (qp_ipm.py:236-296): x/lam
-// hold the starts on entry (lam already damped), s is formed here.
-__device__ __forceinline__ void mehrotra(const QP& qp, int iters,
-                                         float slack_floor,
-                                         const float (&Pr)[KM_N][KM_N],
-                                         const float (&q)[KM_N],
-                                         const float (&b)[KM_MC],
-                                         float (&x)[KM_N],
-                                         float (&s)[KM_MC],
-                                         float (&lam)[KM_MC]) {
-  {
-    float Ax[KM_MC];
-    matvec_A(qp.A, x, Ax);
-#pragma unroll
-    for (int c = 0; c < KM_MC; ++c) s[c] = nmax(b[c] - Ax[c], slack_floor);
-  }
-#pragma unroll 1
-  for (int it = 0; it < iters; ++it) {
-    float mu = 0.0f;
-#pragma unroll
-    for (int c = 0; c < KM_MC; ++c) mu = fmaf(s[c], lam[c], mu);
-    mu = kdiv(mu, (float)KM_MC);
-    float r_p[KM_MC];
-    matvec_A(qp.A, x, r_p);
-    float rp_max = 0.0f;
-#pragma unroll
-    for (int c = 0; c < KM_MC; ++c) {
-      r_p[c] = r_p[c] + s[c] - b[c];
-      rp_max = nmax(rp_max, fabsf(r_p[c]));
-    }
-    float r_d[KM_N];
-    matvec_At(qp.A, lam, r_d);
-#pragma unroll
-    for (int i = 0; i < KM_N; ++i) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int j = 0; j < KM_N; ++j) acc = fmaf(Pr[i][j], x[j], acc);
-      r_d[i] = acc + q[i] + r_d[i];
-    }
-    const bool active = (mu > kMuFloor) || (rp_max > kMuFloor);
-
-    float L[KM_N][KM_N];
-    {
-      float D[KM_MC];
-#pragma unroll
-      for (int c = 0; c < KM_MC; ++c) D[c] = nclip(kdiv(lam[c], s[c]), 1e-14f, 1e14f);
-      float M[KM_N][KM_N];
-      form_newton(qp, Pr, D, M);
-      chol(M, L);
-    }
-    float r_slam[KM_MC], dx_a[KM_N], ds_a[KM_MC], dlam_a[KM_MC];
-#pragma unroll
-    for (int c = 0; c < KM_MC; ++c) r_slam[c] = s[c] * lam[c];
-    direction(qp, L, r_d, r_p, s, lam, r_slam, dx_a, ds_a, dlam_a);
-    const float alpha_a = nmin(max_step(s, ds_a), max_step(lam, dlam_a));
-    float mu_aff = 0.0f;
-#pragma unroll
-    for (int c = 0; c < KM_MC; ++c)
-      mu_aff = fmaf(s[c] + alpha_a * ds_a[c], lam[c] + alpha_a * dlam_a[c], mu_aff);
-    mu_aff = kdiv(mu_aff, (float)KM_MC);
-    const float ratio = kdiv(mu_aff, mu + 1e-30f);
-    const float sigma = ratio * ratio * ratio;
-#pragma unroll
-    for (int c = 0; c < KM_MC; ++c)
-      r_slam[c] = s[c] * lam[c] + ds_a[c] * dlam_a[c] - sigma * mu;
-    // the corrector reuses the predictor's storage
-    direction(qp, L, r_d, r_p, s, lam, r_slam, dx_a, ds_a, dlam_a);
-    const float alpha = active ? nmin(max_step(s, ds_a), max_step(lam, dlam_a)) : 0.0f;
-#pragma unroll
-    for (int i = 0; i < KM_N; ++i)
-      if (isfinite(dx_a[i])) x[i] = x[i] + alpha * dx_a[i];
-#pragma unroll
-    for (int c = 0; c < KM_MC; ++c) {
-      if (isfinite(ds_a[c])) s[c] = s[c] + alpha * ds_a[c];
-      if (isfinite(dlam_a[c])) lam[c] = lam[c] + alpha * dlam_a[c];
-    }
-  }
-}
-
 // Lift + assembly + Gram + obj scale + Mehrotra: the QP half of both
-// kernels.  lam holds the dual start in row-equilibrated * obj units on
-// entry (ignored when cold) and the equilibrated duals on exit; returns
-// obj and b for the caller's epilogue.
+// bilinear kernels.  lam holds the dual start in row-equilibrated * obj
+// units on entry (ignored when cold) and the equilibrated duals on exit;
+// returns obj and b for the caller's epilogue.
 __device__ __forceinline__ float solve_qp(const QP& qp, int iters,
                                           float slack_floor, bool warm_dual,
                                           const float (&zeta)[KM_NZ],
@@ -406,39 +477,16 @@ __device__ __forceinline__ float solve_qp(const QP& qp, int iters,
 #pragma unroll
   for (int c = 0; c < KM_MC; ++c)
     lam[c] = warm_dual ? ksqrt(nclip(lam[c] * iobj, 1e-4f, 1e4f)) : 1.0f;
-  mehrotra(qp, iters, slack_floor, Pr, q, b, x, s, lam);
+  mehrotra(qp.con, iters, slack_floor, LaneHessian{Pr}, q, b, x, s, lam);
   return obj;
 }
 
-// The solve's ok rule (qp_ipm.py:986-995): finite iterate, sane gap and
-// primal residual within kTol of the row scale.
-__device__ __forceinline__ bool ok_mask(const QP& qp,
-                                        const float (&b)[KM_MC],
-                                        const float (&x)[KM_N],
-                                        const float (&s)[KM_MC],
-                                        const float (&lam)[KM_MC]) {
-  float gap = 0.0f;
-#pragma unroll
-  for (int c = 0; c < KM_MC; ++c) gap = fmaf(s[c], lam[c], gap);
-  gap = kdiv(gap, (float)KM_MC);
-  float Ax[KM_MC];
-  matvec_A(qp.A, x, Ax);
-  float r_p = 0.0f, bmax = 1.0f;
-#pragma unroll
-  for (int c = 0; c < KM_MC; ++c) {
-    r_p = nmax(r_p, Ax[c] - b[c]);
-    bmax = nmax(bmax, fabsf(b[c]));
-  }
-  bool finite = true;
-#pragma unroll
-  for (int i = 0; i < KM_N; ++i) finite = finite && isfinite(x[i]);
-  return finite && (gap < kGapSane) && (r_p < kTol * bmax);
-}
+#endif  // KM_P
 
 
 // ----------------------------------------------------------------- plant
-// Arm plant (models/arm_lanes.py): only in builds whose configuration
-// header carries the plant constants (the step kernel's).
+// Arm plant (models/arm_lanes.py) and the step kernels' tail: only in
+// builds whose configuration header carries the plant constants.
 #ifdef KM_NL
 
 #define KM_NX (2 * KM_NL)
@@ -804,6 +852,80 @@ __device__ __forceinline__ void arm_outputs(const float (&x)[KM_NX], float (&y)[
       y[o++] = ry;
     }
   }
+}
+
+// Lanes-minor carries of the fused step kernels
+// (ops/kernels/step_fused.py:StepCarry): the inputs and the outputs, which
+// may alias them -- every lane reads all of its inputs before it writes
+// the same elements.
+struct StepIO {
+  const float* ysc;      // (KM_NY, B) scaled outputs == zeta
+  const float* upsc;     // (KM_M, B) previous input, scaled
+  const float* xpl;      // (KM_NX, B) plant state
+  const float* w;        // (2, B) loads
+  const float* alive;    // (B) 1 / 0
+  const float* x0;       // (KM_N, B) primal start
+  const float* lamc;     // (KM_MC, B) dual carry
+  const float* yp;       // (KM_NPROJ, B) tracked outputs
+  float* ysc_o;
+  float* upsc_o;
+  float* xpl_o;
+  float* alive_o;
+  float* x0_o;
+  float* lamc_o;
+  float* yp_o;
+};
+
+// The shared tail of the fused step kernels (_plant_freeze_epilogue,
+// ops/pallas/step_fused.py:150): SDIRK2 of the arm on the PREVIOUS input
+// (original units), the marker outputs, the alive freeze (a lane dies on a
+// failed solve or a non-finite plant state) and the carry advance:
+// u_prev = move 0 of the plan, the next primal start Pwarm @ x, the dual
+// carry lam * lam_scale.
+__device__ __forceinline__ void plant_freeze_epilogue(
+    const StepIO& io, const float* Pwarm, long long b, long long B, bool ok,
+    const float (&zeta)[KM_NZ], const float (&up)[KM_M],
+    const float (&x)[KM_N], const float (&lam)[KM_MC], float lam_scale) {
+  constexpr float UF[KM_M] = KM_UF;
+  constexpr float UO[KM_M] = KM_UO;
+  constexpr float YF[KM_NY] = KM_YF;
+  constexpr float YO[KM_NY] = KM_YO;
+  constexpr int PROJ[KM_NPROJ] = KM_PROJ;
+  float xs[KM_NX], u[KM_M];
+#pragma unroll
+  for (int i = 0; i < KM_NX; ++i) xs[i] = io.xpl[i * B + b];
+#pragma unroll
+  for (int j = 0; j < KM_M; ++j) u[j] = up[j] * UF[j] + UO[j];
+  sdirk2(xs, u, io.w[b], io.w[B + b]);
+  bool fin = true;
+#pragma unroll
+  for (int i = 0; i < KM_NX; ++i) fin = fin && isfinite(xs[i]);
+  float y[KM_NY];
+  arm_outputs(xs, y);
+
+  const bool keep = (io.alive[b] > 0.5f) && ok && fin;
+  io.alive_o[b] = keep ? 1.0f : 0.0f;
+#pragma unroll
+  for (int i = 0; i < KM_NX; ++i)
+    io.xpl_o[i * B + b] = keep ? xs[i] : io.xpl[i * B + b];
+#pragma unroll
+  for (int j = 0; j < KM_NY; ++j)
+    io.ysc_o[j * B + b] = keep ? kdiv(y[j] - YO[j], YF[j]) : zeta[j];
+#pragma unroll
+  for (int j = 0; j < KM_NPROJ; ++j)
+    io.yp_o[j * B + b] = keep ? y[PROJ[j]] : io.yp[j * B + b];
+#pragma unroll
+  for (int j = 0; j < KM_M; ++j) io.upsc_o[j * B + b] = keep ? x[j] : up[j];
+#pragma unroll
+  for (int i = 0; i < KM_N; ++i) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int j = 0; j < KM_N; ++j) acc = fmaf(ldg(Pwarm + i * KM_N + j), x[j], acc);
+    io.x0_o[i * B + b] = keep ? acc : io.x0[i * B + b];
+  }
+#pragma unroll
+  for (int c = 0; c < KM_MC; ++c)
+    io.lamc_o[c * B + b] = keep ? lam[c] * lam_scale : io.lamc[c * B + b];
 }
 
 #endif  // KM_NL

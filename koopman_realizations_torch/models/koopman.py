@@ -1,6 +1,7 @@
 """Koopman model containers of the port (``models/koopman.py`` of the JAX
-package): bilinear realization z+ = A z + Beta(z) u, y = C z, with
-Beta(z) = einsum('kmj,j->km', B, z).
+package): the linear realization z+ = A z + B u and the bilinear one
+z+ = A z + Beta(z) u with Beta(z) = einsum('kmj,j->km', B, z), both with
+y = C z.
 
 The port does not train yet: a model arrives as the JAX trainer's arrays
 (``from_jax_arrays``), usually through the ``.npz`` handoff format
@@ -39,6 +40,21 @@ class ModelMeta:
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
+class LinearModel:
+    """z+ = A z + B u; B is (NL, m)."""
+
+    A: Any
+    B: Any
+    C: Any
+    meta: ModelMeta
+    basis: KoopmanBasis
+
+    @property
+    def dtype(self) -> np.dtype:
+        return np.asarray(self.A).dtype
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class BilinearModel:
     """z+ = A z + Beta(z) u; B is stored as (NL, m, NL)."""
 
@@ -53,26 +69,30 @@ class BilinearModel:
         return np.asarray(self.A).dtype
 
 
+MODEL_CLASSES = {"linear": LinearModel, "bilinear": BilinearModel}
+
+
 def from_jax_arrays(header: dict, arrays: dict):
-    """(BilinearModel, Scaler | None) from the JAX package's parameters.
+    """(LinearModel | BilinearModel, Scaler | None) from the JAX package's
+    parameters.
 
     ``header`` has the ``meta`` and ``basis`` entries of the JAX
     ``save_model`` header; ``arrays`` maps names to numpy arrays: A, B, C,
     pcs (when the basis has one) and ``scaler_<field>`` entries.
     """
     meta = ModelMeta(**header["meta"])
-    if meta.model_type != "bilinear" or meta.time_type != "discrete":
+    if meta.model_type not in MODEL_CLASSES or meta.time_type != "discrete":
         raise NotImplementedError(
-            f"only discrete bilinear models are ported "
+            f"only discrete linear and bilinear models are ported "
             f"(got {meta.model_type}/{meta.time_type})")
     b = header["basis"]
     basis = KoopmanBasis(
         model_type=b["model_type"], n=b["n"], m=b["m"], nd=b["nd"],
         nw=b["nw"], families=tuple(tuple(f) for f in b["families"]),
         pcs=np.asarray(arrays["pcs"]) if "pcs" in arrays else None)
-    model = BilinearModel(A=np.asarray(arrays["A"]),
-                          B=np.asarray(arrays["B"]),
-                          C=np.asarray(arrays["C"]), meta=meta, basis=basis)
+    model = MODEL_CLASSES[meta.model_type](
+        A=np.asarray(arrays["A"]), B=np.asarray(arrays["B"]),
+        C=np.asarray(arrays["C"]), meta=meta, basis=basis)
     fields = [f.name for f in dataclasses.fields(Scaler)]
     skw = {f: np.asarray(arrays["scaler_" + f]) for f in fields
            if "scaler_" + f in arrays}

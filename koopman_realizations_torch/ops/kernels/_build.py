@@ -19,6 +19,7 @@ once and waits for all of them.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -142,6 +143,29 @@ def load(spec: KernelSpec) -> ctypes.CDLL:
     """The loaded library of one spec, built on first use."""
     lib = _BY_SPEC.get(spec)
     return lib if lib is not None else build_all([spec])[0].lib
+
+
+def defines(**values) -> str:
+    """``#define`` lines of integer configuration values."""
+    return "".join(f"#define {k} {int(v)}\n" for k, v in values.items())
+
+
+@functools.lru_cache(maxsize=None)
+def lift_config(tables, nz: int, nmono: int, ncp: int) -> str:
+    """``#define`` lines of the poly lift: the feature counts and the
+    monomial recurrence of ``tables`` ((parent, dim) index tuples per
+    degree block) as straight-line statements, so the features stay in
+    registers."""
+    stmts = []
+    base_prev, base = 0, nz
+    for par, dim in tables:
+        for r in range(len(par)):
+            stmts.append(f"f[{base + r}] = f[{base_prev + par[r]}] * "
+                         f"f[{dim[r]}];")
+        base_prev, base = base, base + len(par)
+    return (defines(KM_NZ=nz, KM_NMONO=nmono, KM_NCP=ncp)
+            + "#define KM_LIFT_FEATURES(f) do { " + " ".join(stmts)
+            + " } while (0)\n")
 
 
 def hexf(v) -> str:

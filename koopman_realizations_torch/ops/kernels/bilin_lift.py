@@ -18,28 +18,24 @@ multipliers back to original units).
 from __future__ import annotations
 
 import ctypes
-import functools
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import torch
 
 from koopman_realizations_torch.ops.kernels import _build
+from koopman_realizations_torch.ops.kernels.ipm_shared import (
+    ConsStruct,
+    cons_config,
+)
 from koopman_realizations_torch.ops.qp import (
     LiftQP,
+    QPSolution,
     ok_mask,
     qp_constants,
     qp_core_plain,
 )
 
 SOURCE = "bilin_lift.cu"
-THREADS = 128
-
-
-class QPSolution(NamedTuple):
-    x: torch.Tensor      # (n, B) primal solution, NaN where not finite
-    lam: torch.Tensor    # (mc, B) multipliers in original units
-    ok: torch.Tensor     # (B,) bool
-    gap: torch.Tensor    # (B,) final complementarity gap
 
 
 # ------------------------------------------------------------ build config
@@ -47,44 +43,25 @@ class QPSolution(NamedTuple):
 
 def qp_config(qp: LiftQP) -> str:
     """``#define`` lines of the QP half of a kernel configuration: the
-    dimensions and the monomial recurrence as straight-line statements
-    (static indices, so the features stay in registers).  The kernels
-    form A^T D A from the banded tables only."""
-    if qp.band is None:
-        raise NotImplementedError(
-            "the CUDA kernels need a banded A^T D A (band offset is None)")
-    return _qp_config(qp.tables_host, qp.nz, qp.nmono, qp.gens.shape[1],
-                      qp.n, qp.mc, qp.p, qp.m, qp.band)
-
-
-@functools.lru_cache(maxsize=None)
-def _qp_config(tables, nz, nmono, ncp, n, mc, p, m, band) -> str:
-    stmts = []
-    base_prev, base = 0, nz
-    for par, dim in tables:
-        for r in range(len(par)):
-            stmts.append(f"f[{base + r}] = f[{base_prev + par[r]}] * "
-                         f"f[{dim[r]}];")
-        base_prev, base = base, base + len(par)
-    lines = [
-        f"#define KM_NZ {nz}", f"#define KM_NMONO {nmono}",
-        f"#define KM_NCP {ncp}", f"#define KM_N {n}", f"#define KM_MC {mc}",
-        f"#define KM_P {p}", f"#define KM_M {m}", f"#define KM_BAND {band}",
-        f"#define KM_THREADS {THREADS}",
-        "#define KM_LIFT_FEATURES(f) do { " + " ".join(stmts) + " } while (0)",
-    ]
-    return "\n".join(lines) + "\n"
+    interior point's dimensions, the bilinear assembly's and the poly
+    lift (``_build.lift_config``)."""
+    return (cons_config(qp.cons) + _build.defines(KM_P=qp.p, KM_M=qp.m)
+            + _build.lift_config(qp.tables_host, qp.nz, qp.nmono,
+                                 qp.gens.shape[1]))
 
 
 class QPStruct(ctypes.Structure):
     """``km::QP`` of csrc/kmpc_device.cuh."""
 
-    _fields_ = [(k, ctypes.c_void_p) for k in
-                ("gens", "rdiag", "A", "cFr", "F0r", "Wd", "Wo")]
+    _fields_ = ([(k, ctypes.c_void_p) for k in
+                 ("gens", "rdiag", "cFr", "F0r")]
+                + [("con", ConsStruct)])
 
     @classmethod
     def of(cls, qp: LiftQP) -> "QPStruct":
-        return cls(*(getattr(qp, k).data_ptr() for k, _ in cls._fields_))
+        return cls(qp.gens.data_ptr(), qp.rdiag.data_ptr(),
+                   qp.cFr.data_ptr(), qp.F0r.data_ptr(),
+                   ConsStruct.of(qp.cons))
 
 
 class BilinLiftArgs(ctypes.Structure):
@@ -192,7 +169,7 @@ def solve_qp_bilinear_lifted(qp: LiftQP, zeta, u_prev, sqYr,
                                 sqYr.contiguous(), iters, slack_floor)
     b = qp.cFr[:, None] - qp.F0r @ u_prev
     c = qp_constants(zeta.dtype)
-    ok, gap = ok_mask(qp, b, x, s, lam, c.tol, c.gap_sane)
+    ok, gap = ok_mask(qp.cons, b, x, s, lam, c.tol, c.gap_sane)
     finite = torch.isfinite(x).all(0)
     x = torch.where(finite, x, torch.full_like(x, float("nan")))
     return QPSolution(x=x, lam=lam * obj / qp.row[:, None], ok=ok, gap=gap)

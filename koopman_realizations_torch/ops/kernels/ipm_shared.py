@@ -1,0 +1,161 @@
+"""Interior-point QP with a lane-shared Hessian: the CUDA kernel
+``csrc/ipm_shared.cu`` and its plain PyTorch version.
+
+Replaces the TPU kernel ``_ipm_kernel``
+(``koopman_realizations_tpu/ops/pallas/qp_ipm.py:299``) in its
+lane-shared-P mode, reached through ``solve_qp_shared_batched(
+shared_P=True)`` (:411) from ``ops/qp.py:_pallas_routed_solver`` (:1204)
+when ``LinearKmpc.solve`` (``control/kmpc.py:492-522``) runs over a batch
+of lanes: the Mehrotra loop against a host-equilibrated Hessian P / obj
+shared by every lane, lane-shared row-equilibrated constraints with the
+banded A^T D A, per-lane gradient, right-hand side and primal start, cold
+duals.  The kernel is compute-bound on the card (~3e4 operations per lane
+on ~0.7 KB of lane data); see the note in the source.  The TPU kernel's
+per-lane-P, factored (+q0), warm-dual and dense A^T D A modes are not
+ported.
+
+``ipm_shared`` takes the plain version only for tensors on the CPU; for
+CUDA tensors it launches the kernel or raises.  ``solve_qp_shared`` adds
+the JAX wrapper's equilibration and epilogue (objective scale, row scale,
+slack floor, ok mask, non-finite x to NaN, multipliers in original units).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from koopman_realizations_torch.ops.kernels import _build
+from koopman_realizations_torch.ops.qp import (
+    Constraints,
+    QPSolution,
+    mehrotra_loop,
+    ok_mask,
+    qp_constants,
+)
+
+SOURCE = "ipm_shared.cu"
+THREADS = 128
+
+
+class ConsStruct(ctypes.Structure):
+    """``km::Cons`` of csrc/kmpc_device.cuh."""
+
+    _fields_ = [(k, ctypes.c_void_p) for k in ("A", "Wd", "Wo")]
+
+    @classmethod
+    def of(cls, cons: Constraints) -> "ConsStruct":
+        return cls(*(getattr(cons, k).data_ptr() for k, _ in cls._fields_))
+
+
+class IpmSharedArgs(ctypes.Structure):
+    _fields_ = ([("con", ConsStruct)]
+                + [(k, ctypes.c_void_p) for k in
+                   ("Psh", "q", "b", "x0", "x", "s", "lam")]
+                + [("B", ctypes.c_longlong), ("iters", ctypes.c_int),
+                   ("slack_floor", ctypes.c_float)])
+
+
+def cons_config(cons: Constraints) -> str:
+    """``#define`` lines of the interior point's dimensions; the kernels
+    form A^T D A from the banded tables only."""
+    if cons.band is None:
+        raise NotImplementedError(
+            "the CUDA kernels need a banded A^T D A (band offset is None)")
+    return _build.defines(KM_N=cons.n, KM_MC=cons.mc, KM_BAND=cons.band,
+                          KM_THREADS=THREADS)
+
+
+def kernel_spec(cons: Constraints) -> _build.KernelSpec:
+    return _build.KernelSpec(SOURCE, cons_config(cons))
+
+
+def check_cuda_f32(*tensors):
+    """The kernels take contiguous float32 tensors on one CUDA device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or dev.type != "cuda" \
+                or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(
+                "CUDA kernels take contiguous float32 tensors on one CUDA "
+                f"device (got {t.dtype} {t.device} "
+                f"contiguous={t.is_contiguous()})")
+
+
+# ---------------------------------------------------------------- kernel
+
+
+def ipm_shared_cuda(cons: Constraints, Psh, q, b, x0, iters: int,
+                    slack_floor: float):
+    """Launch ``ipm_shared_kernel`` on the current stream; returns
+    (x, s, lam).  Counts its launches in ``ipm_shared_cuda.launches``."""
+    n, mc = cons.n, cons.mc
+    B = q.shape[1]
+    check_cuda_f32(q, Psh, b, x0, cons.A, cons.Wd, cons.Wo)
+    if Psh.shape != (n, n) or q.shape != (n, B) or b.shape != (mc, B) \
+            or x0.shape != (n, B):
+        raise ValueError("ipm_shared: operand shapes do not match the QP")
+    lib = _build.load(kernel_spec(cons))
+    x = torch.empty((n, B), dtype=q.dtype, device=q.device)
+    s = torch.empty((mc, B), dtype=q.dtype, device=q.device)
+    lam = torch.empty_like(s)
+    args = IpmSharedArgs(
+        ConsStruct.of(cons), Psh.data_ptr(), q.data_ptr(), b.data_ptr(),
+        x0.data_ptr(), x.data_ptr(), s.data_ptr(), lam.data_ptr(), B,
+        int(iters), float(slack_floor))
+    fn = lib.km_ipm_shared
+    fn.argtypes = [ctypes.POINTER(IpmSharedArgs), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(ctypes.byref(args),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ipm_shared kernel launch failed: CUDA error "
+                           f"{rc}")
+    ipm_shared_cuda.launches += 1
+    return x, s, lam
+
+
+ipm_shared_cuda.launches = 0
+
+
+def ipm_shared_plain(cons: Constraints, Psh, q, b, x0, iters: int,
+                     slack_floor: float):
+    """Plain PyTorch version of the kernel: (x, s, lam)."""
+    c = qp_constants(q.dtype)
+    Pr = Psh + c.reg * torch.eye(cons.n, dtype=q.dtype, device=q.device)
+    return mehrotra_loop(cons, iters, slack_floor, Pr, q, b, x0,
+                         torch.ones_like(b), c.mu_floor)
+
+
+def ipm_shared(cons: Constraints, Psh, q, b, x0, iters: int,
+               slack_floor: float):
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    if q.is_cuda:
+        return ipm_shared_cuda(cons, Psh, q, b, x0, iters, slack_floor)
+    return ipm_shared_plain(cons, Psh, q, b, x0, iters, slack_floor)
+
+
+def solve_qp_shared(P, q, cons: Constraints, b,
+                    x0: Optional[torch.Tensor] = None,
+                    iters: int = 10) -> QPSolution:
+    """Batched QP min 1/2 x'Px + q'x s.t. A x <= b with P (n, n) and A
+    shared by every lane (``solve_qp_shared_batched(shared_P=True)``,
+    qp_ipm.py:411-560), lanes-minor: q (n, B) and b (mc, B) in original
+    units, ``cons`` the row-equilibrated A, x0 (n, B) the primal start
+    (None: zeros with the cold slack floor 1).  Duals start cold."""
+    obj = torch.clamp(P.abs().amax(), min=1e-8)
+    iobj = 1.0 / obj
+    slack_floor = 1.0 if x0 is None else 1e-2
+    if x0 is None:
+        x0 = torch.zeros_like(q)
+    b_eq = (b / cons.row[:, None]).contiguous()
+    x, s, lam = ipm_shared(cons, (P * iobj).contiguous(),
+                           (q * iobj).contiguous(), b_eq, x0.contiguous(),
+                           iters, slack_floor)
+    c = qp_constants(q.dtype)
+    ok, gap = ok_mask(cons, b_eq, x, s, lam, c.tol, c.gap_sane)
+    finite = torch.isfinite(x).all(0)
+    x = torch.where(finite, x, torch.full_like(x, float("nan")))
+    return QPSolution(x=x, lam=lam * obj / cons.row[:, None], ok=ok, gap=gap)

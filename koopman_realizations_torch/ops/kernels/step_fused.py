@@ -1,5 +1,7 @@
 """One closed-loop MPC step per launch: the CUDA kernel
-``csrc/step_fused.cu`` and its plain PyTorch version.
+``csrc/step_fused.cu`` and its plain PyTorch version, and what the fused
+steps of both controllers share (``FusedStepBase``; the linear one is in
+``linear_step_fused.py``).
 
 Replaces the TPU kernel ``_step_kernel``
 (``koopman_realizations_tpu/ops/pallas/step_fused.py:90``, with
@@ -43,7 +45,7 @@ SOURCE = "step_fused.cu"
 
 
 class StepCarry(NamedTuple):
-    """Lanes-minor closed-loop carry of the fused step."""
+    """Lanes-minor closed-loop carry of the fused steps."""
 
     ysc: torch.Tensor     # (ny, B) scaled outputs == zeta
     upsc: torch.Tensor    # (m, B) previous input, scaled
@@ -51,18 +53,31 @@ class StepCarry(NamedTuple):
     w: torch.Tensor       # (2, B) loads (constant)
     alive: torch.Tensor   # (B,) 1.0 alive / 0.0 frozen
     x0: torch.Tensor      # (n, B) next primal start
-    lamc: torch.Tensor    # (mc, B) dual carry, row-equilibrated * obj
+    lamc: torch.Tensor    # (mc, B) dual carry
     yp: torch.Tensor      # (nproj, B) tracked outputs
 
 
+OUT_FIELDS = ("ysc", "upsc", "xpl", "alive", "x0", "lamc", "yp")
+
+
+class StepIOStruct(ctypes.Structure):
+    """``km::StepIO`` of csrc/kmpc_device.cuh: the carry's inputs, then
+    its outputs (``w`` is not written)."""
+
+    _fields_ = [(k, ctypes.c_void_p) for k in
+                StepCarry._fields + tuple(f + "_o" for f in OUT_FIELDS)]
+
+    @classmethod
+    def of(cls, c: StepCarry, out: StepCarry) -> "StepIOStruct":
+        return cls(*(t.data_ptr() for t in c),
+                   *(getattr(out, f).data_ptr() for f in OUT_FIELDS))
+
+
 class StepArgs(ctypes.Structure):
-    _fields_ = ([("qp", QPStruct)]
-                + [(k, ctypes.c_void_p) for k in
-                   ("Pwarm", "ysc", "upsc", "xpl", "w", "alive", "x0",
-                    "lamc", "yp", "sqYr", "ysc_o", "upsc_o", "xpl_o",
-                    "alive_o", "x0_o", "lamc_o", "yp_o")]
-                + [("B", ctypes.c_longlong), ("sqYr_lanes", ctypes.c_int),
-                   ("iters", ctypes.c_int)])
+    _fields_ = [("qp", QPStruct), ("Pwarm", ctypes.c_void_p),
+                ("sqYr", ctypes.c_void_p), ("io", StepIOStruct),
+                ("B", ctypes.c_longlong), ("sqYr_lanes", ctypes.c_int),
+                ("iters", ctypes.c_int)]
 
 
 def pwarm_matrix(Sel, Tb, Np: int, m: int) -> np.ndarray:
@@ -75,9 +90,12 @@ def pwarm_matrix(Sel, Tb, Np: int, m: int) -> np.ndarray:
     return np.asarray(Sel) @ S_rows @ np.asarray(Tb)
 
 
-class StepFused:
-    """The fused step of one controller/plant pair (``build_step_fused``):
-    device operands, the initial carry and ``step``."""
+class FusedStepBase:
+    """What the fused steps of both controllers share (the JAX
+    ``build_step_fused`` / ``build_linear_step_fused`` pair): the plant
+    and the scaler, the carry, the plant half of the kernel
+    configuration, the plain plant/freeze/carry tail
+    (``_plant_freeze_epilogue``) and the launch-side carry checks."""
 
     def __init__(self, mpc, arm, scaler):
         cfg = arm.cfg
@@ -85,30 +103,33 @@ class StepFused:
             raise NotImplementedError(
                 "the fused step takes marker outputs and jac_mode 'step'")
         self.mpc, self.arm, self.scaler = mpc, arm, scaler
-        self.qp = mpc.lift_qp()
+        self.cons = mpc.constraints()
         self.iters = int(mpc.cfg.qp_iters)
         self.proj_idx = tuple(mpc.proj_idx)
-        dev, dt = self.qp.gens.device, self.qp.gens.dtype
+        self.dtype, self.device = mpc.dtype, mpc.device
         self.Pwarm = torch.as_tensor(
-            pwarm_matrix(mpc.Sel, mpc.Tb, mpc.Np, mpc.m), dtype=dt,
-            device=dev)
+            pwarm_matrix(mpc.Sel, mpc.Tb, mpc.Np, mpc.m), dtype=self.dtype,
+            device=self.device)
         self._spec = None
 
     # ------------------------------------------------------------ carry
+
+    def lam_init(self, B: int) -> torch.Tensor:
+        """The dual carry at step 0, (mc, B)."""
+        raise NotImplementedError
 
     def init_carry(self, X0, W) -> StepCarry:
         """Carry at step 0 from initial plant states X0 (B, nx) and loads
         W (B, 2), row-major as the JAX runner takes them; the previous
         input is zero."""
-        qp, sc = self.qp, self.scaler
-        dev, dt = qp.gens.device, qp.gens.dtype
+        sc, dev, dt = self.scaler, self.device, self.dtype
+        m, n = self.mpc.m, self.cons.n
         X0 = torch.as_tensor(np.asarray(X0), dtype=dt, device=dev).T
         B = X0.shape[1]
         y0 = self.arm.get_y(X0)
         ysc0 = sc.y_down(y0.double(), axis=0).to(dt)
-        u0_sc = torch.as_tensor(sc.u_down(np.zeros(qp.m)), dtype=dt,
+        u0_sc = torch.as_tensor(sc.u_down(np.zeros(m)), dtype=dt,
                                 device=dev)
-        nf = qp.n // qp.m
         ones = torch.ones(B, dtype=dt, device=dev)
         return StepCarry(
             ysc=ysc0.contiguous(),
@@ -117,8 +138,8 @@ class StepFused:
             w=torch.as_tensor(np.asarray(W), dtype=dt,
                               device=dev).T.contiguous(),
             alive=ones.clone(),
-            x0=(u0_sc.repeat(nf)[:, None] * ones).contiguous(),
-            lamc=(qp.row[:, None] * ones).contiguous(),
+            x0=(u0_sc.repeat(n // m)[:, None] * ones).contiguous(),
+            lamc=self.lam_init(B).contiguous(),
             yp=y0[list(self.proj_idx)].contiguous())
 
     # ------------------------------------------------------------ config
@@ -129,6 +150,11 @@ class StepFused:
         return self._spec
 
     def _make_spec(self) -> _build.KernelSpec:
+        raise NotImplementedError
+
+    def plant_config(self) -> str:
+        """``#define`` lines of the plant half of a step kernel: the arm's
+        constants as exact f32 literals, the scaler and the outputs."""
         cfg = self.arm.cfg
         G, b = self.arm.G_host, self.arm.b_host
         sc, hexf, arr = self.scaler, _build.hexf, _build.c_array
@@ -158,18 +184,18 @@ class StepFused:
             f"#define KM_YF {arr(np.asarray(sc.y_factor).ravel())}",
             f"#define KM_YO {arr(np.asarray(sc.y_offset).ravel())}",
         ]
-        return _build.KernelSpec(SOURCE,
-                                 qp_config(self.qp) + "\n".join(plant) + "\n")
+        return "\n".join(plant) + "\n"
 
     # -------------------------------------------------------------- step
 
-    def step(self, c: StepCarry, sqYr, out: Optional[StepCarry] = None):
-        """One closed-loop step.  CUDA carries launch the kernel (writing
-        into ``out``, which may be the input carry itself); CPU carries run
-        the plain version.  Returns the new carry."""
+    def step(self, c: StepCarry, v, out: Optional[StepCarry] = None):
+        """One closed-loop step with this step's reference operand ``v``.
+        CUDA carries launch the kernel (writing into ``out``, which may be
+        the input carry itself); CPU carries run the plain version.
+        Returns the new carry."""
         if c.ysc.is_cuda:
-            return step_fused_cuda(self, c, sqYr, out)
-        new = self.step_plain(c, sqYr)
+            return self.launch(c, v, out)
+        new = self.step_plain(c, v)
         if out is None:
             return new
         for dst, src in zip(out, new):
@@ -177,13 +203,15 @@ class StepFused:
                 dst.copy_(src)
         return out
 
-    def step_plain(self, c: StepCarry, sqYr) -> StepCarry:
-        """Plain PyTorch version of the kernel (step_fused.py:90-182)."""
-        qp, sc, arm = self.qp, self.scaler, self.arm
-        const = qp_constants(c.ysc.dtype)
-        x, s, lam, obj, b = qp_core_plain(qp, c.ysc, c.upsc, sqYr, c.x0,
-                                          c.lamc, self.iters, 1e-2)
-        ok, _ = ok_mask(qp, b, x, s, lam, const.tol, const.gap_sane)
+    def launch(self, c: StepCarry, v, out: Optional[StepCarry]):
+        raise NotImplementedError
+
+    def step_plain(self, c: StepCarry, v) -> StepCarry:
+        raise NotImplementedError
+
+    def finish_plain(self, c: StepCarry, ok, x, lam_carry) -> StepCarry:
+        """The plain plant/freeze/carry tail (step_fused.py:150-182)."""
+        sc, arm = self.scaler, self.arm
         xs = arm.step(c.xpl, sc.u_up(c.upsc, axis=0), c.w)
         fin = torch.isfinite(xs).all(0)
         y = arm.get_y(xs)
@@ -191,13 +219,59 @@ class StepFused:
         sel = lambda new, old: torch.where(keep, new, old)
         return StepCarry(
             ysc=sel(sc.y_down(y, axis=0), c.ysc),
-            upsc=sel(x[:qp.m], c.upsc),
+            upsc=sel(x[:self.mpc.m], c.upsc),
             xpl=sel(xs, c.xpl),
             w=c.w,
             alive=keep.to(c.alive.dtype),
             x0=sel(self.Pwarm @ x, c.x0),
-            lamc=sel(lam * obj, c.lamc),
+            lamc=sel(lam_carry, c.lamc),
             yp=sel(y[list(self.proj_idx)], c.yp))
+
+    def checked_out(self, c: StepCarry, out: Optional[StepCarry],
+                    name: str) -> StepCarry:
+        """The output carry of a launch (new tensors when ``out`` is
+        None), with both carries' shapes checked."""
+        if out is None:
+            out = StepCarry(*(torch.empty_like(t) for t in c))
+        B = c.ysc.shape[1]
+        cfg = self.arm.cfg
+        shapes = [(cfg.ny, B), (self.mpc.m, B), (cfg.nx, B), (2, B), (B,),
+                  (self.cons.n, B), (self.cons.mc, B),
+                  (len(self.proj_idx), B)]
+        for t, o, shp in zip(c, out, shapes):
+            if tuple(t.shape) != shp or tuple(o.shape) != shp:
+                raise ValueError(f"{name}: carry shape {tuple(t.shape)}, "
+                                 f"expected {shp}")
+        return out
+
+
+class StepFused(FusedStepBase):
+    """The fused step of the bilinear controller (``build_step_fused``):
+    device operands, the initial carry and ``step``, whose reference
+    operand is sqrt(Q) * Yr, (p,) shared or (p, B) per lane."""
+
+    def __init__(self, mpc, arm, scaler):
+        super().__init__(mpc, arm, scaler)
+        self.qp = mpc.lift_qp()
+
+    def lam_init(self, B: int) -> torch.Tensor:
+        return self.qp.row[:, None].expand(self.qp.mc, B)
+
+    def _make_spec(self) -> _build.KernelSpec:
+        return _build.KernelSpec(SOURCE,
+                                 qp_config(self.qp) + self.plant_config())
+
+    def launch(self, c, sqYr, out=None):
+        return step_fused_cuda(self, c, sqYr, out)
+
+    def step_plain(self, c: StepCarry, sqYr) -> StepCarry:
+        """Plain PyTorch version of the kernel (step_fused.py:90-182)."""
+        qp = self.qp
+        const = qp_constants(c.ysc.dtype)
+        x, s, lam, obj, b = qp_core_plain(qp, c.ysc, c.upsc, sqYr, c.x0,
+                                          c.lamc, self.iters, 1e-2)
+        ok, _ = ok_mask(qp.cons, b, x, s, lam, const.tol, const.gap_sane)
+        return self.finish_plain(c, ok, x, lam * obj)
 
 
 def step_fused_cuda(op: StepFused, c: StepCarry, sqYr,
@@ -206,27 +280,14 @@ def step_fused_cuda(op: StepFused, c: StepCarry, sqYr,
     launches in ``step_fused_cuda.launches``."""
     qp = op.qp
     B = c.ysc.shape[1]
-    if out is None:
-        out = StepCarry(*(torch.empty_like(t) for t in c))
+    out = op.checked_out(c, out, "step_fused")
     check_operands(qp, op.Pwarm, sqYr, *c, *out)
-    cfg = op.arm.cfg
-    shapes = [(cfg.ny, B), (qp.m, B), (cfg.nx, B), (2, B), (B,),
-              (qp.n, B), (qp.mc, B), (len(op.proj_idx), B)]
-    for t, o, shp in zip(c, out, shapes):
-        if tuple(t.shape) != shp or tuple(o.shape) != shp:
-            raise ValueError(f"step_fused: carry shape {tuple(t.shape)}, "
-                             f"expected {shp}")
     if sqYr.shape[0] != qp.p:
         raise ValueError("step_fused: sqYr must have p rows")
     lib = _build.load(op.kernel_spec())
-    args = StepArgs(
-        QPStruct.of(qp), op.Pwarm.data_ptr(),
-        *(t.data_ptr() for t in (c.ysc, c.upsc, c.xpl, c.w, c.alive, c.x0,
-                                 c.lamc, c.yp)),
-        sqYr.data_ptr(),
-        *(t.data_ptr() for t in (out.ysc, out.upsc, out.xpl, out.alive,
-                                 out.x0, out.lamc, out.yp)),
-        B, int(sqYr.ndim == 2), op.iters)
+    args = StepArgs(QPStruct.of(qp), op.Pwarm.data_ptr(), sqYr.data_ptr(),
+                    StepIOStruct.of(c, out), B, int(sqYr.ndim == 2),
+                    op.iters)
     fn = lib.km_step_fused
     fn.argtypes = [ctypes.POINTER(StepArgs), ctypes.c_void_p]
     fn.restype = ctypes.c_int

@@ -1,4 +1,4 @@
-"""Plain lanes-minor device functions of the bilinear MPC's QP.
+"""Plain lanes-minor device functions of the MPC QPs.
 
 Each function here is the plain PyTorch counterpart of a device function
 the CUDA kernels share (``csrc/kmpc_device.cuh``), and of the Pallas code
@@ -13,6 +13,11 @@ of the JAX package (``ops/pallas/qp_ipm.py``):
 - ``mehrotra_loop``  <- ``_mehrotra_loop``       (:236-296)
 - ``ok_mask``        <- the solve epilogue (qp_ipm.py:986-995; in-kernel
   at step_fused.py:137-141)
+
+The interior point takes its lane-shared constraint rows as a
+``Constraints`` (row-equilibrated A and its banded A^T D A tables), which
+the lift-fused bilinear QP (``LiftQP.cons``) and the linear controller's
+QP share; its Hessian is per lane (n, n, B) or lane-shared (n, n).
 
 Layout: the batch is the LAST axis -- vectors are (rows, B), matrices
 (n, n, B); lane-shared constraint rows A are (mc, n).  The assembly runs in
@@ -30,6 +35,15 @@ import numpy as np
 import torch
 
 from koopman_realizations_torch.ops.observables import poly_features
+
+
+class QPSolution(NamedTuple):
+    """A batched solve's result, lanes-minor (the JAX ``QPSolution``)."""
+
+    x: torch.Tensor      # (n, B) primal solution, NaN where not finite
+    lam: torch.Tensor    # (mc, B) multipliers in original units
+    ok: torch.Tensor     # (B,) bool
+    gap: torch.Tensor    # (B,) final complementarity gap
 
 
 class QPConstants(NamedTuple):
@@ -62,6 +76,38 @@ def band_offset_of(A) -> Optional[int]:
     if len(offs) == 1:
         return int(offs.pop())
     return None
+
+
+class Constraints(NamedTuple):
+    """Lane-shared constraint rows of a batched QP, row-equilibrated:
+    A = F / row, with the banded A^T D A tables Wd (n, mc) and Wo
+    (n - band, mc) (Wo unused when ``band`` is 0, zeros when None)."""
+
+    A: torch.Tensor
+    row: torch.Tensor
+    Wd: torch.Tensor
+    Wo: torch.Tensor
+    n: int
+    mc: int
+    band: Optional[int]
+
+
+def constraint_tables(F, band):
+    """(row, A_eq, Wd, Wo) of host constraint rows F (mc, n), f64 numpy:
+    the row scale max(|F_c|, 1e-10), the equilibrated rows and the banded
+    A^T D A contraction tables (``qp_ipm.py:464-492``)."""
+    F = np.asarray(F, np.float64)
+    mc, n = F.shape
+    row = np.maximum(np.max(np.abs(F), axis=1), 1e-10)
+    A_eq = F / row[:, None]
+    if band is None:
+        Wd = np.zeros((n, mc))
+        Wo = np.zeros((1, mc))
+    else:
+        Wd = (A_eq * A_eq).T
+        Wo = (A_eq[:, :n - band] * A_eq[:, band:]).T if band > 0 \
+            else np.zeros((1, mc))
+    return row, A_eq, Wd, Wo
 
 
 class LiftQP(NamedTuple):
@@ -97,6 +143,11 @@ class LiftQP(NamedTuple):
     def nfeat(self) -> int:
         return self.nz + self.nmono
 
+    @property
+    def cons(self) -> Constraints:
+        return Constraints(self.A, self.row, self.Wd, self.Wo, self.n,
+                           self.mc, self.band)
+
 
 def lift_qp_operands(gens: dict, tables, RdT, F_red, cF_red, F0_red, band,
                      dtype=torch.float32, device="cpu") -> LiftQP:
@@ -113,22 +164,10 @@ def lift_qp_operands(gens: dict, tables, RdT, F_red, cF_red, F0_red, band,
     nmono = np.asarray(gens["Gm"]).shape[1]
     nc = nz + nmono + 1
     ncp = -(-nc // 4) * 4
-    blocks = []
-    for key in ("G", "H", "P"):
-        z, mo, b = (np.asarray(gens[key + s], np.float64)
-                    for s in ("z", "m", "b"))
-        blk = np.zeros((z.shape[0], ncp))
-        blk[:, :nz], blk[:, nz:nz + nmono], blk[:, nz + nmono] = z, mo, b
-        blocks.append(blk)
-    row = np.maximum(np.max(np.abs(F_red), axis=1), 1e-10)
-    A_eq = F_red / row[:, None]
-    if band is None:
-        Wd = np.zeros((n, mc))
-        Wo = np.zeros((1, mc))
-    else:
-        Wd = (A_eq * A_eq).T
-        Wo = (A_eq[:, :n - band] * A_eq[:, band:]).T if band > 0 \
-            else np.zeros((1, mc))
+    blocks = [generator_block(gens[key + "z"], gens[key + "m"],
+                              gens[key + "b"], ncp)
+              for key in ("G", "H", "P")]
+    row, A_eq, Wd, Wo = constraint_tables(F_red, band)
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                   device=device)
     idx = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.long,
@@ -142,6 +181,17 @@ def lift_qp_operands(gens: dict, tables, RdT, F_red, cF_red, F0_red, band,
         F0r=t(np.asarray(F0_red) / row[:, None]), row=t(row),
         Wd=t(Wd), Wo=t(Wo), n=n, mc=mc, p=p, m=m, nz=nz, nmono=nmono,
         band=band)
+
+
+def generator_block(z, mono, bias, ncp: int) -> np.ndarray:
+    """Generator rows [z-section | monomial section | bias | 0-pad] acting
+    on the feature vector [zeta; monomials; 1] (f64)."""
+    z, mono, bias = (np.asarray(a, np.float64) for a in (z, mono, bias))
+    nz, nmono = z.shape[1], mono.shape[1]
+    blk = np.zeros((z.shape[0], ncp))
+    blk[:, :nz], blk[:, nz:nz + nmono] = z, mono
+    blk[:, nz + nmono] = bias.reshape(-1)
+    return blk
 
 
 # ----------------------------------------------------------- assembly
@@ -190,15 +240,15 @@ def diag_obj_scale(P):
 # --------------------------------------------------------- interior point
 
 
-def form_AtDA(qp: LiftQP, D):
+def form_AtDA(cons: Constraints, D):
     """A^T diag(D) A (n, n, B) for D (mc, B): banded from the Wd/Wo tables
     (``band`` = the off-diagonal offset), or dense."""
-    n, band = qp.n, qp.band
+    n, band = cons.n, cons.band
     if band is None:
-        return torch.einsum("ci,cj,cb->ijb", qp.A, qp.A, D)
-    M = _diag_lanes(qp.Wd @ D)
+        return torch.einsum("ci,cj,cb->ijb", cons.A, cons.A, D)
+    M = _diag_lanes(cons.Wd @ D)
     if band > 0:
-        og = qp.Wo @ D                                   # (n - band, B)
+        og = cons.Wo @ D                                 # (n - band, B)
         i = torch.arange(n - band, device=D.device)
         M[i, i + band] += og
         M[i + band, i] += og
@@ -255,23 +305,30 @@ def _max_step(v, dv):
     return torch.clamp(0.99 * ratio.amin(dim=0), max=1.0)
 
 
-def mehrotra_loop(qp: LiftQP, iters: int, slack_floor: float, Pr, q, b,
-                  x0, lam0, mu_floor: float):
+def mehrotra_loop(cons: Constraints, iters: int, slack_floor: float, Pr,
+                  q, b, x0, lam0, mu_floor: float):
     """Fixed-iteration Mehrotra predictor-corrector (``_mehrotra_loop``):
-    Pr (n, n, B) regularized scaled Hessian, q (n, B), b (mc, B), starts
-    x0 (n, B) and lam0 (mc, B).  Returns (x, s, lam)."""
-    A = qp.A
+    Pr the regularized scaled Hessian, per lane (n, n, B) or lane-shared
+    (n, n); q (n, B), b (mc, B), starts x0 (n, B) and lam0 (mc, B).
+    Returns (x, s, lam)."""
+    A = cons.A
     At = A.T
-    mc = qp.mc
+    mc = cons.mc
+    if Pr.ndim == 2:
+        P_shared = Pr
+        matvec_P = lambda v: P_shared @ v
+        Pr = Pr[..., None]
+    else:
+        matvec_P = lambda v: torch.einsum("ijb,jb->ib", Pr, v)
     x, lam = x0, lam0
     s = torch.clamp(b - A @ x0, min=slack_floor)
     for _ in range(iters):
         mu = (s * lam).sum(0) / mc
         r_p = A @ x + s - b
-        r_d = torch.einsum("ijb,jb->ib", Pr, x) + q + At @ lam
+        r_d = matvec_P(x) + q + At @ lam
         active = (mu > mu_floor) | (r_p.abs().amax(0) > mu_floor)
         D = torch.clamp(lam / s, 1e-14, 1e14)
-        L = chol_lanes(Pr + form_AtDA(qp, D))
+        L = chol_lanes(Pr + form_AtDA(cons, D))
 
         def direction(r_slam):
             rhs = -r_d - At @ ((-r_slam + lam * r_p) / s)
@@ -295,12 +352,12 @@ def mehrotra_loop(qp: LiftQP, iters: int, slack_floor: float, Pr, q, b,
     return x, s, lam
 
 
-def ok_mask(qp: LiftQP, b, x, s, lam, tol: float, gap_sane: float):
+def ok_mask(cons: Constraints, b, x, s, lam, tol: float, gap_sane: float):
     """Lane survives when its iterate is finite, the gap is sane and the
     primal residual is within ``tol`` of the row scale.  Returns (ok, gap)
     as (B,) tensors."""
-    gap = (s * lam).sum(0) / qp.mc
-    r_p = torch.clamp(qp.A @ x - b, min=0.0).amax(0)
+    gap = (s * lam).sum(0) / cons.mc
+    r_p = torch.clamp(cons.A @ x - b, min=0.0).amax(0)
     bmax = torch.clamp(b.abs().amax(0), min=1.0)
     ok = torch.isfinite(x).all(0) & (gap < gap_sane) & (r_p < tol * bmax)
     return ok, gap
@@ -326,6 +383,6 @@ def qp_core_plain(qp: LiftQP, zeta, up, sqYr, x0, lam0_row, iters: int,
         lam0 = torch.ones_like(b)
     else:
         lam0 = torch.sqrt(torch.clamp(lam0_row * iobj, 1e-4, 1e4))
-    x, s, lam = mehrotra_loop(qp, iters, slack_floor, Pr, q, b, x0, lam0,
-                              c.mu_floor)
+    x, s, lam = mehrotra_loop(qp.cons, iters, slack_floor, Pr, q, b, x0,
+                              lam0, c.mu_floor)
     return x, s, lam, obj, b

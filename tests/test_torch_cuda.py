@@ -13,20 +13,28 @@ import pytest
 import torch
 
 from koopman_realizations_torch.config import ArmConfig, MpcConfig
-from koopman_realizations_torch.control.kmpc import BilinearKmpc
+from koopman_realizations_torch.control.kmpc import BilinearKmpc, LinearKmpc
 from koopman_realizations_torch.control.ksim import Ksim
 from koopman_realizations_torch.models.arm import Arm
 from koopman_realizations_torch.ops.kernels import _build
+from koopman_realizations_torch.ops.kernels import ipm_shared as IS
 from koopman_realizations_torch.ops.kernels.bilin_lift import (
     bilin_lift_cuda,
     bilin_lift_plain,
     kernel_spec,
 )
+from koopman_realizations_torch.ops.kernels.linear_step_fused import (
+    build_linear_step_fused,
+)
 from koopman_realizations_torch.ops.kernels.step_fused import (
     StepCarry,
     build_step_fused,
 )
-from koopman_realizations_torch.utils.checkpoint import load_model
+from koopman_realizations_torch.ops.qp import ok_mask
+from koopman_realizations_torch.utils.checkpoint import (
+    LINEAR_MODEL,
+    load_model,
+)
 from koopman_realizations_torch.utils.metrics import lane_tracking_error
 from koopman_realizations_torch.utils.trajectories import blockM_reference
 
@@ -40,6 +48,8 @@ MPC = dict(horizon=10, qp_iters=4, qp_dual_warm=True,
            cost_input=(0.1 * 3e-2, 0.1 * 2e-2, 0.1 * 1e-2), proj_idx=(4, 5))
 ARM = dict(Nmods=3, nlinks=1, L=1.0, m=0.1, output_type="markers",
            substeps=3, newton_iters=1, jac_mode="step")
+# the linear controller (tests/test_torch_oracle.py:LINEAR_MPC)
+LINEAR = dict(MPC, qp_iters=6, qp_dual_warm=False)
 
 
 @pytest.fixture(scope="module")
@@ -139,3 +149,91 @@ def test_fused_runner_on_card_tracks(gpu):
     err = lane_tracking_error(out["Yp"], blockM_reference())
     header = load_model()[2]
     assert abs(err.mean().item() - header["jax_reference"]["err_mean"]) < 1e-3
+
+
+@pytest.fixture(scope="module")
+def gpu_linear():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, scaler, _ = load_model(LINEAR_MODEL)
+    mpc = LinearKmpc(model, scaler, MpcConfig(**LINEAR), device="cuda")
+    sim = Ksim(Arm(ArmConfig(**ARM), device="cuda"), mpc)
+    op = build_linear_step_fused(mpc, sim.plant, scaler)
+    for r in _build.build_all([IS.kernel_spec(mpc.constraints()),
+                               op.kernel_spec()]):
+        print(r.path.name, f"{r.seconds:.1f}s", *r.ptxas, sep="\n  ")
+    return sim, op
+
+
+def _linear_carry(op, sim, B, steps, seed=0):
+    """A linear carry after a few plain steps, and the fYr columns."""
+    rng = np.random.default_rng(seed)
+    X0 = np.zeros((B, 6), np.float32)
+    X0[:, 0] = np.linspace(-0.2, 0.2, B)
+    X0[:, 3:] = rng.normal(0, 0.2, (B, 3))
+    c = op.init_carry(X0, np.zeros((B, 2), np.float32))
+    win = sim.reference_windows(blockM_reference(), 40)
+    fY = op.fYr(win)
+    for k in range(steps):
+        c = op.step_plain(c, fY[k])
+    return c, win, fY
+
+
+def test_ipm_shared_kernel_matches_plain(gpu_linear):
+    """The shared-Hessian QP of the linear general path at closed-loop
+    states, kernel against plain; 1000 lanes: not a block multiple."""
+    sim, op = gpu_linear
+    mpc = sim.mpc
+    c, win, _ = _linear_carry(op, sim, 1000, 3)
+    z = mpc.lift(c.ysc)
+    f = 2.0 * mpc.CB_t.T @ (mpc.Qd_t[:, None]
+                            * (mpc.CA_t @ z - win[3][:, None]))
+    b = mpc.c_t[:, None] - mpc.Mc_t @ z
+    P, q, bz = mpc.eliminate_u0(2.0 * mpc.H_t, f, b, c.upsc)
+    cons = mpc.constraints()
+    obj = P.abs().amax()
+    b_eq = (bz / cons.row[:, None]).contiguous()
+    args = (cons, (P / obj).contiguous(), (q / obj).contiguous(), b_eq,
+            c.x0, 6, 1e-2)
+    xk, sk, lk = IS.ipm_shared_cuda(*args)
+    torch.cuda.synchronize()
+    xp, sp, lp = IS.ipm_shared_plain(*args)
+    assert torch.isfinite(xk).all()
+    assert (xk - xp).abs().max().item() < 1e-3
+    assert (lk - lp).abs().max().item() < 1e-3 * lp.abs().max().item()
+    okk = ok_mask(cons, b_eq, xk, sk, lk, 3e-3, 5e-2)[0]
+    okp = ok_mask(cons, b_eq, xp, sp, lp, 3e-3, 5e-2)[0]
+    assert torch.equal(okk, okp) and bool(okk.all())
+
+
+def test_linear_step_fused_kernel_matches_plain(gpu_linear):
+    sim, op = gpu_linear
+    c, _, fY = _linear_carry(op, sim, 1000, 2)
+    out = StepCarry(*(torch.empty_like(t) for t in c))
+    k = op.step(c, fY[2], out=out)
+    torch.cuda.synchronize()
+    p = op.step_plain(c, fY[2])
+    assert torch.equal(k.alive, p.alive) and bool(k.alive.all())
+    for f in ("upsc", "x0", "lamc"):
+        scale = max(1.0, getattr(p, f).abs().max().item())
+        d = (getattr(k, f) - getattr(p, f)).abs().max().item()
+        assert d < 1e-3 * scale, (f, d)
+    for f in ("ysc", "xpl", "yp"):
+        assert (getattr(k, f) - getattr(p, f)).abs().max().item() < 2e-2
+
+
+def test_linear_runners_on_card_track(gpu_linear):
+    """Both linear runners through their kernels, B=16 over 301 steps,
+    against the JAX general runner's err_mean in the asset header."""
+    sim, _ = gpu_linear
+    B = 16
+    X0 = np.zeros((B, 6), np.float32)
+    X0[:, 0] = np.linspace(-0.2, 0.2, B)
+    ref = load_model(LINEAR_MODEL)[2]["jax_reference"]["err_mean"]
+    for name in ("fused_runner", "batched_runner"):
+        out = getattr(sim, name)(blockM_reference(), steps=301)(
+            X0, np.zeros((B, 2), np.float32))
+        assert out["alive"].all()
+        err = lane_tracking_error(out["Yp"], blockM_reference())
+        assert abs(err.mean().item() - ref) < 1e-3, (name, err.mean())

@@ -6,15 +6,29 @@ side once per process -- the bench controller, the arm plant, the closed
 loop -- from the committed model asset, and other ``tests/test_torch_*.py``
 files import these helpers.
 
-The asset is the JAX trainer's output on the in-repo generated corpus
-(the MATLAB datafile the bench was tuned on is not part of the repo):
+The two model assets are the JAX trainer's output on the in-repo
+generated corpus (the MATLAB datafile the bench was tuned on is not part
+of the repo):
 
     python tests/test_torch_oracle.py --write-asset
 
-regenerates it: ``generate(15, 60.0, n_val=5, seed=0)`` ->
-``Ksysid`` bilinear poly-3 with PCA, f32 -> ``save_model``, plus the JAX
-general runner's tracking error at B=16 over 301 steps in the header, so
-the GPU smoke run can gate on it without JAX.
+regenerates both: ``generate(15, 60.0, n_val=5, seed=0)`` -> ``Ksysid``
+poly-3 with PCA, f32 -> ``save_model``, once bilinear
+(``arm3_bilinear_poly3.npz``, the bench controller ``BENCH_MPC``) and once
+linear (``arm3_linear_poly3.npz``, the linear controller ``LINEAR_MPC``),
+each with the JAX general runner's tracking error at B=16 over 301 steps
+in its header, so the GPU smoke run can gate on it without JAX.
+
+The linear controller runs ``qp_iters=6`` with cold duals.  The JAX
+package's "verified linear floor" of 3 iterations
+(``ops/pallas/step_fused.py:201,244``, ``tests/test_step_fused.py:98``)
+belongs to the MATLAB datafile's model: on this corpus's linear model
+(NL=28, spectral radius 1.0000) the JAX general runner at B=16 over 301
+blockM steps (x64, CPU) loses every lane between steps 59 and 62 at
+``qp_iters=3`` and at 4 (alive 0.0), keeps them all from 5 on (err_mean
+0.63318 at 5, 0.63300 at 6, 0.63317 at 8, 0.63318 at 12).  6 is one
+iteration above the 16-lane edge, because iteration floors move with
+batch size and precision.
 """
 
 from __future__ import annotations
@@ -45,8 +59,9 @@ from koopman_realizations_tpu.config import (  # noqa: E402
     SysidConfig,
 )
 
-ASSET = ROOT / "koopman_realizations_torch" / "assets" / \
-    "arm3_bilinear_poly3.npz"
+ASSETS = ROOT / "koopman_realizations_torch" / "assets"
+ASSET = ASSETS / "arm3_bilinear_poly3.npz"
+LINEAR_ASSET = ASSETS / "arm3_linear_poly3.npz"
 
 # the bench controller (bench.py:95-105 at its defaults)
 BENCH_MPC = dict(
@@ -55,6 +70,9 @@ BENCH_MPC = dict(
     input_bounds=(-7 * np.pi / 8, 7 * np.pi / 8), input_slopeConst=1e-1,
     cost_running=10.0, cost_terminal=100.0,
     cost_input=(0.1 * 3e-2, 0.1 * 2e-2, 0.1 * 1e-2), proj_idx=(4, 5))
+# the linear controller: the bench's horizon, blocks, bounds and costs
+# (tests/test_step_fused.py:97-102) at qp_iters=6, cold duals (see above)
+LINEAR_MPC = dict(BENCH_MPC, qp_iters=6, qp_dual_warm=False)
 # the bench plant (bench.py:118-122)
 BENCH_ARM = dict(Nmods=3, nlinks=1, L=1.0, m=0.1, output_type="markers",
                  substeps=3, newton_iters=1, jac_mode="step")
@@ -86,40 +104,47 @@ def lane_errors(Yp, ref_y, steps: int):
     return np.sqrt(((Yl - Rl) ** 2).sum(-1)).mean(axis=1)
 
 
+MODELS = {"bilinear": (ASSET, BENCH_MPC), "linear": (LINEAR_ASSET,
+                                                     LINEAR_MPC)}
+
+
 @functools.lru_cache(maxsize=None)
-def jax_model():
-    """(model, scaler) of the committed asset, through the JAX loader."""
+def jax_model(kind: str = "bilinear"):
+    """(model, scaler) of a committed asset, through the JAX loader."""
     from koopman_realizations_tpu.utils.checkpoint import load_model
-    return load_model(str(ASSET))
+    return load_model(str(MODELS[kind][0]))
 
 
 @functools.lru_cache(maxsize=None)
-def jax_bench():
-    """(Ksim, BilinearKmpc, Arm) of the JAX package at the bench config."""
+def jax_bench(kind: str = "bilinear"):
+    """(Ksim, controller, Arm) of the JAX package: the bench controller on
+    the bilinear asset, or the linear controller on the linear one."""
     from koopman_realizations_tpu.control import Ksim, make_kmpc
     from koopman_realizations_tpu.models.arm import Arm
-    model, scaler = jax_model()
-    mpc = make_kmpc(model, scaler, MpcConfig(**BENCH_MPC))
+    model, scaler = jax_model(kind)
+    mpc = make_kmpc(model, scaler, MpcConfig(**MODELS[kind][1]))
     arm = Arm(ArmConfig(**BENCH_ARM))
     return Ksim(arm, mpc), mpc, arm
 
 
+@functools.lru_cache(maxsize=None)
 def generate_corpus():
     from examples.generate_arm_data import generate
     return generate(CORPUS["trials"], CORPUS["tf"], n_val=CORPUS["n_val"],
                     seed=CORPUS["seed"])
 
 
-def train_jax(ds):
+def train_jax(ds, kind: str = "bilinear"):
     from koopman_realizations_tpu.models.edmd import Ksysid
-    return Ksysid(ds, SysidConfig(model_type="bilinear", obs_type=("poly",),
+    return Ksysid(ds, SysidConfig(model_type=kind, obs_type=("poly",),
                                   obs_degree=(3,), dim_red=True,
                                   dtype="float32")).train_models()
 
 
 def one_step_predictions(model, valdata) -> np.ndarray:
-    """Scaled one-step output predictions C (A z + Beta(z) u) over every
-    validation step -- invariant to PCA component signs."""
+    """Scaled one-step output predictions C (A z + B u) (linear) or
+    C (A z + Beta(z) u) (bilinear) over every validation step -- invariant
+    to PCA component signs."""
     out = []
     for tr in valdata:
         zeta = np.asarray(tr.y, np.float64)[:-1]
@@ -128,48 +153,58 @@ def one_step_predictions(model, valdata) -> np.ndarray:
         A = np.asarray(model.A, np.float64)
         Bm = np.asarray(model.B, np.float64)
         C = np.asarray(model.C, np.float64)
-        z1 = z @ A.T + np.einsum("kmj,tj,tm->tk", Bm, z, u)
+        if Bm.ndim == 2:
+            z1 = z @ A.T + u @ Bm.T
+        else:
+            z1 = z @ A.T + np.einsum("kmj,tj,tm->tk", Bm, z, u)
         out.append(z1 @ C.T)
     return np.concatenate(out)
 
 
 @functools.lru_cache(maxsize=None)
-def jax_general_run(B: int, steps: int):
-    """The JAX general runner at the bench config: (Yp, alive) as numpy."""
-    sim, _, _ = jax_bench()
+def jax_general_run(B: int, steps: int, kind: str = "bilinear"):
+    """The JAX general runner on one asset: (Yp, alive) as numpy."""
+    sim, _, _ = jax_bench(kind)
     run = sim.batched_runner(blockM_y(), steps=steps, record=("Yp", "alive"))
     out = jax.block_until_ready(
         run(bench_X0(B), np.zeros((B, 2), np.float32)))
     return np.asarray(out["Yp"]), np.asarray(out["alive"])
 
 
-def write_asset() -> dict:
-    """Train on the generated corpus and write the asset (see module doc)."""
+def write_assets() -> dict:
+    """Train on the generated corpus and write both assets (see module
+    doc); returns their headers."""
     from koopman_realizations_tpu.utils.checkpoint import save_model
-    ks = train_jax(generate_corpus())
-    ASSET.parent.mkdir(parents=True, exist_ok=True)
-    save_model(str(ASSET), ks.model, ks.scaler, overwrite=True)
-    jax_model.cache_clear()
-    jax_bench.cache_clear()
-    jax_general_run.cache_clear()
-    Yp, alive = jax_general_run(REF_B, REF_STEPS)
-    err = lane_errors(Yp, blockM_y(), REF_STEPS)
-    data = dict(np.load(ASSET, allow_pickle=False))
-    header = json.loads(str(data.pop("header")))
-    header["provenance"] = {
-        "corpus": "examples/generate_arm_data.py:generate"
-                  "(15, 60.0, n_val=5, seed=0)",
-        "sysid": "Ksysid bilinear poly-3 dim_red=True dtype=float32",
-        "written_by": "python tests/test_torch_oracle.py --write-asset",
-    }
-    header["jax_reference"] = {
-        "runner": "Ksim.batched_runner (x64 session, CPU)",
-        "B": REF_B, "steps": REF_STEPS,
-        "alive": float(alive[:, -1].mean()),
-        "err_mean": float(err.mean()), "err_worst": float(err.max()),
-    }
-    np.savez(ASSET, header=json.dumps(header), **data)
-    return header
+    ds = generate_corpus()
+    headers = {}
+    for kind, (path, mpc_cfg) in MODELS.items():
+        ks = train_jax(ds, kind)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        save_model(str(path), ks.model, ks.scaler, overwrite=True)
+        jax_model.cache_clear()
+        jax_bench.cache_clear()
+        jax_general_run.cache_clear()
+        Yp, alive = jax_general_run(REF_B, REF_STEPS, kind)
+        err = lane_errors(Yp, blockM_y(), REF_STEPS)
+        data = dict(np.load(path, allow_pickle=False))
+        header = json.loads(str(data.pop("header")))
+        header["provenance"] = {
+            "corpus": "examples/generate_arm_data.py:generate"
+                      "(15, 60.0, n_val=5, seed=0)",
+            "sysid": f"Ksysid {kind} poly-3 dim_red=True dtype=float32",
+            "written_by": "python tests/test_torch_oracle.py --write-asset",
+        }
+        header["jax_reference"] = {
+            "runner": "Ksim.batched_runner (x64 session, CPU)",
+            "controller": f"qp_iters={mpc_cfg['qp_iters']} "
+                          f"qp_dual_warm={mpc_cfg['qp_dual_warm']}",
+            "B": REF_B, "steps": REF_STEPS,
+            "alive": float(alive[:, -1].mean()),
+            "err_mean": float(err.mean()), "err_worst": float(err.max()),
+        }
+        np.savez(path, header=json.dumps(header), **data)
+        headers[path.name] = header
+    return headers
 
 
 # ---------------------------------------------------------------- tests
@@ -230,13 +265,50 @@ def test_asset_provenance_retrain():
     assert np.abs(p_new - p_asset).max() < 1e-5
 
 
+def test_linear_asset_loads_identically_in_both_packages():
+    from koopman_realizations_torch.models.koopman import LinearModel
+    from koopman_realizations_torch.utils.checkpoint import (
+        LINEAR_MODEL,
+        load_model,
+    )
+    jm, js = jax_model("linear")
+    tm, ts, header = load_model(LINEAR_MODEL)
+    assert isinstance(tm, LinearModel) and tm.B.shape == (28, 3)
+    for name in ("A", "B", "C"):
+        np.testing.assert_array_equal(np.asarray(getattr(jm, name)),
+                                      getattr(tm, name))
+    np.testing.assert_array_equal(np.asarray(jm.basis.pcs), tm.basis.pcs)
+    for name in ("y_factor", "y_offset", "u_factor", "u_offset"):
+        np.testing.assert_array_equal(np.asarray(getattr(js, name)),
+                                      getattr(ts, name))
+    assert tm.meta.NL == jm.meta.NL == 28
+    assert tm.meta.model_type == "linear"
+    assert tm.basis.families == jm.basis.families
+    ref = header["jax_reference"]
+    assert ref["alive"] == 1.0
+    assert ref["controller"] == "qp_iters=6 qp_dual_warm=False"
+
+
+def test_linear_asset_provenance_retrain():
+    """Retraining the linear model on the generated corpus reproduces the
+    linear asset's one-step predictions C (A z + B u)."""
+    ks = train_jax(generate_corpus(), "linear")
+    jm, js = jax_model("linear")
+    for k in ("y_factor", "y_offset", "u_factor", "u_offset"):
+        np.testing.assert_allclose(np.asarray(getattr(ks.scaler, k)),
+                                   np.asarray(getattr(js, k)), rtol=1e-12)
+    p_new = one_step_predictions(ks.model, ks.valdata)
+    p_asset = one_step_predictions(jm, ks.valdata)
+    assert np.abs(p_new - p_asset).max() < 1e-5
+
+
 if __name__ == "__main__":
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--write-asset", action="store_true",
-                    help="retrain and rewrite the committed model asset")
+                    help="retrain and rewrite both committed model assets")
     args = ap.parse_args()
     if not args.write_asset:
         ap.error("nothing to do (pass --write-asset)")
-    print(json.dumps(write_asset(), indent=1))
+    print(json.dumps(write_assets(), indent=1))

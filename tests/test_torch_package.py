@@ -133,3 +133,76 @@ def test_cuda_wrappers_reject_wrong_operands():
         check_operands(qp, torch.zeros(3, 4, dtype=torch.float64))
     with pytest.raises(ValueError):
         check_operands(qp, torch.zeros(4, 3).T)
+
+
+def test_linear_entry_points_default_to_the_card():
+    """The linear controller, like the bilinear one, asks for CUDA unless
+    the caller passes ``device="cpu"``."""
+    from koopman_realizations_torch.config import MpcConfig
+    from koopman_realizations_torch.control.kmpc import LinearKmpc
+    from koopman_realizations_torch.utils.checkpoint import (
+        LINEAR_MODEL,
+        load_model,
+    )
+
+    model, scaler, _ = load_model(LINEAR_MODEL)
+    cfg = MpcConfig(horizon=10, qp_iters=6, input_blocks=(1, 1, 2, 5),
+                    input_bounds=(-2.7, 2.7), input_slopeConst=0.1,
+                    proj_idx=(4, 5))
+    if torch.cuda.is_available():
+        assert LinearKmpc(model, scaler, cfg).A.is_cuda
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LinearKmpc(model, scaler, cfg)
+    assert LinearKmpc(model, scaler, cfg, device="cpu").device.type == "cpu"
+
+
+def test_linear_controller_refuses_what_is_not_ported():
+    """Warm duals, a dual shift, an unblocked stack and a bilinear model
+    raise instead of running another controller."""
+    from koopman_realizations_torch.config import MpcConfig
+    from koopman_realizations_torch.control.kmpc import LinearKmpc
+    from koopman_realizations_torch.utils.checkpoint import (
+        LINEAR_MODEL,
+        load_model,
+    )
+
+    model, scaler, _ = load_model(LINEAR_MODEL)
+    base = dict(horizon=10, qp_iters=6, input_blocks=(1, 1, 2, 5),
+                input_bounds=(-2.7, 2.7), input_slopeConst=0.1,
+                proj_idx=(4, 5))
+    for extra in (dict(qp_dual_warm=True), dict(qp_dual_shift=True),
+                  dict(input_blocks=None), dict(input_smoothConst=0.1)):
+        with pytest.raises(NotImplementedError):
+            LinearKmpc(model, scaler, MpcConfig(**{**base, **extra}),
+                       device="cpu")
+    with pytest.raises(NotImplementedError):
+        LinearKmpc(load_model()[0], scaler, MpcConfig(**base), device="cpu")
+
+
+def test_linear_cuda_wrappers_reject_host_tensors():
+    """The new kernel wrappers take contiguous f32 CUDA tensors only, and
+    say so before any build or launch."""
+    from koopman_realizations_torch.config import MpcConfig
+    from koopman_realizations_torch.control.kmpc import LinearKmpc
+    from koopman_realizations_torch.ops.kernels.ipm_shared import (
+        check_cuda_f32,
+        ipm_shared_cuda,
+    )
+    from koopman_realizations_torch.utils.checkpoint import (
+        LINEAR_MODEL,
+        load_model,
+    )
+
+    model, scaler, _ = load_model(LINEAR_MODEL)
+    mpc = LinearKmpc(model, scaler, MpcConfig(
+        horizon=10, qp_iters=6, input_blocks=(1, 1, 2, 5),
+        input_bounds=(-2.7, 2.7), input_slopeConst=0.1, proj_idx=(4, 5)),
+        device="cpu")
+    with pytest.raises(ValueError):
+        check_cuda_f32(torch.zeros(3, 4))
+    cons = mpc.constraints()
+    q = torch.zeros(12, 4)
+    with pytest.raises(ValueError):
+        ipm_shared_cuda(cons, torch.eye(12), q, torch.ones(48, 4), q, 6,
+                        1e-2)
