@@ -5,15 +5,17 @@ the CUDA toolkit:
 
     python chip_smoke.py
 
-It builds the four CUDA kernels of the two closed loops from ``csrc/``
+It builds the five CUDA kernels of the three closed loops from ``csrc/``
 (one nvcc per source, in parallel) and holds each against its plain
-PyTorch version on the card.  For each controller -- the bilinear bench
-controller and the linear one -- it checks the fused loop's tracking
-quality against the JAX reference value recorded in the model asset,
-drives the fused closed loop at the bench's size (B=262144 lanes, 301
-blockM steps) and the general runner at B=65536, each with the launch
-counts set to 0 just before and read just after, and times every kernel
-at its path's shapes next to its bound and its plain version.  It prints
+PyTorch version on the card.  For the bilinear bench controller and the
+linear one it checks the fused loop's tracking quality against the JAX
+reference value recorded in the model asset, drives the fused closed loop
+at the bench's size (B=262144 lanes, 301 blockM steps) and the general
+runner at B=65536; for the SQP NMPC controller, which has no fused step,
+it checks the general runner's quality at B=16 and drives it at B=65536
+(phases N1-N6).  Each main path runs with the launch counts set to 0 just
+before and read just after; every kernel is timed at its path's shapes
+next to its bound and its plain version.  It prints
 the card's name and power limit, one JSON line with every kernel's
 launches, error, times and bound, and as the last line
 {"ok": true, "device": {...}}.  Any failed phase raises; without CUDA or
@@ -40,6 +42,9 @@ MPC = dict(horizon=10, qp_iters=4, qp_dual_warm=True,
 # the linear controller: the bench's horizon, blocks, bounds and costs at
 # qp_iters=6 with cold duals (tests/test_torch_oracle.py:LINEAR_MPC)
 LINEAR_MPC = dict(MPC, qp_iters=6, qp_dual_warm=False)
+# the SQP NMPC controller: the same at qp_iters=8, cold duals, the default
+# SQP regime (tests/test_torch_oracle.py:NMPC_MPC)
+NMPC_MPC = dict(MPC, qp_iters=8, qp_dual_warm=False)
 ARM = dict(Nmods=3, nlinks=1, L=1.0, m=0.1, output_type="markers",
            substeps=3, newton_iters=1, jac_mode="step")
 B_MAIN, B_GENERAL, B_CHECK, STEPS = 262144, 65536, 8192, 301
@@ -185,6 +190,36 @@ def step_tail_ops(op, cfg, lam_scaled: bool) -> int:
             + (op.cons.mc if lam_scaled else 0))
 
 
+def nmpc_ops(q, passes: int, hold0: bool, iters: int) -> int:
+    """Operations of one lane's whole-SQP NMPC solve, counted from
+    csrc/nmpc_device.cuh and nmpc_multipass.cu, leaving out the structural
+    zeros of this run's lane-shared operands (A1, A2, G, Gup, F0r, CzS, A,
+    Wd, Wo) and of the sensitivities: S starts at 0, and stage k's
+    projection and propagation touch only the decision columns that the
+    input blocks of stages 0..k-1 reach."""
+    nz, nza, m, n, Np = q.nz, q.nza, q.m, q.n, q.Np
+    ntop = len(q.tables_host[-1][0])
+    F = ((q.nlow - nza) + ntop + 2 * nnz(q.A1) + 2 * nnz(q.A2) + nz)
+    stage = F + 2 * nnz(q.G) + nza * nz + 2 * nz * nza   # F, J, defects
+    sweep, live = 0, 0
+    for k in range(Np + 1):
+        for r in range(q.nproj):
+            c = nnz(q.CzS[k * q.nproj + r])
+            a = max(live - m, 0)
+            sweep += 2 * c * (live + 1) + 1 + (2 * m if live else 0) \
+                + 2 * a + a * (a + 1)
+        if k < Np:
+            sweep += 2 * nz * nz * live + m * nz + 2 * nz * nz + nz
+            live = q.cols[k] + m
+    finish = 3 * n + n * (n + 1) // 2 + n + 1 + n + n * (n + 1) // 2 + n
+    total = 2 * nnz(q.F0r) + 2 * nnz(q.Gup)
+    for p in range(passes):
+        evals = 1 if (p == 0 and hold0) else Np
+        total += (evals * stage + sweep + finish
+                  + mehrotra_ops(q.cons, iters, n * n))
+    return total
+
+
 def bound(flops: float, nbytes: float) -> tuple:
     t_ops, t_bytes = flops / PEAK_F32, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
@@ -221,6 +256,7 @@ def main() -> int:
     from koopman_realizations_torch.control.kmpc import (
         BilinearKmpc,
         LinearKmpc,
+        NonlinearKmpc,
     )
     from koopman_realizations_torch.control.ksim import Ksim
     from koopman_realizations_torch.models.arm import Arm
@@ -228,10 +264,12 @@ def main() -> int:
     from koopman_realizations_torch.ops.kernels import bilin_lift as BL
     from koopman_realizations_torch.ops.kernels import ipm_shared as IS
     from koopman_realizations_torch.ops.kernels import linear_step_fused as LS
+    from koopman_realizations_torch.ops.kernels import nmpc_multipass as NM
     from koopman_realizations_torch.ops.kernels import step_fused as SF
     from koopman_realizations_torch.ops.qp import ok_mask
     from koopman_realizations_torch.utils.checkpoint import (
         LINEAR_MODEL,
+        NONLINEAR_MODEL,
         load_model,
     )
     from koopman_realizations_torch.utils.metrics import lane_tracking_error
@@ -249,7 +287,8 @@ def main() -> int:
     wrappers = {"step_fused": SF.step_fused_cuda,
                 "bilin_lift": BL.bilin_lift_cuda,
                 "linear_step_fused": LS.linear_step_fused_cuda,
-                "ipm_shared": IS.ipm_shared_cuda}
+                "ipm_shared": IS.ipm_shared_cuda,
+                "nmpc_multipass": NM.nmpc_multipass_cuda}
 
     def drive(name, fn):
         """Run one main path with every launch count set to 0 just before
@@ -270,25 +309,31 @@ def main() -> int:
             raise AssertionError(f"{name} path launches: {counts}")
         return out, t0.elapsed_time(t1) / 1e3, counts[name]
 
-    # ---- models, controllers, plant; build all four kernels at once
+    # ---- models, controllers, plant; build all five kernels at once
     model, scaler, header = load_model()
     jref = header["jax_reference"]
     lmodel, lscaler, lheader = load_model(LINEAR_MODEL)
     ljref = lheader["jax_reference"]
+    nmodel, nscaler, nheader = load_model(NONLINEAR_MODEL)
+    njref = nheader["jax_reference"]
     dev = torch.device("cuda")
     mpc = BilinearKmpc(model, scaler, MpcConfig(**MPC), device=dev)
     lmpc = LinearKmpc(lmodel, lscaler, MpcConfig(**LINEAR_MPC), device=dev)
+    nmpc = NonlinearKmpc(nmodel, nscaler, MpcConfig(**NMPC_MPC), device=dev)
     arm = Arm(ArmConfig(**ARM), device=dev)
     sim = Ksim(arm, mpc)
     lsim = Ksim(arm, lmpc)
+    nsim = Ksim(arm, nmpc)
     op = SF.build_step_fused(mpc, arm, scaler)
     lop = LS.build_linear_step_fused(lmpc, arm, lscaler)
-    qp, cons = op.qp, lmpc.constraints()
+    qp, cons, nqp = op.qp, lmpc.constraints(), nmpc.nmpc_qp()
     ref = blockM_reference()
     wins = sim.reference_windows(ref, STEPS)
     fY = lop.fYr(lsim.reference_windows(ref, STEPS))
+    nwins = nsim.reference_windows(ref, STEPS)
     builds = _build.build_all([BL.kernel_spec(qp), op.kernel_spec(),
-                               IS.kernel_spec(cons), lop.kernel_spec()])
+                               IS.kernel_spec(cons), lop.kernel_spec(),
+                               NM.kernel_spec(nqp)])
     for r in builds:
         log(f"built {r.path.name} in {r.seconds:.1f} s "
             f"({'cached' if r.cached else 'nvcc'})")
@@ -461,8 +506,69 @@ def main() -> int:
     check_runners("linear_step_fused", lop, lop64, fY, fY64)
     del lop64, lmpc64, fY64
 
-    # ---- phases 3, L3: quality through the kernels, bench X0, B=16, 301
-    # steps; f32 plant noise moves the mean by ~1e-4 on the CPU (tests)
+    # ---- phase N1: nmpc_multipass kernel against its plain version,
+    # B=8192, on lanes after 3 closed-loop steps, each lane with the
+    # reference window of another step
+    sqp = (nmpc.cfg.sqp_iters, nmpc.hold0, nmpc.cfg.qp_iters)
+    nmpc64 = NonlinearKmpc(nmodel, nscaler, MpcConfig(**NMPC_MPC),
+                           device=dev, dtype=torch.float64)
+    nqp64 = nmpc64.nmpc_qp()
+
+    def nmpc_lanes(B, steps):
+        """Scaled outputs and previous inputs after ``steps`` closed-loop
+        steps of the NMPC general path from the spread initial states."""
+        m = nmpc.m
+        x = torch.as_tensor(spread_X0(B), device=dev).T.contiguous()
+        W = x.new_zeros((2, B))
+        u_prev = x.new_zeros((m, B))
+        ysc = nscaler.y_down(arm.get_y(x), axis=0)
+        upsc = nscaler.u_down(u_prev, axis=0)
+        for k in range(steps):
+            U, _ = nmpc.solve(ysc, upsc, nwins[k])
+            x = arm.step(x, u_prev, W)
+            ysc = nscaler.y_down(arm.get_y(x), axis=0)
+            upsc = U[m:2 * m].contiguous()
+            u_prev = nscaler.u_up(upsc, axis=0)
+        return ysc.contiguous(), upsc
+
+    def check_nmpc(zeta, up, sq, label) -> float:
+        """nmpc_multipass kernel against its plain version, both against
+        the plain f64 version; returns max |dx| of kernel and plain."""
+        args = (nqp, zeta, up, sq, *sqp)
+        xk, sk, lk, objk = NM.nmpc_multipass_cuda(*args)
+        torch.cuda.synchronize()
+        xp, sp, lp, objp = NM.nmpc_multipass_plain(*args)
+        x64 = NM.nmpc_multipass_plain(nqp64, zeta.double(), up.double(),
+                                      sq.double(), *sqp)[0]
+        b = nqp.cFr[:, None] - nqp.F0r @ up
+        okk = ok_mask(nqp.cons, b, xk, sk, lk, 3e-3, 5e-2)[0]
+        okp = ok_mask(nqp.cons, b, xp, sp, lp, 3e-3, 5e-2)[0]
+        # per-lane distance to the f64 solution: its median and 99th
+        # percentile over the lanes (a single lane's extreme is the
+        # conditioning of that lane's nonconvex SQP, in both orderings)
+        lv = torch.tensor([0.5, 0.99], dtype=torch.float64, device=dev)
+        ek = torch.quantile((xk.double() - x64).abs().amax(0), lv)
+        ep = torch.quantile((xp.double() - x64).abs().amax(0), lv)
+        dx = (xk - xp).abs().max().item()
+        dobj = ((objk - objp) / objp).abs().max().item()
+        log(f"nmpc_multipass {label}: max|dx| {dx:.3e} max rel dobj "
+            f"{dobj:.3e}; distance to f64 (median, p99): kernel "
+            f"{ek[0]:.3e} {ek[1]:.3e}, plain f32 {ep[0]:.3e} {ep[1]:.3e};"
+            f" ok {int(okk.sum())}/{int(okp.sum())} of {zeta.shape[1]}")
+        if not (torch.equal(okk, okp) and bool(okk.all())
+                and bool((ek <= 2 * ep + 1e-5).all())):
+            raise AssertionError("nmpc_multipass kernel disagrees with plain")
+        return dx
+
+    nz8, nu8 = nmpc_lanes(B_CHECK, 3)
+    nm_err = max(check_nmpc(nz8, nu8, nwins[3], f"B={B_CHECK}"),
+                 check_nmpc(nz8, nu8, nwins[3 + torch.arange(
+                     B_CHECK, device=dev) % 8].T.contiguous(),
+                     f"per-lane windows B={B_CHECK}"))
+    del nz8, nu8
+
+    # ---- phases 3, L3, N3: quality through the kernels, bench X0, B=16,
+    # 301 steps; f32 plant noise moves the mean by ~1e-4 on the CPU (tests)
     W16 = np.zeros((16, 2), np.float32)
     for name, s, jr in (("bilinear", sim, jref), ("linear", lsim, ljref)):
         o16 = s.fused_runner(ref, steps=STEPS)(spread_X0(16), W16)
@@ -475,6 +581,15 @@ def main() -> int:
                 and abs(e16.mean().item() - jr["err_mean"]) < 1e-3):
             raise AssertionError(f"{name} fused loop quality off the JAX "
                                  f"reference")
+    o16 = nsim.batched_runner(ref, steps=STEPS)(spread_X0(16), W16)
+    e16 = lane_tracking_error(o16["Yp"], ref)
+    log(f"nonlinear (NMPC general runner) quality B=16: alive "
+        f"{o16['alive'][:, -1].float().mean():.4f} err_mean "
+        f"{e16.mean():.6f} err_worst {e16.max():.6f} (JAX general runner "
+        f"{njref['err_mean']:.6f} / {njref['err_worst']:.6f})")
+    if not (bool(o16["alive"].all()) and torch.isfinite(o16["Yp"]).all()
+            and abs(e16.mean().item() - njref["err_mean"]) < 1e-3):
+        raise AssertionError("NMPC loop quality off the JAX reference")
 
     # ---- phases 4, L4: the fused main paths at size, B=262144, 301 steps
     XB, WB = spread_X0(B_MAIN), np.zeros((B_MAIN, 2), np.float32)
@@ -495,11 +610,12 @@ def main() -> int:
         fused_main[name] = launches
         del out
 
-    # ---- phases 5, L5: the general runners at B=65536 (the bilinear
+    # ---- phases 5, L5, N5: the general runners at B=65536 (the bilinear
     # runner's depth may be cut to keep the run inside its time limit)
     XG, WG = spread_X0(B_GENERAL), np.zeros((B_GENERAL, 2), np.float32)
     general_main = {}
-    for name, s in (("bilin_lift", sim), ("ipm_shared", lsim)):
+    for name, s in (("bilin_lift", sim), ("ipm_shared", lsim),
+                    ("nmpc_multipass", nsim)):
         grun = s.batched_runner(ref, steps=STEPS)
         s.batched_runner(ref, steps=3)(XB[:1024], WB[:1024])   # warm-up
         gout, gwall, launches = drive(name, lambda: grun(XG, WG))
@@ -583,6 +699,22 @@ def main() -> int:
     is_bound, is_by = bound(is_flops, is_bytes)
     del lcG, q, b
 
+    # ---- phase N6: nmpc_multipass against its plain version and its time
+    # at B=65536, on the general path's lanes after 3 steps
+    nzG, nuG = nmpc_lanes(B_GENERAL, 3)
+    nm_err = max(nm_err, check_nmpc(nzG, nuG, nwins[3], f"B={B_GENERAL}"))
+    ins = (nqp, nzG, nuG, nwins[3], *sqp)
+    nm_ms = cuda_ms(lambda: NM.nmpc_multipass_cuda(*ins), reps=5)
+    nm_plain = cuda_ms(lambda: NM.nmpc_multipass_plain(*ins), reps=1,
+                       warmup=1)
+    nm_flops = nmpc_ops(nqp, *sqp) * B_GENERAL
+    nm_bytes = nbytes(nzG, nuG, nwins[3]) \
+        + 4 * B_GENERAL * (nqp.n + 2 * nqp.mc + 1) + nbytes(
+            nqp.A1, nqp.A2, nqp.a0, nqp.G, nqp.Gup, nqp.q0c, nqp.CzS,
+            nqp.rdiag, nqp.cFr, nqp.F0r, nqp.A, nqp.Wd, nqp.Wo)
+    nm_bound, nm_by = bound(nm_flops, nm_bytes)
+    del nzG, nuG
+
     log(f"kernel times | {smi}: step_fused {sf_ms:.4f} ms (plain "
         f"{sf_plain:.2f} ms, bound {sf_bound:.4f} ms by {sf_by}, "
         f"{sf_flops / B_MAIN:.0f} op/lane) at B={B_MAIN}; bilin_lift "
@@ -592,7 +724,9 @@ def main() -> int:
         f"{ls_bound:.4f} ms by {ls_by}, {ls_flops / B_MAIN:.0f} op/lane) at "
         f"B={B_MAIN}; ipm_shared {is_ms:.4f} ms (plain {is_plain:.2f} ms, "
         f"bound {is_bound:.4f} ms by {is_by}, {is_flops / B_GENERAL:.0f} "
-        f"op/lane) at B={B_GENERAL}")
+        f"op/lane) at B={B_GENERAL}; nmpc_multipass {nm_ms:.4f} ms (plain "
+        f"{nm_plain:.2f} ms, bound {nm_bound:.4f} ms by {nm_by}, "
+        f"{nm_flops / B_GENERAL:.0f} op/lane) at B={B_GENERAL}")
 
     tpu = "koopman_realizations_tpu/ops/pallas/"
     src = "koopman_realizations_torch/csrc/"
@@ -603,7 +737,9 @@ def main() -> int:
             ("linear_step_fused", "step_fused.py:185", fused_main, ls_err,
              ls_ms, ls_plain, ls_bound, ls_by),
             ("ipm_shared", "qp_ipm.py:299", general_main, is_err, is_ms,
-             is_plain, is_bound, is_by)]
+             is_plain, is_bound, is_by),
+            ("nmpc_multipass", "qp_ipm.py:1422", general_main, nm_err, nm_ms,
+             nm_plain, nm_bound, nm_by)]
     kernels = [{"name": name, "route": "cuda", "source": src + name + ".cu",
                 "replaces": tpu + tpu_at, "launches": paths[name],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain,

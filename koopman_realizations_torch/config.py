@@ -1,9 +1,9 @@
 """Configuration dataclasses of the port (subset of the JAX package's).
 
-Only the fields that the bilinear closed loop reads are carried over from
-``koopman_realizations_tpu/config.py`` (``MpcConfig`` :61, ``ArmConfig``
-:170); names and defaults are the same, so a configuration translates
-field for field.
+Only the fields that the port's closed loops read are carried over from
+``koopman_realizations_tpu/config.py`` (``MpcConfig`` :61, with the SQP
+fields of :80 and :126-164; ``ArmConfig`` :170); names and defaults are
+the same, so a configuration translates field for field.
 """
 
 from __future__ import annotations
@@ -25,10 +25,21 @@ class MpcConfig:
     cost_running: float = 0.1
     cost_terminal: float = 100.0
     cost_input: Sequence[float] = (0.0,)
+    mpc_type: Optional[str] = None       # default: nonlinear iff model nonlinear
     proj_idx: Optional[Tuple[int, ...]] = None
     qp_iters: int = 12
     qp_dual_warm: bool = False
     qp_dual_shift: bool = False
+    sqp_iters: int = 5                   # SQP relinearization passes (NMPC)
+    sqp_dual_warm: bool = False          # carry each pass's multipliers on
+    sqp_damping: float = 0.05            # Levenberg damping of the SQP step
+    sqp_linesearch: int = 0              # merit line-search halvings per pass
+    sqp_damping_decay: float = 1.0       # per-pass decay of sqp_damping
+    sqp_multistart: bool = False         # cold-hold and warm-shifted inits
+    sqp_update: str = "rollout"          # between-pass Z update
+    sqp_init: str = "hold"               # first-pass linearization trajectory
+    sqp_best_of_passes: bool = False     # keep the best-merit pass
+    sqp_jac_period: int = 1              # Jacobians every this many passes
     bilinear_iters: int = 1
 
 

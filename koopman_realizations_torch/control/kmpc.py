@@ -1,5 +1,6 @@
 """Koopman MPC controllers of the port: the blocked, lift-fused
-``BilinearKmpc`` and the blocked static condensed ``LinearKmpc``.
+``BilinearKmpc``, the blocked static condensed ``LinearKmpc`` and the
+blocked SQP ``NonlinearKmpc``.
 
 Host constants are built in f64 numpy exactly as the JAX package builds
 them (``control/kmpc.py``): the input constraint stack
@@ -15,7 +16,11 @@ The lane-shared device operands are registered buffers of the modules.
 The bilinear per-step solve runs in ``ops/kernels/bilin_lift.py``
 (general runner) or inside the fused step (``ops/kernels/step_fused.py``);
 the linear one in ``ops/kernels/ipm_shared.py`` (general runner) or inside
-its fused step (``ops/kernels/linear_step_fused.py``).
+its fused step (``ops/kernels/linear_step_fused.py``); the nonlinear
+controller's whole SQP in ``ops/kernels/nmpc_multipass.py``.  The
+nonlinear controller's host constants are the composed maps of F
+(``_composed_maps``, kmpc.py:944) and the analytic Jacobian's generator
+(``_poly_jacobian_static``, :990), f64 as there.
 """
 
 from __future__ import annotations
@@ -31,6 +36,14 @@ from koopman_realizations_torch.ops.kernels.bilin_lift import (
 )
 from koopman_realizations_torch.ops.kernels.ipm_shared import (
     solve_qp_shared,
+)
+from koopman_realizations_torch.ops.kernels.nmpc_multipass import (
+    solve_qp_nmpc_multipass,
+)
+from koopman_realizations_torch.ops.nmpc import (
+    NmpcQP,
+    jacobian_generator,
+    nmpc_qp_operands,
 )
 from koopman_realizations_torch.ops.observables import (
     poly_features,
@@ -326,9 +339,12 @@ class BilinearKmpc(_KmpcBase):
 
     def __init__(self, model, scaler, cfg: MpcConfig, device="cuda",
                  dtype=torch.float32):
-        if model.meta.model_type != "bilinear" or cfg.bilinear_iters != 1:
+        if model.meta.model_type != "bilinear" or cfg.bilinear_iters != 1 \
+                or cfg.mpc_type not in (None, "linear"):
             raise NotImplementedError(
-                "BilinearKmpc takes a bilinear model with bilinear_iters=1")
+                "BilinearKmpc takes a bilinear model with bilinear_iters=1 "
+                "(mpc_type='nonlinear' on it, the bilinear-as-NMPC "
+                "controller, is not ported)")
         super().__init__(model, scaler, cfg, device, dtype)
         m = self.m
         # Tb^T diag(Rd) Tb is diagonal (disjoint groups)
@@ -380,7 +396,8 @@ class LinearKmpc(_KmpcBase):
 
     def __init__(self, model, scaler, cfg: MpcConfig, device="cuda",
                  dtype=torch.float32):
-        if model.meta.model_type != "linear" or cfg.qp_dual_warm:
+        if model.meta.model_type != "linear" or cfg.qp_dual_warm \
+                or cfg.mpc_type not in (None, "linear"):
             raise NotImplementedError(
                 "LinearKmpc takes a linear model, with cold duals")
         super().__init__(model, scaler, cfg, device, dtype)
@@ -446,4 +463,156 @@ class LinearKmpc(_KmpcBase):
         sol = solve_qp_shared(Pz, fz, self.constraints(), bz,
                               x0=self.warm_start(U_plan),
                               iters=self.cfg.qp_iters)
+        return torch.cat([u_prev, self.Tb_t @ sol.x]), sol
+
+
+def composed_maps(model):
+    """Host-side (A1, A2, a0) of the composed F(x) = A1 x + A2 feats(x) +
+    a0 of a nonlinear model (``_composed_maps``, kmpc.py:944-965): the PCA
+    projection and the output map W^T folded into one matrix per term of
+    the raw features g_full = [x; feats(x); 1], in f64."""
+    basis = model.basis
+    W_T = np.asarray(model.W, np.float64).T             # (nzeta, N)
+    nza = basis.nzeta_aug
+    if basis.pcs is None:
+        return W_T[:, :nza], W_T[:, nza:-1], W_T[:, -1]
+    P_T = np.asarray(basis.pcs, np.float64).T           # (npcs, N_full)
+    Wp = W_T[:, nza:-1]
+    return (W_T[:, :nza] + Wp @ P_T[:, :nza], Wp @ P_T[:, nza:-1],
+            W_T[:, -1] + Wp @ P_T[:, -1])
+
+
+def poly_jacobian_static(model):
+    """Static pieces of the composed F's analytic Jacobian
+    (``_poly_jacobian_static``, kmpc.py:990-1029): (A1, G, blocks, tables,
+    pos_x) with J(x).flatten() = A1.flatten() + G @ g_low(x),
+    g_low = [x; monomial blocks of degree 2..d-1], rows (o, i) =
+    o*nza + i, and ``pos_x[j]`` the g_low column of x_j; f64.  Needs a
+    single poly family of degree >= 2."""
+    basis = model.basis
+    (kind, degree), = basis.families
+    if kind != "poly" or degree < 2:
+        raise NotImplementedError("the analytic Jacobian needs one poly "
+                                  "family of degree >= 2")
+    nza = basis.nzeta_aug
+    A1, A2, _ = composed_maps(model)
+    nzo = A1.shape[0]
+    blocks, tables = poly_parent_tables(nza, degree)
+    pos, off = {}, 0
+    for d in range(1, degree):
+        for r, e in enumerate(blocks[d - 1]):
+            pos[tuple(int(v) for v in e)] = off + r
+        off += len(blocks[d - 1])
+    G = np.zeros((nzo * nza, off), np.float64)
+    fr = 0
+    for d in range(2, degree + 1):
+        for e in blocks[d - 1]:
+            et = tuple(int(v) for v in e)
+            for i in range(nza):
+                if et[i] == 0:
+                    continue
+                parent = et[:i] + (et[i] - 1,) + et[i + 1:]
+                G[i::nza, pos[parent]] += A2[:, fr] * et[i]
+            fr += 1
+    pos_x = np.asarray(
+        [pos[tuple(1 if k == j else 0 for k in range(nza))]
+         for j in range(nza)], np.int64)
+    return A1, G, blocks, tables, pos_x
+
+
+class NonlinearKmpc(_KmpcBase):
+    """SQP NMPC on the nonlinear realization (``NonlinearKmpc``,
+    kmpc.py:1080-1206), blocked form, in the default SQP regime that the
+    JAX controller runs as one kernel launch (``_solve_from``'s multipass
+    branch, :1373-1401): ``sqp_iters`` passes, the first about the held
+    state ('hold', or the held plan's rollout with
+    ``sqp_init='rollout'``), every later one along the rollout of the
+    previous pass's plan; constant Levenberg damping ``sqp_damping``; cold
+    duals in every pass.  The controller takes the raw scaled outputs
+    (it lifts [zeta; u] itself) and carries no duals across steps.
+
+    Every regime that leaves the multipass route raises
+    ``NotImplementedError``: ``sqp_dual_warm``, a damping decay, a line
+    search, best-of-passes, multistart, ``sqp_update='linear'``,
+    ``sqp_jac_period > 1``; so do state bounds and loads (``_KmpcBase``)
+    and a bilinear model with ``mpc_type='nonlinear'``.
+
+    Host constants (f64 numpy, as the JAX package): the composed maps
+    ``A1``, ``A2``, ``a0``; the Jacobian generator ``G`` and ``pos_x``;
+    the projection ``Cz``; the stage columns ``cols``; ``RdT``, ``bsizes``
+    and from them ``rdiag`` = RdT + rho bsizes and ``q0c`` = -2 rho bsizes;
+    ``Gup`` = tile(I_m); ``sqq`` = sqrt(Q).
+    """
+
+    def __init__(self, model, scaler, cfg: MpcConfig, device="cuda",
+                 dtype=torch.float32):
+        if model.meta.model_type != "nonlinear" \
+                or cfg.mpc_type not in (None, "nonlinear"):
+            raise NotImplementedError(
+                "NonlinearKmpc takes a nonlinear model (the bilinear-as-NMPC "
+                "controller is not ported)")
+        off_route = {
+            "sqp_dual_warm": cfg.sqp_dual_warm,
+            "sqp_damping_decay != 1": cfg.sqp_damping_decay != 1.0,
+            "sqp_linesearch": cfg.sqp_linesearch != 0,
+            "sqp_best_of_passes": cfg.sqp_best_of_passes,
+            "sqp_multistart": cfg.sqp_multistart,
+            "sqp_update='linear'": cfg.sqp_update == "linear",
+            "sqp_jac_period > 1": max(1, int(cfg.sqp_jac_period)) != 1}
+        bad = [k for k, v in off_route.items() if v]
+        if bad or cfg.sqp_iters < 1:
+            raise NotImplementedError(
+                f"NonlinearKmpc runs the multipass SQP only (not ported: "
+                f"{', '.join(bad) or 'sqp_iters < 1'})")
+        super().__init__(model, scaler, cfg, device, dtype)
+        m, n, Np = self.m, self.n, self.Np
+        self.nz = self.meta.nzeta
+        nza = model.basis.nzeta_aug
+        self.A1, self.A2, self.a0 = composed_maps(model)
+        _, self.G, _, tables, self.pos_x = poly_jacobian_static(model)
+        # decision column of each stage's input block: [u_0 | group moves]
+        group_of = np.repeat(np.arange(len(cfg.input_blocks)),
+                             cfg.input_blocks)
+        self.cols = tuple([0] + [m + int(group_of[k - 1]) * m
+                                 for k in range(1, Np)])
+        self.Cz = self.projmtx[:, :n]
+        self.RdT = self.Tb.T @ self.r_diag[m:]
+        self.bsizes = (self.Tb * self.Tb).sum(axis=0)
+        rho = cfg.sqp_damping
+        self.rdiag = self.RdT + rho * self.bsizes
+        self.q0c = -2.0 * rho * self.bsizes
+        self.Gup = np.tile(np.eye(m), (self.Tb.shape[1] // m, 1))
+        self.sqq = np.sqrt(self.q_diag)
+        self.hold0 = cfg.sqp_init != "rollout"
+        qp = nmpc_qp_operands(
+            self.A1, self.A2, self.a0,
+            jacobian_generator(self.G, self.pos_x, self.nz, nza), tables,
+            self.Cz, self.sqq, self.cols, self.rdiag, self.q0c, self.Gup,
+            self.F_red, self.cF_red, self.F0_red, self.band, dtype=dtype,
+            device=self.device)
+        self._qp_static = {k: getattr(qp, k) for k in
+                           ("tables_host", "cols", "n", "mc", "m", "nz",
+                            "nproj", "band")}
+        for k in ("A1", "A2", "a0", "G", "Gup", "q0c", "CzS", "rdiag"):
+            self.register_buffer(k + "_t", getattr(qp, k))
+
+    def nmpc_qp(self) -> NmpcQP:
+        """The solve's operands as an ``NmpcQP`` view of this module's
+        buffers."""
+        return NmpcQP(
+            **{k: getattr(self, k + "_t") for k in
+               ("A1", "A2", "a0", "G", "Gup", "q0c", "CzS", "rdiag")},
+            A=self.A, cFr=self.cFr, F0r=self.F0r, row=self.row, Wd=self.Wd,
+            Wo=self.Wo, tables=self.poly_tables(), **self._qp_static)
+
+    def solve(self, zeta, u_prev, sqYr, U_plan=None):
+        """One batched SQP solve (``NonlinearKmpc.solve`` without
+        multistart), lanes-minor: zeta (nz, B) the raw scaled outputs,
+        u_prev (m, B) the scaled previous input, sqYr (p,) or (p, B) the
+        sqrt(Q)-scaled reference window.  ``U_plan`` is not read: every
+        step starts cold from the held input, as the JAX controller does.
+        Returns the plan U (Np*m, B) and the last pass's ``QPSolution``."""
+        sol = solve_qp_nmpc_multipass(
+            self.nmpc_qp(), zeta, u_prev, sqYr, self.cfg.sqp_iters,
+            self.hold0, self.cfg.qp_iters)
         return torch.cat([u_prev, self.Tb_t @ sol.x]), sol

@@ -1,18 +1,20 @@
 """Closed-loop plant-in-the-loop MPC simulation (port of ``control/ksim.py``).
 
 Two runners over a batch of scenario lanes, carries lanes-minor ``(r, B)``,
-for either controller (the bilinear lift-fused ``BilinearKmpc`` or the
-linear ``LinearKmpc``):
+for the port's controllers (the bilinear lift-fused ``BilinearKmpc``, the
+linear ``LinearKmpc``, the SQP ``NonlinearKmpc``):
 
 - ``batched_runner``: the general path of ``Ksim.make_body`` (:116-230)
   -- per step the controller's batched solve (bilinear:
   ``solve_qp_bilinear_lifted``, the ``bilin_lift`` kernel on the card;
   linear: the poly+PCA lift, the condensed gradient and
-  ``solve_qp_shared``, the ``ipm_shared`` kernel on the card) and the
-  plain batched arm step;
+  ``solve_qp_shared``, the ``ipm_shared`` kernel on the card; nonlinear:
+  ``solve_qp_nmpc_multipass``, the ``nmpc_multipass`` kernel on the card)
+  and the plain batched arm step;
 - ``fused_runner`` (:439-502): a Python loop over steps that launches the
   controller's fused step kernel once per step (``step_fused`` or
-  ``linear_step_fused``; the plain versions on the CPU).  The per-step
+  ``linear_step_fused``; the plain versions on the CPU; the JAX package
+  has no fused NMPC step, ``ksim.py:409-437``).  The per-step
   reference operands (sqrt(Q)-scaled windows, or the linear step's
   gradient columns G2 @ Yr) are computed on the device up front and the
   tracked outputs go into a preallocated (steps-1, nproj, B) record.
@@ -31,7 +33,11 @@ import numpy as np
 import torch
 
 from koopman_realizations_torch import resolve_device
-from koopman_realizations_torch.control.kmpc import BilinearKmpc, LinearKmpc
+from koopman_realizations_torch.control.kmpc import (
+    BilinearKmpc,
+    LinearKmpc,
+    NonlinearKmpc,
+)
 from koopman_realizations_torch.ops.kernels.linear_step_fused import (
     build_linear_step_fused,
 )
@@ -44,7 +50,7 @@ from koopman_realizations_torch.ops.kernels.step_fused import (
 class Ksim:
     """Closed-loop harness binding the arm plant and the controller."""
 
-    def __init__(self, plant, mpc: BilinearKmpc | LinearKmpc,
+    def __init__(self, plant, mpc: BilinearKmpc | LinearKmpc | NonlinearKmpc,
                  device="cuda"):
         self.device = resolve_device(device)
         self.plant = plant
@@ -53,7 +59,10 @@ class Ksim:
         self.meta = mpc.meta
         if self.meta.nd != 0 or self.meta.nw != 0:
             raise NotImplementedError("delays and loads are not ported")
-        self._dual_warm = bool(mpc.cfg.qp_dual_warm)
+        # the NMPC carries no duals across steps (ksim.py:93-94: it has no
+        # n_con in the JAX package)
+        self._dual_warm = bool(mpc.cfg.qp_dual_warm) \
+            and not isinstance(mpc, NonlinearKmpc)
         if plant.G.device.type != self.device.type \
                 or mpc.device.type != self.device.type:
             raise ValueError(f"plant ({plant.G.device}) and controller "
@@ -70,14 +79,14 @@ class Ksim:
 
     def reference_windows(self, ref, steps: int) -> torch.Tensor:
         """The scaled reference window of every step k = 1..steps-1 as the
-        controller's solve takes it -- sqrt(Q) * Yr (bilinear) or Yr
-        (linear): (steps-1, p), built on the device (window k starts at
-        reference row k-1)."""
+        controller's solve takes it -- sqrt(Q) * Yr (bilinear, nonlinear)
+        or Yr (linear): (steps-1, p), built on the device (window k starts
+        at reference row k-1)."""
         mpc = self.mpc
         rp = torch.as_tensor(self.prep_ref(ref), device=self.device)
         win = rp.unfold(0, mpc.Np + 1, 1)[: steps - 1]   # (K-1, nproj, Np+1)
         win = win.transpose(1, 2).reshape(steps - 1, -1)
-        if isinstance(mpc, BilinearKmpc):
+        if isinstance(mpc, (BilinearKmpc, NonlinearKmpc)):
             win = torch.as_tensor(mpc.sqq, device=self.device) * win
         return win.to(mpc.dtype).contiguous()
 
@@ -103,7 +112,8 @@ class Ksim:
         mpc, plant, sc = self.mpc, self.plant, self.scaler
         m, Np = mpc.m, mpc.Np
         proj = list(mpc.proj_idx)
-        # the bilinear kernel lifts zeta itself (``wants_zeta``)
+        # the bilinear kernel lifts zeta itself (``wants_zeta``); the NMPC
+        # takes the raw zeta (ksim.py:103-104)
         lift = mpc.lift if isinstance(mpc, LinearKmpc) else (lambda z: z)
 
         def runner(X0, W):
@@ -150,7 +160,10 @@ class Ksim:
         bilinear controller the dual warm start without stage shift.  The
         linear controller's branch (``ksim.py:429-436``: blocked, cold
         duals, no shift, one poly family with PCA) is every configuration
-        ``LinearKmpc`` takes."""
+        ``LinearKmpc`` takes.  The NMPC has no fused step (as in the JAX
+        package, ``ksim.py:409-437``)."""
+        if isinstance(self.mpc, NonlinearKmpc):
+            return False
         cfg = self.plant.cfg
         common = (cfg.integrator == "sdirk2" and cfg.jac_mode == "step"
                   and cfg.output_type == "markers"

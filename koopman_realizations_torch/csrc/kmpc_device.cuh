@@ -1,11 +1,12 @@
 // Device functions shared by the CUDA kernels of the Koopman MPC closed
 // loops: the Mehrotra predictor-corrector with its banded A^T D A,
-// Cholesky factor and solve, and the ok mask (all four kernels); the poly
-// lift (the two step kernels and bilin_lift.cu); the bilinear QP assembly,
-// factored Gram and objective scale (bilin_lift.cu, step_fused.cu); the
-// arm's closed-form right-hand side with dual numbers, SDIRK2, the marker
-// kinematics and the plant/freeze/carry tail (step_fused.cu,
-// linear_step_fused.cu).
+// Cholesky factor and solve (all five kernels); the ok mask (the two step
+// kernels); the objective scale of a per-lane Gram (the bilinear kernels,
+// nmpc_multipass.cu); the poly lift (the two step kernels and
+// bilin_lift.cu); the bilinear QP assembly and factored Gram
+// (bilin_lift.cu, step_fused.cu); the arm's closed-form right-hand side
+// with dual numbers, SDIRK2, the marker kinematics and the
+// plant/freeze/carry tail (step_fused.cu, linear_step_fused.cu).
 //
 // They replace the shared Pallas device functions of the JAX package
 // (ops/pallas/qp_ipm.py:143-296 and :686-769, ops/pallas/step_fused.py
@@ -297,6 +298,14 @@ __device__ __forceinline__ void mehrotra(const Cons& con, int iters,
   }
 }
 
+// Per-lane objective scale: max |P| is the max diagonal of the PSD Gram.
+__device__ __forceinline__ float diag_obj_scale(const float (&P)[KM_N][KM_N]) {
+  float obj = P[0][0];
+#pragma unroll
+  for (int j = 1; j < KM_N; ++j) obj = nmax(obj, P[j][j]);
+  return nmax(obj, 1e-8f);
+}
+
 // The solve's ok rule (qp_ipm.py:986-995): finite iterate, sane gap and
 // primal residual within kTol of the row scale.
 __device__ __forceinline__ bool ok_mask(const Cons& con,
@@ -442,14 +451,6 @@ __device__ __forceinline__ void assemble(const QP& qp,
     }
   }
   rhs_b(qp.cFr, qp.F0r, up, b);
-}
-
-// Per-lane objective scale: max |P| is the max diagonal of the PSD Gram.
-__device__ __forceinline__ float diag_obj_scale(const float (&P)[KM_N][KM_N]) {
-  float obj = P[0][0];
-#pragma unroll
-  for (int j = 1; j < KM_N; ++j) obj = nmax(obj, P[j][j]);
-  return nmax(obj, 1e-8f);
 }
 
 // Lift + assembly + Gram + obj scale + Mehrotra: the QP half of both

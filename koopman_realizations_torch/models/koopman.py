@@ -1,7 +1,7 @@
 """Koopman model containers of the port (``models/koopman.py`` of the JAX
 package): the linear realization z+ = A z + B u and the bilinear one
 z+ = A z + Beta(z) u with Beta(z) = einsum('kmj,j->km', B, z), both with
-y = C z.
+y = C z, and the nonlinear one zeta+ = W^T g([zeta; u]).
 
 The port does not train yet: a model arrives as the JAX trainer's arrays
 (``from_jax_arrays``), usually through the ``.npz`` handoff format
@@ -69,30 +69,48 @@ class BilinearModel:
         return np.asarray(self.A).dtype
 
 
-MODEL_CLASSES = {"linear": LinearModel, "bilinear": BilinearModel}
+@dataclasses.dataclass(frozen=True, eq=False)
+class NonlinearModel:
+    """zeta+ = W^T g([zeta; u]), the discrete Koopman vector field; W is
+    (N, nzeta) and C the (n, n) identity (``Ksysid.m:1337``)."""
+
+    W: Any
+    C: Any
+    meta: ModelMeta
+    basis: KoopmanBasis
+
+    @property
+    def dtype(self) -> np.dtype:
+        return np.asarray(self.W).dtype
+
+
+MODEL_CLASSES = {"linear": LinearModel, "bilinear": BilinearModel,
+                 "nonlinear": NonlinearModel}
 
 
 def from_jax_arrays(header: dict, arrays: dict):
-    """(LinearModel | BilinearModel, Scaler | None) from the JAX package's
-    parameters.
+    """(LinearModel | BilinearModel | NonlinearModel, Scaler | None) from
+    the JAX package's parameters.
 
     ``header`` has the ``meta`` and ``basis`` entries of the JAX
-    ``save_model`` header; ``arrays`` maps names to numpy arrays: A, B, C,
-    pcs (when the basis has one) and ``scaler_<field>`` entries.
+    ``save_model`` header; ``arrays`` maps names to numpy arrays: the
+    model's own (A, B, C, or W and C for the nonlinear model), pcs (when
+    the basis has one) and ``scaler_<field>`` entries.
     """
     meta = ModelMeta(**header["meta"])
     if meta.model_type not in MODEL_CLASSES or meta.time_type != "discrete":
         raise NotImplementedError(
-            f"only discrete linear and bilinear models are ported "
-            f"(got {meta.model_type}/{meta.time_type})")
+            f"only discrete linear, bilinear and nonlinear models are "
+            f"ported (got {meta.model_type}/{meta.time_type})")
     b = header["basis"]
     basis = KoopmanBasis(
         model_type=b["model_type"], n=b["n"], m=b["m"], nd=b["nd"],
         nw=b["nw"], families=tuple(tuple(f) for f in b["families"]),
         pcs=np.asarray(arrays["pcs"]) if "pcs" in arrays else None)
-    model = MODEL_CLASSES[meta.model_type](
-        A=np.asarray(arrays["A"]), B=np.asarray(arrays["B"]),
-        C=np.asarray(arrays["C"]), meta=meta, basis=basis)
+    cls = MODEL_CLASSES[meta.model_type]
+    model = cls(meta=meta, basis=basis, **{
+        f.name: np.asarray(arrays[f.name]) for f in dataclasses.fields(cls)
+        if f.name not in ("meta", "basis")})
     fields = [f.name for f in dataclasses.fields(Scaler)]
     skw = {f: np.asarray(arrays["scaler_" + f]) for f in fields
            if "scaler_" + f in arrays}

@@ -17,15 +17,16 @@ from koopman_realizations_torch.models.koopman import (
 ASSETS = Path(__file__).resolve().parents[1] / "assets"
 BENCH_MODEL = ASSETS / "arm3_bilinear_poly3.npz"
 LINEAR_MODEL = ASSETS / "arm3_linear_poly3.npz"
+NONLINEAR_MODEL = ASSETS / "arm3_nonlinear_poly3.npz"
 
 
 def load_model(path=BENCH_MODEL):
     """(model, scaler, header) of a model written by the JAX ``save_model``.
 
     The header also carries whatever the writer added beside the JAX
-    fields (for the two committed assets, ``BENCH_MODEL`` (bilinear) and
-    ``LINEAR_MODEL``: their provenance and the JAX general runner's
-    tracking error, ``header["jax_reference"]``).
+    fields (for the three committed assets, ``BENCH_MODEL`` (bilinear),
+    ``LINEAR_MODEL`` and ``NONLINEAR_MODEL``: their provenance and the JAX
+    general runner's tracking error, ``header["jax_reference"]``).
     """
     with np.load(path, allow_pickle=False) as data:
         header = json.loads(str(data["header"]))

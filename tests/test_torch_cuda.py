@@ -13,11 +13,16 @@ import pytest
 import torch
 
 from koopman_realizations_torch.config import ArmConfig, MpcConfig
-from koopman_realizations_torch.control.kmpc import BilinearKmpc, LinearKmpc
+from koopman_realizations_torch.control.kmpc import (
+    BilinearKmpc,
+    LinearKmpc,
+    NonlinearKmpc,
+)
 from koopman_realizations_torch.control.ksim import Ksim
 from koopman_realizations_torch.models.arm import Arm
 from koopman_realizations_torch.ops.kernels import _build
 from koopman_realizations_torch.ops.kernels import ipm_shared as IS
+from koopman_realizations_torch.ops.kernels import nmpc_multipass as NM
 from koopman_realizations_torch.ops.kernels.bilin_lift import (
     bilin_lift_cuda,
     bilin_lift_plain,
@@ -33,6 +38,7 @@ from koopman_realizations_torch.ops.kernels.step_fused import (
 from koopman_realizations_torch.ops.qp import ok_mask
 from koopman_realizations_torch.utils.checkpoint import (
     LINEAR_MODEL,
+    NONLINEAR_MODEL,
     load_model,
 )
 from koopman_realizations_torch.utils.metrics import lane_tracking_error
@@ -50,6 +56,8 @@ ARM = dict(Nmods=3, nlinks=1, L=1.0, m=0.1, output_type="markers",
            substeps=3, newton_iters=1, jac_mode="step")
 # the linear controller (tests/test_torch_oracle.py:LINEAR_MPC)
 LINEAR = dict(MPC, qp_iters=6, qp_dual_warm=False)
+# the SQP NMPC controller (tests/test_torch_oracle.py:NMPC_MPC)
+NMPC = dict(MPC, qp_iters=8, qp_dual_warm=False)
 
 
 @pytest.fixture(scope="module")
@@ -237,3 +245,85 @@ def test_linear_runners_on_card_track(gpu_linear):
         assert out["alive"].all()
         err = lane_tracking_error(out["Yp"], blockM_reference())
         assert abs(err.mean().item() - ref) < 1e-3, (name, err.mean())
+
+
+@pytest.fixture(scope="module")
+def gpu_nmpc():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, scaler, _ = load_model(NONLINEAR_MODEL)
+    mpc = NonlinearKmpc(model, scaler, MpcConfig(**NMPC), device="cuda")
+    mpc64 = NonlinearKmpc(model, scaler, MpcConfig(**NMPC), device="cuda",
+                          dtype=torch.float64)
+    sim = Ksim(Arm(ArmConfig(**ARM), device="cuda"), mpc)
+    for r in _build.build_all([NM.kernel_spec(mpc.nmpc_qp())]):
+        print(r.path.name, f"{r.seconds:.1f}s", *r.ptxas, sep="\n  ")
+    return sim, mpc64
+
+
+def _nmpc_lanes(sim, B, steps, seed=0):
+    """Scaled outputs and previous inputs after a few closed-loop steps of
+    the NMPC general path from spread states, and the windows."""
+    rng = np.random.default_rng(seed)
+    mpc, arm, sc = sim.mpc, sim.plant, sim.scaler
+    X0 = np.zeros((B, 6), np.float32)
+    X0[:, 0] = np.linspace(-0.2, 0.2, B)
+    X0[:, 3:] = rng.normal(0, 0.2, (B, 3))
+    x = torch.as_tensor(X0, device="cuda").T.contiguous()
+    W = x.new_zeros((2, B))
+    u_prev = x.new_zeros((3, B))
+    ysc, upsc = sc.y_down(arm.get_y(x), axis=0), sc.u_down(u_prev, axis=0)
+    win = sim.reference_windows(blockM_reference(), 40)
+    for k in range(steps):
+        U, _ = mpc.solve(ysc, upsc, win[k])
+        x = arm.step(x, u_prev, W)
+        ysc = sc.y_down(arm.get_y(x), axis=0)
+        upsc = U[3:6].contiguous()
+        u_prev = sc.u_up(upsc, axis=0)
+    return ysc.contiguous(), upsc, win
+
+
+@pytest.mark.parametrize("per_lane", [False, True])
+def test_nmpc_multipass_kernel_matches_plain(gpu_nmpc, per_lane):
+    """The whole SQP, kernel against plain f32, both against plain f64, on
+    1000 closed-loop lanes (not a block multiple): equal, all-true ok
+    masks; the kernel's per-lane distance to f64 (median and 99th
+    percentile) within twice the plain f32 version's plus 1e-5."""
+    sim, mpc64 = gpu_nmpc
+    mpc = sim.mpc
+    zeta, up, win = _nmpc_lanes(sim, 1000, 3)
+    sq = win[3 + torch.arange(1000, device="cuda") % 8].T.contiguous() \
+        if per_lane else win[3]
+    qp, sqp = mpc.nmpc_qp(), (5, True, 8)
+    xk, sk, lk, objk = NM.nmpc_multipass_cuda(qp, zeta, up, sq, *sqp)
+    torch.cuda.synchronize()
+    xp, sp, lp, objp = NM.nmpc_multipass_plain(qp, zeta, up, sq, *sqp)
+    x64 = NM.nmpc_multipass_plain(mpc64.nmpc_qp(), zeta.double(),
+                                  up.double(), sq.double(), *sqp)[0]
+    b = qp.cFr[:, None] - qp.F0r @ up
+    okk = ok_mask(qp.cons, b, xk, sk, lk, 3e-3, 5e-2)[0]
+    okp = ok_mask(qp.cons, b, xp, sp, lp, 3e-3, 5e-2)[0]
+    assert torch.equal(okk, okp) and bool(okk.all())
+    lv = torch.tensor([0.5, 0.99], dtype=torch.float64, device="cuda")
+    ek = torch.quantile((xk.double() - x64).abs().amax(0), lv)
+    ep = torch.quantile((xp.double() - x64).abs().amax(0), lv)
+    assert bool((ek <= 2 * ep + 1e-5).all()), (ek, ep)
+    assert torch.allclose(objk, objp, rtol=1e-2)
+
+
+def test_nmpc_runner_on_card_tracks(gpu_nmpc):
+    """The NMPC general runner through the kernel, B=16 over 301 steps,
+    one launch per step, against the JAX general runner's err_mean."""
+    sim, _ = gpu_nmpc
+    B = 16
+    X0 = np.zeros((B, 6), np.float32)
+    X0[:, 0] = np.linspace(-0.2, 0.2, B)
+    ref = load_model(NONLINEAR_MODEL)[2]["jax_reference"]["err_mean"]
+    NM.nmpc_multipass_cuda.launches = 0
+    out = sim.batched_runner(blockM_reference(), steps=301)(
+        X0, np.zeros((B, 2), np.float32))
+    assert NM.nmpc_multipass_cuda.launches == 300
+    assert out["alive"].all()
+    err = lane_tracking_error(out["Yp"], blockM_reference())
+    assert abs(err.mean().item() - ref) < 1e-3, err.mean()

@@ -6,18 +6,22 @@ side once per process -- the bench controller, the arm plant, the closed
 loop -- from the committed model asset, and other ``tests/test_torch_*.py``
 files import these helpers.
 
-The two model assets are the JAX trainer's output on the in-repo
+The three model assets are the JAX trainer's output on the in-repo
 generated corpus (the MATLAB datafile the bench was tuned on is not part
 of the repo):
 
-    python tests/test_torch_oracle.py --write-asset
+    python tests/test_torch_oracle.py --write-asset [KIND ...]
 
-regenerates both: ``generate(15, 60.0, n_val=5, seed=0)`` -> ``Ksysid``
-poly-3 with PCA, f32 -> ``save_model``, once bilinear
-(``arm3_bilinear_poly3.npz``, the bench controller ``BENCH_MPC``) and once
-linear (``arm3_linear_poly3.npz``, the linear controller ``LINEAR_MPC``),
-each with the JAX general runner's tracking error at B=16 over 301 steps
-in its header, so the GPU smoke run can gate on it without JAX.
+regenerates the named ones (all three without a name):
+``generate(15, 60.0, n_val=5, seed=0)`` -> ``Ksysid`` poly-3 with PCA,
+f32 -> ``save_model``, once bilinear (``arm3_bilinear_poly3.npz``, the
+bench controller ``BENCH_MPC``), once linear (``arm3_linear_poly3.npz``,
+the linear controller ``LINEAR_MPC``) and once nonlinear with PCA at
+99.99 % explained variance (``arm3_nonlinear_poly3.npz``, the SQP NMPC
+controller ``NMPC_MPC``), each with the JAX general runner's tracking
+error at B=16 over 301 steps in its header, so the GPU smoke run can gate
+on it without JAX.  ``--write-asset nonlinear`` leaves the other two
+files as they are.
 
 The linear controller runs ``qp_iters=6`` with cold duals.  The JAX
 package's "verified linear floor" of 3 iterations
@@ -62,6 +66,7 @@ from koopman_realizations_tpu.config import (  # noqa: E402
 ASSETS = ROOT / "koopman_realizations_torch" / "assets"
 ASSET = ASSETS / "arm3_bilinear_poly3.npz"
 LINEAR_ASSET = ASSETS / "arm3_linear_poly3.npz"
+NONLINEAR_ASSET = ASSETS / "arm3_nonlinear_poly3.npz"
 
 # the bench controller (bench.py:95-105 at its defaults)
 BENCH_MPC = dict(
@@ -73,6 +78,11 @@ BENCH_MPC = dict(
 # the linear controller: the bench's horizon, blocks, bounds and costs
 # (tests/test_step_fused.py:97-102) at qp_iters=6, cold duals (see above)
 LINEAR_MPC = dict(BENCH_MPC, qp_iters=6, qp_dual_warm=False)
+# the SQP NMPC controller: the bench's horizon, blocks, bounds and costs
+# with the JAX package's verified NMPC setting (scripts/perf_report.py:
+# 137-148): qp_iters=8, cold duals, MpcConfig's default SQP regime
+# (5 passes, damping 0.05, 'hold' first pass)
+NMPC_MPC = dict(BENCH_MPC, qp_iters=8, qp_dual_warm=False)
 # the bench plant (bench.py:118-122)
 BENCH_ARM = dict(Nmods=3, nlinks=1, L=1.0, m=0.1, output_type="markers",
                  substeps=3, newton_iters=1, jac_mode="step")
@@ -104,8 +114,12 @@ def lane_errors(Yp, ref_y, steps: int):
     return np.sqrt(((Yl - Rl) ** 2).sum(-1)).mean(axis=1)
 
 
-MODELS = {"bilinear": (ASSET, BENCH_MPC), "linear": (LINEAR_ASSET,
-                                                     LINEAR_MPC)}
+MODELS = {"bilinear": (ASSET, BENCH_MPC),
+          "linear": (LINEAR_ASSET, LINEAR_MPC),
+          "nonlinear": (NONLINEAR_ASSET, NMPC_MPC)}
+# PCA threshold of each model's training (SysidConfig.pca_explained; the
+# JAX default 99 for the condensed controllers)
+PCA_EXPLAINED = {"bilinear": 99.0, "linear": 99.0, "nonlinear": 99.99}
 
 
 @functools.lru_cache(maxsize=None)
@@ -118,7 +132,9 @@ def jax_model(kind: str = "bilinear"):
 @functools.lru_cache(maxsize=None)
 def jax_bench(kind: str = "bilinear"):
     """(Ksim, controller, Arm) of the JAX package: the bench controller on
-    the bilinear asset, or the linear controller on the linear one."""
+    the bilinear asset, the linear controller on the linear one, or the
+    SQP NMPC controller on the nonlinear one (cached per process: the
+    NMPC controller's first run compiles for tens of seconds)."""
     from koopman_realizations_tpu.control import Ksim, make_kmpc
     from koopman_realizations_tpu.models.arm import Arm
     model, scaler = jax_model(kind)
@@ -138,6 +154,7 @@ def train_jax(ds, kind: str = "bilinear"):
     from koopman_realizations_tpu.models.edmd import Ksysid
     return Ksysid(ds, SysidConfig(model_type=kind, obs_type=("poly",),
                                   obs_degree=(3,), dim_red=True,
+                                  pca_explained=PCA_EXPLAINED[kind],
                                   dtype="float32")).train_models()
 
 
@@ -171,13 +188,14 @@ def jax_general_run(B: int, steps: int, kind: str = "bilinear"):
     return np.asarray(out["Yp"]), np.asarray(out["alive"])
 
 
-def write_assets() -> dict:
-    """Train on the generated corpus and write both assets (see module
-    doc); returns their headers."""
+def write_assets(kinds=tuple(MODELS)) -> dict:
+    """Train on the generated corpus and write the assets of ``kinds``
+    (see module doc); returns their headers."""
     from koopman_realizations_tpu.utils.checkpoint import save_model
     ds = generate_corpus()
     headers = {}
-    for kind, (path, mpc_cfg) in MODELS.items():
+    for kind in kinds:
+        path, mpc_cfg = MODELS[kind]
         ks = train_jax(ds, kind)
         path.parent.mkdir(parents=True, exist_ok=True)
         save_model(str(path), ks.model, ks.scaler, overwrite=True)
@@ -191,13 +209,19 @@ def write_assets() -> dict:
         header["provenance"] = {
             "corpus": "examples/generate_arm_data.py:generate"
                       "(15, 60.0, n_val=5, seed=0)",
-            "sysid": f"Ksysid {kind} poly-3 dim_red=True dtype=float32",
-            "written_by": "python tests/test_torch_oracle.py --write-asset",
+            "sysid": f"Ksysid {kind} poly-3 dim_red=True "
+                     + ("pca_explained=99.99 " if kind == "nonlinear"
+                        else "")
+                     + "dtype=float32",
+            "written_by": "python tests/test_torch_oracle.py --write-asset"
+                          + (" nonlinear" if kind == "nonlinear" else ""),
         }
         header["jax_reference"] = {
             "runner": "Ksim.batched_runner (x64 session, CPU)",
             "controller": f"qp_iters={mpc_cfg['qp_iters']} "
-                          f"qp_dual_warm={mpc_cfg['qp_dual_warm']}",
+                          f"qp_dual_warm={mpc_cfg['qp_dual_warm']}"
+                          + (f" sqp_iters={MpcConfig().sqp_iters}"
+                             if kind == "nonlinear" else ""),
             "B": REF_B, "steps": REF_STEPS,
             "alive": float(alive[:, -1].mean()),
             "err_mean": float(err.mean()), "err_worst": float(err.max()),
@@ -306,9 +330,12 @@ if __name__ == "__main__":
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--write-asset", action="store_true",
-                    help="retrain and rewrite both committed model assets")
+    ap.add_argument("--write-asset", nargs="*", choices=tuple(MODELS),
+                    metavar="KIND",
+                    help="retrain and rewrite the committed model assets of "
+                         "these kinds (all of them when none is named)")
     args = ap.parse_args()
-    if not args.write_asset:
+    if args.write_asset is None:
         ap.error("nothing to do (pass --write-asset)")
-    print(json.dumps(write_assets(), indent=1))
+    print(json.dumps(write_assets(tuple(args.write_asset) or tuple(MODELS)),
+                     indent=1))

@@ -206,3 +206,36 @@ def test_linear_cuda_wrappers_reject_host_tensors():
     with pytest.raises(ValueError):
         ipm_shared_cuda(cons, torch.eye(12), q, torch.ones(48, 4), q, 6,
                         1e-2)
+
+
+def test_nonlinear_entry_points_default_to_the_card():
+    """The NMPC controller, like the others, asks for CUDA unless the
+    caller passes ``device="cpu"``, and its kernel wrapper takes
+    contiguous f32 CUDA tensors only, saying so before any build or
+    launch."""
+    from koopman_realizations_torch.config import MpcConfig
+    from koopman_realizations_torch.control.kmpc import NonlinearKmpc
+    from koopman_realizations_torch.ops.kernels.nmpc_multipass import (
+        nmpc_multipass_cuda,
+    )
+    from koopman_realizations_torch.utils.checkpoint import (
+        NONLINEAR_MODEL,
+        load_model,
+    )
+
+    model, scaler, _ = load_model(NONLINEAR_MODEL)
+    cfg = MpcConfig(horizon=10, qp_iters=8, input_blocks=(1, 1, 2, 5),
+                    input_bounds=(-2.7, 2.7), input_slopeConst=0.1,
+                    proj_idx=(4, 5))
+    if torch.cuda.is_available():
+        assert NonlinearKmpc(model, scaler, cfg).G_t.is_cuda
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        NonlinearKmpc(model, scaler, cfg)
+    mpc = NonlinearKmpc(model, scaler, cfg, device="cpu")
+    assert mpc.device.type == "cpu"
+    qp = mpc.nmpc_qp()
+    z = torch.zeros(6, 4)
+    with pytest.raises(ValueError):
+        nmpc_multipass_cuda(qp, z, torch.zeros(3, 4), torch.zeros(22), 5,
+                            True, 8)
