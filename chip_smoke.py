@@ -5,17 +5,22 @@ the CUDA toolkit:
 
     python chip_smoke.py
 
-It builds the five CUDA kernels of the three closed loops from ``csrc/``
-(one nvcc per source, in parallel) and holds each against its plain
+It builds the seven CUDA kernels of the three closed loops from ``csrc/``
+(one nvcc per build, all in parallel) and holds each against its plain
 PyTorch version on the card.  For the bilinear bench controller and the
 linear one it checks the fused loop's tracking quality against the JAX
 reference value recorded in the model asset, drives the fused closed loop
 at the bench's size (B=262144 lanes, 301 blockM steps) and the general
 runner at B=65536; for the SQP NMPC controller, which has no fused step,
 it checks the general runner's quality at B=16 and drives it at B=65536
-(phases N1-N6).  Each main path runs with the launch counts set to 0 just
-before and read just after; every kernel is timed at its path's shapes
-next to its bound and its plain version.  It prints
+(phases N1-N6), in its default regime (``nmpc_multipass``) and in the
+regimes off that route (phases S1-S4: ``nmpc_stage`` and ``nmpc_pass``
+against their plain versions, the B=16 quality of every regime of
+``assets/nmpc_regime_refs.json`` against the JAX runner's, the stage and
+chord routes at B=65536, the kernels' times).  Each main path runs with
+the launch counts set to 0 just before and read just after; every kernel
+is timed at its path's shapes next to its bound and its plain version.
+It prints
 the card's name and power limit, one JSON line with every kernel's
 launches, error, times and bound, and as the last line
 {"ok": true, "device": {...}}.  Any failed phase raises; without CUDA or
@@ -47,6 +52,13 @@ LINEAR_MPC = dict(MPC, qp_iters=6, qp_dual_warm=False)
 NMPC_MPC = dict(MPC, qp_iters=8, qp_dual_warm=False)
 ARM = dict(Nmods=3, nlinks=1, L=1.0, m=0.1, output_type="markers",
            substeps=3, newton_iters=1, jac_mode="step")
+# the SQP regimes off the multipass route with the JAX general runner's
+# quality in each (tests/test_torch_oracle.py --write-regime-refs); two
+# run at full width: the stage route in its 'hold'/'roll' modes and the
+# chord route
+REGIME_REFS = ROOT / "koopman_realizations_torch" / "assets" / \
+    "nmpc_regime_refs.json"
+FULL_REGIMES = ("damping_decay", "jac_period")
 B_MAIN, B_GENERAL, B_CHECK, STEPS = 262144, 65536, 8192, 301
 # H100 SXM published peaks: f32 outside the tensor cores, HBM3 bandwidth
 PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
@@ -54,6 +66,20 @@ PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
 
 def log(*a):
     print(*a, flush=True)
+
+
+def regime_configs(path=REGIME_REFS) -> dict:
+    """name -> ``MpcConfig`` keyword arguments of every SQP regime in the
+    reference file: its full JAX configuration restricted to the fields of
+    the port's ``MpcConfig``, lists as tuples."""
+    import dataclasses
+
+    from koopman_realizations_torch.config import MpcConfig
+    fields = {f.name for f in dataclasses.fields(MpcConfig)}
+    refs = json.loads(Path(path).read_text())["regimes"]
+    return {name: {k: tuple(v) if isinstance(v, list) else v
+                   for k, v in entry["config"].items() if k in fields}
+            for name, entry in refs.items()}
 
 
 def smi_line() -> str:
@@ -190,17 +216,20 @@ def step_tail_ops(op, cfg, lam_scaled: bool) -> int:
             + (op.cons.mc if lam_scaled else 0))
 
 
-def nmpc_ops(q, passes: int, hold0: bool, iters: int) -> int:
-    """Operations of one lane's whole-SQP NMPC solve, counted from
-    csrc/nmpc_device.cuh and nmpc_multipass.cu, leaving out the structural
-    zeros of this run's lane-shared operands (A1, A2, G, Gup, F0r, CzS, A,
-    Wd, Wo) and of the sensitivities: S starts at 0, and stage k's
-    projection and propagation touch only the decision columns that the
-    input blocks of stages 0..k-1 reach."""
+def nmpc_part_ops(q) -> dict:
+    """Operations of the parts of one lane's NMPC pass, counted from
+    csrc/nmpc_device.cuh, leaving out the structural zeros of this run's
+    lane-shared operands (A1, A2, G, CzS, A, Wd, Wo) and of the
+    sensitivities: S starts at 0, and stage k's projection and propagation
+    touch only the decision columns that the input blocks of stages
+    0..k-1 reach.  ``glow``: g_low's monomials; ``F``: the dynamics (g_low
+    and the top-degree terms included); ``J``: G g_low + A1; ``defects``;
+    ``sweep``: the condensation streamed into the Gram over all stages;
+    ``finish``: the Gram's factor 2, the objective scale and the scaled,
+    regularized Hessian (the Levenberg term and the dual start apart)."""
     nz, nza, m, n, Np = q.nz, q.nza, q.m, q.n, q.Np
     ntop = len(q.tables_host[-1][0])
-    F = ((q.nlow - nza) + ntop + 2 * nnz(q.A1) + 2 * nnz(q.A2) + nz)
-    stage = F + 2 * nnz(q.G) + nza * nz + 2 * nz * nza   # F, J, defects
+    glow = q.nlow - nza
     sweep, live = 0, 0
     for k in range(Np + 1):
         for r in range(q.nproj):
@@ -211,13 +240,45 @@ def nmpc_ops(q, passes: int, hold0: bool, iters: int) -> int:
         if k < Np:
             sweep += 2 * nz * nz * live + m * nz + 2 * nz * nz + nz
             live = q.cols[k] + m
-    finish = 3 * n + n * (n + 1) // 2 + n + 1 + n + n * (n + 1) // 2 + n
+    return dict(glow=glow,
+                F=glow + ntop + 2 * nnz(q.A1) + 2 * nnz(q.A2) + nz,
+                J=2 * nnz(q.G) + nza * nz, defects=2 * nz * nza,
+                sweep=sweep,
+                finish=n * (n + 1) // 2 + n + 1 + n + n * (n + 1) // 2 + n)
+
+
+def nmpc_ops(q, passes: int, hold0: bool, iters: int) -> int:
+    """Operations of one lane's whole-SQP NMPC solve (nmpc_multipass.cu):
+    per pass the stage evaluations (one in the 'hold' pass), the sweep,
+    the finish with the Levenberg term q0c * x_prev and the Mehrotra loop;
+    b = cFr - F0r u_prev and the pass-0 plan Gup u_prev once."""
+    p = nmpc_part_ops(q)
+    stage = p["F"] + p["J"] + p["defects"]
     total = 2 * nnz(q.F0r) + 2 * nnz(q.Gup)
-    for p in range(passes):
-        evals = 1 if (p == 0 and hold0) else Np
-        total += (evals * stage + sweep + finish
-                  + mehrotra_ops(q.cons, iters, n * n))
+    for k in range(passes):
+        evals = 1 if (k == 0 and hold0) else q.Np
+        total += (evals * stage + p["sweep"] + 3 * q.n + p["finish"]
+                  + mehrotra_ops(q.cons, iters, q.n * q.n))
     return total
+
+
+def nmpc_onepass_ops(q, source: str, iters: int, q0: bool,
+                     warm: bool) -> int:
+    """Operations of one lane's one-pass NMPC solve: nmpc_stage.cu with
+    its trajectory ``source`` 'hold' (F, J and defects once), 'roll' (at
+    every stage) or 'ship' (g_low, J and defects at every stage, no F), or
+    nmpc_pass.cu (``source`` 'jacobians': none of them); then the sweep,
+    the finish with the per-lane term 2 q + q0 (``q0``), the warm dual
+    start sqrt(clip(lam0 / obj)) (``warm``), the Mehrotra loop and
+    b = cFr - F0r u_prev."""
+    p = nmpc_part_ops(q)
+    stage = {"hold": p["F"] + p["J"] + p["defects"],
+             "roll": q.Np * (p["F"] + p["J"] + p["defects"]),
+             "ship": q.Np * (p["glow"] + p["J"] + p["defects"]),
+             "jacobians": 0}[source]
+    return (2 * nnz(q.F0r) + stage + p["sweep"] + (2 if q0 else 1) * q.n
+            + p["finish"] + (4 * q.cons.mc if warm else 0)
+            + mehrotra_ops(q.cons, iters, q.n * q.n))
 
 
 def bound(flops: float, nbytes: float) -> tuple:
@@ -264,7 +325,10 @@ def main() -> int:
     from koopman_realizations_torch.ops.kernels import bilin_lift as BL
     from koopman_realizations_torch.ops.kernels import ipm_shared as IS
     from koopman_realizations_torch.ops.kernels import linear_step_fused as LS
+    from koopman_realizations_torch.ops import nmpc as N
     from koopman_realizations_torch.ops.kernels import nmpc_multipass as NM
+    from koopman_realizations_torch.ops.kernels import nmpc_pass as NP
+    from koopman_realizations_torch.ops.kernels import nmpc_stage as NS
     from koopman_realizations_torch.ops.kernels import step_fused as SF
     from koopman_realizations_torch.ops.qp import ok_mask
     from koopman_realizations_torch.utils.checkpoint import (
@@ -288,13 +352,15 @@ def main() -> int:
                 "bilin_lift": BL.bilin_lift_cuda,
                 "linear_step_fused": LS.linear_step_fused_cuda,
                 "ipm_shared": IS.ipm_shared_cuda,
-                "nmpc_multipass": NM.nmpc_multipass_cuda}
+                "nmpc_multipass": NM.nmpc_multipass_cuda,
+                "nmpc_stage": NS.nmpc_stage_cuda,
+                "nmpc_pass": NP.nmpc_pass_cuda}
 
-    def drive(name, fn):
+    def drive(expected, fn):
         """Run one main path with every launch count set to 0 just before
         and read just after: (result, seconds by CUDA events, counts).
-        Fails unless ``name`` launched once per closed-loop step and no
-        other kernel launched."""
+        Fails unless the kernels launched exactly as ``expected``
+        ({name: launches}; any other kernel: none)."""
         for w in wrappers.values():
             w.launches = 0
         torch.cuda.synchronize()
@@ -305,11 +371,24 @@ def main() -> int:
         t1.record()
         torch.cuda.synchronize()
         counts = {k: w.launches for k, w in wrappers.items()}
-        if counts[name] != STEPS - 1 or sum(counts.values()) != STEPS - 1:
-            raise AssertionError(f"{name} path launches: {counts}")
-        return out, t0.elapsed_time(t1) / 1e3, counts[name]
+        if any(counts[k] != expected.get(k, 0) for k in counts):
+            raise AssertionError(f"main path launches {counts}, expected "
+                                 f"{expected}")
+        return out, t0.elapsed_time(t1) / 1e3, counts
 
-    # ---- models, controllers, plant; build all five kernels at once
+    def nmpc_launches(m, steps):
+        """The NMPC kernels' launches of ``steps``-step run: the first SQP
+        of every step on the controller's route (one multipass launch, or
+        one launch a pass), multistart's second SQP a launch a pass."""
+        passes = (steps - 1) * m.cfg.sqp_iters
+        per_pass = "nmpc_stage" if m.jac_period == 1 else "nmpc_pass"
+        out = {"nmpc_multipass": steps - 1} if m.route == "multipass" \
+            else {per_pass: passes}
+        if m.cfg.sqp_multistart:
+            out[per_pass] = out.get(per_pass, 0) + passes
+        return out
+
+    # ---- models, controllers, plant; build all seven kernels at once
     model, scaler, header = load_model()
     jref = header["jax_reference"]
     lmodel, lscaler, lheader = load_model(LINEAR_MODEL)
@@ -331,9 +410,10 @@ def main() -> int:
     wins = sim.reference_windows(ref, STEPS)
     fY = lop.fYr(lsim.reference_windows(ref, STEPS))
     nwins = nsim.reference_windows(ref, STEPS)
-    builds = _build.build_all([BL.kernel_spec(qp), op.kernel_spec(),
-                               IS.kernel_spec(cons), lop.kernel_spec(),
-                               NM.kernel_spec(nqp)])
+    builds = _build.build_all(
+        [BL.kernel_spec(qp), op.kernel_spec(), IS.kernel_spec(cons),
+         lop.kernel_spec(), NM.kernel_spec(nqp), NP.kernel_spec(nqp)]
+        + [NS.kernel_spec(nqp, mode) for mode in N.STAGE_MODES])
     for r in builds:
         log(f"built {r.path.name} in {r.seconds:.1f} s "
             f"({'cached' if r.cached else 'nvcc'})")
@@ -565,7 +645,92 @@ def main() -> int:
                  check_nmpc(nz8, nu8, nwins[3 + torch.arange(
                      B_CHECK, device=dev) % 8].T.contiguous(),
                      f"per-lane windows B={B_CHECK}"))
-    del nz8, nu8
+
+    # ---- phase S1: nmpc_stage (each trajectory mode, cold and with warm
+    # duals, a per-lane Levenberg term; per-lane windows in one case) and
+    # nmpc_pass (fresh and frozen stage Jacobians) against their plain
+    # versions, B=8192, on the same lanes: the pass linearizes along the
+    # multipass solve's plan, rho = 0.1
+    def pass_inputs(zeta, up, sq, rho=0.1):
+        """One SQP pass's operands in f32 and f64: the multipass plan as
+        the linearization plan Ul, its rollout (Zl, Fv), the stage
+        Jacobians at the held state (the frozen ones of a chord pass),
+        x0 = Sel Ul, q0 = -2 rho Tb^T Ul and the plan's multipliers in
+        row units as the warm dual start."""
+        U, sol = nmpc.solve(zeta, up, sq)
+        out = {}
+        for c in (nmpc, nmpc64):
+            q_ = c.nmpc_qp(c.RdT_t + rho * c.bsizes_t)
+            Ud, z, u, r = (t.to(c.dtype).contiguous()
+                           for t in (U, zeta, up, sq))
+            Z = N.rollout(q_, z, Ud)
+            out[c.dtype] = dict(
+                qp=q_, zeta=z, up=u, sq=r, Ul=Ud, Zl=Z[:-1].contiguous(),
+                Fv=Z[1:].contiguous(),
+                Jh=N.stage_lin(q_, z.expand((c.Np,) + z.shape),
+                               u.repeat(c.Np, 1))[0],
+                x0=(c.Sel_t @ Ud[3:]).contiguous(),
+                q0=(-2.0 * rho * (c.Tb_t.T @ Ud[3:])).contiguous(),
+                lam0=(sol.lam.to(c.dtype) * q_.row[:, None]).contiguous())
+        return out
+
+    def onepass(kernel, source, d, warm):
+        """(kernel, plain) calls of one nmpc_stage launch with trajectory
+        ``source`` or one nmpc_pass launch with 'fresh' or 'frozen'
+        Jacobians, on the operands d."""
+        if kernel == "nmpc_stage":
+            head = (d["qp"], source)
+            kw = {"ship": dict(Zl=d["Zl"], Ul=d["Ul"], Fv=d["Fv"]),
+                  "roll": dict(Ul=d["Ul"]), "hold": {}}[source]
+            fns = NS.nmpc_stage_cuda, NS.nmpc_stage_plain
+        else:
+            head = (d["qp"],) + N.stage_lin(
+                d["qp"], d["Zl"], d["Ul"],
+                frozen=d["Jh"] if source == "frozen" else None, Fv=d["Fv"])
+            kw = {}
+            fns = NP.nmpc_pass_cuda, NP.nmpc_pass_plain
+        args = head + (d["zeta"], d["up"], d["sq"], d["x0"], d["q0"],
+                       d["lam0"] if warm else None, nmpc.cfg.qp_iters, 1e-2)
+        return tuple((lambda f=f: f(*args, **kw)) for f in fns)
+
+    def check_onepass(kernel, source, ins, warm, label) -> float:
+        """A one-pass kernel against its plain version, both against the
+        plain f64 version (as check_nmpc); returns max |dx| of kernel
+        and plain."""
+        kcall, pcall = onepass(kernel, source, ins[torch.float32], warm)
+        xk, sk, lk, objk = kcall()
+        torch.cuda.synchronize()
+        xp, sp, lp, objp = pcall()
+        x64 = onepass(kernel, source, ins[torch.float64], warm)[1]()[0]
+        d = ins[torch.float32]
+        b = N.rhs(d["qp"], d["up"])
+        okk = ok_mask(d["qp"].cons, b, xk, sk, lk, 3e-3, 5e-2)[0]
+        okp = ok_mask(d["qp"].cons, b, xp, sp, lp, 3e-3, 5e-2)[0]
+        lv = torch.tensor([0.5, 0.99], dtype=torch.float64, device=dev)
+        ek = torch.quantile((xk.double() - x64).abs().amax(0), lv)
+        ep = torch.quantile((xp.double() - x64).abs().amax(0), lv)
+        dx = (xk - xp).abs().max().item()
+        dobj = ((objk - objp) / objp).abs().max().item()
+        log(f"{kernel} {source} {'warm' if warm else 'cold'} duals {label}: "
+            f"max|dx| {dx:.3e} max rel dobj {dobj:.3e}; distance to f64 "
+            f"(median, p99): kernel {ek[0]:.3e} {ek[1]:.3e}, plain f32 "
+            f"{ep[0]:.3e} {ep[1]:.3e}; ok {int(okk.sum())}/{int(okp.sum())}"
+            f" of {xk.shape[1]}")
+        if not (torch.equal(okk, okp)
+                and bool((ek <= 2 * ep + 1e-5).all())):
+            raise AssertionError(f"{kernel} kernel disagrees with plain")
+        return dx
+
+    sin = pass_inputs(nz8, nu8, nwins[3])
+    ns_err = max(check_onepass("nmpc_stage", mode, sin, warm, f"B={B_CHECK}")
+                 for mode in N.STAGE_MODES for warm in (False, True))
+    ns_err = max(ns_err, check_onepass(
+        "nmpc_stage", "roll", pass_inputs(nz8, nu8, nwins[3 + torch.arange(
+            B_CHECK, device=dev) % 8].T.contiguous()), True,
+        f"per-lane windows B={B_CHECK}"))
+    np_err = max(check_onepass("nmpc_pass", jac, sin, True, f"B={B_CHECK}")
+                 for jac in ("fresh", "frozen"))
+    del nz8, nu8, sin
 
     # ---- phases 3, L3, N3: quality through the kernels, bench X0, B=16,
     # 301 steps; f32 plant noise moves the mean by ~1e-4 on the CPU (tests)
@@ -591,13 +756,39 @@ def main() -> int:
             and abs(e16.mean().item() - njref["err_mean"]) < 1e-3):
         raise AssertionError("NMPC loop quality off the JAX reference")
 
+    # ---- phase S2: every SQP regime off the multipass route through its
+    # kernels, B=16, 301 steps, against the JAX general runner in that
+    # regime (assets/nmpc_regime_refs.json); each run launches as its
+    # route does
+    regime_refs = json.loads(REGIME_REFS.read_text())["regimes"]
+    rsims = {}
+    for name, cfg in regime_configs().items():
+        rmpc = NonlinearKmpc(nmodel, nscaler, MpcConfig(**cfg), device=dev)
+        rsims[name] = rsim = Ksim(arm, rmpc)
+        jr = regime_refs[name]
+        o16, w16, counts = drive(
+            nmpc_launches(rmpc, STEPS),
+            lambda: rsim.batched_runner(ref, steps=STEPS)(spread_X0(16),
+                                                          W16))
+        e16 = lane_tracking_error(o16["Yp"], ref)
+        alive16 = o16["alive"][:, -1].float().mean().item()
+        log(f"NMPC regime {name} ({rmpc.route} route) quality B=16: alive "
+            f"{alive16:.4f} err_mean {e16.mean():.6f} err_worst "
+            f"{e16.max():.6f} (JAX general runner {jr['alive']:.4f} "
+            f"{jr['err_mean']:.6f} / {jr['err_worst']:.6f}); {w16:.1f} s, "
+            f"launches {({k: v for k, v in counts.items() if v})}")
+        if not (alive16 == jr["alive"] and torch.isfinite(o16["Yp"]).all()
+                and abs(e16.mean().item() - jr["err_mean"]) < 1e-3):
+            raise AssertionError(f"NMPC regime {name}: quality off the JAX "
+                                 f"reference")
+
     # ---- phases 4, L4: the fused main paths at size, B=262144, 301 steps
     XB, WB = spread_X0(B_MAIN), np.zeros((B_MAIN, 2), np.float32)
     fused_main = {}
     for name, s in (("step_fused", sim), ("linear_step_fused", lsim)):
         run = s.fused_runner(ref, steps=STEPS)
         run(XB[:1024], WB[:1024])                   # warm-up (allocator)
-        out, wall, launches = drive(name, lambda: run(XB, WB))
+        out, wall, counts = drive({name: STEPS - 1}, lambda: run(XB, WB))
         eB = lane_tracking_error(out["Yp"], ref)
         aliveB = out["alive"][:, -1].float().mean().item()
         log(f"{name} fused main path B={B_MAIN} steps={STEPS}: {wall:.3f} s"
@@ -607,7 +798,7 @@ def main() -> int:
             f"{eB.max():.6f} | {smi}")
         if aliveB != 1.0 or not torch.isfinite(eB).all():
             raise AssertionError(f"{name} fused main path lost lanes")
-        fused_main[name] = launches
+        fused_main[name] = counts[name]
         del out
 
     # ---- phases 5, L5, N5: the general runners at B=65536 (the bilinear
@@ -618,7 +809,7 @@ def main() -> int:
                     ("nmpc_multipass", nsim)):
         grun = s.batched_runner(ref, steps=STEPS)
         s.batched_runner(ref, steps=3)(XB[:1024], WB[:1024])   # warm-up
-        gout, gwall, launches = drive(name, lambda: grun(XG, WG))
+        gout, gwall, counts = drive({name: STEPS - 1}, lambda: grun(XG, WG))
         eG = lane_tracking_error(gout["Yp"], ref)
         aliveG = gout["alive"][:, -1].float().mean().item()
         log(f"{name} general runner B={B_GENERAL} steps={STEPS}: "
@@ -627,7 +818,28 @@ def main() -> int:
             f"err_worst {eG.max():.6f} | {smi}")
         if aliveG != 1.0:
             raise AssertionError(f"{name} general runner lost lanes")
-        general_main[name] = launches
+        general_main[name] = counts[name]
+        del gout
+
+    # ---- phase S3: the stage route (its 'hold'/'roll' modes) and the
+    # chord route at B=65536, 301 steps
+    full_main = {}
+    for name in FULL_REGIMES:
+        rsim = rsims[name]
+        grun = rsim.batched_runner(ref, steps=STEPS)
+        rsim.batched_runner(ref, steps=3)(XB[:1024], WB[:1024])   # warm-up
+        expected = nmpc_launches(rsim.mpc, STEPS)
+        gout, gwall, counts = drive(expected, lambda: grun(XG, WG))
+        eG = lane_tracking_error(gout["Yp"], ref)
+        aliveG = gout["alive"][:, -1].float().mean().item()
+        log(f"NMPC regime {name} ({rsim.mpc.route} route) general runner "
+            f"B={B_GENERAL} steps={STEPS}: {gwall:.3f} s, "
+            f"{B_GENERAL * (STEPS - 1) / gwall:.4e} lane-steps/s, alive "
+            f"{aliveG:.6f}, err_mean {eG.mean():.6f}, err_worst "
+            f"{eG.max():.6f}, launches {expected} | {smi}")
+        if aliveG != 1.0:
+            raise AssertionError(f"NMPC regime {name} lost lanes")
+        full_main.update({k: counts[k] for k in expected})
         del gout
 
     # ---- phases 6, L6: each kernel against its plain version, and its
@@ -713,7 +925,50 @@ def main() -> int:
             nqp.A1, nqp.A2, nqp.a0, nqp.G, nqp.Gup, nqp.q0c, nqp.CzS,
             nqp.rdiag, nqp.cFr, nqp.F0r, nqp.A, nqp.Wd, nqp.Wo)
     nm_bound, nm_by = bound(nm_flops, nm_bytes)
-    del nzG, nuG
+
+    # ---- phase S4: nmpc_stage and nmpc_pass against their plain versions
+    # and their times at B=65536 on the same lanes, as the full-width
+    # routes launch them (a per-lane Levenberg term, cold duals)
+    gin = pass_inputs(nzG, nuG, nwins[3])
+    ns_err = max(ns_err, check_onepass("nmpc_stage", "roll", gin, False,
+                                       f"B={B_GENERAL}"))
+    np_err = max(np_err, check_onepass("nmpc_pass", "fresh", gin, False,
+                                       f"B={B_GENERAL}"))
+    d32 = gin[torch.float32]
+    iters = nmpc.cfg.qp_iters
+    lane_bytes = nbytes(d32["zeta"], d32["up"], d32["sq"], d32["x0"],
+                        d32["q0"]) + 4 * B_GENERAL * (nqp.n + 2 * nqp.mc + 1)
+    shared_bytes = nbytes(d32["qp"].rdiag, nqp.CzS, nqp.cFr, nqp.F0r, nqp.A,
+                      nqp.Wd, nqp.Wo)
+    stage_t = {}
+    for mode in N.STAGE_MODES:
+        kcall, pcall = onepass("nmpc_stage", mode, d32, False)
+        traj = {"ship": (d32["Zl"], d32["Ul"], d32["Fv"]),
+                "roll": (d32["Ul"],), "hold": ()}[mode]
+        flops = nmpc_onepass_ops(nqp, mode, iters, True, False) * B_GENERAL
+        stage_t[mode] = (cuda_ms(kcall, reps=10),
+                         cuda_ms(pcall, reps=1, warmup=1), flops) + bound(
+            flops, lane_bytes + nbytes(*traj) + shared_bytes + nbytes(
+                nqp.A1, nqp.A2, nqp.a0, nqp.G))
+    # the stage route's launch mix on its main path: one 'hold' and
+    # sqp_iters - 1 'roll' launches a step
+    mix = {"hold": 1, "roll": rsims[FULL_REGIMES[0]].mpc.cfg.sqp_iters - 1}
+    per = lambda i: sum(n * stage_t[m][i] for m, n in mix.items()) \
+        / sum(mix.values())
+    ns_ms, ns_plain, ns_bound = per(0), per(1), per(3)
+    ns_by = stage_t["roll"][4]
+    kcall, pcall = onepass("nmpc_pass", "fresh", d32, False)
+    np_ms = cuda_ms(kcall, reps=10)
+    np_plain = cuda_ms(pcall, reps=1, warmup=1)
+    np_flops = nmpc_onepass_ops(nqp, "jacobians", iters, True, False) \
+        * B_GENERAL
+    np_bound, np_by = bound(np_flops, lane_bytes + shared_bytes + 4 * B_GENERAL
+                            * nqp.Np * nqp.nz * (nqp.nza + 1))
+    log(f"nmpc_stage per mode at B={B_GENERAL} | {smi}: " + "; ".join(
+        f"{m} {t[0]:.4f} ms (plain {t[1]:.2f} ms, bound {t[3]:.4f} ms by "
+        f"{t[4]}, {t[2] / B_GENERAL:.0f} op/lane)"
+        for m, t in stage_t.items()) + f"; main-path mix {mix}")
+    del nzG, nuG, gin, d32
 
     log(f"kernel times | {smi}: step_fused {sf_ms:.4f} ms (plain "
         f"{sf_plain:.2f} ms, bound {sf_bound:.4f} ms by {sf_by}, "
@@ -726,7 +981,11 @@ def main() -> int:
         f"bound {is_bound:.4f} ms by {is_by}, {is_flops / B_GENERAL:.0f} "
         f"op/lane) at B={B_GENERAL}; nmpc_multipass {nm_ms:.4f} ms (plain "
         f"{nm_plain:.2f} ms, bound {nm_bound:.4f} ms by {nm_by}, "
-        f"{nm_flops / B_GENERAL:.0f} op/lane) at B={B_GENERAL}")
+        f"{nm_flops / B_GENERAL:.0f} op/lane) at B={B_GENERAL}; nmpc_stage "
+        f"{ns_ms:.4f} ms (plain {ns_plain:.2f} ms, bound {ns_bound:.4f} ms "
+        f"by {ns_by}; main-path mix) at B={B_GENERAL}; nmpc_pass "
+        f"{np_ms:.4f} ms (plain {np_plain:.2f} ms, bound {np_bound:.4f} ms "
+        f"by {np_by}, {np_flops / B_GENERAL:.0f} op/lane) at B={B_GENERAL}")
 
     tpu = "koopman_realizations_tpu/ops/pallas/"
     src = "koopman_realizations_torch/csrc/"
@@ -739,7 +998,11 @@ def main() -> int:
             ("ipm_shared", "qp_ipm.py:299", general_main, is_err, is_ms,
              is_plain, is_bound, is_by),
             ("nmpc_multipass", "qp_ipm.py:1422", general_main, nm_err, nm_ms,
-             nm_plain, nm_bound, nm_by)]
+             nm_plain, nm_bound, nm_by),
+            ("nmpc_stage", "qp_ipm.py:1560", full_main, ns_err, ns_ms,
+             ns_plain, ns_bound, ns_by),
+            ("nmpc_pass", "qp_ipm.py:1144", full_main, np_err, np_ms,
+             np_plain, np_bound, np_by)]
     kernels = [{"name": name, "route": "cuda", "source": src + name + ".cu",
                 "replaces": tpu + tpu_at, "launches": paths[name],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain,

@@ -17,7 +17,8 @@ The bilinear per-step solve runs in ``ops/kernels/bilin_lift.py``
 (general runner) or inside the fused step (``ops/kernels/step_fused.py``);
 the linear one in ``ops/kernels/ipm_shared.py`` (general runner) or inside
 its fused step (``ops/kernels/linear_step_fused.py``); the nonlinear
-controller's whole SQP in ``ops/kernels/nmpc_multipass.py``.  The
+controller's whole SQP in ``ops/kernels/nmpc_multipass.py``, or its passes
+one by one in ``ops/kernels/nmpc_stage.py`` / ``nmpc_pass.py``.  The
 nonlinear controller's host constants are the composed maps of F
 (``_composed_maps``, kmpc.py:944) and the analytic Jacobian's generator
 (``_poly_jacobian_static``, :990), f64 as there.
@@ -40,10 +41,20 @@ from koopman_realizations_torch.ops.kernels.ipm_shared import (
 from koopman_realizations_torch.ops.kernels.nmpc_multipass import (
     solve_qp_nmpc_multipass,
 )
+from koopman_realizations_torch.ops.kernels.nmpc_pass import (
+    solve_qp_nmpc_pass,
+)
+from koopman_realizations_torch.ops.kernels.nmpc_stage import (
+    solve_qp_nmpc_stages,
+)
 from koopman_realizations_torch.ops.nmpc import (
     NmpcQP,
+    eval_F,
     jacobian_generator,
+    merit,
     nmpc_qp_operands,
+    rollout,
+    stage_lin,
 )
 from koopman_realizations_torch.ops.observables import (
     poly_features,
@@ -52,10 +63,14 @@ from koopman_realizations_torch.ops.observables import (
 from koopman_realizations_torch.ops.qp import (
     Constraints,
     LiftQP,
+    QPSolution,
     band_offset_of,
     constraint_tables,
     lift_qp_operands,
 )
+
+
+INF = float("inf")
 
 
 def input_constraint_rows(cfg: MpcConfig, m: int, Np: int, scaler):
@@ -522,20 +537,37 @@ def poly_jacobian_static(model):
 
 class NonlinearKmpc(_KmpcBase):
     """SQP NMPC on the nonlinear realization (``NonlinearKmpc``,
-    kmpc.py:1080-1206), blocked form, in the default SQP regime that the
-    JAX controller runs as one kernel launch (``_solve_from``'s multipass
-    branch, :1373-1401): ``sqp_iters`` passes, the first about the held
-    state ('hold', or the held plan's rollout with
-    ``sqp_init='rollout'``), every later one along the rollout of the
-    previous pass's plan; constant Levenberg damping ``sqp_damping``; cold
-    duals in every pass.  The controller takes the raw scaled outputs
+    kmpc.py:1080-1676), blocked form: ``sqp_iters`` passes, each
+    linearizing the composed F along a trajectory, condensing the stage
+    Jacobians into the factored QP with Levenberg damping rho and solving
+    it by the interior point.  The controller takes the raw scaled outputs
     (it lifts [zeta; u] itself) and carries no duals across steps.
 
-    Every regime that leaves the multipass route raises
-    ``NotImplementedError``: ``sqp_dual_warm``, a damping decay, a line
-    search, best-of-passes, multistart, ``sqp_update='linear'``,
-    ``sqp_jac_period > 1``; so do state bounds and loads (``_KmpcBase``)
-    and a bilinear model with ``mpc_type='nonlinear'``.
+    It picks the JAX controller's route (``_solve_from``, :1352-1624):
+
+    - **multipass** -- every pass in one launch of ``nmpc_multipass``
+      (:1373-1401): the first pass about the held state ('hold', or the
+      held plan's rollout with ``sqp_init='rollout'``), every later one
+      along the rollout of the previous pass's plan, constant damping,
+      cold duals.  Taken when no knob below asks for more.
+    - **stage** -- one launch of ``nmpc_stage`` per pass with the pass's
+      own rdiag and q0 (rho decays by ``sqp_damping_decay`` per pass) and
+      the previous pass's multipliers with ``sqp_dual_warm``.  The kernel
+      holds or rolls the trajectory itself ('hold'/'roll') unless
+      ``sqp_linesearch`` or ``sqp_best_of_passes`` keep the rollout on the
+      host for the merit; the trajectory then ships ('ship').
+      ``sqp_multistart`` runs a second SQP from the shifted previous plan
+      ``U_plan`` with its rollout shipped, and keeps the plan of lower
+      true merit.
+    - **chord** (``sqp_jac_period > 1``) -- the stage Jacobians formed on
+      the host (``ops/nmpc.py:stage_lin``) every ``sqp_jac_period``
+      passes and frozen in between, the defects fresh; one launch of
+      ``nmpc_pass`` per pass.
+
+    Not ported, each raising ``NotImplementedError``: the 'linear'
+    between-pass update (``sqp_update='linear'``), state bounds, loads and
+    unblocked stacks (``_KmpcBase``), and a bilinear model with
+    ``mpc_type='nonlinear'``.
 
     Host constants (f64 numpy, as the JAX package): the composed maps
     ``A1``, ``A2``, ``a0``; the Jacobian generator ``G`` and ``pos_x``;
@@ -551,19 +583,10 @@ class NonlinearKmpc(_KmpcBase):
             raise NotImplementedError(
                 "NonlinearKmpc takes a nonlinear model (the bilinear-as-NMPC "
                 "controller is not ported)")
-        off_route = {
-            "sqp_dual_warm": cfg.sqp_dual_warm,
-            "sqp_damping_decay != 1": cfg.sqp_damping_decay != 1.0,
-            "sqp_linesearch": cfg.sqp_linesearch != 0,
-            "sqp_best_of_passes": cfg.sqp_best_of_passes,
-            "sqp_multistart": cfg.sqp_multistart,
-            "sqp_update='linear'": cfg.sqp_update == "linear",
-            "sqp_jac_period > 1": max(1, int(cfg.sqp_jac_period)) != 1}
-        bad = [k for k, v in off_route.items() if v]
-        if bad or cfg.sqp_iters < 1:
+        if cfg.sqp_update == "linear" or cfg.sqp_iters < 1:
             raise NotImplementedError(
-                f"NonlinearKmpc runs the multipass SQP only (not ported: "
-                f"{', '.join(bad) or 'sqp_iters < 1'})")
+                "NonlinearKmpc: the 'linear' between-pass update is not "
+                "ported" if cfg.sqp_iters >= 1 else "sqp_iters < 1")
         super().__init__(model, scaler, cfg, device, dtype)
         m, n, Np = self.m, self.n, self.Np
         self.nz = self.meta.nzeta
@@ -584,6 +607,13 @@ class NonlinearKmpc(_KmpcBase):
         self.Gup = np.tile(np.eye(m), (self.Tb.shape[1] // m, 1))
         self.sqq = np.sqrt(self.q_diag)
         self.hold0 = cfg.sqp_init != "rollout"
+        # the route (_solve_from, kmpc.py:1360-1375, 1435-1437)
+        self.jac_period = max(1, int(cfg.sqp_jac_period))
+        self.roll_fused = (self.jac_period == 1
+                           and not cfg.sqp_best_of_passes
+                           and cfg.sqp_linesearch == 0)
+        self.multipass = (self.roll_fused and not cfg.sqp_dual_warm
+                          and cfg.sqp_damping_decay == 1.0)
         qp = nmpc_qp_operands(
             self.A1, self.A2, self.a0,
             jacobian_generator(self.G, self.pos_x, self.nz, nza), tables,
@@ -595,24 +625,184 @@ class NonlinearKmpc(_KmpcBase):
                             "nproj", "band")}
         for k in ("A1", "A2", "a0", "G", "Gup", "q0c", "CzS", "rdiag"):
             self.register_buffer(k + "_t", getattr(qp, k))
+        t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                      device=self.device)
+        for k, v in (("RdT_t", self.RdT), ("bsizes_t", self.bsizes),
+                     ("Rd_t", self.r_diag)):
+            self.register_buffer(k, t(v))
 
-    def nmpc_qp(self) -> NmpcQP:
+    @property
+    def route(self) -> str:
+        """The route of a step's first SQP ('multipass', 'stage' or
+        'chord'); multistart's second SQP always takes the per-pass loop."""
+        if self.multipass:
+            return "multipass"
+        return "stage" if self.jac_period == 1 else "chord"
+
+    def nmpc_qp(self, rdiag=None) -> NmpcQP:
         """The solve's operands as an ``NmpcQP`` view of this module's
-        buffers."""
+        buffers; ``rdiag`` (n,) replaces the multipass route's."""
         return NmpcQP(
             **{k: getattr(self, k + "_t") for k in
-               ("A1", "A2", "a0", "G", "Gup", "q0c", "CzS", "rdiag")},
+               ("A1", "A2", "a0", "G", "Gup", "q0c", "CzS")},
+            rdiag=self.rdiag_t if rdiag is None else rdiag,
             A=self.A, cFr=self.cFr, F0r=self.F0r, row=self.row, Wd=self.Wd,
             Wo=self.Wo, tables=self.poly_tables(), **self._qp_static)
 
     def solve(self, zeta, u_prev, sqYr, U_plan=None):
-        """One batched SQP solve (``NonlinearKmpc.solve`` without
-        multistart), lanes-minor: zeta (nz, B) the raw scaled outputs,
-        u_prev (m, B) the scaled previous input, sqYr (p,) or (p, B) the
-        sqrt(Q)-scaled reference window.  ``U_plan`` is not read: every
-        step starts cold from the held input, as the JAX controller does.
-        Returns the plan U (Np*m, B) and the last pass's ``QPSolution``."""
-        sol = solve_qp_nmpc_multipass(
-            self.nmpc_qp(), zeta, u_prev, sqYr, self.cfg.sqp_iters,
-            self.hold0, self.cfg.qp_iters)
-        return torch.cat([u_prev, self.Tb_t @ sol.x]), sol
+        """One batched SQP solve (``NonlinearKmpc.solve``, kmpc.py:1325),
+        lanes-minor: zeta (nz, B) the raw scaled outputs, u_prev (m, B) the
+        scaled previous input, sqYr (p,) or (p, B) the sqrt(Q)-scaled
+        reference window, U_plan (Np*m, B) the previous plan.  Every SQP
+        starts cold from the held input, as the JAX controller does;
+        ``U_plan`` is read only by ``sqp_multistart``, whose second SQP
+        starts from it shifted by one stage and linearizes along its
+        rollout, the plan of lower true merit winning lane by lane.
+        Returns the plan U (Np*m, B) and the ``QPSolution`` of the pass it
+        came from (ok of the multistart: either SQP's)."""
+        held = u_prev.repeat(self.Np, 1)
+        if not (self.cfg.sqp_multistart and U_plan is not None):
+            return self._solve_from(zeta, u_prev, sqYr, held)
+        m = self.m
+        U1, sol1 = self._solve_from(zeta, u_prev, sqYr, held)
+        shifted = torch.cat([U_plan[m:], U_plan[-m:]])
+        Zw = self._rollout_full(zeta, shifted)
+        U2, sol2 = self._solve_from(zeta, u_prev, sqYr, shifted, Zl=Zw[:-1],
+                                    Fv=Zw[1:])
+        c1 = torch.where(sol1.ok, self._roll_cost(zeta, U1, sqYr), INF)
+        c2 = torch.where(sol2.ok, self._roll_cost(zeta, U2, sqYr), INF)
+        take2 = c2 < c1
+        sol = _pick(take2, sol2, sol1)
+        return torch.where(take2, U2, U1), sol._replace(ok=sol1.ok | sol2.ok)
+
+    def _assemble(self, u_prev, x):
+        """The plan [u_prev; Tb x] (Np*m, B) of a reduced decision x."""
+        return torch.cat([u_prev, self.Tb_t @ x])
+
+    def _solve_from(self, zeta, u_prev, sqYr, Ul, Zl=None, Fv=None):
+        """The SQP from the plan Ul (Np*m, B), optionally along a given
+        trajectory Zl with dynamics values Fv (Np, nz, B)
+        (``_solve_from``, kmpc.py:1352-1624, without the 'linear' update
+        and the state-bound branch).  Returns (U, QPSolution)."""
+        cfg, m, Np = self.cfg, self.m, self.Np
+        qp0 = self.nmpc_qp()
+        if self.multipass and Zl is None:
+            sol = solve_qp_nmpc_multipass(qp0, zeta, u_prev, sqYr,
+                                          cfg.sqp_iters, self.hold0,
+                                          cfg.qp_iters)
+            return self._assemble(u_prev, sol.x), sol
+        mode0 = "ship"
+        if Zl is None:
+            if self.roll_fused:
+                mode0 = "hold" if self.hold0 else "roll"
+            elif not self.hold0:
+                Z = self._rollout_full(zeta, Ul)
+                Zl, Fv = Z[:-1], Z[1:]
+            else:
+                Zl = zeta.expand((Np,) + zeta.shape)
+        best = None
+        lam_carry = None
+        frozen = None
+        for it in range(cfg.sqp_iters):
+            if self.jac_period == 1:
+                mode = (mode0 if it == 0 else "roll") if self.roll_fused \
+                    else "ship"
+                if mode == "ship" and Fv is None:
+                    # the cold 'hold' start: every stage's dynamics value
+                    # is the one evaluation at the current point
+                    F0 = eval_F(qp0, Zl[0], Ul[:m])
+                    Fv = F0.expand((Np,) + F0.shape)
+            elif it % self.jac_period == 0:
+                Jt, cv = stage_lin(qp0, Zl, Ul, Fv=Fv)
+                frozen = Jt
+            else:
+                Jt, cv = stage_lin(qp0, Zl, Ul, frozen=frozen, Fv=Fv)
+            rho = cfg.sqp_damping * (cfg.sqp_damping_decay ** it)
+            qp = self.nmpc_qp(self.RdT_t + rho * self.bsizes_t)
+            x0 = self.Sel_t @ Ul[m:]
+            q0 = None if rho == 0.0 else -2.0 * rho * (self.Tb_t.T @ Ul[m:])
+            if self.jac_period == 1:
+                ship = mode == "ship"
+                sol = solve_qp_nmpc_stages(
+                    qp, mode, zeta, u_prev, sqYr, x0=x0, q0=q0,
+                    lam0=lam_carry, iters=cfg.qp_iters,
+                    Zl=Zl if ship else None,
+                    Ul=Ul if mode != "hold" else None,
+                    Fv=Fv if ship else None)
+            else:
+                sol = solve_qp_nmpc_pass(qp, Jt, cv, zeta, u_prev, sqYr,
+                                         x0=x0, q0=q0, lam0=lam_carry,
+                                         iters=cfg.qp_iters)
+            U_qp = self._assemble(u_prev, sol.x)
+            if cfg.sqp_dual_warm:
+                lam_carry = sol.lam
+            last = it == cfg.sqp_iters - 1
+            Zroll, cost = None, None
+            if cfg.sqp_linesearch > 0:
+                U, Zroll, cost = self._line_search(zeta, Ul, U_qp, sqYr)
+            else:
+                U = U_qp
+                if cfg.sqp_best_of_passes or (not last
+                                              and not self.roll_fused):
+                    Zroll = self._rollout_full(zeta, U)
+            if cfg.sqp_best_of_passes:
+                if cost is None:
+                    cost = self._cost_from_Z(Zroll, U, sqYr)
+                cost = torch.where(sol.ok, cost, INF)
+                if best is None:
+                    best = (U, cost, sol)
+                else:
+                    take = cost < best[1]
+                    best = (torch.where(take, U, best[0]),
+                            torch.minimum(cost, best[1]),
+                            _pick(take, sol, best[2]))
+            if not last:
+                if self.roll_fused:
+                    Zl = Fv = None
+                else:
+                    Zl, Fv = Zroll[:-1], Zroll[1:]
+            Ul = U
+        if cfg.sqp_best_of_passes:
+            return best[0], best[2]
+        return U, sol
+
+    def _rollout_full(self, zeta, U):
+        """Exact nonlinear rollout of a plan: Z = [z_0 .. z_Np]
+        (``_rollout_full``, kmpc.py:1626)."""
+        return rollout(self.nmpc_qp(), zeta, U)
+
+    def _cost_from_Z(self, Z, U, sqYr):
+        """Merit of a plan given its exact rollout (``_cost_from_Z``,
+        kmpc.py:1642): (B,)."""
+        return merit(self.nmpc_qp(), Z, U, sqYr, self.Rd_t)
+
+    def _roll_cost(self, zeta, U, sqYr):
+        """True merit of a plan: its rollout's cost (``_roll_cost``,
+        kmpc.py:1648)."""
+        return self._cost_from_Z(self._rollout_full(zeta, U), U, sqYr)
+
+    def _line_search(self, zeta, U_old, U_qp, sqYr):
+        """Backtracking merit line search between the previous plan and
+        the QP step (``_line_search``, kmpc.py:1658): the candidates
+        U_old + alpha (U_qp - U_old), alpha = 1, 1/2, .. 2^-ls, roll out
+        together (as extra lanes) and the lowest merit wins lane by lane
+        (the first on ties, NaN as lowest: ``jnp.argmin``).  Returns
+        (U, Z, cost) of the winners."""
+        ls = self.cfg.sqp_linesearch
+        B = zeta.shape[1]
+        alphas = [1.0] + [0.5 ** i for i in range(1, ls + 1)]
+        K = len(alphas)
+        step = U_qp - U_old
+        cands = torch.cat([U_old + a * step for a in alphas], dim=1)
+        Zs = self._rollout_full(zeta.repeat(1, K), cands)
+        sq = sqYr.repeat(1, K) if sqYr.ndim == 2 else sqYr
+        costs = self._cost_from_Z(Zs, cands, sq).reshape(K, B)
+        i = torch.argmin(costs, dim=0)                          # (B,)
+        lane = torch.arange(B, device=zeta.device)
+        pick = lambda a: a.reshape(a.shape[:-1] + (K, B))[..., i, lane]
+        return pick(cands), pick(Zs), costs[i, lane]
+
+
+def _pick(take, a: QPSolution, b: QPSolution) -> QPSolution:
+    """Lane by lane, solution a where ``take``, else b."""
+    return QPSolution(*(torch.where(take, u, v) for u, v in zip(a, b)))

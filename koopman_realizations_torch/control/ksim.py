@@ -9,8 +9,10 @@ linear ``LinearKmpc``, the SQP ``NonlinearKmpc``):
   ``solve_qp_bilinear_lifted``, the ``bilin_lift`` kernel on the card;
   linear: the poly+PCA lift, the condensed gradient and
   ``solve_qp_shared``, the ``ipm_shared`` kernel on the card; nonlinear:
-  ``solve_qp_nmpc_multipass``, the ``nmpc_multipass`` kernel on the card)
-  and the plain batched arm step;
+  the SQP of ``NonlinearKmpc.solve`` on its route, the ``nmpc_multipass``
+  kernel once a step or the ``nmpc_stage`` / ``nmpc_pass`` kernel once a
+  pass on the card, with the previous plan for the multistart) and the
+  plain batched arm step;
 - ``fused_runner`` (:439-502): a Python loop over steps that launches the
   controller's fused step kernel once per step (``step_fused`` or
   ``linear_step_fused``; the plain versions on the CPU; the JAX package

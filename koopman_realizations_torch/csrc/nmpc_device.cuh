@@ -1,12 +1,22 @@
-// Device functions of the SQP NMPC kernels: the composed dynamics F, the
-// analytic stage Jacobian, the defects and the sensitivity condensation
-// streamed into the factored Gram, one CUDA thread per lane.
+// Device functions of the SQP NMPC kernels (nmpc_multipass.cu,
+// nmpc_stage.cu, nmpc_pass.cu): the composed dynamics F, the analytic
+// stage Jacobian, the defects, the sensitivity condensation streamed into
+// the factored Gram, and the pass's QP from that Gram; one CUDA thread per
+// lane.
 //
 // They replace the NMPC device code of the JAX package: _eval_F_rows
 // (ops/pallas/qp_ipm.py:1397), the in-kernel Jacobian J = A1 + G g_low and
-// the defects (:1496-1528), and _nmpc_condense_core (:1082) with the
-// Gram of _nmpc_multipass_kernel (:1539-1544).  The plain PyTorch version
-// of each is in ops/nmpc.py.
+// the defects (:1496-1528 and :1642-1676), _nmpc_condense_core (:1082)
+// with the factored Gram, the objective scale and the dual start of
+// _nmpc_kernel (:1191-1220) and _nmpc_stage_kernel (:1687-1713).  The
+// plain PyTorch version of each is in ops/nmpc.py.
+//
+// One forward sweep over the stages serves every kernel: it asks a stage
+// source for stage k's Jacobian and defects, propagates the sensitivities
+// and feeds the stage's projected rows to the Gram.  The sources are the
+// trajectory rolled from the plan through F (optionally held at the first
+// stage's point, F and J formed once), a shipped trajectory (Zl, Ul, Fv:
+// J only) and shipped Jacobians and defects (no F, no J).
 //
 // The dynamics are F(x) = A1 x + A2 mono(x) + a0 with x = [zeta; u] and
 // mono(x) the degree-blocked monomials; J(x) = A1 + unflatten(G g_low(x))
@@ -45,12 +55,10 @@ struct Nmpc {
   Cons con;
 };
 
-// F(z, u) and g_low = [z; u; lower monomial blocks; 0-pad].
-__device__ __forceinline__ void eval_F(const Nmpc& op,
-                                       const float (&z)[KN_NZ],
-                                       const float (&u)[KM_M],
-                                       float (&g)[KN_NLOWP],
-                                       float (&F)[KN_NZ]) {
+// g_low = [z; u; lower monomial blocks; 0-pad].
+__device__ __forceinline__ void g_low(const float (&z)[KN_NZ],
+                                      const float (&u)[KM_M],
+                                      float (&g)[KN_NLOWP]) {
 #pragma unroll
   for (int i = 0; i < KN_NZ; ++i) g[i] = z[i];
 #pragma unroll
@@ -58,6 +66,15 @@ __device__ __forceinline__ void eval_F(const Nmpc& op,
   KN_GLOW(g);
 #pragma unroll
   for (int i = KN_NLOW; i < KN_NLOWP; ++i) g[i] = 0.0f;
+}
+
+// F(z, u) and g_low.
+__device__ __forceinline__ void eval_F(const Nmpc& op,
+                                       const float (&z)[KN_NZ],
+                                       const float (&u)[KM_M],
+                                       float (&g)[KN_NLOWP],
+                                       float (&F)[KN_NZ]) {
+  g_low(z, u, g);
 #pragma unroll
   for (int o = 0; o < KN_NZ; ++o) {
     float acc = ldg(op.A1 + o * KN_NZA);
@@ -211,20 +228,126 @@ __device__ __forceinline__ void propagate(int ck,
   for (int o = 0; o < KN_NZ; ++o) s[o] = t[o];
 }
 
+// ------------------------------------------------------- stage sources
+// A source fills stage k's Jacobian J[i][o] = dF_o/dx_i and defects cv
+// when the sweep asks for them, in stage order.
+
+// Stage inputs of a rolled trajectory: u_prev at stage 0, then the group
+// moves of the previous pass's x (the multipass kernel) ...
+struct PlanInput {
+  const float (&up)[KM_M];
+  const float (&xp)[KM_N];
+  __device__ __forceinline__ void operator()(int k, float (&u)[KM_M]) const {
+    stage_input(k, up, xp, u);
+  }
+};
+// ... u_prev at every stage (the held first pass) ...
+struct HeldInput {
+  const float (&up)[KM_M];
+  __device__ __forceinline__ void operator()(int, float (&u)[KM_M]) const {
+#pragma unroll
+    for (int j = 0; j < KM_M; ++j) u[j] = up[j];
+  }
+};
+// ... or the lane's shipped plan Ul (KN_NP * KM_M rows, lanes-minor; the
+// pointer at the lane).
+struct LaneInput {
+  const float* Ul;
+  long long B;
+  __device__ __forceinline__ void operator()(int k, float (&u)[KM_M]) const {
+#pragma unroll
+    for (int j = 0; j < KM_M; ++j) u[j] = Ul[(k * KM_M + j) * B];
+  }
+};
+
+// The trajectory rolled through F from zeta along the stage inputs; with
+// ``hold`` every stage is linearized at stage 0's point (F and J formed
+// once).
+template <class In>
+struct RolledStages {
+  const Nmpc& op;
+  In in;
+  bool hold;
+  float z[KN_NZ];
+  __device__ __forceinline__ RolledStages(const Nmpc& op_, In in_, bool hold_,
+                                          const float (&zeta)[KN_NZ])
+      : op(op_), in(in_), hold(hold_) {
+#pragma unroll
+    for (int o = 0; o < KN_NZ; ++o) z[o] = zeta[o];
+  }
+  __device__ __forceinline__ void operator()(int k, float (&J)[KN_NZA][KN_NZ],
+                                             float (&cv)[KN_NZ]) {
+    if (!hold || k == 0) {
+      float u[KM_M], g[KN_NLOWP], F[KN_NZ];
+      in(k, u);
+      eval_F(op, z, u, g, F);
+      stage_jacobian(op, g, J);
+      defects(F, J, z, u, cv);
+#pragma unroll
+      for (int o = 0; o < KN_NZ; ++o) z[o] = F[o];
+    }
+  }
+};
+
+// A shipped trajectory: stage k at (Zl_k, Ul_k) with dynamics values Fv_k
+// (Zl, Fv: KN_NP * KN_NZ rows, Ul: KN_NP * KM_M rows, lanes-minor; the
+// pointers at the lane).  J is formed, F is not.
+struct ShippedStages {
+  const Nmpc& op;
+  const float* Zl;
+  const float* Ul;
+  const float* Fv;
+  long long B;
+  __device__ __forceinline__ void operator()(int k, float (&J)[KN_NZA][KN_NZ],
+                                             float (&cv)[KN_NZ]) const {
+    float zl[KN_NZ], ul[KM_M], F[KN_NZ], g[KN_NLOWP];
+#pragma unroll
+    for (int o = 0; o < KN_NZ; ++o) {
+      zl[o] = Zl[(k * KN_NZ + o) * B];
+      F[o] = Fv[(k * KN_NZ + o) * B];
+    }
+#pragma unroll
+    for (int j = 0; j < KM_M; ++j) ul[j] = Ul[(k * KM_M + j) * B];
+    g_low(zl, ul, g);
+    stage_jacobian(op, g, J);
+    defects(F, J, zl, ul, cv);
+  }
+};
+
+// Shipped stage Jacobians and defects: Jt (KN_NP, KN_NZA, KN_NZ) and cv
+// (KN_NP, KN_NZ) per lane, lanes-minor (the pointers at the lane), each
+// element read once, coalesced over the lanes.
+struct ShippedJacobians {
+  const float* Jt;
+  const float* cv;
+  long long B;
+  __device__ __forceinline__ void operator()(int k, float (&J)[KN_NZA][KN_NZ],
+                                             float (&c)[KN_NZ]) const {
+#pragma unroll
+    for (int i = 0; i < KN_NZA; ++i) {
+#pragma unroll
+      for (int o = 0; o < KN_NZ; ++o) J[i][o] = Jt[((k * KN_NZA + i) * KN_NZ + o) * B];
+    }
+#pragma unroll
+    for (int o = 0; o < KN_NZ; ++o) c[o] = cv[(k * KN_NZ + o) * B];
+  }
+};
+
+// ------------------------------------------------------------ the sweep
+
 // One SQP pass's QP, condensed and streamed into P (lower triangle, with
 // the input cost on the diagonal) and qv (both before the factor 2): the
-// forward sweep over the stages linearizes each at the held state
-// (``hold``: F and J formed once at (zeta, u_prev)) or along the rollout
-// of the stage inputs, propagates S and s, and feeds each stage's
-// projected rows to the Gram.
-__device__ __forceinline__ void condense_pass(const Nmpc& op, bool hold,
-                                              const float (&zeta)[KN_NZ],
-                                              const float (&up)[KM_M],
-                                              const float (&xp)[KM_N],
-                                              const float* sqRef,
-                                              long long sq_step,
-                                              float (&P)[KM_N][KM_N],
-                                              float (&qv)[KM_N]) {
+// forward sweep over the stages takes each stage's Jacobian and defects
+// from the source, propagates S and s, and feeds each stage's projected
+// rows to the Gram.
+template <class Stages>
+__device__ __forceinline__ void condense_sweep(const Nmpc& op, Stages& stages,
+                                               const float (&zeta)[KN_NZ],
+                                               const float (&up)[KM_M],
+                                               const float* sqRef,
+                                               long long sq_step,
+                                               float (&P)[KM_N][KM_N],
+                                               float (&qv)[KM_N]) {
   constexpr int COLS[KN_NP] = KN_COLS;
 #pragma unroll
   for (int a = 0; a < KM_N; ++a) {
@@ -233,11 +356,10 @@ __device__ __forceinline__ void condense_pass(const Nmpc& op, bool hold,
     for (int b = 0; b <= a; ++b) P[a][b] = 0.0f;
     P[a][a] = ldg(op.rdiag + a);
   }
-  float S[KN_NZ][KN_NU], s[KN_NZ], z[KN_NZ];
+  float S[KN_NZ][KN_NU], s[KN_NZ];
 #pragma unroll
   for (int o = 0; o < KN_NZ; ++o) {
     s[o] = zeta[o];
-    z[o] = zeta[o];
 #pragma unroll
     for (int col = 0; col < KN_NU; ++col) S[o][col] = 0.0f;
   }
@@ -246,17 +368,76 @@ __device__ __forceinline__ void condense_pass(const Nmpc& op, bool hold,
   for (int k = 0; k <= KN_NP; ++k) {
     project_gram(op, k, S, s, up, sqRef, sq_step, P, qv);
     if (k == KN_NP) break;
-    if (!hold || k == 0) {
-      float u[KM_M], g[KN_NLOWP], F[KN_NZ];
-      stage_input(k, up, xp, u);
-      eval_F(op, z, u, g, F);
-      stage_jacobian(op, g, J);
-      defects(F, J, z, u, cv);
-#pragma unroll
-      for (int o = 0; o < KN_NZ; ++o) z[o] = F[o];
-    }
+    stages(k, J, cv);
     propagate(COLS[k], J, cv, S, s);
   }
+}
+
+// ------------------------------------------------------- the pass's QP
+// The Levenberg term of q: q0c * x_prev (the multipass kernel, from the
+// previous pass's x), a per-lane q0 or none (the one-pass kernels).
+struct LevenbergTerm {
+  const float* q0c;
+  const float (&xp)[KM_N];
+  __device__ __forceinline__ float operator()(int i) const {
+    return ldg(q0c + i) * xp[i];
+  }
+};
+struct LaneTerm {
+  const float* q0;      // (KM_N, B) at the lane, or null
+  long long B;
+  __device__ __forceinline__ float operator()(int i) const {
+    return q0 ? q0[i * B] : 0.0f;
+  }
+};
+// The dual start: cold (lam = 1), or sqrt(clip(lam0_row / obj, 1e-4,
+// 1e4)) from a per-lane lam0 in row-equilibrated units (cold where null).
+struct ColdDuals {
+  __device__ __forceinline__ float operator()(int, float) const { return 1.0f; }
+};
+struct LaneDuals {
+  const float* lam0;    // (KM_MC, B) at the lane, or null
+  long long B;
+  __device__ __forceinline__ float operator()(int c, float iobj) const {
+    return lam0 ? ksqrt(nclip(lam0[c * B] * iobj, 1e-4f, 1e4f)) : 1.0f;
+  }
+};
+
+// The pass's QP from the swept Gram: P = 2 (W^T W + diag(rdiag)),
+// q = 2 W^T v + the Levenberg term, then the objective scale, the
+// regularization, the dual start and the Mehrotra loop from x (the primal
+// start on entry).  Returns obj.
+template <class Q0, class Lam0>
+__device__ __forceinline__ float solve_pass(const Cons& con, int iters,
+                                            float slack_floor,
+                                            float (&Pr)[KM_N][KM_N],
+                                            float (&q)[KM_N], const Q0& q0,
+                                            const Lam0& lam0,
+                                            const float (&b)[KM_MC],
+                                            float (&x)[KM_N],
+                                            float (&s)[KM_MC],
+                                            float (&lam)[KM_MC]) {
+#pragma unroll
+  for (int i = 0; i < KM_N; ++i) {
+    q[i] = 2.0f * q[i] + q0(i);
+#pragma unroll
+    for (int k = 0; k <= i; ++k) {
+      Pr[i][k] *= 2.0f;
+      Pr[k][i] = Pr[i][k];
+    }
+  }
+  const float obj = diag_obj_scale(Pr);
+  const float iobj = kdiv(1.0f, obj);
+#pragma unroll
+  for (int i = 0; i < KM_N; ++i) {
+    q[i] = q[i] * iobj;
+#pragma unroll
+    for (int j = 0; j < KM_N; ++j) Pr[i][j] = Pr[i][j] * iobj + (i == j ? kReg : 0.0f);
+  }
+#pragma unroll
+  for (int c = 0; c < KM_MC; ++c) lam[c] = lam0(c, iobj);
+  mehrotra(con, iters, slack_floor, LaneHessian{Pr}, q, b, x, s, lam);
+  return obj;
 }
 
 }  // namespace km

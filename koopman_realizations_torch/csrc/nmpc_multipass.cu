@@ -11,7 +11,9 @@
 // term q0c * x_prev and runs the Mehrotra loop from x_prev with cold duals
 // and the slack floor 1e-2 (hard-coded, as in the TPU kernel).  The inter-
 // pass glue is in-kernel: the pass-0 plan is Gup u_prev, the stage inputs
-// are row slices of x_prev.  The wrapper (ops/kernels/nmpc_multipass.py:
+// are row slices of x_prev.  The stage sweep and the pass's QP are the
+// device functions the one-pass kernels share (nmpc_device.cuh:
+// condense_sweep with the rolled source, solve_pass).  The wrapper (ops/kernels/nmpc_multipass.py:
 // solve_qp_nmpc_multipass) does the ok mask and the multipliers' return
 // to original units, as the JAX wrapper does.
 //
@@ -75,32 +77,16 @@ nmpc_multipass_kernel(const NmpcArgs a) {
 #pragma unroll 1
   for (int pass = 0; pass < a.passes; ++pass) {
     float Pr[KM_N][KM_N], q[KM_N];
-    km::condense_pass(op, pass == 0 && a.hold0, zeta, up, xp, sq, sq_step,
-                      Pr, q);
-    // P = 2 (W^T W + diag(rdiag)), q = 2 W^T v + q0c * x_prev, then the
-    // objective scale and the regularization
-#pragma unroll
-    for (int i = 0; i < KM_N; ++i) {
-      q[i] = 2.0f * q[i] + km::ldg(op.q0c + i) * xp[i];
-#pragma unroll
-      for (int k = 0; k <= i; ++k) {
-        Pr[i][k] *= 2.0f;
-        Pr[k][i] = Pr[i][k];
-      }
+    {
+      km::RolledStages<km::PlanInput> stages(op, km::PlanInput{up, xp},
+                                             pass == 0 && a.hold0, zeta);
+      km::condense_sweep(op, stages, zeta, up, sq, sq_step, Pr, q);
     }
-    obj = km::diag_obj_scale(Pr);
-    const float iobj = km::kdiv(1.0f, obj);
-#pragma unroll
-    for (int i = 0; i < KM_N; ++i) {
-      q[i] = q[i] * iobj;
-#pragma unroll
-      for (int j = 0; j < KM_N; ++j) Pr[i][j] = Pr[i][j] * iobj + (i == j ? km::kReg : 0.0f);
-    }
-#pragma unroll
-    for (int c = 0; c < KM_MC; ++c) lam[c] = 1.0f;
-    // the primal start is the previous pass's x; x_prev <- x
-    km::mehrotra(op.con, a.iters, 1e-2f, km::LaneHessian{Pr}, q, rhs, xp, s,
-                 lam);
+    // the Levenberg term q0c * x_prev, cold duals; the primal start is
+    // the previous pass's x; x_prev <- x
+    obj = km::solve_pass(op.con, a.iters, 1e-2f, Pr, q,
+                         km::LevenbergTerm{op.q0c, xp}, km::ColdDuals{}, rhs,
+                         xp, s, lam);
   }
 #pragma unroll
   for (int i = 0; i < KM_N; ++i) a.x[i * B + b] = xp[i];

@@ -35,8 +35,9 @@ from koopman_realizations_torch.ops.kernels.ipm_shared import (
 from koopman_realizations_torch.ops.nmpc import (
     NmpcQP,
     multipass_plain as nmpc_multipass_plain,
+    solution,
 )
-from koopman_realizations_torch.ops.qp import QPSolution, ok_mask, qp_constants
+from koopman_realizations_torch.ops.qp import QPSolution
 
 SOURCE = "nmpc_multipass.cu"
 
@@ -160,9 +161,4 @@ def solve_qp_nmpc_multipass(qp: NmpcQP, zeta, u_prev, sqRef, passes: int,
     x, s, lam, obj = nmpc_multipass(qp, zeta.contiguous(),
                                     u_prev.contiguous(), sqRef.contiguous(),
                                     passes, hold0, iters)
-    b = qp.cFr[:, None] - qp.F0r @ u_prev
-    c = qp_constants(zeta.dtype)
-    ok, gap = ok_mask(qp.cons, b, x, s, lam, c.tol, c.gap_sane)
-    finite = torch.isfinite(x).all(0)
-    x = torch.where(finite, x, torch.full_like(x, float("nan")))
-    return QPSolution(x=x, lam=lam * obj / qp.row[:, None], ok=ok, gap=gap)
+    return solution(qp, u_prev, x, s, lam, obj)

@@ -1,15 +1,22 @@
-"""Plain lanes-minor math of the whole-SQP NMPC solve.
+"""Plain lanes-minor math of the SQP NMPC solves.
 
 The plain PyTorch counterpart of the device functions of
 ``csrc/nmpc_device.cuh`` and of the JAX package's NMPC code: the composed
 dynamics F (``_eval_F_rows``, ``ops/pallas/qp_ipm.py:1397``;
 ``_stage_roll_xla``, ``ops/qp.py:811``), the analytic stage Jacobians
-(``_stage_jacs_xla``, ``ops/qp.py:849``), the defects, the sensitivity
-condensation and W/v assembly (``_nmpc_condense_core``, qp_ipm.py:1082;
-``_nmpc_condense_assemble``, ops/qp.py:539) and the pass loop
-(``_nmpc_multipass_pure``, ops/qp.py:1119; the kernel body
-qp_ipm.py:1478-1557).  Each pass ends in the port's factored Gram,
-objective scale and Mehrotra loop (``ops/qp.py``).
+(``_stage_jacs_xla``, ``ops/qp.py:849``; ``_stage_lin``,
+``control/kmpc.py:1277``), the defects, the sensitivity condensation and
+W/v assembly (``_nmpc_condense_core``, qp_ipm.py:1082;
+``_nmpc_condense_assemble``, ops/qp.py:539), the nonlinear rollout and its
+merit (``NonlinearKmpc._rollout_full`` / ``_cost_from_Z``,
+control/kmpc.py:1626-1646) and the three kinds of SQP solve the kernels
+run: one pass from shipped stage Jacobians (``_nmpc_kernel``,
+qp_ipm.py:1144; pure path ops/qp.py:602-608), one pass with the
+Jacobians formed from a held, rolled or shipped trajectory
+(``_nmpc_stage_kernel``, qp_ipm.py:1560; pure path ops/qp.py:936-949) and
+every pass of a step (``_nmpc_multipass_pure``, ops/qp.py:1119; the
+kernel body qp_ipm.py:1478-1557).  Each pass ends in the port's factored
+Gram, objective scale and Mehrotra loop (``ops/qp.py``).
 
 Layout: the batch is the LAST axis, as in ``ops/qp.py``.  The dynamics are
 F(x) = A1 x + A2 mono(x) + a0 with x = [zeta; u] and mono(x) the
@@ -17,7 +24,10 @@ degree-blocked monomials of degree 2..d; the Jacobian is
 J(x) = A1 + unflatten(G g_low(x)) with g_low = [x; monomials of degree
 2..d-1].  G is used whole: the JAX package ships it as a bf16 hi/lo pair,
 which carries ~2^-16 of relative error.  The monomials are index gathers
-(no one-hot selection GEMMs).
+(no one-hot selection GEMMs).  A plan U is (Np*m, B) (stage k's input in
+rows k*m..), a trajectory Zl or Fv (Np, nz, B), and the stage Jacobians
+of a pass Jt (Np, nza, nz, B) with Jt[k, i, o] = dF_o/dx_i at stage k
+(the kernels' column order).
 """
 
 from __future__ import annotations
@@ -30,10 +40,12 @@ import torch
 from koopman_realizations_torch.ops.observables import poly_features
 from koopman_realizations_torch.ops.qp import (
     Constraints,
+    QPSolution,
     constraint_tables,
     diag_obj_scale,
     factored_gram,
     mehrotra_loop,
+    ok_mask,
     qp_constants,
 )
 
@@ -131,13 +143,14 @@ def jacobian_generator(G, pos_x, nz: int, nza: int) -> np.ndarray:
 
 
 def nmpc_qp_operands(A1, A2, a0, Gc, tables, Cz, sq, cols, rdiag, q0c, Gup,
-                     F_red, cF_red, F0_red, band, dtype=torch.float32,
-                     device="cpu") -> NmpcQP:
-    """Device operands from the controller's f64 host constants: the row
-    equilibration, CzS = sq * tile(Cz) and the banded A^T D A tables, as
-    the JAX wrapper forms them (qp_ipm.py:1759-1776).  ``Gc`` is
-    ``jacobian_generator``'s layout, ``tables`` the ``poly_parent_tables``
-    pairs over nza."""
+                     F_red, cF_red, F0_red, band, *, device,
+                     dtype=torch.float32) -> NmpcQP:
+    """Device operands from the controller's f64 host constants, on
+    ``device`` (no default, so that no operand silently lands on the
+    CPU): the row equilibration, CzS = sq * tile(Cz) and the banded
+    A^T D A tables, as the JAX wrapper forms them (qp_ipm.py:1759-1776).
+    ``Gc`` is ``jacobian_generator``'s layout, ``tables`` the
+    ``poly_parent_tables`` pairs over nza."""
     F_red = np.asarray(F_red, np.float64)
     Cz = np.asarray(Cz, np.float64)
     Np1 = np.asarray(sq).size // Cz.shape[0]
@@ -172,27 +185,74 @@ def eval_F(qp: NmpcQP, z, u):
 
 
 def stage_jacobian(qp: NmpcQP, z, u):
-    """Analytic Jacobian of F at (z, u): (Jz (nz, nz, B), Ju (nz, m, B)),
-    entry [o, i] = dF_o / dx_i."""
-    nz, nza = qp.nz, qp.nza
+    """Analytic Jacobian of F at (z, u) in the kernels' column order:
+    J (nza, nz, B) with J[i, o] = dF_o / dx_i."""
     x = torch.cat([z, u])
     g = torch.cat([x, poly_features(x, qp.tables[:-1])])
     Jc = qp.G[:, :qp.nlow] @ g                          # (nza*nz, B)
-    J = qp.A1.T[..., None] + Jc.reshape(nza, nz, -1)    # [i, o]
-    return J[:nz].transpose(0, 1), J[nz:].transpose(0, 1)
+    return qp.A1.T[..., None] + Jc.reshape(qp.nza, qp.nz, -1)
 
 
-def defects(F, Jz, Ju, zl, ul):
+def defects(F, J, zl, ul):
     """cv = F(zl, ul) - Jz zl - Ju ul: the affine term of the
-    linearization at (zl, ul)."""
-    return F - torch.einsum("oib,ib->ob", Jz, zl) \
-        - torch.einsum("ojb,jb->ob", Ju, ul)
+    linearization at (zl, ul), for J (..., nza, nz, B) in the kernels'
+    column order and any leading (stage) dimensions."""
+    nz = zl.shape[-2]
+    return F - torch.einsum("...iob,...ib->...ob", J[..., :nz, :, :], zl) \
+        - torch.einsum("...job,...jb->...ob", J[..., nz:, :, :], ul)
 
 
-def condense(qp: NmpcQP, Jz, Ju, cv, zeta, up, sqRef):
-    """Sensitivity condensation and W/v assembly over the horizon: stage
-    lists Jz[k] (nz, nz, B), Ju[k] (nz, m, B), cv[k] (nz, B); S_0 = 0,
-    s_0 = zeta; S_{k+1} = Jz_k S_k + Ju_k at stage k's columns,
+def rollout(qp: NmpcQP, zeta, U):
+    """Exact nonlinear rollout of the plan U (Np*m, B) from zeta (nz, B):
+    Z = [z_0 .. z_Np] (Np+1, nz, B); Z[:-1] is the next pass's
+    linearization trajectory and Z[1:] its dynamics values F(Z[:-1], U)."""
+    m = qp.m
+    Z = [zeta]
+    for k in range(qp.Np):
+        Z.append(eval_F(qp, Z[-1], U[k * m:(k + 1) * m]))
+    return torch.stack(Z)
+
+
+def merit(qp: NmpcQP, Z, U, sqRef, Rd):
+    """True merit of a plan U (Np*m, B) on its rollout Z (Np+1, nz, B):
+    the Q-weighted tracking over the horizon plus the R-weighted input,
+    sum_r (CzS_r z - sqRef_r)^2 + Rd . U^2 with sqRef = sqrt(Q) Yr (p,)
+    or (p, B) and Rd (Np*m,) the input cost: (B,)."""
+    Np1, ns, nproj = qp.Np + 1, qp.ns, qp.nproj
+    Y = torch.einsum("krs,ksb->krb", qp.CzS.reshape(Np1, nproj, ns),
+                     Z[:, :ns]).reshape(Np1 * nproj, -1)
+    sq = sqRef if sqRef.ndim == 2 else sqRef[:, None]
+    return ((Y - sq) ** 2).sum(0) + (Rd[:, None] * U * U).sum(0)
+
+
+def stage_lin(qp: NmpcQP, Zl, Ul, frozen=None, Fv=None):
+    """Per-stage linearization of a trajectory without the condensation:
+    Zl (Np, nz, B), Ul (Np*m, B) -> (Jt (Np, nza, nz, B), cv (Np, nz, B)).
+    With ``frozen`` (an earlier pass's Jt) the Jacobians are reused; the
+    defects cv = Fv - Jz Zl - Ju Ul are always fresh at the new point, with
+    Fv = F(Zl, Ul) formed here when not given."""
+    Np, nz, m = qp.Np, qp.nz, qp.m
+    B = Zl.shape[-1]
+    Ur = Ul.reshape(Np, m, B)
+    flat = lambda a: a.transpose(0, 1).reshape(a.shape[1], Np * B)
+    if frozen is None:
+        Jt = stage_jacobian(qp, flat(Zl), flat(Ur))
+        Jt = Jt.reshape(qp.nza, nz, Np, B).permute(2, 0, 1, 3)
+    else:
+        Jt = frozen
+    if Fv is None:
+        Fv = eval_F(qp, flat(Zl), flat(Ur)).reshape(nz, Np, B) \
+            .transpose(0, 1)
+    return Jt.contiguous(), defects(Fv, Jt, Zl, Ur).contiguous()
+
+
+# ------------------------------------------------------- condensation
+
+
+def condense(qp: NmpcQP, Jt, cv, zeta, up, sqRef):
+    """Sensitivity condensation and W/v assembly over the horizon of the
+    stage Jacobians Jt (Np, nza, nz, B) and defects cv (Np, nz, B):
+    S_0 = 0, s_0 = zeta; S_{k+1} = Jz_k S_k + Ju_k at stage k's columns,
     s_{k+1} = Jz_k s_k + cv_k.  Stage k's projected rows CzS_k [S_k | s_k]
     give W (its decision columns) and v (the affine part, the reference
     subtracted and the pinned u_prev folded in).  sqRef is (p,) or
@@ -210,32 +270,87 @@ def condense(qp: NmpcQP, Jz, Ju, cv, zeta, up, sqRef):
         W_rows.append(Pk[:, m:])
         v_rows.append(vk)
         if k < qp.Np:
-            S = torch.einsum("oib,icb->ocb", Jz[k], S)
+            S = torch.einsum("iob,icb->ocb", Jt[k, :nz], S)
             c0 = qp.cols[k]
-            S[:, c0:c0 + m] += Ju[k]
-            s = torch.einsum("oib,ib->ob", Jz[k], s) + cv[k]
+            S[:, c0:c0 + m] += Jt[k, nz:].transpose(0, 1)
+            s = torch.einsum("iob,ib->ob", Jt[k, :nz], s) + cv[k]
     return torch.cat(W_rows), torch.cat(v_rows)
 
 
-def linearize(qp: NmpcQP, zeta, u_rows, hold: bool):
-    """Stage Jacobians and defects of one pass: about the held state
-    (every stage at (zeta, u_prev), F and J formed once) or along the
-    rollout of the stage inputs ``u_rows`` from zeta."""
-    if hold:
-        F0 = eval_F(qp, zeta, u_rows[0])
-        Jz, Ju = stage_jacobian(qp, zeta, u_rows[0])
-        cv = defects(F0, Jz, Ju, zeta, u_rows[0])
-        return [Jz] * qp.Np, [Ju] * qp.Np, [cv] * qp.Np
-    Jzs, Jus, cvs = [], [], []
-    z = zeta
-    for k in range(qp.Np):
-        Fk = eval_F(qp, z, u_rows[k])
-        Jz, Ju = stage_jacobian(qp, z, u_rows[k])
-        Jzs.append(Jz)
-        Jus.append(Ju)
-        cvs.append(defects(Fk, Jz, Ju, z, u_rows[k]))
-        z = Fk
-    return Jzs, Jus, cvs
+# ------------------------------------------------------------ solves
+
+
+def rhs(qp: NmpcQP, up):
+    """b = cFr - F0r u_prev (mc, B), row-equilibrated."""
+    return qp.cFr[:, None] - qp.F0r @ up
+
+
+def pass_qp(qp: NmpcQP, W, v, b, x0, q0, lam0_row, iters: int,
+            slack_floor: float):
+    """One pass's QP from its condensed W (p, n, B) and v (p, B): the
+    factored Gram P = 2 (W^T W + diag(rdiag)), q = 2 W^T v (+ q0), the
+    objective scale, the regularization and the Mehrotra loop from x0 with
+    the dual start lam = 1 (``lam0_row`` None) or
+    sqrt(clip(lam0_row / obj, 1e-4, 1e4)) (``lam0_row`` in
+    row-equilibrated units, ``_nmpc_kernel`` :1217-1220).  Returns
+    (x, s, lam, obj)."""
+    c = qp_constants(W.dtype)
+    P, qv = factored_gram(W.reshape(-1, W.shape[-1]), v, qp.rdiag, qp.p,
+                          qp.n)
+    if q0 is not None:
+        qv = qv + q0
+    obj = diag_obj_scale(P)
+    iobj = 1.0 / obj
+    eye = torch.eye(qp.n, dtype=W.dtype, device=W.device)[..., None]
+    lam0 = torch.ones_like(b) if lam0_row is None \
+        else torch.sqrt(torch.clamp(lam0_row * iobj, 1e-4, 1e4))
+    x, s, lam = mehrotra_loop(qp.cons, iters, slack_floor,
+                              P * iobj + c.reg * eye, qv * iobj, b, x0, lam0,
+                              c.mu_floor)
+    return x, s, lam, obj
+
+
+def jacobian_pass(qp: NmpcQP, Jt, cv, zeta, up, sqRef, x0, q0, lam0_row,
+                  iters: int, slack_floor: float):
+    """One SQP pass from shipped stage Jacobians Jt (Np, nza, nz, B) and
+    defects cv (Np, nz, B): the condensation, then ``pass_qp`` with
+    ``qp.rdiag``; the plain version of csrc/nmpc_pass.cu.  Returns
+    (x, s, lam, obj)."""
+    W, v = condense(qp, Jt, cv, zeta, up, sqRef)
+    return pass_qp(qp, W, v, rhs(qp, up), x0, q0, lam0_row, iters,
+                   slack_floor)
+
+
+STAGE_MODES = ("ship", "hold", "roll")
+
+
+def stage_linearization(qp: NmpcQP, mode: str, zeta, up, Zl=None, Ul=None,
+                        Fv=None):
+    """(Jt, cv) of one pass whose trajectory is shipped (``mode`` 'ship':
+    Zl, Ul, Fv), held ('hold': every stage at (zeta, u_prev), F and J
+    formed once) or rolled from the plan ('roll': Ul through F from
+    zeta) -- ``_nmpc_stage_kernel``'s three sources (qp_ipm.py:1617-1640)."""
+    Np = qp.Np
+    if mode == "hold":
+        J = stage_jacobian(qp, zeta, up)
+        cv = defects(eval_F(qp, zeta, up), J, zeta, up)
+        return J.expand((Np,) + J.shape), cv.expand((Np,) + cv.shape)
+    if mode == "roll":
+        Z = rollout(qp, zeta, Ul)
+        Zl, Fv = Z[:-1], Z[1:]
+    elif mode != "ship":
+        raise ValueError(f"roll mode {mode!r} not in {STAGE_MODES}")
+    return stage_lin(qp, Zl, Ul, Fv=Fv)
+
+
+def stage_pass(qp: NmpcQP, mode: str, zeta, up, sqRef, x0, q0, lam0_row,
+               iters: int, slack_floor: float, Zl=None, Ul=None, Fv=None):
+    """One SQP pass with the stage Jacobians and defects formed from its
+    trajectory (``stage_linearization``), then ``jacobian_pass``; the
+    plain version of csrc/nmpc_stage.cu.  Returns (x, s, lam, obj)."""
+    Jt, cv = stage_linearization(qp, mode, zeta, up, Zl, Ul, Fv)
+    return jacobian_pass(qp, Jt, cv, zeta, up, sqRef, x0, q0, lam0_row,
+                         iters, slack_floor)
 
 
 def multipass_plain(qp: NmpcQP, zeta, up, sqRef, passes: int, hold0: bool,
@@ -246,23 +361,25 @@ def multipass_plain(qp: NmpcQP, zeta, up, sqRef, passes: int, hold0: bool,
     the rollout of the previous pass's moves; every pass solves its QP
     from the previous x with cold duals, the Levenberg term q0c * x_prev
     and the slack floor 1e-2.  Returns the last pass's (x, s, lam, obj)."""
-    c = qp_constants(zeta.dtype)
     m = qp.m
-    b = qp.cFr[:, None] - qp.F0r @ up
-    eye = torch.eye(qp.n, dtype=zeta.dtype, device=zeta.device)[..., None]
     xp = qp.Gup @ up
     group_row = [qp.cols[k] - m for k in range(1, qp.Np)]
     for p in range(passes):
-        u_rows = [up] + [xp[g:g + m] for g in group_row]
-        Jz, Ju, cv = linearize(qp, zeta, u_rows, p == 0 and hold0)
-        W, v = condense(qp, Jz, Ju, cv, zeta, up, sqRef)
-        P, qv = factored_gram(W.reshape(-1, W.shape[-1]), v, qp.rdiag,
-                              qp.p, qp.n)
-        qv = qv + qp.q0c[:, None] * xp
-        obj = diag_obj_scale(P)
-        iobj = 1.0 / obj
-        x, s, lam = mehrotra_loop(qp.cons, iters, SLACK_FLOOR,
-                                  P * iobj + c.reg * eye, qv * iobj, b, xp,
-                                  torch.ones_like(b), c.mu_floor)
+        Ul = torch.cat([up] + [xp[g:g + m] for g in group_row])
+        Jt, cv = stage_linearization(
+            qp, "hold" if p == 0 and hold0 else "roll", zeta, up, Ul=Ul)
+        x, s, lam, obj = jacobian_pass(qp, Jt, cv, zeta, up, sqRef, xp,
+                                       qp.q0c[:, None] * xp, None, iters,
+                                       SLACK_FLOOR)
         xp = x
     return x, s, lam, obj
+
+
+def solution(qp: NmpcQP, up, x, s, lam, obj) -> QPSolution:
+    """The NMPC wrappers' epilogue (qp_ipm.py:1373-1382): the ok mask,
+    non-finite x to NaN, the multipliers back to original units."""
+    c = qp_constants(x.dtype)
+    ok, gap = ok_mask(qp.cons, rhs(qp, up), x, s, lam, c.tol, c.gap_sane)
+    finite = torch.isfinite(x).all(0)
+    x = torch.where(finite, x, torch.full_like(x, float("nan")))
+    return QPSolution(x=x, lam=lam * obj / qp.row[:, None], ok=ok, gap=gap)

@@ -150,8 +150,10 @@ class LiftQP(NamedTuple):
 
 
 def lift_qp_operands(gens: dict, tables, RdT, F_red, cF_red, F0_red, band,
-                     dtype=torch.float32, device="cpu") -> LiftQP:
-    """Device operands from the controller's f64 host constants.
+                     *, device, dtype=torch.float32) -> LiftQP:
+    """Device operands from the controller's f64 host constants, on
+    ``device`` (no default, so that no operand silently lands on the
+    CPU).
 
     ``gens``: the z-section-folded generators Gz/Gm/Gb, Hz/Hm/Hb, Pz/Pm/Pb
     (``kmpc.py:877-897``); ``tables``: ``poly_parent_tables`` pairs.

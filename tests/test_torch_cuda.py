@@ -23,6 +23,8 @@ from koopman_realizations_torch.models.arm import Arm
 from koopman_realizations_torch.ops.kernels import _build
 from koopman_realizations_torch.ops.kernels import ipm_shared as IS
 from koopman_realizations_torch.ops.kernels import nmpc_multipass as NM
+from koopman_realizations_torch.ops.kernels import nmpc_pass as NP
+from koopman_realizations_torch.ops.kernels import nmpc_stage as NS
 from koopman_realizations_torch.ops.kernels.bilin_lift import (
     bilin_lift_cuda,
     bilin_lift_plain,
@@ -35,6 +37,7 @@ from koopman_realizations_torch.ops.kernels.step_fused import (
     StepCarry,
     build_step_fused,
 )
+from koopman_realizations_torch.ops import nmpc as N
 from koopman_realizations_torch.ops.qp import ok_mask
 from koopman_realizations_torch.utils.checkpoint import (
     LINEAR_MODEL,
@@ -257,7 +260,10 @@ def gpu_nmpc():
     mpc64 = NonlinearKmpc(model, scaler, MpcConfig(**NMPC), device="cuda",
                           dtype=torch.float64)
     sim = Ksim(Arm(ArmConfig(**ARM), device="cuda"), mpc)
-    for r in _build.build_all([NM.kernel_spec(mpc.nmpc_qp())]):
+    qp = mpc.nmpc_qp()
+    specs = [NM.kernel_spec(qp), NP.kernel_spec(qp)] + [
+        NS.kernel_spec(qp, mode) for mode in N.STAGE_MODES]
+    for r in _build.build_all(specs):
         print(r.path.name, f"{r.seconds:.1f}s", *r.ptxas, sep="\n  ")
     return sim, mpc64
 
@@ -327,3 +333,125 @@ def test_nmpc_runner_on_card_tracks(gpu_nmpc):
     assert out["alive"].all()
     err = lane_tracking_error(out["Yp"], blockM_reference())
     assert abs(err.mean().item() - ref) < 1e-3, err.mean()
+
+
+def _pass_inputs(mpc, mpc64, zeta, up, sq, rho=0.1):
+    """One SQP pass's operands on closed-loop lanes, in f32 and f64: the
+    multipass plan U as the linearization plan, its rollout, x0 = Sel U,
+    the per-lane Levenberg term q0 = -2 rho Tb^T U and the plan's
+    multipliers (row units) as the warm dual start."""
+    U, sol = mpc.solve(zeta, up, sq)
+    out = {}
+    for dt, c in ((torch.float32, mpc), (torch.float64, mpc64)):
+        qp = c.nmpc_qp(c.RdT_t + rho * c.bsizes_t)
+        Ud, z, u, s = (t.to(dt) for t in (U, zeta, up, sq))
+        Z = N.rollout(qp, z, Ud)
+        tail = Ud[3:]
+        out[dt] = dict(qp=qp, zeta=z, up=u, sq=s.contiguous(), Ul=Ud,
+                       Zl=Z[:-1].contiguous(), Fv=Z[1:].contiguous(),
+                       x0=(c.Sel_t @ tail).contiguous(),
+                       q0=(-2.0 * rho * (c.Tb_t.T @ tail)).contiguous(),
+                       lam0=(sol.lam.to(dt) * qp.row[:, None]).contiguous())
+    return out
+
+
+def _hold_to_f64(xk, xp, x64, okk, okp):
+    """Equal, all-true ok masks; the kernel's per-lane distance to the f64
+    solution (median and 99th percentile) within twice the plain f32
+    version's plus 1e-5."""
+    assert torch.equal(okk, okp) and bool(okk.all())
+    lv = torch.tensor([0.5, 0.99], dtype=torch.float64, device=xk.device)
+    ek = torch.quantile((xk.double() - x64).abs().amax(0), lv)
+    ep = torch.quantile((xp.double() - x64).abs().amax(0), lv)
+    assert bool((ek <= 2 * ep + 1e-5).all()), (ek, ep)
+
+
+@pytest.mark.parametrize("mode", ["hold", "roll", "ship"])
+@pytest.mark.parametrize("warm", [False, True])
+def test_nmpc_stage_kernel_matches_plain(gpu_nmpc, mode, warm):
+    """One stage pass in each trajectory mode, cold or with a warm lam0,
+    with a per-lane q0 and per-lane reference windows, kernel against
+    plain f32, both against plain f64, on 1000 closed-loop lanes."""
+    sim, mpc64 = gpu_nmpc
+    zeta, up, win = _nmpc_lanes(sim, 1000, 3)
+    sq = win[3 + torch.arange(1000, device="cuda") % 8].T.contiguous()
+    ins = _pass_inputs(sim.mpc, mpc64, zeta, up, sq)
+    res = {}
+    for dt, fn in ((torch.float32, NS.nmpc_stage_cuda),
+                   (torch.float32, NS.nmpc_stage_plain),
+                   (torch.float64, NS.nmpc_stage_plain)):
+        d = ins[dt]
+        traj = {"ship": dict(Zl=d["Zl"], Ul=d["Ul"], Fv=d["Fv"]),
+                "roll": dict(Ul=d["Ul"]), "hold": {}}[mode]
+        res[fn, dt] = fn(d["qp"], mode, d["zeta"], d["up"], d["sq"],
+                         d["x0"], d["q0"], d["lam0"] if warm else None, 8,
+                         1e-2, **traj)
+        torch.cuda.synchronize()
+    xk, sk, lk, _ = res[NS.nmpc_stage_cuda, torch.float32]
+    xp, sp, lp, _ = res[NS.nmpc_stage_plain, torch.float32]
+    qp = ins[torch.float32]["qp"]
+    b = N.rhs(qp, up)
+    _hold_to_f64(xk, xp, res[NS.nmpc_stage_plain, torch.float64][0],
+                 ok_mask(qp.cons, b, xk, sk, lk, 3e-3, 5e-2)[0],
+                 ok_mask(qp.cons, b, xp, sp, lp, 3e-3, 5e-2)[0])
+
+
+@pytest.mark.parametrize("frozen", [False, True])
+def test_nmpc_pass_kernel_matches_plain(gpu_nmpc, frozen):
+    """One chord pass from fresh stage Jacobians, or from Jacobians frozen
+    at the held state with fresh defects, kernel against plain f32, both
+    against plain f64, on 1000 closed-loop lanes."""
+    sim, mpc64 = gpu_nmpc
+    zeta, up, win = _nmpc_lanes(sim, 1000, 3)
+    ins = _pass_inputs(sim.mpc, mpc64, zeta, up, win[3])
+    res = {}
+    for dt, fn in ((torch.float32, NP.nmpc_pass_cuda),
+                   (torch.float32, NP.nmpc_pass_plain),
+                   (torch.float64, NP.nmpc_pass_plain)):
+        d = ins[dt]
+        Zl = d["zeta"].expand((10,) + d["zeta"].shape) if frozen else d["Zl"]
+        Jf = N.stage_lin(d["qp"], Zl, d["up"].repeat(10, 1))[0] \
+            if frozen else None
+        Jt, cv = N.stage_lin(d["qp"], d["Zl"], d["Ul"], frozen=Jf,
+                             Fv=d["Fv"])
+        res[fn, dt] = fn(d["qp"], Jt, cv, d["zeta"], d["up"], d["sq"],
+                         d["x0"], d["q0"], d["lam0"], 8, 1e-2)
+        torch.cuda.synchronize()
+    xk, sk, lk, _ = res[NP.nmpc_pass_cuda, torch.float32]
+    xp, sp, lp, _ = res[NP.nmpc_pass_plain, torch.float32]
+    qp = ins[torch.float32]["qp"]
+    b = N.rhs(qp, up)
+    _hold_to_f64(xk, xp, res[NP.nmpc_pass_plain, torch.float64][0],
+                 ok_mask(qp.cons, b, xk, sk, lk, 3e-3, 5e-2)[0],
+                 ok_mask(qp.cons, b, xp, sp, lp, 3e-3, 5e-2)[0])
+
+
+@pytest.mark.parametrize("regime,kernel", [
+    ("damping_decay", "nmpc_stage"), ("jac_period", "nmpc_pass")])
+def test_nmpc_regime_runners_on_card_track(gpu_nmpc, regime, kernel):
+    """The general runner on the stage and chord routes through their
+    kernels, B=16 over 301 steps, five launches per step, against the JAX
+    general runner's err_mean in that regime
+    (assets/nmpc_regime_refs.json)."""
+    import json
+
+    from koopman_realizations_torch.utils.checkpoint import ASSETS
+    sim, _ = gpu_nmpc
+    ref = json.loads((ASSETS / "nmpc_regime_refs.json").read_text())[
+        "regimes"][regime]
+    model, scaler, _ = load_model(NONLINEAR_MODEL)
+    mpc = NonlinearKmpc(model, scaler, MpcConfig(**NMPC, **ref["knobs"]),
+                        device="cuda")
+    rsim = Ksim(sim.plant, mpc)
+    B = 16
+    X0 = np.zeros((B, 6), np.float32)
+    X0[:, 0] = np.linspace(-0.2, 0.2, B)
+    wrapper = {"nmpc_stage": NS.nmpc_stage_cuda,
+               "nmpc_pass": NP.nmpc_pass_cuda}[kernel]
+    wrapper.launches = 0
+    out = rsim.batched_runner(blockM_reference(), steps=301)(
+        X0, np.zeros((B, 2), np.float32))
+    assert wrapper.launches == 300 * 5
+    assert out["alive"].all() and ref["alive"] == 1.0
+    err = lane_tracking_error(out["Yp"], blockM_reference())
+    assert abs(err.mean().item() - ref["err_mean"]) < 1e-3, err.mean()

@@ -87,13 +87,13 @@ def test_nmpc_has_no_fused_step():
 
 
 @pytest.mark.parametrize("extra", [
-    dict(sqp_dual_warm=True), dict(sqp_damping_decay=0.5),
-    dict(sqp_linesearch=2), dict(sqp_best_of_passes=True),
-    dict(sqp_multistart=True), dict(sqp_update="linear"),
-    dict(sqp_jac_period=2), dict(state_bounds=(-1.0, 1.0)),
+    dict(sqp_update="linear"), dict(state_bounds=(-1.0, 1.0)),
     dict(input_blocks=None), dict(qp_dual_shift=True)])
 def test_nmpc_refuses_unported_regimes(extra):
-    """Every SQP regime that leaves the multipass route raises."""
+    """The regimes the port does not run raise: the 'linear' between-pass
+    update, state bounds, unblocked stacks and the dual shift (the SQP
+    knobs off the multipass route construct:
+    ``test_torch_nmpc_regimes.py``)."""
     model, scaler, _ = load_model(NONLINEAR_MODEL)
     with pytest.raises(NotImplementedError):
         NonlinearKmpc(model, scaler, MpcConfig(**{**NMPC_MPC, **extra}),

@@ -103,17 +103,15 @@ def test_F_jacobian_defects_match_jax_f64(setup):
     jF = np.asarray(jax.vmap(F_fn)(zn, un))
     jJ = np.asarray(jax.vmap(J_fn)(zn, un))              # (B, nz, nza)
     F = N.eval_F(qp, zeta, up)
-    Jz, Ju = N.stage_jacobian(qp, zeta, up)
+    J = N.stage_jacobian(qp, zeta, up)                  # [i, o, b]
     np.testing.assert_allclose(F.numpy().T, jF, rtol=0, atol=1e-12)
-    np.testing.assert_allclose(Jz.permute(2, 0, 1).numpy(), jJ[..., :6],
-                               rtol=0, atol=1e-12)
-    np.testing.assert_allclose(Ju.permute(2, 0, 1).numpy(), jJ[..., 6:],
-                               rtol=0, atol=1e-12)
+    np.testing.assert_allclose(J.permute(2, 1, 0).numpy(), jJ, rtol=0,
+                               atol=1e-12)
     jcv = jF - np.einsum("bij,bj->bi", jJ[..., :6], zn) \
         - np.einsum("bij,bj->bi", jJ[..., 6:], un)
-    np.testing.assert_allclose(N.defects(F, Jz, Ju, zeta, up).numpy().T,
+    np.testing.assert_allclose(N.defects(F, J, zeta, up).numpy().T,
                                jcv, rtol=0, atol=1e-12)
-    assert Jz.shape == (6, 6, B) and Ju.shape == (6, 3, B)
+    assert J.shape == (9, 6, B)
 
 
 @pytest.mark.parametrize("hold", [True, False])
@@ -124,14 +122,16 @@ def test_condensation_matches_jax_f64(setup, hold):
     mpc = mpcs[torch.float64]
     qp = mpc.nmpc_qp()
     xp = qp.Gup @ up + 0.05
-    u_rows = [up] + [xp[c - 3:c] for c in qp.cols[1:]]
-    Jz, Ju, cv = N.linearize(qp, zeta, u_rows, hold)
-    W, v = N.condense(qp, Jz, Ju, cv, zeta, up, sq)
-    st = lambda xs: np.stack([x.numpy() for x in xs])     # (Np, ..., B)
+    Ul = torch.cat([up] + [xp[c - 3:c] for c in qp.cols[1:]])
+    Jt, cv = N.stage_linearization(qp, "hold" if hold else "roll", zeta, up,
+                                   Ul=Ul)
+    W, v = N.condense(qp, Jt, cv, zeta, up, sq)
+    jz = Jt[:, :6].transpose(1, 2).numpy()              # (Np, o, i, B)
+    ju = Jt[:, 6:].transpose(1, 2).numpy()
     jW, jv = jax.vmap(
         lambda jz, ju, c, z, u, r: _nmpc_condense_assemble(
             jz, ju, c, z, u, mpc.sqq, r, mpc.Cz, mpc.cols, 3),
-        in_axes=(3, 3, 2, 1, 1, 1))(st(Jz), st(Ju), st(cv), zeta.numpy(),
+        in_axes=(3, 3, 2, 1, 1, 1))(jz, ju, cv.numpy(), zeta.numpy(),
                                     up.numpy(), sq.numpy())
     np.testing.assert_allclose(W.permute(2, 0, 1).numpy(), np.asarray(jW),
                                rtol=0, atol=1e-12)

@@ -83,6 +83,19 @@ LINEAR_MPC = dict(BENCH_MPC, qp_iters=6, qp_dual_warm=False)
 # 137-148): qp_iters=8, cold duals, MpcConfig's default SQP regime
 # (5 passes, damping 0.05, 'hold' first pass)
 NMPC_MPC = dict(BENCH_MPC, qp_iters=8, qp_dual_warm=False)
+# the SQP regimes that leave the multipass route, each on top of NMPC_MPC:
+# the six single knobs and the line search with best-of-passes, with the
+# values the JAX package pins (tests/test_closed_loop.py:270-283)
+NMPC_REGIMES = {
+    "dual_warm": dict(sqp_dual_warm=True),
+    "damping_decay": dict(sqp_damping=0.3, sqp_damping_decay=0.5),
+    "linesearch": dict(sqp_linesearch=2),
+    "best_of_passes": dict(sqp_best_of_passes=True),
+    "multistart": dict(sqp_multistart=True),
+    "jac_period": dict(sqp_jac_period=2),
+    "linesearch_best": dict(sqp_linesearch=2, sqp_best_of_passes=True),
+}
+REGIME_REFS = ASSETS / "nmpc_regime_refs.json"
 # the bench plant (bench.py:118-122)
 BENCH_ARM = dict(Nmods=3, nlinks=1, L=1.0, m=0.1, output_type="markers",
                  substeps=3, newton_iters=1, jac_mode="step")
@@ -105,6 +118,36 @@ def bench_X0(B: int) -> np.ndarray:
     X0 = np.zeros((B, 6), np.float32)
     X0[:, 0] = np.linspace(-0.2, 0.2, B)
     return X0
+
+
+def nmpc_lanes(B: int, seed: int):
+    """NMPC test lanes, f64 lanes-minor: scaled outputs of random arm
+    states (nz, B), random previous inputs inside the bounds (m, B) and
+    the sqrt(Q)-scaled blockM reference windows of random steps (p, B),
+    built by the port."""
+    from koopman_realizations_torch.config import ArmConfig as TArm
+    from koopman_realizations_torch.config import MpcConfig as TMpc
+    from koopman_realizations_torch.control.kmpc import NonlinearKmpc
+    from koopman_realizations_torch.control.ksim import Ksim
+    from koopman_realizations_torch.models.arm import Arm
+    from koopman_realizations_torch.utils.checkpoint import load_model
+    from koopman_realizations_torch.utils.trajectories import (
+        blockM_reference,
+    )
+    model, scaler, _ = load_model(NONLINEAR_ASSET)
+    mpc = NonlinearKmpc(model, scaler, TMpc(**NMPC_MPC), device="cpu",
+                        dtype=torch.float64)
+    arm = Arm(TArm(**BENCH_ARM), device="cpu")
+    rng = np.random.default_rng(seed)
+    X = np.zeros((6, B))
+    X[:3] = rng.uniform(-0.4, 0.4, (3, B))
+    X[3:] = rng.normal(0, 0.3, (3, B))
+    zeta = scaler.y_down(arm.get_y(torch.from_numpy(X)), axis=0).double()
+    up = torch.from_numpy(rng.uniform(-0.6, 0.6, (3, B)))
+    wins = Ksim(arm, mpc, device="cpu").reference_windows(
+        blockM_reference(), 300)
+    sq = wins[torch.from_numpy(rng.integers(0, 299, B))].T.contiguous()
+    return zeta, up, sq
 
 
 def lane_errors(Yp, ref_y, steps: int):
@@ -141,6 +184,18 @@ def jax_bench(kind: str = "bilinear"):
     mpc = make_kmpc(model, scaler, MpcConfig(**MODELS[kind][1]))
     arm = Arm(ArmConfig(**BENCH_ARM))
     return Ksim(arm, mpc), mpc, arm
+
+
+@functools.lru_cache(maxsize=None)
+def jax_nmpc(**knobs):
+    """(Ksim, controller) of the JAX package: the SQP NMPC controller on
+    the nonlinear asset with the SQP ``knobs`` (an entry of
+    ``NMPC_REGIMES``, or any other) on top of ``NMPC_MPC``."""
+    from koopman_realizations_tpu.control import Ksim, make_kmpc
+    from koopman_realizations_tpu.models.arm import Arm
+    model, scaler = jax_model("nonlinear")
+    mpc = make_kmpc(model, scaler, MpcConfig(**NMPC_MPC, **knobs))
+    return Ksim(Arm(ArmConfig(**BENCH_ARM)), mpc), mpc
 
 
 @functools.lru_cache(maxsize=None)
@@ -229,6 +284,41 @@ def write_assets(kinds=tuple(MODELS)) -> dict:
         np.savez(path, header=json.dumps(header), **data)
         headers[path.name] = header
     return headers
+
+
+def write_regime_refs() -> dict:
+    """Run the JAX general runner (x64, CPU, B=16 over 301 blockM steps,
+    the bench's initial states) in each of ``NMPC_REGIMES`` on the
+    nonlinear asset and write err_mean, err_worst, alive and the full
+    controller configuration of each to ``REGIME_REFS``; the model assets
+    are not touched."""
+    import dataclasses
+    regimes = {}
+    for name, knobs in NMPC_REGIMES.items():
+        sim, mpc = jax_nmpc(**knobs)
+        run = sim.batched_runner(blockM_y(), steps=REF_STEPS,
+                                 record=("Yp", "alive"))
+        out = jax.block_until_ready(
+            run(bench_X0(REF_B), np.zeros((REF_B, 2), np.float32)))
+        err = lane_errors(np.asarray(out["Yp"]), blockM_y(), REF_STEPS)
+        regimes[name] = {
+            "knobs": knobs,
+            "config": dataclasses.asdict(mpc.cfg),
+            "alive": float(np.asarray(out["alive"])[:, -1].mean()),
+            "err_mean": float(err.mean()), "err_worst": float(err.max())}
+        print(name, regimes[name]["alive"], regimes[name]["err_mean"],
+              flush=True)
+    refs = {
+        "runner": "koopman_realizations_tpu Ksim.batched_runner "
+                  "(jax_enable_x64, CPU) on assets/arm3_nonlinear_poly3.npz",
+        "written_by": "python tests/test_torch_oracle.py "
+                      "--write-regime-refs",
+        "B": REF_B, "steps": REF_STEPS,
+        "X0": "first joint spread over +-0.2 rad (bench_X0)",
+        "reference": "blockM([0.45, -0.35], 0.5, 0.5), T=15, Ts=0.05",
+        "regimes": regimes}
+    REGIME_REFS.write_text(json.dumps(refs, indent=1) + "\n")
+    return refs
 
 
 # ---------------------------------------------------------------- tests
@@ -334,8 +424,14 @@ if __name__ == "__main__":
                     metavar="KIND",
                     help="retrain and rewrite the committed model assets of "
                          "these kinds (all of them when none is named)")
+    ap.add_argument("--write-regime-refs", action="store_true",
+                    help="record the JAX general runner's quality in every "
+                         "SQP regime of NMPC_REGIMES (nmpc_regime_refs.json)")
     args = ap.parse_args()
-    if args.write_asset is None:
-        ap.error("nothing to do (pass --write-asset)")
-    print(json.dumps(write_assets(tuple(args.write_asset) or tuple(MODELS)),
-                     indent=1))
+    if args.write_asset is None and not args.write_regime_refs:
+        ap.error("nothing to do (pass --write-asset or --write-regime-refs)")
+    if args.write_asset is not None:
+        print(json.dumps(write_assets(tuple(args.write_asset)
+                                      or tuple(MODELS)), indent=1))
+    if args.write_regime_refs:
+        print(json.dumps(write_regime_refs(), indent=1))

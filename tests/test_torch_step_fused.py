@@ -98,7 +98,7 @@ def _port64_op():
     op.qp = lift_qp_operands({k: f32(v) for k, v in mpc.lift_gens.items()},
                              mpc.lift_tables, f32(mpc.RdT), f32(mpc.F_red),
                              f32(mpc.cF_red), f32(mpc.F0_red), mpc.band,
-                             dtype=torch.float64)
+                             dtype=torch.float64, device="cpu")
     return op
 
 
