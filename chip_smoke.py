@@ -5,7 +5,7 @@ the CUDA toolkit:
 
     python chip_smoke.py
 
-It builds the seven CUDA kernels of the three closed loops from ``csrc/``
+It builds the nine CUDA kernels of the three closed loops from ``csrc/``
 (one nvcc per build, all in parallel) and holds each against its plain
 PyTorch version on the card.  For the bilinear bench controller and the
 linear one it checks the fused loop's tracking quality against the JAX
@@ -17,9 +17,15 @@ it checks the general runner's quality at B=16 and drives it at B=65536
 regimes off that route (phases S1-S4: ``nmpc_stage`` and ``nmpc_pass``
 against their plain versions, the B=16 quality of every regime of
 ``assets/nmpc_regime_refs.json`` against the JAX runner's, the stage and
-chord routes at B=65536, the kernels' times).  Each main path runs with
-the launch counts set to 0 just before and read just after; every kernel
-is timed at its path's shapes next to its bound and its plain version.
+chord routes at B=65536, the kernels' times).  The bilinear controller
+off the lift-fused route runs in phases R1-R4: ``bilin`` and the three
+builds of ``ipm_factored`` against their plain versions on closed-loop
+lanes, the B=16 quality of the configurations of
+``assets/bilinear_route_refs.json`` against the JAX runner's, iterated
+relinearization and the unblocked stack at B=65536, the kernels' times.
+Each main path runs with the launch counts set to 0 just before and read
+just after; every kernel is timed at its path's shapes next to its bound
+and its plain version.
 It prints
 the card's name and power limit, one JSON line with every kernel's
 launches, error, times and bound, and as the last line
@@ -59,6 +65,12 @@ ARM = dict(Nmods=3, nlinks=1, L=1.0, m=0.1, output_type="markers",
 REGIME_REFS = ROOT / "koopman_realizations_torch" / "assets" / \
     "nmpc_regime_refs.json"
 FULL_REGIMES = ("damping_decay", "jac_period")
+# the bilinear controller off the lift-fused route, with the JAX general
+# runner's quality in each (tests/test_torch_oracle.py
+# --write-bilinear-refs); iters2 and unblocked run at full width
+ROUTE_REFS = ROOT / "koopman_realizations_torch" / "assets" / \
+    "bilinear_route_refs.json"
+FULL_ROUTES = ("iters2", "unblocked")
 B_MAIN, B_GENERAL, B_CHECK, STEPS = 262144, 65536, 8192, 301
 # H100 SXM published peaks: f32 outside the tensor cores, HBM3 bandwidth
 PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
@@ -109,6 +121,17 @@ def nnz(t) -> int:
     return int((t != 0).sum())
 
 
+def newton_ops(cons) -> int:
+    """Operations of A^T D A added to the Hessian: banded, the nonzeros of
+    the Wd and Wo tables; dense, per row with r nonzeros r products and
+    r (r + 1) / 2 FMAs (csrc/kmpc_device.cuh:form_newton)."""
+    if cons.band is None:
+        r = (cons.Wd != 0).sum(1).tolist()
+        return sum(k + k * (k + 1) for k in r)
+    return (2 * nnz(cons.Wd) + cons.n + 2 * nnz(cons.Wo) + cons.n
+            - cons.band)
+
+
 def mehrotra_ops(cons, iters: int, p_nnz: int) -> int:
     """Operations of one lane's Mehrotra loop and slack start, counted
     from csrc/kmpc_device.cuh (FMA = 2; divide, sqrt, compare and
@@ -123,7 +146,7 @@ def mehrotra_ops(cons, iters: int, p_nnz: int) -> int:
                 + 2 * nA + 3 * mc                       # r_p, max |r_p|
                 + 2 * nA + 2 * p_nnz + 2 * n + 2        # r_d, active
                 + 3 * mc                                # D
-                + 2 * nnz(cons.Wd) + n + 2 * nnz(cons.Wo) + n - cons.band
+                + newton_ops(cons)
                 + chol + mc                             # factor, r_slam
                 + 2 * direction + 4 * 3 * mc + 2        # dirs, step ratios
                 + 6 * mc + 4 + 4 * mc + 1               # mu_aff, corrector
@@ -131,28 +154,48 @@ def mehrotra_ops(cons, iters: int, p_nnz: int) -> int:
     return 2 * nA + 2 * mc + iters * per_iter           # slack start + loop
 
 
+def gram_ops(live, n: int) -> int:
+    """The factored Gram's operations from each W row's live entries
+    (live[r*n + i]: W[r, i] is not a structural zero): per row with k of
+    them, k FMAs into qv and k (k + 1) / 2 into the lower triangle; then
+    the factor 2."""
+    ops = 0
+    for r in range(len(live) // n):
+        k = sum(live[r * n:(r + 1) * n])
+        ops += 2 * k + k * (k + 1)
+    return ops + n + n * (n + 1) // 2
+
+
+def factored_tail_ops(cons, iters: int) -> int:
+    """The factored QP's tail from the Gram: objective scale, scaled and
+    regularized Hessian and gradient, the warm dual start, the Mehrotra
+    loop (the per-lane Hessian's n*n entries)."""
+    n = cons.n
+    return (2 * n + 1 + n * (n + 1) // 2 + n + 4 * cons.mc
+            + mehrotra_ops(cons, iters, n * n))
+
+
 def qp_ops(qp, iters: int) -> int:
     """Operations one lane's bilinear QP needs, counted from
     csrc/kmpc_device.cuh, leaving out the structural zeros of this run's
     lane-shared operands: no product with a zero entry of the generators,
     A, Wd, Wo or F0r, and no Gram term of an all-zero W generator row (a
-    stage no move reaches)."""
-    n, mc, p, m = qp.n, qp.mc, qp.p, qp.m
-    nf = qp.nz + qp.nmono
+    stage no move reaches).  The lift-fused QP's generator columns act on
+    [zeta; monomials; 1], the assembly-fused one's (``bilin``) on z."""
+    n, p, m = qp.n, qp.p, qp.m
+    lifted = hasattr(qp, "nmono")
+    nf = qp.nz + qp.nmono if lifted else qp.nzl
     feat = (qp.gens[:, :nf] != 0).sum(1).tolist()
-    const = (qp.gens[:, nf] != 0).tolist()
+    const = (qp.gens[:, nf] != 0).tolist() if lifted else [0] * len(feat)
     gen = [2 * f + c for f, c in zip(feat, const)]     # one row against f
     live = [g > 0 for g in gen]
     pn, mp = p * n, m * p
-    ops = qp.nmono                                      # monomials
+    ops = qp.nmono if lifted else 0                     # monomials
     ops += sum(gen[pn + mp:]) + p                       # v = Pgen f - sqYr
     ops += sum(gen[pn:pn + mp]) + 2 * sum(live[pn:pn + mp])   # + CB0 u
-    for r in range(p):                                  # W rows -> Gram, qv
-        k = sum(live[r * n:(r + 1) * n])
-        ops += sum(gen[r * n:(r + 1) * n]) + 2 * k + k * (k + 1)
-    ops += n + n * (n + 1) // 2 + 2 * nnz(qp.F0r)       # x2, b
-    ops += 2 * n + 1 + n * (n + 1) // 2 + n + 4 * mc    # obj, Pr, q, lam0
-    return ops + mehrotra_ops(qp.cons, iters, n * n)
+    ops += sum(gen[:pn]) + gram_ops(live[:pn], n)       # W rows -> Gram, qv
+    ops += 2 * nnz(qp.F0r)                              # b
+    return ops + factored_tail_ops(qp.cons, iters)
 
 
 def linear_grad_ops(op) -> int:
@@ -322,7 +365,9 @@ def main() -> int:
     from koopman_realizations_torch.control.ksim import Ksim
     from koopman_realizations_torch.models.arm import Arm
     from koopman_realizations_torch.ops.kernels import _build
+    from koopman_realizations_torch.ops.kernels import bilin as BI
     from koopman_realizations_torch.ops.kernels import bilin_lift as BL
+    from koopman_realizations_torch.ops.kernels import ipm_factored as IF
     from koopman_realizations_torch.ops.kernels import ipm_shared as IS
     from koopman_realizations_torch.ops.kernels import linear_step_fused as LS
     from koopman_realizations_torch.ops import nmpc as N
@@ -354,7 +399,9 @@ def main() -> int:
                 "ipm_shared": IS.ipm_shared_cuda,
                 "nmpc_multipass": NM.nmpc_multipass_cuda,
                 "nmpc_stage": NS.nmpc_stage_cuda,
-                "nmpc_pass": NP.nmpc_pass_cuda}
+                "nmpc_pass": NP.nmpc_pass_cuda,
+                "bilin": BI.bilin_cuda,
+                "ipm_factored": IF.ipm_factored_cuda}
 
     def drive(expected, fn):
         """Run one main path with every launch count set to 0 just before
@@ -388,7 +435,17 @@ def main() -> int:
             out[per_pass] = out.get(per_pass, 0) + passes
         return out
 
-    # ---- models, controllers, plant; build all seven kernels at once
+    def route_launches(m, steps):
+        """The bilinear kernels' launches of a ``steps``-step run off the
+        lift-fused route: the blocked first QP on ``bilin``, every other
+        QP on ``ipm_factored``."""
+        qps = (steps - 1) * m.cfg.bilinear_iters
+        if not m.blocked:
+            return {"ipm_factored": qps}
+        return {"bilin": steps - 1, "ipm_factored": qps - (steps - 1)}
+
+    # ---- models, controllers, plant; build all nine kernels (thirteen
+    # builds) at once
     model, scaler, header = load_model()
     jref = header["jax_reference"]
     lmodel, lscaler, lheader = load_model(LINEAR_MODEL)
@@ -410,10 +467,21 @@ def main() -> int:
     wins = sim.reference_windows(ref, STEPS)
     fY = lop.fYr(lsim.reference_windows(ref, STEPS))
     nwins = nsim.reference_windows(ref, STEPS)
+    route_refs = json.loads(ROUTE_REFS.read_text())["regimes"]
+    rmpcs, rsims64 = {}, {}
+    for name, entry in route_refs.items():
+        rcfg = MpcConfig(**{**MPC, **entry["knobs"]})
+        rmpcs[name] = BilinearKmpc(model, scaler, rcfg, device=dev)
+        rsims64[name] = BilinearKmpc(model, scaler, rcfg, device=dev,
+                                     dtype=torch.float64)
+    ipmf_specs = {name: IF.kernel_spec(m.constraints(), m.p)
+                  for name, m in rmpcs.items()}
     builds = _build.build_all(
         [BL.kernel_spec(qp), op.kernel_spec(), IS.kernel_spec(cons),
          lop.kernel_spec(), NM.kernel_spec(nqp), NP.kernel_spec(nqp)]
-        + [NS.kernel_spec(nqp, mode) for mode in N.STAGE_MODES])
+        + [NS.kernel_spec(nqp, mode) for mode in N.STAGE_MODES]
+        + [BI.kernel_spec(rmpcs["iters2"].bilin_qp())]
+        + list(ipmf_specs.values()))
     for r in builds:
         log(f"built {r.path.name} in {r.seconds:.1f} s "
             f"({'cached' if r.cached else 'nvcc'})")
@@ -732,6 +800,101 @@ def main() -> int:
                  for jac in ("fresh", "frozen"))
     del nz8, nu8, sin
 
+    # ---- phase R1: bilin and the three ipm_factored builds against their
+    # plain versions, B=8192, on closed-loop lanes of each configuration
+    # off the lift-fused route (after 3 steps of its general path: the
+    # states, inputs, plans and multipliers its kernels are given),
+    # cold and with the carried duals; iters2's ipm_factored pass on the
+    # W and v re-rolled from the carried plan
+    def route_lanes(name, B, steps=3):
+        """Lifted states, previous inputs, plans and multipliers (original
+        units) after ``steps`` closed-loop steps of a route's general path
+        from the spread initial states."""
+        m = rmpcs[name]
+        x = torch.as_tensor(spread_X0(B), device=dev).T.contiguous()
+        W = x.new_zeros((2, B))
+        u_prev = x.new_zeros((m.m, B))
+        ysc = scaler.y_down(arm.get_y(x), axis=0)
+        upsc = scaler.u_down(u_prev, axis=0)
+        U, lam = upsc.repeat(m.Np, 1), x.new_ones((m.n_con, B))
+        for k in range(steps):
+            U, sol = m.solve(m.lift(ysc), upsc, wins[k], U, lam)
+            lam = sol.lam
+            x = arm.step(x, u_prev, W)
+            ysc = scaler.y_down(arm.get_y(x), axis=0)
+            upsc = U[m.m:2 * m.m].contiguous()
+            u_prev = scaler.u_up(upsc, axis=0)
+        return m.lift(ysc).contiguous(), upsc, U, lam
+
+    def route_inputs(name, lanes, sq, warm):
+        """(bilin, ipm_factored) argument tuples of a route's kernels in
+        f32 and f64 on the lanes: the plan's shifted start, the carried
+        multipliers in row units (or None), for ipm_factored the W, v and
+        b the controller assembles (iters2: its re-rolled second pass)."""
+        z, up, U, lam = lanes
+        out = {}
+        for dt, m in ((torch.float32, rmpcs[name]),
+                      (torch.float64, rsims64[name])):
+            zd, ud, Ud, sd = (t.to(dt) for t in (z, up, U, sq))
+            x0 = m.warm_start(Ud).contiguous()
+            l0 = (lam.to(dt) * m.row[:, None]).contiguous() if warm else None
+            betas = m.roll(zd, Ud)[1] if m.blocked else None
+            Wt, v = m.factored_data(zd, ud, sd, betas)
+            b = ((m.cF_t[:, None] - m.F0_t @ ud) / m.row[:, None])
+            out[dt] = (
+                (m.bilin_qp(), zd, ud, x0, l0, sd.contiguous(),
+                 m.cfg.qp_iters, 1e-2) if m.blocked else None,
+                (m.constraints(), m.rdiag, Wt.contiguous(), v.contiguous(),
+                 b.contiguous(), x0, l0, m.cfg.qp_iters, 1e-2))
+        return out
+
+    def check_route(kernel, name, ins, label) -> float:
+        """One route kernel against its plain version, both against the
+        plain f64 version (as check_nmpc); returns max |dx| of kernel and
+        plain."""
+        i = 0 if kernel == "bilin" else 1
+        mod = BI if kernel == "bilin" else IF
+        a32, a64 = ins[torch.float32][i], ins[torch.float64][i]
+        xk, sk, lk, objk = getattr(mod, kernel + "_cuda")(*a32)
+        torch.cuda.synchronize()
+        xp, sp, lp, objp = getattr(mod, kernel + "_plain")(*a32)
+        x64 = getattr(mod, kernel + "_plain")(*a64)[0]
+        m = rmpcs[name]
+        b = m.cFr[:, None] - m.F0r @ a32[2] if kernel == "bilin" else a32[4]
+        okk = ok_mask(m.constraints(), b, xk, sk, lk, 3e-3, 5e-2)[0]
+        okp = ok_mask(m.constraints(), b, xp, sp, lp, 3e-3, 5e-2)[0]
+        lv = torch.tensor([0.5, 0.99], dtype=torch.float64, device=dev)
+        ek = torch.quantile((xk.double() - x64).abs().amax(0), lv)
+        ep = torch.quantile((xp.double() - x64).abs().amax(0), lv)
+        dx = (xk - xp).abs().max().item()
+        dobj = ((objk - objp) / objp).abs().max().item()
+        log(f"{kernel} ({name}, n={m.A.shape[1]}, mc={m.A.shape[0]}, band "
+            f"{m.band}) {label}: max|dx| {dx:.3e} max rel dobj {dobj:.3e}; "
+            f"distance to f64 (median, p99): kernel {ek[0]:.3e} "
+            f"{ek[1]:.3e}, plain f32 {ep[0]:.3e} {ep[1]:.3e}; ok "
+            f"{int(okk.sum())}/{int(okp.sum())} of {xk.shape[1]}")
+        if not (torch.equal(okk, okp) and bool(okk.all())
+                and bool((ek <= 2 * ep + 1e-5).all())):
+            raise AssertionError(f"{kernel} kernel disagrees with plain "
+                                 f"({name})")
+        return dx
+
+    bi_err = if_err = 0.0
+    for name in rmpcs:
+        lanes = route_lanes(name, B_CHECK)
+        per_lane = wins[3 + torch.arange(B_CHECK, device=dev) % 8].T
+        for warm in (False, True):
+            ins = route_inputs(name, lanes, wins[3], warm)
+            lab = f"{'warm' if warm else 'cold'} B={B_CHECK}"
+            if_err = max(if_err, check_route("ipm_factored", name, ins, lab))
+            if rmpcs[name].blocked:
+                bi_err = max(bi_err, check_route("bilin", name, ins, lab))
+        if rmpcs[name].blocked:
+            bi_err = max(bi_err, check_route(
+                "bilin", name, route_inputs(name, lanes, per_lane, True),
+                f"warm, per-lane windows B={B_CHECK}"))
+        del lanes
+
     # ---- phases 3, L3, N3: quality through the kernels, bench X0, B=16,
     # 301 steps; f32 plant noise moves the mean by ~1e-4 on the CPU (tests)
     W16 = np.zeros((16, 2), np.float32)
@@ -781,6 +944,27 @@ def main() -> int:
                 and abs(e16.mean().item() - jr["err_mean"]) < 1e-3):
             raise AssertionError(f"NMPC regime {name}: quality off the JAX "
                                  f"reference")
+
+    # ---- phase R2: the bilinear configurations off the lift-fused route
+    # through their kernels, B=16, 301 steps, against the JAX general
+    # runner in that configuration (assets/bilinear_route_refs.json)
+    for name, m in rmpcs.items():
+        rs = Ksim(arm, m)
+        jr = route_refs[name]
+        o16, w16, counts = drive(
+            route_launches(m, STEPS),
+            lambda: rs.batched_runner(ref, steps=STEPS)(spread_X0(16), W16))
+        e16 = lane_tracking_error(o16["Yp"], ref)
+        alive16 = o16["alive"][:, -1].float().mean().item()
+        log(f"bilinear route {name} quality B=16: alive {alive16:.4f} "
+            f"err_mean {e16.mean():.6f} err_worst {e16.max():.6f} (JAX "
+            f"general runner {jr['alive']:.4f} {jr['err_mean']:.6f} / "
+            f"{jr['err_worst']:.6f}); {w16:.1f} s, launches "
+            f"{({k: v for k, v in counts.items() if v})}")
+        if not (alive16 == jr["alive"] and torch.isfinite(o16["Yp"]).all()
+                and abs(e16.mean().item() - jr["err_mean"]) < 1e-3):
+            raise AssertionError(f"bilinear route {name}: quality off the "
+                                 f"JAX reference")
 
     # ---- phases 4, L4: the fused main paths at size, B=262144, 301 steps
     XB, WB = spread_X0(B_MAIN), np.zeros((B_MAIN, 2), np.float32)
@@ -840,6 +1024,28 @@ def main() -> int:
         if aliveG != 1.0:
             raise AssertionError(f"NMPC regime {name} lost lanes")
         full_main.update({k: counts[k] for k in expected})
+        del gout
+
+    # ---- phase R3: iterated relinearization and the unblocked stack at
+    # B=65536, 301 steps
+    route_main = {}
+    for name in FULL_ROUTES:
+        rs = Ksim(arm, rmpcs[name])
+        grun = rs.batched_runner(ref, steps=STEPS)
+        rs.batched_runner(ref, steps=3)(XB[:1024], WB[:1024])   # warm-up
+        expected = route_launches(rmpcs[name], STEPS)
+        gout, gwall, counts = drive(expected, lambda: grun(XG, WG))
+        eG = lane_tracking_error(gout["Yp"], ref)
+        aliveG = gout["alive"][:, -1].float().mean().item()
+        log(f"bilinear route {name} general runner B={B_GENERAL} "
+            f"steps={STEPS}: {gwall:.3f} s, "
+            f"{B_GENERAL * (STEPS - 1) / gwall:.4e} lane-steps/s, alive "
+            f"{aliveG:.6f}, err_mean {eG.mean():.6f}, err_worst "
+            f"{eG.max():.6f}, launches {expected} | {smi}")
+        if aliveG != 1.0:
+            raise AssertionError(f"bilinear route {name} lost lanes")
+        for k in expected:
+            route_main[k] = route_main.get(k, 0) + counts[k]
         del gout
 
     # ---- phases 6, L6: each kernel against its plain version, and its
@@ -970,6 +1176,52 @@ def main() -> int:
         for m, t in stage_t.items()) + f"; main-path mix {mix}")
     del nzG, nuG, gin, d32
 
+    # ---- phase R4: bilin and each ipm_factored build against their plain
+    # versions and their times at B=65536, on closed-loop lanes of each
+    # configuration, with the carried duals as the main paths launch them
+    route_t = {}
+    for name, m in rmpcs.items():
+        ins = route_inputs(name, route_lanes(name, B_GENERAL), wins[3], True)
+        a32 = ins[torch.float32]
+        if m.blocked:
+            bi_err = max(bi_err, check_route("bilin", name, ins,
+                                             f"warm B={B_GENERAL}"))
+            bq, z, up, x0, l0, sq = a32[0][:6]
+            flops = qp_ops(bq, m.cfg.qp_iters) * B_GENERAL
+            route_t["bilin"] = (
+                cuda_ms(lambda: BI.bilin_cuda(*a32[0]), reps=10),
+                cuda_ms(lambda: BI.bilin_plain(*a32[0]), reps=2, warmup=1),
+                flops) + bound(flops, nbytes(z, up, x0, l0, sq)
+                               + 4 * B_GENERAL * (bq.n + 2 * bq.mc + 1)
+                               + nbytes(bq.gens, bq.rdiag, bq.A, bq.cFr,
+                                        bq.F0r, bq.Wd, bq.Wo))
+        if_err = max(if_err, check_route("ipm_factored", name, ins,
+                                         f"warm B={B_GENERAL}"))
+        fc, rd, Wt, v, b, x0, l0 = a32[1][:7]
+        live = (Wt != 0).any(-1).reshape(-1).tolist()
+        flops = (gram_ops(live, fc.n)
+                 + factored_tail_ops(fc, m.cfg.qp_iters)) * B_GENERAL
+        route_t[name] = (
+            cuda_ms(lambda: IF.ipm_factored_cuda(*a32[1]), reps=5),
+            cuda_ms(lambda: IF.ipm_factored_plain(*a32[1]), reps=1,
+                    warmup=1),
+            flops) + bound(flops, nbytes(Wt, v, b, x0, l0)
+                           + 4 * B_GENERAL * (fc.n + 2 * fc.mc + 1)
+                           + nbytes(rd, fc.A, fc.Wd, fc.Wo))
+        del ins, a32
+    log(f"bilinear route kernels at B={B_GENERAL} | {smi}: " + "; ".join(
+        f"{'bilin' if k == 'bilin' else 'ipm_factored ' + k} {t[0]:.4f} ms "
+        f"(plain {t[1]:.2f} ms, bound {t[3]:.4f} ms by {t[4]}, "
+        f"{t[2] / B_GENERAL:.0f} op/lane)" for k, t in route_t.items()))
+    bi_ms, bi_plain, _, bi_bound, bi_by = route_t["bilin"]
+    # ipm_factored's main-path mix: the full-width runs' launches, one a
+    # step in each of iters2 (n=12) and unblocked (n=27)
+    mixf = {k: 1 for k in FULL_ROUTES}
+    perf = lambda i: sum(n * route_t[k][i] for k, n in mixf.items()) \
+        / sum(mixf.values())
+    if_ms, if_plain, if_bound = perf(0), perf(1), perf(3)
+    if_by = route_t["unblocked"][4]
+
     log(f"kernel times | {smi}: step_fused {sf_ms:.4f} ms (plain "
         f"{sf_plain:.2f} ms, bound {sf_bound:.4f} ms by {sf_by}, "
         f"{sf_flops / B_MAIN:.0f} op/lane) at B={B_MAIN}; bilin_lift "
@@ -985,7 +1237,11 @@ def main() -> int:
         f"{ns_ms:.4f} ms (plain {ns_plain:.2f} ms, bound {ns_bound:.4f} ms "
         f"by {ns_by}; main-path mix) at B={B_GENERAL}; nmpc_pass "
         f"{np_ms:.4f} ms (plain {np_plain:.2f} ms, bound {np_bound:.4f} ms "
-        f"by {np_by}, {np_flops / B_GENERAL:.0f} op/lane) at B={B_GENERAL}")
+        f"by {np_by}, {np_flops / B_GENERAL:.0f} op/lane) at B={B_GENERAL}; "
+        f"bilin {bi_ms:.4f} ms (plain {bi_plain:.2f} ms, bound "
+        f"{bi_bound:.4f} ms by {bi_by}) at B={B_GENERAL}; ipm_factored "
+        f"{if_ms:.4f} ms (plain {if_plain:.2f} ms, bound {if_bound:.4f} ms "
+        f"by {if_by}; main-path mix) at B={B_GENERAL}")
 
     tpu = "koopman_realizations_tpu/ops/pallas/"
     src = "koopman_realizations_torch/csrc/"
@@ -1002,7 +1258,11 @@ def main() -> int:
             ("nmpc_stage", "qp_ipm.py:1560", full_main, ns_err, ns_ms,
              ns_plain, ns_bound, ns_by),
             ("nmpc_pass", "qp_ipm.py:1144", full_main, np_err, np_ms,
-             np_plain, np_bound, np_by)]
+             np_plain, np_bound, np_by),
+            ("bilin", "qp_ipm.py:998", route_main, bi_err, bi_ms, bi_plain,
+             bi_bound, bi_by),
+            ("ipm_factored", "qp_ipm.py:299", route_main, if_err, if_ms,
+             if_plain, if_bound, if_by)]
     kernels = [{"name": name, "route": "cuda", "source": src + name + ".cu",
                 "replaces": tpu + tpu_at, "launches": paths[name],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain,

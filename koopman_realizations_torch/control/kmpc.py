@@ -1,20 +1,24 @@
-"""Koopman MPC controllers of the port: the blocked, lift-fused
-``BilinearKmpc``, the blocked static condensed ``LinearKmpc`` and the
-blocked SQP ``NonlinearKmpc``.
+"""Koopman MPC controllers of the port: ``BilinearKmpc`` (blocked and
+lift-fused, or off that route: unblocked stacks with or without
+smoothness rows, iterated relinearization), the blocked static condensed
+``LinearKmpc`` and the blocked SQP ``NonlinearKmpc``.
 
 Host constants are built in f64 numpy exactly as the JAX package builds
 them (``control/kmpc.py``): the input constraint stack
 (``input_constraint_rows`` :54, ``_smooth_ts2`` :280), move blocking
 (``move_blocking`` :103, checked against ``expected_blocked_keep`` :155),
 the ``_KmpcBase`` pieces (:295-423), the linear controller's condensed
-matrices (:426-485), the blocked input cost ``RdT`` (:551) and the
-lift-fused generator fold (:768-902).  Rows that lose every coefficient
-under u0 elimination are dropped (they poison the interior point's row
-equilibration).
+matrices (:426-485), the blocked input cost ``RdT`` (:551), the bilinear
+assembly generators (:775-861) and the lift-fused generator fold
+(:862-902).  Rows that lose every coefficient under u0 elimination are
+dropped (they poison the interior point's row equilibration).
 
 The lane-shared device operands are registered buffers of the modules.
 The bilinear per-step solve runs in ``ops/kernels/bilin_lift.py``
 (general runner) or inside the fused step (``ops/kernels/step_fused.py``);
+off the lift-fused route in ``ops/kernels/bilin.py`` (the blocked first
+pass of iterated relinearization) and ``ops/kernels/ipm_factored.py``
+(every other pass);
 the linear one in ``ops/kernels/ipm_shared.py`` (general runner) or inside
 its fused step (``ops/kernels/linear_step_fused.py``); the nonlinear
 controller's whole SQP in ``ops/kernels/nmpc_multipass.py``, or its passes
@@ -32,8 +36,12 @@ from torch import nn
 
 from koopman_realizations_torch import resolve_device
 from koopman_realizations_torch.config import MpcConfig
+from koopman_realizations_torch.ops.kernels.bilin import solve_qp_bilinear
 from koopman_realizations_torch.ops.kernels.bilin_lift import (
     solve_qp_bilinear_lifted,
+)
+from koopman_realizations_torch.ops.kernels.ipm_factored import (
+    solve_qp_factored,
 )
 from koopman_realizations_torch.ops.kernels.ipm_shared import (
     solve_qp_shared,
@@ -61,12 +69,14 @@ from koopman_realizations_torch.ops.observables import (
     poly_parent_tables,
 )
 from koopman_realizations_torch.ops.qp import (
+    BilinQP,
     Constraints,
     LiftQP,
     QPSolution,
     band_offset_of,
     constraint_tables,
     lift_qp_operands,
+    row_nonzeros,
 )
 
 
@@ -188,16 +198,15 @@ def expected_blocked_keep(cfg: MpcConfig, m: int, Np: int, blocks):
     return np.asarray(idx, np.int64)
 
 
-def lift_fused_generators(model, q_diag, proj_idx, Np: int, m: int, Tb):
-    """The blocked lift-fused assembly generators (f64).
-
-    For a single-poly + PCA basis the lifted state
-    z = [zeta; pcs^T g(zeta); 1] is linear in [zeta; monomials; 1], so the
-    PCA projection and the constant fold into the generators of
-    W = sqrt(Q) CB[:, m:] Tb (G*), CB0 = sqrt(Q) CB[:, :m] (H*) and
-    v0 = sqrt(Q) CA z (P*), each split into z / monomial / bias sections.
-    Returns (gens, tables).
-    """
+def bilinear_generators(model, q_diag, proj_idx, Np: int, m: int, Tb=None):
+    """The bilinear controller's assembly constants (f64,
+    ``BilinearKmpc.__init__``, kmpc.py:770-861): the projected powers
+    PA[k] = Cproj A^k (Np+1, nproj, NL) and their Toeplitz gather PAt
+    (Np+1, Np, nproj, NL), PAt[i, j] = PA[i-1-j]; PG = PAt . Bm flattened
+    over (i, r, j, m) (the shared-Beta CB = unflatten(PG z)); and the
+    sqrt(Q)-scaled generators of W = sqrt(Q) CB[:, m:] (Tb) (PGWb: rows
+    (r, c); with Tb None the unblocked PGW), CB0 = sqrt(Q) CB[:, :m] (PG0:
+    m blocks of p rows) and v0 = sqrt(Q) CA z (PAsq)."""
     A = np.asarray(model.A, np.float64)
     NL = A.shape[0]
     projmtx = np.asarray(model.C, np.float64)[list(proj_idx), :]
@@ -215,17 +224,32 @@ def lift_fused_generators(model, q_diag, proj_idx, Np: int, m: int, Tb):
     G64 = np.einsum("ijrb,bmq->irjmq", PAt, Bm64).reshape(p_rows, Np * m, NL)
     sq64 = np.sqrt(np.asarray(q_diag, np.float64))
     Gs = sq64[:, None, None] * G64
-    nred = Tb.shape[1]
-    Gs_b = np.einsum("rjN,jc->rcN", Gs[:, m:, :], Tb).reshape(p_rows * nred,
-                                                              NL)
-    H_full = np.concatenate([Gs[:, j, :] for j in range(m)], axis=0)
-    P_full = sq64[:, None] * PA.reshape(p_rows, NL)
+    W = Gs[:, m:, :] if Tb is None else \
+        np.einsum("rjN,jc->rcN", Gs[:, m:, :], Tb)
+    return {"PA": PA, "PAt": PAt, "PG": G64.reshape(-1, NL),
+            "PGWb": W.reshape(-1, NL),
+            "PG0": np.concatenate([Gs[:, j, :] for j in range(m)], axis=0),
+            "PAsq": sq64[:, None] * PA.reshape(p_rows, NL)}
+
+
+def lift_fused_generators(model, q_diag, proj_idx, Np: int, m: int, Tb):
+    """The blocked lift-fused assembly generators (f64).
+
+    For a single-poly + PCA basis the lifted state
+    z = [zeta; pcs^T g(zeta); 1] is linear in [zeta; monomials; 1], so the
+    PCA projection and the constant fold into the generators of
+    W = sqrt(Q) CB[:, m:] Tb (G*), CB0 = sqrt(Q) CB[:, :m] (H*) and
+    v0 = sqrt(Q) CA z (P*), each split into z / monomial / bias sections.
+    Returns (gens, tables).
+    """
+    g = bilinear_generators(model, q_diag, proj_idx, Np, m, Tb)
     basis = model.basis
     nzq = basis.nzeta_aug
     P_T = np.asarray(basis.pcs, np.float64).T               # (npcs, N_full)
     npcs = P_T.shape[0]
     gens = {}
-    for name, X in (("G", Gs_b), ("H", H_full), ("P", P_full)):
+    for name, key in (("G", "PGWb"), ("H", "PG0"), ("P", "PAsq")):
+        X = g[key]
         Xp = X[:, nzq:nzq + npcs]
         gens[name + "z"] = X[:, :nzq] + Xp @ P_T[:, :nzq]
         gens[name + "m"] = Xp @ P_T[:, nzq:-1]
@@ -235,31 +259,34 @@ def lift_fused_generators(model, q_diag, proj_idx, Np: int, m: int, Tb):
 
 
 class _KmpcBase(nn.Module):
-    """What the blocked controllers share (``_KmpcBase``, kmpc.py:295-423):
+    """What the controllers share (``_KmpcBase``, kmpc.py:295-423):
     dimensions, projection, the Q/R diagonals over the horizon, the input
-    constraint stack under move blocking and its band, the poly lift's
-    tables, and the lane-shared device operands of the constraints
-    (row-equilibrated A with its A^T D A tables, cFr, F0r) and of the
-    blocking (Tb, Sel).
+    constraint stack -- under move blocking, or unblocked (reduced rows
+    F[:, m:], F0 = F[:, :m]) -- and its band (None with smoothness rows:
+    a dense A^T D A), the poly lift, and the lane-shared device operands
+    of the constraints (row-equilibrated A with its A^T D A tables, cFr,
+    F0r), of the blocking (Tb, Sel; None unblocked) and of the lift.
 
-    Only the blocked configuration is ported: input blocks set, no
-    smoothness, state bounds or loads, no dual stage shift, a single poly
-    family with a PCA basis.
+    Ported: input blocks without smoothness, or no blocks with or without
+    smoothness (the blocked JAX controller refuses smoothness too); no
+    state bounds or loads, no dual stage shift, a single poly family with
+    a PCA basis.
     """
 
     def __init__(self, model, scaler, cfg: MpcConfig, device, dtype):
         super().__init__()
         dev = resolve_device(device)
         basis = model.basis
-        if (cfg.input_blocks is None or cfg.input_smoothConst is not None
-                or cfg.state_bounds is not None or model.meta.nw != 0
+        if (cfg.state_bounds is not None or model.meta.nw != 0
                 or cfg.qp_dual_shift or basis.pcs is None
                 or len(basis.families) != 1
                 or basis.families[0][0] != "poly"):
             raise NotImplementedError(
-                "the port has the blocked controllers only (input_blocks, "
-                "no smoothness/state bounds/loads, no dual shift, one poly "
-                "family with PCA)")
+                "the port has no state bounds, loads or dual shift, and "
+                "takes one poly family with PCA")
+        if cfg.input_blocks is not None and cfg.input_smoothConst is not None:
+            raise NotImplementedError(
+                "input_blocks with input_smoothConst is not supported")
         self.model = model
         self.meta = meta = model.meta
         self.scaler = scaler
@@ -284,26 +311,34 @@ class _KmpcBase(nn.Module):
         F, cF = input_constraint_rows(cfg, m, Np, scaler)
         cF = _smooth_ts2(cfg, meta.Ts, cF, m, Np)
         self.F, self.cF = F, cF
-        (self.Tb, self.Sel, self.F_red, self.F0_red, self.cF_red,
-         kept) = move_blocking(cfg.input_blocks, m, Np, F, cF)
-        exp = expected_blocked_keep(cfg, m, Np, cfg.input_blocks)
-        if kept.shape != exp.shape or (kept != exp).any():
-            raise AssertionError(
-                f"move_blocking kept-row layout drift: got {kept}, "
-                f"expected {exp}")
+        self.blocked = cfg.input_blocks is not None
+        if self.blocked:
+            (self.Tb, self.Sel, self.F_red, self.F0_red, self.cF_red,
+             kept) = move_blocking(cfg.input_blocks, m, Np, F, cF)
+            exp = expected_blocked_keep(cfg, m, Np, cfg.input_blocks)
+            if kept.shape != exp.shape or (kept != exp).any():
+                raise AssertionError(
+                    f"move_blocking kept-row layout drift: got {kept}, "
+                    f"expected {exp}")
+        else:
+            self.Tb = self.Sel = None
+            self.F_red, self.F0_red, self.cF_red = F[:, m:], F[:, :m], cF
         self.band = band_offset_of(self.F_red)
+        self.dense_cols = () if self.band is not None else \
+            row_nonzeros(self.F_red)[0]
         _, tables = poly_parent_tables(basis.nzeta_aug, basis.families[0][1])
         self.tables_host = tuple(
             (tuple(int(v) for v in pi), tuple(int(v) for v in di))
             for pi, di in tables)
 
-        t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
-                                      device=dev)
+        t = lambda a: None if a is None else torch.as_tensor(
+            np.ascontiguousarray(a), dtype=dtype, device=dev)
         row, A_eq, Wd, Wo = constraint_tables(self.F_red, self.band)
         for k, v in (("A", A_eq), ("row", row), ("Wd", Wd), ("Wo", Wo),
                      ("cFr", self.cF_red / row),
                      ("F0r", self.F0_red / row[:, None]),
-                     ("Tb_t", self.Tb), ("Sel_t", self.Sel)):
+                     ("Tb_t", self.Tb), ("Sel_t", self.Sel),
+                     ("pcsT_t", basis.pcs.T)):
             self.register_buffer(k, t(v))
         for d, (pi, di) in enumerate(self.tables_host):
             idx = lambda a: torch.as_tensor(a, dtype=torch.long, device=dev)
@@ -327,7 +362,7 @@ class _KmpcBase(nn.Module):
         module's buffers."""
         return Constraints(A=self.A, row=self.row, Wd=self.Wd, Wo=self.Wo,
                            n=self.A.shape[1], mc=self.A.shape[0],
-                           band=self.band)
+                           band=self.band, cols=self.dense_cols)
 
     def poly_tables(self):
         """The poly lift's (parent, dim) index tables on the device."""
@@ -336,64 +371,191 @@ class _KmpcBase(nn.Module):
                      for d in range(len(self.tables_host)))
 
     def warm_start(self, U_plan) -> torch.Tensor:
-        """Primal start of the reduced decision (``_warm_start`` with
-        ``Sel``, kmpc.py:412-423, 514): the previous plan U_plan
-        (Np*m, B) shifted by one stage, one move per group."""
+        """Primal start of the reduced decision (``_warm_start``, with
+        ``Sel`` when blocked, kmpc.py:412-423, 665-672): the previous plan
+        U_plan (Np*m, B) shifted by one stage (one move per group)."""
         m = self.m
-        return self.Sel_t @ torch.cat([U_plan[2 * m:], U_plan[-m:]])
+        shifted = torch.cat([U_plan[2 * m:], U_plan[-m:]])
+        return self.Sel_t @ shifted if self.blocked else shifted
+
+    def lift(self, zeta) -> torch.Tensor:
+        """The econ basis z = [zeta; pcs^T g(zeta); 1] of lanes-minor
+        zeta (nz, B): (NL, B) (``KoopmanBasis.lift`` on the device
+        tables)."""
+        ones = zeta.new_ones((1, zeta.shape[1]))
+        g = torch.cat([zeta, poly_features(zeta, self.poly_tables()), ones])
+        return torch.cat([zeta, self.pcsT_t @ g, ones])
+
+    def plan(self, u_prev, x) -> torch.Tensor:
+        """The plan [u_prev; Tb x] (Np*m, B) of a reduced decision x (Tb
+        the identity unblocked)."""
+        return torch.cat([u_prev, self.Tb_t @ x if self.blocked else x])
 
 
 class BilinearKmpc(_KmpcBase):
-    """Blocked lift-fused bilinear MPC (the bench controller).
+    """Bilinear MPC: B depends on the current lifted state
+    (``BilinearKmpc``, kmpc.py:588-941, ``bilinear_solve_pure``).
 
-    One QP per step about Beta(z) held constant over the horizon; the
-    decision variable is one free move per input block (u_0 pinned to the
-    previous input).  Beyond the blocked configuration of ``_KmpcBase``,
-    only ``bilinear_iters=1`` is ported.
+    ``bilinear_iters`` QPs a step; the first about Beta(z) held constant
+    over the horizon (the reference's choice at ``Ksim.m:210``), each later
+    one about the lifted trajectory re-rolled under the previous QP's plan
+    (``get_mpcInput_bilinear_iter``, ``Kmpc.m:817-904``).  The decision is
+    one free move per input block, or the whole stack [u_1 .. u_{Np-1}]
+    unblocked; u_0 is pinned to the previous input.  The route is the JAX
+    controller's:
+
+    - **lift-fused** (blocked, ``bilinear_iters=1``; the bench controller)
+      -- one ``bilin_lift`` launch from the raw zeta (``wants_zeta``), or
+      the whole step inside the fused step kernel;
+    - otherwise the runner lifts zeta, and the first QP is one ``bilin``
+      launch from z (blocked) or the host's shared-Beta assembly
+      W, v = f(PG z) and one ``ipm_factored`` launch (unblocked); each
+      later QP re-rolls the lifted state on the host, forms the
+      block-Toeplitz CB from the stage Betas as batched products and
+      runs ``ipm_factored``.  Every QP starts from the shifted previous
+      plan; each passes its multipliers to the next, the last the step's.
     """
 
     def __init__(self, model, scaler, cfg: MpcConfig, device="cuda",
                  dtype=torch.float32):
-        if model.meta.model_type != "bilinear" or cfg.bilinear_iters != 1 \
+        if model.meta.model_type != "bilinear" or cfg.bilinear_iters < 1 \
                 or cfg.mpc_type not in (None, "linear"):
             raise NotImplementedError(
-                "BilinearKmpc takes a bilinear model with bilinear_iters=1 "
-                "(mpc_type='nonlinear' on it, the bilinear-as-NMPC "
+                "BilinearKmpc takes a bilinear model with bilinear_iters "
+                ">= 1 (mpc_type='nonlinear' on it, the bilinear-as-NMPC "
                 "controller, is not ported)")
         super().__init__(model, scaler, cfg, device, dtype)
         m = self.m
         # Tb^T diag(Rd) Tb is diagonal (disjoint groups)
-        self.RdT = self.Tb.T @ self.r_diag[m:]
+        self.RdT = self.Tb.T @ self.r_diag[m:] if self.blocked \
+            else self.r_diag[m:]
         self.sqq = np.sqrt(self.q_diag)
-        self.lift_gens, self.lift_tables = lift_fused_generators(
+        self.p = self.sqq.size
+        # the route (kmpc.py:688-742, 863-869)
+        self.lift_fused = self.blocked and cfg.bilinear_iters == 1
+        self.wants_zeta = self.lift_fused
+        t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                      device=self.device)
+        if self.lift_fused:
+            self.lift_gens, self.lift_tables = lift_fused_generators(
+                model, self.q_diag, self.proj_idx, self.Np, m, self.Tb)
+            qp = lift_qp_operands(self.lift_gens, self.lift_tables, self.RdT,
+                                  self.F_red, self.cF_red, self.F0_red,
+                                  self.band, dtype=dtype, device=self.device)
+            self._qp_static = {k: getattr(qp, k) for k in
+                               ("tables_host", "n", "mc", "p", "m", "nz",
+                                "nmono", "band")}
+            for k in ("gens", "rdiag"):
+                self.register_buffer(k, getattr(qp, k))
+            return
+        self.lift_gens = self.lift_tables = None
+        self.gens_host = g = bilinear_generators(
             model, self.q_diag, self.proj_idx, self.Np, m, self.Tb)
-        qp = lift_qp_operands(self.lift_gens, self.lift_tables, self.RdT,
-                              self.F_red, self.cF_red, self.F0_red,
-                              self.band, dtype=dtype, device=self.device)
-        self._qp_static = {k: getattr(qp, k) for k in
-                           ("tables_host", "n", "mc", "p", "m", "nz",
-                            "nmono", "band")}
-        for k in ("gens", "rdiag"):
-            self.register_buffer(k, getattr(qp, k))
+        NL, Np = self.NL, self.Np
+        for k, v in (("rdiag", self.RdT), ("sqq_t", self.sqq),
+                     ("cF_t", self.cF_red), ("F0_t", self.F0_red),
+                     ("A_t", model.A), ("Bm_t", np.asarray(model.B)
+                                        .reshape(NL * m, NL)),
+                     ("PA_t", g["PA"].reshape(self.p, NL)),
+                     ("PAt_t", g["PAt"].transpose(1, 0, 2, 3)
+                      .reshape(Np, self.p, NL))):
+            self.register_buffer(k, t(v))
+        if self.blocked:
+            # [PGWb; PG0; PAsq] on z, columns padded to a multiple of 4
+            stack = np.concatenate([g[k] for k in ("PGWb", "PG0", "PAsq")])
+            gens = np.zeros((stack.shape[0], -(-NL // 4) * 4))
+            gens[:, :NL] = stack
+            self.register_buffer("gens", t(gens))
+        else:
+            self.register_buffer("PG_t", t(g["PG"]))
 
     def lift_qp(self) -> LiftQP:
-        """The QP operands as a ``LiftQP`` view of this module's buffers."""
+        """The lift-fused QP operands as a ``LiftQP`` view of this
+        module's buffers."""
+        if not self.lift_fused:
+            raise NotImplementedError(
+                "the lift-fused QP needs input_blocks and bilinear_iters=1")
         return LiftQP(gens=self.gens, tables=self.poly_tables(),
                       rdiag=self.rdiag, A=self.A, cFr=self.cFr,
                       F0r=self.F0r, row=self.row, Wd=self.Wd, Wo=self.Wo,
                       **self._qp_static)
 
-    def solve(self, zeta, u_prev, sqYr, U_plan, lam0=None):
+    def bilin_qp(self) -> BilinQP:
+        """The assembly-fused first pass's operands (blocked, off the
+        lift-fused route) as a ``BilinQP`` view of this module's
+        buffers."""
+        return BilinQP(gens=self.gens, rdiag=self.rdiag, A=self.A,
+                       cFr=self.cFr, F0r=self.F0r, row=self.row, Wd=self.Wd,
+                       Wo=self.Wo, n=self.A.shape[1], mc=self.A.shape[0],
+                       p=self.p, m=self.m, nzl=self.NL, band=self.band)
+
+    def solve(self, z, u_prev, sqYr, U_plan, lam0=None):
         """One batched MPC solve (``BilinearKmpc.solve``), lanes-minor:
-        zeta (nz, B) scaled outputs (the kernel lifts them), u_prev (m, B)
-        the scaled previous input, sqYr (p,) or (p, B) the sqrt(Q)-scaled
+        z (nz, B) the scaled outputs on the lift-fused route (the kernel
+        lifts them), else (NL, B) the lifted states; u_prev (m, B) the
+        scaled previous input, sqYr (p,) or (p, B) the sqrt(Q)-scaled
         reference window, U_plan (Np*m, B) the previous plan, lam0 (mc, B)
         the previous multipliers (None: cold).  Returns the plan
-        U (Np*m, B) and the ``QPSolution``."""
-        sol = solve_qp_bilinear_lifted(
-            self.lift_qp(), zeta, u_prev, sqYr, x0=self.warm_start(U_plan),
-            lam0=lam0, iters=self.cfg.qp_iters)
-        return torch.cat([u_prev, self.Tb_t @ sol.x]), sol
+        U (Np*m, B) and the last QP's ``QPSolution``."""
+        cfg = self.cfg
+        x0 = self.warm_start(U_plan)
+        if self.lift_fused:
+            sol = solve_qp_bilinear_lifted(self.lift_qp(), z, u_prev, sqYr,
+                                           x0=x0, lam0=lam0,
+                                           iters=cfg.qp_iters)
+            return self.plan(u_prev, sol.x), sol
+        lam, betas = lam0, None
+        for it in range(cfg.bilinear_iters):
+            if it == 0 and self.blocked:
+                sol = solve_qp_bilinear(self.bilin_qp(), z, u_prev, sqYr,
+                                        x0=x0, lam0=lam, iters=cfg.qp_iters)
+            else:
+                W, v = self.factored_data(z, u_prev, sqYr, betas)
+                b = self.cF_t[:, None] - self.F0_t @ u_prev
+                sol = solve_qp_factored(W, v, self.rdiag, self.constraints(),
+                                        b, x0=x0, lam0=lam,
+                                        iters=cfg.qp_iters)
+            U, lam = self.plan(u_prev, sol.x), sol.lam
+            if it + 1 < cfg.bilinear_iters:
+                betas = self.roll(z, U)[1]
+        return U, sol
+
+    def roll(self, z, U):
+        """The lifted states z_0 .. z_{Np-1} (Np, NL, B) under the plan U
+        (Np*m, B), z_{k+1} = A z_k + Beta(z_k) u_k (kmpc.py:749-754), with
+        the stage Betas Beta(z_k) (Np, NL, m, B) they give."""
+        m, NL, B = self.m, self.NL, z.shape[1]
+        zs, betas = [z], []
+        for k in range(self.Np):
+            betas.append((self.Bm_t @ zs[-1]).reshape(NL, m, B))
+            if k + 1 < self.Np:
+                u = U[k * m:(k + 1) * m]
+                zs.append(self.A_t @ zs[-1]
+                          + torch.einsum("kmb,mb->kb", betas[-1], u))
+        return torch.stack(zs), torch.stack(betas)
+
+    def factored_data(self, z, u_prev, sqYr, betas=None):
+        """The factored QP's W (p, n, B) and v (p, B) (``_qp_data_inner``,
+        kmpc.py:627-647, 726-742): W = sqrt(Q) CB[:, m:] (Tb when
+        blocked), v = sqrt(Q) (CA z + CB[:, :m] u_prev) - sqYr, with CB
+        from Beta(z) held over the horizon (``betas`` None:
+        unflatten(PG z)) or block-Toeplitz from the stage Betas of a
+        re-rolled trajectory (``roll``): CB[(i, r), (j, :)] =
+        PAt[i, j] Beta_j."""
+        m, p, B = self.m, self.p, z.shape[1]
+        if betas is None:
+            CB = (self.PG_t @ z).reshape(p, self.Np * m, B)
+        else:
+            CB = torch.einsum("jrb,jbmB->rjmB", self.PAt_t, betas) \
+                .reshape(p, self.Np * m, B)
+        sq = self.sqq_t[:, None]
+        W = sq[..., None] * CB[:, m:]
+        if self.blocked:
+            W = torch.einsum("rjB,jc->rcB", W, self.Tb_t)
+        v = sq * (self.PA_t @ z + torch.einsum("rjB,jB->rB", CB[:, :m],
+                                               u_prev))
+        sq_ref = sqYr if sqYr.ndim == 2 else sqYr[:, None]
+        return W, v - sq_ref
 
 
 class LinearKmpc(_KmpcBase):
@@ -412,9 +574,10 @@ class LinearKmpc(_KmpcBase):
     def __init__(self, model, scaler, cfg: MpcConfig, device="cuda",
                  dtype=torch.float32):
         if model.meta.model_type != "linear" or cfg.qp_dual_warm \
-                or cfg.mpc_type not in (None, "linear"):
+                or cfg.mpc_type not in (None, "linear") \
+                or cfg.input_blocks is None:
             raise NotImplementedError(
-                "LinearKmpc takes a linear model, with cold duals")
+                "LinearKmpc takes a linear model, blocked, with cold duals")
         super().__init__(model, scaler, cfg, device, dtype)
         A = np.asarray(model.A)
         B = np.asarray(model.B)
@@ -446,15 +609,6 @@ class LinearKmpc(_KmpcBase):
         for k in ("CA", "CB", "H", "L", "Mc", "c"):
             self.register_buffer(k + "_t", t(getattr(self, k)))
         self.register_buffer("Qd_t", t(self.q_diag))
-        self.register_buffer("pcsT_t", t(model.basis.pcs.T))
-
-    def lift(self, zeta) -> torch.Tensor:
-        """The econ basis z = [zeta; pcs^T g(zeta); 1] of lanes-minor
-        zeta (nz, B): (NL, B) (``KoopmanBasis.lift`` on the device
-        tables)."""
-        ones = zeta.new_ones((1, zeta.shape[1]))
-        g = torch.cat([zeta, poly_features(zeta, self.poly_tables()), ones])
-        return torch.cat([zeta, self.pcsT_t @ g, ones])
 
     def eliminate_u0(self, P, f, b, u0):
         """Pin the first input block to u0 and reduce the QP
@@ -478,7 +632,7 @@ class LinearKmpc(_KmpcBase):
         sol = solve_qp_shared(Pz, fz, self.constraints(), bz,
                               x0=self.warm_start(U_plan),
                               iters=self.cfg.qp_iters)
-        return torch.cat([u_prev, self.Tb_t @ sol.x]), sol
+        return self.plan(u_prev, sol.x), sol
 
 
 def composed_maps(model):
@@ -565,8 +719,8 @@ class NonlinearKmpc(_KmpcBase):
       ``nmpc_pass`` per pass.
 
     Not ported, each raising ``NotImplementedError``: the 'linear'
-    between-pass update (``sqp_update='linear'``), state bounds, loads and
-    unblocked stacks (``_KmpcBase``), and a bilinear model with
+    between-pass update (``sqp_update='linear'``), unblocked stacks, state
+    bounds and loads (``_KmpcBase``), and a bilinear model with
     ``mpc_type='nonlinear'``.
 
     Host constants (f64 numpy, as the JAX package): the composed maps
@@ -583,10 +737,12 @@ class NonlinearKmpc(_KmpcBase):
             raise NotImplementedError(
                 "NonlinearKmpc takes a nonlinear model (the bilinear-as-NMPC "
                 "controller is not ported)")
-        if cfg.sqp_update == "linear" or cfg.sqp_iters < 1:
+        if cfg.sqp_update == "linear" or cfg.sqp_iters < 1 \
+                or cfg.input_blocks is None:
             raise NotImplementedError(
-                "NonlinearKmpc: the 'linear' between-pass update is not "
-                "ported" if cfg.sqp_iters >= 1 else "sqp_iters < 1")
+                "NonlinearKmpc: the 'linear' between-pass update and "
+                "unblocked stacks are not ported" if cfg.sqp_iters >= 1
+                else "sqp_iters < 1")
         super().__init__(model, scaler, cfg, device, dtype)
         m, n, Np = self.m, self.n, self.Np
         self.nz = self.meta.nzeta
@@ -675,10 +831,6 @@ class NonlinearKmpc(_KmpcBase):
         sol = _pick(take2, sol2, sol1)
         return torch.where(take2, U2, U1), sol._replace(ok=sol1.ok | sol2.ok)
 
-    def _assemble(self, u_prev, x):
-        """The plan [u_prev; Tb x] (Np*m, B) of a reduced decision x."""
-        return torch.cat([u_prev, self.Tb_t @ x])
-
     def _solve_from(self, zeta, u_prev, sqYr, Ul, Zl=None, Fv=None):
         """The SQP from the plan Ul (Np*m, B), optionally along a given
         trajectory Zl with dynamics values Fv (Np, nz, B)
@@ -690,7 +842,7 @@ class NonlinearKmpc(_KmpcBase):
             sol = solve_qp_nmpc_multipass(qp0, zeta, u_prev, sqYr,
                                           cfg.sqp_iters, self.hold0,
                                           cfg.qp_iters)
-            return self._assemble(u_prev, sol.x), sol
+            return self.plan(u_prev, sol.x), sol
         mode0 = "ship"
         if Zl is None:
             if self.roll_fused:
@@ -733,7 +885,7 @@ class NonlinearKmpc(_KmpcBase):
                 sol = solve_qp_nmpc_pass(qp, Jt, cv, zeta, u_prev, sqYr,
                                          x0=x0, q0=q0, lam0=lam_carry,
                                          iters=cfg.qp_iters)
-            U_qp = self._assemble(u_prev, sol.x)
+            U_qp = self.plan(u_prev, sol.x)
             if cfg.sqp_dual_warm:
                 lam_carry = sol.lam
             last = it == cfg.sqp_iters - 1

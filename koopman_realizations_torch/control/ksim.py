@@ -6,7 +6,9 @@ linear ``LinearKmpc``, the SQP ``NonlinearKmpc``):
 
 - ``batched_runner``: the general path of ``Ksim.make_body`` (:116-230)
   -- per step the controller's batched solve (bilinear:
-  ``solve_qp_bilinear_lifted``, the ``bilin_lift`` kernel on the card;
+  ``solve_qp_bilinear_lifted``, the ``bilin_lift`` kernel on the card; off
+  the lift-fused route the poly+PCA lift, then per QP the ``bilin`` or
+  ``ipm_factored`` kernel, the host's re-roll between QPs;
   linear: the poly+PCA lift, the condensed gradient and
   ``solve_qp_shared``, the ``ipm_shared`` kernel on the card; nonlinear:
   the SQP of ``NonlinearKmpc.solve`` on its route, the ``nmpc_multipass``
@@ -114,9 +116,10 @@ class Ksim:
         mpc, plant, sc = self.mpc, self.plant, self.scaler
         m, Np = mpc.m, mpc.Np
         proj = list(mpc.proj_idx)
-        # the bilinear kernel lifts zeta itself (``wants_zeta``); the NMPC
-        # takes the raw zeta (ksim.py:103-104)
-        lift = mpc.lift if isinstance(mpc, LinearKmpc) else (lambda z: z)
+        # the lift-fused bilinear kernel lifts zeta itself (``wants_zeta``);
+        # the NMPC takes the raw zeta (ksim.py:97-112)
+        lift = (lambda z: z) if isinstance(mpc, NonlinearKmpc) \
+            or getattr(mpc, "wants_zeta", False) else mpc.lift
 
         def runner(X0, W):
             x, Wt = self._lanes(X0, W)
@@ -159,7 +162,9 @@ class Ksim:
         """Whether the one-launch step applies: the arm with SDIRK2, its
         Jacobian once per period and marker outputs, f32 throughout (the
         kernels' type; an f64 model is not silently cast), and for the
-        bilinear controller the dual warm start without stage shift.  The
+        bilinear controller the lift-fused route (``ksim.py:423-428``:
+        blocked, ``bilinear_iters=1``) with the dual warm start without
+        stage shift.  The
         linear controller's branch (``ksim.py:429-436``: blocked, cold
         duals, no shift, one poly family with PCA) is every configuration
         ``LinearKmpc`` takes.  The NMPC has no fused step (as in the JAX
@@ -173,7 +178,7 @@ class Ksim:
                   and self.mpc.dtype == torch.float32)
         if isinstance(self.mpc, LinearKmpc):
             return common
-        return common and self._dual_warm \
+        return common and self.mpc.lift_fused and self._dual_warm \
             and not self.mpc.cfg.qp_dual_shift
 
     def fused_runner(self, ref, steps: Optional[int] = None):

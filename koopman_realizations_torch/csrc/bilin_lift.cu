@@ -60,8 +60,9 @@ bilin_lift_kernel(const BilinLiftArgs a) {
   for (int c = 0; c < KM_MC; ++c) lam[c] = warm ? a.lam0[c * B + b] : 1.0f;
   const float* sq = a.sqYr_lanes ? a.sqYr + b : a.sqYr;
   const long long sq_step = a.sqYr_lanes ? B : 1;
-  const float obj = km::solve_qp(a.qp, a.iters, a.slack_floor, warm, zeta, up,
-                                 sq, sq_step, x, s, lam, rhs);
+  const float obj = km::solve_qp(a.qp, a.iters, a.slack_floor, warm,
+                                 km::LiftFeatures{zeta}, up, sq, sq_step, x,
+                                 s, lam, rhs);
 #pragma unroll
   for (int i = 0; i < KM_N; ++i) a.x[i * B + b] = x[i];
 #pragma unroll

@@ -11,8 +11,8 @@
 // primal start x0 per lane and lam = 1.  The wrapper
 // (ops/kernels/ipm_shared.py:solve_qp_shared) does the equilibration, the
 // ok mask and the multipliers' return to original units, as the JAX
-// wrapper does.  The per-lane-P, factored (+q0), warm-dual and dense
-// A^T D A modes of the TPU kernel are not ported.
+// wrapper does.  The factored mode is ipm_factored.cu; the per-lane-P
+// mode of the TPU kernel is not ported.
 //
 // Bound on an H100: compute.  At the linear controller's shape (n=12,
 // mc=48, band 3, 6 iterations) a lane needs ~3e4 operations on 0.7 KB of

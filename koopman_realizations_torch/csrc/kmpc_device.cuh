@@ -1,10 +1,13 @@
 // Device functions shared by the CUDA kernels of the Koopman MPC closed
-// loops: the Mehrotra predictor-corrector with its banded A^T D A,
-// Cholesky factor and solve (all five kernels); the ok mask (the two step
-// kernels); the objective scale of a per-lane Gram (the bilinear kernels,
-// nmpc_multipass.cu); the poly lift (the two step kernels and
-// bilin_lift.cu); the bilinear QP assembly and factored Gram
-// (bilin_lift.cu, step_fused.cu); the arm's closed-form right-hand side
+// loops: the Mehrotra predictor-corrector with its banded or dense
+// A^T D A, Cholesky factor and solve (every kernel); the ok mask (the two
+// step kernels); the objective scale of a per-lane Gram (the bilinear
+// kernels, ipm_factored.cu, the NMPC kernels); the factored Gram streamed
+// from W rows and the factored QP's tail (the bilinear kernels,
+// ipm_factored.cu); the poly lift (the two step kernels and
+// bilin_lift.cu); the bilinear QP assembly against lane-shared generators
+// from the lift's features or the lifted state (bilin_lift.cu,
+// step_fused.cu, bilin.cu); the arm's closed-form right-hand side
 // with dual numbers, SDIRK2, the marker kinematics and the
 // plant/freeze/carry tail (step_fused.cu, linear_step_fused.cu).
 //
@@ -21,8 +24,11 @@
 // header with them (ops/kernels/_build.py), so every per-lane array has a
 // static size and static indices after unrolling.  A section below is
 // compiled only where its part of the configuration is defined: KM_N,
-// KM_MC, KM_BAND (the interior point), KM_M (the right-hand side b),
-// KM_NZ (the lift), KM_P (the bilinear assembly), KM_NL (the plant).
+// KM_MC, KM_BAND (the interior point; KM_BAND -1 with KM_RNZ and
+// KM_DENSE_COLS: the dense A^T D A), KM_M (the right-hand side b), KM_P
+// (the factored Gram), KM_NCP (the assembly against generators), KM_NZ
+// (the lift), KM_NZL (the lifted state as features), KM_NL (the plant).
+// KM_ROLL keeps the loops over the constraint rows rolled (see below).
 //
 // Numerics follow the JAX kernels: f32 throughout, IEEE-rounded divides
 // and square roots (never an approximate reciprocal square root: it kills
@@ -35,8 +41,18 @@
 #ifndef KM_N
 #error "kmpc_device.cuh needs the generated configuration header"
 #endif
-#if KM_BAND < 0
-#error "the kernels form A^T D A from the banded tables only"
+
+// Loops over the constraint rows.  At n=12, mc=48 every loop is unrolled
+// and every per-lane array statically indexed.  The unblocked stack's
+// builds (n=27, mc=108 or 156) set KM_ROLL: fully unrolled, each A or A^T
+// product would be ~3e3 FMAs with as many loads of A, six of them an
+// iteration, far past the instruction cache; rolled, the row-indexed
+// arrays (s, lam, residuals, directions) live in thread-local memory with
+// computed offsets, which the n=27 Hessian, its factor and M already do.
+#if defined(KM_ROLL) && KM_ROLL
+#define KM_ROWS _Pragma("unroll 1")
+#else
+#define KM_ROWS _Pragma("unroll")
 #endif
 
 #define KM_PN (KM_P * KM_N)           // W rows of the generator stack
@@ -50,11 +66,12 @@ constexpr float kMuFloor = 1e-8f;     // converged-lane freeze
 constexpr float kTol = 3e-3f;         // ok: primal residual tolerance
 constexpr float kGapSane = 5e-2f;     // ok: complementarity gap bound
 
-// Lane-shared constraint rows A x <= b, row-equilibrated, and the banded
+// Lane-shared constraint rows A x <= b, row-equilibrated, and the
 // A^T D A tables (ops/qp.py:Constraints).
 struct Cons {
   const float* A;       // (KM_MC, KM_N)
-  const float* Wd;      // (KM_N, KM_MC) diagonal A^T D A table
+  const float* Wd;      // (KM_N, KM_MC) diagonal A^T D A table; dense:
+                        // (KM_MC, KM_RNZ) each row's nonzero values
   const float* Wo;      // (KM_N - KM_BAND, KM_MC) off-band table
 };
 
@@ -97,7 +114,7 @@ struct SharedHessian {
 __device__ __forceinline__ void matvec_A(const float* __restrict__ A,
                                          const float (&x)[KM_N],
                                          float (&y)[KM_MC]) {
-#pragma unroll
+  KM_ROWS
   for (int c = 0; c < KM_MC; ++c) {
     float acc = 0.0f;
 #pragma unroll
@@ -110,15 +127,21 @@ __device__ __forceinline__ void matvec_At(const float* __restrict__ A,
                                           float (&y)[KM_N]) {
 #pragma unroll
   for (int i = 0; i < KM_N; ++i) y[i] = 0.0f;
-#pragma unroll
+  KM_ROWS
   for (int c = 0; c < KM_MC; ++c) {
 #pragma unroll
     for (int i = 0; i < KM_N; ++i) y[i] = fmaf(ldg(A + c * KM_N + i), v[c], y[i]);
   }
 }
 
-// M = Pr + A^T diag(D) A, lower triangle, banded (qp_ipm.py:209-233):
-// the diagonal from Wd, the one off-diagonal at KM_BAND from Wo.
+// M = Pr + A^T diag(D) A, lower triangle (qp_ipm.py:209-233).  Banded:
+// the diagonal from Wd, the one off-diagonal at KM_BAND from Wo.  Dense
+// (KM_BAND < 0, smoothness rows): row c has at most KM_RNZ nonzeros, in
+// the ascending columns KM_DENSE_COLS[c] (-1: none) of the generated
+// header with their values in Wd, and adds D_c a_c a_c^T to the lower
+// triangle -- KM_RNZ products and KM_RNZ (KM_RNZ + 1) / 2 FMAs a row in
+// place of the TPU kernel's (n*n, mc) contraction; the plain dense
+// einsum's function in another summation order.
 template <class H>
 __device__ __forceinline__ void form_newton(const Cons& con, const H& Pr,
                                             const float (&D)[KM_MC],
@@ -128,10 +151,27 @@ __device__ __forceinline__ void form_newton(const Cons& con, const H& Pr,
 #pragma unroll
     for (int k = 0; k <= i; ++k) M[i][k] = Pr(i, k);
   }
+#if KM_BAND < 0
+  constexpr int COLS[KM_MC][KM_RNZ] = KM_DENSE_COLS;
+#pragma unroll
+  for (int c = 0; c < KM_MC; ++c) {
+    float a[KM_RNZ];
+#pragma unroll
+    for (int k = 0; k < KM_RNZ; ++k) a[k] = ldg(con.Wd + c * KM_RNZ + k);
+#pragma unroll
+    for (int k = 0; k < KM_RNZ; ++k) {
+      if (COLS[c][k] < 0) continue;
+      const float da = D[c] * a[k];
+#pragma unroll
+      for (int l = 0; l <= k; ++l)
+        M[COLS[c][k]][COLS[c][l]] = fmaf(da, a[l], M[COLS[c][k]][COLS[c][l]]);
+    }
+  }
+#else
 #pragma unroll
   for (int i = 0; i < KM_N; ++i) {
     float dg = 0.0f;
-#pragma unroll
+    KM_ROWS
     for (int c = 0; c < KM_MC; ++c) dg = fmaf(ldg(con.Wd + i * KM_MC + c), D[c], dg);
     M[i][i] += dg;
   }
@@ -139,10 +179,11 @@ __device__ __forceinline__ void form_newton(const Cons& con, const H& Pr,
 #pragma unroll
   for (int i = 0; i < KM_N - KM_BAND; ++i) {
     float og = 0.0f;
-#pragma unroll
+    KM_ROWS
     for (int c = 0; c < KM_MC; ++c) og = fmaf(ldg(con.Wo + i * KM_MC + c), D[c], og);
     M[i + KM_BAND][i] += og;
   }
+#endif
 #endif
 }
 
@@ -184,7 +225,7 @@ __device__ __forceinline__ void chol_solve(const float (&L)[KM_N][KM_N],
 __device__ __forceinline__ float max_step(const float (&v)[KM_MC],
                                           const float (&dv)[KM_MC]) {
   float mn = INFINITY;
-#pragma unroll
+KM_ROWS
   for (int c = 0; c < KM_MC; ++c)
     if (dv[c] < 0.0f) mn = nmin(mn, kdiv(-v[c], dv[c]));
   return nmin(1.0f, 0.99f * mn);
@@ -202,7 +243,7 @@ __device__ __forceinline__ void direction(const Cons& con,
                                           float (&ds)[KM_MC],
                                           float (&dlam)[KM_MC]) {
   float t[KM_MC];
-#pragma unroll
+KM_ROWS
   for (int c = 0; c < KM_MC; ++c)
     t[c] = kdiv(-r_slam[c] + lam[c] * r_p[c], s[c]);
   float At_t[KM_N];
@@ -212,7 +253,7 @@ __device__ __forceinline__ void direction(const Cons& con,
   chol_solve(L, dx);
   float Adx[KM_MC];
   matvec_A(con.A, dx, Adx);
-#pragma unroll
+KM_ROWS
   for (int c = 0; c < KM_MC; ++c) {
     ds[c] = -r_p[c] - Adx[c];
     dlam[c] = kdiv(-r_slam[c] - lam[c] * ds[c], s[c]);
@@ -232,19 +273,19 @@ __device__ __forceinline__ void mehrotra(const Cons& con, int iters,
   {
     float Ax[KM_MC];
     matvec_A(con.A, x, Ax);
-#pragma unroll
+KM_ROWS
     for (int c = 0; c < KM_MC; ++c) s[c] = nmax(b[c] - Ax[c], slack_floor);
   }
 #pragma unroll 1
   for (int it = 0; it < iters; ++it) {
     float mu = 0.0f;
-#pragma unroll
+KM_ROWS
     for (int c = 0; c < KM_MC; ++c) mu = fmaf(s[c], lam[c], mu);
     mu = kdiv(mu, (float)KM_MC);
     float r_p[KM_MC];
     matvec_A(con.A, x, r_p);
     float rp_max = 0.0f;
-#pragma unroll
+KM_ROWS
     for (int c = 0; c < KM_MC; ++c) {
       r_p[c] = r_p[c] + s[c] - b[c];
       rp_max = nmax(rp_max, fabsf(r_p[c]));
@@ -263,25 +304,25 @@ __device__ __forceinline__ void mehrotra(const Cons& con, int iters,
     float L[KM_N][KM_N];
     {
       float D[KM_MC];
-#pragma unroll
+KM_ROWS
       for (int c = 0; c < KM_MC; ++c) D[c] = nclip(kdiv(lam[c], s[c]), 1e-14f, 1e14f);
       float M[KM_N][KM_N];
       form_newton(con, Pr, D, M);
       chol(M, L);
     }
     float r_slam[KM_MC], dx_a[KM_N], ds_a[KM_MC], dlam_a[KM_MC];
-#pragma unroll
+KM_ROWS
     for (int c = 0; c < KM_MC; ++c) r_slam[c] = s[c] * lam[c];
     direction(con, L, r_d, r_p, s, lam, r_slam, dx_a, ds_a, dlam_a);
     const float alpha_a = nmin(max_step(s, ds_a), max_step(lam, dlam_a));
     float mu_aff = 0.0f;
-#pragma unroll
+KM_ROWS
     for (int c = 0; c < KM_MC; ++c)
       mu_aff = fmaf(s[c] + alpha_a * ds_a[c], lam[c] + alpha_a * dlam_a[c], mu_aff);
     mu_aff = kdiv(mu_aff, (float)KM_MC);
     const float ratio = kdiv(mu_aff, mu + 1e-30f);
     const float sigma = ratio * ratio * ratio;
-#pragma unroll
+KM_ROWS
     for (int c = 0; c < KM_MC; ++c)
       r_slam[c] = s[c] * lam[c] + ds_a[c] * dlam_a[c] - sigma * mu;
     // the corrector reuses the predictor's storage
@@ -290,7 +331,7 @@ __device__ __forceinline__ void mehrotra(const Cons& con, int iters,
 #pragma unroll
     for (int i = 0; i < KM_N; ++i)
       if (isfinite(dx_a[i])) x[i] = x[i] + alpha * dx_a[i];
-#pragma unroll
+KM_ROWS
     for (int c = 0; c < KM_MC; ++c) {
       if (isfinite(ds_a[c])) s[c] = s[c] + alpha * ds_a[c];
       if (isfinite(dlam_a[c])) lam[c] = lam[c] + alpha * dlam_a[c];
@@ -361,6 +402,10 @@ __device__ __forceinline__ void lift_features(const float (&zeta)[KM_NZ],
   for (int i = KM_NF + 1; i < KM_NCP; ++i) f[i] = 0.0f;
 }
 
+#endif  // KM_NZ
+
+#ifdef KM_NCP
+
 // One generator row against the features (16-byte broadcast loads).
 __device__ __forceinline__ float gen_row(const float* __restrict__ g,
                                          const float (&f)[KM_NCP]) {
@@ -377,63 +422,32 @@ __device__ __forceinline__ float gen_row(const float* __restrict__ g,
   return acc;
 }
 
-#endif  // KM_NZ
+#endif  // KM_NCP
 
-// -------------------------------------------------------- bilinear QP
+// ------------------------------------------------------- factored QP
 #ifdef KM_P
 
-// Lane-shared operands of the lift-fused bilinear QP (ops/qp.py:LiftQP).
-struct QP {
-  const float* gens;    // (KM_PN + KM_MP + KM_P, KM_NCP) generator stack
-  const float* rdiag;   // (KM_N) blocked input cost
-  const float* cFr;     // (KM_MC)
-  const float* F0r;     // (KM_MC, KM_M)
-  Cons con;
-};
-
-// Lift, assembly and factored Gram (qp_ipm.py:727-769), streaming W: v is
-// formed first, then each W row is formed, accumulated into P and qv, and
-// dropped -- the per-lane (p*n) W block never exists.
+// The factored Gram (qp_ipm.py:760-769; the factored mode of _ipm_kernel,
+// :340-367), streaming W: each of the p rows is fetched from a row source,
+// accumulated into P and qv, and dropped -- the per-lane (p*n) W block is
+// never held.  The source fills row r of W and returns v_r.
 //   P = 2 (sum_r W_r W_r^T + diag(rdiag)),  qv = 2 sum_r W_r v_r
-//   v = Pgen f - sqYr + CB0 u_prev,  b = cFr - F0r u_prev
-__device__ __forceinline__ void assemble(const QP& qp,
-                                         const float (&zeta)[KM_NZ],
-                                         const float (&up)[KM_M],
-                                         const float* sqYr, long long sq_step,
-                                         float (&P)[KM_N][KM_N],
-                                         float (&qv)[KM_N],
-                                         float (&b)[KM_MC]) {
-  float f[KM_NCP];
-  lift_features(zeta, f);
-  const float* gW = qp.gens;
-  const float* gH = qp.gens + (long long)KM_PN * KM_NCP;
-  const float* gP = gH + (long long)KM_MP * KM_NCP;
-  // row loops stay rolled (the unrolled assembly would not fit the
-  // instruction cache); v lives in local memory
-  float v[KM_P];
-#pragma unroll 1
-  for (int r = 0; r < KM_P; ++r)
-    v[r] = gen_row(gP + r * KM_NCP, f) - sqYr[r * sq_step];
-#pragma unroll
-  for (int j = 0; j < KM_M; ++j) {
-#pragma unroll 1
-    for (int r = 0; r < KM_P; ++r)
-      v[r] = fmaf(gen_row(gH + (j * KM_P + r) * KM_NCP, f), up[j], v[r]);
-  }
+template <class Rows>
+__device__ __forceinline__ void factored_gram(const float* rdiag,
+                                              const Rows& rows,
+                                              float (&P)[KM_N][KM_N],
+                                              float (&qv)[KM_N]) {
 #pragma unroll
   for (int i = 0; i < KM_N; ++i) {
     qv[i] = 0.0f;
 #pragma unroll
     for (int k = 0; k <= i; ++k) P[i][k] = 0.0f;
-    P[i][i] = ldg(qp.rdiag + i);
+    P[i][i] = ldg(rdiag + i);
   }
 #pragma unroll 1
   for (int r = 0; r < KM_P; ++r) {
     float w[KM_N];
-#pragma unroll
-    for (int i = 0; i < KM_N; ++i)
-      w[i] = gen_row(gW + (r * KM_N + i) * KM_NCP, f);
-    const float vr = v[r];
+    const float vr = rows(r, w);
 #pragma unroll
     for (int i = 0; i < KM_N; ++i) {
       qv[i] = fmaf(w[i], vr, qv[i]);
@@ -450,23 +464,36 @@ __device__ __forceinline__ void assemble(const QP& qp,
       P[k][i] = P[i][k];
     }
   }
-  rhs_b(qp.cFr, qp.F0r, up, b);
 }
 
-// Lift + assembly + Gram + obj scale + Mehrotra: the QP half of both
-// bilinear kernels.  lam holds the dual start in row-equilibrated * obj
-// units on entry (ignored when cold) and the equilibrated duals on exit;
-// returns obj and b for the caller's epilogue.
-__device__ __forceinline__ float solve_qp(const QP& qp, int iters,
-                                          float slack_floor, bool warm_dual,
-                                          const float (&zeta)[KM_NZ],
-                                          const float (&up)[KM_M],
-                                          const float* sqYr, long long sq_step,
-                                          float (&x)[KM_N], float (&s)[KM_MC],
-                                          float (&lam)[KM_MC],
-                                          float (&b)[KM_MC]) {
-  float Pr[KM_N][KM_N], q[KM_N];
-  assemble(qp, zeta, up, sqYr, sq_step, Pr, q, b);
+// W and v as the lane's own lanes-minor arrays (ipm_factored.cu): W
+// (KM_P, KM_N, B) and v (KM_P, B), each pointer at the lane.
+struct LaneRows {
+  const float* W;
+  const float* v;
+  long long B;
+  __device__ __forceinline__ float operator()(int r, float (&w)[KM_N]) const {
+#pragma unroll
+    for (int i = 0; i < KM_N; ++i) w[i] = W[(r * KM_N + i) * B];
+    return v[r * B];
+  }
+};
+
+// The factored QP's tail from the Gram (Pr holds P, q holds qv): the
+// objective scale, the scaled and regularized Hessian, the dual start and
+// the Mehrotra loop from x (the primal start on entry).  lam holds the
+// dual start in row-equilibrated units on entry (ignored when cold) --
+// its 1/obj factor is known only now -- and the equilibrated duals on
+// exit.  Returns obj.
+__device__ __forceinline__ float solve_factored(const Cons& con, int iters,
+                                                float slack_floor,
+                                                bool warm_dual,
+                                                float (&Pr)[KM_N][KM_N],
+                                                float (&q)[KM_N],
+                                                const float (&b)[KM_MC],
+                                                float (&x)[KM_N],
+                                                float (&s)[KM_MC],
+                                                float (&lam)[KM_MC]) {
   const float obj = diag_obj_scale(Pr);
   const float iobj = kdiv(1.0f, obj);
 #pragma unroll
@@ -475,14 +502,115 @@ __device__ __forceinline__ float solve_qp(const QP& qp, int iters,
 #pragma unroll
     for (int j = 0; j < KM_N; ++j) Pr[i][j] = Pr[i][j] * iobj + (i == j ? kReg : 0.0f);
   }
-#pragma unroll
+  KM_ROWS
   for (int c = 0; c < KM_MC; ++c)
     lam[c] = warm_dual ? ksqrt(nclip(lam[c] * iobj, 1e-4f, 1e4f)) : 1.0f;
-  mehrotra(qp.con, iters, slack_floor, LaneHessian{Pr}, q, b, x, s, lam);
+  mehrotra(con, iters, slack_floor, LaneHessian{Pr}, q, b, x, s, lam);
   return obj;
 }
 
 #endif  // KM_P
+
+// -------------------------------------------------------- bilinear QP
+#if defined(KM_P) && defined(KM_NCP)
+
+// Lane-shared operands of the bilinear QP assembled in-kernel
+// (ops/qp.py:LiftQP, BilinQP).
+struct QP {
+  const float* gens;    // (KM_PN + KM_MP + KM_P, KM_NCP) generator stack
+  const float* rdiag;   // (KM_N) blocked input cost
+  const float* cFr;     // (KM_MC)
+  const float* F0r;     // (KM_MC, KM_M)
+  Cons con;
+};
+
+// The features the generator columns act on: the poly lift of the raw
+// zeta (bilin_lift.cu, step_fused.cu), or the lane's lifted state z read
+// lanes-minor (bilin.cu; z carries its constant 1 itself).
+#ifdef KM_NZ
+struct LiftFeatures {
+  const float (&zeta)[KM_NZ];
+  __device__ __forceinline__ void operator()(float (&f)[KM_NCP]) const {
+    lift_features(zeta, f);
+  }
+};
+#endif
+#ifdef KM_NZL
+struct StateFeatures {
+  const float* z;       // (KM_NZL, B) at the lane
+  long long B;
+  __device__ __forceinline__ void operator()(float (&f)[KM_NCP]) const {
+#pragma unroll
+    for (int i = 0; i < KM_NZL; ++i) f[i] = z[i * B];
+#pragma unroll
+    for (int i = KM_NZL; i < KM_NCP; ++i) f[i] = 0.0f;
+  }
+};
+#endif
+
+// W's rows generated against the features: row r's n entries are one
+// generator row each.
+struct GenRows {
+  const float* gW;
+  const float (&f)[KM_NCP];
+  const float (&v)[KM_P];
+  __device__ __forceinline__ float operator()(int r, float (&w)[KM_N]) const {
+#pragma unroll
+    for (int i = 0; i < KM_N; ++i)
+      w[i] = gen_row(gW + (r * KM_N + i) * KM_NCP, f);
+    return v[r];
+  }
+};
+
+// Features, assembly and factored Gram (qp_ipm.py:727-769 and
+// :1036-1062): v is formed first, then W is streamed into the Gram.
+//   v = Pgen f - sqYr + CB0 u_prev,  b = cFr - F0r u_prev
+template <class Feat>
+__device__ __forceinline__ void assemble(const QP& qp, const Feat& feat,
+                                         const float (&up)[KM_M],
+                                         const float* sqYr, long long sq_step,
+                                         float (&P)[KM_N][KM_N],
+                                         float (&qv)[KM_N],
+                                         float (&b)[KM_MC]) {
+  float f[KM_NCP];
+  feat(f);
+  const float* gW = qp.gens;
+  const float* gH = qp.gens + (long long)KM_PN * KM_NCP;
+  const float* gP = gH + (long long)KM_MP * KM_NCP;
+  // row loops stay rolled (the unrolled assembly would not fit the
+  // instruction cache); v lives in local memory
+  float v[KM_P];
+#pragma unroll 1
+  for (int r = 0; r < KM_P; ++r)
+    v[r] = gen_row(gP + r * KM_NCP, f) - sqYr[r * sq_step];
+#pragma unroll
+  for (int j = 0; j < KM_M; ++j) {
+#pragma unroll 1
+    for (int r = 0; r < KM_P; ++r)
+      v[r] = fmaf(gen_row(gH + (j * KM_P + r) * KM_NCP, f), up[j], v[r]);
+  }
+  factored_gram(qp.rdiag, GenRows{gW, f, v}, P, qv);
+  rhs_b(qp.cFr, qp.F0r, up, b);
+}
+
+// Features + assembly + Gram + the factored tail: the QP of the three
+// bilinear kernels.  Returns obj; b for the caller's epilogue.
+template <class Feat>
+__device__ __forceinline__ float solve_qp(const QP& qp, int iters,
+                                          float slack_floor, bool warm_dual,
+                                          const Feat& feat,
+                                          const float (&up)[KM_M],
+                                          const float* sqYr, long long sq_step,
+                                          float (&x)[KM_N], float (&s)[KM_MC],
+                                          float (&lam)[KM_MC],
+                                          float (&b)[KM_MC]) {
+  float Pr[KM_N][KM_N], q[KM_N];
+  assemble(qp, feat, up, sqYr, sq_step, Pr, q, b);
+  return solve_factored(qp.con, iters, slack_floor, warm_dual, Pr, q, b, x,
+                        s, lam);
+}
+
+#endif  // KM_P && KM_NCP
 
 
 // ----------------------------------------------------------------- plant

@@ -56,8 +56,9 @@ step_fused_kernel(const StepArgs a) {
   for (int c = 0; c < KM_MC; ++c) lam[c] = a.io.lamc[c * B + b];
   const float* sq = a.sqYr_lanes ? a.sqYr + b : a.sqYr;
   const long long sq_step = a.sqYr_lanes ? B : 1;
-  const float obj = km::solve_qp(a.qp, a.iters, 1e-2f, true, zeta, up, sq,
-                                 sq_step, x, s, lam, rhs);
+  const float obj = km::solve_qp(a.qp, a.iters, 1e-2f, true,
+                                 km::LiftFeatures{zeta}, up, sq, sq_step, x,
+                                 s, lam, rhs);
   const bool ok = km::ok_mask(a.qp.con, rhs, x, s, lam);
 
   // ---- plant on the previous input, freeze, carry advance (lam * obj)

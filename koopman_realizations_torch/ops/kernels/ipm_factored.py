@@ -1,0 +1,144 @@
+"""Interior-point QP in least-squares form: the CUDA kernel
+``csrc/ipm_factored.cu`` and its plain PyTorch version.
+
+Replaces the TPU kernel ``_ipm_kernel``
+(``koopman_realizations_tpu/ops/pallas/qp_ipm.py:299``) in its factored
+mode, reached through ``solve_qp_factored_batched`` (:566, pallas_call
+:648) from ``ops/qp.py:solve_qp_factored`` (:164-266) when the bilinear
+controller leaves the lift-fused route (``control/kmpc.py:725-742``):
+min ||W x + v||^2 + x' diag(r) x s.t. A x <= b with per-lane W (p, n),
+v (p), b and starts, lane-shared r and row-equilibrated A with the banded
+or dense A^T D A, cold or warm duals.  The kernel is compute-bound on the
+card; see the note in the source.  The TPU kernel's additive q0 (the
+NMPC's 'linear' update) is not ported.
+
+``ipm_factored`` takes the plain version only for tensors on the CPU; for
+CUDA tensors it launches the kernel or raises.  ``solve_qp_factored`` adds
+the JAX wrapper's work (row equilibration of b, the row-scaled dual
+start, the slack floor, ok mask, non-finite x to NaN, multipliers in
+original units).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from koopman_realizations_torch.ops.kernels import _build
+from koopman_realizations_torch.ops.kernels.ipm_shared import (
+    ConsStruct,
+    check_cuda_f32,
+    cons_config,
+)
+from koopman_realizations_torch.ops.qp import (
+    Constraints,
+    QPSolution,
+    factored_core,
+    ok_mask,
+    qp_constants,
+)
+
+SOURCE = "ipm_factored.cu"
+
+
+class IpmFactoredArgs(ctypes.Structure):
+    _fields_ = ([("con", ConsStruct)]
+                + [(k, ctypes.c_void_p) for k in
+                   ("rdiag", "W", "v", "b", "x0", "lam0", "x", "s", "lam",
+                    "obj")]
+                + [("B", ctypes.c_longlong), ("iters", ctypes.c_int),
+                   ("slack_floor", ctypes.c_float)])
+
+
+def kernel_spec(cons: Constraints, p: int) -> _build.KernelSpec:
+    """One build per (n, mc, band, p): the interior point's dimensions and
+    the number of W rows."""
+    return _build.KernelSpec(SOURCE, cons_config(cons)
+                             + _build.defines(KM_P=p))
+
+
+# ---------------------------------------------------------------- kernel
+
+
+def ipm_factored_cuda(cons: Constraints, rdiag, W, v, b, x0, lam0_row,
+                      iters: int, slack_floor: float):
+    """Launch ``ipm_factored_kernel`` on the current stream: W (p, n, B),
+    v (p, B), b (mc, B) equilibrated, x0 (n, B), lam0_row (mc, B) or None;
+    returns (x, s, lam, obj).  Counts its launches in
+    ``ipm_factored_cuda.launches``."""
+    n, mc = cons.n, cons.mc
+    p, B = v.shape
+    ins = [W, v, b, x0, rdiag, cons.A, cons.Wd, cons.Wo] \
+        + ([] if lam0_row is None else [lam0_row])
+    check_cuda_f32(*ins)
+    if W.shape != (p, n, B) or b.shape != (mc, B) or x0.shape != (n, B) \
+            or rdiag.shape != (n,) \
+            or (lam0_row is not None and lam0_row.shape != (mc, B)):
+        raise ValueError("ipm_factored: operand shapes do not match the QP")
+    lib = _build.load(kernel_spec(cons, p))
+    x = torch.empty((n, B), dtype=v.dtype, device=v.device)
+    s = torch.empty((mc, B), dtype=v.dtype, device=v.device)
+    lam = torch.empty_like(s)
+    obj = torch.empty((B,), dtype=v.dtype, device=v.device)
+    args = IpmFactoredArgs(
+        ConsStruct.of(cons), rdiag.data_ptr(), W.data_ptr(), v.data_ptr(),
+        b.data_ptr(), x0.data_ptr(),
+        None if lam0_row is None else lam0_row.data_ptr(), x.data_ptr(),
+        s.data_ptr(), lam.data_ptr(), obj.data_ptr(), B, int(iters),
+        float(slack_floor))
+    fn = lib.km_ipm_factored
+    fn.argtypes = [ctypes.POINTER(IpmFactoredArgs), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(ctypes.byref(args),
+            torch.cuda.current_stream(v.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ipm_factored kernel launch failed: CUDA error "
+                           f"{rc}")
+    ipm_factored_cuda.launches += 1
+    return x, s, lam, obj
+
+
+ipm_factored_cuda.launches = 0
+
+
+def ipm_factored_plain(cons: Constraints, rdiag, W, v, b, x0, lam0_row,
+                       iters: int, slack_floor: float):
+    """Plain PyTorch version of the kernel: (x, s, lam, obj)."""
+    p, n, B = W.shape
+    return factored_core(cons, W.reshape(p * n, B), v, rdiag, b, x0,
+                         lam0_row, iters, slack_floor)
+
+
+def ipm_factored(cons: Constraints, rdiag, W, v, b, x0, lam0_row,
+                 iters: int, slack_floor: float):
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    fn = ipm_factored_cuda if v.is_cuda else ipm_factored_plain
+    return fn(cons, rdiag, W, v, b, x0, lam0_row, iters, slack_floor)
+
+
+def solve_qp_factored(W, v, rdiag, cons: Constraints, b,
+                      x0: Optional[torch.Tensor] = None,
+                      lam0: Optional[torch.Tensor] = None,
+                      iters: int = 10) -> QPSolution:
+    """Batched least-squares-form QP min ||W x + v||^2 + x' diag(r) x
+    s.t. A x <= b (``solve_qp_factored_batched``, qp_ipm.py:566-683),
+    lanes-minor: W (p, n, B), v (p, B), b (mc, B) in original units,
+    ``cons`` the row-equilibrated A, x0 (n, B) the primal start (None:
+    zeros with the cold slack floor 1), lam0 (mc, B) multipliers in
+    original units (None: cold lam = 1)."""
+    slack_floor = 1.0 if x0 is None else 1e-2
+    if x0 is None:
+        x0 = v.new_zeros((cons.n, v.shape[1]))
+    row = cons.row[:, None]
+    b_eq = (b / row).contiguous()
+    lam0_row = None if lam0 is None else (lam0 * row).contiguous()
+    x, s, lam, obj = ipm_factored(cons, rdiag, W.contiguous(),
+                                  v.contiguous(), b_eq, x0.contiguous(),
+                                  lam0_row, iters, slack_floor)
+    c = qp_constants(v.dtype)
+    ok, gap = ok_mask(cons, b_eq, x, s, lam, c.tol, c.gap_sane)
+    finite = torch.isfinite(x).all(0)
+    x = torch.where(finite, x, torch.full_like(x, float("nan")))
+    return QPSolution(x=x, lam=lam * obj / row, ok=ok, gap=gap)

@@ -11,8 +11,9 @@ shared by every lane, lane-shared row-equilibrated constraints with the
 banded A^T D A, per-lane gradient, right-hand side and primal start, cold
 duals.  The kernel is compute-bound on the card (~3e4 operations per lane
 on ~0.7 KB of lane data); see the note in the source.  The TPU kernel's
-per-lane-P, factored (+q0), warm-dual and dense A^T D A modes are not
-ported.
+factored mode (warm duals, banded or dense A^T D A) is
+``ops/kernels/ipm_factored.py``; its per-lane-P mode and the factored
+mode's q0 are not ported.
 
 ``ipm_shared`` takes the plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.  ``solve_qp_shared`` adds
@@ -58,14 +59,28 @@ class IpmSharedArgs(ctypes.Structure):
                    ("slack_floor", ctypes.c_float)])
 
 
+# above this many constraint rows the builds keep the loops over the rows
+# rolled (KM_ROLL, csrc/kmpc_device.cuh)
+ROLL_ROWS = 64
+
+
 def cons_config(cons: Constraints) -> str:
-    """``#define`` lines of the interior point's dimensions; the kernels
-    form A^T D A from the banded tables only."""
+    """``#define`` lines of the interior point's dimensions: the band
+    offset, or -1 with each row's nonzero columns for the dense A^T D A,
+    and KM_ROLL above ``ROLL_ROWS`` rows."""
+    cfg = _build.defines(KM_N=cons.n, KM_MC=cons.mc,
+                         KM_BAND=-1 if cons.band is None else cons.band,
+                         KM_THREADS=THREADS)
+    if cons.mc > ROLL_ROWS:
+        cfg += _build.defines(KM_ROLL=1)
     if cons.band is None:
-        raise NotImplementedError(
-            "the CUDA kernels need a banded A^T D A (band offset is None)")
-    return _build.defines(KM_N=cons.n, KM_MC=cons.mc, KM_BAND=cons.band,
-                          KM_THREADS=THREADS)
+        if len(cons.cols) != cons.mc:
+            raise ValueError("a dense A^T D A needs each row's nonzero "
+                             "columns (Constraints.cols)")
+        cfg += (_build.defines(KM_RNZ=len(cons.cols[0]))
+                + "#define KM_DENSE_COLS "
+                + _build.c_array(cons.cols, fmt=str) + "\n")
+    return cfg
 
 
 def kernel_spec(cons: Constraints) -> _build.KernelSpec:

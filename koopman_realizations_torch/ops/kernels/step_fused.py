@@ -251,6 +251,10 @@ class StepFused(FusedStepBase):
     operand is sqrt(Q) * Yr, (p,) shared or (p, B) per lane."""
 
     def __init__(self, mpc, arm, scaler):
+        if not mpc.lift_fused:
+            raise NotImplementedError(
+                "the fused step is the lift-fused route's (input_blocks, "
+                "bilinear_iters=1)")
         super().__init__(mpc, arm, scaler)
         self.qp = mpc.lift_qp()
 

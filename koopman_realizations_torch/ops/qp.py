@@ -5,7 +5,11 @@ the CUDA kernels share (``csrc/kmpc_device.cuh``), and of the Pallas code
 of the JAX package (``ops/pallas/qp_ipm.py``):
 
 - ``lift_assembly``  <- ``_lift_assembly_core``  (qp_ipm.py:727-757)
+- ``bilin_assemble`` <- ``_bilin_assemble``      (ops/qp.py:272-282; in
+  ``_bilin_kernel``, qp_ipm.py:1036-1047)
 - ``factored_gram``  <- ``_factored_gram``       (:760-769)
+- ``factored_core``  <- the factored mode of ``_ipm_kernel`` (:340-367,
+  :385-399): Gram, objective scale, dual start, Mehrotra
 - ``diag_obj_scale`` <- ``_diag_obj_scale``      (:686-698)
 - ``form_AtDA``      <- ``_make_form_AtDA``      (:209-233)
 - ``chol_lanes``     <- ``_chol_lanes``          (:143-176)
@@ -15,9 +19,9 @@ of the JAX package (``ops/pallas/qp_ipm.py``):
   at step_fused.py:137-141)
 
 The interior point takes its lane-shared constraint rows as a
-``Constraints`` (row-equilibrated A and its banded A^T D A tables), which
-the lift-fused bilinear QP (``LiftQP.cons``) and the linear controller's
-QP share; its Hessian is per lane (n, n, B) or lane-shared (n, n).
+``Constraints`` (row-equilibrated A and its banded or dense A^T D A
+tables), which every controller's QP shares; its Hessian is per lane
+(n, n, B) or lane-shared (n, n).
 
 Layout: the batch is the LAST axis -- vectors are (rows, B), matrices
 (n, n, B); lane-shared constraint rows A are (mc, n).  The assembly runs in
@@ -81,7 +85,10 @@ def band_offset_of(A) -> Optional[int]:
 class Constraints(NamedTuple):
     """Lane-shared constraint rows of a batched QP, row-equilibrated:
     A = F / row, with the banded A^T D A tables Wd (n, mc) and Wo
-    (n - band, mc) (Wo unused when ``band`` is 0, zeros when None)."""
+    (n - band, mc) (Wo unused when ``band`` is 0).  Dense (``band``
+    None): ``cols`` holds each row's nonzero columns, ascending and
+    padded with -1 (host ints, ``row_nonzeros``), Wd their values
+    (mc, len(cols[0])) and Wo is unused."""
 
     A: torch.Tensor
     row: torch.Tensor
@@ -90,18 +97,35 @@ class Constraints(NamedTuple):
     n: int
     mc: int
     band: Optional[int]
+    cols: tuple = ()
+
+
+def row_nonzeros(A):
+    """(cols, vals) of host rows A (mc, n): each row's nonzero columns,
+    ascending, padded with -1 to the widest row, as a tuple of tuples,
+    and their values (mc, width) with zeros in the padding."""
+    A = np.asarray(A, np.float64)
+    idx = [np.flatnonzero(a) for a in A]
+    width = max([len(i) for i in idx] + [1])
+    cols = tuple(tuple(int(c) for c in i) + (-1,) * (width - len(i))
+                 for i in idx)
+    vals = np.zeros((A.shape[0], width))
+    for c, i in enumerate(idx):
+        vals[c, :len(i)] = A[c, i]
+    return cols, vals
 
 
 def constraint_tables(F, band):
     """(row, A_eq, Wd, Wo) of host constraint rows F (mc, n), f64 numpy:
-    the row scale max(|F_c|, 1e-10), the equilibrated rows and the banded
-    A^T D A contraction tables (``qp_ipm.py:464-492``)."""
+    the row scale max(|F_c|, 1e-10), the equilibrated rows and the
+    A^T D A tables: banded contractions (``qp_ipm.py:464-492``) or, for
+    ``band`` None, each row's nonzero values (``row_nonzeros``)."""
     F = np.asarray(F, np.float64)
     mc, n = F.shape
     row = np.maximum(np.max(np.abs(F), axis=1), 1e-10)
     A_eq = F / row[:, None]
     if band is None:
-        Wd = np.zeros((n, mc))
+        Wd = row_nonzeros(A_eq)[1]
         Wo = np.zeros((1, mc))
     else:
         Wd = (A_eq * A_eq).T
@@ -185,6 +209,34 @@ def lift_qp_operands(gens: dict, tables, RdT, F_red, cF_red, F0_red, band,
         band=band)
 
 
+class BilinQP(NamedTuple):
+    """Lane-shared operands of the assembly-fused bilinear QP (the
+    ``_bilin_kernel`` route): ``gens`` stacks PGWb (p*n rows, row r*n+i =
+    W[r, i]), PG0 (m*p rows, row j*p+r = CB0[r, j]) and PAsq (p rows),
+    their columns acting on the lifted state z (nzl), zero-padded to a
+    multiple of 4; the rest as ``LiftQP``."""
+
+    gens: torch.Tensor
+    rdiag: torch.Tensor
+    A: torch.Tensor
+    cFr: torch.Tensor
+    F0r: torch.Tensor
+    row: torch.Tensor
+    Wd: torch.Tensor
+    Wo: torch.Tensor
+    n: int
+    mc: int
+    p: int
+    m: int
+    nzl: int
+    band: Optional[int]
+
+    @property
+    def cons(self) -> Constraints:
+        return Constraints(self.A, self.row, self.Wd, self.Wo, self.n,
+                           self.mc, self.band)
+
+
 def generator_block(z, mono, bias, ncp: int) -> np.ndarray:
     """Generator rows [z-section | monomial section | bias | 0-pad] acting
     on the feature vector [zeta; monomials; 1] (f64)."""
@@ -208,18 +260,33 @@ def lift_assembly(qp: LiftQP, zeta, up, sqYr):
     """Poly lift + factored QP assembly for lanes-minor zeta (nz, B) and
     u_prev (m, B); ``sqYr`` is sqrt(Q)-scaled reference, (p,) shared or
     (p, B) per lane.  Returns (Wf (p*n, B), v (p, B), b (mc, B))."""
-    p, n, m, nf = qp.p, qp.n, qp.m, qp.nfeat
+    nf = qp.nfeat
     f = lift_features(zeta, qp.tables)
     g = qp.gens
+    return _generated(qp, lambda rows: g[rows, :nf] @ f + g[rows, nf:nf + 1],
+                      up, sqYr)
+
+
+def bilin_assemble(qp: BilinQP, z, up, sqYr):
+    """Factored QP assembly from the lifted state z (nzl, B) and u_prev
+    (m, B) against the generators (``_bilin_assemble``); ``sqYr`` (p,) or
+    (p, B).  Returns (Wf (p*n, B), v (p, B), b (mc, B))."""
+    g = qp.gens
+    return _generated(qp, lambda rows: g[rows, :qp.nzl] @ z, up, sqYr)
+
+
+def _generated(qp, gen, up, sqYr):
+    """(Wf, v, b) from the generator rows' products ``gen(rows)``:
+    W = PGW f, v = Pgen f - sqYr + CB0 u_prev, b = cFr - F0r u_prev."""
+    p, n, m = qp.p, qp.n, qp.m
     pn, mp = p * n, m * p
-    gen = lambda rows: g[rows, :nf] @ f + g[rows, nf:nf + 1]
     Wf = gen(slice(0, pn))
     CB0 = gen(slice(pn, pn + mp))
     sq = sqYr if sqYr.ndim == 2 else sqYr[:, None]
     v = gen(slice(pn + mp, pn + mp + p)) - sq
     for j in range(m):
         v = v + CB0[j * p:(j + 1) * p] * up[j]
-    b = qp.cFr[:, None].expand(qp.mc, zeta.shape[1])
+    b = qp.cFr[:, None].expand(qp.mc, up.shape[1])
     for j in range(m):
         b = b - qp.F0r[:, j:j + 1] * up[j]
     return Wf, v, b
@@ -365,26 +432,37 @@ def ok_mask(cons: Constraints, b, x, s, lam, tol: float, gap_sane: float):
     return ok, gap
 
 
-def qp_core_plain(qp: LiftQP, zeta, up, sqYr, x0, lam0_row, iters: int,
-                  slack_floor: float):
-    """Lift + assembly + Gram + obj scale + Mehrotra for lanes-minor
-    inputs -- the plain version of the QP half of both kernels.
+def factored_core(cons: Constraints, Wf, v, rdiag, b, x0, lam0_row,
+                  iters: int, slack_floor: float):
+    """Gram + obj scale + dual start + Mehrotra of the factored QP for
+    lanes-minor Wf (p*n, B), v (p, B), b (mc, B) and x0 (n, B), the
+    plain version of the kernels' factored tail.
 
-    ``lam0_row``: dual start in row-equilibrated * obj units (mc, B), or
-    None for the cold start lam = 1.  Returns (x, s, lam, obj, b).
+    ``lam0_row``: dual start in row-equilibrated units (mc, B), damped
+    here to sqrt(clip(lam0_row / obj, 1e-4, 1e4)), or None for the cold
+    start lam = 1.  Returns (x, s, lam, obj).
     """
-    c = qp_constants(zeta.dtype)
-    Wf, v, b = lift_assembly(qp, zeta, up, sqYr)
-    P, qv = factored_gram(Wf, v, qp.rdiag, qp.p, qp.n)
+    c = qp_constants(v.dtype)
+    P, qv = factored_gram(Wf, v, rdiag, v.shape[0], cons.n)
     obj = diag_obj_scale(P)
     iobj = 1.0 / obj
-    eye = torch.eye(qp.n, dtype=P.dtype, device=P.device)[..., None]
+    eye = torch.eye(cons.n, dtype=P.dtype, device=P.device)[..., None]
     Pr = P * iobj + c.reg * eye
     q = qv * iobj
     if lam0_row is None:
         lam0 = torch.ones_like(b)
     else:
         lam0 = torch.sqrt(torch.clamp(lam0_row * iobj, 1e-4, 1e4))
-    x, s, lam = mehrotra_loop(qp.cons, iters, slack_floor, Pr, q, b, x0,
+    x, s, lam = mehrotra_loop(cons, iters, slack_floor, Pr, q, b, x0,
                               lam0, c.mu_floor)
-    return x, s, lam, obj, b
+    return x, s, lam, obj
+
+
+def qp_core_plain(qp: LiftQP, zeta, up, sqYr, x0, lam0_row, iters: int,
+                  slack_floor: float):
+    """Lift + assembly + the factored tail for lanes-minor inputs -- the
+    plain version of the QP half of both lift-fused kernels.  Returns
+    (x, s, lam, obj, b)."""
+    Wf, v, b = lift_assembly(qp, zeta, up, sqYr)
+    return factored_core(qp.cons, Wf, v, qp.rdiag, b, x0, lam0_row, iters,
+                         slack_floor) + (b,)

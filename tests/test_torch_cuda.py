@@ -21,6 +21,8 @@ from koopman_realizations_torch.control.kmpc import (
 from koopman_realizations_torch.control.ksim import Ksim
 from koopman_realizations_torch.models.arm import Arm
 from koopman_realizations_torch.ops.kernels import _build
+from koopman_realizations_torch.ops.kernels import bilin as BI
+from koopman_realizations_torch.ops.kernels import ipm_factored as IF
 from koopman_realizations_torch.ops.kernels import ipm_shared as IS
 from koopman_realizations_torch.ops.kernels import nmpc_multipass as NM
 from koopman_realizations_torch.ops.kernels import nmpc_pass as NP
@@ -61,6 +63,12 @@ ARM = dict(Nmods=3, nlinks=1, L=1.0, m=0.1, output_type="markers",
 LINEAR = dict(MPC, qp_iters=6, qp_dual_warm=False)
 # the SQP NMPC controller (tests/test_torch_oracle.py:NMPC_MPC)
 NMPC = dict(MPC, qp_iters=8, qp_dual_warm=False)
+# the bilinear controller off the lift-fused route
+# (tests/test_torch_oracle.py:BILINEAR_ROUTES)
+ROUTES = {"iters2": dict(bilinear_iters=2),
+          "unblocked": dict(input_blocks=None, qp_iters=8),
+          "unblocked_smooth": dict(input_blocks=None, input_smoothConst=0.1,
+                                   qp_iters=12)}
 
 
 @pytest.fixture(scope="module")
@@ -453,5 +461,148 @@ def test_nmpc_regime_runners_on_card_track(gpu_nmpc, regime, kernel):
         X0, np.zeros((B, 2), np.float32))
     assert wrapper.launches == 300 * 5
     assert out["alive"].all() and ref["alive"] == 1.0
+    err = lane_tracking_error(out["Yp"], blockM_reference())
+    assert abs(err.mean().item() - ref["err_mean"]) < 1e-3, err.mean()
+
+
+@pytest.fixture(scope="module")
+def gpu_routes():
+    """The bilinear controller in each configuration off the lift-fused
+    route, f32 and f64, and the bilin and three ipm_factored builds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, scaler, _ = load_model()
+    arm = Arm(ArmConfig(**ARM), device="cuda")
+    out = {}
+    for name, knobs in ROUTES.items():
+        cfg = MpcConfig(**{**MPC, **knobs})
+        mpc = BilinearKmpc(model, scaler, cfg, device="cuda")
+        out[name] = (Ksim(arm, mpc), BilinearKmpc(
+            model, scaler, cfg, device="cuda", dtype=torch.float64))
+    specs = [BI.kernel_spec(out["iters2"][0].mpc.bilin_qp())] + [
+        IF.kernel_spec(s.mpc.constraints(), s.mpc.p) for s, _ in out.values()]
+    for r in _build.build_all(specs):
+        print(r.path.name, f"{r.seconds:.1f}s", *r.ptxas, sep="\n  ")
+    return out
+
+
+def _route_lanes(sim, B, steps, seed=0):
+    """Lanes after a few closed-loop steps of a bilinear route's general
+    path from spread states: (z, u_prev, U_plan, lam, windows) with z the
+    lifted state and lam the carried multipliers (original units)."""
+    rng = np.random.default_rng(seed)
+    mpc, arm, sc = sim.mpc, sim.plant, sim.scaler
+    X0 = np.zeros((B, 6), np.float32)
+    X0[:, 0] = np.linspace(-0.2, 0.2, B)
+    X0[:, 3:] = rng.normal(0, 0.2, (B, 3))
+    x = torch.as_tensor(X0, device="cuda").T.contiguous()
+    W = x.new_zeros((2, B))
+    u_prev = x.new_zeros((3, B))
+    ysc, upsc = sc.y_down(arm.get_y(x), axis=0), sc.u_down(u_prev, axis=0)
+    U, lam = upsc.repeat(mpc.Np, 1), x.new_ones((mpc.n_con, B))
+    win = sim.reference_windows(blockM_reference(), 40)
+    for k in range(steps):
+        U, sol = mpc.solve(mpc.lift(ysc), upsc, win[k], U, lam)
+        lam = sol.lam
+        x = arm.step(x, u_prev, W)
+        ysc = sc.y_down(arm.get_y(x), axis=0)
+        upsc = U[3:6].contiguous()
+        u_prev = sc.u_up(upsc, axis=0)
+    return mpc.lift(ysc).contiguous(), upsc, U, lam, win
+
+
+@pytest.mark.parametrize("per_lane", [False, True])
+@pytest.mark.parametrize("warm", [False, True])
+def test_bilin_kernel_matches_plain(gpu_routes, warm, per_lane):
+    """The assembly-fused first pass of iterated relinearization, kernel
+    against plain f32, both against plain f64, on 1000 closed-loop lanes
+    (not a block multiple), cold or with the carried duals, a shared or a
+    per-lane reference window."""
+    sim, mpc64 = gpu_routes["iters2"]
+    mpc = sim.mpc
+    z, up, U, lam, win = _route_lanes(sim, 1000, 3)
+    sq = win[3 + torch.arange(1000, device="cuda") % 8].T.contiguous() \
+        if per_lane else win[3]
+    x0 = mpc.warm_start(U).contiguous()
+    lam0 = (lam * mpc.row[:, None]).contiguous() if warm else None
+    qp, qp64 = mpc.bilin_qp(), mpc64.bilin_qp()
+    xk, sk, lk, objk = BI.bilin_cuda(qp, z, up, x0, lam0, sq, 4, 1e-2)
+    torch.cuda.synchronize()
+    xp, sp, lp, objp = BI.bilin_plain(qp, z, up, x0, lam0, sq, 4, 1e-2)
+    x64 = BI.bilin_plain(qp64, z.double(), up.double(), x0.double(),
+                         None if lam0 is None else lam0.double(),
+                         sq.double(), 4, 1e-2)[0]
+    b = qp.cFr[:, None] - qp.F0r @ up
+    _hold_to_f64(xk, xp, x64, ok_mask(qp.cons, b, xk, sk, lk, 3e-3, 5e-2)[0],
+                 ok_mask(qp.cons, b, xp, sp, lp, 3e-3, 5e-2)[0])
+    assert torch.allclose(objk, objp, rtol=1e-5)
+
+
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_ipm_factored_kernel_matches_plain(gpu_routes, route, warm):
+    """The factored interior point in each build (blocked 12/48 banded,
+    unblocked 27/108 banded, unblocked smooth 27/156 dense) on the W and v
+    the controller assembles on 1000 closed-loop lanes -- the re-rolled
+    second pass for iters2 -- kernel against plain f32, both against
+    plain f64."""
+    sim, mpc64 = gpu_routes[route]
+    mpc = sim.mpc
+    iters = mpc.cfg.qp_iters
+    z, up, U, lam, win = _route_lanes(sim, 1000, 3)
+    betas = betas64 = None
+    if mpc.blocked:
+        betas = mpc.roll(z, U)[1]
+        betas64 = mpc64.roll(z.double(), U.double())[1]
+    cons, cons64 = mpc.constraints(), mpc64.constraints()
+    ins = {}
+    for dt, c, bt in ((torch.float32, mpc, betas),
+                      (torch.float64, mpc64, betas64)):
+        zd, ud = z.to(dt), up.to(dt)
+        W, v = c.factored_data(zd, ud, win[3].to(dt), bt)
+        b = (c.cF_t[:, None] - c.F0_t @ ud) / c.row[:, None]
+        ins[dt] = (c.constraints(), c.rdiag, W.contiguous(), v.contiguous(),
+                   b.contiguous(), c.warm_start(U.to(dt)).contiguous(),
+                   (lam.to(dt) * c.row[:, None]).contiguous() if warm
+                   else None, iters, 1e-2)
+    xk, sk, lk, objk = IF.ipm_factored_cuda(*ins[torch.float32])
+    torch.cuda.synchronize()
+    xp, sp, lp, objp = IF.ipm_factored_plain(*ins[torch.float32])
+    x64 = IF.ipm_factored_plain(*ins[torch.float64])[0]
+    b = ins[torch.float32][4]
+    _hold_to_f64(xk, xp, x64, ok_mask(cons, b, xk, sk, lk, 3e-3, 5e-2)[0],
+                 ok_mask(cons, b, xp, sp, lp, 3e-3, 5e-2)[0])
+    assert torch.allclose(objk, objp, rtol=1e-5)
+    assert cons64.band == cons.band
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_bilinear_route_runners_on_card_track(gpu_routes, route):
+    """The general runner of each route through its kernels, B=16 over
+    301 steps -- iters2: one bilin and one ipm_factored launch a step;
+    the unblocked stacks: one ipm_factored launch a step; no bilin_lift --
+    against the JAX general runner's err_mean and alive
+    (assets/bilinear_route_refs.json)."""
+    import json
+
+    from koopman_realizations_torch.ops.kernels.bilin_lift import (
+        bilin_lift_cuda,
+    )
+    from koopman_realizations_torch.utils.checkpoint import ASSETS
+    ref = json.loads((ASSETS / "bilinear_route_refs.json").read_text())[
+        "regimes"][route]
+    sim, _ = gpu_routes[route]
+    B = 16
+    X0 = np.zeros((B, 6), np.float32)
+    X0[:, 0] = np.linspace(-0.2, 0.2, B)
+    for w in (BI.bilin_cuda, IF.ipm_factored_cuda, bilin_lift_cuda):
+        w.launches = 0
+    out = sim.batched_runner(blockM_reference(), steps=301)(
+        X0, np.zeros((B, 2), np.float32))
+    assert BI.bilin_cuda.launches == (300 if sim.mpc.blocked else 0)
+    assert IF.ipm_factored_cuda.launches == 300
+    assert bilin_lift_cuda.launches == 0
+    assert out["alive"][:, -1].float().mean().item() == ref["alive"]
     err = lane_tracking_error(out["Yp"], blockM_reference())
     assert abs(err.mean().item() - ref["err_mean"]) < 1e-3, err.mean()

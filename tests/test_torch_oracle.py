@@ -55,6 +55,7 @@ jax.config.update("jax_enable_x64", True)      # as tests/conftest.py
 jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
+import pytest  # noqa: E402
 import torch  # noqa: E402
 
 from koopman_realizations_tpu.config import (  # noqa: E402
@@ -96,6 +97,23 @@ NMPC_REGIMES = {
     "linesearch_best": dict(sqp_linesearch=2, sqp_best_of_passes=True),
 }
 REGIME_REFS = ASSETS / "nmpc_regime_refs.json"
+# the bilinear controller off the lift-fused route, each on top of
+# BENCH_MPC: iterated relinearization (pass 0 assembly-fused and blocked,
+# pass 1 re-rolled), and the unblocked stack the MATLAB reference runs
+# (Ksim.m:210), without and with smoothness rows (dense A^T D A).  On this
+# corpus's model the JAX general runner (x64, CPU, B=16 x 301 blockM
+# steps) keeps every lane of the unblocked stack from qp_iters=6 on
+# (0.75 alive at 4), and of the smooth stack at 12 (all lanes lost from
+# step 3 at 4, 0.8125 alive at 8 with smoothness 1.0); 8 is two above
+# the 16-lane edge, because iteration floors move with batch size and
+# precision.
+BILINEAR_ROUTES = {
+    "iters2": dict(bilinear_iters=2),
+    "unblocked": dict(input_blocks=None, qp_iters=8),
+    "unblocked_smooth": dict(input_blocks=None, input_smoothConst=0.1,
+                             qp_iters=12),
+}
+BILINEAR_ROUTE_REFS = ASSETS / "bilinear_route_refs.json"
 # the bench plant (bench.py:118-122)
 BENCH_ARM = dict(Nmods=3, nlinks=1, L=1.0, m=0.1, output_type="markers",
                  substeps=3, newton_iters=1, jac_mode="step")
@@ -148,6 +166,46 @@ def nmpc_lanes(B: int, seed: int):
         blockM_reference(), 300)
     sq = wins[torch.from_numpy(rng.integers(0, 299, B))].T.contiguous()
     return zeta, up, sq
+
+
+def bilinear_lanes(port, B: int, seed: int):
+    """Bilinear controller test lanes, f64 lanes-minor, for the port's
+    controller ``port``: the lifted states of random arm states' scaled
+    outputs (NL, B), previous inputs inside the bounds (m, B), a
+    near-held previous plan (Np*m, B), positive multipliers in original
+    units (mc, B), and the blockM reference windows of random steps --
+    unscaled (B, Np+1, nproj) for JAX and sqrt(Q)-scaled (p, B) for the
+    port."""
+    from koopman_realizations_torch.config import ArmConfig as TArm
+    from koopman_realizations_torch.models.arm import Arm
+    rng = np.random.default_rng(seed)
+    arm = Arm(TArm(**BENCH_ARM), device="cpu")
+    X = np.zeros((6, B))
+    X[:3] = rng.uniform(-0.4, 0.4, (3, B))
+    X[3:] = rng.normal(0, 0.3, (3, B))
+    zeta = port.scaler.y_down(arm.get_y(torch.from_numpy(X)), axis=0)
+    up = torch.from_numpy(rng.uniform(-0.6, 0.6, (3, B)))
+    U = up.repeat(port.Np, 1) + torch.from_numpy(
+        rng.normal(0, 0.01, (port.Np * 3, B)))
+    lam = torch.from_numpy(np.exp(rng.normal(-1.0, 1.0, (port.n_con, B))))
+    ref = port.scaler.ref_down(blockM_y(), port.proj_idx)
+    ks = rng.integers(0, ref.shape[0] - port.Np - 1, B)
+    refhor = np.stack([ref[k:k + port.Np + 1] for k in ks])
+    sqYr = torch.from_numpy(port.sqq[:, None] * refhor.reshape(B, -1).T)
+    return port.lift(zeta.double()), up, U, lam, refhor, sqYr
+
+
+@pytest.fixture
+def one_thread():
+    """The port's CPU tests run B <= 16 lanes, whose tensors are tiny: one
+    thread runs them faster than the pool (measured ~2x on the closed
+    loops); the count is restored afterwards.  Test modules use it with
+    ``pytestmark = pytest.mark.usefixtures("one_thread")`` after importing
+    it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def lane_errors(Yp, ref_y, steps: int):
@@ -286,16 +344,28 @@ def write_assets(kinds=tuple(MODELS)) -> dict:
     return headers
 
 
-def write_regime_refs() -> dict:
+@functools.lru_cache(maxsize=None)
+def jax_bilinear(**knobs):
+    """(Ksim, controller) of the JAX package: the bilinear controller on
+    the bilinear asset with ``knobs`` (an entry of ``BILINEAR_ROUTES``, or
+    any other) on top of ``BENCH_MPC``."""
+    from koopman_realizations_tpu.control import Ksim, make_kmpc
+    from koopman_realizations_tpu.models.arm import Arm
+    model, scaler = jax_model("bilinear")
+    mpc = make_kmpc(model, scaler, MpcConfig(**{**BENCH_MPC, **knobs}))
+    return Ksim(Arm(ArmConfig(**BENCH_ARM)), mpc), mpc
+
+
+def _write_refs(configs: dict, sim_of, asset: str, path: Path,
+                flag: str) -> dict:
     """Run the JAX general runner (x64, CPU, B=16 over 301 blockM steps,
-    the bench's initial states) in each of ``NMPC_REGIMES`` on the
-    nonlinear asset and write err_mean, err_worst, alive and the full
-    controller configuration of each to ``REGIME_REFS``; the model assets
-    are not touched."""
+    the bench's initial states) in each configuration and write err_mean,
+    err_worst, alive and the full controller configuration of each to
+    ``path`` under "regimes"; the model assets are not touched."""
     import dataclasses
     regimes = {}
-    for name, knobs in NMPC_REGIMES.items():
-        sim, mpc = jax_nmpc(**knobs)
+    for name, knobs in configs.items():
+        sim, mpc = sim_of(**knobs)
         run = sim.batched_runner(blockM_y(), steps=REF_STEPS,
                                  record=("Yp", "alive"))
         out = jax.block_until_ready(
@@ -310,15 +380,28 @@ def write_regime_refs() -> dict:
               flush=True)
     refs = {
         "runner": "koopman_realizations_tpu Ksim.batched_runner "
-                  "(jax_enable_x64, CPU) on assets/arm3_nonlinear_poly3.npz",
-        "written_by": "python tests/test_torch_oracle.py "
-                      "--write-regime-refs",
+                  f"(jax_enable_x64, CPU) on assets/{asset}",
+        "written_by": f"python tests/test_torch_oracle.py {flag}",
         "B": REF_B, "steps": REF_STEPS,
         "X0": "first joint spread over +-0.2 rad (bench_X0)",
         "reference": "blockM([0.45, -0.35], 0.5, 0.5), T=15, Ts=0.05",
         "regimes": regimes}
-    REGIME_REFS.write_text(json.dumps(refs, indent=1) + "\n")
+    path.write_text(json.dumps(refs, indent=1) + "\n")
     return refs
+
+
+def write_regime_refs() -> dict:
+    """The JAX quality of each SQP regime of ``NMPC_REGIMES`` on the
+    nonlinear asset, in ``REGIME_REFS``."""
+    return _write_refs(NMPC_REGIMES, jax_nmpc, NONLINEAR_ASSET.name,
+                       REGIME_REFS, "--write-regime-refs")
+
+
+def write_bilinear_refs() -> dict:
+    """The JAX quality of each configuration of ``BILINEAR_ROUTES`` on the
+    bilinear asset, in ``BILINEAR_ROUTE_REFS``."""
+    return _write_refs(BILINEAR_ROUTES, jax_bilinear, ASSET.name,
+                       BILINEAR_ROUTE_REFS, "--write-bilinear-refs")
 
 
 # ---------------------------------------------------------------- tests
@@ -427,11 +510,19 @@ if __name__ == "__main__":
     ap.add_argument("--write-regime-refs", action="store_true",
                     help="record the JAX general runner's quality in every "
                          "SQP regime of NMPC_REGIMES (nmpc_regime_refs.json)")
+    ap.add_argument("--write-bilinear-refs", action="store_true",
+                    help="record the JAX general runner's quality in every "
+                         "bilinear configuration of BILINEAR_ROUTES "
+                         "(bilinear_route_refs.json)")
     args = ap.parse_args()
-    if args.write_asset is None and not args.write_regime_refs:
-        ap.error("nothing to do (pass --write-asset or --write-regime-refs)")
+    if args.write_asset is None and not (args.write_regime_refs
+                                         or args.write_bilinear_refs):
+        ap.error("nothing to do (pass --write-asset, --write-regime-refs "
+                 "or --write-bilinear-refs)")
     if args.write_asset is not None:
         print(json.dumps(write_assets(tuple(args.write_asset)
                                       or tuple(MODELS)), indent=1))
     if args.write_regime_refs:
         print(json.dumps(write_regime_refs(), indent=1))
+    if args.write_bilinear_refs:
+        print(json.dumps(write_bilinear_refs(), indent=1))
