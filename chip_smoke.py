@@ -71,6 +71,9 @@ FULL_REGIMES = ("damping_decay", "jac_period")
 ROUTE_REFS = ROOT / "koopman_realizations_torch" / "assets" / \
     "bilinear_route_refs.json"
 FULL_ROUTES = ("iters2", "unblocked")
+# the SQP regime whose every pass runs ipm_factored's q0 build (the
+# infeasible-path 'linear' between-pass update); it runs at full width
+LINEAR_REGIME = "linear_update"
 B_MAIN, B_GENERAL, B_CHECK, STEPS = 262144, 65536, 8192, 301
 # H100 SXM published peaks: f32 outside the tensor cores, HBM3 bandwidth
 PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
@@ -365,6 +368,7 @@ def main() -> int:
     from koopman_realizations_torch.control.ksim import Ksim
     from koopman_realizations_torch.models.arm import Arm
     from koopman_realizations_torch.ops.kernels import _build
+    from koopman_realizations_torch.ops.kernels import batch_chol as BC
     from koopman_realizations_torch.ops.kernels import bilin as BI
     from koopman_realizations_torch.ops.kernels import bilin_lift as BL
     from koopman_realizations_torch.ops.kernels import ipm_factored as IF
@@ -375,7 +379,7 @@ def main() -> int:
     from koopman_realizations_torch.ops.kernels import nmpc_pass as NP
     from koopman_realizations_torch.ops.kernels import nmpc_stage as NS
     from koopman_realizations_torch.ops.kernels import step_fused as SF
-    from koopman_realizations_torch.ops.qp import ok_mask
+    from koopman_realizations_torch.ops.qp import ok_mask, solve_qp
     from koopman_realizations_torch.utils.checkpoint import (
         LINEAR_MODEL,
         NONLINEAR_MODEL,
@@ -401,7 +405,8 @@ def main() -> int:
                 "nmpc_stage": NS.nmpc_stage_cuda,
                 "nmpc_pass": NP.nmpc_pass_cuda,
                 "bilin": BI.bilin_cuda,
-                "ipm_factored": IF.ipm_factored_cuda}
+                "ipm_factored": IF.ipm_factored_cuda,
+                "batch_chol": BC.solve_spd_cuda}
 
     def drive(expected, fn):
         """Run one main path with every launch count set to 0 just before
@@ -426,9 +431,11 @@ def main() -> int:
     def nmpc_launches(m, steps):
         """The NMPC kernels' launches of ``steps``-step run: the first SQP
         of every step on the controller's route (one multipass launch, or
-        one launch a pass), multistart's second SQP a launch a pass."""
+        one launch a pass: nmpc_stage, nmpc_pass or, on the 'linear'
+        route, ipm_factored), multistart's second SQP a launch a pass."""
         passes = (steps - 1) * m.cfg.sqp_iters
-        per_pass = "nmpc_stage" if m.jac_period == 1 else "nmpc_pass"
+        per_pass = "ipm_factored" if m.linear_update else \
+            "nmpc_stage" if m.jac_period == 1 else "nmpc_pass"
         out = {"nmpc_multipass": steps - 1} if m.route == "multipass" \
             else {per_pass: passes}
         if m.cfg.sqp_multistart:
@@ -476,12 +483,22 @@ def main() -> int:
                                      dtype=torch.float64)
     ipmf_specs = {name: IF.kernel_spec(m.constraints(), m.p)
                   for name, m in rmpcs.items()}
+    # the 'linear' update's controller in f32 and f64
+    qcfg = MpcConfig(**regime_configs()[LINEAR_REGIME])
+    qmpc = NonlinearKmpc(nmodel, nscaler, qcfg, device=dev)
+    qmpc64 = NonlinearKmpc(nmodel, nscaler, qcfg, device=dev,
+                           dtype=torch.float64)
+    qcons, ucons = qmpc.constraints(), rmpcs["unblocked"].constraints()
     builds = _build.build_all(
         [BL.kernel_spec(qp), op.kernel_spec(), IS.kernel_spec(cons),
          lop.kernel_spec(), NM.kernel_spec(nqp), NP.kernel_spec(nqp)]
         + [NS.kernel_spec(nqp, mode) for mode in N.STAGE_MODES]
         + [BI.kernel_spec(rmpcs["iters2"].bilin_qp())]
-        + list(ipmf_specs.values()))
+        + list(ipmf_specs.values())
+        + [IF.kernel_spec(qcons, nqp.p, q0=True),
+           IS.kernel_spec(qcons, lane_p=True),
+           IS.kernel_spec(ucons, lane_p=True),
+           BC.kernel_spec(qcons.n), BC.kernel_spec(ucons.n)])
     for r in builds:
         log(f"built {r.path.name} in {r.seconds:.1f} s "
             f"({'cached' if r.cached else 'nvcc'})")
@@ -662,17 +679,18 @@ def main() -> int:
                            device=dev, dtype=torch.float64)
     nqp64 = nmpc64.nmpc_qp()
 
-    def nmpc_lanes(B, steps):
+    def nmpc_lanes(B, steps, ctl=nmpc):
         """Scaled outputs and previous inputs after ``steps`` closed-loop
-        steps of the NMPC general path from the spread initial states."""
-        m = nmpc.m
+        steps of the NMPC general path (controller ``ctl``) from the spread
+        initial states."""
+        m = ctl.m
         x = torch.as_tensor(spread_X0(B), device=dev).T.contiguous()
         W = x.new_zeros((2, B))
         u_prev = x.new_zeros((m, B))
         ysc = nscaler.y_down(arm.get_y(x), axis=0)
         upsc = nscaler.u_down(u_prev, axis=0)
         for k in range(steps):
-            U, _ = nmpc.solve(ysc, upsc, nwins[k])
+            U, _ = ctl.solve(ysc, upsc, nwins[k])
             x = arm.step(x, u_prev, W)
             ysc = nscaler.y_down(arm.get_y(x), axis=0)
             upsc = U[m:2 * m].contiguous()
@@ -848,36 +866,95 @@ def main() -> int:
                  b.contiguous(), x0, l0, m.cfg.qp_iters, 1e-2))
         return out
 
+    def factored_obj(a64, x):
+        """1/2 x'Px + q'x of ipm_factored's QP with P = 2 (W'W + diag r)
+        and q = 2 W'v (+ q0), per lane, in original units, f64, for the
+        f64 arguments ``a64``."""
+        rd, W, v = a64[1], a64[2], a64[3]
+        x = x.double()
+        Wx = torch.einsum("rib,ib->rb", W, x)
+        f = (Wx * Wx + 2.0 * v * Wx).sum(0) + (rd[:, None] * x * x).sum(0)
+        q0 = a64[9] if len(a64) > 9 else None
+        return f if q0 is None else f + (q0 * x).sum(0)
+
+    def check_qp(kernel, fns, a32, a64, cons, b, label, worst=False):
+        """A QP kernel against its plain version (``fns``: the kernel's
+        and the plain function), both against the plain f64 version (as
+        check_nmpc): equal, all-true ok masks; median and p99 distances to
+        f64 within twice plain f32's.  With ``worst`` (ipm_factored's
+        arguments) it logs the tail of each ordering -- its lanes farther
+        than 1e-3 and 1e-2 from f64 -- and the lane where kernel and plain
+        f32 differ most: each one's distance to f64 there, the QP
+        objective of the three solutions in original units, the lane's
+        smallest slack and gap, and the same lane solved alone with twice
+        the iterations.  Returns (max |dx| of kernel and plain, the
+        kernel's x)."""
+        rk = fns[0](*a32)
+        torch.cuda.synchronize()
+        rp = fns[1](*a32)
+        r64 = fns[1](*a64)
+        (xk, sk, lk), (xp, sp, lp), x64 = rk[:3], rp[:3], r64[0]
+        okk = ok_mask(cons, b, xk, sk, lk, 3e-3, 5e-2)[0]
+        okp = ok_mask(cons, b, xp, sp, lp, 3e-3, 5e-2)[0]
+        lv = torch.tensor([0.5, 0.99], dtype=torch.float64, device=dev)
+        dk = (xk.double() - x64).abs().amax(0)
+        dp = (xp.double() - x64).abs().amax(0)
+        ek, ep = torch.quantile(dk, lv), torch.quantile(dp, lv)
+        dx = (xk - xp).abs().max().item()
+        dobj = "" if len(rk) < 4 else \
+            f" max rel dobj {((rk[3] - rp[3]) / rp[3]).abs().max():.3e};"
+        log(f"{kernel} {label}: max|dx| {dx:.3e}{dobj} distance to f64 "
+            f"(median, p99): kernel {ek[0]:.3e} {ek[1]:.3e}, plain f32 "
+            f"{ep[0]:.3e} {ep[1]:.3e}; ok {int(okk.sum())}/{int(okp.sum())}"
+            f" of {xk.shape[1]}")
+        if worst:
+            i = int((xk - xp).abs().amax(0).argmax())
+            tail = lambda d: "/".join(str(int((d > t).sum()))
+                                      for t in (1e-3, 1e-2))
+            lane = lambda a, it: tuple(
+                t[..., i:i + 1].contiguous()
+                if torch.is_tensor(t) and t.ndim > 1 else t
+                for t in a[:7]) + (it,) + tuple(
+                t if not torch.is_tensor(t) else t[..., i:i + 1].contiguous()
+                for t in a[8:])
+            it2 = 2 * a32[7]
+            rows = [("kernel", rk, fns[0](*lane(a32, it2))),
+                    ("plain f32", rp, fns[1](*lane(a32, it2))),
+                    ("f64", r64, fns[1](*lane(a64, it2)))]
+            x64_2, a64_i = rows[2][2][0], lane(a64, it2)
+            far = lambda x, ref: (x.double() - ref).abs().max().item()
+            fobj = lambda x: factored_obj(a64_i, x)[0].item()
+            log(f"{kernel} {label}: lanes farther than 1e-3/1e-2 from f64: "
+                f"kernel {tail(dk)}, plain f32 {tail(dp)}; worst lane {i}: "
+                + "; ".join(
+                    f"{nm} |x-x64| {far(r[0][:, i], x64[:, i]):.3e} "
+                    f"objective {fobj(r[0][:, i:i + 1]):.10e} min slack "
+                    f"{r[1][:, i].min().item():.3e} gap "
+                    f"{(r[1][:, i] * r[2][:, i]).mean().item():.3e}, with "
+                    f"{it2} iterations |x-x64| {far(r2[0], x64_2):.3e} "
+                    f"objective {fobj(r2[0]):.10e}"
+                    for nm, r, r2 in rows))
+        if not (torch.equal(okk, okp) and bool(okk.all())
+                and bool((ek <= 2 * ep + 1e-5).all())):
+            raise AssertionError(f"{kernel} kernel disagrees with plain "
+                                 f"({label})")
+        return dx, xk
+
     def check_route(kernel, name, ins, label) -> float:
         """One route kernel against its plain version, both against the
-        plain f64 version (as check_nmpc); returns max |dx| of kernel and
+        plain f64 version (``check_qp``); returns max |dx| of kernel and
         plain."""
         i = 0 if kernel == "bilin" else 1
         mod = BI if kernel == "bilin" else IF
         a32, a64 = ins[torch.float32][i], ins[torch.float64][i]
-        xk, sk, lk, objk = getattr(mod, kernel + "_cuda")(*a32)
-        torch.cuda.synchronize()
-        xp, sp, lp, objp = getattr(mod, kernel + "_plain")(*a32)
-        x64 = getattr(mod, kernel + "_plain")(*a64)[0]
         m = rmpcs[name]
         b = m.cFr[:, None] - m.F0r @ a32[2] if kernel == "bilin" else a32[4]
-        okk = ok_mask(m.constraints(), b, xk, sk, lk, 3e-3, 5e-2)[0]
-        okp = ok_mask(m.constraints(), b, xp, sp, lp, 3e-3, 5e-2)[0]
-        lv = torch.tensor([0.5, 0.99], dtype=torch.float64, device=dev)
-        ek = torch.quantile((xk.double() - x64).abs().amax(0), lv)
-        ep = torch.quantile((xp.double() - x64).abs().amax(0), lv)
-        dx = (xk - xp).abs().max().item()
-        dobj = ((objk - objp) / objp).abs().max().item()
-        log(f"{kernel} ({name}, n={m.A.shape[1]}, mc={m.A.shape[0]}, band "
-            f"{m.band}) {label}: max|dx| {dx:.3e} max rel dobj {dobj:.3e}; "
-            f"distance to f64 (median, p99): kernel {ek[0]:.3e} "
-            f"{ek[1]:.3e}, plain f32 {ep[0]:.3e} {ep[1]:.3e}; ok "
-            f"{int(okk.sum())}/{int(okp.sum())} of {xk.shape[1]}")
-        if not (torch.equal(okk, okp) and bool(okk.all())
-                and bool((ek <= 2 * ep + 1e-5).all())):
-            raise AssertionError(f"{kernel} kernel disagrees with plain "
-                                 f"({name})")
-        return dx
+        return check_qp(
+            kernel, (getattr(mod, kernel + "_cuda"),
+                     getattr(mod, kernel + "_plain")), a32, a64,
+            m.constraints(), b, f"({name}, n={m.A.shape[1]}, "
+            f"mc={m.A.shape[0]}, band {m.band}) {label}",
+            kernel == "ipm_factored")[0]
 
     bi_err = if_err = 0.0
     for name in rmpcs:
@@ -894,6 +971,116 @@ def main() -> int:
                 "bilin", name, route_inputs(name, lanes, per_lane, True),
                 f"warm, per-lane windows B={B_CHECK}"))
         del lanes
+
+    # ---- phases Q1, Q2: ipm_factored's q0 build and ipm_shared's
+    # per-lane-P build against their plain versions, B=8192, on the
+    # 'linear' update's own QPs after 3 closed-loop steps of its general
+    # path (the per-lane P as the dense P = 2 (W'W + diag r),
+    # q = 2 W'v + q0 of the same lanes), cold and with the first pass's
+    # multipliers; the per-lane P also on the unblocked route's lanes
+    # (n=27, banded)
+    def linear_qps(zeta, up, sq):
+        """ipm_factored's arguments for the 'linear' update's second SQP
+        pass at these lanes -- the first pass from the held plan, the
+        second along its plan's linearized state sequence -- formed by the
+        f32 controller as its route does, and the same data in f64:
+        (cons, rdiag, W, v, b / row, x0, lam0 * row, iters, slack floor,
+        q0), lam0 the first pass's multipliers."""
+        m = qmpc
+        rho = m.cfg.sqp_damping
+        q_ = m.nmpc_qp(m.RdT_t + rho * m.bsizes_t)
+        b = m.cF_t[:, None] - m.F0_t @ up
+        Ul, Zl = up.repeat(m.Np, 1), zeta.expand((m.Np,) + zeta.shape)
+        for it in range(2):
+            Jt, cv = N.stage_lin(q_, Zl, Ul)
+            W, v = N.condense(q_, Jt, cv, zeta, up, sq)
+            x0 = m.Sel_t @ Ul[m.m:]
+            q0 = -2.0 * rho * (m.Tb_t.T @ Ul[m.m:])
+            if it == 0:
+                sol = IF.solve_qp_factored(W, v, q_.rdiag, qcons, b, x0=x0,
+                                           iters=m.cfg.qp_iters, q0=q0)
+                Ul = m.plan(up, sol.x)
+                Zl = N.linear_rollout(q_, Jt, cv, zeta, Ul, m.Sel_t)
+        data = (W, v, b / qcons.row[:, None], x0,
+                sol.lam * qcons.row[:, None], q0)
+        out = {}
+        for mm in (qmpc, qmpc64):
+            W_, v_, b_, x0_, l_, q0_ = (t.to(mm.dtype).contiguous()
+                                        for t in data)
+            out[mm.dtype] = (mm.constraints(),
+                             (mm.RdT_t + rho * mm.bsizes_t).contiguous(),
+                             W_, v_, b_, x0_, l_, mm.cfg.qp_iters, 1e-2, q0_)
+        return out
+
+    def dense_qp(a):
+        """P = 2 (W'W + diag r) (n, n, B) and q = 2 W'v (+ q0) (n, B) of
+        the QP of ipm_factored's arguments ``a``."""
+        rd, W, v = a[1:4]
+        P = 2.0 * (torch.einsum("rib,rjb->ijb", W, W)
+                   + torch.diag(rd)[..., None])
+        q = 2.0 * torch.einsum("rib,rb->ib", W, v)
+        return P.contiguous(), q if len(a) < 10 else q + a[9]
+
+    def lane_p_args(a, Pq=None):
+        """ipm_shared's per-lane-P arguments for the QP of ipm_factored's
+        arguments ``a`` (its dense P and q, or ``Pq``): q scaled by the
+        lane's iobj = 1 / max |P|, the dual start (row units) by iobj, as
+        solve_qp_shared forms them."""
+        c, _, _, _, b, x0, l0, iters, sf = a[:9]
+        P, q = dense_qp(a) if Pq is None else Pq
+        iobj = 1.0 / P.abs().amax((0, 1))
+        return (c, P, (q * iobj).contiguous(), b, x0, iters, sf,
+                iobj.contiguous(),
+                None if l0 is None else (l0 * iobj).contiguous())
+
+    def cold(a, at):
+        """The argument tuple ``a`` with its dual start (at ``at``) cold."""
+        return a[:at] + (None,) + a[at + 1:]
+
+    def check_linear(ins, label) -> tuple:
+        """Q1 (the q0 build) and Q2 (the per-lane-P build on the same
+        QPs) on one set of the 'linear' update's QPs: each against its
+        plain version and f64, and the two modes' f64 solutions against
+        each other (one QP, two Gram orders).  Returns the max |dx| of
+        each kernel and its plain version."""
+        a32, a64 = ins[torch.float32], ins[torch.float64]
+        dq, xq = check_qp("ipm_factored (q0 build)",
+                          (IF.ipm_factored_cuda, IF.ipm_factored_plain),
+                          a32, a64, qcons, a32[4], label, True)
+        l32, l64 = lane_p_args(a32), lane_p_args(a64)
+        dl, xl = check_qp("ipm_shared (per-lane P)",
+                          (IS.ipm_shared_cuda, IS.ipm_shared_plain), l32,
+                          l64, qcons, a32[4], label)
+        d64 = (IF.ipm_factored_plain(*a64)[0]
+               - IS.ipm_shared_plain(*l64)[0]).abs().max().item()
+        lv = torch.tensor([0.5, 0.99], device=dev)
+        dql = torch.quantile((xq - xl).abs().amax(0), lv)
+        log(f"q0 build vs per-lane P {label}: f64 solutions max|dx| "
+            f"{d64:.3e}; kernels (median, p99) {dql[0]:.3e} {dql[1]:.3e}")
+        if not d64 < 1e-8:
+            raise AssertionError("the q0 and per-lane-P modes solve "
+                                 "different QPs")
+        return dq, dl
+
+    nzL, nuL = nmpc_lanes(B_CHECK, 3, qmpc)
+    lin8 = linear_qps(nzL, nuL, nwins[3 + torch.arange(
+        B_CHECK, device=dev) % 8].T.contiguous())
+    is_lane_err = 0.0
+    for warm in (False, True):
+        ins = lin8 if warm else {dt: cold(a, 6) for dt, a in lin8.items()}
+        dq, dl = check_linear(ins, f"{'warm' if warm else 'cold'} "
+                                   f"B={B_CHECK}")
+        if_err, is_lane_err = max(if_err, dq), max(is_lane_err, dl)
+    uins = route_inputs("unblocked", route_lanes("unblocked", B_CHECK),
+                        wins[3], True)
+    is_lane_err = max(is_lane_err, check_qp(
+        "ipm_shared (per-lane P)",
+        (IS.ipm_shared_cuda, IS.ipm_shared_plain),
+        lane_p_args(uins[torch.float32][1]),
+        lane_p_args(uins[torch.float64][1]), ucons,
+        uins[torch.float32][1][4],
+        f"(unblocked, n=27, mc=108, band 3) warm B={B_CHECK}")[0])
+    del nzL, nuL, lin8, uins
 
     # ---- phases 3, L3, N3: quality through the kernels, bench X0, B=16,
     # 301 steps; f32 plant noise moves the mean by ~1e-4 on the CPU (tests)
@@ -1047,6 +1234,26 @@ def main() -> int:
         for k in expected:
             route_main[k] = route_main.get(k, 0) + counts[k]
         del gout
+
+    # ---- phase Q4: the 'linear' update's closed loop at B=65536, 301
+    # steps: five launches of ipm_factored's q0 build a step, the explicit
+    # condensation and the stage Jacobians in PyTorch between them
+    qsim = rsims[LINEAR_REGIME]
+    grun = qsim.batched_runner(ref, steps=STEPS)
+    qsim.batched_runner(ref, steps=3)(XB[:1024], WB[:1024])   # warm-up
+    expected = nmpc_launches(qsim.mpc, STEPS)
+    gout, lin_wall, counts = drive(expected, lambda: grun(XG, WG))
+    eG = lane_tracking_error(gout["Yp"], ref)
+    aliveG = gout["alive"][:, -1].float().mean().item()
+    log(f"NMPC regime {LINEAR_REGIME} ({qsim.mpc.route} route) general "
+        f"runner B={B_GENERAL} steps={STEPS}: {lin_wall:.3f} s, "
+        f"{B_GENERAL * (STEPS - 1) / lin_wall:.4e} lane-steps/s, alive "
+        f"{aliveG:.6f}, err_mean {eG.mean():.6f}, err_worst "
+        f"{eG.max():.6f}, launches {expected} | {smi}")
+    if aliveG != 1.0:
+        raise AssertionError(f"NMPC regime {LINEAR_REGIME} lost lanes")
+    lin_main = counts["ipm_factored"]
+    del gout
 
     # ---- phases 6, L6: each kernel against its plain version, and its
     # time, at its path's shapes
@@ -1208,19 +1415,153 @@ def main() -> int:
             flops) + bound(flops, nbytes(Wt, v, b, x0, l0)
                            + 4 * B_GENERAL * (fc.n + 2 * fc.mc + 1)
                            + nbytes(rd, fc.A, fc.Wd, fc.Wo))
+        if name == "unblocked":
+            uG = {dt: a[1] for dt, a in ins.items()}
         del ins, a32
     log(f"bilinear route kernels at B={B_GENERAL} | {smi}: " + "; ".join(
         f"{'bilin' if k == 'bilin' else 'ipm_factored ' + k} {t[0]:.4f} ms "
         f"(plain {t[1]:.2f} ms, bound {t[3]:.4f} ms by {t[4]}, "
         f"{t[2] / B_GENERAL:.0f} op/lane)" for k, t in route_t.items()))
     bi_ms, bi_plain, _, bi_bound, bi_by = route_t["bilin"]
+
+    # ---- phases Q1, Q2 at size: the q0 build and the per-lane-P build
+    # against their plain versions and their times at B=65536, on the
+    # 'linear' update's QPs (warm, as Q1) and, per-lane P, the unblocked
+    # route's (R4's lanes); each per-lane solve once through the shared-A
+    # entry ops/qp.py:solve_qp as its own path
+    nzL, nuL = nmpc_lanes(B_GENERAL, 3, qmpc)
+    linG = linear_qps(nzL, nuL, nwins[3])
+    del nzL, nuL
+    dq, dl = check_linear(linG, f"warm B={B_GENERAL}")
+    if_err, is_lane_err = max(if_err, dq), max(is_lane_err, dl)
+    a32 = linG[torch.float32]
+    fc, rd, Wt, v, b, x0, l0, iters, _, q0 = a32
+    live = (Wt != 0).any(-1).reshape(-1).tolist()
+    flops = (gram_ops(live, fc.n) + fc.n
+             + factored_tail_ops(fc, iters)) * B_GENERAL
+    route_t[LINEAR_REGIME] = (
+        cuda_ms(lambda: IF.ipm_factored_cuda(*a32), reps=10),
+        cuda_ms(lambda: IF.ipm_factored_plain(*a32), reps=1, warmup=1),
+        flops) + bound(flops, nbytes(Wt, v, b, x0, l0, q0)
+                       + 4 * B_GENERAL * (fc.n + 2 * fc.mc + 1)
+                       + nbytes(rd, fc.A, fc.Wd, fc.Wo))
+    lane_t, lane_main, spd = {}, 0, {}
+    for key, ins in (("n=12", linG), ("n=27", uG)):
+        Pq = {dt: dense_qp(a) for dt, a in ins.items()}
+        l32 = lane_p_args(ins[torch.float32], Pq[torch.float32])
+        fc, P, q, b, x0, iters, _, iobj, l0 = l32
+        if key == "n=27":
+            is_lane_err = max(is_lane_err, check_qp(
+                "ipm_shared (per-lane P)",
+                (IS.ipm_shared_cuda, IS.ipm_shared_plain), l32,
+                lane_p_args(ins[torch.float64], Pq[torch.float64]), fc, b,
+                f"(unblocked, n=27, mc=108, band 3) warm B={B_GENERAL}")[0])
+        n, mc = fc.n, fc.mc
+        flops = (n * n + n + 4 * mc
+                 + mehrotra_ops(fc, iters, n * n)) * B_GENERAL
+        lane_t[key] = (
+            cuda_ms(lambda: IS.ipm_shared_cuda(*l32), reps=5),
+            cuda_ms(lambda: IS.ipm_shared_plain(*l32), reps=1, warmup=1),
+            flops) + bound(flops, nbytes(P, q, b, x0, iobj, l0)
+                           + 4 * B_GENERAL * (n + 2 * mc)
+                           + nbytes(fc.A, fc.Wd, fc.Wo))
+        # the entry's own inputs in original units
+        row = fc.row[:, None]
+        sol, _, counts = drive({"ipm_shared": 1}, lambda: solve_qp(
+            P, Pq[torch.float32][1], fc, b * row, iters, x0=x0,
+            lam0=ins[torch.float32][6] / row))
+        log(f"ipm_shared (per-lane P) {key} through ops/qp.py:solve_qp, "
+            f"B={B_GENERAL}: ok {int(sol.ok.sum())} of {B_GENERAL}")
+        if not bool(sol.ok.all()):
+            raise AssertionError("solve_qp with a per-lane P lost lanes")
+        lane_main += counts["ipm_shared"]
+        # phase Q3's systems: the same dense P, q as right-hand sides
+        spd[key] = {dt: (P_.permute(2, 0, 1).contiguous(), q_.T.contiguous())
+                    for dt, (P_, q_) in Pq.items()}
+        del l32, sol, Pq
+    del linG, uG, a32
+
+    # ---- phase Q3: batch_chol against its plain version and f64 at
+    # B=65536 (n=12: the 'linear' update's dense P; n=27: the unblocked
+    # route's), its time, the plain version's and one PyTorch call's
+    # (torch.linalg.solve) on the same systems; the two sizes once through
+    # the ops-layer entry solve_spd as its own path
+    def chol_ops(n: int) -> int:
+        """Operations of one system's factor and two substitutions,
+        counted from csrc/batch_chol.cu (FMA = 2; sqrt, divide = 1)."""
+        return (sum(2 + (n - j) + (n - 1 - j) * (n - j) for j in range(n))
+                + 2 * n * (n - 1) + 2 * n)
+
+    chol_t, bc_err = {}, 0.0
+    for key, d in spd.items():
+        (M, rhs_), (M64, rhs64) = d[torch.float32], d[torch.float64]
+        xk = BC.solve_spd_cuda(M, rhs_)
+        torch.cuda.synchronize()
+        xp = BC.solve_spd_plain(M, rhs_)
+        x64 = BC.solve_spd_plain(M64, rhs64)
+        scale = x64.abs().amax(1)
+        ek = ((xk.double() - x64).abs().amax(1) / scale).max().item()
+        ep = ((xp.double() - x64).abs().amax(1) / scale).max().item()
+        dx = (xk - xp).abs().max().item()
+        log(f"batch_chol {key} B={B_GENERAL}: max|dx| {dx:.3e}; worst "
+            f"error relative to the lane's solution: kernel {ek:.3e}, "
+            f"plain f32 {ep:.3e}")
+        if not (ek <= 2 * ep + 1e-6 and torch.isfinite(xk).all()):
+            raise AssertionError("batch_chol kernel disagrees with plain")
+        bc_err = max(bc_err, dx)
+        n = M.shape[1]
+        flops = chol_ops(n) * B_GENERAL
+        chol_t[key] = (
+            cuda_ms(lambda: BC.solve_spd_cuda(M, rhs_), reps=10),
+            cuda_ms(lambda: BC.solve_spd_plain(M, rhs_), reps=1, warmup=1),
+            flops) + bound(flops, nbytes(M, rhs_, xk)) + (
+            cuda_ms(lambda: torch.linalg.solve(M, rhs_), reps=10),)
+    (M12, r12), (M27, r27) = (spd[k][torch.float32] for k in ("n=12",
+                                                               "n=27"))
+    xs, _, counts = drive({"batch_chol": 2}, lambda: (
+        BC.solve_spd(M12, r12), BC.solve_spd(M27, r27)))
+    if not all(bool(torch.isfinite(x).all()) for x in xs):
+        raise AssertionError("solve_spd gave non-finite solutions")
+    chol_main = counts["batch_chol"]
+    log(f"q0 build, per-lane P and batch_chol at B={B_GENERAL} | {smi}: "
+        f"(ipm_shared lane-shared {is_ms:.4f} ms) "
+        + "; ".join(f"{k} {t[0]:.4f} ms (plain {t[1]:.2f} ms, bound "
+                    f"{t[3]:.4f} ms by {t[4]}, {t[2] / B_GENERAL:.0f} "
+                    f"op/lane)" + (f", torch.linalg.solve {t[5]:.4f} ms"
+                                   if len(t) > 5 else "")
+                    for k, t in [("ipm_factored q0",
+                                  route_t[LINEAR_REGIME])]
+                    + [("ipm_shared per-lane P " + k, t)
+                       for k, t in lane_t.items()]
+                    + [("batch_chol " + k, t) for k, t in chol_t.items()]))
+    del spd, M12, r12, M27, r27, xs
+    log(f"{LINEAR_REGIME} at B={B_GENERAL}: {lin_main} q0-build launches "
+        f"of {route_t[LINEAR_REGIME][0]:.4f} ms are "
+        f"{100 * lin_main * route_t[LINEAR_REGIME][0] / 1e3 / lin_wall:.1f}"
+        f" % of the {lin_wall:.3f} s run; the rest is the stage "
+        f"Jacobians, the explicit condensation, the plain plant and glue")
+
     # ipm_factored's main-path mix: the full-width runs' launches, one a
-    # step in each of iters2 (n=12) and unblocked (n=27)
-    mixf = {k: 1 for k in FULL_ROUTES}
+    # step in each of iters2 (n=12) and unblocked (n=27), five a step on
+    # the 'linear' route (the q0 build); the launch-weighted mean
+    mixf = {"iters2": route_main["ipm_factored"] // 2,
+            "unblocked": route_main["ipm_factored"] // 2,
+            LINEAR_REGIME: lin_main}
     perf = lambda i: sum(n * route_t[k][i] for k, n in mixf.items()) \
         / sum(mixf.values())
     if_ms, if_plain, if_bound = perf(0), perf(1), perf(3)
-    if_by = route_t["unblocked"][4]
+    if_by = route_t[LINEAR_REGIME][4]
+    # ipm_shared's: the linear general runner's 300 lane-shared launches
+    # and the per-lane builds' entry launches (one each)
+    sh_n = general_main["ipm_shared"]
+    pers = lambda i, base: (sh_n * base + sum(t[i] for t in lane_t.values())
+                            ) / (sh_n + len(lane_t))
+    is_ms, is_plain, is_bound = (pers(0, is_ms), pers(1, is_plain),
+                                 pers(3, is_bound))
+    # batch_chol's: one launch at each size
+    perc = lambda i: sum(t[i] for t in chol_t.values()) / len(chol_t)
+    bc_ms, bc_plain, bc_bound, bc_lib = perc(0), perc(1), perc(3), perc(5)
+    bc_by = chol_t["n=27"][4]
 
     log(f"kernel times | {smi}: step_fused {sf_ms:.4f} ms (plain "
         f"{sf_plain:.2f} ms, bound {sf_bound:.4f} ms by {sf_by}, "
@@ -1230,8 +1571,9 @@ def main() -> int:
         f"linear_step_fused {ls_ms:.4f} ms (plain {ls_plain:.2f} ms, bound "
         f"{ls_bound:.4f} ms by {ls_by}, {ls_flops / B_MAIN:.0f} op/lane) at "
         f"B={B_MAIN}; ipm_shared {is_ms:.4f} ms (plain {is_plain:.2f} ms, "
-        f"bound {is_bound:.4f} ms by {is_by}, {is_flops / B_GENERAL:.0f} "
-        f"op/lane) at B={B_GENERAL}; nmpc_multipass {nm_ms:.4f} ms (plain "
+        f"bound {is_bound:.4f} ms by {is_by}; main-path mix: the linear "
+        f"general runner's and one per-lane-P launch at n=12 and n=27) at "
+        f"B={B_GENERAL}; nmpc_multipass {nm_ms:.4f} ms (plain "
         f"{nm_plain:.2f} ms, bound {nm_bound:.4f} ms by {nm_by}, "
         f"{nm_flops / B_GENERAL:.0f} op/lane) at B={B_GENERAL}; nmpc_stage "
         f"{ns_ms:.4f} ms (plain {ns_plain:.2f} ms, bound {ns_bound:.4f} ms "
@@ -1241,33 +1583,43 @@ def main() -> int:
         f"bilin {bi_ms:.4f} ms (plain {bi_plain:.2f} ms, bound "
         f"{bi_bound:.4f} ms by {bi_by}) at B={B_GENERAL}; ipm_factored "
         f"{if_ms:.4f} ms (plain {if_plain:.2f} ms, bound {if_bound:.4f} ms "
-        f"by {if_by}; main-path mix) at B={B_GENERAL}")
+        f"by {if_by}; main-path mix {mixf}) at B={B_GENERAL}; batch_chol "
+        f"{bc_ms:.4f} ms (plain {bc_plain:.2f} ms, bound {bc_bound:.4f} ms "
+        f"by {bc_by}, torch.linalg.solve {bc_lib:.4f} ms; n=12 and n=27 "
+        f"mean) at B={B_GENERAL}")
 
     tpu = "koopman_realizations_tpu/ops/pallas/"
     src = "koopman_realizations_torch/csrc/"
-    rows = [("step_fused", "step_fused.py:90", fused_main, sf_err, sf_ms,
-             sf_plain, sf_bound, sf_by),
-            ("bilin_lift", "qp_ipm.py:772", general_main, bl_err, bl_ms,
-             bl_plain, bl_bound, bl_by),
-            ("linear_step_fused", "step_fused.py:185", fused_main, ls_err,
-             ls_ms, ls_plain, ls_bound, ls_by),
-            ("ipm_shared", "qp_ipm.py:299", general_main, is_err, is_ms,
-             is_plain, is_bound, is_by),
-            ("nmpc_multipass", "qp_ipm.py:1422", general_main, nm_err, nm_ms,
-             nm_plain, nm_bound, nm_by),
-            ("nmpc_stage", "qp_ipm.py:1560", full_main, ns_err, ns_ms,
-             ns_plain, ns_bound, ns_by),
-            ("nmpc_pass", "qp_ipm.py:1144", full_main, np_err, np_ms,
-             np_plain, np_bound, np_by),
-            ("bilin", "qp_ipm.py:998", route_main, bi_err, bi_ms, bi_plain,
-             bi_bound, bi_by),
-            ("ipm_factored", "qp_ipm.py:299", route_main, if_err, if_ms,
-             if_plain, if_bound, if_by)]
+    rows = [("step_fused", "step_fused.py:90", fused_main["step_fused"],
+             sf_err, sf_ms, sf_plain, sf_bound, sf_by),
+            ("bilin_lift", "qp_ipm.py:772", general_main["bilin_lift"],
+             bl_err, bl_ms, bl_plain, bl_bound, bl_by),
+            ("linear_step_fused", "step_fused.py:185",
+             fused_main["linear_step_fused"], ls_err, ls_ms, ls_plain,
+             ls_bound, ls_by),
+            ("ipm_shared", "qp_ipm.py:299",
+             general_main["ipm_shared"] + lane_main, max(is_err, is_lane_err),
+             is_ms, is_plain, is_bound, is_by),
+            ("nmpc_multipass", "qp_ipm.py:1422",
+             general_main["nmpc_multipass"], nm_err, nm_ms, nm_plain,
+             nm_bound, nm_by),
+            ("nmpc_stage", "qp_ipm.py:1560", full_main["nmpc_stage"], ns_err,
+             ns_ms, ns_plain, ns_bound, ns_by),
+            ("nmpc_pass", "qp_ipm.py:1144", full_main["nmpc_pass"], np_err,
+             np_ms, np_plain, np_bound, np_by),
+            ("bilin", "qp_ipm.py:998", route_main["bilin"], bi_err, bi_ms,
+             bi_plain, bi_bound, bi_by),
+            ("ipm_factored", "qp_ipm.py:299",
+             route_main["ipm_factored"] + lin_main, if_err, if_ms, if_plain,
+             if_bound, if_by),
+            ("batch_chol", "batch_chol.py:28", chol_main, bc_err, bc_ms,
+             bc_plain, bc_bound, bc_by)]
     kernels = [{"name": name, "route": "cuda", "source": src + name + ".cu",
-                "replaces": tpu + tpu_at, "launches": paths[name],
+                "replaces": tpu + tpu_at, "launches": launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                "bound_ms": bms, "bound_by": by, "library_ms": None}
-               for name, tpu_at, paths, err, ms, plain, bms, by in rows]
+                "bound_ms": bms, "bound_by": by,
+                "library_ms": bc_lib if name == "batch_chol" else None}
+               for name, tpu_at, launches, err, ms, plain, bms, by in rows]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -22,7 +22,9 @@ pass of iterated relinearization) and ``ops/kernels/ipm_factored.py``
 the linear one in ``ops/kernels/ipm_shared.py`` (general runner) or inside
 its fused step (``ops/kernels/linear_step_fused.py``); the nonlinear
 controller's whole SQP in ``ops/kernels/nmpc_multipass.py``, or its passes
-one by one in ``ops/kernels/nmpc_stage.py`` / ``nmpc_pass.py``.  The
+one by one in ``ops/kernels/nmpc_stage.py`` / ``nmpc_pass.py``, or, with
+the 'linear' between-pass update, the explicit condensation on the host and
+each pass's QP in ``ops/kernels/ipm_factored.py`` (its q0 build).  The
 nonlinear controller's host constants are the composed maps of F
 (``_composed_maps``, kmpc.py:944) and the analytic Jacobian's generator
 (``_poly_jacobian_static``, :990), f64 as there.
@@ -57,8 +59,10 @@ from koopman_realizations_torch.ops.kernels.nmpc_stage import (
 )
 from koopman_realizations_torch.ops.nmpc import (
     NmpcQP,
+    condense,
     eval_F,
     jacobian_generator,
+    linear_rollout,
     merit,
     nmpc_qp_operands,
     rollout,
@@ -717,10 +721,18 @@ class NonlinearKmpc(_KmpcBase):
       the host (``ops/nmpc.py:stage_lin``) every ``sqp_jac_period``
       passes and frozen in between, the defects fresh; one launch of
       ``nmpc_pass`` per pass.
+    - **linear** (``sqp_update='linear'``, the infeasible-path update,
+      :1352-1354, 1527-1564, 1599-1612) -- per pass ``stage_lin`` (frozen
+      Jacobians between ``sqp_jac_period`` refreshes), the explicit
+      condensation W, v in PyTorch on the device (``ops/nmpc.py:
+      condense``) and one launch of ``ipm_factored``'s q0 build; the next
+      pass linearizes along the state sequence of this pass's linearized
+      dynamics under the new plan (``ops/nmpc.py:linear_rollout``), not
+      along the nonlinear rollout, which runs only for the merit of
+      ``sqp_best_of_passes`` or the line search.
 
-    Not ported, each raising ``NotImplementedError``: the 'linear'
-    between-pass update (``sqp_update='linear'``), unblocked stacks, state
-    bounds and loads (``_KmpcBase``), and a bilinear model with
+    Not ported, each raising ``NotImplementedError``: unblocked stacks,
+    state bounds and loads (``_KmpcBase``), and a bilinear model with
     ``mpc_type='nonlinear'``.
 
     Host constants (f64 numpy, as the JAX package): the composed maps
@@ -737,12 +749,10 @@ class NonlinearKmpc(_KmpcBase):
             raise NotImplementedError(
                 "NonlinearKmpc takes a nonlinear model (the bilinear-as-NMPC "
                 "controller is not ported)")
-        if cfg.sqp_update == "linear" or cfg.sqp_iters < 1 \
-                or cfg.input_blocks is None:
+        if cfg.sqp_iters < 1 or cfg.input_blocks is None:
             raise NotImplementedError(
-                "NonlinearKmpc: the 'linear' between-pass update and "
-                "unblocked stacks are not ported" if cfg.sqp_iters >= 1
-                else "sqp_iters < 1")
+                "NonlinearKmpc: unblocked stacks are not ported"
+                if cfg.sqp_iters >= 1 else "sqp_iters < 1")
         super().__init__(model, scaler, cfg, device, dtype)
         m, n, Np = self.m, self.n, self.Np
         self.nz = self.meta.nzeta
@@ -763,9 +773,10 @@ class NonlinearKmpc(_KmpcBase):
         self.Gup = np.tile(np.eye(m), (self.Tb.shape[1] // m, 1))
         self.sqq = np.sqrt(self.q_diag)
         self.hold0 = cfg.sqp_init != "rollout"
-        # the route (_solve_from, kmpc.py:1360-1375, 1435-1437)
+        # the route (_solve_from, kmpc.py:1354-1375, 1435-1437)
         self.jac_period = max(1, int(cfg.sqp_jac_period))
-        self.roll_fused = (self.jac_period == 1
+        self.linear_update = cfg.sqp_update == "linear"
+        self.roll_fused = (self.jac_period == 1 and not self.linear_update
                            and not cfg.sqp_best_of_passes
                            and cfg.sqp_linesearch == 0)
         self.multipass = (self.roll_fused and not cfg.sqp_dual_warm
@@ -784,15 +795,19 @@ class NonlinearKmpc(_KmpcBase):
         t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                       device=self.device)
         for k, v in (("RdT_t", self.RdT), ("bsizes_t", self.bsizes),
-                     ("Rd_t", self.r_diag)):
+                     ("Rd_t", self.r_diag), ("cF_t", self.cF_red),
+                     ("F0_t", self.F0_red)):
             self.register_buffer(k, t(v))
 
     @property
     def route(self) -> str:
-        """The route of a step's first SQP ('multipass', 'stage' or
-        'chord'); multistart's second SQP always takes the per-pass loop."""
+        """The route of a step's first SQP ('multipass', 'stage', 'chord'
+        or 'linear'); multistart's second SQP always takes the per-pass
+        loop."""
         if self.multipass:
             return "multipass"
+        if self.linear_update:
+            return "linear"
         return "stage" if self.jac_period == 1 else "chord"
 
     def nmpc_qp(self, rdiag=None) -> NmpcQP:
@@ -834,8 +849,8 @@ class NonlinearKmpc(_KmpcBase):
     def _solve_from(self, zeta, u_prev, sqYr, Ul, Zl=None, Fv=None):
         """The SQP from the plan Ul (Np*m, B), optionally along a given
         trajectory Zl with dynamics values Fv (Np, nz, B)
-        (``_solve_from``, kmpc.py:1352-1624, without the 'linear' update
-        and the state-bound branch).  Returns (U, QPSolution)."""
+        (``_solve_from``, kmpc.py:1352-1624, without the state-bound
+        branch).  Returns (U, QPSolution)."""
         cfg, m, Np = self.cfg, self.m, self.Np
         qp0 = self.nmpc_qp()
         if self.multipass and Zl is None:
@@ -856,7 +871,7 @@ class NonlinearKmpc(_KmpcBase):
         lam_carry = None
         frozen = None
         for it in range(cfg.sqp_iters):
-            if self.jac_period == 1:
+            if self.jac_period == 1 and not self.linear_update:
                 mode = (mode0 if it == 0 else "roll") if self.roll_fused \
                     else "ship"
                 if mode == "ship" and Fv is None:
@@ -873,7 +888,15 @@ class NonlinearKmpc(_KmpcBase):
             qp = self.nmpc_qp(self.RdT_t + rho * self.bsizes_t)
             x0 = self.Sel_t @ Ul[m:]
             q0 = None if rho == 0.0 else -2.0 * rho * (self.Tb_t.T @ Ul[m:])
-            if self.jac_period == 1:
+            if self.linear_update:
+                # the explicit condensation, then the factored QP with the
+                # Levenberg term as q0 (kmpc.py:1527-1564)
+                W, v = condense(qp, Jt, cv, zeta, u_prev, sqYr)
+                sol = solve_qp_factored(
+                    W, v, qp.rdiag, self.constraints(),
+                    self.cF_t[:, None] - self.F0_t @ u_prev, x0=x0,
+                    lam0=lam_carry, iters=cfg.qp_iters, q0=q0)
+            elif self.jac_period == 1:
                 ship = mode == "ship"
                 sol = solve_qp_nmpc_stages(
                     qp, mode, zeta, u_prev, sqYr, x0=x0, q0=q0,
@@ -894,8 +917,9 @@ class NonlinearKmpc(_KmpcBase):
                 U, Zroll, cost = self._line_search(zeta, Ul, U_qp, sqYr)
             else:
                 U = U_qp
-                if cfg.sqp_best_of_passes or (not last
-                                              and not self.roll_fused):
+                if cfg.sqp_best_of_passes or (
+                        not last and not self.roll_fused
+                        and not self.linear_update):
                     Zroll = self._rollout_full(zeta, U)
             if cfg.sqp_best_of_passes:
                 if cost is None:
@@ -909,7 +933,12 @@ class NonlinearKmpc(_KmpcBase):
                             torch.minimum(cost, best[1]),
                             _pick(take, sol, best[2]))
             if not last:
-                if self.roll_fused:
+                if self.linear_update:
+                    # the infeasible-path update: along the linearized
+                    # dynamics, defects open between passes
+                    Zl = linear_rollout(qp0, Jt, cv, zeta, U, self.Sel_t)
+                    Fv = None
+                elif self.roll_fused:
                     Zl = Fv = None
                 else:
                     Zl, Fv = Zroll[:-1], Zroll[1:]

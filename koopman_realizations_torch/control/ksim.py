@@ -12,8 +12,9 @@ linear ``LinearKmpc``, the SQP ``NonlinearKmpc``):
   linear: the poly+PCA lift, the condensed gradient and
   ``solve_qp_shared``, the ``ipm_shared`` kernel on the card; nonlinear:
   the SQP of ``NonlinearKmpc.solve`` on its route, the ``nmpc_multipass``
-  kernel once a step or the ``nmpc_stage`` / ``nmpc_pass`` kernel once a
-  pass on the card, with the previous plan for the multistart) and the
+  kernel once a step or the ``nmpc_stage`` / ``nmpc_pass`` kernel, or on
+  the 'linear' route ``ipm_factored``'s q0 build, once a pass on the card,
+  with the previous plan for the multistart) and the
   plain batched arm step;
 - ``fused_runner`` (:439-502): a Python loop over steps that launches the
   controller's fused step kernel once per step (``step_fused`` or

@@ -3,18 +3,23 @@
 //
 // Replaces the TPU kernel _ipm_kernel (koopman_realizations_tpu/ops/
 // pallas/qp_ipm.py:299, called at :648 by solve_qp_factored_batched) in
-// its factored mode with optional warm duals and both A^T D A forms:
-//   min ||W x + v||^2 + x' diag(r) x  s.t.  A x <= b
+// its factored mode with optional warm duals, both A^T D A forms and the
+// optional additive linear term q0:
+//   min ||W x + v||^2 + x' diag(r) x (+ q0' x)  s.t.  A x <= b
 // with W (p, n) and v (p) per lane, r lane-shared, A the row-equilibrated
 // rows and b, x0 and the dual start per lane in the same units.  The
 // bilinear controller reaches it off the lift-fused route: every pass of
 // the unblocked stack (n=27, mc=108 banded; with smoothness rows mc=156
 // and a dense A^T D A) and the re-rolled passes of iterated
-// relinearization (blocked, n=12, mc=48).  The wrapper
-// (ops/kernels/ipm_factored.py:solve_qp_factored) equilibrates the rows,
-// scales the dual start by them and forms the ok mask and the multipliers
-// in original units, as the JAX wrapper does.  The additive linear term q0
-// of the TPU kernel (the NMPC's 'linear' update) is not ported.
+// relinearization (blocked, n=12, mc=48).  The NMPC's 'linear'
+// between-pass update reaches the q0 build (KM_Q0; n=12, mc=48, p=22)
+// every SQP pass with its Levenberg term q0 = -2 rho Tb^T U_lin, per lane
+// in original units, added to 2 W^T v before the objective scale
+// (qp_ipm.py:355-359); builds without KM_Q0 keep their arguments and
+// code.  The wrapper (ops/kernels/ipm_factored.py:solve_qp_factored)
+// equilibrates the rows, scales the dual start by them and forms the ok
+// mask and the multipliers in original units, as the JAX wrapper does.
+// There are no padding lanes: the ragged last block masks its threads.
 //
 // Bound on an H100: at n=12 the bytes (W alone is 1 KB of a lane's
 // ~2 KB, against ~2.3e4 operations with 4 iterations); at n=27 the
@@ -47,6 +52,9 @@ struct IpmFactoredArgs {
   float* s;            // (KM_MC, B)
   float* lam;          // (KM_MC, B) equilibrated multipliers
   float* obj;          // (B) objective scale
+#if defined(KM_Q0) && KM_Q0
+  const float* q0;     // (KM_N, B) additive linear term, original units
+#endif
   long long B;
   int iters;
   float slack_floor;
@@ -59,6 +67,10 @@ ipm_factored_kernel(const IpmFactoredArgs a) {
   const long long B = a.B;
   float Pr[KM_N][KM_N], q[KM_N];
   km::factored_gram(a.rdiag, km::LaneRows{a.W + b, a.v + b, B}, Pr, q);
+#if defined(KM_Q0) && KM_Q0
+#pragma unroll
+  for (int i = 0; i < KM_N; ++i) q[i] += a.q0[i * B + b];
+#endif
   float rhs[KM_MC], x[KM_N], s[KM_MC], lam[KM_MC];
   const bool warm = a.lam0 != nullptr;
 #pragma unroll

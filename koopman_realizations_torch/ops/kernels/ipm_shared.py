@@ -1,24 +1,32 @@
-"""Interior-point QP with a lane-shared Hessian: the CUDA kernel
-``csrc/ipm_shared.cu`` and its plain PyTorch version.
+"""Interior-point QP with a lane-shared or per-lane Hessian: the CUDA
+kernel ``csrc/ipm_shared.cu`` and its plain PyTorch version.
 
 Replaces the TPU kernel ``_ipm_kernel``
-(``koopman_realizations_tpu/ops/pallas/qp_ipm.py:299``) in its
-lane-shared-P mode, reached through ``solve_qp_shared_batched(
-shared_P=True)`` (:411) from ``ops/qp.py:_pallas_routed_solver`` (:1204)
-when ``LinearKmpc.solve`` (``control/kmpc.py:492-522``) runs over a batch
-of lanes: the Mehrotra loop against a host-equilibrated Hessian P / obj
-shared by every lane, lane-shared row-equilibrated constraints with the
-banded A^T D A, per-lane gradient, right-hand side and primal start, cold
-duals.  The kernel is compute-bound on the card (~3e4 operations per lane
-on ~0.7 KB of lane data); see the note in the source.  The TPU kernel's
-factored mode (warm duals, banded or dense A^T D A) is
-``ops/kernels/ipm_factored.py``; its per-lane-P mode and the factored
-mode's q0 are not ported.
+(``koopman_realizations_tpu/ops/pallas/qp_ipm.py:299``) in its two
+dense-objective modes, reached through ``solve_qp_shared_batched``
+(:411) from ``ops/qp.py:_pallas_routed_solver`` (:1204), one build each:
+
+- lane-shared P (``shared_P=True``), when ``LinearKmpc.solve``
+  (``control/kmpc.py:492-522``) runs over a batch of lanes: the Mehrotra
+  loop against a host-equilibrated Hessian P / obj shared by every lane,
+  the banded A^T D A, cold duals;
+- per-lane P (``shared_P=False``, the ``KM_LANE_P`` build), when the
+  Hessian is batched with the rows lane-shared (the port's entry is
+  ``ops/qp.py:solve_qp``): each lane's P (n, n) scaled in-kernel by its
+  objective scale 1 / max |P|, the banded or dense A^T D A, cold or warm
+  duals.
+
+Both take lane-shared row-equilibrated constraints and per-lane gradient,
+right-hand side and primal start.  The kernel is compute-bound on the card
+(~3e4 operations per lane on ~0.7 KB of lane data at n=12, plus the
+per-lane P); see the note in the source.  The TPU kernel's factored mode
+is ``ops/kernels/ipm_factored.py``.
 
 ``ipm_shared`` takes the plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.  ``solve_qp_shared`` adds
 the JAX wrapper's equilibration and epilogue (objective scale, row scale,
-slack floor, ok mask, non-finite x to NaN, multipliers in original units).
+slack floor, dual start, ok mask, non-finite x to NaN, multipliers in
+original units).
 """
 
 from __future__ import annotations
@@ -51,12 +59,23 @@ class ConsStruct(ctypes.Structure):
         return cls(*(getattr(cons, k).data_ptr() for k, _ in cls._fields_))
 
 
+def _args_fields(lane_p: bool):
+    return ([("con", ConsStruct)]
+            + [(k, ctypes.c_void_p) for k in
+               ("Psh", "q", "b", "x0", "x", "s", "lam")
+               + (("iobj", "lam0") if lane_p else ())]
+            + [("B", ctypes.c_longlong), ("iters", ctypes.c_int),
+               ("slack_floor", ctypes.c_float)])
+
+
 class IpmSharedArgs(ctypes.Structure):
-    _fields_ = ([("con", ConsStruct)]
-                + [(k, ctypes.c_void_p) for k in
-                   ("Psh", "q", "b", "x0", "x", "s", "lam")]
-                + [("B", ctypes.c_longlong), ("iters", ctypes.c_int),
-                   ("slack_floor", ctypes.c_float)])
+    _fields_ = _args_fields(False)
+
+
+class IpmLanePArgs(ctypes.Structure):
+    """The arguments of a ``KM_LANE_P`` build: iobj and lam0 after lam."""
+
+    _fields_ = _args_fields(True)
 
 
 # above this many constraint rows the builds keep the loops over the rows
@@ -83,8 +102,11 @@ def cons_config(cons: Constraints) -> str:
     return cfg
 
 
-def kernel_spec(cons: Constraints) -> _build.KernelSpec:
-    return _build.KernelSpec(SOURCE, cons_config(cons))
+def kernel_spec(cons: Constraints, lane_p: bool = False) -> _build.KernelSpec:
+    """One build per constraint shape and Hessian mode (lane-shared, or
+    per lane with ``lane_p``)."""
+    return _build.KernelSpec(SOURCE, cons_config(cons) + (
+        _build.defines(KM_LANE_P=1) if lane_p else ""))
 
 
 def check_cuda_f32(*tensors):
@@ -103,25 +125,37 @@ def check_cuda_f32(*tensors):
 
 
 def ipm_shared_cuda(cons: Constraints, Psh, q, b, x0, iters: int,
-                    slack_floor: float):
+                    slack_floor: float, iobj=None, lam0=None):
     """Launch ``ipm_shared_kernel`` on the current stream; returns
-    (x, s, lam).  Counts its launches in ``ipm_shared_cuda.launches``."""
+    (x, s, lam).  Psh (n, n) is the equilibrated lane-shared Hessian, or
+    (n, n, B) the per-lane P with its objective scale iobj (B,) (the
+    ``KM_LANE_P`` build, which alone takes the equilibrated dual start
+    lam0 (mc, B)).  Counts its launches in ``ipm_shared_cuda.launches``."""
     n, mc = cons.n, cons.mc
     B = q.shape[1]
-    check_cuda_f32(q, Psh, b, x0, cons.A, cons.Wd, cons.Wo)
-    if Psh.shape != (n, n) or q.shape != (n, B) or b.shape != (mc, B) \
-            or x0.shape != (n, B):
+    lane_p = Psh.ndim == 3
+    check_cuda_f32(q, Psh, b, x0, cons.A, cons.Wd, cons.Wo,
+                   *[t for t in (iobj, lam0) if t is not None])
+    if Psh.shape != ((n, n, B) if lane_p else (n, n)) \
+            or q.shape != (n, B) or b.shape != (mc, B) \
+            or x0.shape != (n, B) \
+            or (iobj is None) == lane_p \
+            or (lane_p and iobj.shape != (B,)) \
+            or (lam0 is not None and (not lane_p or lam0.shape != (mc, B))):
         raise ValueError("ipm_shared: operand shapes do not match the QP")
-    lib = _build.load(kernel_spec(cons))
+    lib = _build.load(kernel_spec(cons, lane_p))
     x = torch.empty((n, B), dtype=q.dtype, device=q.device)
     s = torch.empty((mc, B), dtype=q.dtype, device=q.device)
     lam = torch.empty_like(s)
-    args = IpmSharedArgs(
-        ConsStruct.of(cons), Psh.data_ptr(), q.data_ptr(), b.data_ptr(),
-        x0.data_ptr(), x.data_ptr(), s.data_ptr(), lam.data_ptr(), B,
-        int(iters), float(slack_floor))
+    ptrs = (Psh.data_ptr(), q.data_ptr(), b.data_ptr(), x0.data_ptr(),
+            x.data_ptr(), s.data_ptr(), lam.data_ptr())
+    Args = IpmLanePArgs if lane_p else IpmSharedArgs
+    if lane_p:
+        ptrs += (iobj.data_ptr(), None if lam0 is None else lam0.data_ptr())
+    args = Args(ConsStruct.of(cons), *ptrs, B, int(iters),
+                float(slack_floor))
     fn = lib.km_ipm_shared
-    fn.argtypes = [ctypes.POINTER(IpmSharedArgs), ctypes.c_void_p]
+    fn.argtypes = [ctypes.POINTER(Args), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     rc = fn(ctypes.byref(args),
             torch.cuda.current_stream(q.device).cuda_stream)
@@ -136,41 +170,58 @@ ipm_shared_cuda.launches = 0
 
 
 def ipm_shared_plain(cons: Constraints, Psh, q, b, x0, iters: int,
-                     slack_floor: float):
+                     slack_floor: float, iobj=None, lam0=None):
     """Plain PyTorch version of the kernel: (x, s, lam)."""
     c = qp_constants(q.dtype)
-    Pr = Psh + c.reg * torch.eye(cons.n, dtype=q.dtype, device=q.device)
-    return mehrotra_loop(cons, iters, slack_floor, Pr, q, b, x0,
-                         torch.ones_like(b), c.mu_floor)
+    eye = torch.eye(cons.n, dtype=q.dtype, device=q.device)
+    if Psh.ndim == 2:
+        Pr = Psh + c.reg * eye
+    else:
+        Pr = Psh * iobj + c.reg * eye[..., None]
+    lam = torch.ones_like(b) if lam0 is None \
+        else torch.sqrt(torch.clamp(lam0, 1e-4, 1e4))
+    return mehrotra_loop(cons, iters, slack_floor, Pr, q, b, x0, lam,
+                         c.mu_floor)
 
 
 def ipm_shared(cons: Constraints, Psh, q, b, x0, iters: int,
-               slack_floor: float):
+               slack_floor: float, iobj=None, lam0=None):
     """The kernel for CUDA tensors, the plain version for CPU tensors."""
-    if q.is_cuda:
-        return ipm_shared_cuda(cons, Psh, q, b, x0, iters, slack_floor)
-    return ipm_shared_plain(cons, Psh, q, b, x0, iters, slack_floor)
+    fn = ipm_shared_cuda if q.is_cuda else ipm_shared_plain
+    return fn(cons, Psh, q, b, x0, iters, slack_floor, iobj, lam0)
 
 
 def solve_qp_shared(P, q, cons: Constraints, b,
                     x0: Optional[torch.Tensor] = None,
-                    iters: int = 10) -> QPSolution:
-    """Batched QP min 1/2 x'Px + q'x s.t. A x <= b with P (n, n) and A
-    shared by every lane (``solve_qp_shared_batched(shared_P=True)``,
-    qp_ipm.py:411-560), lanes-minor: q (n, B) and b (mc, B) in original
-    units, ``cons`` the row-equilibrated A, x0 (n, B) the primal start
-    (None: zeros with the cold slack floor 1).  Duals start cold."""
-    obj = torch.clamp(P.abs().amax(), min=1e-8)
+                    iters: int = 10,
+                    lam0: Optional[torch.Tensor] = None) -> QPSolution:
+    """Batched QP min 1/2 x'Px + q'x s.t. A x <= b with A shared by every
+    lane (``solve_qp_shared_batched``, qp_ipm.py:411-560), lanes-minor:
+    P (n, n) shared by every lane (``shared_P=True``) or (n, n, B) per
+    lane (``shared_P=False``), q (n, B) and b (mc, B) in original units,
+    ``cons`` the row-equilibrated A, x0 (n, B) the primal start (None:
+    zeros with the cold slack floor 1), lam0 (mc, B) multipliers in
+    original units (None: cold lam = 1; per-lane P only)."""
+    lane_p = P.ndim == 3
+    if lam0 is not None and not lane_p:
+        raise NotImplementedError("warm duals with a lane-shared Hessian "
+                                  "are not ported")
+    obj = torch.clamp(P.abs().amax((0, 1)), min=1e-8)
     iobj = 1.0 / obj
     slack_floor = 1.0 if x0 is None else 1e-2
     if x0 is None:
         x0 = torch.zeros_like(q)
-    b_eq = (b / cons.row[:, None]).contiguous()
-    x, s, lam = ipm_shared(cons, (P * iobj).contiguous(),
-                           (q * iobj).contiguous(), b_eq, x0.contiguous(),
-                           iters, slack_floor)
+    row = cons.row[:, None]
+    b_eq = (b / row).contiguous()
+    if lane_p:
+        Pk, ik = P.contiguous(), iobj.contiguous()
+        lam0_eq = None if lam0 is None else (lam0 * row * iobj).contiguous()
+    else:
+        Pk, ik, lam0_eq = (P * iobj).contiguous(), None, None
+    x, s, lam = ipm_shared(cons, Pk, (q * iobj).contiguous(), b_eq,
+                           x0.contiguous(), iters, slack_floor, ik, lam0_eq)
     c = qp_constants(q.dtype)
     ok, gap = ok_mask(cons, b_eq, x, s, lam, c.tol, c.gap_sane)
     finite = torch.isfinite(x).all(0)
     x = torch.where(finite, x, torch.full_like(x, float("nan")))
-    return QPSolution(x=x, lam=lam * obj / cons.row[:, None], ok=ok, gap=gap)
+    return QPSolution(x=x, lam=lam * obj / row, ok=ok, gap=gap)

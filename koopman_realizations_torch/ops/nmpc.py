@@ -7,7 +7,9 @@ dynamics F (``_eval_F_rows``, ``ops/pallas/qp_ipm.py:1397``;
 (``_stage_jacs_xla``, ``ops/qp.py:849``; ``_stage_lin``,
 ``control/kmpc.py:1277``), the defects, the sensitivity condensation and
 W/v assembly (``_nmpc_condense_core``, qp_ipm.py:1082;
-``_nmpc_condense_assemble``, ops/qp.py:539), the nonlinear rollout and its
+``_nmpc_condense_assemble``, ops/qp.py:539), the linearized dynamics'
+state sequence (the 'linear' between-pass update, control/kmpc.py:
+1599-1612), the nonlinear rollout and its
 merit (``NonlinearKmpc._rollout_full`` / ``_cost_from_Z``,
 control/kmpc.py:1626-1646) and the three kinds of SQP solve the kernels
 run: one pass from shipped stage Jacobians (``_nmpc_kernel``,
@@ -275,6 +277,28 @@ def condense(qp: NmpcQP, Jt, cv, zeta, up, sqRef):
             S[:, c0:c0 + m] += Jt[k, nz:].transpose(0, 1)
             s = torch.einsum("iob,ib->ob", Jt[k, :nz], s) + cv[k]
     return torch.cat(W_rows), torch.cat(v_rows)
+
+
+def linear_rollout(qp: NmpcQP, Jt, cv, zeta, U, Sel=None):
+    """The state sequence of a pass's linearized dynamics under the plan U
+    (Np*m, B): z_0 = zeta, z_{k+1} = Jz_k z_k + Ju_k u_k + cv_k with stage
+    k's input u_k taken from Uvec = [U_0; Sel U[m:]] at the stage's
+    decision column (``Sel`` None: U[m:] as it is); returns
+    [z_0 .. z_{Np-1}] (Np, nz, B), the next pass's linearization
+    trajectory of the 'linear' between-pass update.  Equal by construction
+    to the explicit condensation's (sz + Sz Uvec)[:-1] with the full
+    nz-row sensitivity stack (``_condense_inner`` with keep = nz,
+    control/kmpc.py:1238-1275, 1599-1612), without storing the
+    (Np+1, nz, nU, B) stack."""
+    nz, m = qp.nz, qp.m
+    Uv = torch.cat([U[:m], U[m:] if Sel is None else Sel @ U[m:]])
+    Z = [zeta]
+    for k in range(qp.Np - 1):
+        c0 = qp.cols[k]
+        Z.append(torch.einsum("iob,ib->ob", Jt[k, :nz], Z[-1])
+                 + torch.einsum("job,jb->ob", Jt[k, nz:], Uv[c0:c0 + m])
+                 + cv[k])
+    return torch.stack(Z)
 
 
 # ------------------------------------------------------------ solves

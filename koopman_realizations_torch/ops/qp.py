@@ -17,6 +17,9 @@ of the JAX package (``ops/pallas/qp_ipm.py``):
 - ``mehrotra_loop``  <- ``_mehrotra_loop``       (:236-296)
 - ``ok_mask``        <- the solve epilogue (qp_ipm.py:986-995; in-kernel
   at step_fused.py:137-141)
+- ``solve_qp``       <- ``solve_qp(..., shared_A=True)`` under vmap
+  (ops/qp.py:85-157, 1204-1252): the shared-A entry, routed to the
+  lane-shared or per-lane Hessian mode of ``ops/kernels/ipm_shared.py``
 
 The interior point takes its lane-shared constraint rows as a
 ``Constraints`` (row-equilibrated A and its banded or dense A^T D A
@@ -433,17 +436,21 @@ def ok_mask(cons: Constraints, b, x, s, lam, tol: float, gap_sane: float):
 
 
 def factored_core(cons: Constraints, Wf, v, rdiag, b, x0, lam0_row,
-                  iters: int, slack_floor: float):
+                  iters: int, slack_floor: float, q0=None):
     """Gram + obj scale + dual start + Mehrotra of the factored QP for
     lanes-minor Wf (p*n, B), v (p, B), b (mc, B) and x0 (n, B), the
     plain version of the kernels' factored tail.
 
     ``lam0_row``: dual start in row-equilibrated units (mc, B), damped
     here to sqrt(clip(lam0_row / obj, 1e-4, 1e4)), or None for the cold
-    start lam = 1.  Returns (x, s, lam, obj).
+    start lam = 1.  ``q0`` (n, B): an additive linear term in original
+    units, q = 2 W^T v + q0 before the objective scale (qp_ipm.py:355-359),
+    or None.  Returns (x, s, lam, obj).
     """
     c = qp_constants(v.dtype)
     P, qv = factored_gram(Wf, v, rdiag, v.shape[0], cons.n)
+    if q0 is not None:
+        qv = qv + q0
     obj = diag_obj_scale(P)
     iobj = 1.0 / obj
     eye = torch.eye(cons.n, dtype=P.dtype, device=P.device)[..., None]
@@ -456,6 +463,26 @@ def factored_core(cons: Constraints, Wf, v, rdiag, b, x0, lam0_row,
     x, s, lam = mehrotra_loop(cons, iters, slack_floor, Pr, q, b, x0,
                               lam0, c.mu_floor)
     return x, s, lam, obj
+
+
+def solve_qp(P, q, cons: Constraints, b, iters: int = 25,
+             x0: Optional[torch.Tensor] = None,
+             lam0: Optional[torch.Tensor] = None) -> QPSolution:
+    """Batched interior-point solve of min 1/2 x'Px + q'x s.t. A x <= b
+    with the constraint rows shared by every lane (``solve_qp(...,
+    shared_A=True)`` of the JAX package under vmap, ``ops/qp.py:85-157``),
+    lanes-minor: P (n, n) shared by every lane or (n, n, B) per lane, q
+    (n, B) and b (mc, B) in original units, ``cons`` the row-equilibrated
+    A, x0 (n, B) the primal start (None: zeros, cold), lam0 (mc, B)
+    multipliers in original units (None: cold).  As
+    ``_pallas_routed_solver`` (:1204-1252) passes ``shared_P=not Pb``, a
+    2-D P takes the lane-shared mode of ``ops/kernels/ipm_shared.py`` and a
+    per-lane P its per-lane mode: on the card the ``ipm_shared`` kernel's
+    two builds, on the CPU their plain versions."""
+    from koopman_realizations_torch.ops.kernels.ipm_shared import (
+        solve_qp_shared,
+    )
+    return solve_qp_shared(P, q, cons, b, x0=x0, iters=iters, lam0=lam0)
 
 
 def qp_core_plain(qp: LiftQP, zeta, up, sqYr, x0, lam0_row, iters: int,

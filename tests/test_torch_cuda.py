@@ -21,6 +21,7 @@ from koopman_realizations_torch.control.kmpc import (
 from koopman_realizations_torch.control.ksim import Ksim
 from koopman_realizations_torch.models.arm import Arm
 from koopman_realizations_torch.ops.kernels import _build
+from koopman_realizations_torch.ops.kernels import batch_chol as BC
 from koopman_realizations_torch.ops.kernels import bilin as BI
 from koopman_realizations_torch.ops.kernels import ipm_factored as IF
 from koopman_realizations_torch.ops.kernels import ipm_shared as IS
@@ -603,6 +604,212 @@ def test_bilinear_route_runners_on_card_track(gpu_routes, route):
     assert BI.bilin_cuda.launches == (300 if sim.mpc.blocked else 0)
     assert IF.ipm_factored_cuda.launches == 300
     assert bilin_lift_cuda.launches == 0
+    assert out["alive"][:, -1].float().mean().item() == ref["alive"]
+    err = lane_tracking_error(out["Yp"], blockM_reference())
+    assert abs(err.mean().item() - ref["err_mean"]) < 1e-3, err.mean()
+
+
+@pytest.fixture(scope="module")
+def gpu_sqp_linear():
+    """The SQP NMPC with the 'linear' between-pass update, f32 and f64,
+    the q0 build of ipm_factored, the per-lane-P builds of ipm_shared
+    (n=12 banded; n=27 banded, the unblocked route's constraints) and the
+    batch_chol builds (n=12, n=27)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, scaler, _ = load_model(NONLINEAR_MODEL)
+    cfg = MpcConfig(**NMPC, sqp_update="linear")
+    mpc = NonlinearKmpc(model, scaler, cfg, device="cuda")
+    mpc64 = NonlinearKmpc(model, scaler, cfg, device="cuda",
+                          dtype=torch.float64)
+    sim = Ksim(Arm(ArmConfig(**ARM), device="cuda"), mpc)
+    bmodel, bscaler, _ = load_model()
+    ucfg = MpcConfig(**{**MPC, **ROUTES["unblocked"]})
+    unb = BilinearKmpc(bmodel, bscaler, ucfg, device="cuda")
+    unb64 = BilinearKmpc(bmodel, bscaler, ucfg, device="cuda",
+                         dtype=torch.float64)
+    cons = mpc.constraints()
+    specs = [IF.kernel_spec(cons, mpc.nmpc_qp().p, q0=True),
+             IS.kernel_spec(cons, lane_p=True),
+             IS.kernel_spec(unb.constraints(), lane_p=True),
+             BC.kernel_spec(12), BC.kernel_spec(27)]
+    for r in _build.build_all(specs):
+        print(r.path.name, f"{r.seconds:.1f}s", *r.ptxas, sep="\n  ")
+    return sim, mpc64, unb, unb64
+
+
+def _linear_pass_qp(mpc, zeta, up, sq):
+    """The second pass's factored QP of the 'linear' update at these lanes
+    (the first pass from the held plan, its plan's linearized state
+    sequence as the second pass's trajectory): the ``ipm_factored``
+    arguments (cons, rdiag, W, v, b / row, x0) and q0, the first pass's
+    multipliers in row units, and b in original units."""
+    m, Np = mpc.m, mpc.Np
+    rho = mpc.cfg.sqp_damping
+    qp = mpc.nmpc_qp(mpc.RdT_t + rho * mpc.bsizes_t)
+    cons = mpc.constraints()
+    b = mpc.cF_t[:, None] - mpc.F0_t @ up
+    Ul = up.repeat(Np, 1)
+    Zl = zeta.expand((Np,) + zeta.shape)
+    for it in range(2):
+        Jt, cv = N.stage_lin(qp, Zl, Ul)
+        W, v = N.condense(qp, Jt, cv, zeta, up, sq)
+        x0 = mpc.Sel_t @ Ul[m:]
+        q0 = -2.0 * rho * (mpc.Tb_t.T @ Ul[m:])
+        if it == 1:
+            row = cons.row[:, None]
+            return dict(args=(cons, qp.rdiag, W.contiguous(),
+                              v.contiguous(), (b / row).contiguous(),
+                              x0.contiguous()),
+                        q0=q0.contiguous(), b=b,
+                        lam0=(sol.lam * row).contiguous())
+        sol = IF.solve_qp_factored(W, v, qp.rdiag, cons, b, x0=x0,
+                                   iters=mpc.cfg.qp_iters, q0=q0)
+        U = mpc.plan(up, sol.x)
+        Zl = N.linear_rollout(qp, Jt, cv, zeta, U, mpc.Sel_t)
+        Ul = U
+
+
+def _linear_lanes(gpu_sqp_linear, B):
+    """The 'linear' update's second-pass QPs (``_linear_pass_qp``) of B
+    closed-loop lanes with per-lane windows, as the f32 controller forms
+    them on the card, and the same data in f64 with the f64 controller's
+    constraints and costs."""
+    sim, mpc64 = gpu_sqp_linear[:2]
+    zeta, up, win = _nmpc_lanes(sim, B, 3)
+    sq = win[3 + torch.arange(B, device="cuda") % 8].T.contiguous()
+    d = _linear_pass_qp(sim.mpc, zeta, up, sq)
+    cons64 = mpc64.constraints()
+    rd64 = mpc64.RdT_t + mpc64.cfg.sqp_damping * mpc64.bsizes_t
+    d64 = {k: d[k].double() for k in ("q0", "b", "lam0")}
+    d64["args"] = (cons64, rd64) + tuple(t.double()
+                                         for t in d["args"][2:])
+    return {torch.float32: d, torch.float64: d64}
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_ipm_factored_q0_kernel_matches_plain(gpu_sqp_linear, warm):
+    """The q0 build on the 'linear' update's second-pass QPs of 1000
+    closed-loop lanes (per-lane windows), cold or with the first pass's
+    multipliers: kernel against plain f32, both against plain f64."""
+    sim = gpu_sqp_linear[0]
+    ins = {dt: d["args"] + (d["lam0"] if warm else None,
+                            sim.mpc.cfg.qp_iters, 1e-2, d["q0"])
+           for dt, d in _linear_lanes(gpu_sqp_linear, 1000).items()}
+    xk, sk, lk, objk = IF.ipm_factored_cuda(*ins[torch.float32])
+    torch.cuda.synchronize()
+    xp, sp, lp, objp = IF.ipm_factored_plain(*ins[torch.float32])
+    x64 = IF.ipm_factored_plain(*ins[torch.float64])[0]
+    cons, b = ins[torch.float32][0], ins[torch.float32][4]
+    _hold_to_f64(xk, xp, x64, ok_mask(cons, b, xk, sk, lk, 3e-3, 5e-2)[0],
+                 ok_mask(cons, b, xp, sp, lp, 3e-3, 5e-2)[0])
+    assert torch.allclose(objk, objp, rtol=1e-5)
+
+
+def _dense_qp(W, v, rdiag, q0):
+    """P = 2 (W^T W + diag r) (n, n, B) and q = 2 W^T v + q0 (n, B)."""
+    P = 2.0 * (torch.einsum("rib,rjb->ijb", W, W)
+               + torch.diag(rdiag)[..., None])
+    return P.contiguous(), (2.0 * torch.einsum("rib,rb->ib", W, v)
+                            + q0).contiguous()
+
+
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("shape", ["linear", "unblocked"])
+def test_ipm_shared_lane_p_kernel_matches_plain(gpu_sqp_linear, shape,
+                                                warm):
+    """The per-lane-P build on dense P = 2 (W^T W + diag r) and
+    q = 2 W^T v + q0 of the 'linear' update's QPs (n=12, mc=48) or of the
+    unblocked bilinear route's (n=27, mc=108; q0 = 0), 1000 closed-loop
+    lanes: kernel against plain f32, both against plain f64, through the
+    wrapper's equilibration; cold or with warm duals."""
+    sim, mpc64, unb, unb64 = gpu_sqp_linear
+    out = {}
+    if shape == "linear":
+        for dt, d in _linear_lanes(gpu_sqp_linear, 1000).items():
+            cons, rd, W, v, b, x0 = d["args"]
+            out[dt] = (cons, rd, W, v, b, x0, d["q0"], d["lam0"])
+    else:
+        z, up, U, lam, win = _route_lanes(Ksim(sim.plant, unb), 1000, 3)
+        for m in (unb, unb64):
+            dt, c = m.dtype, m.constraints()
+            W, v = m.factored_data(z.to(dt), up.to(dt), win[3].to(dt),
+                                   None)
+            b = (m.cF_t[:, None] - m.F0_t @ up.to(dt)) / c.row[:, None]
+            x0 = m.warm_start(U.to(dt))
+            out[dt] = (c, m.rdiag, W, v, b, x0, torch.zeros_like(x0),
+                       lam.to(dt) * c.row[:, None])
+    for dt, (c, rd, W, v, b, x0, q0, lam_row) in out.items():
+        P, q = _dense_qp(W, v, rd, q0)
+        iobj = 1.0 / P.abs().amax((0, 1))
+        out[dt] = (c, P, (q * iobj).contiguous(), b, x0.contiguous(), 8,
+                   1e-2, iobj.contiguous(),
+                   (lam_row * iobj).contiguous() if warm else None)
+    a32 = out[torch.float32]
+    xk, sk, lk = IS.ipm_shared_cuda(*a32)
+    torch.cuda.synchronize()
+    xp, sp, lp = IS.ipm_shared_plain(*a32)
+    x64 = IS.ipm_shared_plain(*out[torch.float64])[0]
+    b = a32[3]
+    _hold_to_f64(xk, xp, x64, ok_mask(a32[0], b, xk, sk, lk, 3e-3, 5e-2)[0],
+                 ok_mask(a32[0], b, xp, sp, lp, 3e-3, 5e-2)[0])
+
+
+@pytest.mark.parametrize("n", [12, 27])
+def test_batch_chol_kernel_matches_plain(gpu_sqp_linear, n):
+    """The batched SPD solve on the dense Hessians P = 2 (W^T W + diag r)
+    of closed-loop QPs (n=12: the 'linear' update's; n=27: random SPD
+    systems of the JAX test's recipe), B=1000 (not a block multiple):
+    kernel against plain f32, both against plain f64, relative to the
+    solution's scale."""
+    if n == 12:
+        d = _linear_lanes(gpu_sqp_linear, 1000)[torch.float64]
+        _, rd, W, v = d["args"][:4]
+        P, q = _dense_qp(W, v, rd, d["q0"])
+        M, b = P.permute(2, 0, 1), q.T
+    else:
+        rng = np.random.default_rng(0)
+        G = rng.standard_normal((1000, n, n))
+        M = torch.as_tensor(G @ G.transpose(0, 2, 1) + n * np.eye(n),
+                            device="cuda")
+        b = torch.as_tensor(rng.standard_normal((1000, n)), device="cuda")
+    M32, b32 = M.float().contiguous(), b.float().contiguous()
+    before = BC.solve_spd_cuda.launches
+    xk = BC.solve_spd(M32, b32)
+    torch.cuda.synchronize()
+    assert BC.solve_spd_cuda.launches == before + 1
+    xp = BC.solve_spd_plain(M32, b32)
+    x64 = BC.solve_spd_plain(M.double(), b.double())
+    scale = x64.abs().amax(1)
+    ek = ((xk.double() - x64).abs().amax(1) / scale).max()
+    ep = ((xp.double() - x64).abs().amax(1) / scale).max()
+    assert ek <= 2 * ep + 1e-6, (ek, ep)
+    torch.testing.assert_close(xk, xp, rtol=0,
+                               atol=1e-3 * x64.abs().max().item())
+
+
+def test_linear_update_runner_on_card_tracks(gpu_sqp_linear):
+    """The general runner on the 'linear' route through the q0 build,
+    B=16 over 301 steps, five ipm_factored launches a step and no other
+    NMPC kernel, against the JAX general runner's err_mean and alive
+    (assets/nmpc_regime_refs.json)."""
+    import json
+
+    from koopman_realizations_torch.utils.checkpoint import ASSETS
+    sim = gpu_sqp_linear[0]
+    ref = json.loads((ASSETS / "nmpc_regime_refs.json").read_text())[
+        "regimes"]["linear_update"]
+    B = 16
+    X0 = np.zeros((B, 6), np.float32)
+    X0[:, 0] = np.linspace(-0.2, 0.2, B)
+    ws = (IF.ipm_factored_cuda, NM.nmpc_multipass_cuda, NS.nmpc_stage_cuda,
+          NP.nmpc_pass_cuda)
+    for w in ws:
+        w.launches = 0
+    out = sim.batched_runner(blockM_reference(), steps=301)(
+        X0, np.zeros((B, 2), np.float32))
+    assert [w.launches for w in ws] == [300 * 5, 0, 0, 0]
     assert out["alive"][:, -1].float().mean().item() == ref["alive"]
     err = lane_tracking_error(out["Yp"], blockM_reference())
     assert abs(err.mean().item() - ref["err_mean"]) < 1e-3, err.mean()

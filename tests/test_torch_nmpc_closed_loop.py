@@ -87,13 +87,14 @@ def test_nmpc_has_no_fused_step():
 
 
 @pytest.mark.parametrize("extra", [
-    dict(sqp_update="linear"), dict(state_bounds=(-1.0, 1.0)),
-    dict(input_blocks=None), dict(qp_dual_shift=True)])
+    dict(sqp_update="linear", input_blocks=None),
+    dict(state_bounds=(-1.0, 1.0)), dict(input_blocks=None),
+    dict(qp_dual_shift=True), dict(sqp_iters=0)])
 def test_nmpc_refuses_unported_regimes(extra):
-    """The regimes the port does not run raise: the 'linear' between-pass
-    update, state bounds, unblocked stacks and the dual shift (the SQP
-    knobs off the multipass route construct:
-    ``test_torch_nmpc_regimes.py``)."""
+    """The regimes the port does not run raise: state bounds, unblocked
+    stacks (with the 'linear' between-pass update too), the dual shift and
+    no SQP pass (the SQP knobs off the multipass route construct:
+    ``test_torch_nmpc_regimes.py``, ``test_torch_nmpc_linear.py``)."""
     model, scaler, _ = load_model(NONLINEAR_MODEL)
     with pytest.raises(NotImplementedError):
         NonlinearKmpc(model, scaler, MpcConfig(**{**NMPC_MPC, **extra}),

@@ -16,8 +16,9 @@ file that ``chip_smoke.py`` holds the card to.
     on; no Levenberg term where rho is 0.
 (c) ``assets/nmpc_regime_refs.json`` (``python tests/test_torch_oracle.py
     --write-regime-refs``): its regimes and configurations are the ones
-    ``chip_smoke.py`` runs, and the JAX runner kept every lane alive in
-    each.
+    ``chip_smoke.py`` runs, each on its route, and the JAX runner kept
+    every lane alive in each.  The 'linear' update's regimes are in
+    ``test_torch_nmpc_linear.py``.
 """
 
 import dataclasses
@@ -53,7 +54,8 @@ import chip_smoke  # noqa: E402  (the repository root, on the path above)
 B = 8
 
 STAGE_REGIMES = {
-    **{k: v for k, v in NMPC_REGIMES.items() if "sqp_jac_period" not in v},
+    **{k: v for k, v in NMPC_REGIMES.items()
+       if "sqp_jac_period" not in v and "sqp_update" not in v},
     "dual_warm_decay": dict(sqp_dual_warm=True, sqp_damping=0.3,
                             sqp_damping_decay=0.5),
     "rollout_init_dual_warm": dict(sqp_init="rollout", sqp_dual_warm=True),
@@ -193,6 +195,7 @@ def test_regime_refs_match_the_configs_chip_smoke_runs():
         assert entry["alive"] == 1.0 and 0.02 < entry["err_mean"] < 0.03
         route = _controller(**knobs).route
         assert route == ("chord" if "sqp_jac_period" in knobs else
+                         "linear" if "sqp_update" in knobs else
                          "multipass" if knobs == dict(sqp_multistart=True)
                          else "stage")
     for name in chip_smoke.FULL_REGIMES:

@@ -85,8 +85,12 @@ LINEAR_MPC = dict(BENCH_MPC, qp_iters=6, qp_dual_warm=False)
 # (5 passes, damping 0.05, 'hold' first pass)
 NMPC_MPC = dict(BENCH_MPC, qp_iters=8, qp_dual_warm=False)
 # the SQP regimes that leave the multipass route, each on top of NMPC_MPC:
-# the six single knobs and the line search with best-of-passes, with the
-# values the JAX package pins (tests/test_closed_loop.py:270-283)
+# the six single knobs and the line search with best-of-passes, and the
+# 'linear' between-pass update alone and with best-of-passes, with the
+# values the JAX package pins (tests/test_closed_loop.py:270-283).  The
+# JAX general runner (x64, CPU, B=16 x 301 blockM steps) keeps every lane
+# of the 'linear' update from qp_iters=4 on (0.875 alive at 3), with
+# best-of-passes from 3 on; they run at NMPC_MPC's 8.
 NMPC_REGIMES = {
     "dual_warm": dict(sqp_dual_warm=True),
     "damping_decay": dict(sqp_damping=0.3, sqp_damping_decay=0.5),
@@ -95,6 +99,8 @@ NMPC_REGIMES = {
     "multistart": dict(sqp_multistart=True),
     "jac_period": dict(sqp_jac_period=2),
     "linesearch_best": dict(sqp_linesearch=2, sqp_best_of_passes=True),
+    "linear_update": dict(sqp_update="linear"),
+    "linear_update_best": dict(sqp_update="linear", sqp_best_of_passes=True),
 }
 REGIME_REFS = ASSETS / "nmpc_regime_refs.json"
 # the bilinear controller off the lift-fused route, each on top of
