@@ -5,7 +5,7 @@ the CUDA toolkit:
 
     python chip_smoke.py
 
-It builds the nine CUDA kernels of the three closed loops from ``csrc/``
+It builds the ten CUDA kernels of the three closed loops from ``csrc/``
 (one nvcc per build, all in parallel) and holds each against its plain
 PyTorch version on the card.  For the bilinear bench controller and the
 linear one it checks the fused loop's tracking quality against the JAX
@@ -25,7 +25,9 @@ lanes, the B=16 quality of the configurations of
 relinearization and the unblocked stack at B=65536, the kernels' times.
 Each main path runs with the launch counts set to 0 just before and read
 just after; every kernel is timed at its path's shapes next to its bound
-and its plain version.
+and its plain version.  Phase P profiles a few steps each of the
+unblocked route and the NMPC multipass route with ``torch.profiler``:
+device time by kernel and the device's idle share.
 It prints
 the card's name and power limit, one JSON line with every kernel's
 launches, error, times and bound, and as the last line
@@ -1254,6 +1256,55 @@ def main() -> int:
         raise AssertionError(f"NMPC regime {LINEAR_REGIME} lost lanes")
     lin_main = counts["ipm_factored"]
     del gout
+
+    # ---- phase P: a short torch.profiler window (5 steps at B=65536)
+    # on the unblocked route and on the NMPC multipass route: device time
+    # by kernel and the device's idle share
+    def profile_window(label, run):
+        """Profile ``run`` (a few steps of a main path): each kernel's
+        device time, and the idle share 1 - busy / window with busy the
+        summed device time of the window's kernels and copies (one
+        stream) and the window timed by CUDA events.  The profiler's own
+        host overhead is in the window, so the idle share is an upper
+        bound.  Without device time from the profiler it says so and
+        reports the window alone."""
+        from torch.profiler import ProfilerActivity, profile
+        run()                                          # warm-up
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0.record()
+            run()
+            t1.record()
+            torch.cuda.synchronize()
+        window = t0.elapsed_time(t1)
+        by = {}
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+            by[e.key] = by.get(e.key, 0.0) + us / 1e3
+        busy = sum(by.values())
+        if busy <= 0.0:
+            log(f"profile {label}: the profiler recorded no device time; "
+                f"window {window:.3f} ms (CUDA events), by kernel not "
+                f"measured | {smi}")
+            return
+        top = sorted(by.items(), key=lambda kv: -kv[1])[:8]
+        log(f"profile {label}: window {window:.3f} ms, device busy "
+            f"{busy:.3f} ms, idle share {1.0 - busy / window:.4f}; by "
+            f"kernel: " + "; ".join(f"{k[:60]} {v:.3f} ms "
+                                    f"({100 * v / busy:.1f} %)"
+                                    for k, v in top) + f" | {smi}")
+
+    for label, s_ in (("unblocked route", Ksim(arm, rmpcs["unblocked"])),
+                      ("NMPC multipass route", nsim)):
+        prun = s_.batched_runner(ref, steps=6)
+        profile_window(f"{label}, B={B_GENERAL}, 5 steps",
+                       lambda: prun(XG, WG))
 
     # ---- phases 6, L6: each kernel against its plain version, and its
     # time, at its path's shapes

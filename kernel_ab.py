@@ -1,0 +1,598 @@
+"""Kernel times of two trees of the port on one card, in turns.
+
+    python kernel_ab.py --parent DIR [--out F]
+
+DIR is another tree of the repository (for example the parent commit,
+unpacked with ``git archive`` into a git-ignored directory).  The script
+makes every kernel's inputs once, in this tree, on closed-loop lanes of
+each kernel's main path at its full width (B=65536; the fused steps
+B=262144 from the bench's initial states), saves them, and then times
+every kernel in four processes -- DIR, this tree, this tree, DIR -- each
+building its kernels from its own sources.  Each process also prints the
+``ptxas -v`` lines of its builds.  In this tree it times the
+cooperative interior point's builds (``ipm_factored``'s four,
+``nmpc_multipass``) at other group sizes and launch bounds than their
+plans' (``ops/kernels/ipm_group.py``), and the redesigned kernels
+without their interior-point iterations.  Two more processes, DIR and
+this tree, build the redesigned kernels with ``-fmad=false`` (no
+contraction of a multiply and an add into an FMA) and compare their
+outputs.  For each ``ipm_factored`` build it then holds both trees'
+kernels and plain f32 against plain f64 on the same lanes: the median
+and p99 per-lane distances, the lanes beyond 1e-4 / 1e-3 / 1e-2, how
+often a 1024-lane subset fails the p99 gate of the card tests (within
+twice plain f32's plus 1e-5), and how degenerate the farthest lanes are
+(the f64 solution's smallest max(s, lam) over the rows).  Times are
+CUDA-event means over repeated launches (ms), printed as one JSON line
+per process and as a table; every line carries the card's name and
+power limit.  Needs one CUDA card; imports neither JAX nor the JAX
+package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+# the bench configuration, the three controllers, the plant, the
+# bilinear routes and the 'linear' update (chip_smoke.py); this tree's
+# chip_smoke.py also in the other tree's processes
+from chip_smoke import (
+    ARM,
+    LINEAR_MPC,
+    LINEAR_REGIME,
+    MPC,
+    NMPC_MPC,
+    ROUTE_REFS,
+    cuda_ms,
+    regime_configs,
+    smi_line,
+)
+
+HERE = Path(__file__).resolve().parent
+B_FULL, B_STEP, SEED_STEPS = 65536, 262144, 3
+# the interior point's alternatives: (build, group sizes, blocks an SM)
+FACTORED_VARIANTS = (("iters2", (8, 16, 32), (0,)),
+                     ("q0", (8, 16, 32), (0,)),
+                     ("unblocked", (16, 32), (0, 2, 3)),
+                     ("unblocked_smooth", (16, 32), (0, 2, 3)))
+NMPC_VARIANTS = ((4, (4,)), (8, (0, 3, 4, 5)), (16, (4,)))
+# the card tests' p99 gate is taken over ~1000 lanes
+SUBSET = 1024
+
+
+class Setup:
+    """Models, controllers and plant on the card (the same in either
+    tree: made from the committed assets, no kernel involved)."""
+
+    def __init__(self):
+        import torch
+
+        from koopman_realizations_torch.config import ArmConfig, MpcConfig
+        from koopman_realizations_torch.control.kmpc import (
+            BilinearKmpc,
+            LinearKmpc,
+            NonlinearKmpc,
+        )
+        from koopman_realizations_torch.control.ksim import Ksim
+        from koopman_realizations_torch.models.arm import Arm
+        from koopman_realizations_torch.utils.checkpoint import (
+            LINEAR_MODEL,
+            NONLINEAR_MODEL,
+            load_model,
+        )
+        from koopman_realizations_torch.utils.trajectories import (
+            blockM_reference,
+        )
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = self.dev = torch.device("cuda")
+        model, self.scaler, _ = load_model()
+        lmodel, self.lscaler, _ = load_model(LINEAR_MODEL)
+        nmodel, self.nscaler, _ = load_model(NONLINEAR_MODEL)
+        self.arm = Arm(ArmConfig(**ARM), device=dev)
+        self.mpc = BilinearKmpc(model, self.scaler, MpcConfig(**MPC),
+                                device=dev)
+        self.lmpc = LinearKmpc(lmodel, self.lscaler,
+                               MpcConfig(**LINEAR_MPC), device=dev)
+        self.nmpc = NonlinearKmpc(nmodel, self.nscaler,
+                                  MpcConfig(**NMPC_MPC), device=dev)
+        qcfg = MpcConfig(**regime_configs()[LINEAR_REGIME])
+        self.qmpc = NonlinearKmpc(nmodel, self.nscaler, qcfg, device=dev)
+        routes = json.loads(ROUTE_REFS.read_text())["regimes"]
+        self.routes = {name: BilinearKmpc(model, self.scaler, MpcConfig(
+            **{**MPC, **entry["knobs"]}), device=dev)
+            for name, entry in routes.items()}
+        self.ref = blockM_reference()
+        self.sim = Ksim(self.arm, self.mpc)
+        self.lsim = Ksim(self.arm, self.lmpc)
+        self.nsim = Ksim(self.arm, self.nmpc)
+        self.wins = self.sim.reference_windows(self.ref, 8)
+        self.nwins = self.nsim.reference_windows(self.ref, 8)
+
+    def spread(self, B):
+        import numpy as np
+        X0 = np.zeros((B, 6), np.float32)
+        X0[:, 0] = np.linspace(-0.2, 0.2, B)
+        return X0, np.zeros((B, 2), np.float32)
+
+
+# ------------------------------------------------------------------ inputs
+
+
+def make_inputs(S: Setup) -> dict:
+    """Every kernel's saved arguments on closed-loop lanes (B_FULL)."""
+    import torch
+
+    from koopman_realizations_torch.ops import nmpc as N
+    dev, B = S.dev, B_FULL
+    out = {}
+
+    def start(ctl, scaler, B):
+        x = torch.as_tensor(S.spread(B)[0], device=dev).T.contiguous()
+        u_prev = x.new_zeros((ctl.m, B))
+        return x, x.new_zeros((2, B)), u_prev, \
+            scaler.y_down(S.arm.get_y(x), axis=0), \
+            scaler.u_down(u_prev, axis=0)
+
+    # the bilinear routes: 3 closed-loop steps, then each route's kernel
+    # arguments as its controller forms them (carried duals, warm)
+    for name, m in S.routes.items():
+        x, W, u_prev, ysc, upsc = start(m, S.scaler, B)
+        U, lam = upsc.repeat(m.Np, 1), x.new_ones((m.n_con, B))
+        for k in range(SEED_STEPS):
+            U, sol = m.solve(m.lift(ysc), upsc, S.wins[k], U, lam)
+            lam = sol.lam
+            x = S.arm.step(x, u_prev, W)
+            ysc = S.scaler.y_down(S.arm.get_y(x), axis=0)
+            upsc = U[m.m:2 * m.m].contiguous()
+            u_prev = S.scaler.u_up(upsc, axis=0)
+        z = m.lift(ysc).contiguous()
+        x0 = m.warm_start(U).contiguous()
+        l0 = (lam * m.row[:, None]).contiguous()
+        betas = m.roll(z, U)[1] if m.blocked else None
+        Wt, v = m.factored_data(z, upsc, S.wins[3], betas)
+        b = ((m.cF_t[:, None] - m.F0_t @ upsc) / m.row[:, None])
+        out["ipm_factored " + name] = (
+            m.constraints(), m.rdiag, Wt.contiguous(), v.contiguous(),
+            b.contiguous(), x0, l0, m.cfg.qp_iters, 1e-2)
+        if m.blocked:
+            out["bilin"] = (m.bilin_qp(), z, upsc, x0, l0,
+                            S.wins[3].contiguous(), m.cfg.qp_iters, 1e-2)
+
+    # the NMPC: 3 closed-loop steps of the multipass path
+    nm = S.nmpc
+    x, W, u_prev, ysc, upsc = start(nm, S.nscaler, B)
+    for k in range(SEED_STEPS):
+        U, _ = nm.solve(ysc, upsc, S.nwins[k])
+        x = S.arm.step(x, u_prev, W)
+        ysc = S.nscaler.y_down(S.arm.get_y(x), axis=0)
+        upsc = U[nm.m:2 * nm.m].contiguous()
+        u_prev = S.nscaler.u_up(upsc, axis=0)
+    zeta, sq = ysc.contiguous(), S.nwins[3].contiguous()
+    out["nmpc_multipass"] = (nm.nmpc_qp(), zeta, upsc, sq,
+                             nm.cfg.sqp_iters, nm.hold0, nm.cfg.qp_iters)
+    # one SQP pass along the multipass plan (rho = 0.1, cold duals)
+    U, _ = nm.solve(zeta, upsc, sq)
+    q_ = nm.nmpc_qp(nm.RdT_t + 0.1 * nm.bsizes_t)
+    Z = N.rollout(q_, zeta, U)
+    tail = U[3:]
+    one = (zeta, upsc, sq, (nm.Sel_t @ tail).contiguous(),
+           (-0.2 * (nm.Tb_t.T @ tail)).contiguous(), None, 8, 1e-2)
+    Zl, Fv = Z[:-1].contiguous(), Z[1:].contiguous()
+    out["nmpc_stage hold"] = ((q_, "hold") + one, {})
+    out["nmpc_stage roll"] = ((q_, "roll") + one, dict(Ul=U))
+    out["nmpc_stage ship"] = ((q_, "ship") + one, dict(Zl=Zl, Ul=U, Fv=Fv))
+    out["nmpc_pass"] = ((q_,) + N.stage_lin(q_, Zl, U, Fv=Fv) + one, {})
+
+    # the 'linear' update's second-pass QP (the q0 build) and its dense P
+    qm = S.qmpc
+    rho = qm.cfg.sqp_damping
+    x, W, u_prev, ysc, upsc = start(qm, S.nscaler, B)
+    for k in range(SEED_STEPS):
+        U, _ = qm.solve(ysc, upsc, S.nwins[k])
+        x = S.arm.step(x, u_prev, W)
+        ysc = S.nscaler.y_down(S.arm.get_y(x), axis=0)
+        upsc = U[qm.m:2 * qm.m].contiguous()
+        u_prev = S.nscaler.u_up(upsc, axis=0)
+    zeta = ysc.contiguous()
+    qq = qm.nmpc_qp(qm.RdT_t + rho * qm.bsizes_t)
+    cons = qm.constraints()
+    b = qm.cF_t[:, None] - qm.F0_t @ upsc
+    Ul, Zl = upsc.repeat(qm.Np, 1), zeta.expand((qm.Np,) + zeta.shape)
+    from koopman_realizations_torch.ops.kernels import ipm_factored as IF
+    for it in range(2):
+        Jt, cv = N.stage_lin(qq, Zl, Ul)
+        Wq, vq = N.condense(qq, Jt, cv, zeta, upsc, sq)
+        x0 = qm.Sel_t @ Ul[qm.m:]
+        q0 = -2.0 * rho * (qm.Tb_t.T @ Ul[qm.m:])
+        if it == 0:
+            sol = IF.solve_qp_factored(Wq, vq, qq.rdiag, cons, b, x0=x0,
+                                       iters=qm.cfg.qp_iters, q0=q0)
+            Ul = qm.plan(upsc, sol.x)
+            Zl = N.linear_rollout(qq, Jt, cv, zeta, Ul, qm.Sel_t)
+    row = cons.row[:, None]
+    a = (cons, qq.rdiag.contiguous(), Wq.contiguous(), vq.contiguous(),
+         (b / row).contiguous(), x0.contiguous(),
+         (sol.lam * row).contiguous(), qm.cfg.qp_iters, 1e-2,
+         q0.contiguous())
+    out["ipm_factored q0"] = a
+    for key, args in (("n=12", a), ("n=27", out["ipm_factored unblocked"])):
+        rd, Wd, vd = args[1:4]
+        P = 2.0 * (torch.einsum("rib,rjb->ijb", Wd, Wd)
+                   + torch.diag(rd)[..., None])
+        q = 2.0 * torch.einsum("rib,rb->ib", Wd, vd)
+        if len(args) > 9:
+            q = q + args[9]
+        iobj = 1.0 / P.abs().amax((0, 1))
+        out["ipm_shared lane-P " + key] = (
+            args[0], P.contiguous(), (q * iobj).contiguous(), args[4],
+            args[5], args[7], 1e-2, iobj.contiguous(),
+            (args[6] * iobj).contiguous())
+        out["batch_chol " + key] = (P.permute(2, 0, 1).contiguous(),
+                                    q.T.contiguous())
+    return out
+
+
+# ------------------------------------------------------------------ timing
+
+
+FACTORED = ("iters2", "q0", "unblocked", "unblocked_smooth")
+REDESIGNED = tuple("ipm_factored " + name for name in FACTORED) \
+    + ("nmpc_multipass",)
+# the factored builds' outputs after 0 and 1 iterations, for the
+# comparison of parent and change
+FIRST_ITERATIONS = tuple(f"ipm_factored {name} iters={it}"
+                         for name in FACTORED for it in (0, 1))
+
+
+def redesigned_runs(ins: dict) -> tuple:
+    """Specs and launches of the redesigned kernels, public entry points
+    only (the other tree has no more)."""
+    from koopman_realizations_torch.ops.kernels import ipm_factored as IF
+    from koopman_realizations_torch.ops.kernels import nmpc_multipass as NM
+    specs, runs = {}, {}
+    nmp = ins["nmpc_multipass"]
+    specs["nmpc_multipass"] = NM.kernel_spec(nmp[0])
+    runs["nmpc_multipass"] = (lambda: NM.nmpc_multipass_cuda(*nmp), 5)
+    for name in FACTORED:
+        a = ins["ipm_factored " + name]
+        specs["ipm_factored " + name] = IF.kernel_spec(
+            a[0], a[2].shape[0], q0=name == "q0")
+        runs["ipm_factored " + name] = (
+            lambda a=a: IF.ipm_factored_cuda(*a), 5)
+        # where the time goes: without the interior-point iterations
+        # (staging, Gram and prelude alone) and with one
+        for it in (0, 1):
+            ai = a[:7] + (it,) + a[8:]
+            runs[f"ipm_factored {name} iters={it}"] = (
+                lambda ai=ai: IF.ipm_factored_cuda(*ai), 5)
+    # the whole SQP without its QP iterations (the sweeps alone) and
+    # its single pass
+    runs["nmpc_multipass iters=0"] = (
+        lambda: NM.nmpc_multipass_cuda(*nmp[:6], 0), 5)
+    runs["nmpc_multipass passes=1"] = (
+        lambda: NM.nmpc_multipass_cuda(*nmp[:4], 1, *nmp[5:]), 5)
+    return specs, runs
+
+
+def variant_runs(ins: dict) -> tuple:
+    """Specs and launches of the group interior point at other group
+    sizes and launch bounds than its plans' (this tree's private
+    ``_spec`` and ``_launch``, which take a plan)."""
+    import dataclasses
+
+    from koopman_realizations_torch.ops.kernels import ipm_factored as IF
+    from koopman_realizations_torch.ops.kernels import ipm_group as IG
+    from koopman_realizations_torch.ops.kernels import nmpc_multipass as NM
+    specs, runs = {}, {}
+    for name, groups, mbs in FACTORED_VARIANTS:
+        a = ins["ipm_factored " + name]
+        base = IF.launch_plan(a[0], a[2].shape[0])
+        for g in groups:
+            for mb in mbs:
+                plan = dataclasses.replace(
+                    base, group=g, lanes=IG.FACTORED_THREADS // g,
+                    min_blocks=mb).check()
+                key = f"ipm_factored {name} G={g} min_blocks={mb}"
+                specs[key] = IF._spec(a[0], a[2].shape[0], name == "q0",
+                                      plan)
+                runs[key] = (lambda a=a, plan=plan: IF._launch(plan, *a), 5)
+    nmp = ins["nmpc_multipass"]
+    base = NM.launch_plan(nmp[0])
+    for g, mbs in NMPC_VARIANTS:
+        for mb in mbs:
+            plan = dataclasses.replace(base, group=g, min_blocks=mb).check()
+            key = f"nmpc_multipass G={g} min_blocks={mb}"
+            specs[key] = NM._spec(nmp[0], plan)
+            runs[key] = (lambda plan=plan: NM._launch(plan, *nmp), 5)
+    return specs, runs
+
+
+def other_runs(ins: dict) -> tuple:
+    """Specs and launches of the eight kernels not redesigned."""
+    import torch
+
+    from koopman_realizations_torch.ops.kernels import batch_chol as BC
+    from koopman_realizations_torch.ops.kernels import bilin as BI
+    from koopman_realizations_torch.ops.kernels import bilin_lift as BL
+    from koopman_realizations_torch.ops.kernels import ipm_shared as IS
+    from koopman_realizations_torch.ops.kernels import linear_step_fused as LS
+    from koopman_realizations_torch.ops.kernels import nmpc_pass as NP
+    from koopman_realizations_torch.ops.kernels import nmpc_stage as NS
+    from koopman_realizations_torch.ops.kernels import step_fused as SF
+    S = Setup()
+    op = SF.build_step_fused(S.mpc, S.arm, S.scaler)
+    lop = LS.build_linear_step_fused(S.lmpc, S.arm, S.lscaler)
+    sq_ = ins["nmpc_stage hold"][0][0]
+    specs = {"step_fused": op.kernel_spec(),
+             "bilin_lift": BL.kernel_spec(op.qp),
+             "linear_step_fused": lop.kernel_spec(),
+             "ipm_shared": IS.kernel_spec(S.lmpc.constraints()),
+             "bilin": BI.kernel_spec(ins["bilin"][0]),
+             "nmpc_pass": NP.kernel_spec(sq_),
+             "batch_chol n=12": BC.kernel_spec(12),
+             "batch_chol n=27": BC.kernel_spec(27)}
+    for mode in ("hold", "roll", "ship"):
+        specs["nmpc_stage " + mode] = NS.kernel_spec(sq_, mode)
+    for key in ("n=12", "n=27"):
+        specs["ipm_shared lane-P " + key] = IS.kernel_spec(
+            ins["ipm_shared lane-P " + key][0], lane_p=True)
+    XB, WB = S.spread(B_STEP)
+    XG, WG = S.spread(B_FULL)
+    cB, lcB = op.init_carry(XB, WB), lop.init_carry(XB, WB)
+    oB = SF.StepCarry(*(torch.empty_like(t) for t in cB))
+    loB = SF.StepCarry(*(torch.empty_like(t) for t in lcB))
+    cG, lcG = op.init_carry(XG, WG), lop.init_carry(XG, WG)
+    fY = lop.fYr(S.lsim.reference_windows(S.ref, 2))
+    lm, cons = S.lmpc, S.lmpc.constraints()
+    z = lm.lift(lcG.ysc)
+    Yr = S.lsim.reference_windows(S.ref, 2)[0][:, None]
+    f = 2.0 * lm.CB_t.T @ (lm.Qd_t[:, None] * (lm.CA_t @ z - Yr))
+    P, q, bz = lm.eliminate_u0(2.0 * lm.H_t, f,
+                               lm.c_t[:, None] - lm.Mc_t @ z, lcG.upsc)
+    obj = P.abs().amax()
+    lin = (cons, (P / obj).contiguous(), (q / obj).contiguous(),
+           (bz / cons.row[:, None]).contiguous(), lcG.x0, lm.cfg.qp_iters,
+           1e-2)
+    runs = {
+        "step_fused": (lambda: op.step(cB, S.wins[0], out=oB), 10),
+        "bilin_lift": (lambda: BL.bilin_lift_cuda(
+            op.qp, cG.ysc, cG.upsc, cG.x0, cG.lamc, S.wins[0], op.iters,
+            1e-2), 10),
+        "linear_step_fused": (lambda: lop.step(lcB, fY[0], out=loB), 10),
+        "ipm_shared": (lambda: IS.ipm_shared_cuda(*lin), 10),
+        "bilin": (lambda: BI.bilin_cuda(*ins["bilin"]), 10),
+        "nmpc_pass": (lambda: NP.nmpc_pass_cuda(*ins["nmpc_pass"][0]), 10)}
+    for mode in ("hold", "roll", "ship"):
+        a, kw = ins["nmpc_stage " + mode]
+        runs["nmpc_stage " + mode] = (
+            lambda a=a, kw=kw: NS.nmpc_stage_cuda(*a, **kw), 10)
+    for key in ("n=12", "n=27"):
+        a = ins["ipm_shared lane-P " + key]
+        runs["ipm_shared lane-P " + key] = (
+            lambda a=a: IS.ipm_shared_cuda(*a), 5)
+        M, rhs = ins["batch_chol " + key]
+        runs["batch_chol " + key] = (
+            lambda M=M, rhs=rhs: BC.solve_spd_cuda(M, rhs), 10)
+    return specs, runs
+
+
+def time_tree(inputs_path: str, mode: str, x_out: str, nvcc=()) -> dict:
+    """Build this process's tree's kernels (with the extra nvcc flags
+    ``nvcc``) and save the redesigned kernels' outputs on the saved
+    inputs to ``x_out``; unless ``mode`` is 'outputs', time every kernel
+    ('variants': also the group interior point's alternatives)."""
+    import torch
+
+    from koopman_realizations_torch.ops.kernels import _build
+    _build.NVCC_FLAGS = tuple(_build.NVCC_FLAGS) + tuple(nvcc)
+    ins = torch.load(inputs_path, weights_only=False)
+    specs, runs = redesigned_runs(ins)
+    for more in ((other_runs,) if mode != "outputs" else ()) \
+            + ((variant_runs,) if mode == "variants" else ()):
+        sp, ru = more(ins)
+        specs.update(sp)
+        runs.update(ru)
+    built = _build.build_all(list(specs.values()))
+    ptxas = {k: [ln.strip() for ln in r.ptxas if "Compile time" not in ln]
+             for k, r in zip(specs, built)}
+    torch.save({k: [t.cpu() for t in runs[k][0]()]
+                for k in REDESIGNED + FIRST_ITERATIONS}, x_out)
+    times = {} if mode == "outputs" else \
+        {k: cuda_ms(fn, reps) for k, (fn, reps) in runs.items()}
+    return {"times": times, "ptxas": ptxas}
+
+
+# ------------------------------------------------- distances to plain f64
+
+
+def to_f64(args) -> tuple:
+    """A kernel's argument tuple with every floating tensor, those of the
+    constraints too, in f64."""
+    import torch
+
+    def cast(t):
+        if torch.is_tensor(t) and t.is_floating_point():
+            return t.double()
+        if hasattr(t, "_replace"):
+            return t._replace(**{k: cast(v) for k, v in t._asdict().items()})
+        return t
+    return tuple(cast(t) for t in args)
+
+
+def tails(ins: dict, xs: dict) -> dict:
+    """For each ``ipm_factored`` build: every labelled solution of ``xs``
+    (name -> label -> (x, s, lam, obj)) and plain f32 against plain f64
+    on the same lanes."""
+    import torch
+
+    from koopman_realizations_torch.ops.kernels import ipm_factored as IF
+    out = {}
+    for name in FACTORED:
+        a32 = ins["ipm_factored " + name]
+        x64, s64, l64 = IF.ipm_factored_plain(*to_f64(a32))[:3]
+        dev = x64.device
+        lv = torch.tensor([0.5, 0.99], dtype=torch.float64, device=dev)
+        sol = dict(xs[name], **{"plain f32": IF.ipm_factored_plain(*a32)})
+        d = {k: (r[0].to(dev).double() - x64).abs().amax(0)
+             for k, r in sol.items()}
+        # an ordering's complementarity gap (mean s lam) per lane: where
+        # it stalls, a large one
+        gap = {k: (r[1].to(dev).double() * r[2].to(dev).double()).mean(0)
+               for k, r in sol.items()}
+        # a lane's degeneracy: the smallest max(s, lam) over its rows in
+        # the f64 solution (both near 0: a weakly active row)
+        deg = torch.maximum(s64, l64).amin(0)
+        top = max(1, d["plain f32"].numel() // 100)
+        sub = lambda t: torch.quantile(t.view(-1, SUBSET), lv[1:], dim=1)[0]
+        qp = sub(d["plain f32"])
+        rows = {}
+        for k, dk in d.items():
+            far = dk.topk(top).indices
+            stall = 100 * gap[k].median()
+            rows[k] = {
+                "median": torch.quantile(dk, lv)[0].item(),
+                "p99": torch.quantile(dk, lv)[1].item(),
+                "beyond 1e-4/1e-3/1e-2": [int((dk > t).sum())
+                                          for t in (1e-4, 1e-3, 1e-2)],
+                f"{SUBSET}-lane subsets failing the p99 gate":
+                    int((sub(dk) > 2 * qp + 1e-5).sum()),
+                "lanes with gap > 100x its median": int(
+                    (gap[k] > stall).sum()),
+                "farthest 1%: gap > 100x median, degeneracy < 1e-6/1e-4": [
+                    int((gap[k][far] > stall).sum())] + [
+                    int((deg[far] < t).sum()) for t in (1e-6, 1e-4)]}
+        rows["all lanes with degeneracy < 1e-6/1e-4"] = [
+            int((deg < t).sum()) for t in (1e-6, 1e-4)]
+        rows["lanes, subsets"] = [d["plain f32"].numel(),
+                                  d["plain f32"].numel() // SUBSET]
+        out[name] = rows
+    return out
+
+
+# -------------------------------------------------------------------- main
+
+
+def worker(tree: Path, label: str, path: str, x_out: str, mode: str,
+           nvcc=()) -> dict:
+    """One process building and timing ``tree``'s kernels (this file
+    runs there under that tree's package)."""
+    cmd = [sys.executable, __file__, "--tree", str(tree), "--time", path,
+           "--x-out", x_out, "--mode", mode] \
+        + [f"--nvcc={f}" for f in nvcc]
+    res = subprocess.run(cmd, cwd=tree, capture_output=True, text=True)
+    if res.returncode != 0:
+        print(res.stdout[-4000:], res.stderr[-4000:], file=sys.stderr)
+        raise SystemExit(1)
+    run = json.loads(res.stdout.strip().splitlines()[-1])
+    run["tree"] = label
+    return run
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="the other tree's root")
+    ap.add_argument("--out", help="write the runs and tails as JSON here")
+    # a worker process's arguments
+    ap.add_argument("--tree", help=argparse.SUPPRESS)
+    ap.add_argument("--time", help=argparse.SUPPRESS)
+    ap.add_argument("--x-out", help=argparse.SUPPRESS)
+    ap.add_argument("--mode", default="time", help=argparse.SUPPRESS)
+    ap.add_argument("--nvcc", action="append", default=[],
+                    help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.tree:
+        # the worker's tree's package before this file's directory
+        sys.path.insert(0, args.tree)
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_ab: CUDA is not available", file=sys.stderr)
+        return 2
+    if args.time:
+        print(json.dumps(time_tree(args.time, args.mode, args.x_out,
+                                   args.nvcc)))
+        return 0
+    if not args.parent:
+        ap.error("--parent is required")
+    parent = Path(args.parent).resolve()
+    smi = smi_line()
+    print(f"device: {torch.cuda.get_device_name(0)} | {smi}", flush=True)
+    nofma = ("-fmad=false",)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "inputs.pt")
+        torch.save(make_inputs(Setup()), path)
+        torch.cuda.empty_cache()
+        plan = [("parent", parent, "time", ()),
+                ("change", HERE, "variants", ()),
+                ("change", HERE, "variants", ()),
+                ("parent", parent, "time", ()),
+                ("parent -fmad=false", parent, "outputs", nofma),
+                ("change -fmad=false", HERE, "outputs", nofma)]
+        runs = []
+        for i, (label, tree, mode, nvcc) in enumerate(plan):
+            runs.append(worker(tree, label, path, str(Path(tmp) / f"x{i}.pt"),
+                               mode, nvcc))
+            if runs[-1]["times"]:
+                print(f"{label}: " + json.dumps(runs[-1]["times"])
+                      + f" | {smi}", flush=True)
+        # the redesigned kernels' outputs (x, s, lam, obj), parent against
+        # change: bitwise equal, else the largest difference of each
+        xs = [torch.load(Path(tmp) / f"x{i}.pt") for i in range(len(plan))]
+        same = lambda a, b: all(torch.equal(u, v) for u, v in zip(a, b))
+
+        def maxdiff(a, b):
+            out = []
+            for u, v in zip(a, b):
+                d = (u - v).abs()
+                d = d[torch.isfinite(d)]
+                out.append(d.max().item() if d.numel() else 0.0)
+            return " ".join(f"{d:.3e}" for d in out)
+        for k in REDESIGNED + FIRST_ITERATIONS:
+            print(f"{k}: x, s, lam, obj of parent and change bitwise equal "
+                  f"{same(xs[0][k], xs[1][k])}, max |d| "
+                  f"{maxdiff(xs[0][k], xs[1][k])}; each tree deterministic "
+                  f"{same(xs[0][k], xs[3][k])} {same(xs[1][k], xs[2][k])}; "
+                  f"with -fmad=false bitwise equal "
+                  f"{same(xs[4][k], xs[5][k])}, max |d| "
+                  f"{maxdiff(xs[4][k], xs[5][k])}", flush=True)
+        ins = torch.load(path, weights_only=False)
+        tl = tails(ins, {name: {plan[i][0]: xs[i]["ipm_factored " + name]
+                                for i in (0, 1, 4, 5)} for name in FACTORED})
+        print(f"ipm_factored at B={B_FULL}, distances to plain f64 | {smi}")
+        for name, rows in tl.items():
+            for k, v in rows.items():
+                print(f"{name} | {k} | {json.dumps(v)}", flush=True)
+    names = list(runs[1]["times"])
+    print(f"kernel ms at B={B_FULL} (fused steps B={B_STEP}) | {smi}")
+    print("kernel | parent | change | change | parent | change / parent")
+    for k in names:
+        t = [r["times"].get(k) for r in runs[:4]]
+        par = [x for x in (t[0], t[3]) if x is not None]
+        ratio = (sum(t[1:3]) / 2) / (sum(par) / len(par)) if par else None
+        print(f"{k} | " + " | ".join("-" if x is None else f"{x:.4f}"
+                                     for x in t)
+              + (f" | {ratio:.3f}" if ratio else " | -"))
+    print("ptxas -v of each build, parent then change:")
+    for k in runs[1]["ptxas"]:
+        pa, ch = runs[0]["ptxas"].get(k), runs[1]["ptxas"][k]
+        print(f"{k}: {'same' if pa == ch else 'differs'}")
+        for ln in (pa or []) if pa != ch else []:
+            print("  parent " + ln)
+        for ln in ch:
+            print("  change " + ln)
+    print("ptxas -v of the redesigned builds with -fmad=false:")
+    for r in runs[4:]:
+        for k, lines in r["ptxas"].items():
+            for ln in lines:
+                print(f"  {r['tree']} {k}: {ln}")
+    if args.out:
+        Path(args.out).write_text(json.dumps({"runs": runs, "tails": tl},
+                                             indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,10 +1,12 @@
 // Device functions shared by the CUDA kernels of the Koopman MPC closed
 // loops: the Mehrotra predictor-corrector with its banded or dense
-// A^T D A, Cholesky factor and solve (every kernel); the ok mask (the two
-// step kernels); the objective scale of a per-lane Gram (the bilinear
-// kernels, ipm_factored.cu, the NMPC kernels); the factored Gram streamed
-// from W rows and the factored QP's tail (the bilinear kernels,
-// ipm_factored.cu); the poly lift (the two step kernels and
+// A^T D A, Cholesky factor and solve (every kernel but ipm_factored.cu
+// and nmpc_multipass.cu, which run ipm_group.cuh's cooperative one on
+// this file's constants, constraint rows and scalar helpers); the ok mask
+// (the two step kernels); the objective scale of a per-lane Gram (the
+// bilinear kernels, the NMPC kernels); the factored Gram streamed from W
+// rows and the factored QP's tail (the bilinear kernels); the poly lift
+// (the two step kernels and
 // bilin_lift.cu); the bilinear QP assembly against lane-shared generators
 // from the lift's features or the lifted state (bilin_lift.cu,
 // step_fused.cu, bilin.cu); the arm's closed-form right-hand side
@@ -465,19 +467,6 @@ __device__ __forceinline__ void factored_gram(const float* rdiag,
     }
   }
 }
-
-// W and v as the lane's own lanes-minor arrays (ipm_factored.cu): W
-// (KM_P, KM_N, B) and v (KM_P, B), each pointer at the lane.
-struct LaneRows {
-  const float* W;
-  const float* v;
-  long long B;
-  __device__ __forceinline__ float operator()(int r, float (&w)[KM_N]) const {
-#pragma unroll
-    for (int i = 0; i < KM_N; ++i) w[i] = W[(r * KM_N + i) * B];
-    return v[r * B];
-  }
-};
 
 // The factored QP's tail from the Gram (Pr holds P, q holds qv): the
 // objective scale, the scaled and regularized Hessian, the dual start and

@@ -1,5 +1,6 @@
 // Whole-SQP NMPC solve, batched: every relinearization pass in one
-// launch, one CUDA thread per lane.
+// launch; the stage sweep a thread per lane, each pass's QP a group of
+// threads per lane (ipm_group.cuh).
 //
 // Replaces the TPU kernel _nmpc_multipass_kernel (koopman_realizations_tpu/
 // ops/pallas/qp_ipm.py:1422, called at :1801 by
@@ -11,9 +12,7 @@
 // term q0c * x_prev and runs the Mehrotra loop from x_prev with cold duals
 // and the slack floor 1e-2 (hard-coded, as in the TPU kernel).  The inter-
 // pass glue is in-kernel: the pass-0 plan is Gup u_prev, the stage inputs
-// are row slices of x_prev.  The stage sweep and the pass's QP are the
-// device functions the one-pass kernels share (nmpc_device.cuh:
-// condense_sweep with the rolled source, solve_pass).  The wrapper (ops/kernels/nmpc_multipass.py:
+// are row slices of x_prev.  The wrapper (ops/kernels/nmpc_multipass.py:
 // solve_qp_nmpc_multipass) does the ok mask and the multipliers' return
 // to original units, as the JAX wrapper does.
 //
@@ -21,20 +20,30 @@
 // over 9 inputs: A1 6x9, A2 6x210, G 54x54; n=12, mc=48, horizon 10, 5
 // passes, 8 iterations) a lane needs ~0.7 M operations on ~0.4 KB of lane
 // input and output, so the f32 rate (67 TFLOP/s outside the tensor
-// cores), not the 3.35 TB/s, sets the floor.  The design fuses each pass
-// into one forward sweep over the stages (F, J, defects, propagation and
-// the projected rows' Gram terms per stage; the W block is never stored),
-// forms F and J once in the 'hold' pass, keeps every per-lane array
-// statically indexed (stage-dependent columns by selects, not by
-// addresses), and reads the ~17 KB of lane-shared operands as
-// warp-uniform broadcasts through the read-only cache (G as 16-byte
-// loads).  The G g_low products (~40 % of the work) are where tensor cores
-// would enter in a later tuning pass; spills and occupancy are the other.
+// cores), not the 3.35 TB/s, sets the floor.
+//
+// Design: a block takes KG_LANES lanes, one a thread.  Each pass, every
+// thread runs its lane's forward sweep over the stages
+// (nmpc_device.cuh:condense_sweep with the rolled source: F, J, defects,
+// propagation and the projected rows' Gram terms; the W block is never
+// stored), forms the pass's QP -- P = 2 (W^T W + diag r), q = 2 W^T v +
+// q0c x_prev, the objective scale and the regularization, as solve_pass
+// does -- and hands the scaled Hessian (packed, 78 floats at n=12) and q
+// over through a device scratch row of its own (x_prev and u_prev through
+// shared memory).  The block then solves its lanes' QPs KG_THREADS /
+// KG_GROUP at a time with the cooperative Mehrotra loop (a group of
+// KG_GROUP threads a lane, the Hessian copied into the group's shared
+// work region, the factor beside it), each from x_prev with cold duals;
+// x goes back to the lane's thread as the next pass's x_prev, and after
+// the last pass the groups store s and lam.  The sweep keeps the
+// thread-per-lane form: its per-stage products are 6-15 wide and serial
+// over the stages.  It reads ~17 KB of lane-shared operands and spills
+// through the L1 cache, which shares the SM's 256 KB with shared memory:
+// hence the hand-over through device memory (written and read back
+// within the pass, an L2 round trip) rather than a shared tile of all the
+// block's lanes.
+#include "ipm_group.cuh"
 #include "nmpc_device.cuh"
-
-#ifndef KM_THREADS
-#define KM_THREADS 128
-#endif
 
 struct NmpcArgs {
   km::Nmpc op;
@@ -45,6 +54,7 @@ struct NmpcArgs {
   float* s;            // (KM_MC, B)
   float* lam;          // (KM_MC, B) equilibrated multipliers
   float* obj;          // (B) last pass's objective scale
+  float* scratch;      // (grid * KG_LANES, KG_T + KM_N) hand-over
   long long B;
   int sqRef_lanes;
   int iters;
@@ -52,55 +62,161 @@ struct NmpcArgs {
   int hold0;
 };
 
-__global__ void __launch_bounds__(KM_THREADS)
-nmpc_multipass_kernel(const NmpcArgs a) {
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= a.B) return;
-  const long long B = a.B;
+// The lane region holds x, obj and u_prev; the scaled Hessian (packed)
+// and q go through the lane's device scratch row, the Hessian on into its
+// group's work region.
+#define KG_H_UP KG_L_REST
+#define KG_W_PR (KG_T + KM_N + KM_MC)
+
+// The pass's QP from the swept Gram, as km::solve_pass forms it before
+// its Mehrotra loop: P = 2 (W^T W + diag(rdiag)), q = 2 W^T v + q0c x_prev,
+// the objective scale and the regularized Hessian; the Hessian's lower
+// triangle and q into the lane's scratch row H.  Returns obj.
+__device__ __forceinline__ float hand_over(const km::Nmpc& op,
+                                           float (&Pr)[KM_N][KM_N],
+                                           float (&q)[KM_N],
+                                           const float (&xp)[KM_N],
+                                           float* H) {
+#pragma unroll
+  for (int i = 0; i < KM_N; ++i) {
+    q[i] = 2.0f * q[i] + km::ldg(op.q0c + i) * xp[i];
+#pragma unroll
+    for (int k = 0; k <= i; ++k) {
+      Pr[i][k] *= 2.0f;
+      Pr[k][i] = Pr[i][k];
+    }
+  }
+  const float obj = km::diag_obj_scale(Pr);
+  const float iobj = km::kdiv(1.0f, obj);
+#pragma unroll
+  for (int i = 0; i < KM_N; ++i) {
+    H[KG_T + i] = q[i] * iobj;
+#pragma unroll
+    for (int k = 0; k <= i; ++k)
+      H[kg::tidx(i, k)] = Pr[i][k] * iobj + (i == k ? km::kReg : 0.0f);
+  }
+  return obj;
+}
+
+// One lane's pass QP by its group: the Hessian from the lane's scratch
+// row into the work region, q to its owners, the right-hand side
+// b = cFr - F0r u_prev for the group's rows, cold duals, the Mehrotra loop
+// from x_prev (the lane's x slot, updated in place); after the last pass
+// the group stores s and lam of a lane in the batch.
+__device__ __forceinline__ void solve_lane(const NmpcArgs& a,
+                                           const kg::Shared& sh, float* sm,
+                                           int ql, int grp, int g,
+                                           bool last) {
   const km::Nmpc& op = a.op;
-  float zeta[KN_NZ], up[KM_M], xp[KM_N], s[KM_MC], lam[KM_MC], rhs[KM_MC];
+  float* H = kg::lane_region(sm, ql);
+  float* w = kg::work_region(sm, grp);
+  const kg::Lane L{w + KG_W_PR, H + KG_L_X, w, w + KG_T, w + KG_T + KM_N};
+  const float* hs = a.scratch
+      + ((long long)blockIdx.x * KG_LANES + ql) * (KG_T + KM_N);
+  for (int t = g; t < KG_T; t += KG_GROUP) L.Pr[t] = hs[t];
+  float q[KG_NO], rhs[KG_R], s[KG_R], lam[KG_R];
 #pragma unroll
-  for (int i = 0; i < KN_NZ; ++i) zeta[i] = a.zeta[i * B + b];
+  for (int o = 0; o < KG_NO; ++o) {
+    const int i = g + KG_GROUP * o;
+    q[o] = i < KM_N ? hs[KG_T + i] : 0.0f;
+  }
 #pragma unroll
-  for (int j = 0; j < KM_M; ++j) up[j] = a.up[j * B + b];
-  const float* sq = a.sqRef_lanes ? a.sqRef + b : a.sqRef;
+  for (int k = 0; k < KG_R; ++k) {
+    const int c = g + KG_GROUP * k;
+    float bc = 0.0f;
+    if (c < KM_MC) {
+      bc = km::ldg(op.cFr + c);
+#pragma unroll
+      for (int j = 0; j < KM_M; ++j)
+        bc = bc - km::ldg(op.F0r + c * KM_M + j) * H[KG_H_UP + j];
+    }
+    rhs[k] = bc;
+    lam[k] = 1.0f;
+  }
+  kg::gsync();
+  kg::mehrotra(sh, L, g, a.iters, 1e-2f, q, rhs, s, lam);
+  const long long b = (long long)blockIdx.x * KG_LANES + ql;
+  if (last && b < a.B) {
+#pragma unroll
+    for (int k = 0; k < KG_R; ++k) {
+      const int c = g + KG_GROUP * k;
+      if (c < KM_MC) {
+        a.s[c * a.B + b] = s[k];
+        a.lam[c * a.B + b] = lam[k];
+      }
+    }
+  }
+}
+
+__global__ void KG_BOUNDS
+nmpc_multipass_kernel(const NmpcArgs a) {
+  float* sm = kg::dynamic_smem();
+  const int tid = threadIdx.x;
+  const int grp = tid / KG_GROUP, g = tid % KG_GROUP;
+  const long long B = a.B;
+  const long long b = (long long)blockIdx.x * KG_LANES + tid;
+  const bool live = b < B;
+  // a lane past the batch sweeps a copy of the last lane and stores
+  // nothing: every thread takes part in the block's solves
+  const long long bl = live ? b : B - 1;
+  const km::Nmpc& op = a.op;
+  const kg::Shared sh = kg::shared_view(sm);
+  float* H = kg::lane_region(sm, tid);
+  kg::load_shared(op.con, sh, tid);
+
+  float zeta[KN_NZ], up[KM_M], xp[KM_N];
+#pragma unroll
+  for (int i = 0; i < KN_NZ; ++i) zeta[i] = a.zeta[i * B + bl];
+#pragma unroll
+  for (int j = 0; j < KM_M; ++j) {
+    up[j] = a.up[j * B + bl];
+    H[KG_H_UP + j] = up[j];
+  }
+  const float* sq = a.sqRef_lanes ? a.sqRef + bl : a.sqRef;
   const long long sq_step = a.sqRef_lanes ? B : 1;
-  km::rhs_b(op.cFr, op.F0r, up, rhs);
 #pragma unroll
   for (int i = 0; i < KM_N; ++i) {
     float acc = 0.0f;
 #pragma unroll
     for (int j = 0; j < KM_M; ++j) acc = fmaf(km::ldg(op.Gup + i * KM_M + j), up[j], acc);
     xp[i] = acc;
+    H[KG_L_X + i] = acc;
   }
   float obj = 1.0f;
 #pragma unroll 1
   for (int pass = 0; pass < a.passes; ++pass) {
-    float Pr[KM_N][KM_N], q[KM_N];
     {
+      float Pr[KM_N][KM_N], q[KM_N];
       km::RolledStages<km::PlanInput> stages(op, km::PlanInput{up, xp},
                                              pass == 0 && a.hold0, zeta);
       km::condense_sweep(op, stages, zeta, up, sq, sq_step, Pr, q);
+      obj = hand_over(op, Pr, q, xp,
+                      a.scratch + ((long long)blockIdx.x * KG_LANES + tid)
+                                      * (KG_T + KM_N));
     }
-    // the Levenberg term q0c * x_prev, cold duals; the primal start is
-    // the previous pass's x; x_prev <- x
-    obj = km::solve_pass(op.con, a.iters, 1e-2f, Pr, q,
-                         km::LevenbergTerm{op.q0c, xp}, km::ColdDuals{}, rhs,
-                         xp, s, lam);
+    __syncthreads();
+    const bool last = pass + 1 == a.passes;
+#pragma unroll 1
+    for (int round = 0; round < KG_ROUNDS; ++round)
+      solve_lane(a, sh, sm, round * KG_GROUPS + grp, grp, g, last);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < KM_N; ++i) xp[i] = H[KG_L_X + i];
   }
+  if (!live) return;
 #pragma unroll
   for (int i = 0; i < KM_N; ++i) a.x[i * B + b] = xp[i];
-#pragma unroll
-  for (int c = 0; c < KM_MC; ++c) {
-    a.s[c * B + b] = s[c];
-    a.lam[c * B + b] = lam[c];
-  }
   a.obj[b] = obj;
 }
 
 extern "C" int km_nmpc_multipass(const NmpcArgs* args, void* stream) {
   if (args->B <= 0) return 0;
-  const unsigned grid = (unsigned)((args->B + KM_THREADS - 1) / KM_THREADS);
-  nmpc_multipass_kernel<<<grid, KM_THREADS, 0, (cudaStream_t)stream>>>(*args);
+  cudaError_t err = cudaFuncSetAttribute(
+      nmpc_multipass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      KG_SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid = (unsigned)((args->B + KG_LANES - 1) / KG_LANES);
+  nmpc_multipass_kernel<<<grid, KG_THREADS, KG_SMEM_BYTES,
+                          (cudaStream_t)stream>>>(*args);
   return (int)cudaGetLastError();
 }

@@ -11,7 +11,9 @@ W (p, n), v (p), b and starts, lane-shared r and row-equilibrated A with
 the banded or dense A^T D A, cold or warm duals, and the optional
 per-lane linear term q0 of the NMPC's 'linear' between-pass update
 (``control/kmpc.py:1545-1564``), a build of its own (``KM_Q0``).  The
-kernel is compute-bound on the card; see the note in the source.
+kernel solves each lane with a group of threads, the factor in shared
+memory (``csrc/ipm_group.cuh``); ``launch_plan`` (``ipm_group.py``) sets
+the group size, lanes per block and shared memory from (n, mc).
 
 ``ipm_factored`` takes the plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.  ``solve_qp_factored`` adds
@@ -28,6 +30,10 @@ from typing import Optional
 import torch
 
 from koopman_realizations_torch.ops.kernels import _build
+from koopman_realizations_torch.ops.kernels.ipm_group import (
+    GroupPlan,
+    factored_plan,
+)
 from koopman_realizations_torch.ops.kernels.ipm_shared import (
     ConsStruct,
     check_cuda_f32,
@@ -63,14 +69,26 @@ class IpmFactoredQ0Args(ctypes.Structure):
     _fields_ = _args_fields(True)
 
 
+def launch_plan(cons: Constraints, p: int) -> GroupPlan:
+    """The build's group plan (``ipm_group.py``): the group size follows
+    from (n, mc)."""
+    return factored_plan(cons, p)
+
+
 def kernel_spec(cons: Constraints, p: int,
                 q0: bool = False) -> _build.KernelSpec:
     """One build per (n, mc, band, p) and q0 or not: the interior point's
-    dimensions, the number of W rows and the additive linear term (the
-    builds without it keep their arguments and code)."""
+    dimensions, the number of W rows, the additive linear term (the
+    builds without it keep their arguments) and the group plan."""
+    return _spec(cons, p, q0, launch_plan(cons, p))
+
+
+def _spec(cons: Constraints, p: int, q0: bool,
+          plan: GroupPlan) -> _build.KernelSpec:
     return _build.KernelSpec(SOURCE, cons_config(cons)
                              + _build.defines(KM_P=p)
-                             + (_build.defines(KM_Q0=1) if q0 else ""))
+                             + (_build.defines(KM_Q0=1) if q0 else "")
+                             + plan.config(cons.cols))
 
 
 # ---------------------------------------------------------------- kernel
@@ -83,6 +101,13 @@ def ipm_factored_cuda(cons: Constraints, rdiag, W, v, b, x0, lam0_row,
     q0 (n, B) in original units or None (the ``KM_Q0`` build); returns
     (x, s, lam, obj).  Counts its launches in
     ``ipm_factored_cuda.launches``."""
+    return _launch(launch_plan(cons, v.shape[0]), cons, rdiag, W, v, b, x0,
+                   lam0_row, iters, slack_floor, q0)
+
+
+def _launch(plan: GroupPlan, cons: Constraints, rdiag, W, v, b, x0,
+            lam0_row, iters: int, slack_floor: float, q0=None):
+    """``ipm_factored_cuda`` built with ``plan``."""
     n, mc = cons.n, cons.mc
     p, B = v.shape
     ins = [W, v, b, x0, rdiag, cons.A, cons.Wd, cons.Wo] \
@@ -93,7 +118,7 @@ def ipm_factored_cuda(cons: Constraints, rdiag, W, v, b, x0, lam0_row,
             or (lam0_row is not None and lam0_row.shape != (mc, B)) \
             or (q0 is not None and q0.shape != (n, B)):
         raise ValueError("ipm_factored: operand shapes do not match the QP")
-    lib = _build.load(kernel_spec(cons, p, q0 is not None))
+    lib = _build.load(_spec(cons, p, q0 is not None, plan))
     x = torch.empty((n, B), dtype=v.dtype, device=v.device)
     s = torch.empty((mc, B), dtype=v.dtype, device=v.device)
     lam = torch.empty_like(s)

@@ -11,7 +11,10 @@ the rollout of the composed F, the analytic stage Jacobians, the defects,
 the sensitivity condensation, the factored Gram with the Levenberg term
 and the Mehrotra loop from the previous pass's primal with cold duals.
 The kernel is compute-bound on the card (~0.7 M operations per lane on
-~0.4 KB of lane data); see the note in the source.
+~0.4 KB of lane data); its stage sweep runs a thread per lane, each pass's
+QP a group of threads per lane (``csrc/ipm_group.cuh``, planned by
+``launch_plan``), the Hessian handed over through a device scratch row
+the wrapper allocates; see the note in the source.
 
 ``nmpc_multipass`` takes the plain version only for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises.
@@ -26,6 +29,10 @@ import ctypes
 import torch
 
 from koopman_realizations_torch.ops.kernels import _build
+from koopman_realizations_torch.ops.kernels.ipm_group import (
+    GroupPlan,
+    nmpc_plan,
+)
 from koopman_realizations_torch.ops.kernels.ipm_shared import (
     ConsStruct,
     check_cuda_f32,
@@ -74,8 +81,18 @@ def nmpc_config(qp: NmpcQP) -> str:
             + " } while (0)\n")
 
 
+def launch_plan(qp: NmpcQP) -> GroupPlan:
+    """The build's group plan (``ipm_group.py``)."""
+    return nmpc_plan(qp.cons, qp.m)
+
+
 def kernel_spec(qp: NmpcQP) -> _build.KernelSpec:
-    return _build.KernelSpec(SOURCE, nmpc_config(qp))
+    return _spec(qp, launch_plan(qp))
+
+
+def _spec(qp: NmpcQP, plan: GroupPlan) -> _build.KernelSpec:
+    return _build.KernelSpec(SOURCE, nmpc_config(qp)
+                             + plan.config(qp.cons.cols))
 
 
 class NmpcStruct(ctypes.Structure):
@@ -95,7 +112,7 @@ class NmpcStruct(ctypes.Structure):
 class NmpcArgs(ctypes.Structure):
     _fields_ = ([("op", NmpcStruct)]
                 + [(k, ctypes.c_void_p) for k in
-                   ("zeta", "up", "sqRef", "x", "s", "lam", "obj")]
+                   ("zeta", "up", "sqRef", "x", "s", "lam", "obj", "scratch")]
                 + [("B", ctypes.c_longlong), ("sqRef_lanes", ctypes.c_int),
                    ("iters", ctypes.c_int), ("passes", ctypes.c_int),
                    ("hold0", ctypes.c_int)])
@@ -109,6 +126,13 @@ def nmpc_multipass_cuda(qp: NmpcQP, zeta, up, sqRef, passes: int,
     """Launch ``nmpc_multipass_kernel`` on the current stream; returns
     (x, s, lam, obj).  Counts its launches in
     ``nmpc_multipass_cuda.launches``."""
+    return _launch(launch_plan(qp), qp, zeta, up, sqRef, passes, hold0,
+                   iters)
+
+
+def _launch(plan: GroupPlan, qp: NmpcQP, zeta, up, sqRef, passes: int,
+            hold0: bool, iters: int):
+    """``nmpc_multipass_cuda`` built with ``plan``."""
     B = zeta.shape[1]
     check_cuda_f32(zeta, up, sqRef, qp.A1, qp.A2, qp.a0, qp.G, qp.Gup,
                    qp.q0c, qp.CzS, qp.rdiag, qp.cFr, qp.F0r, qp.A, qp.Wd,
@@ -121,14 +145,17 @@ def nmpc_multipass_cuda(qp: NmpcQP, zeta, up, sqRef, passes: int,
         raise ValueError("nmpc_multipass: at least one SQP pass")
     if qp.G.data_ptr() % 16:
         raise ValueError("the Jacobian generator must be 16-byte aligned")
-    lib = _build.load(kernel_spec(qp))
+    lib = _build.load(_spec(qp, plan))
     x = torch.empty((qp.n, B), dtype=zeta.dtype, device=zeta.device)
     s = torch.empty((qp.mc, B), dtype=zeta.dtype, device=zeta.device)
     lam = torch.empty_like(s)
     obj = torch.empty((B,), dtype=zeta.dtype, device=zeta.device)
+    scratch = torch.empty((plan.grid(B) * plan.lanes * plan.scratch_floats,),
+                          dtype=zeta.dtype, device=zeta.device)
     args = NmpcArgs(
         NmpcStruct.of(qp), zeta.data_ptr(), up.data_ptr(), sqRef.data_ptr(),
-        x.data_ptr(), s.data_ptr(), lam.data_ptr(), obj.data_ptr(), B,
+        x.data_ptr(), s.data_ptr(), lam.data_ptr(), obj.data_ptr(),
+        scratch.data_ptr(), B,
         int(sqRef.ndim == 2), int(iters), int(passes), int(bool(hold0)))
     fn = lib.km_nmpc_multipass
     fn.argtypes = [ctypes.POINTER(NmpcArgs), ctypes.c_void_p]

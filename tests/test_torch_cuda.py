@@ -813,3 +813,170 @@ def test_linear_update_runner_on_card_tracks(gpu_sqp_linear):
     assert out["alive"][:, -1].float().mean().item() == ref["alive"]
     err = lane_tracking_error(out["Yp"], blockM_reference())
     assert abs(err.mean().item() - ref["err_mean"]) < 1e-3, err.mean()
+
+
+# ------------------------------------------------ the group interior point
+# The five builds of the cooperative interior point (csrc/ipm_group.cuh):
+# ipm_factored's four and nmpc_multipass, each on 1007 closed-loop lanes
+# of its own path (a ragged last block for every plan), made once.
+GROUP_BUILDS = ["iters2", "unblocked", "unblocked_smooth", "q0",
+                "nmpc_multipass"]
+_GROUP_LANES = {}
+
+
+def _group_case(request, build):
+    """(kernel, plain, f32 arguments, f64 arguments, poisoned operand's
+    index) of one build on 1007 closed-loop lanes, warm where the path
+    passes duals."""
+    if build in _GROUP_LANES:
+        return _GROUP_LANES[build]
+    B = 1007
+    if build in ROUTES:
+        sim, mpc64 = request.getfixturevalue("gpu_routes")[build]
+        z, up, U, lam, win = _route_lanes(sim, B, 3)
+        ins = {}
+        for dt, c in ((torch.float32, sim.mpc), (torch.float64, mpc64)):
+            zd, ud, Ud = z.to(dt), up.to(dt), U.to(dt)
+            betas = c.roll(zd, Ud)[1] if c.blocked else None
+            W, v = c.factored_data(zd, ud, win[3].to(dt), betas)
+            b = (c.cF_t[:, None] - c.F0_t @ ud) / c.row[:, None]
+            ins[dt] = (c.constraints(), c.rdiag, W.contiguous(),
+                       v.contiguous(), b.contiguous(),
+                       c.warm_start(Ud).contiguous(),
+                       (lam.to(dt) * c.row[:, None]).contiguous(),
+                       c.cfg.qp_iters, 1e-2)
+        case = (IF.ipm_factored_cuda, IF.ipm_factored_plain, ins, 3)
+    elif build == "q0":
+        gl = request.getfixturevalue("gpu_sqp_linear")
+        ins = {dt: d["args"] + (d["lam0"], 8, 1e-2, d["q0"])
+               for dt, d in _linear_lanes(gl, B).items()}
+        case = (IF.ipm_factored_cuda, IF.ipm_factored_plain, ins, 3)
+    else:
+        sim, mpc64 = request.getfixturevalue("gpu_nmpc")
+        zeta, up, win = _nmpc_lanes(sim, B, 3)
+        sq = win[3 + torch.arange(B, device="cuda") % 8].T.contiguous()
+        ins = {dt: (c.nmpc_qp(), zeta.to(dt), up.to(dt),
+                    sq.to(dt).contiguous(), 5, True, 8)
+               for dt, c in ((torch.float32, sim.mpc),
+                             (torch.float64, mpc64))}
+        case = (NM.nmpc_multipass_cuda, NM.nmpc_multipass_plain, ins, 1)
+    _GROUP_LANES[build] = case
+    return case
+
+
+def _lanes(args, idx):
+    """The argument tuple with every per-lane operand (lanes last) cut to
+    the lanes ``idx``."""
+    B = args[2].shape[-1]
+    return tuple(t[..., idx].contiguous()
+                 if torch.is_tensor(t) and t.ndim > 1 and t.shape[-1] == B
+                 else t for t in args)
+
+
+def _ok(args, out):
+    """The ok mask of a solution of either kernel's arguments."""
+    if hasattr(args[0], "cons"):
+        cons, b = args[0].cons, N.rhs(args[0], args[2])
+    else:
+        cons, b = args[0], args[4]
+    return ok_mask(cons, b, out[0], out[1], out[2], 3e-3, 5e-2)[0]
+
+
+def _tail_reading(build, out, ref, r64, top=12):
+    """One line on the farthest lanes from plain f64 of the kernel's
+    solution ``out`` and plain f32's ``ref``: each lane's two distances,
+    two complementarity gaps (mean s lam: a lane where an ordering stalls
+    keeps a large one) and its degeneracy, the f64 solution's smallest
+    max(s, lam) over the rows (both near 0: a weakly active row)."""
+    dist = lambda r: (r[0].double() - r64[0]).abs().amax(0)
+    gap = lambda r: (r[1].double() * r[2].double()).mean(0)
+    dk, dp, gk, gp = dist(out), dist(ref), gap(out), gap(ref)
+    deg = torch.maximum(r64[1], r64[2]).amin(0)
+    q = lambda d: f"{torch.quantile(d, 0.99).item():.3e}"
+    lanes = lambda d: ", ".join(
+        f"{i} {dk[i]:.1e}/{dp[i]:.1e} {gk[i]:.1e}/{gp[i]:.1e} {deg[i]:.1e}"
+        for i in d.topk(top).indices.tolist())
+    return (f"{build} B={dk.numel()}: p99 kernel {q(dk)}, plain f32 {q(dp)};"
+            f" median gap {gk.median():.1e}/{gp.median():.1e}; lanes with "
+            f"degeneracy < 1e-6 / 1e-4 {int((deg < 1e-6).sum())} / "
+            f"{int((deg < 1e-4).sum())}; farthest (lane, distance and gap "
+            f"kernel/plain, degeneracy): kernel {lanes(dk)}; plain f32 "
+            f"{lanes(dp)}")
+
+
+@pytest.mark.parametrize("B", [1, 33, 1007])
+@pytest.mark.parametrize("build", GROUP_BUILDS)
+def test_group_kernel_ragged_sizes(request, build, B):
+    """Each group build at B = 1, 33 and 1007 lanes (the first B of the
+    closed-loop set; every plan's last block ragged): kernel against
+    plain f32 (equal ok masks) and against its own full launch, bitwise
+    (a lane's result does not depend on its place in the tile); at 1007
+    the median per-lane distance to plain f64 within twice plain f32's
+    plus 1e-5, and (with ``-s``) a line on the farthest lanes.  No p99
+    gate at 1007: on these lanes about 1 % of the dense build's lanes lie
+    in either f32 ordering's tail beyond 1e-4 (11 of the kernel's, 8 of
+    plain's), each ordering with lanes of its own, so the 99th percentile
+    (the 10th-11th farthest lane) lands in one ordering's tail and the
+    other's body by a lane or two.  The p99 gate is that of the 1000-lane
+    tests above and of chip_smoke.py at 8192 and 65536 lanes; PERF.md
+    section 6 has the reading."""
+    kern, plain, ins, _ = _group_case(request, build)
+    idx = torch.arange(B, device="cuda")
+    a32 = _lanes(ins[torch.float32], idx)
+    full = kern(*ins[torch.float32])
+    out = kern(*a32)
+    torch.cuda.synchronize()
+    ref = plain(*a32)
+    for o, f in zip(out, full):
+        assert torch.equal(o, f[..., :B])
+    assert torch.equal(_ok(a32, out), _ok(a32, ref))
+    if B == 1007:
+        r64 = plain(*ins[torch.float64])
+        dk = (out[0].double() - r64[0]).abs().amax(0)
+        dp = (ref[0].double() - r64[0]).abs().amax(0)
+        print(_tail_reading(build, out, ref, r64))
+        assert bool(_ok(a32, out).all()), build
+        assert dk.median() <= 2 * dp.median() + 1e-5, (dk.median(),
+                                                        dp.median())
+
+
+@pytest.mark.parametrize("build", GROUP_BUILDS)
+def test_group_kernel_lane_permutation(request, build):
+    """A permutation of the lanes permutes the outputs bitwise."""
+    kern, _, ins, _ = _group_case(request, build)
+    a32 = ins[torch.float32]
+    perm = torch.randperm(1007, generator=torch.Generator().manual_seed(0))
+    perm = perm.to("cuda")
+    out, outp = kern(*a32), kern(*_lanes(a32, perm))
+    for o, op in zip(out, outp):
+        assert torch.equal(o[..., perm], op)
+
+
+@pytest.mark.parametrize("build", GROUP_BUILDS)
+def test_group_kernel_deterministic(request, build):
+    """Two launches on the same lanes give bitwise-equal outputs."""
+    kern, _, ins, _ = _group_case(request, build)
+    one, two = kern(*ins[torch.float32]), kern(*ins[torch.float32])
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("build", GROUP_BUILDS)
+def test_group_kernel_poisoned_lane_confined(request, build):
+    """One lane's v (nmpc_multipass: its zeta) set to NaN leaves every
+    other lane bitwise equal to the unpoisoned run and gives that lane
+    the plain version's pattern of non-finite outputs."""
+    kern, plain, ins, at = _group_case(request, build)
+    a32 = ins[torch.float32]
+    bad = 500
+    t = a32[at].clone()
+    t[..., bad] = float("nan")
+    p32 = a32[:at] + (t,) + a32[at + 1:]
+    out, outp = kern(*a32), kern(*p32)
+    ref = plain(*p32)
+    keep = torch.ones(1007, dtype=torch.bool, device="cuda")
+    keep[bad] = False
+    for o, op, r in zip(out, outp, ref):
+        assert torch.equal(o[..., keep], op[..., keep])
+        assert torch.equal(torch.isfinite(op[..., bad]),
+                           torch.isfinite(r[..., bad]))
