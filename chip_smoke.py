@@ -17,7 +17,8 @@ it checks the general runner's quality at B=16 and drives it at B=65536
 regimes off that route (phases S1-S4: ``nmpc_stage`` and ``nmpc_pass``
 against their plain versions, the B=16 quality of every regime of
 ``assets/nmpc_regime_refs.json`` against the JAX runner's, the stage and
-chord routes at B=65536, the kernels' times).  The bilinear controller
+chord routes at B=65536, the kernels' times, each beside its build's
+group plan and ``ptxas -v`` line).  The bilinear controller
 off the lift-fused route runs in phases R1-R4: ``bilin`` and the three
 builds of ``ipm_factored`` against their plain versions on closed-loop
 lanes, the B=16 quality of the configurations of
@@ -491,16 +492,29 @@ def main() -> int:
     qmpc64 = NonlinearKmpc(nmodel, nscaler, qcfg, device=dev,
                            dtype=torch.float64)
     qcons, ucons = qmpc.constraints(), rmpcs["unblocked"].constraints()
-    builds = _build.build_all(
-        [BL.kernel_spec(qp), op.kernel_spec(), IS.kernel_spec(cons),
-         lop.kernel_spec(), NM.kernel_spec(nqp), NP.kernel_spec(nqp)]
-        + [NS.kernel_spec(nqp, mode) for mode in N.STAGE_MODES]
-        + [BI.kernel_spec(rmpcs["iters2"].bilin_qp())]
-        + list(ipmf_specs.values())
-        + [IF.kernel_spec(qcons, nqp.p, q0=True),
-           IS.kernel_spec(qcons, lane_p=True),
-           IS.kernel_spec(ucons, lane_p=True),
-           BC.kernel_spec(qcons.n), BC.kernel_spec(ucons.n)])
+    specs = ([BL.kernel_spec(qp), op.kernel_spec(), IS.kernel_spec(cons),
+              lop.kernel_spec(), NM.kernel_spec(nqp), NP.kernel_spec(nqp)]
+             + [NS.kernel_spec(nqp, mode) for mode in N.STAGE_MODES]
+             + [BI.kernel_spec(rmpcs["iters2"].bilin_qp())]
+             + list(ipmf_specs.values())
+             + [IF.kernel_spec(qcons, nqp.p, q0=True),
+                IS.kernel_spec(qcons, lane_p=True),
+                IS.kernel_spec(ucons, lane_p=True),
+                BC.kernel_spec(qcons.n), BC.kernel_spec(ucons.n)])
+    builds = _build.build_all(specs)
+    ptxas_of = {sp: r.ptxas for sp, r in zip(specs, builds)}
+
+    def plan_line(kernel, mode=None) -> str:
+        """A one-pass build's group plan and its ``ptxas -v`` lines."""
+        if kernel == "nmpc_stage":
+            plan, spec = NS.launch_plan(nqp), NS.kernel_spec(nqp, mode)
+        else:
+            plan, spec = NP.launch_plan(nqp), NP.kernel_spec(nqp)
+        return (f"plan: group {plan.group}, {plan.lanes} lanes a block, "
+                f"{plan.min_blocks or 'no bound on'} blocks an SM; ptxas: "
+                + " | ".join(
+                    ln.split("ptxas info    :")[-1].strip()
+                    for ln in ptxas_of[spec] if "Compile time" not in ln))
     for r in builds:
         log(f"built {r.path.name} in {r.seconds:.1f} s "
             f"({'cached' if r.cached else 'nvcc'})")
@@ -809,6 +823,9 @@ def main() -> int:
             raise AssertionError(f"{kernel} kernel disagrees with plain")
         return dx
 
+    for mode in N.STAGE_MODES:
+        log(f"nmpc_stage {mode} {plan_line('nmpc_stage', mode)}")
+    log(f"nmpc_pass {plan_line('nmpc_pass')}")
     sin = pass_inputs(nz8, nu8, nwins[3])
     ns_err = max(check_onepass("nmpc_stage", mode, sin, warm, f"B={B_CHECK}")
                  for mode in N.STAGE_MODES for warm in (False, True))
@@ -1430,8 +1447,12 @@ def main() -> int:
                             * nqp.Np * nqp.nz * (nqp.nza + 1))
     log(f"nmpc_stage per mode at B={B_GENERAL} | {smi}: " + "; ".join(
         f"{m} {t[0]:.4f} ms (plain {t[1]:.2f} ms, bound {t[3]:.4f} ms by "
-        f"{t[4]}, {t[2] / B_GENERAL:.0f} op/lane)"
+        f"{t[4]}, {t[2] / B_GENERAL:.0f} op/lane; "
+        f"{plan_line('nmpc_stage', m)})"
         for m, t in stage_t.items()) + f"; main-path mix {mix}")
+    log(f"nmpc_pass at B={B_GENERAL} | {smi}: {np_ms:.4f} ms (plain "
+        f"{np_plain:.2f} ms, bound {np_bound:.4f} ms by {np_by}; "
+        f"{plan_line('nmpc_pass')})")
     del nzG, nuG, gin, d32
 
     # ---- phase R4: bilin and each ipm_factored build against their plain

@@ -11,12 +11,14 @@ every kernel in four processes -- DIR, this tree, this tree, DIR -- each
 building its kernels from its own sources.  Each process also prints the
 ``ptxas -v`` lines of its builds.  In this tree it times the
 cooperative interior point's builds (``ipm_factored``'s four,
-``nmpc_multipass``) at other group sizes and launch bounds than their
-plans' (``ops/kernels/ipm_group.py``), and the redesigned kernels
-without their interior-point iterations.  Two more processes, DIR and
-this tree, build the redesigned kernels with ``-fmad=false`` (no
-contraction of a multiply and an add into an FMA) and compare their
-outputs.  For each ``ipm_factored`` build it then holds both trees'
+``nmpc_multipass``, ``nmpc_stage``'s three, ``nmpc_pass``) at other group
+sizes and launch bounds than their plans' (``ops/kernels/ipm_group.py``);
+in both trees it times the redesigned kernels without their
+interior-point iterations (``iters=0``: the sweep, or the staging and
+Gram, alone) and with one.  Two more processes, DIR and this tree,
+build the redesigned kernels with ``-fmad=false`` (no contraction of a
+multiply and an add into an FMA) and compare their outputs: every
+``nmpc_stage`` mode cold and warm, ``nmpc_pass`` fresh and frozen.  For each ``ipm_factored`` build it then holds both trees'
 kernels and plain f32 against plain f64 on the same lanes: the median
 and p99 per-lane distances, the lanes beyond 1e-4 / 1e-3 / 1e-2, how
 often a 1024-lane subset fails the p99 gate of the card tests (within
@@ -60,6 +62,8 @@ FACTORED_VARIANTS = (("iters2", (8, 16, 32), (0,)),
                      ("unblocked", (16, 32), (0, 2, 3)),
                      ("unblocked_smooth", (16, 32), (0, 2, 3)))
 NMPC_VARIANTS = ((4, (4,)), (8, (0, 3, 4, 5)), (16, (4,)))
+# the one-pass kernels' alternatives: (group sizes, blocks an SM)
+ONEPASS_VARIANTS = (((2, 4, 8, 16), (4,)), ((4, 8), (0, 3, 5, 6)))
 # the card tests' p99 gate is taken over ~1000 lanes
 SUBSET = 1024
 
@@ -174,18 +178,31 @@ def make_inputs(S: Setup) -> dict:
     zeta, sq = ysc.contiguous(), S.nwins[3].contiguous()
     out["nmpc_multipass"] = (nm.nmpc_qp(), zeta, upsc, sq,
                              nm.cfg.sqp_iters, nm.hold0, nm.cfg.qp_iters)
-    # one SQP pass along the multipass plan (rho = 0.1, cold duals)
-    U, _ = nm.solve(zeta, upsc, sq)
+    # one SQP pass along the multipass plan (rho = 0.1), cold duals and
+    # warm (the plan's multipliers in row units); the chord pass from
+    # fresh Jacobians and from Jacobians frozen at the held state
+    U, sol = nm.solve(zeta, upsc, sq)
     q_ = nm.nmpc_qp(nm.RdT_t + 0.1 * nm.bsizes_t)
     Z = N.rollout(q_, zeta, U)
     tail = U[3:]
-    one = (zeta, upsc, sq, (nm.Sel_t @ tail).contiguous(),
-           (-0.2 * (nm.Tb_t.T @ tail)).contiguous(), None, 8, 1e-2)
+    x0 = (nm.Sel_t @ tail).contiguous()
+    q0 = (-0.2 * (nm.Tb_t.T @ tail)).contiguous()
+    lam0 = (sol.lam * q_.row[:, None]).contiguous()
     Zl, Fv = Z[:-1].contiguous(), Z[1:].contiguous()
-    out["nmpc_stage hold"] = ((q_, "hold") + one, {})
-    out["nmpc_stage roll"] = ((q_, "roll") + one, dict(Ul=U))
-    out["nmpc_stage ship"] = ((q_, "ship") + one, dict(Zl=Zl, Ul=U, Fv=Fv))
-    out["nmpc_pass"] = ((q_,) + N.stage_lin(q_, Zl, U, Fv=Fv) + one, {})
+    Jh = N.stage_lin(q_, zeta.expand((nm.Np,) + zeta.shape),
+                     upsc.repeat(nm.Np, 1))[0]
+    for warm in (False, True):
+        one = (zeta, upsc, sq, x0, q0, lam0 if warm else None, 8, 1e-2)
+        w = " warm" if warm else ""
+        out["nmpc_stage hold" + w] = ((q_, "hold") + one, {})
+        out["nmpc_stage roll" + w] = ((q_, "roll") + one, dict(Ul=U))
+        out["nmpc_stage ship" + w] = ((q_, "ship") + one,
+                                      dict(Zl=Zl, Ul=U, Fv=Fv))
+        if not warm:
+            out["nmpc_pass"] = ((q_,) + N.stage_lin(q_, Zl, U, Fv=Fv)
+                                + one, {})
+            out["nmpc_pass frozen"] = ((q_,) + N.stage_lin(
+                q_, Zl, U, frozen=Jh, Fv=Fv) + one, {})
 
     # the 'linear' update's second-pass QP (the q0 build) and its dense P
     qm = S.qmpc
@@ -240,12 +257,32 @@ def make_inputs(S: Setup) -> dict:
 
 
 FACTORED = ("iters2", "q0", "unblocked", "unblocked_smooth")
+STAGE_MODES = ("hold", "roll", "ship")
+ONEPASS = tuple("nmpc_stage " + m for m in STAGE_MODES) + ("nmpc_pass",)
 REDESIGNED = tuple("ipm_factored " + name for name in FACTORED) \
-    + ("nmpc_multipass",)
-# the factored builds' outputs after 0 and 1 iterations, for the
-# comparison of parent and change
-FIRST_ITERATIONS = tuple(f"ipm_factored {name} iters={it}"
-                         for name in FACTORED for it in (0, 1))
+    + ("nmpc_multipass",) + ONEPASS \
+    + tuple(f"nmpc_stage {m} warm" for m in STAGE_MODES) \
+    + ("nmpc_pass frozen",)
+# the factored and one-pass builds' outputs after 0 and 1 iterations,
+# for the comparison of parent and change
+FIRST_ITERATIONS = tuple(f"{k} iters={it}" for k in
+                         tuple("ipm_factored " + name for name in FACTORED)
+                         + ONEPASS for it in (0, 1))
+
+
+def onepass_call(ins: dict, key: str, iters=None, launch=None):
+    """A launch of one-pass kernel ``key``'s saved arguments (``iters``:
+    another iteration count; ``launch``: another entry point taking the
+    same arguments, as the plan-taking ``_launch``)."""
+    from koopman_realizations_torch.ops.kernels import nmpc_pass as NP
+    from koopman_realizations_torch.ops.kernels import nmpc_stage as NS
+    a, kw = ins[key]
+    if iters is not None:
+        at = 8 if key.startswith("nmpc_stage") else 9
+        a = a[:at] + (iters,) + a[at + 1:]
+    fn = launch or (NS.nmpc_stage_cuda if key.startswith("nmpc_stage")
+                    else NP.nmpc_pass_cuda)
+    return lambda: fn(*a, **kw)
 
 
 def redesigned_runs(ins: dict) -> tuple:
@@ -275,6 +312,27 @@ def redesigned_runs(ins: dict) -> tuple:
         lambda: NM.nmpc_multipass_cuda(*nmp[:6], 0), 5)
     runs["nmpc_multipass passes=1"] = (
         lambda: NM.nmpc_multipass_cuda(*nmp[:4], 1, *nmp[5:]), 5)
+    sp, ru = onepass_runs(ins)
+    specs.update(sp)
+    runs.update(ru)
+    return specs, runs
+
+
+def onepass_runs(ins: dict) -> tuple:
+    """The one-pass kernels, each mode cold and warm, fresh and frozen
+    Jacobians; the sweep alone (iters=0) and one iteration."""
+    from koopman_realizations_torch.ops.kernels import nmpc_pass as NP
+    from koopman_realizations_torch.ops.kernels import nmpc_stage as NS
+    specs, runs = {}, {}
+    qp1 = ins["nmpc_pass"][0][0]
+    for mode in STAGE_MODES:
+        specs["nmpc_stage " + mode] = NS.kernel_spec(qp1, mode)
+    specs["nmpc_pass"] = NP.kernel_spec(qp1)
+    for key in REDESIGNED[len(FACTORED) + 1:]:
+        runs[key] = (onepass_call(ins, key), 10)
+    for key in ONEPASS:
+        for it in (0, 1):
+            runs[f"{key} iters={it}"] = (onepass_call(ins, key, it), 10)
     return specs, runs
 
 
@@ -308,11 +366,45 @@ def variant_runs(ins: dict) -> tuple:
             key = f"nmpc_multipass G={g} min_blocks={mb}"
             specs[key] = NM._spec(nmp[0], plan)
             runs[key] = (lambda plan=plan: NM._launch(plan, *nmp), 5)
+    sp, ru = onepass_variant_runs(ins)
+    specs.update(sp)
+    runs.update(ru)
+    return specs, runs
+
+
+def onepass_variant_runs(ins: dict) -> tuple:
+    """The one-pass kernels at the plans of ``ONEPASS_VARIANTS``."""
+    import dataclasses
+
+    from koopman_realizations_torch.ops.kernels import nmpc_pass as NP
+    from koopman_realizations_torch.ops.kernels import nmpc_stage as NS
+    specs, runs = {}, {}
+    for key in ONEPASS:
+        qp1 = ins[key][0][0]
+        mode = key.split()[1] if key.startswith("nmpc_stage") else None
+        base = (NP if mode is None else NS).launch_plan(qp1)
+        for groups, mbs in ONEPASS_VARIANTS:
+            for g in groups:
+                for mb in mbs:
+                    plan = dataclasses.replace(base, group=g,
+                                               min_blocks=mb).check()
+                    name = f"{key} G={g} min_blocks={mb}"
+                    if mode is None:
+                        specs[name] = NP._spec(qp1, plan)
+                        fn = lambda *a, plan=plan: NP._launch(plan, *a)
+                    else:
+                        specs[name] = NS._spec(qp1, mode, plan)
+                        fn = lambda *a, plan=plan, **kw: NS._launch(
+                            plan, *a, **kw)
+                    runs[name] = (onepass_call(ins, key, launch=fn), 10)
+                    # the sweep launch and an empty solve
+                    runs[name + " iters=0"] = (
+                        onepass_call(ins, key, 0, launch=fn), 10)
     return specs, runs
 
 
 def other_runs(ins: dict) -> tuple:
-    """Specs and launches of the eight kernels not redesigned."""
+    """Specs and launches of the six kernels not redesigned."""
     import torch
 
     from koopman_realizations_torch.ops.kernels import batch_chol as BC
@@ -320,23 +412,17 @@ def other_runs(ins: dict) -> tuple:
     from koopman_realizations_torch.ops.kernels import bilin_lift as BL
     from koopman_realizations_torch.ops.kernels import ipm_shared as IS
     from koopman_realizations_torch.ops.kernels import linear_step_fused as LS
-    from koopman_realizations_torch.ops.kernels import nmpc_pass as NP
-    from koopman_realizations_torch.ops.kernels import nmpc_stage as NS
     from koopman_realizations_torch.ops.kernels import step_fused as SF
     S = Setup()
     op = SF.build_step_fused(S.mpc, S.arm, S.scaler)
     lop = LS.build_linear_step_fused(S.lmpc, S.arm, S.lscaler)
-    sq_ = ins["nmpc_stage hold"][0][0]
     specs = {"step_fused": op.kernel_spec(),
              "bilin_lift": BL.kernel_spec(op.qp),
              "linear_step_fused": lop.kernel_spec(),
              "ipm_shared": IS.kernel_spec(S.lmpc.constraints()),
              "bilin": BI.kernel_spec(ins["bilin"][0]),
-             "nmpc_pass": NP.kernel_spec(sq_),
              "batch_chol n=12": BC.kernel_spec(12),
              "batch_chol n=27": BC.kernel_spec(27)}
-    for mode in ("hold", "roll", "ship"):
-        specs["nmpc_stage " + mode] = NS.kernel_spec(sq_, mode)
     for key in ("n=12", "n=27"):
         specs["ipm_shared lane-P " + key] = IS.kernel_spec(
             ins["ipm_shared lane-P " + key][0], lane_p=True)
@@ -364,12 +450,7 @@ def other_runs(ins: dict) -> tuple:
             1e-2), 10),
         "linear_step_fused": (lambda: lop.step(lcB, fY[0], out=loB), 10),
         "ipm_shared": (lambda: IS.ipm_shared_cuda(*lin), 10),
-        "bilin": (lambda: BI.bilin_cuda(*ins["bilin"]), 10),
-        "nmpc_pass": (lambda: NP.nmpc_pass_cuda(*ins["nmpc_pass"][0]), 10)}
-    for mode in ("hold", "roll", "ship"):
-        a, kw = ins["nmpc_stage " + mode]
-        runs["nmpc_stage " + mode] = (
-            lambda a=a, kw=kw: NS.nmpc_stage_cuda(*a, **kw), 10)
+        "bilin": (lambda: BI.bilin_cuda(*ins["bilin"]), 10)}
     for key in ("n=12", "n=27"):
         a = ins["ipm_shared lane-P " + key]
         runs["ipm_shared lane-P " + key] = (
@@ -396,9 +477,12 @@ def time_tree(inputs_path: str, mode: str, x_out: str, nvcc=()) -> dict:
         sp, ru = more(ins)
         specs.update(sp)
         runs.update(ru)
-    built = _build.build_all(list(specs.values()))
-    ptxas = {k: [ln.strip() for ln in r.ptxas if "Compile time" not in ln]
-             for k, r in zip(specs, built)}
+    # a variant equal to a plan is built once
+    uniq = list(dict.fromkeys(specs.values()))
+    built = dict(zip(uniq, _build.build_all(uniq)))
+    ptxas = {k: [ln.strip() for ln in built[spec].ptxas
+                 if "Compile time" not in ln]
+             for k, spec in specs.items()}
     torch.save({k: [t.cpu() for t in runs[k][0]()]
                 for k in REDESIGNED + FIRST_ITERATIONS}, x_out)
     times = {} if mode == "outputs" else \

@@ -1,8 +1,9 @@
 // The cooperative interior point: one lane's Mehrotra predictor-corrector
 // run by a group of KG_GROUP threads, with the lane's matrices in shared
-// memory (ipm_factored.cu, nmpc_multipass.cu).
+// memory (ipm_factored.cu; through nmpc_group.cuh nmpc_multipass.cu,
+// nmpc_stage.cu and nmpc_pass.cu).
 //
-// It replaces, for those two kernels, the thread-per-lane loop of
+// It replaces, for those four kernels, the thread-per-lane loop of
 // kmpc_device.cuh (km::mehrotra with form_newton, chol, chol_solve,
 // direction), which keeps the Hessian, M and L (3 n^2 floats) in one
 // thread's registers or, at n=27, in thread-local memory.  Both compute
@@ -14,6 +15,14 @@
 // - A lane's scaled Hessian Pr and its Newton matrix M, factored in place
 //   into L, are packed lower triangles (column-major, T = n (n+1) / 2
 //   floats each) in shared memory: 0.6 KB at n=12, 3.0 KB at n=27.
+// - ipm_factored.cu stages its lanes' W in the block's shared memory and
+//   keeps a lane region of [x][obj][Pr | q | u_prev  or  s | lam]; the
+//   NMPC kernels' compact plan keeps [x][obj][u_prev] a lane, a lane a
+//   thread in their thread-per-lane stage sweep, the Hessian and q handed
+//   from the lane's thread to its group through a row of device scratch
+//   (nmpc_multipass in one launch a step; nmpc_stage and nmpc_pass in a
+//   sweep launch and a solve launch), the Hessian copied into the
+//   group's work region (ops/kernels/ipm_group.py lays out both).
 // - The lane-shared operands -- A (odd row stride), the banded A^T D A
 //   tables Wd/Wo (odd stride) or the dense rows' nonzero values, and A's
 //   nonzero structure -- are loaded into shared memory once per block

@@ -1,15 +1,14 @@
 // Device functions of the SQP NMPC kernels (nmpc_multipass.cu,
 // nmpc_stage.cu, nmpc_pass.cu): the composed dynamics F, the analytic
-// stage Jacobian, the defects, the sensitivity condensation streamed into
-// the factored Gram, and the pass's QP from that Gram; one CUDA thread per
-// lane.
+// stage Jacobian, the defects and the sensitivity condensation streamed
+// into the factored Gram; one CUDA thread per lane.  The pass's QP from
+// that Gram is nmpc_group.cuh's.
 //
 // They replace the NMPC device code of the JAX package: _eval_F_rows
 // (ops/pallas/qp_ipm.py:1397), the in-kernel Jacobian J = A1 + G g_low and
-// the defects (:1496-1528 and :1642-1676), _nmpc_condense_core (:1082)
-// with the factored Gram, the objective scale and the dual start of
-// _nmpc_kernel (:1191-1220) and _nmpc_stage_kernel (:1687-1713).  The
-// plain PyTorch version of each is in ops/nmpc.py.
+// the defects (:1496-1528 and :1642-1676) and _nmpc_condense_core (:1082)
+// with the factored Gram.  The plain PyTorch version of each is in
+// ops/nmpc.py.
 //
 // One forward sweep over the stages serves every kernel: it asks a stage
 // source for stage k's Jacobian and defects, propagates the sensitivities
@@ -371,73 +370,6 @@ __device__ __forceinline__ void condense_sweep(const Nmpc& op, Stages& stages,
     stages(k, J, cv);
     propagate(COLS[k], J, cv, S, s);
   }
-}
-
-// ------------------------------------------------------- the pass's QP
-// The Levenberg term of q: q0c * x_prev (the multipass kernel, from the
-// previous pass's x), a per-lane q0 or none (the one-pass kernels).
-struct LevenbergTerm {
-  const float* q0c;
-  const float (&xp)[KM_N];
-  __device__ __forceinline__ float operator()(int i) const {
-    return ldg(q0c + i) * xp[i];
-  }
-};
-struct LaneTerm {
-  const float* q0;      // (KM_N, B) at the lane, or null
-  long long B;
-  __device__ __forceinline__ float operator()(int i) const {
-    return q0 ? q0[i * B] : 0.0f;
-  }
-};
-// The dual start: cold (lam = 1), or sqrt(clip(lam0_row / obj, 1e-4,
-// 1e4)) from a per-lane lam0 in row-equilibrated units (cold where null).
-struct ColdDuals {
-  __device__ __forceinline__ float operator()(int, float) const { return 1.0f; }
-};
-struct LaneDuals {
-  const float* lam0;    // (KM_MC, B) at the lane, or null
-  long long B;
-  __device__ __forceinline__ float operator()(int c, float iobj) const {
-    return lam0 ? ksqrt(nclip(lam0[c * B] * iobj, 1e-4f, 1e4f)) : 1.0f;
-  }
-};
-
-// The pass's QP from the swept Gram: P = 2 (W^T W + diag(rdiag)),
-// q = 2 W^T v + the Levenberg term, then the objective scale, the
-// regularization, the dual start and the Mehrotra loop from x (the primal
-// start on entry).  Returns obj.
-template <class Q0, class Lam0>
-__device__ __forceinline__ float solve_pass(const Cons& con, int iters,
-                                            float slack_floor,
-                                            float (&Pr)[KM_N][KM_N],
-                                            float (&q)[KM_N], const Q0& q0,
-                                            const Lam0& lam0,
-                                            const float (&b)[KM_MC],
-                                            float (&x)[KM_N],
-                                            float (&s)[KM_MC],
-                                            float (&lam)[KM_MC]) {
-#pragma unroll
-  for (int i = 0; i < KM_N; ++i) {
-    q[i] = 2.0f * q[i] + q0(i);
-#pragma unroll
-    for (int k = 0; k <= i; ++k) {
-      Pr[i][k] *= 2.0f;
-      Pr[k][i] = Pr[i][k];
-    }
-  }
-  const float obj = diag_obj_scale(Pr);
-  const float iobj = kdiv(1.0f, obj);
-#pragma unroll
-  for (int i = 0; i < KM_N; ++i) {
-    q[i] = q[i] * iobj;
-#pragma unroll
-    for (int j = 0; j < KM_N; ++j) Pr[i][j] = Pr[i][j] * iobj + (i == j ? kReg : 0.0f);
-  }
-#pragma unroll
-  for (int c = 0; c < KM_MC; ++c) lam[c] = lam0(c, iobj);
-  mehrotra(con, iters, slack_floor, LaneHessian{Pr}, q, b, x, s, lam);
-  return obj;
 }
 
 }  // namespace km

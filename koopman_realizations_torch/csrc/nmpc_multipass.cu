@@ -22,15 +22,16 @@
 // input and output, so the f32 rate (67 TFLOP/s outside the tensor
 // cores), not the 3.35 TB/s, sets the floor.
 //
-// Design: a block takes KG_LANES lanes, one a thread.  Each pass, every
-// thread runs its lane's forward sweep over the stages
-// (nmpc_device.cuh:condense_sweep with the rolled source: F, J, defects,
-// propagation and the projected rows' Gram terms; the W block is never
-// stored), forms the pass's QP -- P = 2 (W^T W + diag r), q = 2 W^T v +
-// q0c x_prev, the objective scale and the regularization, as solve_pass
-// does -- and hands the scaled Hessian (packed, 78 floats at n=12) and q
-// over through a device scratch row of its own (x_prev and u_prev through
-// shared memory).  The block then solves its lanes' QPs KG_THREADS /
+// Design (the skeleton of nmpc_group.cuh, shared with the one-pass
+// kernels nmpc_stage.cu and nmpc_pass.cu): a block takes KG_LANES lanes,
+// one a thread.  Each pass, every thread runs its lane's forward sweep
+// over the stages (nmpc_device.cuh:condense_sweep with the rolled source:
+// F, J, defects, propagation and the projected rows' Gram terms; the W
+// block is never stored), forms the pass's QP -- P = 2 (W^T W + diag r),
+// q = 2 W^T v + q0c x_prev, the objective scale and the regularization
+// (kn::hand_over) -- and hands the scaled Hessian (packed, 78 floats at
+// n=12) and q over through a device scratch row of its own (x_prev and
+// u_prev through shared memory).  The block then solves its lanes' QPs KG_THREADS /
 // KG_GROUP at a time with the cooperative Mehrotra loop (a group of
 // KG_GROUP threads a lane, the Hessian copied into the group's shared
 // work region, the factor beside it), each from x_prev with cold duals;
@@ -42,8 +43,7 @@
 // hence the hand-over through device memory (written and read back
 // within the pass, an L2 round trip) rather than a shared tile of all the
 // block's lanes.
-#include "ipm_group.cuh"
-#include "nmpc_device.cuh"
+#include "nmpc_group.cuh"
 
 struct NmpcArgs {
   km::Nmpc op;
@@ -61,92 +61,6 @@ struct NmpcArgs {
   int passes;
   int hold0;
 };
-
-// The lane region holds x, obj and u_prev; the scaled Hessian (packed)
-// and q go through the lane's device scratch row, the Hessian on into its
-// group's work region.
-#define KG_H_UP KG_L_REST
-#define KG_W_PR (KG_T + KM_N + KM_MC)
-
-// The pass's QP from the swept Gram, as km::solve_pass forms it before
-// its Mehrotra loop: P = 2 (W^T W + diag(rdiag)), q = 2 W^T v + q0c x_prev,
-// the objective scale and the regularized Hessian; the Hessian's lower
-// triangle and q into the lane's scratch row H.  Returns obj.
-__device__ __forceinline__ float hand_over(const km::Nmpc& op,
-                                           float (&Pr)[KM_N][KM_N],
-                                           float (&q)[KM_N],
-                                           const float (&xp)[KM_N],
-                                           float* H) {
-#pragma unroll
-  for (int i = 0; i < KM_N; ++i) {
-    q[i] = 2.0f * q[i] + km::ldg(op.q0c + i) * xp[i];
-#pragma unroll
-    for (int k = 0; k <= i; ++k) {
-      Pr[i][k] *= 2.0f;
-      Pr[k][i] = Pr[i][k];
-    }
-  }
-  const float obj = km::diag_obj_scale(Pr);
-  const float iobj = km::kdiv(1.0f, obj);
-#pragma unroll
-  for (int i = 0; i < KM_N; ++i) {
-    H[KG_T + i] = q[i] * iobj;
-#pragma unroll
-    for (int k = 0; k <= i; ++k)
-      H[kg::tidx(i, k)] = Pr[i][k] * iobj + (i == k ? km::kReg : 0.0f);
-  }
-  return obj;
-}
-
-// One lane's pass QP by its group: the Hessian from the lane's scratch
-// row into the work region, q to its owners, the right-hand side
-// b = cFr - F0r u_prev for the group's rows, cold duals, the Mehrotra loop
-// from x_prev (the lane's x slot, updated in place); after the last pass
-// the group stores s and lam of a lane in the batch.
-__device__ __forceinline__ void solve_lane(const NmpcArgs& a,
-                                           const kg::Shared& sh, float* sm,
-                                           int ql, int grp, int g,
-                                           bool last) {
-  const km::Nmpc& op = a.op;
-  float* H = kg::lane_region(sm, ql);
-  float* w = kg::work_region(sm, grp);
-  const kg::Lane L{w + KG_W_PR, H + KG_L_X, w, w + KG_T, w + KG_T + KM_N};
-  const float* hs = a.scratch
-      + ((long long)blockIdx.x * KG_LANES + ql) * (KG_T + KM_N);
-  for (int t = g; t < KG_T; t += KG_GROUP) L.Pr[t] = hs[t];
-  float q[KG_NO], rhs[KG_R], s[KG_R], lam[KG_R];
-#pragma unroll
-  for (int o = 0; o < KG_NO; ++o) {
-    const int i = g + KG_GROUP * o;
-    q[o] = i < KM_N ? hs[KG_T + i] : 0.0f;
-  }
-#pragma unroll
-  for (int k = 0; k < KG_R; ++k) {
-    const int c = g + KG_GROUP * k;
-    float bc = 0.0f;
-    if (c < KM_MC) {
-      bc = km::ldg(op.cFr + c);
-#pragma unroll
-      for (int j = 0; j < KM_M; ++j)
-        bc = bc - km::ldg(op.F0r + c * KM_M + j) * H[KG_H_UP + j];
-    }
-    rhs[k] = bc;
-    lam[k] = 1.0f;
-  }
-  kg::gsync();
-  kg::mehrotra(sh, L, g, a.iters, 1e-2f, q, rhs, s, lam);
-  const long long b = (long long)blockIdx.x * KG_LANES + ql;
-  if (last && b < a.B) {
-#pragma unroll
-    for (int k = 0; k < KG_R; ++k) {
-      const int c = g + KG_GROUP * k;
-      if (c < KM_MC) {
-        a.s[c * a.B + b] = s[k];
-        a.lam[c * a.B + b] = lam[k];
-      }
-    }
-  }
-}
 
 __global__ void KG_BOUNDS
 nmpc_multipass_kernel(const NmpcArgs a) {
@@ -190,15 +104,15 @@ nmpc_multipass_kernel(const NmpcArgs a) {
       km::RolledStages<km::PlanInput> stages(op, km::PlanInput{up, xp},
                                              pass == 0 && a.hold0, zeta);
       km::condense_sweep(op, stages, zeta, up, sq, sq_step, Pr, q);
-      obj = hand_over(op, Pr, q, xp,
-                      a.scratch + ((long long)blockIdx.x * KG_LANES + tid)
-                                      * (KG_T + KM_N));
+      obj = kn::hand_over(Pr, q, kn::LevenbergTerm{op.q0c, xp},
+                          kn::scratch_row(a.scratch, b));
     }
     __syncthreads();
     const bool last = pass + 1 == a.passes;
 #pragma unroll 1
     for (int round = 0; round < KG_ROUNDS; ++round)
-      solve_lane(a, sh, sm, round * KG_GROUPS + grp, grp, g, last);
+      kn::solve_lane(a, sh, sm, round * KG_GROUPS + grp, grp, g, last, 1e-2f,
+                     kn::ColdDuals{});
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < KM_N; ++i) xp[i] = H[KG_L_X + i];

@@ -1,5 +1,6 @@
 // One SQP pass of the NMPC from shipped stage Jacobians and defects,
-// batched: one CUDA thread per lane.
+// batched: the stage sweep a thread per lane, the pass's QP a group of
+// threads per lane (nmpc_group.cuh, ipm_group.cuh).
 //
 // Replaces the TPU kernel _nmpc_kernel (koopman_realizations_tpu/ops/
 // pallas/qp_ipm.py:1144, called at :1340 by solve_qp_nmpc_batched), which
@@ -20,14 +21,16 @@
 // (the sweep and 8 Mehrotra iterations; chip_smoke.py:nmpc_onepass_ops)
 // on ~3 KB of lane input and output (Jt alone is 540 floats): ~18
 // operations per byte against the card's 67 TFLOP/s / 3.35 TB/s = 20.
-// The Jacobians are read once each, in the order the sweep consumes them,
-// coalesced over the lanes; the rest is the multipass kernel's design
-// (nmpc_device.cuh).
-#include "nmpc_device.cuh"
-
-#ifndef KM_THREADS
-#define KM_THREADS 128
-#endif
+//
+// Design: the skeleton of nmpc_group.cuh in two launches (nmpc_stage.cu's,
+// with another stage source).  The sweep launch runs each lane over its
+// shipped Jacobians -- read once each, in the order the sweep consumes
+// them, coalesced over the lanes -- a thread per lane, and writes the
+// pass's scaled Hessian and q (with the per-lane q0) to the lane's device
+// scratch row; the solve launch then solves the lanes' QPs a group of
+// KG_GROUP threads a lane, from x0 with cold duals or the warm lam0.  The
+// plan is ops/kernels/ipm_group.py:onepass_plan.
+#include "nmpc_group.cuh"
 
 struct PassArgs {
   km::Nmpc op;         // rdiag: this pass's input cost + rho bsizes
@@ -43,50 +46,38 @@ struct PassArgs {
   float* s;            // (KM_MC, B)
   float* lam;          // (KM_MC, B) equilibrated multipliers
   float* obj;          // (B) objective scale
+  float* scratch;      // (grid * KG_LANES, KG_T + KM_N) hand-over
   long long B;
   int sqRef_lanes;
   int iters;
   float slack_floor;
 };
 
-__global__ void __launch_bounds__(KM_THREADS)
-nmpc_pass_kernel(const PassArgs a) {
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= a.B) return;
-  const long long B = a.B;
-  const km::Nmpc& op = a.op;
-  float zeta[KN_NZ], up[KM_M], x[KM_N], s[KM_MC], lam[KM_MC], rhs[KM_MC];
-#pragma unroll
-  for (int i = 0; i < KN_NZ; ++i) zeta[i] = a.zeta[i * B + b];
-#pragma unroll
-  for (int j = 0; j < KM_M; ++j) up[j] = a.up[j * B + b];
-#pragma unroll
-  for (int i = 0; i < KM_N; ++i) x[i] = a.x0[i * B + b];
-  const float* sq = a.sqRef_lanes ? a.sqRef + b : a.sqRef;
-  const long long sq_step = a.sqRef_lanes ? B : 1;
-  km::rhs_b(op.cFr, op.F0r, up, rhs);
-  float Pr[KM_N][KM_N], q[KM_N];
-  {
-    km::ShippedJacobians stages{a.Jt + b, a.cv + b, B};
-    km::condense_sweep(op, stages, zeta, up, sq, sq_step, Pr, q);
+// Lane b's sweep over its shipped Jacobians and defects.
+struct PassSweep {
+  const PassArgs& a;
+  __device__ __forceinline__ void operator()(long long b,
+                                             const float (&zeta)[KN_NZ],
+                                             const float (&up)[KM_M],
+                                             const float* sq,
+                                             long long sq_step,
+                                             float (&Pr)[KM_N][KM_N],
+                                             float (&q)[KM_N]) const {
+    km::ShippedJacobians stages{a.Jt + b, a.cv + b, a.B};
+    km::condense_sweep(a.op, stages, zeta, up, sq, sq_step, Pr, q);
   }
-  const float obj = km::solve_pass(
-      op.con, a.iters, a.slack_floor, Pr, q,
-      km::LaneTerm{a.q0 ? a.q0 + b : nullptr, B},
-      km::LaneDuals{a.lam0 ? a.lam0 + b : nullptr, B}, rhs, x, s, lam);
-#pragma unroll
-  for (int i = 0; i < KM_N; ++i) a.x[i * B + b] = x[i];
-#pragma unroll
-  for (int c = 0; c < KM_MC; ++c) {
-    a.s[c * B + b] = s[c];
-    a.lam[c * B + b] = lam[c];
-  }
-  a.obj[b] = obj;
+};
+
+__global__ void __launch_bounds__(KG_THREADS)
+nmpc_pass_sweep(const PassArgs a) {
+  kn::sweep_pass(a, PassSweep{a});
+}
+
+__global__ void KG_BOUNDS nmpc_pass_kernel(const PassArgs a) {
+  kn::one_pass(a);
 }
 
 extern "C" int km_nmpc_pass(const PassArgs* args, void* stream) {
-  if (args->B <= 0) return 0;
-  const unsigned grid = (unsigned)((args->B + KM_THREADS - 1) / KM_THREADS);
-  nmpc_pass_kernel<<<grid, KM_THREADS, 0, (cudaStream_t)stream>>>(*args);
-  return (int)cudaGetLastError();
+  return kn::launch_one_pass<PassArgs>(nmpc_pass_sweep, nmpc_pass_kernel,
+                                       args, stream);
 }

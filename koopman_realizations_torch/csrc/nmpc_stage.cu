@@ -1,5 +1,6 @@
 // One SQP pass of the NMPC with the stage Jacobians and defects formed in
-// the kernel, batched: one CUDA thread per lane.
+// the kernel, batched: the stage sweep a thread per lane, the pass's QP a
+// group of threads per lane (nmpc_group.cuh, ipm_group.cuh).
 //
 // Replaces the TPU kernel _nmpc_stage_kernel (koopman_realizations_tpu/
 // ops/pallas/qp_ipm.py:1560, called at :1961 by
@@ -23,16 +24,25 @@
 // lane (ten F and J evaluations, the sweep, 8 Mehrotra iterations), a
 // 'ship' pass ~0.11 M and a 'hold' pass ~0.06 M (chip_smoke.py:
 // nmpc_onepass_ops), on 0.5-1.1 KB of lane input and output, so the f32
-// rate (67 TFLOP/s outside the tensor cores) sets the floor.  The design is
-// the multipass kernel's (nmpc_device.cuh): one forward sweep over the
-// stages with the W block never stored, statically indexed per-lane
-// arrays, lane-shared operands as warp-uniform broadcasts through the
-// read-only cache, the shipped trajectory read coalesced over the lanes.
-#include "nmpc_device.cuh"
+// rate (67 TFLOP/s outside the tensor cores) sets the floor.
+//
+// Design: the skeleton of nmpc_group.cuh, in two launches.  The sweep
+// (nmpc_stage_sweep, a thread per lane, no cap on its registers) runs
+// each lane's stages along the build's trajectory source
+// (nmpc_device.cuh:condense_sweep: one forward sweep, the W block never
+// stored, lane-shared operands as warp-uniform broadcasts through the
+// read-only cache, the shipped trajectory read coalesced over the
+// lanes), forms the pass's QP with the per-lane q0 and writes the scaled
+// Hessian and q to the lane's device scratch row and obj to its output.
+// The solve (nmpc_stage_kernel) takes KG_LANES lanes a block: each thread
+// writes its lane's u_prev, shipped x0 and obj into the lane's shared
+// region (loads coalesced over the lanes), then the block solves its
+// lanes' QPs KG_THREADS / KG_GROUP at a time, a group of KG_GROUP threads
+// a lane, from x0 with cold duals or the warm lam0; the groups store s
+// and lam, the threads x.  The plan (group, lanes a block, launch
+// bounds, layout) is ops/kernels/ipm_group.py:onepass_plan.
+#include "nmpc_group.cuh"
 
-#ifndef KM_THREADS
-#define KM_THREADS 128
-#endif
 #ifndef KN_STAGE_MODE
 #error "nmpc_stage.cu needs KN_STAGE_MODE (0 ship, 1 hold, 2 roll)"
 #endif
@@ -52,57 +62,46 @@ struct StageArgs {
   float* s;            // (KM_MC, B)
   float* lam;          // (KM_MC, B) equilibrated multipliers
   float* obj;          // (B) objective scale
+  float* scratch;      // (grid * KG_LANES, KG_T + KM_N) hand-over
   long long B;
   int sqRef_lanes;
   int iters;
   float slack_floor;
 };
 
-__global__ void __launch_bounds__(KM_THREADS)
-nmpc_stage_kernel(const StageArgs a) {
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= a.B) return;
-  const long long B = a.B;
-  const km::Nmpc& op = a.op;
-  float zeta[KN_NZ], up[KM_M], x[KM_N], s[KM_MC], lam[KM_MC], rhs[KM_MC];
-#pragma unroll
-  for (int i = 0; i < KN_NZ; ++i) zeta[i] = a.zeta[i * B + b];
-#pragma unroll
-  for (int j = 0; j < KM_M; ++j) up[j] = a.up[j * B + b];
-#pragma unroll
-  for (int i = 0; i < KM_N; ++i) x[i] = a.x0[i * B + b];
-  const float* sq = a.sqRef_lanes ? a.sqRef + b : a.sqRef;
-  const long long sq_step = a.sqRef_lanes ? B : 1;
-  km::rhs_b(op.cFr, op.F0r, up, rhs);
-  float Pr[KM_N][KM_N], q[KM_N];
-  {
+// Lane b's sweep along the build's trajectory source.
+struct StageSweep {
+  const StageArgs& a;
+  __device__ __forceinline__ void operator()(long long b,
+                                             const float (&zeta)[KN_NZ],
+                                             const float (&up)[KM_M],
+                                             const float* sq,
+                                             long long sq_step,
+                                             float (&Pr)[KM_N][KM_N],
+                                             float (&q)[KM_N]) const {
 #if KN_STAGE_MODE == 0
-    km::ShippedStages stages{op, a.Zl + b, a.Ul + b, a.Fv + b, B};
+    km::ShippedStages stages{a.op, a.Zl + b, a.Ul + b, a.Fv + b, a.B};
 #elif KN_STAGE_MODE == 1
-    km::RolledStages<km::HeldInput> stages(op, km::HeldInput{up}, true, zeta);
+    km::RolledStages<km::HeldInput> stages(a.op, km::HeldInput{up}, true,
+                                           zeta);
 #else
-    km::RolledStages<km::LaneInput> stages(op, km::LaneInput{a.Ul + b, B},
-                                           false, zeta);
+    km::RolledStages<km::LaneInput> stages(
+        a.op, km::LaneInput{a.Ul + b, a.B}, false, zeta);
 #endif
-    km::condense_sweep(op, stages, zeta, up, sq, sq_step, Pr, q);
+    km::condense_sweep(a.op, stages, zeta, up, sq, sq_step, Pr, q);
   }
-  const float obj = km::solve_pass(
-      op.con, a.iters, a.slack_floor, Pr, q,
-      km::LaneTerm{a.q0 ? a.q0 + b : nullptr, B},
-      km::LaneDuals{a.lam0 ? a.lam0 + b : nullptr, B}, rhs, x, s, lam);
-#pragma unroll
-  for (int i = 0; i < KM_N; ++i) a.x[i * B + b] = x[i];
-#pragma unroll
-  for (int c = 0; c < KM_MC; ++c) {
-    a.s[c * B + b] = s[c];
-    a.lam[c * B + b] = lam[c];
-  }
-  a.obj[b] = obj;
+};
+
+__global__ void __launch_bounds__(KG_THREADS)
+nmpc_stage_sweep(const StageArgs a) {
+  kn::sweep_pass(a, StageSweep{a});
+}
+
+__global__ void KG_BOUNDS nmpc_stage_kernel(const StageArgs a) {
+  kn::one_pass(a);
 }
 
 extern "C" int km_nmpc_stage(const StageArgs* args, void* stream) {
-  if (args->B <= 0) return 0;
-  const unsigned grid = (unsigned)((args->B + KM_THREADS - 1) / KM_THREADS);
-  nmpc_stage_kernel<<<grid, KM_THREADS, 0, (cudaStream_t)stream>>>(*args);
-  return (int)cudaGetLastError();
+  return kn::launch_one_pass<StageArgs>(nmpc_stage_sweep, nmpc_stage_kernel,
+                                        args, stream);
 }

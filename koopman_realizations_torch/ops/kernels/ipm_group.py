@@ -1,9 +1,11 @@
 """Launch plan of the cooperative interior point (``csrc/ipm_group.cuh``).
 
-A group of ``group`` threads solves one lane's QP: the lane's scaled
-Hessian, its Newton matrix and factor live in shared memory, its
-constraint rows are spread over the group's threads (row c on thread
-c % group), its n-vectors over their owners (entry i on thread i % group).
+A group of ``group`` threads solves one lane's QP (the kernels
+``ipm_factored.cu``, ``nmpc_multipass.cu``, ``nmpc_stage.cu`` and
+``nmpc_pass.cu``): the lane's scaled Hessian, its Newton matrix and
+factor live in shared memory, its constraint rows are spread over the
+group's threads (row c on thread c % group), its n-vectors over their
+owners (entry i on thread i % group).
 The lane-shared operands (the equilibrated rows A, the A^T D A tables and
 A's nonzero structure) are loaded into shared memory once per block.
 This module is pure Python: it picks the group size from the QP's
@@ -27,12 +29,26 @@ Layout of a block's dynamic shared memory, in floats (4-byte words):
   staged only after the Gram has read it;
 - ``lane`` (lanes per block): [x: n][obj: 1][rest], rest holding the
   scaled Hessian (packed, T), q (n) and u_prev (m) while the lane is
-  solved, and s, lam (2 mc) after its last solve; in the compact plan of
-  ``nmpc_multipass`` [x: n][obj: 1][u_prev: m] only, the Hessian and q
-  going through device scratch (``scratch_floats`` a lane);
+  solved, and s, lam (2 mc) after its last solve (``ipm_factored``);
 - ``work`` (groups per block): [M: T][dx: n][vec: mc], the Newton matrix
   and its factor, the broadcast direction and the row vector a group
   transposes through (compact: then the lane's Hessian, T).
+
+The compact plan of the NMPC kernels (``csrc/nmpc_group.cuh``:
+``nmpc_multipass``, ``nmpc_stage``, ``nmpc_pass``) takes a lane a thread
+for the stage sweep, so lanes per block = threads, solved a round of
+threads // group lanes at a time.  Its lane region is [x: n][obj: 1]
+[u_prev: m] only -- x the primal start (multipass: the previous pass's
+x; the one-pass kernels: the shipped x0, written by the lane's thread)
+and the solve's iterate, obj the lane's objective scale (the warm dual
+start reads it) -- with an odd stride; the scaled Hessian (packed, T)
+and q go from the lane's thread to its group through a row of device
+scratch (``scratch_floats`` a lane, row b for the lane's place b in the
+grid).  ``nmpc_multipass`` sweeps and solves in one launch, pass after
+pass, the rows written and read back within it; the one-pass kernels run
+their sweep as a launch of its own (a thread a lane, no cap on its
+registers) that writes the scratch rows and obj, and the group solve
+follows on the stream.
 
 Per-lane and per-group strides are padded to ``pad``: a multiple of 32
 plus the group size, so that the groups of one warp (group < 32) read
@@ -64,6 +80,11 @@ WIDE_MIN_BLOCKS = 3
 NMPC_THREADS = 128
 NMPC_GROUP = 8
 NMPC_MIN_BLOCKS = 4
+# nmpc_stage (each trajectory mode) and nmpc_pass, one pass a launch:
+# the compact plan (the sweep a launch of its own), its group size and
+# the solve's blocks an SM as measured fastest (PERF.md §6)
+ONEPASS_GROUP = 4
+ONEPASS_MIN_BLOCKS = 4
 
 
 def choose_group(n: int, mc: int) -> int:
@@ -226,12 +247,24 @@ def factored_plan(cons: Constraints, p: int) -> GroupPlan:
                      else 0).check()
 
 
-def nmpc_plan(cons: Constraints, m: int) -> GroupPlan:
-    """``nmpc_multipass``'s plan: a lane a thread for the stage sweep,
-    the pass's QPs solved ``threads // group`` lanes a round, the
-    hand-over through device scratch, so that the sweep keeps the SM's
-    L1 cache (its lane-shared operands and spills live there)."""
+def _compact_plan(cons: Constraints, m: int, group: int,
+                  min_blocks: int) -> GroupPlan:
+    """A lane a thread for the stage sweep, the pass's QPs solved
+    ``threads // group`` lanes a round, the hand-over through device
+    scratch, so that the sweep keeps the SM's L1 cache (its lane-shared
+    operands and spills live there)."""
     return GroupPlan(cons.n, cons.mc, cons.band,
                      len(cons.cols[0]) if cons.band is None else 0,
-                     NMPC_GROUP, NMPC_THREADS, NMPC_THREADS, m=m,
-                     compact=True, min_blocks=NMPC_MIN_BLOCKS).check()
+                     group, NMPC_THREADS, NMPC_THREADS, m=m, compact=True,
+                     min_blocks=min_blocks).check()
+
+
+def nmpc_plan(cons: Constraints, m: int) -> GroupPlan:
+    """``nmpc_multipass``'s plan (every pass of a step in one launch)."""
+    return _compact_plan(cons, m, NMPC_GROUP, NMPC_MIN_BLOCKS)
+
+
+def onepass_plan(cons: Constraints, m: int) -> GroupPlan:
+    """``nmpc_stage``'s (every trajectory mode) and ``nmpc_pass``'s plan:
+    the sweep a launch of its own, then the group solve."""
+    return _compact_plan(cons, m, ONEPASS_GROUP, ONEPASS_MIN_BLOCKS)

@@ -10,7 +10,10 @@ solve_qp_nmpc`` :567 when ``NonlinearKmpc._solve_from``,
 condensation of the stage Jacobians Jt and defects cv the controller
 forms (``ops/nmpc.py:stage_lin``, fresh or frozen), the factored Gram with
 the pass's rdiag and optional per-lane q0, and the Mehrotra loop from x0
-with cold duals or a warm lam0.  See the note in the source for its bound.
+with cold duals or a warm lam0: the stage sweep a thread per lane, the
+QP a group of threads per lane (``csrc/nmpc_group.cuh``, planned by
+``launch_plan``), the Hessian handed over through a device scratch row
+the wrapper allocates.  See the note in the source for its bound.
 
 ``nmpc_pass`` takes the plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.  ``solve_qp_nmpc_pass``
@@ -25,6 +28,10 @@ import ctypes
 import torch
 
 from koopman_realizations_torch.ops.kernels import _build
+from koopman_realizations_torch.ops.kernels.ipm_group import (
+    GroupPlan,
+    onepass_plan,
+)
 from koopman_realizations_torch.ops.kernels.ipm_shared import check_cuda_f32
 from koopman_realizations_torch.ops.kernels.nmpc_multipass import (
     NmpcStruct,
@@ -34,6 +41,7 @@ from koopman_realizations_torch.ops.kernels.nmpc_stage import (
     check_lane_operands,
     lane_starts,
     optional_ptr,
+    outputs,
 )
 # the kernel's plain version is the Jacobian pass of ops/nmpc.py
 from koopman_realizations_torch.ops.nmpc import (
@@ -46,15 +54,25 @@ from koopman_realizations_torch.ops.qp import QPSolution
 SOURCE = "nmpc_pass.cu"
 
 
+def launch_plan(qp: NmpcQP) -> GroupPlan:
+    """The build's group plan (``ipm_group.py``)."""
+    return onepass_plan(qp.cons, qp.m)
+
+
 def kernel_spec(qp: NmpcQP) -> _build.KernelSpec:
-    return _build.KernelSpec(SOURCE, nmpc_config(qp))
+    return _spec(qp, launch_plan(qp))
+
+
+def _spec(qp: NmpcQP, plan: GroupPlan) -> _build.KernelSpec:
+    return _build.KernelSpec(SOURCE, nmpc_config(qp)
+                             + plan.config(qp.cons.cols))
 
 
 class PassArgs(ctypes.Structure):
     _fields_ = ([("op", NmpcStruct)]
                 + [(k, ctypes.c_void_p) for k in
                    ("Jt", "cv", "zeta", "up", "sqRef", "x0", "q0", "lam0",
-                    "x", "s", "lam", "obj")]
+                    "x", "s", "lam", "obj", "scratch")]
                 + [("B", ctypes.c_longlong), ("sqRef_lanes", ctypes.c_int),
                    ("iters", ctypes.c_int), ("slack_floor", ctypes.c_float)])
 
@@ -64,9 +82,17 @@ class PassArgs(ctypes.Structure):
 
 def nmpc_pass_cuda(qp: NmpcQP, Jt, cv, zeta, up, sqRef, x0, q0, lam0_row,
                    iters: int, slack_floor: float):
-    """Launch ``nmpc_pass_kernel`` on the current stream with Jt
-    (Np, nza, nz, B) and cv (Np, nz, B); returns (x, s, lam, obj).
-    Counts its launches in ``nmpc_pass_cuda.launches``."""
+    """Launch ``nmpc_pass_sweep`` and ``nmpc_pass_kernel`` on the current
+    stream with Jt (Np, nza, nz, B) and cv (Np, nz, B); returns (x, s,
+    lam, obj).  Counts its calls in ``nmpc_pass_cuda.launches``: one a
+    pass, each two device launches (the sweep, then the solve)."""
+    return _launch(launch_plan(qp), qp, Jt, cv, zeta, up, sqRef, x0, q0,
+                   lam0_row, iters, slack_floor)
+
+
+def _launch(plan: GroupPlan, qp: NmpcQP, Jt, cv, zeta, up, sqRef, x0, q0,
+            lam0_row, iters: int, slack_floor: float):
+    """``nmpc_pass_cuda`` built with ``plan``."""
     B = zeta.shape[1]
     opt = [t for t in (q0, lam0_row) if t is not None]
     check_cuda_f32(Jt, cv, zeta, up, sqRef, x0, *opt, qp.A1, qp.A2, qp.a0,
@@ -74,17 +100,14 @@ def nmpc_pass_cuda(qp: NmpcQP, Jt, cv, zeta, up, sqRef, x0, q0, lam0_row,
     check_lane_operands(qp, zeta, up, sqRef, x0, q0, lam0_row, "nmpc_pass")
     if Jt.shape != (qp.Np, qp.nza, qp.nz, B) or cv.shape != (qp.Np, qp.nz, B):
         raise ValueError("nmpc_pass: Jacobian shapes do not match the QP")
-    lib = _build.load(kernel_spec(qp))
-    x = torch.empty((qp.n, B), dtype=zeta.dtype, device=zeta.device)
-    s = torch.empty((qp.mc, B), dtype=zeta.dtype, device=zeta.device)
-    lam = torch.empty_like(s)
-    obj = torch.empty((B,), dtype=zeta.dtype, device=zeta.device)
+    lib = _build.load(_spec(qp, plan))
+    x, s, lam, obj, scratch = outputs(qp, plan, zeta)
     args = PassArgs(
         NmpcStruct.of(qp), Jt.data_ptr(), cv.data_ptr(), zeta.data_ptr(),
         up.data_ptr(), sqRef.data_ptr(), x0.data_ptr(), optional_ptr(q0),
         optional_ptr(lam0_row), x.data_ptr(), s.data_ptr(), lam.data_ptr(),
-        obj.data_ptr(), B, int(sqRef.ndim == 2), int(iters),
-        float(slack_floor))
+        obj.data_ptr(), scratch.data_ptr(), B, int(sqRef.ndim == 2),
+        int(iters), float(slack_floor))
     fn = lib.km_nmpc_pass
     fn.argtypes = [ctypes.POINTER(PassArgs), ctypes.c_void_p]
     fn.restype = ctypes.c_int

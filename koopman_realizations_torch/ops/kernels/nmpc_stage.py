@@ -10,8 +10,11 @@ over a batch of lanes): the linearization trajectory shipped (Zl, Ul, Fv),
 held at (zeta, u_prev) or rolled from the plan Ul, the stage Jacobians and
 defects along it, the sensitivity condensation, the factored Gram with the
 pass's rdiag and optional per-lane q0, and the Mehrotra loop from x0 with
-cold duals or a warm lam0.  The kernel is compute-bound on the card; see
-the note in the source.
+cold duals or a warm lam0.  The kernel is compute-bound on the card; its
+stage sweep runs a thread per lane, the pass's QP a group of threads per
+lane (``csrc/nmpc_group.cuh``, planned by ``launch_plan``), the Hessian
+handed over through a device scratch row the wrapper allocates; see the
+note in the source.
 
 ``nmpc_stage`` takes the plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.  ``solve_qp_nmpc_stages``
@@ -28,6 +31,10 @@ from typing import Optional
 import torch
 
 from koopman_realizations_torch.ops.kernels import _build
+from koopman_realizations_torch.ops.kernels.ipm_group import (
+    GroupPlan,
+    onepass_plan,
+)
 from koopman_realizations_torch.ops.kernels.ipm_shared import check_cuda_f32
 from koopman_realizations_torch.ops.kernels.nmpc_multipass import (
     NmpcStruct,
@@ -45,17 +52,27 @@ from koopman_realizations_torch.ops.qp import QPSolution
 SOURCE = "nmpc_stage.cu"
 
 
+def launch_plan(qp: NmpcQP) -> GroupPlan:
+    """The builds' group plan (``ipm_group.py``)."""
+    return onepass_plan(qp.cons, qp.m)
+
+
 def kernel_spec(qp: NmpcQP, mode: str) -> _build.KernelSpec:
     """One build per trajectory source (``STAGE_MODES``)."""
+    return _spec(qp, mode, launch_plan(qp))
+
+
+def _spec(qp: NmpcQP, mode: str, plan: GroupPlan) -> _build.KernelSpec:
     return _build.KernelSpec(SOURCE, nmpc_config(qp) + _build.defines(
-        KN_STAGE_MODE=STAGE_MODES.index(mode)))
+        KN_STAGE_MODE=STAGE_MODES.index(mode))
+        + plan.config(qp.cons.cols))
 
 
 class StageArgs(ctypes.Structure):
     _fields_ = ([("op", NmpcStruct)]
                 + [(k, ctypes.c_void_p) for k in
                    ("Zl", "Ul", "Fv", "zeta", "up", "sqRef", "x0", "q0",
-                    "lam0", "x", "s", "lam", "obj")]
+                    "lam0", "x", "s", "lam", "obj", "scratch")]
                 + [("B", ctypes.c_longlong), ("sqRef_lanes", ctypes.c_int),
                    ("iters", ctypes.c_int), ("slack_floor", ctypes.c_float)])
 
@@ -80,15 +97,34 @@ def check_lane_operands(qp: NmpcQP, zeta, up, sqRef, x0, q0, lam0_row,
         raise ValueError("the Jacobian generator must be 16-byte aligned")
 
 
+def outputs(qp: NmpcQP, plan: GroupPlan, zeta) -> tuple:
+    """A one-pass kernel's outputs x, s, lam, obj and its hand-over
+    scratch (``plan.scratch_floats`` a lane of the grid), uninitialized."""
+    B = zeta.shape[1]
+    new = lambda *shape: torch.empty(shape, dtype=zeta.dtype,
+                                     device=zeta.device)
+    return (new(qp.n, B), new(qp.mc, B), new(qp.mc, B), new(B),
+            new(plan.grid(B) * plan.lanes * plan.scratch_floats))
+
+
 # ---------------------------------------------------------------- kernel
 
 
 def nmpc_stage_cuda(qp: NmpcQP, mode: str, zeta, up, sqRef, x0, q0,
                     lam0_row, iters: int, slack_floor: float, Zl=None,
                     Ul=None, Fv=None):
-    """Launch ``nmpc_stage_kernel`` (the build of ``mode``) on the current
-    stream; returns (x, s, lam, obj).  Counts its launches in
-    ``nmpc_stage_cuda.launches``."""
+    """Launch ``nmpc_stage_sweep`` and ``nmpc_stage_kernel`` (the build of
+    ``mode``) on the current stream; returns (x, s, lam, obj).  Counts
+    its calls in ``nmpc_stage_cuda.launches``: one a pass, each two
+    device launches (the sweep, then the solve)."""
+    return _launch(launch_plan(qp), qp, mode, zeta, up, sqRef, x0, q0,
+                   lam0_row, iters, slack_floor, Zl=Zl, Ul=Ul, Fv=Fv)
+
+
+def _launch(plan: GroupPlan, qp: NmpcQP, mode: str, zeta, up, sqRef, x0,
+            q0, lam0_row, iters: int, slack_floor: float, Zl=None, Ul=None,
+            Fv=None):
+    """``nmpc_stage_cuda`` built with ``plan``."""
     B = zeta.shape[1]
     shipped = {"ship": (Zl, Ul, Fv), "hold": (), "roll": (Ul,)}[mode]
     if any(t is None for t in shipped):
@@ -97,25 +133,22 @@ def nmpc_stage_cuda(qp: NmpcQP, mode: str, zeta, up, sqRef, x0, q0,
     check_cuda_f32(zeta, up, sqRef, x0, *opt, *shipped, qp.A1, qp.A2, qp.a0,
                    qp.G, qp.CzS, qp.rdiag, qp.cFr, qp.F0r, qp.A, qp.Wd, qp.Wo)
     check_lane_operands(qp, zeta, up, sqRef, x0, q0, lam0_row, "nmpc_stage")
-    traj, plan = (qp.Np, qp.nz, B), (qp.Np * qp.m, B)
-    shapes = {"ship": (traj, plan, traj), "hold": (), "roll": (plan,)}[mode]
+    traj, moves = (qp.Np, qp.nz, B), (qp.Np * qp.m, B)
+    shapes = {"ship": (traj, moves, traj), "hold": (), "roll": (moves,)}[mode]
     if any(t.shape != r for t, r in zip(shipped, shapes)):
         raise ValueError("nmpc_stage: trajectory shapes do not match the QP")
     if mode == "roll":
         Zl = Fv = None
     elif mode == "hold":
         Zl = Ul = Fv = None
-    lib = _build.load(kernel_spec(qp, mode))
-    x = torch.empty((qp.n, B), dtype=zeta.dtype, device=zeta.device)
-    s = torch.empty((qp.mc, B), dtype=zeta.dtype, device=zeta.device)
-    lam = torch.empty_like(s)
-    obj = torch.empty((B,), dtype=zeta.dtype, device=zeta.device)
+    lib = _build.load(_spec(qp, mode, plan))
+    x, s, lam, obj, scratch = outputs(qp, plan, zeta)
     args = StageArgs(
         NmpcStruct.of(qp), optional_ptr(Zl), optional_ptr(Ul),
         optional_ptr(Fv), zeta.data_ptr(), up.data_ptr(), sqRef.data_ptr(),
         x0.data_ptr(), optional_ptr(q0), optional_ptr(lam0_row),
-        x.data_ptr(), s.data_ptr(), lam.data_ptr(),
-        obj.data_ptr(), B, int(sqRef.ndim == 2), int(iters),
+        x.data_ptr(), s.data_ptr(), lam.data_ptr(), obj.data_ptr(),
+        scratch.data_ptr(), B, int(sqRef.ndim == 2), int(iters),
         float(slack_floor))
     fn = lib.km_nmpc_stage
     fn.argtypes = [ctypes.POINTER(StageArgs), ctypes.c_void_p]

@@ -816,12 +816,43 @@ def test_linear_update_runner_on_card_tracks(gpu_sqp_linear):
 
 
 # ------------------------------------------------ the group interior point
-# The five builds of the cooperative interior point (csrc/ipm_group.cuh):
-# ipm_factored's four and nmpc_multipass, each on 1007 closed-loop lanes
-# of its own path (a ragged last block for every plan), made once.
+# The nine builds of the cooperative interior point (csrc/ipm_group.cuh):
+# ipm_factored's four, nmpc_multipass, nmpc_stage's three trajectory
+# modes and nmpc_pass, each on 1007 closed-loop lanes of its own path (a
+# ragged last block for every plan), made once; the one-pass kernels
+# with the per-lane q0, per-lane windows and warm duals, as the stage and
+# chord routes pass them.
 GROUP_BUILDS = ["iters2", "unblocked", "unblocked_smooth", "q0",
-                "nmpc_multipass"]
+                "nmpc_multipass", "nmpc_stage hold", "nmpc_stage roll",
+                "nmpc_stage ship", "nmpc_pass"]
 _GROUP_LANES = {}
+
+
+def _onepass_case(request, build, B):
+    """(kernel, plain, f32 and f64 arguments, zeta's index) of a one-pass
+    build on B closed-loop lanes: one SQP pass along the multipass plan
+    (tests' _pass_inputs), warm, with q0 and per-lane windows; nmpc_pass
+    from fresh Jacobians."""
+    if "onepass" not in _GROUP_LANES:
+        sim, mpc64 = request.getfixturevalue("gpu_nmpc")
+        zeta, up, win = _nmpc_lanes(sim, B, 3)
+        sq = win[3 + torch.arange(B, device="cuda") % 8].T.contiguous()
+        _GROUP_LANES["onepass"] = _pass_inputs(sim.mpc, mpc64, zeta, up, sq)
+    ins = {}
+    for dt, d in _GROUP_LANES["onepass"].items():
+        tail = (d["zeta"], d["up"], d["sq"], d["x0"], d["q0"], d["lam0"], 8,
+                1e-2)
+        if build == "nmpc_pass":
+            Jt, cv = N.stage_lin(d["qp"], d["Zl"], d["Ul"], Fv=d["Fv"])
+            ins[dt] = (d["qp"], Jt.contiguous(), cv.contiguous()) + tail
+        else:
+            mode = build.split()[1]
+            traj = {"ship": (d["Zl"], d["Ul"], d["Fv"]),
+                    "roll": (None, d["Ul"], None), "hold": ()}[mode]
+            ins[dt] = (d["qp"], mode) + tail + traj
+    if build == "nmpc_pass":
+        return NP.nmpc_pass_cuda, NP.nmpc_pass_plain, ins, 3
+    return NS.nmpc_stage_cuda, NS.nmpc_stage_plain, ins, 2
 
 
 def _group_case(request, build):
@@ -846,6 +877,8 @@ def _group_case(request, build):
                        (lam.to(dt) * c.row[:, None]).contiguous(),
                        c.cfg.qp_iters, 1e-2)
         case = (IF.ipm_factored_cuda, IF.ipm_factored_plain, ins, 3)
+    elif build.startswith(("nmpc_stage", "nmpc_pass")):
+        case = _onepass_case(request, build, B)
     elif build == "q0":
         gl = request.getfixturevalue("gpu_sqp_linear")
         ins = {dt: d["args"] + (d["lam0"], 8, 1e-2, d["q0"])
@@ -874,9 +907,12 @@ def _lanes(args, idx):
 
 
 def _ok(args, out):
-    """The ok mask of a solution of either kernel's arguments."""
+    """The ok mask of a solution of a kernel's arguments (an NMPC
+    kernel's u_prev: its first (m, B) operand)."""
     if hasattr(args[0], "cons"):
-        cons, b = args[0].cons, N.rhs(args[0], args[2])
+        up = next(t for t in args[1:] if torch.is_tensor(t) and t.ndim == 2
+                  and t.shape[0] == args[0].m)
+        cons, b = args[0].cons, N.rhs(args[0], up)
     else:
         cons, b = args[0], args[4]
     return ok_mask(cons, b, out[0], out[1], out[2], 3e-3, 5e-2)[0]
@@ -963,7 +999,7 @@ def test_group_kernel_deterministic(request, build):
 
 @pytest.mark.parametrize("build", GROUP_BUILDS)
 def test_group_kernel_poisoned_lane_confined(request, build):
-    """One lane's v (nmpc_multipass: its zeta) set to NaN leaves every
+    """One lane's v (the NMPC kernels: its zeta) set to NaN leaves every
     other lane bitwise equal to the unpoisoned run and gives that lane
     the plain version's pattern of non-finite outputs."""
     kern, plain, ins, at = _group_case(request, build)

@@ -2,13 +2,17 @@
 ipm_group.py``) for every build that uses it: ``ipm_factored``'s four
 (iterated relinearization n=12/mc=48, its q0 build on the NMPC's 'linear'
 update, the unblocked stack n=27/mc=108, with smoothness rows
-n=27/mc=156 dense) and ``nmpc_multipass``'s.  Pure Python: the group size,
+n=27/mc=156 dense), ``nmpc_multipass``'s and the one-pass NMPC kernels'
+(``nmpc_stage``'s three trajectory modes, ``nmpc_pass``).  Pure Python:
+the group size,
 lanes per block, the grid over B with a ragged tail, the shared-memory
 layout within the H100's 227 KB a block, and the dense A^T D A entry table
 against the plain dense form.  The kernels themselves run only on the
 card (tests/test_torch_cuda.py)."""
 
 import dataclasses
+import re
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -21,6 +25,10 @@ from koopman_realizations_torch.control.kmpc import (
 from koopman_realizations_torch.ops.kernels import ipm_factored as IF
 from koopman_realizations_torch.ops.kernels import ipm_group as IG
 from koopman_realizations_torch.ops.kernels import nmpc_multipass as NM
+from koopman_realizations_torch.ops.kernels import nmpc_pass as NP
+from koopman_realizations_torch.ops.kernels import nmpc_stage as NS
+from koopman_realizations_torch.ops.kernels._build import CSRC
+from koopman_realizations_torch.ops.nmpc import STAGE_MODES
 from koopman_realizations_torch.ops.qp import form_AtDA
 from koopman_realizations_torch.utils.checkpoint import (
     NONLINEAR_MODEL,
@@ -34,11 +42,26 @@ EXPECTED = {"iters2": (12, 48, 3, IG.NARROW_GROUP),
             "unblocked": (27, 108, 3, 32),
             "unblocked_smooth": (27, 156, None, 32),
             "q0": (12, 48, 3, IG.NARROW_GROUP),
-            "nmpc_multipass": (12, 48, 3, IG.NMPC_GROUP)}
+            "nmpc_multipass": (12, 48, 3, IG.NMPC_GROUP),
+            **{"nmpc_stage " + mode: (12, 48, 3, IG.ONEPASS_GROUP)
+               for mode in STAGE_MODES},
+            "nmpc_pass": (12, 48, 3, IG.ONEPASS_GROUP)}
+# the one-pass NMPC builds, and with nmpc_multipass the compact plans (a
+# lane a thread in the stage sweep, the hand-over through device scratch)
+ONEPASS = ["nmpc_stage " + mode for mode in STAGE_MODES] + ["nmpc_pass"]
+COMPACT = ["nmpc_multipass"] + ONEPASS
 
 
 @pytest.fixture(scope="module")
-def plans():
+def nmpc_qp():
+    """The NMPC controller's QP operands (f32, on the CPU)."""
+    nmodel, nscaler, _ = load_model(NONLINEAR_MODEL)
+    nm = NonlinearKmpc(nmodel, nscaler, MpcConfig(**NMPC_MPC), device="cpu")
+    return nm.nmpc_qp()
+
+
+@pytest.fixture(scope="module")
+def plans(nmpc_qp):
     """Each build's constraints and plan, as its wrapper makes it."""
     model, scaler, _ = load_model()
     out = {}
@@ -46,11 +69,12 @@ def plans():
         m = BilinearKmpc(model, scaler, MpcConfig(**{**BENCH_MPC, **knobs}),
                          device="cpu")
         out[name] = (m.constraints(), IF.launch_plan(m.constraints(), m.p))
-    nmodel, nscaler, _ = load_model(NONLINEAR_MODEL)
-    nm = NonlinearKmpc(nmodel, nscaler, MpcConfig(**NMPC_MPC), device="cpu")
-    q = nm.nmpc_qp()
+    q = nmpc_qp
     out["q0"] = (q.cons, IF.launch_plan(q.cons, q.p))
     out["nmpc_multipass"] = (q.cons, NM.launch_plan(q))
+    for mode in STAGE_MODES:
+        out["nmpc_stage " + mode] = (q.cons, NS.launch_plan(q))
+    out["nmpc_pass"] = (q.cons, NP.launch_plan(q))
     return out
 
 
@@ -61,10 +85,11 @@ def test_plan_of_each_build(plans, build):
     cons, plan = plans[build]
     n, mc, band, group = EXPECTED[build]
     assert (cons.n, cons.mc, cons.band) == (n, mc, band)
-    assert plan.group == group == (IG.NMPC_GROUP if build == "nmpc_multipass"
-                                   else IG.choose_group(n, mc))
+    assert plan.group == group
+    if build not in COMPACT:
+        assert plan.group == IG.choose_group(n, mc)
     assert plan.threads % plan.group == 0
-    if build == "nmpc_multipass":
+    if build in COMPACT:
         # a lane a thread in the sweep; threads // group lanes a round
         assert plan.lanes == plan.threads == IG.NMPC_THREADS
         assert plan.rounds == plan.group
@@ -100,7 +125,7 @@ def test_layout_regions(plans, build):
     bank = plan.group if plan.group < 32 else 1
     if plan.compact:
         # x, obj and u_prev; the Hessian and q through device scratch
-        assert build == "nmpc_multipass" and plan.m == 3
+        assert build in COMPACT and plan.m == 3
         assert lay["LSTRIDE"] == (n + 1 + 3) | 1
         assert lay["WSTRIDE"] >= 2 * T + n + mc
         assert plan.scratch_floats == T + n
@@ -162,10 +187,64 @@ def test_dense_entry_table_is_AtDA(plans):
             for i in range(k, n)] == list(range(IG.tri_size(n)))
 
 
-def test_configs_carry_the_plan(plans):
+@pytest.mark.parametrize("build", ONEPASS)
+def test_onepass_scratch_and_lane_regions(plans, build):
+    """Each one-pass plan's lane region holds x0 (the solve's x), obj and
+    u_prev, and its device scratch row the packed Hessian and q, without
+    overlap (the slots as csrc/nmpc_group.cuh and ipm_group.cuh define
+    them); the group's copy of the Hessian fits its work region beside
+    M, dx and the row vector; the wrapper's scratch holds a row for
+    every lane of the grid, a ragged last block too."""
+    cons, plan = plans[build]
+    n, mc, m, T = cons.n, cons.mc, plan.m, IG.tri_size(cons.n)
+    lay = plan.layout
+    defs = dict(KM_N=str(n), KM_MC=str(mc), KM_M=str(m))
+    for name in ("ipm_group.cuh", "nmpc_group.cuh"):
+        for key, val in re.findall(r"#define (KG_(?:L_\w+|H_UP|W_PR|T)) "
+                                   r"(.+)", (CSRC / name).read_text()):
+            defs[key] = val.split("//")[0].strip()
+
+    def at(key):
+        """A slot's #define, its names expanded (C integer division)."""
+        val = re.sub(r"[A-Z_]+", lambda t: f"({at(t.group())})",
+                     defs[key]) if key.startswith("KG") else defs[key]
+        return eval(val.replace("/", "//"))
+    assert at("KG_T") == T
+    lane = sorted([(at("KG_L_X"), n, "x0"), (at("KG_L_OBJ"), 1, "obj"),
+                   (at("KG_H_UP"), m, "u_prev")])
+    assert lane[0][0] == 0
+    for (o, w, _), (o2, _, _) in zip(lane, lane[1:]):
+        assert o + w <= o2
+    assert lane[-1][0] + lane[-1][1] <= lay["LSTRIDE"]
+    # scratch row: [Pr: T][q: n]
+    assert plan.scratch_floats == T + n
+    # work region: [M: T][dx: n][vec: mc][Pr: T]
+    assert at("KG_W_PR") == T + n + mc
+    assert at("KG_W_PR") + T <= lay["WSTRIDE"]
+    for B in (1, 1007, 65536):
+        zeta = torch.zeros((6, B))
+        outs = NS.outputs(SimpleNamespace(n=n, mc=mc), plan, zeta)
+        assert [tuple(t.shape) for t in outs[:4]] == [(n, B), (mc, B),
+                                                      (mc, B), (B,)]
+        assert outs[4].numel() == plan.grid(B) * plan.lanes * (T + n)
+        assert plan.grid(B) * plan.lanes >= B
+    # the sweep a launch of its own, a thread a lane over the solve's grid
+    # (its scratch rows are the solve's), then the solve under the plan's
+    # bounds, both from the kernel's C entry
+    assert plan.compact and plan.lanes == plan.threads
+    kernel = build.split()[0]
+    src = (CSRC / f"{kernel}.cu").read_text()
+    assert re.search(r"__launch_bounds__\(KG_THREADS\)\s*" + kernel
+                     + r"_sweep\(", src)
+    assert f"KG_BOUNDS {kernel}_kernel(" in src
+    assert re.search(rf"launch_one_pass<\w+>\({kernel}_sweep,\s*"
+                     rf"{kernel}_kernel,", src)
+
+
+def test_configs_carry_the_plan(plans, nmpc_qp):
     """Each build's configuration header defines the plan the wrapper
     launches (the kernels read their offsets and the shared-memory size
-    from it), and the two kernels' specs include it."""
+    from it), and the kernels' specs include it."""
     for build, (cons, plan) in plans.items():
         cfg = plan.config(cons.cols)
         for key in ("KG_GROUP", "KG_THREADS", "KG_LANES", "KG_ROUNDS",
@@ -176,3 +255,9 @@ def test_configs_carry_the_plan(plans):
     cons = plans["iters2"][0]
     assert plans["iters2"][1].config(cons.cols) in \
         IF.kernel_spec(cons, 22).config
+    q = nmpc_qp
+    specs = {"nmpc_multipass": NM.kernel_spec(q), "nmpc_pass": NP.kernel_spec(q),
+             **{"nmpc_stage " + mode: NS.kernel_spec(q, mode)
+                for mode in STAGE_MODES}}
+    for build, spec in specs.items():
+        assert plans[build][1].config(q.cons.cols) in spec.config
