@@ -26,12 +26,16 @@ lanes, the B=16 quality of the configurations of
 relinearization and the unblocked stack at B=65536, the kernels' times.
 Each main path runs with the launch counts set to 0 just before and read
 just after; every kernel is timed at its path's shapes next to its bound
-and its plain version.  Phase P profiles a few steps each of the
-unblocked route and the NMPC multipass route with ``torch.profiler``:
-device time by kernel and the device's idle share.
-It prints
-the card's name and power limit, one JSON line with every kernel's
-launches, error, times and bound, and as the last line
+and its plain version (the fused steps in phases 6 and L6 also by
+launch, the front and the group solve, with their builds' plans and
+``ptxas -v`` lines; the two-launch wrappers count calls, and each
+kernel's first timing counts the device launches of one call with
+``torch.profiler``).  Phase P profiles a few steps each of the unblocked
+route and the NMPC multipass route, and both fused main paths whole,
+with ``torch.profiler``: device time by kernel and the device's idle
+share.  It prints the card's name and power limit, one JSON line with
+every kernel's launches, device launches a call, error, times and bound,
+and as the last line
 {"ok": true, "device": {...}}.  Any failed phase raises; without CUDA or
 outside a checkout it exits non-zero and prints no result.
 """
@@ -39,10 +43,12 @@ outside a checkout it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 
@@ -121,6 +127,62 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+# a __global__ function of the port's CUDA sources
+KERNEL_DEF = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*"
+                        r"|KG_BOUNDS\s+)?(\w+)\s*\(")
+
+
+def kernel_names(csrc: Path) -> frozenset:
+    """The names of the port's kernels, from its CUDA sources."""
+    return frozenset(name for src in csrc.glob("*.cu")
+                     for name in KERNEL_DEF.findall(src.read_text()))
+
+
+def open_profile_window():
+    """Launch a fill kernel and wait for it: the first thing in a
+    torch.profiler window.  The profiler drops the first kernel of its
+    window (on the H100, one of three calls' first launches went missing),
+    so this one goes instead of one of the kernels measured."""
+    import torch
+    torch.empty(1, device="cuda").fill_(1.0)
+    torch.cuda.synchronize()
+
+
+def device_events(fn, calls: int) -> dict:
+    """{kernel: (device ms a call, launches a call)} over ``calls`` calls
+    of fn after one outside the window, from torch.profiler (the kernel's
+    name without its arguments); empty where the profiler recorded no
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        open_profile_window()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+            key = e.key.split("(")[0].split()[-1]
+            ms, n = out.get(key, (0.0, 0))
+            out[key] = (ms + us / 1e3 / calls, n + e.count / calls)
+    return out if any(ms > 0.0 for ms, _ in out.values()) else {}
+
+
+def device_launches(fn, names, calls: int = 3):
+    """Launches of the port's kernels (``names``) a call of fn, from
+    ``device_events``; None where the profiler recorded no device time."""
+    ev = device_events(fn, calls)
+    if not ev:
+        return None
+    n = sum(c for k, (_, c) in ev.items() if k in names)
+    return int(n) if n == int(n) else n
 
 
 def nnz(t) -> int:
@@ -503,13 +565,31 @@ def main() -> int:
                 BC.kernel_spec(qcons.n), BC.kernel_spec(ucons.n)])
     builds = _build.build_all(specs)
     ptxas_of = {sp: r.ptxas for sp, r in zip(specs, builds)}
+    names = kernel_names(_build.CSRC)
+    dev_launches = {}
+
+    def kernel_ms(name, fn, reps: int, warmup: int = 2) -> float:
+        """``cuda_ms`` of a call of kernel ``name``'s wrapper and, at the
+        kernel's first timing, the launches of the port's kernels in one
+        call (``device_launches``); a call that launches none fails."""
+        ms = cuda_ms(fn, reps, warmup)
+        if name not in dev_launches:
+            dev_launches[name] = device_launches(fn, names)
+            if dev_launches[name] == 0:
+                raise AssertionError(f"{name}: its wrapper launched no "
+                                     f"kernel of the port")
+        return ms
 
     def plan_line(kernel, mode=None) -> str:
-        """A one-pass build's group plan and its ``ptxas -v`` lines."""
+        """A two-launch build's group plan and its ``ptxas -v`` lines (the
+        one-pass NMPC kernels, the fused steps)."""
         if kernel == "nmpc_stage":
             plan, spec = NS.launch_plan(nqp), NS.kernel_spec(nqp, mode)
-        else:
+        elif kernel == "nmpc_pass":
             plan, spec = NP.launch_plan(nqp), NP.kernel_spec(nqp)
+        else:
+            so = op if kernel == "step_fused" else lop
+            plan, spec = so.launch_plan(), so.kernel_spec()
         return (f"plan: group {plan.group}, {plan.lanes} lanes a block, "
                 f"{plan.min_blocks or 'no bound on'} blocks an SM; ptxas: "
                 + " | ".join(
@@ -1275,8 +1355,9 @@ def main() -> int:
     del gout
 
     # ---- phase P: a short torch.profiler window (5 steps at B=65536)
-    # on the unblocked route and on the NMPC multipass route: device time
-    # by kernel and the device's idle share
+    # on the unblocked route and on the NMPC multipass route, and the two
+    # fused main paths whole (B=262144): device time by kernel and the
+    # device's idle share
     def profile_window(label, run):
         """Profile ``run`` (a few steps of a main path): each kernel's
         device time, and the idle share 1 - busy / window with busy the
@@ -1292,6 +1373,7 @@ def main() -> int:
         t1 = torch.cuda.Event(enable_timing=True)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            open_profile_window()
             t0.record()
             run()
             t1.record()
@@ -1322,14 +1404,33 @@ def main() -> int:
         prun = s_.batched_runner(ref, steps=6)
         profile_window(f"{label}, B={B_GENERAL}, 5 steps",
                        lambda: prun(XG, WG))
+    # the fused main paths of phases 4 and L4 whole, carry init and
+    # reference setup included
+    for name, s_ in (("step_fused", sim), ("linear_step_fused", lsim)):
+        frun = s_.fused_runner(ref, steps=STEPS)
+        profile_window(f"{name} fused main path, B={B_MAIN}, {STEPS - 1} "
+                       f"steps", lambda: frun(XB, WB))
 
     # ---- phases 6, L6: each kernel against its plain version, and its
     # time, at its path's shapes
+    def launch_split(fn, calls=3) -> str:
+        """Device time per call of each launch of a two-launch wrapper
+        (the front, then the solve), from torch.profiler over a few
+        calls (``device_events``)."""
+        ev = device_events(fn, calls)
+        if not ev:
+            return "front and solve launches not measured (no device " \
+                "time from the profiler)"
+        return ", ".join(f"{k} {ms:.4f} ms x {n:g}"
+                         for k, (ms, n) in sorted(ev.items())
+                         if k in names) + " a call (torch.profiler)"
+
     cB = op.init_carry(XB, WB)
     sf_err = max(sf_err, check_step(op, cB, wins[0],
                                     f"step_fused one step B={B_MAIN}"))
     oB = SF.StepCarry(*(torch.empty_like(t) for t in cB))
-    sf_ms = cuda_ms(lambda: op.step(cB, wins[0], out=oB), reps=10)
+    sf_ms = kernel_ms("step_fused",
+                      lambda: op.step(cB, wins[0], out=oB), reps=10)
     sf_plain = cuda_ms(lambda: op.step_plain(cB, wins[0]), reps=2, warmup=1)
     sf_flops = (qp_ops(qp, op.iters) + ok_ops(qp.cons) + plant_ops(arm.cfg)
                 + step_tail_ops(op, arm.cfg, True)) * B_MAIN
@@ -1338,17 +1439,20 @@ def main() -> int:
     sf_bound, sf_by = bound(sf_flops, sf_bytes)
     # breakdown: the QP half alone on the same lanes (the step kernel's
     # remainder is the plant, the freeze and the carry advance)
-    qp_ms = cuda_ms(lambda: BL.bilin_lift_cuda(
+    qp_ms = kernel_ms("bilin_lift", lambda: BL.bilin_lift_cuda(
         qp, cB.ysc, cB.upsc, cB.x0, cB.lamc, wins[0], op.iters, 1e-2),
         reps=10)
     log(f"breakdown at B={B_MAIN}: QP alone (bilin_lift) {qp_ms:.4f} ms "
-        f"of the step's {sf_ms:.4f} ms")
+        f"of the step's {sf_ms:.4f} ms; by launch "
+        f"{launch_split(lambda: op.step(cB, wins[0], out=oB))}; "
+        f"{plan_line('step_fused')} | {smi}")
     del cB, oB
     cG = op.init_carry(XG, WG)
     bl_err = max(bl_err, check_bilin(cG, True, wins[0],
                                      f"warm B={B_GENERAL}"))
     ins = (qp, cG.ysc, cG.upsc, cG.x0, cG.lamc, wins[0], op.iters, 1e-2)
-    bl_ms = cuda_ms(lambda: BL.bilin_lift_cuda(*ins), reps=10)
+    bl_ms = kernel_ms("bilin_lift", lambda: BL.bilin_lift_cuda(*ins),
+                      reps=10)
     bl_plain = cuda_ms(lambda: BL.bilin_lift_plain(*ins), reps=2, warmup=1)
     bl_flops = qp_ops(qp, op.iters) * B_GENERAL
     bl_bytes = nbytes(cG.ysc, cG.upsc, cG.x0, cG.lamc, wins[0]) \
@@ -1362,7 +1466,8 @@ def main() -> int:
                                     f"linear_step_fused one step "
                                     f"B={B_MAIN}"))
     loB = SF.StepCarry(*(torch.empty_like(t) for t in lcB))
-    ls_ms = cuda_ms(lambda: lop.step(lcB, fY[0], out=loB), reps=10)
+    ls_ms = kernel_ms("linear_step_fused",
+                      lambda: lop.step(lcB, fY[0], out=loB), reps=10)
     ls_plain = cuda_ms(lambda: lop.step_plain(lcB, fY[0]), reps=2,
                        warmup=1)
     ls_flops = (linear_grad_ops(lop)
@@ -1375,16 +1480,19 @@ def main() -> int:
     ls_bound, ls_by = bound(ls_flops, ls_bytes)
     # breakdown: the shared-Hessian QP alone on the same lanes' QPs
     Psh, q, b = linear_qp(lcB, 0)
-    lqp_ms = cuda_ms(lambda: IS.ipm_shared_cuda(
+    lqp_ms = kernel_ms("ipm_shared", lambda: IS.ipm_shared_cuda(
         cons, Psh, q, b, lcB.x0, lop.iters, 1e-2), reps=10)
     log(f"breakdown at B={B_MAIN}: QP alone (ipm_shared) {lqp_ms:.4f} ms "
-        f"of the linear step's {ls_ms:.4f} ms")
+        f"of the linear step's {ls_ms:.4f} ms; by launch "
+        f"{launch_split(lambda: lop.step(lcB, fY[0], out=loB))}; "
+        f"{plan_line('linear_step_fused')} | {smi}")
     del lcB, loB, q, b
     lcG = lop.init_carry(XG, WG)
     is_err = max(is_err, check_ipm(lcG, 0, f"B={B_GENERAL}"))
     Psh, q, b = linear_qp(lcG, 0)
     ins = (cons, Psh, q, b, lcG.x0, lop.iters, 1e-2)
-    is_ms = cuda_ms(lambda: IS.ipm_shared_cuda(*ins), reps=10)
+    is_ms = kernel_ms("ipm_shared", lambda: IS.ipm_shared_cuda(*ins),
+                      reps=10)
     is_plain = cuda_ms(lambda: IS.ipm_shared_plain(*ins), reps=2, warmup=1)
     is_flops = mehrotra_ops(cons, lop.iters, nnz(Psh)) * B_GENERAL
     is_bytes = nbytes(q, b, lcG.x0) + 4 * B_GENERAL * (cons.n + 2 * cons.mc) \
@@ -1397,7 +1505,8 @@ def main() -> int:
     nzG, nuG = nmpc_lanes(B_GENERAL, 3)
     nm_err = max(nm_err, check_nmpc(nzG, nuG, nwins[3], f"B={B_GENERAL}"))
     ins = (nqp, nzG, nuG, nwins[3], *sqp)
-    nm_ms = cuda_ms(lambda: NM.nmpc_multipass_cuda(*ins), reps=5)
+    nm_ms = kernel_ms("nmpc_multipass",
+                      lambda: NM.nmpc_multipass_cuda(*ins), reps=5)
     nm_plain = cuda_ms(lambda: NM.nmpc_multipass_plain(*ins), reps=1,
                        warmup=1)
     nm_flops = nmpc_ops(nqp, *sqp) * B_GENERAL
@@ -1427,7 +1536,7 @@ def main() -> int:
         traj = {"ship": (d32["Zl"], d32["Ul"], d32["Fv"]),
                 "roll": (d32["Ul"],), "hold": ()}[mode]
         flops = nmpc_onepass_ops(nqp, mode, iters, True, False) * B_GENERAL
-        stage_t[mode] = (cuda_ms(kcall, reps=10),
+        stage_t[mode] = (kernel_ms("nmpc_stage", kcall, reps=10),
                          cuda_ms(pcall, reps=1, warmup=1), flops) + bound(
             flops, lane_bytes + nbytes(*traj) + shared_bytes + nbytes(
                 nqp.A1, nqp.A2, nqp.a0, nqp.G))
@@ -1439,7 +1548,7 @@ def main() -> int:
     ns_ms, ns_plain, ns_bound = per(0), per(1), per(3)
     ns_by = stage_t["roll"][4]
     kcall, pcall = onepass("nmpc_pass", "fresh", d32, False)
-    np_ms = cuda_ms(kcall, reps=10)
+    np_ms = kernel_ms("nmpc_pass", kcall, reps=10)
     np_plain = cuda_ms(pcall, reps=1, warmup=1)
     np_flops = nmpc_onepass_ops(nqp, "jacobians", iters, True, False) \
         * B_GENERAL
@@ -1468,7 +1577,7 @@ def main() -> int:
             bq, z, up, x0, l0, sq = a32[0][:6]
             flops = qp_ops(bq, m.cfg.qp_iters) * B_GENERAL
             route_t["bilin"] = (
-                cuda_ms(lambda: BI.bilin_cuda(*a32[0]), reps=10),
+                kernel_ms("bilin", lambda: BI.bilin_cuda(*a32[0]), reps=10),
                 cuda_ms(lambda: BI.bilin_plain(*a32[0]), reps=2, warmup=1),
                 flops) + bound(flops, nbytes(z, up, x0, l0, sq)
                                + 4 * B_GENERAL * (bq.n + 2 * bq.mc + 1)
@@ -1481,7 +1590,8 @@ def main() -> int:
         flops = (gram_ops(live, fc.n)
                  + factored_tail_ops(fc, m.cfg.qp_iters)) * B_GENERAL
         route_t[name] = (
-            cuda_ms(lambda: IF.ipm_factored_cuda(*a32[1]), reps=5),
+            kernel_ms("ipm_factored", lambda: IF.ipm_factored_cuda(*a32[1]),
+                      reps=5),
             cuda_ms(lambda: IF.ipm_factored_plain(*a32[1]), reps=1,
                     warmup=1),
             flops) + bound(flops, nbytes(Wt, v, b, x0, l0)
@@ -1512,7 +1622,8 @@ def main() -> int:
     flops = (gram_ops(live, fc.n) + fc.n
              + factored_tail_ops(fc, iters)) * B_GENERAL
     route_t[LINEAR_REGIME] = (
-        cuda_ms(lambda: IF.ipm_factored_cuda(*a32), reps=10),
+        kernel_ms("ipm_factored", lambda: IF.ipm_factored_cuda(*a32),
+                  reps=10),
         cuda_ms(lambda: IF.ipm_factored_plain(*a32), reps=1, warmup=1),
         flops) + bound(flops, nbytes(Wt, v, b, x0, l0, q0)
                        + 4 * B_GENERAL * (fc.n + 2 * fc.mc + 1)
@@ -1532,7 +1643,7 @@ def main() -> int:
         flops = (n * n + n + 4 * mc
                  + mehrotra_ops(fc, iters, n * n)) * B_GENERAL
         lane_t[key] = (
-            cuda_ms(lambda: IS.ipm_shared_cuda(*l32), reps=5),
+            kernel_ms("ipm_shared", lambda: IS.ipm_shared_cuda(*l32), reps=5),
             cuda_ms(lambda: IS.ipm_shared_plain(*l32), reps=1, warmup=1),
             flops) + bound(flops, nbytes(P, q, b, x0, iobj, l0)
                            + 4 * B_GENERAL * (n + 2 * mc)
@@ -1584,7 +1695,8 @@ def main() -> int:
         n = M.shape[1]
         flops = chol_ops(n) * B_GENERAL
         chol_t[key] = (
-            cuda_ms(lambda: BC.solve_spd_cuda(M, rhs_), reps=10),
+            kernel_ms("batch_chol", lambda: BC.solve_spd_cuda(M, rhs_),
+                      reps=10),
             cuda_ms(lambda: BC.solve_spd_plain(M, rhs_), reps=1, warmup=1),
             flops) + bound(flops, nbytes(M, rhs_, xk)) + (
             cuda_ms(lambda: torch.linalg.solve(M, rhs_), reps=10),)
@@ -1686,12 +1798,18 @@ def main() -> int:
              if_bound, if_by),
             ("batch_chol", "batch_chol.py:28", chol_main, bc_err, bc_ms,
              bc_plain, bc_bound, bc_by)]
+    # the two-launch wrappers count calls, each a front (or sweep) launch
+    # and a solve launch on the device: device_launches_per_call is the
+    # profiler's count in one call of each wrapper (kernel_ms)
     kernels = [{"name": name, "route": "cuda", "source": src + name + ".cu",
                 "replaces": tpu + tpu_at, "launches": launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bms, "bound_by": by,
-                "library_ms": bc_lib if name == "batch_chol" else None}
+                "library_ms": bc_lib if name == "batch_chol" else None,
+                "device_launches_per_call": dev_launches[name]}
                for name, tpu_at, launches, err, ms, plain, bms, by in rows]
+    log("device launches a wrapper call (torch.profiler): " + ", ".join(
+        f"{k} {v}" for k, v in dev_launches.items()))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

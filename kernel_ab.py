@@ -11,14 +11,17 @@ every kernel in four processes -- DIR, this tree, this tree, DIR -- each
 building its kernels from its own sources.  Each process also prints the
 ``ptxas -v`` lines of its builds.  In this tree it times the
 cooperative interior point's builds (``ipm_factored``'s four,
-``nmpc_multipass``, ``nmpc_stage``'s three, ``nmpc_pass``) at other group
-sizes and launch bounds than their plans' (``ops/kernels/ipm_group.py``);
-in both trees it times the redesigned kernels without their
-interior-point iterations (``iters=0``: the sweep, or the staging and
-Gram, alone) and with one.  Two more processes, DIR and this tree,
-build the redesigned kernels with ``-fmad=false`` (no contraction of a
-multiply and an add into an FMA) and compare their outputs: every
-``nmpc_stage`` mode cold and warm, ``nmpc_pass`` fresh and frozen.  For each ``ipm_factored`` build it then holds both trees'
+``nmpc_multipass``, ``nmpc_stage``'s three, ``nmpc_pass``, the fused
+steps ``step_fused`` and ``linear_step_fused``) at other group sizes and
+launch bounds than their plans' (``ops/kernels/ipm_group.py``); in both
+trees it times the redesigned kernels without their interior-point
+iterations (``iters=0``: the sweep or front launch, or the staging and
+Gram, alone) and with one.  Two more processes, DIR and this tree, build the
+redesigned kernels with ``-fmad=false`` (no contraction of a multiply
+and an add into an FMA) and compare their outputs: every ``nmpc_stage``
+mode cold and warm, ``nmpc_pass`` fresh and frozen, the fused steps'
+seven carry fields at B=262144 and at a ragged B.  For each
+``ipm_factored`` build it then holds both trees'
 kernels and plain f32 against plain f64 on the same lanes: the median
 and p99 per-lane distances, the lanes beyond 1e-4 / 1e-3 / 1e-2, how
 often a 1024-lane subset fails the p99 gate of the card tests (within
@@ -56,6 +59,8 @@ from chip_smoke import (
 
 HERE = Path(__file__).resolve().parent
 B_FULL, B_STEP, SEED_STEPS = 65536, 262144, 3
+# the fused steps' ragged width (the first lanes of the B_STEP carry)
+B_RAGGED = 100003
 # the interior point's alternatives: (build, group sizes, blocks an SM)
 FACTORED_VARIANTS = (("iters2", (8, 16, 32), (0,)),
                      ("q0", (8, 16, 32), (0,)),
@@ -64,6 +69,9 @@ FACTORED_VARIANTS = (("iters2", (8, 16, 32), (0,)),
 NMPC_VARIANTS = ((4, (4,)), (8, (0, 3, 4, 5)), (16, (4,)))
 # the one-pass kernels' alternatives: (group sizes, blocks an SM)
 ONEPASS_VARIANTS = (((2, 4, 8, 16), (4,)), ((4, 8), (0, 3, 5, 6)))
+# the fused steps' alternatives: (group sizes, blocks an SM)
+STEP_VARIANTS = (((2, 4, 8, 16), (4,)), ((4,), (0, 3, 5)))
+STEPS = ("step_fused", "linear_step_fused")
 # the card tests' p99 gate is taken over ~1000 lanes
 SUBSET = 1024
 
@@ -122,6 +130,32 @@ class Setup:
         X0[:, 0] = np.linspace(-0.2, 0.2, B)
         return X0, np.zeros((B, 2), np.float32)
 
+    def steps(self) -> dict:
+        """The fused steps' operators, with the reference column of every
+        step (bilinear: the sqrt(Q)-scaled windows; linear: G2 Yr)."""
+        from koopman_realizations_torch.ops.kernels import (
+            linear_step_fused as LS,
+        )
+        from koopman_realizations_torch.ops.kernels import step_fused as SF
+        if not hasattr(self, "_steps"):
+            lop = LS.build_linear_step_fused(self.lmpc, self.arm, self.lscaler)
+            self._steps = {
+                "step_fused": (SF.build_step_fused(self.mpc, self.arm,
+                                                   self.scaler), self.wins),
+                "linear_step_fused": (lop, lop.fYr(
+                    self.lsim.reference_windows(self.ref, 8)))}
+        return self._steps
+
+
+_SETUP = []
+
+
+def setup() -> Setup:
+    """The process's one Setup."""
+    if not _SETUP:
+        _SETUP.append(Setup())
+    return _SETUP[0]
+
 
 # ------------------------------------------------------------------ inputs
 
@@ -165,6 +199,15 @@ def make_inputs(S: Setup) -> dict:
         if m.blocked:
             out["bilin"] = (m.bilin_qp(), z, upsc, x0, l0,
                             S.wins[3].contiguous(), m.cfg.qp_iters, 1e-2)
+
+    # the fused steps at B_STEP: 3 plain closed-loop steps from the bench's
+    # initial states, then the carry and the next step's reference column
+    for name, (op, vecs) in S.steps().items():
+        c = op.init_carry(*S.spread(B_STEP))
+        for k in range(SEED_STEPS):
+            c = op.step_plain(c, vecs[k])
+        out[name] = (tuple(t.contiguous() for t in c),
+                     vecs[SEED_STEPS].contiguous())
 
     # the NMPC: 3 closed-loop steps of the multipass path
     nm = S.nmpc
@@ -259,15 +302,42 @@ def make_inputs(S: Setup) -> dict:
 FACTORED = ("iters2", "q0", "unblocked", "unblocked_smooth")
 STAGE_MODES = ("hold", "roll", "ship")
 ONEPASS = tuple("nmpc_stage " + m for m in STAGE_MODES) + ("nmpc_pass",)
-REDESIGNED = tuple("ipm_factored " + name for name in FACTORED) \
-    + ("nmpc_multipass",) + ONEPASS \
-    + tuple(f"nmpc_stage {m} warm" for m in STAGE_MODES) \
+# the one-pass kernels' launches: each mode cold and warm, nmpc_pass
+# fresh and frozen
+ONEPASS_RUNS = ONEPASS + tuple(f"nmpc_stage {m} warm" for m in STAGE_MODES) \
     + ("nmpc_pass frozen",)
-# the factored and one-pass builds' outputs after 0 and 1 iterations,
-# for the comparison of parent and change
+REDESIGNED = tuple("ipm_factored " + name for name in FACTORED) \
+    + ("nmpc_multipass",) + ONEPASS_RUNS + STEPS \
+    + tuple(f"{k} B={B_RAGGED}" for k in STEPS)
+# the factored, one-pass and step builds' outputs after 0 and 1
+# iterations, for the comparison of parent and change
 FIRST_ITERATIONS = tuple(f"{k} iters={it}" for k in
                          tuple("ipm_factored " + name for name in FACTORED)
-                         + ONEPASS for it in (0, 1))
+                         + ONEPASS + STEPS for it in (0, 1))
+
+
+def step_call(ins: dict, key: str, iters=None, B=None, launch=None):
+    """A call of fused step ``key`` on its saved carry into fresh output
+    tensors (``iters``: another iteration count; ``B``: the carry's
+    first B lanes; ``launch``: another entry point taking the wrapper's
+    arguments, as the plan-taking ``_launch``)."""
+    import copy
+
+    import torch
+
+    from koopman_realizations_torch.ops.kernels import step_fused as SF
+    op, _ = setup().steps()[key]
+    carry, v = ins[key]
+    if B is not None:
+        carry = tuple(t[..., :B].contiguous() for t in carry)
+        v = v[..., :B].contiguous() if v.ndim == 2 else v
+    c = SF.StepCarry(*carry)
+    out = SF.StepCarry(*(torch.empty_like(t) for t in c))
+    if iters is not None:
+        op = copy.copy(op)
+        op.iters = iters
+    fn = launch or (lambda o, c, v, out: o.launch(c, v, out))
+    return lambda: fn(op, c, v, out)
 
 
 def onepass_call(ins: dict, key: str, iters=None, launch=None):
@@ -315,6 +385,14 @@ def redesigned_runs(ins: dict) -> tuple:
     sp, ru = onepass_runs(ins)
     specs.update(sp)
     runs.update(ru)
+    # the fused steps: the front launch and the solve's set-up alone
+    # (iters=0) and one iteration; the seven carry fields at a ragged B
+    for key in STEPS:
+        specs[key] = setup().steps()[key][0].kernel_spec()
+        runs[key] = (step_call(ins, key), 10)
+        runs[f"{key} B={B_RAGGED}"] = (step_call(ins, key, B=B_RAGGED), 10)
+        for it in (0, 1):
+            runs[f"{key} iters={it}"] = (step_call(ins, key, it), 10)
     return specs, runs
 
 
@@ -328,7 +406,7 @@ def onepass_runs(ins: dict) -> tuple:
     for mode in STAGE_MODES:
         specs["nmpc_stage " + mode] = NS.kernel_spec(qp1, mode)
     specs["nmpc_pass"] = NP.kernel_spec(qp1)
-    for key in REDESIGNED[len(FACTORED) + 1:]:
+    for key in ONEPASS_RUNS:
         runs[key] = (onepass_call(ins, key), 10)
     for key in ONEPASS:
         for it in (0, 1):
@@ -366,9 +444,35 @@ def variant_runs(ins: dict) -> tuple:
             key = f"nmpc_multipass G={g} min_blocks={mb}"
             specs[key] = NM._spec(nmp[0], plan)
             runs[key] = (lambda plan=plan: NM._launch(plan, *nmp), 5)
-    sp, ru = onepass_variant_runs(ins)
-    specs.update(sp)
-    runs.update(ru)
+    for more in (onepass_variant_runs, step_variant_runs):
+        sp, ru = more(ins)
+        specs.update(sp)
+        runs.update(ru)
+    return specs, runs
+
+
+def step_variant_runs(ins: dict) -> tuple:
+    """The fused steps at the plans of ``STEP_VARIANTS``, each also at
+    iters=0."""
+    import dataclasses
+
+    from koopman_realizations_torch.ops.kernels import (
+        linear_step_fused as LS,
+    )
+    from koopman_realizations_torch.ops.kernels import step_fused as SF
+    specs, runs = {}, {}
+    for key, mod in (("step_fused", SF), ("linear_step_fused", LS)):
+        op = setup().steps()[key][0]
+        base = op.launch_plan()
+        plans = {f"{key} G={g} min_blocks={mb}": dataclasses.replace(
+            base, group=g, min_blocks=mb).check()
+            for groups, mbs in STEP_VARIANTS for g in groups for mb in mbs}
+        for name, plan in plans.items():
+            specs[name] = op._plan_spec(plan)
+            fn = lambda o, c, v, out, plan=plan, mod=mod: mod._launch(
+                plan, o, c, v, out)
+            runs[name] = (step_call(ins, key, launch=fn), 10)
+            runs[name + " iters=0"] = (step_call(ins, key, 0, launch=fn), 10)
     return specs, runs
 
 
@@ -404,21 +508,16 @@ def onepass_variant_runs(ins: dict) -> tuple:
 
 
 def other_runs(ins: dict) -> tuple:
-    """Specs and launches of the six kernels not redesigned."""
+    """Specs and launches of the four kernels not redesigned."""
     import torch
 
     from koopman_realizations_torch.ops.kernels import batch_chol as BC
     from koopman_realizations_torch.ops.kernels import bilin as BI
     from koopman_realizations_torch.ops.kernels import bilin_lift as BL
     from koopman_realizations_torch.ops.kernels import ipm_shared as IS
-    from koopman_realizations_torch.ops.kernels import linear_step_fused as LS
-    from koopman_realizations_torch.ops.kernels import step_fused as SF
-    S = Setup()
-    op = SF.build_step_fused(S.mpc, S.arm, S.scaler)
-    lop = LS.build_linear_step_fused(S.lmpc, S.arm, S.lscaler)
-    specs = {"step_fused": op.kernel_spec(),
-             "bilin_lift": BL.kernel_spec(op.qp),
-             "linear_step_fused": lop.kernel_spec(),
+    S = setup()
+    op, lop = S.steps()["step_fused"][0], S.steps()["linear_step_fused"][0]
+    specs = {"bilin_lift": BL.kernel_spec(op.qp),
              "ipm_shared": IS.kernel_spec(S.lmpc.constraints()),
              "bilin": BI.kernel_spec(ins["bilin"][0]),
              "batch_chol n=12": BC.kernel_spec(12),
@@ -426,13 +525,8 @@ def other_runs(ins: dict) -> tuple:
     for key in ("n=12", "n=27"):
         specs["ipm_shared lane-P " + key] = IS.kernel_spec(
             ins["ipm_shared lane-P " + key][0], lane_p=True)
-    XB, WB = S.spread(B_STEP)
     XG, WG = S.spread(B_FULL)
-    cB, lcB = op.init_carry(XB, WB), lop.init_carry(XB, WB)
-    oB = SF.StepCarry(*(torch.empty_like(t) for t in cB))
-    loB = SF.StepCarry(*(torch.empty_like(t) for t in lcB))
     cG, lcG = op.init_carry(XG, WG), lop.init_carry(XG, WG)
-    fY = lop.fYr(S.lsim.reference_windows(S.ref, 2))
     lm, cons = S.lmpc, S.lmpc.constraints()
     z = lm.lift(lcG.ysc)
     Yr = S.lsim.reference_windows(S.ref, 2)[0][:, None]
@@ -444,11 +538,9 @@ def other_runs(ins: dict) -> tuple:
            (bz / cons.row[:, None]).contiguous(), lcG.x0, lm.cfg.qp_iters,
            1e-2)
     runs = {
-        "step_fused": (lambda: op.step(cB, S.wins[0], out=oB), 10),
         "bilin_lift": (lambda: BL.bilin_lift_cuda(
             op.qp, cG.ysc, cG.upsc, cG.x0, cG.lamc, S.wins[0], op.iters,
             1e-2), 10),
-        "linear_step_fused": (lambda: lop.step(lcB, fY[0], out=loB), 10),
         "ipm_shared": (lambda: IS.ipm_shared_cuda(*lin), 10),
         "bilin": (lambda: BI.bilin_cuda(*ins["bilin"]), 10)}
     for key in ("n=12", "n=27"):
@@ -635,7 +727,7 @@ def main(argv=None) -> int:
                 out.append(d.max().item() if d.numel() else 0.0)
             return " ".join(f"{d:.3e}" for d in out)
         for k in REDESIGNED + FIRST_ITERATIONS:
-            print(f"{k}: x, s, lam, obj of parent and change bitwise equal "
+            print(f"{k}: outputs of parent and change bitwise equal "
                   f"{same(xs[0][k], xs[1][k])}, max |d| "
                   f"{maxdiff(xs[0][k], xs[1][k])}; each tree deterministic "
                   f"{same(xs[0][k], xs[3][k])} {same(xs[1][k], xs[2][k])}; "

@@ -1,9 +1,9 @@
 // The cooperative interior point: one lane's Mehrotra predictor-corrector
 // run by a group of KG_GROUP threads, with the lane's matrices in shared
-// memory (ipm_factored.cu; through nmpc_group.cuh nmpc_multipass.cu,
-// nmpc_stage.cu and nmpc_pass.cu).
+// memory (ipm_factored.cu; through lane_group.cuh nmpc_multipass.cu,
+// nmpc_stage.cu, nmpc_pass.cu, step_fused.cu and linear_step_fused.cu).
 //
-// It replaces, for those four kernels, the thread-per-lane loop of
+// It replaces, for those six kernels, the thread-per-lane loop of
 // kmpc_device.cuh (km::mehrotra with form_newton, chol, chol_solve,
 // direction), which keeps the Hessian, M and L (3 n^2 floats) in one
 // thread's registers or, at n=27, in thread-local memory.  Both compute
@@ -21,8 +21,10 @@
 //   thread in their thread-per-lane stage sweep, the Hessian and q handed
 //   from the lane's thread to its group through a row of device scratch
 //   (nmpc_multipass in one launch a step; nmpc_stage and nmpc_pass in a
-//   sweep launch and a solve launch), the Hessian copied into the
-//   group's work region (ops/kernels/ipm_group.py lays out both).
+//   sweep launch and a solve launch; the fused steps in a front launch
+//   and a solve launch), the Hessian copied into the group's work region
+//   or, lane-shared (the linear step), one copy a block
+//   (ops/kernels/ipm_group.py lays out both).
 // - The lane-shared operands -- A (odd row stride), the banded A^T D A
 //   tables Wd/Wo (odd stride) or the dense rows' nonzero values, and A's
 //   nonzero structure -- are loaded into shared memory once per block

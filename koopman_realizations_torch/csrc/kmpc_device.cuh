@@ -1,17 +1,17 @@
 // Device functions shared by the CUDA kernels of the Koopman MPC closed
-// loops: the Mehrotra predictor-corrector with its banded or dense
-// A^T D A, Cholesky factor and solve (every kernel but ipm_factored.cu
-// and nmpc_multipass.cu, which run ipm_group.cuh's cooperative one on
-// this file's constants, constraint rows and scalar helpers); the ok mask
-// (the two step kernels); the objective scale of a per-lane Gram (the
-// bilinear kernels, the NMPC kernels); the factored Gram streamed from W
-// rows and the factored QP's tail (the bilinear kernels); the poly lift
-// (the two step kernels and
+// loops: the thread-per-lane Mehrotra predictor-corrector with its banded
+// or dense A^T D A, Cholesky factor and solve (bilin_lift.cu, bilin.cu and
+// ipm_shared.cu, its last users; ipm_factored.cu, the three NMPC kernels
+// and the two step kernels run ipm_group.cuh's cooperative one on this
+// file's constants, constraint rows and scalar helpers); the objective
+// scale of a per-lane Gram (the bilinear kernels, the NMPC kernels); the
+// factored Gram streamed from W rows and the factored QP's tail (the
+// bilinear kernels); the poly lift (the two step kernels and
 // bilin_lift.cu); the bilinear QP assembly against lane-shared generators
 // from the lift's features or the lifted state (bilin_lift.cu,
-// step_fused.cu, bilin.cu); the arm's closed-form right-hand side
-// with dual numbers, SDIRK2, the marker kinematics and the
-// plant/freeze/carry tail (step_fused.cu, linear_step_fused.cu).
+// step_fused.cu, bilin.cu); the arm's closed-form right-hand side with
+// dual numbers, SDIRK2, the marker kinematics and the step kernels' carry
+// (step_fused.cu, linear_step_fused.cu through step_group.cuh).
 //
 // They replace the shared Pallas device functions of the JAX package
 // (ops/pallas/qp_ipm.py:143-296 and :686-769, ops/pallas/step_fused.py
@@ -347,31 +347,6 @@ __device__ __forceinline__ float diag_obj_scale(const float (&P)[KM_N][KM_N]) {
 #pragma unroll
   for (int j = 1; j < KM_N; ++j) obj = nmax(obj, P[j][j]);
   return nmax(obj, 1e-8f);
-}
-
-// The solve's ok rule (qp_ipm.py:986-995): finite iterate, sane gap and
-// primal residual within kTol of the row scale.
-__device__ __forceinline__ bool ok_mask(const Cons& con,
-                                        const float (&b)[KM_MC],
-                                        const float (&x)[KM_N],
-                                        const float (&s)[KM_MC],
-                                        const float (&lam)[KM_MC]) {
-  float gap = 0.0f;
-#pragma unroll
-  for (int c = 0; c < KM_MC; ++c) gap = fmaf(s[c], lam[c], gap);
-  gap = kdiv(gap, (float)KM_MC);
-  float Ax[KM_MC];
-  matvec_A(con.A, x, Ax);
-  float r_p = 0.0f, bmax = 1.0f;
-#pragma unroll
-  for (int c = 0; c < KM_MC; ++c) {
-    r_p = nmax(r_p, Ax[c] - b[c]);
-    bmax = nmax(bmax, fabsf(b[c]));
-  }
-  bool finite = true;
-#pragma unroll
-  for (int i = 0; i < KM_N; ++i) finite = finite && isfinite(x[i]);
-  return finite && (gap < kGapSane) && (r_p < kTol * bmax);
 }
 
 #ifdef KM_M
@@ -974,8 +949,8 @@ __device__ __forceinline__ void arm_outputs(const float (&x)[KM_NX], float (&y)[
 
 // Lanes-minor carries of the fused step kernels
 // (ops/kernels/step_fused.py:StepCarry): the inputs and the outputs, which
-// may alias them -- every lane reads all of its inputs before it writes
-// the same elements.
+// may alias them (step_group.cuh: the front launch writes no carry field,
+// the solve launch reads each element before it writes it).
 struct StepIO {
   const float* ysc;      // (KM_NY, B) scaled outputs == zeta
   const float* upsc;     // (KM_M, B) previous input, scaled
@@ -993,58 +968,6 @@ struct StepIO {
   float* lamc_o;
   float* yp_o;
 };
-
-// The shared tail of the fused step kernels (_plant_freeze_epilogue,
-// ops/pallas/step_fused.py:150): SDIRK2 of the arm on the PREVIOUS input
-// (original units), the marker outputs, the alive freeze (a lane dies on a
-// failed solve or a non-finite plant state) and the carry advance:
-// u_prev = move 0 of the plan, the next primal start Pwarm @ x, the dual
-// carry lam * lam_scale.
-__device__ __forceinline__ void plant_freeze_epilogue(
-    const StepIO& io, const float* Pwarm, long long b, long long B, bool ok,
-    const float (&zeta)[KM_NZ], const float (&up)[KM_M],
-    const float (&x)[KM_N], const float (&lam)[KM_MC], float lam_scale) {
-  constexpr float UF[KM_M] = KM_UF;
-  constexpr float UO[KM_M] = KM_UO;
-  constexpr float YF[KM_NY] = KM_YF;
-  constexpr float YO[KM_NY] = KM_YO;
-  constexpr int PROJ[KM_NPROJ] = KM_PROJ;
-  float xs[KM_NX], u[KM_M];
-#pragma unroll
-  for (int i = 0; i < KM_NX; ++i) xs[i] = io.xpl[i * B + b];
-#pragma unroll
-  for (int j = 0; j < KM_M; ++j) u[j] = up[j] * UF[j] + UO[j];
-  sdirk2(xs, u, io.w[b], io.w[B + b]);
-  bool fin = true;
-#pragma unroll
-  for (int i = 0; i < KM_NX; ++i) fin = fin && isfinite(xs[i]);
-  float y[KM_NY];
-  arm_outputs(xs, y);
-
-  const bool keep = (io.alive[b] > 0.5f) && ok && fin;
-  io.alive_o[b] = keep ? 1.0f : 0.0f;
-#pragma unroll
-  for (int i = 0; i < KM_NX; ++i)
-    io.xpl_o[i * B + b] = keep ? xs[i] : io.xpl[i * B + b];
-#pragma unroll
-  for (int j = 0; j < KM_NY; ++j)
-    io.ysc_o[j * B + b] = keep ? kdiv(y[j] - YO[j], YF[j]) : zeta[j];
-#pragma unroll
-  for (int j = 0; j < KM_NPROJ; ++j)
-    io.yp_o[j * B + b] = keep ? y[PROJ[j]] : io.yp[j * B + b];
-#pragma unroll
-  for (int j = 0; j < KM_M; ++j) io.upsc_o[j * B + b] = keep ? x[j] : up[j];
-#pragma unroll
-  for (int i = 0; i < KM_N; ++i) {
-    float acc = 0.0f;
-#pragma unroll
-    for (int j = 0; j < KM_N; ++j) acc = fmaf(ldg(Pwarm + i * KM_N + j), x[j], acc);
-    io.x0_o[i * B + b] = keep ? acc : io.x0[i * B + b];
-  }
-#pragma unroll
-  for (int c = 0; c < KM_MC; ++c)
-    io.lamc_o[c * B + b] = keep ? lam[c] * lam_scale : io.lamc[c * B + b];
-}
 
 #endif  // KM_NL
 

@@ -1,5 +1,7 @@
-// One whole closed-loop step of the LINEAR Koopman MPC per lane in one
-// launch: one CUDA thread per lane.
+// One whole closed-loop step of the LINEAR Koopman MPC per lane, in two
+// launches: the gradient and plant a thread per lane, then the QP a group
+// of threads per lane against one copy of the lane-shared Hessian a block
+// (step_group.cuh, lane_group.cuh, ipm_group.cuh).
 //
 // Replaces the TPU kernel _linear_step_kernel (koopman_realizations_tpu/
 // ops/pallas/step_fused.py:185, with _plant_freeze_epilogue :150; called
@@ -12,30 +14,44 @@
 // (the PCA projection folded into G1; fYr = G2 Yr is this step's
 // lane-shared reference column), b = cFr - F0r u_prev, the Mehrotra loop
 // from COLD duals (lam = 1) against the shared Hessian, the ok mask, then
-// the shared plant/freeze/carry tail: SDIRK2 of the arm on the PREVIOUS
-// input, the markers, the alive freeze, the Pwarm @ x primal start and
-// the dual carry lam (equilibrated units, unused by the next step).
+// the plant/freeze/carry tail of the bilinear step: SDIRK2 of the arm on
+// the PREVIOUS input, the markers, the alive freeze, the Pwarm @ x primal
+// start and the dual carry lam (equilibrated units, unused by the next
+// step).
 //
 // Bound on an H100: compute.  A lane-step needs ~3.5e4 operations (six
-// Mehrotra iterations ~3e4, the gradient ~1e3, the plant ~4e3) on ~0.6 KB
-// of carry read and written, so the f32 rate (67 TFLOP/s outside the
-// tensor cores), not the 3.35 TB/s, sets the floor.  The design is the
-// step_fused.cu one: everything per lane in registers or thread-local
-// memory, the lane-shared Hessian, generators and constraint tables read
-// as warp-uniform broadcasts through the read-only cache (the Hessian is
-// never copied into per-lane storage, which frees the 144 floats the
-// bilinear kernels hold), carries lanes-minor across steps.  Carries may
-// be updated in place: every lane reads all of its inputs before it
-// writes the same elements.
-#include "kmpc_device.cuh"
-
-#ifndef KM_THREADS
-#define KM_THREADS 128
-#endif
+// Mehrotra iterations ~3e4, the gradient ~2e3, the plant ~4e3;
+// chip_smoke.py:mehrotra_ops, linear_grad_ops, plant_ops) on ~0.6 KB of
+// carry read and written, so the f32 rate (67 TFLOP/s outside the tensor
+// cores), not the 3.35 TB/s, sets the floor.
+//
+// Design.  The front launch (linear_step_front: 128-thread blocks, a
+// thread a lane, no cap on its registers) runs the plant, writing the new
+// plant state, the marker outputs and the finite flag to the lane's
+// scratch row.  The solve launch (linear_step_fused_kernel, under the
+// plan's launch bounds) loads the constraint operands and the packed
+// lower triangle of Psh, regularized on its diagonal, into shared memory
+// once a block -- every group's Hessian, with no per-lane or per-group
+// copy, so Psh must be symmetric bitwise (the host checks it) -- puts
+// each lane's u_prev and x0 into its lane region and solves the block's
+// lanes' QPs a group of KG_GROUP threads a lane from cold duals: each
+// thread of the group lifts the lane's zeta and forms the gradient
+// entries it owns (the generators, fYr and P21 read as broadcasts through
+// the read-only cache; measured 0.1 ms faster at B=262144 than the
+// gradient formed in the front launch and carried in the scratch row,
+// PERF.md §6); the group forms the ok mask and the freeze decision and
+// stores the dual carry; then each thread freezes its lane and advances
+// the carry.  The plan is ops/kernels/ipm_group.py:step_plan.
+//
+// Aliasing: the front launch writes only the scratch, so the output carry
+// may alias the input carry (Ksim.fused_runner updates ysc, upsc, xpl,
+// x0 and lamc in place); in the solve launch every element is read
+// before it is written, by the thread that writes it.
+#include "step_group.cuh"
 
 struct LinearStepArgs {
   km::Cons con;
-  const float* Psh;      // (KM_N, KM_N) reduced Hessian / obj
+  const float* Psh;      // (KM_N, KM_N) reduced Hessian / obj, symmetric
   const float* G1;       // (KM_N, KM_NCP) [G1z | G1m | G1b | 0] / obj
   const float* P21;      // (KM_N, KM_M) u_prev coupling / obj
   const float* cFr;      // (KM_MC)
@@ -43,57 +59,60 @@ struct LinearStepArgs {
   const float* Pwarm;    // (KM_N, KM_N) receding-horizon primal shift
   const float* fYr;      // (KM_N) G2 @ Yr of this step
   km::StepIO io;         // carries; the dual carry in equilibrated units
+  float* scratch;        // (grid * KG_LANES, KG_SCRATCH) hand-over
   long long B;
   int iters;
 };
 
-__global__ void __launch_bounds__(KM_THREADS)
-linear_step_fused_kernel(const LinearStepArgs a) {
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= a.B) return;
-  const long long B = a.B;
-
-  float zeta[KM_NZ], up[KM_M], x[KM_N], s[KM_MC], lam[KM_MC], rhs[KM_MC];
+// The gradient formed by the group in the solve launch: every thread
+// lifts the lane's zeta and forms the entries it owns,
+//   q_i = G1_i f + fYr_i + P21_i u_prev
+// (u_prev from the lane region).
+struct LiftGradient {
+  const LinearStepArgs& a;
+  __device__ __forceinline__ void operator()(const float* H, const float*,
+                                             long long bl, int g,
+                                             float (&q)[KG_NO]) const {
+    float zeta[KM_NZ], f[KM_NCP];
 #pragma unroll
-  for (int i = 0; i < KM_NZ; ++i) zeta[i] = a.io.ysc[i * B + b];
-#pragma unroll
-  for (int j = 0; j < KM_M; ++j) up[j] = a.io.upsc[j * B + b];
-#pragma unroll
-  for (int i = 0; i < KM_N; ++i) x[i] = a.io.x0[i * B + b];
-
-  // ---- gradient: lift, generators, reference column, u_prev coupling
-  float q[KM_N];
-  {
-    float f[KM_NCP];
+    for (int i = 0; i < KM_NZ; ++i) zeta[i] = a.io.ysc[i * a.B + bl];
     km::lift_features(zeta, f);
 #pragma unroll
-    for (int i = 0; i < KM_N; ++i)
-      q[i] = km::gen_row(a.G1 + i * KM_NCP, f) + km::ldg(a.fYr + i);
+    for (int o = 0; o < KG_NO; ++o) {
+      const int i = g + KG_GROUP * o;
+      if (i >= KM_N) {
+        q[o] = 0.0f;
+        continue;
+      }
+      float qi = km::gen_row(a.G1 + i * KM_NCP, f) + km::ldg(a.fYr + i);
+#pragma unroll
+      for (int j = 0; j < KM_M; ++j)
+        qi = fmaf(km::ldg(a.P21 + i * KM_M + j), H[KG_H_UP + j], qi);
+      q[o] = qi;
+    }
   }
-#pragma unroll
-  for (int i = 0; i < KM_N; ++i) {
-#pragma unroll
-    for (int j = 0; j < KM_M; ++j)
-      q[i] = fmaf(km::ldg(a.P21 + i * KM_M + j), up[j], q[i]);
-  }
-  km::rhs_b(a.cFr, a.F0r, up, rhs);
+};
 
-  // ---- QP from cold duals against the lane-shared Hessian
+__global__ void __launch_bounds__(KG_THREADS)
+linear_step_front(const LinearStepArgs a) {
+  const long long B = a.B;
+  const long long b = (long long)blockIdx.x * KG_LANES + threadIdx.x;
+  const long long bl = b < B ? b : B - 1;
+  float up[KM_M];
 #pragma unroll
-  for (int c = 0; c < KM_MC; ++c) lam[c] = 1.0f;
-  km::mehrotra(a.con, a.iters, 1e-2f, km::SharedHessian{a.Psh}, q, rhs, x,
-               s, lam);
-  const bool ok = km::ok_mask(a.con, rhs, x, s, lam);
+  for (int j = 0; j < KM_M; ++j) up[j] = a.io.upsc[j * B + bl];
+  kst::plant_front(a.io, bl, B, up, kl::scratch_row(a.scratch, b));
+}
 
-  // ---- plant on the previous input, freeze, carry advance (lam as is)
-  km::plant_freeze_epilogue(a.io, a.Pwarm, b, B, ok, zeta, up, x, lam, 1.0f);
+__global__ void KG_BOUNDS linear_step_fused_kernel(const LinearStepArgs a) {
+  kl::solve_block(
+      a.con, a.B,
+      kst::StepLanes<LinearStepArgs, kl::BlockHessian, LiftGradient,
+                     kl::ColdDuals>{a, a.cFr, a.F0r, {a.Psh}, {a}, {}});
 }
 
 extern "C" int km_linear_step_fused(const LinearStepArgs* args,
                                     void* stream) {
-  if (args->B <= 0) return 0;
-  const unsigned grid = (unsigned)((args->B + KM_THREADS - 1) / KM_THREADS);
-  linear_step_fused_kernel<<<grid, KM_THREADS, 0, (cudaStream_t)stream>>>(
-      *args);
-  return (int)cudaGetLastError();
+  return kl::launch_front_solve<LinearStepArgs>(
+      linear_step_front, linear_step_fused_kernel, args, stream);
 }

@@ -105,14 +105,14 @@ nmpc_multipass_kernel(const NmpcArgs a) {
                                              pass == 0 && a.hold0, zeta);
       km::condense_sweep(op, stages, zeta, up, sq, sq_step, Pr, q);
       obj = kn::hand_over(Pr, q, kn::LevenbergTerm{op.q0c, xp},
-                          kn::scratch_row(a.scratch, b));
+                          kl::scratch_row(a.scratch, b));
     }
     __syncthreads();
     const bool last = pass + 1 == a.passes;
 #pragma unroll 1
     for (int round = 0; round < KG_ROUNDS; ++round)
       kn::solve_lane(a, sh, sm, round * KG_GROUPS + grp, grp, g, last, 1e-2f,
-                     kn::ColdDuals{});
+                     kl::ColdDuals{});
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < KM_N; ++i) xp[i] = H[KG_L_X + i];

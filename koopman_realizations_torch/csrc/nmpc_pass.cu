@@ -78,6 +78,6 @@ __global__ void KG_BOUNDS nmpc_pass_kernel(const PassArgs a) {
 }
 
 extern "C" int km_nmpc_pass(const PassArgs* args, void* stream) {
-  return kn::launch_one_pass<PassArgs>(nmpc_pass_sweep, nmpc_pass_kernel,
-                                       args, stream);
+  return kl::launch_front_solve<PassArgs>(nmpc_pass_sweep, nmpc_pass_kernel,
+                                          args, stream);
 }

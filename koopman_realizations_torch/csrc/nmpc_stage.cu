@@ -102,6 +102,6 @@ __global__ void KG_BOUNDS nmpc_stage_kernel(const StageArgs a) {
 }
 
 extern "C" int km_nmpc_stage(const StageArgs* args, void* stream) {
-  return kn::launch_one_pass<StageArgs>(nmpc_stage_sweep, nmpc_stage_kernel,
-                                        args, stream);
+  return kl::launch_front_solve<StageArgs>(nmpc_stage_sweep,
+                                           nmpc_stage_kernel, args, stream);
 }

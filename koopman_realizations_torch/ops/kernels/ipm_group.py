@@ -1,8 +1,9 @@
 """Launch plan of the cooperative interior point (``csrc/ipm_group.cuh``).
 
 A group of ``group`` threads solves one lane's QP (the kernels
-``ipm_factored.cu``, ``nmpc_multipass.cu``, ``nmpc_stage.cu`` and
-``nmpc_pass.cu``): the lane's scaled Hessian, its Newton matrix and
+``ipm_factored.cu``, ``nmpc_multipass.cu``, ``nmpc_stage.cu``,
+``nmpc_pass.cu``, ``step_fused.cu`` and ``linear_step_fused.cu``): the
+lane's scaled Hessian, its Newton matrix and
 factor live in shared memory, its constraint rows are spread over the
 group's threads (row c on thread c % group), its n-vectors over their
 owners (entry i on thread i % group).
@@ -32,7 +33,9 @@ Layout of a block's dynamic shared memory, in floats (4-byte words):
   solved, and s, lam (2 mc) after its last solve (``ipm_factored``);
 - ``work`` (groups per block): [M: T][dx: n][vec: mc], the Newton matrix
   and its factor, the broadcast direction and the row vector a group
-  transposes through (compact: then the lane's Hessian, T).
+  transposes through (compact: then the lane's Hessian, T, unless the
+  Hessian is lane-shared: ``PSH``, one packed copy a block before the
+  lane regions, the linear step's).
 
 The compact plan of the NMPC kernels (``csrc/nmpc_group.cuh``:
 ``nmpc_multipass``, ``nmpc_stage``, ``nmpc_pass``) takes a lane a thread
@@ -48,7 +51,15 @@ grid).  ``nmpc_multipass`` sweeps and solves in one launch, pass after
 pass, the rows written and read back within it; the one-pass kernels run
 their sweep as a launch of its own (a thread a lane, no cap on its
 registers) that writes the scratch rows and obj, and the group solve
-follows on the stream.
+follows on the stream (``csrc/lane_group.cuh``).
+
+The fused steps (``csrc/step_group.cuh``) take the same compact plan
+with a front launch a thread a lane: the scratch row holds what the
+front hands over (``scratch``: ``step_fused`` the Hessian, q, obj;
+``linear_step_fused`` nothing more, its Hessian lane-shared and its
+gradient formed by the groups) and the plant's new state, marker
+outputs and finite flag (``plant`` floats), and the lane region one
+more float, the freeze decision the group passes to the lane's thread.
 
 Per-lane and per-group strides are padded to ``pad``: a multiple of 32
 plus the group size, so that the groups of one warp (group < 32) read
@@ -85,6 +96,11 @@ NMPC_MIN_BLOCKS = 4
 # the solve's blocks an SM as measured fastest (PERF.md §6)
 ONEPASS_GROUP = 4
 ONEPASS_MIN_BLOCKS = 4
+# step_fused and linear_step_fused: the compact plan (the front a launch
+# of its own), its group size and the solve's blocks an SM as measured
+# fastest (PERF.md §6)
+STEP_GROUP = 4
+STEP_MIN_BLOCKS = 4
 
 
 def choose_group(n: int, mc: int) -> int:
@@ -149,6 +165,12 @@ class GroupPlan:
     # Hessian; blocks an SM for __launch_bounds__ (0: any)
     compact: bool = False
     min_blocks: int = 0
+    # compact: the sections of the lane's scratch row, in order (SCRATCH);
+    # without "PR" the Hessian is lane-shared, one copy in the block's
+    # shared memory (the linear step); "PLANT" holds the plant's state,
+    # outputs and finite flag, ``plant`` floats (the step kernels)
+    scratch: tuple = ()
+    plant: int = 0
 
     @property
     def groups(self) -> int:
@@ -162,6 +184,23 @@ class GroupPlan:
         return -(-x // 32) * 32 + (self.group if self.group < 32 else 1)
 
     @property
+    def shared_hessian(self) -> bool:
+        """One lane-shared Hessian a block in shared memory (PSH), the
+        groups' Hessian: a compact plan whose scratch row has none."""
+        return self.compact and "PR" not in self.scratch
+
+    @property
+    def scratch_sections(self) -> dict:
+        """The lane's scratch row: section -> (offset, floats)."""
+        size = {"PR": tri_size(self.n), "Q": self.n, "OBJ": 1,
+                "PLANT": self.plant}
+        out, at = {}, 0
+        for name in self.scratch:
+            out[name] = (at, size[name])
+            at += size[name]
+        return out
+
+    @property
     def layout(self) -> dict:
         n, mc, T = self.n, self.mc, tri_size(self.n)
         AS, WS, NP = n | 1, mc | 1, n | 1
@@ -171,17 +210,22 @@ class GroupPlan:
             wd, wo = n * WS, (n - self.band) * WS if self.band > 0 else 0
         slot = self.lanes * NP + self.lanes if self.p else 0
         if self.compact:
-            lstride = (n + 1 + self.m) | 1
-            wstride = self.pad(2 * T + n + mc)
+            # [x][obj][u_prev], and the step kernels' freeze decision
+            keep = 1 if "PLANT" in self.scratch else 0
+            lstride = (n + 1 + self.m + keep) | 1
+            # [M][dx][vec], and the Hessian copied from the scratch row
+            wstride = self.pad((0 if self.shared_hessian else T) + T + n
+                               + mc)
         else:
             lstride = self.pad(n + 1 + max(T + n + self.m, 2 * mc))
             wstride = self.pad(T + n + mc)
         # the rows' and columns' nonzero index lists (bytes): counts and
         # lists of A's rows (mc + mc n) and columns (n + n mc)
         sp = -(-(2 * mc * n + mc + n) // 4)
-        sizes = [("A", mc * AS), ("WD", wd), ("WO", wo), ("SP", sp),
-                 ("LANE", self.lanes * lstride),
-                 ("WORK", self.groups * wstride)]
+        sizes = [("A", mc * AS), ("WD", wd), ("WO", wo), ("SP", sp)] \
+            + ([("PSH", T)] if self.shared_hessian else []) \
+            + [("LANE", self.lanes * lstride),
+               ("WORK", self.groups * wstride)]
         out, at = {}, 0
         for name, size in sizes:
             out["OFF_" + name] = at
@@ -195,9 +239,10 @@ class GroupPlan:
 
     @property
     def scratch_floats(self) -> int:
-        """Floats of device scratch a lane needs (compact: the scaled
-        Hessian and q handed from the lane's thread to its group)."""
-        return tri_size(self.n) + self.n if self.compact else 0
+        """Floats of device scratch a lane needs (compact: what the lane's
+        thread hands to its group and, in the step kernels, to the freeze,
+        ``scratch_sections``)."""
+        return sum(w for _, w in self.scratch_sections.values())
 
     @property
     def smem_bytes(self) -> int:
@@ -226,6 +271,11 @@ class GroupPlan:
                              KG_SMEM_BYTES=self.smem_bytes,
                              **{"KG_" + k: v for k, v in lay.items()
                                 if k != "SMEM_FLOATS"})
+        if self.compact:
+            cfg += _build.defines(
+                KG_SCRATCH=self.scratch_floats,
+                **{"KG_S_" + k: at for k, (at, _)
+                   in self.scratch_sections.items()})
         if self.band is None:
             ent, starts, contrib = dense_tables(cols, self.n)
             cfg += (_build.defines(KG_NENT=len(ent), KG_NCONTRIB=len(contrib))
@@ -248,15 +298,18 @@ def factored_plan(cons: Constraints, p: int) -> GroupPlan:
 
 
 def _compact_plan(cons: Constraints, m: int, group: int,
-                  min_blocks: int) -> GroupPlan:
-    """A lane a thread for the stage sweep, the pass's QPs solved
-    ``threads // group`` lanes a round, the hand-over through device
-    scratch, so that the sweep keeps the SM's L1 cache (its lane-shared
-    operands and spills live there)."""
+                  min_blocks: int, scratch=("PR", "Q"),
+                  plant: int = 0) -> GroupPlan:
+    """A lane a thread for the thread-per-lane part (the stage sweep, the
+    step's front), the QPs solved ``threads // group`` lanes a round, the
+    hand-over through device scratch, so that the thread-per-lane part
+    keeps the SM's L1 cache (its lane-shared operands and spills live
+    there)."""
     return GroupPlan(cons.n, cons.mc, cons.band,
                      len(cons.cols[0]) if cons.band is None else 0,
                      group, NMPC_THREADS, NMPC_THREADS, m=m, compact=True,
-                     min_blocks=min_blocks).check()
+                     min_blocks=min_blocks, scratch=tuple(scratch),
+                     plant=plant).check()
 
 
 def nmpc_plan(cons: Constraints, m: int) -> GroupPlan:
@@ -268,3 +321,18 @@ def onepass_plan(cons: Constraints, m: int) -> GroupPlan:
     """``nmpc_stage``'s (every trajectory mode) and ``nmpc_pass``'s plan:
     the sweep a launch of its own, then the group solve."""
     return _compact_plan(cons, m, ONEPASS_GROUP, ONEPASS_MIN_BLOCKS)
+
+
+def step_plan(cons: Constraints, m: int, plant: int,
+              shared_hessian: bool) -> GroupPlan:
+    """The fused steps' plan: the front launch (a thread a lane: the
+    plant, ``plant`` floats of its state, outputs and finite flag, and
+    ``step_fused``'s lane QP: its scaled Hessian, q and obj), then the
+    group solve and the freeze.  ``linear_step_fused``
+    (``shared_hessian``): the plant alone in the scratch row, the
+    gradient formed by the groups (measured faster than in the front,
+    PERF.md §6), the lane-shared Hessian one copy a block in shared
+    memory."""
+    return _compact_plan(cons, m, STEP_GROUP, STEP_MIN_BLOCKS,
+                         ("PLANT",) if shared_hessian
+                         else ("PR", "Q", "OBJ", "PLANT"), plant)

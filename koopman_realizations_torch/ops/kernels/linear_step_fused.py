@@ -8,8 +8,11 @@ Replaces the TPU kernel ``_linear_step_kernel``
 raw zeta, the Mehrotra loop from cold duals against the lane-shared,
 host-equilibrated Hessian, the ok mask, then the plant/freeze/carry tail
 of the bilinear fused step.  The kernel is compute-bound on the card
-(~3.5e4 operations per lane-step on ~0.6 KB of carry); see the note in the
-source.
+(~3.5e4 operations per lane-step on ~0.6 KB of carry); it runs in two
+launches, the plant a thread per lane, then the gradient and the QP a
+group of threads per lane against one copy of the Hessian a block
+(``csrc/step_group.cuh``, planned by ``ipm_group.py:step_plan``); see the
+note in the source.
 
 Host fold (step_fused.py:420-478 of the JAX package, f64, then f32): with
 P = 2 H the full blocked Hessian and obj = max |P| over all of it (the u0
@@ -38,6 +41,7 @@ import numpy as np
 import torch
 
 from koopman_realizations_torch.ops.kernels import _build
+from koopman_realizations_torch.ops.kernels.ipm_group import GroupPlan
 from koopman_realizations_torch.ops.kernels.ipm_shared import (
     ConsStruct,
     check_cuda_f32,
@@ -63,8 +67,14 @@ class LinearStepArgs(ctypes.Structure):
     _fields_ = ([("con", ConsStruct)]
                 + [(k, ctypes.c_void_p) for k in
                    ("Psh", "G1", "P21", "cFr", "F0r", "Pwarm", "fYr")]
-                + [("io", StepIOStruct), ("B", ctypes.c_longlong),
-                   ("iters", ctypes.c_int)])
+                + [("io", StepIOStruct), ("scratch", ctypes.c_void_p),
+                   ("B", ctypes.c_longlong), ("iters", ctypes.c_int)])
+
+
+def symmetric_f32(P) -> bool:
+    """P (numpy or a tensor) is symmetric bitwise once cast to f32."""
+    P32 = np.asarray(P.cpu() if torch.is_tensor(P) else P, np.float32)
+    return bool(np.array_equal(P32, P32.T))
 
 
 def linear_fold(mpc) -> dict:
@@ -95,6 +105,8 @@ class LinearStepFused(FusedStepBase):
     the per-step reference columns ``fYr`` and ``step``, whose reference
     operand is this step's fYr (n,)."""
 
+    SHARED_HESSIAN = True
+
     def __init__(self, mpc, arm, scaler):
         super().__init__(mpc, arm, scaler)
         fold = linear_fold(mpc)
@@ -110,6 +122,12 @@ class LinearStepFused(FusedStepBase):
         self.G1 = t(generator_block(fold["G1z"], fold["G1m"], fold["G1b"],
                                     ncp))
         self.cFr, self.F0r = mpc.cFr, mpc.F0r
+        # the kernel's block copy of Psh is its lower triangle, the plain
+        # version reads both (the f64 products leave Psh a rounding off
+        # symmetric; on the committed models its f32 cast is symmetric)
+        if self.dtype == torch.float32 and not symmetric_f32(self.Psh):
+            raise ValueError("linear_step_fused: Psh is not symmetric in "
+                             "f32")
 
     def lam_init(self, B: int) -> torch.Tensor:
         return torch.ones((self.cons.mc, B), dtype=self.dtype,
@@ -121,13 +139,13 @@ class LinearStepFused(FusedStepBase):
         package's XLA-side ``fYr_fn``."""
         return (windows.to(self.dtype) @ self.G2.T).contiguous()
 
-    def _make_spec(self) -> _build.KernelSpec:
+    def _plan_spec(self, plan: GroupPlan) -> _build.KernelSpec:
         cons = self.cons
         return _build.KernelSpec(
             SOURCE, cons_config(cons) + _build.defines(KM_M=self.mpc.m)
             + _build.lift_config(self.tables_host, self.nz, self.nmono,
                                  self.G1.shape[1])
-            + self.plant_config())
+            + self.plant_config() + plan.config(cons.cols))
 
     def launch(self, c, fYr, out=None):
         return linear_step_fused_cuda(self, c, fYr, out)
@@ -151,8 +169,16 @@ class LinearStepFused(FusedStepBase):
 
 def linear_step_fused_cuda(op: LinearStepFused, c: StepCarry, fYr,
                            out: Optional[StepCarry] = None) -> StepCarry:
-    """Launch ``linear_step_fused_kernel`` on the current stream; counts
-    its launches in ``linear_step_fused_cuda.launches``."""
+    """Launch ``linear_step_front`` and ``linear_step_fused_kernel`` on
+    the current stream; counts its calls in
+    ``linear_step_fused_cuda.launches``: one a step, each two device
+    launches (the front, then the solve)."""
+    return _launch(op.launch_plan(), op, c, fYr, out)
+
+
+def _launch(plan: GroupPlan, op: LinearStepFused, c: StepCarry, fYr,
+            out: Optional[StepCarry] = None) -> StepCarry:
+    """``linear_step_fused_cuda`` built with ``plan``."""
     cons = op.cons
     B = c.ysc.shape[1]
     out = op.checked_out(c, out, "linear_step_fused")
@@ -162,12 +188,14 @@ def linear_step_fused_cuda(op: LinearStepFused, c: StepCarry, fYr,
         raise ValueError("linear_step_fused: fYr must be one (n,) column")
     if op.G1.data_ptr() % 16:
         raise ValueError("gradient generators must be 16-byte aligned")
-    lib = _build.load(op.kernel_spec())
+    lib = _build.load(op.kernel_spec() if plan is op.launch_plan()
+                      else op._plan_spec(plan))
+    scratch = op.scratch(plan, B)
     args = LinearStepArgs(
         ConsStruct.of(cons),
         *(t.data_ptr() for t in (op.Psh, op.G1, op.P21, op.cFr, op.F0r,
                                  op.Pwarm, fYr)),
-        StepIOStruct.of(c, out), B, op.iters)
+        StepIOStruct.of(c, out), scratch.data_ptr(), B, op.iters)
     fn = lib.km_linear_step_fused
     fn.argtypes = [ctypes.POINTER(LinearStepArgs), ctypes.c_void_p]
     fn.restype = ctypes.c_int

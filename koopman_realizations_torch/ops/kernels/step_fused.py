@@ -10,7 +10,11 @@ Replaces the TPU kernel ``_step_kernel``
 controller, the ok mask, SDIRK2 of the arm on the PREVIOUS input, the
 marker outputs, the alive freeze and the carry advance.  The kernel is
 compute-bound on the card (~7e4 operations per lane-step on ~0.6 KB of
-carry); see the note in the source.
+carry); it runs in two launches, the lift, assembly, Gram and plant a
+thread per lane, then the QP a group of threads per lane
+(``csrc/step_group.cuh``, planned by ``ipm_group.py:step_plan``), the
+hand-over through a device scratch row the wrapper allocates; see the
+note in the source.
 
 Carry semantics (step_fused.py:23-31 of the JAX package): zeta IS the
 scaled output (no delays); the next primal start is the static one-hot
@@ -34,6 +38,10 @@ from koopman_realizations_torch.ops.kernels.bilin_lift import (
     QPStruct,
     check_operands,
     qp_config,
+)
+from koopman_realizations_torch.ops.kernels.ipm_group import (
+    GroupPlan,
+    step_plan,
 )
 from koopman_realizations_torch.ops.qp import (
     ok_mask,
@@ -76,8 +84,8 @@ class StepIOStruct(ctypes.Structure):
 class StepArgs(ctypes.Structure):
     _fields_ = [("qp", QPStruct), ("Pwarm", ctypes.c_void_p),
                 ("sqYr", ctypes.c_void_p), ("io", StepIOStruct),
-                ("B", ctypes.c_longlong), ("sqYr_lanes", ctypes.c_int),
-                ("iters", ctypes.c_int)]
+                ("scratch", ctypes.c_void_p), ("B", ctypes.c_longlong),
+                ("sqYr_lanes", ctypes.c_int), ("iters", ctypes.c_int)]
 
 
 def pwarm_matrix(Sel, Tb, Np: int, m: int) -> np.ndarray:
@@ -94,8 +102,13 @@ class FusedStepBase:
     """What the fused steps of both controllers share (the JAX
     ``build_step_fused`` / ``build_linear_step_fused`` pair): the plant
     and the scaler, the carry, the plant half of the kernel
-    configuration, the plain plant/freeze/carry tail
-    (``_plant_freeze_epilogue``) and the launch-side carry checks."""
+    configuration, the group plan and the scratch, the plain
+    plant/freeze/carry tail (``_plant_freeze_epilogue``) and the
+    launch-side carry checks."""
+
+    # the lane-shared Hessian one copy a block (the linear step), else
+    # each lane's from its scratch row
+    SHARED_HESSIAN = False
 
     def __init__(self, mpc, arm, scaler):
         cfg = arm.cfg
@@ -110,7 +123,7 @@ class FusedStepBase:
         self.Pwarm = torch.as_tensor(
             pwarm_matrix(mpc.Sel, mpc.Tb, mpc.Np, mpc.m), dtype=self.dtype,
             device=self.device)
-        self._spec = None
+        self._plan = self._spec = None
 
     # ------------------------------------------------------------ carry
 
@@ -144,13 +157,29 @@ class FusedStepBase:
 
     # ------------------------------------------------------------ config
 
+    def launch_plan(self) -> GroupPlan:
+        """The build's group plan (``ipm_group.py:step_plan``; the plant's
+        scratch: its state, outputs and finite flag), made once."""
+        if self._plan is None:
+            cfg = self.arm.cfg
+            self._plan = step_plan(self.cons, self.mpc.m,
+                                   cfg.nx + cfg.ny + 1, self.SHARED_HESSIAN)
+        return self._plan
+
     def kernel_spec(self) -> _build.KernelSpec:
         if self._spec is None:
-            self._spec = self._make_spec()
+            self._spec = self._plan_spec(self.launch_plan())
         return self._spec
 
-    def _make_spec(self) -> _build.KernelSpec:
+    def _plan_spec(self, plan: GroupPlan) -> _build.KernelSpec:
+        """The build with ``plan``."""
         raise NotImplementedError
+
+    def scratch(self, plan: GroupPlan, B: int) -> torch.Tensor:
+        """The hand-over scratch of a launch over B lanes
+        (``plan.scratch_floats`` a lane of the grid), uninitialized."""
+        return torch.empty(plan.grid(B) * plan.lanes * plan.scratch_floats,
+                           dtype=self.dtype, device=self.device)
 
     def plant_config(self) -> str:
         """``#define`` lines of the plant half of a step kernel: the arm's
@@ -261,9 +290,10 @@ class StepFused(FusedStepBase):
     def lam_init(self, B: int) -> torch.Tensor:
         return self.qp.row[:, None].expand(self.qp.mc, B)
 
-    def _make_spec(self) -> _build.KernelSpec:
-        return _build.KernelSpec(SOURCE,
-                                 qp_config(self.qp) + self.plant_config())
+    def _plan_spec(self, plan: GroupPlan) -> _build.KernelSpec:
+        return _build.KernelSpec(SOURCE, qp_config(self.qp)
+                                 + self.plant_config()
+                                 + plan.config(self.cons.cols))
 
     def launch(self, c, sqYr, out=None):
         return step_fused_cuda(self, c, sqYr, out)
@@ -280,18 +310,27 @@ class StepFused(FusedStepBase):
 
 def step_fused_cuda(op: StepFused, c: StepCarry, sqYr,
                     out: Optional[StepCarry] = None) -> StepCarry:
-    """Launch ``step_fused_kernel`` on the current stream; counts its
-    launches in ``step_fused_cuda.launches``."""
+    """Launch ``step_fused_front`` and ``step_fused_kernel`` on the current
+    stream; counts its calls in ``step_fused_cuda.launches``: one a step,
+    each two device launches (the front, then the solve)."""
+    return _launch(op.launch_plan(), op, c, sqYr, out)
+
+
+def _launch(plan: GroupPlan, op: StepFused, c: StepCarry, sqYr,
+            out: Optional[StepCarry] = None) -> StepCarry:
+    """``step_fused_cuda`` built with ``plan``."""
     qp = op.qp
     B = c.ysc.shape[1]
     out = op.checked_out(c, out, "step_fused")
     check_operands(qp, op.Pwarm, sqYr, *c, *out)
     if sqYr.shape[0] != qp.p:
         raise ValueError("step_fused: sqYr must have p rows")
-    lib = _build.load(op.kernel_spec())
+    lib = _build.load(op.kernel_spec() if plan is op.launch_plan()
+                      else op._plan_spec(plan))
+    scratch = op.scratch(plan, B)
     args = StepArgs(QPStruct.of(qp), op.Pwarm.data_ptr(), sqYr.data_ptr(),
-                    StepIOStruct.of(c, out), B, int(sqYr.ndim == 2),
-                    op.iters)
+                    StepIOStruct.of(c, out), scratch.data_ptr(), B,
+                    int(sqYr.ndim == 2), op.iters)
     fn = lib.km_step_fused
     fn.argtypes = [ctypes.POINTER(StepArgs), ctypes.c_void_p]
     fn.restype = ctypes.c_int

@@ -37,6 +37,7 @@ from koopman_realizations_torch.ops.kernels.linear_step_fused import (
     build_linear_step_fused,
 )
 from koopman_realizations_torch.ops.kernels.step_fused import (
+    FusedStepBase,
     StepCarry,
     build_step_fused,
 )
@@ -818,14 +819,64 @@ def test_linear_update_runner_on_card_tracks(gpu_sqp_linear):
 # ------------------------------------------------ the group interior point
 # The nine builds of the cooperative interior point (csrc/ipm_group.cuh):
 # ipm_factored's four, nmpc_multipass, nmpc_stage's three trajectory
-# modes and nmpc_pass, each on 1007 closed-loop lanes of its own path (a
-# ragged last block for every plan), made once; the one-pass kernels
-# with the per-lane q0, per-lane windows and warm duals, as the stage and
-# chord routes pass them.
+# modes, nmpc_pass and the fused steps, each on 1007 closed-loop lanes of
+# its own path (a ragged last block for every plan), made once; the
+# one-pass kernels with the per-lane q0, per-lane windows and warm duals,
+# as the stage and chord routes pass them; the bilinear step with
+# per-lane windows.
+STEP_BUILDS = ["step_fused", "linear_step_fused"]
 GROUP_BUILDS = ["iters2", "unblocked", "unblocked_smooth", "q0",
                 "nmpc_multipass", "nmpc_stage hold", "nmpc_stage roll",
-                "nmpc_stage ship", "nmpc_pass"]
+                "nmpc_stage ship", "nmpc_pass"] + STEP_BUILDS
 _GROUP_LANES = {}
+
+
+def _step_outputs(c):
+    """A step's new carry as the group tests read it: the primal start
+    Pwarm @ x first, the alive mask last."""
+    return (c.x0, c.upsc, c.lamc, c.ysc, c.xpl, c.yp, c.alive)
+
+
+def _step_carry(args):
+    """The carry of a step case's arguments (op, ysc, upsc, xpl, w,
+    alive (1, B), x0, lamc, yp, v)."""
+    ysc, upsc, xpl, w, alive, x0, lamc, yp = args[1:9]
+    return StepCarry(ysc, upsc, xpl, w, alive.reshape(-1), x0, lamc, yp)
+
+
+def _step_kernel(*args):
+    return _step_outputs(args[0].launch(_step_carry(args), args[9], None))
+
+
+def _step_plain(*args):
+    return _step_outputs(args[0].step_plain(_step_carry(args), args[9]))
+
+
+def _step_case(request, build, B):
+    """(kernel, plain, f32 and f64 arguments, zeta's index) of a fused
+    step on B closed-loop lanes after 3 plain steps; the bilinear step
+    with per-lane windows."""
+    if build == "step_fused":
+        sim, op = request.getfixturevalue("gpu")
+        c, win = _carry(op, B, 3)
+        v = win[3 + torch.arange(B, device="cuda") % 8].T.contiguous()
+        model, scaler, _ = load_model()
+        op64 = build_step_fused(BilinearKmpc(
+            model, scaler, MpcConfig(**MPC), device="cuda",
+            dtype=torch.float64), sim.plant, scaler)
+    else:
+        sim, op = request.getfixturevalue("gpu_linear")
+        c, _, fY = _linear_carry(op, sim, B, 3)
+        v = fY[3].contiguous()
+        model, scaler, _ = load_model(LINEAR_MODEL)
+        op64 = build_linear_step_fused(LinearKmpc(
+            model, scaler, MpcConfig(**LINEAR), device="cuda",
+            dtype=torch.float64), sim.plant, scaler)
+    c = c._replace(alive=c.alive[None])
+    ins = {torch.float32: (op,) + tuple(t.contiguous() for t in c) + (v,),
+           torch.float64: (op64,) + tuple(t.double().contiguous()
+                                          for t in c) + (v.double(),)}
+    return _step_kernel, _step_plain, ins, 1
 
 
 def _onepass_case(request, build, B):
@@ -879,6 +930,8 @@ def _group_case(request, build):
         case = (IF.ipm_factored_cuda, IF.ipm_factored_plain, ins, 3)
     elif build.startswith(("nmpc_stage", "nmpc_pass")):
         case = _onepass_case(request, build, B)
+    elif build in STEP_BUILDS:
+        case = _step_case(request, build, B)
     elif build == "q0":
         gl = request.getfixturevalue("gpu_sqp_linear")
         ins = {dt: d["args"] + (d["lam0"], 8, 1e-2, d["q0"])
@@ -908,7 +961,10 @@ def _lanes(args, idx):
 
 def _ok(args, out):
     """The ok mask of a solution of a kernel's arguments (an NMPC
-    kernel's u_prev: its first (m, B) operand)."""
+    kernel's u_prev: its first (m, B) operand; a fused step: the lanes it
+    keeps alive)."""
+    if isinstance(args[0], FusedStepBase):
+        return out[-1] > 0.5
     if hasattr(args[0], "cons"):
         up = next(t for t in args[1:] if torch.is_tensor(t) and t.ndim == 2
                   and t.shape[0] == args[0].m)
@@ -925,10 +981,17 @@ def _tail_reading(build, out, ref, r64, top=12):
     keeps a large one) and its degeneracy, the f64 solution's smallest
     max(s, lam) over the rows (both near 0: a weakly active row)."""
     dist = lambda r: (r[0].double() - r64[0]).abs().amax(0)
-    gap = lambda r: (r[1].double() * r[2].double()).mean(0)
-    dk, dp, gk, gp = dist(out), dist(ref), gap(out), gap(ref)
-    deg = torch.maximum(r64[1], r64[2]).amin(0)
+    dk, dp = dist(out), dist(ref)
     q = lambda d: f"{torch.quantile(d, 0.99).item():.3e}"
+    if build in STEP_BUILDS:
+        # the primal start Pwarm @ x; no multipliers to read a gap from
+        return (f"{build} B={dk.numel()}: Pwarm x, p99 kernel {q(dk)}, "
+                f"plain f32 {q(dp)}; farthest lanes kernel "
+                f"{dk.topk(top).indices.tolist()}, plain f32 "
+                f"{dp.topk(top).indices.tolist()}")
+    gap = lambda r: (r[1].double() * r[2].double()).mean(0)
+    gk, gp = gap(out), gap(ref)
+    deg = torch.maximum(r64[1], r64[2]).amin(0)
     lanes = lambda d: ", ".join(
         f"{i} {dk[i]:.1e}/{dp[i]:.1e} {gk[i]:.1e}/{gp[i]:.1e} {deg[i]:.1e}"
         for i in d.topk(top).indices.tolist())
@@ -1016,3 +1079,22 @@ def test_group_kernel_poisoned_lane_confined(request, build):
         assert torch.equal(o[..., keep], op[..., keep])
         assert torch.equal(torch.isfinite(op[..., bad]),
                            torch.isfinite(r[..., bad]))
+
+
+@pytest.mark.parametrize("build", STEP_BUILDS)
+def test_step_kernel_in_place(request, build):
+    """One step with ``out`` aliasing the input carry, as
+    Ksim.fused_runner passes it (the front launch writes only the
+    scratch, and the solve launch reads each element before it writes
+    it), equals a step into fresh tensors, bitwise, and writes into the
+    input carry's own tensors."""
+    _, _, ins, _ = _group_case(request, build)
+    args = ins[torch.float32]
+    op, v, c = args[0], args[9], _step_carry(args)
+    fresh = op.launch(c, v, None)
+    cin = StepCarry(*(t.clone() for t in c))
+    new = op.launch(cin, v, cin)
+    torch.cuda.synchronize()
+    for f in StepCarry._fields:
+        assert torch.equal(getattr(new, f), getattr(fresh, f)), f
+        assert getattr(new, f).data_ptr() == getattr(cin, f).data_ptr(), f

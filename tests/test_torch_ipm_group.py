@@ -2,8 +2,9 @@
 ipm_group.py``) for every build that uses it: ``ipm_factored``'s four
 (iterated relinearization n=12/mc=48, its q0 build on the NMPC's 'linear'
 update, the unblocked stack n=27/mc=108, with smoothness rows
-n=27/mc=156 dense), ``nmpc_multipass``'s and the one-pass NMPC kernels'
-(``nmpc_stage``'s three trajectory modes, ``nmpc_pass``).  Pure Python:
+n=27/mc=156 dense), ``nmpc_multipass``'s, the one-pass NMPC kernels'
+(``nmpc_stage``'s three trajectory modes, ``nmpc_pass``) and the fused
+steps' (``step_fused``, ``linear_step_fused``).  Pure Python:
 the group size,
 lanes per block, the grid over B with a ragged tail, the shared-memory
 layout within the H100's 227 KB a block, and the dense A^T D A entry table
@@ -14,28 +15,40 @@ import dataclasses
 import re
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 
-from koopman_realizations_torch.config import MpcConfig
+from koopman_realizations_torch.config import ArmConfig, MpcConfig
 from koopman_realizations_torch.control.kmpc import (
     BilinearKmpc,
+    LinearKmpc,
     NonlinearKmpc,
 )
+from koopman_realizations_torch.models.arm import Arm
 from koopman_realizations_torch.ops.kernels import ipm_factored as IF
 from koopman_realizations_torch.ops.kernels import ipm_group as IG
+from koopman_realizations_torch.ops.kernels import linear_step_fused as LS
 from koopman_realizations_torch.ops.kernels import nmpc_multipass as NM
 from koopman_realizations_torch.ops.kernels import nmpc_pass as NP
 from koopman_realizations_torch.ops.kernels import nmpc_stage as NS
+from koopman_realizations_torch.ops.kernels import step_fused as SF
 from koopman_realizations_torch.ops.kernels._build import CSRC
 from koopman_realizations_torch.ops.nmpc import STAGE_MODES
 from koopman_realizations_torch.ops.qp import form_AtDA
 from koopman_realizations_torch.utils.checkpoint import (
+    LINEAR_MODEL,
     NONLINEAR_MODEL,
     load_model,
 )
 
-from test_torch_oracle import BENCH_MPC, BILINEAR_ROUTES, NMPC_MPC
+from test_torch_oracle import (
+    BENCH_ARM,
+    BENCH_MPC,
+    BILINEAR_ROUTES,
+    LINEAR_MPC,
+    NMPC_MPC,
+)
 
 # (n, mc, band, group) of each build
 EXPECTED = {"iters2": (12, 48, 3, IG.NARROW_GROUP),
@@ -45,11 +58,15 @@ EXPECTED = {"iters2": (12, 48, 3, IG.NARROW_GROUP),
             "nmpc_multipass": (12, 48, 3, IG.NMPC_GROUP),
             **{"nmpc_stage " + mode: (12, 48, 3, IG.ONEPASS_GROUP)
                for mode in STAGE_MODES},
-            "nmpc_pass": (12, 48, 3, IG.ONEPASS_GROUP)}
-# the one-pass NMPC builds, and with nmpc_multipass the compact plans (a
-# lane a thread in the stage sweep, the hand-over through device scratch)
+            "nmpc_pass": (12, 48, 3, IG.ONEPASS_GROUP),
+            "step_fused": (12, 48, 3, IG.STEP_GROUP),
+            "linear_step_fused": (12, 48, 3, IG.STEP_GROUP)}
+# the one-pass NMPC builds, the fused steps, and with nmpc_multipass the
+# compact plans (a lane a thread in the stage sweep or the step's front,
+# the hand-over through device scratch)
 ONEPASS = ["nmpc_stage " + mode for mode in STAGE_MODES] + ["nmpc_pass"]
-COMPACT = ["nmpc_multipass"] + ONEPASS
+STEPS = ["step_fused", "linear_step_fused"]
+COMPACT = ["nmpc_multipass"] + ONEPASS + STEPS
 
 
 @pytest.fixture(scope="module")
@@ -75,7 +92,28 @@ def plans(nmpc_qp):
     for mode in STAGE_MODES:
         out["nmpc_stage " + mode] = (q.cons, NS.launch_plan(q))
     out["nmpc_pass"] = (q.cons, NP.launch_plan(q))
+    for build, op in step_ops().items():
+        out[build] = (op.cons, op.launch_plan())
     return out
+
+
+_STEP_OPS = {}
+
+
+def step_ops() -> dict:
+    """The fused steps of the bench's bilinear controller and of the
+    linear one (f32, on the CPU), made once."""
+    if not _STEP_OPS:
+        arm = Arm(ArmConfig(**BENCH_ARM), device="cpu")
+        model, scaler, _ = load_model()
+        lmodel, lscaler, _ = load_model(LINEAR_MODEL)
+        _STEP_OPS["step_fused"] = SF.build_step_fused(
+            BilinearKmpc(model, scaler, MpcConfig(**BENCH_MPC),
+                         device="cpu"), arm, scaler)
+        _STEP_OPS["linear_step_fused"] = LS.build_linear_step_fused(
+            LinearKmpc(lmodel, lscaler, MpcConfig(**LINEAR_MPC),
+                       device="cpu"), arm, lscaler)
+    return _STEP_OPS
 
 
 @pytest.mark.parametrize("build", list(EXPECTED))
@@ -116,6 +154,13 @@ def test_layout_regions(plans, build):
     lay = plan.layout
     n, mc, T = cons.n, cons.mc, IG.tri_size(cons.n)
     order = ["OFF_A", "OFF_WD", "OFF_WO", "OFF_SP", "OFF_LANE", "OFF_WORK"]
+    if plan.shared_hessian:
+        # the block's one copy of the lane-shared Hessian
+        assert build == "linear_step_fused"
+        order.insert(4, "OFF_PSH")
+        assert lay["OFF_LANE"] - lay["OFF_PSH"] == T
+    else:
+        assert "OFF_PSH" not in lay
     offs = [lay[k] for k in order] + [lay["SMEM_FLOATS"]]
     assert offs == sorted(offs) and offs[0] == 0
     assert lay["OFF_WD"] - lay["OFF_A"] == mc * lay["AS"]
@@ -124,11 +169,18 @@ def test_layout_regions(plans, build):
     assert lay["OFF_WORK"] - lay["OFF_LANE"] == plan.lanes * lay["LSTRIDE"]
     bank = plan.group if plan.group < 32 else 1
     if plan.compact:
-        # x, obj and u_prev; the Hessian and q through device scratch
+        # x, obj and u_prev (the steps: and the freeze decision); the
+        # Hessian and q through device scratch (but the linear step's:
+        # its Hessian lane-shared, its gradient formed by the groups), the
+        # steps' plant too; the work region's copy of the Hessian
         assert build in COMPACT and plan.m == 3
-        assert lay["LSTRIDE"] == (n + 1 + 3) | 1
-        assert lay["WSTRIDE"] >= 2 * T + n + mc
-        assert plan.scratch_floats == T + n
+        assert lay["LSTRIDE"] == (n + 1 + 3 + (build in STEPS)) | 1
+        hess = 0 if plan.shared_hessian else T
+        assert lay["WSTRIDE"] >= hess + T + n + mc
+        plant = 13 if build in STEPS else 0
+        obj = 1 if build == "step_fused" else 0
+        q = 0 if plan.shared_hessian else n
+        assert plan.scratch_floats == hess + q + obj + plant
     else:
         assert lay["LSTRIDE"] >= n + 1 + max(T + n + plan.m, 2 * mc)
         assert lay["LSTRIDE"] % 32 == bank
@@ -187,6 +239,16 @@ def test_dense_entry_table_is_AtDA(plans):
             for i in range(k, n)] == list(range(IG.tri_size(n)))
 
 
+def _slots(defs: dict):
+    """A resolver of the headers' slot #defines, names expanded (C
+    integer division)."""
+    def at(key):
+        val = re.sub(r"[A-Z_]+", lambda t: f"({at(t.group())})",
+                     defs[key]) if key.startswith("KG") else defs[key]
+        return eval(val.replace("/", "//"))
+    return at
+
+
 @pytest.mark.parametrize("build", ONEPASS)
 def test_onepass_scratch_and_lane_regions(plans, build):
     """Each one-pass plan's lane region holds x0 (the solve's x), obj and
@@ -199,16 +261,11 @@ def test_onepass_scratch_and_lane_regions(plans, build):
     n, mc, m, T = cons.n, cons.mc, plan.m, IG.tri_size(cons.n)
     lay = plan.layout
     defs = dict(KM_N=str(n), KM_MC=str(mc), KM_M=str(m))
-    for name in ("ipm_group.cuh", "nmpc_group.cuh"):
+    for name in ("ipm_group.cuh", "lane_group.cuh"):
         for key, val in re.findall(r"#define (KG_(?:L_\w+|H_UP|W_PR|T)) "
                                    r"(.+)", (CSRC / name).read_text()):
             defs[key] = val.split("//")[0].strip()
-
-    def at(key):
-        """A slot's #define, its names expanded (C integer division)."""
-        val = re.sub(r"[A-Z_]+", lambda t: f"({at(t.group())})",
-                     defs[key]) if key.startswith("KG") else defs[key]
-        return eval(val.replace("/", "//"))
+    at = _slots(defs)
     assert at("KG_T") == T
     lane = sorted([(at("KG_L_X"), n, "x0"), (at("KG_L_OBJ"), 1, "obj"),
                    (at("KG_H_UP"), m, "u_prev")])
@@ -237,8 +294,107 @@ def test_onepass_scratch_and_lane_regions(plans, build):
     assert re.search(r"__launch_bounds__\(KG_THREADS\)\s*" + kernel
                      + r"_sweep\(", src)
     assert f"KG_BOUNDS {kernel}_kernel(" in src
-    assert re.search(rf"launch_one_pass<\w+>\({kernel}_sweep,\s*"
+    assert re.search(rf"launch_front_solve<\w+>\({kernel}_sweep,\s*"
                      rf"{kernel}_kernel,", src)
+
+
+@pytest.mark.parametrize("build", STEPS)
+def test_step_scratch_and_lane_regions(plans, build):
+    """Each fused step's plan: the lane region [x][obj][u_prev][keep]
+    and the scratch row's sections (the bilinear step [Pr][q][obj]
+    [plant], the linear one [plant], the plant [xs: nx][y: ny]
+    [fin: 1] as csrc/step_group.cuh reads it) without overlap, from the
+    build's #defines and the headers'; the linear step's Hessian one
+    copy a block in shared memory (no per-group copy), the bilinear
+    step's copied into each work region; the wrapper's scratch covering
+    every lane of a ragged grid; the front launch a thread a lane before
+    the solve under the plan's bounds."""
+    cons, plan = plans[build]
+    op = step_ops()[build]
+    n, mc, m, T = cons.n, cons.mc, plan.m, IG.tri_size(cons.n)
+    nx, ny = op.arm.cfg.nx, op.arm.cfg.ny
+    lay = plan.layout
+    defs = dict(KM_N=str(n), KM_MC=str(mc), KM_M=str(m), KM_NX=str(nx),
+                KM_NY=str(ny))
+    defs.update(re.findall(r"#define (KG_\w+) (\d+)\n",
+                           plan.config(cons.cols)))
+    for name in ("ipm_group.cuh", "lane_group.cuh", "step_group.cuh"):
+        for key, val in re.findall(r"#define (KG_(?:L_\w+|H_UP|W_PR|T|"
+                                   r"S_XS|S_Y|S_FIN)) (.+)",
+                                   (CSRC / name).read_text()):
+            defs[key] = val.split("//")[0].strip()
+    at = _slots(defs)
+
+    def disjoint(slots, end):
+        slots = sorted(slots)
+        assert slots[0][0] == 0
+        for (o, w), (o2, _) in zip(slots, slots[1:]):
+            assert o + w <= o2
+        assert slots[-1][0] + slots[-1][1] <= end
+    disjoint([(at("KG_L_X"), n), (at("KG_L_OBJ"), 1), (at("KG_H_UP"), m),
+              (at("KG_L_KEEP"), 1)], lay["LSTRIDE"])
+    want = {"step_fused": ["PR", "Q", "OBJ", "PLANT"],
+            "linear_step_fused": ["PLANT"]}[build]
+    assert list(plan.scratch) == want
+    width = {"PR": T, "Q": n, "OBJ": 1, "PLANT": nx + ny + 1}
+    secs = [(at("KG_S_" + k), width[k]) for k in want]
+    disjoint(secs, at("KG_SCRATCH"))
+    assert at("KG_SCRATCH") == plan.scratch_floats == sum(width[k]
+                                                          for k in want)
+    # the plant's slots fill its section
+    plant = [(at("KG_S_XS"), nx), (at("KG_S_Y"), ny), (at("KG_S_FIN"), 1)]
+    assert plant[0][0] == at("KG_S_PLANT")
+    disjoint([(o - at("KG_S_PLANT"), w) for o, w in plant], nx + ny + 1)
+    # the Hessian: the linear step's one block copy, the bilinear step's
+    # in each group's work region after M, dx and the row vector
+    assert plan.shared_hessian == (build == "linear_step_fused")
+    if plan.shared_hessian:
+        assert lay["WSTRIDE"] >= T + n + mc
+        assert f"#define KG_OFF_PSH {lay['OFF_PSH']}\n" in plan.config(
+            cons.cols)
+    else:
+        assert at("KG_W_PR") + T <= lay["WSTRIDE"]
+    for B in (1, 1007, 262144):
+        scratch = op.scratch(plan, B)
+        assert scratch.numel() == plan.grid(B) * plan.lanes \
+            * plan.scratch_floats
+        assert plan.grid(B) * plan.lanes >= B
+    assert plan.compact and plan.lanes == plan.threads
+    src = (CSRC / f"{build}.cu").read_text()
+    front = "step_fused_front" if build == "step_fused" \
+        else "linear_step_front"
+    assert re.search(r"__launch_bounds__\(KG_THREADS\)\s*" + front + r"\(",
+                     src)
+    assert f"KG_BOUNDS {build}_kernel(" in src
+    assert re.search(rf"launch_front_solve<\w+>\(\s*{front},\s*"
+                     rf"{build}_kernel,", src)
+
+
+@pytest.mark.parametrize("perturbed", [False, True])
+def test_linear_fold_psh_symmetric_f32(perturbed):
+    """The linear step's kernel keeps one copy of Psh's lower triangle, so
+    its f32 Psh must be symmetric bitwise: ``linear_fold``'s Psh on the
+    committed linear model is (its f64 Psh is a rounding off symmetric,
+    its f32 cast symmetric), and where an off-diagonal entry of H is off
+    its mirror by more than an f32 rounding, the f32 step refuses the
+    model rather than solve another QP than its plain version."""
+    lmodel, lscaler, _ = load_model(LINEAR_MODEL)
+    mpc = LinearKmpc(lmodel, lscaler, MpcConfig(**LINEAR_MPC), device="cpu")
+    m = mpc.m
+    H = np.array(mpc.H, np.float64)
+    if perturbed:
+        H[m + 4, m + 1] *= 1.0 + 1e-5
+        mpc.H = H
+    Psh = LS.linear_fold(mpc)["Psh"]
+    assert np.array_equal(
+        Psh, 2.0 * H[m:, m:] / max(float(np.abs(2.0 * H).max()), 1e-8))
+    assert LS.symmetric_f32(Psh) != perturbed
+    if perturbed:
+        with pytest.raises(ValueError, match="not symmetric"):
+            LS.build_linear_step_fused(mpc, Arm(ArmConfig(**BENCH_ARM),
+                                                device="cpu"), lscaler)
+    else:
+        assert LS.symmetric_f32(step_ops()["linear_step_fused"].Psh)
 
 
 def test_configs_carry_the_plan(plans, nmpc_qp):
@@ -256,8 +412,11 @@ def test_configs_carry_the_plan(plans, nmpc_qp):
     assert plans["iters2"][1].config(cons.cols) in \
         IF.kernel_spec(cons, 22).config
     q = nmpc_qp
-    specs = {"nmpc_multipass": NM.kernel_spec(q), "nmpc_pass": NP.kernel_spec(q),
+    specs = {"nmpc_multipass": NM.kernel_spec(q),
+             "nmpc_pass": NP.kernel_spec(q),
              **{"nmpc_stage " + mode: NS.kernel_spec(q, mode)
                 for mode in STAGE_MODES}}
     for build, spec in specs.items():
         assert plans[build][1].config(q.cons.cols) in spec.config
+    for build, op in step_ops().items():
+        assert plans[build][1].config(op.cons.cols) in op.kernel_spec().config
