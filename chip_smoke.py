@@ -581,16 +581,25 @@ def main() -> int:
         return ms
 
     def plan_line(kernel, mode=None) -> str:
-        """A two-launch build's group plan and its ``ptxas -v`` lines (the
-        one-pass NMPC kernels, the fused steps)."""
+        """A group build's plan and its ``ptxas -v`` lines (the one-pass
+        NMPC kernels, the fused steps, ``bilin_lift``, ``ipm_shared``'s
+        lane-shared build and, 'ipm_shared lane-P', its per-lane-P build
+        of the constraints ``mode``)."""
         if kernel == "nmpc_stage":
             plan, spec = NS.launch_plan(nqp), NS.kernel_spec(nqp, mode)
         elif kernel == "nmpc_pass":
             plan, spec = NP.launch_plan(nqp), NP.kernel_spec(nqp)
+        elif kernel == "bilin_lift":
+            plan, spec = BL.launch_plan(qp), BL.kernel_spec(qp)
+        elif kernel.startswith("ipm_shared"):
+            lane_p = kernel.endswith("lane-P")
+            c_ = mode if lane_p else cons
+            plan, spec = IS.launch_plan(c_, lane_p), IS.kernel_spec(c_, lane_p)
         else:
             so = op if kernel == "step_fused" else lop
             plan, spec = so.launch_plan(), so.kernel_spec()
-        return (f"plan: group {plan.group}, {plan.lanes} lanes a block, "
+        return (f"plan: group {plan.group}, {plan.threads} threads and "
+                f"{plan.lanes} lanes a block, "
                 f"{plan.min_blocks or 'no bound on'} blocks an SM; ptxas: "
                 + " | ".join(
                     ln.split("ptxas info    :")[-1].strip()
@@ -1454,6 +1463,9 @@ def main() -> int:
     bl_ms = kernel_ms("bilin_lift", lambda: BL.bilin_lift_cuda(*ins),
                       reps=10)
     bl_plain = cuda_ms(lambda: BL.bilin_lift_plain(*ins), reps=2, warmup=1)
+    log(f"bilin_lift at B={B_GENERAL}: {bl_ms:.4f} ms; by launch "
+        f"{launch_split(lambda: BL.bilin_lift_cuda(*ins))}; "
+        f"{plan_line('bilin_lift')} | {smi}")
     bl_flops = qp_ops(qp, op.iters) * B_GENERAL
     bl_bytes = nbytes(cG.ysc, cG.upsc, cG.x0, cG.lamc, wins[0]) \
         + 4 * B_GENERAL * (qp.n + 2 * qp.mc + 1) + nbytes(
@@ -1494,6 +1506,8 @@ def main() -> int:
     is_ms = kernel_ms("ipm_shared", lambda: IS.ipm_shared_cuda(*ins),
                       reps=10)
     is_plain = cuda_ms(lambda: IS.ipm_shared_plain(*ins), reps=2, warmup=1)
+    log(f"ipm_shared lane-shared at B={B_GENERAL}: {is_ms:.4f} ms; "
+        f"{plan_line('ipm_shared')} | {smi}")
     is_flops = mehrotra_ops(cons, lop.iters, nnz(Psh)) * B_GENERAL
     is_bytes = nbytes(q, b, lcG.x0) + 4 * B_GENERAL * (cons.n + 2 * cons.mc) \
         + nbytes(Psh, cons.A, cons.Wd, cons.Wo)
@@ -1654,7 +1668,8 @@ def main() -> int:
             P, Pq[torch.float32][1], fc, b * row, iters, x0=x0,
             lam0=ins[torch.float32][6] / row))
         log(f"ipm_shared (per-lane P) {key} through ops/qp.py:solve_qp, "
-            f"B={B_GENERAL}: ok {int(sol.ok.sum())} of {B_GENERAL}")
+            f"B={B_GENERAL}: ok {int(sol.ok.sum())} of {B_GENERAL}; "
+            f"{plan_line('ipm_shared lane-P', fc)}")
         if not bool(sol.ok.all()):
             raise AssertionError("solve_qp with a per-lane P lost lanes")
         lane_main += counts["ipm_shared"]

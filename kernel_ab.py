@@ -12,16 +12,20 @@ building its kernels from its own sources.  Each process also prints the
 ``ptxas -v`` lines of its builds.  In this tree it times the
 cooperative interior point's builds (``ipm_factored``'s four,
 ``nmpc_multipass``, ``nmpc_stage``'s three, ``nmpc_pass``, the fused
-steps ``step_fused`` and ``linear_step_fused``) at other group sizes and
-launch bounds than their plans' (``ops/kernels/ipm_group.py``); in both
-trees it times the redesigned kernels without their interior-point
-iterations (``iters=0``: the sweep or front launch, or the staging and
-Gram, alone) and with one.  Two more processes, DIR and this tree, build the
-redesigned kernels with ``-fmad=false`` (no contraction of a multiply
-and an add into an FMA) and compare their outputs: every ``nmpc_stage``
-mode cold and warm, ``nmpc_pass`` fresh and frozen, the fused steps'
-seven carry fields at B=262144 and at a ragged B.  For each
-``ipm_factored`` build it then holds both trees'
+steps ``step_fused`` and ``linear_step_fused``, ``bilin_lift``,
+``ipm_shared``'s lane-shared and per-lane-P builds) at other group
+sizes, lanes a block and launch bounds than their plans'
+(``ops/kernels/ipm_group.py``); in both
+trees it times the redesigned kernels and ``bilin`` without their
+interior-point iterations (``iters=0``: the sweep or front
+launch, or the staging and Gram, alone) and with one.  Two more
+processes, DIR and this tree, build those kernels with ``-fmad=false``
+(no contraction of a multiply and an add into an FMA) and compare their
+outputs: every ``nmpc_stage`` mode cold and warm, ``nmpc_pass`` fresh
+and frozen, the fused steps' seven carry fields at B=262144 and at a
+ragged B, ``bilin_lift`` warm and cold, ``ipm_shared``'s three builds,
+``bilin``.  For each ``ipm_factored`` build and ``ipm_shared``'s
+per-lane-P builds it then holds both trees'
 kernels and plain f32 against plain f64 on the same lanes: the median
 and p99 per-lane distances, the lanes beyond 1e-4 / 1e-3 / 1e-2, how
 often a 1024-lane subset fails the p99 gate of the card tests (within
@@ -71,6 +75,18 @@ NMPC_VARIANTS = ((4, (4,)), (8, (0, 3, 4, 5)), (16, (4,)))
 ONEPASS_VARIANTS = (((2, 4, 8, 16), (4,)), ((4, 8), (0, 3, 5, 6)))
 # the fused steps' alternatives: (group sizes, blocks an SM)
 STEP_VARIANTS = (((2, 4, 8, 16), (4,)), ((4,), (0, 3, 5)))
+# bilin_lift's and the lane-shared ipm_shared's alternatives: group sizes
+# and blocks an SM at 128 lanes a block; and ipm_shared's at one round a
+# block (threads, group, blocks an SM)
+LIFT_VARIANTS = ((2, 4, 8), (3, 4, 5))
+ONE_ROUND = ((128, 8, 4), (256, 4, 4), (256, 8, 0), (256, 8, 2),
+             (256, 8, 3), (256, 16, 4))
+# the per-lane-P builds' alternatives: (n, threads, group sizes, blocks
+# an SM) of one round a block, and 128 lanes a block (group, blocks)
+LANE_P_VARIANTS = (("n=12", 256, (8, 16, 32), (0, 2, 4)),
+                   ("n=27", 256, (16, 32), (0, 2, 3)),
+                   ("n=27", 192, (32,), (0, 3)))
+LANE_P_ROUNDS = (("n=12", 16, 0), ("n=27", 32, 3))
 STEPS = ("step_fused", "linear_step_fused")
 # the card tests' p99 gate is taken over ~1000 lanes
 SUBSET = 1024
@@ -197,8 +213,32 @@ def make_inputs(S: Setup) -> dict:
             m.constraints(), m.rdiag, Wt.contiguous(), v.contiguous(),
             b.contiguous(), x0, l0, m.cfg.qp_iters, 1e-2)
         if m.blocked:
-            out["bilin"] = (m.bilin_qp(), z, upsc, x0, l0,
-                            S.wins[3].contiguous(), m.cfg.qp_iters, 1e-2)
+            # the route's name for its lane-shared operands (each process
+            # makes its own: the trees' QP types may differ)
+            out["bilin"] = (name, z, upsc, x0, l0, S.wins[3].contiguous(),
+                            m.cfg.qp_iters, 1e-2)
+
+    # bilin_lift and the lane-shared ipm_shared at B_FULL: the QPs of the
+    # fused steps' lanes after 3 plain closed-loop steps from the bench's
+    # initial states (bilin_lift: the carried duals; ipm_shared: the
+    # linear general path's QP, chip_smoke.py:linear_qp)
+    (op, vecs), (lop, fY) = S.steps().values()
+    c, lc = op.init_carry(*S.spread(B)), lop.init_carry(*S.spread(B))
+    for k in range(SEED_STEPS):
+        c, lc = op.step_plain(c, vecs[k]), lop.step_plain(lc, fY[k])
+    out["bilin_lift"] = (c.ysc, c.upsc, c.x0, c.lamc,
+                         vecs[SEED_STEPS].contiguous(), op.iters, 1e-2)
+    lm, lcons = S.lmpc, S.lmpc.constraints()
+    zl = lm.lift(lc.ysc)
+    Yr = S.lsim.reference_windows(S.ref, SEED_STEPS + 2)[SEED_STEPS]
+    f = 2.0 * lm.CB_t.T @ (lm.Qd_t[:, None] * (lm.CA_t @ zl - Yr[:, None]))
+    P, q, bz = lm.eliminate_u0(2.0 * lm.H_t, f,
+                               lm.c_t[:, None] - lm.Mc_t @ zl, lc.upsc)
+    obj = P.abs().amax()
+    out["ipm_shared"] = (lcons, (P / obj).contiguous(),
+                         (q / obj).contiguous(),
+                         (bz / lcons.row[:, None]).contiguous(),
+                         lc.x0.contiguous(), lm.cfg.qp_iters, 1e-2)
 
     # the fused steps at B_STEP: 3 plain closed-loop steps from the bench's
     # initial states, then the carry and the next step's reference column
@@ -306,14 +346,19 @@ ONEPASS = tuple("nmpc_stage " + m for m in STAGE_MODES) + ("nmpc_pass",)
 # fresh and frozen
 ONEPASS_RUNS = ONEPASS + tuple(f"nmpc_stage {m} warm" for m in STAGE_MODES) \
     + ("nmpc_pass frozen",)
+LANE_P = ("ipm_shared lane-P n=12", "ipm_shared lane-P n=27")
+# the kernels whose outputs the two trees' -fmad=false builds compare:
+# the redesigned ones and bilin (its assembly changed)
+SOLVES = ("bilin_lift", "ipm_shared") + LANE_P + ("bilin",)
 REDESIGNED = tuple("ipm_factored " + name for name in FACTORED) \
     + ("nmpc_multipass",) + ONEPASS_RUNS + STEPS \
-    + tuple(f"{k} B={B_RAGGED}" for k in STEPS)
-# the factored, one-pass and step builds' outputs after 0 and 1
+    + tuple(f"{k} B={B_RAGGED}" for k in STEPS) + SOLVES \
+    + ("bilin_lift cold", "bilin_lift per-lane windows")
+# the factored, one-pass, step and solve builds' outputs after 0 and 1
 # iterations, for the comparison of parent and change
 FIRST_ITERATIONS = tuple(f"{k} iters={it}" for k in
                          tuple("ipm_factored " + name for name in FACTORED)
-                         + ONEPASS + STEPS for it in (0, 1))
+                         + ONEPASS + STEPS + SOLVES for it in (0, 1))
 
 
 def step_call(ins: dict, key: str, iters=None, B=None, launch=None):
@@ -355,6 +400,56 @@ def onepass_call(ins: dict, key: str, iters=None, launch=None):
     return lambda: fn(*a, **kw)
 
 
+def solve_args(ins: dict, key: str, iters=None) -> tuple:
+    """The saved arguments of ``bilin_lift``, ``ipm_shared`` (each build)
+    or ``bilin`` with the process's own lane-shared QP operands
+    (``iters``: another iteration count)."""
+    S = setup()
+    a = ins[key]
+    if key == "bilin_lift":
+        a = (S.steps()["step_fused"][0].qp,) + a
+    elif key == "bilin":
+        a = (S.routes[a[0]].bilin_qp(),) + a[1:]
+    if iters is not None:
+        at = 5 if key.startswith("ipm_shared") else 6
+        a = a[:at] + (iters,) + a[at + 1:]
+    return a
+
+
+def solve_runs(ins: dict) -> tuple:
+    """``bilin_lift`` (warm, cold, per-lane windows), ``ipm_shared``'s
+    three builds and ``bilin``, each also after 0 and 1 iterations."""
+    import torch
+
+    from koopman_realizations_torch.ops.kernels import bilin as BI
+    from koopman_realizations_torch.ops.kernels import bilin_lift as BL
+    from koopman_realizations_torch.ops.kernels import ipm_shared as IS
+    fns = {"bilin_lift": BL.bilin_lift_cuda, "bilin": BI.bilin_cuda,
+           **{k: IS.ipm_shared_cuda for k in ("ipm_shared",) + LANE_P}}
+    a = solve_args(ins, "bilin_lift")
+    specs = {"bilin_lift": BL.kernel_spec(a[0]),
+             "ipm_shared": IS.kernel_spec(ins["ipm_shared"][0]),
+             "bilin": BI.kernel_spec(solve_args(ins, "bilin")[0]),
+             **{k: IS.kernel_spec(ins[k][0], lane_p=True) for k in LANE_P}}
+    runs = {}
+    for key, fn in fns.items():
+        reps = 5 if key in LANE_P else 10
+        runs[key] = (lambda fn=fn, a=solve_args(ins, key): fn(*a), reps)
+        for it in (0, 1):
+            runs[f"{key} iters={it}"] = (
+                lambda fn=fn, a=solve_args(ins, key, it): fn(*a), reps)
+    wins = setup().wins
+    B = a[1].shape[1]
+    # lane b the window of step 3 + b % 4 (the setup makes 7)
+    per_lane = wins[3 + torch.arange(B, device="cuda") % 4].T.contiguous()
+    runs["bilin_lift cold"] = (lambda: BL.bilin_lift_cuda(
+        a[0], a[1], a[2], a[3].new_zeros(a[3].shape), None, a[5], a[6],
+        1.0), 10)
+    runs["bilin_lift per-lane windows"] = (lambda: BL.bilin_lift_cuda(
+        *a[:5], per_lane, *a[6:]), 10)
+    return specs, runs
+
+
 def redesigned_runs(ins: dict) -> tuple:
     """Specs and launches of the redesigned kernels, public entry points
     only (the other tree has no more)."""
@@ -382,9 +477,10 @@ def redesigned_runs(ins: dict) -> tuple:
         lambda: NM.nmpc_multipass_cuda(*nmp[:6], 0), 5)
     runs["nmpc_multipass passes=1"] = (
         lambda: NM.nmpc_multipass_cuda(*nmp[:4], 1, *nmp[5:]), 5)
-    sp, ru = onepass_runs(ins)
-    specs.update(sp)
-    runs.update(ru)
+    for more in (onepass_runs, solve_runs):
+        sp, ru = more(ins)
+        specs.update(sp)
+        runs.update(ru)
     # the fused steps: the front launch and the solve's set-up alone
     # (iters=0) and one iteration; the seven carry fields at a ragged B
     for key in STEPS:
@@ -444,10 +540,61 @@ def variant_runs(ins: dict) -> tuple:
             key = f"nmpc_multipass G={g} min_blocks={mb}"
             specs[key] = NM._spec(nmp[0], plan)
             runs[key] = (lambda plan=plan: NM._launch(plan, *nmp), 5)
-    for more in (onepass_variant_runs, step_variant_runs):
+    for more in (onepass_variant_runs, step_variant_runs,
+                 solve_variant_runs):
         sp, ru = more(ins)
         specs.update(sp)
         runs.update(ru)
+    return specs, runs
+
+
+def solve_variant_runs(ins: dict) -> tuple:
+    """``bilin_lift`` and the lane-shared ``ipm_shared`` at the plans of
+    ``LIFT_VARIANTS`` (and ``ipm_shared`` at ``ONE_ROUND``); the
+    per-lane-P builds at ``LANE_P_VARIANTS`` and ``LANE_P_ROUNDS``."""
+    import dataclasses
+
+    from koopman_realizations_torch.ops.kernels import bilin_lift as BL
+    from koopman_realizations_torch.ops.kernels import ipm_shared as IS
+    specs, runs = {}, {}
+    a = solve_args(ins, "bilin_lift")
+    base = BL.launch_plan(a[0])
+    groups, mbs = LIFT_VARIANTS
+    for g in groups:
+        for mb in mbs:
+            plan = dataclasses.replace(base, group=g, min_blocks=mb).check()
+            key = f"bilin_lift G={g} min_blocks={mb}"
+            specs[key] = BL._spec(a[0], plan)
+            runs[key] = (lambda plan=plan: BL._launch(plan, *a), 10)
+    s = ins["ipm_shared"]
+    base = IS.launch_plan(s[0])
+    plans = {f"ipm_shared 128 lanes G={g} min_blocks={mb}":
+             dataclasses.replace(base, group=g, threads=128, lanes=128,
+                                 min_blocks=mb)
+             for g in groups for mb in mbs}
+    plans.update({f"ipm_shared one round {t} threads G={g} min_blocks={mb}":
+                  dataclasses.replace(base, group=g, threads=t,
+                                      lanes=t // g, min_blocks=mb)
+                  for t, g, mb in ONE_ROUND})
+    for key, plan in plans.items():
+        specs[key] = IS._spec(s[0], False, plan.check())
+        runs[key] = (lambda plan=plan: IS._launch(plan, *s), 10)
+    for n, threads, groups, mbs in LANE_P_VARIANTS:
+        la = ins["ipm_shared lane-P " + n]
+        base = IS.launch_plan(la[0], True)
+        plans = {f"ipm_shared lane-P {n} {threads} threads G={g} "
+                 f"min_blocks={mb}": dataclasses.replace(
+                     base, group=g, threads=threads, lanes=threads // g,
+                     min_blocks=mb)
+                 for g in groups for mb in mbs}
+        for rn, g, mb in LANE_P_ROUNDS:
+            if rn == n and threads == 256:
+                plans[f"ipm_shared lane-P {n} 128 lanes G={g} "
+                      f"min_blocks={mb}"] = dataclasses.replace(
+                    base, group=g, threads=128, lanes=128, min_blocks=mb)
+        for key, plan in plans.items():
+            specs[key] = IS._spec(la[0], True, plan.check())
+            runs[key] = (lambda plan=plan, la=la: IS._launch(plan, *la), 5)
     return specs, runs
 
 
@@ -508,45 +655,12 @@ def onepass_variant_runs(ins: dict) -> tuple:
 
 
 def other_runs(ins: dict) -> tuple:
-    """Specs and launches of the four kernels not redesigned."""
-    import torch
-
+    """Specs and launches of ``batch_chol``, timed only."""
     from koopman_realizations_torch.ops.kernels import batch_chol as BC
-    from koopman_realizations_torch.ops.kernels import bilin as BI
-    from koopman_realizations_torch.ops.kernels import bilin_lift as BL
-    from koopman_realizations_torch.ops.kernels import ipm_shared as IS
-    S = setup()
-    op, lop = S.steps()["step_fused"][0], S.steps()["linear_step_fused"][0]
-    specs = {"bilin_lift": BL.kernel_spec(op.qp),
-             "ipm_shared": IS.kernel_spec(S.lmpc.constraints()),
-             "bilin": BI.kernel_spec(ins["bilin"][0]),
-             "batch_chol n=12": BC.kernel_spec(12),
+    specs = {"batch_chol n=12": BC.kernel_spec(12),
              "batch_chol n=27": BC.kernel_spec(27)}
+    runs = {}
     for key in ("n=12", "n=27"):
-        specs["ipm_shared lane-P " + key] = IS.kernel_spec(
-            ins["ipm_shared lane-P " + key][0], lane_p=True)
-    XG, WG = S.spread(B_FULL)
-    cG, lcG = op.init_carry(XG, WG), lop.init_carry(XG, WG)
-    lm, cons = S.lmpc, S.lmpc.constraints()
-    z = lm.lift(lcG.ysc)
-    Yr = S.lsim.reference_windows(S.ref, 2)[0][:, None]
-    f = 2.0 * lm.CB_t.T @ (lm.Qd_t[:, None] * (lm.CA_t @ z - Yr))
-    P, q, bz = lm.eliminate_u0(2.0 * lm.H_t, f,
-                               lm.c_t[:, None] - lm.Mc_t @ z, lcG.upsc)
-    obj = P.abs().amax()
-    lin = (cons, (P / obj).contiguous(), (q / obj).contiguous(),
-           (bz / cons.row[:, None]).contiguous(), lcG.x0, lm.cfg.qp_iters,
-           1e-2)
-    runs = {
-        "bilin_lift": (lambda: BL.bilin_lift_cuda(
-            op.qp, cG.ysc, cG.upsc, cG.x0, cG.lamc, S.wins[0], op.iters,
-            1e-2), 10),
-        "ipm_shared": (lambda: IS.ipm_shared_cuda(*lin), 10),
-        "bilin": (lambda: BI.bilin_cuda(*ins["bilin"]), 10)}
-    for key in ("n=12", "n=27"):
-        a = ins["ipm_shared lane-P " + key]
-        runs["ipm_shared lane-P " + key] = (
-            lambda a=a: IS.ipm_shared_cuda(*a), 5)
         M, rhs = ins["batch_chol " + key]
         runs["batch_chol " + key] = (
             lambda M=M, rhs=rhs: BC.solve_spd_cuda(M, rhs), 10)
@@ -599,20 +713,27 @@ def to_f64(args) -> tuple:
     return tuple(cast(t) for t in args)
 
 
+# the builds whose tails against plain f64 the script reads
+TAILED = tuple("ipm_factored " + name for name in FACTORED) + LANE_P
+
+
 def tails(ins: dict, xs: dict) -> dict:
-    """For each ``ipm_factored`` build: every labelled solution of ``xs``
-    (name -> label -> (x, s, lam, obj)) and plain f32 against plain f64
+    """For each build of ``TAILED``: every labelled solution of ``xs``
+    (key -> label -> (x, s, lam, ...)) and plain f32 against plain f64
     on the same lanes."""
     import torch
 
     from koopman_realizations_torch.ops.kernels import ipm_factored as IF
+    from koopman_realizations_torch.ops.kernels import ipm_shared as IS
     out = {}
-    for name in FACTORED:
-        a32 = ins["ipm_factored " + name]
-        x64, s64, l64 = IF.ipm_factored_plain(*to_f64(a32))[:3]
+    for name in TAILED:
+        plain = IF.ipm_factored_plain if name.startswith("ipm_factored") \
+            else IS.ipm_shared_plain
+        a32 = ins[name]
+        x64, s64, l64 = plain(*to_f64(a32))[:3]
         dev = x64.device
         lv = torch.tensor([0.5, 0.99], dtype=torch.float64, device=dev)
-        sol = dict(xs[name], **{"plain f32": IF.ipm_factored_plain(*a32)})
+        sol = dict(xs[name], **{"plain f32": plain(*a32)})
         d = {k: (r[0].to(dev).double() - x64).abs().amax(0)
              for k, r in sol.items()}
         # an ordering's complementarity gap (mean s lam) per lane: where
@@ -726,7 +847,15 @@ def main(argv=None) -> int:
                 d = d[torch.isfinite(d)]
                 out.append(d.max().item() if d.numel() else 0.0)
             return " ".join(f"{d:.3e}" for d in out)
+        outputs = {}
         for k in REDESIGNED + FIRST_ITERATIONS:
+            outputs[k] = {
+                "bitwise": same(xs[0][k], xs[1][k]),
+                "max |d|": maxdiff(xs[0][k], xs[1][k]),
+                "deterministic": [same(xs[0][k], xs[3][k]),
+                                  same(xs[1][k], xs[2][k])],
+                "-fmad=false bitwise": same(xs[4][k], xs[5][k]),
+                "-fmad=false max |d|": maxdiff(xs[4][k], xs[5][k])}
             print(f"{k}: outputs of parent and change bitwise equal "
                   f"{same(xs[0][k], xs[1][k])}, max |d| "
                   f"{maxdiff(xs[0][k], xs[1][k])}; each tree deterministic "
@@ -735,9 +864,10 @@ def main(argv=None) -> int:
                   f"{same(xs[4][k], xs[5][k])}, max |d| "
                   f"{maxdiff(xs[4][k], xs[5][k])}", flush=True)
         ins = torch.load(path, weights_only=False)
-        tl = tails(ins, {name: {plan[i][0]: xs[i]["ipm_factored " + name]
-                                for i in (0, 1, 4, 5)} for name in FACTORED})
-        print(f"ipm_factored at B={B_FULL}, distances to plain f64 | {smi}")
+        tl = tails(ins, {key: {plan[i][0]: xs[i][key] for i in (0, 1, 4, 5)}
+                         for key in TAILED})
+        print(f"ipm_factored and per-lane-P ipm_shared at B={B_FULL}, "
+              f"distances to plain f64 | {smi}")
         for name, rows in tl.items():
             for k, v in rows.items():
                 print(f"{name} | {k} | {json.dumps(v)}", flush=True)
@@ -765,8 +895,8 @@ def main(argv=None) -> int:
             for ln in lines:
                 print(f"  {r['tree']} {k}: {ln}")
     if args.out:
-        Path(args.out).write_text(json.dumps({"runs": runs, "tails": tl},
-                                             indent=1))
+        Path(args.out).write_text(json.dumps(
+            {"runs": runs, "tails": tl, "outputs": outputs}, indent=1))
     return 0
 
 

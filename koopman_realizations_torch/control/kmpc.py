@@ -79,6 +79,7 @@ from koopman_realizations_torch.ops.qp import (
     QPSolution,
     band_offset_of,
     constraint_tables,
+    generator_live,
     lift_qp_operands,
     row_nonzeros,
 )
@@ -448,7 +449,7 @@ class BilinearKmpc(_KmpcBase):
                                   self.band, dtype=dtype, device=self.device)
             self._qp_static = {k: getattr(qp, k) for k in
                                ("tables_host", "n", "mc", "p", "m", "nz",
-                                "nmono", "band")}
+                                "nmono", "band", "live")}
             for k in ("gens", "rdiag"):
                 self.register_buffer(k, getattr(qp, k))
             return
@@ -470,6 +471,9 @@ class BilinearKmpc(_KmpcBase):
             gens = np.zeros((stack.shape[0], -(-NL // 4) * 4))
             gens[:, :NL] = stack
             self.register_buffer("gens", t(gens))
+            self.gens_live = generator_live(
+                torch.as_tensor(gens, dtype=dtype), self.p,
+                self.Tb.shape[1], m)
         else:
             self.register_buffer("PG_t", t(g["PG"]))
 
@@ -491,7 +495,8 @@ class BilinearKmpc(_KmpcBase):
         return BilinQP(gens=self.gens, rdiag=self.rdiag, A=self.A,
                        cFr=self.cFr, F0r=self.F0r, row=self.row, Wd=self.Wd,
                        Wo=self.Wo, n=self.A.shape[1], mc=self.A.shape[0],
-                       p=self.p, m=self.m, nzl=self.NL, band=self.band)
+                       p=self.p, m=self.m, nzl=self.NL, band=self.band,
+                       live=self.gens_live)
 
     def solve(self, z, u_prev, sqYr, U_plan, lam0=None):
         """One batched MPC solve (``BilinearKmpc.solve``), lanes-minor:

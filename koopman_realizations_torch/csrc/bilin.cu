@@ -19,8 +19,9 @@
 // input and output.  The design is bilin_lift.cu's with the lifted state
 // in place of the lift's features (km::StateFeatures): the 352 x 28
 // generator stack is read as warp-uniform 16-byte broadcasts through the
-// read-only cache, W is streamed row by row into the Gram and never held,
-// and every per-lane load and store is coalesced (lanes-minor).
+// read-only cache, its all-zero rows skipped, W is streamed row by row
+// into the Gram and never held, and every per-lane load and store is
+// coalesced (lanes-minor).
 #include "kmpc_device.cuh"
 
 #ifndef KM_THREADS

@@ -1,30 +1,42 @@
-// Lift-fused bilinear MPC QP, batched: one CUDA thread per lane.
+// Lift-fused bilinear MPC QP, batched, in two launches: the lift,
+// assembly, Gram and objective scale a thread per lane, then the QP a
+// group of threads per lane (lane_group.cuh, ipm_group.cuh).
 //
 // Replaces the TPU kernel _bilin_lift_kernel (koopman_realizations_tpu/
 // ops/pallas/qp_ipm.py:772, called at :951 by
 // solve_qp_bilinear_lifted_batched): poly lift of the raw zeta, QP
 // assembly against the lane-shared generators, factored Gram, objective
-// scale, banded A^T D A and the Mehrotra loop.  The ok mask and the
-// multipliers' return to original units run in the wrapper
-// (ops/kernels/bilin_lift.py), as they do in the JAX wrapper.
+// scale, banded A^T D A and the Mehrotra loop with the sqrt-damped dual
+// warm start.  The ok mask and the multipliers' return to original units
+// run in the wrapper (ops/kernels/bilin_lift.py), as they do in the JAX
+// wrapper.
 //
 // Bound on an H100: compute.  At the bench shape (n=12, mc=48, p=22,
-// 84 generator columns, 4 iterations) a lane needs ~6.6e4 operations
-// (the kernel does ~1.1e5, structural zeros of the shared operands
-// included) on ~0.5 KB of lane input and output, so the card's f32 rate
+// 84 generator columns, 4 iterations) a lane needs ~6.6e4 operations,
+// counting only the nonzeros of the shared operands (chip_smoke.py:
+// qp_ops), on ~0.5 KB of lane input and output, so the card's f32 rate
 // (67 TFLOP/s outside the tensor cores), not its 3.35 TB/s, sets the
-// floor.  The design keeps
-// every per-lane intermediate in registers or thread-local memory (the
-// p*n W block is streamed row by row into the Gram, never stored), reads
-// the 118 KB of shared generators as warp-uniform 16-byte broadcasts
-// through the read-only cache, and makes per-lane loads coalesced through
-// the lanes-minor layout.  Occupancy and local-memory spills are what a
-// later tuning pass has to work on.
-#include "kmpc_device.cuh"
-
-#ifndef KM_THREADS
-#define KM_THREADS 128
-#endif
+// floor.
+//
+// Design: step_fused.cu without the plant and the freeze.  The front
+// launch (bilin_lift_front: 128-thread blocks, a thread a lane, no cap on
+// its registers) runs the lift, the assembly against the lane-shared
+// generators without their all-zero rows (warp-uniform broadcasts through
+// the read-only cache), the factored Gram (kmpc_device.cuh:assemble) and
+// the objective scale, and writes the packed, scaled, regularized
+// Hessian, the scaled q and obj to the lane's scratch row.  The solve
+// launch (bilin_lift_kernel, under the plan's launch bounds) loads the
+// constraint operands into shared memory, puts each lane's u_prev, x0 and
+// obj into its lane region, and solves the block's lanes' QPs a group of
+// KG_GROUP threads a lane from the warm duals sqrt(clip(lam0 / obj, 1e-4,
+// 1e4)) (cold where lam0 is null) and b = cFr - F0r u_prev; the group
+// stores s and lam, then each thread x and obj.  The plan (group, lanes a
+// block, launch bounds, layout) is ops/kernels/ipm_group.py:
+// bilin_lift_plan.
+//
+// Aliasing: the outputs are fresh tensors of the wrapper, never an input,
+// so no launch reads what it writes.
+#include "lane_group.cuh"
 
 struct BilinLiftArgs {
   km::QP qp;
@@ -37,45 +49,63 @@ struct BilinLiftArgs {
   float* s;            // (KM_MC, B)
   float* lam;          // (KM_MC, B) equilibrated multipliers
   float* obj;          // (B) objective scale
+  float* scratch;      // (grid * KG_LANES, KG_SCRATCH) hand-over
   long long B;
   int sqYr_lanes;
   int iters;
   float slack_floor;
 };
 
-__global__ void __launch_bounds__(KM_THREADS)
-bilin_lift_kernel(const BilinLiftArgs a) {
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= a.B) return;
+__global__ void __launch_bounds__(KG_THREADS)
+bilin_lift_front(const BilinLiftArgs a) {
   const long long B = a.B;
-  float zeta[KM_NZ], up[KM_M], x[KM_N], s[KM_MC], lam[KM_MC], rhs[KM_MC];
+  const long long b = (long long)blockIdx.x * KG_LANES + threadIdx.x;
+  const long long bl = b < B ? b : B - 1;
+  float zeta[KM_NZ], up[KM_M];
 #pragma unroll
-  for (int i = 0; i < KM_NZ; ++i) zeta[i] = a.zeta[i * B + b];
+  for (int i = 0; i < KM_NZ; ++i) zeta[i] = a.zeta[i * B + bl];
 #pragma unroll
-  for (int j = 0; j < KM_M; ++j) up[j] = a.up[j * B + b];
-#pragma unroll
-  for (int i = 0; i < KM_N; ++i) x[i] = a.x0[i * B + b];
-  const bool warm = a.lam0 != nullptr;
-#pragma unroll
-  for (int c = 0; c < KM_MC; ++c) lam[c] = warm ? a.lam0[c * B + b] : 1.0f;
-  const float* sq = a.sqYr_lanes ? a.sqYr + b : a.sqYr;
+  for (int j = 0; j < KM_M; ++j) up[j] = a.up[j * B + bl];
+  const float* sq = a.sqYr_lanes ? a.sqYr + bl : a.sqYr;
   const long long sq_step = a.sqYr_lanes ? B : 1;
-  const float obj = km::solve_qp(a.qp, a.iters, a.slack_floor, warm,
-                                 km::LiftFeatures{zeta}, up, sq, sq_step, x,
-                                 s, lam, rhs);
+  float P[KM_N][KM_N], q[KM_N], rhs[KM_MC];
+  km::assemble(a.qp, km::LiftFeatures{zeta}, up, sq, sq_step, P, q, rhs);
+  float* hs = kl::scratch_row(a.scratch, b);
+  hs[KG_S_OBJ] = kl::pack_scaled(P, q, hs);
+}
+
+// The solve launch's lanes: each lane's u_prev, x0 and obj (from the
+// front) into its lane region; its QP; x and obj out.
+struct BilinLiftLanes {
+  const BilinLiftArgs& a;
+  __device__ __forceinline__ void load(float*, float* H, long long bl,
+                                       int) const {
+    const long long B = a.B;
 #pragma unroll
-  for (int i = 0; i < KM_N; ++i) a.x[i * B + b] = x[i];
+    for (int j = 0; j < KM_M; ++j) H[KG_H_UP + j] = a.up[j * B + bl];
 #pragma unroll
-  for (int c = 0; c < KM_MC; ++c) {
-    a.s[c * B + b] = s[c];
-    a.lam[c * B + b] = lam[c];
+    for (int i = 0; i < KM_N; ++i) H[KG_L_X + i] = a.x0[i * B + bl];
+    H[KG_L_OBJ] = kl::scratch_row(a.scratch, bl)[KG_S_OBJ];
   }
-  a.obj[b] = obj;
+  __device__ __forceinline__ void solve(const kg::Shared& sh, float* sm,
+                                        int ql, int grp, int g) const {
+    kl::solve_lane(a, a.qp.cFr, a.qp.F0r, sh, sm, ql, grp, g, a.slack_floor,
+                   kl::ScratchHessian{}, kl::ScratchGradient{},
+                   kl::LaneDuals{a.lam0, a.B}, kl::StoreRows{a.s, a.lam, a.B});
+  }
+  __device__ __forceinline__ void store(const float* H, long long b) const {
+#pragma unroll
+    for (int i = 0; i < KM_N; ++i) a.x[i * a.B + b] = H[KG_L_X + i];
+    a.obj[b] = H[KG_L_OBJ];
+  }
+};
+
+__global__ void KG_BOUNDS bilin_lift_kernel(const BilinLiftArgs a) {
+  kl::solve_block(a.qp.con, a.B, BilinLiftLanes{a});
 }
 
 extern "C" int km_bilin_lift(const BilinLiftArgs* args, void* stream) {
-  if (args->B <= 0) return 0;
-  const unsigned grid = (unsigned)((args->B + KM_THREADS - 1) / KM_THREADS);
-  bilin_lift_kernel<<<grid, KM_THREADS, 0, (cudaStream_t)stream>>>(*args);
-  return (int)cudaGetLastError();
+  return kl::launch_front_solve<BilinLiftArgs>(bilin_lift_front,
+                                               bilin_lift_kernel, args,
+                                               stream);
 }

@@ -1,9 +1,10 @@
 // The cooperative interior point: one lane's Mehrotra predictor-corrector
 // run by a group of KG_GROUP threads, with the lane's matrices in shared
 // memory (ipm_factored.cu; through lane_group.cuh nmpc_multipass.cu,
-// nmpc_stage.cu, nmpc_pass.cu, step_fused.cu and linear_step_fused.cu).
+// nmpc_stage.cu, nmpc_pass.cu, step_fused.cu, linear_step_fused.cu,
+// bilin_lift.cu and ipm_shared.cu).
 //
-// It replaces, for those six kernels, the thread-per-lane loop of
+// It replaces, for those eight kernels, the thread-per-lane loop of
 // kmpc_device.cuh (km::mehrotra with form_newton, chol, chol_solve,
 // direction), which keeps the Hessian, M and L (3 n^2 floats) in one
 // thread's registers or, at n=27, in thread-local memory.  Both compute
@@ -226,6 +227,26 @@ __device__ __forceinline__ float hess(const Lane& L, int i, int j) {
   return j <= i ? L.Pr[tidx(i, j)] : L.Pr[tidx(j, i)];
 }
 
+// How the product r_d = Pr x reads the Hessian: its lower triangle for
+// both (a symmetric Pr, every build but one) ...
+struct SymmetricHessian {
+  __device__ __forceinline__ float operator()(const Lane& L, int i,
+                                              int j) const {
+    return hess(L, i, j);
+  }
+};
+// ... or the lower triangle below the diagonal and the strict upper one
+// above it, Pu[tidx(j, i)] = Pr(i, j) for i < j (ipm_shared's per-lane P,
+// which need not be symmetric: the product reads all of it, the Newton
+// matrix its lower triangle, as the plain version does).
+struct UpperHessian {
+  const float* Pu;
+  __device__ __forceinline__ float operator()(const Lane& L, int i,
+                                              int j) const {
+    return j <= i ? L.Pr[tidx(i, j)] : Pu[tidx(j, i)];
+  }
+};
+
 // (A v)_c for a shared n-vector v, over row c's nonzeros in order.
 __device__ __forceinline__ float dot_row(const Shared& sh, int c,
                                          const float* v) {
@@ -427,15 +448,18 @@ __device__ __forceinline__ void direction(const Shared& sh, const Lane& L,
 }
 
 // Fixed-iteration Mehrotra predictor-corrector of one lane: L.Pr holds
-// the scaled, regularized Hessian, q the scaled linear term (owners), b
-// the equilibrated right-hand side and lam the dual start (rows), L.x
-// the primal start.  On return L.x, s and lam hold the iterate.
+// the scaled, regularized Hessian (its lower triangle; hdot reads it for
+// r_d), q the scaled linear term (owners), b the equilibrated right-hand
+// side and lam the dual start (rows), L.x the primal start.  On return
+// L.x, s and lam hold the iterate.
+template <class HDot = SymmetricHessian>
 __device__ __forceinline__ void mehrotra(const Shared& sh, const Lane& L,
                                          int g, int iters, float slack_floor,
                                          const float (&q)[KG_NO],
                                          const float (&b)[KG_R],
                                          float (&s)[KG_R],
-                                         float (&lam)[KG_R]) {
+                                         float (&lam)[KG_R],
+                                         const HDot& hdot = HDot()) {
 #pragma unroll
   for (int k = 0; k < KG_R; ++k) {
     const int c = g + KG_GROUP * k;
@@ -473,7 +497,7 @@ __device__ __forceinline__ void mehrotra(const Shared& sh, const Lane& L,
         const float atl = dot_col(sh, i, L.vec);
         float acc = 0.0f;
 #pragma unroll
-        for (int j = 0; j < KM_N; ++j) acc = fmaf(hess(L, i, j), L.x[j], acc);
+        for (int j = 0; j < KM_N; ++j) acc = fmaf(hdot(L, i, j), L.x[j], acc);
         rd[o] = acc + q[o] + atl;
       }
     }

@@ -1,17 +1,18 @@
 // Device functions shared by the CUDA kernels of the Koopman MPC closed
 // loops: the thread-per-lane Mehrotra predictor-corrector with its banded
-// or dense A^T D A, Cholesky factor and solve (bilin_lift.cu, bilin.cu and
-// ipm_shared.cu, its last users; ipm_factored.cu, the three NMPC kernels
+// or dense A^T D A, Cholesky factor and solve (bilin.cu, its last user;
+// ipm_factored.cu, ipm_shared.cu, bilin_lift.cu, the three NMPC kernels
 // and the two step kernels run ipm_group.cuh's cooperative one on this
 // file's constants, constraint rows and scalar helpers); the objective
 // scale of a per-lane Gram (the bilinear kernels, the NMPC kernels); the
 // factored Gram streamed from W rows and the factored QP's tail (the
 // bilinear kernels); the poly lift (the two step kernels and
 // bilin_lift.cu); the bilinear QP assembly against lane-shared generators
-// from the lift's features or the lifted state (bilin_lift.cu,
-// step_fused.cu, bilin.cu); the arm's closed-form right-hand side with
-// dual numbers, SDIRK2, the marker kinematics and the step kernels' carry
-// (step_fused.cu, linear_step_fused.cu through step_group.cuh).
+// from the lift's features or the lifted state, without the generator
+// stack's all-zero rows (bilin_lift.cu, step_fused.cu, bilin.cu); the
+// arm's closed-form right-hand side with dual numbers, SDIRK2, the marker
+// kinematics and the step kernels' carry (step_fused.cu,
+// linear_step_fused.cu through step_group.cuh).
 //
 // They replace the shared Pallas device functions of the JAX package
 // (ops/pallas/qp_ipm.py:143-296 and :686-769, ops/pallas/step_fused.py
@@ -28,7 +29,8 @@
 // compiled only where its part of the configuration is defined: KM_N,
 // KM_MC, KM_BAND (the interior point; KM_BAND -1 with KM_RNZ and
 // KM_DENSE_COLS: the dense A^T D A), KM_M (the right-hand side b), KM_P
-// (the factored Gram), KM_NCP (the assembly against generators), KM_NZ
+// (the factored Gram), KM_NCP (the assembly against generators, with the
+// generator stack's live-row table KM_LIVE_W/H/P), KM_NZ
 // (the lift), KM_NZL (the lifted state as features), KM_NL (the plant).
 // KM_ROLL keeps the loops over the constraint rows rolled (see below).
 //
@@ -93,22 +95,12 @@ __device__ __forceinline__ float nclip(float a, float lo, float hi) {
 }
 __device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
 
-// The regularized, objective-scaled Hessian Pr as the interior point
-// reads it: per lane (the bilinear kernels: the array the lane assembled)
-// or lane-shared (the linear kernels: P / obj, equilibrated on the host
-// and read as warp-uniform broadcasts, with the regularization added as
-// the JAX kernel's Psh + reg * eye).
+// The regularized, objective-scaled Hessian Pr as the thread-per-lane
+// interior point reads it: the array the lane assembled (bilin.cu).
 struct LaneHessian {
   const float (&P)[KM_N][KM_N];
   __device__ __forceinline__ float operator()(int i, int j) const {
     return P[i][j];
-  }
-};
-struct SharedHessian {
-  const float* P;       // (KM_N, KM_N)
-  __device__ __forceinline__ float operator()(int i, int j) const {
-    const float v = ldg(P + i * KM_N + j);
-    return i == j ? v + kReg : v;
   }
 };
 
@@ -404,45 +396,6 @@ __device__ __forceinline__ float gen_row(const float* __restrict__ g,
 // ------------------------------------------------------- factored QP
 #ifdef KM_P
 
-// The factored Gram (qp_ipm.py:760-769; the factored mode of _ipm_kernel,
-// :340-367), streaming W: each of the p rows is fetched from a row source,
-// accumulated into P and qv, and dropped -- the per-lane (p*n) W block is
-// never held.  The source fills row r of W and returns v_r.
-//   P = 2 (sum_r W_r W_r^T + diag(rdiag)),  qv = 2 sum_r W_r v_r
-template <class Rows>
-__device__ __forceinline__ void factored_gram(const float* rdiag,
-                                              const Rows& rows,
-                                              float (&P)[KM_N][KM_N],
-                                              float (&qv)[KM_N]) {
-#pragma unroll
-  for (int i = 0; i < KM_N; ++i) {
-    qv[i] = 0.0f;
-#pragma unroll
-    for (int k = 0; k <= i; ++k) P[i][k] = 0.0f;
-    P[i][i] = ldg(rdiag + i);
-  }
-#pragma unroll 1
-  for (int r = 0; r < KM_P; ++r) {
-    float w[KM_N];
-    const float vr = rows(r, w);
-#pragma unroll
-    for (int i = 0; i < KM_N; ++i) {
-      qv[i] = fmaf(w[i], vr, qv[i]);
-#pragma unroll
-      for (int k = 0; k <= i; ++k) P[i][k] = fmaf(w[i], w[k], P[i][k]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < KM_N; ++i) {
-    qv[i] *= 2.0f;
-#pragma unroll
-    for (int k = 0; k <= i; ++k) {
-      P[i][k] *= 2.0f;
-      P[k][i] = P[i][k];
-    }
-  }
-}
-
 // The factored QP's tail from the Gram (Pr holds P, q holds qv): the
 // objective scale, the scaled and regularized Hessian, the dual start and
 // the Mehrotra loop from x (the primal start on entry).  lam holds the
@@ -512,16 +465,68 @@ struct StateFeatures {
 };
 #endif
 
-// W's rows generated against the features: row r's n entries are one
-// generator row each.
+// The factored Gram (qp_ipm.py:760-769; the factored mode of _ipm_kernel,
+// :340-367), streaming W: each of the p rows is fetched from a row source,
+// accumulated into P and qv, and dropped -- the per-lane (p*n) W block is
+// never held.  The source fills the live entries of row r of W and
+// returns v_r; only those enter P and qv.  The rows run in stage order,
+// a run of rows with one mask of live entries (KM_LIVE_W: {first, end,
+// mask}, bit i for W[r, i]) at a time, each run's loop specialized to its
+// mask.
+//   P = 2 (sum_r W_r W_r^T + diag(rdiag)),  qv = 2 sum_r W_r v_r
+template <class Rows>
+__device__ __forceinline__ void factored_gram(const float* rdiag,
+                                              const Rows& rows,
+                                              float (&P)[KM_N][KM_N],
+                                              float (&qv)[KM_N]) {
+  constexpr unsigned RUNS[KM_NLIVE_W][3] = KM_LIVE_W;
+#pragma unroll
+  for (int i = 0; i < KM_N; ++i) {
+    qv[i] = 0.0f;
+#pragma unroll
+    for (int k = 0; k <= i; ++k) P[i][k] = 0.0f;
+    P[i][i] = ldg(rdiag + i);
+  }
+#pragma unroll
+  for (int run = 0; run < KM_NLIVE_W; ++run) {
+    const unsigned live = RUNS[run][2];
+    if (live == 0u) continue;
+#pragma unroll 1
+    for (int r = RUNS[run][0]; r < (int)RUNS[run][1]; ++r) {
+      float w[KM_N];
+      const float vr = rows(r, live, w);
+#pragma unroll
+      for (int i = 0; i < KM_N; ++i) {
+        if (!(live >> i & 1u)) continue;
+        qv[i] = fmaf(w[i], vr, qv[i]);
+#pragma unroll
+        for (int k = 0; k <= i; ++k)
+          if (live >> k & 1u) P[i][k] = fmaf(w[i], w[k], P[i][k]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < KM_N; ++i) {
+    qv[i] *= 2.0f;
+#pragma unroll
+    for (int k = 0; k <= i; ++k) {
+      P[i][k] *= 2.0f;
+      P[k][i] = P[i][k];
+    }
+  }
+}
+
+// W's rows generated against the features: row r's live entries
+// (``live``: bit i for W[r, i]) are one generator row each.
 struct GenRows {
   const float* gW;
   const float (&f)[KM_NCP];
   const float (&v)[KM_P];
-  __device__ __forceinline__ float operator()(int r, float (&w)[KM_N]) const {
+  __device__ __forceinline__ float operator()(int r, unsigned live,
+                                              float (&w)[KM_N]) const {
 #pragma unroll
     for (int i = 0; i < KM_N; ++i)
-      w[i] = gen_row(gW + (r * KM_N + i) * KM_NCP, f);
+      if (live >> i & 1u) w[i] = gen_row(gW + (r * KM_N + i) * KM_NCP, f);
     return v[r];
   }
 };
@@ -529,6 +534,23 @@ struct GenRows {
 // Features, assembly and factored Gram (qp_ipm.py:727-769 and
 // :1036-1062): v is formed first, then W is streamed into the Gram.
 //   v = Pgen f - sqYr + CB0 u_prev,  b = cFr - F0r u_prev
+// The generator stack's structural zeros are left out: the build's
+// live-row table (ops/kernels/bilin_lift.py:live_config, from
+// ops/qp.py:generator_live) gives, for the W, CB0 and v generators, the
+// runs of consecutive stage rows r with one mask of live rows {first r,
+// end r, mask} (W: bit i for W[r, i]; CB0: bit j for CB0[r, j]; v: 1).
+// A row outside its mask is all zero in the lane-shared stack: no
+// generator read and no product is made with it, and the Gram forms no
+// term with its W entry (W's stages that no move block reaches, CB0's
+// stages that u_prev does not reach).  The table comes from the stack's
+// exact zeros, not from the move blocks' pattern (the CPU tests check
+// that the two agree on the committed model), and that is safe whatever
+// made a row zero: for finite features the skipped product is an exact
+// +0 and each skipped term adds nothing (fmaf(0, x, acc) == acc; no sum
+// here is -0), so the result is bitwise the full assembly's.  Only a lane
+// with a non-finite feature differs -- the full assembly made
+// 0 * inf = NaN in the zero rows -- and its live rows carry the NaN all
+// the same (every v row is live): it comes out not ok, as before.
 template <class Feat>
 __device__ __forceinline__ void assemble(const QP& qp, const Feat& feat,
                                          const float (&up)[KM_M],
@@ -536,6 +558,8 @@ __device__ __forceinline__ void assemble(const QP& qp, const Feat& feat,
                                          float (&P)[KM_N][KM_N],
                                          float (&qv)[KM_N],
                                          float (&b)[KM_MC]) {
+  constexpr unsigned RUNS_H[KM_NLIVE_H][3] = KM_LIVE_H;
+  constexpr unsigned RUNS_P[KM_NLIVE_P][3] = KM_LIVE_P;
   float f[KM_NCP];
   feat(f);
   const float* gW = qp.gens;
@@ -544,14 +568,22 @@ __device__ __forceinline__ void assemble(const QP& qp, const Feat& feat,
   // row loops stay rolled (the unrolled assembly would not fit the
   // instruction cache); v lives in local memory
   float v[KM_P];
+#pragma unroll
+  for (int run = 0; run < KM_NLIVE_P; ++run) {
 #pragma unroll 1
-  for (int r = 0; r < KM_P; ++r)
-    v[r] = gen_row(gP + r * KM_NCP, f) - sqYr[r * sq_step];
+    for (int r = RUNS_P[run][0]; r < (int)RUNS_P[run][1]; ++r)
+      v[r] = (RUNS_P[run][2] ? gen_row(gP + r * KM_NCP, f) : 0.0f)
+             - sqYr[r * sq_step];
+  }
 #pragma unroll
   for (int j = 0; j < KM_M; ++j) {
+#pragma unroll
+    for (int run = 0; run < KM_NLIVE_H; ++run) {
+      if (!(RUNS_H[run][2] >> j & 1u)) continue;
 #pragma unroll 1
-    for (int r = 0; r < KM_P; ++r)
-      v[r] = fmaf(gen_row(gH + (j * KM_P + r) * KM_NCP, f), up[j], v[r]);
+      for (int r = RUNS_H[run][0]; r < (int)RUNS_H[run][1]; ++r)
+        v[r] = fmaf(gen_row(gH + (j * KM_P + r) * KM_NCP, f), up[j], v[r]);
+    }
   }
   factored_gram(qp.rdiag, GenRows{gW, f, v}, P, qv);
   rhs_b(qp.cFr, qp.F0r, up, b);

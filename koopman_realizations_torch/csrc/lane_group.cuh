@@ -3,11 +3,13 @@
 // step kernels, runs its plant) and writes it to a row of device scratch
 // of its own; the block then solves its lanes' QPs KG_THREADS / KG_GROUP
 // at a time, a group of KG_GROUP threads a lane, on the cooperative
-// interior point (ipm_group.cuh).  Five kernels use it: through
+// interior point (ipm_group.cuh).  Seven kernels use it: through
 // nmpc_group.cuh nmpc_multipass.cu (thread-per-lane sweep and group solve
 // in one launch, pass after pass), nmpc_stage.cu and nmpc_pass.cu; through
-// step_group.cuh step_fused.cu and linear_step_fused.cu.  All but
-// nmpc_multipass run in two launches on the stream: the front launch (a
+// step_group.cuh step_fused.cu and linear_step_fused.cu; bilin_lift.cu
+// (its front a thread per lane) and ipm_shared.cu (no front: the solve
+// alone, its QPs from the caller).  All but nmpc_multipass and ipm_shared
+// run in two launches on the stream: the front launch (a
 // thread per lane, 128-thread launch bounds, no cap on its registers),
 // then the solve launch under the plan's launch bounds.  Under those
 // bounds (128 registers at 4 blocks an SM) a thread-per-lane front in the
@@ -16,15 +18,21 @@
 //
 // What differs between the kernels is a parameter here:
 // - the Hessian: copied from the lane's scratch row into the group's work
-//   region (ScratchHessian), or the block's one lane-shared copy in shared
-//   memory (the linear step);
-// - the gradient q: from the lane's scratch row (ScratchGradient), or
-//   formed by the group (the linear step);
+//   region (ScratchHessian), the block's one lane-shared copy in shared
+//   memory (BlockHessian: the linear step, ipm_shared's lane-shared
+//   build), or the lane's own P staged by the block into the group's work
+//   region, both triangles (ipm_shared's per-lane build);
+// - the gradient q: from the lane's scratch row (ScratchGradient), formed
+//   by the group (the linear step), or per lane from memory, read by each
+//   entry's owner (LaneGradient: ipm_shared);
+// - the right-hand side: b = cFr - F0r u_prev (UprevRhs), or per lane
+//   from memory, read by each row's owner (LaneRhs: ipm_shared);
 // - the dual start: cold (lam = 1) or warm from a per-lane lam0 in
 //   row-equilibrated units, sqrt(clip(lam0_row / obj, 1e-4, 1e4));
-// - what the group does with the lane's solution (the NMPC kernels store
-//   s and lam; the step kernels form the ok mask and advance the dual
-//   carry) and what the lane's thread does after the block's solves.
+// - what the group does with the lane's solution (the NMPC kernels,
+//   bilin_lift and ipm_shared store s and lam; the step kernels form the
+//   ok mask and advance the dual carry) and what the lane's thread does
+//   after the block's solves.
 //
 // Layout (ops/kernels/ipm_group.py, the compact plan): the lane region
 // holds [x: n][obj: 1][u_prev: m] (the step kernels: [keep: 1] after); the
@@ -36,6 +44,10 @@
 // scratch row is written and read back within a launch or by the next
 // launch (an L2 round trip), so that the thread-per-lane code keeps the
 // SM's L1 cache for its lane-shared operands and spills.
+//
+// A plan may also take one round of KG_GROUPS lanes a block (KG_LANES <
+// KG_THREADS, ipm_shared): a thread past KG_LANES has no lane of its own
+// and only helps load the block's shared operands.
 //
 // Lanes past the batch run a copy of the last lane: they write their
 // scratch rows, take part in every barrier and shuffle of the block's
@@ -104,11 +116,11 @@ struct ScratchGradient {
 #endif
 
 #ifdef KG_OFF_PSH
-// The block's one copy of a lane-shared Hessian (the linear step's P / obj,
-// (KM_N, KM_N), symmetric): its packed lower triangle with the
-// regularization on the diagonal, as km::SharedHessian reads it, loaded
-// by every thread of the block before the solves; every group points at
-// it.
+// The block's one copy of a lane-shared Hessian (the linear step's and
+// ipm_shared's P / obj, (KM_N, KM_N), symmetric): its packed lower
+// triangle with the regularization on the diagonal (the JAX kernel's
+// Psh + reg * eye), loaded by every thread of the block before the
+// solves; every group points at it.
 struct BlockHessian {
   const float* P;
   __device__ __forceinline__ void load(float* sm, int tid) const {
@@ -167,46 +179,127 @@ struct CarryDuals {
   }
 };
 
-// One lane's QP by its group: the Hessian and q from their sources, the
-// right-hand side b = cFr - F0r u_prev and the dual start for the group's
-// rows, the Mehrotra loop from the lane region's x (updated in place),
-// then done(sh, L, H, hs, b, g, rhs, s, lam) on the group.  Args has
-// scratch, B and iters; ql is the lane's place in the block.
-template <class Args, class Hess, class Grad, class Duals, class Done>
-__device__ __forceinline__ void solve_lane(
-    const Args& a, const float* cFr, const float* F0r, const kg::Shared& sh,
-    float* sm, int ql, int grp, int g, float slack_floor, const Hess& hess,
-    const Grad& grad, const Duals& duals, const Done& done) {
+// ------------------------------------------------ the right-hand side
+// Each source gives row c's b_c for lane bl, H its lane region.
+#ifdef KM_M
+// b = cFr - F0r u_prev, u_prev from the lane region.
+struct UprevRhs {
+  const float* cFr;
+  const float* F0r;
+  __device__ __forceinline__ float operator()(const float* H, long long,
+                                              int c) const {
+    float bc = km::ldg(cFr + c);
+#pragma unroll
+    for (int j = 0; j < KM_M; ++j)
+      bc = bc - km::ldg(F0r + c * KM_M + j) * H[KG_H_UP + j];
+    return bc;
+  }
+};
+#endif
+// b per lane (KM_MC rows, lanes-minor), read by the row's owner.
+struct LaneRhs {
+  const float* b;
+  long long B;
+  __device__ __forceinline__ float operator()(const float*, long long bl,
+                                              int c) const {
+    return b[c * B + bl];
+  }
+};
+
+// q per lane (KM_N rows, lanes-minor), read by each entry's owner.
+struct LaneGradient {
+  const float* q;
+  long long B;
+  __device__ __forceinline__ void operator()(const float*, const float*,
+                                             long long bl, int g,
+                                             float (&qo)[KG_NO]) const {
+#pragma unroll
+    for (int o = 0; o < KG_NO; ++o) {
+      const int i = g + KG_GROUP * o;
+      qo[o] = i < KM_N ? q[i * B + bl] : 0.0f;
+    }
+  }
+};
+
+// What the group of bilin_lift or ipm_shared does with its lane's
+// solution: s and lam of a lane in the batch, stored by the rows' owners
+// (KM_MC rows, lanes-minor).
+struct StoreRows {
+  float* s;
+  float* lam;
+  long long B;
+  __device__ __forceinline__ void operator()(
+      const kg::Shared&, const kg::Lane&, float*, const float*, long long b,
+      int g, const float (&)[KG_R], const float (&sv)[KG_R],
+      const float (&lv)[KG_R]) const {
+    if (b >= B) return;
+#pragma unroll
+    for (int k = 0; k < KG_R; ++k) {
+      const int c = g + KG_GROUP * k;
+      if (c < KM_MC) {
+        s[c * B + b] = sv[k];
+        lam[c * B + b] = lv[k];
+      }
+    }
+  }
+};
+
+// One lane's QP by its group: the Hessian and q from their sources (hdot:
+// how r_d = Pr x reads the Hessian, ipm_group.cuh), b and the dual start
+// for the group's rows, the Mehrotra loop from the lane region's x
+// (updated in place), then done(sh, L, H, hs, b, g, rhs, s, lam) on the
+// group.  scratch holds the lanes' scratch rows (KG_SCRATCH floats each,
+// none in ipm_shared); ql is the lane's place in the block.
+template <class Rhs, class Hess, class HDot, class Grad, class Duals,
+          class Done>
+__device__ __forceinline__ void solve_lane_from(
+    float* scratch, long long B, int iters, const Rhs& rhs,
+    const kg::Shared& sh, float* sm, int ql, int grp, int g,
+    float slack_floor, const Hess& hess, const HDot& hdot, const Grad& grad,
+    const Duals& duals, const Done& done) {
   float* H = kg::lane_region(sm, ql);
   float* w = kg::work_region(sm, grp);
   const long long b = (long long)blockIdx.x * KG_LANES + ql;
-  const long long bl = b < a.B ? b : a.B - 1;
-  const float* hs = scratch_row(a.scratch, b);
+  const long long bl = b < B ? b : B - 1;
+  const float* hs = scratch_row(scratch, b);
   const kg::Lane L{hess(w, hs, g), H + KG_L_X, w, w + KG_T, w + KG_T + KM_N};
-  float q[KG_NO], rhs[KG_R], s[KG_R], lam[KG_R];
+  float q[KG_NO], rhs_b[KG_R], s[KG_R], lam[KG_R];
   grad(H, hs, bl, g, q);
-  const auto lam0 = duals.lane(bl, H, b < a.B);
+  const auto lam0 = duals.lane(bl, H, b < B);
 #pragma unroll
   for (int k = 0; k < KG_R; ++k) {
     const int c = g + KG_GROUP * k;
     float bc = 0.0f, lc = 1.0f;
     if (c < KM_MC) {
-      bc = km::ldg(cFr + c);
-#pragma unroll
-      for (int j = 0; j < KM_M; ++j)
-        bc = bc - km::ldg(F0r + c * KM_M + j) * H[KG_H_UP + j];
+      bc = rhs(H, bl, c);
       lc = lam0(c);
     }
-    rhs[k] = bc;
+    rhs_b[k] = bc;
     lam[k] = lc;
   }
   kg::gsync();
-  kg::mehrotra(sh, L, g, a.iters, slack_floor, q, rhs, s, lam);
-  done(sh, L, H, hs, b, g, rhs, s, lam);
+  kg::mehrotra(sh, L, g, iters, slack_floor, q, rhs_b, s, lam, hdot);
+  done(sh, L, H, hs, b, g, rhs_b, s, lam);
 }
 
+#ifdef KM_M
+// solve_lane_from with b = cFr - F0r u_prev and the symmetric Hessian
+// product; Args has scratch, B and iters.
+template <class Args, class Hess, class Grad, class Duals, class Done>
+__device__ __forceinline__ void solve_lane(
+    const Args& a, const float* cFr, const float* F0r, const kg::Shared& sh,
+    float* sm, int ql, int grp, int g, float slack_floor, const Hess& hess,
+    const Grad& grad, const Duals& duals, const Done& done) {
+  solve_lane_from(a.scratch, a.B, a.iters, UprevRhs{cFr, F0r}, sh, sm, ql,
+                  grp, g, slack_floor, hess, kg::SymmetricHessian{}, grad,
+                  duals, done);
+}
+#endif
+
 // The solve launch's block: the lane-shared operands into shared memory,
-// lanes.load(sm, H, bl, tid) for each thread's lane (H its lane region),
+// lanes.load(sm, H, bl, tid) for each thread's lane (H its lane region;
+// in a plan of one round a block, a thread past KG_LANES has no lane and
+// its load takes part only in the block's shared loads),
 // the block's lanes' QPs a round of KG_GROUPS lanes at a time
 // (lanes.solve(sh, sm, ql, grp, g)), then lanes.store(H, b) by each
 // thread for its lane in the batch.
@@ -217,7 +310,11 @@ __device__ __forceinline__ void solve_block(const km::Cons& con, long long B,
   const int tid = threadIdx.x;
   const int grp = tid / KG_GROUP, g = tid % KG_GROUP;
   const long long b = (long long)blockIdx.x * KG_LANES + tid;
+#if KG_LANES < KG_THREADS
+  const bool live = tid < KG_LANES && b < B;
+#else
   const bool live = b < B;
+#endif
   const kg::Shared sh = kg::shared_view(sm);
   float* H = kg::lane_region(sm, tid);
   kg::load_shared(con, sh, tid);
@@ -243,6 +340,18 @@ int launch_front_solve(void (*front)(Args), void (*solve)(Args),
   const cudaStream_t st = (cudaStream_t)stream;
   front<<<grid, KG_THREADS, 0, st>>>(*args);
   solve<<<grid, KG_THREADS, KG_SMEM_BYTES, st>>>(*args);
+  return (int)cudaGetLastError();
+}
+
+// The one-launch C entry: the block's solves alone (ipm_shared).
+template <class Args>
+int launch_solve(void (*solve)(Args), const Args* args, void* stream) {
+  if (args->B <= 0) return 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      solve, cudaFuncAttributeMaxDynamicSharedMemorySize, KG_SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid = (unsigned)((args->B + KG_LANES - 1) / KG_LANES);
+  solve<<<grid, KG_THREADS, KG_SMEM_BYTES, (cudaStream_t)stream>>>(*args);
   return (int)cudaGetLastError();
 }
 

@@ -15,8 +15,8 @@
 // ~6.6e4 counting only the nonzeros of the shared operands, plant ~4e3;
 // chip_smoke.py:qp_ops, plant_ops) on ~0.6 KB of carry read and written,
 // so at B=262144 the floor is ~0.28 ms of f32 arithmetic against ~0.05 ms
-// of memory traffic.  The assembly still multiplies the structural zeros
-// of the generators (stages no move reaches).
+// of memory traffic.  The assembly skips the generator stack's all-zero
+// rows (stages no move reaches: kmpc_device.cuh:assemble).
 //
 // Design.  The front launch (step_fused_front: 128-thread blocks, a
 // thread a lane, no cap on its registers) runs the lift, the assembly

@@ -28,6 +28,7 @@ from koopman_realizations_torch.ops.kernels import _build
 from koopman_realizations_torch.ops.kernels.bilin_lift import (
     QPStruct,
     check_operands,
+    live_config,
 )
 from koopman_realizations_torch.ops.kernels.ipm_shared import cons_config
 from koopman_realizations_torch.ops.qp import (
@@ -52,8 +53,11 @@ class BilinArgs(ctypes.Structure):
 
 
 def kernel_spec(qp: BilinQP) -> _build.KernelSpec:
+    """The QP's dimensions and the assembly's live-row table
+    (``bilin_lift.py:live_config``)."""
     return _build.KernelSpec(SOURCE, cons_config(qp.cons) + _build.defines(
-        KM_P=qp.p, KM_M=qp.m, KM_NZL=qp.nzl, KM_NCP=qp.gens.shape[1]))
+        KM_P=qp.p, KM_M=qp.m, KM_NZL=qp.nzl, KM_NCP=qp.gens.shape[1])
+        + live_config(qp.live, qp.n, qp.m))
 
 
 # ---------------------------------------------------------------- kernel

@@ -7,7 +7,11 @@ Replaces the TPU kernel ``_bilin_lift_kernel``
 one batched solve of the bench controller's QP from the raw measurement
 zeta -- poly lift, assembly, factored Gram, objective scale, banded
 A^T D A, Mehrotra.  The kernel is compute-bound on the card (~6.6e4
-operations per lane on ~0.5 KB of lane data); see the note in the source.
+operations per lane on ~0.5 KB of lane data); it runs in two launches,
+the lift, assembly and Gram a thread per lane, then the QP a group of
+threads per lane (``csrc/lane_group.cuh``, planned by
+``ipm_group.py:bilin_lift_plan``), the hand-over through a device
+scratch row the wrapper allocates; see the note in the source.
 
 ``bilin_lift`` takes the plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.  ``solve_qp_bilinear_lifted``
@@ -23,6 +27,10 @@ from typing import Optional
 import torch
 
 from koopman_realizations_torch.ops.kernels import _build
+from koopman_realizations_torch.ops.kernels.ipm_group import (
+    GroupPlan,
+    bilin_lift_plan,
+)
 from koopman_realizations_torch.ops.kernels.ipm_shared import (
     ConsStruct,
     cons_config,
@@ -41,11 +49,34 @@ SOURCE = "bilin_lift.cu"
 # ------------------------------------------------------------ build config
 
 
+def live_config(live: tuple, n: int, m: int) -> str:
+    """``#define`` lines of the assembly's live-row table
+    (``csrc/kmpc_device.cuh:assemble``) from ``live``
+    (``ops/qp.py:generator_live``, a word a stage row): for the W, CB0 and
+    v generators the runs of consecutive stage rows with one mask of live
+    rows, {first, end, mask} -- W: bit i for W[r, i]; CB0: bit j for
+    CB0[r, j]; v: 1 -- and their counts."""
+    out = ""
+    for part, shift, width in (("W", 0, n), ("H", n, m), ("P", n + m, 1)):
+        runs = []
+        for r, word in enumerate(live):
+            mask = (word >> shift) & ((1 << width) - 1)
+            if runs and runs[-1][2] == mask:
+                runs[-1][1] = r + 1
+            else:
+                runs.append([r, r + 1, mask])
+        out += (_build.defines(**{"KM_NLIVE_" + part: len(runs)})
+                + f"#define KM_LIVE_{part} "
+                + _build.c_array(runs, fmt=lambda v: f"{int(v)}u") + "\n")
+    return out
+
+
 def qp_config(qp: LiftQP) -> str:
     """``#define`` lines of the QP half of a kernel configuration: the
-    interior point's dimensions, the bilinear assembly's and the poly
-    lift (``_build.lift_config``)."""
+    interior point's dimensions, the bilinear assembly's with its live-row
+    table (``live_config``) and the poly lift (``_build.lift_config``)."""
     return (cons_config(qp.cons) + _build.defines(KM_P=qp.p, KM_M=qp.m)
+            + live_config(qp.live, qp.n, qp.m)
             + _build.lift_config(qp.tables_host, qp.nz, qp.nmono,
                                  qp.gens.shape[1]))
 
@@ -68,13 +99,23 @@ class BilinLiftArgs(ctypes.Structure):
     _fields_ = ([("qp", QPStruct)]
                 + [(k, ctypes.c_void_p) for k in
                    ("zeta", "up", "x0", "lam0", "sqYr", "x", "s", "lam",
-                    "obj")]
+                    "obj", "scratch")]
                 + [("B", ctypes.c_longlong), ("sqYr_lanes", ctypes.c_int),
                    ("iters", ctypes.c_int), ("slack_floor", ctypes.c_float)])
 
 
+def launch_plan(qp: LiftQP) -> GroupPlan:
+    """The build's group plan (``ipm_group.py:bilin_lift_plan``)."""
+    return bilin_lift_plan(qp.cons, qp.m)
+
+
 def kernel_spec(qp: LiftQP) -> _build.KernelSpec:
-    return _build.KernelSpec(SOURCE, qp_config(qp))
+    return _spec(qp, launch_plan(qp))
+
+
+def _spec(qp: LiftQP, plan: GroupPlan) -> _build.KernelSpec:
+    return _build.KernelSpec(SOURCE, qp_config(qp)
+                             + plan.config(qp.cons.cols))
 
 
 def check_operands(qp: LiftQP, *tensors):
@@ -96,25 +137,36 @@ def check_operands(qp: LiftQP, *tensors):
 
 def bilin_lift_cuda(qp: LiftQP, zeta, up, x0, lam0_row, sqYr, iters: int,
                     slack_floor: float):
-    """Launch ``bilin_lift_kernel`` on the current stream; returns
-    (x, s, lam, obj).  Counts its launches in ``bilin_lift_cuda.launches``."""
+    """Launch ``bilin_lift_front`` and ``bilin_lift_kernel`` on the
+    current stream; returns (x, s, lam, obj), fresh tensors.  Counts its
+    calls in ``bilin_lift_cuda.launches``: each two device launches (the
+    front, then the solve)."""
+    return _launch(launch_plan(qp), qp, zeta, up, x0, lam0_row, sqYr, iters,
+                   slack_floor)
+
+
+def _launch(plan: GroupPlan, qp: LiftQP, zeta, up, x0, lam0_row, sqYr,
+            iters: int, slack_floor: float):
+    """``bilin_lift_cuda`` built with ``plan``."""
     B = zeta.shape[1]
     ins = [zeta, up, x0, sqYr] + ([] if lam0_row is None else [lam0_row])
     check_operands(qp, *ins)
     if zeta.shape[0] != qp.nz or up.shape != (qp.m, B) \
             or x0.shape != (qp.n, B) or sqYr.shape[0] != qp.p \
-            or (lam0_row is not None and lam0_row.shape != (qp.mc, B)):
+            or (lam0_row is not None and lam0_row.shape != (qp.mc, B)) \
+            or (sqYr.ndim == 2 and sqYr.shape[1] != B):
         raise ValueError("bilin_lift: operand shapes do not match the QP")
-    lib = _build.load(kernel_spec(qp))
-    x = torch.empty((qp.n, B), dtype=zeta.dtype, device=zeta.device)
-    s = torch.empty((qp.mc, B), dtype=zeta.dtype, device=zeta.device)
-    lam = torch.empty_like(s)
-    obj = torch.empty((B,), dtype=zeta.dtype, device=zeta.device)
+    lib = _build.load(_spec(qp, plan))
+    new = lambda *shape: torch.empty(shape, dtype=zeta.dtype,
+                                     device=zeta.device)
+    x, s, lam, obj = new(qp.n, B), new(qp.mc, B), new(qp.mc, B), new(B)
+    scratch = new(plan.grid(B) * plan.lanes * plan.scratch_floats)
     args = BilinLiftArgs(
         QPStruct.of(qp), zeta.data_ptr(), up.data_ptr(), x0.data_ptr(),
         None if lam0_row is None else lam0_row.data_ptr(), sqYr.data_ptr(),
-        x.data_ptr(), s.data_ptr(), lam.data_ptr(), obj.data_ptr(), B,
-        int(sqYr.ndim == 2), int(iters), float(slack_floor))
+        x.data_ptr(), s.data_ptr(), lam.data_ptr(), obj.data_ptr(),
+        scratch.data_ptr(), B, int(sqYr.ndim == 2), int(iters),
+        float(slack_floor))
     fn = lib.km_bilin_lift
     fn.argtypes = [ctypes.POINTER(BilinLiftArgs), ctypes.c_void_p]
     fn.restype = ctypes.c_int

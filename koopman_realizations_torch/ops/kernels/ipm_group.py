@@ -2,7 +2,8 @@
 
 A group of ``group`` threads solves one lane's QP (the kernels
 ``ipm_factored.cu``, ``nmpc_multipass.cu``, ``nmpc_stage.cu``,
-``nmpc_pass.cu``, ``step_fused.cu`` and ``linear_step_fused.cu``): the
+``nmpc_pass.cu``, ``step_fused.cu``, ``linear_step_fused.cu``,
+``bilin_lift.cu`` and ``ipm_shared.cu``): the
 lane's scaled Hessian, its Newton matrix and
 factor live in shared memory, its constraint rows are spread over the
 group's threads (row c on thread c % group), its n-vectors over their
@@ -61,6 +62,17 @@ gradient formed by the groups) and the plant's new state, marker
 outputs and finite flag (``plant`` floats), and the lane region one
 more float, the freeze decision the group passes to the lane's thread.
 
+``bilin_lift`` takes the bilinear step's plan without the plant: its
+front hands the Hessian, q and obj over, its groups store s and lam.
+``ipm_shared`` has no front (q, b and x0 come from the caller; the
+groups read them lanes-minor): its lane-shared build keeps the Hessian
+one copy a block (``PSH``), as the linear step; its per-lane build
+(``lane_p``) stages each round's lanes' P, both triangles, into the
+groups' work regions ([M][dx][vec][Pr: T][Pu: T]) and keeps iobj in the
+lane region after obj (``m`` = 1).  Either may take one round of
+``threads // group`` lanes a block (``lanes`` = groups): the threads
+past the block's lanes only help load its shared operands.
+
 Per-lane and per-group strides are padded to ``pad``: a multiple of 32
 plus the group size, so that the groups of one warp (group < 32) read
 their own regions on disjoint banks.
@@ -68,6 +80,7 @@ their own regions on disjoint banks.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
@@ -101,6 +114,15 @@ ONEPASS_MIN_BLOCKS = 4
 # fastest (PERF.md §6)
 STEP_GROUP = 4
 STEP_MIN_BLOCKS = 4
+# ipm_shared, one launch, one round of FACTORED_THREADS // group lanes a
+# block, group sizes and blocks an SM as measured fastest (PERF.md §6):
+# the lane-shared build; the per-lane-P build, narrow, and wide a warp a
+# lane with no bound on the blocks an SM (its shared memory fits two
+# blocks an SM at n=27, and three blocks' register cap spilled)
+SHARED_GROUP = 8
+SHARED_MIN_BLOCKS = 4
+LANE_P_NARROW_GROUP = 8
+LANE_P_NARROW_MIN_BLOCKS = 4
 
 
 def choose_group(n: int, mc: int) -> int:
@@ -171,6 +193,9 @@ class GroupPlan:
     # outputs and finite flag, ``plant`` floats (the step kernels)
     scratch: tuple = ()
     plant: int = 0
+    # compact: each lane's own P, both triangles, staged by the block into
+    # the groups' work regions (ipm_shared's per-lane build)
+    lane_p: bool = False
 
     @property
     def groups(self) -> int:
@@ -186,8 +211,9 @@ class GroupPlan:
     @property
     def shared_hessian(self) -> bool:
         """One lane-shared Hessian a block in shared memory (PSH), the
-        groups' Hessian: a compact plan whose scratch row has none."""
-        return self.compact and "PR" not in self.scratch
+        groups' Hessian: a compact plan whose scratch row has none and
+        that stages no per-lane P."""
+        return self.compact and "PR" not in self.scratch and not self.lane_p
 
     @property
     def scratch_sections(self) -> dict:
@@ -214,8 +240,10 @@ class GroupPlan:
             keep = 1 if "PLANT" in self.scratch else 0
             lstride = (n + 1 + self.m + keep) | 1
             # [M][dx][vec], and the Hessian copied from the scratch row
-            wstride = self.pad((0 if self.shared_hessian else T) + T + n
-                               + mc)
+            # (a per-lane P: its lower and strict upper triangles)
+            hess = 2 * T if self.lane_p else \
+                0 if self.shared_hessian else T
+            wstride = self.pad(hess + T + n + mc)
         else:
             lstride = self.pad(n + 1 + max(T + n + self.m, 2 * mc))
             wstride = self.pad(T + n + mc)
@@ -321,6 +349,42 @@ def onepass_plan(cons: Constraints, m: int) -> GroupPlan:
     """``nmpc_stage``'s (every trajectory mode) and ``nmpc_pass``'s plan:
     the sweep a launch of its own, then the group solve."""
     return _compact_plan(cons, m, ONEPASS_GROUP, ONEPASS_MIN_BLOCKS)
+
+
+def bilin_lift_plan(cons: Constraints, m: int) -> GroupPlan:
+    """``bilin_lift``'s plan: the bilinear step's without the plant (its
+    group size and blocks an SM measured fastest here too, PERF.md §6) --
+    the front launch (a thread a lane: the lane's scaled Hessian, q and obj
+    into its scratch row), then the group solve from u_prev, x0 and obj in
+    the lane region."""
+    return _compact_plan(cons, m, STEP_GROUP, STEP_MIN_BLOCKS,
+                         ("PR", "Q", "OBJ"))
+
+
+def _one_round(plan: GroupPlan, **kw) -> GroupPlan:
+    """``plan`` with FACTORED_THREADS a block and one round of lanes a
+    block, as ``ipm_factored`` takes them."""
+    return dataclasses.replace(plan, threads=FACTORED_THREADS,
+                               lanes=FACTORED_THREADS // plan.group,
+                               **kw).check()
+
+
+def shared_plan(cons: Constraints) -> GroupPlan:
+    """``ipm_shared``'s lane-shared build: the solve alone, one round of
+    lanes a block, the Hessian one copy a block, the lane region
+    [x][obj]."""
+    return _one_round(_compact_plan(cons, 0, SHARED_GROUP, SHARED_MIN_BLOCKS,
+                                    ()))
+
+
+def lane_p_plan(cons: Constraints) -> GroupPlan:
+    """``ipm_shared``'s per-lane-P build: the solve alone, one round of
+    lanes a block, each lane's P staged into its group's work region, iobj
+    in the lane region."""
+    wide = cons.n >= WIDE_N
+    return _one_round(_compact_plan(
+        cons, 1, 32 if wide else LANE_P_NARROW_GROUP,
+        0 if wide else LANE_P_NARROW_MIN_BLOCKS, ()), lane_p=True)
 
 
 def step_plan(cons: Constraints, m: int, plant: int,

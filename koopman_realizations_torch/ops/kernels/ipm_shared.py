@@ -19,7 +19,12 @@ dense-objective modes, reached through ``solve_qp_shared_batched``
 Both take lane-shared row-equilibrated constraints and per-lane gradient,
 right-hand side and primal start.  The kernel is compute-bound on the card
 (~3e4 operations per lane on ~0.7 KB of lane data at n=12, plus the
-per-lane P); see the note in the source.  The TPU kernel's factored mode
+per-lane P); it solves each lane with a group of threads in one launch
+(``csrc/lane_group.cuh``; ``launch_plan`` from ``ipm_group.py``), the
+lane-shared Hessian one copy a block -- its lower triangle, so
+``solve_qp_shared`` refuses a Psh that is not symmetric in f32 -- and a
+per-lane P staged by the block into each group's work region, both
+triangles; see the note in the source.  The TPU kernel's factored mode
 is ``ops/kernels/ipm_factored.py``.
 
 ``ipm_shared`` takes the plain version only for tensors on the CPU; for
@@ -34,9 +39,15 @@ from __future__ import annotations
 import ctypes
 from typing import Optional
 
+import numpy as np
 import torch
 
 from koopman_realizations_torch.ops.kernels import _build
+from koopman_realizations_torch.ops.kernels.ipm_group import (
+    GroupPlan,
+    lane_p_plan,
+    shared_plan,
+)
 from koopman_realizations_torch.ops.qp import (
     Constraints,
     QPSolution,
@@ -57,6 +68,12 @@ class ConsStruct(ctypes.Structure):
     @classmethod
     def of(cls, cons: Constraints) -> "ConsStruct":
         return cls(*(getattr(cons, k).data_ptr() for k, _ in cls._fields_))
+
+
+def symmetric_f32(P) -> bool:
+    """P (numpy or a tensor) is symmetric bitwise once cast to f32."""
+    P32 = np.asarray(P.cpu() if torch.is_tensor(P) else P, np.float32)
+    return bool(np.array_equal(P32, P32.T))
 
 
 def _args_fields(lane_p: bool):
@@ -102,11 +119,23 @@ def cons_config(cons: Constraints) -> str:
     return cfg
 
 
+def launch_plan(cons: Constraints, lane_p: bool = False) -> GroupPlan:
+    """The build's group plan (``ipm_group.py``: ``shared_plan``, or
+    ``lane_p_plan`` for the per-lane P)."""
+    return lane_p_plan(cons) if lane_p else shared_plan(cons)
+
+
 def kernel_spec(cons: Constraints, lane_p: bool = False) -> _build.KernelSpec:
     """One build per constraint shape and Hessian mode (lane-shared, or
     per lane with ``lane_p``)."""
+    return _spec(cons, lane_p, launch_plan(cons, lane_p))
+
+
+def _spec(cons: Constraints, lane_p: bool,
+          plan: GroupPlan) -> _build.KernelSpec:
     return _build.KernelSpec(SOURCE, cons_config(cons) + (
-        _build.defines(KM_LANE_P=1) if lane_p else ""))
+        _build.defines(KM_LANE_P=1) if lane_p else "")
+        + plan.config(cons.cols))
 
 
 def check_cuda_f32(*tensors):
@@ -127,10 +156,19 @@ def check_cuda_f32(*tensors):
 def ipm_shared_cuda(cons: Constraints, Psh, q, b, x0, iters: int,
                     slack_floor: float, iobj=None, lam0=None):
     """Launch ``ipm_shared_kernel`` on the current stream; returns
-    (x, s, lam).  Psh (n, n) is the equilibrated lane-shared Hessian, or
-    (n, n, B) the per-lane P with its objective scale iobj (B,) (the
-    ``KM_LANE_P`` build, which alone takes the equilibrated dual start
-    lam0 (mc, B)).  Counts its launches in ``ipm_shared_cuda.launches``."""
+    (x, s, lam).  Psh (n, n) is the equilibrated lane-shared Hessian,
+    symmetric in f32 (the kernel reads its lower triangle;
+    ``solve_qp_shared`` checks it), or (n, n, B) the per-lane P with its
+    objective scale iobj (B,) (the ``KM_LANE_P`` build, which reads all
+    of each P and alone takes the equilibrated dual start lam0 (mc, B)).
+    Counts its launches in ``ipm_shared_cuda.launches``."""
+    return _launch(launch_plan(cons, Psh.ndim == 3), cons, Psh, q, b, x0,
+                   iters, slack_floor, iobj, lam0)
+
+
+def _launch(plan: GroupPlan, cons: Constraints, Psh, q, b, x0, iters: int,
+            slack_floor: float, iobj=None, lam0=None):
+    """``ipm_shared_cuda`` built with ``plan``."""
     n, mc = cons.n, cons.mc
     B = q.shape[1]
     lane_p = Psh.ndim == 3
@@ -143,7 +181,7 @@ def ipm_shared_cuda(cons: Constraints, Psh, q, b, x0, iters: int,
             or (lane_p and iobj.shape != (B,)) \
             or (lam0 is not None and (not lane_p or lam0.shape != (mc, B))):
         raise ValueError("ipm_shared: operand shapes do not match the QP")
-    lib = _build.load(kernel_spec(cons, lane_p))
+    lib = _build.load(_spec(cons, lane_p, plan))
     x = torch.empty((n, B), dtype=q.dtype, device=q.device)
     s = torch.empty((mc, B), dtype=q.dtype, device=q.device)
     lam = torch.empty_like(s)
@@ -218,6 +256,11 @@ def solve_qp_shared(P, q, cons: Constraints, b,
         lam0_eq = None if lam0 is None else (lam0 * row * iobj).contiguous()
     else:
         Pk, ik, lam0_eq = (P * iobj).contiguous(), None, None
+        # the kernel keeps one copy of Psh's lower triangle a block, the
+        # plain version reads all of it
+        if Pk.dtype == torch.float32 and not symmetric_f32(Pk):
+            raise ValueError("solve_qp_shared: the lane-shared P is not "
+                             "symmetric in f32")
     x, s, lam = ipm_shared(cons, Pk, (q * iobj).contiguous(), b_eq,
                            x0.contiguous(), iters, slack_floor, ik, lam0_eq)
     c = qp_constants(q.dtype)

@@ -46,6 +46,7 @@ from koopman_realizations_torch.ops.kernels.ipm_shared import (
     ConsStruct,
     check_cuda_f32,
     cons_config,
+    symmetric_f32,
 )
 from koopman_realizations_torch.ops.kernels.step_fused import (
     FusedStepBase,
@@ -69,12 +70,6 @@ class LinearStepArgs(ctypes.Structure):
                    ("Psh", "G1", "P21", "cFr", "F0r", "Pwarm", "fYr")]
                 + [("io", StepIOStruct), ("scratch", ctypes.c_void_p),
                    ("B", ctypes.c_longlong), ("iters", ctypes.c_int)])
-
-
-def symmetric_f32(P) -> bool:
-    """P (numpy or a tensor) is symmetric bitwise once cast to f32."""
-    P32 = np.asarray(P.cpu() if torch.is_tensor(P) else P, np.float32)
-    return bool(np.array_equal(P32, P32.T))
 
 
 def linear_fold(mpc) -> dict:

@@ -145,7 +145,9 @@ class LiftQP(NamedTuple):
     on the feature vector [zeta (nz); monomials (nmono); 1], zero-padded to
     a multiple of 4 columns.  A is the row-equilibrated constraint matrix,
     cFr/F0r the right-hand side in the same units, Wd/Wo the banded A^T D A
-    contraction tables (Wo unused when ``band`` is None).
+    contraction tables (Wo unused when ``band`` is None).  ``live`` is
+    ``generator_live`` of ``gens``: which generator rows are not all zero,
+    a word a stage row.
     """
 
     gens: torch.Tensor
@@ -165,6 +167,7 @@ class LiftQP(NamedTuple):
     nz: int
     nmono: int
     band: Optional[int]
+    live: tuple
 
     @property
     def nfeat(self) -> int:
@@ -201,15 +204,33 @@ def lift_qp_operands(gens: dict, tables, RdT, F_red, cF_red, F0_red, band,
                                   device=device)
     idx = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.long,
                                     device=device)
+    gens_host = torch.as_tensor(np.concatenate(blocks), dtype=dtype)
     return LiftQP(
-        gens=t(np.concatenate(blocks)),
+        gens=gens_host.to(device),
         tables=tuple((idx(pi), idx(di)) for pi, di in tables),
         tables_host=tuple((tuple(int(v) for v in pi),
                            tuple(int(v) for v in di)) for pi, di in tables),
         rdiag=t(RdT), A=t(A_eq), cFr=t(np.asarray(cF_red) / row),
         F0r=t(np.asarray(F0_red) / row[:, None]), row=t(row),
         Wd=t(Wd), Wo=t(Wo), n=n, mc=mc, p=p, m=m, nz=nz, nmono=nmono,
-        band=band)
+        band=band, live=generator_live(gens_host, p, n, m))
+
+
+def generator_live(gens, p: int, n: int, m: int) -> tuple:
+    """Which rows of a generator stack (``LiftQP`` / ``BilinQP`` order:
+    p*n W rows, m*p CB0 rows, p v rows; a host tensor in the kernels'
+    dtype) are not all zero, one word a stage row r: bit i for W[r, i]
+    (row r*n + i), bit n + j for CB0[r, j] (row n*p + j*p + r), bit n + m
+    for v's row r (row (n + m)*p + r).  The all-zero W rows are the
+    stages that no move block reaches, the CB0 rows the stages that
+    u_prev does not reach (``csrc/kmpc_device.cuh:assemble`` skips them)."""
+    if n + m >= 32:
+        raise ValueError("generator_live: n + m must stay below 32")
+    nz = (torch.as_tensor(gens).cpu() != 0).any(1).tolist()
+    W, H, P = nz[:p * n], nz[p * n:p * n + m * p], nz[p * n + m * p:]
+    return tuple(sum(int(W[r * n + i]) << i for i in range(n))
+                 | sum(int(H[j * p + r]) << (n + j) for j in range(m))
+                 | int(P[r]) << (n + m) for r in range(p))
 
 
 class BilinQP(NamedTuple):
@@ -217,7 +238,7 @@ class BilinQP(NamedTuple):
     ``_bilin_kernel`` route): ``gens`` stacks PGWb (p*n rows, row r*n+i =
     W[r, i]), PG0 (m*p rows, row j*p+r = CB0[r, j]) and PAsq (p rows),
     their columns acting on the lifted state z (nzl), zero-padded to a
-    multiple of 4; the rest as ``LiftQP``."""
+    multiple of 4; the rest (``live`` too) as ``LiftQP``."""
 
     gens: torch.Tensor
     rdiag: torch.Tensor
@@ -233,6 +254,7 @@ class BilinQP(NamedTuple):
     m: int
     nzl: int
     band: Optional[int]
+    live: tuple
 
     @property
     def cons(self) -> Constraints:

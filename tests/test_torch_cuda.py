@@ -32,6 +32,7 @@ from koopman_realizations_torch.ops.kernels.bilin_lift import (
     bilin_lift_cuda,
     bilin_lift_plain,
     kernel_spec,
+    solve_qp_bilinear_lifted,
 )
 from koopman_realizations_torch.ops.kernels.linear_step_fused import (
     build_linear_step_fused,
@@ -817,17 +818,21 @@ def test_linear_update_runner_on_card_tracks(gpu_sqp_linear):
 
 
 # ------------------------------------------------ the group interior point
-# The nine builds of the cooperative interior point (csrc/ipm_group.cuh):
-# ipm_factored's four, nmpc_multipass, nmpc_stage's three trajectory
-# modes, nmpc_pass and the fused steps, each on 1007 closed-loop lanes of
-# its own path (a ragged last block for every plan), made once; the
-# one-pass kernels with the per-lane q0, per-lane windows and warm duals,
-# as the stage and chord routes pass them; the bilinear step with
-# per-lane windows.
+# The fifteen builds of the cooperative interior point
+# (csrc/ipm_group.cuh): ipm_factored's four, nmpc_multipass, nmpc_stage's
+# three trajectory modes, nmpc_pass, the fused steps, bilin_lift and
+# ipm_shared's three, each on 1007 closed-loop lanes of its own path (a
+# ragged last block for every plan), made once; the one-pass kernels with
+# the per-lane q0, per-lane windows and warm duals, as the stage and
+# chord routes pass them; the bilinear step and bilin_lift with per-lane
+# windows; the per-lane P warm.
 STEP_BUILDS = ["step_fused", "linear_step_fused"]
+SHARED_BUILDS = ["ipm_shared", "ipm_shared lane-P n=12",
+                 "ipm_shared lane-P n=27"]
+SOLVE_BUILDS = ["bilin_lift"] + SHARED_BUILDS
 GROUP_BUILDS = ["iters2", "unblocked", "unblocked_smooth", "q0",
                 "nmpc_multipass", "nmpc_stage hold", "nmpc_stage roll",
-                "nmpc_stage ship", "nmpc_pass"] + STEP_BUILDS
+                "nmpc_stage ship", "nmpc_pass"] + STEP_BUILDS + SOLVE_BUILDS
 _GROUP_LANES = {}
 
 
@@ -906,6 +911,91 @@ def _onepass_case(request, build, B):
     return NS.nmpc_stage_cuda, NS.nmpc_stage_plain, ins, 2
 
 
+def _shared_kernel(cons, P, q, x0, b, iters, floor, iobj=None, lam0=None):
+    """``ipm_shared_cuda`` in the group cases' argument order: the lanes'
+    q third (the poisoned operand), b fifth (``_ok``), iobj (1, B)."""
+    return IS.ipm_shared_cuda(cons, P, q, b, x0, iters, floor,
+                              None if iobj is None else iobj.reshape(-1),
+                              lam0)
+
+
+def _shared_plain(cons, P, q, x0, b, iters, floor, iobj=None, lam0=None):
+    return IS.ipm_shared_plain(cons, P, q, b, x0, iters, floor,
+                               None if iobj is None else iobj.reshape(-1),
+                               lam0)
+
+
+def _lane_p_args(cons, W, v, rdiag, q0, b, x0, lam_row, iters):
+    """The per-lane-P build's group-case arguments of the factored QP
+    (W, v, rdiag, q0): P = 2 (W^T W + diag r), q scaled by the lane's
+    iobj = 1 / max |P|, the warm duals (row units) by iobj."""
+    P, q = _dense_qp(W, v, rdiag, q0)
+    iobj = 1.0 / P.abs().amax((0, 1))
+    return (cons, P, (q * iobj).contiguous(), x0.contiguous(),
+            b.contiguous(), iters, 1e-2, iobj[None].contiguous(),
+            (lam_row * iobj).contiguous())
+
+
+def _solve_case(request, build, B):
+    """(kernel, plain, f32 and f64 arguments, poisoned operand's index) of
+    bilin_lift or one of ipm_shared's builds on B closed-loop lanes:
+    bilin_lift warm with per-lane windows (zeta poisoned); the lane-shared
+    Hessian of the linear general path, cold; the per-lane P of the
+    'linear' update's second-pass QPs (n=12) or of the unblocked route's
+    (n=27), warm (q poisoned).  ipm_shared's f64 arguments are the f32
+    ones in f64, with the f64 controller's constraints."""
+    if build == "bilin_lift":
+        sim, op = request.getfixturevalue("gpu")
+        c, win = _carry(op, B, 3)
+        sq = win[3 + torch.arange(B, device="cuda") % 8].T.contiguous()
+        model, scaler, _ = load_model()
+        qp64 = BilinearKmpc(model, scaler, MpcConfig(**MPC), device="cuda",
+                            dtype=torch.float64).lift_qp()
+        lanes = (c.ysc, c.upsc, c.x0, c.lamc, sq)
+        ins = {torch.float32: (op.qp,) + tuple(t.contiguous()
+                                               for t in lanes) + (4, 1e-2),
+               torch.float64: (qp64,) + tuple(t.double().contiguous()
+                                              for t in lanes) + (4, 1e-2)}
+        return bilin_lift_cuda, bilin_lift_plain, ins, 1
+    if build == "ipm_shared":
+        sim, op = request.getfixturevalue("gpu_linear")
+        mpc = sim.mpc
+        c, win, _ = _linear_carry(op, sim, B, 3)
+        z = mpc.lift(c.ysc)
+        f = 2.0 * mpc.CB_t.T @ (mpc.Qd_t[:, None]
+                                * (mpc.CA_t @ z - win[3][:, None]))
+        P, q, bz = mpc.eliminate_u0(2.0 * mpc.H_t, f,
+                                    mpc.c_t[:, None] - mpc.Mc_t @ z, c.upsc)
+        cons, obj = mpc.constraints(), P.abs().amax()
+        a32 = (cons, (P / obj).contiguous(), (q / obj).contiguous(),
+               c.x0.contiguous(), (bz / cons.row[:, None]).contiguous(),
+               6, 1e-2)
+        model, scaler, _ = load_model(LINEAR_MODEL)
+        cons64 = LinearKmpc(model, scaler, MpcConfig(**LINEAR),
+                            device="cuda", dtype=torch.float64).constraints()
+    else:
+        gl = request.getfixturevalue("gpu_sqp_linear")
+        if build.endswith("n=12"):
+            d, d64 = _linear_lanes(gl, B).values()
+            cons, rd, W, v, b, x0 = d["args"]
+            a32 = _lane_p_args(cons, W, v, rd, d["q0"], b, x0, d["lam0"], 8)
+            cons64 = d64["args"][0]
+        else:
+            sim, _, unb, unb64 = gl
+            z, up, U, lam, win = _route_lanes(Ksim(sim.plant, unb), B, 3)
+            cons = unb.constraints()
+            W, v = unb.factored_data(z, up, win[3], None)
+            b = (unb.cF_t[:, None] - unb.F0_t @ up) / cons.row[:, None]
+            x0 = unb.warm_start(U)
+            a32 = _lane_p_args(cons, W, v, unb.rdiag, torch.zeros_like(x0),
+                               b, x0, lam * cons.row[:, None], 8)
+            cons64 = unb64.constraints()
+    a64 = (cons64,) + tuple(t.double() if torch.is_tensor(t) else t
+                            for t in a32[1:])
+    return (_shared_kernel, _shared_plain,
+            {torch.float32: a32, torch.float64: a64}, 2)
+
+
 def _group_case(request, build):
     """(kernel, plain, f32 arguments, f64 arguments, poisoned operand's
     index) of one build on 1007 closed-loop lanes, warm where the path
@@ -932,6 +1022,8 @@ def _group_case(request, build):
         case = _onepass_case(request, build, B)
     elif build in STEP_BUILDS:
         case = _step_case(request, build, B)
+    elif build in SOLVE_BUILDS:
+        case = _solve_case(request, build, B)
     elif build == "q0":
         gl = request.getfixturevalue("gpu_sqp_linear")
         ins = {dt: d["args"] + (d["lam0"], 8, 1e-2, d["q0"])
@@ -1098,3 +1190,80 @@ def test_step_kernel_in_place(request, build):
     for f in StepCarry._fields:
         assert torch.equal(getattr(new, f), getattr(fresh, f)), f
         assert getattr(new, f).data_ptr() == getattr(cin, f).data_ptr(), f
+
+
+@pytest.mark.parametrize("build", SOLVE_BUILDS)
+def test_solve_kernel_wide_ragged(request, build):
+    """bilin_lift and ipm_shared's builds at B=100003 closed-loop lanes
+    (every plan's last block ragged; 782 blocks of 128 lanes for
+    bilin_lift and the lane-shared build): kernel against plain f32 with
+    equal, all-true ok masks, both against plain f64."""
+    kern, plain, ins, _ = _solve_case(request, build, 100003)
+    a32 = ins[torch.float32]
+    out = kern(*a32)
+    torch.cuda.synchronize()
+    ref = plain(*a32)
+    x64 = plain(*ins[torch.float64])[0]
+    _hold_to_f64(out[0], ref[0], x64, _ok(a32, out), _ok(a32, ref))
+
+
+@pytest.mark.parametrize("n", [12, 27])
+def test_ipm_shared_lane_p_asymmetric(request, n):
+    """A per-lane f32 P that is not symmetric bit for bit (the dense P of
+    the 'linear' update and of the unblocked route come from batched
+    products): here each lane's strict upper triangle 1 % above its
+    mirror.  The build reads all of P for r_d = Pr x and its lower
+    triangle for the Newton matrix, as the plain version does: kernel
+    against plain f32, both against plain f64 on the same P; and its
+    solution moves with the upper triangle (the lower alone would not)."""
+    kern, plain, ins, _ = _group_case(request, f"ipm_shared lane-P n={n}")
+    up = torch.ones((n, n), device="cuda").triu(1)[..., None]
+    asym = {dt: a[:1] + ((a[1] * (1 + 1e-2 * up.to(dt))).contiguous(),)
+            + a[2:] for dt, a in ins.items()}
+    a32 = asym[torch.float32]
+    out, sym = kern(*a32), kern(*ins[torch.float32])
+    torch.cuda.synchronize()
+    ref = plain(*a32)
+    x64 = plain(*asym[torch.float64])[0]
+    _hold_to_f64(out[0], ref[0], x64, _ok(a32, out), _ok(a32, ref))
+    assert (out[0] - sym[0]).abs().max().item() > 1e-4
+
+
+@pytest.mark.parametrize("bad", [float("inf"), float("-inf"), float("nan")])
+def test_nonfinite_zeta_lane_not_ok(gpu, bad):
+    """A lane whose zeta holds a non-finite value: the assembly no longer
+    makes 0 * inf = NaN in the generator stack's zero rows, but the live
+    rows carry it, so bilin_lift's wrapper reports the lane not ok (as
+    its plain version does) and step_fused freezes it; every other lane
+    is bitwise what it is without the bad lane."""
+    sim, op = gpu
+    c, win = _carry(op, 1000, 3)
+    bad_c = c._replace(ysc=c.ysc.clone())
+    bad_c.ysc[2, 500] = bad
+    keep = torch.ones(1000, dtype=torch.bool, device="cuda")
+    keep[500] = False
+    lam0 = c.lamc / op.qp.row[:, None]
+    sols = [solve_qp_bilinear_lifted(op.qp, cc.ysc, cc.upsc, win[3],
+                                     x0=cc.x0, lam0=lam0, iters=4)
+            for cc in (c, bad_c)]
+    plain = solve_qp_bilinear_lifted(
+        op.qp._replace(**{k: v.cpu() if torch.is_tensor(v) else v
+                          for k, v in op.qp._asdict().items()
+                          if k != "tables"},
+                       tables=tuple((a.cpu(), b.cpu())
+                                    for a, b in op.qp.tables)),
+        bad_c.ysc.cpu(), c.upsc.cpu(), win[3].cpu(), x0=c.x0.cpu(),
+        lam0=lam0.cpu(), iters=4)
+    assert bool(sols[0].ok.all()) and not bool(sols[1].ok[500])
+    assert not bool(plain.ok[500])
+    assert torch.equal(sols[1].ok.cpu(), plain.ok)
+    for a, b in zip(sols[0], sols[1]):
+        assert torch.equal(a[..., keep], b[..., keep])
+    steps = [op.step(cc, win[3]) for cc in (c, bad_c)]
+    torch.cuda.synchronize()
+    assert bool(steps[0].alive.all()) and steps[1].alive[500].item() == 0.0
+    for f in ("upsc", "xpl", "x0", "lamc", "yp"):
+        assert torch.equal(getattr(steps[1], f)[..., 500],
+                           getattr(c, f)[..., 500]), f
+        assert torch.equal(getattr(steps[0], f)[..., keep],
+                           getattr(steps[1], f)[..., keep]), f

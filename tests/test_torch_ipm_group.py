@@ -3,8 +3,10 @@ ipm_group.py``) for every build that uses it: ``ipm_factored``'s four
 (iterated relinearization n=12/mc=48, its q0 build on the NMPC's 'linear'
 update, the unblocked stack n=27/mc=108, with smoothness rows
 n=27/mc=156 dense), ``nmpc_multipass``'s, the one-pass NMPC kernels'
-(``nmpc_stage``'s three trajectory modes, ``nmpc_pass``) and the fused
-steps' (``step_fused``, ``linear_step_fused``).  Pure Python:
+(``nmpc_stage``'s three trajectory modes, ``nmpc_pass``), the fused
+steps' (``step_fused``, ``linear_step_fused``), ``bilin_lift``'s and
+``ipm_shared``'s (lane-shared; per-lane P at n=12 and n=27).  Pure
+Python:
 the group size,
 lanes per block, the grid over B with a ragged tail, the shared-memory
 layout within the H100's 227 KB a block, and the dense A^T D A entry table
@@ -26,8 +28,10 @@ from koopman_realizations_torch.control.kmpc import (
     NonlinearKmpc,
 )
 from koopman_realizations_torch.models.arm import Arm
+from koopman_realizations_torch.ops.kernels import bilin_lift as BL
 from koopman_realizations_torch.ops.kernels import ipm_factored as IF
 from koopman_realizations_torch.ops.kernels import ipm_group as IG
+from koopman_realizations_torch.ops.kernels import ipm_shared as IS
 from koopman_realizations_torch.ops.kernels import linear_step_fused as LS
 from koopman_realizations_torch.ops.kernels import nmpc_multipass as NM
 from koopman_realizations_torch.ops.kernels import nmpc_pass as NP
@@ -60,13 +64,22 @@ EXPECTED = {"iters2": (12, 48, 3, IG.NARROW_GROUP),
                for mode in STAGE_MODES},
             "nmpc_pass": (12, 48, 3, IG.ONEPASS_GROUP),
             "step_fused": (12, 48, 3, IG.STEP_GROUP),
-            "linear_step_fused": (12, 48, 3, IG.STEP_GROUP)}
+            "linear_step_fused": (12, 48, 3, IG.STEP_GROUP),
+            "bilin_lift": (12, 48, 3, IG.STEP_GROUP),
+            "ipm_shared": (12, 48, 3, IG.SHARED_GROUP),
+            "ipm_shared lane-P n=12": (12, 48, 3, IG.LANE_P_NARROW_GROUP),
+            "ipm_shared lane-P n=27": (27, 108, 3, 32)}
 # the one-pass NMPC builds, the fused steps, and with nmpc_multipass the
 # compact plans (a lane a thread in the stage sweep or the step's front,
 # the hand-over through device scratch)
 ONEPASS = ["nmpc_stage " + mode for mode in STAGE_MODES] + ["nmpc_pass"]
 STEPS = ["step_fused", "linear_step_fused"]
-COMPACT = ["nmpc_multipass"] + ONEPASS + STEPS
+# bilin_lift, and ipm_shared's builds: the solve launch alone, its QPs
+# from the caller (the per-lane P one round a block)
+LANE_P = ["ipm_shared lane-P n=12", "ipm_shared lane-P n=27"]
+ONE_ROUND = ["ipm_shared"] + LANE_P
+SOLVES = ["bilin_lift"] + ONE_ROUND
+COMPACT = ["nmpc_multipass"] + ONEPASS + STEPS + ["bilin_lift"]
 
 
 @pytest.fixture(scope="module")
@@ -94,6 +107,13 @@ def plans(nmpc_qp):
     out["nmpc_pass"] = (q.cons, NP.launch_plan(q))
     for build, op in step_ops().items():
         out[build] = (op.cons, op.launch_plan())
+    lift = step_ops()["step_fused"].qp
+    out["bilin_lift"] = (lift.cons, BL.launch_plan(lift))
+    lcons = step_ops()["linear_step_fused"].cons
+    out["ipm_shared"] = (lcons, IS.launch_plan(lcons))
+    # the per-lane P of the 'linear' update's QPs and the unblocked route's
+    for key, c in (("n=12", q.cons), ("n=27", out["unblocked"][0])):
+        out["ipm_shared lane-P " + key] = (c, IS.launch_plan(c, True))
     return out
 
 
@@ -124,13 +144,22 @@ def test_plan_of_each_build(plans, build):
     n, mc, band, group = EXPECTED[build]
     assert (cons.n, cons.mc, cons.band) == (n, mc, band)
     assert plan.group == group
-    if build not in COMPACT:
+    if build not in COMPACT + ONE_ROUND:
         assert plan.group == IG.choose_group(n, mc)
     assert plan.threads % plan.group == 0
     if build in COMPACT:
         # a lane a thread in the sweep; threads // group lanes a round
         assert plan.lanes == plan.threads == IG.NMPC_THREADS
         assert plan.rounds == plan.group
+    elif build in ONE_ROUND:
+        # ipm_shared: one round of lanes a block; the per-lane P wide a
+        # warp a lane with no bound on the blocks an SM
+        assert plan.threads == IG.FACTORED_THREADS
+        assert plan.lanes == plan.groups and plan.rounds == 1
+        assert plan.compact and plan.lane_p == (build in LANE_P)
+        assert plan.p == 0 and plan.min_blocks == (
+            IG.SHARED_MIN_BLOCKS if build == "ipm_shared"
+            else 0 if n >= IG.WIDE_N else IG.LANE_P_NARROW_MIN_BLOCKS)
     else:
         assert plan.threads == IG.FACTORED_THREADS
         assert plan.lanes == plan.threads // plan.group
@@ -156,7 +185,7 @@ def test_layout_regions(plans, build):
     order = ["OFF_A", "OFF_WD", "OFF_WO", "OFF_SP", "OFF_LANE", "OFF_WORK"]
     if plan.shared_hessian:
         # the block's one copy of the lane-shared Hessian
-        assert build == "linear_step_fused"
+        assert build in ("linear_step_fused", "ipm_shared")
         order.insert(4, "OFF_PSH")
         assert lay["OFF_LANE"] - lay["OFF_PSH"] == T
     else:
@@ -169,18 +198,24 @@ def test_layout_regions(plans, build):
     assert lay["OFF_WORK"] - lay["OFF_LANE"] == plan.lanes * lay["LSTRIDE"]
     bank = plan.group if plan.group < 32 else 1
     if plan.compact:
-        # x, obj and u_prev (the steps: and the freeze decision); the
+        # x, obj and u_prev (the steps: and the freeze decision;
+        # ipm_shared: no u_prev, the per-lane P's iobj in its place); the
         # Hessian and q through device scratch (but the linear step's:
-        # its Hessian lane-shared, its gradient formed by the groups), the
-        # steps' plant too; the work region's copy of the Hessian
-        assert build in COMPACT and plan.m == 3
-        assert lay["LSTRIDE"] == (n + 1 + 3 + (build in STEPS)) | 1
-        hess = 0 if plan.shared_hessian else T
+        # its Hessian lane-shared, its gradient formed by the groups; and
+        # ipm_shared's: its q from the caller, its Hessian lane-shared or
+        # staged by the block, both triangles), the steps' plant too; the
+        # work region's copy of the Hessian
+        assert build in COMPACT + ONE_ROUND
+        m = 1 if build in LANE_P else 0 if build == "ipm_shared" else 3
+        assert plan.m == m
+        assert lay["LSTRIDE"] == (n + 1 + m + (build in STEPS)) | 1
+        hess = 2 * T if plan.lane_p else 0 if plan.shared_hessian else T
         assert lay["WSTRIDE"] >= hess + T + n + mc
         plant = 13 if build in STEPS else 0
-        obj = 1 if build == "step_fused" else 0
-        q = 0 if plan.shared_hessian else n
-        assert plan.scratch_floats == hess + q + obj + plant
+        obj = 1 if build in ("step_fused", "bilin_lift") else 0
+        q = 0 if plan.shared_hessian or plan.lane_p else n
+        assert plan.scratch_floats == (0 if plan.lane_p else hess) + q \
+            + obj + plant
     else:
         assert lay["LSTRIDE"] >= n + 1 + max(T + n + plan.m, 2 * mc)
         assert lay["LSTRIDE"] % 32 == bank
@@ -420,3 +455,125 @@ def test_configs_carry_the_plan(plans, nmpc_qp):
         assert plans[build][1].config(q.cons.cols) in spec.config
     for build, op in step_ops().items():
         assert plans[build][1].config(op.cons.cols) in op.kernel_spec().config
+
+
+@pytest.mark.parametrize("build", SOLVES)
+def test_solve_regions(plans, build):
+    """``bilin_lift``'s and ``ipm_shared``'s plans against the slots their
+    sources read (the build's #defines and the headers'): the lane region
+    [x][obj][u_prev] (``ipm_shared``: [x][obj], the per-lane P [x][obj]
+    [iobj]); ``bilin_lift``'s scratch row [Pr: T][q: n][obj: 1] and its
+    front launch a thread a lane before the solve under the plan's
+    bounds; ``ipm_shared``'s one launch, no scratch, its Hessian one copy
+    a block or, per lane, the lower and strict upper triangles after the
+    work region's M, dx and row vector; one block's shared memory within
+    the limit and, where the plan bounds the blocks an SM, that many
+    blocks' within an SM's 228 KB."""
+    cons, plan = plans[build]
+    n, mc, T = cons.n, cons.mc, IG.tri_size(cons.n)
+    lay = plan.layout
+    cfg = plan.config(cons.cols)
+    src = (CSRC / ("bilin_lift.cu" if build == "bilin_lift"
+                   else "ipm_shared.cu")).read_text()
+    defs = dict(KM_N=str(n), KM_MC=str(mc), KM_M=str(plan.m))
+    defs.update(re.findall(r"#define (KG_\w+) (\d+)\n", cfg))
+    for text in [(CSRC / name).read_text()
+                 for name in ("ipm_group.cuh", "lane_group.cuh")] + [src]:
+        for key, val in re.findall(r"#define (KG_(?:L_\w+|H_UP|W_PR|W_PU|"
+                                   r"T)) (.+)", text):
+            defs[key] = val.split("//")[0].strip()
+    at = _slots(defs)
+
+    def disjoint(slots, end):
+        slots = sorted(slots)
+        assert slots[0][0] == 0
+        for (o, w), (o2, _) in zip(slots, slots[1:]):
+            assert o + w <= o2
+        assert slots[-1][0] + slots[-1][1] <= end
+    lane = [(at("KG_L_X"), n), (at("KG_L_OBJ"), 1)]
+    if build == "bilin_lift":
+        lane.append((at("KG_H_UP"), plan.m))
+    elif build in LANE_P:
+        lane.append((at("KG_L_IOBJ"), 1))
+    disjoint(lane, lay["LSTRIDE"])
+    assert 0 < plan.smem_bytes <= IG.SMEM_LIMIT
+    if plan.min_blocks:
+        assert plan.min_blocks * (plan.smem_bytes + 1024) <= 228 * 1024
+    for B in (1, 1007, 65536):
+        assert plan.grid(B) * plan.lanes >= B > (plan.grid(B) - 1) \
+            * plan.lanes
+    if build == "bilin_lift":
+        assert list(plan.scratch) == ["PR", "Q", "OBJ"]
+        disjoint([(at("KG_S_PR"), T), (at("KG_S_Q"), n),
+                  (at("KG_S_OBJ"), 1)], at("KG_SCRATCH"))
+        assert at("KG_SCRATCH") == plan.scratch_floats == T + n + 1
+        assert not plan.shared_hessian
+        assert at("KG_W_PR") + T <= lay["WSTRIDE"]
+        assert re.search(r"__launch_bounds__\(KG_THREADS\)\s*"
+                         r"bilin_lift_front\(", src)
+        assert "KG_BOUNDS bilin_lift_kernel(" in src
+        assert re.search(r"launch_front_solve<\w+>\(bilin_lift_front,\s*"
+                         r"bilin_lift_kernel,", src)
+        return
+    assert plan.scratch == () and plan.scratch_floats == 0
+    assert "#define KG_SCRATCH 0\n" in cfg
+    assert "KG_BOUNDS ipm_shared_kernel(" in src
+    assert re.search(r"launch_solve<\w+>\(ipm_shared_kernel,", src)
+    assert "launch_front_solve" not in src
+    if build == "ipm_shared":
+        assert plan.shared_hessian and not plan.lane_p
+        assert f"#define KG_OFF_PSH {lay['OFF_PSH']}\n" in cfg
+        assert lay["WSTRIDE"] >= T + n + mc
+    else:
+        assert plan.lane_p and not plan.shared_hessian
+        assert "KG_OFF_PSH" not in cfg
+        assert at("KG_W_PR") == T + n + mc
+        assert at("KG_W_PU") == at("KG_W_PR") + T
+        assert at("KG_W_PU") + T <= lay["WSTRIDE"]
+
+
+def test_solve_configs_carry_the_plan(plans):
+    """``bilin_lift``'s and ``ipm_shared``'s builds define the plan their
+    wrappers launch; the lane-shared and per-lane builds differ in it
+    and in KM_LANE_P."""
+    lift = step_ops()["step_fused"].qp
+    assert plans["bilin_lift"][1].config(lift.cons.cols) in \
+        BL.kernel_spec(lift).config
+    for build in ("ipm_shared",) + tuple(LANE_P):
+        cons, plan = plans[build]
+        spec = IS.kernel_spec(cons, lane_p=build in LANE_P)
+        assert plan.config(cons.cols) in spec.config
+        assert ("#define KM_LANE_P 1\n" in spec.config) == (build in LANE_P)
+    assert IS.kernel_spec(plans["ipm_shared lane-P n=12"][0]) != \
+        IS.kernel_spec(plans["ipm_shared lane-P n=12"][0], lane_p=True)
+
+
+@pytest.mark.parametrize("perturbed", [False, True])
+def test_solve_qp_shared_psh_symmetric_f32(perturbed):
+    """``ipm_shared``'s lane-shared build keeps one copy of Psh's lower
+    triangle a block, so ``solve_qp_shared`` refuses a lane-shared P that
+    is not symmetric in f32: the linear controller's own reduced Hessian
+    Pz (``LinearKmpc.solve``) passes the check -- the f32 solve runs --
+    and a Pz with one entry off its mirror by more than a rounding does
+    not."""
+    lmodel, lscaler, _ = load_model(LINEAR_MODEL)
+    mpc = LinearKmpc(lmodel, lscaler, MpcConfig(**LINEAR_MPC), device="cpu")
+    op = step_ops()["linear_step_fused"]
+    X0 = np.zeros((9, 6), np.float32)
+    X0[:, 0] = np.linspace(-0.2, 0.2, 9)
+    c = op.init_carry(X0, np.zeros((9, 2), np.float32))
+    z = mpc.lift(c.ysc)
+    Yr = torch.zeros((mpc.CA_t.shape[0], 1))
+    f = 2.0 * mpc.CB_t.T @ (mpc.Qd_t[:, None] * (mpc.CA_t @ z - Yr))
+    b = mpc.c_t[:, None] - mpc.Mc_t @ z
+    Pz, fz, bz = mpc.eliminate_u0(2.0 * mpc.H_t, f, b, c.upsc)
+    assert Pz.dtype == torch.float32
+    assert IS.symmetric_f32(Pz * (1.0 / Pz.abs().amax()))
+    if perturbed:
+        Pz = Pz.clone()
+        Pz[4, 1] *= 1.0 + 1e-5
+        with pytest.raises(ValueError, match="not symmetric"):
+            IS.solve_qp_shared(Pz, fz, mpc.constraints(), bz, iters=2)
+    else:
+        sol = mpc.solve(z, c.upsc, Yr[:, 0], c.upsc.repeat(mpc.Np, 1))[1]
+        assert bool(sol.ok.all())
