@@ -23,19 +23,22 @@ off the lift-fused route runs in phases R1-R4: ``bilin`` and the three
 builds of ``ipm_factored`` against their plain versions on closed-loop
 lanes, the B=16 quality of the configurations of
 ``assets/bilinear_route_refs.json`` against the JAX runner's, iterated
-relinearization and the unblocked stack at B=65536, the kernels' times.
-Each main path runs with the launch counts set to 0 just before and read
-just after; every kernel is timed at its path's shapes next to its bound
-and its plain version (the fused steps in phases 6 and L6 also by
-launch, the front and the group solve, with their builds' plans and
-``ptxas -v`` lines; the two-launch wrappers count calls, and each
-kernel's first timing counts the device launches of one call with
-``torch.profiler``).  Phase P profiles a few steps each of the unblocked
-route and the NMPC multipass route, and both fused main paths whole,
-with ``torch.profiler``: device time by kernel and the device's idle
-share.  It prints the card's name and power limit, one JSON line with
-every kernel's launches, device launches a call, error, times and bound,
-and as the last line
+relinearization and the unblocked stack at B=65536, the kernels' times
+(``bilin`` also by launch, with its plan and ``ptxas -v`` line).  Phase
+Q3 holds ``batch_chol`` at n=12 and n=27 to its plain version and times
+it beside ``torch.linalg.solve``, each build's plan and ``ptxas -v``
+line logged.  Each main path runs with the launch counts set to 0 just
+before and read just after; every kernel is timed at its path's shapes
+next to its bound and its plain version (the fused steps in phases 6 and
+L6 also by launch, the front and the group solve, with their builds'
+plans and ``ptxas -v`` lines; the two-launch wrappers count calls, and
+the first timing of each build counts the device launches of one call
+with ``torch.profiler``, over 10 calls).  Phase P profiles a few steps
+each of the unblocked route and the NMPC multipass route, and both fused
+main paths whole, with ``torch.profiler``: device time by kernel and the
+device's idle share.  It prints the card's name and power limit, one
+JSON line with every kernel's launches, device launches a call, error,
+times and bound, and as the last line
 {"ok": true, "device": {...}}.  Any failed phase raises; without CUDA or
 outside a checkout it exits non-zero and prints no result.
 """
@@ -154,7 +157,8 @@ def device_events(fn, calls: int) -> dict:
     """{kernel: (device ms a call, launches a call)} over ``calls`` calls
     of fn after one outside the window, from torch.profiler (the kernel's
     name without its arguments); empty where the profiler recorded no
-    device time."""
+    device time.  A fill kernel opens the window and another closes it,
+    so that neither end of the window is one of fn's kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -164,6 +168,7 @@ def device_events(fn, calls: int) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+        open_profile_window()
     out = {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -175,9 +180,11 @@ def device_events(fn, calls: int) -> dict:
     return out if any(ms > 0.0 for ms, _ in out.values()) else {}
 
 
-def device_launches(fn, names, calls: int = 3):
+def device_launches(fn, names, calls: int = 10):
     """Launches of the port's kernels (``names``) a call of fn, from
-    ``device_events``; None where the profiler recorded no device time."""
+    ``device_events`` over ``calls`` calls (a launch the profiler missed
+    shows as a fraction); None where the profiler recorded no device
+    time."""
     ev = device_events(fn, calls)
     if not ev:
         return None
@@ -192,7 +199,7 @@ def nnz(t) -> int:
 def newton_ops(cons) -> int:
     """Operations of A^T D A added to the Hessian: banded, the nonzeros of
     the Wd and Wo tables; dense, per row with r nonzeros r products and
-    r (r + 1) / 2 FMAs (csrc/kmpc_device.cuh:form_newton)."""
+    r (r + 1) / 2 FMAs (csrc/ipm_group.cuh:form_newton)."""
     if cons.band is None:
         r = (cons.Wd != 0).sum(1).tolist()
         return sum(k + k * (k + 1) for k in r)
@@ -202,7 +209,7 @@ def newton_ops(cons) -> int:
 
 def mehrotra_ops(cons, iters: int, p_nnz: int) -> int:
     """Operations of one lane's Mehrotra loop and slack start, counted
-    from csrc/kmpc_device.cuh (FMA = 2; divide, sqrt, compare and
+    from csrc/ipm_group.cuh (FMA = 2; divide, sqrt, compare and
     min/max = 1), leaving out the structural zeros of this run's
     lane-shared A, Wd and Wo; ``p_nnz`` entries of the Hessian take part
     in r_d = Pr x."""
@@ -245,7 +252,8 @@ def factored_tail_ops(cons, iters: int) -> int:
 
 def qp_ops(qp, iters: int) -> int:
     """Operations one lane's bilinear QP needs, counted from
-    csrc/kmpc_device.cuh, leaving out the structural zeros of this run's
+    csrc/kmpc_device.cuh (the assembly) and csrc/ipm_group.cuh (the
+    interior point), leaving out the structural zeros of this run's
     lane-shared operands: no product with a zero entry of the generators,
     A, Wd, Wo or F0r, and no Gram term of an all-zero W generator row (a
     stage no move reaches).  The lift-fused QP's generator columns act on
@@ -568,24 +576,44 @@ def main() -> int:
     names = kernel_names(_build.CSRC)
     dev_launches = {}
 
-    def kernel_ms(name, fn, reps: int, warmup: int = 2) -> float:
+    def kernel_ms(name, fn, reps: int, warmup: int = 2,
+                  build: str = "") -> float:
         """``cuda_ms`` of a call of kernel ``name``'s wrapper and, at the
-        kernel's first timing, the launches of the port's kernels in one
-        call (``device_launches``); a call that launches none fails."""
+        first timing of each of its builds (``build``), the launches of the
+        port's kernels in one call (``device_launches``); a call that
+        launches none fails."""
         ms = cuda_ms(fn, reps, warmup)
-        if name not in dev_launches:
-            dev_launches[name] = device_launches(fn, names)
-            if dev_launches[name] == 0:
-                raise AssertionError(f"{name}: its wrapper launched no "
-                                     f"kernel of the port")
+        per = dev_launches.setdefault(name, {})
+        if build not in per:
+            per[build] = device_launches(fn, names)
+            if per[build] == 0:
+                raise AssertionError(f"{name} {build}: its wrapper launched "
+                                     f"no kernel of the port")
         return ms
 
+    def launches_per_call(name):
+        """The launches a call of ``name``'s wrapper: one number where its
+        builds agree, else each build's."""
+        per = dev_launches[name]
+        vals = set(per.values())
+        return vals.pop() if len(vals) == 1 else per
+
     def plan_line(kernel, mode=None) -> str:
-        """A group build's plan and its ``ptxas -v`` lines (the one-pass
-        NMPC kernels, the fused steps, ``bilin_lift``, ``ipm_shared``'s
-        lane-shared build and, 'ipm_shared lane-P', its per-lane-P build
-        of the constraints ``mode``)."""
-        if kernel == "nmpc_stage":
+        """A build's plan and its ``ptxas -v`` lines (the one-pass NMPC
+        kernels, the fused steps, ``bilin_lift``, ``bilin``,
+        ``ipm_shared``'s lane-shared build and, 'ipm_shared lane-P', its
+        per-lane-P build of the constraints ``mode``; ``batch_chol``'s
+        build of n = ``mode``)."""
+        ptx = lambda spec: " | ".join(
+            ln.split("ptxas info    :")[-1].strip()
+            for ln in ptxas_of[spec] if "Compile time" not in ln)
+        if kernel == "batch_chol":
+            return (f"plan: {BC.launch_plan(mode).describe()}; ptxas: "
+                    + ptx(BC.kernel_spec(mode)))
+        if kernel == "bilin":
+            bq = rmpcs["iters2"].bilin_qp()
+            plan, spec = BI.launch_plan(bq), BI.kernel_spec(bq)
+        elif kernel == "nmpc_stage":
             plan, spec = NS.launch_plan(nqp), NS.kernel_spec(nqp, mode)
         elif kernel == "nmpc_pass":
             plan, spec = NP.launch_plan(nqp), NP.kernel_spec(nqp)
@@ -601,9 +629,7 @@ def main() -> int:
         return (f"plan: group {plan.group}, {plan.threads} threads and "
                 f"{plan.lanes} lanes a block, "
                 f"{plan.min_blocks or 'no bound on'} blocks an SM; ptxas: "
-                + " | ".join(
-                    ln.split("ptxas info    :")[-1].strip()
-                    for ln in ptxas_of[spec] if "Compile time" not in ln))
+                + ptx(spec))
     for r in builds:
         log(f"built {r.path.name} in {r.seconds:.1f} s "
             f"({'cached' if r.cached else 'nvcc'})")
@@ -1550,7 +1576,8 @@ def main() -> int:
         traj = {"ship": (d32["Zl"], d32["Ul"], d32["Fv"]),
                 "roll": (d32["Ul"],), "hold": ()}[mode]
         flops = nmpc_onepass_ops(nqp, mode, iters, True, False) * B_GENERAL
-        stage_t[mode] = (kernel_ms("nmpc_stage", kcall, reps=10),
+        stage_t[mode] = (kernel_ms("nmpc_stage", kcall, reps=10,
+                                   build=mode),
                          cuda_ms(pcall, reps=1, warmup=1), flops) + bound(
             flops, lane_bytes + nbytes(*traj) + shared_bytes + nbytes(
                 nqp.A1, nqp.A2, nqp.a0, nqp.G))
@@ -1597,6 +1624,9 @@ def main() -> int:
                                + 4 * B_GENERAL * (bq.n + 2 * bq.mc + 1)
                                + nbytes(bq.gens, bq.rdiag, bq.A, bq.cFr,
                                         bq.F0r, bq.Wd, bq.Wo))
+            log(f"bilin at B={B_GENERAL}: {route_t['bilin'][0]:.4f} ms; by "
+                f"launch {launch_split(lambda: BI.bilin_cuda(*a32[0]))}; "
+                f"{plan_line('bilin')} | {smi}")
         if_err = max(if_err, check_route("ipm_factored", name, ins,
                                          f"warm B={B_GENERAL}"))
         fc, rd, Wt, v, b, x0, l0 = a32[1][:7]
@@ -1605,7 +1635,7 @@ def main() -> int:
                  + factored_tail_ops(fc, m.cfg.qp_iters)) * B_GENERAL
         route_t[name] = (
             kernel_ms("ipm_factored", lambda: IF.ipm_factored_cuda(*a32[1]),
-                      reps=5),
+                      reps=5, build=name),
             cuda_ms(lambda: IF.ipm_factored_plain(*a32[1]), reps=1,
                     warmup=1),
             flops) + bound(flops, nbytes(Wt, v, b, x0, l0)
@@ -1637,7 +1667,7 @@ def main() -> int:
              + factored_tail_ops(fc, iters)) * B_GENERAL
     route_t[LINEAR_REGIME] = (
         kernel_ms("ipm_factored", lambda: IF.ipm_factored_cuda(*a32),
-                  reps=10),
+                  reps=10, build=LINEAR_REGIME),
         cuda_ms(lambda: IF.ipm_factored_plain(*a32), reps=1, warmup=1),
         flops) + bound(flops, nbytes(Wt, v, b, x0, l0, q0)
                        + 4 * B_GENERAL * (fc.n + 2 * fc.mc + 1)
@@ -1657,7 +1687,8 @@ def main() -> int:
         flops = (n * n + n + 4 * mc
                  + mehrotra_ops(fc, iters, n * n)) * B_GENERAL
         lane_t[key] = (
-            kernel_ms("ipm_shared", lambda: IS.ipm_shared_cuda(*l32), reps=5),
+            kernel_ms("ipm_shared", lambda: IS.ipm_shared_cuda(*l32), reps=5,
+                      build="per-lane P " + key),
             cuda_ms(lambda: IS.ipm_shared_plain(*l32), reps=1, warmup=1),
             flops) + bound(flops, nbytes(P, q, b, x0, iobj, l0)
                            + 4 * B_GENERAL * (n + 2 * mc)
@@ -1703,7 +1734,7 @@ def main() -> int:
         dx = (xk - xp).abs().max().item()
         log(f"batch_chol {key} B={B_GENERAL}: max|dx| {dx:.3e}; worst "
             f"error relative to the lane's solution: kernel {ek:.3e}, "
-            f"plain f32 {ep:.3e}")
+            f"plain f32 {ep:.3e}; {plan_line('batch_chol', M.shape[1])}")
         if not (ek <= 2 * ep + 1e-6 and torch.isfinite(xk).all()):
             raise AssertionError("batch_chol kernel disagrees with plain")
         bc_err = max(bc_err, dx)
@@ -1711,7 +1742,7 @@ def main() -> int:
         flops = chol_ops(n) * B_GENERAL
         chol_t[key] = (
             kernel_ms("batch_chol", lambda: BC.solve_spd_cuda(M, rhs_),
-                      reps=10),
+                      reps=10, build=key),
             cuda_ms(lambda: BC.solve_spd_plain(M, rhs_), reps=1, warmup=1),
             flops) + bound(flops, nbytes(M, rhs_, xk)) + (
             cuda_ms(lambda: torch.linalg.solve(M, rhs_), reps=10),)
@@ -1821,10 +1852,11 @@ def main() -> int:
                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bms, "bound_by": by,
                 "library_ms": bc_lib if name == "batch_chol" else None,
-                "device_launches_per_call": dev_launches[name]}
+                "device_launches_per_call": launches_per_call(name)}
                for name, tpu_at, launches, err, ms, plain, bms, by in rows]
-    log("device launches a wrapper call (torch.profiler): " + ", ".join(
-        f"{k} {v}" for k, v in dev_launches.items()))
+    log("device launches a wrapper call (torch.profiler, each build's "
+        "first timing): " + ", ".join(
+            f"{k} {v}" for k, v in dev_launches.items()))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -12,10 +12,11 @@ building its kernels from its own sources.  Each process also prints the
 ``ptxas -v`` lines of its builds.  In this tree it times the
 cooperative interior point's builds (``ipm_factored``'s four,
 ``nmpc_multipass``, ``nmpc_stage``'s three, ``nmpc_pass``, the fused
-steps ``step_fused`` and ``linear_step_fused``, ``bilin_lift``,
+steps ``step_fused`` and ``linear_step_fused``, ``bilin_lift``, ``bilin``,
 ``ipm_shared``'s lane-shared and per-lane-P builds) at other group
 sizes, lanes a block and launch bounds than their plans'
-(``ops/kernels/ipm_group.py``); in both
+(``ops/kernels/ipm_group.py``), and ``batch_chol``'s designs and spans
+(``ops/kernels/batch_chol.py:CholPlan``) at both n; in both
 trees it times the redesigned kernels and ``bilin`` without their
 interior-point iterations (``iters=0``: the sweep or front
 launch, or the staging and Gram, alone) and with one.  Two more
@@ -24,7 +25,9 @@ processes, DIR and this tree, build those kernels with ``-fmad=false``
 outputs: every ``nmpc_stage`` mode cold and warm, ``nmpc_pass`` fresh
 and frozen, the fused steps' seven carry fields at B=262144 and at a
 ragged B, ``bilin_lift`` warm and cold, ``ipm_shared``'s three builds,
-``bilin``.  For each ``ipm_factored`` build and ``ipm_shared``'s
+``bilin`` (each also after 0 and 1 iterations), and ``batch_chol`` at
+n=12 and n=27, every design of this tree's against the other tree's
+build.  For each ``ipm_factored`` build and ``ipm_shared``'s
 per-lane-P builds it then holds both trees'
 kernels and plain f32 against plain f64 on the same lanes: the median
 and p99 per-lane distances, the lanes beyond 1e-4 / 1e-3 / 1e-2, how
@@ -81,6 +84,16 @@ STEP_VARIANTS = (((2, 4, 8, 16), (4,)), ((4,), (0, 3, 5)))
 LIFT_VARIANTS = ((2, 4, 8), (3, 4, 5))
 ONE_ROUND = ((128, 8, 4), (256, 4, 4), (256, 8, 0), (256, 8, 2),
              (256, 8, 3), (256, 16, 4))
+# bilin's alternatives: group sizes and blocks an SM (0: no bound)
+BILIN_VARIANTS = ((2, 4, 8), (0, 3, 4, 5))
+# batch_chol's designs and spans (CholPlan fields after n: group,
+# threads, span, blocks an SM; group 0 the direct design, else a group a
+# system, its rows in registers, on spans staged in shared memory)
+CHOL_VARIANTS = {27: ((0, 128), (4, 128, 32, 2), (4, 256, 64, 1),
+                      (8, 256, 32, 2), (16, 256, 16, 2), (32, 128, 4, 0)),
+                 12: ((0, 128), (0, 256), (2, 64, 32, 0), (4, 128, 32, 0),
+                      (8, 256, 32, 0))}
+CHOLS = ("batch_chol n=12", "batch_chol n=27")
 # the per-lane-P builds' alternatives: (n, threads, group sizes, blocks
 # an SM) of one round a block, and 128 lanes a block (group, blocks)
 LANE_P_VARIANTS = (("n=12", 256, (8, 16, 32), (0, 2, 4)),
@@ -348,12 +361,13 @@ ONEPASS_RUNS = ONEPASS + tuple(f"nmpc_stage {m} warm" for m in STAGE_MODES) \
     + ("nmpc_pass frozen",)
 LANE_P = ("ipm_shared lane-P n=12", "ipm_shared lane-P n=27")
 # the kernels whose outputs the two trees' -fmad=false builds compare:
-# the redesigned ones and bilin (its assembly changed)
+# every redesigned one
 SOLVES = ("bilin_lift", "ipm_shared") + LANE_P + ("bilin",)
 REDESIGNED = tuple("ipm_factored " + name for name in FACTORED) \
     + ("nmpc_multipass",) + ONEPASS_RUNS + STEPS \
     + tuple(f"{k} B={B_RAGGED}" for k in STEPS) + SOLVES \
-    + ("bilin_lift cold", "bilin_lift per-lane windows")
+    + ("bilin_lift cold", "bilin_lift per-lane windows", "bilin cold",
+       "bilin per-lane windows") + CHOLS
 # the factored, one-pass, step and solve builds' outputs after 0 and 1
 # iterations, for the comparison of parent and change
 FIRST_ITERATIONS = tuple(f"{k} iters={it}" for k in
@@ -417,8 +431,8 @@ def solve_args(ins: dict, key: str, iters=None) -> tuple:
 
 
 def solve_runs(ins: dict) -> tuple:
-    """``bilin_lift`` (warm, cold, per-lane windows), ``ipm_shared``'s
-    three builds and ``bilin``, each also after 0 and 1 iterations."""
+    """``bilin_lift`` and ``bilin`` (warm, cold, per-lane windows) and
+    ``ipm_shared``'s three builds, each also after 0 and 1 iterations."""
     import torch
 
     from koopman_realizations_torch.ops.kernels import bilin as BI
@@ -447,6 +461,12 @@ def solve_runs(ins: dict) -> tuple:
         1.0), 10)
     runs["bilin_lift per-lane windows"] = (lambda: BL.bilin_lift_cuda(
         *a[:5], per_lane, *a[6:]), 10)
+    ab = solve_args(ins, "bilin")
+    runs["bilin cold"] = (lambda: BI.bilin_cuda(
+        ab[0], ab[1], ab[2], ab[3].new_zeros(ab[3].shape), None, ab[5],
+        ab[6], 1.0), 10)
+    runs["bilin per-lane windows"] = (lambda: BI.bilin_cuda(
+        *ab[:5], per_lane, *ab[6:]), 10)
     return specs, runs
 
 
@@ -477,7 +497,7 @@ def redesigned_runs(ins: dict) -> tuple:
         lambda: NM.nmpc_multipass_cuda(*nmp[:6], 0), 5)
     runs["nmpc_multipass passes=1"] = (
         lambda: NM.nmpc_multipass_cuda(*nmp[:4], 1, *nmp[5:]), 5)
-    for more in (onepass_runs, solve_runs):
+    for more in (onepass_runs, solve_runs, chol_runs):
         sp, ru = more(ins)
         specs.update(sp)
         runs.update(ru)
@@ -541,7 +561,7 @@ def variant_runs(ins: dict) -> tuple:
             specs[key] = NM._spec(nmp[0], plan)
             runs[key] = (lambda plan=plan: NM._launch(plan, *nmp), 5)
     for more in (onepass_variant_runs, step_variant_runs,
-                 solve_variant_runs):
+                 solve_variant_runs, chol_variant_runs):
         sp, ru = more(ins)
         specs.update(sp)
         runs.update(ru)
@@ -549,14 +569,28 @@ def variant_runs(ins: dict) -> tuple:
 
 
 def solve_variant_runs(ins: dict) -> tuple:
-    """``bilin_lift`` and the lane-shared ``ipm_shared`` at the plans of
-    ``LIFT_VARIANTS`` (and ``ipm_shared`` at ``ONE_ROUND``); the
-    per-lane-P builds at ``LANE_P_VARIANTS`` and ``LANE_P_ROUNDS``."""
+    """``bilin`` at the plans of ``BILIN_VARIANTS`` (each also at
+    iters=0: the front and the solve's set-up); ``bilin_lift`` and the
+    lane-shared ``ipm_shared`` at the plans of ``LIFT_VARIANTS`` (and
+    ``ipm_shared`` at ``ONE_ROUND``); the per-lane-P builds at
+    ``LANE_P_VARIANTS`` and ``LANE_P_ROUNDS``."""
     import dataclasses
 
     from koopman_realizations_torch.ops.kernels import bilin_lift as BL
     from koopman_realizations_torch.ops.kernels import ipm_shared as IS
+    from koopman_realizations_torch.ops.kernels import bilin as BI
     specs, runs = {}, {}
+    ab = solve_args(ins, "bilin")
+    base = BI.launch_plan(ab[0])
+    for g in BILIN_VARIANTS[0]:
+        for mb in BILIN_VARIANTS[1]:
+            plan = dataclasses.replace(base, group=g, min_blocks=mb).check()
+            key = f"bilin G={g} min_blocks={mb}"
+            specs[key] = BI._spec(ab[0], plan)
+            runs[key] = (lambda plan=plan: BI._launch(plan, *ab), 10)
+            runs[key + " iters=0"] = (
+                lambda plan=plan, a0=solve_args(ins, "bilin", 0):
+                BI._launch(plan, *a0), 10)
     a = solve_args(ins, "bilin_lift")
     base = BL.launch_plan(a[0])
     groups, mbs = LIFT_VARIANTS
@@ -654,16 +688,31 @@ def onepass_variant_runs(ins: dict) -> tuple:
     return specs, runs
 
 
-def other_runs(ins: dict) -> tuple:
-    """Specs and launches of ``batch_chol``, timed only."""
+def chol_runs(ins: dict) -> tuple:
+    """``batch_chol`` at n=12 and n=27 through its public entry."""
     from koopman_realizations_torch.ops.kernels import batch_chol as BC
-    specs = {"batch_chol n=12": BC.kernel_spec(12),
-             "batch_chol n=27": BC.kernel_spec(27)}
-    runs = {}
-    for key in ("n=12", "n=27"):
-        M, rhs = ins["batch_chol " + key]
-        runs["batch_chol " + key] = (
-            lambda M=M, rhs=rhs: BC.solve_spd_cuda(M, rhs), 10)
+    specs, runs = {}, {}
+    for key in CHOLS:
+        M, rhs = ins[key]
+        specs[key] = BC.kernel_spec(M.shape[1])
+        runs[key] = (lambda M=M, rhs=rhs: BC.solve_spd_cuda(M, rhs), 10)
+    return specs, runs
+
+
+def chol_variant_runs(ins: dict) -> tuple:
+    """``batch_chol`` at the designs and spans of ``CHOL_VARIANTS`` (this
+    tree's ``CholPlan``, ``_spec`` and ``_launch``)."""
+    from koopman_realizations_torch.ops.kernels import batch_chol as BC
+    specs, runs = {}, {}
+    for key in CHOLS:
+        M, rhs = ins[key]
+        n = M.shape[1]
+        for fields in CHOL_VARIANTS[n]:
+            plan = BC.CholPlan(n, *fields).check()
+            name = f"{key} {plan.describe()}"
+            specs[name] = BC._spec(plan)
+            runs[name] = (lambda plan=plan, M=M, rhs=rhs:
+                          BC._launch(plan, M, rhs), 10)
     return specs, runs
 
 
@@ -676,10 +725,13 @@ def time_tree(inputs_path: str, mode: str, x_out: str, nvcc=()) -> dict:
 
     from koopman_realizations_torch.ops.kernels import _build
     _build.NVCC_FLAGS = tuple(_build.NVCC_FLAGS) + tuple(nvcc)
+    from koopman_realizations_torch.ops.kernels import batch_chol as BC
     ins = torch.load(inputs_path, weights_only=False)
     specs, runs = redesigned_runs(ins)
-    for more in ((other_runs,) if mode != "outputs" else ()) \
-            + ((variant_runs,) if mode == "variants" else ()):
+    extra = (variant_runs,) if mode == "variants" else \
+        (chol_variant_runs,) if mode == "outputs" \
+        and hasattr(BC, "CholPlan") else ()
+    for more in extra:
         sp, ru = more(ins)
         specs.update(sp)
         runs.update(ru)
@@ -689,11 +741,18 @@ def time_tree(inputs_path: str, mode: str, x_out: str, nvcc=()) -> dict:
     ptxas = {k: [ln.strip() for ln in built[spec].ptxas
                  if "Compile time" not in ln]
              for k, spec in specs.items()}
-    torch.save({k: [t.cpu() for t in runs[k][0]()]
-                for k in REDESIGNED + FIRST_ITERATIONS}, x_out)
+    # the batch_chol designs' outputs too, where this tree has them
+    saved = REDESIGNED + FIRST_ITERATIONS + tuple(
+        k for k in runs if k.startswith(CHOLS) and k not in CHOLS)
+    torch.save({k: [t.cpu() for t in as_tuple(runs[k][0]())]
+                for k in saved}, x_out)
     times = {} if mode == "outputs" else \
         {k: cuda_ms(fn, reps) for k, (fn, reps) in runs.items()}
     return {"times": times, "ptxas": ptxas}
+
+
+def as_tuple(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
 
 
 # ------------------------------------------------- distances to plain f64
@@ -863,6 +922,17 @@ def main(argv=None) -> int:
                   f"with -fmad=false bitwise equal "
                   f"{same(xs[4][k], xs[5][k])}, max |d| "
                   f"{maxdiff(xs[4][k], xs[5][k])}", flush=True)
+        # every batch_chol design of this tree against the other tree's
+        # build of its n
+        for k in xs[5]:
+            if k.startswith(CHOLS) and k not in CHOLS:
+                base = k[:len(CHOLS[0])]
+                outputs[k] = {
+                    "-fmad=false bitwise": same(xs[4][base], xs[5][k]),
+                    "-fmad=false max |d|": maxdiff(xs[4][base], xs[5][k])}
+                print(f"{k}: with -fmad=false bitwise equal to the parent's "
+                      f"{base} {outputs[k]['-fmad=false bitwise']}, max |d| "
+                      f"{outputs[k]['-fmad=false max |d|']}", flush=True)
         ins = torch.load(path, weights_only=False)
         tl = tails(ins, {key: {plan[i][0]: xs[i][key] for i in (0, 1, 4, 5)}
                          for key in TAILED})

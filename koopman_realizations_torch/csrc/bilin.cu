@@ -1,5 +1,7 @@
-// Assembly-fused bilinear MPC QP from the lifted state, batched: one CUDA
-// thread per lane.
+// Assembly-fused bilinear MPC QP from the lifted state, batched, in two
+// launches: the assembly, Gram and objective scale a thread per lane,
+// then the QP a group of threads per lane (lane_group.cuh,
+// ipm_group.cuh).
 //
 // Replaces the TPU kernel _bilin_kernel (koopman_realizations_tpu/ops/
 // pallas/qp_ipm.py:998, called at :2089 by solve_qp_bilinear_batched),
@@ -16,17 +18,25 @@
 //
 // Bound on an H100: compute.  At the blocked shape (NL=28, p=22, n=12,
 // mc=48, 4 iterations) a lane needs ~3.8e4 operations on ~0.8 KB of lane
-// input and output.  The design is bilin_lift.cu's with the lifted state
-// in place of the lift's features (km::StateFeatures): the 352 x 28
-// generator stack is read as warp-uniform 16-byte broadcasts through the
-// read-only cache, its all-zero rows skipped, W is streamed row by row
-// into the Gram and never held, and every per-lane load and store is
-// coalesced (lanes-minor).
-#include "kmpc_device.cuh"
-
-#ifndef KM_THREADS
-#define KM_THREADS 128
-#endif
+// input and output.
+//
+// Design: bilin_lift.cu's with the lifted state in place of the lift's
+// features (km::StateFeatures).  The front launch (bilin_front: 128-thread
+// blocks, a thread a lane, no cap on its registers) reads the 352 x 28
+// generator stack as warp-uniform 16-byte broadcasts through the
+// read-only cache, its all-zero rows skipped, streams W row by row into
+// the Gram and never holds it, and writes the packed, scaled, regularized
+// Hessian, the scaled q and obj to the lane's scratch row.  The solve
+// launch (bilin_kernel, under the plan's launch bounds) solves the
+// block's lanes' QPs a group of KG_GROUP threads a lane from the warm
+// duals (cold where lam0 is null); the group stores s and lam, then each
+// thread x and obj.  Every per-lane load and store is coalesced
+// (lanes-minor).  The plan is ops/kernels/ipm_group.py:bilin_lift_plan,
+// measured fastest for this QP.
+//
+// Aliasing: the outputs are fresh tensors of the wrapper, never an input,
+// so no launch reads what it writes.
+#include "lane_group.cuh"
 
 struct BilinArgs {
   km::QP qp;
@@ -39,43 +49,26 @@ struct BilinArgs {
   float* s;            // (KM_MC, B)
   float* lam;          // (KM_MC, B) equilibrated multipliers
   float* obj;          // (B) objective scale
+  float* scratch;      // (grid * KG_LANES, KG_SCRATCH) hand-over
   long long B;
   int sqYr_lanes;
   int iters;
   float slack_floor;
 };
 
-__global__ void __launch_bounds__(KM_THREADS)
-bilin_kernel(const BilinArgs a) {
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= a.B) return;
+__global__ void __launch_bounds__(KG_THREADS)
+bilin_front(const BilinArgs a) {
   const long long B = a.B;
-  float up[KM_M], x[KM_N], s[KM_MC], lam[KM_MC], rhs[KM_MC];
-#pragma unroll
-  for (int j = 0; j < KM_M; ++j) up[j] = a.up[j * B + b];
-#pragma unroll
-  for (int i = 0; i < KM_N; ++i) x[i] = a.x0[i * B + b];
-  const bool warm = a.lam0 != nullptr;
-  KM_ROWS
-  for (int c = 0; c < KM_MC; ++c) lam[c] = warm ? a.lam0[c * B + b] : 1.0f;
-  const float* sq = a.sqYr_lanes ? a.sqYr + b : a.sqYr;
-  const long long sq_step = a.sqYr_lanes ? B : 1;
-  const float obj = km::solve_qp(a.qp, a.iters, a.slack_floor, warm,
-                                 km::StateFeatures{a.z + b, B}, up, sq,
-                                 sq_step, x, s, lam, rhs);
-#pragma unroll
-  for (int i = 0; i < KM_N; ++i) a.x[i * B + b] = x[i];
-  KM_ROWS
-  for (int c = 0; c < KM_MC; ++c) {
-    a.s[c * B + b] = s[c];
-    a.lam[c * B + b] = lam[c];
-  }
-  a.obj[b] = obj;
+  const long long b = (long long)blockIdx.x * KG_LANES + threadIdx.x;
+  const long long bl = b < B ? b : B - 1;
+  kl::bilin_front(a, km::StateFeatures{a.z + bl, B}, b, bl);
+}
+
+__global__ void KG_BOUNDS bilin_kernel(const BilinArgs a) {
+  kl::solve_block(a.qp.con, a.B, kl::BilinLanes<BilinArgs>{a});
 }
 
 extern "C" int km_bilin(const BilinArgs* args, void* stream) {
-  if (args->B <= 0) return 0;
-  const unsigned grid = (unsigned)((args->B + KM_THREADS - 1) / KM_THREADS);
-  bilin_kernel<<<grid, KM_THREADS, 0, (cudaStream_t)stream>>>(*args);
-  return (int)cudaGetLastError();
+  return kl::launch_front_solve<BilinArgs>(bilin_front, bilin_kernel, args,
+                                           stream);
 }

@@ -30,8 +30,10 @@
 // obj into its lane region, and solves the block's lanes' QPs a group of
 // KG_GROUP threads a lane from the warm duals sqrt(clip(lam0 / obj, 1e-4,
 // 1e4)) (cold where lam0 is null) and b = cFr - F0r u_prev; the group
-// stores s and lam, then each thread x and obj.  The plan (group, lanes a
-// block, launch bounds, layout) is ops/kernels/ipm_group.py:
+// stores s and lam, then each thread x and obj.  The front's lane and the
+// solve's lanes are lane_group.cuh's bilin_front and BilinLanes, shared
+// with bilin.cu, which differs only in its features.  The plan (group,
+// lanes a block, launch bounds, layout) is ops/kernels/ipm_group.py:
 // bilin_lift_plan.
 //
 // Aliasing: the outputs are fresh tensors of the wrapper, never an input,
@@ -61,47 +63,14 @@ bilin_lift_front(const BilinLiftArgs a) {
   const long long B = a.B;
   const long long b = (long long)blockIdx.x * KG_LANES + threadIdx.x;
   const long long bl = b < B ? b : B - 1;
-  float zeta[KM_NZ], up[KM_M];
+  float zeta[KM_NZ];
 #pragma unroll
   for (int i = 0; i < KM_NZ; ++i) zeta[i] = a.zeta[i * B + bl];
-#pragma unroll
-  for (int j = 0; j < KM_M; ++j) up[j] = a.up[j * B + bl];
-  const float* sq = a.sqYr_lanes ? a.sqYr + bl : a.sqYr;
-  const long long sq_step = a.sqYr_lanes ? B : 1;
-  float P[KM_N][KM_N], q[KM_N], rhs[KM_MC];
-  km::assemble(a.qp, km::LiftFeatures{zeta}, up, sq, sq_step, P, q, rhs);
-  float* hs = kl::scratch_row(a.scratch, b);
-  hs[KG_S_OBJ] = kl::pack_scaled(P, q, hs);
+  kl::bilin_front(a, km::LiftFeatures{zeta}, b, bl);
 }
 
-// The solve launch's lanes: each lane's u_prev, x0 and obj (from the
-// front) into its lane region; its QP; x and obj out.
-struct BilinLiftLanes {
-  const BilinLiftArgs& a;
-  __device__ __forceinline__ void load(float*, float* H, long long bl,
-                                       int) const {
-    const long long B = a.B;
-#pragma unroll
-    for (int j = 0; j < KM_M; ++j) H[KG_H_UP + j] = a.up[j * B + bl];
-#pragma unroll
-    for (int i = 0; i < KM_N; ++i) H[KG_L_X + i] = a.x0[i * B + bl];
-    H[KG_L_OBJ] = kl::scratch_row(a.scratch, bl)[KG_S_OBJ];
-  }
-  __device__ __forceinline__ void solve(const kg::Shared& sh, float* sm,
-                                        int ql, int grp, int g) const {
-    kl::solve_lane(a, a.qp.cFr, a.qp.F0r, sh, sm, ql, grp, g, a.slack_floor,
-                   kl::ScratchHessian{}, kl::ScratchGradient{},
-                   kl::LaneDuals{a.lam0, a.B}, kl::StoreRows{a.s, a.lam, a.B});
-  }
-  __device__ __forceinline__ void store(const float* H, long long b) const {
-#pragma unroll
-    for (int i = 0; i < KM_N; ++i) a.x[i * a.B + b] = H[KG_L_X + i];
-    a.obj[b] = H[KG_L_OBJ];
-  }
-};
-
 __global__ void KG_BOUNDS bilin_lift_kernel(const BilinLiftArgs a) {
-  kl::solve_block(a.qp.con, a.B, BilinLiftLanes{a});
+  kl::solve_block(a.qp.con, a.B, kl::BilinLanes<BilinLiftArgs>{a});
 }
 
 extern "C" int km_bilin_lift(const BilinLiftArgs* args, void* stream) {

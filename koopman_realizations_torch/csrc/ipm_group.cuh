@@ -2,15 +2,14 @@
 // run by a group of KG_GROUP threads, with the lane's matrices in shared
 // memory (ipm_factored.cu; through lane_group.cuh nmpc_multipass.cu,
 // nmpc_stage.cu, nmpc_pass.cu, step_fused.cu, linear_step_fused.cu,
-// bilin_lift.cu and ipm_shared.cu).
+// bilin_lift.cu, bilin.cu and ipm_shared.cu).  It is the port's only
+// interior point: no kernel runs a QP one thread per lane.
 //
-// It replaces, for those eight kernels, the thread-per-lane loop of
-// kmpc_device.cuh (km::mehrotra with form_newton, chol, chol_solve,
-// direction), which keeps the Hessian, M and L (3 n^2 floats) in one
-// thread's registers or, at n=27, in thread-local memory.  Both compute
-// the TPU kernels' _mehrotra_loop (qp_ipm.py:236-296) with the banded or
-// dense A^T D A (:209-233), _chol_lanes (:143-176) and _chol_solve_lanes
-// (:179-206).
+// It replaces the thread-per-lane loop the port first had, which kept
+// the Hessian, M and L (3 n^2 floats) in one thread's registers or, at
+// n=27, in thread-local memory.  Both compute the TPU kernels'
+// _mehrotra_loop (qp_ipm.py:236-296) with the banded or dense A^T D A
+// (:209-233), _chol_lanes (:143-176) and _chol_solve_lanes (:179-206).
 //
 // Design, for Hopper:
 // - A lane's scaled Hessian Pr and its Newton matrix M, factored in place
@@ -53,11 +52,12 @@
 // roots, NaN-propagating min/max in every reduction (km::nmin/nmax), the
 // isfinite guards on the update; every product, solve and sum takes its
 // terms in the same order (the products with A skip only its exact
-// zeros).  Built with -fmad=false, a lane's result is bitwise the
-// thread-per-lane kernel's on the card (kernel_ab.py).  nvcc's default
-// contraction fuses different multiply-add pairs in the two loops, so the
-// default builds differ in the last bits from the first iteration on, and
-// by more on lanes whose f32 minimizer is poorly determined.  There are
+// zeros).  Built with -fmad=false, each kernel's result was bitwise its
+// thread-per-lane predecessor's on the card (kernel_ab.py, held to the
+// parent tree in each redesign).  nvcc's default contraction fuses
+// different multiply-add pairs in the two loops, so the default builds
+// differed in the last bits from the first iteration on, and by more on
+// lanes whose f32 minimizer is poorly determined.  There are
 // no atomics, and a group's shuffles never leave its lane.  Every thread
 // of a block runs the same sequence of barriers and shuffles: lanes past
 // the batch compute on their zero-filled (or clamped) inputs and store

@@ -1,21 +1,19 @@
 // Device functions shared by the CUDA kernels of the Koopman MPC closed
-// loops: the thread-per-lane Mehrotra predictor-corrector with its banded
-// or dense A^T D A, Cholesky factor and solve (bilin.cu, its last user;
-// ipm_factored.cu, ipm_shared.cu, bilin_lift.cu, the three NMPC kernels
-// and the two step kernels run ipm_group.cuh's cooperative one on this
-// file's constants, constraint rows and scalar helpers); the objective
-// scale of a per-lane Gram (the bilinear kernels, the NMPC kernels); the
-// factored Gram streamed from W rows and the factored QP's tail (the
-// bilinear kernels); the poly lift (the two step kernels and
-// bilin_lift.cu); the bilinear QP assembly against lane-shared generators
-// from the lift's features or the lifted state, without the generator
-// stack's all-zero rows (bilin_lift.cu, step_fused.cu, bilin.cu); the
-// arm's closed-form right-hand side with dual numbers, SDIRK2, the marker
-// kinematics and the step kernels' carry (step_fused.cu,
-// linear_step_fused.cu through step_group.cuh).
+// loops: the interior point's constants, constraint rows and scalar
+// helpers (the cooperative interior point of ipm_group.cuh runs on them
+// in every kernel that solves a QP); the objective scale of a per-lane
+// Gram (the bilinear kernels, the NMPC kernels); the factored Gram
+// streamed from W rows (the bilinear kernels); the poly lift (the two step
+// kernels and bilin_lift.cu); the bilinear QP assembly against
+// lane-shared generators from the lift's features or the lifted state,
+// without the generator stack's all-zero rows (bilin_lift.cu,
+// step_fused.cu, bilin.cu: each lane's thread assembles, then hands the
+// QP to a group of threads); the arm's closed-form right-hand side with
+// dual numbers, SDIRK2, the marker kinematics and the step kernels' carry
+// (step_fused.cu, linear_step_fused.cu through step_group.cuh).
 //
 // They replace the shared Pallas device functions of the JAX package
-// (ops/pallas/qp_ipm.py:143-296 and :686-769, ops/pallas/step_fused.py
+// (ops/pallas/qp_ipm.py:686-769, ops/pallas/step_fused.py
 // _plant_freeze_epilogue :150, models/arm_lanes.py sdirk2_rows), one CUDA
 // thread per scenario lane.  Per-lane operands are lanes-minor (row r of
 // lane b at r * B + b), so every per-lane load and store of a warp is
@@ -27,12 +25,11 @@
 // header with them (ops/kernels/_build.py), so every per-lane array has a
 // static size and static indices after unrolling.  A section below is
 // compiled only where its part of the configuration is defined: KM_N,
-// KM_MC, KM_BAND (the interior point; KM_BAND -1 with KM_RNZ and
-// KM_DENSE_COLS: the dense A^T D A), KM_M (the right-hand side b), KM_P
-// (the factored Gram), KM_NCP (the assembly against generators, with the
-// generator stack's live-row table KM_LIVE_W/H/P), KM_NZ
-// (the lift), KM_NZL (the lifted state as features), KM_NL (the plant).
-// KM_ROLL keeps the loops over the constraint rows rolled (see below).
+// KM_MC, KM_BAND (the interior point; KM_BAND -1 with KM_RNZ: the dense
+// A^T D A), KM_M (the right-hand side b), KM_P (the factored Gram),
+// KM_NCP (the assembly against generators, with the generator stack's
+// live-row table KM_LIVE_W/H/P), KM_NZ (the lift), KM_NZL (the lifted
+// state as features), KM_NL (the plant).
 //
 // Numerics follow the JAX kernels: f32 throughout, IEEE-rounded divides
 // and square roots (never an approximate reciprocal square root: it kills
@@ -44,19 +41,6 @@
 
 #ifndef KM_N
 #error "kmpc_device.cuh needs the generated configuration header"
-#endif
-
-// Loops over the constraint rows.  At n=12, mc=48 every loop is unrolled
-// and every per-lane array statically indexed.  The unblocked stack's
-// builds (n=27, mc=108 or 156) set KM_ROLL: fully unrolled, each A or A^T
-// product would be ~3e3 FMAs with as many loads of A, six of them an
-// iteration, far past the instruction cache; rolled, the row-indexed
-// arrays (s, lam, residuals, directions) live in thread-local memory with
-// computed offsets, which the n=27 Hessian, its factor and M already do.
-#if defined(KM_ROLL) && KM_ROLL
-#define KM_ROWS _Pragma("unroll 1")
-#else
-#define KM_ROWS _Pragma("unroll")
 #endif
 
 #define KM_PN (KM_P * KM_N)           // W rows of the generator stack
@@ -94,244 +78,6 @@ __device__ __forceinline__ float nclip(float a, float lo, float hi) {
   return nmin(nmax(a, lo), hi);
 }
 __device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
-
-// The regularized, objective-scaled Hessian Pr as the thread-per-lane
-// interior point reads it: the array the lane assembled (bilin.cu).
-struct LaneHessian {
-  const float (&P)[KM_N][KM_N];
-  __device__ __forceinline__ float operator()(int i, int j) const {
-    return P[i][j];
-  }
-};
-
-// y = A x (mc rows) and y = A^T v (n rows) against the shared A.
-__device__ __forceinline__ void matvec_A(const float* __restrict__ A,
-                                         const float (&x)[KM_N],
-                                         float (&y)[KM_MC]) {
-  KM_ROWS
-  for (int c = 0; c < KM_MC; ++c) {
-    float acc = 0.0f;
-#pragma unroll
-    for (int i = 0; i < KM_N; ++i) acc = fmaf(ldg(A + c * KM_N + i), x[i], acc);
-    y[c] = acc;
-  }
-}
-__device__ __forceinline__ void matvec_At(const float* __restrict__ A,
-                                          const float (&v)[KM_MC],
-                                          float (&y)[KM_N]) {
-#pragma unroll
-  for (int i = 0; i < KM_N; ++i) y[i] = 0.0f;
-  KM_ROWS
-  for (int c = 0; c < KM_MC; ++c) {
-#pragma unroll
-    for (int i = 0; i < KM_N; ++i) y[i] = fmaf(ldg(A + c * KM_N + i), v[c], y[i]);
-  }
-}
-
-// M = Pr + A^T diag(D) A, lower triangle (qp_ipm.py:209-233).  Banded:
-// the diagonal from Wd, the one off-diagonal at KM_BAND from Wo.  Dense
-// (KM_BAND < 0, smoothness rows): row c has at most KM_RNZ nonzeros, in
-// the ascending columns KM_DENSE_COLS[c] (-1: none) of the generated
-// header with their values in Wd, and adds D_c a_c a_c^T to the lower
-// triangle -- KM_RNZ products and KM_RNZ (KM_RNZ + 1) / 2 FMAs a row in
-// place of the TPU kernel's (n*n, mc) contraction; the plain dense
-// einsum's function in another summation order.
-template <class H>
-__device__ __forceinline__ void form_newton(const Cons& con, const H& Pr,
-                                            const float (&D)[KM_MC],
-                                            float (&M)[KM_N][KM_N]) {
-#pragma unroll
-  for (int i = 0; i < KM_N; ++i) {
-#pragma unroll
-    for (int k = 0; k <= i; ++k) M[i][k] = Pr(i, k);
-  }
-#if KM_BAND < 0
-  constexpr int COLS[KM_MC][KM_RNZ] = KM_DENSE_COLS;
-#pragma unroll
-  for (int c = 0; c < KM_MC; ++c) {
-    float a[KM_RNZ];
-#pragma unroll
-    for (int k = 0; k < KM_RNZ; ++k) a[k] = ldg(con.Wd + c * KM_RNZ + k);
-#pragma unroll
-    for (int k = 0; k < KM_RNZ; ++k) {
-      if (COLS[c][k] < 0) continue;
-      const float da = D[c] * a[k];
-#pragma unroll
-      for (int l = 0; l <= k; ++l)
-        M[COLS[c][k]][COLS[c][l]] = fmaf(da, a[l], M[COLS[c][k]][COLS[c][l]]);
-    }
-  }
-#else
-#pragma unroll
-  for (int i = 0; i < KM_N; ++i) {
-    float dg = 0.0f;
-    KM_ROWS
-    for (int c = 0; c < KM_MC; ++c) dg = fmaf(ldg(con.Wd + i * KM_MC + c), D[c], dg);
-    M[i][i] += dg;
-  }
-#if KM_BAND > 0
-#pragma unroll
-  for (int i = 0; i < KM_N - KM_BAND; ++i) {
-    float og = 0.0f;
-    KM_ROWS
-    for (int c = 0; c < KM_MC; ++c) og = fmaf(ldg(con.Wo + i * KM_MC + c), D[c], og);
-    M[i + KM_BAND][i] += og;
-  }
-#endif
-#endif
-}
-
-// Lower Cholesky, one IEEE reciprocal of an exact sqrt per column
-// (qp_ipm.py:143-176; L[j][j] = M[j][j] / sqrt(M[j][j]) as there).
-__device__ __forceinline__ void chol(float (&M)[KM_N][KM_N],
-                                     float (&L)[KM_N][KM_N]) {
-#pragma unroll
-  for (int j = 0; j < KM_N; ++j) {
-    const float rd = kdiv(1.0f, ksqrt(M[j][j]));
-#pragma unroll
-    for (int i = j; i < KM_N; ++i) L[i][j] = M[i][j] * rd;
-#pragma unroll
-    for (int i = j + 1; i < KM_N; ++i) {
-#pragma unroll
-      for (int k = j + 1; k <= i; ++k) M[i][k] -= L[i][j] * L[k][j];
-    }
-  }
-}
-
-// Solve L L^T x = rhs (qp_ipm.py:179-206), IEEE divides by the diagonal.
-__device__ __forceinline__ void chol_solve(const float (&L)[KM_N][KM_N],
-                                           float (&r)[KM_N]) {
-#pragma unroll
-  for (int k = 0; k < KM_N; ++k) {
-    r[k] = kdiv(r[k], L[k][k]);
-#pragma unroll
-    for (int i = k + 1; i < KM_N; ++i) r[i] -= L[i][k] * r[k];
-  }
-#pragma unroll
-  for (int i = KM_N - 1; i >= 0; --i) {
-    r[i] = kdiv(r[i], L[i][i]);
-#pragma unroll
-    for (int j = 0; j < i; ++j) r[j] -= L[i][j] * r[i];
-  }
-}
-
-// Largest alpha in (0, 1] keeping v + alpha dv >= 0.01 v (NaN propagates).
-__device__ __forceinline__ float max_step(const float (&v)[KM_MC],
-                                          const float (&dv)[KM_MC]) {
-  float mn = INFINITY;
-KM_ROWS
-  for (int c = 0; c < KM_MC; ++c)
-    if (dv[c] < 0.0f) mn = nmin(mn, kdiv(-v[c], dv[c]));
-  return nmin(1.0f, 0.99f * mn);
-}
-
-// One Newton direction for the complementarity residual r_slam.
-__device__ __forceinline__ void direction(const Cons& con,
-                                          const float (&L)[KM_N][KM_N],
-                                          const float (&r_d)[KM_N],
-                                          const float (&r_p)[KM_MC],
-                                          const float (&s)[KM_MC],
-                                          const float (&lam)[KM_MC],
-                                          const float (&r_slam)[KM_MC],
-                                          float (&dx)[KM_N],
-                                          float (&ds)[KM_MC],
-                                          float (&dlam)[KM_MC]) {
-  float t[KM_MC];
-KM_ROWS
-  for (int c = 0; c < KM_MC; ++c)
-    t[c] = kdiv(-r_slam[c] + lam[c] * r_p[c], s[c]);
-  float At_t[KM_N];
-  matvec_At(con.A, t, At_t);
-#pragma unroll
-  for (int i = 0; i < KM_N; ++i) dx[i] = -r_d[i] - At_t[i];
-  chol_solve(L, dx);
-  float Adx[KM_MC];
-  matvec_A(con.A, dx, Adx);
-KM_ROWS
-  for (int c = 0; c < KM_MC; ++c) {
-    ds[c] = -r_p[c] - Adx[c];
-    dlam[c] = kdiv(-r_slam[c] - lam[c] * ds[c], s[c]);
-  }
-}
-
-// Fixed-iteration Mehrotra predictor-corrector (qp_ipm.py:236-296): x/lam
-// hold the starts on entry (lam already damped), s is formed here.
-template <class H>
-__device__ __forceinline__ void mehrotra(const Cons& con, int iters,
-                                         float slack_floor, const H& Pr,
-                                         const float (&q)[KM_N],
-                                         const float (&b)[KM_MC],
-                                         float (&x)[KM_N],
-                                         float (&s)[KM_MC],
-                                         float (&lam)[KM_MC]) {
-  {
-    float Ax[KM_MC];
-    matvec_A(con.A, x, Ax);
-KM_ROWS
-    for (int c = 0; c < KM_MC; ++c) s[c] = nmax(b[c] - Ax[c], slack_floor);
-  }
-#pragma unroll 1
-  for (int it = 0; it < iters; ++it) {
-    float mu = 0.0f;
-KM_ROWS
-    for (int c = 0; c < KM_MC; ++c) mu = fmaf(s[c], lam[c], mu);
-    mu = kdiv(mu, (float)KM_MC);
-    float r_p[KM_MC];
-    matvec_A(con.A, x, r_p);
-    float rp_max = 0.0f;
-KM_ROWS
-    for (int c = 0; c < KM_MC; ++c) {
-      r_p[c] = r_p[c] + s[c] - b[c];
-      rp_max = nmax(rp_max, fabsf(r_p[c]));
-    }
-    float r_d[KM_N];
-    matvec_At(con.A, lam, r_d);
-#pragma unroll
-    for (int i = 0; i < KM_N; ++i) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int j = 0; j < KM_N; ++j) acc = fmaf(Pr(i, j), x[j], acc);
-      r_d[i] = acc + q[i] + r_d[i];
-    }
-    const bool active = (mu > kMuFloor) || (rp_max > kMuFloor);
-
-    float L[KM_N][KM_N];
-    {
-      float D[KM_MC];
-KM_ROWS
-      for (int c = 0; c < KM_MC; ++c) D[c] = nclip(kdiv(lam[c], s[c]), 1e-14f, 1e14f);
-      float M[KM_N][KM_N];
-      form_newton(con, Pr, D, M);
-      chol(M, L);
-    }
-    float r_slam[KM_MC], dx_a[KM_N], ds_a[KM_MC], dlam_a[KM_MC];
-KM_ROWS
-    for (int c = 0; c < KM_MC; ++c) r_slam[c] = s[c] * lam[c];
-    direction(con, L, r_d, r_p, s, lam, r_slam, dx_a, ds_a, dlam_a);
-    const float alpha_a = nmin(max_step(s, ds_a), max_step(lam, dlam_a));
-    float mu_aff = 0.0f;
-KM_ROWS
-    for (int c = 0; c < KM_MC; ++c)
-      mu_aff = fmaf(s[c] + alpha_a * ds_a[c], lam[c] + alpha_a * dlam_a[c], mu_aff);
-    mu_aff = kdiv(mu_aff, (float)KM_MC);
-    const float ratio = kdiv(mu_aff, mu + 1e-30f);
-    const float sigma = ratio * ratio * ratio;
-KM_ROWS
-    for (int c = 0; c < KM_MC; ++c)
-      r_slam[c] = s[c] * lam[c] + ds_a[c] * dlam_a[c] - sigma * mu;
-    // the corrector reuses the predictor's storage
-    direction(con, L, r_d, r_p, s, lam, r_slam, dx_a, ds_a, dlam_a);
-    const float alpha = active ? nmin(max_step(s, ds_a), max_step(lam, dlam_a)) : 0.0f;
-#pragma unroll
-    for (int i = 0; i < KM_N; ++i)
-      if (isfinite(dx_a[i])) x[i] = x[i] + alpha * dx_a[i];
-KM_ROWS
-    for (int c = 0; c < KM_MC; ++c) {
-      if (isfinite(ds_a[c])) s[c] = s[c] + alpha * ds_a[c];
-      if (isfinite(dlam_a[c])) lam[c] = lam[c] + alpha * dlam_a[c];
-    }
-  }
-}
 
 // Per-lane objective scale: max |P| is the max diagonal of the PSD Gram.
 __device__ __forceinline__ float diag_obj_scale(const float (&P)[KM_N][KM_N]) {
@@ -392,41 +138,6 @@ __device__ __forceinline__ float gen_row(const float* __restrict__ g,
 }
 
 #endif  // KM_NCP
-
-// ------------------------------------------------------- factored QP
-#ifdef KM_P
-
-// The factored QP's tail from the Gram (Pr holds P, q holds qv): the
-// objective scale, the scaled and regularized Hessian, the dual start and
-// the Mehrotra loop from x (the primal start on entry).  lam holds the
-// dual start in row-equilibrated units on entry (ignored when cold) --
-// its 1/obj factor is known only now -- and the equilibrated duals on
-// exit.  Returns obj.
-__device__ __forceinline__ float solve_factored(const Cons& con, int iters,
-                                                float slack_floor,
-                                                bool warm_dual,
-                                                float (&Pr)[KM_N][KM_N],
-                                                float (&q)[KM_N],
-                                                const float (&b)[KM_MC],
-                                                float (&x)[KM_N],
-                                                float (&s)[KM_MC],
-                                                float (&lam)[KM_MC]) {
-  const float obj = diag_obj_scale(Pr);
-  const float iobj = kdiv(1.0f, obj);
-#pragma unroll
-  for (int i = 0; i < KM_N; ++i) {
-    q[i] = q[i] * iobj;
-#pragma unroll
-    for (int j = 0; j < KM_N; ++j) Pr[i][j] = Pr[i][j] * iobj + (i == j ? kReg : 0.0f);
-  }
-  KM_ROWS
-  for (int c = 0; c < KM_MC; ++c)
-    lam[c] = warm_dual ? ksqrt(nclip(lam[c] * iobj, 1e-4f, 1e4f)) : 1.0f;
-  mehrotra(con, iters, slack_floor, LaneHessian{Pr}, q, b, x, s, lam);
-  return obj;
-}
-
-#endif  // KM_P
 
 // -------------------------------------------------------- bilinear QP
 #if defined(KM_P) && defined(KM_NCP)
@@ -587,23 +298,6 @@ __device__ __forceinline__ void assemble(const QP& qp, const Feat& feat,
   }
   factored_gram(qp.rdiag, GenRows{gW, f, v}, P, qv);
   rhs_b(qp.cFr, qp.F0r, up, b);
-}
-
-// Features + assembly + Gram + the factored tail: the QP of the three
-// bilinear kernels.  Returns obj; b for the caller's epilogue.
-template <class Feat>
-__device__ __forceinline__ float solve_qp(const QP& qp, int iters,
-                                          float slack_floor, bool warm_dual,
-                                          const Feat& feat,
-                                          const float (&up)[KM_M],
-                                          const float* sqYr, long long sq_step,
-                                          float (&x)[KM_N], float (&s)[KM_MC],
-                                          float (&lam)[KM_MC],
-                                          float (&b)[KM_MC]) {
-  float Pr[KM_N][KM_N], q[KM_N];
-  assemble(qp, feat, up, sqYr, sq_step, Pr, q, b);
-  return solve_factored(qp.con, iters, slack_floor, warm_dual, Pr, q, b, x,
-                        s, lam);
 }
 
 #endif  // KM_P && KM_NCP

@@ -3,18 +3,18 @@
 // step kernels, runs its plant) and writes it to a row of device scratch
 // of its own; the block then solves its lanes' QPs KG_THREADS / KG_GROUP
 // at a time, a group of KG_GROUP threads a lane, on the cooperative
-// interior point (ipm_group.cuh).  Seven kernels use it: through
+// interior point (ipm_group.cuh).  Eight kernels use it: through
 // nmpc_group.cuh nmpc_multipass.cu (thread-per-lane sweep and group solve
 // in one launch, pass after pass), nmpc_stage.cu and nmpc_pass.cu; through
-// step_group.cuh step_fused.cu and linear_step_fused.cu; bilin_lift.cu
-// (its front a thread per lane) and ipm_shared.cu (no front: the solve
-// alone, its QPs from the caller).  All but nmpc_multipass and ipm_shared
-// run in two launches on the stream: the front launch (a
-// thread per lane, 128-thread launch bounds, no cap on its registers),
-// then the solve launch under the plan's launch bounds.  Under those
-// bounds (128 registers at 4 blocks an SM) a thread-per-lane front in the
-// solve's launch spills: the NMPC sweep took 2-4x its thread-per-lane
-// time there (PERF.md §5, §6).
+// step_group.cuh step_fused.cu and linear_step_fused.cu; bilin_lift.cu and
+// bilin.cu (their fronts a thread per lane, bilin_front and BilinLanes
+// below) and ipm_shared.cu (no front: the solve alone, its QPs from the
+// caller).  All but nmpc_multipass and ipm_shared run in two launches on
+// the stream: the front launch (a thread per lane, 128-thread launch
+// bounds, no cap on its registers), then the solve launch under the
+// plan's launch bounds.  Under those bounds (128 registers at 4 blocks an
+// SM) a thread-per-lane front in the solve's launch spills: the NMPC
+// sweep took 2-4x its thread-per-lane time there (PERF.md §5, §6).
 //
 // What differs between the kernels is a parameter here:
 // - the Hessian: copied from the lane's scratch row into the group's work
@@ -30,17 +30,18 @@
 // - the dual start: cold (lam = 1) or warm from a per-lane lam0 in
 //   row-equilibrated units, sqrt(clip(lam0_row / obj, 1e-4, 1e4));
 // - what the group does with the lane's solution (the NMPC kernels,
-//   bilin_lift and ipm_shared store s and lam; the step kernels form the
-//   ok mask and advance the dual carry) and what the lane's thread does
-//   after the block's solves.
+//   bilin_lift, bilin and ipm_shared store s and lam; the step kernels
+//   form the ok mask and advance the dual carry) and what the lane's
+//   thread does after the block's solves.
 //
 // Layout (ops/kernels/ipm_group.py, the compact plan): the lane region
 // holds [x: n][obj: 1][u_prev: m] (the step kernels: [keep: 1] after); the
 // lane's scratch row (row b of the scratch, b the lane's place in the
 // grid) the sections KG_S_* of the build (the NMPC kernels [Pr: T][q: n];
-// the bilinear step [Pr: T][q: n][obj: 1][plant]; the linear step
-// [plant]); the group's work region [M: T][dx: n][vec: mc] and,
-// where the Hessian comes from the scratch row, [Pr: T] after.  The
+// bilin_lift and bilin [Pr: T][q: n][obj: 1]; the bilinear step [Pr: T]
+// [q: n][obj: 1][plant]; the linear step [plant]); the group's work
+// region [M: T][dx: n][vec: mc] and, where the Hessian comes from the
+// scratch row, [Pr: T] after.  The
 // scratch row is written and read back within a launch or by the next
 // launch (an L2 round trip), so that the thread-per-lane code keeps the
 // SM's L1 cache for its lane-shared operands and spills.
@@ -73,8 +74,9 @@ __device__ __forceinline__ float* scratch_row(float* scratch, long long b) {
 // ---------------------------- a lane's own QP in its scratch row: Pr, q
 // The QP's objective scale, then its scaled, regularized Hessian (lower
 // triangle, packed) and scaled q into the lane's scratch row H, as the
-// thread-per-lane factored tail formed them (kmpc_device.cuh:
-// solve_factored).  Returns obj.
+// TPU kernels' factored tail forms them (qp_ipm.py:760-769: obj = max
+// |P|, the largest diagonal of the PSD Gram; Pr = P / obj + reg I).
+// Returns obj.
 __device__ __forceinline__ float pack_scaled(const float (&Pr)[KM_N][KM_N],
                                              const float (&q)[KM_N],
                                              float* H) {
@@ -221,7 +223,7 @@ struct LaneGradient {
   }
 };
 
-// What the group of bilin_lift or ipm_shared does with its lane's
+// What the group of bilin_lift, bilin or ipm_shared does with its lane's
 // solution: s and lam of a lane in the batch, stored by the rows' owners
 // (KM_MC rows, lanes-minor).
 struct StoreRows {
@@ -294,6 +296,61 @@ __device__ __forceinline__ void solve_lane(
                   grp, g, slack_floor, hess, kg::SymmetricHessian{}, grad,
                   duals, done);
 }
+#endif
+
+#if defined(KG_S_OBJ) && defined(KM_NCP)
+// ------------------------------------------- the bilinear QP kernels
+// bilin_lift.cu and bilin.cu differ only in the features the generator
+// columns act on (km::LiftFeatures, km::StateFeatures).  Args has qp, up,
+// x0, lam0, sqYr, x, s, lam, obj, scratch, B, sqYr_lanes, iters and
+// slack_floor.
+
+// The front launch's lane b (bl: b, or the last lane past the batch): the
+// QP assembled from feat and u_prev against the lane-shared generators,
+// its scaled Hessian, q and obj into b's scratch row.
+template <class Args, class Feat>
+__device__ __forceinline__ void bilin_front(const Args& a, const Feat& feat,
+                                            long long b, long long bl) {
+  const long long B = a.B;
+  float up[KM_M];
+#pragma unroll
+  for (int j = 0; j < KM_M; ++j) up[j] = a.up[j * B + bl];
+  const float* sq = a.sqYr_lanes ? a.sqYr + bl : a.sqYr;
+  const long long sq_step = a.sqYr_lanes ? B : 1;
+  float P[KM_N][KM_N], q[KM_N], rhs[KM_MC];
+  km::assemble(a.qp, feat, up, sq, sq_step, P, q, rhs);
+  float* hs = scratch_row(a.scratch, b);
+  hs[KG_S_OBJ] = pack_scaled(P, q, hs);
+}
+
+// The solve launch's lanes: each lane's u_prev, x0 and obj (from the
+// front) into its lane region; its QP from the scratch row, warm or cold
+// duals; s and lam by the rows' owners, then x and obj by the lane's
+// thread.
+template <class Args>
+struct BilinLanes {
+  const Args& a;
+  __device__ __forceinline__ void load(float*, float* H, long long bl,
+                                       int) const {
+    const long long B = a.B;
+#pragma unroll
+    for (int j = 0; j < KM_M; ++j) H[KG_H_UP + j] = a.up[j * B + bl];
+#pragma unroll
+    for (int i = 0; i < KM_N; ++i) H[KG_L_X + i] = a.x0[i * B + bl];
+    H[KG_L_OBJ] = scratch_row(a.scratch, bl)[KG_S_OBJ];
+  }
+  __device__ __forceinline__ void solve(const kg::Shared& sh, float* sm,
+                                        int ql, int grp, int g) const {
+    solve_lane(a, a.qp.cFr, a.qp.F0r, sh, sm, ql, grp, g, a.slack_floor,
+               ScratchHessian{}, ScratchGradient{}, LaneDuals{a.lam0, a.B},
+               StoreRows{a.s, a.lam, a.B});
+  }
+  __device__ __forceinline__ void store(const float* H, long long b) const {
+#pragma unroll
+    for (int i = 0; i < KM_N; ++i) a.x[i * a.B + b] = H[KG_L_X + i];
+    a.obj[b] = H[KG_L_OBJ];
+  }
+};
 #endif
 
 // The solve launch's block: the lane-shared operands into shared memory,

@@ -57,7 +57,6 @@ from koopman_realizations_torch.ops.qp import (
 )
 
 SOURCE = "ipm_shared.cu"
-THREADS = 128
 
 
 class ConsStruct(ctypes.Structure):
@@ -95,27 +94,17 @@ class IpmLanePArgs(ctypes.Structure):
     _fields_ = _args_fields(True)
 
 
-# above this many constraint rows the builds keep the loops over the rows
-# rolled (KM_ROLL, csrc/kmpc_device.cuh)
-ROLL_ROWS = 64
-
-
 def cons_config(cons: Constraints) -> str:
     """``#define`` lines of the interior point's dimensions: the band
-    offset, or -1 with each row's nonzero columns for the dense A^T D A,
-    and KM_ROLL above ``ROLL_ROWS`` rows."""
+    offset, or -1 with the rows' nonzero count for the dense A^T D A (its
+    entry table is the plan's, ``GroupPlan.config``)."""
     cfg = _build.defines(KM_N=cons.n, KM_MC=cons.mc,
-                         KM_BAND=-1 if cons.band is None else cons.band,
-                         KM_THREADS=THREADS)
-    if cons.mc > ROLL_ROWS:
-        cfg += _build.defines(KM_ROLL=1)
+                         KM_BAND=-1 if cons.band is None else cons.band)
     if cons.band is None:
         if len(cons.cols) != cons.mc:
             raise ValueError("a dense A^T D A needs each row's nonzero "
                              "columns (Constraints.cols)")
-        cfg += (_build.defines(KM_RNZ=len(cons.cols[0]))
-                + "#define KM_DENSE_COLS "
-                + _build.c_array(cons.cols, fmt=str) + "\n")
+        cfg += _build.defines(KM_RNZ=len(cons.cols[0]))
     return cfg
 
 

@@ -371,6 +371,12 @@ def _hold_to_f64(xk, xp, x64, okk, okp):
     solution (median and 99th percentile) within twice the plain f32
     version's plus 1e-5."""
     assert torch.equal(okk, okp) and bool(okk.all())
+    _near_f64(xk, xp, x64)
+
+
+def _near_f64(xk, xp, x64):
+    """The kernel's per-lane distance to the f64 result (median and 99th
+    percentile) within twice the plain f32 version's plus 1e-5."""
     lv = torch.tensor([0.5, 0.99], dtype=torch.float64, device=xk.device)
     ek = torch.quantile((xk.double() - x64).abs().amax(0), lv)
     ep = torch.quantile((xp.double() - x64).abs().amax(0), lv)
@@ -515,31 +521,52 @@ def _route_lanes(sim, B, steps, seed=0):
     return mpc.lift(ysc).contiguous(), upsc, U, lam, win
 
 
-@pytest.mark.parametrize("per_lane", [False, True])
-@pytest.mark.parametrize("warm", [False, True])
-def test_bilin_kernel_matches_plain(gpu_routes, warm, per_lane):
+# (warm, per-lane windows, iterations, lanes): the four starts and
+# windows after the path's 4 iterations on 1000 lanes; the front and the
+# solve's set-up alone (0) and one iteration; the last 128-lane block
+# ragged by 1 lane (129) and a single lane
+BILIN_CASES = ([(w, pl, 4, 1000) for w in (False, True)
+                for pl in (False, True)]
+               + [(w, w, it, 1000) for w in (False, True) for it in (0, 1)]
+               + [(True, True, 4, 129), (False, False, 4, 1)])
+
+
+@pytest.mark.parametrize("warm,per_lane,iters,B", BILIN_CASES)
+def test_bilin_kernel_matches_plain(gpu_routes, warm, per_lane, iters, B):
     """The assembly-fused first pass of iterated relinearization, kernel
-    against plain f32, both against plain f64, on 1000 closed-loop lanes
-    (not a block multiple), cold or with the carried duals, a shared or a
-    per-lane reference window."""
+    (the front a thread a lane, then the group solve: two device launches
+    a call) against plain f32, both against plain f64, on B closed-loop
+    lanes, cold or with the carried duals, a shared or a per-lane
+    reference window: after the path's 4 iterations equal, all-true ok
+    masks and x's distances to f64 within twice plain f32's plus 1e-5;
+    after 0 or 1 iterations the distances of x, s and lam so."""
     sim, mpc64 = gpu_routes["iters2"]
     mpc = sim.mpc
-    z, up, U, lam, win = _route_lanes(sim, 1000, 3)
-    sq = win[3 + torch.arange(1000, device="cuda") % 8].T.contiguous() \
+    z, up, U, lam, win = _route_lanes(sim, B, 3)
+    sq = win[3 + torch.arange(B, device="cuda") % 8].T.contiguous() \
         if per_lane else win[3]
     x0 = mpc.warm_start(U).contiguous()
     lam0 = (lam * mpc.row[:, None]).contiguous() if warm else None
     qp, qp64 = mpc.bilin_qp(), mpc64.bilin_qp()
-    xk, sk, lk, objk = BI.bilin_cuda(qp, z, up, x0, lam0, sq, 4, 1e-2)
+    before = BI.bilin_cuda.launches
+    out = BI.bilin_cuda(qp, z, up, x0, lam0, sq, iters, 1e-2)
     torch.cuda.synchronize()
-    xp, sp, lp, objp = BI.bilin_plain(qp, z, up, x0, lam0, sq, 4, 1e-2)
-    x64 = BI.bilin_plain(qp64, z.double(), up.double(), x0.double(),
+    assert BI.bilin_cuda.launches == before + 1
+    ref = BI.bilin_plain(qp, z, up, x0, lam0, sq, iters, 1e-2)
+    r64 = BI.bilin_plain(qp64, z.double(), up.double(), x0.double(),
                          None if lam0 is None else lam0.double(),
-                         sq.double(), 4, 1e-2)[0]
-    b = qp.cFr[:, None] - qp.F0r @ up
-    _hold_to_f64(xk, xp, x64, ok_mask(qp.cons, b, xk, sk, lk, 3e-3, 5e-2)[0],
-                 ok_mask(qp.cons, b, xp, sp, lp, 3e-3, 5e-2)[0])
-    assert torch.allclose(objk, objp, rtol=1e-5)
+                         sq.double(), iters, 1e-2)
+    xk, sk, lk, objk = out
+    if iters == 4:
+        b = qp.cFr[:, None] - qp.F0r @ up
+        _hold_to_f64(xk, ref[0], r64[0],
+                     ok_mask(qp.cons, b, xk, sk, lk, 3e-3, 5e-2)[0],
+                     ok_mask(qp.cons, b, ref[0], ref[1], ref[2], 3e-3,
+                             5e-2)[0])
+    else:
+        for k, p, e in zip(out[:3], ref[:3], r64[:3]):
+            _near_f64(k, p, e)
+    assert torch.allclose(objk, ref[3], rtol=1e-5)
 
 
 @pytest.mark.parametrize("warm", [False, True])
@@ -758,24 +785,32 @@ def test_ipm_shared_lane_p_kernel_matches_plain(gpu_sqp_linear, shape,
                  ok_mask(a32[0], b, xp, sp, lp, 3e-3, 5e-2)[0])
 
 
-@pytest.mark.parametrize("n", [12, 27])
-def test_batch_chol_kernel_matches_plain(gpu_sqp_linear, n):
+# (n, B): 1000 systems (n=12: 8 blocks of the direct build, the last
+# ragged; n=27: 32 spans of 32 systems on 32 blocks, one span a block);
+# 1003 at n=27 (the last span 11 systems, its copies not whole 16-byte
+# pieces); 65539 at both (n=27: 2049 spans on the persistent grid of two
+# blocks an SM, ~8 spans a block, the last span 3 systems)
+CHOL_CASES = [(12, 1000), (27, 1000), (27, 1003), (12, 65539), (27, 65539)]
+
+
+@pytest.mark.parametrize("n,B", CHOL_CASES)
+def test_batch_chol_kernel_matches_plain(gpu_sqp_linear, n, B):
     """The batched SPD solve on the dense Hessians P = 2 (W^T W + diag r)
-    of closed-loop QPs (n=12: the 'linear' update's; n=27: random SPD
-    systems of the JAX test's recipe), B=1000 (not a block multiple):
-    kernel against plain f32, both against plain f64, relative to the
-    solution's scale."""
-    if n == 12:
+    of closed-loop QPs (n=12 at B=1000: the 'linear' update's) or on
+    random SPD systems of the JAX test's recipe: kernel against plain
+    f32, both against plain f64, relative to the solution's scale; one
+    launch a call."""
+    if n == 12 and B == 1000:
         d = _linear_lanes(gpu_sqp_linear, 1000)[torch.float64]
         _, rd, W, v = d["args"][:4]
         P, q = _dense_qp(W, v, rd, d["q0"])
         M, b = P.permute(2, 0, 1), q.T
     else:
-        rng = np.random.default_rng(0)
-        G = rng.standard_normal((1000, n, n))
+        rng = np.random.default_rng(0 if B == 1000 else n + B)
+        G = rng.standard_normal((B, n, n))
         M = torch.as_tensor(G @ G.transpose(0, 2, 1) + n * np.eye(n),
                             device="cuda")
-        b = torch.as_tensor(rng.standard_normal((1000, n)), device="cuda")
+        b = torch.as_tensor(rng.standard_normal((B, n)), device="cuda")
     M32, b32 = M.float().contiguous(), b.float().contiguous()
     before = BC.solve_spd_cuda.launches
     xk = BC.solve_spd(M32, b32)
@@ -789,6 +824,31 @@ def test_batch_chol_kernel_matches_plain(gpu_sqp_linear, n):
     assert ek <= 2 * ep + 1e-6, (ek, ep)
     torch.testing.assert_close(xk, xp, rtol=0,
                                atol=1e-3 * x64.abs().max().item())
+
+
+def test_batch_chol_designs_agree(gpu_sqp_linear):
+    """Both designs of ``batch_chol.py:CholPlan`` -- direct, and a group
+    of 4, 8 threads or a warp a system on staged spans -- give the default
+    build's solution on 1003 random SPD systems at n=27 (and the staged
+    design at n=12), to the plain f32 tolerance above: the same operations
+    on every entry, in one order (bitwise with -fmad=false,
+    kernel_ab.py)."""
+    P = BC.CholPlan
+    for n, plans in ((27, [P(27, 0, 128), P(27, 4, 256, 64, 1),
+                           P(27, 8, 256, 32, 2), P(27, 32, 128, 4, 0)]),
+                     (12, [P(12, 2, 64, 32, 0), P(12, 4, 128, 32, 0)])):
+        rng = np.random.default_rng(n)
+        G = rng.standard_normal((1003, n, n))
+        M = torch.as_tensor(G @ G.transpose(0, 2, 1) + n * np.eye(n),
+                            device="cuda", dtype=torch.float32)
+        b = torch.as_tensor(rng.standard_normal((1003, n)), device="cuda",
+                            dtype=torch.float32)
+        ref = BC.solve_spd(M, b)
+        for plan in plans:
+            x = BC._launch(plan.check(), M, b)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(x, ref, rtol=0,
+                                       atol=1e-3 * ref.abs().max().item())
 
 
 def test_linear_update_runner_on_card_tracks(gpu_sqp_linear):
@@ -818,18 +878,18 @@ def test_linear_update_runner_on_card_tracks(gpu_sqp_linear):
 
 
 # ------------------------------------------------ the group interior point
-# The fifteen builds of the cooperative interior point
+# The sixteen builds of the cooperative interior point
 # (csrc/ipm_group.cuh): ipm_factored's four, nmpc_multipass, nmpc_stage's
-# three trajectory modes, nmpc_pass, the fused steps, bilin_lift and
-# ipm_shared's three, each on 1007 closed-loop lanes of its own path (a
-# ragged last block for every plan), made once; the one-pass kernels with
-# the per-lane q0, per-lane windows and warm duals, as the stage and
-# chord routes pass them; the bilinear step and bilin_lift with per-lane
-# windows; the per-lane P warm.
+# three trajectory modes, nmpc_pass, the fused steps, bilin_lift, bilin
+# and ipm_shared's three, each on 1007 closed-loop lanes of its own path
+# (a ragged last block for every plan), made once; the one-pass kernels
+# with the per-lane q0, per-lane windows and warm duals, as the stage and
+# chord routes pass them; the bilinear step, bilin_lift and bilin with
+# per-lane windows; the per-lane P warm.
 STEP_BUILDS = ["step_fused", "linear_step_fused"]
 SHARED_BUILDS = ["ipm_shared", "ipm_shared lane-P n=12",
                  "ipm_shared lane-P n=27"]
-SOLVE_BUILDS = ["bilin_lift"] + SHARED_BUILDS
+SOLVE_BUILDS = ["bilin_lift", "bilin"] + SHARED_BUILDS
 GROUP_BUILDS = ["iters2", "unblocked", "unblocked_smooth", "q0",
                 "nmpc_multipass", "nmpc_stage hold", "nmpc_stage roll",
                 "nmpc_stage ship", "nmpc_pass"] + STEP_BUILDS + SOLVE_BUILDS
@@ -938,8 +998,10 @@ def _lane_p_args(cons, W, v, rdiag, q0, b, x0, lam_row, iters):
 
 def _solve_case(request, build, B):
     """(kernel, plain, f32 and f64 arguments, poisoned operand's index) of
-    bilin_lift or one of ipm_shared's builds on B closed-loop lanes:
-    bilin_lift warm with per-lane windows (zeta poisoned); the lane-shared
+    bilin_lift, bilin or one of ipm_shared's builds on B closed-loop lanes:
+    bilin_lift warm with per-lane windows (zeta poisoned); bilin on the
+    iters2 route's lanes, warm with per-lane windows (z poisoned); the
+    lane-shared
     Hessian of the linear general path, cold; the per-lane P of the
     'linear' update's second-pass QPs (n=12) or of the unblocked route's
     (n=27), warm (q poisoned).  ipm_shared's f64 arguments are the f32
@@ -957,6 +1019,17 @@ def _solve_case(request, build, B):
                torch.float64: (qp64,) + tuple(t.double().contiguous()
                                               for t in lanes) + (4, 1e-2)}
         return bilin_lift_cuda, bilin_lift_plain, ins, 1
+    if build == "bilin":
+        sim, mpc64 = request.getfixturevalue("gpu_routes")["iters2"]
+        mpc = sim.mpc
+        z, up, U, lam, win = _route_lanes(sim, B, 3)
+        sq = win[3 + torch.arange(B, device="cuda") % 8].T.contiguous()
+        lanes = (z, up, mpc.warm_start(U), lam * mpc.row[:, None], sq)
+        ins = {torch.float32: (mpc.bilin_qp(),) + tuple(
+                   t.contiguous() for t in lanes) + (4, 1e-2),
+               torch.float64: (mpc64.bilin_qp(),) + tuple(
+                   t.double().contiguous() for t in lanes) + (4, 1e-2)}
+        return BI.bilin_cuda, BI.bilin_plain, ins, 1
     if build == "ipm_shared":
         sim, op = request.getfixturevalue("gpu_linear")
         mpc = sim.mpc
@@ -1194,10 +1267,10 @@ def test_step_kernel_in_place(request, build):
 
 @pytest.mark.parametrize("build", SOLVE_BUILDS)
 def test_solve_kernel_wide_ragged(request, build):
-    """bilin_lift and ipm_shared's builds at B=100003 closed-loop lanes
-    (every plan's last block ragged; 782 blocks of 128 lanes for
-    bilin_lift and the lane-shared build): kernel against plain f32 with
-    equal, all-true ok masks, both against plain f64."""
+    """bilin_lift, bilin and ipm_shared's builds at B=100003 closed-loop
+    lanes (every plan's last block ragged; 782 blocks of 128 lanes for
+    bilin_lift, bilin and the lane-shared build): kernel against plain
+    f32 with equal, all-true ok masks, both against plain f64."""
     kern, plain, ins, _ = _solve_case(request, build, 100003)
     a32 = ins[torch.float32]
     out = kern(*a32)

@@ -4,8 +4,9 @@ ipm_group.py``) for every build that uses it: ``ipm_factored``'s four
 update, the unblocked stack n=27/mc=108, with smoothness rows
 n=27/mc=156 dense), ``nmpc_multipass``'s, the one-pass NMPC kernels'
 (``nmpc_stage``'s three trajectory modes, ``nmpc_pass``), the fused
-steps' (``step_fused``, ``linear_step_fused``), ``bilin_lift``'s and
-``ipm_shared``'s (lane-shared; per-lane P at n=12 and n=27).  Pure
+steps' (``step_fused``, ``linear_step_fused``), ``bilin_lift``'s,
+``bilin``'s and ``ipm_shared``'s (lane-shared; per-lane P at n=12 and
+n=27).  Pure
 Python:
 the group size,
 lanes per block, the grid over B with a ragged tail, the shared-memory
@@ -28,6 +29,7 @@ from koopman_realizations_torch.control.kmpc import (
     NonlinearKmpc,
 )
 from koopman_realizations_torch.models.arm import Arm
+from koopman_realizations_torch.ops.kernels import bilin as BI
 from koopman_realizations_torch.ops.kernels import bilin_lift as BL
 from koopman_realizations_torch.ops.kernels import ipm_factored as IF
 from koopman_realizations_torch.ops.kernels import ipm_group as IG
@@ -66,6 +68,7 @@ EXPECTED = {"iters2": (12, 48, 3, IG.NARROW_GROUP),
             "step_fused": (12, 48, 3, IG.STEP_GROUP),
             "linear_step_fused": (12, 48, 3, IG.STEP_GROUP),
             "bilin_lift": (12, 48, 3, IG.STEP_GROUP),
+            "bilin": (12, 48, 3, IG.STEP_GROUP),
             "ipm_shared": (12, 48, 3, IG.SHARED_GROUP),
             "ipm_shared lane-P n=12": (12, 48, 3, IG.LANE_P_NARROW_GROUP),
             "ipm_shared lane-P n=27": (27, 108, 3, 32)}
@@ -74,12 +77,14 @@ EXPECTED = {"iters2": (12, 48, 3, IG.NARROW_GROUP),
 # the hand-over through device scratch)
 ONEPASS = ["nmpc_stage " + mode for mode in STAGE_MODES] + ["nmpc_pass"]
 STEPS = ["step_fused", "linear_step_fused"]
-# bilin_lift, and ipm_shared's builds: the solve launch alone, its QPs
-# from the caller (the per-lane P one round a block)
+# bilin_lift and bilin (a front launch, then the group solve), and
+# ipm_shared's builds: the solve launch alone, its QPs from the caller
+# (the per-lane P one round a block)
 LANE_P = ["ipm_shared lane-P n=12", "ipm_shared lane-P n=27"]
 ONE_ROUND = ["ipm_shared"] + LANE_P
-SOLVES = ["bilin_lift"] + ONE_ROUND
-COMPACT = ["nmpc_multipass"] + ONEPASS + STEPS + ["bilin_lift"]
+FRONTED = ["bilin_lift", "bilin"]
+SOLVES = FRONTED + ONE_ROUND
+COMPACT = ["nmpc_multipass"] + ONEPASS + STEPS + FRONTED
 
 
 @pytest.fixture(scope="module")
@@ -99,6 +104,8 @@ def plans(nmpc_qp):
         m = BilinearKmpc(model, scaler, MpcConfig(**{**BENCH_MPC, **knobs}),
                          device="cpu")
         out[name] = (m.constraints(), IF.launch_plan(m.constraints(), m.p))
+        if name == "iters2":
+            out["bilin"] = (m.bilin_qp().cons, BI.launch_plan(m.bilin_qp()))
     q = nmpc_qp
     out["q0"] = (q.cons, IF.launch_plan(q.cons, q.p))
     out["nmpc_multipass"] = (q.cons, NM.launch_plan(q))
@@ -212,7 +219,7 @@ def test_layout_regions(plans, build):
         hess = 2 * T if plan.lane_p else 0 if plan.shared_hessian else T
         assert lay["WSTRIDE"] >= hess + T + n + mc
         plant = 13 if build in STEPS else 0
-        obj = 1 if build in ("step_fused", "bilin_lift") else 0
+        obj = 1 if build in ["step_fused"] + FRONTED else 0
         q = 0 if plan.shared_hessian or plan.lane_p else n
         assert plan.scratch_floats == (0 if plan.lane_p else hess) + q \
             + obj + plant
@@ -459,22 +466,22 @@ def test_configs_carry_the_plan(plans, nmpc_qp):
 
 @pytest.mark.parametrize("build", SOLVES)
 def test_solve_regions(plans, build):
-    """``bilin_lift``'s and ``ipm_shared``'s plans against the slots their
-    sources read (the build's #defines and the headers'): the lane region
-    [x][obj][u_prev] (``ipm_shared``: [x][obj], the per-lane P [x][obj]
-    [iobj]); ``bilin_lift``'s scratch row [Pr: T][q: n][obj: 1] and its
-    front launch a thread a lane before the solve under the plan's
-    bounds; ``ipm_shared``'s one launch, no scratch, its Hessian one copy
-    a block or, per lane, the lower and strict upper triangles after the
-    work region's M, dx and row vector; one block's shared memory within
-    the limit and, where the plan bounds the blocks an SM, that many
+    """``bilin_lift``'s, ``bilin``'s and ``ipm_shared``'s plans against the
+    slots their sources read (the build's #defines and the headers'): the
+    lane region [x][obj][u_prev] (``ipm_shared``: [x][obj], the per-lane P
+    [x][obj][iobj]); ``bilin_lift``'s and ``bilin``'s scratch row
+    [Pr: T][q: n][obj: 1] and their front launch a thread a lane before
+    the solve under the plan's bounds; ``ipm_shared``'s one launch, no scratch, its Hessian
+    one copy a block or, per lane, the lower and strict upper triangles
+    after the work region's M, dx and row vector; one block's shared memory
+    within the limit and, where the plan bounds the blocks an SM, that many
     blocks' within an SM's 228 KB."""
     cons, plan = plans[build]
     n, mc, T = cons.n, cons.mc, IG.tri_size(cons.n)
     lay = plan.layout
     cfg = plan.config(cons.cols)
-    src = (CSRC / ("bilin_lift.cu" if build == "bilin_lift"
-                   else "ipm_shared.cu")).read_text()
+    src = (CSRC / ((build if build in FRONTED else "ipm_shared")
+                   + ".cu")).read_text()
     defs = dict(KM_N=str(n), KM_MC=str(mc), KM_M=str(plan.m))
     defs.update(re.findall(r"#define (KG_\w+) (\d+)\n", cfg))
     for text in [(CSRC / name).read_text()
@@ -491,7 +498,7 @@ def test_solve_regions(plans, build):
             assert o + w <= o2
         assert slots[-1][0] + slots[-1][1] <= end
     lane = [(at("KG_L_X"), n), (at("KG_L_OBJ"), 1)]
-    if build == "bilin_lift":
+    if build in FRONTED:
         lane.append((at("KG_H_UP"), plan.m))
     elif build in LANE_P:
         lane.append((at("KG_L_IOBJ"), 1))
@@ -502,18 +509,19 @@ def test_solve_regions(plans, build):
     for B in (1, 1007, 65536):
         assert plan.grid(B) * plan.lanes >= B > (plan.grid(B) - 1) \
             * plan.lanes
-    if build == "bilin_lift":
+    if build in FRONTED:
         assert list(plan.scratch) == ["PR", "Q", "OBJ"]
         disjoint([(at("KG_S_PR"), T), (at("KG_S_Q"), n),
                   (at("KG_S_OBJ"), 1)], at("KG_SCRATCH"))
         assert at("KG_SCRATCH") == plan.scratch_floats == T + n + 1
         assert not plan.shared_hessian
         assert at("KG_W_PR") + T <= lay["WSTRIDE"]
-        assert re.search(r"__launch_bounds__\(KG_THREADS\)\s*"
-                         r"bilin_lift_front\(", src)
-        assert "KG_BOUNDS bilin_lift_kernel(" in src
-        assert re.search(r"launch_front_solve<\w+>\(bilin_lift_front,\s*"
-                         r"bilin_lift_kernel,", src)
+        front = build + "_front"
+        assert re.search(r"__launch_bounds__\(KG_THREADS\)\s*" + front
+                         + r"\(", src)
+        assert f"KG_BOUNDS {build}_kernel(" in src
+        assert re.search(r"launch_front_solve<\w+>\(" + front + r",\s*"
+                         + build + "_kernel,", src)
         return
     assert plan.scratch == () and plan.scratch_floats == 0
     assert "#define KG_SCRATCH 0\n" in cfg
@@ -533,12 +541,19 @@ def test_solve_regions(plans, build):
 
 
 def test_solve_configs_carry_the_plan(plans):
-    """``bilin_lift``'s and ``ipm_shared``'s builds define the plan their
-    wrappers launch; the lane-shared and per-lane builds differ in it
-    and in KM_LANE_P."""
+    """``bilin_lift``'s, ``bilin``'s and ``ipm_shared``'s builds define the
+    plan their wrappers launch; the lane-shared and per-lane builds differ
+    in it and in KM_LANE_P; ``bilin``'s plan is ``bilin_lift``'s."""
     lift = step_ops()["step_fused"].qp
     assert plans["bilin_lift"][1].config(lift.cons.cols) in \
         BL.kernel_spec(lift).config
+    model, scaler, _ = load_model()
+    bq = BilinearKmpc(model, scaler, MpcConfig(
+        **{**BENCH_MPC, **BILINEAR_ROUTES["iters2"]}),
+        device="cpu").bilin_qp()
+    assert plans["bilin"][1] == plans["bilin_lift"][1]
+    assert plans["bilin"][1].config(bq.cons.cols) in BI.kernel_spec(bq).config
+    assert BI.launch_plan(bq) == BL.launch_plan(lift)
     for build in ("ipm_shared",) + tuple(LANE_P):
         cons, plan = plans[build]
         spec = IS.kernel_spec(cons, lane_p=build in LANE_P)
