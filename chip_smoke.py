@@ -36,7 +36,13 @@ the first timing of each build counts the device launches of one call
 with ``torch.profiler``, over 10 calls).  Phase P profiles a few steps
 each of the unblocked route and the NMPC multipass route, and both fused
 main paths whole, with ``torch.profiler``: device time by kernel and the
-device's idle share.  It prints the card's name and power limit, one
+device's idle share.  Phase T runs the main path from its first stage:
+the port's trainer (``models/edmd.py:Ksysid``) fits the bilinear, linear
+and nonlinear models on the card from the committed corpus
+(``assets/arm3_corpus.npz``), each stage timed with CUDA events; they are
+held to the same training on the CPU and to the committed assets, saved
+and reloaded, and drive both fused loops at B=262144 and the three
+general runners at B=16 against the JAX references.  It prints the card's name and power limit, one
 JSON line with every kernel's launches, device launches a call, error,
 times and bound, and as the last line
 {"ok": true, "device": {...}}.  Any failed phase raises; without CUDA or
@@ -86,6 +92,12 @@ FULL_ROUTES = ("iters2", "unblocked")
 # the SQP regime whose every pass runs ipm_factored's q0 build (the
 # infeasible-path 'linear' between-pass update); it runs at full width
 LINEAR_REGIME = "linear_update"
+# the recipe of the three model assets (tests/test_torch_oracle.py:
+# train_jax): poly-3, PCA at 99 % (99.99 % for the nonlinear model), f32
+# lift, on the committed corpus (assets/arm3_corpus.npz)
+TRAIN_RECIPE = dict(obs_type=("poly",), obs_degree=(3,), dim_red=True,
+                    dtype="float32")
+PCA_EXPLAINED = {"bilinear": 99.0, "linear": 99.0, "nonlinear": 99.99}
 B_MAIN, B_GENERAL, B_CHECK, STEPS = 262144, 65536, 8192, 301
 # H100 SXM published peaks: f32 outside the tensor cores, HBM3 bandwidth
 PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
@@ -130,6 +142,179 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def phase_training(dev, drive, arm, ref, spread_X0, fused_rate, smi):
+    """Phase T: the main path from the corpus to the closed loop.
+
+    T1 trains the bilinear, linear and nonlinear models at the assets'
+    recipe with ``Ksysid(..., device="cuda")``, twice: first with the
+    caller's TF32 on, then off (the second run's stage times by CUDA
+    events are the steady ones; both runs' one-step predictions must agree
+    within 1e-6, as the trainer runs its f32 matmuls at full precision
+    whatever the caller's setting, where TF32 moves the PCA projection by
+    ~1e-3); T2 trains them with ``device="cpu"`` and holds
+    card against CPU (full lift, PC subspace, one-step predictions); T3
+    holds each card-trained model to its committed asset (NL, meta,
+    scaler, one-step predictions within 1e-5); T4 saves and reloads each
+    (arrays bitwise); T5 drives the fused bilinear and linear loops at
+    B=262144 x 301 (alive 1.0) and the B=16 x 301 general runners of all
+    three (err_mean within 1e-3 of the asset headers' JAX references).
+    Any miss raises."""
+    import numpy as np
+    import torch
+
+    from koopman_realizations_torch.config import MpcConfig, SysidConfig
+    from koopman_realizations_torch.control.kmpc import (
+        BilinearKmpc,
+        LinearKmpc,
+        NonlinearKmpc,
+    )
+    from koopman_realizations_torch.control.ksim import Ksim
+    from koopman_realizations_torch.models.edmd import STAGES, Ksysid
+    from koopman_realizations_torch.ops.kernels._build import BUILD
+    from koopman_realizations_torch.utils.checkpoint import (
+        BENCH_MODEL,
+        LINEAR_MODEL,
+        NONLINEAR_MODEL,
+        load_model,
+        save_model,
+    )
+    from koopman_realizations_torch.utils.data import load_corpus
+    from koopman_realizations_torch.utils.metrics import (
+        lane_tracking_error,
+        one_step_predictions,
+        subspace_angle,
+    )
+
+    assets = {"bilinear": BENCH_MODEL, "linear": LINEAR_MODEL,
+              "nonlinear": NONLINEAR_MODEL}
+    ds = load_corpus()
+    trained = {}
+    for kind in ("bilinear", "linear", "nonlinear"):
+        cfg = SysidConfig(model_type=kind, pca_explained=PCA_EXPLAINED[kind],
+                          **TRAIN_RECIPE)
+        # ---- T1: on the card, twice
+        runs = []
+        for caller in ("high", "highest"):          # TF32 on, then off
+            torch.set_float32_matmul_precision(caller)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ks = Ksysid(ds, cfg, device=dev).train_models()
+            val = ks.validate()
+            torch.cuda.synchronize()
+            runs.append((ks, val, time.perf_counter() - t0, ks.stage_ms()))
+            if torch.get_float32_matmul_precision() != caller:
+                raise AssertionError(f"T1 {kind}: the trainer left the "
+                                     f"caller's matmul precision changed")
+        ks, val, wall, ms = runs[1]
+        lifted = ks.lift_snapshot_matrices()
+        if not (all(t.device.type == "cuda" for t in lifted)
+                and ks.full_lift().is_cuda):
+            raise AssertionError(f"T1 {kind}: a training stage left the card")
+        first = one_step_predictions(runs[0][0].model, ks.valdata, dev)
+        card = one_step_predictions(ks.model, ks.valdata, dev)
+        euclid = [float(v["error"]["euclid_mean"]) for v in val]
+        log(f"T1 {kind} trained on the card: NL {ks.model.meta.NL} "
+            f"(N_full {ks.basis.N_full}, {ks.snapshot_pairs.alpha.shape[0]} "
+            f"pairs); stages (CUDA events, ms) " + ", ".join(
+                f"{k} {ms.get(k, 0.0):.2f}" for k in STAGES)
+            + f"; first run " + ", ".join(
+                f"{k} {runs[0][3].get(k, 0.0):.2f}" for k in STAGES)
+            + f"; wall {wall:.3f} s (first {runs[0][2]:.3f} s); validate "
+            f"euclid_mean {', '.join(f'{e:.6f}' for e in euclid)} | {smi}")
+        d_tf32 = np.abs(first - card).max()
+        log(f"T1 {kind}: one-step predictions of the TF32-on and TF32-off "
+            f"callers' trainings, max abs {d_tf32:.3e}")
+        if not d_tf32 < 1e-6:
+            raise AssertionError(f"T1 {kind}: the trainings with TF32 on "
+                                 f"and off differ")
+        # ---- T2: on the CPU, held against the card
+        cpu = Ksysid(ds, cfg, device="cpu").train_models()
+        fc, fh = ks.full_lift().cpu().double(), cpu.full_lift().double()
+        lift_rel = ((fc - fh).abs() / fh.abs().clamp_min(1e-30)).max().item()
+        same_k = ks.basis.pcs.shape == cpu.basis.pcs.shape
+        angle = subspace_angle(ks.basis.pcs, cpu.basis.pcs) if same_k \
+            else float("inf")
+        d_cpu = np.abs(card - one_step_predictions(cpu.model, cpu.valdata,
+                                                    "cpu")).max()
+        log(f"T2 {kind} card vs CPU: full lift max rel {lift_rel:.3e}, PC "
+            f"subspace largest angle {angle:.3e} rad (k {ks.basis.pcs.shape[1]}"
+            f" / {cpu.basis.pcs.shape[1]}), one-step max abs {d_cpu:.3e}")
+        if not (lift_rel <= 2.4e-7 and angle < 1e-6 and d_cpu < 1e-5):
+            raise AssertionError(f"T2 {kind}: card and CPU trainings part")
+        # ---- T3: against the committed asset
+        am, asc, _ = load_model(assets[kind])
+        scal_ok = all(np.allclose(getattr(ks.scaler, f), getattr(asc, f),
+                                  rtol=1e-12, atol=0)
+                      for f in ("y_factor", "y_offset", "u_factor",
+                                "u_offset"))
+        d_asset = np.abs(card - one_step_predictions(am, ks.valdata,
+                                                     dev)).max()
+        log(f"T3 {kind} card-trained vs asset {assets[kind].name}: NL "
+            f"{ks.model.meta.NL} / {am.meta.NL}, meta equal "
+            f"{ks.model.meta == am.meta}, scaler within 1e-12 {scal_ok}, "
+            f"one-step max abs {d_asset:.3e}")
+        if not (ks.model.meta == am.meta and scal_ok and d_asset < 1e-5):
+            raise AssertionError(f"T3 {kind}: off the committed asset")
+        # ---- T4: save and reload
+        path = save_model(BUILD / "trained" / kind, ks.model, ks.scaler,
+                          overwrite=True)
+        lm, lsc, _ = load_model(path)
+        names = [n for n in ("A", "B", "C", "M", "K", "W")
+                 if getattr(ks.model, n, None) is not None]
+        same = all(np.array_equal(getattr(lm, n), getattr(ks.model, n))
+                   and getattr(lm, n).dtype == getattr(ks.model, n).dtype
+                   for n in names) and np.array_equal(lm.basis.pcs,
+                                                      ks.basis.pcs) \
+            and all(np.array_equal(getattr(lsc, f), getattr(ks.scaler, f))
+                    for f in ("y_factor", "y_offset", "u_factor",
+                              "u_offset")) and lm.meta == ks.model.meta
+        log(f"T4 {kind} save_model -> load_model: {', '.join(names)}, pcs, "
+            f"scaler bitwise {same}")
+        if not same:
+            raise AssertionError(f"T4 {kind}: reloaded model differs")
+        trained[kind] = ks
+        del cpu
+
+    # ---- T5: the closed loop with the card-trained models
+    ctl = {"bilinear": (BilinearKmpc, MPC), "linear": (LinearKmpc, LINEAR_MPC),
+           "nonlinear": (NonlinearKmpc, NMPC_MPC)}
+    sims = {k: Ksim(arm, cls(trained[k].model, trained[k].scaler,
+                             MpcConfig(**cfg), device=dev), device=dev)
+            for k, (cls, cfg) in ctl.items()}
+    XB, WB = spread_X0(B_MAIN), np.zeros((B_MAIN, 2), np.float32)
+    for kind, name in (("bilinear", "step_fused"),
+                       ("linear", "linear_step_fused")):
+        run = sims[kind].fused_runner(ref, steps=STEPS)
+        run(XB[:1024], WB[:1024])                   # warm-up (allocator)
+        out, wall, _ = drive({name: STEPS - 1}, lambda: run(XB, WB))
+        aliveB = out["alive"][:, -1].float().mean().item()
+        eB = lane_tracking_error(out["Yp"], ref)
+        rate = B_MAIN * (STEPS - 1) / wall
+        log(f"T5 {name} on the card-trained {kind} model B={B_MAIN} steps="
+            f"{STEPS}: {wall:.3f} s, {rate:.4e} lane-steps/s (phase 4/L4 on "
+            f"the asset: {fused_rate[name]:.4e}), alive {aliveB:.6f}, "
+            f"err_mean {eB.mean():.6f} | {smi}")
+        if aliveB != 1.0 or not torch.isfinite(eB).all():
+            raise AssertionError(f"T5 {name}: the fused loop lost lanes")
+        del out
+    W16 = np.zeros((16, 2), np.float32)
+    for kind, name in (("bilinear", "bilin_lift"), ("linear", "ipm_shared"),
+                       ("nonlinear", "nmpc_multipass")):
+        jr = load_model(assets[kind])[2]["jax_reference"]
+        o16, w16, _ = drive({name: STEPS - 1}, lambda: sims[kind]
+                            .batched_runner(ref, steps=STEPS)(spread_X0(16),
+                                                              W16))
+        e16 = lane_tracking_error(o16["Yp"], ref)
+        log(f"T5 {kind} general runner ({name}) on the card-trained model "
+            f"B=16: alive {o16['alive'][:, -1].float().mean():.4f} err_mean "
+            f"{e16.mean():.6f} err_worst {e16.max():.6f} (JAX general runner "
+            f"on the asset {jr['err_mean']:.6f} / {jr['err_worst']:.6f}); "
+            f"{w16:.1f} s")
+        if not (bool(o16["alive"].all()) and torch.isfinite(o16["Yp"]).all()
+                and abs(e16.mean().item() - jr["err_mean"]) < 1e-3):
+            raise AssertionError(f"T5 {kind}: quality off the JAX reference")
 
 
 # a __global__ function of the port's CUDA sources
@@ -1289,7 +1474,7 @@ def main() -> int:
 
     # ---- phases 4, L4: the fused main paths at size, B=262144, 301 steps
     XB, WB = spread_X0(B_MAIN), np.zeros((B_MAIN, 2), np.float32)
-    fused_main = {}
+    fused_main, fused_rate = {}, {}
     for name, s in (("step_fused", sim), ("linear_step_fused", lsim)):
         run = s.fused_runner(ref, steps=STEPS)
         run(XB[:1024], WB[:1024])                   # warm-up (allocator)
@@ -1304,6 +1489,7 @@ def main() -> int:
         if aliveB != 1.0 or not torch.isfinite(eB).all():
             raise AssertionError(f"{name} fused main path lost lanes")
         fused_main[name] = counts[name]
+        fused_rate[name] = B_MAIN * (STEPS - 1) / wall
         del out
 
     # ---- phases 5, L5, N5: the general runners at B=65536 (the bilinear
@@ -1817,6 +2003,11 @@ def main() -> int:
         f"{bc_ms:.4f} ms (plain {bc_plain:.2f} ms, bound {bc_bound:.4f} ms "
         f"by {bc_by}, torch.linalg.solve {bc_lib:.4f} ms; n=12 and n=27 "
         f"mean) at B={B_GENERAL}")
+
+    # ---- phase T: train the three models on the card from the committed
+    # corpus, hold them to the CPU's training and to the committed assets,
+    # and close the loop with them through the kernels
+    phase_training(dev, drive, arm, ref, spread_X0, fused_rate, smi)
 
     tpu = "koopman_realizations_tpu/ops/pallas/"
     src = "koopman_realizations_torch/csrc/"

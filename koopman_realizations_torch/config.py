@@ -1,15 +1,58 @@
 """Configuration dataclasses of the port (subset of the JAX package's).
 
-Only the fields that the port's closed loops read are carried over from
-``koopman_realizations_tpu/config.py`` (``MpcConfig`` :61, with the SQP
-fields of :80 and :126-164; ``ArmConfig`` :170); names and defaults are
-the same, so a configuration translates field for field.
+``SysidConfig`` is the JAX package's (``koopman_realizations_tpu/
+config.py:17-58``) field for field, with the same checks; of
+``MpcConfig`` (:61, with the SQP fields of :80 and :126-164) and
+``ArmConfig`` (:170) only the fields that the port's closed loops read are
+carried over.  Names and defaults are the same, so a configuration
+translates field for field.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Sequence, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class SysidConfig:
+    """Knobs of EDMD / Koopman-realization training (Ksysid)."""
+
+    model_type: str = "linear"          # 'linear' | 'bilinear' | 'nonlinear'
+    time_type: str = "discrete"         # 'discrete' | 'continuous'
+    obs_type: Tuple[str, ...] = ("poly",)
+    obs_degree: Tuple[int, ...] = (1,)
+    snapshots: float = math.inf          # number of snapshot pairs (inf = all)
+    lasso: Tuple[float, ...] = (math.inf,)  # inf => plain least squares
+    delays: int = 0
+    loaded: bool = False
+    dim_red: bool = False               # PCA dimension reduction
+    pca_explained: float = 99.0         # dim_red variance threshold in %
+    seed: int = 0                       # PRNG seed (subsampling)
+    dtype: str = "float64"              # dtype of the lift and the models
+    lasso_iters: int = 50000            # FISTA iteration cap (LASSO path)
+    lasso_tol: float = 1e-12            # FISTA convergence stop
+
+    def __post_init__(self):
+        object.__setattr__(self, "obs_type", tuple(self.obs_type))
+        object.__setattr__(self, "obs_degree", tuple(self.obs_degree))
+        if isinstance(self.lasso, (int, float)):
+            object.__setattr__(self, "lasso", (float(self.lasso),))
+        else:
+            object.__setattr__(self, "lasso",
+                               tuple(float(v) for v in self.lasso))
+        if self.model_type not in ("linear", "bilinear", "nonlinear"):
+            raise ValueError(f"invalid model_type {self.model_type!r}")
+        if self.time_type not in ("discrete", "continuous"):
+            raise ValueError(f"invalid time_type {self.time_type!r}")
+        if len(self.obs_type) != len(self.obs_degree):
+            raise ValueError("obs_type and obs_degree must have the same "
+                             "length")
+
+    @property
+    def liftinput(self) -> int:
+        return {"linear": 0, "nonlinear": 1, "bilinear": 2}[self.model_type]
 
 
 @dataclasses.dataclass(frozen=True)

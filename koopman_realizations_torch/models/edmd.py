@@ -1,0 +1,351 @@
+"""EDMD / Koopman-realization training (port of ``models/edmd.py:47-398``
+of the JAX package, reference class ``Ksysid``).
+
+The pipeline mirrors the reference constructor (``Ksysid.m:37-144``):
+dims -> observable dictionary -> merge trials -> fit the [-1,1] scaling ->
+snapshot pairs -> PCA dimension reduction -> least-squares Koopman
+operator per lasso value -> linear / bilinear / nonlinear model ->
+validation rollouts.
+
+Where each stage runs: merging, scaling and snapshot extraction are host
+numpy f64, exactly as in the JAX package.  Lifting, PCA, regression,
+extraction and validation run on ``device`` (the card unless the caller
+asks for the CPU), the lift and the models in ``cfg.dtype``, PCA and the
+regression in f64.  f32 matmuls run at full precision (TF32 off) whatever
+the caller's setting.  The models come back as the port's containers
+holding host numpy in ``cfg.dtype``, which is what the controllers take.
+
+Ported: discrete time, plain least squares (lasso inf), poly bases,
+no loads.  The rest raises ``NotImplementedError`` naming its ROADMAP
+item.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import functools
+import math
+import time
+from typing import List
+
+import numpy as np
+import torch
+
+from koopman_realizations_torch import resolve_device
+from koopman_realizations_torch.config import SysidConfig
+from koopman_realizations_torch.models.koopman import (
+    BilinearModel,
+    LinearModel,
+    ModelMeta,
+    NonlinearModel,
+    rollout,
+)
+from koopman_realizations_torch.ops.linalg import pcs_for_explained
+from koopman_realizations_torch.ops.lstsq import lstsq
+from koopman_realizations_torch.ops.observables import (
+    KoopmanBasis,
+    build_basis,
+    delay_embed,
+)
+from koopman_realizations_torch.ops.scaling import Scaler, fit_scaler
+from koopman_realizations_torch.types import (
+    DataSet,
+    SnapshotPairs,
+    Trial,
+    merge_trials,
+)
+from koopman_realizations_torch.utils.metrics import get_error
+
+STAGES = ("data", "lift", "pca", "regression", "extraction", "validation")
+
+
+def _not_ported(what: str, item: int = 2):
+    raise NotImplementedError(f"{what} is not ported (ROADMAP.md queue 1, "
+                              f"item {item})")
+
+
+def _least_squares(lasso: float) -> bool:
+    """True where the JAX trainer fits by plain least squares."""
+    return lasso >= 1e6 or math.isinf(lasso)
+
+
+def _full_f32(method):
+    """Run ``method`` with f32 matmuls at full precision (no TF32), the
+    caller's setting restored afterwards."""
+    @functools.wraps(method)
+    def wrapper(*args, **kw):
+        prev = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("highest")
+        try:
+            return method(*args, **kw)
+        finally:
+            torch.set_float32_matmul_precision(prev)
+    return wrapper
+
+
+class StageClock:
+    """Time spent in each training stage: CUDA events on a CUDA device
+    (read once, after a synchronize), the host clock elsewhere."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.spans: dict = {}
+
+    @contextlib.contextmanager
+    def __call__(self, stage: str):
+        if self.cuda:
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            yield
+            t1.record()
+            self.spans.setdefault(stage, []).append((t0, t1))
+        else:
+            t0 = time.perf_counter()
+            yield
+            self.spans.setdefault(stage, []).append(
+                (time.perf_counter() - t0) * 1e3)
+
+    def ms(self) -> dict:
+        """{stage: milliseconds} summed over each stage's spans."""
+        if self.cuda:
+            torch.cuda.synchronize()
+            return {k: sum(a.elapsed_time(b) for a, b in v)
+                    for k, v in self.spans.items()}
+        return {k: sum(v) for k, v in self.spans.items()}
+
+
+class Ksysid:
+    """Koopman system identification from trial data, on ``device``."""
+
+    @_full_f32
+    def __init__(self, data: DataSet, cfg: SysidConfig, device="cuda"):
+        if cfg.time_type != "discrete":
+            _not_ported("continuous time (logm_host, zoh_discretize)")
+        if cfg.loaded:
+            _not_ported("training loaded models (nw > 0)")
+        if not all(_least_squares(v) for v in cfg.lasso):
+            _not_ported("the LASSO path (finite lasso)")
+        if data.snapshots is not None:
+            _not_ported("pre-extracted snapshot pairs of a datafile", 10)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = getattr(torch, cfg.dtype)
+        first = data.train[0]
+        self.n, self.m, self.Ts = first.n, first.m, first.Ts
+        self.nd = cfg.delays
+        self.nzeta = self.n * (self.nd + 1) + self.m * self.nd
+        self.isfake = data.isfake
+        self.sys_params = data.params
+        self.clock = StageClock(self.device)
+        self.basis: KoopmanBasis = build_basis(cfg, self.n, self.m)
+
+        # merge + scale (Ksysid.m:119-131) and snapshot pairs (:134)
+        with self.clock("data"):
+            merged = merge_trials(data.train)
+            self.scaler: Scaler = fit_scaler(merged)
+            self.traindata = self.scaler.trial_down(merged)
+            self.valdata = [self.scaler.trial_down(tr) for tr in data.val]
+            self.snapshot_pairs = self.get_snapshot_pairs(self.traindata,
+                                                          cfg.snapshots)
+        self._lifted = None
+
+        # PCA dimension reduction (Ksysid.m:137-142)
+        if cfg.dim_red:
+            with self.clock("lift"):
+                Px_full = self.full_lift()
+            with self.clock("pca"):
+                pcs = pcs_for_explained(Px_full, cfg.pca_explained)
+            self.basis = self.basis.with_pcs(pcs.cpu().numpy())
+
+        self.N = self.basis.N
+        self.candidates: List = []
+        self.model = None
+
+    # ------------------------------------------------------------------ data
+
+    def _on_device(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=self.dtype,
+                               device=self.device)
+
+    def get_snapshot_pairs(self, data: Trial, num: float) -> SnapshotPairs:
+        """Snapshot pairs of merged time series (``Ksysid.m:910-984``),
+        host numpy f64.  Pairs straddling trial boundaries are dropped
+        (before.t < after.t); then ``num_max = P-1`` pairs are sampled
+        without replacement (so with snapshots=inf the last pair is left
+        out, as in the reference), a finite ``num`` by a numpy Generator
+        seeded with ``cfg.seed``."""
+        zeta, uzeta = delay_embed(data.y, data.u, self.nd)
+        t = np.asarray(data.t)
+        good = t[self.nd:-1] < t[self.nd + 1:]
+        alpha = zeta[:-1][good]
+        beta = zeta[1:][good]
+        u = uzeta[:-1][good]
+        num_max = alpha.shape[0] - 1
+        k = num_max if not math.isfinite(num) else min(int(num), num_max)
+        if k < num_max:
+            rng = np.random.default_rng(self.cfg.seed)
+            idx = rng.choice(num_max, size=k, replace=False)
+        else:
+            idx = np.arange(num_max)
+        return SnapshotPairs(alpha=alpha[idx], beta=beta[idx], u=u[idx])
+
+    def _dimred_inputs(self) -> np.ndarray:
+        """Rows fed to the full lift for PCA (``Ksysid.lift_snapshots``)."""
+        sp = self.snapshot_pairs
+        if self.cfg.model_type == "nonlinear":
+            return np.concatenate([sp.alpha, sp.u], axis=1)
+        return np.asarray(sp.alpha)
+
+    @_full_f32
+    def full_lift(self) -> torch.Tensor:
+        """The full (pre-PCA) basis of the PCA's input rows, (K, N_full)
+        in ``cfg.dtype`` on the device."""
+        rows = self._on_device(self._dimred_inputs())
+        return self.basis.lift_full(rows.T).T
+
+    # ------------------------------------------------------ operator fitting
+
+    @_full_f32
+    def lift_snapshot_matrices(self):
+        """The regression matrices (Px, Py), (K, cols) on the device
+        (``Ksysid.m:1013-1065``), memoized:
+        - linear:    [psi(zeta), u]       (N + m columns)
+        - nonlinear: psi([zeta, u])       (N columns)
+        - bilinear:  psi_input(zeta, u)   (N*(m+1) columns)
+        """
+        if self._lifted is not None:
+            return self._lifted
+        with self.clock("lift"):
+            sp, b = self.snapshot_pairs, self.basis
+            alpha = self._on_device(sp.alpha).T
+            beta = self._on_device(sp.beta).T
+            u = self._on_device(sp.u).T
+            mt = self.cfg.model_type
+            if mt == "nonlinear":
+                Px = b.lift(torch.cat([alpha, u]))
+                Py = b.lift(torch.cat([beta, u]))
+            elif mt == "bilinear":
+                Px, Py = b.lift_input(alpha, u), b.lift_input(beta, u)
+            else:
+                Px = torch.cat([b.lift(alpha), u])
+                Py = torch.cat([b.lift(beta), u])
+            self._lifted = (Px.T, Py.T)
+        return self._lifted
+
+    def _lstsq(self, A, B) -> torch.Tensor:
+        """Minimum-norm least squares in f64, cast to ``cfg.dtype``.
+
+        An f32 lift truncates at rcond = f32 eps (the JAX ``_lstsq64``,
+        numpy ``lstsq``'s cutoff): singular directions below the f32 noise
+        floor of the features are noise, and their huge coefficients make
+        rho(A) > 1 once the model is cast to f32.  An f64 lift takes the
+        JAX ``lstsq``'s default cutoff, eps64 * max(shape).
+        """
+        rcond = (None if self.dtype == torch.float64
+                 else float(torch.finfo(torch.float32).eps))
+        return lstsq(A, B, rcond=rcond).to(self.dtype)
+
+    @_full_f32
+    def get_koopman(self, lasso: float) -> dict:
+        """K with Px K ~= Py (``Ksysid.get_Koopman:987-1092``)."""
+        if not _least_squares(lasso):
+            _not_ported("the LASSO path (finite lasso)")
+        Px, Py = self.lift_snapshot_matrices()
+        with self.clock("regression"):
+            K = self._lstsq(Px, Py)
+        return {"K": K, "Px": Px[:, :self.N], "Py": Py[:, :self.N],
+                "u": self._on_device(self.snapshot_pairs.u)}
+
+    # ------------------------------------------------------ model extraction
+
+    def _meta(self) -> ModelMeta:
+        return ModelMeta(
+            model_type=self.cfg.model_type, time_type=self.cfg.time_type,
+            n=self.n, m=self.m, nd=self.nd, nw=0, N=self.N,
+            nzeta=self.nzeta, Ts=self.Ts)
+
+    def _C(self) -> np.ndarray:
+        """y = C z: the first n entries of the lifted state."""
+        return np.eye(self.n, self.N, dtype=np.dtype(self.cfg.dtype))
+
+    @staticmethod
+    def _host(t: torch.Tensor) -> np.ndarray:
+        return t.cpu().numpy()
+
+    @_full_f32
+    def get_model(self, koop) -> LinearModel:
+        """A, B, C with the projection M folded in
+        (``Ksysid.get_model:1179-1235``): M = argmin ||L M^T - Py|| with
+        L_i = (A Px_i + B u_i)^T, then A, B = M A, M B."""
+        K, NL = koop["K"], self.N
+        A, B = K.T[:NL, :NL], K.T[:NL, NL:]
+        L = koop["Px"] @ A.T + koop["u"] @ B.T
+        M = self._lstsq(L, koop["Py"]).T
+        h = self._host
+        return LinearModel(A=h(M @ A), B=h(M @ B), C=self._C(), M=h(M),
+                           K=h(K), meta=self._meta(), basis=self.basis)
+
+    def get_BLmodel(self, koop) -> BilinearModel:
+        """A, B (stored (NL, m, NL): block k multiplies input k), C
+        (``Ksysid.get_BLmodel:1238-1282``)."""
+        K, NL = koop["K"], self.N
+        h = self._host
+        return BilinearModel(A=h(K.T[:NL, :NL]),
+                             B=h(K.T[:NL, NL:].reshape(NL, self.m, NL)),
+                             C=self._C(), K=h(K), meta=self._meta(),
+                             basis=self.basis)
+
+    def get_NLmodel(self, koop) -> NonlinearModel:
+        """The discrete vector field W = K[:, :nzeta], C = I
+        (``Ksysid.get_NLmodel:1298-1341``)."""
+        K = koop["K"]
+        return NonlinearModel(W=self._host(K[:, :self.nzeta]),
+                              C=np.eye(self.n, dtype=np.dtype(self.cfg.dtype)),
+                              K=self._host(K), meta=self._meta(),
+                              basis=self.basis)
+
+    @_full_f32
+    def train_models(self, lasso=None) -> "Ksysid":
+        """One candidate model per lasso value (``Ksysid.m:1344-1389``)."""
+        lasso_vals = self.cfg.lasso if lasso is None else (
+            (lasso,) if np.isscalar(lasso) else tuple(lasso))
+        extract = {"linear": self.get_model, "bilinear": self.get_BLmodel,
+                   "nonlinear": self.get_NLmodel}[self.cfg.model_type]
+        self.candidates = []
+        for lv in lasso_vals:
+            koop = self.get_koopman(float(lv))
+            with self.clock("extraction"):
+                mdl = dataclasses.replace(extract(koop), lasso=float(lv))
+            self.candidates.append(mdl)
+        self.model = self.candidates[0]
+        return self
+
+    # ----------------------------------------------------------- validation
+
+    @_full_f32
+    def val_model(self, model, valtrial: Trial) -> dict:
+        """Open-loop rollout against a held-out trial (``Ksysid.val_*model``,
+        scaled trials of ``self.valdata``): {t, sim: {y, z}, real: {y},
+        error}, the rollout on the device."""
+        zeta, uz = delay_embed(valtrial.y, valtrial.u, self.nd)
+        yreal = np.asarray(valtrial.y)[self.nd:]
+        zeta0 = self._on_device(zeta[:1].T)
+        z0 = zeta0 if isinstance(model, NonlinearModel) \
+            else self.basis.lift(zeta0)
+        Y, Z = rollout(model, z0[:, 0], self._on_device(uz))
+        return {"t": np.asarray(valtrial.t)[self.nd:],
+                "sim": {"y": self._host(Y), "z": self._host(Z)},
+                "real": {"y": yreal},
+                "error": get_error(Y, yreal, scaler=self.scaler)}
+
+    def validate(self, model=None) -> list:
+        """``val_model`` over every validation trial (``valNplot_model``)."""
+        model = model or self.model
+        with self.clock("validation"):
+            return [self.val_model(model, tr) for tr in self.valdata]
+
+    def stage_ms(self) -> dict:
+        """Milliseconds spent in each stage of ``STAGES`` so far."""
+        return self.clock.ms()

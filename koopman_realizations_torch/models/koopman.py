@@ -1,20 +1,23 @@
 """Koopman model containers of the port (``models/koopman.py`` of the JAX
 package): the linear realization z+ = A z + B u and the bilinear one
 z+ = A z + Beta(z) u with Beta(z) = einsum('kmj,j->km', B, z), both with
-y = C z, and the nonlinear one zeta+ = W^T g([zeta; u]).
+y = C z, and the nonlinear one zeta+ = W^T g([zeta; u]); and their
+open-loop rollouts (``rollout``, discrete models without loads).
 
-The port does not train yet: a model arrives as the JAX trainer's arrays
-(``from_jax_arrays``), usually through the ``.npz`` handoff format
-(``utils.checkpoint.load_model``).  Arrays stay host numpy here; the
-controller turns what it needs into device buffers.
+A model comes from the port's trainer (``models.edmd.Ksysid``) or from
+the JAX trainer's arrays (``from_jax_arrays``), both usually through the
+``.npz`` handoff format (``utils.checkpoint``).  Arrays stay host numpy
+here; the controller turns what it needs into device buffers.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import numpy as np
+import torch
 
 from koopman_realizations_torch.ops.observables import KoopmanBasis
 from koopman_realizations_torch.ops.scaling import Scaler
@@ -48,6 +51,9 @@ class LinearModel:
     C: Any
     meta: ModelMeta
     basis: KoopmanBasis
+    M: Any = None            # (NL, NL) projection (Ksysid.m:1205-1217)
+    K: Any = None            # the Koopman operator the model came from
+    lasso: float = math.inf
 
     @property
     def dtype(self) -> np.dtype:
@@ -63,6 +69,8 @@ class BilinearModel:
     C: Any
     meta: ModelMeta
     basis: KoopmanBasis
+    K: Any = None
+    lasso: float = math.inf
 
     @property
     def dtype(self) -> np.dtype:
@@ -78,6 +86,8 @@ class NonlinearModel:
     C: Any
     meta: ModelMeta
     basis: KoopmanBasis
+    K: Any = None
+    lasso: float = math.inf
 
     @property
     def dtype(self) -> np.dtype:
@@ -93,9 +103,10 @@ def from_jax_arrays(header: dict, arrays: dict):
     the JAX package's parameters.
 
     ``header`` has the ``meta`` and ``basis`` entries of the JAX
-    ``save_model`` header; ``arrays`` maps names to numpy arrays: the
-    model's own (A, B, C, or W and C for the nonlinear model), pcs (when
-    the basis has one) and ``scaler_<field>`` entries.
+    ``save_model`` header (and its ``lasso``, inf where absent);
+    ``arrays`` maps names to numpy arrays: the model's own (A, B, C, or W
+    and C for the nonlinear model; M and K where present), pcs (when the
+    basis has one) and ``scaler_<field>`` entries.
     """
     meta = ModelMeta(**header["meta"])
     if meta.model_type not in MODEL_CLASSES or meta.time_type != "discrete":
@@ -108,11 +119,57 @@ def from_jax_arrays(header: dict, arrays: dict):
         nw=b["nw"], families=tuple(tuple(f) for f in b["families"]),
         pcs=np.asarray(arrays["pcs"]) if "pcs" in arrays else None)
     cls = MODEL_CLASSES[meta.model_type]
-    model = cls(meta=meta, basis=basis, **{
-        f.name: np.asarray(arrays[f.name]) for f in dataclasses.fields(cls)
-        if f.name not in ("meta", "basis")})
+    model = cls(meta=meta, basis=basis,
+                lasso=float(header.get("lasso", math.inf)), **{
+                    f.name: np.asarray(arrays[f.name])
+                    for f in dataclasses.fields(cls) if f.name in arrays})
     fields = [f.name for f in dataclasses.fields(Scaler)]
     skw = {f: np.asarray(arrays["scaler_" + f]) for f in fields
            if "scaler_" + f in arrays}
     scaler = Scaler(**skw) if skw else None
     return model, scaler
+
+
+def rollout(model, init: torch.Tensor, U: torch.Tensor):
+    """Open-loop rollout of a discrete model without loads (JAX
+    ``models/koopman.py:208-314``): from ``init`` -- the lifted state
+    (NL,), or zeta (nzeta,) for the nonlinear model -- over the inputs U
+    (T, m), in init's dtype on its device.  Returns (Y [T, n], Z [T, NL]):
+    Y = Z C^T, or zeta's first n entries for the nonlinear model."""
+    meta = model.meta
+    if meta.time_type != "discrete" or meta.nw:
+        raise NotImplementedError(
+            "rollout is ported for discrete models without loads "
+            "(ROADMAP.md queue 1, item 2)")
+    like = dict(dtype=init.dtype, device=init.device)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), **like)
+    U = U.to(**like)
+    NL = init.shape[0]
+    if isinstance(model, LinearModel):
+        A, B = t(model.A), t(model.B)
+
+        def step(z, u):
+            return A @ z + B @ u
+    elif isinstance(model, BilinearModel):
+        A, Bs = t(model.A), t(model.B).reshape(NL * meta.m, NL)
+
+        def step(z, u):
+            return A @ z + (Bs @ z).reshape(NL, meta.m) @ u
+    elif isinstance(model, NonlinearModel):
+        Wt = t(model.W).T
+
+        def step(z, u):
+            return Wt @ model.basis.lift(torch.cat([z, u]))
+    else:
+        raise TypeError(f"unknown model type {type(model)}")
+    Z = init.new_empty((U.shape[0], NL))
+    Z[0] = init
+    z = init[:, None]
+    for k in range(U.shape[0] - 1):
+        z = step(z, U[k][:, None])
+        Z[k + 1] = z[:, 0]
+    if isinstance(model, NonlinearModel):
+        return Z[:, :meta.n], Z
+    return Z @ t(model.C).T, Z

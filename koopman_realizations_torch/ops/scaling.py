@@ -1,9 +1,11 @@
-"""Affine [-1,1] data scaling (port of ``ops/scaling.py:Scaler``).
+"""Affine [-1,1] data scaling (port of ``ops/scaling.py`` of the JAX
+package: ``Scaler``, ``fit_scaler``).
 
 scaledown: (v - offset) / factor ; scaleup: v * factor + offset, over the
 LAST axis as in the JAX package.  Works on numpy arrays and on torch
 tensors (the factors follow the tensor's dtype and device); lanes-minor
-callers pass ``axis=0``.
+callers pass ``axis=0``.  Fitting and whole-trial scaling are host numpy
+f64, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from koopman_realizations_torch.types import Trial
 
 
 def _coef(v, c, axis: int):
@@ -69,3 +73,42 @@ class Scaler:
         idx = list(proj_idx)
         return _up(ref, np.asarray(self.y_factor)[idx],
                    np.asarray(self.y_offset)[idx], axis)
+
+    def trial_down(self, tr: Trial) -> Trial:
+        """A trial in scaled space, host numpy f64 (x and w only where
+        both the trial and the scaler have them)."""
+        def f(v, fac, off):
+            return (np.asarray(v) - np.asarray(off)) / np.asarray(fac)
+        return Trial(
+            t=tr.t,
+            y=f(tr.y, self.y_factor, self.y_offset),
+            u=f(tr.u, self.u_factor, self.u_offset),
+            x=None if (tr.x is None or self.x_factor is None)
+            else f(tr.x, self.x_factor, self.x_offset),
+            w=None if (tr.w is None or self.w_factor is None)
+            else f(tr.w, self.w_factor, self.w_offset))
+
+
+def _fit_range(v: np.ndarray):
+    vmin, vmax = v.min(axis=0), v.max(axis=0)
+    offset = (vmax + vmin) / 2.0
+    factor = (vmax - vmin) / 2.0
+    return np.where(factor == 0.0, 1.0, factor), offset
+
+
+def fit_scaler(train: Trial) -> Scaler:
+    """The scaler of merged training data (``Ksysid.get_scale:180-285``):
+    zero-range dimensions keep factor 1 (``Ksysid.m:198-204``); constant
+    load dimensions are only shifted (``Ksysid.m:251-260``)."""
+    yf, yo = _fit_range(np.asarray(train.y))
+    uf, uo = _fit_range(np.asarray(train.u))
+    kw = dict(y_factor=yf, y_offset=yo, u_factor=uf, u_offset=uo)
+    if train.x is not None:
+        xf, xo = _fit_range(np.asarray(train.x))
+        kw.update(x_factor=xf, x_offset=xo)
+    if train.w is not None:
+        w = np.asarray(train.w)
+        wmin, wmax = w.min(axis=0), w.max(axis=0)
+        kw.update(w_factor=np.where(wmin == wmax, 1.0, (wmax - wmin) / 2.0),
+                  w_offset=(wmax + wmin) / 2.0)
+    return Scaler(**kw)

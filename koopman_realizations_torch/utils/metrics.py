@@ -1,8 +1,80 @@
-"""Closed-loop tracking error of the port's runners."""
+"""Error metrics of the port: the validation error struct (``get_error``,
+``utils/metrics.py:8-29`` of the JAX package), what two trainings are
+compared by (one-step predictions, the PC subspace angle), and the
+closed-loop tracking error of the runners."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def get_error(ysim: torch.Tensor, yreal, scaler=None) -> dict:
+    """Error struct between simulated and real outputs in scaled space
+    (``Ksysid.get_error:1882-1898``): abs, mean, rmse, nrmse, euclid,
+    euclid_mean, and unscaled.euclid(_mean) with a scaler.  Tensors on
+    ysim's device, in the wider of the two dtypes."""
+    yreal = torch.as_tensor(np.asarray(yreal), device=ysim.device)
+    dt = torch.promote_types(ysim.dtype, yreal.dtype)
+    ysim, yreal = ysim.to(dt), yreal.to(dt)
+    T = yreal.shape[0]
+    d = ysim - yreal
+    err = {"abs": d.abs()}
+    err["mean"] = err["abs"].mean(dim=0)
+    err["rmse"] = torch.sqrt((d ** 2).sum(dim=0) / T)
+    err["nrmse"] = err["rmse"] / (yreal.max(dim=0).values
+                                  - yreal.min(dim=0).values).abs()
+    err["euclid"] = torch.sqrt((d ** 2).sum(dim=1))
+    err["euclid_mean"] = err["euclid"].sum() / T
+    if scaler is not None:
+        du = scaler.y_up(ysim) - scaler.y_up(yreal)
+        eu = torch.sqrt((du ** 2).sum(dim=1))
+        err["unscaled"] = {"euclid": eu, "euclid_mean": eu.sum() / T}
+    return err
+
+
+def one_step_predictions(model, trials, device="cpu") -> np.ndarray:
+    """Scaled one-step output predictions of a discrete model without
+    delays or loads over every step of ``trials`` (scaled trials): C (A z +
+    B u) (linear), C (A z + Beta(z) u) (bilinear), (W^T g([zeta; u]))[:n]
+    (nonlinear), z the lift of y.  Invariant to the signs of the PCA
+    components, so two trainings compare by it.  f64 on ``device``;
+    returns (steps, n) host numpy."""
+    dev = torch.device(device)
+    meta = model.meta
+    if meta.nd or meta.nw:
+        raise NotImplementedError("one-step predictions without delays or "
+                                  "loads only")
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float64,
+                               device=dev)
+    basis = model.basis
+    out = []
+    for tr in trials:
+        y, u = t(tr.y)[:-1].T, t(tr.u)[:-1].T                 # (n|m, T-1)
+        if meta.model_type == "nonlinear":
+            out.append((t(model.W).T @ basis.lift(torch.cat([y, u]))
+                        )[:meta.n])
+            continue
+        z = basis.lift(y)
+        if meta.model_type == "linear":
+            z1 = t(model.A) @ z + t(model.B) @ u
+        else:
+            z1 = t(model.A) @ z + torch.einsum("kmj,jt,mt->kt",
+                                               t(model.B), z, u)
+        out.append(t(model.C) @ z1)
+    return torch.cat(out, dim=1).T.cpu().numpy()
+
+
+def subspace_angle(P, Q) -> float:
+    """Largest principal angle (rad) between the column spans of P and Q,
+    each with orthonormal columns (two trainings' PCA components, sign-
+    and rotation-blind): arcsin of the 2-norm of P's part outside span Q.
+    Host numpy f64."""
+    P, Q = np.asarray(P, np.float64), np.asarray(Q, np.float64)
+    r = np.linalg.norm(P - Q @ (Q.T @ P), 2)
+    return float(np.arcsin(min(r, 1.0)))
 
 
 def lane_tracking_error(Yp: torch.Tensor, ref_y) -> torch.Tensor:

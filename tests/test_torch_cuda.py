@@ -1340,3 +1340,50 @@ def test_nonfinite_zeta_lane_not_ok(gpu, bad):
                            getattr(c, f)[..., 500]), f
         assert torch.equal(getattr(steps[0], f)[..., keep],
                            getattr(steps[1], f)[..., keep]), f
+
+
+# ---- the trainer (models/edmd.py) on the card against the CPU
+
+
+@pytest.fixture(scope="module")
+def corpus():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from koopman_realizations_torch.utils.data import load_corpus
+    return load_corpus()
+
+
+@pytest.mark.parametrize("kind", ["bilinear", "linear", "nonlinear"])
+def test_ksysid_card_matches_cpu(corpus, kind):
+    """The assets' recipe trained on the card and on the CPU, the caller's
+    TF32 on: the lift stays on the card and the caller's setting is
+    restored; the full f32 lift within f32 rtol (the same IEEE products),
+    the PC subspaces within 1e-6 rad, the one-step predictions within 1e-5
+    (the asset retrain's bound)."""
+    from koopman_realizations_torch.config import SysidConfig
+    from koopman_realizations_torch.models.edmd import Ksysid
+    from koopman_realizations_torch.utils.metrics import (
+        one_step_predictions,
+        subspace_angle,
+    )
+    cfg = SysidConfig(model_type=kind, obs_type=("poly",), obs_degree=(3,),
+                      dim_red=True, dtype="float32",
+                      pca_explained=99.99 if kind == "nonlinear" else 99.0)
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        card = Ksysid(corpus, cfg, device="cuda").train_models()
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    cpu = Ksysid(corpus, cfg, device="cpu").train_models()
+    assert all(t.is_cuda for t in card.lift_snapshot_matrices())
+    torch.testing.assert_close(card.full_lift().cpu(), cpu.full_lift(),
+                               rtol=2.4e-7, atol=0)
+    assert card.N == cpu.N
+    assert subspace_angle(card.basis.pcs, cpu.basis.pcs) < 1e-6
+    p_card = one_step_predictions(card.model, card.valdata, "cuda")
+    p_cpu = one_step_predictions(cpu.model, cpu.valdata, "cpu")
+    assert np.abs(p_card - p_cpu).max() < 1e-5
+    e = [float(v["error"]["euclid_mean"]) for v in card.validate()]
+    assert sum(map(np.isfinite, e)) == (3 if kind == "nonlinear" else 5)

@@ -23,6 +23,12 @@ error at B=16 over 301 steps in its header, so the GPU smoke run can gate
 on it without JAX.  ``--write-asset nonlinear`` leaves the other two
 files as they are.
 
+The corpus itself is committed too, for the port's trainer (which runs
+without JAX): ``python tests/test_torch_oracle.py --write-corpus`` writes
+the generator's f64 ``t``, ``y`` and ``u`` of every train and validation
+trial to ``assets/arm3_corpus.npz`` (``x`` and ``w`` are left out: no
+model reads them), read back by the port's ``utils/data.py:load_corpus``.
+
 The linear controller runs ``qp_iters=6`` with cold duals.  The JAX
 package's "verified linear floor" of 3 iterations
 (``ops/pallas/step_fused.py:201,244``, ``tests/test_step_fused.py:98``)
@@ -68,6 +74,7 @@ ASSETS = ROOT / "koopman_realizations_torch" / "assets"
 ASSET = ASSETS / "arm3_bilinear_poly3.npz"
 LINEAR_ASSET = ASSETS / "arm3_linear_poly3.npz"
 NONLINEAR_ASSET = ASSETS / "arm3_nonlinear_poly3.npz"
+CORPUS_ASSET = ASSETS / "arm3_corpus.npz"
 
 # the bench controller (bench.py:95-105 at its defaults)
 BENCH_MPC = dict(
@@ -267,6 +274,26 @@ def generate_corpus():
     from examples.generate_arm_data import generate
     return generate(CORPUS["trials"], CORPUS["tf"], n_val=CORPUS["n_val"],
                     seed=CORPUS["seed"])
+
+
+def write_corpus(path: Path = CORPUS_ASSET) -> dict:
+    """Write the generated corpus's f64 t, y, u of every trial to ``path``
+    (see module doc); returns its header."""
+    ds = generate_corpus()
+    header = {
+        "recipe": "examples/generate_arm_data.py:generate"
+                  "(15, 60.0, n_val=5, seed=0), JAX x64 session on the CPU",
+        "written_by": "python tests/test_torch_oracle.py --write-corpus",
+        "fields": "t [T], y [T, n], u [T, m] of each trial, f64 (x and w "
+                  "left out)",
+        "split": {"train": len(ds.train), "val": len(ds.val)},
+        "params": ds.params}
+    arrays = {f"{split}{i}_{f}": np.asarray(getattr(tr, f), np.float64)
+              for split in ("train", "val")
+              for i, tr in enumerate(getattr(ds, split))
+              for f in ("t", "y", "u")}
+    np.savez(path, header=json.dumps(header), **arrays)
+    return header
 
 
 def train_jax(ds, kind: str = "bilinear"):
@@ -505,6 +532,24 @@ def test_linear_asset_provenance_retrain():
     assert np.abs(p_new - p_asset).max() < 1e-5
 
 
+
+def test_corpus_asset_matches_generator():
+    """The committed corpus the port trains on is the generator's: t, y
+    and u of every train and validation trial bitwise, the same split and
+    params."""
+    from koopman_realizations_torch.utils.data import CORPUS, load_corpus
+    assert CORPUS == CORPUS_ASSET
+    ds, committed = generate_corpus(), load_corpus(CORPUS)
+    assert committed.params == ds.params
+    for split in ("train", "val"):
+        gen, com = getattr(ds, split), getattr(committed, split)
+        assert len(com) == len(gen)
+        for tg, tc in zip(gen, com):
+            for f in ("t", "y", "u"):
+                np.testing.assert_array_equal(getattr(tc, f),
+                                              np.asarray(getattr(tg, f)))
+                assert getattr(tc, f).dtype == np.float64
+
 if __name__ == "__main__":
     import argparse
 
@@ -513,6 +558,9 @@ if __name__ == "__main__":
                     metavar="KIND",
                     help="retrain and rewrite the committed model assets of "
                          "these kinds (all of them when none is named)")
+    ap.add_argument("--write-corpus", action="store_true",
+                    help="write the generated corpus's t, y, u to "
+                         "assets/arm3_corpus.npz")
     ap.add_argument("--write-regime-refs", action="store_true",
                     help="record the JAX general runner's quality in every "
                          "SQP regime of NMPC_REGIMES (nmpc_regime_refs.json)")
@@ -521,10 +569,13 @@ if __name__ == "__main__":
                          "bilinear configuration of BILINEAR_ROUTES "
                          "(bilinear_route_refs.json)")
     args = ap.parse_args()
-    if args.write_asset is None and not (args.write_regime_refs
+    if args.write_asset is None and not (args.write_corpus
+                                         or args.write_regime_refs
                                          or args.write_bilinear_refs):
-        ap.error("nothing to do (pass --write-asset, --write-regime-refs "
-                 "or --write-bilinear-refs)")
+        ap.error("nothing to do (pass --write-asset, --write-corpus, "
+                 "--write-regime-refs or --write-bilinear-refs)")
+    if args.write_corpus:
+        print(json.dumps(write_corpus(), indent=1))
     if args.write_asset is not None:
         print(json.dumps(write_assets(tuple(args.write_asset)
                                       or tuple(MODELS)), indent=1))
