@@ -42,10 +42,15 @@ and nonlinear models on the card from the committed corpus
 (``assets/arm3_corpus.npz``), each stage timed with CUDA events; they are
 held to the same training on the CPU and to the committed assets, saved
 and reloaded, and drive both fused loops at B=262144 and the three
-general runners at B=16 against the JAX references.  It prints the card's name and power limit, one
-JSON line with every kernel's launches, device launches a call, error,
-times and bound, and as the last line
-{"ok": true, "device": {...}}.  Any failed phase raises; without CUDA or
+general runners at B=16 against the JAX references.  Phase LS trains a
+lasso sweep's candidates on the card (FISTA) and runs them as lanes of
+one closed loop through the per-lane-P ``ipm_shared`` build beside the
+JAX trainer's candidates, against ``assets/lasso_sweep_refs.json``;
+phase RS simulates and sweeps the random-system ensemble (460 fits) on
+the card and the CPU against ``assets/rand_models_refs.json``.  It
+prints the card's name and power limit, one JSON line with every
+kernel's launches, device launches a call, error, times and bound, and
+as the last line {"ok": true, "device": {...}}.  Any failed phase raises; without CUDA or
 outside a checkout it exits non-zero and prints no result.
 """
 
@@ -56,6 +61,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 from typing import Optional
 
@@ -98,6 +104,35 @@ LINEAR_REGIME = "linear_update"
 TRAIN_RECIPE = dict(obs_type=("poly",), obs_degree=(3,), dim_red=True,
                     dtype="float32")
 PCA_EXPLAINED = {"bilinear": 99.0, "linear": 99.0, "nonlinear": 99.99}
+# the closed-loop lasso sweep (phase LS; tests/test_torch_oracle.py:
+# LASSO_SWEEP, whose JAX quality per candidate is in
+# assets/lasso_sweep_refs.json): the bilinear asset recipe at six lasso
+# values with the trainer's default FISTA cap and tol, then JAX
+# tests/test_lasso_sweep.py's controller (unblocked, 12 iterations: n=27,
+# mc=108) and plant (SDIRK2, 5 substeps, 3 Newton iterations, a Jacobian
+# each substep) over 301 blockM steps
+LASSO_SWEEP = dict(
+    lasso=(2.0, 4.0, 8.0, 16.0, 32.0, float("inf")),
+    lasso_iters=50000, lasso_tol=1e-12, steps=301,
+    arm=dict(Nmods=3, nlinks=1, L=1.0, m=0.1, output_type="markers",
+             substeps=5),
+    mpc=dict(horizon=10, input_bounds=(-7 * 3.141592653589793 / 8,
+                                       7 * 3.141592653589793 / 8),
+             input_slopeConst=1e-1, cost_running=10.0, cost_terminal=100.0,
+             cost_input=(3e-3, 2e-3, 1e-3), proj_idx=(4, 5)))
+LASSO_REFS = ROOT / "koopman_realizations_torch" / "assets" / \
+    "lasso_sweep_refs.json"
+# the JAX trainer's six candidates behind those references
+LASSO_CANDIDATES = LASSO_REFS.with_name("lasso_sweep_candidates.npz")
+# the random-system sweep at the reference's scale (phase RS;
+# tests/test_torch_oracle.py:RAND_MODELS, assets/rand_models_refs.json):
+# 20 systems of 10 training trials and 1 validation trial, 460 fits
+RAND_MODELS = dict(
+    seed=0, num_sys=20, num_terms=5, degree_x=3, degree_u=1, t_end=25.0,
+    Ts=0.05, num_trials=11, max_degree_linear=13, max_degree_bilinear=6,
+    max_degree_nonlinear=4, nonlinear_lasso=4.0, lasso_iters=500)
+RAND_REFS = ROOT / "koopman_realizations_torch" / "assets" / \
+    "rand_models_refs.json"
 B_MAIN, B_GENERAL, B_CHECK, STEPS = 262144, 65536, 8192, 301
 # H100 SXM published peaks: f32 outside the tensor cores, HBM3 bandwidth
 PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
@@ -315,6 +350,387 @@ def phase_training(dev, drive, arm, ref, spread_X0, fused_rate, smi):
         if not (bool(o16["alive"].all()) and torch.isfinite(o16["Yp"]).all()
                 and abs(e16.mean().item() - jr["err_mean"]) < 1e-3):
             raise AssertionError(f"T5 {kind}: quality off the JAX reference")
+
+
+def jax_lasso_candidates(basis, scaler) -> list:
+    """The JAX trainer's lasso candidates (``LASSO_CANDIDATES``) as the
+    port's ``BilinearModel``s in ``basis``: each model's lifted state
+    re-signed to ``basis``'s PCA components (z' = S z, A' = S A S, each
+    input block of B likewise), so they share its lift.  The file's
+    scaler must be ``scaler`` (rtol 1e-12)."""
+    import dataclasses
+
+    import numpy as np
+
+    from koopman_realizations_torch.models.koopman import from_jax_arrays
+
+    data = np.load(LASSO_CANDIDATES)
+    header = json.loads(str(data["header"]))
+    shared = {k: data[k] for k in data.files
+              if k != "header" and not k.startswith(("A_", "B_"))}
+    out = []
+    for i, lv in enumerate(header["lasso"]):
+        m, sc = from_jax_arrays(dict(header, lasso=lv),
+                                dict(shared, A=data[f"A_{i}"],
+                                     B=data[f"B_{i}"]))
+        if not all(np.allclose(getattr(sc, f), getattr(scaler, f),
+                               rtol=1e-12, atol=0)
+                   for f in ("y_factor", "y_offset", "u_factor",
+                             "u_offset")):
+            raise AssertionError("the JAX candidates' scaler is not the "
+                                 "card training's")
+        s = np.sign(np.sum(basis.pcs * m.basis.pcs, axis=0))
+        S = np.concatenate([np.ones(basis.nzeta_aug), s, np.ones(1)]) \
+            .astype(m.A.dtype)
+        out.append(dataclasses.replace(
+            m, A=S[:, None] * m.A * S[None],
+            B=S[:, None, None] * m.B * S[None, None], basis=basis))
+    return out
+
+
+def phase_lasso_sweep(dev, drive, check_qp, kernel_ms, smi) -> dict:
+    """Phase LS: a lasso sweep from the committed corpus to the closed
+    loop.
+
+    LS1 trains the bilinear asset recipe at ``LASSO_SWEEP``'s six lasso
+    values on the card (FISTA in f64, the trainer's default cap and tol)
+    and logs each candidate's iterations, FISTA time (CUDA events), final
+    objective and free L1 norm against its budget (gate: within
+    budget * (1 + 1e-12)).  LS2 fits the smallest budget to convergence
+    on the card and on the CPU (gate: objectives within 1e-9 relative;
+    max |dK| logged) and runs 2000 fixed iterations of lasso 8 on both
+    (gate: objectives within 1e-5 relative, beside the CPU's own run on Px
+    moved by one ulp).  LS3 runs ``lasso_sweep_closed_loop`` over 301
+    blockM steps on twelve lanes: the six card-trained candidates and the
+    JAX trainer's six behind the references (``jax_lasso_candidates``),
+    one per-lane-P ``ipm_shared`` launch a step.  Gates, on every lane:
+    the alive flag at the last step the JAX reference's (x64; where every
+    JAX f32 run of the candidate keeps that flag); the card-trained
+    unregularized candidate alive; where both are alive, err_mean within
+    1e-3 of the JAX x64 value for a candidate that is ``f32_stable`` in
+    the references (every JAX f32 run of it, as trained and with A moved
+    by one ulp, within 1e-3 of x64), else within 1e-3 of the band of those
+    runs (its loop amplifies f32 rounding, and the card runs f32).
+    LS4 holds the kernel to its plain version and
+    f64 on the sweep's own QPs (the lanes alive after their step) as phase
+    Q2 does, and times it on one step's QPs.  Returns the sweep's
+    ``ipm_shared`` launches, max |dx|, ms, plain ms and bound."""
+    import numpy as np
+    import torch
+
+    from koopman_realizations_torch.config import (
+        ArmConfig,
+        MpcConfig,
+        SysidConfig,
+    )
+    from koopman_realizations_torch.control.kmpc import BilinearKmpc
+    from koopman_realizations_torch.models.arm import Arm
+    from koopman_realizations_torch.models.edmd import STAGES, Ksysid
+    from koopman_realizations_torch.ops.kernels import ipm_shared as IS
+    from koopman_realizations_torch.ops.lasso import lasso_fista_f64
+    from koopman_realizations_torch.utils.data import load_corpus
+    from koopman_realizations_torch.utils.metrics import (
+        one_step_predictions,
+    )
+    from koopman_realizations_torch.utils.trajectories import (
+        blockM_reference,
+    )
+    from koopman_realizations_torch.workflows.lasso_sweep import (
+        lasso_sweep_closed_loop,
+    )
+
+    r = LASSO_SWEEP
+    refs = json.loads(LASSO_REFS.read_text())["candidates"]
+    cfg = SysidConfig(model_type="bilinear",
+                      pca_explained=PCA_EXPLAINED["bilinear"],
+                      lasso=r["lasso"], lasso_iters=r["lasso_iters"],
+                      lasso_tol=r["lasso_tol"], **TRAIN_RECIPE)
+    # ---- LS1: the candidates, trained on the card
+    ds = load_corpus()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ks, _, _ = drive({}, lambda: Ksysid(ds, cfg, device=dev).train_models())
+    wall = time.perf_counter() - t0
+    ms = ks.stage_ms()
+    log(f"LS1 bilinear lasso candidates trained on the card: NL {ks.N}, "
+        f"{ks.lift_snapshot_matrices()[0].shape[1]} regression columns; "
+        f"stages (CUDA events, ms) " + ", ".join(
+            f"{k} {ms.get(k, 0.0):.2f}" for k in STAGES)
+        + f"; wall {wall:.3f} s | {smi}")
+    for lv in r["lasso"]:
+        if not np.isfinite(lv):
+            continue
+        st = ks.lasso_stats[lv]
+        log(f"LS1 lasso {lv:g}: {st['iters']} FISTA iterations (cap "
+            f"{r['lasso_iters']}, tol {r['lasso_tol']:g}), {st['ms']:.2f} ms "
+            f"(CUDA events, {st['ms'] / st['iters'] * 1e3:.1f} us an "
+            f"iteration), objective {st['objective']:.12e}, free L1 "
+            f"{st['free_l1']:.12f} of budget {st['budget']:g}")
+        if not st["free_l1"] <= st["budget"] * (1 + 1e-12):
+            raise AssertionError(f"LS1 lasso {lv:g}: the L1 budget is "
+                                 f"exceeded")
+    # ---- LS2: the converged fit of the smallest budget on the card and
+    # the CPU (1e-9), and 2000 fixed iterations of lasso 8 on both (1e-5:
+    # that far short of convergence the objective on this Gram moves by
+    # ~1e-6 relative under a one-ulp change of Px, and the CPU's own run on
+    # Px so moved is logged beside the card's)
+    Px, Py = ks.lift_snapshot_matrices()
+    X, Y = Px.cpu().double(), Py.cpu().double()
+    obj = lambda K: float(((X @ K.cpu() - Y) ** 2).sum())
+    lv = min(v for v in r["lasso"] if np.isfinite(v))
+    fit = lambda A, B: lasso_fista_f64(A, B, lv * ks.N,
+                                       iters=r["lasso_iters"],
+                                       tol=r["lasso_tol"])
+    rc, rh = fit(Px, Py), fit(X, Y)
+    oc, oh = obj(rc.K), obj(rh.K)
+    rel = abs(oc - oh) / oh
+    log(f"LS2 lasso {lv:g} converged: card {rc.iters} iterations, "
+        f"objective {oc:.15e}; CPU {rh.iters} iterations, {oh:.15e}; "
+        f"relative {rel:.3e}; max|dK| "
+        f"{(rc.K.cpu() - rh.K).abs().max().item():.3e} (max |K| "
+        f"{rh.K.abs().max().item():.3e}; not gated)")
+    fixed = lambda A: obj(lasso_fista_f64(A, Y.to(A.device), 8.0 * ks.N,
+                                          iters=2000).K)
+    sign = torch.randint(0, 2, X.shape, dtype=torch.float64,
+                         generator=torch.Generator().manual_seed(0)) * 2 - 1
+    k8c, k8h = fixed(Px), fixed(X)
+    k8u = fixed(X * (1.0 + 2.0 ** -52 * sign))
+    rel8 = abs(k8c - k8h) / k8h
+    log(f"LS2 lasso 8, 2000 fixed iterations: objective card {k8c:.15e}, "
+        f"CPU {k8h:.15e}, relative {rel8:.3e}; the CPU on Px moved by one "
+        f"ulp relative {abs(k8u - k8h) / k8h:.3e}")
+    if not (rel <= 1e-9 and rel8 <= 1e-5):
+        raise AssertionError("LS2: card and CPU FISTA objectives part")
+    # ---- LS3: every candidate a lane of one closed loop, the card's six
+    # and the JAX trainer's six (the references' own models, re-signed to
+    # the card's basis) in one batch of twelve
+    steps = r["steps"]
+    arm = Arm(ArmConfig(**r["arm"]), device=dev)
+    mcfg = MpcConfig(**r["mpc"])
+    jcands = jax_lasso_candidates(ks.basis, ks.scaler)
+    C = len(ks.candidates)
+    both = types.SimpleNamespace(candidates=ks.candidates + jcands,
+                                 scaler=ks.scaler)
+    rec = []             # each step's P, q, b, x0 and lanes alive after it
+    hook = lambda qp, sol, alive: rec.append(
+        (qp[0], qp[1], qp[3], qp[5], alive))
+    out, wall, counts = drive(
+        {"ipm_shared": steps - 1},
+        lambda: lasso_sweep_closed_loop(both, arm, mcfg, blockM_reference(),
+                                        steps=steps, device=dev,
+                                        qp_hook=hook))
+    err, alive = out["err"], out["alive"]
+    ok = True
+    for i, lv in enumerate(r["lasso"]):
+        jr = refs[str(lv)]
+        # the JAX f32 runs of the candidate (as trained and with A moved by
+        # one ulp): where one parts from the x64 run by more than 1e-3, the
+        # loop amplifies f32 rounding and is held to their band
+        same_alive = all(a == jr["alive"] for a, _ in jr["f32_runs"])
+        lo, hi = jr["f32_band"]
+        if jr["f32_stable"]:
+            near = lambda e: abs(e - jr["err_mean"]) < 1e-3
+        else:
+            near = lambda e: lo - 1e-3 < e < hi + 1e-3
+        # the two trainings' models apart in scaled one-step prediction
+        d = float(np.abs(one_step_predictions(ks.candidates[i], ks.valdata,
+                                              dev)
+                         - one_step_predictions(jcands[i], ks.valdata,
+                                                dev)).max())
+        lanes = ((i, "card-trained"), (C + i, "JAX-trained"))
+        log(f"LS3 lasso {lv:g}: " + "; ".join(
+            f"{who} alive {bool(alive[k, -1])} err_mean "
+            f"{float(err[k].mean()):.6f} err_worst {float(err[k].max()):.6f}"
+            for k, who in lanes)
+            + f" (JAX x64 {jr['alive']} {jr['err_mean']:.6f} / "
+              f"{jr['err_worst']:.6f}; JAX f32 runs {lo:.6f} to {hi:.6f}"
+            + ("" if jr["f32_stable"] else ": the loop amplifies f32 "
+               "rounding, err_mean held to that band +- 1e-3")
+            + f"); one-step distance of the two trainings' models {d:.3e}")
+        for k, who in lanes:
+            ok &= (not same_alive) or bool(alive[k, -1]) == jr["alive"]
+            if alive[k, -1] and jr["alive"]:
+                ok &= near(float(err[k].mean()))
+    log(f"LS3 sweep of {len(both.candidates)} candidates x {steps} steps: "
+        f"{wall:.3f} s (CUDA events), {counts['ipm_shared']} ipm_shared "
+        f"launches | {smi}")
+    if not (ok and bool(alive[r["lasso"].index(float("inf")), -1])):
+        raise AssertionError("LS3: the sweep is off the JAX reference")
+    # ---- LS4: the kernel on the sweep's own QPs
+    cons, cons64 = (BilinearKmpc(ks.candidates[0], ks.scaler, mcfg,
+                                 device=dev, dtype=dt).constraints()
+                    for dt in (torch.float32, torch.float64))
+
+    def args(c, P, q, b, iters, x0):
+        """ipm_shared's per-lane-P arguments as solve_qp_shared forms
+        them: q scaled by iobj = 1 / max |P|, b by the row scale, the
+        warm slack floor, cold duals."""
+        iobj = 1.0 / P.abs().amax((0, 1)).clamp_min(1e-8)
+        return (c, P.contiguous(), (q * iobj).contiguous(),
+                (b / c.row[:, None]).contiguous(), x0.contiguous(), iters,
+                1e-2, iobj.contiguous(), None)
+
+    P, q, b, x0 = (torch.cat([st[i][..., st[4]] for st in rec], dim=-1)
+                   for i in range(4))
+    iters = mcfg.qp_iters
+    a32 = args(cons, P, q, b, iters, x0)
+    a64 = args(cons64, P.double(), q.double(), b.double(), iters,
+               x0.double())
+    dx = check_qp("ipm_shared (per-lane P)",
+                  (IS.ipm_shared_cuda, IS.ipm_shared_plain), a32, a64, cons,
+                  a32[3], f"(lasso sweep, n=27, mc=108) warm, "
+                          f"{P.shape[-1]} live QPs of {len(rec)} steps")[0]
+    mid = rec[len(rec) // 2]
+    a6 = args(cons, *mid[:3], iters, mid[3])
+    B = a6[1].shape[-1]
+    n, mc = cons.n, cons.mc
+    flops = (n * n + n + 4 * mc + mehrotra_ops(cons, iters, n * n)) * B
+    k_ms = kernel_ms("ipm_shared", lambda: IS.ipm_shared_cuda(*a6), reps=20,
+                     build=f"per-lane P n=27 at B={B}")
+    p_ms = cuda_ms(lambda: IS.ipm_shared_plain(*a6), reps=3, warmup=1)
+    b_ms, by = bound(flops, nbytes(*a6[1:5], a6[7]) + 4 * B * (n + 2 * mc)
+                     + nbytes(cons.A, cons.Wd, cons.Wo))
+    log(f"LS4 ipm_shared per-lane P at the sweep's B={B}: {k_ms:.4f} ms "
+        f"(plain {p_ms:.2f} ms, bound {b_ms:.5f} ms by {by}); "
+        f"{counts['ipm_shared']} launches x {k_ms:.4f} ms are "
+        f"{100 * counts['ipm_shared'] * k_ms / 1e3 / wall:.1f} % of the "
+        f"sweep's {wall:.3f} s; the rest is the lift, the per-lane "
+        f"assembly and Gram, the plain plant and glue | {smi}")
+    return {"launches": counts["ipm_shared"], "err": dx, "ms": k_ms,
+            "plain": p_ms, "bound": b_ms, "by": by}
+
+
+def gram_conds(datasets, r) -> tuple:
+    """The condition number of the ridged Gram matrix that
+    ``evaluate_rand_models`` solves for each system at each degree of the
+    two least-squares families ({family: (degrees, S)}), f64 on the CPU
+    (``workflows/rand_models.py:_fit_and_val``'s pairs, rows and ridge),
+    and the number of snapshot pairs each Gram sums."""
+    import numpy as np
+    import torch
+
+    from koopman_realizations_torch.ops.lstsq import ridge_for_dtype
+    from koopman_realizations_torch.workflows import rand_models as RM
+
+    Ytr, Utr, _, _ = RM._stack_ensemble(datasets)
+    y_fac, y_off, u_fac, u_off = RM._scale_params(Ytr, Utr)
+    Y = torch.from_numpy((Ytr - y_off[:, None, None]) / y_fac[:, None, None])
+    U = torch.from_numpy((Utr - u_off[:, None, None]) / u_fac[:, None, None])
+    S = Y.shape[0]
+    a = Y[:, :, :-1].reshape(S, -1)[:, :-1]
+    u = U[:, :, :-1].reshape(S, -1)[:, :-1]
+    out = {}
+    for fam in ("linear", "bilinear"):
+        conds = []
+        for d in range(1, r[f"max_degree_{fam}"] + 1):
+            Px = RM._rows(a, u, d, fam)
+            G = Px.mT @ Px
+            n = G.shape[-1]
+            scale = torch.clamp(torch.diagonal(G, dim1=-2, dim2=-1).sum(-1)
+                                / n, min=1.0)
+            ridge = ridge_for_dtype(G.dtype) * scale[:, None, None]
+            conds.append(torch.linalg.cond(
+                G + ridge * torch.eye(n, dtype=G.dtype)).numpy())
+        out[fam] = np.stack(conds)
+    return out, a.shape[1]
+
+
+def phase_rand_models(dev, smi):
+    """Phase RS: the random-system sweep at the reference's scale.
+
+    ``RAND_MODELS``'s ensemble drawn from its seed, simulated (one batched
+    RK4 over 20 x 11 lanes, 500 samples of 8 substeps) and swept
+    (``evaluate_rand_models`` at degrees 13 / 6 / 4, the nonlinear family
+    by 500 FISTA iterations at lasso 4: 460 fits) on the card and on the
+    CPU, both f64, each timed.  Gates: trajectories within rtol 1e-10;
+    each family's kept mask equal and every kept error within atol 1e-9
+    and an rtol of 1e-6, or, where f64 fixes a least-squares fit less
+    closely than that, of its ridged Gram's condition number
+    (``gram_conds``) times the Gram's typical rounding sqrt(pairs) * eps
+    (the highest linear degrees reach cond ~2e10; the farthest three fits
+    of every family are logged); the card's medians within rtol 1e-6 of the
+    JAX references (``assets/rand_models_refs.json``) and its kept counts
+    equal."""
+    import numpy as np
+    import torch
+
+    from koopman_realizations_torch.models.rsys import (
+        construct_systems,
+        simulate_systems,
+    )
+    from koopman_realizations_torch.workflows import evaluate_rand_models
+
+    r = RAND_MODELS
+    refs = json.loads(RAND_REFS.read_text())["families"]
+    runs = {}
+    for d in (dev, "cpu"):
+        rng = np.random.default_rng(r["seed"])
+        ens = construct_systems(r["num_sys"], r["num_terms"], r["degree_x"],
+                                r["degree_u"], rng)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ds = simulate_systems(ens, r["t_end"], r["Ts"], r["num_trials"],
+                              rng, device=d)
+        t1 = time.perf_counter()
+        res = evaluate_rand_models(
+            ds, r["max_degree_linear"], r["max_degree_bilinear"],
+            r["max_degree_nonlinear"], r["nonlinear_lasso"],
+            r["lasso_iters"], device=d)
+        torch.cuda.synchronize()
+        runs[str(d)] = (ds, res, t1 - t0, time.perf_counter() - t1)
+    (dc, rc, sc, ec), (dh, rh, sh, eh) = runs[str(dev)], runs["cpu"]
+    y = lambda dss: np.stack([tr.y[:, 0] for d_ in dss
+                              for tr in d_.train + d_.val])
+    traj = float(np.max(np.abs(y(dc) - y(dh)) / np.abs(y(dh)).clip(1e-300)))
+    log(f"RS ensemble of {r['num_sys']} systems x {r['num_trials']} trials "
+        f"(t_end {r['t_end']:g}, Ts {r['Ts']:g}): simulation {sc:.3f} s on "
+        f"the card, {sh:.3f} s on the CPU; sweep (460 fits) {ec:.3f} s on "
+        f"the card, {eh:.3f} s on the CPU; trajectories card vs CPU max "
+        f"rel {traj:.3e} | {smi}")
+    ok = traj <= 1e-10
+    conds, pairs = gram_conds(dh, r)
+    # each kept fit's rtol: 1e-6, or where f64 fixes a least-squares fit
+    # less closely, its ridged Gram's condition number times the Gram's
+    # typical rounding sqrt(pairs) * eps (in the run that set this rule,
+    # the card and the CPU parted by a quarter of that at most: 1.5e-6 at
+    # cond 3.9e8, 6.8e-6 at cond 2.2e9)
+    fix = np.sqrt(pairs) * np.finfo(np.float64).eps
+    for fam in ("linear", "bilinear", "nonlinear"):
+        c, h, j = rc[fam], rh[fam], refs[fam]
+        keep = lambda e: np.all(np.isfinite(e), 0) & np.all(e < 10, 0)
+        kc, kh = keep(c["err"]), keep(h["err"])
+        same = bool(np.array_equal(kc, kh))
+        rel = np.abs(c["err"] - h["err"]) / np.abs(h["err"])
+        rtol = np.maximum(1e-6, conds[fam] * fix) if fam in conds \
+            else np.full_like(rel, 1e-6)
+        held = np.broadcast_to(kc[None], rel.shape)
+        wide = held & (rtol > 1e-6)
+        d_med = float(np.max(np.abs(c["median"] - np.asarray(j["median"]))
+                             / np.abs(np.asarray(j["median"]))))
+        log(f"RS {fam}: kept {c['kept']} (CPU {h['kept']}, JAX "
+            f"{j['kept']}), masks equal {same}; medians "
+            + " ".join(f"{v:.6f}" for v in c["median"])
+            + f"; kept errors card vs CPU max rel {rel[held].max():.3e} over "
+            f"{int(held.sum())} fits, at most {(rel / rtol)[held].max():.3f}"
+            f" of each fit's rtol"
+            + (f" ({int(wide.sum())} fits whose Gram has cond * sqrt({pairs})"
+               f" * eps > 1e-6, cond up to {conds[fam].max():.2e}: max rel "
+               f"{rel[wide].max():.3e}, rtol up to {rtol[wide].max():.3e})"
+               if wide.any() else "")
+            + "; the farthest: " + ", ".join(
+                f"degree {d + 1} system {q} {rel[d, q]:.2e}" + (
+                    f" (cond {conds[fam][d, q]:.1e})" if fam in conds
+                    else "")
+                for d, q in zip(*np.unravel_index(
+                    np.argsort(np.where(held, rel, 0.0), axis=None)[-3:],
+                    rel.shape)))
+            + f"; medians vs JAX max rel {d_med:.3e}")
+        ok &= same and c["kept"] == j["kept"] and d_med <= 1e-6
+        ok &= bool(np.all(np.abs(c["err"] - h["err"])[held]
+                          <= 1e-9 + rtol[held] * np.abs(h["err"])[held]))
+    if not ok:
+        raise AssertionError("RS: the random-system sweep is off the CPU "
+                             "or the JAX reference")
 
 
 # a __global__ function of the port's CUDA sources
@@ -2009,6 +2425,12 @@ def main() -> int:
     # and close the loop with them through the kernels
     phase_training(dev, drive, arm, ref, spread_X0, fused_rate, smi)
 
+    # ---- phases LS, RS: the lasso sweep from the corpus to the closed
+    # loop (its per-lane-P ipm_shared launches join row 4's main path),
+    # and the random-system sweep at the reference's scale
+    ls = phase_lasso_sweep(dev, drive, check_qp, kernel_ms, smi)
+    phase_rand_models(dev, smi)
+
     tpu = "koopman_realizations_tpu/ops/pallas/"
     src = "koopman_realizations_torch/csrc/"
     rows = [("step_fused", "step_fused.py:90", fused_main["step_fused"],
@@ -2019,7 +2441,8 @@ def main() -> int:
              fused_main["linear_step_fused"], ls_err, ls_ms, ls_plain,
              ls_bound, ls_by),
             ("ipm_shared", "qp_ipm.py:299",
-             general_main["ipm_shared"] + lane_main, max(is_err, is_lane_err),
+             general_main["ipm_shared"] + lane_main + ls["launches"],
+             max(is_err, is_lane_err, ls["err"]),
              is_ms, is_plain, is_bound, is_by),
             ("nmpc_multipass", "qp_ipm.py:1422",
              general_main["nmpc_multipass"], nm_err, nm_ms, nm_plain,
@@ -2045,6 +2468,12 @@ def main() -> int:
                 "library_ms": bc_lib if name == "batch_chol" else None,
                 "device_launches_per_call": launches_per_call(name)}
                for name, tpu_at, launches, err, ms, plain, bms, by in rows]
+    # ipm_shared's ms, plain_ms and bound_ms stay those of its launches at
+    # B=65536; the lasso sweep's launches at B = its lanes, counted in
+    # its launches, are timed on their own
+    next(k for k in kernels if k["name"] == "ipm_shared")["lasso_sweep"] = {
+        "launches": ls["launches"], "ms": ls["ms"], "plain_ms": ls["plain"],
+        "bound_ms": ls["bound"], "bound_by": ls["by"]}
     log("device launches a wrapper call (torch.profiler, each build's "
         "first timing): " + ", ".join(
             f"{k} {v}" for k, v in dev_launches.items()))

@@ -15,9 +15,10 @@ regression in f64.  f32 matmuls run at full precision (TF32 off) whatever
 the caller's setting.  The models come back as the port's containers
 holding host numpy in ``cfg.dtype``, which is what the controllers take.
 
-Ported: discrete time, plain least squares (lasso inf), poly bases,
-no loads.  The rest raises ``NotImplementedError`` naming its ROADMAP
-item.
+Ported: discrete time, plain least squares (lasso inf) and the LASSO
+path (finite lasso: FISTA in f64 on the device, ``ops/lasso.py``, with
+the delay pin mask), poly bases, no loads.  The rest raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -26,8 +27,7 @@ import contextlib
 import dataclasses
 import functools
 import math
-import time
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -41,6 +41,7 @@ from koopman_realizations_torch.models.koopman import (
     NonlinearModel,
     rollout,
 )
+from koopman_realizations_torch.ops.lasso import lasso_fista_f64
 from koopman_realizations_torch.ops.linalg import pcs_for_explained
 from koopman_realizations_torch.ops.lstsq import lstsq
 from koopman_realizations_torch.ops.observables import (
@@ -56,6 +57,7 @@ from koopman_realizations_torch.types import (
     merge_trials,
 )
 from koopman_realizations_torch.utils.metrics import get_error
+from koopman_realizations_torch.utils.timing import DeviceClock
 
 STAGES = ("data", "lift", "pca", "regression", "extraction", "validation")
 
@@ -85,35 +87,23 @@ def _full_f32(method):
 
 
 class StageClock:
-    """Time spent in each training stage: CUDA events on a CUDA device
-    (read once, after a synchronize), the host clock elsewhere."""
+    """Time spent in each training stage (``DeviceClock`` marks, read
+    once at the end)."""
 
     def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
+        self.clock = DeviceClock(device)
         self.spans: dict = {}
 
     @contextlib.contextmanager
     def __call__(self, stage: str):
-        if self.cuda:
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            yield
-            t1.record()
-            self.spans.setdefault(stage, []).append((t0, t1))
-        else:
-            t0 = time.perf_counter()
-            yield
-            self.spans.setdefault(stage, []).append(
-                (time.perf_counter() - t0) * 1e3)
+        start = self.clock.mark()
+        yield
+        self.spans.setdefault(stage, []).append((start, self.clock.mark()))
 
     def ms(self) -> dict:
         """{stage: milliseconds} summed over each stage's spans."""
-        if self.cuda:
-            torch.cuda.synchronize()
-            return {k: sum(a.elapsed_time(b) for a, b in v)
-                    for k, v in self.spans.items()}
-        return {k: sum(v) for k, v in self.spans.items()}
+        return {k: sum(self.clock.ms(a, b) for a, b in v)
+                for k, v in self.spans.items()}
 
 
 class Ksysid:
@@ -125,8 +115,6 @@ class Ksysid:
             _not_ported("continuous time (logm_host, zoh_discretize)")
         if cfg.loaded:
             _not_ported("training loaded models (nw > 0)")
-        if not all(_least_squares(v) for v in cfg.lasso):
-            _not_ported("the LASSO path (finite lasso)")
         if data.snapshots is not None:
             _not_ported("pre-extracted snapshot pairs of a datafile", 10)
         self.cfg = cfg
@@ -162,6 +150,9 @@ class Ksysid:
         self.N = self.basis.N
         self.candidates: List = []
         self.model = None
+        # lasso value -> each finite-lasso fit's FISTA iterations,
+        # objective, milliseconds to its stop, budget and free L1 norm
+        self.lasso_stats: dict = {}
 
     # ------------------------------------------------------------------ data
 
@@ -247,16 +238,76 @@ class Ksysid:
                  else float(torch.finfo(torch.float32).eps))
         return lstsq(A, B, rcond=rcond).to(self.dtype)
 
+    def _delay_pin_mask(self, Nm: int) -> Optional[np.ndarray]:
+        """Entries of K pinned to 1 by the delay structure
+        (``Ksysid.solve_KoopmanQP:1139-1164``, JAX ``edmd.py:221-244``):
+        K[:, j] predicts basis entry j at the next step, and delayed
+        entries are exact copies of current ones, so those columns are
+        unit vectors.  Linear models with delays only."""
+        if self.cfg.model_type != "linear" or self.nd < 1:
+            return None
+        n, m, nd, NL = self.n, self.m, self.nd, self.N
+        mask = np.zeros((Nm, Nm), bool)
+        for j in range(1, nd + 1):          # y-delay blocks
+            dst = n * j + np.arange(n)
+            src = n * (j - 1) + np.arange(n)
+            mask[src, dst] = True
+        for j in range(1, nd + 1):          # u-delay blocks
+            dst = n * (nd + 1) + m * (j - 1) + np.arange(m)
+            if j == 1:
+                src = NL + np.arange(m)     # current input columns of Px
+            else:
+                src = n * (nd + 1) + m * (j - 2) + np.arange(m)
+            mask[src, dst] = True
+        return mask
+
+    def _koop(self, K) -> dict:
+        Px, Py = self.lift_snapshot_matrices()
+        return {"K": K, "Px": Px[:, :self.N], "Py": Py[:, :self.N],
+                "u": self._on_device(self.snapshot_pairs.u)}
+
     @_full_f32
     def get_koopman(self, lasso: float) -> dict:
-        """K with Px K ~= Py (``Ksysid.get_Koopman:987-1092``)."""
+        """K with Px K ~= Py (``Ksysid.get_Koopman:987-1092``): least
+        squares, or for a finite lasso the L1-constrained fit
+        (``lasso_koopmans``)."""
         if not _least_squares(lasso):
-            _not_ported("the LASSO path (finite lasso)")
+            return self.lasso_koopmans((lasso,))[lasso]
         Px, Py = self.lift_snapshot_matrices()
         with self.clock("regression"):
             K = self._lstsq(Px, Py)
-        return {"K": K, "Px": Px[:, :self.N], "Py": Py[:, :self.N],
-                "u": self._on_device(self.snapshot_pairs.u)}
+        return self._koop(K)
+
+    @_full_f32
+    def lasso_koopmans(self, values) -> dict:
+        """lasso -> the ``get_koopman`` dict of each finite value: the
+        L1-constrained fit of budget lasso * N (``Ksysid.m:994-999``) by
+        FISTA in f64 on the device, capped at ``cfg.lasso_iters`` and
+        stopped by ``cfg.lasso_tol``, every value one fit of a single
+        batched run on the memoized lift, each stopped on its own (the
+        JAX trainer fits them one after another, each by the same
+        steps).  Records ``lasso_stats``."""
+        Px, Py = self.lift_snapshot_matrices()
+        pin = self._delay_pin_mask(Px.shape[1])
+        t = [lv * self.N for lv in values]
+        with self.clock("regression"):
+            res = lasso_fista_f64(Px, Py, t, pin_mask=pin,
+                                  iters=self.cfg.lasso_iters,
+                                  tol=self.cfg.lasso_tol)
+        pinned = 0.0 if pin is None else float(pin.sum())
+        free = res.K if pin is None else torch.where(
+            torch.as_tensor(pin, device=res.K.device),
+            torch.zeros_like(res.K), res.K)
+        l1 = free.abs().sum((-2, -1)).cpu().numpy()
+        out = {}
+        for i, lv in enumerate(values):
+            self.lasso_stats[lv] = {
+                "iters": int(res.iters[i]),
+                "objective": float(res.objective[i]),
+                "ms": float(res.ms[i]), "budget": t[i] - pinned,
+                "free_l1": float(l1[i])}
+            out[lv] = self._koop(res.K[i].to(self.dtype))
+        return out
 
     # ------------------------------------------------------ model extraction
 
@@ -308,16 +359,23 @@ class Ksysid:
 
     @_full_f32
     def train_models(self, lasso=None) -> "Ksysid":
-        """One candidate model per lasso value (``Ksysid.m:1344-1389``)."""
+        """One candidate model per lasso value (``Ksysid.m:1344-1389``),
+        every candidate on the one memoized lift, the finite values in
+        one batched FISTA run (``lasso_koopmans``)."""
         lasso_vals = self.cfg.lasso if lasso is None else (
             (lasso,) if np.isscalar(lasso) else tuple(lasso))
         extract = {"linear": self.get_model, "bilinear": self.get_BLmodel,
                    "nonlinear": self.get_NLmodel}[self.cfg.model_type]
+        finite = [float(v) for v in lasso_vals
+                  if not _least_squares(float(v))]
+        koops = self.lasso_koopmans(tuple(dict.fromkeys(finite))) \
+            if finite else {}
         self.candidates = []
         for lv in lasso_vals:
-            koop = self.get_koopman(float(lv))
+            lv = float(lv)
+            koop = koops[lv] if lv in koops else self.get_koopman(lv)
             with self.clock("extraction"):
-                mdl = dataclasses.replace(extract(koop), lasso=float(lv))
+                mdl = dataclasses.replace(extract(koop), lasso=lv)
             self.candidates.append(mdl)
         self.model = self.candidates[0]
         return self

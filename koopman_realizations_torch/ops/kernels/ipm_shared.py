@@ -12,9 +12,10 @@ dense-objective modes, reached through ``solve_qp_shared_batched``
   the banded A^T D A, cold duals;
 - per-lane P (``shared_P=False``, the ``KM_LANE_P`` build), when the
   Hessian is batched with the rows lane-shared (the port's entry is
-  ``ops/qp.py:solve_qp``): each lane's P (n, n) scaled in-kernel by its
-  objective scale 1 / max |P|, the banded or dense A^T D A, cold or warm
-  duals.
+  ``ops/qp.py:solve_qp``, which the closed-loop lasso sweep calls,
+  ``workflows/lasso_sweep.py``): each lane's P (n, n) scaled in-kernel
+  by its objective scale 1 / max |P|, the banded or dense A^T D A, cold
+  or warm duals.
 
 Both take lane-shared row-equilibrated constraints and per-lane gradient,
 right-hand side and primal start.  The kernel is compute-bound on the card

@@ -1387,3 +1387,149 @@ def test_ksysid_card_matches_cpu(corpus, kind):
     assert np.abs(p_card - p_cpu).max() < 1e-5
     e = [float(v["error"]["euclid_mean"]) for v in card.validate()]
     assert sum(map(np.isfinite, e)) == (3 if kind == "nonlinear" else 5)
+
+
+# ---- the LASSO path, the random-system sweep and the lasso sweep on the
+# card against the CPU
+
+
+def _fista_obj(Px, Py, K):
+    return float(((Px.double() @ K.double() - Py.double()) ** 2).sum())
+
+
+def test_batched_fista_card_matches_cpu(gpu):
+    """The fixed-iteration FISTA batched over 20 systems (the random
+    sweep's nonlinear family at degree 4: 15 columns) and the trainer's
+    f64 route with ``tol`` on one 40-column system: each system's
+    objective on the card within 1e-9 relative of the CPU's."""
+    from koopman_realizations_torch.ops.lasso import (
+        lasso_constrained_lstsq,
+        lasso_fista_f64,
+    )
+    g = torch.Generator().manual_seed(0)
+    Px = torch.randn(20, 2000, 15, generator=g, dtype=torch.float64)
+    Py = Px @ torch.randn(20, 15, 15, generator=g, dtype=torch.float64) \
+        + 0.1 * torch.randn(20, 2000, 15, generator=g, dtype=torch.float64)
+    t = torch.full((20,), 60.0, dtype=torch.float64)
+    kc = lasso_constrained_lstsq(Px.cuda(), Py.cuda(), t.cuda(),
+                                 iters=500).cpu()
+    kh = lasso_constrained_lstsq(Px, Py, t, iters=500)
+    for s in range(20):
+        oc, oh = _fista_obj(Px[s], Py[s], kc[s]), _fista_obj(Px[s], Py[s],
+                                                             kh[s])
+        assert abs(oc - oh) <= 1e-9 * oh, (s, oc, oh)
+    A = torch.randn(3000, 40, generator=g, dtype=torch.float64)
+    B = torch.randn(3000, 40, generator=g, dtype=torch.float64)
+    rc = lasso_fista_f64(A.cuda(), B.cuda(), 5.0, iters=20000, tol=1e-12)
+    rh = lasso_fista_f64(A, B, 5.0, iters=20000, tol=1e-12)
+    assert abs(rc.objective - rh.objective) <= 1e-9 * rh.objective
+    assert abs(rc.iters - rh.iters) <= 100
+
+
+def test_rsys_card_matches_cpu(gpu):
+    """A small ensemble simulated on the card and on the CPU (f64):
+    trajectories within rtol 1e-10; ``_fit_and_val`` of each family at
+    degrees 1-3 within rtol 1e-6, atol 1e-9."""
+    from koopman_realizations_torch.models.rsys import (
+        construct_systems,
+        simulate_systems,
+    )
+    from koopman_realizations_torch.workflows import rand_models as RM
+    runs = {}
+    for d in ("cuda", "cpu"):
+        rng = np.random.default_rng(3)
+        ens = construct_systems(4, 5, 3, 1, rng)
+        runs[d] = simulate_systems(ens, 25.0, 0.05, 4, rng, device=d)
+    for dc, dh in zip(runs["cuda"], runs["cpu"]):
+        for tc, th in zip(dc.train + dc.val, dh.train + dh.val):
+            np.testing.assert_allclose(tc.y, th.y, rtol=1e-10, atol=1e-13)
+    Ytr, Utr, Yval, Uval = RM._stack_ensemble(runs["cpu"])
+    yf, yo, uf, uo = RM._scale_params(Ytr, Utr)
+    host = [torch.from_numpy(a) for a in (
+        (Ytr - yo[:, None, None]) / yf[:, None, None],
+        (Utr - uo[:, None, None]) / uf[:, None, None],
+        (Yval - yo[:, None]) / yf[:, None], (Uval - uo[:, None]) / uf[:, None])]
+    for family in ("linear", "bilinear", "nonlinear"):
+        lasso = 4.0 if family == "nonlinear" else np.inf
+        for degree in (1, 2, 3):
+            ec = RM._fit_and_val(*[a.cuda() for a in host], degree=degree,
+                                 family=family, lasso=lasso,
+                                 lasso_iters=300).cpu().numpy()
+            eh = RM._fit_and_val(*host, degree=degree, family=family,
+                                 lasso=lasso, lasso_iters=300).numpy()
+            np.testing.assert_allclose(ec, eh, rtol=1e-6, atol=1e-9)
+
+
+# tests/test_torch_lasso_sweep.py: JAX tests/test_lasso_sweep.py:17-25
+SWEEP_ARM = dict(Nmods=3, nlinks=1, L=1.0, m=0.1, output_type="markers",
+                 substeps=5)
+SWEEP_MPC = dict(horizon=10, input_bounds=(-7 * np.pi / 8, 7 * np.pi / 8),
+                 input_slopeConst=1e-1, cost_running=10.0,
+                 cost_terminal=100.0, cost_input=(3e-3, 2e-3, 1e-3),
+                 proj_idx=(4, 5))
+
+
+@pytest.fixture(scope="module")
+def sweep_ks(corpus):
+    """The bilinear asset recipe at lasso (8, inf), 300 FISTA iterations,
+    trained on the card."""
+    from koopman_realizations_torch.config import SysidConfig
+    from koopman_realizations_torch.models.edmd import Ksysid
+    return Ksysid(corpus, SysidConfig(
+        model_type="bilinear", obs_type=("poly",), obs_degree=(3,),
+        dim_red=True, dtype="float32", lasso=(8.0, float("inf")),
+        lasso_iters=300), device="cuda").train_models()
+
+
+def _sweep(ks, device, dtype, steps=30, hook=None):
+    from koopman_realizations_torch.workflows.lasso_sweep import (
+        lasso_sweep_closed_loop,
+    )
+    return lasso_sweep_closed_loop(
+        ks, Arm(ArmConfig(**SWEEP_ARM), device=device),
+        MpcConfig(**SWEEP_MPC), blockM_reference(), steps=steps,
+        device=device, dtype=dtype, qp_hook=hook)
+
+
+def test_lasso_sweep_card_matches_cpu(sweep_ks):
+    """2 candidates x 30 steps: the card's f32 loop through the per-lane-P
+    kernel (one launch a step) against the CPU's f64 loop: alive equal,
+    each candidate's err_mean within gate 2's 1e-3."""
+    IS.ipm_shared_cuda.launches = 0
+    card = _sweep(sweep_ks, "cuda", torch.float32)
+    assert IS.ipm_shared_cuda.launches == 29
+    cpu = _sweep(sweep_ks, "cpu", torch.float64)
+    np.testing.assert_array_equal(card["alive"], cpu["alive"])
+    assert card["alive"][:, -1].all()
+    assert np.abs(card["err"].mean(1) - cpu["err"].mean(1)).max() < 1e-3
+
+
+def test_lasso_sweep_qps_kernel_matches_plain(sweep_ks):
+    """The sweep's own per-lane QPs (n=27, mc=108, 12 iterations, warm
+    primal, cold duals; 30 steps of both candidates): the per-lane-P
+    kernel against plain f32, both against plain f64, through
+    ``solve_qp_shared``'s equilibration."""
+    rec = []
+    _sweep(sweep_ks, "cuda", torch.float32,
+           hook=lambda qp, sol, alive: rec.append(qp))
+    cons = rec[0][2]
+    cons64 = BilinearKmpc(sweep_ks.candidates[0], sweep_ks.scaler,
+                          MpcConfig(**SWEEP_MPC), device="cuda",
+                          dtype=torch.float64).constraints()
+    P, q, b, x0 = (torch.cat([r[i] for r in rec], dim=-1)
+                   for i in (0, 1, 3, 5))
+    out = {}
+    for dt, c in ((torch.float32, cons), (torch.float64, cons64)):
+        P_, q_, b_, x_ = (t.to(dt) for t in (P, q, b, x0))
+        iobj = 1.0 / P_.abs().amax((0, 1))
+        out[dt] = (c, P_.contiguous(), (q_ * iobj).contiguous(),
+                   (b_ / c.row[:, None]).contiguous(), x_.contiguous(), 12,
+                   1e-2, iobj.contiguous(), None)
+    a32 = out[torch.float32]
+    xk, sk, lk = IS.ipm_shared_cuda(*a32)
+    torch.cuda.synchronize()
+    xp, sp, lp = IS.ipm_shared_plain(*a32)
+    x64 = IS.ipm_shared_plain(*out[torch.float64])[0]
+    b = a32[3]
+    _hold_to_f64(xk, xp, x64, ok_mask(cons, b, xk, sk, lk, 3e-3, 5e-2)[0],
+                 ok_mask(cons, b, xp, sp, lp, 3e-3, 5e-2)[0])

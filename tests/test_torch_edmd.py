@@ -374,7 +374,6 @@ def test_save_model_reads_back_in_both_packages(kind, tmp_path):
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(lasso=(10.0,)), 2),
     (dict(time_type="continuous"), 2),
     (dict(loaded=True), 2),
     (dict(obs_type=("fourier",)), 2),

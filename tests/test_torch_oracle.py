@@ -29,6 +29,16 @@ the generator's f64 ``t``, ``y`` and ``u`` of every train and validation
 trial to ``assets/arm3_corpus.npz`` (``x`` and ``w`` are left out: no
 model reads them), read back by the port's ``utils/data.py:load_corpus``.
 
+The paper's two sweeps have references of their own, written with
+JAX's x64 session on the CPU: ``--write-lasso-refs`` trains
+``LASSO_SWEEP``'s six lasso candidates, runs the JAX closed-loop lasso
+sweep on them and writes each candidate's quality with f32 runs of
+its loop (``assets/lasso_sweep_refs.json``) and the candidates
+themselves (``assets/lasso_sweep_candidates.npz``); ``--write-rand-refs``
+runs the JAX random-system sweep of ``RAND_MODELS``
+(``assets/rand_models_refs.json``).  chip_smoke.py's phases LS and RS
+read them.
+
 The linear controller runs ``qp_iters=6`` with cold duals.  The JAX
 package's "verified linear floor" of 3 iterations
 (``ops/pallas/step_fused.py:201,244``, ``tests/test_step_fused.py:98``)
@@ -127,6 +137,34 @@ BILINEAR_ROUTES = {
                              qp_iters=12),
 }
 BILINEAR_ROUTE_REFS = ASSETS / "bilinear_route_refs.json"
+# the closed-loop lasso sweep (chip_smoke.py phase LS): the bilinear
+# asset recipe trained at six lasso values with the trainer's default cap
+# and tol, then the JAX sweep's controller and plant
+# (tests/test_lasso_sweep.py:17-25: the unblocked horizon-10 stack at the
+# default 12 iterations; the arm with SDIRK2, 5 substeps, 3 Newton
+# iterations, jac_mode='substep') over 301 blockM steps
+LASSO_SWEEP = dict(
+    lasso=(2.0, 4.0, 8.0, 16.0, 32.0, float("inf")),
+    lasso_iters=50000, lasso_tol=1e-12, steps=301,
+    arm=dict(Nmods=3, nlinks=1, L=1.0, m=0.1, output_type="markers",
+             substeps=5),
+    mpc=dict(horizon=10, input_bounds=(-7 * np.pi / 8, 7 * np.pi / 8),
+             input_slopeConst=1e-1, cost_running=10.0, cost_terminal=100.0,
+             cost_input=(3e-3, 2e-3, 1e-3), proj_idx=(4, 5)))
+LASSO_SWEEP_REFS = ASSETS / "lasso_sweep_refs.json"
+LASSO_CANDIDATES = ASSETS / "lasso_sweep_candidates.npz"
+# the f32 runs beside each candidate's reference: lanes a candidate (the
+# model as trained, and copies with A moved by one ulp) and their seed
+F32_COPIES, F32_SEED = 96, 0
+# the random-system sweep at the reference's scale (chip_smoke.py phase
+# RS): 20 systems, 10 training trials and 1 validation trial each
+# (rsys-all_train-10_val-1), tests/test_rsys.py:92-96's recipe at those
+# counts, then every degree of evaluate_rand_models' defaults (460 fits)
+RAND_MODELS = dict(
+    seed=0, num_sys=20, num_terms=5, degree_x=3, degree_u=1, t_end=25.0,
+    Ts=0.05, num_trials=11, max_degree_linear=13, max_degree_bilinear=6,
+    max_degree_nonlinear=4, nonlinear_lasso=4.0, lasso_iters=500)
+RAND_MODELS_REFS = ASSETS / "rand_models_refs.json"
 # the bench plant (bench.py:118-122)
 BENCH_ARM = dict(Nmods=3, nlinks=1, L=1.0, m=0.1, output_type="markers",
                  substeps=3, newton_iters=1, jac_mode="step")
@@ -437,6 +475,240 @@ def write_bilinear_refs() -> dict:
                        BILINEAR_ROUTE_REFS, "--write-bilinear-refs")
 
 
+def port_lasso_candidates():
+    """([BilinearModel] of the port, Scaler) of ``LASSO_CANDIDATES``, in
+    their own (the JAX training's) basis."""
+    from koopman_realizations_torch.models.koopman import from_jax_arrays
+    data = np.load(LASSO_CANDIDATES)
+    header = json.loads(str(data["header"]))
+    shared = {k: data[k] for k in data.files
+              if k != "header" and not k.startswith(("A_", "B_"))}
+    pairs = [from_jax_arrays(dict(header, lasso=lv),
+                             dict(shared, A=data[f"A_{i}"], B=data[f"B_{i}"]))
+             for i, lv in enumerate(header["lasso"])]
+    return [m for m, _ in pairs], pairs[0][1]
+
+
+def _port_sweep_f64() -> dict:
+    """The port's plain lasso sweep (CPU, f64) of ``LASSO_CANDIDATES``:
+    {"alive": [...], "err_mean": [...]} per candidate."""
+    import types
+
+    from koopman_realizations_torch.config import ArmConfig as TArmConfig
+    from koopman_realizations_torch.config import MpcConfig as TMpcConfig
+    from koopman_realizations_torch.models.arm import Arm as TArm
+    from koopman_realizations_torch.workflows.lasso_sweep import (
+        lasso_sweep_closed_loop as tsweep,
+    )
+    cands, scaler = port_lasso_candidates()
+    r = LASSO_SWEEP
+    o = tsweep(types.SimpleNamespace(candidates=cands, scaler=scaler),
+               TArm(TArmConfig(**r["arm"]), device="cpu"),
+               TMpcConfig(**r["mpc"]), blockM_y(), steps=r["steps"],
+               device="cpu", dtype=torch.float64)
+    return {"alive": [bool(a) for a in o["alive"][:, -1]],
+            "err_mean": [float(e) for e in o["err"].mean(1)]}
+
+
+def write_lasso_refs(path: Path = LASSO_SWEEP_REFS,
+                     models: Path = LASSO_CANDIDATES) -> dict:
+    """Train the bilinear asset recipe at ``LASSO_SWEEP``'s lasso values
+    with the JAX ``Ksysid`` (x64, CPU) on the generated corpus and write
+    the candidates (A, B of each; C, pcs and the scaler once) to
+    ``models``; run the JAX ``lasso_sweep_closed_loop`` on them and write
+    each candidate's err_mean, err_worst and alive at the last step to
+    ``path``.
+
+    Beside them go f32 runs of each candidate's loop, all of the JAX
+    sweep with x64 off (``_jax_sweep_f32``): the candidate as trained and
+    ``F32_COPIES - 1`` copies of it whose A is moved by one ulp (f32) in
+    every nonzero entry, each in a direction drawn from ``F32_SEED``, all
+    lanes of one batch.  A candidate is ``f32_stable`` when every such run
+    keeps its alive flag and lands within gate 2's 1e-3 of the x64
+    err_mean; else its loop amplifies f32 rounding, and ``f32_band``
+    (the least and largest err_mean of those runs and the x64 one) is
+    where chip_smoke.py's f32 card loop is held.  The port's f64 sweep of
+    the same models must match the x64 one (alive, err_mean within 1e-5)
+    first.
+    """
+    import dataclasses
+
+    from koopman_realizations_tpu.models.arm import Arm
+    from koopman_realizations_tpu.models.edmd import Ksysid
+    from koopman_realizations_tpu.workflows.lasso_sweep import (
+        lasso_sweep_closed_loop,
+    )
+    r = LASSO_SWEEP
+    ks = Ksysid(generate_corpus(), SysidConfig(
+        model_type="bilinear", pca_explained=PCA_EXPLAINED["bilinear"],
+        obs_type=("poly",), obs_degree=(3,), dim_red=True, dtype="float32",
+        lasso=r["lasso"], lasso_iters=r["lasso_iters"],
+        lasso_tol=r["lasso_tol"])).train_models()
+    written_by = "python tests/test_torch_oracle.py --write-lasso-refs"
+    m0 = ks.candidates[0]
+    header = {"meta": dataclasses.asdict(m0.meta),
+              "basis": {"model_type": m0.basis.model_type,
+                        "n": m0.basis.n, "m": m0.basis.m,
+                        "nd": m0.basis.nd, "nw": m0.basis.nw,
+                        "families": [list(f) for f in m0.basis.families]},
+              "lasso": [float(cd.lasso) for cd in ks.candidates],
+              "written_by": written_by,
+              "fields": "A_i, B_i of candidate i (f32, the JAX trainer's); "
+                        "C, pcs and scaler_<field> shared"}
+    arrays = {f"{k}_{i}": np.asarray(getattr(cd, k))
+              for i, cd in enumerate(ks.candidates) for k in ("A", "B")}
+    arrays.update(C=np.asarray(m0.C), pcs=np.asarray(m0.basis.pcs),
+                  **{"scaler_" + f: np.asarray(getattr(ks.scaler, f))
+                     for f in ("y_factor", "y_offset", "u_factor",
+                               "u_offset")})
+    np.savez_compressed(models, header=json.dumps(header), **arrays)
+
+    mpc = MpcConfig(**r["mpc"])
+    out = lasso_sweep_closed_loop(ks, Arm(ArmConfig(**r["arm"])), mpc,
+                                  blockM_y(), steps=r["steps"])
+    err, alive = np.asarray(out["err"]), np.asarray(out["alive"])
+    port64 = _port_sweep_f64()
+    for i in range(len(ks.candidates)):
+        if port64["alive"][i] != bool(alive[i, -1]) \
+                or abs(port64["err_mean"][i] - err[i].mean()) > 1e-5:
+            raise AssertionError(f"the port's f64 sweep parts from JAX's "
+                                 f"(candidate {i})")
+    jax32 = _jax_sweep_f32(ks, F32_COPIES, F32_SEED)
+    cands = {}
+    for i, (lv, cd) in enumerate(zip(out["lasso"], ks.candidates)):
+        K = np.asarray(cd.K, np.float64)
+        em, al = float(err[i].mean()), bool(alive[i, -1])
+        f32 = jax32[i * F32_COPIES:(i + 1) * F32_COPIES]
+        ems = [e for _, e in f32] + [em]
+        cands[str(lv)] = {
+            "lasso": lv, "alive": al, "err_mean": em,
+            "err_worst": float(err[i].max()),
+            "port_f64_err_mean": port64["err_mean"][i],
+            "f32_runs": f32,
+            "f32_stable": all(a == al and abs(e - em) < 1e-3
+                              for a, e in f32),
+            "f32_band": [min(ems), max(ems)],
+            "l1": float(np.abs(K).sum()), "budget": lv * ks.N}
+        print(lv, cands[str(lv)], flush=True)
+    refs = {
+        "runner": "koopman_realizations_tpu Ksysid + workflows/lasso_sweep."
+                  "lasso_sweep_closed_loop (jax_enable_x64, CPU); f32 runs "
+                  "of the JAX sweep (x64 off) on the same models, "
+                  f"{F32_COPIES} lanes a candidate: as trained and with A "
+                  f"moved by one ulp (seed {F32_SEED})",
+        "written_by": written_by,
+        "recipe": {**{k: list(v) if isinstance(v, tuple) else v
+                      for k, v in r.items() if k not in ("arm", "mpc")},
+                   "arm": r["arm"],
+                   "mpc": {k: list(v) if isinstance(v, tuple) else v
+                           for k, v in r["mpc"].items()},
+                   "training": "bilinear poly-3, PCA at 99 %, f32 lift, "
+                               "on generate(15, 60.0, n_val=5, seed=0)",
+                   "config": dataclasses.asdict(mpc)},
+        "reference": "blockM([0.45, -0.35], 0.5, 0.5), T=15, Ts=0.05",
+        "models": models.name, "NL": ks.N, "candidates": cands}
+    path.write_text(json.dumps(refs, indent=1) + "\n")
+    return refs
+
+
+def _jax_sweep_f32(ks, copies: int, seed: int) -> list:
+    """The JAX lasso sweep of ``ks``'s candidates with x64 off (f32
+    throughout) in a process of its own, ``copies`` lanes a candidate in
+    one batch (candidate-major): the first as trained, each other with
+    every nonzero entry of its f32 A moved one ulp up or down, the
+    directions drawn from ``np.random.default_rng(seed)``.  Returns
+    [alive at the last step, err_mean] per lane."""
+    import subprocess
+    import tempfile
+
+    from koopman_realizations_tpu.utils.checkpoint import save_model
+    with tempfile.TemporaryDirectory() as d:
+        paths = [save_model(f"{d}/c{i}", cd, ks.scaler)
+                 for i, cd in enumerate(ks.candidates)]
+        code = (
+            "import dataclasses, json, sys\n"
+            f"sys.path.insert(0, {str(ROOT)!r})\n"
+            "import jax\n"
+            "jax.config.update('jax_platforms', 'cpu')\n"
+            "jax.config.update('jax_enable_x64', False)\n"
+            "import numpy as np\n"
+            "from types import SimpleNamespace\n"
+            "from koopman_realizations_tpu.config import ArmConfig, "
+            "MpcConfig\n"
+            "from koopman_realizations_tpu.models.arm import Arm\n"
+            "from koopman_realizations_tpu.utils.checkpoint import "
+            "load_model\n"
+            "from koopman_realizations_tpu.utils.trajectories import "
+            "get_blockM, make_trajectory\n"
+            "from koopman_realizations_tpu.workflows.lasso_sweep import "
+            "lasso_sweep_closed_loop\n"
+            f"r = json.loads({json.dumps(json.dumps(LASSO_SWEEP))})\n"
+            f"ms = [load_model(p) for p in {paths!r}]\n"
+            f"rng = np.random.default_rng({seed})\n"
+            "lanes = []\n"
+            "for m, _ in ms:\n"
+            "    A = np.asarray(m.A, np.float32)\n"
+            f"    for k in range({copies}):\n"
+            "        up = rng.random(A.shape) < 0.5 if k else None\n"
+            "        Ak = A if k == 0 else np.where(A == 0, A, np.nextafter("
+            "A, np.where(up, np.inf, -np.inf).astype(np.float32)))\n"
+            "        lanes.append(dataclasses.replace(m, A=Ak))\n"
+            "ref = make_trajectory(get_blockM([0.45, -0.35], 0.5, 0.5), "
+            "T=15, Ts=0.05)['y']\n"
+            "mpc = MpcConfig(**{k: tuple(v) if isinstance(v, list) else v "
+            "for k, v in r['mpc'].items()})\n"
+            "ks = SimpleNamespace(candidates=lanes, scaler=ms[0][1], "
+            "basis=ms[0][0].basis)\n"
+            "out = lasso_sweep_closed_loop(ks, Arm(ArmConfig(**r['arm'])), "
+            "mpc, ref, steps=r['steps'])\n"
+            "assert np.asarray(out['err']).dtype == np.float32\n"
+            "print(json.dumps([[bool(a), float(e)] for a, e in zip("
+            "np.asarray(out['alive'])[:, -1], "
+            "np.asarray(out['err']).mean(1))]))\n")
+        run = subprocess.run([sys.executable, "-c", code], check=True,
+                             capture_output=True, text=True,
+                             env=dict(os.environ, JAX_ENABLE_X64="0"))
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+def write_rand_refs(path: Path = RAND_MODELS_REFS) -> dict:
+    """Draw and simulate ``RAND_MODELS``'s ensemble with the JAX
+    ``models/rsys.py`` (x64, CPU), run the JAX ``evaluate_rand_models`` on
+    it and write each family's medians, kept count, kept mask and errors
+    to ``path``."""
+    from koopman_realizations_tpu.models.rsys import (
+        construct_systems,
+        simulate_systems,
+    )
+    from koopman_realizations_tpu.workflows import evaluate_rand_models
+    r = RAND_MODELS
+    rng = np.random.default_rng(r["seed"])
+    ens = construct_systems(r["num_sys"], r["num_terms"], r["degree_x"],
+                            r["degree_u"], rng)
+    ds = simulate_systems(ens, r["t_end"], r["Ts"], r["num_trials"], rng)
+    out = evaluate_rand_models(
+        ds, max_degree_linear=r["max_degree_linear"],
+        max_degree_bilinear=r["max_degree_bilinear"],
+        max_degree_nonlinear=r["max_degree_nonlinear"],
+        nonlinear_lasso=r["nonlinear_lasso"], lasso_iters=r["lasso_iters"])
+    fams = {}
+    for fam, o in out.items():
+        err = np.asarray(o["err"])
+        keep = np.all(np.isfinite(err), 0) & np.all(err < 10, 0)
+        fams[fam] = {"median": [float(v) for v in o["median"]],
+                     "kept": int(o["kept"]), "keep": keep.tolist(),
+                     "dims": [int(v) for v in o["dims"]],
+                     "err": [[float(v) for v in row] for row in err]}
+        print(fam, fams[fam]["kept"], fams[fam]["median"], flush=True)
+    refs = {
+        "runner": "koopman_realizations_tpu models/rsys.py + workflows/"
+                  "rand_models.evaluate_rand_models (jax_enable_x64, CPU)",
+        "written_by": "python tests/test_torch_oracle.py --write-rand-refs",
+        "recipe": dict(r), "families": fams}
+    path.write_text(json.dumps(refs, indent=1) + "\n")
+    return refs
+
+
 # ---------------------------------------------------------------- tests
 
 
@@ -550,6 +822,74 @@ def test_corpus_asset_matches_generator():
                                               np.asarray(getattr(tg, f)))
                 assert getattr(tc, f).dtype == np.float64
 
+def test_sweep_refs_recipes_are_chip_smokes():
+    """The recipes in the headers of the lasso-sweep and random-system
+    references are the constants chip_smoke.py's phases LS and RS run,
+    and each lasso candidate's f32 band and stability are those of its
+    JAX f32 runs."""
+    import chip_smoke
+    norm = lambda d: json.loads(json.dumps(d))
+    lasso = json.loads(LASSO_SWEEP_REFS.read_text())
+    rand = json.loads(RAND_MODELS_REFS.read_text())
+    assert chip_smoke.LASSO_REFS == LASSO_SWEEP_REFS
+    assert chip_smoke.RAND_REFS == RAND_MODELS_REFS
+    assert norm(chip_smoke.LASSO_SWEEP) == norm(LASSO_SWEEP) == {
+        k: lasso["recipe"][k] for k in LASSO_SWEEP}
+    assert set(lasso["candidates"]) == {str(v) for v in LASSO_SWEEP["lasso"]}
+    # what phase LS reads of each candidate's JAX f32 runs
+    for c in lasso["candidates"].values():
+        ems = [e for _, e in c["f32_runs"]] + [c["err_mean"]]
+        assert len(c["f32_runs"]) == F32_COPIES
+        assert c["f32_band"] == [min(ems), max(ems)]
+        assert c["f32_stable"] == all(
+            a == c["alive"] and abs(e - c["err_mean"]) < 1e-3
+            for a, e in c["f32_runs"])
+    assert chip_smoke.PCA_EXPLAINED["bilinear"] == PCA_EXPLAINED["bilinear"]
+    assert chip_smoke.TRAIN_RECIPE == dict(
+        obs_type=("poly",), obs_degree=(3,), dim_red=True, dtype="float32")
+    assert norm(chip_smoke.RAND_MODELS) == norm(RAND_MODELS) \
+        == rand["recipe"]
+    for fam, n in (("linear", 13), ("bilinear", 6), ("nonlinear", 4)):
+        assert len(rand["families"][fam]["median"]) == n
+
+
+def test_lasso_candidates_asset_in_the_ports_basis():
+    """The JAX trainer's lasso candidates (``LASSO_CANDIDATES``) read by
+    chip_smoke.py and re-signed to the port's PCA basis of the same
+    training: the six lasso values of the recipe, and each model's scaled
+    one-step predictions those of the model in its own basis (1e-9;
+    re-signing is exact, the two bases' components part by ~1e-14)."""
+    import chip_smoke
+    from koopman_realizations_torch.config import SysidConfig as TConfig
+    from koopman_realizations_torch.models.edmd import Ksysid as TKsysid
+    from koopman_realizations_torch.models.koopman import from_jax_arrays
+    from koopman_realizations_torch.utils.data import load_corpus
+    from koopman_realizations_torch.utils.metrics import (
+        one_step_predictions as t_one_step,
+    )
+    assert chip_smoke.LASSO_CANDIDATES == LASSO_CANDIDATES
+    port = TKsysid(load_corpus(), TConfig(
+        model_type="bilinear", obs_type=("poly",), obs_degree=(3,),
+        dim_red=True, dtype="float32"), device="cpu")
+    # every other component flipped, as another SVD may return them
+    flip = np.where(np.arange(port.basis.pcs.shape[1]) % 2, -1.0, 1.0)
+    port.basis = port.basis.with_pcs(port.basis.pcs * flip)
+    aligned = chip_smoke.jax_lasso_candidates(port.basis, port.scaler)
+    data = np.load(LASSO_CANDIDATES)
+    header = json.loads(str(data["header"]))
+    assert header["lasso"] == list(LASSO_SWEEP["lasso"])
+    shared = {k: data[k] for k in data.files
+              if k != "header" and not k.startswith(("A_", "B_"))}
+    for i, m in enumerate(aligned):
+        own = from_jax_arrays(dict(header, lasso=header["lasso"][i]),
+                              dict(shared, A=data[f"A_{i}"],
+                                   B=data[f"B_{i}"]))[0]
+        assert m.lasso == header["lasso"][i] and m.basis is port.basis
+        d = np.abs(t_one_step(m, port.valdata)
+                   - t_one_step(own, port.valdata)).max()
+        assert d < 1e-9, (i, d)
+
+
 if __name__ == "__main__":
     import argparse
 
@@ -568,12 +908,20 @@ if __name__ == "__main__":
                     help="record the JAX general runner's quality in every "
                          "bilinear configuration of BILINEAR_ROUTES "
                          "(bilinear_route_refs.json)")
+    ap.add_argument("--write-lasso-refs", action="store_true",
+                    help="record the JAX lasso sweep's quality per "
+                         "candidate of LASSO_SWEEP (lasso_sweep_refs.json)")
+    ap.add_argument("--write-rand-refs", action="store_true",
+                    help="record the JAX random-system sweep of RAND_MODELS"
+                         " (rand_models_refs.json)")
     args = ap.parse_args()
-    if args.write_asset is None and not (args.write_corpus
-                                         or args.write_regime_refs
-                                         or args.write_bilinear_refs):
+    if args.write_asset is None and not (
+            args.write_corpus or args.write_regime_refs
+            or args.write_bilinear_refs or args.write_lasso_refs
+            or args.write_rand_refs):
         ap.error("nothing to do (pass --write-asset, --write-corpus, "
-                 "--write-regime-refs or --write-bilinear-refs)")
+                 "--write-regime-refs, --write-bilinear-refs, "
+                 "--write-lasso-refs or --write-rand-refs)")
     if args.write_corpus:
         print(json.dumps(write_corpus(), indent=1))
     if args.write_asset is not None:
@@ -583,3 +931,7 @@ if __name__ == "__main__":
         print(json.dumps(write_regime_refs(), indent=1))
     if args.write_bilinear_refs:
         print(json.dumps(write_bilinear_refs(), indent=1))
+    if args.write_lasso_refs:
+        print(json.dumps(write_lasso_refs(), indent=1))
+    if args.write_rand_refs:
+        print(json.dumps(write_rand_refs(), indent=1))

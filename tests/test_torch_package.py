@@ -239,3 +239,46 @@ def test_nonlinear_entry_points_default_to_the_card():
     with pytest.raises(ValueError):
         nmpc_multipass_cuda(qp, z, torch.zeros(3, 4), torch.zeros(22), 5,
                             True, 8)
+
+
+def test_sweep_entry_points_default_to_the_card():
+    """The random-system ensemble, its model-class sweep and the
+    closed-loop lasso sweep ask for CUDA unless the caller passes
+    ``device="cpu"``."""
+    import types
+
+    import numpy as np
+
+    from koopman_realizations_torch.config import ArmConfig, MpcConfig
+    from koopman_realizations_torch.models.arm import Arm
+    from koopman_realizations_torch.models.rsys import (
+        construct_systems,
+        simulate_systems,
+    )
+    from koopman_realizations_torch.utils.checkpoint import load_model
+    from koopman_realizations_torch.workflows import evaluate_rand_models
+    from koopman_realizations_torch.workflows.lasso_sweep import (
+        lasso_sweep_closed_loop,
+    )
+
+    ens = construct_systems(2, 3, 2, 1, np.random.default_rng(0))
+    sim = lambda **kw: simulate_systems(ens, 2.0, 0.5, 3,
+                                        np.random.default_rng(0), **kw)
+    model, scaler, _ = load_model()
+    ks = types.SimpleNamespace(candidates=[model], scaler=scaler)
+    cfg = MpcConfig(horizon=10, input_bounds=(-2.7, 2.7),
+                    input_slopeConst=0.1, proj_idx=(4, 5))
+    if torch.cuda.is_available():
+        assert ens.vf(0, 0.5, 0.1).is_cuda
+        return
+    for call in (lambda: ens.vf(0, 0.5, 0.1), sim,
+                 lambda: evaluate_rand_models(sim(device="cpu")),
+                 lambda: lasso_sweep_closed_loop(
+                     ks, Arm(ArmConfig(), device="cpu"), cfg,
+                     np.zeros((3, 2)), steps=2)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    ds = sim(device="cpu")
+    out = evaluate_rand_models(ds, 1, 1, 1, lasso_iters=5, device="cpu")
+    assert set(out) == {"linear", "bilinear", "nonlinear"}
+    assert ens.vf(0, 0.5, 0.1, device="cpu").device.type == "cpu"
