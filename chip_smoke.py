@@ -133,6 +133,12 @@ RAND_MODELS = dict(
     max_degree_nonlinear=4, nonlinear_lasso=4.0, lasso_iters=500)
 RAND_REFS = ROOT / "koopman_realizations_torch" / "assets" / \
     "rand_models_refs.json"
+# the paper's loaded-arm experiment (phase LD; BASELINE.md row 5): its
+# recipe, controller and JAX references, written by
+# tests/test_torch_oracle.py --write-loaded (the loaded corpus and the two
+# JAX-trained loaded assets beside it)
+LOADED_REFS = ROOT / "koopman_realizations_torch" / "assets" / \
+    "loaded_refs.json"
 B_MAIN, B_GENERAL, B_CHECK, STEPS = 262144, 65536, 8192, 301
 # H100 SXM published peaks: f32 outside the tensor cores, HBM3 bandwidth
 PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
@@ -598,6 +604,477 @@ def phase_lasso_sweep(dev, drive, check_qp, kernel_ms, smi) -> dict:
         f"assembly and Gram, the plain plant and glue | {smi}")
     return {"launches": counts["ipm_shared"], "err": dx, "ms": k_ms,
             "plain": p_ms, "bound": b_ms, "by": by}
+
+
+def loaded_lanes(B: int, r: dict):
+    """The loaded experiment's lanes (X0 (B, 4), W (B, 2)), f32, for the
+    recipe ``r`` of ``LOADED_REFS`` (tests/test_torch_oracle.py:
+    loaded_lanes): the first ``B_ref`` lanes the references' (the first
+    joint from linspace(-spread, spread, B_ref)), the rest from
+    linspace(-spread, spread, B - B_ref); lane i carries grid[i % 3]."""
+    import numpy as np
+    X0 = np.zeros((B, 4))
+    nref = min(B, r["B_ref"])
+    X0[:nref, 0] = np.linspace(-r["spread"], r["spread"], r["B_ref"])[:nref]
+    if B > nref:
+        X0[nref:, 0] = np.linspace(-r["spread"], r["spread"], B - nref)
+    W = np.asarray(r["grid"], np.float64)[np.arange(B) % len(r["grid"])]
+    return X0.astype(np.float32), W.astype(np.float32)
+
+
+def loaded_lane_gate(e, jr: dict):
+    """Gate 2 of a loaded loop, lane by lane: how far each reference lane's
+    err_mean (the first ``len(jr["err_mean"])`` of ``e``) lies outside the
+    hull of its JAX x64 value and its band of JAX's own f32 runs (the
+    asset and its one-ulp copies, ``jr["f32"]["band"]``); 0 inside.  A
+    lane passes below 1e-3."""
+    import numpy as np
+    x64 = np.asarray(jr["err_mean"])
+    band = np.asarray(jr["f32"]["band"])
+    lo, hi = np.minimum(x64, band[:, 0]), np.maximum(x64, band[:, 1])
+    e = np.asarray(e)[:len(x64)]
+    return np.maximum(np.maximum(lo - e, e - hi), 0.0)
+
+
+def one_ulp_floor(ks, asset) -> float:
+    """The most a one-ulp change (three seeded draws of directions) of the
+    f32 extraction matrix L = Px A^T + u B^T moves the linear ``asset``'s
+    own extraction (M by the minimum-norm solve of ``Ksysid.get_model``,
+    rcond f32 eps) in scaled one-step prediction on ``ks.valdata``; host
+    numpy, ``ks`` a loaded linear ``Ksysid`` on the asset's corpus."""
+    import dataclasses
+
+    import numpy as np
+
+    from koopman_realizations_torch.utils.metrics import (
+        one_step_predictions,
+    )
+    NL = ks.NL
+    Px, Py = (t[:, :NL].double().cpu().numpy()
+              for t in ks.lift_snapshot_matrices())
+    K = np.asarray(asset.K, np.float32)
+    A, B = K.T[:NL, :NL], K.T[:NL, NL:]
+    L = (Px.astype(np.float32) @ A.T
+         + ks.snapshot_pairs.u.astype(np.float32) @ B.T)
+
+    def preds(Lf):
+        Mt = np.linalg.lstsq(Lf.astype(np.float64), Py,
+                             rcond=float(np.finfo(np.float32).eps))[0]
+        M = Mt.T.astype(np.float32)
+        return one_step_predictions(dataclasses.replace(
+            asset, A=M @ A, B=M @ B), ks.valdata)
+    p0 = preds(L)
+    rng = np.random.default_rng(0)
+    far = 0.0
+    for _ in range(3):
+        up = rng.random(L.shape) < 0.5
+        Lu = np.nextafter(L, np.where(up, np.inf, -np.inf).astype(np.float32))
+        far = max(far, float(np.abs(preds(Lu) - p0).max()))
+    return far
+
+
+def loaded_setup(dev):
+    """The loaded experiment's references, controllers (f32 and f64),
+    observers, plant and reference, and the specs of its four new builds:
+    ``bilin`` at NL=42 / m=2, ``ipm_shared``'s lane-shared build at the
+    loaded linear QP and its per-lane-P builds of the two observers (n=2
+    bilinear, n=1 linear)."""
+    import torch
+
+    from koopman_realizations_torch.config import ArmConfig, MpcConfig
+    from koopman_realizations_torch.control.kmpc import (
+        BilinearKmpc,
+        LinearKmpc,
+    )
+    from koopman_realizations_torch.control.observer import (
+        make_load_observer,
+    )
+    from koopman_realizations_torch.models.arm import Arm
+    from koopman_realizations_torch.ops.kernels import bilin as BI
+    from koopman_realizations_torch.ops.kernels import ipm_shared as IS
+    from koopman_realizations_torch.utils.checkpoint import (
+        LOADED_BILINEAR_MODEL,
+        LOADED_LINEAR_MODEL,
+        load_model,
+    )
+    from koopman_realizations_torch.utils.trajectories import (
+        circle_reference,
+    )
+    refs = json.loads(LOADED_REFS.read_text())
+    cfg = MpcConfig(**{k: tuple(v) if isinstance(v, list) else v
+                       for k, v in refs["mpc"].items()})
+    L = types.SimpleNamespace(refs=refs, r=refs["recipe"], cfg=cfg,
+                              ref=circle_reference(), ctl={}, ctl64={},
+                              obs={}, obs64={}, models={})
+    for kind, path, cls in (("bilinear", LOADED_BILINEAR_MODEL, BilinearKmpc),
+                            ("linear", LOADED_LINEAR_MODEL, LinearKmpc)):
+        model, scaler, _ = load_model(path)
+        L.models[kind] = (model, scaler, path)
+        for dt, ctl, obs in ((torch.float32, L.ctl, L.obs),
+                             (torch.float64, L.ctl64, L.obs64)):
+            ctl[kind] = cls(model, scaler, cfg, device=dev, dtype=dt)
+            obs[kind] = make_load_observer(model, cfg, device=dev, dtype=dt)
+    L.arm = Arm(ArmConfig(**L.r["arm"]), device=dev)
+    L.specs = {"bilin": BI.kernel_spec(L.ctl["bilinear"].bilin_qp()),
+               "ipm_shared": IS.kernel_spec(L.ctl["linear"].constraints()),
+               "observer n=2": IS.kernel_spec(L.obs["bilinear"].cons_box,
+                                              lane_p=True),
+               "observer n=1": IS.kernel_spec(L.obs["linear"].cons_box,
+                                              lane_p=True)}
+    return L
+
+
+def plant_lanes(arm, B: int):
+    """Seeded lanes (X (nx, B), U (Nmods, B), W (2, B)) f32 on the arm's
+    device in the closed loops' range: the first joint spread over
+    +-0.2 rad, the other angles and the rates within +-0.05, inputs
+    within +-0.5, loads of the loaded grid's range."""
+    import torch
+    g = torch.Generator().manual_seed(0)
+    X = 0.1 * (torch.rand((arm.cfg.nx, B), generator=g) - 0.5)
+    X[0] = torch.linspace(-0.2, 0.2, B)
+    U = torch.rand((arm.cfg.Nmods, B), generator=g) - 0.5
+    W = torch.rand((2, B), generator=g) * torch.tensor([[0.9], [1.2]]) \
+        - torch.tensor([[0.0], [0.6]])
+    return tuple(t.to(arm.G.device) for t in (X, U, W))
+
+
+def loaded_state(L, kind: str, X0, W, k_end: int):
+    """The loaded experiment's lanes (X0, W) after ``k_end`` closed-loop
+    steps of the general runner's arithmetic on ``L``'s f32 controller of
+    ``kind`` (the observer before the lift; no lane frozen): the scaled
+    outputs and their window, the previous input and its window, the plan,
+    the load estimate and the next step's reference window."""
+    import torch
+
+    from koopman_realizations_torch.control.ksim import Ksim
+    mpc, obs = L.ctl[kind], L.obs[kind]
+    sc, dev, B = mpc.scaler, mpc.device, X0.shape[0]
+    wins = Ksim(L.arm, mpc, device=dev).reference_windows(L.ref, k_end + 2)
+    x = torch.as_tensor(X0, device=dev).T.contiguous()
+    Wt = torch.as_tensor(W, device=dev).T.contiguous()
+    ysc = sc.y_down(L.arm.get_y(x), axis=0)
+    upsc = sc.u_down(x.new_zeros((mpc.m, B)), axis=0)
+    ywin = ysc[None].repeat(obs.horizon + 1, 1, 1)
+    uwin = upsc[None].repeat(obs.horizon + 1, 1, 1)
+    U, what = upsc.repeat(mpc.Np, 1), x.new_zeros((2, B))
+    for k in range(k_end):
+        what = obs(k + 1, ywin, uwin, what)
+        U, _ = mpc.solve(mpc.lift(ysc, what), upsc, wins[k], U)
+        x = L.arm.step(x, sc.u_up(upsc, axis=0), Wt)
+        ysc = sc.y_down(L.arm.get_y(x), axis=0)
+        upsc = U[mpc.m:2 * mpc.m].contiguous()
+        ywin = torch.cat([ywin[1:], ysc[None]])
+        uwin = torch.cat([uwin[1:], upsc[None]])
+    return types.SimpleNamespace(ysc=ysc, upsc=upsc, U=U, what=what,
+                                 ywin=ywin, uwin=uwin, win=wins[k_end])
+
+
+def loaded_bilin_args(L, st) -> dict:
+    """{dtype: ``bilin_cuda`` / ``bilin_plain`` arguments} of the loaded
+    bilinear controller's QP at the lanes of ``st`` (``loaded_state``), in
+    f32 and f64: the lifted state of the load estimate, the shifted plan,
+    cold duals (the controller's)."""
+    import torch
+    out = {}
+    for dt, m in ((torch.float32, L.ctl["bilinear"]),
+                  (torch.float64, L.ctl64["bilinear"])):
+        out[dt] = (m.bilin_qp(),
+                   m.lift(st.ysc.to(dt), st.what.to(dt)).contiguous(),
+                   st.upsc.to(dt).contiguous(),
+                   m.warm_start(st.U.to(dt)).contiguous(), None,
+                   st.win.to(dt).contiguous(), m.cfg.qp_iters, 1e-2)
+    return out
+
+
+def loaded_observer_args(obs32, obs64, st) -> dict:
+    """{dtype: ``ipm_shared`` per-lane-P arguments} of an observer's box
+    QP (``LoadObserver.qp``) at the windows of ``st``, as
+    ``solve_qp_shared`` forms them: iobj = 1 / max |P|, q by it, b by the
+    row scale, the cold start (x0 = 0, slack floor 1, lam = 1)."""
+    import torch
+    out = {}
+    for dt, o in ((torch.float32, obs32), (torch.float64, obs64)):
+        P, q, cons, b, iters = o.qp(st.ywin.to(dt), st.uwin.to(dt),
+                                    st.what.to(dt))
+        iobj = 1.0 / P.abs().amax((0, 1)).clamp_min(1e-8)
+        out[dt] = (cons, P, (q * iobj).contiguous(),
+                   (b / cons.row[:, None]).contiguous(), torch.zeros_like(q),
+                   iters, 1.0, iobj.contiguous(), None)
+    return out
+
+
+def loaded_linear_args(L, st) -> dict:
+    """{dtype: ``ipm_shared`` lane-shared arguments} of the loaded linear
+    controller's QP at the lanes of ``st`` (``LinearKmpc.solve``'s: the
+    lane-shared P22 / obj, q and b per lane, the shifted plan, cold)."""
+    import torch
+    out = {}
+    for dt, mm in ((torch.float32, L.ctl["linear"]),
+                   (torch.float64, L.ctl64["linear"])):
+        z = mm.lift(st.ysc.to(dt), st.what.to(dt))
+        Yr = st.win.to(dt)[:, None]
+        f = 2.0 * mm.CB_t.T @ (mm.Qd_t[:, None] * (mm.CA_t @ z - Yr))
+        bb = mm.c_t[:, None] - mm.Mc_t @ z
+        P, q, bz = mm.eliminate_u0(2.0 * mm.H_t, f, bb, st.upsc.to(dt))
+        obj = P.abs().amax()
+        c_ = mm.constraints()
+        out[dt] = (c_, (P / obj).contiguous(), (q / obj).contiguous(),
+                   (bz / c_.row[:, None]).contiguous(),
+                   mm.warm_start(st.U.to(dt)).contiguous(), mm.cfg.qp_iters,
+                   1e-2)
+    return out
+
+
+def phase_loaded(dev, drive, check_qp, ptx, L, smi) -> dict:
+    """Phase LD: the paper's loaded-arm experiment (BASELINE.md row 5) on
+    the card, from the committed loaded corpus to the closed loop with the
+    load observer on the circle.
+
+    LD1 trains the loaded bilinear and linear models (poly-2, PCA, nw=2:
+    NL=42) on the card and on the CPU and holds the card's to the CPU's
+    and to the JAX-trained assets in scaled one-step prediction (1.2e-7;
+    the linear model within twice its extraction's one-ulp floor where
+    that is more, ``one_ulp_floor``).  LD2 holds the four new builds to
+    their plain versions and f64 (``check_qp``) on the lanes of the
+    experiment after 14 closed-loop steps (the observer has updated at
+    k=12, 14): ``bilin`` (NL=42, m=2, n=8, mc=32), ``ipm_shared``'s
+    lane-shared build at the loaded linear QP and its per-lane-P builds of
+    the observers' box QPs (n=2, n=1), and times each at B=2048 beside its
+    bound and plain version.  LD3 runs the loops at B=2048 x 301 steps on
+    the JAX-trained assets (bilinear with and without the observer, linear
+    with it), the first 16 lanes the references': on each of them alive
+    as JAX x64's and err_mean within 1e-3 of the hull of x64's and the
+    band of JAX's own f32 runs (``loaded_lane_gate``),
+    the whole batch with the observer at JAX f32's alive fraction and
+    within 1e-3 of its err_mean, What in [-1, 1], the linear observer's
+    last component exactly 0, the bilinear loop's mean err on the 16 lanes
+    with the observer below 0.8x without; each run's kernels by
+    ``torch.profiler`` over 20 steps.  Returns each build's launches,
+    error, times and bound for the kernels line."""
+    import numpy as np
+    import torch
+
+    from koopman_realizations_torch.config import SysidConfig
+    from koopman_realizations_torch.control.ksim import Ksim
+    from koopman_realizations_torch.models.edmd import STAGES, Ksysid
+    from koopman_realizations_torch.ops.kernels import bilin as BI
+    from koopman_realizations_torch.ops.kernels import ipm_shared as IS
+    from koopman_realizations_torch.utils.data import (
+        LOADED_CORPUS,
+        load_corpus,
+    )
+    from koopman_realizations_torch.utils.metrics import (
+        lane_tracking_error,
+        one_step_predictions,
+    )
+
+    refs, r = L.refs, L.r
+    sysid = {k: tuple(v) if isinstance(v, list) else v
+             for k, v in refs["sysid"].items()}
+    # ---- LD1: loaded training on the card, against the CPU and the assets
+    ds = load_corpus(LOADED_CORPUS)
+    for kind in ("bilinear", "linear"):
+        cfg = SysidConfig(model_type=kind, **sysid)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ks, _, _ = drive({}, lambda: Ksysid(ds, cfg, device=dev)
+                         .train_models())
+        wall = time.perf_counter() - t0
+        cpu = Ksysid(ds, cfg, device="cpu").train_models()
+        asset = L.models[kind][0]
+        osp = lambda m: one_step_predictions(m, ks.valdata, dev)
+        d_cpu = float(np.abs(osp(ks.model) - osp(cpu.model)).max())
+        d_asset = float(np.abs(osp(ks.model) - osp(asset)).max())
+        floor = one_ulp_floor(cpu, asset) if kind == "linear" else 0.0
+        lim = max(1.2e-7, 2.0 * floor)
+        ms = ks.stage_ms()
+        log(f"LD1 loaded {kind} trained on the card: N {ks.N}, NL {ks.NL}, "
+            f"nw {ks.nw}; stages (CUDA events, ms) " + ", ".join(
+                f"{k} {ms.get(k, 0.0):.2f}" for k in STAGES)
+            + f"; wall {wall:.3f} s; one-step distance to the CPU's "
+              f"training {d_cpu:.3e}, to the JAX-trained asset "
+              f"{d_asset:.3e} (bound {lim:.3e}"
+            + (f": twice the extraction's one-ulp floor {floor:.3e}"
+               if lim > 1.2e-7 else "") + f") | {smi}")
+        if not (ks.NL == 42 and d_asset <= lim and d_cpu <= lim):
+            raise AssertionError(f"LD1 {kind}: the card's loaded training "
+                                 f"is off the asset")
+        del ks, cpu
+
+    # ---- LD2: the new builds against their plain versions and f64
+    B, steps = r["B_full"], r["steps"]
+    X0, W = loaded_lanes(B, r)
+
+    out = {}
+    k_end = 14
+    # bilin at NL=42 from the lifted state of the load estimate
+    st = {kind: loaded_state(L, kind, X0, W, k_end)
+          for kind in ("bilinear", "linear")}
+    a = loaded_bilin_args(L, st["bilinear"])
+    m = L.ctl["bilinear"]
+    bq = a[torch.float32][0]
+    err, _ = check_qp("bilin", (BI.bilin_cuda, BI.bilin_plain),
+                      a[torch.float32], a[torch.float64], m.constraints(),
+                      m.cFr[:, None] - m.F0r @ a[torch.float32][2],
+                      f"(loaded, NL={bq.nzl}, m={bq.m}, n={bq.n}, "
+                      f"mc={bq.mc}) cold B={B} after {k_end} steps")
+    flops = qp_ops(bq, m.cfg.qp_iters) * B
+    z, up, x0, sq = (a[torch.float32][i] for i in (1, 2, 3, 5))
+    b_ms, b_by = bound(flops, nbytes(z, up, x0, sq)
+                       + 4 * B * (bq.n + 2 * bq.mc + 1)
+                       + nbytes(bq.gens, bq.rdiag, bq.A, bq.cFr, bq.F0r,
+                                bq.Wd, bq.Wo))
+    out["bilin"] = {
+        "err": err, "ms": cuda_ms(lambda: BI.bilin_cuda(*a[torch.float32]),
+                                  reps=20),
+        "plain": cuda_ms(lambda: BI.bilin_plain(*a[torch.float32]), reps=3,
+                         warmup=1), "bound": b_ms, "by": b_by}
+    log(f"LD2 bilin loaded NL=42 at B={B}: {out['bilin']['ms']:.4f} ms "
+        f"(plain {out['bilin']['plain']:.2f} ms, bound {b_ms:.5f} ms by "
+        f"{b_by}, {flops / B:.0f} op/lane); ptxas: {ptx(L.specs['bilin'])} "
+        f"| {smi}")
+    # the observers' box QPs (n=2 bilinear, n=1 linear) at the same lanes
+    for kind, name in (("bilinear", "observer n=2"),
+                       ("linear", "observer n=1")):
+        aa = loaded_observer_args(L.obs[kind], L.obs64[kind], st[kind])
+        f32 = aa[torch.float32]
+        cons = f32[0]
+        e, _ = check_qp("ipm_shared (per-lane P)",
+                        (IS.ipm_shared_cuda, IS.ipm_shared_plain),
+                        f32, aa[torch.float64], cons, f32[3],
+                        f"({name}, n={cons.n}, mc={cons.mc}) cold B={B}")
+        n_, mc_ = cons.n, cons.mc
+        flops = (n_ * n_ + n_ + mehrotra_ops(cons, f32[5], n_ * n_)) * B
+        b_ms, b_by = bound(flops, nbytes(*f32[1:5], f32[7])
+                           + 4 * B * (n_ + 2 * mc_)
+                           + nbytes(cons.A, cons.Wd, cons.Wo))
+        out[name] = {
+            "err": e, "ms": cuda_ms(lambda: IS.ipm_shared_cuda(*f32),
+                                    reps=20),
+            "plain": cuda_ms(lambda: IS.ipm_shared_plain(*f32), reps=3,
+                             warmup=1), "bound": b_ms, "by": b_by}
+        log(f"LD2 ipm_shared {name} (per-lane P, the load observer's box "
+            f"QP) at B={B}: {out[name]['ms']:.4f} ms (plain "
+            f"{out[name]['plain']:.2f} ms, bound {b_ms:.6f} ms by {b_by}); "
+            f"ptxas: {ptx(L.specs[name])} | {smi}")
+    # ipm_shared's lane-shared build at the loaded linear QP
+    aa = loaded_linear_args(L, st["linear"])
+    f32 = aa[torch.float32]
+    cons = f32[0]
+    e, _ = check_qp("ipm_shared (lane-shared)",
+                    (IS.ipm_shared_cuda, IS.ipm_shared_plain),
+                    f32, aa[torch.float64], cons, f32[3],
+                    f"(loaded linear, n={cons.n}, mc={cons.mc}) B={B} after "
+                    f"{k_end} steps")
+    flops = mehrotra_ops(cons, f32[5], nnz(f32[1])) * B
+    b_ms, b_by = bound(flops, nbytes(*f32[2:5]) + 4 * B * (cons.n
+                                                          + 2 * cons.mc)
+                       + nbytes(f32[1], cons.A, cons.Wd, cons.Wo))
+    out["ipm_shared"] = {
+        "err": e, "ms": cuda_ms(lambda: IS.ipm_shared_cuda(*f32), reps=20),
+        "plain": cuda_ms(lambda: IS.ipm_shared_plain(*f32), reps=3,
+                         warmup=1), "bound": b_ms, "by": b_by}
+    log(f"LD2 ipm_shared lane-shared at the loaded linear QP (n={cons.n}, "
+        f"mc={cons.mc}) at B={B}: {out['ipm_shared']['ms']:.4f} ms (plain "
+        f"{out['ipm_shared']['plain']:.2f} ms, bound {b_ms:.6f} ms by "
+        f"{b_by}); ptxas: {ptx(L.specs['ipm_shared'])} | {smi}")
+    del st, a, aa
+
+    # ---- LD3: the loops at B=2048 x 301 steps on the JAX-trained assets
+    runs = (("bilinear", True), ("bilinear", False), ("linear", True))
+    csrc = ROOT / "koopman_realizations_torch" / "csrc"
+    names = kernel_names(csrc)
+    of = {src: set(KERNEL_DEF.findall((csrc / f"{src}.cu").read_text()))
+          for src in ("bilin", "ipm_shared")}
+    err16, launches = {}, {"bilin": 0, "ipm_shared": {}}
+    per_call = {}
+    for kind, use_obs in runs:
+        obs = L.obs[kind] if use_obs else None
+        sim = Ksim(L.arm, L.ctl[kind], observer=obs, device=dev)
+        run = sim.batched_runner(L.ref, steps=steps)
+        sim.batched_runner(L.ref, steps=3)(X0, W)        # warm-up, capture
+        updates = sum(obs.updates(k) for k in range(1, steps)) if obs else 0
+        expected = {"bilin": steps - 1, "ipm_shared": updates} \
+            if kind == "bilinear" else {"ipm_shared": steps - 1 + updates}
+        expected = {k: v for k, v in expected.items() if v}
+        res, wall, counts = drive(expected, lambda: run(X0, W))
+        key = f"{kind}/{use_obs}"
+        jr = refs["runs"][key]
+        e = lane_tracking_error(res["Yp"], L.ref).cpu().numpy()
+        alive = res["alive"][:, -1].cpu().numpy()
+        What = res["What"].cpu().numpy()
+        x64 = np.asarray(jr["err_mean"])
+        f32 = np.asarray(jr["f32"]["err_mean"])
+        band = np.asarray(jr["f32"]["band"])
+        nref = len(x64)
+        d64 = np.abs(e[:nref] - x64)
+        # gate 2, each reference lane: within 1e-3 of the hull of its x64
+        # err_mean and its band of JAX's own f32 runs (the asset and
+        # one-ulp copies of its A: the loop amplifies f32 rounding)
+        off = loaded_lane_gate(e, jr)
+        near = bool((off < 1e-3).all())
+        e16, i = float(e[:nref].mean()), int(d64.argmax())
+        err16[key] = e16
+        log(f"LD3 loaded {kind} {'with' if use_obs else 'without'} the "
+            f"observer, B={B} x {steps} steps: {wall:.3f} s (CUDA events), "
+            f"{B * (steps - 1) / wall:.4e} lane-steps/s, alive "
+            f"{alive.mean():.6f}, err_mean {e.mean():.6f}, err_worst "
+            f"{e.max():.6f}, max |What| {np.abs(What).max():.6f}, launches "
+            f"{ {k: v for k, v in counts.items() if v} }; the {nref} "
+            f"reference lanes: err_mean {e16:.6f} (JAX x64 "
+            f"{x64.mean():.6f}, JAX f32 {f32.mean():.6f}), a lane's |d| "
+            f"to x64 at most {d64[i]:.3e} (lane {i}: {e[i]:.6f}, x64 "
+            f"{x64[i]:.6f}, JAX f32 band {band[i, 0]:.6f} to "
+            f"{band[i, 1]:.6f}), outside its hull of x64 and "
+            f"the band by at most {off.max():.3e} (lane "
+            f"{int(off.argmax())}; bound 1e-3), alive "
+            f"{int(alive[:nref].sum())}/{nref} (JAX x64 "
+            f"{sum(jr['alive'])}) | {smi}")
+        ok = bool((alive[:nref] == np.asarray(jr["alive"])).all()
+                  and near and np.abs(What).max() <= 1.0 + 1e-6
+                  and np.isfinite(e).all())
+        if kind == "linear":
+            ok &= bool((What[..., -1] == 0).all())
+        if key == refs["f32_full"]["run"]:
+            full = refs["f32_full"]
+            ok &= bool(alive.mean() >= full["alive"]
+                       and abs(e.mean() - full["err_mean"]) < 1e-3)
+            log(f"LD3 {key} B={B}: alive {alive.mean():.6f} err_mean "
+                f"{e.mean():.6f} against JAX's own f32 run at B="
+                f"{full['B']}: alive {full['alive']:.6f} err_mean "
+                f"{full['err_mean']:.6f}")
+        if not ok:
+            raise AssertionError(f"LD3 {key}: off the JAX reference")
+        launches["bilin"] += counts.get("bilin", 0)
+        launches["ipm_shared"][key] = counts.get("ipm_shared", 0)
+        short = sim.batched_runner(L.ref, steps=21)
+        ev = device_events(lambda: short(X0, W), 1)
+        log(f"LD3 {key} kernels over 20 steps (torch.profiler): " + (
+            "; ".join(f"{k} {ms:.4f} ms x {n:g} = {ms / n:.4f} ms a launch"
+                      for k, (ms, n) in sorted(ev.items()) if k in names)
+            if ev else "no device time from the profiler") + f" | {smi}")
+        # device launches a wrapper call on the path: the profiler's
+        # launches of each source's kernels over these 20 steps' calls
+        upd20 = sum(obs.updates(k) for k in range(1, 21)) if obs else 0
+        calls = {"bilin": 20 if kind == "bilinear" else 0,
+                 "ipm_shared": upd20 + (20 if kind == "linear" else 0)}
+        for src, c in calls.items():
+            if c and ev:
+                per_call[src if src == "bilin" else key] = sum(
+                    n for k, (_, n) in ev.items() if k in of[src]) / c
+        del res
+    ratio = err16["bilinear/True"] / err16["bilinear/False"]
+    log(f"LD3 the observer on the bilinear loop, {len(x64)} reference "
+        f"lanes: err_mean {err16['bilinear/True']:.6f} with, "
+        f"{err16['bilinear/False']:.6f} without (ratio {ratio:.3f}; "
+        f"tests/test_loaded.py:106 asks < 0.8)")
+    if not ratio < 0.8:
+        raise AssertionError("LD3: the observer does not improve tracking")
+    L.arm.clear_graphs()
+    out["launches"] = launches
+    out["per_call"] = per_call
+    return out
 
 
 def gram_conds(datasets, r) -> tuple:
@@ -1172,10 +1649,19 @@ def main() -> int:
                 IS.kernel_spec(qcons, lane_p=True),
                 IS.kernel_spec(ucons, lane_p=True),
                 BC.kernel_spec(qcons.n), BC.kernel_spec(ucons.n)])
+    # the loaded experiment's four new builds (phase LD)
+    Lx = loaded_setup(dev)
+    specs += list(Lx.specs.values())
     builds = _build.build_all(specs)
     ptxas_of = {sp: r.ptxas for sp, r in zip(specs, builds)}
     names = kernel_names(_build.CSRC)
     dev_launches = {}
+
+    def ptx(spec) -> str:
+        """A build's ``ptxas -v`` lines, joined."""
+        return " | ".join(ln.split("ptxas info    :")[-1].strip()
+                          for ln in ptxas_of[spec]
+                          if "Compile time" not in ln)
 
     def kernel_ms(name, fn, reps: int, warmup: int = 2,
                   build: str = "") -> float:
@@ -1236,6 +1722,38 @@ def main() -> int:
             f"({'cached' if r.cached else 'nvcc'})")
         for ln in r.ptxas:
             log("  " + ln.strip())
+
+    # ---- phase G: the plant's CUDA graph (``models/arm.py:PlantGraph``,
+    # which every general runner, the lasso sweep and the loaded loops
+    # replay) against the eager step, bitwise, over two periods: the
+    # bench's 3-link arm (jac_mode 'step') at B=65536 and the loaded 2-link
+    # arm ('substep': 5 substeps, 3 Newton iterations) at B=2048
+    def check_graph(a, B, label):
+        X, U, Wl = plant_lanes(a, B)
+        a.clear_graphs()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        r0 = torch.cuda.memory_reserved(dev)
+        xg = a.step(X, U, Wl)
+        pool = (torch.cuda.memory_reserved(dev) - r0) / 2 ** 20
+        xg2 = a.step(xg, U, Wl)
+        xe = a.step_eager(X, U, Wl)
+        xe2 = a.step_eager(xe, U, Wl)
+        bits = lambda t: t.view(torch.int32)
+        same = torch.equal(bits(xe), bits(xg)) \
+            and torch.equal(bits(xe2), bits(xg2))
+        t_e = cuda_ms(lambda: a.step_eager(X, U, Wl), reps=3, warmup=1)
+        t_g = cuda_ms(lambda: a.step(X, U, Wl), reps=10)
+        log(f"G plant graph {label} B={B}: bitwise the eager step over two "
+            f"periods {same}; a period {t_g:.3f} ms replayed, "
+            f"{t_e:.3f} ms eager (CUDA events); the capture reserved "
+            f"{pool:.1f} MiB (its memory pool) | {smi}")
+        if not (same and bool(torch.isfinite(xg2).all())):
+            raise AssertionError(f"G {label}: the graphed plant is not the "
+                                 f"eager one")
+
+    check_graph(arm, B_GENERAL, "3-link, jac_mode 'step'")
+    check_graph(Lx.arm, Lx.r["B_full"], "loaded 2-link, jac_mode 'substep'")
 
     def spread_X0(B):
         X0 = np.zeros((B, 6), np.float32)
@@ -2424,12 +2942,18 @@ def main() -> int:
     # corpus, hold them to the CPU's training and to the committed assets,
     # and close the loop with them through the kernels
     phase_training(dev, drive, arm, ref, spread_X0, fused_rate, smi)
+    arm.clear_graphs()          # the bench arm's periods: no phase after T
 
     # ---- phases LS, RS: the lasso sweep from the corpus to the closed
     # loop (its per-lane-P ipm_shared launches join row 4's main path),
     # and the random-system sweep at the reference's scale
     ls = phase_lasso_sweep(dev, drive, check_qp, kernel_ms, smi)
     phase_rand_models(dev, smi)
+
+    # ---- phase LD: the loaded-arm experiment from its corpus to the
+    # closed loop with the load observer (its bilin and ipm_shared
+    # launches join rows 5 and 4)
+    ld = phase_loaded(dev, drive, check_qp, ptx, Lx, smi)
 
     tpu = "koopman_realizations_tpu/ops/pallas/"
     src = "koopman_realizations_torch/csrc/"
@@ -2441,8 +2965,10 @@ def main() -> int:
              fused_main["linear_step_fused"], ls_err, ls_ms, ls_plain,
              ls_bound, ls_by),
             ("ipm_shared", "qp_ipm.py:299",
-             general_main["ipm_shared"] + lane_main + ls["launches"],
-             max(is_err, is_lane_err, ls["err"]),
+             general_main["ipm_shared"] + lane_main + ls["launches"]
+             + sum(ld["launches"]["ipm_shared"].values()),
+             max(is_err, is_lane_err, ls["err"], ld["ipm_shared"]["err"],
+                 ld["observer n=2"]["err"], ld["observer n=1"]["err"]),
              is_ms, is_plain, is_bound, is_by),
             ("nmpc_multipass", "qp_ipm.py:1422",
              general_main["nmpc_multipass"], nm_err, nm_ms, nm_plain,
@@ -2451,8 +2977,10 @@ def main() -> int:
              ns_ms, ns_plain, ns_bound, ns_by),
             ("nmpc_pass", "qp_ipm.py:1144", full_main["nmpc_pass"], np_err,
              np_ms, np_plain, np_bound, np_by),
-            ("bilin", "qp_ipm.py:998", route_main["bilin"], bi_err, bi_ms,
-             bi_plain, bi_bound, bi_by),
+            ("bilin", "qp_ipm.py:998",
+             route_main["bilin"] + ld["launches"]["bilin"],
+             max(bi_err, ld["bilin"]["err"]), bi_ms, bi_plain, bi_bound,
+             bi_by),
             ("ipm_factored", "qp_ipm.py:299",
              route_main["ipm_factored"] + lin_main, if_err, if_ms, if_plain,
              if_bound, if_by),
@@ -2474,6 +3002,25 @@ def main() -> int:
     next(k for k in kernels if k["name"] == "ipm_shared")["lasso_sweep"] = {
         "launches": ls["launches"], "ms": ls["ms"], "plain_ms": ls["plain"],
         "bound_ms": ls["bound"], "bound_by": ls["by"]}
+    # the loaded experiment's builds (phase LD, B=2048): their launches
+    # are in their rows' launches, timed on their own; their device
+    # launches a call counted by the profiler over 20 steps of the loops
+    # (the linear loop's lane-shared and observer calls together)
+    def sub(entry, launches, per):
+        return {"launches": launches, "max_abs_err": entry["err"],
+                "ms": entry["ms"], "plain_ms": entry["plain"],
+                "bound_ms": entry["bound"], "bound_by": entry["by"],
+                "device_launches_per_call": ld["per_call"].get(per)}
+    ldl = ld["launches"]["ipm_shared"]
+    next(k for k in kernels if k["name"] == "bilin")["loaded"] = sub(
+        ld["bilin"], ld["launches"]["bilin"], "bilin")
+    next(k for k in kernels if k["name"] == "ipm_shared")["loaded"] = {
+        "lane_shared_n8": sub(ld["ipm_shared"], Lx.refs["steps"] - 1,
+                              "linear/True"),
+        "observer_n2": sub(ld["observer n=2"], ldl["bilinear/True"],
+                           "bilinear/True"),
+        "observer_n1": sub(ld["observer n=1"], ldl["linear/True"]
+                           - (Lx.refs["steps"] - 1), "linear/True")}
     log("device launches a wrapper call (torch.profiler, each build's "
         "first timing): " + ", ".join(
             f"{k} {v}" for k, v in dev_launches.items()))

@@ -69,6 +69,9 @@ class MpcConfig:
     cost_terminal: float = 100.0
     cost_input: Sequence[float] = (0.0,)
     mpc_type: Optional[str] = None       # default: nonlinear iff model nonlinear
+    load_obs_horizon: int = 10           # load observer: regression rows,
+    load_obs_period: int = 1             # steps between updates,
+    load_obs_slope: Optional[float] = None   # |w - w_prev| bound per update
     proj_idx: Optional[Tuple[int, ...]] = None
     qp_iters: int = 12
     qp_dual_warm: bool = False

@@ -1,7 +1,8 @@
 """Koopman MPC controllers of the port: ``BilinearKmpc`` (blocked and
 lift-fused, or off that route: unblocked stacks with or without
 smoothness rows, iterated relinearization), the blocked static condensed
-``LinearKmpc`` and the blocked SQP ``NonlinearKmpc``.
+``LinearKmpc`` and the blocked SQP ``NonlinearKmpc``; the first two also
+on loaded models (the lifted state [g; w1 g; ...] of the load estimate).
 
 Host constants are built in f64 numpy exactly as the JAX package builds
 them (``control/kmpc.py``): the input constraint stack
@@ -69,6 +70,7 @@ from koopman_realizations_torch.ops.nmpc import (
     stage_lin,
 )
 from koopman_realizations_torch.ops.observables import (
+    kron_ones,
     poly_features,
     poly_parent_tables,
 )
@@ -273,22 +275,26 @@ class _KmpcBase(nn.Module):
     F0r), of the blocking (Tb, Sel; None unblocked) and of the lift.
 
     Ported: input blocks without smoothness, or no blocks with or without
-    smoothness (the blocked JAX controller refuses smoothness too); no
-    state bounds or loads, no dual stage shift, a single poly family with
-    a PCA basis.
+    smoothness (the blocked JAX controller refuses smoothness too); loaded
+    models (nw > 0) without delays, whose lifted state is
+    [g; w1 g; ...] of the scaled load estimate (``lift``); no state
+    bounds, no dual stage shift, a single poly family with a PCA basis.
     """
 
     def __init__(self, model, scaler, cfg: MpcConfig, device, dtype):
         super().__init__()
         dev = resolve_device(device)
         basis = model.basis
-        if (cfg.state_bounds is not None or model.meta.nw != 0
-                or cfg.qp_dual_shift or basis.pcs is None
-                or len(basis.families) != 1
+        if (cfg.state_bounds is not None or cfg.qp_dual_shift
+                or basis.pcs is None or len(basis.families) != 1
                 or basis.families[0][0] != "poly"):
             raise NotImplementedError(
-                "the port has no state bounds, loads or dual shift, and "
-                "takes one poly family with PCA")
+                "the port has no state bounds or dual shift, and takes one "
+                "poly family with PCA")
+        if model.meta.nw and model.meta.nd:
+            raise NotImplementedError(
+                "loaded models with delays are not ported (ROADMAP.md "
+                "queue 1, item 7)")
         if cfg.input_blocks is not None and cfg.input_smoothConst is not None:
             raise NotImplementedError(
                 "input_blocks with input_smoothConst is not supported")
@@ -383,13 +389,19 @@ class _KmpcBase(nn.Module):
         shifted = torch.cat([U_plan[2 * m:], U_plan[-m:]])
         return self.Sel_t @ shifted if self.blocked else shifted
 
-    def lift(self, zeta) -> torch.Tensor:
-        """The econ basis z = [zeta; pcs^T g(zeta); 1] of lanes-minor
-        zeta (nz, B): (NL, B) (``KoopmanBasis.lift`` on the device
-        tables)."""
+    def lift(self, zeta, what=None) -> torch.Tensor:
+        """The lifted state of lanes-minor zeta (nz, B): the econ basis
+        z = [zeta; pcs^T g(zeta); 1] (``KoopmanBasis.lift`` on the device
+        tables), and for a loaded model its blocks [z; w1 z; ...] under
+        the scaled load estimate ``what`` (nw, B) (``lift_loaded``; JAX
+        ``ksim.py:97-114``): (NL, B)."""
+        if (what is None) != (self.meta.nw == 0):
+            raise ValueError("a loaded model's lift takes the load "
+                             "estimate, an unloaded one none")
         ones = zeta.new_ones((1, zeta.shape[1]))
         g = torch.cat([zeta, poly_features(zeta, self.poly_tables()), ones])
-        return torch.cat([zeta, self.pcsT_t @ g, ones])
+        z = torch.cat([zeta, self.pcsT_t @ g, ones])
+        return z if what is None else kron_ones(what.to(z.dtype), z)
 
     def plan(self, u_prev, x) -> torch.Tensor:
         """The plan [u_prev; Tb x] (Np*m, B) of a reduced decision x (Tb
@@ -409,10 +421,12 @@ class BilinearKmpc(_KmpcBase):
     unblocked; u_0 is pinned to the previous input.  The route is the JAX
     controller's:
 
-    - **lift-fused** (blocked, ``bilinear_iters=1``; the bench controller)
-      -- one ``bilin_lift`` launch from the raw zeta (``wants_zeta``), or
-      the whole step inside the fused step kernel;
-    - otherwise the runner lifts zeta, and the first QP is one ``bilin``
+    - **lift-fused** (blocked, ``bilinear_iters=1``, no loads; the bench
+      controller) -- one ``bilin_lift`` launch from the raw zeta
+      (``wants_zeta``), or the whole step inside the fused step kernel;
+    - otherwise (a loaded model too: its lifted state carries the load
+      estimate, JAX ``kmpc.py:862-864``) the runner lifts zeta, and the
+      first QP is one ``bilin``
       launch from z (blocked) or the host's shared-Beta assembly
       W, v = f(PG z) and one ``ipm_factored`` launch (unblocked); each
       later QP re-rolls the lifted state on the host, forms the
@@ -436,8 +450,10 @@ class BilinearKmpc(_KmpcBase):
             else self.r_diag[m:]
         self.sqq = np.sqrt(self.q_diag)
         self.p = self.sqq.size
-        # the route (kmpc.py:688-742, 863-869)
-        self.lift_fused = self.blocked and cfg.bilinear_iters == 1
+        # the route (kmpc.py:688-742, 863-869); a loaded model's lifted
+        # state is not the poly lift's, so it takes the z route
+        self.lift_fused = self.blocked and cfg.bilinear_iters == 1 \
+            and self.meta.nw == 0
         self.wants_zeta = self.lift_fused
         t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                       device=self.device)
@@ -737,8 +753,8 @@ class NonlinearKmpc(_KmpcBase):
       ``sqp_best_of_passes`` or the line search.
 
     Not ported, each raising ``NotImplementedError``: unblocked stacks,
-    state bounds and loads (``_KmpcBase``), and a bilinear model with
-    ``mpc_type='nonlinear'``.
+    state bounds (``_KmpcBase``) and a bilinear model with
+    ``mpc_type='nonlinear'``; loaded models raise as in the JAX package.
 
     Host constants (f64 numpy, as the JAX package): the composed maps
     ``A1``, ``A2``, ``a0``; the Jacobian generator ``G`` and ``pos_x``;
@@ -749,6 +765,10 @@ class NonlinearKmpc(_KmpcBase):
 
     def __init__(self, model, scaler, cfg: MpcConfig, device="cuda",
                  dtype=torch.float32):
+        if model.meta.nw:
+            # as the JAX controller (kmpc.py:1098-1103)
+            raise NotImplementedError(
+                "NMPC on loaded (nw > 0) models is not supported")
         if model.meta.model_type != "nonlinear" \
                 or cfg.mpc_type not in (None, "nonlinear"):
             raise NotImplementedError(

@@ -24,6 +24,14 @@ linear ``LinearKmpc``, the SQP ``NonlinearKmpc``):
   gradient columns G2 @ Yr) are computed on the device up front and the
   tracked outputs go into a preallocated (steps-1, nproj, B) record.
 
+Loaded models (nw > 0) run on the general runner (``ksim.py:97-160``):
+the lifted state is that of the scaled load estimate ``what`` (nw, B),
+zero unless a load observer (``control/observer.py``) updates it from the
+trailing windows of scaled outputs and inputs, before the lift, every
+``load_obs_period`` steps; the estimate freezes with its lane and is
+recorded as ``What``.  Each lane's true load is constant (``W``, as
+``run_batch``, :554-577).
+
 Reference quirks kept (``Ksim.m:199,225,239-246``): the applied input is
 the SECOND row of the plan, the plant consumes the PREVIOUS step's input,
 and the horizon is anchored at the current reference row.  Lanes freeze on
@@ -53,17 +61,26 @@ from koopman_realizations_torch.ops.kernels.step_fused import (
 
 
 class Ksim:
-    """Closed-loop harness binding the arm plant and the controller."""
+    """Closed-loop harness binding the arm plant, the controller and, for
+    a loaded model, an optional load observer."""
 
     def __init__(self, plant, mpc: BilinearKmpc | LinearKmpc | NonlinearKmpc,
-                 device="cuda"):
+                 observer=None, device="cuda"):
         self.device = resolve_device(device)
         self.plant = plant
         self.mpc = mpc
         self.scaler = mpc.scaler
         self.meta = mpc.meta
-        if self.meta.nd != 0 or self.meta.nw != 0:
-            raise NotImplementedError("delays and loads are not ported")
+        self.observer = observer
+        if self.meta.nd != 0:
+            raise NotImplementedError("delays are not ported")
+        if observer is not None and (self.meta.nw == 0
+                                     or observer.dtype != mpc.dtype):
+            raise ValueError("the load observer needs a loaded model and "
+                             "the controller's dtype")
+        # the trailing windows' rows: the observer's regression needs
+        # load_obs_horizon + 1 rows of past measurements
+        self.win = 1 if observer is None else observer.horizon + 1
         # the NMPC carries no duals across steps (ksim.py:93-94: it has no
         # n_con in the JAX package)
         self._dual_warm = bool(mpc.cfg.qp_dual_warm) \
@@ -111,15 +128,19 @@ class Ksim:
 
     def batched_runner(self, ref, steps: Optional[int] = None):
         """fn(X0 (B, nx), W (B, 2)) -> {"Yp": (B, steps-1, nproj),
-        "alive": (B, steps-1) bool} for the general closed loop."""
+        "alive": (B, steps-1) bool} for the general closed loop, and for a
+        loaded model "What": (B, steps-1, nw), the scaled load estimate
+        each step used (frozen with its lane)."""
         K = self._steps(ref, steps)
         windows = self.reference_windows(ref, K)
-        mpc, plant, sc = self.mpc, self.plant, self.scaler
-        m, Np = mpc.m, mpc.Np
+        mpc, plant, sc, obs = self.mpc, self.plant, self.scaler, \
+            self.observer
+        m, Np, nw = mpc.m, mpc.Np, self.meta.nw
         proj = list(mpc.proj_idx)
         # the lift-fused bilinear kernel lifts zeta itself (``wants_zeta``);
-        # the NMPC takes the raw zeta (ksim.py:97-112)
-        lift = (lambda z: z) if isinstance(mpc, NonlinearKmpc) \
+        # the NMPC takes the raw zeta (ksim.py:97-112); a loaded model's
+        # lift takes the load estimate (None without loads)
+        lift = (lambda z, what: z) if isinstance(mpc, NonlinearKmpc) \
             or getattr(mpc, "wants_zeta", False) else mpc.lift
 
         def runner(X0, W):
@@ -135,8 +156,17 @@ class Ksim:
             Yp = x.new_empty((K - 1, len(proj), B))
             alive_rec = torch.empty((K - 1, B), dtype=torch.bool,
                                     device=x.device)
+            what = x.new_zeros((nw, B)) if nw else None
+            What = x.new_empty((K - 1, nw, B)) if nw else None
+            # trailing windows, oldest row first (ysc / upsc the newest)
+            ywin = ysc[None].repeat(self.win, 1, 1) if obs else None
+            uwin = upsc[None].repeat(self.win, 1, 1) if obs else None
             for k in range(K - 1):
-                U, sol = mpc.solve(lift(ysc), upsc, windows[k], U_plan,
+                what_prev = what
+                if obs is not None:
+                    # k + 1 is the reference's 1-based step counter
+                    what = obs(k + 1, ywin, uwin, what)
+                U, sol = mpc.solve(lift(ysc, what), upsc, windows[k], U_plan,
                                    *(() if lam is None else (lam,)))
                 u_next_sc = U[m:2 * m]
                 x_new = plant.step(x, u_prev, Wt)
@@ -145,7 +175,11 @@ class Ksim:
                 keep = lambda new, old: torch.where(alive, new, old)
                 x = keep(x_new, x)
                 y = keep(y_new, y)
-                ysc = keep(sc.y_down(y_new, axis=0), ysc)
+                ysc_new = sc.y_down(y_new, axis=0)
+                if obs is not None:
+                    ywin = keep(torch.cat([ywin[1:], ysc_new[None]]), ywin)
+                    uwin = keep(torch.cat([uwin[1:], u_next_sc[None]]), uwin)
+                ysc = keep(ysc_new, ysc)
                 upsc = keep(u_next_sc, upsc)
                 u_prev = keep(sc.u_up(u_next_sc, axis=0), u_prev)
                 U_plan = keep(U, U_plan)
@@ -153,7 +187,13 @@ class Ksim:
                     lam = keep(sol.lam, lam)
                 Yp[k] = y[proj]
                 alive_rec[k] = alive
-            return {"Yp": Yp.permute(2, 0, 1), "alive": alive_rec.T}
+                if nw:
+                    what = keep(what, what_prev)
+                    What[k] = what
+            out = {"Yp": Yp.permute(2, 0, 1), "alive": alive_rec.T}
+            if nw:
+                out["What"] = What.permute(2, 0, 1)
+            return out
 
         return runner
 
@@ -169,8 +209,10 @@ class Ksim:
         linear controller's branch (``ksim.py:429-436``: blocked, cold
         duals, no shift, one poly family with PCA) is every configuration
         ``LinearKmpc`` takes.  The NMPC has no fused step (as in the JAX
-        package, ``ksim.py:409-437``)."""
-        if isinstance(self.mpc, NonlinearKmpc):
+        package, ``ksim.py:409-437``), nor has a loaded model or a loop
+        with the load observer."""
+        if isinstance(self.mpc, NonlinearKmpc) or self.observer is not None \
+                or self.meta.nw:
             return False
         cfg = self.plant.cfg
         common = (cfg.integrator == "sdirk2" and cfg.jac_mode == "step"

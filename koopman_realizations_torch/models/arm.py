@@ -2,7 +2,22 @@
 that the closed loop reads): the closed-form inertia/lever tables
 (``arm.py:37-53``), the batched SDIRK2 control-period step
 (``models/arm_lanes.py``) and the marker outputs (``get_markers`` :253,
-``get_y_batch`` :310)."""
+``get_y_batch`` :310).
+
+The plain step is many small elementwise launches a control period
+(more with ``jac_mode='substep'``: a Jacobian a substep); the JAX package
+compiles it into one XLA computation.  On the
+card ``Arm.step`` therefore captures one control period, once per batch
+width and dtype, in a CUDA graph with static input and output buffers
+(``PlantGraph``) and replays it: the same kernels in the same order, so
+its result is bitwise the eager step's (``step_eager``).  A failed
+capture raises.  On the CPU the step runs eagerly.
+
+Each graph keeps one period's intermediates in a private memory pool,
+proportional to the batch width (chip_smoke.py's phase G logs its size at
+B=65536 and B=2048).  An arm keeps the graphs of its ``GRAPH_WIDTHS``
+most recently stepped widths and drops the oldest beyond them;
+``Arm.clear_graphs`` drops them all."""
 
 from __future__ import annotations
 
@@ -13,6 +28,9 @@ from torch import nn
 from koopman_realizations_torch import resolve_device
 from koopman_realizations_torch.config import ArmConfig
 from koopman_realizations_torch.models.arm_lanes import sdirk2_rows
+
+# captured control periods an arm keeps (the most recently stepped widths)
+GRAPH_WIDTHS = 4
 
 
 def markers_rows(cfg: ArmConfig, a_rows):
@@ -66,10 +84,34 @@ class Arm(nn.Module):
         dev = resolve_device(device)
         self.register_buffer("G", torch.as_tensor(G, device=dev))
         self.register_buffer("b", torch.as_tensor(b, device=dev))
+        # (B, dtype, device) -> the captured control period, the most
+        # recently stepped last
+        self._graphs: dict = {}
 
     def step(self, X: torch.Tensor, U: torch.Tensor, W: torch.Tensor):
         """One control period Ts, lanes-minor: X (nx, B), U (m, B) in
-        original units, W (2, B) loads."""
+        original units, W (2, B) loads; on the card a replay of the
+        period's CUDA graph for this batch width and dtype (captured at
+        its first call, kept among the last ``GRAPH_WIDTHS``), on the CPU
+        ``step_eager``."""
+        if not X.is_cuda:
+            return self.step_eager(X, U, W)
+        key = (X.shape[1], X.dtype, X.device)
+        graph = self._graphs.pop(key, None)
+        if graph is None:
+            if len(self._graphs) >= GRAPH_WIDTHS:
+                del self._graphs[next(iter(self._graphs))]
+            graph = PlantGraph(self, *key)
+        self._graphs[key] = graph
+        return graph(X, U, W)
+
+    def clear_graphs(self):
+        """Drop every captured control period (and its memory pool)."""
+        self._graphs.clear()
+
+    def step_eager(self, X: torch.Tensor, U: torch.Tensor,
+                   W: torch.Tensor):
+        """``step`` as eager PyTorch operations (the plain plant)."""
         cfg = self.cfg
         return torch.stack(sdirk2_rows(
             cfg, self.G_host, self.b_host, tuple(X), list(U), W[0], W[1],
@@ -83,3 +125,35 @@ class Arm(nn.Module):
         """Row-major outputs as in the JAX package: X (B, nx) -> (B, ny)."""
         X = torch.as_tensor(X, device=self.G.device)
         return self.get_y(X.T).T
+
+
+class PlantGraph:
+    """One control period of ``Arm.step_eager`` at batch width B, captured
+    in a ``torch.cuda.CUDAGraph``: static inputs X (nx, B), U (m, B),
+    W (2, B) and the static output; a call copies its operands into the
+    inputs, replays the graph and returns a copy of the output (the next
+    replay overwrites it)."""
+
+    def __init__(self, arm: Arm, B: int, dtype: torch.dtype,
+                 device: torch.device):
+        cfg = arm.cfg
+        z = lambda r: torch.zeros((r, B), dtype=dtype, device=device)
+        self.X, self.U, self.W = z(cfg.nx), z(cfg.Nmods), z(2)
+        # warm up on a side stream (the caching allocator's blocks and
+        # any lazy initialisation), then capture
+        cur = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            arm.step_eager(self.X, self.U, self.W)
+        cur.wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = arm.step_eager(self.X, self.U, self.W)
+
+    def __call__(self, X, U, W) -> torch.Tensor:
+        self.X.copy_(X)
+        self.U.copy_(U)
+        self.W.copy_(W)
+        self.graph.replay()
+        return self.out.clone()

@@ -245,9 +245,10 @@ def sdirk2_rows(cfg, G, bvec, xs0, us, w1, w2, Ts, substeps, newton_iters,
     JAX package, line for line.
     """
     n = 2 * cfg.Nlinks
-    # gamma in the component dtype, as the JAX code pins it
+    # gamma in the component dtype, as the JAX code pins it (a fill, not
+    # a host copy, so that the period can be captured in a CUDA graph)
     gamma = 1.0 - 1.0 / torch.sqrt(
-        torch.tensor(2.0, dtype=xs0[0].dtype, device=xs0[0].device))
+        torch.full((), 2.0, dtype=xs0[0].dtype, device=xs0[0].device))
     dt = Ts / substeps
 
     f = make_rhs_tuple(cfg, G, bvec, list(us), w1, w2)

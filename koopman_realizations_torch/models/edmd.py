@@ -17,8 +17,10 @@ holding host numpy in ``cfg.dtype``, which is what the controllers take.
 
 Ported: discrete time, plain least squares (lasso inf) and the LASSO
 path (finite lasso: FISTA in f64 on the device, ``ops/lasso.py``, with
-the delay pin mask), poly bases, no loads.  The rest raises
-``NotImplementedError`` naming its ROADMAP item.
+the delay pin mask), poly bases, with loads (``cfg.loaded``: the lifted
+state [g; w1 g; ...], NL = N (nw + 1), from trials that carry ``w``) or
+without.  The rest raises ``NotImplementedError`` naming its ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -113,21 +115,26 @@ class Ksysid:
     def __init__(self, data: DataSet, cfg: SysidConfig, device="cuda"):
         if cfg.time_type != "discrete":
             _not_ported("continuous time (logm_host, zoh_discretize)")
-        if cfg.loaded:
-            _not_ported("training loaded models (nw > 0)")
         if data.snapshots is not None:
             _not_ported("pre-extracted snapshot pairs of a datafile", 10)
+        if cfg.loaded and cfg.delays:
+            _not_ported("loaded models with delays", 7)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
         first = data.train[0]
         self.n, self.m, self.Ts = first.n, first.m, first.Ts
+        if cfg.loaded and first.w is None:
+            raise ValueError("loaded=True but training data has no load "
+                             "field (w)")
+        self.nw = first.w.shape[1] if cfg.loaded else 0
         self.nd = cfg.delays
         self.nzeta = self.n * (self.nd + 1) + self.m * self.nd
         self.isfake = data.isfake
         self.sys_params = data.params
         self.clock = StageClock(self.device)
-        self.basis: KoopmanBasis = build_basis(cfg, self.n, self.m)
+        self.basis: KoopmanBasis = build_basis(cfg, self.n, self.m,
+                                               nw=self.nw)
 
         # merge + scale (Ksysid.m:119-131) and snapshot pairs (:134)
         with self.clock("data"):
@@ -162,7 +169,8 @@ class Ksysid:
 
     def get_snapshot_pairs(self, data: Trial, num: float) -> SnapshotPairs:
         """Snapshot pairs of merged time series (``Ksysid.m:910-984``),
-        host numpy f64.  Pairs straddling trial boundaries are dropped
+        host numpy f64, with each pair's load w for a loaded model.  Pairs
+        straddling trial boundaries are dropped
         (before.t < after.t); then ``num_max = P-1`` pairs are sampled
         without replacement (so with snapshots=inf the last pair is left
         out, as in the reference), a finite ``num`` by a numpy Generator
@@ -173,6 +181,9 @@ class Ksysid:
         alpha = zeta[:-1][good]
         beta = zeta[1:][good]
         u = uzeta[:-1][good]
+        w = None
+        if self.nw > 0:
+            w = np.asarray(data.w)[self.nd:][:-1][good]
         num_max = alpha.shape[0] - 1
         k = num_max if not math.isfinite(num) else min(int(num), num_max)
         if k < num_max:
@@ -180,7 +191,8 @@ class Ksysid:
             idx = rng.choice(num_max, size=k, replace=False)
         else:
             idx = np.arange(num_max)
-        return SnapshotPairs(alpha=alpha[idx], beta=beta[idx], u=u[idx])
+        return SnapshotPairs(alpha=alpha[idx], beta=beta[idx], u=u[idx],
+                             w=None if w is None else w[idx])
 
     def _dimred_inputs(self) -> np.ndarray:
         """Rows fed to the full lift for PCA (``Ksysid.lift_snapshots``)."""
@@ -201,10 +213,11 @@ class Ksysid:
     @_full_f32
     def lift_snapshot_matrices(self):
         """The regression matrices (Px, Py), (K, cols) on the device
-        (``Ksysid.m:1013-1065``), memoized:
-        - linear:    [psi(zeta), u]       (N + m columns)
-        - nonlinear: psi([zeta, u])       (N columns)
-        - bilinear:  psi_input(zeta, u)   (N*(m+1) columns)
+        (``Ksysid.m:1013-1065``), memoized, with NL = N*(nw+1) (psi the
+        loaded lift for a loaded model):
+        - linear:    [psi(zeta), u]       (NL + m columns)
+        - nonlinear: psi([zeta, u])       (NL columns)
+        - bilinear:  psi_input(zeta, u)   (NL*(m+1) columns)
         """
         if self._lifted is not None:
             return self._lifted
@@ -214,14 +227,20 @@ class Ksysid:
             beta = self._on_device(sp.beta).T
             u = self._on_device(sp.u).T
             mt = self.cfg.model_type
-            if mt == "nonlinear":
-                Px = b.lift(torch.cat([alpha, u]))
-                Py = b.lift(torch.cat([beta, u]))
-            elif mt == "bilinear":
-                Px, Py = b.lift_input(alpha, u), b.lift_input(beta, u)
+            if self.nw > 0:
+                w = self._on_device(sp.w).T
+                lift = lambda z: b.lift_loaded(z, w)
+                lift_input = lambda z: b.lift_loaded_input(z, w, u)
             else:
-                Px = torch.cat([b.lift(alpha), u])
-                Py = torch.cat([b.lift(beta), u])
+                lift, lift_input = b.lift, lambda z: b.lift_input(z, u)
+            if mt == "nonlinear":
+                Px = lift(torch.cat([alpha, u]))
+                Py = lift(torch.cat([beta, u]))
+            elif mt == "bilinear":
+                Px, Py = lift_input(alpha), lift_input(beta)
+            else:
+                Px = torch.cat([lift(alpha), u])
+                Py = torch.cat([lift(beta), u])
             self._lifted = (Px.T, Py.T)
         return self._lifted
 
@@ -246,7 +265,7 @@ class Ksysid:
         unit vectors.  Linear models with delays only."""
         if self.cfg.model_type != "linear" or self.nd < 1:
             return None
-        n, m, nd, NL = self.n, self.m, self.nd, self.N
+        n, m, nd, NL = self.n, self.m, self.nd, self.NL
         mask = np.zeros((Nm, Nm), bool)
         for j in range(1, nd + 1):          # y-delay blocks
             dst = n * j + np.arange(n)
@@ -263,7 +282,7 @@ class Ksysid:
 
     def _koop(self, K) -> dict:
         Px, Py = self.lift_snapshot_matrices()
-        return {"K": K, "Px": Px[:, :self.N], "Py": Py[:, :self.N],
+        return {"K": K, "Px": Px[:, :self.NL], "Py": Py[:, :self.NL],
                 "u": self._on_device(self.snapshot_pairs.u)}
 
     @_full_f32
@@ -314,12 +333,17 @@ class Ksysid:
     def _meta(self) -> ModelMeta:
         return ModelMeta(
             model_type=self.cfg.model_type, time_type=self.cfg.time_type,
-            n=self.n, m=self.m, nd=self.nd, nw=0, N=self.N,
+            n=self.n, m=self.m, nd=self.nd, nw=self.nw, N=self.N,
             nzeta=self.nzeta, Ts=self.Ts)
+
+    @property
+    def NL(self) -> int:
+        """The lifted state's dimension N*(nw+1)."""
+        return self.N * (self.nw + 1)
 
     def _C(self) -> np.ndarray:
         """y = C z: the first n entries of the lifted state."""
-        return np.eye(self.n, self.N, dtype=np.dtype(self.cfg.dtype))
+        return np.eye(self.n, self.NL, dtype=np.dtype(self.cfg.dtype))
 
     @staticmethod
     def _host(t: torch.Tensor) -> np.ndarray:
@@ -330,7 +354,7 @@ class Ksysid:
         """A, B, C with the projection M folded in
         (``Ksysid.get_model:1179-1235``): M = argmin ||L M^T - Py|| with
         L_i = (A Px_i + B u_i)^T, then A, B = M A, M B."""
-        K, NL = koop["K"], self.N
+        K, NL = koop["K"], self.NL
         A, B = K.T[:NL, :NL], K.T[:NL, NL:]
         L = koop["Px"] @ A.T + koop["u"] @ B.T
         M = self._lstsq(L, koop["Py"]).T
@@ -341,7 +365,7 @@ class Ksysid:
     def get_BLmodel(self, koop) -> BilinearModel:
         """A, B (stored (NL, m, NL): block k multiplies input k), C
         (``Ksysid.get_BLmodel:1238-1282``)."""
-        K, NL = koop["K"], self.N
+        K, NL = koop["K"], self.NL
         h = self._host
         return BilinearModel(A=h(K.T[:NL, :NL]),
                              B=h(K.T[:NL, NL:].reshape(NL, self.m, NL)),
@@ -386,13 +410,21 @@ class Ksysid:
     def val_model(self, model, valtrial: Trial) -> dict:
         """Open-loop rollout against a held-out trial (``Ksysid.val_*model``,
         scaled trials of ``self.valdata``): {t, sim: {y, z}, real: {y},
-        error}, the rollout on the device."""
+        error}, the rollout on the device (a loaded model's under the
+        trial's scaled loads)."""
         zeta, uz = delay_embed(valtrial.y, valtrial.u, self.nd)
         yreal = np.asarray(valtrial.y)[self.nd:]
         zeta0 = self._on_device(zeta[:1].T)
-        z0 = zeta0 if isinstance(model, NonlinearModel) \
-            else self.basis.lift(zeta0)
-        Y, Z = rollout(model, z0[:, 0], self._on_device(uz))
+        W = None
+        if self.nw > 0:
+            W = self._on_device(np.asarray(valtrial.w)[self.nd:])
+        if isinstance(model, NonlinearModel):
+            z0 = zeta0
+        elif W is None:
+            z0 = self.basis.lift(zeta0)
+        else:
+            z0 = self.basis.lift_loaded(zeta0, W[:1].T)
+        Y, Z = rollout(model, z0[:, 0], self._on_device(uz), W)
         return {"t": np.asarray(valtrial.t)[self.nd:],
                 "sim": {"y": self._host(Y), "z": self._host(Z)},
                 "real": {"y": yreal},

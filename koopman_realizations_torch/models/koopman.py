@@ -2,7 +2,7 @@
 package): the linear realization z+ = A z + B u and the bilinear one
 z+ = A z + Beta(z) u with Beta(z) = einsum('kmj,j->km', B, z), both with
 y = C z, and the nonlinear one zeta+ = W^T g([zeta; u]); and their
-open-loop rollouts (``rollout``, discrete models without loads).
+open-loop rollouts (``rollout``, discrete models, with loads or without).
 
 A model comes from the port's trainer (``models.edmd.Ksysid``) or from
 the JAX trainer's arrays (``from_jax_arrays``), both usually through the
@@ -19,7 +19,10 @@ from typing import Any
 import numpy as np
 import torch
 
-from koopman_realizations_torch.ops.observables import KoopmanBasis
+from koopman_realizations_torch.ops.observables import (
+    KoopmanBasis,
+    kron_ones,
+)
 from koopman_realizations_torch.ops.scaling import Scaler
 
 
@@ -130,45 +133,67 @@ def from_jax_arrays(header: dict, arrays: dict):
     return model, scaler
 
 
-def rollout(model, init: torch.Tensor, U: torch.Tensor):
-    """Open-loop rollout of a discrete model without loads (JAX
+def remix(z: torch.Tensor, w: torch.Tensor, N: int) -> torch.Tensor:
+    """The loaded lifted state re-mixed with the load w (nw, B):
+    kron(I_{nw+1}, z_N) [1; w] = [z_N; w1 z_N; ...] of its first N rows
+    z_N (``Ksysid.val_model:1667-1671``; JAX ``models/koopman.py:231-234``),
+    lanes-minor."""
+    return kron_ones(w.to(z.dtype), z[:N])
+
+
+def rollout(model, init: torch.Tensor, U: torch.Tensor,
+            W: torch.Tensor = None):
+    """Open-loop rollout of a discrete model (JAX
     ``models/koopman.py:208-314``): from ``init`` -- the lifted state
     (NL,), or zeta (nzeta,) for the nonlinear model -- over the inputs U
-    (T, m), in init's dtype on its device.  Returns (Y [T, n], Z [T, NL]):
-    Y = Z C^T, or zeta's first n entries for the nonlinear model."""
+    (T, m), in init's dtype on its device.  A loaded model (nw > 0) takes
+    the scaled loads W (T, nw): each step re-mixes the lifted state with
+    the step's load (``remix``), and the nonlinear model lifts
+    [zeta; u] with it.  Returns (Y [T, n], Z [T, NL]): Y = Z C^T, or
+    zeta's first n entries for the nonlinear model."""
     meta = model.meta
-    if meta.time_type != "discrete" or meta.nw:
+    if meta.time_type != "discrete":
         raise NotImplementedError(
-            "rollout is ported for discrete models without loads "
-            "(ROADMAP.md queue 1, item 2)")
+            "rollout is ported for discrete models (ROADMAP.md queue 1, "
+            "item 2)")
+    if (W is None) != (meta.nw == 0):
+        raise ValueError("a loaded model's rollout takes the loads W, an "
+                         "unloaded one none")
     like = dict(dtype=init.dtype, device=init.device)
 
     def t(a):
         return torch.as_tensor(np.asarray(a), **like)
     U = U.to(**like)
+    W = None if W is None else W.to(**like)
     NL = init.shape[0]
     if isinstance(model, LinearModel):
         A, B = t(model.A), t(model.B)
 
-        def step(z, u):
+        def step(z, u, w):
+            if w is not None:
+                z = remix(z, w, meta.N)
             return A @ z + B @ u
     elif isinstance(model, BilinearModel):
         A, Bs = t(model.A), t(model.B).reshape(NL * meta.m, NL)
 
-        def step(z, u):
+        def step(z, u, w):
+            if w is not None:
+                z = remix(z, w, meta.N)
             return A @ z + (Bs @ z).reshape(NL, meta.m) @ u
     elif isinstance(model, NonlinearModel):
         Wt = t(model.W).T
 
-        def step(z, u):
-            return Wt @ model.basis.lift(torch.cat([z, u]))
+        def step(z, u, w):
+            zu = torch.cat([z, u])
+            return Wt @ (model.basis.lift(zu) if w is None
+                         else model.basis.lift_loaded(zu, w))
     else:
         raise TypeError(f"unknown model type {type(model)}")
     Z = init.new_empty((U.shape[0], NL))
     Z[0] = init
     z = init[:, None]
     for k in range(U.shape[0] - 1):
-        z = step(z, U[k][:, None])
+        z = step(z, U[k][:, None], None if W is None else W[k][:, None])
         Z[k + 1] = z[:, 0]
     if isinstance(model, NonlinearModel):
         return Z[:, :meta.n], Z

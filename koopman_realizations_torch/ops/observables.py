@@ -6,7 +6,9 @@ full, econ and bilinear lifts, ``build_basis`` and ``delay_embed``
 Basis layout (reference-exact): the full basis is
 g = [zeta ; monomials of degree 2..d ; 1] with monomial rows in
 ``partitions.m`` order, the econ basis [zeta ; pcs^T g(zeta) ; 1], the
-bilinear lift [g ; u1*g ; ... ; um*g].  The lifts here are lanes-minor:
+bilinear lift [g ; u1*g ; ... ; um*g], the loaded lift
+[g ; w1*g ; ... ; w_nw*g] and both at once.  The lifts here are
+lanes-minor:
 zeta is (nz, B), features are (rows, B).  Only the poly family is ported;
 the others (fourier, fourier_sparser, gaussian, hermite) raise.
 """
@@ -21,7 +23,8 @@ import numpy as np
 import torch
 
 __all__ = ["partitions_ones", "poly_exponents", "poly_parent_tables",
-           "poly_features", "KoopmanBasis", "build_basis", "delay_embed"]
+           "poly_features", "KoopmanBasis", "kron_ones", "build_basis",
+           "delay_embed"]
 
 
 def _require_poly(kind: str):
@@ -140,6 +143,10 @@ class KoopmanBasis:
             return self.N_full
         return self.nzeta_aug + self.pcs.shape[1] + 1
 
+    @property
+    def N_loaded(self) -> int:
+        return self.N * (self.nw + 1)
+
     def _device_tables(self, device: torch.device):
         """Each family's (parent, dim) index tables on ``device``."""
         key = ("tables", device)
@@ -187,13 +194,30 @@ class KoopmanBasis:
         """Bilinear lift [g ; u1*g ; ...] of lanes-minor zeta (nz, B) and
         u (m, B): (N*(m+1), B) (``Ksysid.m:508-516``)."""
         g = self.lift(zeta)
-        one_u = torch.cat([g.new_ones((1,) + tuple(g.shape[1:])),
-                           u.to(g.dtype)])
-        return (one_u[:, None] * g[None]).reshape(
-            (-1,) + tuple(g.shape[1:]))
+        return kron_ones(u.to(g.dtype), g)
+
+    def lift_loaded(self, zeta: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """Loaded lift [g ; w1*g ; ...] of lanes-minor zeta (nz, B) and
+        the scaled load w (nw, B): (N*(nw+1), B) (``Ksysid.m:595-599``)."""
+        g = self.lift(zeta)
+        return kron_ones(w.to(g.dtype), g)
+
+    def lift_loaded_input(self, zeta: torch.Tensor, w: torch.Tensor,
+                          u: torch.Tensor) -> torch.Tensor:
+        """Bilinear and loaded lift [gl ; u1*gl ; ...] with gl the loaded
+        lift: (N*(nw+1)*(m+1), B) (``Ksysid.m:601-610``)."""
+        gl = self.lift_loaded(zeta, w)
+        return kron_ones(u.to(gl.dtype), gl)
 
     def with_pcs(self, pcs: np.ndarray) -> "KoopmanBasis":
         return dataclasses.replace(self, pcs=np.asarray(pcs))
+
+
+def kron_ones(c: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """kron([1; c], g) over the rows, lanes-minor: c (k, B), g (N, B) ->
+    ((k+1)*N, B), the blocks [g; c_1 g; ...] (the first block g itself)."""
+    one_c = torch.cat([g.new_ones((1,) + tuple(g.shape[1:])), c])
+    return (one_c[:, None] * g[None]).reshape((-1,) + tuple(g.shape[1:]))
 
 
 def build_basis(cfg, n: int, m: int, nw: int = 0) -> KoopmanBasis:

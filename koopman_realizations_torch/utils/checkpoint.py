@@ -23,6 +23,9 @@ ASSETS = Path(__file__).resolve().parents[1] / "assets"
 BENCH_MODEL = ASSETS / "arm3_bilinear_poly3.npz"
 LINEAR_MODEL = ASSETS / "arm3_linear_poly3.npz"
 NONLINEAR_MODEL = ASSETS / "arm3_nonlinear_poly3.npz"
+# the loaded-arm experiment's models (nw = 2), trained by the JAX package
+LOADED_BILINEAR_MODEL = ASSETS / "arm2_loaded_bilinear_poly2.npz"
+LOADED_LINEAR_MODEL = ASSETS / "arm2_loaded_linear_poly2.npz"
 
 
 def auto_rename(path: str) -> str:

@@ -15,6 +15,8 @@ import numpy as np
 from koopman_realizations_torch.types import DataSet, Trial, merge_trials
 
 CORPUS = Path(__file__).resolve().parents[1] / "assets" / "arm3_corpus.npz"
+# the loaded-arm experiment's corpus (each trial with its load w)
+LOADED_CORPUS = CORPUS.with_name("arm2_loaded_corpus.npz")
 
 
 def resample(trial: Trial, Ts: float) -> Trial:
@@ -72,19 +74,22 @@ def merge_files(datasets: List[DataSet]) -> DataSet:
 def load_corpus(path=CORPUS) -> DataSet:
     """The DataSet of a corpus file: a JSON ``header`` (the recipe, the
     split's sizes and the data set's ``params``) and the f64 ``t``, ``y``
-    and ``u`` of every trial as ``train<i>_t`` ... ``val<i>_u``.  The
-    committed ``CORPUS`` is written by ``python tests/test_torch_oracle.py
-    --write-corpus``."""
+    and ``u`` of every trial as ``train<i>_t`` ... ``val<i>_u``, and its
+    loads ``w`` where the file has them.  The committed ``CORPUS`` is
+    written by ``python tests/test_torch_oracle.py --write-corpus``,
+    ``LOADED_CORPUS`` by ``--write-loaded``."""
     with np.load(path, allow_pickle=False) as data:
         header = json.loads(str(data["header"]))
 
         def trials(split):
             return [Trial(t=data[f"{split}{i}_t"], y=data[f"{split}{i}_y"],
-                          u=data[f"{split}{i}_u"])
+                          u=data[f"{split}{i}_u"],
+                          w=data[f"{split}{i}_w"]
+                          if f"{split}{i}_w" in data.files else None)
                     for i in range(header["split"][split])]
         return DataSet(train=trials("train"), val=trials("val"),
                        params=header["params"])
 
 
-__all__ = ["CORPUS", "resample", "chop", "get_data4sysid", "merge_files",
-           "merge_trials", "load_corpus"]
+__all__ = ["CORPUS", "LOADED_CORPUS", "resample", "chop", "get_data4sysid",
+           "merge_files", "merge_trials", "load_corpus"]

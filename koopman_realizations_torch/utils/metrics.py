@@ -35,16 +35,17 @@ def get_error(ysim: torch.Tensor, yreal, scaler=None) -> dict:
 
 def one_step_predictions(model, trials, device="cpu") -> np.ndarray:
     """Scaled one-step output predictions of a discrete model without
-    delays or loads over every step of ``trials`` (scaled trials): C (A z +
-    B u) (linear), C (A z + Beta(z) u) (bilinear), (W^T g([zeta; u]))[:n]
-    (nonlinear), z the lift of y.  Invariant to the signs of the PCA
-    components, so two trainings compare by it.  f64 on ``device``;
-    returns (steps, n) host numpy."""
+    delays over every step of ``trials`` (scaled trials): C (A z + B u)
+    (linear), C (A z + Beta(z) u) (bilinear), (W^T g([zeta; u]))[:n]
+    (nonlinear), z the lift of y -- for a loaded model the loaded lift
+    under the trial's load w (the rollouts' first step).  Invariant to the
+    signs of the PCA components, so two trainings compare by it.  f64 on
+    ``device``; returns (steps, n) host numpy."""
     dev = torch.device(device)
     meta = model.meta
-    if meta.nd or meta.nw:
-        raise NotImplementedError("one-step predictions without delays or "
-                                  "loads only")
+    if meta.nd:
+        raise NotImplementedError("one-step predictions without delays "
+                                  "only")
 
     def t(a):
         return torch.as_tensor(np.asarray(a), dtype=torch.float64,
@@ -53,11 +54,15 @@ def one_step_predictions(model, trials, device="cpu") -> np.ndarray:
     out = []
     for tr in trials:
         y, u = t(tr.y)[:-1].T, t(tr.u)[:-1].T                 # (n|m, T-1)
+        if meta.nw:
+            w = t(tr.w)[:-1].T
+            lift = lambda zeta: basis.lift_loaded(zeta, w)
+        else:
+            lift = basis.lift
         if meta.model_type == "nonlinear":
-            out.append((t(model.W).T @ basis.lift(torch.cat([y, u]))
-                        )[:meta.n])
+            out.append((t(model.W).T @ lift(torch.cat([y, u])))[:meta.n])
             continue
-        z = basis.lift(y)
+        z = lift(y)
         if meta.model_type == "linear":
             z1 = t(model.A) @ z + t(model.B) @ u
         else:

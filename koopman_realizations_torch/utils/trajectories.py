@@ -1,11 +1,13 @@
 """Reference trajectory generators (numpy; port of the JAX package's
-``utils/trajectories.py`` ``get_blockM`` and ``make_trajectory``)."""
+``utils/trajectories.py``: ``get_blockM``, ``get_circle`` and
+``make_trajectory``)."""
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["get_blockM", "make_trajectory"]
+__all__ = ["get_blockM", "get_circle", "make_trajectory", "blockM_reference",
+           "circle_reference"]
 
 
 def get_blockM(center, width: float, height: float) -> np.ndarray:
@@ -47,6 +49,13 @@ def get_blockM(center, width: float, height: float) -> np.ndarray:
     return o
 
 
+def get_circle(center, radius: float) -> np.ndarray:
+    """Circle outline starting at the bottom (``functions/get_circle.m``)."""
+    t = np.arange(-np.pi / 2, 3 * np.pi / 2 + 1e-12, np.pi / 50)
+    return np.stack([radius * np.cos(t) + center[0],
+                     radius * np.sin(t) + center[1]], axis=1)
+
+
 def make_trajectory(waypoints: np.ndarray, T: float, Ts: float,
                     name: str = "traj", flip_y: bool = True,
                     preamble_from=(0.0, 1.0), preamble_pts: int = 10) -> dict:
@@ -74,3 +83,11 @@ def blockM_reference() -> np.ndarray:
     at 20 Hz): (301, 2) end-effector positions."""
     return make_trajectory(get_blockM([0.45, -0.35], 0.5, 0.5),
                            T=15, Ts=0.05)["y"]
+
+
+def circle_reference() -> np.ndarray:
+    """The loaded-arm experiment's circle reference (centre (0, -0.7),
+    radius 0.3, y-flipped into the workspace, 15 s at 20 Hz, from the
+    resting configuration (0, 1)): (301, 2) end-effector positions."""
+    return make_trajectory(get_circle([0.0, -0.7], 0.3), T=15.0, Ts=0.05,
+                           flip_y=True, preamble_from=(0.0, 1.0))["y"]

@@ -4,7 +4,8 @@ generator stack are not all zero, the table from which
 ``csrc/kmpc_device.cuh:assemble`` leaves the structural zeros out of the
 assembly and the factored Gram of ``bilin_lift``, ``step_fused`` and
 ``bilin``.  On the committed bilinear model, for the lift-fused QP and
-for iterated relinearization's blocked stack: the table is the stack's
+for iterated relinearization's blocked stack, and on the loaded-arm
+model for the loaded controller's blocked stack (``bilin`` at NL=42): the table is the stack's
 exact-zero rows, it is the pattern the move blocks imply (a W entry
 lives where its move group's first input reaches the stage, a CB0 row
 from stage 1 on), and it is part of each build's configuration, so the
@@ -23,11 +24,19 @@ from koopman_realizations_torch.ops.kernels import bilin as BI
 from koopman_realizations_torch.ops.kernels import bilin_lift as BL
 from koopman_realizations_torch.ops.kernels import step_fused as SF
 from koopman_realizations_torch.ops.qp import generator_live
-from koopman_realizations_torch.utils.checkpoint import load_model
+from koopman_realizations_torch.utils.checkpoint import (
+    LOADED_BILINEAR_MODEL,
+    load_model,
+)
 
 from test_torch_oracle import BENCH_ARM, BENCH_MPC
 
-QPS = ["lift-fused", "blocked"]
+QPS = ["lift-fused", "blocked", "loaded"]
+# zero rows of the stack (W, CB0, v) of each QP, and each part's rows: the
+# bench model's (n=12, m=3) and the loaded-arm model's (n=8, m=2)
+ZERO_ROWS = {"lift-fused": ((90, 264), (6, 66), (0, 22)),
+             "blocked": ((90, 264), (6, 66), (0, 22)),
+             "loaded": ((60, 176), (4, 44), (0, 22))}
 
 
 @pytest.fixture(scope="module")
@@ -38,8 +47,13 @@ def qps():
     lift = BilinearKmpc(model, scaler, MpcConfig(**BENCH_MPC), device="cpu")
     blocked = BilinearKmpc(model, scaler, MpcConfig(
         **{**BENCH_MPC, "bilinear_iters": 2}), device="cpu")
+    lmodel, lscaler, _ = load_model(LOADED_BILINEAR_MODEL)
+    loaded = BilinearKmpc(lmodel, lscaler, MpcConfig(
+        **{**BENCH_MPC, "proj_idx": (2, 3), "cost_input": (3e-3, 2e-3),
+           "qp_iters": 10, "qp_dual_warm": False}), device="cpu")
     return {"lift-fused": (lift, lift.lift_qp()),
-            "blocked": (blocked, blocked.bilin_qp())}
+            "blocked": (blocked, blocked.bilin_qp()),
+            "loaded": (loaded, loaded.bilin_qp())}
 
 
 def _parts(qp):
@@ -55,7 +69,8 @@ def test_live_table_is_the_stacks_zero_rows(qps, kind):
     """Bit i of stage row r's word is W[r, i]'s row, bit n + j CB0[r, j]'s,
     bit n + m v[r]'s: set exactly where the row has a nonzero.  On the
     committed model 90 of the 264 W rows are zero (the stages no move
-    reaches), 6 of the 66 CB0 rows (stage 0), none of the 22 v rows."""
+    reaches), 6 of the 66 CB0 rows (stage 0), none of the 22 v rows; on
+    the loaded-arm model (NL=42, m=2: n=8) 60 of 176 and 4 of 44."""
     _, qp = qps[kind]
     W, H, P = _parts(qp)
     n, m = qp.n, qp.m
@@ -66,9 +81,10 @@ def test_live_table_is_the_stacks_zero_rows(qps, kind):
             == H[:, r].tolist()
         assert bool(word >> (n + m) & 1) == P[r]
         assert word >> (n + m + 1) == 0
-    assert ((~W).sum(), W.size) == (90, 264)
-    assert ((~H).sum(), H.size) == (6, 66)
-    assert ((~P).sum(), P.size) == (0, 22)
+    zw, zh, zp = ZERO_ROWS[kind]
+    assert ((~W).sum(), W.size) == zw
+    assert ((~H).sum(), H.size) == zh
+    assert ((~P).sum(), P.size) == zp
     assert qp.live == generator_live(qp.gens, qp.p, n, m)
 
 

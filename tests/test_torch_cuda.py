@@ -1533,3 +1533,236 @@ def test_lasso_sweep_qps_kernel_matches_plain(sweep_ks):
     b = a32[3]
     _hold_to_f64(xk, xp, x64, ok_mask(cons, b, xk, sk, lk, 3e-3, 5e-2)[0],
                  ok_mask(cons, b, xp, sp, lp, 3e-3, 5e-2)[0])
+
+
+# ------------------------------------------------------------ loaded arm
+
+
+@pytest.fixture(scope="module")
+def gpu_loaded():
+    """The loaded-arm experiment on the card (``chip_smoke.loaded_setup``:
+    the JAX-trained loaded assets, the controllers in f32 and f64, the
+    observers, the 2-link plant) with its four builds made."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    import chip_smoke as CS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    L = CS.loaded_setup(torch.device("cuda"))
+    for r in _build.build_all(list(L.specs.values())):
+        print(r.path.name, f"{r.seconds:.1f}s", *r.ptxas, sep="\n  ")
+    return CS, L
+
+
+def _loaded_state(gpu_loaded, kind, B, k_end=14):
+    CS, L = gpu_loaded
+    X0, W = CS.loaded_lanes(B, L.r)
+    return CS.loaded_state(L, kind, X0, W, k_end)
+
+
+def _held(kern, plain, a32, a64, cons, b):
+    out = kern(*a32)
+    torch.cuda.synchronize()
+    ref = plain(*a32)
+    x64 = plain(*a64)[0]
+    _hold_to_f64(out[0], ref[0], x64,
+                 ok_mask(cons, b, out[0], out[1], out[2], 3e-3, 5e-2)[0],
+                 ok_mask(cons, b, ref[0], ref[1], ref[2], 3e-3, 5e-2)[0])
+    return out
+
+
+@pytest.mark.parametrize("B", [1000, 129, 1])
+def test_loaded_bilin_kernel_matches_plain(gpu_loaded, B):
+    """``bilin`` at the loaded shape (NL=42, m=2, n=8, mc=32, p=22, cold
+    duals, 10 iterations) on the experiment's lanes after 14 steps, ragged
+    batches: kernel against plain f32, both against plain f64."""
+    CS, L = gpu_loaded
+    a = CS.loaded_bilin_args(L, _loaded_state(gpu_loaded, "bilinear", B))
+    m = L.ctl["bilinear"]
+    a32 = a[torch.float32]
+    assert (a32[0].nzl, a32[0].n, a32[0].mc) == (42, 8, 32)
+    BI.bilin_cuda.launches = 0
+    _held(BI.bilin_cuda, BI.bilin_plain, a32, a[torch.float64],
+          m.constraints(), m.cFr[:, None] - m.F0r @ a32[2])
+    assert BI.bilin_cuda.launches == 1
+
+
+def test_loaded_lane_shared_kernel_matches_plain(gpu_loaded):
+    """``ipm_shared``'s lane-shared build at the loaded linear QP (n=8,
+    mc=32) on 1000 of the experiment's lanes after 14 steps."""
+    CS, L = gpu_loaded
+    a = CS.loaded_linear_args(L, _loaded_state(gpu_loaded, "linear", 1000))
+    a32 = a[torch.float32]
+    assert (a32[0].n, a32[0].mc) == (8, 32)
+    _held(IS.ipm_shared_cuda, IS.ipm_shared_plain, a32, a[torch.float64],
+          a32[0], a32[3])
+
+
+@pytest.mark.parametrize("slope", [None, 0.05])
+@pytest.mark.parametrize("kind", ["bilinear", "linear"])
+def test_loaded_observer_kernels_match_plain(gpu_loaded, kind, slope):
+    """The observers' box QPs on ``ipm_shared``'s per-lane-P builds (n=2
+    bilinear, n=1 linear; mc = 2 n, with the slope rows 4 n) on 1000 of
+    the experiment's lanes after 14 steps, kernel against plain f32, both
+    against plain f64; and the estimate through ``solve_qp`` on the card
+    held to the f64 estimate as the plain f32 one on the CPU is."""
+    import dataclasses
+
+    from koopman_realizations_torch.control.observer import (
+        make_load_observer,
+    )
+    CS, L = gpu_loaded
+    st = _loaded_state(gpu_loaded, kind, 1000)
+    model = L.models[kind][0]
+    cfg = dataclasses.replace(L.cfg, load_obs_slope=slope)
+    obs = {dt: make_load_observer(model, cfg, device="cuda", dtype=dt)
+           for dt in (torch.float32, torch.float64)}
+    a = CS.loaded_observer_args(obs[torch.float32], obs[torch.float64], st)
+    a32 = a[torch.float32]
+    n = 2 if kind == "bilinear" else 1
+    assert (a32[0].n, a32[0].mc) == (n, (4 if slope else 2) * n)
+    _held(IS.ipm_shared_cuda, IS.ipm_shared_plain, a32, a[torch.float64],
+          a32[0], a32[3])
+    card = obs[torch.float32].estimate(st.ywin, st.uwin, st.what)
+    cpu = {dt: make_load_observer(model, cfg, device="cpu",
+                                  dtype=dt).estimate(
+        st.ywin.cpu(), st.uwin.cpu(), st.what.cpu()).to(dt)
+        for dt in (torch.float32, torch.float64)}
+    for name, w in (("card f32", card.cpu()),
+                    ("plain f32 on the CPU", cpu[torch.float32])):
+        d = (w.double() - cpu[torch.float64]).abs().amax(0)
+        print(f"observer {kind} slope {slope}: {name} estimate to f64 p50 "
+              f"{d.median():.3e} p99 {d.quantile(0.99):.3e} max "
+              f"{d.max():.3e} (lane {int(d.argmax())})")
+    _near_f64(card.cpu(), cpu[torch.float32], cpu[torch.float64])
+    if kind == "linear":
+        assert (card[-1] == 0).all()
+
+
+@pytest.mark.parametrize("case", ["3-link step B=65536",
+                                  "loaded 2-link substep B=2048",
+                                  "3-link step B=65536 wide"])
+def test_plant_graph_bitwise_eager(gpu_loaded, case):
+    """``Arm.step`` on the card replays one control period captured in a
+    CUDA graph: bitwise the eager step over three periods, the bench's
+    3-link arm (jac_mode 'step') at B=65536 and the loaded 2-link arm
+    ('substep', 5 substeps, 3 Newton iterations) at B=2048 on the closed
+    loops' range of states (``plant_lanes``: every lane finite); a second
+    width gets a graph of its own.  The 'wide' case starts from 0.3 randn
+    states and 0.5 randn inputs, where the SDIRK2 Newton iteration of some
+    lanes leaves the reals: the bits agree there too, NaN included."""
+    CS, L = gpu_loaded
+    arm = Arm(ArmConfig(**ARM), device="cuda") if case.startswith("3") \
+        else L.arm
+    B = int(case.split("B=")[1].split()[0])
+    if case.endswith("wide"):
+        g = torch.Generator().manual_seed(1)
+        X = (0.3 * torch.randn((arm.cfg.nx, B), generator=g)).cuda()
+        U = (0.5 * torch.randn((arm.cfg.Nmods, B), generator=g)).cuda()
+        W = torch.rand((2, B), generator=g).cuda()
+    else:
+        X, U, W = CS.plant_lanes(arm, B)
+    bits = lambda t: t.view(torch.int32)
+    xg, xe = X, X
+    for k in range(3):
+        xg, xe = arm.step(xg, U, W), arm.step_eager(xe, U, W)
+        bad = int((~torch.isfinite(xe)).any(0).sum())
+        print(f"{case}: period {k + 1}, {bad} of {B} lanes not finite; "
+              f"torch.equal {torch.equal(xg, xe)}, bits equal "
+              f"{torch.equal(bits(xg), bits(xe))}")
+        assert torch.equal(bits(xg), bits(xe))
+    if not case.endswith("wide"):
+        assert bool(torch.isfinite(xg).all())
+    assert (B, torch.float32, X.device) in arm._graphs
+    assert torch.equal(bits(arm.step(X[:, :7], U[:, :7], W[:, :7])),
+                       bits(arm.step_eager(X[:, :7], U[:, :7], W[:, :7])))
+    assert (7, torch.float32, X.device) in arm._graphs
+
+
+def test_plant_graph_cache_keeps_recent_widths(gpu_loaded):
+    """An arm keeps the graphs of its ``GRAPH_WIDTHS`` most recently
+    stepped widths: a new width beyond them drops the least recent one, a
+    width stepped again moves to the front, ``clear_graphs`` drops all;
+    a replay after an eviction is still the eager step."""
+    from koopman_realizations_torch.models.arm import GRAPH_WIDTHS
+    CS, L = gpu_loaded
+    arm = Arm(ArmConfig(**L.r["arm"]), device="cuda")
+    X, U, W = CS.plant_lanes(arm, 64)
+    widths = [8 + k for k in range(GRAPH_WIDTHS)]
+    for b in widths + [widths[0]]:
+        arm.step(X[:, :b], U[:, :b], W[:, :b])
+    arm.step(X, U, W)
+    assert [k[0] for k in arm._graphs] == widths[2:] + [widths[0], 64]
+    assert torch.equal(arm.step(X[:, :9], U[:, :9], W[:, :9]).view(
+        torch.int32), arm.step_eager(X[:, :9], U[:, :9], W[:, :9]).view(
+        torch.int32))
+    assert len(arm._graphs) == GRAPH_WIDTHS
+    arm.clear_graphs()
+    assert not arm._graphs
+
+
+def test_loaded_training_card_matches_assets(gpu_loaded):
+    """Loaded training on the card (the committed loaded corpus): NL=42,
+    one-step predictions within 1.2e-7 of the JAX-trained assets (the
+    linear model within twice its extraction's one-ulp floor, where that
+    is more)."""
+    from koopman_realizations_torch.config import SysidConfig
+    from koopman_realizations_torch.models.edmd import Ksysid
+    from koopman_realizations_torch.utils.data import (
+        LOADED_CORPUS,
+        load_corpus,
+    )
+    from koopman_realizations_torch.utils.metrics import (
+        one_step_predictions,
+    )
+    CS, L = gpu_loaded
+    sysid = {k: tuple(v) if isinstance(v, list) else v
+             for k, v in L.refs["sysid"].items()}
+    ds = load_corpus(LOADED_CORPUS)
+    for kind in ("bilinear", "linear"):
+        cfg = SysidConfig(model_type=kind, **sysid)
+        ks = Ksysid(ds, cfg, device="cuda").train_models()
+        asset = L.models[kind][0]
+        d = np.abs(one_step_predictions(ks.model, ks.valdata, "cuda")
+                   - one_step_predictions(asset, ks.valdata, "cuda")).max()
+        lim = 1.2e-7
+        if kind == "linear":
+            lim = max(lim, 2.0 * CS.one_ulp_floor(
+                Ksysid(ds, cfg, device="cpu").train_models(), asset))
+        assert ks.NL == 42 and d <= lim, (kind, d, lim)
+
+
+def test_loaded_loops_on_card_track(gpu_loaded):
+    """Phase LD's gates at B=64 x 301 steps: on each of the 16
+    reference lanes alive as JAX x64 and err_mean within 1e-3 of the hull
+    of x64's and the band of JAX's own f32 runs; What in [-1, 1]; the
+    linear observer's last component exactly 0;
+    the bilinear loop's err with the observer below 0.8x without; each
+    kernel launched as the loop needs."""
+    CS, L = gpu_loaded
+    X0, W = CS.loaded_lanes(64, L.r)
+    steps = L.r["steps"]
+    err16 = {}
+    for kind, use_obs in (("bilinear", True), ("bilinear", False),
+                          ("linear", True)):
+        obs = L.obs[kind] if use_obs else None
+        sim = Ksim(L.arm, L.ctl[kind], observer=obs)
+        BI.bilin_cuda.launches = IS.ipm_shared_cuda.launches = 0
+        out = sim.batched_runner(L.ref, steps=steps)(X0, W)
+        upd = sum(obs.updates(k) for k in range(1, steps)) if obs else 0
+        if kind == "bilinear":
+            assert (BI.bilin_cuda.launches, IS.ipm_shared_cuda.launches) \
+                == (steps - 1, upd)
+        else:
+            assert IS.ipm_shared_cuda.launches == steps - 1 + upd
+        jr = L.refs["runs"][f"{kind}/{use_obs}"]
+        e = lane_tracking_error(out["Yp"], L.ref).cpu().numpy()[:16]
+        assert (out["alive"][:16, -1].cpu().numpy()
+                == np.asarray(jr["alive"])).all()
+        off = CS.loaded_lane_gate(e, jr)
+        assert (off < 1e-3).all(), (kind, use_obs, off)
+        What = out["What"].cpu().numpy()
+        assert np.abs(What).max() <= 1.0 + 1e-6
+        if kind == "linear":
+            assert (What[..., -1] == 0).all()
+        err16[use_obs, kind] = e.mean()
+    assert err16[True, "bilinear"] < 0.8 * err16[False, "bilinear"]

@@ -375,7 +375,7 @@ def test_save_model_reads_back_in_both_packages(kind, tmp_path):
 
 @pytest.mark.parametrize("change,item", [
     (dict(time_type="continuous"), 2),
-    (dict(loaded=True), 2),
+    (dict(loaded=True, delays=1), 7),
     (dict(obs_type=("fourier",)), 2),
     ("snapshots", 10),
 ])

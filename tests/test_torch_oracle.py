@@ -37,7 +37,10 @@ its loop (``assets/lasso_sweep_refs.json``) and the candidates
 themselves (``assets/lasso_sweep_candidates.npz``); ``--write-rand-refs``
 runs the JAX random-system sweep of ``RAND_MODELS``
 (``assets/rand_models_refs.json``).  chip_smoke.py's phases LS and RS
-read them.
+read them.  The loaded experiment's data (phase LD) comes from
+``--write-loaded`` (its corpus, the two JAX-trained loaded assets and
+``assets/loaded_refs.json``); ``--write-loaded-refs`` reruns only the
+JAX runs of the references on the committed loaded assets.
 
 The linear controller runs ``qp_iters=6`` with cold duals.  The JAX
 package's "verified linear floor" of 3 iterations
@@ -170,6 +173,40 @@ BENCH_ARM = dict(Nmods=3, nlinks=1, L=1.0, m=0.1, output_type="markers",
                  substeps=3, newton_iters=1, jac_mode="step")
 CORPUS = dict(trials=15, tf=60.0, n_val=5, seed=0)
 REF_B, REF_STEPS = 16, 301
+# the loaded-arm experiment (BASELINE.md row 5; the JAX package's
+# scripts/perf_report.py:243-290 and tests/test_loaded.py:22-38): the
+# 2-module arm with an unknown payload, its corpus (a ramp-and-hold
+# excitation on a 16-load grid, seed 7), the loaded poly-2 models with
+# PCA (lifted state [g; w1 g; w2 g]), the blocked controller at 10 cold
+# iterations with the load observer (horizon 10, every 2 steps) on the
+# circle reference; lanes: the first joint spread over +-0.15 rad, the
+# loads of the round-4 floor grid cycled over the lanes
+LOADED = dict(
+    arm=dict(Nmods=2, nlinks=1, L=1.0, m=0.1, output_type="markers",
+             substeps=5),
+    corpus=dict(seed=7, tf=30.0, Tramp=2.0,
+                loads=[[a, b] for a in (0.0, 0.33, 0.66, 1.0)
+                       for b in (-1.0, -0.33, 0.33, 1.0)]),
+    sysid=dict(obs_type=("poly",), obs_degree=(2,), loaded=True,
+               dim_red=True, dtype="float32"),
+    mpc=dict(horizon=10, input_bounds=(-7 * np.pi / 8, 7 * np.pi / 8),
+             input_slopeConst=1e-1, cost_running=10.0, cost_terminal=100.0,
+             cost_input=(3e-3, 2e-3), proj_idx=(2, 3), load_obs_horizon=10,
+             load_obs_period=2, input_blocks=(1, 1, 2, 5), qp_iters=10),
+    grid=[[0.9, -0.6], [0.4, 0.2], [0.0, 0.0]], spread=0.15,
+    B_ref=16, B_full=2048, steps=301)
+LOADED_CORPUS = ASSETS / "arm2_loaded_corpus.npz"
+LOADED_ASSETS = {"bilinear": ASSETS / "arm2_loaded_bilinear_poly2.npz",
+                 "linear": ASSETS / "arm2_loaded_linear_poly2.npz"}
+LOADED_REFS = ASSETS / "loaded_refs.json"
+# the runs of the references: (controller model, observer on)
+LOADED_RUNS = (("bilinear", True), ("bilinear", False), ("linear", True),
+               ("linear", False))
+# JAX f32 runs beside each loaded reference: the asset and one-ulp copies
+# (as many as the lasso sweep's F32_COPIES: the loop with the observer
+# amplifies f32 rounding lane by lane, and 6 copies left one lane of the
+# card 1.46e-3 from x64 with the band's widest lane 1.44e-3 wide)
+LOADED_F32_COPIES = 96
 
 
 def blockM_y() -> np.ndarray:
@@ -709,6 +746,253 @@ def write_rand_refs(path: Path = RAND_MODELS_REFS) -> dict:
     return refs
 
 
+def loaded_lanes(B: int):
+    """The loaded experiment's lanes (X0 (B, 4), W (B, 2)), f64: the
+    first ``B_ref`` lanes (all of them for B <= B_ref) take the first
+    joint from linspace(-spread, spread, B_ref), the rest from
+    linspace(-spread, spread, B - B_ref); lane i carries the load
+    grid[i % 3]."""
+    r = LOADED
+    X0 = np.zeros((B, 4))
+    nref = min(B, r["B_ref"])
+    X0[:nref, 0] = np.linspace(-r["spread"], r["spread"], r["B_ref"])[:nref]
+    if B > nref:
+        X0[nref:, 0] = np.linspace(-r["spread"], r["spread"], B - nref)
+    W = np.asarray(r["grid"], np.float64)[np.arange(B) % len(r["grid"])]
+    return X0, W
+
+
+def circle_y() -> np.ndarray:
+    """The loaded experiment's circle reference, (301, 2), built in-repo
+    (tests/test_loaded.py:85-87)."""
+    from koopman_realizations_tpu.utils.trajectories import (
+        get_circle,
+        make_trajectory,
+    )
+    return make_trajectory(get_circle([0.0, -0.7], 0.3), T=15.0, Ts=0.05,
+                           flip_y=True, preamble_from=(0.0, 1.0))["y"]
+
+
+@functools.lru_cache(maxsize=None)
+def generate_loaded_corpus():
+    """The loaded corpus of tests/test_loaded.py:22-38 (JAX arm,
+    ``simulate_rampNhold_batch``): 15 training trials and the last one
+    for validation."""
+    from koopman_realizations_tpu.models.arm import Arm
+    from koopman_realizations_tpu.types import DataSet, Trial
+    c = LOADED["corpus"]
+    arm = Arm(ArmConfig(**LOADED["arm"]))
+    sims = arm.simulate_rampNhold_batch(
+        np.random.default_rng(c["seed"]), tf=c["tf"], Tramp=c["Tramp"],
+        W=np.asarray(c["loads"]))
+    trials = [Trial(t=s["t"], y=s["y"], u=s["u"], x=s["x"], w=s["w"])
+              for s in sims]
+    return DataSet(train=trials[:-1], val=trials[-1:],
+                   params={"sysName": "loaded"})
+
+
+def train_jax_loaded(ds, kind: str):
+    from koopman_realizations_tpu.models.edmd import Ksysid
+    return Ksysid(ds, SysidConfig(model_type=kind, **LOADED["sysid"])
+                  ).train_models()
+
+
+@functools.lru_cache(maxsize=None)
+def jax_loaded_model(kind: str):
+    """(model, scaler) of a committed loaded asset, through the JAX
+    loader."""
+    from koopman_realizations_tpu.utils.checkpoint import load_model
+    return load_model(str(LOADED_ASSETS[kind]))
+
+
+def jax_loaded_sim(kind: str, observer: bool, model=None, scaler=None,
+                   **knobs):
+    """The JAX ``Ksim`` of the loaded experiment: the controller of
+    ``LOADED["mpc"]`` (with ``knobs`` on top) on the loaded asset of
+    ``kind`` (or ``model``), the load observer when ``observer``."""
+    from koopman_realizations_tpu.control import (
+        Ksim,
+        make_kmpc,
+        make_load_observer,
+    )
+    from koopman_realizations_tpu.models.arm import Arm
+    if model is None:
+        model, scaler = jax_loaded_model(kind)
+    cfg = MpcConfig(**{**LOADED["mpc"], **knobs})
+    obs = make_load_observer(model, cfg) if observer else None
+    return Ksim(Arm(ArmConfig(**LOADED["arm"])), make_kmpc(model, scaler,
+                                                           cfg),
+                observer=obs)
+
+
+def jax_loaded_run(sim, X0, W, steps: int) -> dict:
+    """The JAX general runner (``Ksim.batched_runner``, the semantics of
+    ``run_batch``) on the circle: per-lane {err (B, steps-1) as
+    ``run_batch`` computes it, alive (B, steps-1), What (B, steps-1,
+    nw)} as numpy."""
+    run = sim.batched_runner(circle_y(), steps=steps,
+                             record=("Y", "R", "alive", "what"))
+    out = jax.block_until_ready(run(jax.numpy.asarray(X0),
+                                    jax.numpy.asarray(W)))
+    Y, R = np.asarray(out["Y"]), np.asarray(out["R"])
+    err = np.sqrt(((R - Y[..., list(sim.mpc.proj_idx)]) ** 2).sum(-1))
+    return {"err": err, "alive": np.asarray(out["alive"]),
+            "What": np.asarray(out["what"])}
+
+
+def _jax_loaded_f32(B: int, runs, copies: int = 1, seed: int = 0) -> dict:
+    """The JAX general runner of the loaded experiment with x64 off (f32
+    throughout) on ``loaded_lanes(B)``, for each (kind, observer) of
+    ``runs`` in a process of its own (all started together) and each of
+    ``copies`` models: the asset as trained and, after it, copies with
+    every nonzero entry of its f32 A moved one ulp up or down (directions
+    from ``np.random.default_rng(seed)``, drawn anew for each run).
+    Returns {"kind/obs": [[[alive, err_mean] per lane] per copy]}."""
+    import subprocess
+    code = (
+        "import dataclasses, json, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        f"sys.path.insert(0, {str(ROOT / 'tests')!r})\n"
+        "import jax\n"
+        "jax.config.update('jax_platforms', 'cpu')\n"
+        "import numpy as np\n"
+        "import test_torch_oracle as O\n"
+        "jax.config.update('jax_enable_x64', False)\n"
+        f"X0, W = O.loaded_lanes({B})\n"
+        "X0, W = X0.astype(np.float32), W.astype(np.float32)\n"
+        f"rng = np.random.default_rng({seed})\n"
+        "kind, obs = sys.argv[1], sys.argv[2] == 'True'\n"
+        "model, scaler = O.jax_loaded_model(kind)\n"
+        "A = np.asarray(model.A, np.float32)\n"
+        "lanes = []\n"
+        f"for k in range({copies}):\n"
+        "    up = rng.random(A.shape) < 0.5\n"
+        "    Ak = A if k == 0 else np.where(A == 0, A, np.nextafter("
+        "A, np.where(up, np.inf, -np.inf).astype(np.float32)))\n"
+        "    sim = O.jax_loaded_sim(kind, obs, dataclasses.replace("
+        "model, A=Ak), scaler)\n"
+        "    r = O.jax_loaded_run(sim, X0, W, O.LOADED['steps'])\n"
+        "    assert r['err'].dtype == np.float32\n"
+        "    lanes.append([[bool(a), float(e)] for a, e in zip("
+        "r['alive'][:, -1], r['err'].mean(1))])\n"
+        "print(json.dumps(lanes))\n")
+    procs = {f"{kind}/{obs}": subprocess.Popen(
+        [sys.executable, "-c", code, kind, str(obs)], stdout=subprocess.PIPE,
+        text=True, env=dict(os.environ, JAX_ENABLE_X64="0"))
+        for kind, obs in runs}
+    out = {}
+    for key, proc in procs.items():
+        stdout, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"the JAX f32 run of {key} failed")
+        out[key] = json.loads(stdout.strip().splitlines()[-1])
+    return out
+
+
+def write_loaded() -> dict:
+    """Write the loaded experiment's data (see module doc): the corpus,
+    the two JAX-trained loaded assets and ``LOADED_REFS``."""
+    from koopman_realizations_tpu.utils.checkpoint import save_model
+    r = LOADED
+    written_by = "python tests/test_torch_oracle.py --write-loaded"
+    recipe = (f"tests/test_loaded.py:22-38: Arm({r['arm']}) "
+              f"simulate_rampNhold_batch(default_rng({r['corpus']['seed']}),"
+              f" tf={r['corpus']['tf']}, Tramp={r['corpus']['Tramp']}, "
+              f"W=16-load grid), trials[:-1] train, trials[-1:] val; JAX "
+              f"x64 session on the CPU")
+    ds = generate_loaded_corpus()
+    header = {"recipe": recipe, "written_by": written_by,
+              "fields": "t [T], y [T, n], u [T, m], w [T, nw] of each "
+                        "trial, f64 (x left out)",
+              "split": {"train": len(ds.train), "val": len(ds.val)},
+              "params": ds.params}
+    arrays = {f"{split}{i}_{f}": np.asarray(getattr(tr, f), np.float64)
+              for split in ("train", "val")
+              for i, tr in enumerate(getattr(ds, split))
+              for f in ("t", "y", "u", "w")}
+    np.savez(LOADED_CORPUS, header=json.dumps(header), **arrays)
+    out = {LOADED_CORPUS.name: header}
+    for kind, path in LOADED_ASSETS.items():
+        ks = train_jax_loaded(ds, kind)
+        save_model(str(path), ks.model, ks.scaler, overwrite=True)
+        data = dict(np.load(path, allow_pickle=False))
+        h = json.loads(str(data.pop("header")))
+        h["provenance"] = {
+            "corpus": recipe,
+            "sysid": f"Ksysid {kind} poly-2 loaded=True dim_red=True "
+                     f"dtype=float32",
+            "written_by": written_by}
+        np.savez(path, header=json.dumps(h), **data)
+        out[path.name] = h
+    jax_loaded_model.cache_clear()
+    out[LOADED_REFS.name] = write_loaded_refs()
+    return out
+
+
+def write_loaded_refs(copies: int = LOADED_F32_COPIES) -> dict:
+    """Run the JAX general runner on the committed loaded assets and write
+    ``LOADED_REFS``: per run of ``LOADED_RUNS`` and reference lane (x64)
+    alive, err_mean and the last What; JAX's own f32 runs of the same
+    lanes (the asset and ``copies`` - 1 one-ulp copies of its A: each
+    lane's band); JAX's f32 run of the bilinear controller with the
+    observer at B_full.  Returns the file's header."""
+    r = LOADED
+    X0, W = loaded_lanes(r["B_ref"])
+    runs = {}
+    for kind, obs in LOADED_RUNS:
+        res = jax_loaded_run(jax_loaded_sim(kind, obs), X0, W, r["steps"])
+        runs[f"{kind}/{obs}"] = {
+            "alive": [bool(a) for a in res["alive"][:, -1]],
+            "err_mean": [float(e) for e in res["err"].mean(1)],
+            "What_last": [[float(v) for v in w] for w in res["What"][:, -1]],
+            "What_absmax": float(np.abs(res["What"]).max())}
+        print(kind, obs, np.mean(runs[f"{kind}/{obs}"]["err_mean"]),
+              flush=True)
+    f32_ref = _jax_loaded_f32(r["B_ref"], LOADED_RUNS, copies)
+    f32_full = _jax_loaded_f32(r["B_full"], LOADED_RUNS[:1])
+    for key, per_copy in f32_ref.items():
+        e = np.asarray([[v for _, v in lanes] for lanes in per_copy])
+        runs[key]["f32"] = {
+            "alive": [a for a, _ in per_copy[0]],
+            "err_mean": [float(v) for v in e[0]],
+            "all_alive": bool(all(a for lanes in per_copy
+                                  for a, _ in lanes)),
+            "band": [[float(lo), float(hi)]
+                     for lo, hi in zip(e.min(0), e.max(0))],
+            "band_mean": [float(e.mean(1).min()), float(e.mean(1).max())]}
+        print(key, "f32 band width", float((e.max(0) - e.min(0)).max()),
+              flush=True)
+    full = f32_full["bilinear/True"][0]
+    refs = {
+        "runner": "koopman_realizations_tpu Ksim.batched_runner (the "
+                  "semantics of run_batch; jax_enable_x64, CPU) on the "
+                  "loaded assets",
+        "written_by": "python tests/test_torch_oracle.py --write-loaded-refs"
+                      " (or --write-loaded)",
+        "recipe": {k: (list(v) if isinstance(v, tuple) else v)
+                   for k, v in r.items() if k not in ("mpc", "sysid")},
+        "mpc": {k: list(v) if isinstance(v, tuple) else v
+                for k, v in r["mpc"].items()},
+        "sysid": {k: list(v) if isinstance(v, tuple) else v
+                  for k, v in r["sysid"].items()},
+        "reference": "make_trajectory(get_circle([0, -0.7], 0.3), T=15, "
+                     "Ts=0.05, flip_y=True, preamble_from=(0, 1))",
+        "lanes": "loaded_lanes(B): the first 16 lanes X0[:, 0] = "
+                 "linspace(-0.15, 0.15, 16), the rest linspace(-0.15, "
+                 "0.15, B - 16); load grid[i % 3]",
+        "f32": f"JAX with x64 off on the same lanes: the asset and "
+               f"{copies - 1} copies with every nonzero of A moved one ulp "
+               f"(seed 0); band = each lane's [min, max] err_mean, "
+               f"band_mean = the [min, max] of the copies' err_mean over "
+               f"the lanes",
+        "steps": r["steps"], "runs": runs,
+        "f32_full": {"B": r["B_full"], "run": "bilinear/True",
+                     "alive": float(np.mean([a for a, _ in full])),
+                     "err_mean": float(np.mean([e for _, e in full]))}}
+    LOADED_REFS.write_text(json.dumps(refs, indent=1) + "\n")
+    return {k: v for k, v in refs.items() if k != "runs"}
+
+
 # ---------------------------------------------------------------- tests
 
 
@@ -911,6 +1195,12 @@ if __name__ == "__main__":
     ap.add_argument("--write-lasso-refs", action="store_true",
                     help="record the JAX lasso sweep's quality per "
                          "candidate of LASSO_SWEEP (lasso_sweep_refs.json)")
+    ap.add_argument("--write-loaded", action="store_true",
+                    help="write the loaded experiment's corpus, its two "
+                         "JAX-trained assets and loaded_refs.json")
+    ap.add_argument("--write-loaded-refs", action="store_true",
+                    help="rerun the JAX runs of loaded_refs.json on the "
+                         "committed loaded assets")
     ap.add_argument("--write-rand-refs", action="store_true",
                     help="record the JAX random-system sweep of RAND_MODELS"
                          " (rand_models_refs.json)")
@@ -918,10 +1208,12 @@ if __name__ == "__main__":
     if args.write_asset is None and not (
             args.write_corpus or args.write_regime_refs
             or args.write_bilinear_refs or args.write_lasso_refs
-            or args.write_rand_refs):
+            or args.write_rand_refs or args.write_loaded
+            or args.write_loaded_refs):
         ap.error("nothing to do (pass --write-asset, --write-corpus, "
                  "--write-regime-refs, --write-bilinear-refs, "
-                 "--write-lasso-refs or --write-rand-refs)")
+                 "--write-lasso-refs, --write-rand-refs, --write-loaded "
+                 "or --write-loaded-refs)")
     if args.write_corpus:
         print(json.dumps(write_corpus(), indent=1))
     if args.write_asset is not None:
@@ -935,3 +1227,7 @@ if __name__ == "__main__":
         print(json.dumps(write_lasso_refs(), indent=1))
     if args.write_rand_refs:
         print(json.dumps(write_rand_refs(), indent=1))
+    if args.write_loaded:
+        print(json.dumps(write_loaded(), indent=1))
+    elif args.write_loaded_refs:
+        print(json.dumps(write_loaded_refs(), indent=1))
