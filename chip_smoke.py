@@ -47,7 +47,18 @@ lasso sweep's candidates on the card (FISTA) and runs them as lanes of
 one closed loop through the per-lane-P ``ipm_shared`` build beside the
 JAX trainer's candidates, against ``assets/lasso_sweep_refs.json``;
 phase RS simulates and sweeps the random-system ensemble (460 fits) on
-the card and the CPU against ``assets/rand_models_refs.json``.  It
+the card and the CPU against ``assets/rand_models_refs.json``.  Phase LD
+runs the loaded-arm experiment with the load observer.  Phase DX runs
+every dictionary of the JAX trainer from training to the closed loop
+(``assets/dictionary_refs.json``): the five dictionary assets' recipes
+and four more trained on the card (hermite, full fourier, two
+continuous-time), the new builds of ``bilin_lift`` (a delayed model,
+nz=15), ``bilin`` (NL=84 without PCA, NL=19 fourier_sparser) and
+``nmpc_pass`` (the jacfwd route) against their plain versions, and
+eight loops (delays, no PCA, fourier_sparser blocked, unblocked and
+with the model in the loop, poly + gaussian linear, the jacfwd NMPC on a
+fourier_sparser model and on a bilinear one) at B=16 against the JAX
+references and at B=65536 x 301 through their kernels.  It
 prints the card's name and power limit, one JSON line with every
 kernel's launches, device launches a call, error, times and bound, and
 as the last line {"ok": true, "device": {...}}.  Any failed phase raises; without CUDA or
@@ -139,6 +150,14 @@ RAND_REFS = ROOT / "koopman_realizations_torch" / "assets" / \
 # JAX-trained loaded assets beside it)
 LOADED_REFS = ROOT / "koopman_realizations_torch" / "assets" / \
     "loaded_refs.json"
+# every dictionary from training to the closed loop (phase DX): the JAX
+# trainer's dictionary assets, each path's controller at its qp_iters and
+# the JAX references, written by tests/test_torch_oracle.py
+# --write-dictionaries
+DICT_REFS = ROOT / "koopman_realizations_torch" / "assets" / \
+    "dictionary_refs.json"
+# closed-loop steps before phase DX2's kernel checks
+DX_CHECK_STEPS = 12
 B_MAIN, B_GENERAL, B_CHECK, STEPS = 262144, 65536, 8192, 301
 # H100 SXM published peaks: f32 outside the tensor cores, HBM3 bandwidth
 PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
@@ -662,7 +681,7 @@ def one_ulp_floor(ks, asset) -> float:
                              rcond=float(np.finfo(np.float32).eps))[0]
         M = Mt.T.astype(np.float32)
         return one_step_predictions(dataclasses.replace(
-            asset, A=M @ A, B=M @ B), ks.valdata)
+            asset, A=M @ A, B=M @ B), ks.valdata, ks.device)
     p0 = preds(L)
     rng = np.random.default_rng(0)
     far = 0.0
@@ -670,6 +689,41 @@ def one_ulp_floor(ks, asset) -> float:
         up = rng.random(L.shape) < 0.5
         Lu = np.nextafter(L, np.where(up, np.inf, -np.inf).astype(np.float32))
         far = max(far, float(np.abs(preds(Lu) - p0).max()))
+    return far
+
+
+def lift_ulp_floor(ks, draws: int = 3) -> float:
+    """The most that moving every entry of the f32 regression input Px
+    one ulp (``draws`` seeded draws of directions) moves ``ks``'s own
+    model in scaled one-step prediction on ``ks.valdata``: the fit's
+    sensitivity to the last bit of the lift, which two trainings whose f32
+    lifts sum in different orders (a PCA projection on another device or
+    library) differ by.  ``ks`` a trained ``Ksysid``; host numpy."""
+    import numpy as np
+    import torch
+
+    from koopman_realizations_torch.utils.metrics import (
+        one_step_predictions,
+    )
+    extract = {"linear": ks.get_model, "bilinear": ks.get_BLmodel,
+               "nonlinear": ks.get_NLmodel}[ks.cfg.model_type]
+    Px, Py = ks.lift_snapshot_matrices()
+    p0 = one_step_predictions(ks.model, ks.valdata, ks.device)
+    X = Px.cpu().numpy()
+    rng = np.random.default_rng(0)
+    far = 0.0
+    saved = ks._lifted
+    try:
+        for _ in range(draws):
+            up = rng.random(X.shape) < 0.5
+            Xu = torch.as_tensor(np.nextafter(X, np.where(
+                up, np.inf, -np.inf).astype(X.dtype)), device=Px.device)
+            ks._lifted = (Xu, Py)
+            m = extract(ks._koop(ks._lstsq(Xu, Py)))
+            far = max(far, float(np.abs(one_step_predictions(
+                m, ks.valdata, ks.device) - p0).max()))
+    finally:
+        ks._lifted = saved
     return far
 
 
@@ -1077,6 +1131,433 @@ def phase_loaded(dev, drive, check_qp, ptx, L, smi) -> dict:
     return out
 
 
+def dict_config(entry: dict):
+    """The MpcConfig of a ``DICT_REFS`` path: its knobs at its qp_iters."""
+    from koopman_realizations_torch.config import MpcConfig
+    kw = {k: tuple(v) if isinstance(v, list) else v
+          for k, v in entry["knobs"].items()}
+    return MpcConfig(**dict(kw, qp_iters=entry["qp_iters"]))
+
+
+def dict_setup(dev, arm):
+    """Phase DX's references, models, controllers (f32 and f64), plants
+    and the specs of its builds, by path of ``DICT_REFS``: ``bilin_lift``
+    at the delayed model's nz=15 and degree 2, ``bilin`` at NL=84 (poly-3
+    without PCA) and NL=19 (fourier_sparser 1), ``nmpc_pass`` of the
+    jacfwd route (the pass kernel without F's tables) and the existing
+    ``ipm_factored`` n=27 and ``ipm_shared`` n=12 builds."""
+    import torch
+
+    from koopman_realizations_torch.control.kmpc import make_kmpc
+    from koopman_realizations_torch.control.ksim import KoopmanPlant, Ksim
+    from koopman_realizations_torch.ops.kernels import bilin as BI
+    from koopman_realizations_torch.ops.kernels import bilin_lift as BL
+    from koopman_realizations_torch.ops.kernels import ipm_factored as IF
+    from koopman_realizations_torch.ops.kernels import ipm_shared as IS
+    from koopman_realizations_torch.ops.kernels import nmpc_pass as NP
+    from koopman_realizations_torch.utils.checkpoint import load_model
+    refs = json.loads(DICT_REFS.read_text())
+    D = types.SimpleNamespace(refs=refs, paths={}, specs={})
+    assets = DICT_REFS.parent
+    for name, r in refs["paths"].items():
+        model, scaler, _ = load_model(assets / r["asset"])
+        cfg = dict_config(r)
+        P = types.SimpleNamespace(
+            r=r, model=model, scaler=scaler, cfg=cfg,
+            mpc=make_kmpc(model, scaler, cfg, device=dev),
+            mpc64=make_kmpc(model, scaler, cfg, device=dev,
+                            dtype=torch.float64))
+        P.plant = KoopmanPlant(model, scaler, dev) if r["plant"] == "model" \
+            else arm
+        P.sim = Ksim(P.plant, P.mpc, device=dev)
+        P.sim64 = Ksim(P.plant, P.mpc64, device=dev)
+        m = P.mpc
+        if getattr(m, "route", None) == "jacfwd":
+            P.kernel, spec = "nmpc_pass", NP.kernel_spec(m.nmpc_qp())
+        elif getattr(m, "lift_fused", False):
+            P.kernel, spec = "bilin_lift", BL.kernel_spec(m.lift_qp())
+        elif hasattr(m, "bilin_qp") and m.blocked:
+            P.kernel, spec = "bilin", BI.kernel_spec(m.bilin_qp())
+        elif hasattr(m, "bilin_qp"):
+            P.kernel, spec = "ipm_factored", IF.kernel_spec(m.constraints(),
+                                                            m.p)
+        else:
+            P.kernel, spec = "ipm_shared", IS.kernel_spec(m.constraints())
+        P.spec = spec
+        D.specs[name] = spec
+        D.paths[name] = P
+    return D
+
+
+def dict_lanes(P, B: int):
+    """A DX path's lanes (X0, W): the bench's arm states (the first joint
+    spread over +-0.2 rad), or the lifted 0.15 randn zetas of the model in
+    the loop (``np.random.default_rng(0)``, tests/test_torch_oracle.py:
+    dict_zetas; the first 16 rows are the references')."""
+    import numpy as np
+    import torch
+    W = np.zeros((B, 2), np.float32)
+    if P.r["plant"] != "model":
+        X0 = np.zeros((B, 6), np.float32)
+        X0[:, 0] = np.linspace(-0.2, 0.2, B)
+        return X0, W
+    z = (0.15 * np.random.default_rng(0).standard_normal(
+        (B, P.model.meta.nzeta))).astype(np.float32)
+    zt = torch.as_tensor(z, device=P.mpc.device).T
+    return P.model.basis.lift(zt).T.contiguous(), W
+
+
+def dict_alive_gate(alive, r: dict) -> bool:
+    """Whether the 16 reference lanes' alive flags of a DX loop are JAX's:
+    each lane alive as in JAX's x64 run, or as in one of JAX's own f32
+    runs of it (the asset and its one-ulp copies, ``alive_copies`` of
+    ``copies`` keeping the lane alive)."""
+    import numpy as np
+    f32 = r["f32"]
+    n = f32.get("copies", 1)
+    kept = np.asarray(f32.get("alive_copies",
+                              [n * int(a) for a in f32["alive"]]))
+    a, x64 = np.asarray(alive, bool), np.asarray(r["alive"], bool)
+    return bool(((a == x64) | (a & (kept > 0)) | (~a & (kept < n))).all())
+
+
+# a DX loop may have this many of its 16 reference lanes outside the hull
+# of x64 and JAX's f32 band, each on a lane where that band is wider
+# than CHAOTIC_BAND, and by less than the band's width: the card's f32 run
+# is one more sample of JAX's f32 spread, which falls outside the range
+# of 96 samples with probability 2/97 a lane (3 or more of 16: 0.4 %)
+CHAOTIC_LANES, CHAOTIC_BAND = 2, 1e-2
+
+
+def dict_lane_gate(e, r: dict):
+    """Gate 2 of a DX loop, lane by lane: (ok, off, loose) with ``off``
+    each reference lane's distance outside the hull of its JAX x64
+    err_mean and its band of JAX's own f32 runs (``loaded_lane_gate``)
+    and ``loose`` the lanes off by 1e-3 or more.  ok where every lane is
+    within 1e-3, but at most ``CHAOTIC_LANES`` lanes whose band is wider
+    than ``CHAOTIC_BAND`` (one ulp of A moves them by ten times the gate
+    or more), each off by less than its band's width."""
+    import numpy as np
+    off = loaded_lane_gate(e, r)
+    band = np.asarray(r["f32"]["band"])
+    width = band[:, 1] - band[:, 0]
+    loose = np.nonzero(off >= 1e-3)[0]
+    ok = len(loose) <= CHAOTIC_LANES and bool(
+        ((width[loose] > CHAOTIC_BAND) & (off[loose] < width[loose])).all())
+    return ok, off, loose
+
+
+def dict_all_alive(r: dict) -> bool:
+    """The refs keep all 16 lanes alive: JAX's x64 run and every one of
+    JAX's own f32 runs."""
+    return all(r["alive"]) and r["f32"]["all_alive"]
+
+
+def dict_launches(P, steps: int) -> dict:
+    """A DX path's kernel launches in a ``steps``-step run: one QP a step
+    (the SQP: one ``nmpc_pass`` a pass)."""
+    n = steps - 1
+    if P.kernel == "nmpc_pass":
+        n *= P.cfg.sqp_iters
+    return {P.kernel: n}
+
+
+def dict_solve_inputs(P, B: int, steps: int):
+    """The arguments of the last of ``steps`` solves of a DX path's f32
+    general runner on B lanes (the closed loop's own lanes): (z or zeta,
+    u_prev, sqYr, U_plan[, lam])."""
+    from koopman_realizations_torch.utils.trajectories import (
+        blockM_reference,
+    )
+    mpc, seen = P.mpc, {}
+    solve = mpc.solve
+
+    def record(*a):
+        seen["args"] = a
+        return solve(*a)
+    mpc.solve = record
+    try:
+        P.sim.batched_runner(blockM_reference(), steps=steps + 1)(
+            *dict_lanes(P, B))
+    finally:
+        del mpc.solve
+    return seen["args"]
+
+
+def dict_kernel_args(P, B: int, steps: int) -> dict:
+    """{dtype: the kernel's (and its plain version's) arguments} at the
+    lanes of ``dict_solve_inputs``, in f32 and f64: ``bilin_lift`` from
+    zeta, ``bilin`` from the lifted state, each from the shifted plan with
+    the carried duals in row units; ``nmpc_pass`` the first SQP pass (the
+    held plan, the jacfwd Jacobians at the held state, rho)."""
+    import torch
+    args = dict_solve_inputs(P, B, steps)
+    out = {}
+    for dt, m in ((torch.float32, P.mpc), (torch.float64, P.mpc64)):
+        a = tuple(t.to(dt).contiguous() if torch.is_tensor(t) else t
+                  for t in args)
+        it = m.cfg.qp_iters
+        if P.kernel == "nmpc_pass":
+            zeta, up, sq = a[:3]
+            Np, mm = m.Np, m.m
+            Ul = up.repeat(Np, 1)
+            Jt, cv = m.stage_lin(zeta.expand((Np,) + zeta.shape), Ul)
+            rho = m.cfg.sqp_damping
+            out[dt] = (m.nmpc_qp(m.RdT_t + rho * m.bsizes_t), Jt, cv, zeta,
+                       up, sq, (m.Sel_t @ Ul[mm:]).contiguous(),
+                       (-2.0 * rho * (m.Tb_t.T @ Ul[mm:])).contiguous(),
+                       None, it, 1e-2)
+            continue
+        z, up, sq, U = a[:4]
+        lam = a[4] if len(a) > 4 else None
+        qp = m.lift_qp() if P.kernel == "bilin_lift" else m.bilin_qp()
+        lam_row = None if lam is None else (lam * qp.row[:, None]) \
+            .contiguous()
+        out[dt] = (qp, z, up, m.warm_start(U).contiguous(), lam_row, sq, it,
+                   1e-2)
+    return out
+
+
+def phase_dictionaries(dev, drive, check_qp, ptx, D, smi) -> dict:
+    """Phase DX: every dictionary the JAX trainer builds, from training to
+    the closed loop on the card (``DICT_REFS``).
+
+    DX1 trains the five dictionary assets' recipes (the delayed poly-2
+    bilinear model with PCA, poly-3 without PCA, fourier_sparser 1
+    bilinear and nonlinear, poly-2 + 20 gaussians linear), a linear
+    hermite-2 and a linear full-fourier-1 model and two continuous-time
+    ones (linear poly-1, bilinear poly-2) on the card and on the CPU: the
+    card's within 1.2e-7 of the CPU's and of the JAX-trained asset in
+    scaled one-step prediction (or of JAX's predictions in the refs for
+    the four without an asset), or within twice the training's one-ulp
+    lift floor (``lift_ulp_floor``) where that is more; the continuous
+    ones within 1e-5 (their generator logm(K') amplifies the fit's last
+    bits).  DX2 holds the new builds to their plain versions and f64
+    (``check_qp``) on closed-loop lanes (B_CHECK lanes after
+    ``DX_CHECK_STEPS`` steps of each path's own loop) and times each at
+    B_GENERAL beside its bound.  DX3 runs every path's B=16 loop on the
+    card in f32: each lane alive as JAX x64's or as one of JAX's own f32
+    runs' (``dict_alive_gate``), its err_mean within 1e-3 of the hull of
+    x64's and the band of JAX's own 96 f32 runs, but at most two lanes of
+    a chaotic band (``dict_lane_gate``).  DX4 runs every path at
+    B_GENERAL x 301 steps through its kernel (launches counted), alive 1.0
+    wherever the refs keep all 16 lanes alive, in x64 and in every JAX
+    f32 run (``dict_all_alive``); DX5
+    times the jacfwd stage Jacobians at B_GENERAL x Np.  Returns each
+    build's launches, error, times and bound for the kernels line."""
+    import numpy as np
+    import torch
+
+    from koopman_realizations_torch.config import SysidConfig
+    from koopman_realizations_torch.models.edmd import STAGES, Ksysid
+    from koopman_realizations_torch.ops.kernels import bilin as BI
+    from koopman_realizations_torch.ops.kernels import bilin_lift as BL
+    from koopman_realizations_torch.ops.kernels import nmpc_pass as NP
+    from koopman_realizations_torch.utils.checkpoint import load_model
+    from koopman_realizations_torch.utils.data import load_corpus
+    from koopman_realizations_torch.utils.metrics import (
+        lane_tracking_error,
+        one_step_predictions,
+    )
+    from koopman_realizations_torch.utils.trajectories import (
+        blockM_reference,
+    )
+    refs = D.refs
+    ref = blockM_reference()
+    t_phase = [time.perf_counter()]
+
+    def took(label):
+        now = time.perf_counter()
+        log(f"{label} took {now - t_phase[0]:.1f} s")
+        t_phase[0] = now
+
+    # ---- DX1: every recipe trained on the card, against the CPU and JAX
+    ds = load_corpus()
+    for name, recipe in refs["sysid"].items():
+        cfg = SysidConfig(**{k: tuple(v) if isinstance(v, list) else v
+                             for k, v in recipe.items()})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ks, _, _ = drive({}, lambda: Ksysid(ds, cfg, device=dev)
+                         .train_models())
+        wall = time.perf_counter() - t0
+        cpu = Ksysid(ds, cfg, device="cpu").train_models()
+        osp = lambda m: one_step_predictions(m, ks.valdata, dev)
+        card = osp(ks.model)
+        d_cpu = float(np.abs(card - osp(cpu.model)).max())
+        if name in refs["assets"]:
+            asset = load_model(DICT_REFS.parent / refs["assets"][name])[0]
+            d_jax = float(np.abs(card - osp(asset)).max())
+            what = "the JAX-trained asset"
+        else:
+            jr = np.asarray(refs["trainings"][name]["one_step"])
+            d_jax = float(np.abs(card[:len(jr)] - jr).max())
+            what = f"JAX's training (its first {len(jr)} predictions)"
+        cont = cfg.time_type == "continuous"
+        floor = 0.0
+        if not cont and max(d_cpu, d_jax) > 1.2e-7:
+            floor = lift_ulp_floor(cpu)
+        lim = 1e-5 if cont else max(1.2e-7, 2.0 * floor)
+        ms = ks.stage_ms()
+        log(f"DX1 {name} ({cfg.model_type}, {cfg.time_type}, "
+            f"{list(zip(cfg.obs_type, cfg.obs_degree))}, delays "
+            f"{cfg.delays}, PCA {cfg.dim_red}) trained on the card: N "
+            f"{ks.N}, N_full {ks.basis.N_full}; stages (CUDA events, ms) "
+            + ", ".join(f"{k} {ms.get(k, 0.0):.2f}" for k in STAGES)
+            + f"; wall {wall:.3f} s; one-step distance to the CPU's "
+              f"training {d_cpu:.3e}, to {what} {d_jax:.3e} (bound "
+              f"{lim:.3e}" + (f": twice the one-ulp lift floor {floor:.3e}"
+                              if lim > 1.2e-7 and not cont else "")
+            + f") | {smi}")
+        if not (d_cpu <= lim and d_jax <= lim and np.isfinite(card).all()):
+            raise AssertionError(f"DX1 {name}: the card's training is off")
+        del ks, cpu
+    took("DX1")
+
+    # ---- DX2: the new builds against their plain versions and f64, and
+    # their times at B_GENERAL
+    fns = {"bilin_lift": (BL.bilin_lift_cuda, BL.bilin_lift_plain),
+           "bilin": (BI.bilin_cuda, BI.bilin_plain),
+           "nmpc_pass": (NP.nmpc_pass_cuda, NP.nmpc_pass_plain)}
+    builds = {}
+    for name in ("del1", "nopca", "fs1", "nmpc-fs1", "nmpc-bilin"):
+        P = D.paths[name]
+        a = dict_kernel_args(P, B_CHECK, DX_CHECK_STEPS)
+        a32, a64 = a[torch.float32], a[torch.float64]
+        qp = a32[0]
+        b = qp.cFr[:, None] - qp.F0r @ a32[4 if P.kernel == "nmpc_pass"
+                                           else 2]
+        lab = (f"({name}: " + (f"nz={qp.nz}, {qp.nmono} monomials"
+                               if P.kernel == "bilin_lift" else
+                               f"NL={qp.nzl}" if P.kernel == "bilin" else
+                               f"jacfwd, nz={qp.nz}, nza={qp.nza}")
+               + f", n={qp.n}, mc={qp.mc}) B={B_CHECK} after "
+                 f"{DX_CHECK_STEPS} closed-loop steps")
+        err, _ = check_qp(P.kernel, fns[P.kernel], a32, a64,
+                          P.mpc.constraints(), b, lab)
+        # the same lanes tiled to B_GENERAL for the times
+        rep = B_GENERAL // B_CHECK
+        big = tuple(t.repeat(*([1] * (t.ndim - 1)), rep).contiguous()
+                    if torch.is_tensor(t) and t.ndim > 1 else t
+                    for t in a32)
+        if P.kernel == "nmpc_pass":
+            flops = nmpc_onepass_ops(qp, "jacobians", P.cfg.qp_iters, True,
+                                     False) * B_GENERAL
+            lane_in = nbytes(*big[1:8])
+        else:
+            flops = qp_ops(qp, P.cfg.qp_iters) * B_GENERAL
+            lane_in = nbytes(*(t for t in big[1:6] if t is not None))
+        b_ms, b_by = bound(flops, lane_in + 4 * B_GENERAL
+                           * (qp.n + 2 * qp.mc + 1)
+                           + nbytes(*(t for t in qp if torch.is_tensor(t))))
+        k_ms = cuda_ms(lambda: fns[P.kernel][0](*big), reps=10)
+        p_ms = cuda_ms(lambda: fns[P.kernel][1](*big), reps=2, warmup=1)
+        builds[name] = {"kernel": P.kernel, "err": err, "ms": k_ms,
+                        "plain": p_ms, "bound": b_ms, "by": b_by}
+        log(f"DX2 {P.kernel} {lab.split(')')[0][1:]}) at B={B_GENERAL}: "
+            f"{k_ms:.4f} ms (plain {p_ms:.2f} ms, bound {b_ms:.5f} ms by "
+            f"{b_by}, {flops / B_GENERAL:.0f} op/lane); ptxas: "
+            f"{ptx(P.spec)} | {smi}")
+        del a, a32, a64, big
+    took("DX2")
+
+    # ---- DX4: every path at B_GENERAL x 301 steps through its kernel
+    launches = {}
+    for name, P in D.paths.items():
+        X0, W = dict_lanes(P, B_GENERAL)
+        run = P.sim.batched_runner(ref, steps=STEPS)
+        P.sim.batched_runner(ref, steps=3)(X0, W)          # warm-up, capture
+        res, wall, counts = drive(dict_launches(P, STEPS),
+                                  lambda: run(X0, W))
+        e = lane_tracking_error(res["Yp"], ref).cpu().numpy()
+        alive = res["alive"][:, -1].cpu().numpy()
+        all16 = dict_all_alive(P.r)
+        log(f"DX4 {name} ({P.model.meta.model_type}, "
+            f"{list(P.model.basis.families)}, nd {P.model.meta.nd}, PCA "
+            f"{P.model.basis.pcs is not None}, NL {P.model.meta.NL}; "
+            f"{P.r['plant']} plant; {P.kernel}, qp_iters "
+            f"{P.cfg.qp_iters}) B={B_GENERAL} x {STEPS} steps: "
+            f"{wall:.3f} s (CUDA events), "
+            f"{B_GENERAL * (STEPS - 1) / wall:.4e} lane-steps/s, alive "
+            f"{alive.mean():.6f}, err_mean {e.mean():.6f}, err_worst "
+            f"{e.max():.6f}, launches "
+            f"{ {k: v for k, v in counts.items() if v} }; the refs keep "
+            f"all 16 lanes alive in x64 and JAX f32: {all16} | {smi}")
+        full = P.r.get("full_f32")
+        for key in ("full", "full_f32"):
+            # random lanes (the model in the loop): JAX on the same
+            # B_GENERAL lanes loses some (the most extreme draws), more
+            # of them in x64 than in f32
+            fw = P.r.get(key)
+            if fw is None or fw["B"] != len(alive):
+                continue
+            dead = np.asarray(fw["dead"], np.int64)
+            both = np.ones(len(alive), bool)
+            both[dead] = False
+            both &= alive
+            log(f"DX4 {name} against JAX {'x64' if key == 'full' else 'f32'}"
+                f" on the same {fw['B']} lanes: alive {alive.mean():.6f} "
+                f"(JAX {fw['alive']:.6f}; {int((~alive[dead]).sum())} of "
+                f"JAX's {len(dead)} lost lanes lost here too, "
+                f"{int((~alive).sum()) - int((~alive[dead]).sum())} others), "
+                f"err_mean over the lanes alive in both "
+                f"{e[both].mean():.6f} (JAX {fw['err_mean']:.6f} over its "
+                f"alive lanes)")
+        if full is not None and full["B"] == B_GENERAL:
+            ok = abs(alive.mean() - full["alive"]) <= 5e-3
+        else:
+            ok = alive.all() if all16 else True
+        if not (np.isfinite(e[alive]).all() and ok):
+            raise AssertionError(f"DX4 {name}: lanes lost at full width")
+        launches[name] = counts[P.kernel]
+        del res
+    took("DX4")
+    # ---- DX5: the jacfwd route's host cost, the stage Jacobians by
+    # forward-mode AD at B_GENERAL lanes x Np stages
+    for name in ("nmpc-fs1", "nmpc-bilin"):
+        m = D.paths[name].mpc
+        g = torch.Generator(device=dev).manual_seed(0)
+        Zl = 0.3 * torch.randn((m.Np, m.nz, B_GENERAL), generator=g,
+                               device=dev)
+        Ul = 0.3 * torch.randn((m.Np * m.m, B_GENERAL), generator=g,
+                               device=dev)
+        j_ms = cuda_ms(lambda: m.stage_jacobians(Zl, Ul), reps=5)
+        l_ms = cuda_ms(lambda: m.stage_lin(Zl, Ul), reps=5)
+        log(f"DX5 {name} jacfwd stage Jacobians at B={B_GENERAL} x Np="
+            f"{m.Np}: {j_ms:.3f} ms (CUDA events; with F and the defects "
+            f"{l_ms:.3f} ms) a pass | {smi}")
+    took("DX5")
+    # ---- DX3: the B=16 loops in f32 against the JAX references
+    B16 = refs["B"]
+    for name, P in D.paths.items():
+        r = P.r
+        res = P.sim.batched_runner(ref, steps=refs["steps"])(
+            *dict_lanes(P, B16))
+        e = lane_tracking_error(res["Yp"], ref).cpu().numpy()
+        alive = res["alive"][:, -1].cpu().numpy()
+        lanes_ok, off, loose = dict_lane_gate(e, r)
+        x64 = np.asarray(r["err_mean"])
+        band = np.asarray(r["f32"]["band"])
+        log(f"DX3 {name} (qp_iters {r['qp_iters']}, {P.kernel}) B={B16} x "
+            f"{refs['steps']} f32 on the card: err_mean {e.mean():.6f} "
+            f"(JAX x64 {x64.mean():.6f}), alive {int(alive.sum())}/{B16} "
+            f"(JAX x64 {sum(r['alive'])}, JAX f32 "
+            f"{sum(r['f32']['alive'])}), outside the hull of x64 and the "
+            f"JAX f32 band by at most {off.max():.3e} (lane "
+            f"{int(off.argmax())}; bound 1e-3)" + "".join(
+                f"; lane {i} {e[i]:.6f} outside by {off[i]:.3e} (x64 "
+                f"{x64[i]:.6f}, band {band[i, 0]:.6f} to {band[i, 1]:.6f})"
+                for i in loose) + f" | {smi}")
+        if not (dict_alive_gate(alive, r) and lanes_ok):
+            raise AssertionError(f"DX3 {name}: off the JAX reference")
+    took("DX3")
+
+    arm_of = next(P.plant for P in D.paths.values()
+                  if hasattr(P.plant, "clear_graphs"))
+    arm_of.clear_graphs()
+    return {"builds": builds, "launches": launches}
+
+
 def gram_conds(datasets, r) -> tuple:
     """The condition number of the ridged Gram matrix that
     ``evaluate_rand_models`` solves for each system at each degree of the
@@ -1425,7 +1906,7 @@ def nmpc_part_ops(q) -> dict:
     ``finish``: the Gram's factor 2, the objective scale and the scaled,
     regularized Hessian (the Levenberg term and the dual start apart)."""
     nz, nza, m, n, Np = q.nz, q.nza, q.m, q.n, q.Np
-    ntop = len(q.tables_host[-1][0])
+    ntop = len(q.tables_host[-1][0]) if q.tables_host else 0
     glow = q.nlow - nza
     sweep, live = 0, 0
     for k in range(Np + 1):
@@ -1652,6 +2133,12 @@ def main() -> int:
     # the loaded experiment's four new builds (phase LD)
     Lx = loaded_setup(dev)
     specs += list(Lx.specs.values())
+    # every dictionary's paths (phase DX): the new builds of bilin_lift
+    # (nz=15, degree 2), bilin (NL=84, NL=19) and nmpc_pass (jacfwd)
+    Dx = dict_setup(dev, arm)
+    for sp in Dx.specs.values():
+        if sp not in specs:
+            specs.append(sp)
     builds = _build.build_all(specs)
     ptxas_of = {sp: r.ptxas for sp, r in zip(specs, builds)}
     names = kernel_names(_build.CSRC)
@@ -2955,18 +3442,28 @@ def main() -> int:
     # launches join rows 5 and 4)
     ld = phase_loaded(dev, drive, check_qp, ptx, Lx, smi)
 
+    # ---- phase DX: every dictionary from training to the closed loop
+    # (its bilin_lift, bilin, nmpc_pass, ipm_factored and ipm_shared
+    # launches join rows 2, 8, 7, 9 and 4)
+    dx = phase_dictionaries(dev, drive, check_qp, ptx, Dx, smi)
+    dxl = lambda kernel: sum(v for k, v in dx["launches"].items()
+                             if Dx.paths[k].kernel == kernel)
+
     tpu = "koopman_realizations_tpu/ops/pallas/"
     src = "koopman_realizations_torch/csrc/"
     rows = [("step_fused", "step_fused.py:90", fused_main["step_fused"],
              sf_err, sf_ms, sf_plain, sf_bound, sf_by),
-            ("bilin_lift", "qp_ipm.py:772", general_main["bilin_lift"],
-             bl_err, bl_ms, bl_plain, bl_bound, bl_by),
+            ("bilin_lift", "qp_ipm.py:772",
+             general_main["bilin_lift"] + dxl("bilin_lift"),
+             max(bl_err, dx["builds"]["del1"]["err"]), bl_ms, bl_plain,
+             bl_bound, bl_by),
             ("linear_step_fused", "step_fused.py:185",
              fused_main["linear_step_fused"], ls_err, ls_ms, ls_plain,
              ls_bound, ls_by),
             ("ipm_shared", "qp_ipm.py:299",
              general_main["ipm_shared"] + lane_main + ls["launches"]
-             + sum(ld["launches"]["ipm_shared"].values()),
+             + sum(ld["launches"]["ipm_shared"].values())
+             + dxl("ipm_shared"),
              max(is_err, is_lane_err, ls["err"], ld["ipm_shared"]["err"],
                  ld["observer n=2"]["err"], ld["observer n=1"]["err"]),
              is_ms, is_plain, is_bound, is_by),
@@ -2975,15 +3472,19 @@ def main() -> int:
              nm_bound, nm_by),
             ("nmpc_stage", "qp_ipm.py:1560", full_main["nmpc_stage"], ns_err,
              ns_ms, ns_plain, ns_bound, ns_by),
-            ("nmpc_pass", "qp_ipm.py:1144", full_main["nmpc_pass"], np_err,
+            ("nmpc_pass", "qp_ipm.py:1144",
+             full_main["nmpc_pass"] + dxl("nmpc_pass"),
+             max([np_err] + [dx["builds"][k]["err"]
+                             for k in ("nmpc-fs1", "nmpc-bilin")]),
              np_ms, np_plain, np_bound, np_by),
             ("bilin", "qp_ipm.py:998",
-             route_main["bilin"] + ld["launches"]["bilin"],
-             max(bi_err, ld["bilin"]["err"]), bi_ms, bi_plain, bi_bound,
-             bi_by),
+             route_main["bilin"] + ld["launches"]["bilin"] + dxl("bilin"),
+             max([bi_err, ld["bilin"]["err"]]
+                 + [dx["builds"][k]["err"] for k in ("nopca", "fs1")]),
+             bi_ms, bi_plain, bi_bound, bi_by),
             ("ipm_factored", "qp_ipm.py:299",
-             route_main["ipm_factored"] + lin_main, if_err, if_ms, if_plain,
-             if_bound, if_by),
+             route_main["ipm_factored"] + lin_main + dxl("ipm_factored"),
+             if_err, if_ms, if_plain, if_bound, if_by),
             ("batch_chol", "batch_chol.py:28", chol_main, bc_err, bc_ms,
              bc_plain, bc_bound, bc_by)]
     # the two-launch wrappers count calls, each a front (or sweep) launch
@@ -3021,6 +3522,14 @@ def main() -> int:
                            "bilinear/True"),
         "observer_n1": sub(ld["observer n=1"], ldl["linear/True"]
                            - (Lx.refs["steps"] - 1), "linear/True")}
+    # phase DX's new builds (B_GENERAL): their launches on the DX paths
+    # are in their rows' launches, their times of their own
+    for name, bd in dx["builds"].items():
+        row = next(k for k in kernels if k["name"] == bd["kernel"])
+        row.setdefault("dictionaries", {})[name] = {
+            "launches": dx["launches"][name], "max_abs_err": bd["err"],
+            "ms": bd["ms"], "plain_ms": bd["plain"],
+            "bound_ms": bd["bound"], "bound_by": bd["by"]}
     log("device launches a wrapper call (torch.profiler, each build's "
         "first timing): " + ", ".join(
             f"{k} {v}" for k, v in dev_launches.items()))

@@ -64,14 +64,16 @@ from koopman_realizations_torch.ops.nmpc import (
     eval_F,
     jacobian_generator,
     linear_rollout,
+    defects,
     merit,
     nmpc_qp_operands,
     rollout,
     stage_lin,
 )
 from koopman_realizations_torch.ops.observables import (
+    econ_with,
     kron_ones,
-    poly_features,
+    lift_full_with,
     poly_parent_tables,
 )
 from koopman_realizations_torch.ops.qp import (
@@ -270,27 +272,28 @@ class _KmpcBase(nn.Module):
     dimensions, projection, the Q/R diagonals over the horizon, the input
     constraint stack -- under move blocking, or unblocked (reduced rows
     F[:, m:], F0 = F[:, :m]) -- and its band (None with smoothness rows:
-    a dense A^T D A), the poly lift, and the lane-shared device operands
+    a dense A^T D A), the basis's lift, and the lane-shared device operands
     of the constraints (row-equilibrated A with its A^T D A tables, cFr,
-    F0r), of the blocking (Tb, Sel; None unblocked) and of the lift.
+    F0r), of the blocking (Tb, Sel; None unblocked) and of the lift (each
+    family's operands, ``ops/observables.py:family_operands``, and the
+    PCA matrix where the basis has one).
 
-    Ported: input blocks without smoothness, or no blocks with or without
-    smoothness (the blocked JAX controller refuses smoothness too); loaded
-    models (nw > 0) without delays, whose lifted state is
-    [g; w1 g; ...] of the scaled load estimate (``lift``); no state
-    bounds, no dual stage shift, a single poly family with a PCA basis.
+    Ported: every dictionary (any list of families, with or without PCA,
+    with delays), input blocks without smoothness, or no blocks with or
+    without smoothness (the blocked JAX controller refuses smoothness
+    too); loaded models (nw > 0) without delays, whose lifted state is
+    [g; w1 g; ...] of the scaled load estimate (``lift``).  State bounds
+    and the dual stage shift raise (ROADMAP.md queue 1, item 5).
     """
 
     def __init__(self, model, scaler, cfg: MpcConfig, device, dtype):
         super().__init__()
         dev = resolve_device(device)
         basis = model.basis
-        if (cfg.state_bounds is not None or cfg.qp_dual_shift
-                or basis.pcs is None or len(basis.families) != 1
-                or basis.families[0][0] != "poly"):
+        if cfg.state_bounds is not None or cfg.qp_dual_shift:
             raise NotImplementedError(
-                "the port has no state bounds or dual shift, and takes one "
-                "poly family with PCA")
+                "state bounds and the dual stage shift are not ported "
+                "(ROADMAP.md queue 1, item 5)")
         if model.meta.nw and model.meta.nd:
             raise NotImplementedError(
                 "loaded models with delays are not ported (ROADMAP.md "
@@ -337,10 +340,15 @@ class _KmpcBase(nn.Module):
         self.band = band_offset_of(self.F_red)
         self.dense_cols = () if self.band is not None else \
             row_nonzeros(self.F_red)[0]
-        _, tables = poly_parent_tables(basis.nzeta_aug, basis.families[0][1])
-        self.tables_host = tuple(
-            (tuple(int(v) for v in pi), tuple(int(v) for v in di))
-            for pi, di in tables)
+        # the poly recurrence's tables: the lift-fused kernels and the
+        # analytic NMPC take them (a single poly family)
+        self.tables_host = ()
+        if basis.single_poly:
+            _, tables = poly_parent_tables(basis.nzeta_aug,
+                                           basis.families[0][1])
+            self.tables_host = tuple(
+                (tuple(int(v) for v in pi), tuple(int(v) for v in di))
+                for pi, di in tables)
 
         t = lambda a: None if a is None else torch.as_tensor(
             np.ascontiguousarray(a), dtype=dtype, device=dev)
@@ -349,12 +357,13 @@ class _KmpcBase(nn.Module):
                      ("cFr", self.cF_red / row),
                      ("F0r", self.F0_red / row[:, None]),
                      ("Tb_t", self.Tb), ("Sel_t", self.Sel),
-                     ("pcsT_t", basis.pcs.T)):
+                     ("pcsT_t", None if basis.pcs is None else basis.pcs.T)):
             self.register_buffer(k, t(v))
-        for d, (pi, di) in enumerate(self.tables_host):
-            idx = lambda a: torch.as_tensor(a, dtype=torch.long, device=dev)
-            self.register_buffer(f"poly_par{d}", idx(pi))
-            self.register_buffer(f"poly_dim{d}", idx(di))
+        self._lift_keys = []
+        for f, ops in enumerate(basis.operands(dtype, dev)):
+            self._lift_keys.append(tuple(ops))
+            for k, v in ops.items():
+                self.register_buffer(f"lift{f}_{k}", v)
 
     @property
     def n_con(self) -> int:
@@ -376,10 +385,24 @@ class _KmpcBase(nn.Module):
                            band=self.band, cols=self.dense_cols)
 
     def poly_tables(self):
-        """The poly lift's (parent, dim) index tables on the device."""
-        return tuple((getattr(self, f"poly_par{d}"),
-                      getattr(self, f"poly_dim{d}"))
+        """The poly lift's (parent, dim) index tables on the device (a
+        single poly family)."""
+        return tuple((getattr(self, f"lift0_par{d}"),
+                      getattr(self, f"lift0_dim{d}"))
                      for d in range(len(self.tables_host)))
+
+    def lift_operands(self) -> list:
+        """Each family's operands, as buffers of this module."""
+        return [{k: getattr(self, f"lift{f}_{k}") for k in keys}
+                for f, keys in enumerate(self._lift_keys)]
+
+    def lift_econ(self, zeta) -> torch.Tensor:
+        """The basis's working lift of lanes-minor zeta_aug (nz, B): the
+        full basis [zeta; features; 1] on this module's operands, then
+        [zeta; pcs^T g; 1] with PCA (``KoopmanBasis.lift``): (N, B)."""
+        g = lift_full_with(self.model.basis.families, self.lift_operands(),
+                           zeta)
+        return econ_with(self.pcsT_t, zeta, g)
 
     def warm_start(self, U_plan) -> torch.Tensor:
         """Primal start of the reduced decision (``_warm_start``, with
@@ -390,17 +413,14 @@ class _KmpcBase(nn.Module):
         return self.Sel_t @ shifted if self.blocked else shifted
 
     def lift(self, zeta, what=None) -> torch.Tensor:
-        """The lifted state of lanes-minor zeta (nz, B): the econ basis
-        z = [zeta; pcs^T g(zeta); 1] (``KoopmanBasis.lift`` on the device
-        tables), and for a loaded model its blocks [z; w1 z; ...] under
-        the scaled load estimate ``what`` (nw, B) (``lift_loaded``; JAX
-        ``ksim.py:97-114``): (NL, B)."""
+        """The lifted state of lanes-minor zeta (nz, B): the basis's
+        working lift (``lift_econ``), and for a loaded model its blocks
+        [z; w1 z; ...] under the scaled load estimate ``what`` (nw, B)
+        (``lift_loaded``; JAX ``ksim.py:97-114``): (NL, B)."""
         if (what is None) != (self.meta.nw == 0):
             raise ValueError("a loaded model's lift takes the load "
                              "estimate, an unloaded one none")
-        ones = zeta.new_ones((1, zeta.shape[1]))
-        g = torch.cat([zeta, poly_features(zeta, self.poly_tables()), ones])
-        z = torch.cat([zeta, self.pcsT_t @ g, ones])
+        z = self.lift_econ(zeta)
         return z if what is None else kron_ones(what.to(z.dtype), z)
 
     def plan(self, u_prev, x) -> torch.Tensor:
@@ -421,11 +441,13 @@ class BilinearKmpc(_KmpcBase):
     unblocked; u_0 is pinned to the previous input.  The route is the JAX
     controller's:
 
-    - **lift-fused** (blocked, ``bilinear_iters=1``, no loads; the bench
-      controller) -- one ``bilin_lift`` launch from the raw zeta
+    - **lift-fused** (blocked, ``bilinear_iters=1``, no loads, one poly
+      family with PCA, delays or not; the bench controller; JAX
+      ``kmpc.py:864-903``) -- one ``bilin_lift`` launch from the raw zeta
       (``wants_zeta``), or the whole step inside the fused step kernel;
-    - otherwise (a loaded model too: its lifted state carries the load
-      estimate, JAX ``kmpc.py:862-864``) the runner lifts zeta, and the
+    - otherwise (any other dictionary, a basis without PCA, a loaded
+      model: its lifted state carries the load estimate, JAX
+      ``kmpc.py:862-864``) the runner lifts zeta, and the
       first QP is one ``bilin``
       launch from z (blocked) or the host's shared-Beta assembly
       W, v = f(PG z) and one ``ipm_factored`` launch (unblocked); each
@@ -441,8 +463,8 @@ class BilinearKmpc(_KmpcBase):
                 or cfg.mpc_type not in (None, "linear"):
             raise NotImplementedError(
                 "BilinearKmpc takes a bilinear model with bilinear_iters "
-                ">= 1 (mpc_type='nonlinear' on it, the bilinear-as-NMPC "
-                "controller, is not ported)")
+                ">= 1 (mpc_type='nonlinear' on it is the bilinear-as-NMPC "
+                "controller, NonlinearKmpc; see make_kmpc)")
         super().__init__(model, scaler, cfg, device, dtype)
         m = self.m
         # Tb^T diag(Rd) Tb is diagonal (disjoint groups)
@@ -453,7 +475,8 @@ class BilinearKmpc(_KmpcBase):
         # the route (kmpc.py:688-742, 863-869); a loaded model's lifted
         # state is not the poly lift's, so it takes the z route
         self.lift_fused = self.blocked and cfg.bilinear_iters == 1 \
-            and self.meta.nw == 0
+            and self.meta.nw == 0 and model.basis.pcs is not None \
+            and model.basis.single_poly
         self.wants_zeta = self.lift_fused
         t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                       device=self.device)
@@ -498,7 +521,8 @@ class BilinearKmpc(_KmpcBase):
         module's buffers."""
         if not self.lift_fused:
             raise NotImplementedError(
-                "the lift-fused QP needs input_blocks and bilinear_iters=1")
+                "the lift-fused QP needs input_blocks, bilinear_iters=1 "
+                "and one poly family with PCA")
         return LiftQP(gens=self.gens, tables=self.poly_tables(),
                       rdiag=self.rdiag, A=self.A, cFr=self.cFr,
                       F0r=self.F0r, row=self.row, Wd=self.Wd, Wo=self.Wo,
@@ -751,10 +775,22 @@ class NonlinearKmpc(_KmpcBase):
       dynamics under the new plan (``ops/nmpc.py:linear_rollout``), not
       along the nonlinear rollout, which runs only for the merit of
       ``sqp_best_of_passes`` or the line search.
+    - **jacfwd** -- where no analytic poly Jacobian exists (JAX
+      :1090-1118): a nonlinear model on any other dictionary (F composed
+      as ``_compose_nonlinear_F``, :968-988: A1 x + A2 feats(x) + a0 over
+      every family), or a bilinear model under ``mpc_type='nonlinear'``
+      (F = C (A g(zeta) + Beta(g(zeta)) u), :1109-1116, ``Kmpc.m:93``).
+      Each pass forms the stage Jacobians by forward-mode AD
+      (``torch.func.jacfwd``, its tangents batched by ``vmap``, at all
+      (stage, lane) points at once: ``stage_jacobians``; JAX
+      :1289-1291), and runs one launch of the condensation-fused
+      ``nmpc_pass`` (JAX ``solve_qp_nmpc``, :1520-1525); the next pass
+      linearizes along the rollout of its plan through F on the device.  The other SQP knobs act as on the chord
+      route ('linear': ``ipm_factored``).
 
-    Not ported, each raising ``NotImplementedError``: unblocked stacks,
-    state bounds (``_KmpcBase``) and a bilinear model with
-    ``mpc_type='nonlinear'``; loaded models raise as in the JAX package.
+    Not ported, each raising ``NotImplementedError``: unblocked stacks and
+    state bounds (``_KmpcBase``); loaded models raise as in the JAX
+    package.
 
     Host constants (f64 numpy, as the JAX package): the composed maps
     ``A1``, ``A2``, ``a0``; the Jacobian generator ``G`` and ``pos_x``;
@@ -769,11 +805,12 @@ class NonlinearKmpc(_KmpcBase):
             # as the JAX controller (kmpc.py:1098-1103)
             raise NotImplementedError(
                 "NMPC on loaded (nw > 0) models is not supported")
-        if model.meta.model_type != "nonlinear" \
-                or cfg.mpc_type not in (None, "nonlinear"):
-            raise NotImplementedError(
-                "NonlinearKmpc takes a nonlinear model (the bilinear-as-NMPC "
-                "controller is not ported)")
+        bilinear = model.meta.model_type == "bilinear"
+        if not (model.meta.model_type == "nonlinear"
+                or bilinear and cfg.mpc_type == "nonlinear"):
+            raise ValueError(
+                "NonlinearKmpc takes a nonlinear model, or a bilinear one "
+                "with mpc_type='nonlinear'")
         if cfg.sqp_iters < 1 or cfg.input_blocks is None:
             raise NotImplementedError(
                 "NonlinearKmpc: unblocked stacks are not ported"
@@ -781,9 +818,36 @@ class NonlinearKmpc(_KmpcBase):
         super().__init__(model, scaler, cfg, device, dtype)
         m, n, Np = self.m, self.n, self.Np
         self.nz = self.meta.nzeta
-        nza = model.basis.nzeta_aug
-        self.A1, self.A2, self.a0 = composed_maps(model)
-        _, self.G, _, tables, self.pos_x = poly_jacobian_static(model)
+        basis = model.basis
+        nza = self.nz + m
+        # the analytic Jacobian needs a nonlinear model on one poly family
+        # of degree >= 2; every other dictionary takes the jacfwd route
+        self.jacfwd = bilinear or not basis.single_poly \
+            or basis.families[0][1] < 2
+        t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                      device=self.device)
+        if self.jacfwd:
+            # the pass kernel reads the shipped Jacobians only: F's maps
+            # are placeholders (an empty monomial table, zero maps)
+            tables = ()
+            self.A1, self.A2 = np.zeros((self.nz, nza)), \
+                np.zeros((self.nz, 0))
+            self.a0 = np.zeros(self.nz)
+            Gc = np.zeros((nza * self.nz, -(-nza // 4) * 4))
+            if bilinear:
+                NL = self.NL
+                for k, v in (("fA", model.A), ("fC", model.C),
+                             ("fB", np.asarray(model.B)
+                              .reshape(NL * m, NL))):
+                    self.register_buffer(k, t(v))
+            else:
+                A1, A2, a0 = composed_maps(model)
+                for k, v in (("fA1", A1), ("fA2", A2), ("fa0", a0)):
+                    self.register_buffer(k, t(v))
+        else:
+            self.A1, self.A2, self.a0 = composed_maps(model)
+            _, self.G, _, tables, self.pos_x = poly_jacobian_static(model)
+            Gc = jacobian_generator(self.G, self.pos_x, self.nz, nza)
         # decision column of each stage's input block: [u_0 | group moves]
         group_of = np.repeat(np.arange(len(cfg.input_blocks)),
                              cfg.input_blocks)
@@ -803,13 +867,11 @@ class NonlinearKmpc(_KmpcBase):
         self.linear_update = cfg.sqp_update == "linear"
         self.roll_fused = (self.jac_period == 1 and not self.linear_update
                            and not cfg.sqp_best_of_passes
-                           and cfg.sqp_linesearch == 0)
+                           and cfg.sqp_linesearch == 0 and not self.jacfwd)
         self.multipass = (self.roll_fused and not cfg.sqp_dual_warm
                           and cfg.sqp_damping_decay == 1.0)
         qp = nmpc_qp_operands(
-            self.A1, self.A2, self.a0,
-            jacobian_generator(self.G, self.pos_x, self.nz, nza), tables,
-            self.Cz, self.sqq, self.cols, self.rdiag, self.q0c, self.Gup,
+            self.A1, self.A2, self.a0, Gc, tables, self.Cz, self.sqq, self.cols, self.rdiag, self.q0c, self.Gup,
             self.F_red, self.cF_red, self.F0_red, self.band, dtype=dtype,
             device=self.device)
         self._qp_static = {k: getattr(qp, k) for k in
@@ -817,8 +879,6 @@ class NonlinearKmpc(_KmpcBase):
                             "nproj", "band")}
         for k in ("A1", "A2", "a0", "G", "Gup", "q0c", "CzS", "rdiag"):
             self.register_buffer(k + "_t", getattr(qp, k))
-        t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
-                                      device=self.device)
         for k, v in (("RdT_t", self.RdT), ("bsizes_t", self.bsizes),
                      ("Rd_t", self.r_diag), ("cF_t", self.cF_red),
                      ("F0_t", self.F0_red)):
@@ -826,14 +886,88 @@ class NonlinearKmpc(_KmpcBase):
 
     @property
     def route(self) -> str:
-        """The route of a step's first SQP ('multipass', 'stage', 'chord'
-        or 'linear'); multistart's second SQP always takes the per-pass
-        loop."""
+        """The route of a step's first SQP ('multipass', 'stage', 'chord',
+        'jacfwd' or 'linear'); multistart's second SQP always takes the
+        per-pass loop."""
         if self.multipass:
             return "multipass"
         if self.linear_update:
             return "linear"
+        if self.jacfwd:
+            return "jacfwd"
         return "stage" if self.jac_period == 1 else "chord"
+
+    # ----------------------------------------------- dynamics and Jacobians
+
+    def dynamics(self, z, u) -> torch.Tensor:
+        """The controller's dynamics F(z, u) on lanes-minor z (nz, B) and
+        u (m, B): (nz, B) -- the composed poly map (``ops/nmpc.py:
+        eval_F``), the composed map over every family (jacfwd route,
+        ``_compose_nonlinear_F``) or C (A g + Beta(g) u) of a bilinear
+        model's lift g of z."""
+        if not self.jacfwd:
+            return eval_F(self.nmpc_qp(), z, u)
+        if self.meta.model_type == "bilinear":
+            g = self.lift_econ(z)
+            NL, B = self.NL, z.shape[1]
+            beta = (self.fB @ g).reshape(NL, self.m, B)
+            return self.fC @ (self.fA @ g
+                              + torch.einsum("kmb,mb->kb", beta, u))
+        x = torch.cat([z, u])
+        feats = lift_full_with(self.model.basis.families,
+                               self.lift_operands(), x)[x.shape[0]:-1]
+        return self.fA1 @ x + self.fA2 @ feats + self.fa0[:, None]
+
+    # forward-mode Jacobians in chunks of at most this many points
+    JAC_CHUNK = 1 << 18
+
+    def stage_jacobians(self, Zl, Ul) -> torch.Tensor:
+        """Stage Jacobians of F along a trajectory Zl (Np, nz, B) and plan
+        Ul (Np*m, B) (any number of stages) by forward-mode AD (JAX ``_stage_lin``, kmpc.py:
+        1289-1291, ``jax.jacfwd`` at each point under ``vmap``): F acts
+        column by column, so ``torch.func.jacfwd`` of F(X + d 1^T) in a
+        shift d (nza,) shared by the Np*B points, at d = 0, gives every
+        point's Jacobian at once, its nza tangents batched by
+        ``torch.func.vmap`` over lanes-minor columns.  Returns Jt
+        (Np, nza, nz, B) with Jt[k, i, o] = dF_o/dx_i, the kernels' column
+        order."""
+        Np, nz, m = Zl.shape[0], self.nz, self.m
+        B = Zl.shape[-1]
+        Z = Zl.transpose(0, 1).reshape(nz, Np * B)
+        U = Ul.reshape(Np, m, B).transpose(0, 1).reshape(m, Np * B)
+        d0 = Z.new_zeros(nz + m)
+        parts = []
+        for a in range(0, Np * B, self.JAC_CHUNK):
+            Zc, Uc = Z[:, a:a + self.JAC_CHUNK], U[:, a:a + self.JAC_CHUNK]
+            shifted = lambda d: self.dynamics(Zc + d[:nz, None],
+                                              Uc + d[nz:, None])
+            parts.append(torch.func.jacfwd(shifted)(d0))   # (o, pts, i)
+        J = torch.cat(parts, dim=1).reshape(nz, Np, B, nz + m)
+        return J.permute(1, 3, 0, 2).contiguous()
+
+    def stage_lin(self, Zl, Ul, frozen=None, Fv=None):
+        """(Jt, cv) of a trajectory (``ops/nmpc.py:stage_lin``): the
+        analytic Jacobians, or on the jacfwd route ``stage_jacobians``;
+        with ``frozen`` an earlier pass's Jt, the defects fresh with Fv =
+        F(Zl, Ul) formed where not given."""
+        if not self.jacfwd:
+            return stage_lin(self.nmpc_qp(), Zl, Ul, frozen=frozen, Fv=Fv)
+        Np, nz, m = self.Np, self.nz, self.m
+        B = Zl.shape[-1]
+        Ur = Ul.reshape(Np, m, B)
+        if frozen is not None:
+            Jt = frozen
+        elif Zl.stride(0) == 0 and torch.equal(Ur, Ur[:1].expand_as(Ur)):
+            # the held start: every stage at the one point (zeta, u_prev)
+            Jt = self.stage_jacobians(Zl[:1], Ul[:m]).expand(
+                (Np, nz + m, nz, B)).contiguous()
+        else:
+            Jt = self.stage_jacobians(Zl, Ul)
+        if Fv is None:
+            flat = lambda a: a.transpose(0, 1).reshape(a.shape[1], Np * B)
+            Fv = self.dynamics(flat(Zl), flat(Ur)).reshape(nz, Np, B) \
+                .transpose(0, 1)
+        return Jt, defects(Fv, Jt, Zl, Ur).contiguous()
 
     def nmpc_qp(self, rdiag=None) -> NmpcQP:
         """The solve's operands as an ``NmpcQP`` view of this module's
@@ -895,20 +1029,22 @@ class NonlinearKmpc(_KmpcBase):
         best = None
         lam_carry = None
         frozen = None
+        stages = self.jac_period == 1 and not self.linear_update \
+            and not self.jacfwd
         for it in range(cfg.sqp_iters):
-            if self.jac_period == 1 and not self.linear_update:
+            if stages:
                 mode = (mode0 if it == 0 else "roll") if self.roll_fused \
                     else "ship"
                 if mode == "ship" and Fv is None:
                     # the cold 'hold' start: every stage's dynamics value
                     # is the one evaluation at the current point
-                    F0 = eval_F(qp0, Zl[0], Ul[:m])
+                    F0 = self.dynamics(Zl[0], Ul[:m])
                     Fv = F0.expand((Np,) + F0.shape)
             elif it % self.jac_period == 0:
-                Jt, cv = stage_lin(qp0, Zl, Ul, Fv=Fv)
+                Jt, cv = self.stage_lin(Zl, Ul, Fv=Fv)
                 frozen = Jt
             else:
-                Jt, cv = stage_lin(qp0, Zl, Ul, frozen=frozen, Fv=Fv)
+                Jt, cv = self.stage_lin(Zl, Ul, frozen=frozen, Fv=Fv)
             rho = cfg.sqp_damping * (cfg.sqp_damping_decay ** it)
             qp = self.nmpc_qp(self.RdT_t + rho * self.bsizes_t)
             x0 = self.Sel_t @ Ul[m:]
@@ -921,7 +1057,7 @@ class NonlinearKmpc(_KmpcBase):
                     W, v, qp.rdiag, self.constraints(),
                     self.cF_t[:, None] - self.F0_t @ u_prev, x0=x0,
                     lam0=lam_carry, iters=cfg.qp_iters, q0=q0)
-            elif self.jac_period == 1:
+            elif stages:
                 ship = mode == "ship"
                 sol = solve_qp_nmpc_stages(
                     qp, mode, zeta, u_prev, sqYr, x0=x0, q0=q0,
@@ -975,7 +1111,12 @@ class NonlinearKmpc(_KmpcBase):
     def _rollout_full(self, zeta, U):
         """Exact nonlinear rollout of a plan: Z = [z_0 .. z_Np]
         (``_rollout_full``, kmpc.py:1626)."""
-        return rollout(self.nmpc_qp(), zeta, U)
+        if not self.jacfwd:
+            return rollout(self.nmpc_qp(), zeta, U)
+        m, Z = self.m, [zeta]
+        for k in range(self.Np):
+            Z.append(self.dynamics(Z[-1], U[k * m:(k + 1) * m]))
+        return torch.stack(Z)
 
     def _cost_from_Z(self, Z, U, sqYr):
         """Merit of a plan given its exact rollout (``_cost_from_Z``,
@@ -1012,3 +1153,22 @@ class NonlinearKmpc(_KmpcBase):
 def _pick(take, a: QPSolution, b: QPSolution) -> QPSolution:
     """Lane by lane, solution a where ``take``, else b."""
     return QPSolution(*(torch.where(take, u, v) for u, v in zip(a, b)))
+
+
+def make_kmpc(model, scaler, cfg: MpcConfig, device="cuda",
+              dtype=torch.float32):
+    """The controller of a model and ``cfg.mpc_type`` (JAX ``make_kmpc``,
+    kmpc.py:1678-1690; ``Kmpc.m:85-103``): linear model -> ``LinearKmpc``,
+    bilinear -> ``BilinearKmpc``, or ``NonlinearKmpc`` under
+    ``mpc_type='nonlinear'``, nonlinear -> ``NonlinearKmpc`` whatever
+    ``mpc_type`` says (as the JAX factory)."""
+    mt = model.meta.model_type
+    mpc_type = cfg.mpc_type or ("nonlinear" if mt == "nonlinear"
+                                else "linear")
+    if mt == "linear" and mpc_type == "linear":
+        return LinearKmpc(model, scaler, cfg, device, dtype)
+    if mt == "bilinear" and mpc_type == "linear":
+        return BilinearKmpc(model, scaler, cfg, device, dtype)
+    if mt == "bilinear" and mpc_type == "nonlinear" or mt == "nonlinear":
+        return NonlinearKmpc(model, scaler, cfg, device, dtype)
+    raise ValueError(f"{mt} model is incompatible with mpc_type {mpc_type}")

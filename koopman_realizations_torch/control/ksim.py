@@ -7,9 +7,9 @@ linear ``LinearKmpc``, the SQP ``NonlinearKmpc``):
 - ``batched_runner``: the general path of ``Ksim.make_body`` (:116-230)
   -- per step the controller's batched solve (bilinear:
   ``solve_qp_bilinear_lifted``, the ``bilin_lift`` kernel on the card; off
-  the lift-fused route the poly+PCA lift, then per QP the ``bilin`` or
+  the lift-fused route the basis's lift, then per QP the ``bilin`` or
   ``ipm_factored`` kernel, the host's re-roll between QPs;
-  linear: the poly+PCA lift, the condensed gradient and
+  linear: the basis's lift, the condensed gradient and
   ``solve_qp_shared``, the ``ipm_shared`` kernel on the card; nonlinear:
   the SQP of ``NonlinearKmpc.solve`` on its route, the ``nmpc_multipass``
   kernel once a step or the ``nmpc_stage`` / ``nmpc_pass`` kernel, or on
@@ -32,6 +32,16 @@ trailing windows of scaled outputs and inputs, before the lift, every
 recorded as ``What``.  Each lane's true load is constant (``W``, as
 ``run_batch``, :554-577).
 
+Delay-embedded models (nd > 0, ``ksim.py:116-190``): the general runner
+keeps trailing windows of nd+1 scaled outputs and planned inputs (more
+where the load observer needs them), started from the lane's tiled y0 and
+u0; zeta is the newest output, the output delays, then the input delays
+(``ops/observables.py:zeta_from_window``), the solve's previous input the
+newest row of the input window, into which each step puts the plan's
+scaled U[1].  The plant is the arm (``models/arm.py``) or the model itself
+(``KoopmanPlant``, ``run_model_simulation``; ``ksim.py:34-67``): any object
+with ``step(x, u, w)``, ``get_y(x)`` and ``device``, x (nx, B) lanes-minor.
+
 Reference quirks kept (``Ksim.m:199,225,239-246``): the applied input is
 the SECOND row of the plan, the plant consumes the PREVIOUS step's input,
 and the horizon is anchored at the current reference row.  Lanes freeze on
@@ -51,6 +61,9 @@ from koopman_realizations_torch.control.kmpc import (
     LinearKmpc,
     NonlinearKmpc,
 )
+from koopman_realizations_torch.models.arm import Arm
+from koopman_realizations_torch.models.koopman import model_step
+from koopman_realizations_torch.ops.observables import zeta_from_window
 from koopman_realizations_torch.ops.kernels.linear_step_fused import (
     build_linear_step_fused,
 )
@@ -60,9 +73,52 @@ from koopman_realizations_torch.ops.kernels.step_fused import (
 )
 
 
+class KoopmanPlant:
+    """Model-in-the-loop plant (JAX ``KoopmanPlant``, ksim.py:34-57;
+    ``Kmpc.run_simulation:403-512``): the learned model propagates its
+    lifted state z (NL, B) lanes-minor in place of a simulator, and
+    inputs and outputs cross the scaling as a real plant's do: ``step``
+    scales u down and steps the model (``models/koopman.py:model_step``),
+    ``get_y`` is y_up(C z)."""
+
+    def __init__(self, model, scaler, device="cuda"):
+        self.model, self.scaler = model, scaler
+        self.device = resolve_device(device)
+        self.nx = model.meta.NL
+        self._steps = {}                 # dtype -> the model's step
+
+    def step(self, z, u, w=None):
+        if z.dtype not in self._steps:
+            self._steps[z.dtype] = model_step(self.model, z)
+        return self._steps[z.dtype](z, self.scaler.u_down(u, axis=0), None)
+
+    def get_y(self, z):
+        C = torch.as_tensor(np.asarray(self.model.C), dtype=z.dtype,
+                            device=z.device)
+        return self.scaler.y_up(C @ z, axis=0)
+
+
+def run_model_simulation(mpc, ref, steps: Optional[int] = None, zeta0=None,
+                         device="cuda"):
+    """The closed loop against the controller's own model (JAX
+    ``run_model_simulation``, ksim.py:60-67; ``Kmpc.run_simulation``) on
+    the general runner, a lane for each row of zeta0 (B, nzeta) (default
+    one lane at zeta 0): the lanes start from the lifted zeta0.  Returns
+    the runner's {"Yp", "alive"}."""
+    sim = Ksim(KoopmanPlant(mpc.model, mpc.scaler, device), mpc,
+               device=device)
+    dev = sim.device
+    if zeta0 is None:
+        zeta0 = np.zeros((1, mpc.meta.nzeta))
+    zeta = torch.as_tensor(np.asarray(zeta0), dtype=mpc.dtype, device=dev)
+    Z0 = mpc.model.basis.lift(zeta.T).T
+    return sim.batched_runner(ref, steps)(Z0, torch.zeros(
+        (Z0.shape[0], 2), dtype=mpc.dtype, device=dev))
+
+
 class Ksim:
-    """Closed-loop harness binding the arm plant, the controller and, for
-    a loaded model, an optional load observer."""
+    """Closed-loop harness binding a plant (the arm or ``KoopmanPlant``),
+    the controller and, for a loaded model, an optional load observer."""
 
     def __init__(self, plant, mpc: BilinearKmpc | LinearKmpc | NonlinearKmpc,
                  observer=None, device="cuda"):
@@ -72,22 +128,27 @@ class Ksim:
         self.scaler = mpc.scaler
         self.meta = mpc.meta
         self.observer = observer
-        if self.meta.nd != 0:
-            raise NotImplementedError("delays are not ported")
+        self.nd = self.meta.nd
+        if self.nd and self.meta.nw:
+            raise NotImplementedError(
+                "loaded models with delays are not ported (ROADMAP.md "
+                "queue 1, item 7)")
         if observer is not None and (self.meta.nw == 0
                                      or observer.dtype != mpc.dtype):
             raise ValueError("the load observer needs a loaded model and "
                              "the controller's dtype")
-        # the trailing windows' rows: the observer's regression needs
-        # load_obs_horizon + 1 rows of past measurements
-        self.win = 1 if observer is None else observer.horizon + 1
+        # the trailing windows' rows: zeta needs nd + 1 (ksim.py:75-83),
+        # the observer's regression load_obs_horizon + 1 rows of past
+        # measurements
+        self.win = self.nd + 1 if observer is None \
+            else max(self.nd + 1, observer.horizon + 1)
         # the NMPC carries no duals across steps (ksim.py:93-94: it has no
         # n_con in the JAX package)
         self._dual_warm = bool(mpc.cfg.qp_dual_warm) \
             and not isinstance(mpc, NonlinearKmpc)
-        if plant.G.device.type != self.device.type \
+        if plant.device.type != self.device.type \
                 or mpc.device.type != self.device.type:
-            raise ValueError(f"plant ({plant.G.device}) and controller "
+            raise ValueError(f"plant ({plant.device}) and controller "
                              f"({mpc.device}) must live on {device}")
 
     # ---------------------------------------------------------- host prep
@@ -120,8 +181,8 @@ class Ksim:
 
     def _lanes(self, X0, W):
         dt, dev = self.mpc.dtype, self.device
-        X = torch.as_tensor(np.asarray(X0), dtype=dt, device=dev).T
-        Wt = torch.as_tensor(np.asarray(W), dtype=dt, device=dev).T
+        X = torch.as_tensor(X0, dtype=dt, device=dev).T
+        Wt = torch.as_tensor(W, dtype=dt, device=dev).T
         return X.contiguous(), Wt.contiguous()
 
     # ------------------------------------------------------- general path
@@ -130,11 +191,12 @@ class Ksim:
         """fn(X0 (B, nx), W (B, 2)) -> {"Yp": (B, steps-1, nproj),
         "alive": (B, steps-1) bool} for the general closed loop, and for a
         loaded model "What": (B, steps-1, nw), the scaled load estimate
-        each step used (frozen with its lane)."""
+        each step used (frozen with its lane).  X0 holds the plant's
+        states (the arm's, or ``KoopmanPlant``'s lifted states)."""
         K = self._steps(ref, steps)
         windows = self.reference_windows(ref, K)
-        mpc, plant, sc, obs = self.mpc, self.plant, self.scaler, \
-            self.observer
+        mpc, plant, sc, obs, nd = self.mpc, self.plant, self.scaler, \
+            self.observer, self.nd
         m, Np, nw = mpc.m, mpc.Np, self.meta.nw
         proj = list(mpc.proj_idx)
         # the lift-fused bilinear kernel lifts zeta itself (``wants_zeta``);
@@ -158,16 +220,20 @@ class Ksim:
                                     device=x.device)
             what = x.new_zeros((nw, B)) if nw else None
             What = x.new_empty((K - 1, nw, B)) if nw else None
-            # trailing windows, oldest row first (ysc / upsc the newest)
-            ywin = ysc[None].repeat(self.win, 1, 1) if obs else None
-            uwin = upsc[None].repeat(self.win, 1, 1) if obs else None
+            # trailing windows, oldest row first (ysc / upsc the newest),
+            # both from the lane's tiled y0 and u0 (ksim.py:248-249)
+            windows_on = obs is not None or nd > 0
+            ywin = ysc[None].repeat(self.win, 1, 1) if windows_on else None
+            uwin = upsc[None].repeat(self.win, 1, 1) if windows_on else None
             for k in range(K - 1):
                 what_prev = what
                 if obs is not None:
                     # k + 1 is the reference's 1-based step counter
                     what = obs(k + 1, ywin, uwin, what)
-                U, sol = mpc.solve(lift(ysc, what), upsc, windows[k], U_plan,
-                                   *(() if lam is None else (lam,)))
+                zeta = zeta_from_window(ywin[-nd - 1:], uwin[-nd - 1:], nd) \
+                    if nd else ysc
+                U, sol = mpc.solve(lift(zeta, what), upsc, windows[k],
+                                   U_plan, *(() if lam is None else (lam,)))
                 u_next_sc = U[m:2 * m]
                 x_new = plant.step(x, u_prev, Wt)
                 y_new = plant.get_y(x_new)
@@ -176,7 +242,9 @@ class Ksim:
                 x = keep(x_new, x)
                 y = keep(y_new, y)
                 ysc_new = sc.y_down(y_new, axis=0)
-                if obs is not None:
+                if windows_on:
+                    # the planned U[1] enters the input window
+                    # (ksim.py:171, 188-190)
                     ywin = keep(torch.cat([ywin[1:], ysc_new[None]]), ywin)
                     uwin = keep(torch.cat([uwin[1:], u_next_sc[None]]), uwin)
                 ysc = keep(ysc_new, ysc)
@@ -205,14 +273,16 @@ class Ksim:
         kernels' type; an f64 model is not silently cast), and for the
         bilinear controller the lift-fused route (``ksim.py:423-428``:
         blocked, ``bilinear_iters=1``) with the dual warm start without
-        stage shift.  The
-        linear controller's branch (``ksim.py:429-436``: blocked, cold
-        duals, no shift, one poly family with PCA) is every configuration
-        ``LinearKmpc`` takes.  The NMPC has no fused step (as in the JAX
-        package, ``ksim.py:409-437``), nor has a loaded model or a loop
-        with the load observer."""
+        stage shift; the linear controller's (``ksim.py:429-436``:
+        blocked, cold duals, no shift) is every blocked ``LinearKmpc``.
+        Neither takes a dictionary other than one poly family with PCA, a
+        delay-embedded or loaded model, the load observer or a plant other
+        than the arm; the NMPC has no fused step (as in the JAX package,
+        ``ksim.py:409-437``)."""
+        basis = self.mpc.model.basis
         if isinstance(self.mpc, NonlinearKmpc) or self.observer is not None \
-                or self.meta.nw:
+                or self.meta.nw or self.nd or not isinstance(self.plant, Arm) \
+                or basis.pcs is None or not basis.single_poly:
             return False
         cfg = self.plant.cfg
         common = (cfg.integrator == "sdirk2" and cfg.jac_mode == "step"

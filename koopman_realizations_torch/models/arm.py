@@ -88,6 +88,10 @@ class Arm(nn.Module):
         # recently stepped last
         self._graphs: dict = {}
 
+    @property
+    def device(self) -> torch.device:
+        return self.G.device
+
     def step(self, X: torch.Tensor, U: torch.Tensor, W: torch.Tensor):
         """One control period Ts, lanes-minor: X (nx, B), U (m, B) in
         original units, W (2, B) loads; on the card a replay of the

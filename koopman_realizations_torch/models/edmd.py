@@ -15,12 +15,15 @@ regression in f64.  f32 matmuls run at full precision (TF32 off) whatever
 the caller's setting.  The models come back as the port's containers
 holding host numpy in ``cfg.dtype``, which is what the controllers take.
 
-Ported: discrete time, plain least squares (lasso inf) and the LASSO
-path (finite lasso: FISTA in f64 on the device, ``ops/lasso.py``, with
-the delay pin mask), poly bases, with loads (``cfg.loaded``: the lifted
-state [g; w1 g; ...], NL = N (nw + 1), from trials that carry ``w``) or
-without.  The rest raises ``NotImplementedError`` naming its ROADMAP
-item.
+Ported: discrete and continuous time (the generator logm(K' + 1e-12 I)
+/ Ts on the host in f64, ``ops/linalg.py:logm_host``), plain least
+squares (lasso inf) and the LASSO path (finite lasso: FISTA in f64 on the
+device, ``ops/lasso.py``, with the delay pin mask), every observable
+family and mixed lists of them, with or without PCA, with delays, with
+loads (``cfg.loaded``: the lifted state [g; w1 g; ...], NL = N (nw + 1),
+from trials that carry ``w``) or without.  Loads with delays and the
+pre-extracted snapshot pairs of a datafile raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -44,7 +47,10 @@ from koopman_realizations_torch.models.koopman import (
     rollout,
 )
 from koopman_realizations_torch.ops.lasso import lasso_fista_f64
-from koopman_realizations_torch.ops.linalg import pcs_for_explained
+from koopman_realizations_torch.ops.linalg import (
+    logm_host,
+    pcs_for_explained,
+)
 from koopman_realizations_torch.ops.lstsq import lstsq
 from koopman_realizations_torch.ops.observables import (
     KoopmanBasis,
@@ -113,8 +119,6 @@ class Ksysid:
 
     @_full_f32
     def __init__(self, data: DataSet, cfg: SysidConfig, device="cuda"):
-        if cfg.time_type != "discrete":
-            _not_ported("continuous time (logm_host, zoh_discretize)")
         if data.snapshots is not None:
             _not_ported("pre-extracted snapshot pairs of a datafile", 10)
         if cfg.loaded and cfg.delays:
@@ -349,33 +353,54 @@ class Ksysid:
     def _host(t: torch.Tensor) -> np.ndarray:
         return t.cpu().numpy()
 
+    @property
+    def continuous(self) -> bool:
+        return self.cfg.time_type == "continuous"
+
+    def _generator(self, K: torch.Tensor) -> torch.Tensor:
+        """logm(K + 1e-12 I) / Ts of a fitted operator (``Ksysid.m:
+        1186-1190``): on the host in f64, then in ``cfg.dtype`` on the
+        device."""
+        Kc = logm_host(self._host(K) + 1e-12 * np.eye(K.shape[0])) / self.Ts
+        return self._on_device(Kc)
+
+    def _UT(self, K: torch.Tensor) -> torch.Tensor:
+        """K^T, or its generator for a continuous model."""
+        return self._generator(K.T) if self.continuous else K.T
+
     @_full_f32
     def get_model(self, koop) -> LinearModel:
-        """A, B, C with the projection M folded in
-        (``Ksysid.get_model:1179-1235``): M = argmin ||L M^T - Py|| with
-        L_i = (A Px_i + B u_i)^T, then A, B = M A, M B."""
+        """A, B, C and the projection M (``Ksysid.get_model:1179-1235``):
+        M = argmin ||L M^T - Py|| with L_i = (A Px_i + B u_i)^T, folded in
+        (A, B = M A, M B) for a discrete model; a continuous one keeps the
+        generators."""
         K, NL = koop["K"], self.NL
-        A, B = K.T[:NL, :NL], K.T[:NL, NL:]
+        UT = self._UT(K)
+        A, B = UT[:NL, :NL], UT[:NL, NL:]
         L = koop["Px"] @ A.T + koop["u"] @ B.T
         M = self._lstsq(L, koop["Py"]).T
+        if not self.continuous:
+            A, B = M @ A, M @ B
         h = self._host
-        return LinearModel(A=h(M @ A), B=h(M @ B), C=self._C(), M=h(M),
+        return LinearModel(A=h(A), B=h(B), C=self._C(), M=h(M),
                            K=h(K), meta=self._meta(), basis=self.basis)
 
     def get_BLmodel(self, koop) -> BilinearModel:
         """A, B (stored (NL, m, NL): block k multiplies input k), C
         (``Ksysid.get_BLmodel:1238-1282``)."""
         K, NL = koop["K"], self.NL
+        UT = self._UT(K)
         h = self._host
-        return BilinearModel(A=h(K.T[:NL, :NL]),
-                             B=h(K.T[:NL, NL:].reshape(NL, self.m, NL)),
+        return BilinearModel(A=h(UT[:NL, :NL]),
+                             B=h(UT[:NL, NL:].reshape(NL, self.m, NL)),
                              C=self._C(), K=h(K), meta=self._meta(),
                              basis=self.basis)
 
     def get_NLmodel(self, koop) -> NonlinearModel:
-        """The discrete vector field W = K[:, :nzeta], C = I
+        """The vector field W = K[:, :nzeta] (of the generator
+        logm(K + 1e-12 I) / Ts for a continuous model), C = I
         (``Ksysid.get_NLmodel:1298-1341``)."""
-        K = koop["K"]
+        K = self._generator(koop["K"]) if self.continuous else koop["K"]
         return NonlinearModel(W=self._host(K[:, :self.nzeta]),
                               C=np.eye(self.n, dtype=np.dtype(self.cfg.dtype)),
                               K=self._host(K), meta=self._meta(),

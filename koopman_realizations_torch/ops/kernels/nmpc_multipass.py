@@ -59,17 +59,18 @@ def nmpc_config(qp: NmpcQP) -> str:
     into ``g``; the top-degree monomials as terms handed to a consumer
     macro, never stored)."""
     nza = qp.nza
-    lows, top = qp.tables_host[:-1], qp.tables_host[-1]
-    stmts = []
-    base_prev, base = 0, nza
-    for par, dim in lows:
-        for r in range(len(par)):
-            stmts.append(f"g[{base + r}] = g[{base_prev + par[r]}] * "
-                         f"g[{dim[r]}];")
-        base_prev, base = base, base + len(par)
-    col0 = qp.nmono - len(top[0])
-    terms = [f"T(g[{base_prev + p}] * g[{d}], {col0 + r});"
-             for r, (p, d) in enumerate(zip(*top))]
+    stmts, terms = [], []
+    if qp.tables_host:      # none where F is not formed in the kernel
+        lows, top = qp.tables_host[:-1], qp.tables_host[-1]
+        base_prev, base = 0, nza
+        for par, dim in lows:
+            for r in range(len(par)):
+                stmts.append(f"g[{base + r}] = g[{base_prev + par[r]}] * "
+                             f"g[{dim[r]}];")
+            base_prev, base = base, base + len(par)
+        col0 = qp.nmono - len(top[0])
+        terms = [f"T(g[{base_prev + p}] * g[{d}], {col0 + r});"
+                 for r, (p, d) in enumerate(zip(*top))]
     return (cons_config(qp.cons)
             + _build.defines(KM_M=qp.m, KN_NZ=qp.nz, KN_NZA=nza,
                              KN_NS=qp.ns, KN_NPROJ=qp.nproj, KN_NP=qp.Np,

@@ -1,5 +1,6 @@
-"""Dense linear algebra of training (port of ``ops/linalg.py:16-43`` of the
-JAX package: PCA), in f64 on the caller's device.
+"""Dense linear algebra of training (port of ``ops/linalg.py:16-71`` of the
+JAX package: PCA, in f64 on the caller's device, and the real matrix
+logarithm of continuous-time training, on the host).
 
 ``thin_svd`` is the economy SVD under PCA and least squares: a tall matrix
 goes through its Householder QR first, then the SVD of the small square R
@@ -8,6 +9,7 @@ goes through its Householder QR first, then the SVD of the small square R
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -44,3 +46,13 @@ def pcs_for_explained(X: torch.Tensor, threshold: float = 99.0):
         cum, torch.tensor([threshold], dtype=cum.dtype,
                           device=cum.device)).item()) + 1
     return coeffs[:, :min(k, coeffs.shape[1])]
+
+
+def logm_host(K) -> np.ndarray:
+    """Real matrix logarithm on the host in f64 (scipy's Schur-based
+    ``logm``; JAX ``logm_host``, ops/linalg.py:62-71): the continuous-time
+    models' generator ``logm(K' + 1e-12 I) / Ts`` (``Ksysid.m:1186-1190``),
+    formed once at training time."""
+    import scipy.linalg
+
+    return np.real(scipy.linalg.logm(np.asarray(K, np.float64)))

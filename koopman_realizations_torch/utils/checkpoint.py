@@ -44,7 +44,8 @@ def save_model(path, model, scaler: Optional[Scaler] = None,
                overwrite: bool = False) -> str:
     """Save a model (and its scaler) to ``path``.npz in the JAX package's
     format: a JSON header (class, meta, lasso, basis, has_scaler) and the
-    arrays A, B, C, M, K, W that the model has, pcs and ``scaler_<field>``.
+    arrays A, B, C, M, K, W that the model has, gaussian_centers, pcs and
+    ``scaler_<field>`` (JAX ``utils/checkpoint.py:35-72``).
     Without ``overwrite`` an existing file is kept and the name gets a
     " (k)" suffix.  Returns the path written."""
     path = str(path)
@@ -61,12 +62,15 @@ def save_model(path, model, scaler: Optional[Scaler] = None,
         "basis": {"model_type": b.model_type, "n": b.n, "m": b.m,
                   "nd": b.nd, "nw": b.nw,
                   "families": [list(f) for f in b.families],
-                  "has_centers": False, "has_pcs": b.pcs is not None},
+                  "has_centers": b.gaussian_centers is not None,
+                  "has_pcs": b.pcs is not None},
         "has_scaler": scaler is not None,
     }
     arrays = {name: np.asarray(getattr(model, name))
               for name in ("A", "B", "C", "M", "K", "W")
               if getattr(model, name, None) is not None}
+    if b.gaussian_centers is not None:
+        arrays["gaussian_centers"] = np.asarray(b.gaussian_centers)
     if b.pcs is not None:
         arrays["pcs"] = np.asarray(b.pcs)
     if scaler is not None:

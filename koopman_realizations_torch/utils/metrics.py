@@ -8,6 +8,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from koopman_realizations_torch import resolve_device
+from koopman_realizations_torch.models.koopman import model_step
+from koopman_realizations_torch.ops.observables import delay_embed
+
 
 def get_error(ysim: torch.Tensor, yreal, scaler=None) -> dict:
     """Error struct between simulated and real outputs in scaled space
@@ -33,42 +37,36 @@ def get_error(ysim: torch.Tensor, yreal, scaler=None) -> dict:
     return err
 
 
-def one_step_predictions(model, trials, device="cpu") -> np.ndarray:
-    """Scaled one-step output predictions of a discrete model without
-    delays over every step of ``trials`` (scaled trials): C (A z + B u)
-    (linear), C (A z + Beta(z) u) (bilinear), (W^T g([zeta; u]))[:n]
-    (nonlinear), z the lift of y -- for a loaded model the loaded lift
-    under the trial's load w (the rollouts' first step).  Invariant to the
-    signs of the PCA components, so two trainings compare by it.  f64 on
-    ``device``; returns (steps, n) host numpy."""
-    dev = torch.device(device)
+def one_step_predictions(model, trials, device="cuda") -> np.ndarray:
+    """Scaled one-step output predictions of a model over every step of
+    ``trials`` (scaled trials): C (A z + B u) (linear), C (A z + Beta(z) u)
+    (bilinear), (W^T g([zeta; u]))[:n] (nonlinear), z the lift of the
+    step's zeta -- the delay-embedded rows of ``delay_embed`` for a model
+    with delays; for a loaded model the loaded lift under the trial's
+    load w; for a continuous model one sample Ts of its validation
+    stepper (``models/koopman.py:model_step``, the rollouts' first step).
+    Invariant to the signs of the PCA components, so two trainings compare
+    by it.  f64 on ``device`` (the card unless the caller asks for the
+    CPU); returns (steps, n) host numpy."""
+    dev = resolve_device(device)
     meta = model.meta
-    if meta.nd:
-        raise NotImplementedError("one-step predictions without delays "
-                                  "only")
 
     def t(a):
         return torch.as_tensor(np.asarray(a), dtype=torch.float64,
                                device=dev)
     basis = model.basis
+    probe = t(0.0)
+    step = model_step(model, probe)
     out = []
     for tr in trials:
-        y, u = t(tr.y)[:-1].T, t(tr.u)[:-1].T                 # (n|m, T-1)
-        if meta.nw:
-            w = t(tr.w)[:-1].T
-            lift = lambda zeta: basis.lift_loaded(zeta, w)
-        else:
-            lift = basis.lift
+        zeta, uz = delay_embed(np.asarray(tr.y), np.asarray(tr.u), meta.nd)
+        zeta, u = t(zeta)[:-1].T, t(uz)[:-1].T              # (nz|m, T-1)
+        w = t(tr.w)[meta.nd:][:-1].T if meta.nw else None
         if meta.model_type == "nonlinear":
-            out.append((t(model.W).T @ lift(torch.cat([y, u])))[:meta.n])
+            out.append(step(zeta, u, w)[:meta.n])
             continue
-        z = lift(y)
-        if meta.model_type == "linear":
-            z1 = t(model.A) @ z + t(model.B) @ u
-        else:
-            z1 = t(model.A) @ z + torch.einsum("kmj,jt,mt->kt",
-                                               t(model.B), z, u)
-        out.append(t(model.C) @ z1)
+        z = basis.lift(zeta) if w is None else basis.lift_loaded(zeta, w)
+        out.append(t(model.C) @ step(z, u, w))
     return torch.cat(out, dim=1).T.cpu().numpy()
 
 

@@ -1766,3 +1766,87 @@ def test_loaded_loops_on_card_track(gpu_loaded):
             assert (What[..., -1] == 0).all()
         err16[use_obs, kind] = e.mean()
     assert err16[True, "bilinear"] < 0.8 * err16[False, "bilinear"]
+
+
+# ------------------------------------------------------------ dictionaries
+
+
+@pytest.fixture(scope="module")
+def gpu_dict():
+    """Phase DX's paths on the card (``chip_smoke.dict_setup``: every
+    dictionary asset's controllers in f32 and f64, the plants) with its
+    builds made."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    import chip_smoke as CS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    D = CS.dict_setup(dev, Arm(ArmConfig(**ARM), device=dev))
+    specs = []
+    for sp in D.specs.values():
+        if sp not in specs:
+            specs.append(sp)
+    for r in _build.build_all(specs):
+        print(r.path.name, f"{r.seconds:.1f}s", *r.ptxas, sep="\n  ")
+    return CS, D
+
+
+DX_KERNELS = {"bilin_lift": (bilin_lift_cuda, bilin_lift_plain),
+              "bilin": (BI.bilin_cuda, BI.bilin_plain),
+              "nmpc_pass": (NP.nmpc_pass_cuda, NP.nmpc_pass_plain)}
+
+
+@pytest.mark.parametrize("B", [1000, 4099])
+@pytest.mark.parametrize("path", ["del1", "nopca", "fs1", "nmpc-fs1",
+                                  "nmpc-bilin"])
+def test_dictionary_kernels_match_plain(gpu_dict, path, B):
+    """Phase DX's new builds -- ``bilin_lift`` at nz=15 / degree 2 (the
+    delayed model), ``bilin`` at NL=84 and NL=19, ``nmpc_pass`` of the
+    jacfwd route -- on their paths' own closed-loop lanes after 6 steps,
+    ragged batches: kernel against plain f32, both against plain f64.
+    The batches hold at least 1000 lanes, so that the p99 of the gate is
+    a percentile: at 129 lanes it is the second-farthest lane, and on the
+    delayed model's QP, whose plain f32 solve is itself up to 2.8e-4 from
+    f64, that compares two f32 orderings' extreme lanes (the kernel's
+    4.1e-4 against plain's 1.3e-4 at B=129 in the first card run)."""
+    CS, D = gpu_dict
+    P = D.paths[path]
+    a = CS.dict_kernel_args(P, B, 6)
+    a32 = a[torch.float32]
+    qp = a32[0]
+    up = a32[4 if P.kernel == "nmpc_pass" else 2]
+    shape = {"del1": lambda: (qp.nz, qp.nmono) == (15, 120),
+             "nopca": lambda: qp.nzl == 84, "fs1": lambda: qp.nzl == 19,
+             "nmpc-fs1": lambda: qp.nza == 9 and not qp.tables_host,
+             "nmpc-bilin": lambda: qp.nza == 9 and not qp.tables_host}
+    assert shape[path]()
+    kern, plain = DX_KERNELS[P.kernel]
+    kern.launches = 0
+    _held(kern, plain, a32, a[torch.float64], P.mpc.constraints(),
+          qp.cFr[:, None] - qp.F0r @ up)
+    assert kern.launches == 1
+
+
+@pytest.mark.parametrize("path", ["del1", "nopca", "fs1", "fs1-unblocked",
+                                  "fs1-model", "mix", "nmpc-fs1",
+                                  "nmpc-bilin"])
+def test_dictionary_loops_on_card_track(gpu_dict, path):
+    """Phase DX3's gate at B=16 x 301 in f32: each reference lane alive as
+    JAX x64's or as one of JAX's own f32 runs', its err_mean within 1e-3
+    of the hull of x64's and the band of JAX's own f32 runs (at most two
+    lanes of a chaotic band excepted, ``chip_smoke.dict_lane_gate``);
+    each step's QP through the path's kernel."""
+    CS, D = gpu_dict
+    P = D.paths[path]
+    steps = D.refs["steps"]
+    kern = {"ipm_factored": IF.ipm_factored_cuda,
+            "ipm_shared": IS.ipm_shared_cuda}.get(P.kernel) \
+        or DX_KERNELS[P.kernel][0]
+    kern.launches = 0
+    out = P.sim.batched_runner(blockM_reference(), steps=steps)(
+        *CS.dict_lanes(P, D.refs["B"]))
+    assert kern.launches == CS.dict_launches(P, steps)[P.kernel]
+    e = lane_tracking_error(out["Yp"], blockM_reference()).cpu().numpy()
+    assert CS.dict_alive_gate(out["alive"][:, -1].cpu().numpy(), P.r)
+    ok, off, loose = CS.dict_lane_gate(e, P.r)
+    assert ok, (path, off, loose)

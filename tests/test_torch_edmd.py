@@ -58,6 +58,7 @@ from test_torch_oracle import (
     BENCH_MPC,
     PCA_EXPLAINED,
     bench_X0,
+    jax_dataset,
     one_thread,  # noqa: F401  (fixture)
 )
 from test_torch_oracle import one_step_predictions as jax_one_step
@@ -72,15 +73,6 @@ RECIPE = dict(obs_type=("poly",), obs_degree=(3,), dim_red=True,
 def cfg_kw(kind, **kw):
     return dict(RECIPE, model_type=kind, pca_explained=PCA_EXPLAINED[kind],
                 **kw)
-
-
-def jax_dataset(ds: DataSet):
-    """The same trials as the JAX package's DataSet."""
-    def conv(trs):
-        return [jtypes.Trial(t=tr.t, y=tr.y, u=tr.u, x=tr.x, w=tr.w)
-                for tr in trs]
-    return jtypes.DataSet(train=conv(ds.train), val=conv(ds.val),
-                          params=ds.params)
 
 
 @functools.lru_cache(maxsize=None)
@@ -185,7 +177,7 @@ def test_one_step_predictions_match_jax(kind):
     port, jks = trained(kind)
     assert dataclasses.asdict(port.model.meta) == \
         dataclasses.asdict(jks.model.meta)
-    p = one_step_predictions(port.model, port.valdata)
+    p = one_step_predictions(port.model, port.valdata, "cpu")
     j = jax_predictions(jks.model, jks.valdata)
     assert p.shape == j.shape == (5 * 1200, 6)
     assert np.abs(p - j).max() < 1e-5
@@ -211,7 +203,7 @@ def test_f64_training_on_a_slice_matches_jax_tightly():
     port = Ksysid(ds, SysidConfig(**kw), device="cpu").train_models()
     jks = JKsysid(jax_dataset(ds), JSysidConfig(**kw)).train_models()
     assert port.model.A.dtype == np.float64 and port.N == jks.N
-    p = one_step_predictions(port.model, port.valdata)
+    p = one_step_predictions(port.model, port.valdata, "cpu")
     j = jax_predictions(jks.model, jks.valdata)
     assert np.abs(p - j).max() < 1e-9
     pe = float(port.validate()[0]["error"]["euclid_mean"])
@@ -374,9 +366,7 @@ def test_save_model_reads_back_in_both_packages(kind, tmp_path):
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(time_type="continuous"), 2),
     (dict(loaded=True, delays=1), 7),
-    (dict(obs_type=("fourier",)), 2),
     ("snapshots", 10),
 ])
 def test_what_is_not_ported_raises(change, item):

@@ -280,7 +280,7 @@ def test_ksysid_lasso_candidates_match_jax_f64(cand):
     assert [c.lasso for c in port.candidates] == [8.0, float("inf")]
     pm, jm = port.candidates[cand], jks.candidates[cand]
     assert dataclasses.asdict(pm.meta) == dataclasses.asdict(jm.meta)
-    p = one_step_predictions(pm, port.valdata)
+    p = one_step_predictions(pm, port.valdata, "cpu")
     j = jax_one_step(jm, jks.valdata)
     assert np.abs(p - j).max() < 1e-5
 
@@ -293,7 +293,7 @@ def test_ksysid_lasso_f32_recipe():
     features' scale, which 300 unconverged FISTA iterations carry to
     ~1e-5 in prediction), its budget spent, its stats recorded."""
     port, jks = lasso_trained("float32")
-    p = one_step_predictions(port.candidates[1], port.valdata)
+    p = one_step_predictions(port.candidates[1], port.valdata, "cpu")
     j = jax_one_step(jks.candidates[1], jks.valdata)
     assert np.abs(p - j).max() < 1e-5
     Px, Py = (t.double().numpy() for t in port.lift_snapshot_matrices())

@@ -215,8 +215,8 @@ def test_loaded_training_matches_the_jax_assets(kind):
     for f in ("w_factor", "w_offset", "y_factor", "u_offset"):
         np.testing.assert_array_equal(getattr(ks.scaler, f),
                                       getattr(scaler, f))
-    d = np.abs(one_step_predictions(ks.model, ks.valdata)
-               - one_step_predictions(asset, ks.valdata)).max()
+    d = np.abs(one_step_predictions(ks.model, ks.valdata, "cpu")
+               - one_step_predictions(asset, ks.valdata, "cpu")).max()
     bound = 1.2e-7
     if kind == "linear":
         import chip_smoke

@@ -102,16 +102,17 @@ def test_nmpc_refuses_unported_regimes(extra):
 
 
 def test_nmpc_refuses_other_models_and_loads():
-    """A bilinear model under mpc_type='nonlinear' (bilinear-as-NMPC) and
-    a loaded model raise; a bilinear controller asked for the NMPC does
-    too."""
+    """A bilinear model under mpc_type='nonlinear' is the bilinear-as-NMPC
+    controller (ported: the jacfwd route, tests/test_torch_nmpc_jacfwd.py),
+    which a bilinear controller refuses; a loaded model raises (as in
+    JAX)."""
     import dataclasses
 
     from koopman_realizations_torch.control.kmpc import BilinearKmpc
     bmodel, bscaler, _ = load_model()
     nl = dict(NMPC_MPC, mpc_type="nonlinear")
-    with pytest.raises(NotImplementedError):
-        NonlinearKmpc(bmodel, bscaler, MpcConfig(**nl), device="cpu")
+    assert NonlinearKmpc(bmodel, bscaler, MpcConfig(**nl),
+                         device="cpu").route == "jacfwd"
     with pytest.raises(NotImplementedError):
         BilinearKmpc(bmodel, bscaler, MpcConfig(**nl), device="cpu")
     model, scaler, _ = load_model(NONLINEAR_MODEL)

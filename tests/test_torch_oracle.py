@@ -993,6 +993,418 @@ def write_loaded_refs(copies: int = LOADED_F32_COPIES) -> dict:
     return {k: v for k, v in refs.items() if k != "runs"}
 
 
+# ------------------------------------------------------- dictionaries
+
+# every dictionary the JAX trainer builds, each trained by the JAX package
+# on the committed corpus (assets/arm3_corpus.npz) with an f32 lift and
+# written by ``--write-dictionaries``: the paper's headline delayed
+# bilinear model (BASELINE.json #2: poly-2, delays=1, PCA 99 %), the
+# paper's basis size without PCA (poly-3, N = 84), the snake's dictionary
+# (fourier_sparser 1, BASELINE.json #5, on the arm corpus: the snake's
+# datafile is absent), a mixed poly + gaussian linear model and a
+# fourier_sparser nonlinear model
+DICT_ASSETS = {
+    "del1": ("arm3_bilinear_poly2_del1.npz",
+             dict(model_type="bilinear", obs_type=("poly",),
+                  obs_degree=(2,), delays=1, dim_red=True)),
+    "nopca": ("arm3_bilinear_poly3_nopca.npz",
+              dict(model_type="bilinear", obs_type=("poly",),
+                   obs_degree=(3,))),
+    "fs1": ("arm3_bilinear_fsparse1.npz",
+            dict(model_type="bilinear", obs_type=("fourier_sparser",),
+                 obs_degree=(1,))),
+    "mix": ("arm3_linear_polygauss.npz",
+            dict(model_type="linear", obs_type=("poly", "gaussian"),
+                 obs_degree=(2, 20))),
+    "nmpc-fs1": ("arm3_nonlinear_fsparse1.npz",
+                 dict(model_type="nonlinear",
+                      obs_type=("fourier_sparser",), obs_degree=(1,))),
+}
+# the trainings phase DX1 also runs on the card (no asset): a linear
+# hermite-2 model (N_full 34), a linear full-fourier-1 model (N_full 735)
+# and two continuous-time ones
+DICT_TRAININGS = {
+    "hermite2": dict(model_type="linear", obs_type=("hermite",),
+                     obs_degree=(2,)),
+    "fourier1": dict(model_type="linear", obs_type=("fourier",),
+                     obs_degree=(1,)),
+    "cont-linear": dict(model_type="linear", obs_type=("poly",),
+                        obs_degree=(1,), time_type="continuous"),
+    "cont-bilinear": dict(model_type="bilinear", obs_type=("poly",),
+                          obs_degree=(2,), time_type="continuous"),
+}
+# the closed loops of phase DX: (asset, plant, the controller's knobs on
+# top of its base configuration); every one on the bench's blockM
+# reference, the arm ``BENCH_ARM`` or the model itself ("model", lanes
+# from lifted 0.15 randn zetas, scripts/perf_report.py:230-233); each
+# qp_iters is the smallest count from ``DICT_QP_FROM`` at which the JAX
+# x64 general runner keeps all 16 reference lanes alive (written beside
+# the configuration into ``DICT_REFS``)
+DICT_PATHS = {
+    "del1": ("del1", "arm", dict(BENCH_MPC)),
+    "nopca": ("nopca", "arm", dict(BENCH_MPC)),
+    "fs1": ("fs1", "arm", dict(BENCH_MPC)),
+    "fs1-unblocked": ("fs1", "arm", dict(BENCH_MPC, input_blocks=None,
+                                         qp_dual_warm=False)),
+    "fs1-model": ("fs1", "model", dict(BENCH_MPC)),
+    "mix": ("mix", "arm", dict(LINEAR_MPC)),
+    "nmpc-fs1": ("nmpc-fs1", "arm", dict(NMPC_MPC)),
+    "nmpc-bilin": ("bilinear", "arm", dict(NMPC_MPC, mpc_type="nonlinear")),
+}
+DICT_QP_FROM, DICT_QP_TO = 3, 16
+DICT_REFS = ASSETS / "dictionary_refs.json"
+DICT_F32_COPIES = 96
+
+
+def dict_asset_path(name: str) -> Path:
+    return ASSET if name == "bilinear" else ASSETS / DICT_ASSETS[name][0]
+
+
+def dict_sysid(name: str) -> dict:
+    """A dictionary recipe's SysidConfig keywords (f32 lift, PCA at the
+    default 99 % where the recipe asks for it)."""
+    recipe = DICT_ASSETS[name][1] if name in DICT_ASSETS \
+        else DICT_TRAININGS[name]
+    return dict(recipe, dtype="float32")
+
+
+def jax_dataset(ds):
+    """The port's DataSet (``load_corpus``) as the JAX package's."""
+    from koopman_realizations_tpu import types as jtypes
+
+    def conv(trs):
+        return [jtypes.Trial(t=tr.t, y=tr.y, u=tr.u, x=tr.x, w=tr.w)
+                for tr in trs]
+    return jtypes.DataSet(train=conv(ds.train), val=conv(ds.val),
+                          params=ds.params)
+
+
+def dict_zetas(nzeta: int, B: int, seed: int = 0) -> np.ndarray:
+    """0.15 randn zetas of the model-in-the-loop lanes (f32)."""
+    rng = np.random.default_rng(seed)
+    return (0.15 * rng.standard_normal((B, nzeta))).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_dict_model(name: str):
+    """(model, scaler) of a dictionary asset (or the committed bilinear
+    one), through the JAX loader."""
+    from koopman_realizations_tpu.utils.checkpoint import load_model
+    return load_model(str(dict_asset_path(name)))
+
+
+def jax_dict_sim(path: str, qp_iters: int, model=None, scaler=None):
+    """(Ksim, controller) of the JAX package for a ``DICT_PATHS`` entry at
+    ``qp_iters`` (on ``model`` where given, else the asset's)."""
+    from koopman_realizations_tpu.control import Ksim, make_kmpc
+    from koopman_realizations_tpu.control.ksim import KoopmanPlant
+    from koopman_realizations_tpu.models.arm import Arm
+    asset, plant, knobs = DICT_PATHS[path]
+    if model is None:
+        model, scaler = jax_dict_model(asset)
+    mpc = make_kmpc(model, scaler, MpcConfig(**dict(knobs,
+                                                    qp_iters=qp_iters)))
+    pl = KoopmanPlant(model, scaler) if plant == "model" \
+        else Arm(ArmConfig(**BENCH_ARM))
+    return Ksim(pl, mpc), mpc
+
+
+def jax_dict_lanes(path: str, B: int, model=None):
+    """(X0, W) of a path's B lanes: the bench's arm states, or the lifted
+    0.15 randn zetas of the model in the loop."""
+    asset, plant, _ = DICT_PATHS[path]
+    if plant != "model":
+        return bench_X0(B), np.zeros((B, 2), np.float32)
+    if model is None:
+        model = jax_dict_model(asset)[0]
+    z = dict_zetas(model.meta.nzeta, B)
+    X0 = np.asarray(jax.vmap(model.basis.lift)(jax.numpy.asarray(z)))
+    return X0, np.zeros((B, 2), np.float32)
+
+
+def jax_dict_run(path: str, qp_iters: int, B: int = REF_B,
+                 steps: int = REF_STEPS, model=None, scaler=None):
+    """The JAX general runner on a path: (per-lane err_mean, per-lane
+    alive at the last step, Yp)."""
+    sim, _ = jax_dict_sim(path, qp_iters, model, scaler)
+    X0, W = jax_dict_lanes(path, B, model)
+    run = sim.batched_runner(blockM_y(), steps=steps, record=("Yp", "alive"))
+    out = jax.block_until_ready(run(X0, W))
+    Yp = np.asarray(out["Yp"])
+    return (lane_errors(Yp, blockM_y(), steps),
+            np.asarray(out["alive"])[:, -1], Yp)
+
+
+def _run_pool(code: str, tasks: list, procs: int, env: dict) -> dict:
+    """Run ``python -c code *task`` for every task, ``procs`` processes at
+    once, each one's standard output into a file (a pipe would fill);
+    returns {task: the JSON of its last output line}."""
+    import subprocess
+    import tempfile
+    import time
+    tasks, done, running = list(tasks), {}, []
+    while tasks or running:
+        while tasks and len(running) < procs:
+            t = tasks.pop(0)
+            f = tempfile.TemporaryFile(mode="w+")
+            running.append((t, f, subprocess.Popen(
+                [sys.executable, "-c", code, *map(str, t)], stdout=f,
+                text=True, env=env)))
+        time.sleep(1.0)
+        for item in [r for r in running if r[2].poll() is not None]:
+            running.remove(item)
+            t, f, proc = item
+            f.seek(0)
+            out = f.read()
+            f.close()
+            if proc.returncode:
+                raise RuntimeError(f"the JAX run {t} failed")
+            done[t] = json.loads(out.strip().splitlines()[-1])
+    return done
+
+
+def _jax_dict_f32(paths: dict, copies: int, seed: int = 0,
+                  chunk: int = 12, procs: int = 8) -> dict:
+    """Each path's JAX general runner with x64 off (f32 throughout) on its
+    16 reference lanes at its qp_iters, for the asset (copy 0) and
+    ``copies`` - 1 copies with every nonzero entry of its f32 A (W of a
+    nonlinear model) moved one ulp up or down, copy k's directions from
+    ``np.random.default_rng([seed, k])``; ``chunk`` copies a process,
+    ``procs`` processes at once.  ``paths`` maps a path to its qp_iters.
+    Returns {path: [[[alive, err_mean] per lane] per copy]}."""
+    code = (
+        "import dataclasses, json, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        f"sys.path.insert(0, {str(ROOT / 'tests')!r})\n"
+        "import jax\n"
+        "jax.config.update('jax_platforms', 'cpu')\n"
+        "import numpy as np\n"
+        "import test_torch_oracle as O\n"
+        "jax.config.update('jax_enable_x64', False)\n"
+        "path, qp, k0, k1 = sys.argv[1], int(sys.argv[2]), "
+        "int(sys.argv[3]), int(sys.argv[4])\n"
+        "model, scaler = O.jax_dict_model(O.DICT_PATHS[path][0])\n"
+        "name = 'W' if hasattr(model, 'W') else 'A'\n"
+        "A = np.asarray(getattr(model, name), np.float32)\n"
+        "lanes = []\n"
+        "for k in range(k0, k1):\n"
+        f"    rng = np.random.default_rng([{seed}, k])\n"
+        "    up = rng.random(A.shape) < 0.5\n"
+        "    Ak = A if k == 0 else np.where(A == 0, A, np.nextafter("
+        "A, np.where(up, np.inf, -np.inf).astype(np.float32)))\n"
+        "    mk = dataclasses.replace(model, **{name: Ak})\n"
+        "    e, a, _ = O.jax_dict_run(path, qp, model=mk, scaler=scaler)\n"
+        "    lanes.append([[bool(x), float(y)] for x, y in zip(a, e)])\n"
+        "print(json.dumps(lanes))\n")
+    tasks = [(path, qp, k0, min(k0 + chunk, copies))
+             for path, qp in paths.items()
+             for k0 in range(0, copies, chunk)]
+    done = _run_pool(code, tasks, procs,
+                     dict(os.environ, JAX_ENABLE_X64="0"))
+    return {path: [lanes for t in sorted(k for k in done if k[0] == path)
+                   for lanes in done[t]] for path in paths}
+
+
+def write_dictionary_assets() -> dict:
+    """Train the five ``DICT_ASSETS`` with the JAX package on the
+    committed corpus and save them; returns their headers."""
+    from koopman_realizations_tpu.config import SysidConfig as JSysid
+    from koopman_realizations_tpu.models.edmd import Ksysid as JKsysid
+    from koopman_realizations_tpu.utils.checkpoint import save_model
+    from koopman_realizations_torch.utils.data import load_corpus
+    ds = jax_dataset(load_corpus())
+    out = {}
+    for name, (fname, _) in DICT_ASSETS.items():
+        path = ASSETS / fname
+        ks = JKsysid(ds, JSysid(**dict_sysid(name))).train_models()
+        save_model(str(path), ks.model, ks.scaler, overwrite=True)
+        data = dict(np.load(path, allow_pickle=False))
+        h = json.loads(str(data.pop("header")))
+        h["provenance"] = {
+            "corpus": "assets/arm3_corpus.npz (load_corpus)",
+            "sysid": {k: list(v) if isinstance(v, tuple) else v
+                      for k, v in dict_sysid(name).items()},
+            "written_by": "python tests/test_torch_oracle.py "
+                          "--write-dictionaries"}
+        np.savez(path, header=json.dumps(h), **data)
+        out[fname] = h
+        print(name, "N", ks.model.meta.N, flush=True)
+    jax_dict_model.cache_clear()
+    return out
+
+
+def write_dictionary_refs(copies: int = DICT_F32_COPIES) -> dict:
+    """Run every ``DICT_PATHS`` loop with the JAX general runner (x64,
+    CPU, B=16 x 301 blockM steps) at the smallest qp_iters from
+    ``DICT_QP_FROM`` that keeps all 16 lanes alive (or, where none up to
+    ``DICT_QP_TO`` does, at ``DICT_QP_TO`` with the lanes' alive flags),
+    then JAX's f32 runs of the same lanes (the asset and ``copies`` - 1
+    one-ulp copies of A: each lane's band), and write ``DICT_REFS``."""
+    import dataclasses
+    paths = {}
+    for path, (asset, plant, knobs) in DICT_PATHS.items():
+        tried = {}
+        for q in range(DICT_QP_FROM, DICT_QP_TO + 1):
+            e, a, _ = jax_dict_run(path, q)
+            tried[q] = float(a.mean())
+            print(path, q, tried[q], float(e.mean()), flush=True)
+            if a.all():
+                break
+        _, mpc = jax_dict_sim(path, q)
+        paths[path] = {
+            "asset": dict_asset_path(asset).name, "plant": plant,
+            "knobs": {k: list(v) if isinstance(v, tuple) else v
+                      for k, v in knobs.items()},
+            "qp_iters": q, "qp_search": tried,
+            "config": dataclasses.asdict(mpc.cfg),
+            "alive": [bool(v) for v in a],
+            "err_mean": [float(v) for v in e],
+            "err_worst": float(e.max())}
+        print(json.dumps(paths[path]), flush=True)
+    f32 = _jax_dict_f32({p: r["qp_iters"] for p, r in paths.items()},
+                        copies)
+    for path, per_copy in f32.items():
+        e = np.asarray([[v for _, v in lanes] for lanes in per_copy])
+        paths[path]["f32"] = {
+            "alive": [a for a, _ in per_copy[0]],
+            "all_alive": bool(all(a for lanes in per_copy
+                                  for a, _ in lanes)),
+            "alive_copies": [int(sum(lanes[i][0] for lanes in per_copy))
+                             for i in range(len(per_copy[0]))],
+            "copies": len(per_copy),
+            "band": [[float(lo), float(hi)]
+                     for lo, hi in zip(e.min(0), e.max(0))]}
+        print(path, "f32 band width", float((e.max(0) - e.min(0)).max()),
+              flush=True)
+    refs = {
+        "runner": "koopman_realizations_tpu Ksim.batched_runner "
+                  "(jax_enable_x64, CPU)",
+        "written_by": "python tests/test_torch_oracle.py "
+                      "--write-dictionaries",
+        "B": REF_B, "steps": REF_STEPS, "arm": BENCH_ARM,
+        "X0": "arm: first joint spread over +-0.2 rad (bench_X0); model: "
+              "the lift of 0.15 randn zetas (B, nzeta), default_rng(0)",
+        "reference": "blockM([0.45, -0.35], 0.5, 0.5), T=15, Ts=0.05",
+        "qp_iters": f"the smallest count from {DICT_QP_FROM} that keeps "
+                    f"all 16 lanes alive (up to {DICT_QP_TO})",
+        "f32": f"JAX with x64 off on the same lanes: the asset and "
+               f"{copies - 1} copies with every nonzero of A (W of a "
+               f"nonlinear model) moved one ulp (copy k's directions from "
+               f"default_rng([0, k])); band = each "
+               f"lane's [min, max] err_mean, alive_copies = the copies that "
+               f"keep each lane alive",
+        "sysid": {n: {k: list(v) if isinstance(v, tuple) else v
+                      for k, v in dict_sysid(n).items()}
+                  for n in (*DICT_ASSETS, *DICT_TRAININGS)},
+        "assets": {n: f for n, (f, _) in DICT_ASSETS.items()},
+        "paths": paths}
+    refs["trainings"] = dictionary_trainings()
+    DICT_REFS.write_text(json.dumps(refs, indent=1) + "\n")
+    add_dictionary_full_width()
+    return {k: v for k, v in refs.items() if k != "paths"}
+
+
+# the model-in-the-loop path's full width: its lanes are random draws, so
+# JAX x64's alive flags on all of them (not the 16 references') are what
+# phase DX4 holds the card to
+DICT_FULL_B, DICT_FULL_CHUNK = 65536, 4096
+
+
+def _jax_dict_full_chunk(path: str, qp: int, a: int, b: int) -> list:
+    """JAX x64's alive flags at the last step on lanes a..b of a path's
+    DICT_FULL_B full-width lanes (``jax_dict_lanes``)."""
+    sim, _ = jax_dict_sim(path, qp)
+    X0, W = jax_dict_lanes(path, DICT_FULL_B)
+    run = sim.batched_runner(blockM_y(), steps=REF_STEPS,
+                             record=("Yp", "alive"))
+    out = jax.block_until_ready(run(X0[a:b], W[a:b]))
+    Yp = np.asarray(out["Yp"])
+    return [np.asarray(out["alive"])[:, -1].tolist(),
+            lane_errors(Yp, blockM_y(), REF_STEPS).tolist()]
+
+
+def dictionary_full_width(paths: dict, x64: bool = True,
+                          procs: int = 8) -> dict:
+    """JAX, in x64 or with x64 off (f32 throughout), on every full-width
+    lane of each model-in-the-loop path (``paths``: path -> qp_iters), in
+    chunks of DICT_FULL_CHUNK lanes on ``procs`` processes: {path: {"B",
+    "alive" (fraction), "dead" (lane indices), "err_mean" (over the alive
+    lanes)}}."""
+    code = (
+        "import json, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        f"sys.path.insert(0, {str(ROOT / 'tests')!r})\n"
+        "import test_torch_oracle as O\n"
+        + ("" if x64 else "O.jax.config.update('jax_enable_x64', False)\n")
+        + "p, q, a, b = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), "
+        "int(sys.argv[4])\n"
+        "print(json.dumps(O._jax_dict_full_chunk(p, q, a, b)))\n")
+    tasks = [(p, q, a, a + DICT_FULL_CHUNK) for p, q in paths.items()
+             for a in range(0, DICT_FULL_B, DICT_FULL_CHUNK)]
+    done = _run_pool(code, tasks, procs,
+                     dict(os.environ, JAX_ENABLE_X64=str(int(x64))))
+    out = {}
+    for p in paths:
+        chunks = [done[t] for t in sorted(k for k in done if k[0] == p)]
+        alive = np.concatenate([np.asarray(c[0], bool) for c in chunks])
+        err = np.concatenate([np.asarray(c[1]) for c in chunks])
+        out[p] = {"B": DICT_FULL_B, "alive": float(alive.mean()),
+                  "dead": np.nonzero(~alive)[0].tolist(),
+                  "err_mean": float(err[alive].mean())}
+        print(p, "x64" if x64 else "f32", "full width alive",
+              out[p]["alive"], flush=True)
+    return out
+
+
+def add_dictionary_full_width() -> dict:
+    """Add ``dictionary_full_width`` of the model-in-the-loop paths, x64
+    ("full") and f32 ("full_f32"), to the committed ``DICT_REFS``."""
+    refs = json.loads(DICT_REFS.read_text())
+    paths = {p: r["qp_iters"] for p, r in refs["paths"].items()
+             if r["plant"] == "model"}
+    out = {}
+    for key, x64 in (("full", True), ("full_f32", False)):
+        for p, v in dictionary_full_width(paths, x64).items():
+            refs["paths"][p][key] = v
+            out[f"{p} {key}"] = {k: v[k] for k in ("B", "alive",
+                                                   "err_mean")}
+    DICT_REFS.write_text(json.dumps(refs, indent=1) + "\n")
+    return out
+
+
+DICT_ONE_STEP_ROWS = 50
+
+
+def dictionary_trainings() -> dict:
+    """JAX's training of each ``DICT_TRAININGS`` recipe on the committed
+    corpus: its scaled one-step predictions of the first
+    ``DICT_ONE_STEP_ROWS`` steps of the first validation trial (the
+    port's ``one_step_predictions``, on the JAX model through the JAX
+    ``save_model`` and the port's ``load_model``), which phase DX1 holds
+    the card's training to."""
+    import tempfile
+
+    from koopman_realizations_tpu.config import SysidConfig as JSysid
+    from koopman_realizations_tpu.models.edmd import Ksysid as JKsysid
+    from koopman_realizations_tpu.utils.checkpoint import save_model
+    from koopman_realizations_torch.utils.checkpoint import load_model
+    from koopman_realizations_torch.utils.data import load_corpus
+    from koopman_realizations_torch.utils.metrics import (
+        one_step_predictions as port_one_step,
+    )
+    ds = jax_dataset(load_corpus())
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name in DICT_TRAININGS:
+            ks = JKsysid(ds, JSysid(**dict_sysid(name))).train_models()
+            tm = load_model(save_model(f"{d}/{name}", ks.model, ks.scaler))[0]
+            p = port_one_step(tm, ks.valdata[:1], "cpu")[:DICT_ONE_STEP_ROWS]
+            out[name] = {"N": int(ks.model.meta.N),
+                         "one_step": [[float(v) for v in row] for row in p]}
+            print(name, "N", ks.model.meta.N, flush=True)
+    return out
+
+
 # ---------------------------------------------------------------- tests
 
 
@@ -1169,8 +1581,8 @@ def test_lasso_candidates_asset_in_the_ports_basis():
                               dict(shared, A=data[f"A_{i}"],
                                    B=data[f"B_{i}"]))[0]
         assert m.lasso == header["lasso"][i] and m.basis is port.basis
-        d = np.abs(t_one_step(m, port.valdata)
-                   - t_one_step(own, port.valdata)).max()
+        d = np.abs(t_one_step(m, port.valdata, "cpu")
+                   - t_one_step(own, port.valdata, "cpu")).max()
         assert d < 1e-9, (i, d)
 
 
@@ -1201,6 +1613,12 @@ if __name__ == "__main__":
     ap.add_argument("--write-loaded-refs", action="store_true",
                     help="rerun the JAX runs of loaded_refs.json on the "
                          "committed loaded assets")
+    ap.add_argument("--write-dictionaries", action="store_true",
+                    help="train the five dictionary assets with JAX on the "
+                         "committed corpus and write dictionary_refs.json")
+    ap.add_argument("--write-dictionary-refs", action="store_true",
+                    help="rerun only the JAX runs of dictionary_refs.json "
+                         "on the committed dictionary assets")
     ap.add_argument("--write-rand-refs", action="store_true",
                     help="record the JAX random-system sweep of RAND_MODELS"
                          " (rand_models_refs.json)")
@@ -1209,11 +1627,13 @@ if __name__ == "__main__":
             args.write_corpus or args.write_regime_refs
             or args.write_bilinear_refs or args.write_lasso_refs
             or args.write_rand_refs or args.write_loaded
-            or args.write_loaded_refs):
+            or args.write_loaded_refs or args.write_dictionaries
+            or args.write_dictionary_refs):
         ap.error("nothing to do (pass --write-asset, --write-corpus, "
                  "--write-regime-refs, --write-bilinear-refs, "
-                 "--write-lasso-refs, --write-rand-refs, --write-loaded "
-                 "or --write-loaded-refs)")
+                 "--write-lasso-refs, --write-rand-refs, --write-loaded, "
+                 "--write-loaded-refs, --write-dictionaries or "
+                 "--write-dictionary-refs)")
     if args.write_corpus:
         print(json.dumps(write_corpus(), indent=1))
     if args.write_asset is not None:
@@ -1231,3 +1651,7 @@ if __name__ == "__main__":
         print(json.dumps(write_loaded(), indent=1))
     elif args.write_loaded_refs:
         print(json.dumps(write_loaded_refs(), indent=1))
+    if args.write_dictionaries:
+        print(json.dumps(write_dictionary_assets(), indent=1))
+    if args.write_dictionaries or args.write_dictionary_refs:
+        print(json.dumps(write_dictionary_refs(), indent=1))
