@@ -63,6 +63,13 @@ prints the card's name and power limit, one JSON line with every
 kernel's launches, device launches a call, error, times and bound, and
 as the last line {"ok": true, "device": {...}}.  Any failed phase raises; without CUDA or
 outside a checkout it exits non-zero and prints no result.
+
+    python chip_smoke.py --measure NAME --out FILE [options]
+
+runs one measurement beside the smoke run instead (``measure``): the
+port's own f32 band of a dictionary loop, a loop's kernel solves shadowed
+by plain f32 and f64, the linear state-bound loop's lost lanes, their
+QPs by iterations, the general runners' wall times.
 """
 
 from __future__ import annotations
@@ -860,23 +867,15 @@ def loaded_observer_args(obs32, obs64, st) -> dict:
 
 def loaded_linear_args(L, st) -> dict:
     """{dtype: ``ipm_shared`` lane-shared arguments} of the loaded linear
-    controller's QP at the lanes of ``st`` (``LinearKmpc.solve``'s: the
+    controller's QP at the lanes of ``st`` (``LinearKmpc.qp_args``: the
     lane-shared P22 / obj, q and b per lane, the shifted plan, cold)."""
     import torch
     out = {}
     for dt, mm in ((torch.float32, L.ctl["linear"]),
                    (torch.float64, L.ctl64["linear"])):
         z = mm.lift(st.ysc.to(dt), st.what.to(dt))
-        Yr = st.win.to(dt)[:, None]
-        f = 2.0 * mm.CB_t.T @ (mm.Qd_t[:, None] * (mm.CA_t @ z - Yr))
-        bb = mm.c_t[:, None] - mm.Mc_t @ z
-        P, q, bz = mm.eliminate_u0(2.0 * mm.H_t, f, bb, st.upsc.to(dt))
-        obj = P.abs().amax()
-        c_ = mm.constraints()
-        out[dt] = (c_, (P / obj).contiguous(), (q / obj).contiguous(),
-                   (bz / c_.row[:, None]).contiguous(),
-                   mm.warm_start(st.U.to(dt)).contiguous(), mm.cfg.qp_iters,
-                   1e-2)
+        out[dt] = mm.qp_args(z, st.upsc.to(dt), st.win.to(dt),
+                             st.U.to(dt))[0]
     return out
 
 
@@ -1057,7 +1056,7 @@ def phase_loaded(dev, drive, check_qp, ptx, L, smi) -> dict:
         jr = refs["runs"][key]
         e = lane_tracking_error(res["Yp"], L.ref).cpu().numpy()
         alive = res["alive"][:, -1].cpu().numpy()
-        What = res["What"].cpu().numpy()
+        What = res["what"].cpu().numpy()
         x64 = np.asarray(jr["err_mean"])
         f32 = np.asarray(jr["f32"]["err_mean"])
         band = np.asarray(jr["f32"]["band"])
@@ -1465,9 +1464,10 @@ def phase_dictionaries(dev, drive, check_qp, ptx, D, smi) -> dict:
     launches = {}
     for name, P in D.paths.items():
         X0, W = dict_lanes(P, B_GENERAL)
-        run = P.sim.batched_runner(ref, steps=STEPS)
+        steps = STEPS
+        run = P.sim.batched_runner(ref, steps=steps)
         P.sim.batched_runner(ref, steps=3)(X0, W)          # warm-up, capture
-        res, wall, counts = drive(dict_launches(P, STEPS),
+        res, wall, counts = drive(dict_launches(P, steps),
                                   lambda: run(X0, W))
         e = lane_tracking_error(res["Yp"], ref).cpu().numpy()
         alive = res["alive"][:, -1].cpu().numpy()
@@ -1476,9 +1476,9 @@ def phase_dictionaries(dev, drive, check_qp, ptx, D, smi) -> dict:
             f"{list(P.model.basis.families)}, nd {P.model.meta.nd}, PCA "
             f"{P.model.basis.pcs is not None}, NL {P.model.meta.NL}; "
             f"{P.r['plant']} plant; {P.kernel}, qp_iters "
-            f"{P.cfg.qp_iters}) B={B_GENERAL} x {STEPS} steps: "
+            f"{P.cfg.qp_iters}) B={B_GENERAL} x {steps} steps: "
             f"{wall:.3f} s (CUDA events), "
-            f"{B_GENERAL * (STEPS - 1) / wall:.4e} lane-steps/s, alive "
+            f"{B_GENERAL * (steps - 1) / wall:.4e} lane-steps/s, alive "
             f"{alive.mean():.6f}, err_mean {e.mean():.6f}, err_worst "
             f"{e.max():.6f}, launches "
             f"{ {k: v for k, v in counts.items() if v} }; the refs keep "
@@ -1692,6 +1692,582 @@ def phase_rand_models(dev, smi):
 
 
 # a __global__ function of the port's CUDA sources
+# ---- phase RN: the harness in full, the fused step on the default plant
+# and on angle outputs, and the controller knobs
+# the JAX x64 general runner on ArmConfig()'s defaults and on the angle
+# models (tests/test_torch_oracle.py --write-angles), and on every knob
+# (--write-knob-refs)
+RUNNER_REFS = ROOT / "koopman_realizations_torch" / "assets" / \
+    "runner_refs.json"
+KNOB_REFS = ROOT / "koopman_realizations_torch" / "assets" / \
+    "knob_refs.json"
+# the default plant: ArmConfig() (SDIRK2, a Jacobian every substep, 10
+# substeps, 3 Newton iterations) with the bench's geometry
+DEFAULT_ARM = dict(Nmods=3, nlinks=1, L=1.0, m=0.1)
+# the four fused loops (tests/test_torch_oracle.py:RUNNER_PATHS): asset,
+# controller, outputs
+RUNNER_LOOPS = {
+    "default_bilinear": ("arm3_bilinear_poly3.npz", "bilinear", "markers"),
+    "default_linear": ("arm3_linear_poly3.npz", "linear", "markers"),
+    "angles_bilinear": ("arm3_angles_bilinear_poly3.npz", "bilinear",
+                        "angles"),
+    "angles_linear": ("arm3_angles_linear_poly3.npz", "linear", "angles"),
+}
+# the MATLAB reference's per-step solve times (BASELINE.md, mean ms, one
+# CPU): linear, bilinear, nonlinear
+MATLAB_COMP_MS = {"linear": 6.1, "bilinear": 9.6, "nonlinear": 1159.0}
+# the linear unblocked stack cold: its n=27 builds without duals (RN1)
+COLD = dict(qp_dual_warm=False, qp_iters=24)
+# the closed-loop steps before RN1's state-bound QPs: the knob's capped
+# bound binds on every lane from about step 36 of blockM
+SB_STEPS = 40
+# the plain per-lane-A loop (no kernel) runs RN4 at this many lanes
+B_PLAIN = B_CHECK
+# del1's bilin_lift build on this many closed-loop lanes, where its p99
+# distance to f64 once read 3x plain f32's (ROADMAP.md §3, check 3)
+B_TAIL = 129
+
+
+def rn_config(entry: dict, base: dict = None):
+    """An ``MpcConfig`` from a refs entry's knobs or config (lists as
+    tuples), over ``base``."""
+    from koopman_realizations_torch.config import MpcConfig
+    import dataclasses
+    fields = {f.name for f in dataclasses.fields(MpcConfig)}
+    tup = lambda v: tuple(tup(x) for x in v) if isinstance(v, list) else v
+    return MpcConfig(**{**(base or {}), **{k: tup(v) for k, v in
+                                           entry.items() if k in fields}})
+
+
+def sb_rows(m) -> slice:
+    """The state-bound rows of an unblocked controller's QP (the last
+    2 n (Np - 1), after the input rows)."""
+    return slice(m.n_con - 2 * m.n * (m.Np - 1), m.n_con)
+
+
+def rn_setup(dev):
+    """Phase RN's references, controllers (f32 and f64), plants, fused
+    ops and the specs of its new builds: both fused steps with
+    jac_mode 'substep' on markers and on angles (four builds), and
+    ``ipm_shared``'s lane-shared builds with warm duals (n=12) and at the
+    linear unblocked shape n=27 without (band 3, cold) and with (dense,
+    warm and cold) the state-bound rows."""
+    import numpy as np
+    import torch
+
+    from koopman_realizations_torch.config import ArmConfig
+    from koopman_realizations_torch.control.kmpc import make_kmpc
+    from koopman_realizations_torch.control.ksim import Ksim
+    from koopman_realizations_torch.models.arm import Arm
+    from koopman_realizations_torch.ops.kernels import ipm_shared as IS
+    from koopman_realizations_torch.ops.kernels import (
+        linear_step_fused as LS,
+    )
+    from koopman_realizations_torch.ops.kernels import step_fused as SF
+    from koopman_realizations_torch.utils.checkpoint import load_model
+    assets = RUNNER_REFS.parent
+    R = types.SimpleNamespace(refs=json.loads(RUNNER_REFS.read_text()),
+                              krefs=json.loads(KNOB_REFS.read_text()),
+                              loops={}, knobs={}, specs={})
+    R.angle_ref = np.asarray(R.refs["angle_reference"])
+    arms = {o: Arm(ArmConfig(**DEFAULT_ARM, output_type=o), device=dev)
+            for o in ("markers", "angles")}
+    R.arms = arms
+    for name, (asset, kind, outs) in RUNNER_LOOPS.items():
+        r = R.refs["paths"][name]
+        model, scaler, _ = load_model(assets / asset)
+        cfg = rn_config(r["config"])
+        L = types.SimpleNamespace(r=r, kind=kind, scaler=scaler, cfg=cfg)
+        L.mpc = make_kmpc(model, scaler, cfg, device=dev)
+        L.mpc64 = make_kmpc(model, scaler, cfg, device=dev,
+                            dtype=torch.float64)
+        L.arm = arms[outs]
+        L.sim = Ksim(L.arm, L.mpc, device=dev)
+        if not L.sim.fused_step_eligible():
+            raise AssertionError(f"RN {name}: not eligible for the fused "
+                                 f"step")
+        build = SF.build_step_fused if kind == "bilinear" \
+            else LS.build_linear_step_fused
+        L.op = build(L.mpc, L.arm, scaler)
+        L.op64 = build(L.mpc64, L.arm, scaler)
+        L.ref = R.angle_ref if outs == "angles" else None
+        R.specs[name] = L.op.kernel_spec()
+        R.loops[name] = L
+    from koopman_realizations_torch.utils.checkpoint import LINEAR_MODEL
+    ARM_BENCH = Arm(ArmConfig(**ARM), device=dev)
+    R.arm_bench = ARM_BENCH
+    for name, r in R.krefs["paths"].items():
+        model, scaler, _ = load_model(assets / r["asset"])
+        cfg = rn_config(r["config"])
+        K = types.SimpleNamespace(r=r, cfg=cfg, model=model, scaler=scaler)
+        K.mpc = make_kmpc(model, scaler, cfg, device=dev)
+        K.mpc64 = make_kmpc(model, scaler, cfg, device=dev,
+                            dtype=torch.float64)
+        K.sim = Ksim(ARM_BENCH, K.mpc, device=dev)
+        K.kernel = "bilin_lift" if getattr(K.mpc, "lift_fused", False) \
+            else "ipm_shared" if r["asset"].startswith("arm3_linear") \
+            else None
+        R.knobs[name] = K
+    # the linear controller unblocked and cold, without state bounds
+    # (n=27, band 3) and with the knob's (n=27, dense)
+    lmodel, lscaler, _ = load_model(LINEAR_MODEL)
+    sb = R.krefs["paths"]["linear_unblocked_sb"]["config"]
+    for key, cfg in (("ub", rn_config(dict(sb, state_bounds=None, **COLD))),
+                     ("sb_cold", rn_config(dict(sb, **COLD)))):
+        K = types.SimpleNamespace(
+            cfg=cfg, mpc=make_kmpc(lmodel, lscaler, cfg, device=dev),
+            mpc64=make_kmpc(lmodel, lscaler, cfg, device=dev,
+                            dtype=torch.float64))
+        K.sim = Ksim(ARM_BENCH, K.mpc, device=dev)
+        setattr(R, key, K)
+    R.shared_builds = {"warm n=12": (R.knobs["linear_dual_shift"], 5),
+                       "n=27 band 3 cold": (R.ub, 5),
+                       "n=27 dense": (R.knobs["linear_unblocked_sb"],
+                                      SB_STEPS),
+                       "n=27 dense cold": (R.sb_cold, SB_STEPS)}
+    for label, (K, _) in R.shared_builds.items():
+        R.specs["ipm_shared " + label] = IS.kernel_spec(
+            K.mpc.constraints(), warm=K.mpc.cfg.qp_dual_warm)
+    return R
+
+
+def shared_qp_args(K, loop) -> tuple:
+    """The ``ipm_shared`` arguments of a linear controller's next solve at
+    a general loop's carries (``_Loop``; ``LinearKmpc.qp_args``), in f32
+    (``K.mpc``) and f64 (``K.mpc64``): ({dtype: the kernel's arguments},
+    the f32 rows, the f32 b in row units)."""
+    import torch
+    out = {}
+    for dt, m in ((torch.float32, K.mpc), (torch.float64, K.mpc64)):
+        c = lambda t: None if t is None else t.to(dt)
+        out[dt] = m.qp_args(m.lift(c(loop.ysc)), c(loop.upsc),
+                            c(loop.windows[loop.k]), c(loop.U_plan),
+                            c(loop.lam))[0]
+    return out, out[torch.float32][0], out[torch.float32][3]
+
+
+def del1_tail(D) -> dict:
+    """Phase RN6 (ROADMAP.md §3, open check 3): ``bilin_lift``'s del1
+    build against plain f32 and f64 on B_TAIL lanes after DX_CHECK_STEPS
+    closed-loop steps of del1's loop -- the median and p99 distance to
+    f64, and for the two farthest lanes their smallest slack, gap and
+    distance to the f64 solution by iterations (the lane alone, 1 to
+    twice the loop's count), with a verdict: an f32 tail where plain f32
+    is as far on that lane (within 4x) or the lane is degenerate (its f64
+    smallest slack below 1e-6), else a kernel fault.  Returns the p99s
+    and whether every verdict is an f32 tail."""
+    import torch
+
+    from koopman_realizations_torch.ops.kernels import bilin_lift as BL
+    lv = torch.tensor([0.5, 0.99], dtype=torch.float64,
+                      device=D.paths["del1"].mpc.device)
+    P = D.paths["del1"]
+    a = dict_kernel_args(P, B_TAIL, DX_CHECK_STEPS)
+    a32, a64 = a[torch.float32], a[torch.float64]
+    qp = a32[0]
+    rk = BL.bilin_lift_cuda(*a32)
+    torch.cuda.synchronize()
+    rp = BL.bilin_lift_plain(*a32)
+    r64 = BL.bilin_lift_plain(*a64)
+    dk = (rk[0].double() - r64[0]).abs().amax(0)
+    dp = (rp[0].double() - r64[0]).abs().amax(0)
+    qk, qp_ = torch.quantile(dk, lv), torch.quantile(dp, lv)
+    log(f"RN6 bilin_lift del1 (nz={qp.nz}, {qp.nmono} monomials, n={qp.n},"
+        f" mc={qp.mc}, {P.cfg.qp_iters} iterations) B={B_TAIL} after "
+        f"{DX_CHECK_STEPS} closed-loop steps: distance to f64 (median, p99)"
+        f" kernel {qk[0]:.3e} {qk[1]:.3e}, plain f32 {qp_[0]:.3e} "
+        f"{qp_[1]:.3e}")
+    lane = lambda t, i: t[..., i:i + 1].contiguous() \
+        if torch.is_tensor(t) and t.ndim > 1 else t
+    verdicts = []
+    for i in [int(j) for j in torch.argsort(dk, descending=True)[:2]]:
+        trace = []
+        for it in (1, 2, 4, 6, 8, P.cfg.qp_iters, 2 * P.cfg.qp_iters):
+            one = lambda aa: tuple(lane(t, i) for t in aa[:6]) + (it,) \
+                + tuple(aa[7:])
+            x_i = r64[0][:, i:i + 1]
+            far = lambda x: (x.double() - x_i).abs().max().item()
+            trace.append(
+                f"{it}: kernel {far(BL.bilin_lift_cuda(*one(a32))[0]):.2e}"
+                f" plain {far(BL.bilin_lift_plain(*one(a32))[0]):.2e} "
+                f"f64 {far(BL.bilin_lift_plain(*one(a64))[0]):.2e}")
+        smin = [r[1][:, i].min().item() for r in (rk, rp, r64)]
+        gap = [(r[1][:, i] * r[2][:, i]).mean().item() for r in (rk, rp, r64)]
+        degenerate = smin[2] < 1e-6
+        f32_tail = dp[i] > 0.25 * dk[i] or degenerate
+        verdicts.append(f32_tail)
+        log(f"RN6 lane {i}: distance to f64 kernel {dk[i]:.3e}, plain f32 "
+            f"{dp[i]:.3e}; smallest slack kernel {smin[0]:.3e} plain "
+            f"{smin[1]:.3e} f64 {smin[2]:.3e}; gap kernel {gap[0]:.3e} "
+            f"plain {gap[1]:.3e} f64 {gap[2]:.3e}; the lane alone by "
+            f"iterations (distance to the f64 solution at "
+            f"{P.cfg.qp_iters}): " + "; ".join(trace) + "; verdict: "
+            + ("an f32 tail (plain f32 is as far on this lane"
+               + (", a degenerate lane" if degenerate else "") + ")"
+               if f32_tail else "the kernel alone is far: a kernel fault"))
+    return {"p99": [float(qk[1]), float(qp_[1])],
+            "f32_tail": all(verdicts)}
+
+
+def phase_runners(dev, E, R, D, smi) -> dict:
+    """Phase RN: the harness in full, the fused step on the default plant
+    and on angle outputs, and the controller knobs (``RUNNER_REFS``,
+    ``KNOB_REFS``).
+
+    RN1 holds the new builds to their plain versions and f64: the fused
+    steps in 'substep' on markers and angles (one step at B_CHECK and at
+    B_MAIN, and 10-step runners from the same lanes against plain f32 and
+    f64: median and p99 distance of the tracked outputs to f64 within
+    twice plain f32's), and ``ipm_shared``'s warm-dual (n=12) and n=27
+    builds (``check_qp``: median and p99 distance to f64) on the QPs of
+    B_CHECK closed-loop lanes; each build timed beside its bound and its
+    plain version.  RN2 runs the four fused loops at B_MAIN x 301: alive
+    1.0 where JAX x64 keeps the 16 lanes alive, err_mean within 1e-3 of
+    the refs.  RN3 runs each knob at B=16 x 301 against the JAX x64
+    values (err_mean within 1e-3, alive equal, or lane by lane within the
+    hull of x64 and JAX's f32 band where its loop amplifies f32 rounding)
+    and the lasso sweep at ``bilinear_iters=2`` on the six committed
+    candidates (each within 1e-3 of x64, or inside its f32 band), the
+    state-bound knobs with a state-bound row active on some lane-step;
+    RN4 the same at B_GENERAL x 301 (the loop that runs no kernel, the
+    bilinear state-bound one, at B_PLAIN), every lane alive where JAX
+    keeps the 16 lanes alive in x64 and every f32 run.  RN5 times
+    ``run_trial_mpc_timed`` at B=1 on blockM for the linear, bilinear and
+    NMPC controllers beside the MATLAB reference's per-step times.  RN6
+    logs ``bilin_lift``'s del1 build at B_TAIL lanes: its farthest lanes'
+    distances to f64, smallest slack and iteration trace (ROADMAP.md §3,
+    open check 3).  Returns the launches, errors, times and bounds for
+    the kernels line."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from koopman_realizations_torch.control.ksim import _Loop
+    from koopman_realizations_torch.models.koopman import from_jax_arrays
+    from koopman_realizations_torch.ops.kernels import bilin_lift as BL
+    from koopman_realizations_torch.ops.kernels import ipm_shared as IS
+    from koopman_realizations_torch.ops.kernels import (
+        linear_step_fused as LS,
+    )
+    from koopman_realizations_torch.ops.kernels import step_fused as SF
+    from koopman_realizations_torch.ops.qp import ok_mask
+    from koopman_realizations_torch.utils.metrics import lane_tracking_error
+    from koopman_realizations_torch.utils.trajectories import (
+        blockM_reference,
+    )
+    from koopman_realizations_torch.workflows.lasso_sweep import (
+        lasso_sweep_closed_loop,
+    )
+    blockM = blockM_reference()
+    t_phase = [time.perf_counter()]
+    out = {"fused": {}, "ipm_shared": {}, "launches": {}}
+
+    def took(label):
+        now = time.perf_counter()
+        log(f"{label} took {now - t_phase[0]:.1f} s")
+        t_phase[0] = now
+
+    def lanes(B, nx=6):
+        X0 = np.zeros((B, nx), np.float32)
+        X0[:, 0] = np.linspace(-0.2, 0.2, B)
+        return X0, np.zeros((B, 2), np.float32)
+
+    def vecs_of(L, mpc, op):
+        ref = blockM if L.ref is None else L.ref
+        w = L.sim.reference_windows(ref, STEPS) if mpc is L.mpc else \
+            type(L.sim)(L.arm, mpc, device=dev).reference_windows(ref,
+                                                                 STEPS)
+        return op.fYr(w) if L.kind == "linear" else w
+
+    # ---- RN1: the new builds against their plain versions and f64
+    lv = torch.tensor([0.5, 0.99], dtype=torch.float64, device=dev)
+    for name, L in R.loops.items():
+        kern = "step_fused" if L.kind == "bilinear" else "linear_step_fused"
+        v32, v64 = vecs_of(L, L.mpc, L.op), vecs_of(L, L.mpc64, L.op64)
+        c = E.carry_after(L.op, v32, B_CHECK, 5)
+        err = E.check_step(L.op, c, v32[5], f"RN1 {kern} ({name}) one step "
+                           f"B={B_CHECK}")
+        ck = E.carry_after(L.op, v32, B_CHECK, 0)
+        cp = E.carry_after(L.op, v32, B_CHECK, 0)
+        c64 = E.carry_after(L.op64, v64, B_CHECK, 0)
+        for k in range(10):
+            ck = L.op.step(ck, v32[k])
+            cp = L.op.step_plain(cp, v32[k])
+            c64 = L.op64.step_plain(c64, v64[k])
+        ek = torch.quantile((ck.yp.double() - c64.yp).abs().amax(0), lv)
+        ep = torch.quantile((cp.yp.double() - c64.yp).abs().amax(0), lv)
+        log(f"RN1 {kern} ({name}: jac_mode 'substep', "
+            f"{L.arm.cfg.output_type}) 10-step runners B={B_CHECK}: "
+            f"distance of the tracked outputs to f64 (median, p99): "
+            f"kernel {ek[0]:.3e} {ek[1]:.3e}, plain f32 {ep[0]:.3e} "
+            f"{ep[1]:.3e}; alive kernel {ck.alive.mean().item():.4f} plain "
+            f"{cp.alive.mean().item():.4f}")
+        if not (torch.equal(ck.alive, cp.alive) and bool(ck.alive.all())
+                and bool((ek <= 2 * ep + 1e-4).all())):
+            raise AssertionError(f"RN1 {name}: the kernel's runner is "
+                                 f"farther from f64 than plain f32")
+        X0, W = lanes(B_MAIN)
+        cB = L.op.init_carry(X0, W)
+        err = max(err, E.check_step(L.op, cB, v32[0], f"RN1 {kern} "
+                                    f"({name}) one step B={B_MAIN}"))
+        oB = SF.StepCarry(*(torch.empty_like(t) for t in cB))
+        ms = E.kernel_ms(kern, lambda: L.op.step(cB, v32[0], out=oB),
+                         reps=10, build=name)
+        plain = cuda_ms(lambda: L.op.step_plain(cB, v32[0]), reps=1,
+                        warmup=1)
+        cfg = L.arm.cfg
+        cons = L.op.cons
+        if L.kind == "bilinear":
+            qp = L.op.qp
+            qp_flops = qp_ops(qp, L.op.iters)
+            tail = step_tail_ops(L.op, cfg, True)
+            shared = nbytes(qp.gens, qp.rdiag, qp.A, qp.cFr, qp.F0r, qp.Wd,
+                            qp.Wo, L.op.Pwarm)
+        else:
+            qp_flops = (linear_grad_ops(L.op)
+                        + mehrotra_ops(cons, L.op.iters, nnz(L.op.Psh)))
+            tail = step_tail_ops(L.op, cfg, False)
+            shared = nbytes(L.op.Psh, L.op.G1, L.op.P21, L.op.cFr,
+                            L.op.F0r, cons.A, cons.Wd, cons.Wo, L.op.Pwarm)
+        plant = plant_ops(cfg)
+        flops = (qp_flops + ok_ops(cons) + plant + tail) * B_MAIN
+        b_ms, b_by = bound(flops, carry_bytes(cB) + nbytes(v32[0]) + shared)
+        # the plant front alone: its operations over the card's f32 rate
+        # against the carry it reads and the scratch row it writes
+        pf_ms, pf_by = bound(plant * B_MAIN, 4 * B_MAIN * (
+            cfg.nx + 2 + L.mpc.m + cfg.nx + cfg.ny + 1))
+        step_plant = plant_ops(dataclasses.replace(
+            cfg, jac_mode="step", substeps=3, newton_iters=1,
+            output_type="markers"))
+        log(f"RN1 {kern} ({name}) at B={B_MAIN}: {ms:.4f} ms (plain "
+            f"{plain:.2f} ms, bound {b_ms:.4f} ms by {b_by}, "
+            f"{flops / B_MAIN:.0f} op/lane); the 'substep' plant front "
+            f"alone: {plant} op/lane ({plant / step_plant:.2f}x the main "
+            f"path's 'step' front, {step_plant}), bound {pf_ms:.4f} ms by "
+            f"{pf_by}; {E.plan_of(L.op)} | {smi}")
+        out["fused"][name] = {"kernel": kern, "err": err, "ms": ms,
+                              "plain": plain, "bound": b_ms, "by": b_by,
+                              "plant_bound": pf_ms}
+        del cB, oB, ck, cp, c64
+    # ipm_shared's new builds on the QPs of B_CHECK closed-loop lanes
+    for label, (K, at) in R.shared_builds.items():
+        X0, W = lanes(B_CHECK)
+        loop = _Loop(K.sim, at + 3, K.sim.reference_windows(blockM, at + 3),
+                     K.sim._ref_rows(K.sim.prep_ref(blockM), at + 3), (), X0,
+                     W)
+        for k in range(at):
+            loop.step(k)
+        loop.k = at
+        a, cons, b = shared_qp_args(K, loop)
+        err, _ = E.check_qp("ipm_shared", (IS.ipm_shared_cuda,
+                                           IS.ipm_shared_plain),
+                            a[torch.float32], a[torch.float64], cons, b,
+                            f"(RN1 {label}: n={cons.n}, mc={cons.mc}, band "
+                            f"{cons.band}, duals "
+                            f"{'warm' if a[torch.float32][8] is not None else 'cold'}) "
+                            f"B={B_CHECK} after {at} closed-loop steps")
+        if K.mpc.cfg.state_bounds is not None:
+            # the state-bound rows the kernel's solution holds active
+            lam = IS.ipm_shared_cuda(*a[torch.float32])[2]
+            act = (lam[sb_rows(K.mpc)] > 1e-3).any(0)
+            log(f"RN1 ipm_shared {label}: a state-bound row active on "
+                f"{int(act.sum())} of {B_CHECK} lanes")
+            if not bool(act.any()):
+                raise AssertionError(f"RN1 {label}: no state-bound row "
+                                     f"binds")
+        rep = B_GENERAL // B_CHECK
+        big = tuple(t.repeat(*([1] * (t.ndim - 1)), rep).contiguous()
+                    if torch.is_tensor(t) and t.ndim > 1 and t.shape[-1]
+                    == B_CHECK else t for t in a[torch.float32])
+        ms = E.kernel_ms("ipm_shared", lambda: IS.ipm_shared_cuda(*big),
+                         reps=10, build=label)
+        plain = cuda_ms(lambda: IS.ipm_shared_plain(*big), reps=1, warmup=1)
+        flops = mehrotra_ops(cons, big[5], nnz(big[1])) * B_GENERAL
+        b_ms, b_by = bound(flops, nbytes(*(t for t in big[2:5]))
+                           + (nbytes(big[8]) if big[8] is not None else 0)
+                           + 4 * B_GENERAL * (cons.n + 2 * cons.mc)
+                           + nbytes(big[1], cons.A, cons.Wd, cons.Wo))
+        log(f"RN1 ipm_shared {label} at B={B_GENERAL}: {ms:.4f} ms (plain "
+            f"{plain:.2f} ms, bound {b_ms:.5f} ms by {b_by}, "
+            f"{flops / B_GENERAL:.0f} op/lane); plan "
+            f"{IS.launch_plan(cons)} | {smi}")
+        out["ipm_shared"][label] = {"err": err, "ms": ms, "plain": plain,
+                                    "bound": b_ms, "by": b_by}
+        del loop, a, big
+    took("RN1")
+
+    # ---- RN2: the four fused loops at B_MAIN x 301
+    for name, L in R.loops.items():
+        kern = "step_fused" if L.kind == "bilinear" else "linear_step_fused"
+        ref = blockM if L.ref is None else L.ref
+        run = L.sim.fused_runner(ref, STEPS)
+        X0, W = lanes(B_MAIN)
+        L.sim.fused_runner(ref, 3)(X0[:1024], W[:1024])        # warm-up
+        res, wall, counts = E.drive({kern: STEPS - 1}, lambda: run(X0, W))
+        e = lane_tracking_error(res["Yp"], ref).cpu().numpy()
+        alive = res["alive"][:, -1].cpu().numpy()
+        jr = np.mean(L.r["err_mean"])
+        all16 = all(L.r["alive"])
+        log(f"RN2 {name} ({kern}, jac_mode 'substep', "
+            f"{L.arm.cfg.output_type}, qp_iters {L.cfg.qp_iters}) "
+            f"B={B_MAIN} x {STEPS} steps: {wall:.3f} s (CUDA events), "
+            f"{B_MAIN * (STEPS - 1) / wall:.4e} lane-steps/s, alive "
+            f"{alive.mean():.6f}, err_mean {e[alive].mean():.6f} (JAX x64 "
+            f"B=16 {jr:.6f}), err_worst {e.max():.6f} | {smi}")
+        if not ((alive.all() or not all16)
+                and abs(e[alive].mean() - jr) < 1e-3):
+            raise AssertionError(f"RN2 {name}: off the JAX reference")
+        out["launches"][name] = counts[kern]
+        del res
+    took("RN2")
+
+    # ---- RN3, RN4: the knobs at B=16 and B_GENERAL x 301 (a loop that
+    # runs no kernel at B_PLAIN)
+    krefs = R.krefs
+    B16 = krefs["B"]
+    for name, K in R.knobs.items():
+        r = K.r
+        exp = {} if K.kernel is None else {K.kernel: STEPS - 1}
+        run = K.sim.batched_runner(blockM, steps=STEPS)
+        has_sb = K.cfg.state_bounds is not None
+        active, solve = [0], K.mpc.solve
+
+        def counted(*a):
+            # lane-steps with a state-bound row active (multiplier > 1e-3)
+            U, sol = solve(*a)
+            active[0] += int((sol.lam[sb_rows(K.mpc)] > 1e-3).any(0).sum())
+            return U, sol
+
+        if has_sb:
+            K.mpc.solve = counted
+        try:
+            res, wall16, _ = E.drive(exp, lambda: run(*lanes(B16)))
+        finally:
+            if has_sb:
+                del K.mpc.solve
+        e = lane_tracking_error(res["Yp"], blockM).cpu().numpy()
+        alive = res["alive"][:, -1].cpu().numpy()
+        x64 = np.asarray(r["err_mean"])
+        banded = r["f32"]["copies"] > 1
+        if banded:
+            lanes_ok, off, loose = dict_lane_gate(e, r)
+            ok = dict_alive_gate(alive, r) and lanes_ok
+            gate = (f"outside the hull of x64 and JAX's f32 band by at most "
+                    f"{off.max():.3e} (lane {int(off.argmax())})")
+        else:
+            ok = (alive == np.asarray(r["alive"])).all() \
+                and abs(e.mean() - x64.mean()) < 1e-3
+            gate = f"|d err_mean| {abs(e.mean() - x64.mean()):.3e}"
+        sb_note = (f"; a state-bound row active on {active[0]} of "
+                   f"{B16 * (STEPS - 1)} lane-steps" if has_sb else "")
+        log(f"RN3 {name} ({K.kernel or 'plain per-lane-A IPM'}, qp_iters "
+            f"{K.cfg.qp_iters}) B={B16} x {STEPS} f32 on the card: err_mean "
+            f"{e.mean():.6f} (JAX x64 {x64.mean():.6f}), alive "
+            f"{int(alive.sum())}/{B16} (JAX x64 {sum(r['alive'])}); {gate}"
+            f"{sb_note}; {wall16:.3f} s | {smi}")
+        if not ok:
+            raise AssertionError(f"RN3 {name}: off the JAX reference")
+        if has_sb and not active[0]:
+            raise AssertionError(f"RN3 {name}: no state-bound row binds")
+        B = B_GENERAL if K.kernel else B_PLAIN
+        X0, W = lanes(B)
+        K.sim.batched_runner(blockM, steps=3)(X0[:1024], W[:1024])
+        res, wall, counts = E.drive(exp, lambda: run(X0, W))
+        alive = res["alive"][:, -1].cpu().numpy()
+        e = lane_tracking_error(res["Yp"], blockM).cpu().numpy()
+        log(f"RN4 {name} B={B} x {STEPS}: {wall:.3f} s (CUDA "
+            f"events), {B * (STEPS - 1) / wall:.4e} lane-steps/s, "
+            f"alive {alive.mean():.6f}, err_mean {e[alive].mean():.6f}, "
+            f"launches { {k: v for k, v in counts.items() if v} } | {smi}")
+        # every lane alive where JAX keeps the 16 lanes alive in x64 and
+        # in every f32 run of it
+        if not (np.isfinite(e[alive]).all()
+                and (alive.all() or not dict_all_alive(r))):
+            raise AssertionError(f"RN4 {name}: lanes lost at full width")
+        if K.kernel:
+            out["launches"][name] = counts[K.kernel]
+        del res
+    # the lasso sweep with two relinearized passes a step
+    lr = krefs["lasso"]
+    data = np.load(LASSO_CANDIDATES)
+    header = json.loads(str(data["header"]))
+    shared = {k: data[k] for k in data.files
+              if k != "header" and not k.startswith(("A_", "B_"))}
+    pairs = [from_jax_arrays(dict(header, lasso=lv),
+                             dict(shared, A=data[f"A_{i}"], B=data[f"B_{i}"]))
+             for i, lv in enumerate(header["lasso"])]
+    cands = [m for m, _ in pairs]
+    from koopman_realizations_torch.config import ArmConfig
+    from koopman_realizations_torch.models.arm import Arm
+    sarm = Arm(ArmConfig(**lr["recipe"]["arm"]), device=dev)
+    scfg = rn_config(lr["config"])
+    for C in (len(cands), B_GENERAL):
+        ks = types.SimpleNamespace(
+            candidates=[cands[i % len(cands)] for i in range(C)],
+            scaler=pairs[0][1])
+        res, wall, counts = E.drive(
+            {"ipm_shared": scfg.bilinear_iters * (STEPS - 1)},
+            lambda: lasso_sweep_closed_loop(ks, sarm, scfg, blockM,
+                                            steps=STEPS, device=dev))
+        em = res["err"].mean(1)
+        al = res["alive"][:, -1]
+        rows = []
+        ok = True
+        for i, (lval, cd) in enumerate(lr["candidates"].items()):
+            e_i = em[i::len(cands)]
+            a_i = al[i::len(cands)]
+            lo, hi = cd["f32_band"]
+            near = abs(e_i - cd["err_mean"]) < 1e-3
+            inside = (e_i >= lo - 1e-3) & (e_i <= hi + 1e-3)
+            # a loop that amplifies f32 rounding: alive as x64 or as one
+            # of JAX's own f32 runs, within 1e-3 of its band
+            alive_ok = (a_i == cd["alive"]) if cd["f32_stable"] else \
+                np.isin(a_i, [cd["alive"]] + cd["f32_alive"])
+            good = bool(alive_ok.all()) and bool(
+                (near if cd["f32_stable"] else near | inside).all())
+            ok &= good or C != len(cands)
+            rows.append(f"lasso {lval}: err_mean {e_i.mean():.6f} (x64 "
+                        f"{cd['err_mean']:.6f}, f32 band {lo:.6f}-{hi:.6f}) "
+                        f"alive {a_i.mean():.4f}")
+        log(f"RN3 lasso sweep bilinear_iters={scfg.bilinear_iters} on the "
+            f"six committed candidates, {C} lanes x {STEPS} steps: "
+            f"{wall:.3f} s (CUDA events); " + "; ".join(rows) + f" | {smi}")
+        if not ok:
+            raise AssertionError("RN3 lasso sweep: off the JAX reference")
+        out["launches"]["lasso_iters2" if C == len(cands)
+                        else "lasso_iters2 full"] = counts["ipm_shared"]
+        del res, ks
+    took("RN3/RN4")
+
+    # ---- RN5: the reference's per-step solve time at B=1
+    for kind, sim in E.timed_sims.items():
+        res = sim.run_trial_mpc_timed(blockM, steps=STEPS)
+        ct = res["comp_time"] * 1e3
+        log(f"RN5 run_trial_mpc_timed {kind} B=1 x {STEPS} steps on blockM: "
+            f"comp_time mean {ct.mean():.4f} ms, median "
+            f"{np.median(ct):.4f} ms, max {ct.max():.4f} ms (CUDA events "
+            f"a step, a synchronize after it; {len(ct)} steps), err_mean "
+            f"{res['err'].mean():.6f}, alive {bool(res['alive'].all())}; "
+            f"the MATLAB reference's mean {MATLAB_COMP_MS[kind]} ms (one "
+            f"CPU, BASELINE.md) | {smi}")
+        if not (len(ct) == STEPS - 1 and np.isfinite(ct).all()
+                and (ct > 0).all() and res["alive"].all()):
+            raise AssertionError(f"RN5 {kind}: the timed run failed")
+        out.setdefault("comp_time", {})[kind] = {
+            "mean": float(ct.mean()), "median": float(np.median(ct)),
+            "max": float(ct.max())}
+    took("RN5")
+
+    # ---- RN6: bilin_lift's del1 build on B_TAIL closed-loop lanes
+    out["tail"] = del1_tail(D)
+    took("RN6")
+    for L in R.loops.values():
+        L.arm.clear_graphs()
+    R.arm_bench.clear_graphs()
+    return out
+
+
 KERNEL_DEF = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*"
                         r"|KG_BOUNDS\s+)?(\w+)\s*\(")
 
@@ -1873,8 +2449,10 @@ def rhs_ops(nl: int, k: int) -> int:
 
 
 def plant_ops(cfg) -> int:
-    """Operations of one lane's SDIRK2 period and markers, counted from
-    csrc/kmpc_device.cuh (jac_mode 'step': one dual-number Jacobian)."""
+    """Operations of one lane's SDIRK2 period and outputs, counted from
+    csrc/kmpc_device.cuh: one dual-number Jacobian and its factor a
+    period (jac_mode 'step') or a substep ('substep'); the markers' or
+    (no operation) the angles'."""
     nl, nx = cfg.Nlinks, cfg.nx
     chol = sum(2 * j + 1 + (nx - 1 - j) * (2 * j + 1) for j in range(nx))
     solve = 2 * nx * (nx - 1) + 2 * nx
@@ -1882,8 +2460,9 @@ def plant_ops(cfg) -> int:
               + nx * (nx + 1) // 2 * (2 * nx - 1) + chol)
     newton = 2 * nx + rhs_ops(nl, 0) + nx + nx * (2 * nx - 1) + solve + nx
     substep = rhs_ops(nl, 0) + 2 * cfg.newton_iters * newton + 7 * nx
-    markers = 7 * nl - 3
-    return 6 + factor + cfg.substeps * substep + markers
+    markers = 0 if cfg.output_type == "angles" else 7 * nl - 3
+    factors = cfg.substeps if cfg.jac_mode == "substep" else 1
+    return 6 + factors * factor + cfg.substeps * substep + markers
 
 
 def step_tail_ops(op, cfg, lam_scaled: bool) -> int:
@@ -2139,6 +2718,13 @@ def main() -> int:
     for sp in Dx.specs.values():
         if sp not in specs:
             specs.append(sp)
+    # the harness slice's new builds (phase RN): both fused steps with
+    # jac_mode 'substep' on markers and on angles, ipm_shared's lane-shared
+    # warm-dual build and its n=27 builds
+    Rx = rn_setup(dev)
+    for sp in Rx.specs.values():
+        if sp not in specs:
+            specs.append(sp)
     builds = _build.build_all(specs)
     ptxas_of = {sp: r.ptxas for sp, r in zip(specs, builds)}
     names = kernel_names(_build.CSRC)
@@ -2364,15 +2950,11 @@ def main() -> int:
     # on the linear general path's QPs from a carry after 3 plain steps
     def linear_qp(c, k):
         """LinearKmpc.solve's equilibrated QP at carry c, reference step k:
-        (Psh, q, b) as solve_qp_shared hands them to the kernel."""
-        z = lmpc.lift(c.ysc)
-        Yr = lsim.reference_windows(ref, k + 2)[k][:, None]
-        f = 2.0 * lmpc.CB_t.T @ (lmpc.Qd_t[:, None] * (lmpc.CA_t @ z - Yr))
-        b = lmpc.c_t[:, None] - lmpc.Mc_t @ z
-        P, q, bz = lmpc.eliminate_u0(2.0 * lmpc.H_t, f, b, c.upsc)
-        obj = P.abs().amax()
-        return ((P / obj).contiguous(), (q / obj).contiguous(),
-                (bz / cons.row[:, None]).contiguous())
+        (Psh, q, b) as ``LinearKmpc.qp_args`` hands them to the kernel."""
+        Yr = lsim.reference_windows(ref, k + 2)[k]
+        # (the primal start is the carry's own x0)
+        return lmpc.qp_args(lmpc.lift(c.ysc), c.upsc, Yr,
+                            c.upsc.repeat(lmpc.Np, 1))[0][1:4]
 
     def check_ipm(c, k, label) -> float:
         Psh, q, b = linear_qp(c, k)
@@ -3449,6 +4031,24 @@ def main() -> int:
     dxl = lambda kernel: sum(v for k, v in dx["launches"].items()
                              if Dx.paths[k].kernel == kernel)
 
+    # ---- phase RN: the harness in full, the fused step on the default
+    # plant and on angle outputs, the controller knobs (its step_fused,
+    # linear_step_fused, ipm_shared and bilin_lift launches join rows 1,
+    # 3, 4 and 2)
+    def plan_of(so) -> str:
+        plan = so.launch_plan()
+        return (f"plan: group {plan.group}, {plan.threads} threads and "
+                f"{plan.lanes} lanes a block, "
+                f"{plan.min_blocks or 'no bound on'} blocks an SM; ptxas: "
+                + ptx(so.kernel_spec()))
+
+    rn = phase_runners(dev, types.SimpleNamespace(
+        drive=drive, carry_after=carry_after, check_step=check_step,
+        check_qp=check_qp, kernel_ms=kernel_ms, plan_of=plan_of,
+        timed_sims={"linear": lsim, "bilinear": sim, "nonlinear": nsim}),
+        Rx, Dx, smi)
+    rnl = rn["launches"]
+
     tpu = "koopman_realizations_tpu/ops/pallas/"
     src = "koopman_realizations_torch/csrc/"
     rows = [("step_fused", "step_fused.py:90", fused_main["step_fused"],
@@ -3530,6 +4130,35 @@ def main() -> int:
             "launches": dx["launches"][name], "max_abs_err": bd["err"],
             "ms": bd["ms"], "plain_ms": bd["plain"],
             "bound_ms": bd["bound"], "bound_by": bd["by"]}
+    # phase RN's new builds: their launches on the RN paths are in their
+    # rows' launches, their times of their own
+    rn_rows = {"step_fused": ("default_bilinear", "angles_bilinear"),
+               "linear_step_fused": ("default_linear", "angles_linear"),
+               "ipm_shared": ("linear_dual_warm", "linear_dual_shift",
+                              "linear_unblocked_sb", "lasso_iters2",
+                              "lasso_iters2 full"),
+               "bilin_lift": ("bilinear_dual_shift",)}
+    for kname, paths in rn_rows.items():
+        row = next(k for k in kernels if k["name"] == kname)
+        row["launches"] += sum(rnl.get(p, 0) for p in paths)
+    for name, f in rn["fused"].items():
+        row = next(k for k in kernels if k["name"] == f["kernel"])
+        row.setdefault("substep", {})[name] = {
+            "launches": rnl[name], "max_abs_err": f["err"], "ms": f["ms"],
+            "plain_ms": f["plain"], "bound_ms": f["bound"],
+            "bound_by": f["by"], "plant_front_bound_ms": f["plant_bound"]}
+    row = next(k for k in kernels if k["name"] == "ipm_shared")
+    for label, f in rn["ipm_shared"].items():
+        row.setdefault("harness_builds", {})[label] = {
+            "launches": {"warm n=12": rnl["linear_dual_warm"]
+                         + rnl["linear_dual_shift"],
+                         "n=27 dense": rnl["linear_unblocked_sb"]}.get(
+                             label, 0),
+            "max_abs_err": f["err"], "ms": f["ms"], "plain_ms": f["plain"],
+            "bound_ms": f["bound"], "bound_by": f["by"]}
+    log("RN comp_time (ms a step, B=1): " + json.dumps(rn["comp_time"])
+        + f"; RN6 bilin_lift del1 p99 to f64 kernel/plain f32 "
+          f"{rn['tail']['p99']}, f32 tail {rn['tail']['f32_tail']}")
     log("device launches a wrapper call (torch.profiler, each build's "
         "first timing): " + ", ".join(
             f"{k} {v}" for k, v in dev_launches.items()))
@@ -3542,5 +4171,669 @@ def main() -> int:
     return 0
 
 
+# ---- measurements beside the smoke run (``python3 chip_smoke.py
+# --measure NAME --out FILE``); each writes its report to FILE (JSON) and
+# prints a summary line with the card's name and power limit
+# the DX3 lanes whose card readings lay outside JAX's f32 band (ROADMAP.md
+# §3, open check 1)
+BAND_LANES = {"del1": (0,), "nmpc-fs1": (4, 9)}
+# the linear state-bound knob with cold duals at 24 iterations and the
+# bounds the loop's outputs never reach (the outputs' range widened by
+# 2.0, tests/test_torch_oracle.py:KNOB_Y_RANGE), the configuration that
+# lost lanes at B_GENERAL (``measure_cold_lanes``)
+# the far steps of a shadowed loop whose inputs ``measure_shadow`` keeps
+SHADOW_KEEP = 12
+COLD_SB = dict(qp_dual_warm=False, qp_iters=24, state_bounds=tuple(
+    (lo - 2.0, hi + 2.0) for lo, hi in (
+        (-0.243, 0.145), (0.228, 0.333), (-0.148, 0.451), (0.370, 0.666),
+        (-0.19, 0.704), (0.14, 0.9995))))
+
+
+def band_copy(model, k: int):
+    """Copy k of ``model`` for a 96-copy f32 band (the JAX writers' recipe,
+    tests/test_torch_oracle.py): every nonzero of its f32 A (W of a
+    nonlinear model) one ulp up or down, the directions from
+    ``numpy.random.default_rng([0, k])``; copy 0 is the model."""
+    import dataclasses
+
+    import numpy as np
+    name = "W" if hasattr(model, "W") else "A"
+    A = np.asarray(getattr(model, name), np.float32)
+    if k == 0:
+        return model
+    up = np.random.default_rng([0, k]).random(A.shape) < 0.5
+    Ak = np.where(A == 0, A, np.nextafter(
+        A, np.where(up, np.inf, -np.inf).astype(np.float32)))
+    return dataclasses.replace(model, **{name: Ak})
+
+
+def band_runs(path: str, k0: int, k1: int, device: str) -> list:
+    """[[alive, err_mean] per lane] of copies k0..k1-1 of a DX path: its
+    controller (the refs' qp_iters) through the general runner on the
+    refs' 16 lanes over 301 blockM steps."""
+    import torch
+
+    from koopman_realizations_torch.config import ArmConfig
+    from koopman_realizations_torch.control.kmpc import make_kmpc
+    from koopman_realizations_torch.control.ksim import KoopmanPlant, Ksim
+    from koopman_realizations_torch.models.arm import Arm
+    from koopman_realizations_torch.utils.checkpoint import load_model
+    from koopman_realizations_torch.utils.metrics import lane_tracking_error
+    from koopman_realizations_torch.utils.trajectories import (
+        blockM_reference,
+    )
+    if device == "cpu":
+        torch.set_num_threads(1)
+    refs = json.loads(DICT_REFS.read_text())
+    r = refs["paths"][path]
+    model, scaler, _ = load_model(DICT_REFS.parent / r["asset"])
+    cfg = dict_config(r)
+    arm = Arm(ArmConfig(**ARM), device=device)
+    ref = blockM_reference()
+    out = []
+    for k in range(k0, k1):
+        mk = band_copy(model, k)
+        P = types.SimpleNamespace(r=r, model=mk,
+                                  mpc=make_kmpc(mk, scaler, cfg,
+                                                device=device))
+        plant = KoopmanPlant(mk, scaler, device) if r["plant"] == "model" \
+            else arm
+        res = Ksim(plant, P.mpc, device=device).batched_runner(
+            ref, steps=refs["steps"])(*dict_lanes(P, refs["B"]))
+        e = lane_tracking_error(res["Yp"], ref).cpu().numpy()
+        alive = res["alive"][:, -1].cpu().numpy()
+        out.append([[bool(a), float(v)] for a, v in zip(alive, e)])
+    return out
+
+
+def band_judge(reports: list) -> dict:
+    """Open check 1 from band reports (``measure_f32_band``, one a
+    device).  For each lane of ``BAND_LANES`` each device's copy-0
+    reading, the band of its copies 1..N-1 (copy 0 left out: it is the
+    reading judged), copy 0's rank among them (0: below all), and JAX's
+    band beside the x64 value.  For each path and device over all its
+    lanes: how many copy-0 readings lie outside JAX's band, the share of
+    copies 1..N-1 that do, the chance of that many or more at that share
+    (binomial), and where a card and a CPU report are both given, each
+    lane's rank-sum p-value of the two devices' copies 1..N-1 (lanes
+    whose JAX band is wider than CHAOTIC_BAND)."""
+    import numpy as np
+    from scipy.stats import binom, mannwhitneyu
+    jrefs = json.loads(DICT_REFS.read_text())["paths"]
+    runs = lambda rep, path: np.asarray(
+        [[v for _, v in ls] for ls in rep["paths"][path]["lanes"]])
+    out = {}
+    for path in {p_ for rep in reports for p_ in rep["paths"]}:
+        jr = jrefs[path]
+        jb = np.asarray(jr["f32"]["band"])
+        outside = lambda e: (e < jb[:, 0]) | (e > jb[:, 1])
+        per = {rep["device"]: runs(rep, path) for rep in reports
+               if path in rep["paths"]}
+        for i in BAND_LANES.get(path, ()):
+            row = {"jax_band": jb[i].tolist(), "jax_x64": jr["err_mean"][i]}
+            for dev, e in per.items():
+                c0, rest = float(e[0, i]), e[1:, i]
+                row[dev] = {"copy0": c0, "band_1": [float(rest.min()),
+                                                    float(rest.max())],
+                            "rank0": int((rest < c0).sum()), "of": len(rest),
+                            "inside_jax": not bool(outside(e[0])[i])}
+            out[f"{path} lane {i}"] = row
+        whole = {}
+        for dev, e in per.items():
+            n0, share = int(outside(e[0]).sum()), float(outside(e[1:]).mean())
+            whole[dev] = {"copy0_outside": n0, "lanes": e.shape[1],
+                          "copies_outside_share": share,
+                          "p_this_many": float(binom.sf(n0 - 1, e.shape[1],
+                                                        share))}
+        if {"cuda", "cpu"} <= set(per):
+            wide = np.nonzero(jb[:, 1] - jb[:, 0] > CHAOTIC_BAND)[0]
+            whole["rank_sum_p"] = {
+                str(i): float(mannwhitneyu(per["cuda"][1:, i],
+                                           per["cpu"][1:, i]).pvalue)
+                for i in wide}
+        out[path] = whole
+    return out
+
+
+def measure_f32_band(out: Path, device: str, paths, copies: int,
+                     procs: int, judge_only=()) -> dict:
+    """The port's own 96-copy f32 band of the ``BAND_LANES`` paths on
+    ``device`` (copies split over ``procs`` processes), or with
+    ``judge_only`` the judgement of earlier reports alone."""
+    import numpy as np
+    reports = [json.loads(Path(f).read_text()) for f in judge_only]
+    if not judge_only:
+        rep = {"device": device, "copies": copies, "paths": {}}
+        for path in paths:
+            t0 = time.perf_counter()
+            bounds = np.linspace(0, copies, max(1, procs) + 1).astype(int)
+            procs_ = [subprocess.Popen(
+                [sys.executable, __file__, "--measure", "band-chunk",
+                 "--device", device, "--paths", path, "--copies",
+                 f"{a},{b}"], stdout=subprocess.PIPE, text=True)
+                for a, b in zip(bounds[:-1], bounds[1:]) if b > a]
+            lanes = []
+            for pr in procs_:
+                so, _ = pr.communicate()
+                if pr.returncode:
+                    raise RuntimeError(f"f32 band: a chunk of {path} failed")
+                lanes += json.loads(so.strip().splitlines()[-1])
+            rep["paths"][path] = {"lanes": lanes,
+                                  "seconds": time.perf_counter() - t0}
+        reports = [rep]
+    return {"reports": reports, "judge": band_judge(reports)}
+
+
+def lane_cols(args: tuple, idx) -> tuple:
+    """``ipm_shared`` arguments of the lanes ``idx`` alone (the per-lane
+    operands' columns; the shared P and rows as they are)."""
+    import torch
+    return tuple(t[:, idx].contiguous() if torch.is_tensor(t) and i > 1
+                 and t.ndim == 2 else t for i, t in enumerate(args))
+
+
+def cast_args(args: tuple, dtype, device) -> tuple:
+    """``ipm_shared`` arguments (rows included) in ``dtype`` on
+    ``device``."""
+    import torch
+
+    from koopman_realizations_torch.ops.qp import Constraints
+    t_ = lambda t: t.to(device, dtype) if torch.is_tensor(t) else t
+    return (Constraints(*(t_(t) for t in args[0])),) + tuple(
+        t_(t) for t in args[1:])
+
+
+def lost_lane_solves(args32) -> dict:
+    """The lost lanes' QPs (``ipm_shared`` arguments exactly as the loop
+    solved them, f32) solved by the kernel, its plain version in f32 on
+    the card and on the CPU and in f64 (the same QPs cast), each at the
+    loop's iterations and at twice them, and f64 at 100: {solver: {"ok",
+    "gap", "rp": the primal residual over its limit, "finite"}} a lane."""
+    import torch
+
+    from koopman_realizations_torch.ops.kernels import ipm_shared as IS
+    from koopman_realizations_torch.ops.qp import ok_mask, qp_constants
+
+    def judged(fn, a, iters):
+        a = a[:5] + (iters,) + a[6:]
+        x, s, lam = fn(*a)
+        cons, b = a[0], a[3]
+        c = qp_constants(b.dtype)
+        ok, gap = ok_mask(cons, b, x, s, lam, c.tol, c.gap_sane)
+        rp = torch.clamp(cons.A @ x - b, min=0.0).amax(0) \
+            / (c.tol * torch.clamp(b.abs().amax(0), min=1.0))
+        return {"ok": ok.cpu().tolist(), "gap": gap.cpu().tolist(),
+                "rp": rp.cpu().tolist(),
+                "finite": torch.isfinite(x).all(0).cpu().tolist()}
+
+    it = args32[5]
+    dev = args32[2].device
+    cpu32 = cast_args(args32, torch.float32, "cpu")
+    a64 = cast_args(args32, torch.float64, dev)
+    out = {}
+    for k in (it, 2 * it):
+        out[f"kernel f32 {k}"] = judged(IS.ipm_shared_cuda, args32, k)
+        out[f"plain f32 {k} (card)"] = judged(IS.ipm_shared_plain, args32,
+                                              k)
+        out[f"plain f32 {k} (cpu)"] = judged(IS.ipm_shared_plain, cpu32, k)
+        out[f"plain f64 {k}"] = judged(IS.ipm_shared_plain, a64, k)
+    out["plain f64 100"] = judged(IS.ipm_shared_plain, a64, 100)
+    return out
+
+
+def measure_cold_lanes(out: Path, device: str = "cuda",
+                       B: int = B_GENERAL, steps: int = STEPS,
+                       plain: bool = False, knob: bool = False) -> dict:
+    """The linear unblocked state-bound knob with ``COLD_SB`` (cold duals,
+    24 iterations, the wide bounds) on B lanes x ``steps`` through the
+    general runner: the lanes that die, the step each dies at and whether
+    its QP failed there (or the plant).  Each solve's ``ipm_shared``
+    arguments are kept as the loop solves them (``LinearKmpc.qp_args``);
+    at a step where lanes die the kernel runs again on the whole batch
+    (does it fail them again, and are its results bitwise those of the
+    loop's launch?) and on the lost lanes alone, and every solver of
+    ``lost_lane_solves`` takes the lost lanes' QPs.  Those QPs go to
+    ``out`` with the suffix .npz (f32, the kernel's arguments).  With
+    ``plain`` the loop solves its QPs by the kernel's plain version on
+    the same device instead (its lost lanes alone are reported); with
+    ``knob`` the loop runs the knob's own configuration (warm duals, 16
+    iterations, the capped bounds) in place of ``COLD_SB``."""
+    import numpy as np
+    import torch
+
+    from koopman_realizations_torch.config import ArmConfig
+    from koopman_realizations_torch.control.kmpc import make_kmpc
+    from koopman_realizations_torch.control.ksim import Ksim, _Loop
+    from koopman_realizations_torch.models.arm import Arm
+    from koopman_realizations_torch.ops.kernels import _build
+    from koopman_realizations_torch.ops.kernels import ipm_shared as IS
+    from koopman_realizations_torch.ops.qp import QPSolution, ok_mask
+    from koopman_realizations_torch.utils.checkpoint import load_model
+    from koopman_realizations_torch.utils.trajectories import (
+        blockM_reference,
+    )
+    dev = torch.device(device)
+    r = json.loads(KNOB_REFS.read_text())["paths"]["linear_unblocked_sb"]
+    cfg = rn_config(dict(r["config"], **({} if knob else COLD_SB)))
+    model, scaler, _ = load_model(KNOB_REFS.parent / r["asset"])
+    m32 = make_kmpc(model, scaler, cfg, device=dev)
+    if dev.type == "cuda":
+        _build.build_all([IS.kernel_spec(m32.constraints(),
+                                         warm=cfg.qp_dual_warm)])
+    sim = Ksim(Arm(ArmConfig(**ARM), device=dev), m32, device=dev)
+    ref = blockM_reference()
+    X0 = np.zeros((B, 6), np.float32)
+    X0[:, 0] = np.linspace(-0.2, 0.2, B)
+    windows = sim.reference_windows(ref, steps)
+    loop = _Loop(sim, steps, windows, sim._ref_rows(sim.prep_ref(ref),
+                                                    steps), (), X0,
+                 np.zeros((B, 2), np.float32))
+    seen = {}
+
+    def recorded(*a):
+        # LinearKmpc.solve, its arguments kept
+        seen["args"] = m32.qp_args(*a)
+        if plain:
+            # solve_shared_operands with the plain version on the card
+            args, obj = seen["args"]
+            x, s_, lam = IS.ipm_shared_plain(*args)
+            ok, gap = ok_mask(args[0], args[3], x, s_, lam, 3e-3, 5e-2)
+            x = torch.where(torch.isfinite(x).all(0), x,
+                            torch.full_like(x, float("nan")))
+            sol = QPSolution(x, lam * obj / args[0].row[:, None], ok, gap)
+        else:
+            sol = IS.solve_shared_operands(*seen["args"])
+        seen["sol"] = sol
+        return m32.plan(a[1], sol.x), sol
+
+    m32.solve = recorded
+    lost, reruns, qps = [], [], []
+    t0 = time.perf_counter()
+    try:
+        for k in range(steps - 1):
+            before = loop.alive
+            loop.step(k)
+            idx = torch.nonzero(before & ~loop.alive)[:, 0]
+            if not len(idx):
+                continue
+            sol, (args, _) = seen["sol"], seen["args"]
+            lost += [{"lane": int(i), "step": k,
+                      "qp_ok": bool(sol.ok[i])} for i in idx]
+            if dev.type == "cuda" and not plain:
+                x1, s1, l1 = IS.ipm_shared_cuda(*args)
+                ok1 = ok_mask(args[0], args[3], x1, s1, l1, 3e-3, 5e-2)[0]
+                xl = IS.ipm_shared_cuda(*lane_cols(args, idx))
+                okl = ok_mask(args[0], args[3][:, idx], *xl, 3e-3, 5e-2)[0]
+                same = lambda u, v: (u == v) | (u.isnan() & v.isnan())
+                reruns.append({
+                    "step": k, "lanes": idx.tolist(),
+                    "loop_ok": sol.ok[idx].tolist(),
+                    "rerun_ok": ok1[idx].tolist(),
+                    "alone_ok": okl.tolist(),
+                    "rerun_lanes_not_bitwise": int((~same(
+                        x1, sol.x)).any(0).sum()),
+                    "rerun_ok_flips": int((ok1 != sol.ok).sum())})
+            qps.append(lane_cols(args, idx))
+    finally:
+        del m32.solve
+    wall = time.perf_counter() - t0
+    rep = {"config": dataclasses_dict(cfg), "B": B, "steps": steps,
+           "solver": "plain" if plain else "kernel", "wall_s": wall,
+           "alive": float(loop.alive.float().mean()), "lost": lost,
+           "reruns": reruns}
+    if qps and dev.type == "cuda" and not plain:
+        cat = lambda j: torch.cat([q[j] for q in qps], 1)
+        a32 = (qps[0][0], qps[0][1], cat(2), cat(3), cat(4)) \
+            + qps[0][5:]
+        rep["solves"] = lost_lane_solves(a32)
+        cons = a32[0]
+        np.savez(out.with_suffix(".npz"), header=json.dumps(
+            {"config": rep["config"], "lost": lost, "B": B,
+             "iters": a32[5], "slack_floor": a32[6],
+             "written_by": "python3 chip_smoke.py --measure cold-lanes"}),
+            Psh=a32[1].cpu().numpy(), q=a32[2].cpu().numpy(),
+            b=a32[3].cpu().numpy(), x0=a32[4].cpu().numpy(),
+            A=cons.A.cpu().numpy(), row=cons.row.cpu().numpy())
+    return rep
+
+
+def measure_qp_trace(out: Path, qps: Path, device: str = "cuda") -> dict:
+    """The lost lanes' QPs of ``measure_cold_lanes`` (its .npz) solved by
+    the kernel and by its plain version in f32 on the card, each stopped
+    after 1, 2, ... 2 x the loop's iterations: every iterate (x, s, lam)
+    to ``out`` with the suffix .npz, and each one's gap and step from the
+    previous iterate in the report."""
+    import numpy as np
+    import torch
+
+    from koopman_realizations_torch.control.kmpc import make_kmpc
+    from koopman_realizations_torch.ops.kernels import _build
+    from koopman_realizations_torch.ops.kernels import ipm_shared as IS
+    from koopman_realizations_torch.utils.checkpoint import load_model
+    d = np.load(qps)
+    h = json.loads(str(d["header"]))
+    r = json.loads(KNOB_REFS.read_text())["paths"]["linear_unblocked_sb"]
+    model, scaler, _ = load_model(KNOB_REFS.parent / r["asset"])
+    m = make_kmpc(model, scaler, rn_config(h["config"]), device=device)
+    cons = m.constraints()
+    if not np.array_equal(cons.A.cpu().numpy(), d["A"]):
+        raise AssertionError("qp-trace: the rows are not the lost lanes'")
+    t = lambda k: torch.as_tensor(d[k], device=device).contiguous()
+    base = (cons, t("Psh"), t("q"), t("b"), t("x0"))
+    if device == "cuda":
+        _build.build_all([IS.kernel_spec(cons)])
+    saved, rep = {}, {}
+    solvers = (("kernel", IS.ipm_shared_cuda),) if device == "cuda" else ()
+    for name, fn in solvers + (("plain", IS.ipm_shared_plain),):
+        gaps = []
+        for k in range(1, 2 * h["iters"] + 1):
+            x, s_, lam = fn(*base, k, h["slack_floor"])
+            saved.update({f"{name}/{k}/x": x.cpu().numpy(),
+                          f"{name}/{k}/s": s_.cpu().numpy(),
+                          f"{name}/{k}/lam": lam.cpu().numpy()})
+            gaps.append(((s_ * lam).sum(0) / cons.mc).cpu().tolist())
+        rep[name] = {"gap": gaps}
+    np.savez(out.with_suffix(".npz"), **saved)
+    return rep
+
+
+def dataclasses_dict(cfg) -> dict:
+    import dataclasses
+    return {k: list(v) if isinstance(v, tuple) else v
+            for k, v in dataclasses.asdict(cfg).items()}
+
+
+def measure_shadow(out: Path, device: str = "cuda", steps: int = STEPS,
+                   paths=tuple(BAND_LANES)) -> dict:
+    """Open check 1's else-branch: where the card's DX3 loops of
+    ``BAND_LANES`` part from plain f32.  Each path's general runner runs
+    on the refs' 16 lanes through its kernel (loop A), every solve's
+    inputs also solved by the path's controller on the CPU in f32 (the
+    plain versions) and in f64: per step and lane the plan distances
+    |U_kernel - U_f64| and |U_plain - U_f64|.  Loop B is the same card
+    loop with the CPU's plain f32 solve in place of the kernel's.  A step
+    where the kernel's plan is farther from f64 than 4x plain f32's plus
+    1e-5 is one where the kernel parts from plain f32."""
+    import numpy as np
+    import torch
+
+    from koopman_realizations_torch.config import ArmConfig
+    from koopman_realizations_torch.control.kmpc import make_kmpc
+    from koopman_realizations_torch.control.ksim import KoopmanPlant, Ksim
+    from koopman_realizations_torch.models.arm import Arm
+    from koopman_realizations_torch.ops.kernels import _build
+    from koopman_realizations_torch.utils.checkpoint import load_model
+    from koopman_realizations_torch.utils.metrics import lane_tracking_error
+    from koopman_realizations_torch.utils.trajectories import (
+        blockM_reference,
+    )
+    dev = torch.device(device)
+    refs = json.loads(DICT_REFS.read_text())
+    arm = Arm(ArmConfig(**ARM), device=dev)
+    ref = blockM_reference()
+    D = dict_setup(dev, arm)
+    if dev.type == "cuda":
+        _build.build_all([D.specs[p] for p in paths])
+    cast = lambda a, dt: [t.to("cpu", dt) if torch.is_tensor(t) and
+                          t.is_floating_point() else t for t in a]
+    rep, saved = {}, {}
+    for path in paths:
+        P = D.paths[path]
+        model, scaler, _ = load_model(DICT_REFS.parent / P.r["asset"])
+        c32, c64 = (make_kmpc(model, scaler, P.cfg, device="cpu", dtype=dt)
+                    for dt in (torch.float32, torch.float64))
+        B, L = refs["B"], list(BAND_LANES[path])
+        X0, W = dict_lanes(P, B)
+        run = P.sim.batched_runner(ref, steps=steps)
+        solve, dk, dp, far_in = P.mpc.solve, [], [], []
+        # the shadow solves take the checked lanes alone
+        lanes_of = lambda a: [t[..., L].contiguous() if torch.is_tensor(t)
+                              and t.ndim > 1 and t.shape[-1] == B else t
+                              for t in a]
+
+        def shadowed(*a):
+            U, sol = solve(*a)
+            U64 = c64.solve(*cast(lanes_of(a), torch.float64))[0]
+            U32 = c32.solve(*cast(lanes_of(a), torch.float32))[0]
+            dk.append((U[:, L].cpu().double() - U64).abs().amax(0))
+            dp.append((U32.double() - U64).abs().amax(0))
+            if ((dk[-1] > 4 * dp[-1] + 1e-5).any()
+                    and len(far_in) < SHADOW_KEEP):
+                far_in.append((len(dk) - 1, lanes_of(a), U[:, L].cpu(),
+                               U32, U64))
+            return U, sol
+
+        def plain(*a):
+            U, sol = c32.solve(*cast(a, torch.float32))
+            return U.to(dev), type(sol)(*(t.to(dev) for t in sol))
+
+        t0 = time.perf_counter()
+        try:
+            P.mpc.solve = shadowed
+            resA = run(X0, W)
+            P.mpc.solve = plain
+            resB = run(X0, W)
+        finally:
+            del P.mpc.solve
+        dk, dp = torch.stack(dk).numpy(), torch.stack(dp).numpy()
+        yA, yB = (r_["Yp"].cpu().numpy() for r_ in (resA, resB))
+        eA, eB = (lane_tracking_error(r_["Yp"], ref).cpu().numpy()
+                  for r_ in (resA, resB))
+        aA, aB = (r_["alive"].cpu().numpy() for r_ in (resA, resB))
+        lanes = {}
+        for j, i in enumerate(L):
+            live = aA[i] & aB[i]
+            far = (dk[:, j] > 4 * dp[:, j] + 1e-5) & live
+            pfar = (dp[:, j] > 4 * dk[:, j] + 1e-5) & live
+            gap = np.abs(yA[i] - yB[i]).max(-1)
+            first = lambda m: int(np.argmax(m)) if m.any() else None
+            lanes[str(i)] = {
+                "err_mean": {"kernel": float(eA[i]), "plain": float(eB[i])},
+                "alive": {"kernel": bool(aA[i, -1]),
+                          "plain": bool(aB[i, -1])},
+                "plan_to_f64": {"kernel_max": float(dk[live, j].max()),
+                                "plain_max": float(dp[live, j].max()),
+                                "kernel_median": float(
+                                    np.median(dk[live, j])),
+                                "plain_median": float(
+                                    np.median(dp[live, j]))},
+                "kernel_far_steps": np.nonzero(far)[0].tolist(),
+                "plain_far_steps": np.nonzero(pfar)[0].tolist(),
+                "loops_part_1e-4": first(gap > 1e-4),
+                "loops_part_1e-2": first(gap > 1e-2),
+                "kernel_to_f64": dk[:, j].tolist(),
+                "plain_to_f64": dp[:, j].tolist()}
+        rep[path] = {"lanes": lanes, "seconds": time.perf_counter() - t0,
+                     "far": [{"step": k, "kernel_to_f64": (
+                         Uk.double() - U64).abs().amax(0).tolist(),
+                         "plain_to_f64": (U32.double() - U64).abs().amax(
+                             0).tolist()} for k, _, Uk, U32, U64 in far_in]}
+        if P.kernel == "bilin_lift" and dev.type == "cuda":
+            rep[path]["trace"] = [lift_trace(P, a) for _, a, *_ in far_in]
+        saved.update({f"{path}/s{k}/a{n}": t.cpu().numpy()
+                      for k, a, *_ in far_in
+                      for n, t in enumerate(a) if torch.is_tensor(t)})
+        saved.update({f"{path}/s{k}/{nm}": t.numpy()
+                      for k, _, *Us in far_in
+                      for nm, t in zip(("U_kernel", "U_plain", "U_f64"),
+                                       Us)})
+    if saved:
+        np.savez(out.with_suffix(".npz"), **saved)
+    return rep
+
+
+def lift_trace(P, a) -> dict:
+    """One far step's ``bilin_lift`` solve (lane-sliced solve arguments
+    ``a`` on the card: zeta, u_prev, sqYr, U_plan, lam) at 1, 2 and 4
+    times the loop's iterations by the kernel, plain f32 and f64: each
+    one's distance to f64 at 4 times (the max over its plan), and the
+    smallest slack of each at the loop's count and of f64 at 4 times."""
+    import torch
+
+    from koopman_realizations_torch.ops.kernels import bilin_lift as BL
+    it = P.cfg.qp_iters
+    args = {}
+    for dt, m in ((torch.float32, P.mpc), (torch.float64, P.mpc64)):
+        z, up, sq, U = (t.to(dt) for t in a[:4])
+        lam = m.shift_lam(a[4].to(dt)) if len(a) > 4 else None
+        qp = m.lift_qp()
+        args[dt] = lambda k, qp=qp, z=z, up=up, sq=sq, U=U, lam=lam, m=m: (
+            qp, z, up, m.warm_start(U).contiguous(),
+            None if lam is None else (lam * qp.row[:, None]).contiguous(),
+            sq, k, 1e-2)
+    ref = BL.bilin_lift_plain(*args[torch.float64](4 * it))
+    far = lambda r: (r[0].double() - ref[0]).abs().amax(0).tolist()
+    out = {}
+    for k in (it, 2 * it, 4 * it):
+        out[str(k)] = {
+            "kernel": far(BL.bilin_lift_cuda(*args[torch.float32](k))),
+            "plain": far(BL.bilin_lift_plain(*args[torch.float32](k))),
+            "f64": far(BL.bilin_lift_plain(*args[torch.float64](k)))}
+    slack = lambda r: r[1].amin(0).tolist()
+    out["smallest_slack"] = {
+        "kernel": slack(BL.bilin_lift_cuda(*args[torch.float32](it))),
+        "plain": slack(BL.bilin_lift_plain(*args[torch.float32](it))),
+        "f64_converged": slack(ref)}
+    return out
+
+
+def measure_time_general(out: Path) -> dict:
+    """The general runner's wall time (CUDA events) at B_GENERAL x STEPS
+    for four configurations of the smoke run: the bilinear bench
+    controller (``bilin_lift``), the NMPC on its multipass route, the
+    stage route's damping_decay regime and the bilinear iters2 route
+    (``bilin``, ``ipm_factored``), each once after a warm-up.  Only
+    entry points that earlier trees share, so that a copy of this file
+    in an unpacked parent commit times the parent's runner."""
+    import numpy as np
+    import torch
+
+    from koopman_realizations_torch.config import ArmConfig, MpcConfig
+    from koopman_realizations_torch.control.kmpc import (
+        BilinearKmpc,
+        NonlinearKmpc,
+    )
+    from koopman_realizations_torch.control.ksim import Ksim
+    from koopman_realizations_torch.models.arm import Arm
+    from koopman_realizations_torch.ops import nmpc as N
+    from koopman_realizations_torch.ops.kernels import _build
+    from koopman_realizations_torch.ops.kernels import bilin as BI
+    from koopman_realizations_torch.ops.kernels import bilin_lift as BL
+    from koopman_realizations_torch.ops.kernels import ipm_factored as IF
+    from koopman_realizations_torch.ops.kernels import nmpc_multipass as NM
+    from koopman_realizations_torch.ops.kernels import nmpc_stage as NS
+    from koopman_realizations_torch.utils.checkpoint import (
+        NONLINEAR_MODEL,
+        load_model,
+    )
+    from koopman_realizations_torch.utils.trajectories import (
+        blockM_reference,
+    )
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    model, scaler, _ = load_model()
+    nmodel, nscaler, _ = load_model(NONLINEAR_MODEL)
+    arm = Arm(ArmConfig(**ARM), device=dev)
+    knobs = json.loads(ROUTE_REFS.read_text())["regimes"]["iters2"]["knobs"]
+    mpcs = {
+        "bilin_lift": BilinearKmpc(model, scaler, MpcConfig(**MPC),
+                                   device=dev),
+        "nmpc_multipass": NonlinearKmpc(nmodel, nscaler,
+                                        MpcConfig(**NMPC_MPC), device=dev),
+        "damping_decay": NonlinearKmpc(
+            nmodel, nscaler, MpcConfig(**regime_configs()["damping_decay"]),
+            device=dev),
+        "iters2": BilinearKmpc(model, scaler, MpcConfig(**{**MPC, **knobs}),
+                               device=dev)}
+    nqp = mpcs["nmpc_multipass"].nmpc_qp()
+    it2 = mpcs["iters2"]
+    _build.build_all([BL.kernel_spec(mpcs["bilin_lift"].lift_qp()),
+                      NM.kernel_spec(nqp)]
+                     + [NS.kernel_spec(nqp, mode) for mode in N.STAGE_MODES]
+                     + [BI.kernel_spec(it2.bilin_qp()),
+                        IF.kernel_spec(it2.constraints(), it2.p)])
+    ref = blockM_reference()
+    X0 = np.zeros((B_GENERAL, 6), np.float32)
+    X0[:, 0] = np.linspace(-0.2, 0.2, B_GENERAL)
+    W = np.zeros((B_GENERAL, 2), np.float32)
+    rep = {}
+    for name, m in mpcs.items():
+        sim = Ksim(arm, m)
+        run = sim.batched_runner(ref, steps=STEPS)
+        sim.batched_runner(ref, steps=3)(X0[:1024], W[:1024])   # warm-up
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        res = run(X0, W)
+        t1.record()
+        torch.cuda.synchronize()
+        rep[name] = {"s": t0.elapsed_time(t1) / 1e3,
+                     "alive": float(res["alive"][:, -1].float().mean())}
+        del res
+    return rep
+
+
+def measure(argv) -> int:
+    """``--measure NAME --out FILE [--device D] [--paths P ...]
+    [--copies N | K0,K1] [--procs N] [--judge FILE ...]``: NAME one of
+    f32-band, cold-lanes, qp-trace, shadow, time-general (and band-chunk,
+    one process's copies of f32-band)."""
+    import argparse
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --measure")
+    ap.add_argument("name", choices=("f32-band", "band-chunk", "cold-lanes",
+                                     "qp-trace", "shadow", "time-general"))
+    ap.add_argument("--qps", help="qp-trace: cold-lanes' .npz")
+    ap.add_argument("--plain", action="store_true",
+                    help="cold-lanes: the loop on the plain version")
+    ap.add_argument("--knob", action="store_true",
+                    help="cold-lanes: the knob's own configuration")
+    ap.add_argument("--out")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--paths", nargs="*", default=list(BAND_LANES))
+    ap.add_argument("--copies", default="96")
+    ap.add_argument("--procs", type=int, default=1)
+    ap.add_argument("--judge", nargs="*", default=())
+    ap.add_argument("--lanes", type=int, default=B_GENERAL)
+    ap.add_argument("--steps", type=int, default=STEPS)
+    a = ap.parse_args(argv)
+    sys.path.insert(0, str(ROOT))
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if a.name == "band-chunk":
+        k0, k1 = (int(v) for v in a.copies.split(","))
+        print(json.dumps(band_runs(a.paths[0], k0, k1, a.device)))
+        return 0
+    if a.device == "cuda" and not a.judge and not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    out = Path(a.out)
+    t0 = time.perf_counter()
+    if a.name == "f32-band":
+        rep = measure_f32_band(out, a.device, a.paths, int(a.copies),
+                               a.procs, a.judge)
+    elif a.name == "cold-lanes":
+        rep = measure_cold_lanes(out, a.device, a.lanes, a.steps, a.plain,
+                                 a.knob)
+    elif a.name == "qp-trace":
+        rep = measure_qp_trace(out, Path(a.qps), a.device)
+    elif a.name == "shadow":
+        rep = measure_shadow(out, a.device, a.steps, a.paths)
+    else:
+        rep = measure_time_general(out)
+    smi = smi_line() if a.device == "cuda" and not a.judge else "cpu"
+    rep = {"measure": a.name, "smi": smi, "seconds":
+           time.perf_counter() - t0, "report": rep}
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(rep) + "\n")
+    brief = {k: v for k, v in rep["report"].items() if k not in
+             ("reports", "solves")} if isinstance(rep["report"], dict) \
+        else rep["report"]
+    print(f"{a.name}: {json.dumps(brief)[:4000]} | {smi}", flush=True)
+    return 0
+
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(measure(sys.argv[2:]) if sys.argv[1:2] == ["--measure"]
+             else main())

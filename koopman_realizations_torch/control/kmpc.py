@@ -47,7 +47,8 @@ from koopman_realizations_torch.ops.kernels.ipm_factored import (
     solve_qp_factored,
 )
 from koopman_realizations_torch.ops.kernels.ipm_shared import (
-    solve_qp_shared,
+    shared_operands,
+    solve_shared_operands,
 )
 from koopman_realizations_torch.ops.kernels.nmpc_multipass import (
     solve_qp_nmpc_multipass,
@@ -86,6 +87,7 @@ from koopman_realizations_torch.ops.qp import (
     generator_live,
     lift_qp_operands,
     row_nonzeros,
+    solve_qp_lane_A,
 )
 
 
@@ -207,6 +209,80 @@ def expected_blocked_keep(cfg: MpcConfig, m: int, Np: int, blocks):
     return np.asarray(idx, np.int64)
 
 
+def dual_shift_perm_blocked(cfg: MpcConfig, m: int, nf: int):
+    """Stage advance of the multipliers of the move-blocked reduced rows
+    (``dual_shift_perm_blocked``, kmpc.py:185-211): bounds nf groups x 2m
+    rows, slope nf blocks x 2m, each block seeded from the next group's
+    (the last from itself)."""
+    idx, base = [], 0
+    for on in (cfg.input_bounds is not None,
+               cfg.input_slopeConst is not None):
+        if not on:
+            continue
+        for k in range(nf):
+            src = min(k + 1, nf - 1)
+            idx.extend(range(base + src * 2 * m, base + (src + 1) * 2 * m))
+        base += nf * 2 * m
+    return np.asarray(idx, np.int64)
+
+
+def dual_shift_perm(cfg: MpcConfig, m: int, Np: int):
+    """Stage advance of the multipliers of the unblocked input rows
+    (``dual_shift_perm``, kmpc.py:214-237): a stage-k row of each block
+    (bounds over stages 1..Np-1, slope over differences 0..Np-2,
+    smoothness over 0..Np-3, 2m rows a stage) is seeded from the old
+    stage-(k+1) row, the last stage from itself."""
+    idx, base = [], 0
+    for on, stages in ((cfg.input_bounds is not None, Np - 1),
+                       (cfg.input_slopeConst is not None, Np - 1),
+                       (cfg.input_smoothConst is not None, Np - 2)):
+        if not on:
+            continue
+        for k in range(stages):
+            src = min(k + 1, stages - 1)
+            idx.extend(range(base + src * 2 * m, base + (src + 1) * 2 * m))
+        base += stages * 2 * m
+    return np.asarray(idx, np.int64)
+
+
+def state_bound_values(cfg: MpcConfig, n: int, scaler):
+    """(lo, hi) (n,) of ``cfg.state_bounds`` in scaled units: one (lo,
+    hi) pair for every output or a pair each (kmpc.py:252-258,
+    786-792)."""
+    sb = np.asarray(cfg.state_bounds, float)
+    if sb.ndim == 1:
+        sb = np.tile(sb, (n, 1))
+    return (np.asarray(scaler.y_down(sb[:, 0]), float),
+            np.asarray(scaler.y_down(sb[:, 1]), float))
+
+
+def state_constraint_rows(cfg: MpcConfig, n: int, NL: int, Np: int, scaler):
+    """(E, c) rows bounding the first n lifted coordinates of the stacked
+    prediction [z_0; ..; z_Np] (``state_constraint_rows``, kmpc.py:
+    240-265): stages 2..Np, each [-sel; sel] with [-lo; hi] (the k=0 and
+    k=1 blocks have no coefficient in the reduced decision)."""
+    if cfg.state_bounds is None:
+        return np.zeros((0, NL * (Np + 1))), np.zeros((0,))
+    lo, hi = state_bound_values(cfg, n, scaler)
+    E_rows, c_rows = [], []
+    for k in range(2, Np + 1):
+        sel = np.zeros((n, NL * (Np + 1)))
+        sel[:, k * NL:k * NL + n] = np.eye(n)
+        E_rows += [-sel, sel]
+        c_rows += [-lo, hi]
+    return np.concatenate(E_rows, axis=0), np.concatenate(c_rows)
+
+
+def toeplitz_stack(pp: np.ndarray, Np: int) -> np.ndarray:
+    """(Np+1, Np, ...) with [i, j] = pp[i-1-j] for i > j, else zero (the
+    pre-gathered block-Toeplitz powers, kmpc.py:797-803)."""
+    out = np.zeros((Np + 1, Np) + pp.shape[1:], pp.dtype)
+    for i in range(Np + 1):
+        for j in range(min(i, Np)):
+            out[i, j] = pp[i - 1 - j]
+    return out
+
+
 def bilinear_generators(model, q_diag, proj_idx, Np: int, m: int, Tb=None):
     """The bilinear controller's assembly constants (f64,
     ``BilinearKmpc.__init__``, kmpc.py:770-861): the projected powers
@@ -224,10 +300,7 @@ def bilinear_generators(model, q_diag, proj_idx, Np: int, m: int, Tb=None):
     for _ in range(Np):
         powers.append(powers[-1] @ A)
     PA = np.stack([projmtx @ p for p in powers])          # (Np+1, nproj, NL)
-    PAt = np.zeros((Np + 1, Np, nproj, NL))
-    for i in range(Np + 1):
-        for j in range(min(i, Np)):
-            PAt[i, j] = PA[i - 1 - j]
+    PAt = toeplitz_stack(PA, Np)
     p_rows = (Np + 1) * nproj
     Bm64 = np.asarray(model.B, np.float64)
     G64 = np.einsum("ijrb,bmq->irjmq", PAt, Bm64).reshape(p_rows, Np * m, NL)
@@ -282,25 +355,26 @@ class _KmpcBase(nn.Module):
     with delays), input blocks without smoothness, or no blocks with or
     without smoothness (the blocked JAX controller refuses smoothness
     too); loaded models (nw > 0) without delays, whose lifted state is
-    [g; w1 g; ...] of the scaled load estimate (``lift``).  State bounds
-    and the dual stage shift raise (ROADMAP.md queue 1, item 5).
+    [g; w1 g; ...] of the scaled load estimate (``lift``); the dual stage
+    shift of carried multipliers (``shift_lam``); state bounds on
+    unblocked stacks (the linear and bilinear controllers; blocked
+    stacks refuse them, as the JAX base does, kmpc.py:334-338).
     """
 
     def __init__(self, model, scaler, cfg: MpcConfig, device, dtype):
         super().__init__()
         dev = resolve_device(device)
         basis = model.basis
-        if cfg.state_bounds is not None or cfg.qp_dual_shift:
-            raise NotImplementedError(
-                "state bounds and the dual stage shift are not ported "
-                "(ROADMAP.md queue 1, item 5)")
         if model.meta.nw and model.meta.nd:
             raise NotImplementedError(
                 "loaded models with delays are not ported (ROADMAP.md "
                 "queue 1, item 7)")
-        if cfg.input_blocks is not None and cfg.input_smoothConst is not None:
+        if cfg.input_blocks is not None and (
+                cfg.input_smoothConst is not None
+                or cfg.state_bounds is not None):
             raise NotImplementedError(
-                "input_blocks with input_smoothConst is not supported")
+                "input_blocks with input_smoothConst/state_bounds is not "
+                "supported")
         self.model = model
         self.meta = meta = model.meta
         self.scaler = scaler
@@ -340,6 +414,20 @@ class _KmpcBase(nn.Module):
         self.band = band_offset_of(self.F_red)
         self.dense_cols = () if self.band is not None else \
             row_nonzeros(self.F_red)[0]
+        # the receding-horizon stage shift of carried multipliers
+        # (``qp_dual_shift``, kmpc.py:356-376): a row permutation of the
+        # input rows, extended with the identity over state-bound rows
+        # (``extend_dual_shift``) once the controller knows its rows
+        self.dual_shift = None
+        if cfg.qp_dual_shift and F.shape[0]:
+            self.dual_shift = dual_shift_perm_blocked(
+                cfg, m, len(cfg.input_blocks)) if self.blocked \
+                else dual_shift_perm(cfg, m, Np)
+            if self.dual_shift.size != self.F_red.shape[0]:
+                raise AssertionError(
+                    f"dual shift layout drift: the permutation covers "
+                    f"{self.dual_shift.size} rows, the stack has "
+                    f"{self.F_red.shape[0]}")
         # the poly recurrence's tables: the lift-fused kernels and the
         # analytic NMPC take them (a single poly family)
         self.tables_host = ()
@@ -368,6 +456,24 @@ class _KmpcBase(nn.Module):
     @property
     def n_con(self) -> int:
         return self.cF_red.size
+
+    def extend_dual_shift(self, n_con: int):
+        """The dual shift as a device index tensor over all ``n_con``
+        rows, state-bound rows keeping their own multiplier
+        (``_extend_dual_shift``, kmpc.py:378-387)."""
+        if self.dual_shift is None:
+            return
+        perm = np.concatenate([self.dual_shift,
+                               np.arange(self.dual_shift.size, n_con)])
+        self.register_buffer("shift_idx", torch.as_tensor(
+            perm, dtype=torch.long, device=self.device))
+
+    def shift_lam(self, lam0):
+        """A carried dual start (mc, B) advanced one stage
+        (``_shift_lam``, kmpc.py:389-393); as it is without the shift."""
+        if lam0 is None or self.dual_shift is None:
+            return lam0
+        return lam0[self.shift_idx]
 
     @property
     def dtype(self) -> torch.dtype:
@@ -467,6 +573,8 @@ class BilinearKmpc(_KmpcBase):
                 "controller, NonlinearKmpc; see make_kmpc)")
         super().__init__(model, scaler, cfg, device, dtype)
         m = self.m
+        self.has_sb = cfg.state_bounds is not None
+        self.extend_dual_shift(self.n_con)
         # Tb^T diag(Rd) Tb is diagonal (disjoint groups)
         self.RdT = self.Tb.T @ self.r_diag[m:] if self.blocked \
             else self.r_diag[m:]
@@ -515,6 +623,32 @@ class BilinearKmpc(_KmpcBase):
                 self.Tb.shape[1], m)
         else:
             self.register_buffer("PG_t", t(g["PG"]))
+        if self.has_sb:
+            # the state-bound rows' operands (kmpc.py:779-822): EA[k] =
+            # (A^k)[:n] and its block-Toeplitz gather, the bounds in
+            # scaled units, the full input rows and cost diagonals
+            A64 = np.asarray(model.A, np.float64)
+            powers = [np.eye(NL)]
+            for _ in range(Np):
+                powers.append(powers[-1] @ A64)
+            EA = np.stack([pw[:self.n] for pw in powers])   # (Np+1, n, NL)
+            EAt = toeplitz_stack(EA, Np)
+            lo, hi = state_bound_values(cfg, self.n, scaler)
+            for k, v in (("EA_t", EA.reshape(-1, NL)),
+                         ("EAt_t", EAt.transpose(1, 0, 2, 3)
+                          .reshape(Np, (Np + 1) * self.n, NL)),
+                         ("sb_lo_t", np.tile(lo, Np - 1)),
+                         ("sb_hi_t", np.tile(hi, Np - 1)),
+                         ("Fr_t", self.F_red), ("Qd_t", self.q_diag),
+                         ("Rd_t", self.r_diag)):
+                self.register_buffer(k, t(v))
+
+    @property
+    def n_con(self) -> int:
+        """The reduced QP's rows: the input rows, and with state bounds
+        2 n (Np - 1) more (kmpc.py:906-913)."""
+        return self.cF_red.size + (2 * self.n * (self.Np - 1)
+                                   if getattr(self, "has_sb", False) else 0)
 
     def lift_qp(self) -> LiftQP:
         """The lift-fused QP operands as a ``LiftQP`` view of this
@@ -544,10 +678,15 @@ class BilinearKmpc(_KmpcBase):
         lifts them), else (NL, B) the lifted states; u_prev (m, B) the
         scaled previous input, sqYr (p,) or (p, B) the sqrt(Q)-scaled
         reference window, U_plan (Np*m, B) the previous plan, lam0 (mc, B)
-        the previous multipliers (None: cold).  Returns the plan
-        U (Np*m, B) and the last QP's ``QPSolution``."""
+        the previous multipliers (None: cold), advanced one stage first
+        with ``qp_dual_shift``.  Returns the plan U (Np*m, B) and the last
+        QP's ``QPSolution``.  With state bounds every QP has its own
+        Hessian and rows a lane (``state_bound_qp``) and is solved by
+        ``ops/qp.py:solve_qp_lane_A`` (the JAX package's
+        ``solve_qp(shared_A=False)``, which never reaches Pallas)."""
         cfg = self.cfg
         x0 = self.warm_start(U_plan)
+        lam0 = self.shift_lam(lam0)
         if self.lift_fused:
             sol = solve_qp_bilinear_lifted(self.lift_qp(), z, u_prev, sqYr,
                                            x0=x0, lam0=lam0,
@@ -555,7 +694,14 @@ class BilinearKmpc(_KmpcBase):
             return self.plan(u_prev, sol.x), sol
         lam, betas = lam0, None
         for it in range(cfg.bilinear_iters):
-            if it == 0 and self.blocked:
+            if self.has_sb:
+                if betas is None:
+                    beta = (self.Bm_t @ z).reshape(self.NL, self.m, -1)
+                    betas = beta.expand(self.Np, *beta.shape)
+                sol = solve_qp_lane_A(*self.state_bound_qp(
+                    z, u_prev, sqYr, betas), iters=cfg.qp_iters, x0=x0,
+                    lam0=lam)
+            elif it == 0 and self.blocked:
                 sol = solve_qp_bilinear(self.bilin_qp(), z, u_prev, sqYr,
                                         x0=x0, lam0=lam, iters=cfg.qp_iters)
             else:
@@ -568,6 +714,40 @@ class BilinearKmpc(_KmpcBase):
             if it + 1 < cfg.bilinear_iters:
                 betas = self.roll(z, U)[1]
         return U, sol
+
+    def state_bound_qp(self, z, u_prev, sqYr, betas):
+        """The reduced QP with state-bound rows of every lane
+        (``bilinear_solve_pure``'s ``has_sb`` branch, kmpc.py:645-664,
+        671-687): CB and the bounded coordinates' EW block-Toeplitz in the
+        stage Betas ``betas`` (Np, NL, m, B), P = 2 (CB^T Q CB +
+        diag(Rd)), f = 2 CB^T Q (CA z - Yr), rows [F; -EW; EW] with
+        b = [cF; zn - lo; hi - zn] (zn the free response of the bounded
+        coordinates, stages 2..Np), then u_0 pinned to u_prev.  Returns
+        (Pz (n, n, B), fz (n, B), Az (mc, n, B), bz (mc, B))."""
+        m, n, Np, B = self.m, self.n, self.Np, z.shape[1]
+        CB = torch.einsum("jrb,jbmB->rjmB", self.PAt_t, betas) \
+            .reshape(self.p, Np * m, B)
+        EW = torch.einsum("jrb,jbmB->rjmB", self.EAt_t, betas) \
+            .reshape((Np + 1) * n, Np * m, B)[2 * n:]
+        sq = self.sqq_t[:, None]
+        sq_ref = sqYr if sqYr.ndim == 2 else sqYr[:, None]
+        e = sq * (sq * (self.PA_t @ z) - sq_ref)          # Q (CA z - Yr)
+        CBb = CB.permute(2, 0, 1).contiguous()              # (B, p, Np m)
+        H = ((CBb * self.Qd_t[:, None]).transpose(1, 2) @ CBb).permute(
+            1, 2, 0) + torch.diag(self.Rd_t)[..., None]
+        P = 2.0 * H
+        f = 2.0 * torch.einsum("rib,rb->ib", CB, e)
+        zn = (self.EA_t @ z)[2 * n:]
+        Fz = torch.cat([self.F0_t, self.Fr_t], dim=1)
+        L = torch.cat([Fz[..., None].expand(*Fz.shape, B), -EW, EW])
+        b = torch.cat([self.cF_t[:, None].expand(-1, B),
+                       zn - self.sb_lo_t[:, None],
+                       self.sb_hi_t[:, None] - zn])
+        Pz = P[m:, m:]
+        fz = f[m:] + torch.einsum("ijb,jb->ib", P[m:, :m], u_prev)
+        bz = b - torch.einsum("cjb,jb->cb", L[:, :m], u_prev)
+        return (Pz.contiguous(), fz.contiguous(), L[:, m:].contiguous(),
+                bz.contiguous())
 
     def roll(self, z, U):
         """The lifted states z_0 .. z_{Np-1} (Np, NL, B) under the plan U
@@ -609,24 +789,28 @@ class BilinearKmpc(_KmpcBase):
 
 class LinearKmpc(_KmpcBase):
     """Linear-model MPC with static condensed matrices (``LinearKmpc``,
-    kmpc.py:426-523), blocked form: the decision is [u_0 | one move per
-    group] with u_0 pinned to the previous input and eliminated, so the
-    QP has the lane-shared Hessian P22 of 2H and per-lane gradients.
-    Beyond the blocked configuration of ``_KmpcBase``, its duals start
-    cold every step (``qp_dual_warm`` is not ported for it).
+    kmpc.py:426-523): the decision is [u_0 | one move per group] (blocked)
+    or the whole stack [u_0 .. u_{Np-1}] (unblocked), u_0 pinned to the
+    previous input and eliminated, so the QP has the lane-shared Hessian
+    P22 of 2H, lane-shared rows L[:, m:] and per-lane gradients and
+    right-hand sides b = c - M z.  Unblocked, the rows may bound the first
+    n lifted coordinates of the prediction (``state_constraint_rows``):
+    L = [F; E Bbig], M = [0; E Abig] (kmpc.py:461-467), the A^T D A then
+    dense.  The duals start cold, or from the previous step's multipliers
+    (``qp_dual_warm``, with ``qp_dual_shift`` advanced one stage): the
+    ``ipm_shared`` kernel's lane-shared build of each (JAX: the Pallas
+    ``_ipm_kernel`` with ``warm_dual``, ops/qp.py:133-146).
 
     Host constants (f64 numpy, as the JAX package): ``CA``, ``CB`` (with
-    Tfull = blockdiag(I_m, Tb) folded in), ``H``, ``L`` = [F0_red | F_red],
-    ``Mc`` = 0 and ``c`` = cF_red.
+    Tfull = blockdiag(I_m, Tb) folded in when blocked), ``H``, ``L``
+    ([F0_red | F_red] blocked), ``Mc`` and ``c``.
     """
 
     def __init__(self, model, scaler, cfg: MpcConfig, device="cuda",
                  dtype=torch.float32):
-        if model.meta.model_type != "linear" or cfg.qp_dual_warm \
-                or cfg.mpc_type not in (None, "linear") \
-                or cfg.input_blocks is None:
-            raise NotImplementedError(
-                "LinearKmpc takes a linear model, blocked, with cold duals")
+        if model.meta.model_type != "linear" \
+                or cfg.mpc_type not in (None, "linear"):
+            raise NotImplementedError("LinearKmpc takes a linear model")
         super().__init__(model, scaler, cfg, device, dtype)
         A = np.asarray(model.A)
         B = np.asarray(model.B)
@@ -642,22 +826,52 @@ class LinearKmpc(_KmpcBase):
                 Bbig[i * NL:(i + 1) * NL, j * m:(j + 1) * m] = \
                     powers[i - 1 - j] @ B
         Cbig = np.kron(np.eye(Np + 1), self.projmtx)
-        Tfull = np.zeros((Np * m, m + self.Tb.shape[1]))
-        Tfull[:m, :m] = np.eye(m)
-        Tfull[m:, m:] = self.Tb
         self.CA = Cbig @ Abig
-        self.CB = (Cbig @ Bbig) @ Tfull
-        self.L = np.concatenate([self.F0_red, self.F_red], axis=1)
-        self.Mc = np.zeros((self.L.shape[0], NL))
-        self.c = self.cF_red
-        self.H = self.CB.T @ (self.q_diag[:, None] * self.CB) + np.diag(
-            np.concatenate([self.r_diag[:m], self.Tb.T @ self.r_diag[m:]]))
+        self.CB = Cbig @ Bbig
+        if self.blocked:
+            Tfull = np.zeros((Np * m, m + self.Tb.shape[1]))
+            Tfull[:m, :m] = np.eye(m)
+            Tfull[m:, m:] = self.Tb
+            self.CB = self.CB @ Tfull
+            self.L = np.concatenate([self.F0_red, self.F_red], axis=1)
+            self.Mc = np.zeros((self.L.shape[0], NL))
+            self.c = self.cF_red
+            rd = np.concatenate([self.r_diag[:m], self.Tb.T @ self.r_diag[m:]])
+        else:
+            E, cE = state_constraint_rows(cfg, self.n, NL, Np, scaler)
+            self.L = np.concatenate([self.F, E @ Bbig], axis=0)
+            self.Mc = np.concatenate([np.zeros((self.F.shape[0], NL)),
+                                      E @ Abig], axis=0)
+            self.c = np.concatenate([self.cF, cE])
+            rd = self.r_diag
+        self.H = self.CB.T @ (self.q_diag[:, None] * self.CB) + np.diag(rd)
+        if not self.blocked:
+            # bitwise symmetric, as the kernel reads one triangle of P22
+            self.H = 0.5 * (self.H + self.H.T)
+        if not self.blocked and cfg.state_bounds is not None:
+            # the QP's rows are L[:, m:]: the input rows and the
+            # state-bound rows, whose A^T D A is dense (kmpc.py:354-355)
+            Lz = self.L[:, m:]
+            self.band = None
+            self.dense_cols = row_nonzeros(Lz)[0]
+            row, A_eq, Wd, Wo = constraint_tables(Lz, None)
+            t = lambda a: torch.as_tensor(np.ascontiguousarray(a),
+                                          dtype=dtype, device=self.device)
+            for k, v in (("A", A_eq), ("row", row), ("Wd", Wd),
+                         ("Wo", Wo)):
+                self.register_buffer(k, t(v))
+        self.extend_dual_shift(self.n_con)
 
         t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                       device=self.device)
         for k in ("CA", "CB", "H", "L", "Mc", "c"):
             self.register_buffer(k + "_t", t(getattr(self, k)))
         self.register_buffer("Qd_t", t(self.q_diag))
+
+    @property
+    def n_con(self) -> int:
+        """The reduced QP's rows, the state-bound rows included."""
+        return self.c.size if hasattr(self, "c") else self.cF_red.size
 
     def eliminate_u0(self, P, f, b, u0):
         """Pin the first input block to u0 and reduce the QP
@@ -667,20 +881,29 @@ class LinearKmpc(_KmpcBase):
         return (P[m:, m:], f[m:] + P[m:, :m] @ u0,
                 b - self.L_t[:, :m] @ u0)
 
-    def solve(self, z, u_prev, Yr, U_plan):
-        """One batched MPC solve (``LinearKmpc.solve``), lanes-minor:
+    def qp_args(self, z, u_prev, Yr, U_plan, lam0=None) -> tuple:
+        """The equilibrated ``ipm_shared`` arguments of one solve's reduced
+        QP and its objective scale (``shared_operands``), lanes-minor:
         z (NL, B) lifted states, u_prev (m, B) the scaled previous input,
         Yr (p,) or (p, B) the scaled reference window, U_plan (Np*m, B)
-        the previous plan.  Returns the plan U (Np*m, B) and the
-        ``QPSolution``."""
+        the previous plan, lam0 (mc, B) the previous multipliers in
+        original units (None: cold), advanced one stage with
+        ``qp_dual_shift``."""
         Yr = Yr if Yr.ndim == 2 else Yr[:, None]
         # f = 2 CB^T Q (CA z - Yr)
         f = 2.0 * self.CB_t.T @ (self.Qd_t[:, None] * (self.CA_t @ z - Yr))
         b = self.c_t[:, None] - self.Mc_t @ z
         Pz, fz, bz = self.eliminate_u0(2.0 * self.H_t, f, b, u_prev)
-        sol = solve_qp_shared(Pz, fz, self.constraints(), bz,
-                              x0=self.warm_start(U_plan),
-                              iters=self.cfg.qp_iters)
+        return shared_operands(Pz, fz, self.constraints(), bz,
+                               x0=self.warm_start(U_plan),
+                               iters=self.cfg.qp_iters,
+                               lam0=self.shift_lam(lam0))
+
+    def solve(self, z, u_prev, Yr, U_plan, lam0=None):
+        """One batched MPC solve (``LinearKmpc.solve``) of ``qp_args``'
+        QP.  Returns the plan U (Np*m, B) and the ``QPSolution``."""
+        sol = solve_shared_operands(*self.qp_args(z, u_prev, Yr, U_plan,
+                                                  lam0))
         return self.plan(u_prev, sol.x), sol
 
 
@@ -789,8 +1012,9 @@ class NonlinearKmpc(_KmpcBase):
       route ('linear': ``ipm_factored``).
 
     Not ported, each raising ``NotImplementedError``: unblocked stacks and
-    state bounds (``_KmpcBase``); loaded models raise as in the JAX
-    package.
+    state bounds (ROADMAP.md queue 1, item 4); loaded models raise as in
+    the JAX package.  ``qp_dual_shift`` changes nothing here: the NMPC
+    carries no duals across steps (as in the JAX package).
 
     Host constants (f64 numpy, as the JAX package): the composed maps
     ``A1``, ``A2``, ``a0``; the Jacobian generator ``G`` and ``pos_x``;
@@ -811,10 +1035,12 @@ class NonlinearKmpc(_KmpcBase):
             raise ValueError(
                 "NonlinearKmpc takes a nonlinear model, or a bilinear one "
                 "with mpc_type='nonlinear'")
-        if cfg.sqp_iters < 1 or cfg.input_blocks is None:
+        if cfg.sqp_iters < 1:
+            raise NotImplementedError("sqp_iters < 1")
+        if cfg.input_blocks is None or cfg.state_bounds is not None:
             raise NotImplementedError(
-                "NonlinearKmpc: unblocked stacks are not ported"
-                if cfg.sqp_iters >= 1 else "sqp_iters < 1")
+                "NonlinearKmpc: unblocked stacks and state bounds are not "
+                "ported (ROADMAP.md queue 1, item 4)")
         super().__init__(model, scaler, cfg, device, dtype)
         m, n, Np = self.m, self.n, self.Np
         self.nz = self.meta.nzeta

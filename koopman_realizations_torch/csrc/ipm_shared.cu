@@ -5,8 +5,10 @@
 // Replaces the TPU kernel _ipm_kernel (koopman_realizations_tpu/ops/
 // pallas/qp_ipm.py:299, called at :529 by solve_qp_shared_batched) in
 // its two dense-objective modes, one build each:
-// - lane-shared P (shared_P=True, :368-374; banded A^T D A, cold duals),
-//   the mode the linear controller's general runner reaches:
+// - lane-shared P (shared_P=True, :368-374; banded or dense A^T D A,
+//   cold duals, or warm with KM_WARM_DUAL: JAX's LinearKmpc with
+//   qp_dual_warm passes lam0, kmpc.py:515-518, ops/qp.py:139-146), the
+//   mode the linear controller's general runner reaches:
 //     min 1/2 x' Psh x + q' x  s.t.  A x <= b
 //   with Psh (n, n) the host-equilibrated Hessian P / obj;
 // - per-lane P (KM_LANE_P, shared_P=False, :375-379; banded or dense
@@ -41,7 +43,9 @@
 //   diagonal, once a block in shared memory (kl::BlockHessian, as the
 //   linear step), every group's Hessian; Psh must be symmetric in f32 (the
 //   plain version reads all of it; the wrapper checks it once a call).
-//   Cold duals, the slack floor from the wrapper.
+//   Cold duals, or (KM_WARM_DUAL) kl::LaneDuals with obj = 1 in the lane
+//   region (lam0 comes scaled by row * iobj, as the per-lane build's);
+//   the slack floor from the wrapper.
 // - Per-lane P: before each round the block stages the round's lanes' P
 //   into their groups' work regions, scaled as P * iobj + reg I: a run of
 //   consecutive threads reads one entry (i, j) of consecutive lanes, so
@@ -74,6 +78,8 @@ struct IpmSharedArgs {
 #if defined(KM_LANE_P) && KM_LANE_P
   const float* iobj;   // (B) 1 / max |P| of the lane
   const float* lam0;   // (KM_MC, B) dual start * row * iobj, or null (cold)
+#elif defined(KM_WARM_DUAL) && KM_WARM_DUAL
+  const float* lam0;   // (KM_MC, B) dual start * row * iobj
 #endif
   long long B;
   int iters;
@@ -127,6 +133,8 @@ struct SharedLanes {
 #if defined(KM_LANE_P) && KM_LANE_P
     H[KG_L_OBJ] = 1.0f;
     H[KG_L_IOBJ] = a.iobj[bl];
+#elif defined(KM_WARM_DUAL) && KM_WARM_DUAL
+    H[KG_L_OBJ] = 1.0f;
 #endif
   }
   __device__ __forceinline__ void solve(const kg::Shared& sh, float* sm,
@@ -146,7 +154,12 @@ struct SharedLanes {
     kl::solve_lane_from(nullptr, a.B, a.iters, kl::LaneRhs{a.b, a.B}, sh, sm,
                         ql, grp, g, a.slack_floor, kl::BlockHessian{a.Psh},
                         kg::SymmetricHessian{}, kl::LaneGradient{a.q, a.B},
-                        kl::ColdDuals{}, kl::StoreRows{a.s, a.lam, a.B});
+#if defined(KM_WARM_DUAL) && KM_WARM_DUAL
+                        kl::LaneDuals{a.lam0, a.B},
+#else
+                        kl::ColdDuals{},
+#endif
+                        kl::StoreRows{a.s, a.lam, a.B});
 #endif
   }
   __device__ __forceinline__ void store(const float* H, long long b) const {

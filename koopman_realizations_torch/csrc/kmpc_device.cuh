@@ -629,7 +629,9 @@ __device__ __forceinline__ void sdirk2_stage(const float (&xb)[KM_NX],
 
 // SDIRK2 over one control period in place (sdirk2_rows): gamma =
 // 1 - 1/sqrt(2), chord Newton with the Jacobian taken once per period
-// (jac_mode 'step').
+// (jac_mode 'step'), or at the start of every substep (KM_JAC_SUBSTEP,
+// jac_mode 'substep': arm_lanes.py:293-302 of the JAX package, the
+// plain models/arm_lanes.py's 'substep' branch).
 __device__ __forceinline__ void sdirk2(float (&x)[KM_NX], const float (&u)[KM_M],
                                        float w1, float w2) {
   const float gamma = 1.0f - kdiv(1.0f, ksqrt(2.0f));
@@ -637,9 +639,14 @@ __device__ __forceinline__ void sdirk2(float (&x)[KM_NX], const float (&u)[KM_M]
   const float omg = 1.0f - gamma;
   const float omg_dt = omg * KM_DT;
   float M[KM_NX][KM_NX], L[KM_NX][KM_NX];
+#if !(defined(KM_JAC_SUBSTEP) && KM_JAC_SUBSTEP)
   sdirk2_factor(x, u, w1, w2, gdt, M, L);
+#endif
 #pragma unroll 1
   for (int sub = 0; sub < KM_SUBSTEPS; ++sub) {
+#if defined(KM_JAC_SUBSTEP) && KM_JAC_SUBSTEP
+    sdirk2_factor(x, u, w1, w2, gdt, M, L);
+#endif
     float k1[KM_NX], k2[KM_NX], xb[KM_NX];
     arm_rhs<float>(x, u, w1, w2, k1);
     sdirk2_stage(x, u, w1, w2, gdt, M, L, k1);
@@ -654,9 +661,15 @@ __device__ __forceinline__ void sdirk2(float (&x)[KM_NX], const float (&u)[KM_M]
   }
 }
 
-// Marker outputs from the joint angles (Arm.get_y): xy of every
-// nlinks-th joint, origin dropped.
+// The outputs from the joint angles (Arm.get_y): the angles as they are
+// (KM_ANGLES, output_type 'angles', KM_NY = KM_NL; _markers_rows,
+// ops/pallas/step_fused.py:61-70 of the JAX package), else the markers:
+// xy of every nlinks-th joint, origin dropped.
 __device__ __forceinline__ void arm_outputs(const float (&x)[KM_NX], float (&y)[KM_NY]) {
+#if defined(KM_ANGLES) && KM_ANGLES
+#pragma unroll
+  for (int j = 0; j < KM_NL; ++j) y[j] = x[j];
+#else
   float th = 0.0f, rx = 0.0f, ry = 0.0f;
   int o = 0;
 #pragma unroll
@@ -671,6 +684,7 @@ __device__ __forceinline__ void arm_outputs(const float (&x)[KM_NX], float (&y)[
       y[o++] = ry;
     }
   }
+#endif
 }
 
 // Lanes-minor carries of the fused step kernels

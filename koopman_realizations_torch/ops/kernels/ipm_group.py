@@ -372,9 +372,12 @@ def _one_round(plan: GroupPlan, **kw) -> GroupPlan:
 def shared_plan(cons: Constraints) -> GroupPlan:
     """``ipm_shared``'s lane-shared build: the solve alone, one round of
     lanes a block, the Hessian one copy a block, the lane region
-    [x][obj]."""
-    return _one_round(_compact_plan(cons, 0, SHARED_GROUP, SHARED_MIN_BLOCKS,
-                                    ()))
+    [x][obj]; wide (the linear controller's unblocked n=27) a warp a
+    lane with no bound on the blocks an SM, as the per-lane-P build."""
+    wide = cons.n >= WIDE_N
+    return _one_round(_compact_plan(
+        cons, 0, 32 if wide else SHARED_GROUP,
+        0 if wide else SHARED_MIN_BLOCKS, ()))
 
 
 def lane_p_plan(cons: Constraints) -> GroupPlan:

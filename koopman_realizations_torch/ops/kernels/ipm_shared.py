@@ -9,7 +9,11 @@ dense-objective modes, reached through ``solve_qp_shared_batched``
 - lane-shared P (``shared_P=True``), when ``LinearKmpc.solve``
   (``control/kmpc.py:492-522``) runs over a batch of lanes: the Mehrotra
   loop against a host-equilibrated Hessian P / obj shared by every lane,
-  the banded A^T D A, cold duals;
+  the banded or (with state-bound rows) dense A^T D A, cold duals, or
+  with ``qp_dual_warm`` the previous step's multipliers (the
+  ``KM_WARM_DUAL`` build: JAX ``LinearKmpc.solve`` passes ``lam0`` to
+  ``solve_qp``, kmpc.py:515-518, which reaches the kernel with
+  ``warm_dual=True``, ops/qp.py:139-146);
 - per-lane P (``shared_P=False``, the ``KM_LANE_P`` build), when the
   Hessian is batched with the rows lane-shared (the port's entry is
   ``ops/qp.py:solve_qp``, which the closed-loop lasso sweep calls,
@@ -32,7 +36,8 @@ is ``ops/kernels/ipm_factored.py``.
 CUDA tensors it launches the kernel or raises.  ``solve_qp_shared`` adds
 the JAX wrapper's equilibration and epilogue (objective scale, row scale,
 slack floor, dual start, ok mask, non-finite x to NaN, multipliers in
-original units).
+original units); ``shared_operands`` gives the kernel's arguments
+alone.
 """
 
 from __future__ import annotations
@@ -95,6 +100,17 @@ class IpmLanePArgs(ctypes.Structure):
     _fields_ = _args_fields(True)
 
 
+class IpmWarmArgs(ctypes.Structure):
+    """The arguments of a lane-shared ``KM_WARM_DUAL`` build: lam0 after
+    lam."""
+
+    _fields_ = ([("con", ConsStruct)]
+                + [(k, ctypes.c_void_p) for k in
+                   ("Psh", "q", "b", "x0", "x", "s", "lam", "lam0")]
+                + [("B", ctypes.c_longlong), ("iters", ctypes.c_int),
+                   ("slack_floor", ctypes.c_float)])
+
+
 def cons_config(cons: Constraints) -> str:
     """``#define`` lines of the interior point's dimensions: the band
     offset, or -1 with the rows' nonzero count for the dense A^T D A (its
@@ -115,17 +131,20 @@ def launch_plan(cons: Constraints, lane_p: bool = False) -> GroupPlan:
     return lane_p_plan(cons) if lane_p else shared_plan(cons)
 
 
-def kernel_spec(cons: Constraints, lane_p: bool = False) -> _build.KernelSpec:
+def kernel_spec(cons: Constraints, lane_p: bool = False,
+                warm: bool = False) -> _build.KernelSpec:
     """One build per constraint shape and Hessian mode (lane-shared, or
-    per lane with ``lane_p``)."""
-    return _spec(cons, lane_p, launch_plan(cons, lane_p))
+    per lane with ``lane_p``); the lane-shared mode has a second build
+    for warm duals (``warm``; the per-lane build takes both)."""
+    return _spec(cons, lane_p, launch_plan(cons, lane_p), warm)
 
 
-def _spec(cons: Constraints, lane_p: bool,
-          plan: GroupPlan) -> _build.KernelSpec:
-    return _build.KernelSpec(SOURCE, cons_config(cons) + (
-        _build.defines(KM_LANE_P=1) if lane_p else "")
-        + plan.config(cons.cols))
+def _spec(cons: Constraints, lane_p: bool, plan: GroupPlan,
+          warm: bool = False) -> _build.KernelSpec:
+    mode = _build.defines(KM_LANE_P=1) if lane_p else \
+        _build.defines(KM_WARM_DUAL=1) if warm else ""
+    return _build.KernelSpec(SOURCE, cons_config(cons) + mode
+                             + plan.config(cons.cols))
 
 
 def check_cuda_f32(*tensors):
@@ -150,8 +169,10 @@ def ipm_shared_cuda(cons: Constraints, Psh, q, b, x0, iters: int,
     symmetric in f32 (the kernel reads its lower triangle;
     ``solve_qp_shared`` checks it), or (n, n, B) the per-lane P with its
     objective scale iobj (B,) (the ``KM_LANE_P`` build, which reads all
-    of each P and alone takes the equilibrated dual start lam0 (mc, B)).
-    Counts its launches in ``ipm_shared_cuda.launches``."""
+    of each P).  lam0 (mc, B), the equilibrated dual start, or None
+    (cold): the per-lane build takes both, the lane-shared P a build of
+    each (``KM_WARM_DUAL``).  Counts its launches in
+    ``ipm_shared_cuda.launches``."""
     return _launch(launch_plan(cons, Psh.ndim == 3), cons, Psh, q, b, x0,
                    iters, slack_floor, iobj, lam0)
 
@@ -169,17 +190,21 @@ def _launch(plan: GroupPlan, cons: Constraints, Psh, q, b, x0, iters: int,
             or x0.shape != (n, B) \
             or (iobj is None) == lane_p \
             or (lane_p and iobj.shape != (B,)) \
-            or (lam0 is not None and (not lane_p or lam0.shape != (mc, B))):
+            or (lam0 is not None and lam0.shape != (mc, B)):
         raise ValueError("ipm_shared: operand shapes do not match the QP")
-    lib = _build.load(_spec(cons, lane_p, plan))
+    warm = lam0 is not None and not lane_p
+    lib = _build.load(_spec(cons, lane_p, plan, warm))
     x = torch.empty((n, B), dtype=q.dtype, device=q.device)
     s = torch.empty((mc, B), dtype=q.dtype, device=q.device)
     lam = torch.empty_like(s)
     ptrs = (Psh.data_ptr(), q.data_ptr(), b.data_ptr(), x0.data_ptr(),
             x.data_ptr(), s.data_ptr(), lam.data_ptr())
-    Args = IpmLanePArgs if lane_p else IpmSharedArgs
+    Args = IpmLanePArgs if lane_p else IpmWarmArgs if warm \
+        else IpmSharedArgs
     if lane_p:
         ptrs += (iobj.data_ptr(), None if lam0 is None else lam0.data_ptr())
+    elif warm:
+        ptrs += (lam0.data_ptr(),)
     args = Args(ConsStruct.of(cons), *ptrs, B, int(iters),
                 float(slack_floor))
     fn = lib.km_ipm_shared
@@ -219,6 +244,50 @@ def ipm_shared(cons: Constraints, Psh, q, b, x0, iters: int,
     return fn(cons, Psh, q, b, x0, iters, slack_floor, iobj, lam0)
 
 
+def shared_operands(P, q, cons: Constraints, b,
+                    x0: Optional[torch.Tensor] = None,
+                    iters: int = 10,
+                    lam0: Optional[torch.Tensor] = None) -> tuple:
+    """The equilibrated arguments that ``solve_qp_shared`` hands
+    ``ipm_shared`` for the same QP (the JAX wrapper's equilibration,
+    qp_ipm.py:411-560): (cons, P / obj or the per-lane P, q / obj,
+    b / row, x0, iters, slack_floor, iobj or None, lam0 in row units / obj
+    or None), and obj (B,)."""
+    lane_p = P.ndim == 3
+    obj = torch.clamp(P.abs().amax((0, 1)), min=1e-8)
+    iobj = 1.0 / obj
+    slack_floor = 1.0 if x0 is None else 1e-2
+    if x0 is None:
+        x0 = torch.zeros_like(q)
+    row = cons.row[:, None]
+    lam0_eq = None if lam0 is None else (lam0 * row * iobj).contiguous()
+    if lane_p:
+        Pk, ik = P.contiguous(), iobj.contiguous()
+    else:
+        Pk, ik = (P * iobj).contiguous(), None
+        # the kernel keeps one copy of Psh's lower triangle a block, the
+        # plain version reads all of it
+        if Pk.dtype == torch.float32 and not symmetric_f32(Pk):
+            raise ValueError("solve_qp_shared: the lane-shared P is not "
+                             "symmetric in f32")
+    return (cons, Pk, (q * iobj).contiguous(), (b / row).contiguous(),
+            x0.contiguous(), iters, slack_floor, ik, lam0_eq), obj
+
+
+def solve_shared_operands(args: tuple, obj) -> QPSolution:
+    """``ipm_shared`` on ``shared_operands``' arguments, with the JAX
+    wrapper's epilogue: the ok mask, non-finite x to NaN, multipliers in
+    original units."""
+    cons, b_eq = args[0], args[3]
+    x, s, lam = ipm_shared(*args)
+    c = qp_constants(b_eq.dtype)
+    ok, gap = ok_mask(cons, b_eq, x, s, lam, c.tol, c.gap_sane)
+    finite = torch.isfinite(x).all(0)
+    x = torch.where(finite, x, torch.full_like(x, float("nan")))
+    return QPSolution(x=x, lam=lam * obj / cons.row[:, None], ok=ok,
+                      gap=gap)
+
+
 def solve_qp_shared(P, q, cons: Constraints, b,
                     x0: Optional[torch.Tensor] = None,
                     iters: int = 10,
@@ -229,32 +298,6 @@ def solve_qp_shared(P, q, cons: Constraints, b,
     lane (``shared_P=False``), q (n, B) and b (mc, B) in original units,
     ``cons`` the row-equilibrated A, x0 (n, B) the primal start (None:
     zeros with the cold slack floor 1), lam0 (mc, B) multipliers in
-    original units (None: cold lam = 1; per-lane P only)."""
-    lane_p = P.ndim == 3
-    if lam0 is not None and not lane_p:
-        raise NotImplementedError("warm duals with a lane-shared Hessian "
-                                  "are not ported")
-    obj = torch.clamp(P.abs().amax((0, 1)), min=1e-8)
-    iobj = 1.0 / obj
-    slack_floor = 1.0 if x0 is None else 1e-2
-    if x0 is None:
-        x0 = torch.zeros_like(q)
-    row = cons.row[:, None]
-    b_eq = (b / row).contiguous()
-    if lane_p:
-        Pk, ik = P.contiguous(), iobj.contiguous()
-        lam0_eq = None if lam0 is None else (lam0 * row * iobj).contiguous()
-    else:
-        Pk, ik, lam0_eq = (P * iobj).contiguous(), None, None
-        # the kernel keeps one copy of Psh's lower triangle a block, the
-        # plain version reads all of it
-        if Pk.dtype == torch.float32 and not symmetric_f32(Pk):
-            raise ValueError("solve_qp_shared: the lane-shared P is not "
-                             "symmetric in f32")
-    x, s, lam = ipm_shared(cons, Pk, (q * iobj).contiguous(), b_eq,
-                           x0.contiguous(), iters, slack_floor, ik, lam0_eq)
-    c = qp_constants(q.dtype)
-    ok, gap = ok_mask(cons, b_eq, x, s, lam, c.tol, c.gap_sane)
-    finite = torch.isfinite(x).all(0)
-    x = torch.where(finite, x, torch.full_like(x, float("nan")))
-    return QPSolution(x=x, lam=lam * obj / row, ok=ok, gap=gap)
+    original units (None: cold lam = 1)."""
+    return solve_shared_operands(*shared_operands(P, q, cons, b, x0, iters,
+                                                  lam0))

@@ -7,8 +7,10 @@ Replaces the TPU kernel ``_step_kernel``
 (``koopman_realizations_tpu/ops/pallas/step_fused.py:90``, with
 ``_plant_freeze_epilogue`` :150 and ``_markers_rows`` :61, built by
 ``build_step_fused`` :527): per lane, the lift-fused QP of the bilinear
-controller, the ok mask, SDIRK2 of the arm on the PREVIOUS input, the
-marker outputs, the alive freeze and the carry advance.  The kernel is
+controller, the ok mask, SDIRK2 of the arm on the PREVIOUS input (its
+Jacobian once a period, jac_mode 'step', or once a substep, 'substep':
+a build each), the marker or angle outputs (a build each), the alive
+freeze and the carry advance.  The kernel is
 compute-bound on the card (~7e4 operations per lane-step on ~0.6 KB of
 carry); it runs in two launches, the lift, assembly, Gram and plant a
 thread per lane, then the QP a group of threads per lane
@@ -112,9 +114,11 @@ class FusedStepBase:
 
     def __init__(self, mpc, arm, scaler):
         cfg = arm.cfg
-        if cfg.output_type != "markers" or cfg.jac_mode != "step":
+        if cfg.output_type not in ("markers", "angles") \
+                or cfg.jac_mode not in ("step", "substep"):
             raise NotImplementedError(
-                "the fused step takes marker outputs and jac_mode 'step'")
+                "the fused step takes marker or angle outputs and "
+                "jac_mode 'step' or 'substep'")
         self.mpc, self.arm, self.scaler = mpc, arm, scaler
         self.cons = mpc.constraints()
         self.iters = int(mpc.cfg.qp_iters)
@@ -208,6 +212,8 @@ class FusedStepBase:
             f"#define KM_DT {hexf(cfg.Ts / cfg.substeps)}",
             f"#define KM_SUBSTEPS {cfg.substeps}",
             f"#define KM_NEWTON {cfg.newton_iters}",
+            f"#define KM_JAC_SUBSTEP {int(cfg.jac_mode == 'substep')}",
+            f"#define KM_ANGLES {int(cfg.output_type == 'angles')}",
             f"#define KM_UF {arr(np.asarray(sc.u_factor).ravel())}",
             f"#define KM_UO {arr(np.asarray(sc.u_offset).ravel())}",
             f"#define KM_YF {arr(np.asarray(sc.y_factor).ravel())}",

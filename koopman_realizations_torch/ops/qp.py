@@ -14,12 +14,20 @@ of the JAX package (``ops/pallas/qp_ipm.py``):
 - ``form_AtDA``      <- ``_make_form_AtDA``      (:209-233)
 - ``chol_lanes``     <- ``_chol_lanes``          (:143-176)
 - ``chol_solve_lanes`` <- ``_chol_solve_lanes``  (:179-206)
-- ``mehrotra_loop``  <- ``_mehrotra_loop``       (:236-296)
+- ``mehrotra_loop``  <- ``_mehrotra_loop``       (:236-296), its
+  iterations ``mehrotra_iterations`` on any layout
 - ``ok_mask``        <- the solve epilogue (qp_ipm.py:986-995; in-kernel
   at step_fused.py:137-141)
 - ``solve_qp``       <- ``solve_qp(..., shared_A=True)`` under vmap
   (ops/qp.py:85-157, 1204-1252): the shared-A entry, routed to the
   lane-shared or per-lane Hessian mode of ``ops/kernels/ipm_shared.py``
+- ``solve_qp_lane_A`` <- ``solve_qp(..., shared_A=False)`` under vmap
+  (ops/qp.py:1255-1379, ``_solve_qp_impl``): a Hessian AND constraint
+  rows per lane, the bilinear controller's state-bound QPs
+  (``bilinear_solve_pure``, control/kmpc.py:679-687).  The JAX package
+  runs this route outside Pallas (``_solve_qp`` routes only shared A to
+  a kernel), so no TPU kernel computes it and it stays plain PyTorch on
+  the device (ROADMAP.md, perf queue: a per-lane-A kernel)
 
 The interior point takes its lane-shared constraint rows as a
 ``Constraints`` (row-equilibrated A and its banded or dense A^T D A
@@ -394,56 +402,69 @@ def chol_solve_lanes(L, rhs):
     return torch.stack(xs)
 
 
-def _max_step(v, dv):
-    ratio = torch.where(dv < 0, -v / dv, torch.full_like(v, float("inf")))
-    return torch.clamp(0.99 * ratio.amin(dim=0), max=1.0)
+def mehrotra_iterations(iters: int, mc: int, mu_floor: float, x, s, lam,
+                        q, b, Ax, Atv, Pv, factor, solve, red):
+    """The fixed-iteration Mehrotra predictor-corrector
+    (``_mehrotra_loop``, qp_ipm.py:236-296) on any layout: the row
+    products ``Ax`` and ``Atv``, the Hessian's ``Pv``, ``factor(D)`` of
+    the Newton matrix P + A^T diag(D) A and ``solve(L, rhs)`` with it, and
+    ``red(v, op)`` reducing v over its rows to one value a lane that
+    broadcasts against the vectors ('sum', 'amax', 'amin').  Returns
+    (x, s, lam)."""
+    def max_step(v, dv):
+        ratio = torch.where(dv < 0, -v / dv, torch.full_like(v, float("inf")))
+        return torch.clamp(0.99 * red(ratio, "amin"), max=1.0)
 
-
-def mehrotra_loop(cons: Constraints, iters: int, slack_floor: float, Pr,
-                  q, b, x0, lam0, mu_floor: float):
-    """Fixed-iteration Mehrotra predictor-corrector (``_mehrotra_loop``):
-    Pr the regularized scaled Hessian, per lane (n, n, B) or lane-shared
-    (n, n); q (n, B), b (mc, B), starts x0 (n, B) and lam0 (mc, B).
-    Returns (x, s, lam)."""
-    A = cons.A
-    At = A.T
-    mc = cons.mc
-    if Pr.ndim == 2:
-        P_shared = Pr
-        matvec_P = lambda v: P_shared @ v
-        Pr = Pr[..., None]
-    else:
-        matvec_P = lambda v: torch.einsum("ijb,jb->ib", Pr, v)
-    x, lam = x0, lam0
-    s = torch.clamp(b - A @ x0, min=slack_floor)
     for _ in range(iters):
-        mu = (s * lam).sum(0) / mc
-        r_p = A @ x + s - b
-        r_d = matvec_P(x) + q + At @ lam
-        active = (mu > mu_floor) | (r_p.abs().amax(0) > mu_floor)
+        mu = red(s * lam, "sum") / mc
+        r_p = Ax(x) + s - b
+        r_d = Pv(x) + q + Atv(lam)
+        active = (mu > mu_floor) | (red(r_p.abs(), "amax") > mu_floor)
         D = torch.clamp(lam / s, 1e-14, 1e14)
-        L = chol_lanes(Pr + form_AtDA(cons, D))
+        L = factor(D)
 
         def direction(r_slam):
-            rhs = -r_d - At @ ((-r_slam + lam * r_p) / s)
-            dx = chol_solve_lanes(L, rhs)
-            ds = -r_p - A @ dx
+            rhs = -r_d - Atv((-r_slam + lam * r_p) / s)
+            dx = solve(L, rhs)
+            ds = -r_p - Ax(dx)
             dlam = (-r_slam - lam * ds) / s
             return dx, ds, dlam
 
         dx_a, ds_a, dlam_a = direction(s * lam)
-        alpha_a = torch.minimum(_max_step(s, ds_a), _max_step(lam, dlam_a))
-        mu_aff = ((s + alpha_a * ds_a) * (lam + alpha_a * dlam_a)).sum(0) \
-            / mc
+        alpha_a = torch.minimum(max_step(s, ds_a), max_step(lam, dlam_a))
+        mu_aff = red((s + alpha_a * ds_a) * (lam + alpha_a * dlam_a),
+                     "sum") / mc
         sigma = (mu_aff / (mu + 1e-30)) ** 3
         dx, ds, dlam = direction(s * lam + ds_a * dlam_a - sigma * mu)
-        alpha = torch.where(active, torch.minimum(_max_step(s, ds),
-                                                  _max_step(lam, dlam)),
+        alpha = torch.where(active, torch.minimum(max_step(s, ds),
+                                                  max_step(lam, dlam)),
                             torch.zeros_like(mu))
         step = lambda v, dv: torch.where(torch.isfinite(dv), v + alpha * dv,
                                          v)
         x, s, lam = step(x, dx), step(s, ds), step(lam, dlam)
     return x, s, lam
+
+
+def mehrotra_loop(cons: Constraints, iters: int, slack_floor: float, Pr,
+                  q, b, x0, lam0, mu_floor: float):
+    """Fixed-iteration Mehrotra predictor-corrector (``_mehrotra_loop``),
+    lanes-minor against lane-shared rows: Pr the regularized scaled
+    Hessian, per lane (n, n, B) or lane-shared (n, n); q (n, B), b (mc, B),
+    starts x0 (n, B) and lam0 (mc, B).  Returns (x, s, lam)."""
+    A = cons.A
+    At = A.T
+    if Pr.ndim == 2:
+        P_shared = Pr
+        Pv = lambda v: P_shared @ v
+        Pr = Pr[..., None]
+    else:
+        Pv = lambda v: torch.einsum("ijb,jb->ib", Pr, v)
+    s = torch.clamp(b - A @ x0, min=slack_floor)
+    return mehrotra_iterations(
+        iters, cons.mc, mu_floor, x0, s, lam0, q, b, lambda v: A @ v,
+        lambda v: At @ v, Pv,
+        lambda D: chol_lanes(Pr + form_AtDA(cons, D)), chol_solve_lanes,
+        lambda v, op: getattr(v, op)(0))
 
 
 def ok_mask(cons: Constraints, b, x, s, lam, tol: float, gap_sane: float):
@@ -505,6 +526,63 @@ def solve_qp(P, q, cons: Constraints, b, iters: int = 25,
         solve_qp_shared,
     )
     return solve_qp_shared(P, q, cons, b, x0=x0, iters=iters, lam0=lam0)
+
+
+def solve_qp_lane_A(P, q, A, b, iters: int = 25,
+                    x0: Optional[torch.Tensor] = None,
+                    lam0: Optional[torch.Tensor] = None) -> QPSolution:
+    """Batched interior-point solve of min 1/2 x'Px + q'x s.t. A x <= b
+    with every operand per lane (``_solve_qp_impl`` with
+    ``shared_A=False`` under vmap, JAX ``ops/qp.py:1255-1379``),
+    lanes-minor: P (n, n, B), q (n, B), A (mc, n, B), b (mc, B) in
+    original units, x0 (n, B) the primal start (None: zeros, cold), lam0
+    (mc, B) multipliers in original units (None: cold).  Each lane's
+    objective scale max |P| and row scales max |A_c| equilibrate it as
+    there; the Mehrotra loop is ``mehrotra_loop``'s
+    (``mehrotra_iterations``) on per-lane rows, lanes-major so that every
+    product is a batched matrix product, its Newton matrix factored once
+    an iteration by the batched
+    ``torch.linalg.cholesky_ex`` (a lane whose matrix is not positive
+    definite gets a NaN factor, and so non-finite directions, as the
+    column-by-column factor's square root of a negative gives).  Plain
+    PyTorch on whatever device the operands live on: the JAX package's
+    counterpart never reaches Pallas."""
+    c = qp_constants(q.dtype)
+    n, mc = q.shape[0], b.shape[0]
+    obj = torch.clamp(P.abs().amax((0, 1)), min=1e-8)       # (B,)
+    row = torch.clamp(A.abs().amax(1), min=1e-10).T         # (B, mc)
+    # lanes-major and contiguous: the batched products' fast layout
+    A = (A.permute(2, 0, 1) / row[..., None]).contiguous()  # (B, mc, n)
+    b = (b.T / row).contiguous()
+    Pr = (P.permute(2, 0, 1) / obj[:, None, None]
+          + c.reg * torch.eye(n, dtype=q.dtype, device=q.device)).contiguous()
+    q = (q.T / obj[:, None]).contiguous()
+    slack_floor = 1.0 if x0 is None else 1e-2
+    x = torch.zeros_like(q) if x0 is None else x0.T.contiguous()
+    lam = torch.ones_like(b) if lam0 is None else torch.sqrt(
+        torch.clamp(lam0.T * row / obj[:, None], 1e-4, 1e4)).contiguous()
+    mv = lambda M, v: (M @ v[..., None])[..., 0]
+
+    def factor(D):
+        L, info = torch.linalg.cholesky_ex(
+            Pr + (A * D[..., None]).transpose(1, 2) @ A)
+        return torch.where((info == 0)[:, None, None], L,
+                           torch.full_like(L, float("nan")))
+
+    s = torch.clamp(b - mv(A, x), min=slack_floor)
+    x, s, lam = mehrotra_iterations(
+        iters, mc, c.mu_floor, x, s, lam, q, b, lambda v: mv(A, v),
+        lambda v: (v[:, None, :] @ A)[:, 0], lambda v: mv(Pr, v), factor,
+        lambda L, r: torch.cholesky_solve(r[..., None], L)[..., 0],
+        lambda v, op: getattr(v, op)(1, keepdim=True))
+    gap = (s * lam).sum(1) / mc
+    r_p = torch.clamp(mv(A, x) - b, min=0.0).amax(1)
+    bmax = torch.clamp(b.abs().amax(1), min=1.0)
+    finite = torch.isfinite(x).all(1)
+    ok = finite & (gap < c.gap_sane) & (r_p < c.tol * bmax)
+    x = torch.where(finite[:, None], x, torch.full_like(x, float("nan")))
+    return QPSolution(x=x.T, lam=(lam * obj[:, None] / row).T, ok=ok,
+                      gap=gap)
 
 
 def qp_core_plain(qp: LiftQP, zeta, up, sqYr, x0, lam0_row, iters: int,

@@ -1,7 +1,8 @@
 """Error metrics of the port: the validation error struct (``get_error``,
 ``utils/metrics.py:8-29`` of the JAX package), what two trainings are
 compared by (one-step predictions, the PC subspace angle), and the
-closed-loop tracking error of the runners."""
+closed-loop tracking error of the runners (``tracking_error``, JAX
+``utils/metrics.py:32``; ``lane_tracking_error``, the bench's)."""
 
 from __future__ import annotations
 
@@ -93,3 +94,15 @@ def lane_tracking_error(Yp: torch.Tensor, ref_y) -> torch.Tensor:
     R = torch.as_tensor(ref_y, device=Yp.device)[:K1].to(torch.float32)
     d = Yp.to(torch.float32) - R[None]
     return torch.sqrt((d ** 2).sum(-1)).mean(1)
+
+
+def tracking_error(R, Y, proj_idx):
+    """Per-step Euclidean tracking error in unscaled space
+    (``Ksim.m:258``; JAX ``utils/metrics.py:32``): R (..., nproj) the
+    recorded reference rows, Y (..., ny) the outputs, compared on
+    ``proj_idx``.  numpy in, numpy out; tensors in, a tensor out."""
+    Y = Y[..., list(proj_idx)]
+    d = R - Y
+    if torch.is_tensor(d):
+        return torch.sqrt((d ** 2).sum(-1))
+    return np.sqrt((np.asarray(d) ** 2).sum(-1))

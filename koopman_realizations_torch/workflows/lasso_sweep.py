@@ -7,7 +7,9 @@ The reference trains one candidate per lasso value
 (``Ksysid.train_models:1344-1389``) and would run them one
 ``Ksim.run_trial_mpc`` at a time.  Here each candidate is a lane of one
 closed loop: per step the bilinear MPC's first pass about Beta(z) held
-over the horizon (JAX ``bilinear_solve_pure``, ``control/kmpc.py:
+over the horizon (and with ``bilinear_iters`` > 1 each later pass about
+the lifted trajectory re-rolled under the previous pass's plan,
+``sweep_qp_relinearized``, its duals the previous pass's) (JAX ``bilinear_solve_pure``, ``control/kmpc.py:
 713-742``, through the routed solver's per-lane-generators branch,
 ``ops/qp.py:381-389``) in three steps on the device -- the factored QP's
 W, v and b assembled per lane against the lane's own generators
@@ -41,15 +43,34 @@ def sweep_generators(mpc: BilinearKmpc, cands, dtype, device) -> dict:
     """Every candidate's assembly generators stacked on a leading lane
     axis: PGW (C, p*n, NL) (Tb-folded when blocked), PG0 (C, m*p, NL),
     PAsq (C, p, NL), f64 on the host, and the lane-shared reduced
-    constraint stack cF (mc,), F0 (mc, m); in ``dtype`` on ``device``."""
+    constraint stack cF (mc,), F0 (mc, m); with ``bilinear_iters`` > 1
+    also what the later passes re-roll and re-assemble with (JAX
+    ``bilinear_consts``, kmpc.py:526-547): A (C, NL, NL), Bm (C, NL, m,
+    NL), PA (C, p, NL) and the block-Toeplitz PAt (C, Np+1, Np, nproj,
+    NL); in ``dtype`` on ``device``."""
+    # a candidate that fills several lanes (the same model object) is
+    # assembled once and gathered on the device
+    first, idx = {}, []
+    for cd in cands:
+        idx.append(first.setdefault(id(cd), len(first)))
+    uniq = list({id(cd): cd for cd in cands}.values())
     gens = [bilinear_generators(cd, mpc.q_diag, mpc.proj_idx, mpc.Np,
-                                mpc.m, mpc.Tb) for cd in cands]
+                                mpc.m, mpc.Tb) for cd in uniq]
     out = {k: np.stack([g[src] for g in gens])
            for k, src in (("PGW", "PGWb"), ("PG0", "PG0"),
                           ("PAsq", "PAsq"))}
-    out.update(cF=mpc.cF_red, F0=mpc.F0_red)
-    return {k: torch.as_tensor(v, dtype=dtype, device=device)
-            for k, v in out.items()}
+    if mpc.cfg.bilinear_iters > 1:
+        out.update(
+            A=np.stack([np.asarray(cd.A, np.float64) for cd in uniq]),
+            Bm=np.stack([np.asarray(cd.B, np.float64) for cd in uniq]),
+            PA=np.stack([g["PA"].reshape(mpc.p, -1) for g in gens]),
+            PAt=np.stack([g["PAt"] for g in gens]))
+    lane = torch.as_tensor(idx, device=device)
+    out = {k: torch.as_tensor(v, dtype=dtype, device=device)[lane]
+           for k, v in out.items()}
+    out.update({k: torch.as_tensor(v, dtype=dtype, device=device)
+                for k, v in (("cF", mpc.cF_red), ("F0", mpc.F0_red))})
+    return out
 
 
 def assemble_lanes(gens: dict, z, up, sqYr, m: int):
@@ -78,6 +99,37 @@ def sweep_qp(mpc: BilinearKmpc, gens: dict, z, up, sqYr, U_plan):
             mpc.cfg.qp_iters, mpc.warm_start(U_plan).contiguous())
 
 
+def sweep_qp_relinearized(mpc: BilinearKmpc, gens: dict, z, up, sqYr,
+                          U_plan, U):
+    """A later pass's QPs of every lane (``bilinear_solve_pure``'s
+    iters > 1, kmpc.py:650-655, 726-742, 755-760): each lane's lifted
+    state re-rolled under the previous pass's plan U (Np*m, C) through
+    its own A and Beta, the block-Toeplitz CB of the stage Betas, then
+    the factored QP W = sqrt(Q) CB[:, m:] (Tb when blocked), v =
+    sqrt(Q) (CA z + CB[:, :m] u_prev) - sqrt(Q) Yr, as ``sweep_qp``'s
+    operands."""
+    m, Np, NL, C = mpc.m, mpc.Np, z.shape[0], z.shape[1]
+    zk, betas = z, []
+    for k in range(Np):
+        betas.append(torch.einsum("ckmq,qc->kmc", gens["Bm"], zk))
+        if k + 1 < Np:
+            zk = torch.einsum("ckq,qc->kc", gens["A"], zk) \
+                + torch.einsum("kmc,mc->kc", betas[-1], U[k * m:(k + 1) * m])
+    CB = torch.einsum("cijrb,jbmc->irjmc", gens["PAt"],
+                      torch.stack(betas)).reshape(mpc.p, Np * m, C)
+    sq = torch.as_tensor(mpc.sqq, dtype=z.dtype, device=z.device)[:, None]
+    W = sq[..., None] * CB[:, m:]
+    if mpc.blocked:
+        W = torch.einsum("rjc,jk->rkc", W, mpc.Tb_t)
+    v = sq * (torch.einsum("crN,Nc->rc", gens["PA"], z)
+              + torch.einsum("rjc,jc->rc", CB[:, :m], up)) - sqYr[:, None]
+    cons = mpc.constraints()
+    P, q = factored_gram(W.reshape(-1, C), v, mpc.rdiag, v.shape[0], cons.n)
+    b = gens["cF"][:, None] - gens["F0"] @ up
+    return (P.contiguous(), q.contiguous(), cons, b.contiguous(),
+            mpc.cfg.qp_iters, mpc.warm_start(U_plan).contiguous())
+
+
 def lasso_sweep_closed_loop(ksysid, plant, mpc_cfg: MpcConfig, ref,
                             steps: Optional[int] = None, device="cuda",
                             dtype=torch.float32,
@@ -102,10 +154,6 @@ def lasso_sweep_closed_loop(ksysid, plant, mpc_cfg: MpcConfig, ref,
     if not cands or not all(isinstance(cd, BilinearModel) for cd in cands):
         raise NotImplementedError("lasso_sweep_closed_loop takes bilinear "
                                   "candidates only")
-    if mpc_cfg.bilinear_iters != 1:
-        raise NotImplementedError(
-            "the lasso sweep runs the first bilinear pass only "
-            "(bilinear_iters=1)")
     dev = resolve_device(device)
     if plant.G.device.type != dev.type:
         raise ValueError(f"the plant ({plant.G.device}) must live on "
@@ -137,9 +185,17 @@ def lasso_sweep_closed_loop(ksysid, plant, mpc_cfg: MpcConfig, ref,
     alive_rec = torch.empty((K - 1, C), dtype=torch.bool, device=dev)
     for k in range(K - 1):
         up = scaler.u_down(u_prev, axis=0)
-        qp = sweep_qp(mpc, gens, mpc.lift(ysc), up, sqYr[k], U_plan)
+        z = mpc.lift(ysc)
+        qp = sweep_qp(mpc, gens, z, up, sqYr[k], U_plan)
         sol = solve_qp(*qp)
         U = mpc.plan(up, sol.x)
+        for _ in range(mpc_cfg.bilinear_iters - 1):
+            # the next pass about the trajectory under this pass's plan,
+            # its duals the previous pass's
+            qp = sweep_qp_relinearized(mpc, gens, z, up, sqYr[k], U_plan,
+                                       U)
+            sol = solve_qp(*qp, lam0=sol.lam)
+            U = mpc.plan(up, sol.x)
         u_next = scaler.u_up(U[m:2 * m], axis=0)
         x_new = plant.step(x, u_prev, W0)
         alive = alive & sol.ok & torch.isfinite(x_new).all(0)

@@ -213,13 +213,16 @@ def test_runner_takes_the_general_route(arm, name):
 
 
 @pytest.mark.parametrize("extra", [
-    dict(state_bounds=(-1.0, 1.0)), dict(qp_dual_shift=True),
+    dict(state_bounds=(-1.0, 1.0)),
+    dict(state_bounds=(-1.0, 1.0), qp_dual_shift=True),
     dict(mpc_type="nonlinear"), dict(input_smoothConst=0.1),
-    dict(input_blocks=None, state_bounds=(-1.0, 1.0)),
-    dict(bilinear_iters=2, qp_dual_shift=True), dict(bilinear_iters=0)])
+    dict(state_bounds=(-1.0, 1.0), bilinear_iters=2),
+    dict(bilinear_iters=-1), dict(bilinear_iters=0)])
 def test_bilinear_controller_refuses_what_is_not_ported(extra):
-    """State bounds, the dual shift and bilinear-as-NMPC raise on every
-    route; blocks with smoothness raise as in the JAX controller."""
+    """Bilinear-as-NMPC raises here (``NonlinearKmpc`` takes it), and so
+    do no pass at all and, as in the JAX controller, blocks with state
+    bounds or smoothness (state bounds and the dual shift on the
+    unblocked stack: ``tests/test_torch_knobs.py``)."""
     model, scaler, _ = load_model()
     with pytest.raises(NotImplementedError):
         BilinearKmpc(model, scaler, MpcConfig(**{**BENCH_MPC, **extra}),

@@ -1760,7 +1760,7 @@ def test_loaded_loops_on_card_track(gpu_loaded):
                 == np.asarray(jr["alive"])).all()
         off = CS.loaded_lane_gate(e, jr)
         assert (off < 1e-3).all(), (kind, use_obs, off)
-        What = out["What"].cpu().numpy()
+        What = out["what"].cpu().numpy()
         assert np.abs(What).max() <= 1.0 + 1e-6
         if kind == "linear":
             assert (What[..., -1] == 0).all()

@@ -236,4 +236,5 @@ def test_new_entry_points_default_to_the_card():
             call()
     out = run_model_simulation(mpc, blockM_reference(), steps=3,
                                device="cpu")
-    assert out["Yp"].shape == (1, 2, 2) and bool(out["alive"].all())
+    assert out["Y"][:, list(mpc.proj_idx)].shape == (2, 2)
+    assert bool(out["alive"].all())

@@ -248,8 +248,9 @@ def test_lane_p_f32_matches_tpu_kernel_interpret(route_qps, name, warm):
 def test_solve_qp_routes_by_the_hessian(route_qps, monkeypatch):
     """``solve_qp`` hands a 2-D P to the lane-shared mode and a per-lane P
     to the per-lane mode of ``ipm_shared``; on a P broadcast over the
-    lanes both give the same solve.  Warm duals with a lane-shared P are
-    not ported and raise."""
+    lanes both give the same solve, with cold duals and with warm ones
+    (the lane-shared mode's warm-dual build, JAX ``LinearKmpc`` with
+    ``qp_dual_warm``)."""
     mpc, P, q, b, x0, lam = route_qps["iters2"]
     P0 = P[..., 0].contiguous()
     modes = []
@@ -267,8 +268,12 @@ def test_solve_qp_routes_by_the_hessian(route_qps, monkeypatch):
     assert modes == [2, 3]
     for a, c in zip(shared, lane):
         torch.testing.assert_close(a, c, rtol=0, atol=1e-12)
-    with pytest.raises(NotImplementedError):
-        solve_qp(P0, q, cons, b, iters=4, x0=x0, lam0=lam)
+    shared = solve_qp(P0, q, cons, b, iters=4, x0=x0, lam0=lam)
+    lane = solve_qp(P0[..., None].expand(P.shape).contiguous(), q, cons, b,
+                    iters=4, x0=x0, lam0=lam)
+    assert modes == [2, 3, 2, 3]
+    for a, c in zip(shared, lane):
+        torch.testing.assert_close(a, c, rtol=0, atol=1e-12)
 
 
 def test_lane_p_kernel_refuses_cpu_and_bad_shapes(route_qps):

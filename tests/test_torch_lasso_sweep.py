@@ -172,10 +172,6 @@ def test_sweep_qps_match_the_jax_pure_path():
 def test_sweep_refuses_what_is_not_ported():
     ks, _ = trained()
     arm = Arm(ArmConfig(**SWEEP_ARM), device="cpu")
-    with pytest.raises(NotImplementedError, match="bilinear_iters"):
-        lasso_sweep_closed_loop(ks, arm, MpcConfig(**SWEEP_MPC,
-                                                   bilinear_iters=2),
-                                blockM_reference(), steps=3, device="cpu")
     for cands in ([], [load_model(LINEAR_MODEL)[0]]):
         other = types.SimpleNamespace(candidates=cands, scaler=ks.scaler)
         with pytest.raises(NotImplementedError,

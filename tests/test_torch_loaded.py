@@ -326,7 +326,7 @@ def test_short_loaded_loop_matches_live_jax(kind, observer):
     Yp = out["Yp"].numpy()
     err = np.sqrt(((Yp - circle_reference()[None, :steps - 1]) ** 2)
                   .sum(-1))
-    What = out["What"].numpy()
+    What = out["what"].numpy()
     assert out["alive"].all() and jr["alive"].all()
     np.testing.assert_allclose(err.mean(1), jr["err"].mean(1), rtol=0,
                                atol=1e-5)

@@ -89,14 +89,19 @@ def test_nmpc_has_no_fused_step():
 @pytest.mark.parametrize("extra", [
     dict(sqp_update="linear", input_blocks=None),
     dict(state_bounds=(-1.0, 1.0)), dict(input_blocks=None),
-    dict(qp_dual_shift=True), dict(sqp_iters=0)])
+    dict(input_blocks=None, state_bounds=(-1.0, 1.0)), dict(sqp_iters=0)])
 def test_nmpc_refuses_unported_regimes(extra):
-    """The regimes the port does not run raise: state bounds, unblocked
-    stacks (with the 'linear' between-pass update too), the dual shift and
-    no SQP pass (the SQP knobs off the multipass route construct:
-    ``test_torch_nmpc_regimes.py``, ``test_torch_nmpc_linear.py``)."""
+    """The regimes the port does not run raise: state bounds and
+    unblocked stacks (with the 'linear' between-pass update too), which
+    name ROADMAP.md item 4, and no SQP pass (the SQP knobs off the
+    multipass route construct: ``test_torch_nmpc_regimes.py``,
+    ``test_torch_nmpc_linear.py``; the dual shift is accepted and acts on
+    nothing, as in the JAX package: the NMPC carries no duals across
+    steps)."""
     model, scaler, _ = load_model(NONLINEAR_MODEL)
-    with pytest.raises(NotImplementedError):
+    item4 = "sqp_iters" not in extra
+    with pytest.raises(NotImplementedError,
+                       match="item 4" if item4 else None):
         NonlinearKmpc(model, scaler, MpcConfig(**{**NMPC_MPC, **extra}),
                       device="cpu")
 

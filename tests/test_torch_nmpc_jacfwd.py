@@ -195,7 +195,7 @@ def test_model_in_the_loop_matches_jax():
         jax_make_kmpc(model, scaler, JMpcConfig(
             **dict(DICT_PATHS["fs1-model"][2], qp_iters=q))),
         blockM_y(), steps=steps)
-    np.testing.assert_allclose(res["Yp"][0].numpy(),
+    np.testing.assert_allclose(res["Y"][:, list(mpc.proj_idx)],
                                jres["Y"][:, list(mpc.proj_idx)], rtol=0,
                                atol=1e-5)
     assert bool(res["alive"].all()) == bool(np.asarray(jres["alive"]).all())

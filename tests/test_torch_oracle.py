@@ -41,6 +41,19 @@ read them.  The loaded experiment's data (phase LD) comes from
 ``--write-loaded`` (its corpus, the two JAX-trained loaded assets and
 ``assets/loaded_refs.json``); ``--write-loaded-refs`` reruns only the
 JAX runs of the references on the committed loaded assets.
+``--write-dictionary-full [PATH ...]`` reruns only the JAX runs on every
+full-width lane of ``dictionary_refs.json`` (the model in the loop in x64
+and f32, del1 in f32).  ``--write-angles`` generates the angle-output
+corpus (``assets/arm3_angles_corpus.npz``), trains the bilinear and
+linear poly-3 PCA f32 models on it with JAX
+(``assets/arm3_angles_{bilinear,linear}_poly3.npz``) and writes
+``assets/runner_refs.json``: the JAX x64 general runner on
+``ArmConfig()``'s default plant and on the angle models
+(``RUNNER_PATHS``), with the angle reference's rows.  ``--write-knob-refs``
+writes ``assets/knob_refs.json``: the JAX x64 general runner in every
+controller knob of ``KNOB_PATHS`` with its f32 runs (a 96-copy band where
+the loop amplifies f32 rounding) and the lasso sweep at
+``bilinear_iters=2`` (``KNOB_LASSO``).
 
 The linear controller runs ``qp_iters=6`` with cold duals.  The JAX
 package's "verified linear floor" of 3 iterations
@@ -648,13 +661,14 @@ def write_lasso_refs(path: Path = LASSO_SWEEP_REFS,
     return refs
 
 
-def _jax_sweep_f32(ks, copies: int, seed: int) -> list:
+def _jax_sweep_f32(ks, copies: int, seed: int, mpc: dict = None) -> list:
     """The JAX lasso sweep of ``ks``'s candidates with x64 off (f32
     throughout) in a process of its own, ``copies`` lanes a candidate in
     one batch (candidate-major): the first as trained, each other with
     every nonzero entry of its f32 A moved one ulp up or down, the
-    directions drawn from ``np.random.default_rng(seed)``.  Returns
-    [alive at the last step, err_mean] per lane."""
+    directions drawn from ``np.random.default_rng(seed)``; ``mpc``
+    overrides fields of ``LASSO_SWEEP``'s controller.  Returns [alive at
+    the last step, err_mean] per lane."""
     import subprocess
     import tempfile
 
@@ -680,6 +694,7 @@ def _jax_sweep_f32(ks, copies: int, seed: int) -> list:
             "from koopman_realizations_tpu.workflows.lasso_sweep import "
             "lasso_sweep_closed_loop\n"
             f"r = json.loads({json.dumps(json.dumps(LASSO_SWEEP))})\n"
+            f"r['mpc'].update(json.loads({json.dumps(json.dumps(mpc or {}))}))\n"
             f"ms = [load_model(p) for p in {paths!r}]\n"
             f"rng = np.random.default_rng({seed})\n"
             "lanes = []\n"
@@ -1356,15 +1371,31 @@ def dictionary_full_width(paths: dict, x64: bool = True,
     return out
 
 
-def add_dictionary_full_width() -> dict:
+# the arm paths whose full-width alive fraction phase DX4 holds to JAX's
+# f32 run on the same lanes: del1 loses lanes at full width on the card
+# (alive 0.938, PERF.md §6) though all 16 reference lanes live
+DICT_FULL_F32 = ("del1",)
+
+
+def add_dictionary_full_width(only=None, procs: int = 8) -> dict:
     """Add ``dictionary_full_width`` of the model-in-the-loop paths, x64
-    ("full") and f32 ("full_f32"), to the committed ``DICT_REFS``."""
+    ("full") and f32 ("full_f32"), and of ``DICT_FULL_F32``'s arm paths,
+    f32 only, to the committed ``DICT_REFS`` (``only``: those paths
+    alone)."""
     refs = json.loads(DICT_REFS.read_text())
-    paths = {p: r["qp_iters"] for p, r in refs["paths"].items()
-             if r["plant"] == "model"}
+    keys = {p: (("full", True), ("full_f32", False))
+            if r["plant"] == "model" else (("full_f32", False),)
+            for p, r in refs["paths"].items()
+            if r["plant"] == "model" or p in DICT_FULL_F32}
+    if only:
+        keys = {p: v for p, v in keys.items() if p in only}
     out = {}
     for key, x64 in (("full", True), ("full_f32", False)):
-        for p, v in dictionary_full_width(paths, x64).items():
+        paths = {p: refs["paths"][p]["qp_iters"] for p, ks in keys.items()
+                 if (key, x64) in ks}
+        if not paths:
+            continue
+        for p, v in dictionary_full_width(paths, x64, procs).items():
             refs["paths"][p][key] = v
             out[f"{p} {key}"] = {k: v[k] for k in ("B", "alive",
                                                    "err_mean")}
@@ -1406,6 +1437,473 @@ def dictionary_trainings() -> dict:
 
 
 # ---------------------------------------------------------------- tests
+
+
+# ---- the default plant and angle outputs (``--write-angles``): the
+# JAX general runner on ``ArmConfig()``'s defaults (SDIRK2 with a Jacobian
+# every substep, 10 substeps, 3 Newton iterations) with the bench's arm
+# geometry, for the main path's two assets on blockM and for two
+# JAX-trained models on angle outputs tracking two joints
+DEFAULT_ARM = dict(Nmods=3, nlinks=1, L=1.0, m=0.1)
+ANGLE_ARM = dict(DEFAULT_ARM, output_type="angles")
+ANGLE_CORPUS_RECIPE = dict(trials=15, tf=60.0, n_val=5, seed=0,
+                           arm=dict(DEFAULT_ARM, output_type="angles",
+                                    substeps=5))
+ANGLE_CORPUS = ASSETS / "arm3_angles_corpus.npz"
+ANGLE_ASSETS = {"bilinear": ASSETS / "arm3_angles_bilinear_poly3.npz",
+                "linear": ASSETS / "arm3_angles_linear_poly3.npz"}
+ANGLE_MPC = {"bilinear": dict(BENCH_MPC, proj_idx=(0, 1)),
+             "linear": dict(LINEAR_MPC, proj_idx=(0, 1))}
+# the angle reference: joints 1 and 2 on sinusoids of 0.4 rad, periods
+# 6 s and 4 s, 301 rows at Ts = 0.05 (written into RUNNER_REFS, which
+# both packages read)
+ANGLE_REF = dict(amplitude=0.4, periods=(6.0, 4.0), rows=301, Ts=0.05)
+RUNNER_REFS = ASSETS / "runner_refs.json"
+# path -> (kind, asset, controller, plant, reference)
+RUNNER_PATHS = {
+    "default_bilinear": ("bilinear", ASSET, BENCH_MPC, DEFAULT_ARM,
+                         "blockM"),
+    "default_linear": ("linear", LINEAR_ASSET, LINEAR_MPC, DEFAULT_ARM,
+                       "blockM"),
+    "angles_bilinear": ("bilinear", ANGLE_ASSETS["bilinear"],
+                        ANGLE_MPC["bilinear"], ANGLE_ARM, "angles"),
+    "angles_linear": ("linear", ANGLE_ASSETS["linear"],
+                      ANGLE_MPC["linear"], ANGLE_ARM, "angles"),
+}
+RUNNER_QP_TO = 12
+
+
+def angle_reference() -> np.ndarray:
+    """The angle reference's rows (301, 2), as ``ANGLE_REF`` defines
+    them."""
+    r = ANGLE_REF
+    t = np.arange(r["rows"]) * r["Ts"]
+    return np.stack([r["amplitude"] * np.sin(2 * np.pi * t / T)
+                     for T in r["periods"]], axis=1)
+
+
+def runner_refs() -> dict:
+    return json.loads(RUNNER_REFS.read_text())
+
+
+def runner_reference(path: str) -> np.ndarray:
+    """A runner path's reference rows: blockM, or the angle rows of
+    ``RUNNER_REFS``."""
+    ref = RUNNER_PATHS[path][4]
+    return blockM_y() if ref == "blockM" \
+        else np.asarray(runner_refs()["angle_reference"])
+
+
+@functools.lru_cache(maxsize=None)
+def jax_runner_sim(path: str, qp_iters: int = None):
+    """(Ksim, controller) of the JAX package for a ``RUNNER_PATHS`` entry
+    (at ``qp_iters``, else the path's own)."""
+    from koopman_realizations_tpu.control import Ksim, make_kmpc
+    from koopman_realizations_tpu.models.arm import Arm
+    from koopman_realizations_tpu.utils.checkpoint import load_model
+    kind, asset, mpc_cfg, arm, _ = RUNNER_PATHS[path]
+    model, scaler = load_model(str(asset))
+    knobs = dict(mpc_cfg) if qp_iters is None \
+        else dict(mpc_cfg, qp_iters=qp_iters)
+    mpc = make_kmpc(model, scaler, MpcConfig(**knobs))
+    return Ksim(Arm(ArmConfig(**arm)), mpc), mpc
+
+
+def jax_runner_run(path: str, qp_iters: int = None, B: int = REF_B,
+                   steps: int = REF_STEPS, ref=None):
+    """The JAX general runner on a runner path from the bench's initial
+    states: (per-lane err_mean, per-lane alive at the last step, Yp)."""
+    sim, _ = jax_runner_sim(path, qp_iters)
+    ref = runner_reference(path) if ref is None else ref
+    run = sim.batched_runner(ref, steps=steps, record=("Yp", "alive"))
+    out = jax.block_until_ready(run(bench_X0(B), np.zeros((B, 2),
+                                                           np.float32)))
+    Yp = np.asarray(out["Yp"])
+    return (lane_errors(Yp, ref, steps), np.asarray(out["alive"])[:, -1],
+            Yp)
+
+
+def write_angles() -> dict:
+    """Generate the angle-output corpus, train the bilinear and linear
+    poly-3 PCA f32 models on it with the JAX trainer, save the three, and
+    write ``RUNNER_REFS``: each ``RUNNER_PATHS`` loop's JAX x64 general
+    runner on 16 lanes over 301 steps (an angle path at the smallest
+    qp_iters from its controller's that keeps all 16 lanes alive, up to
+    ``RUNNER_QP_TO``), with the angle reference's rows."""
+    import dataclasses
+
+    from examples.generate_arm_data import generate
+    from koopman_realizations_tpu.utils.checkpoint import save_model
+    written_by = "python tests/test_torch_oracle.py --write-angles"
+    r = ANGLE_CORPUS_RECIPE
+    ds = generate(r["trials"], r["tf"], n_val=r["n_val"], seed=r["seed"],
+                  cfg=ArmConfig(**r["arm"]))
+    recipe = ("examples/generate_arm_data.py:generate(15, 60.0, n_val=5, "
+              "seed=0, cfg=ArmConfig(Nmods=3, nlinks=1, L=1.0, m=0.1, "
+              "output_type='angles', substeps=5))")
+    header = {"recipe": recipe + ", JAX x64 on the CPU",
+              "written_by": written_by,
+              "fields": "t [T], y [T, n], u [T, m] of each trial, f64",
+              "split": {"train": len(ds.train), "val": len(ds.val)},
+              "params": ds.params}
+    arrays = {f"{split}{i}_{f}": np.asarray(getattr(tr, f), np.float64)
+              for split in ("train", "val")
+              for i, tr in enumerate(getattr(ds, split))
+              for f in ("t", "y", "u")}
+    np.savez(ANGLE_CORPUS, header=json.dumps(header), **arrays)
+    out = {}
+    for kind, path in ANGLE_ASSETS.items():
+        ks = train_jax(ds, kind)
+        save_model(str(path), ks.model, ks.scaler, overwrite=True)
+        data = dict(np.load(path, allow_pickle=False))
+        h = json.loads(str(data.pop("header")))
+        h["provenance"] = {
+            "corpus": recipe,
+            "sysid": f"Ksysid {kind} poly-3 dim_red=True dtype=float32",
+            "written_by": written_by}
+        np.savez(path, header=json.dumps(h), **data)
+        out[path.name] = {"NL": ks.model.meta.NL}
+    RUNNER_REFS.write_text(json.dumps(
+        {"angle_reference": angle_reference().tolist()}) + "\n")
+    jax_runner_sim.cache_clear()
+    paths = {}
+    for name, (kind, asset, mpc_cfg, arm, ref) in RUNNER_PATHS.items():
+        tried = {}
+        q0 = mpc_cfg["qp_iters"]
+        for q in range(q0, (RUNNER_QP_TO if ref == "angles" else q0) + 1):
+            e, a, _ = jax_runner_run(name, q)
+            tried[q] = float(a.mean())
+            print(name, q, tried[q], float(e.mean()), flush=True)
+            if a.all():
+                break
+        _, mpc = jax_runner_sim(name, q)
+        paths[name] = {
+            "asset": asset.name, "arm": arm, "reference": ref,
+            "qp_iters": q, "qp_search": tried,
+            "config": dataclasses.asdict(mpc.cfg),
+            "alive": [bool(v) for v in a], "err_mean": [float(v) for v in e],
+            "err_worst": float(e.max())}
+    refs = {
+        "runner": "koopman_realizations_tpu Ksim.batched_runner "
+                  "(jax_enable_x64, CPU)",
+        "written_by": written_by, "B": REF_B, "steps": REF_STEPS,
+        "X0": "first joint spread over +-0.2 rad (bench_X0)",
+        "plant": "ArmConfig() defaults (SDIRK2, substeps=10, newton_iters="
+                 "3, jac_mode='substep') with Nmods=3, nlinks=1, L=1.0, "
+                 "m=0.1; markers or angles",
+        "references": {"blockM": "blockM([0.45, -0.35], 0.5, 0.5), T=15, "
+                                 "Ts=0.05",
+                       "angles": ANGLE_REF},
+        "qp_iters": f"the controller's; an angle path the smallest count "
+                    f"from it that keeps all 16 lanes alive (up to "
+                    f"{RUNNER_QP_TO})",
+        "angle_reference": angle_reference().tolist(),
+        "paths": paths}
+    RUNNER_REFS.write_text(json.dumps(refs, indent=1) + "\n")
+    return {**out, **{k: {"qp_iters": v["qp_iters"],
+                          "err_mean": float(np.mean(v["err_mean"])),
+                          "alive": float(np.mean(v["alive"]))}
+                      for k, v in paths.items()}}
+
+
+# ---- the controller knobs (``--write-knob-refs``): the dual warm start
+# and the dual stage shift, state bounds on unblocked stacks, and the
+# lasso sweep's relinearized passes, each on the bench's arm and blockM
+# from the bench's 16 initial states (the sweep: its six candidates)
+# the outputs' range over the bench's loop (JAX x64, the bilinear asset,
+# 4 of its lanes), which ``knob_state_bounds`` widens: the bilinear loop
+# by 0.1 with the end effector's x capped at 0.7 (the unbounded loop
+# reaches 0.704), alive from qp_iters=12; the linear one by 2.0, where its
+# loop lives (its model's predictions leave a 1.0 margin within 60 steps
+# and the QPs turn infeasible), with the end effector's x capped at 0.55
+# (the unbounded loop reaches 0.654; a state-bound row binds on about a
+# third of the lane-steps) and warm duals from qp_iters=16 (cold, the
+# wide slacks need 24; at 8 every lane dies within 7 steps)
+KNOB_Y_RANGE = ((-0.243, 0.145), (0.228, 0.333), (-0.148, 0.451),
+                (0.370, 0.666), (-0.19, 0.704), (0.14, 0.9995))
+
+
+def knob_state_bounds(margin: float, cap: float = None) -> tuple:
+    """Per-output state bounds: ``KNOB_Y_RANGE`` widened by ``margin``,
+    the end effector's x capped at ``cap`` (which the unbounded loop
+    passes)."""
+    sb = [[lo - margin, hi + margin] for lo, hi in KNOB_Y_RANGE]
+    if cap is not None:
+        sb[4][1] = cap
+    return tuple(tuple(v) for v in sb)
+
+
+KNOB_PATHS = {
+    "linear_dual_warm": ("linear", dict(LINEAR_MPC, qp_dual_warm=True)),
+    "linear_dual_shift": ("linear", dict(LINEAR_MPC, qp_dual_warm=True,
+                                         qp_dual_shift=True)),
+    "linear_unblocked_sb": ("linear", dict(
+        LINEAR_MPC, input_blocks=None, qp_iters=16, qp_dual_warm=True,
+        state_bounds=knob_state_bounds(2.0, 0.55))),
+    "bilinear_dual_shift": ("bilinear", dict(BENCH_MPC, qp_dual_shift=True)),
+    "bilinear_unblocked_sb": ("bilinear", dict(
+        BENCH_MPC, input_blocks=None, qp_iters=12,
+        state_bounds=knob_state_bounds(0.1, 0.7))),
+}
+KNOB_LASSO = dict(bilinear_iters=2)
+KNOB_REFS = ASSETS / "knob_refs.json"
+# a knob loop whose JAX f32 run parts from x64 by more than this on a
+# lane (or loses another lane) amplifies f32 rounding: it gets the
+# 96-copy band, as the dictionary paths do
+KNOB_F32_EDGE = 1e-4
+
+
+def jax_knob_sim(name: str, model=None, scaler=None):
+    """(Ksim, controller) of the JAX package for a ``KNOB_PATHS`` entry on
+    its asset (cached per process) or on ``model``."""
+    from koopman_realizations_tpu.control import Ksim, make_kmpc
+    from koopman_realizations_tpu.models.arm import Arm
+    if model is None:
+        return _jax_knob_sim_asset(name)
+    mpc = make_kmpc(model, scaler, MpcConfig(**KNOB_PATHS[name][1]))
+    return Ksim(Arm(ArmConfig(**BENCH_ARM)), mpc), mpc
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_knob_sim_asset(name: str):
+    return jax_knob_sim(name, *jax_model(KNOB_PATHS[name][0]))
+
+
+def jax_knob_run(name: str, B: int = REF_B, steps: int = REF_STEPS,
+                 model=None, scaler=None):
+    """The JAX general runner on a knob path: (per-lane err_mean, per-lane
+    alive at the last step, Yp)."""
+    sim, _ = jax_knob_sim(name, model, scaler)
+    run = sim.batched_runner(blockM_y(), steps=steps, record=("Yp", "alive"))
+    out = jax.block_until_ready(run(bench_X0(B), np.zeros((B, 2),
+                                                          np.float32)))
+    Yp = np.asarray(out["Yp"])
+    return (lane_errors(Yp, blockM_y(), steps),
+            np.asarray(out["alive"])[:, -1], Yp)
+
+
+def _jax_knob_f32(names: list, copies: int, seed: int = 0, chunk: int = 12,
+                  procs: int = 8) -> dict:
+    """Each knob path's JAX general runner with x64 off on its 16 lanes,
+    for the asset (copy 0) and ``copies`` - 1 one-ulp copies of its A
+    (as ``_jax_dict_f32``).  Returns {name: [[[alive, err_mean] per lane]
+    per copy]}."""
+    code = (
+        "import dataclasses, json, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        f"sys.path.insert(0, {str(ROOT / 'tests')!r})\n"
+        "import jax\n"
+        "jax.config.update('jax_platforms', 'cpu')\n"
+        "import numpy as np\n"
+        "import test_torch_oracle as O\n"
+        "jax.config.update('jax_enable_x64', False)\n"
+        "name, k0, k1 = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])\n"
+        "model, scaler = O.jax_model(O.KNOB_PATHS[name][0])\n"
+        "A = np.asarray(model.A, np.float32)\n"
+        "lanes = []\n"
+        "for k in range(k0, k1):\n"
+        f"    rng = np.random.default_rng([{seed}, k])\n"
+        "    up = rng.random(A.shape) < 0.5\n"
+        "    Ak = A if k == 0 else np.where(A == 0, A, np.nextafter("
+        "A, np.where(up, np.inf, -np.inf).astype(np.float32)))\n"
+        "    mk = dataclasses.replace(model, A=Ak)\n"
+        "    e, a, _ = O.jax_knob_run(name, model=mk, scaler=scaler)\n"
+        "    lanes.append([[bool(x), float(y)] for x, y in zip(a, e)])\n"
+        "print(json.dumps(lanes))\n")
+    tasks = [(name, k0, min(k0 + chunk, copies)) for name in names
+             for k0 in range(0, copies, chunk)]
+    done = _run_pool(code, tasks, procs,
+                     dict(os.environ, JAX_ENABLE_X64="0"))
+    return {name: [lanes for t in sorted(k for k in done if k[0] == name)
+                   for lanes in done[t]] for name in names}
+
+
+# ---- the linear state-bound knob's lanes lost on the card
+# (``--write-lost-lanes FILE``): the QPs that ``python3 chip_smoke.py
+# --measure cold-lanes`` kept (cold duals, 24 iterations, the bounds the
+# loop never reaches), with the JAX package's verdict on each in f32 and
+# x64
+LOST_LANES = ASSETS / "cold_lost_lanes.npz"
+
+
+def write_lost_lanes(src) -> dict:
+    """Copy the lost lanes' QPs of a ``cold-lanes`` report (``src``, its
+    .npz) to ``LOST_LANES`` with JAX's ``solve_qp`` (shared A, the lane's
+    primal start) on each at the loop's iterations and at twice them,
+    with x64 off (a subprocess) and on: ok and gap a lane."""
+    import subprocess
+    d = np.load(src)
+    h = json.loads(str(d["header"]))
+    code = (
+        "import json, sys\n"
+        "import jax\n"
+        "jax.config.update('jax_platforms', 'cpu')\n"
+        "jax.config.update('jax_enable_x64', sys.argv[2] == '64')\n"
+        "import numpy as np\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "from koopman_realizations_tpu.ops.qp import solve_qp\n"
+        "d = np.load(sys.argv[1])\n"
+        "dt = np.float64 if sys.argv[2] == '64' else np.float32\n"
+        "P, A = (d[k].astype(dt) for k in ('Psh', 'A'))\n"
+        "out = {}\n"
+        "for k in map(int, sys.argv[3:]):\n"
+        "    f = jax.vmap(lambda q, b, x0: solve_qp(P, q, A, b, iters=k, "
+        "x0=x0, shared_A=True))\n"
+        "    sol = f(*(d[v].T.astype(dt) for v in ('q', 'b', 'x0')))\n"
+        "    out[k] = {'ok': np.asarray(sol.ok).tolist(), 'gap': "
+        "[float(g) for g in np.asarray(sol.gap)]}\n"
+        "print(json.dumps(out))\n")
+    its = [h["iters"], 2 * h["iters"]]
+    jax_ = {}
+    for bits in ("32", "64"):
+        res = subprocess.run(
+            [sys.executable, "-c", code, str(src), bits, *map(str, its)],
+            capture_output=True, text=True, check=True,
+            env=dict(os.environ, JAX_ENABLE_X64="1" if bits == "64"
+                     else "0"))
+        jax_["f" + bits] = json.loads(res.stdout.strip().splitlines()[-1])
+    h.update(jax=jax_, written_by="python tests/test_torch_oracle.py "
+             "--write-lost-lanes FILE (FILE: python3 chip_smoke.py "
+             "--measure cold-lanes)")
+    np.savez(LOST_LANES, header=json.dumps(h),
+             **{k: d[k] for k in d.files if k != "header"})
+    return jax_
+
+
+def jax_lasso_candidates_models():
+    """(ks-like namespace with the JAX models of ``LASSO_CANDIDATES`` and
+    their scaler): the port's reading of the candidates, through
+    ``save_model`` and the JAX ``load_model``."""
+    import tempfile
+    import types
+
+    from koopman_realizations_tpu.utils.checkpoint import load_model
+    from koopman_realizations_torch.utils.checkpoint import (
+        save_model as tsave,
+    )
+    cands, scaler = port_lasso_candidates()
+    with tempfile.TemporaryDirectory() as d:
+        ms = [load_model(tsave(f"{d}/c{i}", cd, scaler))
+              for i, cd in enumerate(cands)]
+    return types.SimpleNamespace(candidates=[m for m, _ in ms],
+                                 scaler=ms[0][1], basis=ms[0][0].basis)
+
+
+def write_knob_refs(copies: int = F32_COPIES, procs: int = 8,
+                    only=None) -> dict:
+    """Run every ``KNOB_PATHS`` loop with the JAX general runner (x64,
+    CPU, B=16 x 301 blockM steps) and its f32 run; where the f32 run parts
+    from x64 by more than ``KNOB_F32_EDGE`` on a lane (or another lane
+    dies), also ``copies`` - 1 one-ulp copies of A, each lane's band.
+    Then the JAX lasso sweep of ``LASSO_CANDIDATES`` with ``KNOB_LASSO``
+    on top of ``LASSO_SWEEP``'s controller, x64 and its f32 lanes (the
+    candidate and one-ulp copies, ``_jax_sweep_f32``).  Writes
+    ``KNOB_REFS``; with ``only`` (path names) it reruns those paths alone
+    and keeps the rest of the committed file."""
+    import dataclasses
+
+    from koopman_realizations_tpu.models.arm import Arm
+    from koopman_realizations_tpu.workflows.lasso_sweep import (
+        lasso_sweep_closed_loop,
+    )
+    paths = {}
+    for name, (kind, knobs) in KNOB_PATHS.items():
+        if only and name not in only:
+            continue
+        e, a, _ = jax_knob_run(name)
+        _, mpc = jax_knob_sim(name)
+        paths[name] = {
+            "asset": MODELS[kind][0].name,
+            "knobs": {k: [list(x) if isinstance(x, tuple) else x for x in v]
+                      if isinstance(v, tuple) else v
+                      for k, v in knobs.items()},
+            "config": dataclasses.asdict(mpc.cfg),
+            "alive": [bool(v) for v in a], "err_mean": [float(v) for v in e],
+            "err_worst": float(e.max())}
+        print(name, float(a.mean()), float(e.mean()), flush=True)
+    first = _jax_knob_f32(list(paths), 1, procs=procs)
+    wide = []
+    for name, per_copy in first.items():
+        r = paths[name]
+        lanes = per_copy[0]
+        off = max(abs(v - x) for (_, v), x in zip(lanes, r["err_mean"]))
+        if off > KNOB_F32_EDGE or any(al != x for (al, _), x in
+                                      zip(lanes, r["alive"])):
+            wide.append(name)
+        r["f32"] = {"alive": [al for al, _ in lanes], "copies": 1,
+                    "off_x64": off,
+                    "band": [[v, v] for _, v in lanes]}
+    if wide:
+        more = _jax_knob_f32(wide, copies, procs=procs)
+        for name, per_copy in more.items():
+            e = np.asarray([[v for _, v in lanes] for lanes in per_copy])
+            paths[name]["f32"].update(
+                copies=len(per_copy),
+                alive_copies=[int(sum(lanes[i][0] for lanes in per_copy))
+                              for i in range(len(per_copy[0]))],
+                all_alive=bool(all(al for lanes in per_copy
+                                   for al, _ in lanes)),
+                band=[[float(lo), float(hi)]
+                      for lo, hi in zip(e.min(0), e.max(0))])
+    for r in paths.values():
+        f = r["f32"]
+        f.setdefault("all_alive", all(f["alive"]))
+        f.setdefault("alive_copies", [int(al) for al in f["alive"]])
+    if only:
+        refs = json.loads(KNOB_REFS.read_text())
+        refs["paths"].update(paths)
+        KNOB_REFS.write_text(json.dumps(refs, indent=1) + "\n")
+        return {k: (float(np.mean(v["alive"])), float(np.mean(v["err_mean"])),
+                    v["f32"]["copies"]) for k, v in paths.items()}
+    # the lasso sweep with relinearized passes
+    ks = jax_lasso_candidates_models()
+    sweep = dict(LASSO_SWEEP, mpc=dict(LASSO_SWEEP["mpc"], **KNOB_LASSO))
+    mcfg = MpcConfig(**sweep["mpc"])
+    out = lasso_sweep_closed_loop(ks, Arm(ArmConfig(**sweep["arm"])), mcfg,
+                                  blockM_y(), steps=sweep["steps"])
+    err, alive = np.asarray(out["err"]), np.asarray(out["alive"])
+    jax32 = _jax_sweep_f32(ks, copies, F32_SEED, mpc=KNOB_LASSO)
+    cands = {}
+    for i, lv in enumerate(out["lasso"]):
+        em, al = float(err[i].mean()), bool(alive[i, -1])
+        f32 = jax32[i * copies:(i + 1) * copies]
+        ems = [v for _, v in f32] + [em]
+        cands[str(lv)] = {
+            "lasso": lv, "alive": al, "err_mean": em,
+            "err_worst": float(err[i].max()),
+            "f32_stable": all(a_ == al and abs(v - em) < 1e-3
+                              for a_, v in f32),
+            "f32_band": [min(ems), max(ems)],
+            "f32_alive": [a_ for a_, _ in f32]}
+        print("lasso", lv, cands[str(lv)]["err_mean"],
+              cands[str(lv)]["f32_band"], flush=True)
+    refs = {
+        "runner": "koopman_realizations_tpu Ksim.batched_runner "
+                  "(jax_enable_x64, CPU); lasso: workflows/lasso_sweep."
+                  "lasso_sweep_closed_loop",
+        "written_by": "python tests/test_torch_oracle.py --write-knob-refs",
+        "B": REF_B, "steps": REF_STEPS, "arm": BENCH_ARM,
+        "X0": "first joint spread over +-0.2 rad (bench_X0)",
+        "reference": "blockM([0.45, -0.35], 0.5, 0.5), T=15, Ts=0.05",
+        "f32": f"JAX with x64 off on the same lanes: the asset, and where "
+               f"it parts from x64 by more than {KNOB_F32_EDGE} on a lane "
+               f"(or keeps another lane alive) {copies - 1} copies with "
+               f"every nonzero of A moved one ulp (copy k's directions "
+               f"from default_rng([0, k])); band = each lane's [min, max] "
+               f"err_mean",
+        "paths": paths,
+        "lasso": {"recipe": {"arm": sweep["arm"],
+                             "mpc": {k: list(v) if isinstance(v, tuple)
+                                     else v for k, v in sweep["mpc"].items()},
+                             "steps": sweep["steps"]},
+                  "candidates_file": LASSO_CANDIDATES.name,
+                  "config": dataclasses.asdict(mcfg),
+                  "f32": f"{copies} lanes a candidate (as trained and A "
+                         f"moved one ulp, seed {F32_SEED}), JAX x64 off",
+                  "candidates": cands}}
+    KNOB_REFS.write_text(json.dumps(refs, indent=1) + "\n")
+    return {k: (float(np.mean(v["alive"])), float(np.mean(v["err_mean"])),
+                v["f32"]["copies"]) for k, v in paths.items()}
 
 
 def test_asset_loads_identically_in_both_packages():
@@ -1619,6 +2117,23 @@ if __name__ == "__main__":
     ap.add_argument("--write-dictionary-refs", action="store_true",
                     help="rerun only the JAX runs of dictionary_refs.json "
                          "on the committed dictionary assets")
+    ap.add_argument("--write-dictionary-full", nargs="*", metavar="PATH",
+                    help="rerun only the JAX full-width runs of "
+                         "dictionary_refs.json (the named paths, or all)")
+    ap.add_argument("--procs", type=int, default=8,
+                    help="JAX processes at once (--write-dictionary-full, "
+                         "--write-knob-refs)")
+    ap.add_argument("--write-angles", action="store_true",
+                    help="write the angle-output corpus, its two "
+                         "JAX-trained assets and runner_refs.json")
+    ap.add_argument("--write-knob-refs", nargs="*", metavar="PATH",
+                    help="record the JAX general runner's quality in every "
+                         "controller knob of KNOB_PATHS (knob_refs.json; "
+                         "the named paths alone, the rest kept)")
+    ap.add_argument("--write-lost-lanes", metavar="FILE",
+                    help="copy the lost lanes' QPs of a chip_smoke.py "
+                         "--measure cold-lanes report (its .npz) to "
+                         "assets/cold_lost_lanes.npz with JAX's verdict")
     ap.add_argument("--write-rand-refs", action="store_true",
                     help="record the JAX random-system sweep of RAND_MODELS"
                          " (rand_models_refs.json)")
@@ -1628,12 +2143,17 @@ if __name__ == "__main__":
             or args.write_bilinear_refs or args.write_lasso_refs
             or args.write_rand_refs or args.write_loaded
             or args.write_loaded_refs or args.write_dictionaries
-            or args.write_dictionary_refs):
+            or args.write_dictionary_refs or args.write_angles
+            or args.write_knob_refs is not None
+            or args.write_lost_lanes is not None
+            or args.write_dictionary_full is not None):
         ap.error("nothing to do (pass --write-asset, --write-corpus, "
                  "--write-regime-refs, --write-bilinear-refs, "
                  "--write-lasso-refs, --write-rand-refs, --write-loaded, "
-                 "--write-loaded-refs, --write-dictionaries or "
-                 "--write-dictionary-refs)")
+                 "--write-loaded-refs, --write-dictionaries, "
+                 "--write-dictionary-refs, --write-dictionary-full, "
+                 "--write-angles, --write-knob-refs or "
+                 "--write-lost-lanes)")
     if args.write_corpus:
         print(json.dumps(write_corpus(), indent=1))
     if args.write_asset is not None:
@@ -1655,3 +2175,14 @@ if __name__ == "__main__":
         print(json.dumps(write_dictionary_assets(), indent=1))
     if args.write_dictionaries or args.write_dictionary_refs:
         print(json.dumps(write_dictionary_refs(), indent=1))
+    if args.write_dictionary_full is not None:
+        print(json.dumps(add_dictionary_full_width(
+            args.write_dictionary_full, args.procs), indent=1))
+    if args.write_angles:
+        print(json.dumps(write_angles(), indent=1))
+    if args.write_lost_lanes is not None:
+        print(json.dumps(write_lost_lanes(args.write_lost_lanes), indent=1))
+    if args.write_knob_refs is not None:
+        print(json.dumps(write_knob_refs(procs=args.procs,
+                                         only=args.write_knob_refs),
+                         indent=1))

@@ -158,8 +158,10 @@ def test_linear_entry_points_default_to_the_card():
 
 
 def test_linear_controller_refuses_what_is_not_ported():
-    """Warm duals, a dual shift, an unblocked stack and a bilinear model
-    raise instead of running another controller."""
+    """Blocks with smoothness rows or state bounds (as in the JAX
+    controller) and a bilinear model raise instead of running another
+    controller; warm duals, the dual shift and the unblocked stack
+    construct (their parity: ``tests/test_torch_knobs.py``)."""
     from koopman_realizations_torch.config import MpcConfig
     from koopman_realizations_torch.control.kmpc import LinearKmpc
     from koopman_realizations_torch.utils.checkpoint import (
@@ -171,11 +173,17 @@ def test_linear_controller_refuses_what_is_not_ported():
     base = dict(horizon=10, qp_iters=6, input_blocks=(1, 1, 2, 5),
                 input_bounds=(-2.7, 2.7), input_slopeConst=0.1,
                 proj_idx=(4, 5))
-    for extra in (dict(qp_dual_warm=True), dict(qp_dual_shift=True),
-                  dict(input_blocks=None), dict(input_smoothConst=0.1)):
+    for extra in (dict(state_bounds=(-1.0, 1.0)),
+                  dict(state_bounds=(-1.0, 1.0), qp_dual_warm=True),
+                  dict(state_bounds=(-1.0, 1.0), qp_dual_shift=True),
+                  dict(input_smoothConst=0.1)):
         with pytest.raises(NotImplementedError):
             LinearKmpc(model, scaler, MpcConfig(**{**base, **extra}),
                        device="cpu")
+    for extra in (dict(qp_dual_warm=True), dict(qp_dual_shift=True),
+                  dict(input_blocks=None)):
+        LinearKmpc(model, scaler, MpcConfig(**{**base, **extra}),
+                   device="cpu")
     with pytest.raises(NotImplementedError):
         LinearKmpc(load_model()[0], scaler, MpcConfig(**base), device="cpu")
 

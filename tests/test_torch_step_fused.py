@@ -294,11 +294,12 @@ def test_fused_runner_rejects_f64():
         psim.fused_runner(blockM_y(), steps=5)
 
 
-@pytest.mark.parametrize("arm", [dict(jac_mode="substep"),
-                                 dict(output_type="angles")])
+@pytest.mark.parametrize("arm", [dict(output_type="endeff"),
+                                 dict(output_type="shape")])
 def test_fused_runner_rejects_other_plants(arm):
-    """The fused step takes marker outputs and one Jacobian per period;
-    other arms go through ``batched_runner``."""
+    """The fused step takes marker or angle outputs (JAX
+    ``_fused_plant_ok``); arms with other outputs go through
+    ``batched_runner``."""
     psim = _port(torch.float32, **arm)
     assert not psim.fused_step_eligible()
     with pytest.raises(ValueError):
