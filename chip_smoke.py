@@ -58,7 +58,14 @@ nz=15), ``bilin`` (NL=84 without PCA, NL=19 fourier_sparser) and
 eight loops (delays, no PCA, fourier_sparser blocked, unblocked and
 with the model in the loop, poly + gaussian linear, the jacfwd NMPC on a
 fourier_sparser model and on a bilinear one) at B=16 against the JAX
-references and at B=65536 x 301 through their kernels.  It
+references and at B=65536 x 301 through their kernels.  Phase NU runs
+the NMPC's unblocked stack (``input_blocks=None``, n=27) in every route
+through the wide builds of ``nmpc_multipass``, ``nmpc_stage``,
+``nmpc_pass`` and ``ipm_factored``'s q0 build (the default at
+B=65536 x 301), its state bounds on the plain per-lane interior point,
+and a loaded model with delays under the load observer, against
+``assets/nmpc_unblocked_refs.json`` and
+``assets/loaded_delays_refs.json``.  It
 prints the card's name and power limit, one JSON line with every
 kernel's launches, device launches a call, error, times and bound, and
 as the last line {"ok": true, "device": {...}}.  Any failed phase raises; without CUDA or
@@ -165,6 +172,10 @@ DICT_REFS = ROOT / "koopman_realizations_torch" / "assets" / \
     "dictionary_refs.json"
 # closed-loop steps before phase DX2's kernel checks
 DX_CHECK_STEPS = 12
+# DX4's depth of the jacfwd NMPC paths (nmpc-fs1, nmpc-bilin; 25 s and 76
+# s at 301 steps on the H100): cut to keep the script inside its limit
+# since PR 17's phase NU, their full-width gate is alive at the last step
+DX_JACFWD_STEPS = 101
 B_MAIN, B_GENERAL, B_CHECK, STEPS = 262144, 65536, 8192, 301
 # H100 SXM published peaks: f32 outside the tensor cores, HBM3 bandwidth
 PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
@@ -1464,12 +1475,12 @@ def phase_dictionaries(dev, drive, check_qp, ptx, D, smi) -> dict:
     launches = {}
     for name, P in D.paths.items():
         X0, W = dict_lanes(P, B_GENERAL)
-        steps = STEPS
+        steps = DX_JACFWD_STEPS if P.kernel == "nmpc_pass" else STEPS
         run = P.sim.batched_runner(ref, steps=steps)
         P.sim.batched_runner(ref, steps=3)(X0, W)          # warm-up, capture
         res, wall, counts = drive(dict_launches(P, steps),
                                   lambda: run(X0, W))
-        e = lane_tracking_error(res["Yp"], ref).cpu().numpy()
+        e = lane_tracking_error(res["Yp"], ref[:steps]).cpu().numpy()
         alive = res["alive"][:, -1].cpu().numpy()
         all16 = dict_all_alive(P.r)
         log(f"DX4 {name} ({P.model.meta.model_type}, "
@@ -2272,6 +2283,598 @@ KERNEL_DEF = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*"
                         r"|KG_BOUNDS\s+)?(\w+)\s*\(")
 
 
+# ---- phase NU: the NMPC's unblocked stack (the default input_blocks=None,
+# the reference's own NMPC: n = (Np-1) m = 27, mc = 108) in every route the
+# JAX controller takes there, and loaded models with delays under the load
+# observer; references by tests/test_torch_oracle.py
+# --write-unblocked-refs and --write-loaded-delays
+UNBLOCKED_REFS = ROOT / "koopman_realizations_torch" / "assets" / \
+    "nmpc_unblocked_refs.json"
+LOADED_DEL_REFS = ROOT / "koopman_realizations_torch" / "assets" / \
+    "loaded_delays_refs.json"
+# the routes' runs at full width, each path's route and kernel, the depth
+# of the routes off the multipass one at B_GENERAL (cut to keep the phase
+# near 3 minutes), the state-bound loop's lanes (the plain per-lane
+# interior point) and the closed-loop steps of the kernel checks' lanes
+NU_ROUTE_KERNEL = {"multipass": "nmpc_multipass", "stage": "nmpc_stage",
+                   "chord": "nmpc_pass", "jacfwd": "nmpc_pass",
+                   "linear": "ipm_factored", "state_bounds": None}
+NU_STEPS, NU_B_SB, NU_CHECK_STEPS, NU_B_CHECK = 21, 2048, (5, 40), 4096
+# the loaded delayed loop's whole-batch err_mean against JAX f32's on the
+# same 2048 lanes: its lanes are chaotic in f32 (JAX's own one-ulp copies
+# span 0.20-0.58 a lane, the 16-lane mean's spread over them 0.017), so a
+# 2048-lane mean moves by ~1.5e-3 (one sigma) between two f32 orderings;
+# 5e-3 is three of them (as DX4 holds del1, PERF.md §6)
+NU_LOADED_MEAN_TOL = 5e-3
+# the reference lanes of every B=16 JAX run
+REF_LANES = 16
+
+
+def nu_setup(dev):
+    """Phase NU's references, controllers (f32 and f64) of every path of
+    ``UNBLOCKED_REFS`` and the loaded delayed model's, and the specs of
+    its new builds: ``nmpc_multipass``, ``nmpc_stage`` (each mode),
+    ``nmpc_pass`` (chord and jacfwd) and ``ipm_factored``'s q0 build at
+    n=27, mc=108, and ``bilin`` at the loaded delayed NL."""
+    import torch
+
+    from koopman_realizations_torch.config import ArmConfig
+    from koopman_realizations_torch.control.kmpc import (
+        BilinearKmpc,
+        NonlinearKmpc,
+    )
+    from koopman_realizations_torch.control.observer import (
+        make_load_observer,
+    )
+    from koopman_realizations_torch.models.arm import Arm
+    from koopman_realizations_torch.ops import nmpc as N
+    from koopman_realizations_torch.ops.kernels import bilin as BI
+    from koopman_realizations_torch.ops.kernels import ipm_factored as IF
+    from koopman_realizations_torch.ops.kernels import nmpc_multipass as NM
+    from koopman_realizations_torch.ops.kernels import nmpc_pass as NP
+    from koopman_realizations_torch.ops.kernels import nmpc_stage as NS
+    from koopman_realizations_torch.utils.checkpoint import (
+        ASSETS,
+        LOADED_DELAYED_MODEL,
+        load_model,
+    )
+    from koopman_realizations_torch.utils.trajectories import (
+        circle_reference,
+    )
+    refs = json.loads(UNBLOCKED_REFS.read_text())
+    U = types.SimpleNamespace(refs=refs, ctl={}, ctl64={}, specs={})
+    for name, p in refs["paths"].items():
+        model, scaler, _ = load_model(ASSETS / p["asset"])
+        cfg = rn_config(p["config"])
+        for dt, ctl in ((torch.float32, U.ctl), (torch.float64, U.ctl64)):
+            ctl[name] = NonlinearKmpc(model, scaler, cfg, device=dev,
+                                      dtype=dt)
+    q = U.ctl["default"].nmpc_qp()
+    U.specs["nmpc_multipass"] = NM.kernel_spec(q)
+    for mode in N.STAGE_MODES:
+        U.specs[f"nmpc_stage {mode}"] = NS.kernel_spec(q, mode)
+    U.specs["nmpc_pass chord"] = NP.kernel_spec(q)
+    U.specs["nmpc_pass jacfwd"] = NP.kernel_spec(U.ctl["jacfwd"].nmpc_qp())
+    lc = U.ctl["linear_update"]
+    U.specs["ipm_factored q0"] = IF.kernel_spec(lc.constraints(), q.p,
+                                                q0=True)
+    # the loaded delayed loop (the loaded experiment's controller and
+    # observer on the delayed asset)
+    lrefs = json.loads(LOADED_DEL_REFS.read_text())
+    lrec = json.loads(LOADED_REFS.read_text())
+    model, scaler, _ = load_model(LOADED_DELAYED_MODEL)
+    lcfg = rn_config(lrefs["mpc"])
+    U.loaded = types.SimpleNamespace(
+        refs=lrefs, r=lrec["recipe"], model=model, ref=circle_reference(),
+        arm=Arm(ArmConfig(**lrec["recipe"]["arm"]), device=dev),
+        ctl={dt: BilinearKmpc(model, scaler, lcfg, device=dev, dtype=dt)
+             for dt in (torch.float32, torch.float64)},
+        obs=make_load_observer(model, lcfg, device=dev))
+    U.specs["bilin del1"] = BI.kernel_spec(
+        U.loaded.ctl[torch.float32].bilin_qp())
+    return U
+
+
+def nu_launches(m, steps: int) -> dict:
+    """The kernels' launches of a ``steps``-step run of an unblocked
+    NMPC controller: one multipass launch a step, or one launch a pass on
+    its route's kernel; none on the state-bound route (plain)."""
+    k = NU_ROUTE_KERNEL[m.route]
+    if k is None:
+        return {}
+    return {k: (steps - 1) * (1 if m.route == "multipass"
+                              else m.cfg.sqp_iters)}
+
+
+def nu_lane_gate(e, jr: dict):
+    """DX's lane gate (``dict_lane_gate``) of a phase NU loop's 16
+    reference lanes (the first 16 of ``e``): JAX x64's err_mean and the
+    band of JAX's f32 runs, its one-ulp copies where the loop amplifies
+    f32 rounding ("f32_copies"), else its one reading ("f32")."""
+    import numpy as np
+    copies = jr["f32_copies"] if "f32_copies" in jr else [jr["f32"]]
+    f32 = np.asarray([[v for _, v in c] for c in copies])
+    r = {"err_mean": jr["err_mean"],
+         "f32": {"band": np.stack([f32.min(0), f32.max(0)], 1)}}
+    return dict_lane_gate(e, r)
+
+
+def nu_lanes(B: int, spread):
+    """X0 of a phase NU run of B lanes whose first 16 are the reference
+    lanes (``spread(16)``), the rest spread(B - 16)."""
+    import numpy as np
+    return np.concatenate([spread(REF_LANES), spread(B - REF_LANES)])
+
+
+def phase_unblocked(dev, E, U, smi) -> dict:
+    """Phase NU (ROADMAP items 4 and 7): the NMPC's default unblocked
+    stack and its state bounds, and loaded models with delays.
+
+    NU1 runs the default configuration (multipass, n=27) at B=65536 x 301
+    through ``nmpc_multipass``, its first 16 lanes the reference lanes:
+    alive 1.0 where JAX x64 keeps them alive, err_mean, wall and ms a
+    launch.  NU2 holds each new build to its plain f32 and f64 versions
+    on the first NU_B_CHECK of those lanes after 5 and 40 closed-loop steps
+    (median and p99 distance to f64 within twice plain f32's, equal ok
+    masks), cold at both and warm after 40: ``nmpc_multipass``,
+    ``nmpc_stage`` in each mode, ``nmpc_pass`` with fresh Jacobians
+    (chord) and forward-mode ones (jacfwd, the fourier_sparser model),
+    ``ipm_factored``'s q0 build on the 'linear' update's QP; then times
+    each at B=65536 beside its bound and plain version.  NU3 runs the 16
+    reference lanes of the other routes over 301 steps through their
+    kernels.  Every configuration's 16 lanes are held to the JAX
+    references (NU1, NU3, NU5): alive equal, err_mean within 1e-3 of the
+    hull of JAX x64 and JAX f32 lane by lane (``nu_lane_gate``: where the
+    loop amplifies f32 rounding, JAX's 96-copy band, at most two lanes of
+    a band wider than 1e-2 off by less than its width).  NU4 runs the
+    routes off the multipass one at B=65536 over NU_STEPS steps (alive
+    1.0, or no more lanes lost than the route's plain f32 version loses on
+    the same lanes).  NU5 runs the state-bound loop (the plain per-lane
+    interior point) at NU_B_SB lanes over its references' steps (101:
+    depth cut, ~0.2 s a step whatever the width), its first 16 lanes the
+    reference lanes, and counts the lane-steps with a state-bound row active (must
+    be > 0).  NU6 runs the loaded
+    delayed loop with the observer at B_full x 301 on the circle: ``bilin``
+    at its NL against its plain version after 14 steps, the 16 reference
+    lanes against x64 and JAX's f32 band (``nu_lane_gate``), alive as
+    JAX's, the whole batch at JAX f32's alive and within
+    NU_LOADED_MEAN_TOL of its err_mean.  Returns each build's launches,
+    error, times and bound for the kernels line."""
+    import numpy as np
+    import torch
+
+    from koopman_realizations_torch.control.ksim import Ksim
+    from koopman_realizations_torch.ops import nmpc as N
+    from koopman_realizations_torch.ops.kernels import bilin as BI
+    from koopman_realizations_torch.ops.kernels import ipm_factored as IF
+    from koopman_realizations_torch.ops.kernels import nmpc_multipass as NM
+    from koopman_realizations_torch.ops.kernels import nmpc_pass as NP
+    from koopman_realizations_torch.ops.kernels import nmpc_stage as NS
+    from koopman_realizations_torch.ops.qp import ok_mask
+    from koopman_realizations_torch.utils.metrics import lane_tracking_error
+    from koopman_realizations_torch.utils.trajectories import (
+        blockM_reference,
+    )
+    # each route's kernel module and wrapper stem (NU4's plain comparison)
+    NU_PLAIN_SWAP = {"stage": (NS, "nmpc_stage"), "chord": (NP, "nmpc_pass"),
+                     "jacfwd": (NP, "nmpc_pass"),
+                     "linear": (IF, "ipm_factored")}
+
+    t_phase = time.perf_counter()
+    ref = blockM_reference()
+    refs = U.refs["paths"]
+    arm = E.arm
+    base = U.ctl["default"]
+    sims = {name: Ksim(arm, m, device=dev) for name, m in U.ctl.items()}
+    wins = sims["default"].reference_windows(ref, STEPS)
+    spread = lambda B: E.spread_X0(B)
+    out = {"launches": {}, "builds": {}}
+    stamps = {}
+
+    def took(tag):
+        stamps[tag] = time.perf_counter()
+        E.log(f"{tag} took {stamps[tag] - t_phase:.1f} s into phase NU")
+
+    # ---- NU1: the default configuration at full width through
+    # nmpc_multipass, recording the solve's inputs for NU2's lanes
+    B = B_GENERAL
+    XG, WG = nu_lanes(B, spread), np.zeros((B, 2), np.float32)
+    run = sims["default"].batched_runner(
+        ref, steps=STEPS, record=("Yp", "alive", "zeta", "u_prev_sc"))
+    sims["default"].batched_runner(ref, steps=3)(XG[:1024], WG[:1024])
+    exp = nu_launches(base, STEPS)
+    go, gwall, counts = E.drive(exp, lambda: run(XG, WG))
+    eG = lane_tracking_error(go["Yp"], ref)
+    aliveG = go["alive"][:, -1].float().mean().item()
+    nm_launch_ms = 1e3 * gwall / (STEPS - 1)
+    E.log(f"NU1 unblocked NMPC (default config: input_blocks=None, n=27, "
+          f"mc=108; multipass) general runner B={B} steps={STEPS}: "
+          f"{gwall:.3f} s, {B * (STEPS - 1) / gwall:.4e} lane-steps/s, "
+          f"{nm_launch_ms:.2f} ms a step, alive {aliveG:.6f}, err_mean "
+          f"{eG.mean():.6f}, err_worst {eG.max():.6f}, launches {counts} "
+          f"| {smi}")
+    jr = refs["default"]
+    e16 = eG[:REF_LANES].cpu().numpy()
+    ok16, off, loose = nu_lane_gate(e16, jr)
+    E.log(f"NU1 default's 16 reference lanes: err_mean {e16.mean():.6f} "
+          f"(JAX x64 {np.mean(jr['err_mean']):.6f}), max lane distance to "
+          f"x64 {np.abs(e16 - jr['err_mean']).max():.3e}, outside the "
+          f"x64/f32 hull {off.max():.3e}")
+    if not (ok16 and (aliveG == 1.0 or not all(jr["alive"]))
+            and np.array_equal(go["alive"][:REF_LANES, -1].cpu().numpy(),
+                               np.asarray(jr["alive"]))):
+        raise AssertionError("NU1: the unblocked NMPC is off the JAX "
+                             "references or lost lanes at full width")
+    out["launches"]["default"] = {"nmpc_multipass":
+                                  counts["nmpc_multipass"]}
+    lanes = {k: (go["zeta"][:, k].T.contiguous(),
+                 go["u_prev_sc"][:, k].T.contiguous())
+             for k in NU_CHECK_STEPS}
+    del go
+    took("NU1")
+
+    # ---- NU2: every new build against its plain f32 and f64 versions
+    def gate(label, res_k, res_p, x64, qp_cons, b, tag="NU2"):
+        (xk, sk, lk), (xp, sp, lp) = res_k[:3], res_p[:3]
+        okk = ok_mask(qp_cons, b, xk, sk, lk, 3e-3, 5e-2)[0]
+        okp = ok_mask(qp_cons, b, xp, sp, lp, 3e-3, 5e-2)[0]
+        lv = torch.tensor([0.5, 0.99], dtype=torch.float64, device=dev)
+        ek = torch.quantile((xk.double() - x64).abs().amax(0), lv)
+        ep = torch.quantile((xp.double() - x64).abs().amax(0), lv)
+        dx = (xk - xp).abs().max().item()
+        E.log(f"{tag} {label}: max|dx| {dx:.3e}; distance to f64 (median, "
+              f"p99): kernel {ek[0]:.3e} {ek[1]:.3e}, plain f32 "
+              f"{ep[0]:.3e} {ep[1]:.3e}; ok {int(okk.sum())}/"
+              f"{int(okp.sum())} of {xk.shape[1]}")
+        if not (torch.equal(okk, okp)
+                and bool((ek <= 2 * ep + 1e-5).all())):
+            raise AssertionError(f"{tag} {label}: the kernel disagrees "
+                                 f"with its plain version")
+        return dx
+
+    def inputs(k, Bc, rho=0.1, f64=True):
+        """The operands of one pass of every build at step k's lanes (the
+        first Bc), f32 and f64: the multipass plan as the linearization
+        plan, its rollout, the chord's fresh Jacobians, the jacfwd
+        model's forward-mode ones, the 'linear' update's condensed W, v,
+        x0 = Ul[m:], q0 = -2 rho Ul[m:], the plan's multipliers in row
+        units as the warm start."""
+        zeta, up = (t[:, :Bc].contiguous() for t in lanes[k])
+        sq = wins[k]
+        U_, sol = base.solve(zeta, up, sq)
+        d = {}
+        for dt, ctl in ((torch.float32, U.ctl), (torch.float64, U.ctl64)
+                        )[:2 if f64 else 1]:
+            c, cj, cl = (ctl[n] for n in ("default", "jacfwd",
+                                          "linear_update"))
+            q_ = c.nmpc_qp(c.RdT_t + rho * c.bsizes_t)
+            Ud, z, u, r = (t.to(dt).contiguous() for t in (U_, zeta, up, sq))
+            Z = N.rollout(q_, z, Ud)
+            Zl, Fv = Z[:-1].contiguous(), Z[1:].contiguous()
+            Jt, cv = N.stage_lin(q_, Zl, Ud, Fv=Fv)
+            Zj = cj._rollout_full(z, Ud)
+            Jj, cvj = cj.stage_lin(Zj[:-1], Ud, Fv=Zj[1:])
+            qj = cj.nmpc_qp(cj.RdT_t + rho * cj.bsizes_t)
+            ql = cl.nmpc_qp(cl.RdT_t + rho * cl.bsizes_t)
+            W, v = N.condense(ql, Jt, cv, z, u, r)
+            x0 = Ud[3:].contiguous()
+            d[dt] = dict(
+                qp=q_, qj=qj, ql=ql, zeta=z, up=u, sq=r, Ul=Ud, Zl=Zl, Fv=Fv,
+                Jt=Jt, cv=cv, Jj=Jj.contiguous(), cvj=cvj.contiguous(),
+                W=W.contiguous(), v=v.contiguous(), x0=x0,
+                q0=(-2.0 * rho * x0).contiguous(),
+                lam0=(sol.lam.to(dt) * q_.row[:, None]).contiguous(),
+                b_eq=((cl.cF_t[:, None] - cl.F0_t @ u)
+                      / cl.row[:, None]).contiguous(),
+                cons=cl.constraints())
+        return d
+
+    iters = base.cfg.qp_iters
+    sqp = (base.cfg.sqp_iters, base.hold0, iters)
+
+    def calls(build, d, warm=False):
+        """(kernel, plain) calls of one launch of ``build`` on d."""
+        lam = d["lam0"] if warm else None
+        tail = (d["zeta"], d["up"], d["sq"], d["x0"], d["q0"], lam, iters,
+                1e-2)
+        if build == "nmpc_multipass":
+            a = (d["qp"], d["zeta"], d["up"], d["sq"], *sqp)
+            fk, fp = NM.nmpc_multipass_cuda, NM.nmpc_multipass_plain
+            kw = {}
+        elif build.startswith("nmpc_stage"):
+            mode = build.split()[1]
+            a = (d["qp"], mode) + tail
+            kw = {"ship": dict(Zl=d["Zl"], Ul=d["Ul"], Fv=d["Fv"]),
+                  "roll": dict(Ul=d["Ul"]), "hold": {}}[mode]
+            fk, fp = NS.nmpc_stage_cuda, NS.nmpc_stage_plain
+        elif build.startswith("nmpc_pass"):
+            jac = build.endswith("jacfwd")
+            a = ((d["qj"], d["Jj"], d["cvj"]) if jac
+                 else (d["qp"], d["Jt"], d["cv"])) + tail
+            fk, fp, kw = NP.nmpc_pass_cuda, NP.nmpc_pass_plain, {}
+        else:
+            a = (d["cons"], d["ql"].rdiag, d["W"], d["v"], d["b_eq"],
+                 d["x0"], d["lam0"] if warm else None, iters, 1e-2,
+                 d["q0"])
+            fk, fp, kw = IF.ipm_factored_cuda, IF.ipm_factored_plain, {}
+        return (lambda: fk(*a, **kw)), (lambda: fp(*a, **kw))
+
+    def check(build, d, warm, label):
+        kc, pc = calls(build, d[torch.float32], warm)
+        rk = kc()
+        torch.cuda.synchronize()
+        rp = pc()
+        x64 = calls(build, d[torch.float64], warm)[1]()[0]
+        d32 = d[torch.float32]
+        if build == "ipm_factored q0":
+            cons, b = d32["cons"], d32["b_eq"]
+        else:
+            q_ = d32["qj"] if build.endswith("jacfwd") else d32["qp"]
+            cons, b = q_.cons, N.rhs(q_, d32["up"])
+        return gate(f"{build} {'warm' if warm else 'cold'} {label}", rk, rp,
+                    x64, cons, b)
+
+    builds = ["nmpc_multipass"] + [f"nmpc_stage {m}" for m in N.STAGE_MODES] \
+        + ["nmpc_pass chord", "nmpc_pass jacfwd", "ipm_factored q0"]
+    for b_ in builds:
+        E.log(f"NU2 {b_} (n=27, mc=108): ptxas {E.ptx(U.specs[b_])}")
+    err = {b_: 0.0 for b_ in builds}
+    for k in NU_CHECK_STEPS:
+        d = inputs(k, NU_B_CHECK)
+        for b_ in builds:
+            for warm in ((False,) if b_ == "nmpc_multipass"
+                         or k != NU_CHECK_STEPS[-1] else (False, True)):
+                err[b_] = max(err[b_], check(
+                    b_, d, warm, f"B={NU_B_CHECK} after {k} steps"))
+        del d
+    took("NU2 checks")
+    # times at B=65536 on the step-5 lanes, beside each build's bound
+    d = inputs(NU_CHECK_STEPS[0], B, f64=False)
+    d32 = d[torch.float32]
+    q_ = d32["qp"]
+    lane_bytes = nbytes(d32["zeta"], d32["up"], d32["sq"], d32["x0"],
+                        d32["q0"]) + 4 * B * (q_.n + 2 * q_.mc + 1)
+    shared = nbytes(q_.rdiag, q_.CzS, q_.cFr, q_.F0r, q_.A, q_.Wd, q_.Wo)
+    fmaps = nbytes(q_.A1, q_.A2, q_.a0, q_.G)
+    ops = {"nmpc_multipass": nmpc_ops(q_, *sqp),
+           "nmpc_stage hold": nmpc_onepass_ops(q_, "hold", iters, True,
+                                               False),
+           "nmpc_stage roll": nmpc_onepass_ops(q_, "roll", iters, True,
+                                               False),
+           "nmpc_stage ship": nmpc_onepass_ops(q_, "ship", iters, True,
+                                               False),
+           "nmpc_pass chord": nmpc_onepass_ops(q_, "jacobians", iters, True,
+                                               False),
+           "nmpc_pass jacfwd": nmpc_onepass_ops(d32["qj"], "jacobians",
+                                                iters, True, False),
+           "ipm_factored q0": gram_ops(
+               (d32["W"] != 0).any(-1).reshape(-1).tolist(), q_.n) + q_.n
+           + factored_tail_ops(d32["cons"], iters)}
+    extra = {"nmpc_multipass": fmaps + nbytes(q_.Gup, q_.q0c),
+             "nmpc_stage hold": fmaps, "nmpc_stage roll": fmaps
+             + nbytes(d32["Ul"]),
+             "nmpc_stage ship": nbytes(q_.A1, q_.G, d32["Zl"], d32["Ul"],
+                                       d32["Fv"]),
+             "nmpc_pass chord": nbytes(d32["Jt"], d32["cv"]),
+             "nmpc_pass jacfwd": nbytes(d32["Jj"], d32["cvj"]),
+             "ipm_factored q0": nbytes(d32["W"], d32["v"], d32["b_eq"])
+             - nbytes(d32["zeta"], d32["up"], d32["sq"]) - shared
+             + nbytes(d32["cons"].A, d32["cons"].Wd, d32["cons"].Wo,
+                      d32["ql"].rdiag)}
+    for b_ in builds:
+        kc, pc = calls(b_, d32)
+        kname = b_.split()[0]
+        ms = E.kernel_ms(kname, kc, reps=3 if b_ == "nmpc_multipass" else 5,
+                         build=f"unblocked {b_}")
+        plain = cuda_ms(pc, reps=1, warmup=1)
+        flops = ops[b_] * B
+        bms, by = bound(flops, lane_bytes + shared + extra[b_])
+        out["builds"][b_] = {"kernel": kname, "err": err[b_], "ms": ms,
+                             "plain": plain, "bound": bms, "by": by}
+        E.log(f"NU2 {b_} at B={B}: {ms:.4f} ms (plain {plain:.2f} ms, "
+              f"bound {bms:.4f} ms by {by}, {flops / B:.0f} op/lane) | "
+              f"{smi}")
+    del d, d32, lanes
+    took("NU2 times")
+
+    # ---- NU3: the 16 reference lanes of the other routes, 301 steps
+    X16, W16 = spread(REF_LANES), np.zeros((REF_LANES, 2), np.float32)
+    for name, jr in refs.items():
+        if name in ("default", "state_bounds"):      # NU1, NU5
+            continue
+        m = U.ctl[name]
+        exp = nu_launches(m, STEPS)
+        o, wall, counts = E.drive(
+            exp, lambda: sims[name].batched_runner(ref, steps=STEPS)(
+                X16, W16))
+        e = lane_tracking_error(o["Yp"], ref).cpu().numpy()
+        alive = o["alive"][:, -1].cpu().numpy()
+        x64 = np.asarray(jr["err_mean"])
+        ok16, off, loose = nu_lane_gate(e, jr)
+        E.log(f"NU3 {name} ({m.route}) B=16 x {STEPS}: err_mean "
+              f"{e.mean():.6f} (JAX x64 {x64.mean():.6f}), max lane "
+              f"distance to x64 {np.abs(e - x64).max():.3e}, outside the "
+              f"x64/f32 hull {off.max():.3e} ({len(jr.get('f32_copies', [0]))}"
+              f" JAX f32 runs; lanes off by 1e-3 or more {loose.tolist()});"
+              f" alive {alive.mean():.4f}; {wall:.2f} s; launches {counts}")
+        if not (np.array_equal(alive, np.asarray(jr["alive"])) and ok16):
+            raise AssertionError(f"NU3 {name}: off the JAX references")
+        out["launches"][f"{name} B=16"] = counts
+    took("NU3")
+
+    # ---- NU4: the routes off the multipass one at full width
+    for name in ("damping_decay", "linesearch", "jac_period",
+                 "linear_update", "jacfwd"):
+        m = U.ctl[name]
+        runf = sims[name].batched_runner(ref, steps=NU_STEPS)
+        exp = nu_launches(m, NU_STEPS)
+        o, wall, counts = E.drive(exp, lambda: runf(XG, WG))
+        e = lane_tracking_error(o["Yp"], ref[:NU_STEPS])
+        a = o["alive"][:, -1].float().mean().item()
+        E.log(f"NU4 {name} ({m.route}) B={B} steps={NU_STEPS}: "
+              f"{wall:.3f} s, {1e3 * wall / (NU_STEPS - 1):.2f} ms a step,"
+              f" alive {a:.6f}, err_mean {e.mean():.6f}, launches "
+              f"{counts} | {smi}")
+        if a != 1.0:
+            # a loop that loses lanes: the same lanes with the route's
+            # kernel swapped for its plain f32 version (outside ``drive``)
+            # must lose at least as many -- f32 orderings each lose their
+            # own lanes of a chaotic loop (the jacfwd route's)
+            mod, fn = NU_PLAIN_SWAP[m.route]
+            kern = getattr(mod, fn + "_cuda")
+            setattr(mod, fn + "_cuda", getattr(mod, fn + "_plain"))
+            try:
+                op_ = runf(XG, WG)
+            finally:
+                setattr(mod, fn + "_cuda", kern)
+            lost_k = int((~o["alive"][:, -1]).sum())
+            lost_p = int((~op_["alive"][:, -1]).sum())
+            E.log(f"NU4 {name}: lanes lost by the kernel {lost_k}, by its "
+                  f"plain f32 version on the same lanes {lost_p}")
+            if lost_k > lost_p:
+                raise AssertionError(f"NU4 {name}: the kernel loses more "
+                                     f"lanes than its plain version")
+            del op_
+        out["launches"][name] = counts
+        del o
+    took("NU4")
+
+    # ---- NU5: the state-bound loop on the plain per-lane route
+    sbm = U.ctl["state_bounds"]
+    jr = refs["state_bounds"]
+    sb_steps = jr["steps"]
+    solve0 = sbm.solve
+    seen = {"active": 0, "lane_steps": 0}
+    nrows = sbm.n_con
+
+    def counting(*a, **kw):
+        Uo, sol = solve0(*a, **kw)
+        act = (sol.lam[nrows:] > 1e-6 * sol.lam.abs().amax(0).clamp_min(
+            1e-12)).any(0) & sol.ok
+        seen["active"] += int(act.sum())
+        seen["lane_steps"] += act.numel()
+        return Uo, sol
+    sbm.solve = counting
+    try:
+        Xs, Ws = nu_lanes(NU_B_SB, spread), np.zeros((NU_B_SB, 2),
+                                                       np.float32)
+        o, wall, counts = E.drive({}, lambda: sims["state_bounds"]
+                                  .batched_runner(ref, steps=sb_steps)(Xs,
+                                                                       Ws))
+    finally:
+        del sbm.solve
+    e = lane_tracking_error(o["Yp"], ref[:sb_steps])
+    a = o["alive"][:, -1].float().mean().item()
+    E.log(f"NU5 state bounds (plain per-lane interior point, n=27, "
+          f"mc={nrows + 2 * 6 * 9}) B={NU_B_SB} steps={sb_steps}: "
+          f"{wall:.3f} s"
+          f", alive {a:.6f}, err_mean {e.mean():.6f}; a state-bound row "
+          f"active on {seen['active']} of {seen['lane_steps']} lane-steps "
+          f"| {smi}")
+    e16 = e[:REF_LANES].cpu().numpy()
+    ok16, off, _ = nu_lane_gate(e16, jr)
+    E.log(f"NU5 state bounds' 16 reference lanes: err_mean {e16.mean():.6f}"
+          f" (JAX x64 {np.mean(jr['err_mean']):.6f}), max lane distance to "
+          f"x64 {np.abs(e16 - jr['err_mean']).max():.3e}, outside the "
+          f"x64/f32 hull {off.max():.3e}")
+    if seen["active"] == 0 or not ok16 or (all(jr["alive"]) and a != 1.0):
+        raise AssertionError("NU5: no state-bound row active, lanes lost "
+                             "or off the JAX references")
+    out["sb_active"] = seen
+    took("NU5")
+
+    # ---- NU6: the loaded delayed loop with the observer
+    L = U.loaded
+    lr = L.refs
+    Bf = L.r["B_full"]
+    X0, W = loaded_lanes(Bf, L.r)
+    c32, c64 = L.ctl[torch.float32], L.ctl[torch.float64]
+    lsim = Ksim(L.arm, c32, observer=L.obs, device=dev)
+    st = lsim.batched_runner(L.ref, steps=15, record=(
+        "Z", "u_prev_sc", "U_plan_in", "alive"))(X0, W)
+    k = 13
+    z = st["Z"][:, k].T.contiguous()
+    up = st["u_prev_sc"][:, k].T.contiguous()
+    Up = st["U_plan_in"][:, k].reshape(Bf, -1).T.contiguous()
+    win = lsim.reference_windows(L.ref, 16)[k]
+    a = {}
+    for dt, c in ((torch.float32, c32), (torch.float64, c64)):
+        a[dt] = (c.bilin_qp(), z.to(dt).contiguous(),
+                 up.to(dt).contiguous(),
+                 c.warm_start(Up.to(dt)).contiguous(), None,
+                 win.to(dt).contiguous(), c.cfg.qp_iters, 1e-2)
+    bq = a[torch.float32][0]
+    rk = BI.bilin_cuda(*a[torch.float32])
+    torch.cuda.synchronize()
+    rp = BI.bilin_plain(*a[torch.float32])
+    x64 = BI.bilin_plain(*a[torch.float64])[0]
+    b = c32.cFr[:, None] - c32.F0r @ up
+    berr = gate(f"bilin (loaded delayed, NL={bq.nzl}, n={bq.n}, mc={bq.mc})"
+                f" cold B={Bf} after {k + 1} steps", rk, rp, x64,
+                c32.constraints(), b, tag="NU6")
+    bms_ = E.kernel_ms("bilin", lambda: BI.bilin_cuda(*a[torch.float32]),
+                       reps=20, build="loaded delayed")
+    bplain = cuda_ms(lambda: BI.bilin_plain(*a[torch.float32]), reps=3,
+                     warmup=1)
+    bflops = qp_ops(bq, c32.cfg.qp_iters) * Bf
+    bb, bby = bound(bflops, nbytes(*a[torch.float32][1:4],
+                                   a[torch.float32][5])
+                    + 4 * Bf * (bq.n + 2 * bq.mc + 1)
+                    + nbytes(bq.gens, bq.rdiag, bq.A, bq.cFr, bq.F0r,
+                             bq.Wd, bq.Wo))
+    E.log(f"NU6 bilin loaded delayed NL={bq.nzl} at B={Bf}: {bms_:.4f} ms "
+          f"(plain {bplain:.2f} ms, bound {bb:.5f} ms by {bby}); ptxas: "
+          f"{E.ptx(U.specs['bilin del1'])} | {smi}")
+    del st
+    steps_l = lr["steps"]
+    exp = {"bilin": steps_l - 1,
+           "ipm_shared": sum(1 for kk in range(1, steps_l)
+                             if L.obs.updates(kk))}
+    o, wall, counts = E.drive(exp, lambda: lsim.batched_runner(
+        L.ref, steps=steps_l)(X0, W))
+    Yp = o["Yp"]
+    e = torch.sqrt(((Yp - torch.as_tensor(L.ref[:steps_l - 1], device=dev,
+                                          dtype=Yp.dtype)) ** 2).sum(-1)
+                   ).mean(1).cpu().numpy()
+    alive = o["alive"][:, -1].cpu().numpy()
+    nref = lr["B"]
+    lanes_ok, far, _ = nu_lane_gate(e[:nref], {
+        "err_mean": lr["err_mean"], "f32_copies": lr["f32_copies"]})
+    wh = o["what"]
+    full = lr["full_f32"]
+    E.log(f"NU6 loaded delayed loop (nzeta {L.model.meta.nzeta}, NL "
+          f"{L.model.meta.NL}) with the observer B={Bf} x {steps_l}: "
+          f"{wall:.3f} s, alive {alive.mean():.6f} (JAX f32 "
+          f"{full['alive']:.6f}), err_mean {e.mean():.6f} (JAX f32 "
+          f"{full['err_mean']:.6f}); 16 reference lanes: err_mean "
+          f"{e[:nref].mean():.6f} (JAX x64 {np.mean(lr['err_mean']):.6f}), "
+          f"outside the x64/f32-band hull {far.max():.3e}; What in "
+          f"[{wh.min().item():.3f}, {wh.max().item():.3f}]; launches "
+          f"{counts} | {smi}")
+    fails = [name for name, ok in (
+        ("alive of the reference lanes",
+         np.array_equal(alive[:nref], np.asarray(lr["alive"]))),
+        ("reference lanes off the hull", lanes_ok),
+        ("alive fraction", abs(alive.mean() - full["alive"])
+         < 1e-9 + 1.0 / Bf),
+        ("err_mean", abs(e.mean() - full["err_mean"]) < NU_LOADED_MEAN_TOL),
+        ("What outside [-1, 1]", wh.abs().max().item() <= 1.0 + 1e-6))
+        if not ok]
+    if fails:
+        raise AssertionError(f"NU6: the loaded delayed loop is off the JAX "
+                             f"references: {fails}")
+    out["builds"]["bilin del1"] = {"kernel": "bilin", "err": berr,
+                                   "ms": bms_, "plain": bplain, "bound": bb,
+                                   "by": bby}
+    out["launches"]["loaded delayed"] = counts
+    took("NU6")
+    marks = [t_phase] + list(stamps.values())
+    E.log("NU phase times (s): " + ", ".join(
+        f"{tag} {b - a:.1f}" for tag, a, b in zip(stamps, marks, marks[1:]))
+        + f"; total {time.perf_counter() - t_phase:.1f}")
+    return out
+
+
 def kernel_names(csrc: Path) -> frozenset:
     """The names of the port's kernels, from its CUDA sources."""
     return frozenset(name for src in csrc.glob("*.cu")
@@ -2723,6 +3326,13 @@ def main() -> int:
     # warm-dual build and its n=27 builds
     Rx = rn_setup(dev)
     for sp in Rx.specs.values():
+        if sp not in specs:
+            specs.append(sp)
+    # the unblocked NMPC's and the loaded delayed model's builds (phase
+    # NU): nmpc_multipass, nmpc_stage (each mode), nmpc_pass (chord,
+    # jacfwd) and ipm_factored's q0 build at n=27, bilin at the delayed NL
+    Ux = nu_setup(dev)
+    for sp in Ux.specs.values():
         if sp not in specs:
             specs.append(sp)
     builds = _build.build_all(specs)
@@ -4049,6 +4659,14 @@ def main() -> int:
         Rx, Dx, smi)
     rnl = rn["launches"]
 
+    # ---- phase NU: the NMPC's unblocked stack in every route and its
+    # state bounds, loaded models with delays (its nmpc_multipass,
+    # nmpc_stage, nmpc_pass, ipm_factored, bilin and ipm_shared launches
+    # join rows 6, 7, 8, 4, 5 and 4)
+    nu = phase_unblocked(dev, types.SimpleNamespace(
+        drive=drive, kernel_ms=kernel_ms, ptx=ptx, log=log, arm=arm,
+        spread_X0=spread_X0), Ux, smi)
+
     tpu = "koopman_realizations_tpu/ops/pallas/"
     src = "koopman_realizations_torch/csrc/"
     rows = [("step_fused", "step_fused.py:90", fused_main["step_fused"],
@@ -4156,6 +4774,21 @@ def main() -> int:
                              label, 0),
             "max_abs_err": f["err"], "ms": f["ms"], "plain_ms": f["plain"],
             "bound_ms": f["bound"], "bound_by": f["by"]}
+    # phase NU's builds: their launches on the NU paths join their rows'
+    # launches, their times of their own
+    for path, counts in nu["launches"].items():
+        for kname, n in counts.items():
+            if not n:
+                continue
+            row = next(k for k in kernels if k["name"] == kname)
+            row["launches"] += n
+            row.setdefault("unblocked_launches", {})[path] = n
+    for name, bd in nu["builds"].items():
+        row = next(k for k in kernels if k["name"] == bd["kernel"])
+        row.setdefault("unblocked", {})[name] = {
+            "max_abs_err": bd["err"], "ms": bd["ms"],
+            "plain_ms": bd["plain"], "bound_ms": bd["bound"],
+            "bound_by": bd["by"]}
     log("RN comp_time (ms a step, B=1): " + json.dumps(rn["comp_time"])
         + f"; RN6 bilin_lift del1 p99 to f64 kernel/plain f32 "
           f"{rn['tail']['p99']}, f32 tail {rn['tail']['f32_tail']}")

@@ -70,6 +70,7 @@ from koopman_realizations_torch.ops.nmpc import (
     nmpc_qp_operands,
     rollout,
     stage_lin,
+    state_bound_qp,
 )
 from koopman_realizations_torch.ops.observables import (
     econ_with,
@@ -354,8 +355,9 @@ class _KmpcBase(nn.Module):
     Ported: every dictionary (any list of families, with or without PCA,
     with delays), input blocks without smoothness, or no blocks with or
     without smoothness (the blocked JAX controller refuses smoothness
-    too); loaded models (nw > 0) without delays, whose lifted state is
-    [g; w1 g; ...] of the scaled load estimate (``lift``); the dual stage
+    too); loaded models (nw > 0), with or without delays, whose lifted
+    state is [g; w1 g; ...] of the scaled load estimate (``lift``; g the
+    lift of the delay-embedded zeta); the dual stage
     shift of carried multipliers (``shift_lam``); state bounds on
     unblocked stacks (the linear and bilinear controllers; blocked
     stacks refuse them, as the JAX base does, kmpc.py:334-338).
@@ -365,10 +367,6 @@ class _KmpcBase(nn.Module):
         super().__init__()
         dev = resolve_device(device)
         basis = model.basis
-        if model.meta.nw and model.meta.nd:
-            raise NotImplementedError(
-                "loaded models with delays are not ported (ROADMAP.md "
-                "queue 1, item 7)")
         if cfg.input_blocks is not None and (
                 cfg.input_smoothConst is not None
                 or cfg.state_bounds is not None):
@@ -963,7 +961,7 @@ def poly_jacobian_static(model):
 
 class NonlinearKmpc(_KmpcBase):
     """SQP NMPC on the nonlinear realization (``NonlinearKmpc``,
-    kmpc.py:1080-1676), blocked form: ``sqp_iters`` passes, each
+    kmpc.py:1080-1676): ``sqp_iters`` passes, each
     linearizing the composed F along a trajectory, condensing the stage
     Jacobians into the factored QP with Levenberg damping rho and solving
     it by the interior point.  The controller takes the raw scaled outputs
@@ -1011,16 +1009,28 @@ class NonlinearKmpc(_KmpcBase):
       linearizes along the rollout of its plan through F on the device.  The other SQP knobs act as on the chord
       route ('linear': ``ipm_factored``).
 
-    Not ported, each raising ``NotImplementedError``: unblocked stacks and
-    state bounds (ROADMAP.md queue 1, item 4); loaded models raise as in
-    the JAX package.  ``qp_dual_shift`` changes nothing here: the NMPC
-    carries no duals across steps (as in the JAX package).
+    - **state_bounds** (``cfg.state_bounds`` on the unblocked stack, JAX
+      :1476-1491) -- every pass along the trajectory of the routes above
+      (the analytic or forward-mode Jacobians), the explicit condensation
+      with the bounded coordinates' sensitivities (``ops/nmpc.py:
+      state_bound_qp``) and a QP with a Hessian and rows a lane, solved by
+      ``ops/qp.py:solve_qp_lane_A`` on the device (JAX's
+      ``solve_qp(shared_A=False)``, which reaches no Pallas kernel).
+
+    Each route runs under move blocking (``input_blocks``: the decision is
+    one move a group, n=12 on the bench horizon) or unblocked (the default
+    ``input_blocks=None`` and the reference's own NMPC, ``Kmpc.m:
+    1114-1181``: every input of stages 1..Np-1, n=27), whose kernels are
+    builds of their own.  Loaded models raise as in the JAX package.
+    ``qp_dual_shift`` changes nothing here: the NMPC carries no duals
+    across steps (as in the JAX package).
 
     Host constants (f64 numpy, as the JAX package): the composed maps
     ``A1``, ``A2``, ``a0``; the Jacobian generator ``G`` and ``pos_x``;
     the projection ``Cz``; the stage columns ``cols``; ``RdT``, ``bsizes``
     and from them ``rdiag`` = RdT + rho bsizes and ``q0c`` = -2 rho bsizes;
-    ``Gup`` = tile(I_m); ``sqq`` = sqrt(Q).
+    ``Gup`` = tile(I_m); ``sqq`` = sqrt(Q).  Unblocked, Tb is the
+    identity: ``RdT`` = Rd[m:], ``bsizes`` = 1.
     """
 
     def __init__(self, model, scaler, cfg: MpcConfig, device="cuda",
@@ -1037,10 +1047,6 @@ class NonlinearKmpc(_KmpcBase):
                 "with mpc_type='nonlinear'")
         if cfg.sqp_iters < 1:
             raise NotImplementedError("sqp_iters < 1")
-        if cfg.input_blocks is None or cfg.state_bounds is not None:
-            raise NotImplementedError(
-                "NonlinearKmpc: unblocked stacks and state bounds are not "
-                "ported (ROADMAP.md queue 1, item 4)")
         super().__init__(model, scaler, cfg, device, dtype)
         m, n, Np = self.m, self.n, self.Np
         self.nz = self.meta.nzeta
@@ -1074,26 +1080,34 @@ class NonlinearKmpc(_KmpcBase):
             self.A1, self.A2, self.a0 = composed_maps(model)
             _, self.G, _, tables, self.pos_x = poly_jacobian_static(model)
             Gc = jacobian_generator(self.G, self.pos_x, self.nz, nza)
-        # decision column of each stage's input block: [u_0 | group moves]
-        group_of = np.repeat(np.arange(len(cfg.input_blocks)),
-                             cfg.input_blocks)
-        self.cols = tuple([0] + [m + int(group_of[k - 1]) * m
-                                 for k in range(1, Np)])
+        # decision column of each stage's input block: [u_0 | group
+        # moves], unblocked [u_0 | u_1 .. u_{Np-1}] (kmpc.py:1160-1168)
+        if self.blocked:
+            group_of = np.repeat(np.arange(len(cfg.input_blocks)),
+                                 cfg.input_blocks)
+            self.cols = tuple([0] + [m + int(group_of[k - 1]) * m
+                                     for k in range(1, Np)])
+            self.RdT = self.Tb.T @ self.r_diag[m:]
+            self.bsizes = (self.Tb * self.Tb).sum(axis=0)
+        else:
+            self.cols = tuple(k * m for k in range(Np))
+            self.RdT = self.r_diag[m:]
+            self.bsizes = np.ones(self.RdT.size)
         self.Cz = self.projmtx[:, :n]
-        self.RdT = self.Tb.T @ self.r_diag[m:]
-        self.bsizes = (self.Tb * self.Tb).sum(axis=0)
         rho = cfg.sqp_damping
         self.rdiag = self.RdT + rho * self.bsizes
         self.q0c = -2.0 * rho * self.bsizes
-        self.Gup = np.tile(np.eye(m), (self.Tb.shape[1] // m, 1))
+        self.Gup = np.tile(np.eye(m), (self.RdT.size // m, 1))
         self.sqq = np.sqrt(self.q_diag)
         self.hold0 = cfg.sqp_init != "rollout"
         # the route (_solve_from, kmpc.py:1354-1375, 1435-1437)
         self.jac_period = max(1, int(cfg.sqp_jac_period))
         self.linear_update = cfg.sqp_update == "linear"
+        self.has_sb = cfg.state_bounds is not None
         self.roll_fused = (self.jac_period == 1 and not self.linear_update
                            and not cfg.sqp_best_of_passes
-                           and cfg.sqp_linesearch == 0 and not self.jacfwd)
+                           and cfg.sqp_linesearch == 0 and not self.jacfwd
+                           and not self.has_sb)
         self.multipass = (self.roll_fused and not cfg.sqp_dual_warm
                           and cfg.sqp_damping_decay == 1.0)
         qp = nmpc_qp_operands(
@@ -1109,14 +1123,23 @@ class NonlinearKmpc(_KmpcBase):
                      ("Rd_t", self.r_diag), ("cF_t", self.cF_red),
                      ("F0_t", self.F0_red)):
             self.register_buffer(k, t(v))
+        if self.has_sb:
+            # the bounded coordinates' limits in scaled units and the
+            # input rows with u_0's columns (kmpc.py:1184-1186, 1484-1486)
+            lo, hi = state_bound_values(cfg, n, scaler)
+            for k, v in (("sb_lo_t", lo), ("sb_hi_t", hi),
+                         ("F_t", self.F)):
+                self.register_buffer(k, t(v))
 
     @property
     def route(self) -> str:
         """The route of a step's first SQP ('multipass', 'stage', 'chord',
-        'jacfwd' or 'linear'); multistart's second SQP always takes the
-        per-pass loop."""
+        'jacfwd', 'linear' or 'state_bounds'); multistart's second SQP
+        always takes the per-pass loop."""
         if self.multipass:
             return "multipass"
+        if self.has_sb:
+            return "state_bounds"
         if self.linear_update:
             return "linear"
         if self.jacfwd:
@@ -1195,6 +1218,18 @@ class NonlinearKmpc(_KmpcBase):
                 .transpose(0, 1)
         return Jt, defects(Fv, Jt, Zl, Ur).contiguous()
 
+    def moves(self, U) -> torch.Tensor:
+        """The decision of a plan U (Np*m, B) without u_0: one move a group
+        Sel U[m:] under move blocking, U[m:] unblocked (the SQP passes'
+        primal start, kmpc.py:1500-1510)."""
+        return self.Sel_t @ U[self.m:] if self.blocked else U[self.m:]
+
+    def levenberg_q0(self, U, rho: float) -> torch.Tensor:
+        """The Levenberg term's linear part about the plan U,
+        -2 rho Tb^T U[m:] (-2 rho U[m:] unblocked)."""
+        Ur = U[self.m:]
+        return -2.0 * rho * (self.Tb_t.T @ Ur if self.blocked else Ur)
+
     def nmpc_qp(self, rdiag=None) -> NmpcQP:
         """The solve's operands as an ``NmpcQP`` view of this module's
         buffers; ``rdiag`` (n,) replaces the multipass route's."""
@@ -1234,8 +1269,8 @@ class NonlinearKmpc(_KmpcBase):
     def _solve_from(self, zeta, u_prev, sqYr, Ul, Zl=None, Fv=None):
         """The SQP from the plan Ul (Np*m, B), optionally along a given
         trajectory Zl with dynamics values Fv (Np, nz, B)
-        (``_solve_from``, kmpc.py:1352-1624, without the state-bound
-        branch).  Returns (U, QPSolution)."""
+        (``_solve_from``, kmpc.py:1352-1624).  Returns (U,
+        QPSolution)."""
         cfg, m, Np = self.cfg, self.m, self.Np
         qp0 = self.nmpc_qp()
         if self.multipass and Zl is None:
@@ -1256,7 +1291,7 @@ class NonlinearKmpc(_KmpcBase):
         lam_carry = None
         frozen = None
         stages = self.jac_period == 1 and not self.linear_update \
-            and not self.jacfwd
+            and not self.jacfwd and not self.has_sb
         for it in range(cfg.sqp_iters):
             if stages:
                 mode = (mode0 if it == 0 else "roll") if self.roll_fused \
@@ -1273,9 +1308,14 @@ class NonlinearKmpc(_KmpcBase):
                 Jt, cv = self.stage_lin(Zl, Ul, frozen=frozen, Fv=Fv)
             rho = cfg.sqp_damping * (cfg.sqp_damping_decay ** it)
             qp = self.nmpc_qp(self.RdT_t + rho * self.bsizes_t)
-            x0 = self.Sel_t @ Ul[m:]
-            q0 = None if rho == 0.0 else -2.0 * rho * (self.Tb_t.T @ Ul[m:])
-            if self.linear_update:
+            x0 = self.moves(Ul)
+            q0 = None if rho == 0.0 else self.levenberg_q0(Ul, rho)
+            if self.has_sb:
+                sol = solve_qp_lane_A(*state_bound_qp(
+                    qp, Jt, cv, zeta, u_prev, sqYr, q0, self.sb_lo_t,
+                    self.sb_hi_t, self.F_t, self.cF_t), iters=cfg.qp_iters,
+                    x0=x0, lam0=lam_carry)
+            elif self.linear_update:
                 # the explicit condensation, then the factored QP with the
                 # Levenberg term as q0 (kmpc.py:1527-1564)
                 W, v = condense(qp, Jt, cv, zeta, u_prev, sqYr)

@@ -41,8 +41,9 @@ as ``run_batch``, :554-577) or a row a step (``W`` (B, K, nw),
 reference's 1-based count, :285-287).
 
 Delay-embedded models (nd > 0, ``ksim.py:116-190``): the general runner
-keeps trailing windows of nd+1 scaled outputs and planned inputs (more
-where the load observer needs them), started from the lane's tiled y0 and
+keeps trailing windows of nd+1 scaled outputs and planned inputs
+(load_obs_horizon + 1 + nd with the load observer, which embeds each of
+its regression rows, ksim.py:80-86), started from the lane's tiled y0 and
 u0; zeta is the newest output, the output delays, then the input delays
 (``ops/observables.py:zeta_from_window``), the solve's previous input the
 newest row of the input window, into which each step puts the plan's
@@ -269,19 +270,15 @@ class Ksim:
         self.meta = mpc.meta
         self.observer = observer
         self.nd = self.meta.nd
-        if self.nd and self.meta.nw:
-            raise NotImplementedError(
-                "loaded models with delays are not ported (ROADMAP.md "
-                "queue 1, item 7)")
         if observer is not None and (self.meta.nw == 0
                                      or observer.dtype != mpc.dtype):
             raise ValueError("the load observer needs a loaded model and "
                              "the controller's dtype")
-        # the trailing windows' rows: zeta needs nd + 1 (ksim.py:75-83),
+        # the trailing windows' rows: zeta needs nd + 1 (ksim.py:75-86),
         # the observer's regression load_obs_horizon + 1 rows of past
-        # measurements
+        # measurements and nd more to delay-embed each of them
         self.win = self.nd + 1 if observer is None \
-            else max(self.nd + 1, observer.horizon + 1)
+            else max(self.nd + 1, observer.horizon + 1 + self.nd)
         # the NMPC carries no duals across steps (ksim.py:93-94: it has no
         # n_con in the JAX package)
         self._dual_warm = bool(mpc.cfg.qp_dual_warm) \

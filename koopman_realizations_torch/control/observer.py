@@ -19,7 +19,8 @@ nfree) and constraint rows shared by every lane, solved lanes-minor by
 ``ipm_shared`` kernel (n=2 bilinear, n=1 linear), on the CPU its plain
 version.  In the JAX package this QP takes the pure path
 (``solve_qp(..., shared_A=False)``, ``ops/qp.py:96-152``), which reaches
-no Pallas kernel.  Delays with loads are not ported.
+no Pallas kernel.  With delays (nd > 0) each regression row is the
+delay-embedded zeta of its measurement time (``embed_zetas``).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 
 from koopman_realizations_torch import resolve_device
 from koopman_realizations_torch.models.koopman import BilinearModel
+from koopman_realizations_torch.ops.observables import zeta_from_window
 from koopman_realizations_torch.ops.qp import (
     Constraints,
     band_offset_of,
@@ -46,23 +48,21 @@ class LoadObserver:
     uwin (W, m, B) (rows oldest..newest, scaled; the last
     ``load_obs_horizon + 1`` rows feed the regression).  Between update
     steps (k % load_obs_period != 0, and before a full horizon of data,
-    k <= load_obs_horizon) the previous estimate is returned unchanged
+    k <= load_obs_horizon + nd) the previous estimate is returned unchanged
     (``Ksim.m:185-193``); k is the closed loop's 1-based step counter,
-    shared by every lane."""
+    shared by every lane.  With delays the windows hold nd more rows,
+    from which each regression row's zeta is embedded."""
 
     def __init__(self, model, cfg, device="cuda", dtype=torch.float32):
         meta = model.meta
         if meta.nw == 0:
             raise ValueError("model has no loads (nw == 0)")
-        if meta.nd:
-            raise NotImplementedError(
-                "load estimation with delays is not ported (ROADMAP.md "
-                "queue 1, item 7)")
         self.device = dev = resolve_device(device)
         self.dtype = dtype
         self.model = model
         self.basis = model.basis
         self.nw, self.N, self.nzeta = meta.nw, meta.N, meta.nzeta
+        self.nd = meta.nd
         self.horizon = int(cfg.load_obs_horizon)
         self.period = max(int(cfg.load_obs_period), 1)
         self.slope = cfg.load_obs_slope
@@ -91,15 +91,29 @@ class LoadObserver:
         return Constraints(A=t(A_eq), row=t(row), Wd=t(Wd), Wo=t(Wo),
                            n=F.shape[1], mc=F.shape[0], band=band)
 
+    def embed_zetas(self, ywin, uwin) -> torch.Tensor:
+        """The zetas of the last load_obs_horizon + 1 measurement times
+        (hor+1, nzeta, B), oldest first: the outputs themselves without
+        delays, else each time's delay-embedded zeta from the windows
+        (JAX ``embed_zetas``, observer.py:70-86: the output, its delays
+        newest first, then the input delays; ``zeta_from_window``)."""
+        hor, nd = self.horizon, self.nd
+        if nd == 0:
+            return ywin[-(hor + 1):]
+        W = ywin.shape[0]
+        return torch.stack([
+            zeta_from_window(ywin[i - nd:i + 1], uwin[i - nd:i + 1], nd)
+            for i in range(W - 1 - hor, W)])
+
     def qp(self, ywin, uwin, what_prev=None):
         """The estimate's QP over the lanes, as ``solve_qp``'s positional
         operands: (P (nfree, nfree, B), q (nfree, B), the lane-shared
         ``Constraints``, b (mc, B), iters) -- the box, and the slope rows
         about what_prev when ``load_obs_slope`` is set and it is given."""
         hor, nz, nw = self.horizon, self.nzeta, self.nw
-        if ywin.shape[0] < hor + 1:
-            raise ValueError(f"the windows need {hor + 1} rows")
-        zetas = ywin[-(hor + 1):].to(self.dtype)         # (hor+1, nz, B)
+        if ywin.shape[0] < hor + 1 + self.nd:
+            raise ValueError(f"the windows need {hor + 1 + self.nd} rows")
+        zetas = self.embed_zetas(ywin, uwin).to(self.dtype)  # (hor+1, nz, B)
         us = uwin[-(hor + 1):].to(self.dtype)            # (hor+1, m, B)
         B = zetas.shape[-1]
         g = self.basis.lift(zetas[:-1].permute(1, 0, 2).reshape(nz, -1)) \
@@ -142,8 +156,10 @@ class LoadObserver:
         return w_free
 
     def updates(self, k: int) -> bool:
-        """Whether closed-loop step k (1-based) updates the estimate."""
-        return k % self.period == 0 and k > self.horizon
+        """Whether closed-loop step k (1-based) updates the estimate
+        (JAX observer.py:121-127: a whole horizon of delay-embedded rows
+        behind it)."""
+        return k % self.period == 0 and k > self.horizon + self.nd
 
     def __call__(self, k: int, ywin, uwin, what_prev) -> torch.Tensor:
         if not self.updates(k):
@@ -168,7 +184,7 @@ def validate_observer(model, cfg, valtrial, sparse_period: int = 0,
     estimates), one estimate a step as in the JAX package.  Returns
     {what [T, nw], wreal [T, nw], werr [T, nw]} in scaled space, numpy."""
     obs = make_load_observer(model, cfg, device=device, dtype=dtype)
-    back = obs.horizon
+    back = obs.horizon + obs.nd          # window rows behind the current time
     y, u = np.asarray(valtrial.y), np.asarray(valtrial.u)
     wreal = np.asarray(valtrial.w)
     T, nw = y.shape[0], wreal.shape[1]

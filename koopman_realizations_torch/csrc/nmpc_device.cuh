@@ -12,7 +12,9 @@
 //
 // One forward sweep over the stages serves every kernel: it asks a stage
 // source for stage k's Jacobian and defects, propagates the sensitivities
-// and feeds the stage's projected rows to the Gram.  The sources are the
+// and feeds the stage's projected rows to the Gram (the narrow builds,
+// n=12) or writes them out for the lane's group to form the Gram (the
+// wide builds of the unblocked stack, n=27).  The sources are the
 // trajectory rolled from the plan through F (optionally held at the first
 // stage's point, F and J formed once), a shipped trajectory (Zl, Ul, Fv:
 // J only) and shipped Jacobians and defects (no F, no J).
@@ -248,6 +250,17 @@ struct HeldInput {
     for (int j = 0; j < KM_M; ++j) u[j] = up[j];
   }
 };
+// ... or of the previous pass's x in the lane region (shared memory; the
+// wide multipass build, whose x stays out of the sweep's registers) ...
+struct SharedPlanInput {
+  const float (&up)[KM_M];
+  const float* x;
+  __device__ __forceinline__ void operator()(int k, float (&u)[KM_M]) const {
+    constexpr int COLS[KN_NP] = KN_COLS;
+#pragma unroll
+    for (int j = 0; j < KM_M; ++j) u[j] = k == 0 ? up[j] : x[COLS[k] - KM_M + j];
+  }
+};
 // ... or the lane's shipped plan Ul (KN_NP * KM_M rows, lanes-minor; the
 // pointer at the lane).
 struct LaneInput {
@@ -334,27 +347,83 @@ struct ShippedJacobians {
 
 // ------------------------------------------------------------ the sweep
 
-// One SQP pass's QP, condensed and streamed into P (lower triangle, with
-// the input cost on the diagonal) and qv (both before the factor 2): the
-// forward sweep over the stages takes each stage's Jacobian and defects
-// from the source, propagates S and s, and feeds each stage's projected
-// rows to the Gram.
-template <class Stages>
+// Where a sweep's projected rows go: streamed into the Gram in the
+// thread's registers (the narrow builds) ...
+struct GramSink {
+  const Nmpc& op;
+  const float (&up)[KM_M];
+  const float* sqRef;
+  long long sq_step;
+  float (&P)[KM_N][KM_N];
+  float (&qv)[KM_N];
+  // P starts as diag(rdiag) (lower triangle), qv as 0
+  __device__ __forceinline__ GramSink(const Nmpc& op_,
+                                      const float (&up_)[KM_M],
+                                      const float* sqRef_, long long step,
+                                      float (&P_)[KM_N][KM_N],
+                                      float (&qv_)[KM_N])
+      : op(op_), up(up_), sqRef(sqRef_), sq_step(step), P(P_), qv(qv_) {
+#pragma unroll
+    for (int a = 0; a < KM_N; ++a) {
+      qv[a] = 0.0f;
+#pragma unroll
+      for (int b = 0; b <= a; ++b) P[a][b] = 0.0f;
+      P[a][a] = ldg(op.rdiag + a);
+    }
+  }
+  __device__ __forceinline__ void operator()(
+      int k, const float (&S)[KN_NZ][KN_NU], const float (&s)[KN_NZ]) const {
+    project_gram(op, k, S, s, up, sqRef, sq_step, P, qv);
+  }
+};
+
+// ... or written out as rows [w[m:] (KM_N) | v] of the lane's scratch
+// row, row k * KN_NPROJ + r at (KM_N + 1) floats a row, for its group to
+// form the Gram (the wide builds: at n=27 the Gram's lower triangle is
+// 378 floats, more than a thread's registers beside the sensitivities).
+struct RowSink {
+  const Nmpc& op;
+  const float (&up)[KM_M];
+  const float* sqRef;
+  long long sq_step;
+  float* rows;
+  __device__ __forceinline__ void operator()(
+      int k, const float (&S)[KN_NZ][KN_NU], const float (&s)[KN_NZ]) const {
+#pragma unroll 1
+    for (int r = 0; r < KN_NPROJ; ++r) {
+      const int row = k * KN_NPROJ + r;
+      const float* c = op.CzS + row * KN_NS;
+      float* out = rows + row * (KM_N + 1);
+      float sv = ldg(c) * s[0];
+#pragma unroll
+      for (int i = 1; i < KN_NS; ++i) sv = fmaf(ldg(c + i), s[i], sv);
+      float v = sv - sqRef[row * sq_step];
+      // the u_0 columns fold into v; each move column is one entry of w
+#pragma unroll
+      for (int col = 0; col < KN_NU; ++col) {
+        float w = ldg(c) * S[0][col];
+#pragma unroll
+        for (int i = 1; i < KN_NS; ++i) w = fmaf(ldg(c + i), S[i][col], w);
+        if (col < KM_M)
+          v = fmaf(w, up[col], v);
+        else
+          out[col - KM_M] = w;
+      }
+      out[KM_N] = v;
+    }
+  }
+};
+
+// One SQP pass's forward sweep over the stages: it takes each stage's
+// Jacobian and defects from the source, propagates S and s, and hands
+// each stage's projected rows to the sink (GramSink: the QP's P, lower
+// triangle with the input cost on the diagonal, and qv, both before the
+// factor 2; RowSink: the rows themselves).
+template <class Stages, class Sink>
 __device__ __forceinline__ void condense_sweep(const Nmpc& op, Stages& stages,
                                                const float (&zeta)[KN_NZ],
-                                               const float (&up)[KM_M],
-                                               const float* sqRef,
-                                               long long sq_step,
-                                               float (&P)[KM_N][KM_N],
-                                               float (&qv)[KM_N]) {
+                                               const Sink& sink) {
   constexpr int COLS[KN_NP] = KN_COLS;
-#pragma unroll
-  for (int a = 0; a < KM_N; ++a) {
-    qv[a] = 0.0f;
-#pragma unroll
-    for (int b = 0; b <= a; ++b) P[a][b] = 0.0f;
-    P[a][a] = ldg(op.rdiag + a);
-  }
   float S[KN_NZ][KN_NU], s[KN_NZ];
 #pragma unroll
   for (int o = 0; o < KN_NZ; ++o) {
@@ -365,7 +434,7 @@ __device__ __forceinline__ void condense_sweep(const Nmpc& op, Stages& stages,
   float J[KN_NZA][KN_NZ], cv[KN_NZ];
 #pragma unroll 1
   for (int k = 0; k <= KN_NP; ++k) {
-    project_gram(op, k, S, s, up, sqRef, sq_step, P, qv);
+    sink(k, S, s);
     if (k == KN_NP) break;
     stages(k, J, cv);
     propagate(COLS[k], J, cv, S, s);

@@ -38,7 +38,14 @@
 // x goes back to the lane's thread as the next pass's x_prev, and after
 // the last pass the groups store s and lam.  The sweep keeps the
 // thread-per-lane form: its per-stage products are 6-15 wide and serial
-// over the stages.  It reads ~17 KB of lane-shared operands and spills
+// over the stages.  The wide build (the unblocked stack, n=27, mc=108:
+// 30 sensitivity columns) cannot keep the Gram's 378 entries in a
+// thread's registers beside them: its sweep writes the pass's 22
+// projected rows [w | v] (616 floats) to the lane's scratch row instead,
+// x_prev stays in the lane region, and a warp a lane copies the rows into
+// its work region and forms the Gram, the objective scale and the scaled
+// Hessian there (nmpc_group.cuh:GramHessian, ipm_factored's Gram) before
+// its Mehrotra loop.  It reads ~17 KB of lane-shared operands and spills
 // through the L1 cache, which shares the SM's 256 KB with shared memory:
 // hence the hand-over through device memory (written and read back
 // within the pass, an L2 round trip) rather than a shared tile of all the
@@ -78,7 +85,7 @@ nmpc_multipass_kernel(const NmpcArgs a) {
   float* H = kg::lane_region(sm, tid);
   kg::load_shared(op.con, sh, tid);
 
-  float zeta[KN_NZ], up[KM_M], xp[KM_N];
+  float zeta[KN_NZ], up[KM_M];
 #pragma unroll
   for (int i = 0; i < KN_NZ; ++i) zeta[i] = a.zeta[i * B + bl];
 #pragma unroll
@@ -88,14 +95,48 @@ nmpc_multipass_kernel(const NmpcArgs a) {
   }
   const float* sq = a.sqRef_lanes ? a.sqRef + bl : a.sqRef;
   const long long sq_step = a.sqRef_lanes ? B : 1;
+#ifndef KG_S_W
+  float xp[KM_N];
+#endif
 #pragma unroll
   for (int i = 0; i < KM_N; ++i) {
     float acc = 0.0f;
 #pragma unroll
     for (int j = 0; j < KM_M; ++j) acc = fmaf(km::ldg(op.Gup + i * KM_M + j), up[j], acc);
+#ifndef KG_S_W
     xp[i] = acc;
+#endif
     H[KG_L_X + i] = acc;
   }
+#ifdef KG_S_W
+  // the wide build: x_prev stays in the lane region, the sweep writes the
+  // pass's projected rows and the groups form each lane's QP
+#pragma unroll 1
+  for (int pass = 0; pass < a.passes; ++pass) {
+    {
+      km::RolledStages<km::SharedPlanInput> stages(
+          op, km::SharedPlanInput{up, H + KG_L_X}, pass == 0 && a.hold0,
+          zeta);
+      km::condense_sweep(op, stages, zeta,
+                         km::RowSink{op, up, sq, sq_step,
+                                     kl::scratch_row(a.scratch, b) + KG_S_W});
+    }
+    __syncthreads();
+    const bool last = pass + 1 == a.passes;
+#pragma unroll 1
+    for (int round = 0; round < KG_ROUNDS; ++round) {
+      const int ql = round * KG_GROUPS + grp;
+      kn::solve_lane(a, sh, sm, ql, grp, g, last, 1e-2f,
+                     kn::XprevTerm{op.q0c, kg::lane_region(sm, ql)},
+                     kl::ColdDuals{});
+    }
+    __syncthreads();
+  }
+  if (!live) return;
+#pragma unroll
+  for (int i = 0; i < KM_N; ++i) a.x[i * B + b] = H[KG_L_X + i];
+  a.obj[b] = H[KG_L_OBJ];
+#else
   float obj = 1.0f;
 #pragma unroll 1
   for (int pass = 0; pass < a.passes; ++pass) {
@@ -103,7 +144,8 @@ nmpc_multipass_kernel(const NmpcArgs a) {
       float Pr[KM_N][KM_N], q[KM_N];
       km::RolledStages<km::PlanInput> stages(op, km::PlanInput{up, xp},
                                              pass == 0 && a.hold0, zeta);
-      km::condense_sweep(op, stages, zeta, up, sq, sq_step, Pr, q);
+      km::condense_sweep(op, stages, zeta,
+                         km::GramSink(op, up, sq, sq_step, Pr, q));
       obj = kn::hand_over(Pr, q, kn::LevenbergTerm{op.q0c, xp},
                           kl::scratch_row(a.scratch, b));
     }
@@ -112,7 +154,7 @@ nmpc_multipass_kernel(const NmpcArgs a) {
 #pragma unroll 1
     for (int round = 0; round < KG_ROUNDS; ++round)
       kn::solve_lane(a, sh, sm, round * KG_GROUPS + grp, grp, g, last, 1e-2f,
-                     kl::ColdDuals{});
+                     0, kl::ColdDuals{});
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < KM_N; ++i) xp[i] = H[KG_L_X + i];
@@ -121,6 +163,7 @@ nmpc_multipass_kernel(const NmpcArgs a) {
 #pragma unroll
   for (int i = 0; i < KM_N; ++i) a.x[i * B + b] = xp[i];
   a.obj[b] = obj;
+#endif
 }
 
 extern "C" int km_nmpc_multipass(const NmpcArgs* args, void* stream) {

@@ -29,7 +29,9 @@
 // pass's scaled Hessian and q (with the per-lane q0) to the lane's device
 // scratch row; the solve launch then solves the lanes' QPs a group of
 // KG_GROUP threads a lane, from x0 with cold duals or the warm lam0.  The
-// plan is ops/kernels/ipm_group.py:onepass_plan.
+// plan is ops/kernels/ipm_group.py:onepass_plan; its wide builds (n=27)
+// hand the projected rows over and form the Gram by the group
+// (nmpc_stage.cu's note).
 #include "nmpc_group.cuh"
 
 struct PassArgs {
@@ -56,15 +58,13 @@ struct PassArgs {
 // Lane b's sweep over its shipped Jacobians and defects.
 struct PassSweep {
   const PassArgs& a;
+  template <class Sink>
   __device__ __forceinline__ void operator()(long long b,
                                              const float (&zeta)[KN_NZ],
                                              const float (&up)[KM_M],
-                                             const float* sq,
-                                             long long sq_step,
-                                             float (&Pr)[KM_N][KM_N],
-                                             float (&q)[KM_N]) const {
+                                             const Sink& sink) const {
     km::ShippedJacobians stages{a.Jt + b, a.cv + b, a.B};
-    km::condense_sweep(a.op, stages, zeta, up, sq, sq_step, Pr, q);
+    km::condense_sweep(a.op, stages, zeta, sink);
   }
 };
 

@@ -40,7 +40,10 @@
 // lanes' QPs KG_THREADS / KG_GROUP at a time, a group of KG_GROUP threads
 // a lane, from x0 with cold duals or the warm lam0; the groups store s
 // and lam, the threads x.  The plan (group, lanes a block, launch
-// bounds, layout) is ops/kernels/ipm_group.py:onepass_plan.
+// bounds, layout) is ops/kernels/ipm_group.py:onepass_plan.  The wide
+// builds (the unblocked stack, n=27: KG_S_W) hand the pass's projected
+// rows over instead of the Hessian, and a warp a lane forms the Gram,
+// obj and the Levenberg term in the solve launch (nmpc_group.cuh).
 #include "nmpc_group.cuh"
 
 #ifndef KN_STAGE_MODE
@@ -72,13 +75,11 @@ struct StageArgs {
 // Lane b's sweep along the build's trajectory source.
 struct StageSweep {
   const StageArgs& a;
+  template <class Sink>
   __device__ __forceinline__ void operator()(long long b,
                                              const float (&zeta)[KN_NZ],
                                              const float (&up)[KM_M],
-                                             const float* sq,
-                                             long long sq_step,
-                                             float (&Pr)[KM_N][KM_N],
-                                             float (&q)[KM_N]) const {
+                                             const Sink& sink) const {
 #if KN_STAGE_MODE == 0
     km::ShippedStages stages{a.op, a.Zl + b, a.Ul + b, a.Fv + b, a.B};
 #elif KN_STAGE_MODE == 1
@@ -88,7 +89,7 @@ struct StageSweep {
     km::RolledStages<km::LaneInput> stages(
         a.op, km::LaneInput{a.Ul + b, a.B}, false, zeta);
 #endif
-    km::condense_sweep(a.op, stages, zeta, up, sq, sq_step, Pr, q);
+    km::condense_sweep(a.op, stages, zeta, sink);
   }
 };
 

@@ -21,9 +21,10 @@ squares (lasso inf) and the LASSO path (finite lasso: FISTA in f64 on the
 device, ``ops/lasso.py``, with the delay pin mask), every observable
 family and mixed lists of them, with or without PCA, with delays, with
 loads (``cfg.loaded``: the lifted state [g; w1 g; ...], NL = N (nw + 1),
-from trials that carry ``w``) or without.  Loads with delays and the
-pre-extracted snapshot pairs of a datafile raise ``NotImplementedError``
-naming their ROADMAP item.
+from trials that carry ``w``; with delays, g of the delay-embedded zeta
+and each pair's load at its time) or without.  The pre-extracted
+snapshot pairs of a datafile raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -121,8 +122,6 @@ class Ksysid:
     def __init__(self, data: DataSet, cfg: SysidConfig, device="cuda"):
         if data.snapshots is not None:
             _not_ported("pre-extracted snapshot pairs of a datafile", 10)
-        if cfg.loaded and cfg.delays:
-            _not_ported("loaded models with delays", 7)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)

@@ -104,6 +104,11 @@ WIDE_MIN_BLOCKS = 3
 NMPC_THREADS = 128
 NMPC_GROUP = 8
 NMPC_MIN_BLOCKS = 4
+# the wide NMPC builds (the unblocked stack, n=27): the sweep hands each
+# pass's projected rows over, a warp a lane forms the Gram and solves;
+# two blocks an SM fill its shared memory, so no bound on the registers
+NMPC_WIDE_GROUP = 32
+NMPC_WIDE_MIN_BLOCKS = 0
 # nmpc_stage (each trajectory mode) and nmpc_pass, one pass a launch:
 # the compact plan (the sweep a launch of its own), its group size and
 # the solve's blocks an SM as measured fastest (PERF.md §6)
@@ -196,6 +201,10 @@ class GroupPlan:
     # compact: each lane's own P, both triangles, staged by the block into
     # the groups' work regions (ipm_shared's per-lane build)
     lane_p: bool = False
+    # compact: the W rows (each n entries and v) the lane's thread hands
+    # over in its scratch row ("W"), the Gram formed by the group from a
+    # copy in its work region (the wide NMPC builds); 0: none
+    rows: int = 0
 
     @property
     def groups(self) -> int:
@@ -213,13 +222,14 @@ class GroupPlan:
         """One lane-shared Hessian a block in shared memory (PSH), the
         groups' Hessian: a compact plan whose scratch row has none and
         that stages no per-lane P."""
-        return self.compact and "PR" not in self.scratch and not self.lane_p
+        return self.compact and "PR" not in self.scratch \
+            and "W" not in self.scratch and not self.lane_p
 
     @property
     def scratch_sections(self) -> dict:
         """The lane's scratch row: section -> (offset, floats)."""
         size = {"PR": tri_size(self.n), "Q": self.n, "OBJ": 1,
-                "PLANT": self.plant}
+                "PLANT": self.plant, "W": self.rows * (self.n + 1)}
         out, at = {}, 0
         for name in self.scratch:
             out[name] = (at, size[name])
@@ -240,10 +250,12 @@ class GroupPlan:
             keep = 1 if "PLANT" in self.scratch else 0
             lstride = (n + 1 + self.m + keep) | 1
             # [M][dx][vec], and the Hessian copied from the scratch row
-            # (a per-lane P: its lower and strict upper triangles)
+            # (a per-lane P: its lower and strict upper triangles; the W
+            # rows: the Hessian formed from them, then the rows)
             hess = 2 * T if self.lane_p else \
                 0 if self.shared_hessian else T
-            wstride = self.pad(hess + T + n + mc)
+            wstride = self.pad(hess + T + n + mc
+                               + self.rows * (n + 1))
         else:
             lstride = self.pad(n + 1 + max(T + n + self.m, 2 * mc))
             wstride = self.pad(T + n + mc)
@@ -299,6 +311,8 @@ class GroupPlan:
                              KG_SMEM_BYTES=self.smem_bytes,
                              **{"KG_" + k: v for k, v in lay.items()
                                 if k != "SMEM_FLOATS"})
+        if self.rows:
+            cfg += _build.defines(KG_ROWS=self.rows)
         if self.compact:
             cfg += _build.defines(
                 KG_SCRATCH=self.scratch_floats,
@@ -327,7 +341,7 @@ def factored_plan(cons: Constraints, p: int) -> GroupPlan:
 
 def _compact_plan(cons: Constraints, m: int, group: int,
                   min_blocks: int, scratch=("PR", "Q"),
-                  plant: int = 0) -> GroupPlan:
+                  plant: int = 0, rows: int = 0) -> GroupPlan:
     """A lane a thread for the thread-per-lane part (the stage sweep, the
     step's front), the QPs solved ``threads // group`` lanes a round, the
     hand-over through device scratch, so that the thread-per-lane part
@@ -337,17 +351,32 @@ def _compact_plan(cons: Constraints, m: int, group: int,
                      len(cons.cols[0]) if cons.band is None else 0,
                      group, NMPC_THREADS, NMPC_THREADS, m=m, compact=True,
                      min_blocks=min_blocks, scratch=tuple(scratch),
-                     plant=plant).check()
+                     plant=plant, rows=rows).check()
 
 
-def nmpc_plan(cons: Constraints, m: int) -> GroupPlan:
-    """``nmpc_multipass``'s plan (every pass of a step in one launch)."""
+def _wide_nmpc_plan(cons: Constraints, m: int, p: int) -> GroupPlan:
+    """A wide NMPC build's plan (n >= WIDE_N, the unblocked stack): the
+    sweep's thread writes each pass's p projected rows [w | v] to its
+    scratch row instead of a Gram in its registers (n (n+1) / 2 floats
+    over the sensitivities' 6 x 30), and a warp a lane forms the Gram from
+    a copy in its work region, as ``ipm_factored`` does from W."""
+    return _compact_plan(cons, m, NMPC_WIDE_GROUP, NMPC_WIDE_MIN_BLOCKS,
+                         ("W",), rows=p)
+
+
+def nmpc_plan(cons: Constraints, m: int, p: int) -> GroupPlan:
+    """``nmpc_multipass``'s plan (every pass of a step in one launch) for
+    an NMPC QP of p projected rows."""
+    if cons.n >= WIDE_N:
+        return _wide_nmpc_plan(cons, m, p)
     return _compact_plan(cons, m, NMPC_GROUP, NMPC_MIN_BLOCKS)
 
 
-def onepass_plan(cons: Constraints, m: int) -> GroupPlan:
+def onepass_plan(cons: Constraints, m: int, p: int) -> GroupPlan:
     """``nmpc_stage``'s (every trajectory mode) and ``nmpc_pass``'s plan:
     the sweep a launch of its own, then the group solve."""
+    if cons.n >= WIDE_N:
+        return _wide_nmpc_plan(cons, m, p)
     return _compact_plan(cons, m, ONEPASS_GROUP, ONEPASS_MIN_BLOCKS)
 
 

@@ -20,6 +20,10 @@ the wrapper allocates; see the note in the source.
 for CUDA tensors it launches the kernel or raises.
 ``solve_qp_nmpc_multipass`` adds the epilogue of the JAX wrapper (ok mask,
 non-finite x to NaN, multipliers back to original units).
+
+The unblocked stack's builds (n=27, mc=108) hand each pass's
+projected rows over instead of the Hessian, and a warp a lane forms
+the Gram (``ipm_group.py:_wide_nmpc_plan``).
 """
 
 from __future__ import annotations
@@ -84,7 +88,7 @@ def nmpc_config(qp: NmpcQP) -> str:
 
 def launch_plan(qp: NmpcQP) -> GroupPlan:
     """The build's group plan (``ipm_group.py``)."""
-    return nmpc_plan(qp.cons, qp.m)
+    return nmpc_plan(qp.cons, qp.m, qp.p)
 
 
 def kernel_spec(qp: NmpcQP) -> _build.KernelSpec:

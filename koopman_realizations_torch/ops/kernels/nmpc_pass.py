@@ -19,6 +19,10 @@ the wrapper allocates.  See the note in the source for its bound.
 CUDA tensors it launches the kernel or raises.  ``solve_qp_nmpc_pass``
 adds the JAX wrapper's prologue and epilogue (qp_ipm.py:1284-1293,
 :1368-1382).
+
+The unblocked stack's builds (n=27, mc=108) hand each pass's
+projected rows over instead of the Hessian, and a warp a lane forms
+the Gram (``ipm_group.py:_wide_nmpc_plan``).
 """
 
 from __future__ import annotations
@@ -56,7 +60,7 @@ SOURCE = "nmpc_pass.cu"
 
 def launch_plan(qp: NmpcQP) -> GroupPlan:
     """The build's group plan (``ipm_group.py``)."""
-    return onepass_plan(qp.cons, qp.m)
+    return onepass_plan(qp.cons, qp.m, qp.p)
 
 
 def kernel_spec(qp: NmpcQP) -> _build.KernelSpec:

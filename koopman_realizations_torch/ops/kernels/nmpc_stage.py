@@ -21,6 +21,10 @@ CUDA tensors it launches the kernel or raises.  ``solve_qp_nmpc_stages``
 adds the JAX wrapper's prologue and epilogue (qp_ipm.py:1903-1912,
 :1990-2003: the slack floor, lam0 into row units, the ok mask, non-finite
 x to NaN, multipliers back to original units).
+
+The unblocked stack's builds (n=27, mc=108) hand each pass's
+projected rows over instead of the Hessian, and a warp a lane forms
+the Gram (``ipm_group.py:_wide_nmpc_plan``).
 """
 
 from __future__ import annotations
@@ -54,7 +58,7 @@ SOURCE = "nmpc_stage.cu"
 
 def launch_plan(qp: NmpcQP) -> GroupPlan:
     """The builds' group plan (``ipm_group.py``)."""
-    return onepass_plan(qp.cons, qp.m)
+    return onepass_plan(qp.cons, qp.m, qp.p)
 
 
 def kernel_spec(qp: NmpcQP, mode: str) -> _build.KernelSpec:

@@ -251,32 +251,73 @@ def stage_lin(qp: NmpcQP, Zl, Ul, frozen=None, Fv=None):
 # ------------------------------------------------------- condensation
 
 
-def condense(qp: NmpcQP, Jt, cv, zeta, up, sqRef):
-    """Sensitivity condensation and W/v assembly over the horizon of the
-    stage Jacobians Jt (Np, nza, nz, B) and defects cv (Np, nz, B):
-    S_0 = 0, s_0 = zeta; S_{k+1} = Jz_k S_k + Ju_k at stage k's columns,
-    s_{k+1} = Jz_k s_k + cv_k.  Stage k's projected rows CzS_k [S_k | s_k]
-    give W (its decision columns) and v (the affine part, the reference
-    subtracted and the pinned u_prev folded in).  sqRef is (p,) or
-    (p, B).  Returns (W (p, n, B), v (p, B))."""
-    nz, m, ns, nproj = qp.nz, qp.m, qp.ns, qp.nproj
-    sq = sqRef if sqRef.ndim == 2 else sqRef[:, None]
+def sweep(qp: NmpcQP, Jt, cv, zeta):
+    """The sensitivity recursion over the horizon of the stage Jacobians
+    Jt (Np, nza, nz, B) and defects cv (Np, nz, B): yields (S_k, s_k) for
+    k = 0..Np with zeta_k = s_k + S_k Uvec over the decision columns
+    [u_0 | moves] (nz, m + n, B): S_0 = 0, s_0 = zeta; S_{k+1} = Jz_k S_k
+    + Ju_k at stage k's columns, s_{k+1} = Jz_k s_k + cv_k."""
+    nz, m = qp.nz, qp.m
     S = zeta.new_zeros((nz, m + qp.n, zeta.shape[1]))
     s = zeta
-    W_rows, v_rows = [], []
     for k in range(qp.Np + 1):
+        yield S, s
+        if k < qp.Np:
+            S = torch.einsum("iob,icb->ocb", Jt[k, :nz], S)
+            c0 = qp.cols[k]
+            S[:, c0:c0 + m] += Jt[k, nz:].transpose(0, 1)
+            s = torch.einsum("iob,ib->ob", Jt[k, :nz], s) + cv[k]
+
+
+def condense(qp: NmpcQP, Jt, cv, zeta, up, sqRef):
+    """Sensitivity condensation and W/v assembly over the horizon
+    (``sweep``): stage k's projected rows CzS_k [S_k | s_k] give W (its
+    decision columns) and v (the affine part, the reference subtracted and
+    the pinned u_prev folded in).  sqRef is (p,) or (p, B).  Returns
+    (W (p, n, B), v (p, B))."""
+    m, ns, nproj = qp.m, qp.ns, qp.nproj
+    sq = sqRef if sqRef.ndim == 2 else sqRef[:, None]
+    W_rows, v_rows = [], []
+    for k, (S, s) in enumerate(sweep(qp, Jt, cv, zeta)):
         Ck = qp.CzS[k * nproj:(k + 1) * nproj]          # (nproj, ns)
         Pk = torch.einsum("ri,icb->rcb", Ck, S[:ns])
         vk = Ck @ s[:ns] - sq[k * nproj:(k + 1) * nproj] \
             + torch.einsum("rjb,jb->rb", Pk[:, :m], up)
         W_rows.append(Pk[:, m:])
         v_rows.append(vk)
-        if k < qp.Np:
-            S = torch.einsum("iob,icb->ocb", Jt[k, :nz], S)
-            c0 = qp.cols[k]
-            S[:, c0:c0 + m] += Jt[k, nz:].transpose(0, 1)
-            s = torch.einsum("iob,ib->ob", Jt[k, :nz], s) + cv[k]
     return torch.cat(W_rows), torch.cat(v_rows)
+
+
+def state_bound_qp(qp: NmpcQP, Jt, cv, zeta, up, sqRef, q0, lo, hi, F, cF):
+    """One SQP pass's QP with state-bound rows, a Hessian and rows a lane
+    (the JAX controller's ``E.shape[0]`` branch, control/kmpc.py:
+    1476-1491, which solves it by ``solve_qp(shared_A=False)``):
+    P = 2 (W^T W + diag(rdiag)) and f = 2 W^T v + q0 of the condensation
+    (JAX's 2 H[m:, m:] and f[m:] + 2 H[m:, :m] u_prev with H = Sy^T Q Sy +
+    diag(Rd) + rho I), the input rows F (mc, m + n) with cF (mc,) in
+    original units and, for stages 2..Np, [-S_k; S_k]
+    over the first nb = lo.numel() coordinates with b = [s_k - lo;
+    hi - s_k], u_prev's columns moved to b.  lo, hi (nb,) are the bounds in
+    scaled units; q0 (n, B) or None.  Returns (P (n, n, B), f (n, B),
+    A (mc', n, B), b (mc', B)) with mc' = mc + 2 nb (Np - 1)."""
+    m, nb, B = qp.m, lo.numel(), zeta.shape[1]
+    W, v = condense(qp, Jt, cv, zeta, up, sqRef)
+    P = 2.0 * (torch.einsum("rib,rjb->ijb", W, W)
+               + torch.diag(qp.rdiag)[..., None])
+    f = 2.0 * torch.einsum("rib,rb->ib", W, v)
+    if q0 is not None:
+        f = f + q0
+    states = list(sweep(qp, Jt, cv, zeta))[2:]
+    Sn = torch.stack([S[:nb] for S, _ in states])       # (Np-1, nb, m+n, B)
+    sn = torch.stack([s[:nb] for _, s in states])       # (Np-1, nb, B)
+    LE = torch.stack([-Sn, Sn], dim=1).reshape(-1, m + qp.n, B)
+    bE = torch.stack([sn - lo[:, None], hi[:, None] - sn], dim=1) \
+        .reshape(-1, B)
+    Fz = F[:, m:]
+    A = torch.cat([Fz[..., None].expand(*Fz.shape, B), LE[:, m:]])
+    b = torch.cat([cF[:, None] - F[:, :m] @ up,
+                   bE - torch.einsum("cjb,jb->cb", LE[:, :m], up)])
+    return P, f, A.contiguous(), b
 
 
 def linear_rollout(qp: NmpcQP, Jt, cv, zeta, U, Sel=None):

@@ -26,6 +26,8 @@ NONLINEAR_MODEL = ASSETS / "arm3_nonlinear_poly3.npz"
 # the loaded-arm experiment's models (nw = 2), trained by the JAX package
 LOADED_BILINEAR_MODEL = ASSETS / "arm2_loaded_bilinear_poly2.npz"
 LOADED_LINEAR_MODEL = ASSETS / "arm2_loaded_linear_poly2.npz"
+# the loaded bilinear recipe at delays=1 (nzeta = 10)
+LOADED_DELAYED_MODEL = ASSETS / "arm2_loaded_bilinear_poly2_del1.npz"
 
 
 def auto_rename(path: str) -> str:

@@ -30,6 +30,11 @@ from koopman_realizations_torch.config import ArmConfig
 from koopman_realizations_torch.models.arm import Arm
 
 from test_torch_oracle import BENCH_ARM
+from test_torch_oracle import one_thread  # noqa: E402,F401  (fixture)
+
+# one torch thread a test process: the xdist workers' pools would
+# oversubscribe the machine
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _inputs(B=16, seed=0):

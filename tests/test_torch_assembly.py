@@ -30,6 +30,11 @@ from koopman_realizations_torch.utils.checkpoint import (
 )
 
 from test_torch_oracle import BENCH_ARM, BENCH_MPC
+from test_torch_oracle import one_thread  # noqa: E402,F401  (fixture)
+
+# one torch thread a test process: the xdist workers' pools would
+# oversubscribe the machine
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 QPS = ["lift-fused", "blocked", "loaded"]
 # zero rows of the stack (W, CB0, v) of each QP, and each part's rows: the

@@ -15,6 +15,11 @@ import pytest
 from koopman_realizations_torch.ops.kernels import batch_chol as BC
 from koopman_realizations_torch.ops.kernels._build import CSRC
 from koopman_realizations_torch.ops.kernels.ipm_group import SMEM_LIMIT
+from test_torch_oracle import one_thread  # noqa: E402,F401  (fixture)
+
+# one torch thread a test process: the xdist workers' pools would
+# oversubscribe the machine
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 P = BC.CholPlan
 SMS = 132                   # an H100 SXM's SMs

@@ -41,6 +41,11 @@ from koopman_realizations_torch.ops.qp import lift_qp_operands
 from koopman_realizations_torch.utils.checkpoint import load_model
 
 from test_torch_oracle import BENCH_ARM, BENCH_MPC, blockM_y, jax_bench
+from test_torch_oracle import one_thread  # noqa: E402,F401  (fixture)
+
+# one torch thread a test process: the xdist workers' pools would
+# oversubscribe the machine
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 GEN_KEYS = ("Gz", "Gm", "Gb", "Hz", "Hm", "Hb", "Pz", "Pm", "Pb")
 

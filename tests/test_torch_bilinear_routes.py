@@ -230,28 +230,22 @@ def test_bilinear_controller_refuses_what_is_not_ported(extra):
 
 
 def test_bilinear_controller_refuses_loads():
-    """Loaded models with delays are refused on every route (delays with
-    loads are not ported); a loaded model without delays leaves the
-    lift-fused route for the z route of every configuration (its lifted
-    state carries the load estimate), tests/test_torch_loaded.py."""
-    import dataclasses
-
+    """A loaded model leaves the lift-fused route for the z route of every
+    configuration (its lifted state carries the load estimate),
+    tests/test_torch_loaded.py; with delays too (the loaded delayed
+    asset, nzeta = 10: tests/test_torch_loaded_delays.py)."""
     from koopman_realizations_torch.utils.checkpoint import (
         LOADED_BILINEAR_MODEL,
+        LOADED_DELAYED_MODEL,
     )
-    model, scaler, _ = load_model()
-    loaded = dataclasses.replace(
-        model, meta=dataclasses.replace(model.meta, nw=2, nd=1))
-    for name in BILINEAR_ROUTES:
-        with pytest.raises(NotImplementedError, match="item 7"):
-            BilinearKmpc(loaded, scaler, MpcConfig(
-                **{**BENCH_MPC, **BILINEAR_ROUTES[name]}), device="cpu")
-    lmodel, lscaler, _ = load_model(LOADED_BILINEAR_MODEL)
-    for knobs in [{}] + list(BILINEAR_ROUTES.values()):
-        cfg = MpcConfig(**{**BENCH_MPC, "proj_idx": (2, 3),
-                           "cost_input": (3e-3, 2e-3), **knobs})
-        mpc = BilinearKmpc(lmodel, lscaler, cfg, device="cpu")
-        assert not mpc.lift_fused and mpc.NL == 42
+    for path, nd in ((LOADED_BILINEAR_MODEL, 0), (LOADED_DELAYED_MODEL, 1)):
+        lmodel, lscaler, _ = load_model(path)
+        for knobs in [{}] + list(BILINEAR_ROUTES.values()):
+            cfg = MpcConfig(**{**BENCH_MPC, "proj_idx": (2, 3),
+                               "cost_input": (3e-3, 2e-3), **knobs})
+            mpc = BilinearKmpc(lmodel, lscaler, cfg, device="cpu")
+            assert not mpc.lift_fused and mpc.meta.nd == nd
+            assert mpc.NL == lmodel.meta.N * 3 and (nd or mpc.NL == 42)
 
 
 def test_short_closed_loop_matches_live_jax(arm):

@@ -1850,3 +1850,168 @@ def test_dictionary_loops_on_card_track(gpu_dict, path):
     assert CS.dict_alive_gate(out["alive"][:, -1].cpu().numpy(), P.r)
     ok, off, loose = CS.dict_lane_gate(e, P.r)
     assert ok, (path, off, loose)
+
+
+# ---- the NMPC's unblocked stack (input_blocks=None: n=27, mc=108): the
+# wide builds of nmpc_multipass, nmpc_stage, nmpc_pass (chord and the
+# jacfwd route's) and ipm_factored's q0 build, each against its plain
+# version on closed-loop lanes
+NMPC_UB = dict(NMPC, input_blocks=None)
+
+
+@pytest.fixture(scope="module")
+def gpu_nmpc_ub():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from koopman_realizations_torch.utils.checkpoint import ASSETS
+    model, scaler, _ = load_model(NONLINEAR_MODEL)
+    fmodel, fscaler, _ = load_model(ASSETS / "arm3_nonlinear_fsparse1.npz")
+    ctl = {}
+    for dt in (torch.float32, torch.float64):
+        ctl[dt] = {
+            "nmpc": NonlinearKmpc(model, scaler, MpcConfig(**NMPC_UB),
+                                  device="cuda", dtype=dt),
+            "jacfwd": NonlinearKmpc(fmodel, fscaler, MpcConfig(**NMPC_UB),
+                                    device="cuda", dtype=dt)}
+    sim = Ksim(Arm(ArmConfig(**ARM), device="cuda"),
+               ctl[torch.float32]["nmpc"])
+    qp = ctl[torch.float32]["nmpc"].nmpc_qp()
+    assert (qp.n, qp.mc) == (27, 108)
+    specs = [NM.kernel_spec(qp), NP.kernel_spec(qp),
+             NP.kernel_spec(ctl[torch.float32]["jacfwd"].nmpc_qp()),
+             IF.kernel_spec(ctl[torch.float32]["nmpc"].constraints(), qp.p,
+                            q0=True)] + [
+        NS.kernel_spec(qp, mode) for mode in N.STAGE_MODES]
+    for r in _build.build_all(specs):
+        print(r.path.name, f"{r.seconds:.1f}s", *r.ptxas, sep="\n  ")
+    return sim, ctl
+
+
+def _ub_inputs(gpu_nmpc_ub, B=1000, rho=0.1):
+    """One SQP pass's operands of the unblocked stack on B closed-loop
+    lanes (per-lane windows), f32 and f64: the multipass plan as the
+    linearization plan, its rollout, the fresh stage Jacobians (analytic;
+    forward-mode on the fourier_sparser model), the condensed W, v of the
+    'linear' update, x0 = U[m:], q0 = -2 rho U[m:] and the plan's
+    multipliers (row units) as the warm start."""
+    sim, ctl = gpu_nmpc_ub
+    zeta, up, win = _nmpc_lanes(sim, B, 3)
+    sq = win[3 + torch.arange(B, device="cuda") % 8].T.contiguous()
+    U, sol = sim.mpc.solve(zeta, up, sq)
+    out = {}
+    for dt, c in ctl.items():
+        m, mj = c["nmpc"], c["jacfwd"]
+        qp = m.nmpc_qp(m.RdT_t + rho * m.bsizes_t)
+        qj = mj.nmpc_qp(mj.RdT_t + rho * mj.bsizes_t)
+        Ud, z, u, s = (t.to(dt).contiguous() for t in (U, zeta, up, sq))
+        Z = N.rollout(qp, z, Ud)
+        Zl, Fv = Z[:-1].contiguous(), Z[1:].contiguous()
+        Jt, cv = N.stage_lin(qp, Zl, Ud, Fv=Fv)
+        Zj = mj._rollout_full(z, Ud)
+        Jj, cvj = mj.stage_lin(Zj[:-1], Ud, Fv=Zj[1:])
+        W, v = N.condense(qp, Jt, cv, z, u, s)
+        cons = m.constraints()
+        out[dt] = dict(qp=qp, qj=qj, zeta=z, up=u, sq=s, Ul=Ud, Zl=Zl, Fv=Fv,
+                       Jt=Jt, cv=cv, Jj=Jj.contiguous(), cvj=cvj.contiguous(),
+                       W=W.contiguous(), v=v.contiguous(), cons=cons,
+                       b=((m.cF_t[:, None] - m.F0_t @ u)
+                          / cons.row[:, None]).contiguous(),
+                       x0=m.moves(Ud).contiguous(),
+                       q0=m.levenberg_q0(Ud, rho).contiguous(),
+                       lam0=(sol.lam.to(dt) * qp.row[:, None]).contiguous())
+    return out
+
+
+def _ub_held(fns, args, cons_b):
+    """Kernel (fns[0]) against plain f32 (fns[1]), both against plain f64,
+    on args {dtype: (positional, keywords)}: equal ok masks, the kernel's
+    distance to f64 within twice plain f32's (``_near_f64``)."""
+    a32, k32 = args[torch.float32]
+    rk = fns[0](*a32, **k32)
+    torch.cuda.synchronize()
+    rp = fns[1](*a32, **k32)
+    a64, k64 = args[torch.float64]
+    x64 = fns[1](*a64, **k64)[0]
+    cons, b = cons_b
+    okk = ok_mask(cons, b, *rk[:3], 3e-3, 5e-2)[0]
+    okp = ok_mask(cons, b, *rp[:3], 3e-3, 5e-2)[0]
+    assert torch.equal(okk, okp)
+    _near_f64(rk[0], rp[0], x64)
+    return rk
+
+
+def test_nmpc_multipass_unblocked_matches_plain(gpu_nmpc_ub):
+    """The wide multipass build (the sweep's projected rows handed over,
+    a warp a lane forming the Gram) on 1000 closed-loop lanes."""
+    sim, ctl = gpu_nmpc_ub
+    zeta, up, win = _nmpc_lanes(sim, 1000, 3)
+    sq = win[3 + torch.arange(1000, device="cuda") % 8].T.contiguous()
+    args = {dt: ((c["nmpc"].nmpc_qp(), zeta.to(dt), up.to(dt),
+                  sq.to(dt).contiguous(), 5, True, 8), {})
+            for dt, c in ctl.items()}
+    qp = args[torch.float32][0][0]
+    rk = _ub_held((NM.nmpc_multipass_cuda, NM.nmpc_multipass_plain), args,
+                  (qp.cons, N.rhs(qp, up)))
+    assert torch.isfinite(rk[3]).all()
+
+
+@pytest.mark.parametrize("mode", ["hold", "roll", "ship"])
+@pytest.mark.parametrize("warm", [False, True])
+def test_nmpc_stage_unblocked_matches_plain(gpu_nmpc_ub, mode, warm):
+    ins = _ub_inputs(gpu_nmpc_ub)
+    args = {}
+    for dt, d in ins.items():
+        traj = {"ship": dict(Zl=d["Zl"], Ul=d["Ul"], Fv=d["Fv"]),
+                "roll": dict(Ul=d["Ul"]), "hold": {}}[mode]
+        args[dt] = ((d["qp"], mode, d["zeta"], d["up"], d["sq"], d["x0"],
+                     d["q0"], d["lam0"] if warm else None, 8, 1e-2), traj)
+    d = ins[torch.float32]
+    _ub_held((NS.nmpc_stage_cuda, NS.nmpc_stage_plain), args,
+             (d["qp"].cons, N.rhs(d["qp"], d["up"])))
+
+
+@pytest.mark.parametrize("route", ["chord", "jacfwd"])
+def test_nmpc_pass_unblocked_matches_plain(gpu_nmpc_ub, route):
+    """One pass from shipped Jacobians: the chord build (analytic
+    Jacobians) and the jacfwd route's build (forward-mode Jacobians of the
+    fourier_sparser model, no monomial tables)."""
+    ins = _ub_inputs(gpu_nmpc_ub)
+    jac = route == "jacfwd"
+    args = {dt: (((d["qj"], d["Jj"], d["cvj"]) if jac
+                  else (d["qp"], d["Jt"], d["cv"]))
+                 + (d["zeta"], d["up"], d["sq"], d["x0"], d["q0"],
+                    d["lam0"], 8, 1e-2), {})
+            for dt, d in ins.items()}
+    d = ins[torch.float32]
+    q = d["qj"] if jac else d["qp"]
+    _ub_held((NP.nmpc_pass_cuda, NP.nmpc_pass_plain), args,
+             (q.cons, N.rhs(q, d["up"])))
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_ipm_factored_q0_unblocked_matches_plain(gpu_nmpc_ub, warm):
+    """The q0 build at n=27, mc=108 on the 'linear' update's QP."""
+    ins = _ub_inputs(gpu_nmpc_ub)
+    args = {dt: ((d["cons"], d["qp"].rdiag, d["W"], d["v"], d["b"], d["x0"],
+                  d["lam0"] if warm else None, 8, 1e-2, d["q0"]), {})
+            for dt, d in ins.items()}
+    d = ins[torch.float32]
+    _ub_held((IF.ipm_factored_cuda, IF.ipm_factored_plain), args,
+             (d["cons"], d["b"]))
+
+
+def test_nmpc_unblocked_runner_on_card_tracks(gpu_nmpc_ub):
+    """The default configuration's general runner through the wide
+    multipass build, B=16 over 301 steps, one launch a step: every lane
+    alive."""
+    sim, _ = gpu_nmpc_ub
+    X0 = np.zeros((16, 6), np.float32)
+    X0[:, 0] = np.linspace(-0.2, 0.2, 16)
+    NM.nmpc_multipass_cuda.launches = 0
+    out = sim.batched_runner(blockM_reference(), steps=301)(
+        X0, np.zeros((16, 2), np.float32))
+    assert NM.nmpc_multipass_cuda.launches == 300
+    assert out["alive"].all()
+    assert torch.isfinite(lane_tracking_error(out["Yp"],
+                                              blockM_reference())).all()

@@ -370,9 +370,21 @@ def test_save_model_reads_back_in_both_packages(kind, tmp_path):
     ("snapshots", 10),
 ])
 def test_what_is_not_ported_raises(change, item):
+    """Pre-extracted snapshot pairs raise (ROADMAP item 10); loads with
+    delays (item 7) are ported: the trainer takes them on the loaded
+    corpus (held to JAX in ``test_torch_loaded_delays.py``)."""
     full = corpus()
     ds = DataSet(train=full.train[:1], val=full.val[:1], params=full.params)
     kw = dict(model_type="linear", obs_degree=(2,))
+    if item == 7:
+        from koopman_realizations_torch.utils.data import (
+            LOADED_CORPUS,
+            load_corpus,
+        )
+        ks = Ksysid(load_corpus(LOADED_CORPUS), SysidConfig(**kw, **change),
+                    device="cpu")
+        assert (ks.nd, ks.nw) == (1, 2)
+        return
     if change == "snapshots":
         ds = dataclasses.replace(ds, snapshots={"alpha": np.zeros((3, 6))})
     else:

@@ -55,6 +55,11 @@ from test_torch_oracle import (
     LINEAR_MPC,
     NMPC_MPC,
 )
+from test_torch_oracle import one_thread  # noqa: E402,F401  (fixture)
+
+# one torch thread a test process: the xdist workers' pools would
+# oversubscribe the machine
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 # (n, mc, band, group) of each build
 EXPECTED = {"iters2": (12, 48, 3, IG.NARROW_GROUP),
@@ -592,3 +597,38 @@ def test_solve_qp_shared_psh_symmetric_f32(perturbed):
     else:
         sol = mpc.solve(z, c.upsc, Yr[:, 0], c.upsc.repeat(mpc.Np, 1))[1]
         assert bool(sol.ok.all())
+
+
+@pytest.mark.parametrize("kernel", ["nmpc_multipass", "nmpc_stage",
+                                    "nmpc_pass"])
+def test_wide_nmpc_plan_hands_over_rows(kernel):
+    """The unblocked stack's builds (n=27, mc=108): a warp a lane; the
+    lane's scratch row the pass's p = 22 projected rows [w: n][v] (no
+    packed Hessian, so ``KG_S_PR`` is undefined and the group forms the
+    Gram); the work region [M][dx][vec][Pr][rows], the rows after the
+    Hessian (``KG_W_ROWS``); the build's header carries the section and
+    the row count; the shared memory fits two blocks an SM."""
+    model, scaler, _ = load_model(NONLINEAR_MODEL)
+    mpc = NonlinearKmpc(model, scaler,
+                        MpcConfig(**{**NMPC_MPC, "input_blocks": None}),
+                        device="cpu")
+    q = mpc.nmpc_qp()
+    mod = {"nmpc_multipass": NM, "nmpc_stage": NS, "nmpc_pass": NP}[kernel]
+    plan = mod.launch_plan(q)
+    n, mc, T, p = q.n, q.mc, IG.tri_size(q.n), q.p
+    assert (n, mc, p) == (27, 108, 22)
+    assert plan.group == 32 and plan.compact and plan.lanes == plan.threads
+    assert plan.scratch == ("W",) and plan.rows == p
+    assert plan.scratch_sections == {"W": (0, p * (n + 1))}
+    assert plan.scratch_floats == p * (n + 1)
+    assert plan.layout["WSTRIDE"] >= 2 * T + n + mc + p * (n + 1)
+    assert 2 * plan.smem_bytes <= 228 * 1024
+    spec = (mod.kernel_spec(q, "roll") if kernel == "nmpc_stage"
+            else mod.kernel_spec(q))
+    assert "#define KG_S_W 0\n" in spec.config
+    assert f"#define KG_ROWS {p}\n" in spec.config
+    assert "#define KG_S_PR" not in spec.config
+    # the narrow (blocked) builds keep the Gram in the sweep's thread
+    blocked = NonlinearKmpc(model, scaler, MpcConfig(**NMPC_MPC),
+                            device="cpu").nmpc_qp()
+    assert mod.launch_plan(blocked).scratch == ("PR", "Q")

@@ -57,6 +57,11 @@ from koopman_realizations_torch.utils.checkpoint import (
 from koopman_realizations_torch.utils.trajectories import blockM_reference
 
 from test_torch_oracle import BENCH_ARM, LINEAR_MPC, bench_X0
+from test_torch_oracle import one_thread  # noqa: E402,F401  (fixture)
+
+# one torch thread a test process: the xdist workers' pools would
+# oversubscribe the machine
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ITERS = LINEAR_MPC["qp_iters"]
 

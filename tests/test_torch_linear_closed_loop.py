@@ -34,6 +34,11 @@ from test_torch_oracle import (
     bench_X0,
     jax_general_run,
 )
+from test_torch_oracle import one_thread  # noqa: E402,F401  (fixture)
+
+# one torch thread a test process: the xdist workers' pools would
+# oversubscribe the machine
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _sim(dtype):

@@ -65,6 +65,11 @@ from test_torch_oracle import (
     blockM_y,
     jax_bench,
 )
+from test_torch_oracle import one_thread  # noqa: E402,F401  (fixture)
+
+# one torch thread a test process: the xdist workers' pools would
+# oversubscribe the machine
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 PLANT = ("ysc", "xpl", "yp")
 QP = ("upsc", "x0", "lamc")

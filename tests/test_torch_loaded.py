@@ -276,23 +276,27 @@ def test_loaded_controllers_take_their_routes():
 
 
 def test_nmpc_and_delays_with_loads_are_refused():
-    """As in the JAX package the NMPC refuses loaded models, and delays
-    with loads are not ported anywhere (trainer, controllers, observer)."""
+    """As in the JAX package the NMPC refuses loaded models; delays with
+    loads are accepted everywhere (trainer, controllers, observer; the
+    loaded delayed pipeline is held to JAX in
+    ``test_torch_loaded_delays.py``)."""
     lm, ls, _ = load_model(LOADED_LINEAR_MODEL)
     delayed = dataclasses.replace(lm, meta=dataclasses.replace(lm.meta,
                                                                nd=1))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        LinearKmpc(delayed, ls, mpc_cfg(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        make_load_observer(delayed, mpc_cfg(), device="cpu")
+    assert LinearKmpc(delayed, ls, mpc_cfg(), device="cpu").meta.nd == 1
+    # a whole horizon of delay-embedded rows before the first update
+    obs = make_load_observer(delayed, mpc_cfg(load_obs_period=1),
+                             device="cpu")
+    assert obs.nd == 1 and not obs.updates(obs.horizon + 1)
+    assert obs.updates(obs.horizon + 2)
     nl = dataclasses.replace(lm, meta=dataclasses.replace(
         lm.meta, model_type="nonlinear"))
     with pytest.raises(NotImplementedError, match="loaded"):
         NonlinearKmpc(nl, ls, mpc_cfg(sqp_iters=2), device="cpu")
     ds = load_corpus(LOADED_CORPUS)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        Ksysid(ds, SysidConfig(model_type="linear", obs_degree=(2,),
-                               loaded=True, delays=1), device="cpu")
+    ks = Ksysid(ds, SysidConfig(model_type="linear", obs_degree=(2,),
+                                loaded=True, delays=1), device="cpu")
+    assert (ks.nd, ks.nw, ks.nzeta) == (1, 2, 10)
 
 
 LOOPS = [("bilinear", True), ("bilinear", False), ("linear", True)]

@@ -40,6 +40,11 @@ from test_torch_oracle import (
     bench_X0,
     jax_general_run,
 )
+from test_torch_oracle import one_thread  # noqa: E402,F401  (fixture)
+
+# one torch thread a test process: the xdist workers' pools would
+# oversubscribe the machine
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _sim(dtype):
@@ -91,19 +96,26 @@ def test_nmpc_has_no_fused_step():
     dict(state_bounds=(-1.0, 1.0)), dict(input_blocks=None),
     dict(input_blocks=None, state_bounds=(-1.0, 1.0)), dict(sqp_iters=0)])
 def test_nmpc_refuses_unported_regimes(extra):
-    """The regimes the port does not run raise: state bounds and
-    unblocked stacks (with the 'linear' between-pass update too), which
-    name ROADMAP.md item 4, and no SQP pass (the SQP knobs off the
-    multipass route construct: ``test_torch_nmpc_regimes.py``,
-    ``test_torch_nmpc_linear.py``; the dual shift is accepted and acts on
-    nothing, as in the JAX package: the NMPC carries no duals across
+    """The unblocked stack (n = (Np-1) m = 27) constructs on its route:
+    multipass by default, 'linear' with the infeasible-path update, and
+    with state bounds the per-lane QP route; state bounds under move
+    blocking raise, as the JAX base refuses them (kmpc.py:334-338), and
+    so does no SQP pass (the SQP knobs off the multipass route construct:
+    ``test_torch_nmpc_regimes.py``, ``test_torch_nmpc_linear.py``,
+    ``test_torch_nmpc_unblocked.py``; the dual shift is accepted and acts
+    on nothing, as in the JAX package: the NMPC carries no duals across
     steps)."""
     model, scaler, _ = load_model(NONLINEAR_MODEL)
-    item4 = "sqp_iters" not in extra
-    with pytest.raises(NotImplementedError,
-                       match="item 4" if item4 else None):
-        NonlinearKmpc(model, scaler, MpcConfig(**{**NMPC_MPC, **extra}),
-                      device="cpu")
+    cfg = MpcConfig(**{**NMPC_MPC, **extra})
+    if "sqp_iters" in extra or "input_blocks" not in extra:
+        with pytest.raises(NotImplementedError):
+            NonlinearKmpc(model, scaler, cfg, device="cpu")
+        return
+    mpc = NonlinearKmpc(model, scaler, cfg, device="cpu")
+    route = "state_bounds" if "state_bounds" in extra else \
+        "linear" if "sqp_update" in extra else "multipass"
+    assert mpc.route == route and not mpc.blocked
+    assert mpc.nmpc_qp().n == 27 and mpc.cols == tuple(range(0, 30, 3))
 
 
 def test_nmpc_refuses_other_models_and_loads():

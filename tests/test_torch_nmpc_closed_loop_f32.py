@@ -5,9 +5,15 @@ of the closed-loop checks are in ``test_torch_nmpc_closed_loop.py``; this
 one has a file of its own so that the two ~100 s loops run on different
 test workers."""
 
+import pytest
 import torch
 
 from test_torch_nmpc_closed_loop import check_against_header
+from test_torch_oracle import one_thread  # noqa: F401  (fixture)
+
+# one torch thread a test process: the xdist workers' pools would
+# oversubscribe the machine
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def test_nmpc_closed_loop_f32_matches_jax_reference():

@@ -204,8 +204,12 @@ def test_linear_route_follows_solve_from(lanes, monkeypatch, name):
 
 
 def test_linear_update_refuses_the_unblocked_stack():
+    """The 'linear' update on the unblocked stack constructs: its QP is
+    ``ipm_factored``'s q0 build at n=27, mc=108 (the solve and loop are
+    held to JAX in ``test_torch_nmpc_unblocked.py``)."""
     model, scaler, _ = load_model(NONLINEAR_MODEL)
-    with pytest.raises(NotImplementedError):
-        NonlinearKmpc(model, scaler,
-                      MpcConfig(**{**NMPC_MPC, **LIN, "input_blocks": None}),
-                      device="cpu")
+    mpc = NonlinearKmpc(model, scaler,
+                        MpcConfig(**{**NMPC_MPC, **LIN, "input_blocks": None}),
+                        device="cpu")
+    qp = mpc.nmpc_qp()
+    assert mpc.route == "linear" and (qp.n, qp.mc) == (27, 108)

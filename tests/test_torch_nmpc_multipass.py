@@ -65,6 +65,11 @@ from koopman_realizations_torch.utils.checkpoint import (
 from koopman_realizations_torch.utils.trajectories import blockM_reference
 
 from test_torch_oracle import BENCH_ARM, NMPC_MPC, jax_bench
+from test_torch_oracle import one_thread  # noqa: E402,F401  (fixture)
+
+# one torch thread a test process: the xdist workers' pools would
+# oversubscribe the machine
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 B = 12
 

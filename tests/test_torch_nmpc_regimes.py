@@ -50,6 +50,11 @@ from test_torch_oracle import (
 )
 
 import chip_smoke  # noqa: E402  (the repository root, on the path above)
+from test_torch_oracle import one_thread  # noqa: E402,F401  (fixture)
+
+# one torch thread a test process: the xdist workers' pools would
+# oversubscribe the machine
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 B = 8
 

@@ -73,6 +73,11 @@ from test_torch_oracle import (
     jax_bench,
     nmpc_lanes,
 )
+from test_torch_oracle import one_thread  # noqa: E402,F401  (fixture)
+
+# one torch thread a test process: the xdist workers' pools would
+# oversubscribe the machine
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 B = 8
 RHO = 0.1

@@ -1726,6 +1726,339 @@ def _jax_knob_f32(names: list, copies: int, seed: int = 0, chunk: int = 12,
 LOST_LANES = ASSETS / "cold_lost_lanes.npz"
 
 
+# ---- the NMPC's unblocked stack (``--write-unblocked-refs``): the
+# reference's own NMPC (no move blocking, n = (Np-1) m = 27, mc = 108) on
+# the nonlinear asset in each route the JAX controller takes there, and
+# the jacfwd route on the fourier_sparser model; the state bounds widen
+# the bench loop's output range by 0.1 with the end effector's x capped
+# at 0.65 (the unbounded loop reaches 0.70), so that a row binds
+UNBLOCKED_NMPC = dict(NMPC_MPC, input_blocks=None)
+UNBLOCKED_PATHS = {
+    "default": ("nonlinear", {}),
+    "damping_decay": ("nonlinear", dict(sqp_damping=0.3,
+                                        sqp_damping_decay=0.5)),
+    "linesearch": ("nonlinear", dict(sqp_linesearch=2)),
+    "jac_period": ("nonlinear", dict(sqp_jac_period=2)),
+    "linear_update": ("nonlinear", dict(sqp_update="linear")),
+    "state_bounds": ("nonlinear", dict(
+        state_bounds=knob_state_bounds(0.1, 0.65))),
+    "jacfwd": ("nmpc-fs1", {}),
+}
+UNBLOCKED_REFS = ASSETS / "nmpc_unblocked_refs.json"
+# the state-bound loop's depth (its plain per-lane interior point takes
+# ~0.2 s a step on the card whatever the width): the others run REF_STEPS
+UNBLOCKED_STEPS = {"state_bounds": 101}
+# the lanes of the solve checks: nmpc_lanes(UNBLOCKED_SOLVE_B, 3) and a
+# previous plan of uniform(-0.6, 0.6) from default_rng(8)
+UNBLOCKED_SOLVE_B = 4
+
+
+def unblocked_plan(B: int = UNBLOCKED_SOLVE_B) -> np.ndarray:
+    """The solve checks' previous plans (Np*m, B), f64."""
+    return np.random.default_rng(8).uniform(-0.6, 0.6, (30, B))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_unblocked_sim(name: str):
+    """(Ksim, controller) of the JAX package for an ``UNBLOCKED_PATHS``
+    entry on its asset (cached per process)."""
+    from koopman_realizations_tpu.control import Ksim, make_kmpc
+    from koopman_realizations_tpu.models.arm import Arm
+    asset, knobs = UNBLOCKED_PATHS[name]
+    model, scaler = jax_dict_model(asset) if asset == "nmpc-fs1" \
+        else jax_model(asset)
+    mpc = make_kmpc(model, scaler, MpcConfig(**{**UNBLOCKED_NMPC,
+                                                **knobs}))
+    return Ksim(Arm(ArmConfig(**BENCH_ARM)), mpc), mpc
+
+
+def jax_unblocked_solve(name: str):
+    """The JAX controller's ``solve`` (x64) on the solve checks' lanes:
+    (U (B, Np*m), ok (B,))."""
+    _, mpc = jax_unblocked_sim(name)
+    B = UNBLOCKED_SOLVE_B
+    zeta, up, sq = nmpc_lanes(B, 3)
+    sqq = np.sqrt(mpc.Qd) if hasattr(mpc, "Qd") else None
+    ref = (sq.numpy() / np.asarray(sqq)[:, None]).T.reshape(B, 11, 2)
+    U, ok = jax.jit(jax.vmap(mpc.solve))(
+        zeta.numpy().T, up.numpy().T, ref,
+        unblocked_plan(B).T.reshape(B, 10, 3))
+    return np.asarray(U).reshape(B, 30), np.asarray(ok)
+
+
+def _jax_unblocked_f32(names: list) -> dict:
+    """Each path's JAX general runner with x64 off (f32 throughout) on
+    its 16 lanes, a process a path, all started together: {name:
+    [[alive, err_mean] per lane]}."""
+    code = (
+        "import json, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        f"sys.path.insert(0, {str(ROOT / 'tests')!r})\n"
+        "import jax\n"
+        "jax.config.update('jax_platforms', 'cpu')\n"
+        "import numpy as np\n"
+        "import test_torch_oracle as O\n"
+        "jax.config.update('jax_enable_x64', False)\n"
+        "sim, _ = O.jax_unblocked_sim(sys.argv[1])\n"
+        "steps = O.UNBLOCKED_STEPS.get(sys.argv[1], O.REF_STEPS)\n"
+        "run = sim.batched_runner(O.blockM_y(), steps=steps, "
+        "record=('Yp', 'alive'))\n"
+        "out = jax.block_until_ready(run(O.bench_X0(O.REF_B), "
+        "np.zeros((O.REF_B, 2), np.float32)))\n"
+        "Yp = np.asarray(out['Yp'])\n"
+        "assert Yp.dtype == np.float32\n"
+        "e = O.lane_errors(Yp, O.blockM_y(), steps)\n"
+        "a = np.asarray(out['alive'])[:, -1]\n"
+        "print(json.dumps([[bool(x), float(y)] for x, y in zip(a, e)]))\n")
+    out = _run_pool(code, [(n,) for n in names], len(names),
+                    dict(os.environ, JAX_ENABLE_X64="0"))
+    return {t[0]: v for t, v in out.items()}
+
+
+def write_unblocked_band(names, copies: int = F32_COPIES, chunk: int = 12,
+                         procs: int = 8) -> dict:
+    """The band of JAX's own f32 runs of the named ``UNBLOCKED_PATHS``
+    (loops that amplify f32 rounding: the jacfwd path's 16 lanes part from
+    x64 by up to 0.55): the asset (copy 0) and ``copies`` - 1 copies with
+    every nonzero entry of its f32 W (A of a bilinear model) moved one ulp
+    up or down, copy k's directions from ``default_rng([0, k])``, written
+    into ``UNBLOCKED_REFS`` as each path's "f32_copies"."""
+    code = (
+        "import dataclasses, json, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        f"sys.path.insert(0, {str(ROOT / 'tests')!r})\n"
+        "import jax\n"
+        "jax.config.update('jax_platforms', 'cpu')\n"
+        "import numpy as np\n"
+        "import test_torch_oracle as O\n"
+        "jax.config.update('jax_enable_x64', False)\n"
+        "from koopman_realizations_tpu.control import Ksim, make_kmpc\n"
+        "from koopman_realizations_tpu.models.arm import Arm\n"
+        "name, k0, k1 = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])\n"
+        "_, mpc0 = O.jax_unblocked_sim(name)\n"
+        "model, scaler = mpc0.model, mpc0.scaler\n"
+        "f = 'W' if hasattr(model, 'W') else 'A'\n"
+        "A = np.asarray(getattr(model, f), np.float32)\n"
+        "lanes = []\n"
+        "for k in range(k0, k1):\n"
+        "    up = np.random.default_rng([0, k]).random(A.shape) < 0.5\n"
+        "    Ak = A if k == 0 else np.where(A == 0, A, np.nextafter("
+        "A, np.where(up, np.inf, -np.inf).astype(np.float32)))\n"
+        "    mk = dataclasses.replace(model, **{f: Ak})\n"
+        "    sim = Ksim(Arm(O.ArmConfig(**O.BENCH_ARM)), make_kmpc("
+        "mk, scaler, mpc0.cfg))\n"
+        "    run = sim.batched_runner(O.blockM_y(), steps=O.REF_STEPS, "
+        "record=('Yp', 'alive'))\n"
+        "    out = jax.block_until_ready(run(O.bench_X0(O.REF_B), "
+        "np.zeros((O.REF_B, 2), np.float32)))\n"
+        "    e = O.lane_errors(np.asarray(out['Yp']), O.blockM_y(), "
+        "O.REF_STEPS)\n"
+        "    a = np.asarray(out['alive'])[:, -1]\n"
+        "    lanes.append([[bool(x), float(y)] for x, y in zip(a, e)])\n"
+        "print(json.dumps(lanes))\n")
+    tasks = [(n, k0, min(k0 + chunk, copies)) for n in names
+             for k0 in range(0, copies, chunk)]
+    done = _run_pool(code, tasks, procs,
+                     dict(os.environ, JAX_ENABLE_X64="0"))
+    refs = json.loads(UNBLOCKED_REFS.read_text())
+    out = {}
+    for n in names:
+        band = [lanes for t in tasks if t[0] == n for lanes in done[t]]
+        refs["paths"][n]["f32_copies"] = band
+        e = np.asarray([[v for _, v in c] for c in band])
+        out[n] = {"copies": len(band), "band_width_max":
+                  float((e.max(0) - e.min(0)).max())}
+    refs["f32_copies"] = (f"JAX with x64 off, the asset and {copies - 1} "
+                          f"one-ulp copies of its W (A), "
+                          f"default_rng([0, k]); python "
+                          f"tests/test_torch_oracle.py --write-unblocked-band")
+    UNBLOCKED_REFS.write_text(json.dumps(refs, indent=1) + "\n")
+    return out
+
+
+def write_unblocked_refs(only=None) -> dict:
+    """Run the JAX controller on every ``UNBLOCKED_PATHS`` entry (or the
+    named ones, the rest kept) and write ``UNBLOCKED_REFS``: the general
+    runner's x64 alive and err_mean per lane (B=16 x 301 blockM steps,
+    the bench's initial states), the same loop with x64 off (JAX's f32
+    reading of each lane), the count of lane-steps with a state-bound row
+    active (the plant's outputs at a bound), and the solve checks' plans
+    and ok masks."""
+    written_by = "python tests/test_torch_oracle.py --write-unblocked-refs"
+    old = json.loads(UNBLOCKED_REFS.read_text()) \
+        if UNBLOCKED_REFS.exists() else {}
+    names = list(only) if only else list(UNBLOCKED_PATHS)
+    f32 = _jax_unblocked_f32(names)
+    paths = dict(old.get("paths", {}))
+    import dataclasses
+    for name in names:
+        asset, knobs = UNBLOCKED_PATHS[name]
+        sim, mpc = jax_unblocked_sim(name)
+        steps = UNBLOCKED_STEPS.get(name, REF_STEPS)
+        run = sim.batched_runner(blockM_y(), steps=steps,
+                                 record=("Yp", "alive", "Y"))
+        out = jax.block_until_ready(
+            run(bench_X0(REF_B), np.zeros((REF_B, 2), np.float32)))
+        Yp = np.asarray(out["Yp"])
+        e = lane_errors(Yp, blockM_y(), steps)
+        a = np.asarray(out["alive"])[:, -1]
+        U, ok = jax_unblocked_solve(name)
+        entry = {
+            "asset": str(dict_asset_path(asset).name
+                         if asset == "nmpc-fs1" else NONLINEAR_ASSET.name),
+            "knobs": dict(knobs),
+            "config": dataclasses.asdict(mpc.cfg),
+            "steps": steps,
+            "alive": [bool(v) for v in a],
+            "err_mean": [float(v) for v in e],
+            "err_worst": float(e.max()),
+            "f32": f32[name],
+            "solve": {"U": U.tolist(), "ok": [bool(v) for v in ok]}}
+        if "state_bounds" in knobs:
+            sb = np.asarray(knobs["state_bounds"], np.float64)
+            Y = np.asarray(out["Y"])[:, 1:]                  # from step 2
+            hit = ((Y <= sb[:, 0] + 1e-6) | (Y >= sb[:, 1] - 1e-6)).any(-1)
+            entry["outputs_at_bound_lane_steps"] = int(hit.sum())
+        paths[name] = entry
+        print(name, float(a.mean()), float(e.mean()),
+              max(abs(x[1] - y) for x, y in zip(entry["f32"], e)),
+              flush=True)
+    refs = {
+        "runner": "koopman_realizations_tpu Ksim.batched_runner "
+                  "(jax_enable_x64, CPU; f32: x64 off)",
+        "written_by": written_by, "B": REF_B, "steps": REF_STEPS,
+        "X0": "first joint spread over +-0.2 rad (bench_X0)",
+        "reference": "blockM([0.45, -0.35], 0.5, 0.5), T=15, Ts=0.05",
+        "base": {k: (list(v) if isinstance(v, tuple) else v)
+                 for k, v in UNBLOCKED_NMPC.items()},
+        "solve_lanes": f"nmpc_lanes({UNBLOCKED_SOLVE_B}, 3), previous "
+                       f"plans uniform(-0.6, 0.6) of default_rng(8)",
+        "paths": paths}
+    UNBLOCKED_REFS.write_text(json.dumps(refs, indent=1) + "\n")
+    return {k: {"alive": float(np.mean(v["alive"])),
+                "err_mean": float(np.mean(v["err_mean"]))}
+            for k, v in paths.items()}
+
+
+# ---- loaded models with delays (``--write-loaded-delays``): the loaded
+# bilinear recipe at delays=1 (nzeta = 4 * 2 + 2 = 10) on the committed
+# loaded corpus, its controller and the load observer on the circle
+LOADED_DEL_ASSET = ASSETS / "arm2_loaded_bilinear_poly2_del1.npz"
+LOADED_DEL_REFS = ASSETS / "loaded_delays_refs.json"
+LOADED_DEL_SYSID = dict(LOADED["sysid"], delays=1)
+
+
+def train_jax_loaded_delays():
+    """The JAX trainer on the committed loaded corpus at delays=1."""
+    from koopman_realizations_tpu.models.edmd import Ksysid
+    from koopman_realizations_torch.utils.data import (
+        LOADED_CORPUS as CORPUS_FILE,
+    )
+    from koopman_realizations_torch.utils.data import load_corpus
+    ds = jax_dataset(load_corpus(CORPUS_FILE))
+    return Ksysid(ds, SysidConfig(model_type="bilinear",
+                                  **LOADED_DEL_SYSID)).train_models()
+
+
+@functools.lru_cache(maxsize=None)
+def jax_loaded_del_model():
+    """(model, scaler) of the committed loaded delayed asset, through the
+    JAX loader."""
+    from koopman_realizations_tpu.utils.checkpoint import load_model
+    return load_model(str(LOADED_DEL_ASSET))
+
+
+def _jax_loaded_del_f32(copies: int, B: int, chunk: int = 12,
+                        procs: int = 8, seed: int = 0) -> list:
+    """The JAX general runner of the loaded delayed loop (the observer
+    on) with x64 off on ``loaded_lanes(B)``, for the asset (copy 0) and
+    ``copies`` - 1 one-ulp copies of its f32 A (directions from
+    ``default_rng(seed + copy)``), ``chunk`` copies a process: [[[alive,
+    err_mean] per lane] per copy]."""
+    code = (
+        "import dataclasses, json, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        f"sys.path.insert(0, {str(ROOT / 'tests')!r})\n"
+        "import jax\n"
+        "jax.config.update('jax_platforms', 'cpu')\n"
+        "import numpy as np\n"
+        "import test_torch_oracle as O\n"
+        "jax.config.update('jax_enable_x64', False)\n"
+        "k0, k1, B = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3])\n"
+        "X0, W = O.loaded_lanes(B)\n"
+        "X0, W = X0.astype(np.float32), W.astype(np.float32)\n"
+        "model, scaler = O.jax_loaded_del_model()\n"
+        "A = np.asarray(model.A, np.float32)\n"
+        "out = []\n"
+        "for k in range(k0, k1):\n"
+        f"    up = np.random.default_rng({seed} + k).random(A.shape) < 0.5\n"
+        "    Ak = A if k == 0 else np.where(A == 0, A, np.nextafter("
+        "A, np.where(up, np.inf, -np.inf).astype(np.float32)))\n"
+        "    sim = O.jax_loaded_sim('bilinear', True, dataclasses.replace("
+        "model, A=Ak), scaler)\n"
+        "    r = O.jax_loaded_run(sim, X0, W, O.LOADED['steps'])\n"
+        "    assert r['err'].dtype == np.float32\n"
+        "    out.append([[bool(a), float(e)] for a, e in zip("
+        "r['alive'][:, -1], r['err'].mean(1))])\n"
+        "print(json.dumps(out))\n")
+    tasks = [(a, min(a + chunk, copies), B) for a in range(0, copies, chunk)]
+    done = _run_pool(code, tasks, procs, dict(os.environ,
+                                              JAX_ENABLE_X64="0"))
+    return [lane for t in tasks for lane in done[t]]
+
+
+def write_loaded_delays(copies: int = LOADED_F32_COPIES,
+                        procs: int = 8) -> dict:
+    """Train the loaded delayed asset with JAX on the committed loaded
+    corpus and write ``LOADED_DEL_REFS``: the JAX general runner with the
+    observer on the circle (x64) on the 16 reference lanes (alive,
+    err_mean, the last What), the band of its f32 runs (the asset and
+    ``copies`` - 1 one-ulp copies of A) and its f32 run at B_full."""
+    from koopman_realizations_tpu.utils.checkpoint import save_model
+    written_by = "python tests/test_torch_oracle.py --write-loaded-delays"
+    ks = train_jax_loaded_delays()
+    save_model(str(LOADED_DEL_ASSET), ks.model, ks.scaler, overwrite=True)
+    data = dict(np.load(LOADED_DEL_ASSET, allow_pickle=False))
+    h = json.loads(str(data.pop("header")))
+    h["provenance"] = {
+        "corpus": f"assets/{LOADED_CORPUS.name} (--write-loaded)",
+        "sysid": "Ksysid bilinear poly-2 loaded=True delays=1 dim_red=True "
+                 "dtype=float32",
+        "written_by": written_by}
+    np.savez(LOADED_DEL_ASSET, header=json.dumps(h), **data)
+    jax_loaded_del_model.cache_clear()
+    model, scaler = jax_loaded_del_model()
+    r = LOADED
+    X0, W = loaded_lanes(r["B_ref"])
+    res = jax_loaded_run(jax_loaded_sim("bilinear", True, model, scaler),
+                         X0, W, r["steps"])
+    band = _jax_loaded_del_f32(copies, r["B_ref"], procs=procs)
+    full = _jax_loaded_del_f32(1, r["B_full"], procs=1)[0]
+    refs = {
+        "runner": "koopman_realizations_tpu Ksim.batched_runner with "
+                  "make_load_observer (jax_enable_x64, CPU; f32: x64 off)",
+        "written_by": written_by, "asset": LOADED_DEL_ASSET.name,
+        "sysid": {k: (list(v) if isinstance(v, tuple) else v)
+                  for k, v in LOADED_DEL_SYSID.items()},
+        "mpc": {k: (list(v) if isinstance(v, tuple) else v)
+                for k, v in r["mpc"].items()},
+        "nzeta": int(model.meta.nzeta), "NL": int(model.meta.NL),
+        "B": r["B_ref"], "steps": r["steps"],
+        "lanes": "loaded_lanes(B): linspace(-spread, spread) first joint, "
+                 "lane i the load grid[i % 3]",
+        "alive": [bool(a) for a in res["alive"][:, -1]],
+        "err_mean": [float(e) for e in res["err"].mean(1)],
+        "What_last": np.asarray(res["What"][:, -1]).tolist(),
+        "f32_copies": band,
+        "full_f32": {"B": r["B_full"],
+                     "alive": float(np.mean([a for a, _ in full])),
+                     "err_mean": float(np.mean([e for _, e in full]))}}
+    LOADED_DEL_REFS.write_text(json.dumps(refs, indent=1) + "\n")
+    return {"alive": float(np.mean(refs["alive"])),
+            "err_mean": float(np.mean(refs["err_mean"])),
+            "full_f32": refs["full_f32"], "NL": refs["NL"]}
+
+
 def write_lost_lanes(src) -> dict:
     """Copy the lost lanes' QPs of a ``cold-lanes`` report (``src``, its
     .npz) to ``LOST_LANES`` with JAX's ``solve_qp`` (shared A, the lane's
@@ -2134,6 +2467,17 @@ if __name__ == "__main__":
                     help="copy the lost lanes' QPs of a chip_smoke.py "
                          "--measure cold-lanes report (its .npz) to "
                          "assets/cold_lost_lanes.npz with JAX's verdict")
+    ap.add_argument("--write-unblocked-refs", nargs="*", metavar="PATH",
+                    help="record the JAX controller on the NMPC's unblocked "
+                         "stack in each route of UNBLOCKED_PATHS "
+                         "(nmpc_unblocked_refs.json; the named paths alone)")
+    ap.add_argument("--write-unblocked-band", nargs="+", metavar="PATH",
+                    help="add the band of JAX's f32 runs (96 copies) of the "
+                         "named UNBLOCKED_PATHS to nmpc_unblocked_refs.json")
+    ap.add_argument("--write-loaded-delays", action="store_true",
+                    help="train the loaded delayed asset with JAX on the "
+                         "committed loaded corpus and write "
+                         "loaded_delays_refs.json")
     ap.add_argument("--write-rand-refs", action="store_true",
                     help="record the JAX random-system sweep of RAND_MODELS"
                          " (rand_models_refs.json)")
@@ -2146,13 +2490,18 @@ if __name__ == "__main__":
             or args.write_dictionary_refs or args.write_angles
             or args.write_knob_refs is not None
             or args.write_lost_lanes is not None
+            or args.write_unblocked_refs is not None
+            or args.write_loaded_delays
+            or args.write_unblocked_band is not None
             or args.write_dictionary_full is not None):
         ap.error("nothing to do (pass --write-asset, --write-corpus, "
                  "--write-regime-refs, --write-bilinear-refs, "
                  "--write-lasso-refs, --write-rand-refs, --write-loaded, "
                  "--write-loaded-refs, --write-dictionaries, "
                  "--write-dictionary-refs, --write-dictionary-full, "
-                 "--write-angles, --write-knob-refs or "
+                 "--write-angles, --write-knob-refs, "
+                 "--write-unblocked-refs, --write-unblocked-band, "
+                 "--write-loaded-delays or "
                  "--write-lost-lanes)")
     if args.write_corpus:
         print(json.dumps(write_corpus(), indent=1))
@@ -2182,6 +2531,14 @@ if __name__ == "__main__":
         print(json.dumps(write_angles(), indent=1))
     if args.write_lost_lanes is not None:
         print(json.dumps(write_lost_lanes(args.write_lost_lanes), indent=1))
+    if args.write_loaded_delays:
+        print(json.dumps(write_loaded_delays(procs=args.procs), indent=1))
+    if args.write_unblocked_refs is not None:
+        print(json.dumps(write_unblocked_refs(args.write_unblocked_refs),
+                         indent=1))
+    if args.write_unblocked_band is not None:
+        print(json.dumps(write_unblocked_band(args.write_unblocked_band,
+                                              procs=args.procs), indent=1))
     if args.write_knob_refs is not None:
         print(json.dumps(write_knob_refs(procs=args.procs,
                                          only=args.write_knob_refs),

@@ -8,6 +8,11 @@ from pathlib import Path
 
 import pytest
 import torch
+from test_torch_oracle import one_thread  # noqa: E402,F401  (fixture)
+
+# one torch thread a test process: the xdist workers' pools would
+# oversubscribe the machine
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "koopman_realizations_torch"
