@@ -65,8 +65,13 @@ through the wide builds of ``nmpc_multipass``, ``nmpc_stage``,
 B=65536 x 301), its state bounds on the plain per-lane interior point,
 and a loaded model with delays under the load observer, against
 ``assets/nmpc_unblocked_refs.json`` and
-``assets/loaded_delays_refs.json``.  It
-prints the card's name and power limit, one JSON line with every
+``assets/loaded_delays_refs.json``.  Phase GN runs the arm plant in
+full and data generation without JAX: the three committed corpora
+regenerated on the card, the generator at 65536 trials, generate ->
+``.mat`` -> train -> the fused loop, the main bilinear controller on the
+'rk4', 'stage' and 'rk45' plants against ``assets/plant_refs.json``,
+and the stage-wise LQ solvers and unrolled small solves against the CPU.
+It prints the card's name and power limit, one JSON line with every
 kernel's launches, device launches a call, error, times and bound, and
 as the last line {"ok": true, "device": {...}}.  Any failed phase raises; without CUDA or
 outside a checkout it exits non-zero and prints no result.
@@ -173,9 +178,15 @@ DICT_REFS = ROOT / "koopman_realizations_torch" / "assets" / \
 # closed-loop steps before phase DX2's kernel checks
 DX_CHECK_STEPS = 12
 # DX4's depth of the jacfwd NMPC paths (nmpc-fs1, nmpc-bilin; 25 s and 76
-# s at 301 steps on the H100): cut to keep the script inside its limit
-# since PR 17's phase NU, their full-width gate is alive at the last step
-DX_JACFWD_STEPS = 101
+# s at 301 steps on the H100): cut to keep the script inside its limit,
+# to 101 when phase NU came, to 26 when phase GN came; their full-width
+# gate is alive at the last step
+DX_JACFWD_STEPS = 26
+# the depth of phases S3 (the stage and chord routes at B=65536: 5.6 s
+# and 10.8 s at 301 steps), R3 (iters2 and unblocked: 3.7 s and 4.5 s)
+# and Q4 (the 'linear' route, 19.1 s): cut for the time limit when phase
+# GN came; their gate is alive at full width
+S3_STEPS = Q4_STEPS = 101
 B_MAIN, B_GENERAL, B_CHECK, STEPS = 262144, 65536, 8192, 301
 # H100 SXM published peaks: f32 outside the tensor cores, HBM3 bandwidth
 PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
@@ -1734,6 +1745,11 @@ COLD = dict(qp_dual_warm=False, qp_iters=24)
 SB_STEPS = 40
 # the plain per-lane-A loop (no kernel) runs RN4 at this many lanes
 B_PLAIN = B_CHECK
+# RN4's loops and RN3's lasso sweep at 65536 lanes run this many steps
+# (cut from 301 for the time limit when phase GN came: the state-bound
+# loops 26 s and 19 s, the sweep 25 s, the others ~3 s at 301 steps);
+# their gate is alive at full width
+RN4_STEPS = 101
 # del1's bilin_lift build on this many closed-loop lanes, where its p99
 # distance to f64 once read 3x plain f32's (ROADMAP.md §3, check 3)
 B_TAIL = 129
@@ -1940,7 +1956,7 @@ def phase_runners(dev, E, R, D, smi) -> dict:
     and the lasso sweep at ``bilinear_iters=2`` on the six committed
     candidates (each within 1e-3 of x64, or inside its f32 band), the
     state-bound knobs with a state-bound row active on some lane-step;
-    RN4 the same at B_GENERAL x 301 (the loop that runs no kernel, the
+    RN4 the same at B_GENERAL x RN4_STEPS (the loop that runs no kernel, the
     bilinear state-bound one, at B_PLAIN), every lane alive where JAX
     keeps the 16 lanes alive in x64 and every f32 run.  RN5 times
     ``run_trial_mpc_timed`` at B=1 on blockM for the linear, bilinear and
@@ -2184,11 +2200,14 @@ def phase_runners(dev, E, R, D, smi) -> dict:
         B = B_GENERAL if K.kernel else B_PLAIN
         X0, W = lanes(B)
         K.sim.batched_runner(blockM, steps=3)(X0[:1024], W[:1024])
+        steps = RN4_STEPS
+        run = K.sim.batched_runner(blockM, steps=steps)
+        exp = {} if K.kernel is None else {K.kernel: steps - 1}
         res, wall, counts = E.drive(exp, lambda: run(X0, W))
         alive = res["alive"][:, -1].cpu().numpy()
         e = lane_tracking_error(res["Yp"], blockM).cpu().numpy()
-        log(f"RN4 {name} B={B} x {STEPS}: {wall:.3f} s (CUDA "
-            f"events), {B * (STEPS - 1) / wall:.4e} lane-steps/s, "
+        log(f"RN4 {name} B={B} x {steps}: {wall:.3f} s (CUDA "
+            f"events), {B * (steps - 1) / wall:.4e} lane-steps/s, "
             f"alive {alive.mean():.6f}, err_mean {e[alive].mean():.6f}, "
             f"launches { {k: v for k, v in counts.items() if v} } | {smi}")
         # every lane alive where JAX keeps the 16 lanes alive in x64 and
@@ -2217,10 +2236,11 @@ def phase_runners(dev, E, R, D, smi) -> dict:
         ks = types.SimpleNamespace(
             candidates=[cands[i % len(cands)] for i in range(C)],
             scaler=pairs[0][1])
+        steps = STEPS if C == len(cands) else RN4_STEPS
         res, wall, counts = E.drive(
-            {"ipm_shared": scfg.bilinear_iters * (STEPS - 1)},
+            {"ipm_shared": scfg.bilinear_iters * (steps - 1)},
             lambda: lasso_sweep_closed_loop(ks, sarm, scfg, blockM,
-                                            steps=STEPS, device=dev))
+                                            steps=steps, device=dev))
         em = res["err"].mean(1)
         al = res["alive"][:, -1]
         rows = []
@@ -2242,7 +2262,7 @@ def phase_runners(dev, E, R, D, smi) -> dict:
                         f"{cd['err_mean']:.6f}, f32 band {lo:.6f}-{hi:.6f}) "
                         f"alive {a_i.mean():.4f}")
         log(f"RN3 lasso sweep bilinear_iters={scfg.bilinear_iters} on the "
-            f"six committed candidates, {C} lanes x {STEPS} steps: "
+            f"six committed candidates, {C} lanes x {steps} steps: "
             f"{wall:.3f} s (CUDA events); " + "; ".join(rows) + f" | {smi}")
         if not ok:
             raise AssertionError("RN3 lasso sweep: off the JAX reference")
@@ -2299,7 +2319,8 @@ LOADED_DEL_REFS = ROOT / "koopman_realizations_torch" / "assets" / \
 NU_ROUTE_KERNEL = {"multipass": "nmpc_multipass", "stage": "nmpc_stage",
                    "chord": "nmpc_pass", "jacfwd": "nmpc_pass",
                    "linear": "ipm_factored", "state_bounds": None}
-NU_STEPS, NU_B_SB, NU_CHECK_STEPS, NU_B_CHECK = 21, 2048, (5, 40), 4096
+# (NU_STEPS: NU4's depth, cut from 21 to 11 when phase GN came)
+NU_STEPS, NU_B_SB, NU_CHECK_STEPS, NU_B_CHECK = 11, 2048, (5, 40), 4096
 # the loaded delayed loop's whole-batch err_mean against JAX f32's on the
 # same 2048 lanes: its lanes are chaotic in f32 (JAX's own one-ulp copies
 # span 0.20-0.58 a lane, the 16-lane mean's spread over them 0.017), so a
@@ -2873,6 +2894,433 @@ def phase_unblocked(dev, E, U, smi) -> dict:
         f"{tag} {b - a:.1f}" for tag, a, b in zip(stamps, marks, marks[1:]))
         + f"; total {time.perf_counter() - t_phase:.1f}")
     return out
+
+
+# ---- phase GN: the arm plant in full and data generation without JAX
+# GN2's generator at full width: the corpus arm's excitation trials (tf
+# cut from the corpus's 60 s to 10 s, 201 samples, for the time limit)
+GN_TRIALS, GN_TF = 65536, 10.0
+# GN4: the JAX x64 general runner on the arm's other plants (written by
+# tests/test_torch_oracle.py --write-plants); their full-width loops
+# at B_GENERAL, the 'rk45' one cut to GN_RK45_STEPS steps
+PLANT_REFS = ROOT / "koopman_realizations_torch" / "assets" / \
+    "plant_refs.json"
+GN_RK45_STEPS = 21
+# GN4's gate on each of the 16 reference lanes' err_mean against JAX x64
+# (measured within 4.6e-6 in f32 on an H100); the 16-lane mean within 1e-3
+GN4_LANE_TOL = 1e-4
+# GN5: the stage-wise LQ solvers on the linear asset's (A, B)
+GN5_B, GN5_NP, GN5_NP_SHORT, GN5_CPU_LANES = 4096, 200, 10, 16
+
+
+def lq_problem(A, B, Np: int, lanes: int, seed: int = 0) -> tuple:
+    """A seeded LQ tracking problem on (A, B), f64 numpy: diagonal state
+    costs (terminal x10), diagonal input costs, small linear terms, and
+    ``lanes`` initial states z0 (lanes, n)."""
+    import numpy as np
+    n, m = B.shape
+    rng = np.random.default_rng(seed)
+    Qs = np.tile(np.diag(rng.uniform(0.1, 1.0, n))[None], (Np + 1, 1, 1))
+    Qs[-1] *= 10.0
+    Rs = np.tile(np.diag(rng.uniform(0.1, 0.5, m))[None], (Np, 1, 1))
+    qs = 0.1 * rng.normal(size=(Np + 1, n))
+    rs = 0.01 * rng.normal(size=(Np, m))
+    return (np.asarray(A, float), np.asarray(B, float), Qs, Rs, qs, rs,
+            rng.normal(size=(lanes, n)))
+
+
+def lq_condensed(A, B, Qs, Rs, qs, rs, z0):
+    """The dense equivalent of one LQ problem (``tests/test_riccati.py:
+    _condense``): J(U) = 1/2 U'P U + f'U, numpy f64."""
+    import numpy as np
+    n, m = B.shape
+    Np = Rs.shape[0]
+    powers = [np.eye(n)]
+    for _ in range(Np):
+        powers.append(powers[-1] @ A)
+    Abig = np.concatenate(powers, axis=0)
+    Bbig = np.zeros((n * (Np + 1), m * Np))
+    for i in range(1, Np + 1):
+        for j in range(i):
+            Bbig[i * n:(i + 1) * n, j * m:(j + 1) * m] = powers[i - 1 - j] @ B
+    Qblk = np.zeros((n * (Np + 1), n * (Np + 1)))
+    for k in range(Np + 1):
+        Qblk[k * n:(k + 1) * n, k * n:(k + 1) * n] = Qs[k]
+    Rblk = np.zeros((m * Np, m * Np))
+    for k in range(Np):
+        Rblk[k * m:(k + 1) * m, k * m:(k + 1) * m] = Rs[k]
+    P = Bbig.T @ Qblk @ Bbig + Rblk
+    f = Bbig.T @ (Qblk @ (Abig @ z0) + qs.reshape(-1)) + rs.reshape(-1)
+    return P, f
+
+
+def phase_generation(dev, E, smi) -> dict:
+    """Phase GN: the arm plant in full and data generation without JAX.
+
+    GN1 regenerates the three committed corpora on the card in f64
+    (``workflows/arm_data.py:corpus``: the markers and angle corpora of
+    ``generate(15, 60.0, n_val=5, seed=0)``, the loaded one's 16 loads
+    from seed 7) and holds them trial by trial to the files the JAX
+    package wrote: t, u and w bitwise, y within 1e-8.  GN2 runs the
+    generator (``simulate_rampNhold_batch``) at GN_TRIALS trials of the
+    corpus arm (tf cut to GN_TF), all four outputs, wall time and
+    trial-steps/s, 16 trials held to the CPU's eager f64 plant within
+    1e-10, the PlantGraph's period and memory pool.  GN3 takes GN1's
+    corpus through ``save_data4sysid`` / ``load_data4sysid``, trains the
+    main path's bilinear model on the card (one-step within 1.2e-7 of the
+    asset's), drives ``Ksim.fused_runner`` with it at B_MAIN x 301 (alive
+    1.0, err_mean within 1e-3 of the asset header's) and reads its
+    ``export_mat`` back.  GN4 holds each new plant's graph to its eager
+    period (bitwise), then runs the main bilinear
+    controller in the general runner (``bilin_lift``) on it: 'rk4' and
+    'stage' at B_GENERAL x 301, the first 16 lanes the reference lanes
+    (each lane's err_mean within GN4_LANE_TOL of ``plant_refs.json``,
+    their mean within 1e-3, alive equal; all alive), 'rk45'
+    on the 16 lanes x 301 and at B_GENERAL x GN_RK45_STEPS (alive 1.0).
+    GN5 holds ``solve_lq_stagewise`` / ``solve_lq_box_barrier`` at
+    Np=GN5_NP on GN5_B initial states of the linear asset to the CPU in
+    f64, at Np=GN5_NP_SHORT to the condensed QP, and ``batch_linalg`` at
+    n = 6, 12, 27 to the CPU.  Any miss raises.  Returns the launches of
+    the kernels on the phase's paths and its times."""
+    import dataclasses
+
+    import numpy as np
+    import scipy.io as sio
+    import torch
+
+    from koopman_realizations_torch.config import (
+        ArmConfig,
+        MpcConfig,
+        SysidConfig,
+    )
+    from koopman_realizations_torch.control.kmpc import BilinearKmpc
+    from koopman_realizations_torch.control.ksim import Ksim
+    from koopman_realizations_torch.models.arm import OUTPUTS, RK45_CHUNK, Arm
+    from koopman_realizations_torch.models.edmd import Ksysid
+    from koopman_realizations_torch.ops import batch_linalg as BLA
+    from koopman_realizations_torch.ops import riccati as RIC
+    from koopman_realizations_torch.ops.kernels._build import BUILD
+    from koopman_realizations_torch.ops.qp import solve_qp_lane_A
+    from koopman_realizations_torch.utils.checkpoint import (
+        BENCH_MODEL,
+        LINEAR_MODEL,
+        export_mat,
+        load_model,
+    )
+    from koopman_realizations_torch.utils.matio import (
+        load_data4sysid,
+        save_data4sysid,
+    )
+    from koopman_realizations_torch.utils.metrics import (
+        lane_tracking_error,
+        one_step_predictions,
+    )
+    from koopman_realizations_torch.utils.trajectories import (
+        blockM_reference,
+    )
+    from koopman_realizations_torch.workflows.arm_data import (
+        ASSETS,
+        CORPORA,
+        CORPUS_ARM,
+        corpus,
+        corpus_distance,
+    )
+    log, drive = E.log, E.drive
+    t_phase = [time.perf_counter()]
+    times, launches = {}, {"step_fused": 0, "bilin_lift": 0}
+
+    def took(tag):
+        now = time.perf_counter()
+        times[tag] = now - t_phase[0]
+        log(f"{tag} took {times[tag]:.1f} s")
+        t_phase[0] = now
+
+    def sync_wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # ---- GN1: the three committed corpora, regenerated on the card
+    gen = {}
+    for name, r in CORPORA.items():
+        ds, wall = sync_wall(lambda: corpus(name, device=dev))
+        d = corpus_distance(ds, ASSETS / r["file"])
+        T = ds.train[0].T
+        log(f"GN1 corpus {name} ({r['file']}) regenerated on the card in "
+            f"f64: {d['trials']} trials x {T} samples in {wall:.2f} s "
+            f"(plant graph capture included); t bitwise {d['t_equal']}, u "
+            f"bitwise {d['u_equal']}, w bitwise {d['w_equal']}, y max abs "
+            f"{d['y_max']:.3e} (gate 1e-8) | {smi}")
+        if not (d["trials_equal"] and d["t_equal"] and d["u_equal"]
+                and d["w_equal"] and d["y_max"] < 1e-8):
+            raise AssertionError(f"GN1 {name}: the port's corpus is not "
+                                 f"the committed one")
+        gen[name] = ds
+    took("GN1")
+
+    # ---- GN2: the generator at full width
+    cfg = ArmConfig(**CORPUS_ARM)
+    garm = Arm(cfg, device=dev)
+    sims, wall = sync_wall(lambda: garm.simulate_rampNhold_batch(
+        np.random.default_rng(0), tf=GN_TF, Tramp=2.5,
+        W=np.zeros((GN_TRIALS, 2))))
+    T = len(sims[0]["t"])
+    X = np.stack([s["x"] for s in sims])                  # (B, T, nx)
+    finite = bool(np.isfinite(X).all())
+    Xd = torch.as_tensor(X.reshape(-1, cfg.nx), device=dev)
+    idx = np.linspace(0, GN_TRIALS - 1, REF_LANES).astype(int)
+    shapes = {}
+    for ot in OUTPUTS:
+        a = Arm(dataclasses.replace(cfg, output_type=ot), device=dev)
+        Y = a.get_y_batch(Xd).reshape(GN_TRIALS, T, -1)
+        finite &= bool(torch.isfinite(Y).all())
+        shapes[ot] = tuple(Y.shape)
+        if ot == cfg.output_type:
+            same_y = np.array_equal(Y[idx].cpu().numpy(),
+                                    np.stack([sims[b]["y"] for b in idx]))
+        del Y
+    del Xd
+    carm = Arm(cfg, device="cpu")
+    Uc = torch.from_numpy(np.stack([sims[b]["u"][:-1] for b in idx], 2))
+    Xc = carm._roll(torch.zeros((cfg.nx, REF_LANES), dtype=torch.float64),
+                    Uc, torch.zeros((2, REF_LANES), dtype=torch.float64))
+    d_cpu = float(np.abs(Xc.permute(2, 0, 1).numpy() - X[idx]).max())
+    Yc = carm.get_y(Xc.permute(1, 0, 2).reshape(cfg.nx, -1))
+    d_ycpu = float(np.abs(Yc.reshape(-1, T, REF_LANES).permute(2, 1, 0)
+                          .numpy() - np.stack([sims[b]["y"] for b in idx]))
+                   .max())
+    # the period's graph: a fresh capture's pool, and its replay time
+    garm.clear_graphs()
+    Xp = torch.as_tensor(X[:, T // 2].T.copy(), device=dev)
+    Up = torch.as_tensor(np.stack([s["u"][T // 2] for s in sims], 1),
+                         device=dev)
+    Wp = torch.zeros((2, GN_TRIALS), dtype=torch.float64, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    r0 = torch.cuda.memory_reserved(dev)
+    garm.step(Xp, Up, Wp)
+    pool = (torch.cuda.memory_reserved(dev) - r0) / 2 ** 20
+    period = cuda_ms(lambda: garm.step(Xp, Up, Wp), reps=5)
+    garm.clear_graphs()
+    rate = GN_TRIALS * (T - 1) / wall
+    log(f"GN2 simulate_rampNhold_batch B={GN_TRIALS} trials x {T} samples "
+        f"(tf {GN_TF} s, cut from 60 s) of the corpus arm in f64 (SDIRK2 "
+        f"'substep', 5 substeps, 3 Newton iterations): {wall:.2f} s wall "
+        f"(host tables and copies included), {rate:.4e} trial-steps/s; "
+        f"outputs {shapes}, all finite {finite}, the 16 trials' y "
+        f"get_y_batch's {same_y}; the 16 trials against the CPU's eager f64 "
+        f"plant: x max abs {d_cpu:.3e}, y {d_ycpu:.3e} (gate 1e-10); its "
+        f"PlantGraph period {period:.3f} ms at B={GN_TRIALS} f64, pool "
+        f"{pool:.1f} MiB | {smi}")
+    if not (finite and same_y and d_cpu < 1e-10 and d_ycpu < 1e-10):
+        raise AssertionError("GN2: the full-width generator is off")
+    times["GN2_wall"], times["GN2_period_ms"] = wall, period
+    del sims, X
+    took("GN2")
+
+    # ---- GN3: generate -> .mat -> train -> control, without JAX
+    ds = gen["markers"]
+    mat = BUILD / "generated" / "arm3_corpus.mat"
+    mat.parent.mkdir(parents=True, exist_ok=True)
+    save_data4sysid(str(mat), ds)
+    back = load_data4sysid(str(mat))
+    same = all(np.array_equal(getattr(a, f), getattr(b, f))
+               for sa, sb in ((ds.train, back.train), (ds.val, back.val))
+               for a, b in zip(sa, sb) for f in ("t", "y", "u", "x"))
+    ks = Ksysid(back, SysidConfig(model_type="bilinear",
+                                  pca_explained=PCA_EXPLAINED["bilinear"],
+                                  **TRAIN_RECIPE), device=dev).train_models()
+    am, asc, header = load_model(BENCH_MODEL)
+    jr = header["jax_reference"]
+    d_asset = float(np.abs(one_step_predictions(ks.model, ks.valdata, dev)
+                           - one_step_predictions(am, ks.valdata,
+                                                  dev)).max())
+    barm = Arm(ArmConfig(**ARM), device=dev)
+    sim = Ksim(barm, BilinearKmpc(ks.model, ks.scaler, MpcConfig(**MPC),
+                                  device=dev), device=dev)
+    ref = blockM_reference()
+    run = sim.fused_runner(ref, steps=STEPS)
+    XB = E.spread_X0(B_MAIN)
+    WB = np.zeros((B_MAIN, 2), np.float32)
+    run(XB[:1024], WB[:1024])                       # warm-up (allocator)
+    out, fwall, _ = drive({"step_fused": STEPS - 1}, lambda: run(XB, WB))
+    launches["step_fused"] += STEPS - 1
+    alive = out["alive"][:, -1].float().mean().item()
+    e = lane_tracking_error(out["Yp"], ref)
+    del out
+    exp = sio.loadmat(export_mat(str(BUILD / "generated" / "bilinear"),
+                                 ks.model))["model"][0, 0]
+    NL, m = ks.model.A.shape[0], ks.model.meta.m
+    exported = (np.array_equal(exp["A"], ks.model.A)
+                and np.array_equal(exp["C"], ks.model.C)
+                and np.array_equal(exp["B"], ks.model.B.reshape(NL, m * NL)))
+    log(f"GN3 generated corpus -> save_data4sysid -> load_data4sysid "
+        f"(trials bitwise {same}) -> Ksysid bilinear poly-3 PCA on the card "
+        f"(NL {NL}, one-step max abs {d_asset:.3e} from the asset, gate "
+        f"1.2e-7) -> fused_runner B={B_MAIN} x {STEPS}: {fwall:.3f} s, "
+        f"alive {alive:.6f}, err_mean {e.mean():.6f} (asset header "
+        f"{jr['err_mean']:.6f}, gate 1e-3); export_mat read back by scipy "
+        f"(A, B (NL, m NL), C bitwise) {exported} | {smi}")
+    if not (same and d_asset < 1.2e-7 and alive == 1.0
+            and abs(e.mean().item() - jr["err_mean"]) < 1e-3 and exported):
+        raise AssertionError("GN3: generate -> train -> control is off")
+    times["GN3_fused_s"] = fwall
+    took("GN3")
+
+    # ---- GN4: the new plants in the closed loop (bilin_lift)
+    refs = json.loads(PLANT_REFS.read_text())
+    model, scaler, _ = load_model(BENCH_MODEL)
+    mpc = BilinearKmpc(model, scaler, MpcConfig(**MPC), device=dev)
+    W16 = np.zeros((REF_LANES, 2), np.float32)
+    WG = np.zeros((B_GENERAL, 2), np.float32)
+    XG = np.concatenate([E.spread_X0(REF_LANES),
+                         E.spread_X0(B_GENERAL - REF_LANES)])
+    plants = {}
+    for name, r in refs["plants"].items():
+        parm = Arm(ArmConfig(**r["arm"]), device=dev)
+        # the graphed period against the eager one, bitwise over two
+        # periods, at full width
+        Xl, Ul, Wl = plant_lanes(parm, B_GENERAL)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        r0 = torch.cuda.memory_reserved(dev)
+        xg = parm.step(Xl, Ul, Wl)
+        pool = (torch.cuda.memory_reserved(dev) - r0) / 2 ** 20
+        rk45 = parm.cfg.integrator == "rk45"
+        gkey = (B_GENERAL, torch.float32, Xl.device)
+        replays = getattr(parm._graphs.get(gkey), "replays", None)
+        xe, t_eager = sync_wall(lambda: parm.step_eager(Xl, Ul, Wl))
+        t_eager *= 1e3
+        graphed = torch.equal(xe.view(torch.int32), xg.view(torch.int32))
+        t_full = cuda_ms(lambda: parm.step(Xl, Ul, Wl), reps=3, warmup=1)
+        X16, U16, W16l = (t[:, :REF_LANES].contiguous() for t in (Xl, Ul, Wl))
+        t_16 = cuda_ms(lambda: parm.step(X16, U16, W16l), reps=3, warmup=1)
+        sim = Ksim(parm, mpc, device=dev)
+        full_steps = GN_RK45_STEPS if rk45 else STEPS
+        if rk45:
+            o16, w16, _ = drive({"bilin_lift": STEPS - 1}, lambda: sim
+                                .batched_runner(ref, steps=STEPS)(
+                                    E.spread_X0(REF_LANES), W16))
+            launches["bilin_lift"] += STEPS - 1
+        og, wg, _ = drive({"bilin_lift": full_steps - 1}, lambda: sim
+                          .batched_runner(ref, steps=full_steps)(XG, WG))
+        launches["bilin_lift"] += full_steps - 1
+        if not rk45:
+            o16 = {k: v[:REF_LANES] for k, v in og.items()}
+            w16 = wg
+        e16 = lane_tracking_error(o16["Yp"], ref)
+        a16 = o16["alive"][:, -1].cpu().numpy()
+        aliveG = og["alive"][:, -1].float().mean().item()
+        d_mean = abs(e16.mean().item() - float(np.mean(r["err_mean"])))
+        d_lane = float(np.abs(e16.double().cpu().numpy()
+                              - np.asarray(r["err_mean"])).max())
+        plants[name] = dict(period_ms=t_full, period_eager_ms=t_eager,
+                            period_16_ms=t_16, pool_mib=pool,
+                            loop16_s=w16, full_s=wg, full_steps=full_steps,
+                            err_mean=e16.mean().item(), d_mean=d_mean,
+                            d_lane=d_lane)
+        log(f"GN4 plant {name} ({r['arm']}): graph bitwise the eager period "
+            f"{graphed}; a period {t_full:.3f} ms replayed "
+            f"at B={B_GENERAL} ({t_eager:.1f} ms eager), {t_16:.3f} ms at "
+            f"B=16, pool {pool:.1f} MiB"
+            + (f", {replays} replays of RK45Graph's {RK45_CHUNK}-iteration "
+               f"chunk in the period" if rk45 else "")
+            + f"; 16 lanes x {STEPS}: err_mean {e16.mean():.6f} (JAX x64 "
+            f"{np.mean(r['err_mean']):.6f}, |d| {d_mean:.3e}, gate 1e-3; "
+            f"each lane's |d| at most {d_lane:.3e}, gate {GN4_LANE_TOL}), "
+            f"alive as JAX {bool((a16 == np.asarray(r['alive'])).all())} "
+            f"({w16:.1f} s); B={B_GENERAL} x {full_steps}: alive "
+            f"{aliveG:.6f} in {wg:.1f} s | {smi}")
+        if not (graphed and d_mean < 1e-3 and d_lane < GN4_LANE_TOL
+                and (a16 == np.asarray(r["alive"])).all()
+                and aliveG == 1.0):
+            raise AssertionError(f"GN4 {name}: the plant's loop is off")
+        parm.clear_graphs()
+        del og, o16
+        took(f"GN4 {name}")
+
+    # ---- GN5: riccati and batch_linalg on the card, held to the CPU in f64
+    lmodel = load_model(LINEAR_MODEL)[0]
+    t64 = lambda a, d=dev: torch.as_tensor(a, dtype=torch.float64, device=d)
+    prob = lq_problem(lmodel.A, lmodel.B, GN5_NP, GN5_B)
+    shared, z0 = prob[:6], prob[6]
+    (Uc, Zc), sw_s = sync_wall(lambda: RIC.solve_lq_stagewise(
+        *(t64(a) for a in shared), t64(z0)))
+    (Ub, okb), bb_s = sync_wall(lambda: RIC.solve_lq_box_barrier(
+        *(t64(a) for a in shared), t64(z0), -0.6, 0.6))
+    sub = slice(0, GN5_CPU_LANES)
+    Uh, _ = RIC.solve_lq_stagewise(*(t64(a, "cpu") for a in shared),
+                                   t64(z0[sub], "cpu"))
+    Ubh, okh = RIC.solve_lq_box_barrier(*(t64(a, "cpu") for a in shared),
+                                        t64(z0[sub], "cpu"), -0.6, 0.6)
+    rel = lambda a, b: float((a.cpu() - b).abs().max() / b.abs().max())
+    d_sw, d_bb = rel(Uc[sub], Uh), rel(Ub[sub], Ubh)
+    active = float((Ub.abs() > 0.6 - 1e-2).float().mean())
+    # Np = 10: against the condensed QP
+    pS = lq_problem(lmodel.A, lmodel.B, GN5_NP_SHORT, 8, seed=1)
+    Us, _ = RIC.solve_lq_stagewise(*(t64(a) for a in pS[:6]), t64(pS[6]))
+    Ubs, oks = RIC.solve_lq_box_barrier(*(t64(a) for a in pS[:6]),
+                                        t64(pS[6]), -0.6, 0.6,
+                                        outer_iters=16, newton_iters=2)
+    d_dense, d_qp = 0.0, 0.0
+    nU = GN5_NP_SHORT * lmodel.B.shape[1]
+    Abox = np.concatenate([np.eye(nU), -np.eye(nU)])
+    Pd, fd = zip(*(lq_condensed(*pS[:6], z) for z in pS[6]))
+    for p, (P, f) in enumerate(zip(Pd, fd)):
+        d_dense = max(d_dense, float(np.abs(
+            Us[p].cpu().numpy().reshape(-1) - np.linalg.solve(P, -f)).max()))
+    lanes = len(Pd)
+    sol = solve_qp_lane_A(
+        t64(np.stack(Pd, -1), "cpu"), t64(np.stack(fd, -1), "cpu"),
+        t64(np.repeat(Abox[..., None], lanes, -1), "cpu"),
+        t64(np.full((2 * nU, lanes), 0.6), "cpu"), iters=30)
+    d_qp = float(np.abs(Ubs.cpu().numpy().reshape(lanes, -1)
+                        - sol.x.T.numpy()).max())
+    qp_ok = bool(sol.ok.all())
+    # batch_linalg at n = 6, 12, 27 (the arm's SDIRK2 normal equations,
+    # the controllers' decision sizes)
+    # each distance over the unit roundoff times the condition number of
+    # the system it solves (M's; A's squared for the normal equations)
+    g = torch.Generator().manual_seed(0)
+    bl = {}
+    eps = torch.finfo(torch.float64).eps
+    for n in (6, 12, 27):
+        Gm = torch.randn((GN5_B, n, n), generator=g, dtype=torch.float64)
+        M = Gm @ Gm.transpose(1, 2) + n * torch.eye(n, dtype=torch.float64)
+        A_ = torch.randn((GN5_B, n, n), generator=g, dtype=torch.float64) \
+            + 3 * torch.eye(n, dtype=torch.float64)
+        b = torch.randn((GN5_B, n), generator=g, dtype=torch.float64)
+        kM = float(torch.linalg.cond(M).max())
+        kA = float(torch.linalg.cond(A_).max()) ** 2
+        d = 0.0
+        for fn, args, k in ((BLA.chol_unrolled, (M,), kM),
+                            (BLA.solve_spd_unrolled, (M, b), kM),
+                            (BLA.solve_via_normal_unrolled, (A_, b), kA)):
+            ref_ = fn(*args)
+            d = max(d, rel(fn(*(a.to(dev) for a in args)), ref_) / (eps * k))
+        bl[n] = d
+    log(f"GN5 riccati on the linear asset's (A, B) (n={lmodel.A.shape[0]}, "
+        f"m={lmodel.B.shape[1]}), Np={GN5_NP}, B={GN5_B} initial states, "
+        f"f64: solve_lq_stagewise {sw_s:.3f} s, solve_lq_box_barrier "
+        f"{bb_s:.3f} s (ok {bool(okb.all())}, {active:.3f} of the inputs "
+        f"within 1e-2 of a bound), {GN5_CPU_LANES} lanes against the CPU: "
+        f"max rel {d_sw:.3e} / {d_bb:.3e} (gate 1e-9); Np={GN5_NP_SHORT} "
+        f"against the condensed QP: unconstrained max abs {d_dense:.3e} "
+        f"(gate 1e-8), boxed vs the plain interior point {d_qp:.3e} (gate "
+        f"5e-3, QP ok {qp_ok}); batch_linalg on the card vs the CPU, max "
+        f"rel over eps x the system's condition number " + ", ".join(
+            f"n={n} {v:.3e}" for n, v in bl.items()) + f" (gate 10) | {smi}")
+    if not (bool(okb.all()) and bool(okh.all()) and bool(oks.all())
+            and d_sw < 1e-9 and d_bb < 1e-9 and d_dense < 1e-8
+            and qp_ok and d_qp < 5e-3 and max(bl.values()) < 10):
+        raise AssertionError("GN5: riccati / batch_linalg off the CPU")
+    took("GN5")
+    log("GN phase times (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in times.items() if k.startswith("GN")
+        and not k.endswith(("_ms", "_s", "_wall"))))
+    return {"launches": launches, "times": times, "plants": plants}
 
 
 def kernel_names(csrc: Path) -> frozenset:
@@ -4126,19 +4574,19 @@ def main() -> int:
         del gout
 
     # ---- phase S3: the stage route (its 'hold'/'roll' modes) and the
-    # chord route at B=65536, 301 steps
+    # chord route at B=65536, S3_STEPS steps
     full_main = {}
     for name in FULL_REGIMES:
         rsim = rsims[name]
-        grun = rsim.batched_runner(ref, steps=STEPS)
+        grun = rsim.batched_runner(ref, steps=S3_STEPS)
         rsim.batched_runner(ref, steps=3)(XB[:1024], WB[:1024])   # warm-up
-        expected = nmpc_launches(rsim.mpc, STEPS)
+        expected = nmpc_launches(rsim.mpc, S3_STEPS)
         gout, gwall, counts = drive(expected, lambda: grun(XG, WG))
         eG = lane_tracking_error(gout["Yp"], ref)
         aliveG = gout["alive"][:, -1].float().mean().item()
         log(f"NMPC regime {name} ({rsim.mpc.route} route) general runner "
-            f"B={B_GENERAL} steps={STEPS}: {gwall:.3f} s, "
-            f"{B_GENERAL * (STEPS - 1) / gwall:.4e} lane-steps/s, alive "
+            f"B={B_GENERAL} steps={S3_STEPS}: {gwall:.3f} s, "
+            f"{B_GENERAL * (S3_STEPS - 1) / gwall:.4e} lane-steps/s, alive "
             f"{aliveG:.6f}, err_mean {eG.mean():.6f}, err_worst "
             f"{eG.max():.6f}, launches {expected} | {smi}")
         if aliveG != 1.0:
@@ -4147,19 +4595,19 @@ def main() -> int:
         del gout
 
     # ---- phase R3: iterated relinearization and the unblocked stack at
-    # B=65536, 301 steps
+    # B=65536, S3_STEPS steps
     route_main = {}
     for name in FULL_ROUTES:
         rs = Ksim(arm, rmpcs[name])
-        grun = rs.batched_runner(ref, steps=STEPS)
+        grun = rs.batched_runner(ref, steps=S3_STEPS)
         rs.batched_runner(ref, steps=3)(XB[:1024], WB[:1024])   # warm-up
-        expected = route_launches(rmpcs[name], STEPS)
+        expected = route_launches(rmpcs[name], S3_STEPS)
         gout, gwall, counts = drive(expected, lambda: grun(XG, WG))
         eG = lane_tracking_error(gout["Yp"], ref)
         aliveG = gout["alive"][:, -1].float().mean().item()
         log(f"bilinear route {name} general runner B={B_GENERAL} "
-            f"steps={STEPS}: {gwall:.3f} s, "
-            f"{B_GENERAL * (STEPS - 1) / gwall:.4e} lane-steps/s, alive "
+            f"steps={S3_STEPS}: {gwall:.3f} s, "
+            f"{B_GENERAL * (S3_STEPS - 1) / gwall:.4e} lane-steps/s, alive "
             f"{aliveG:.6f}, err_mean {eG.mean():.6f}, err_worst "
             f"{eG.max():.6f}, launches {expected} | {smi}")
         if aliveG != 1.0:
@@ -4172,15 +4620,15 @@ def main() -> int:
     # steps: five launches of ipm_factored's q0 build a step, the explicit
     # condensation and the stage Jacobians in PyTorch between them
     qsim = rsims[LINEAR_REGIME]
-    grun = qsim.batched_runner(ref, steps=STEPS)
+    grun = qsim.batched_runner(ref, steps=Q4_STEPS)
     qsim.batched_runner(ref, steps=3)(XB[:1024], WB[:1024])   # warm-up
-    expected = nmpc_launches(qsim.mpc, STEPS)
+    expected = nmpc_launches(qsim.mpc, Q4_STEPS)
     gout, lin_wall, counts = drive(expected, lambda: grun(XG, WG))
     eG = lane_tracking_error(gout["Yp"], ref)
     aliveG = gout["alive"][:, -1].float().mean().item()
     log(f"NMPC regime {LINEAR_REGIME} ({qsim.mpc.route} route) general "
-        f"runner B={B_GENERAL} steps={STEPS}: {lin_wall:.3f} s, "
-        f"{B_GENERAL * (STEPS - 1) / lin_wall:.4e} lane-steps/s, alive "
+        f"runner B={B_GENERAL} steps={Q4_STEPS}: {lin_wall:.3f} s, "
+        f"{B_GENERAL * (Q4_STEPS - 1) / lin_wall:.4e} lane-steps/s, alive "
         f"{aliveG:.6f}, err_mean {eG.mean():.6f}, err_worst "
         f"{eG.max():.6f}, launches {expected} | {smi}")
     if aliveG != 1.0:
@@ -4667,6 +5115,11 @@ def main() -> int:
         drive=drive, kernel_ms=kernel_ms, ptx=ptx, log=log, arm=arm,
         spread_X0=spread_X0), Ux, smi)
 
+    # ---- phase GN: the arm plant in full and data generation without
+    # JAX (its step_fused and bilin_lift launches join rows 1 and 2)
+    gn = phase_generation(dev, types.SimpleNamespace(
+        drive=drive, log=log, spread_X0=spread_X0), smi)
+
     tpu = "koopman_realizations_tpu/ops/pallas/"
     src = "koopman_realizations_torch/csrc/"
     rows = [("step_fused", "step_fused.py:90", fused_main["step_fused"],
@@ -4789,6 +5242,10 @@ def main() -> int:
             "max_abs_err": bd["err"], "ms": bd["ms"],
             "plain_ms": bd["plain"], "bound_ms": bd["bound"],
             "bound_by": bd["by"]}
+    for kname, n in gn["launches"].items():
+        row = next(k for k in kernels if k["name"] == kname)
+        row["launches"] += n
+        row["generation_launches"] = n
     log("RN comp_time (ms a step, B=1): " + json.dumps(rn["comp_time"])
         + f"; RN6 bilin_lift del1 p99 to f64 kernel/plain f32 "
           f"{rn['tail']['p99']}, f32 tail {rn['tail']['f32_tail']}")
@@ -5407,15 +5864,62 @@ def measure_time_general(out: Path) -> dict:
     return rep
 
 
+def measure_plant_rhs(out: Path) -> dict:
+    """A replayed control period of the 'rk4', 'stage' and 'rk45' plants
+    (``assets/plant_refs.json``'s arms, f32) at B_GENERAL and at 16 lanes,
+    integrating ``arm_lanes.rhs_lanes`` (the plants' RHS) or ``rhs_soa``
+    on the state's rows, stacked: the same closed form as the SDIRK2
+    plant's.  Order soa, lanes, lanes, soa, each from a fresh capture;
+    CUDA events over 5 replays after the capture.  Also the largest
+    |lanes - soa| of a period."""
+    import torch
+
+    from koopman_realizations_torch.config import ArmConfig
+    from koopman_realizations_torch.models.arm import Arm
+    from koopman_realizations_torch.models.arm_lanes import make_rhs_tuple
+
+    def soa_rhs(arm):
+        def lane_rhs(U, W):
+            f = make_rhs_tuple(arm.cfg, arm.G_host, arm.b_host, list(U),
+                               W[0], W[1])
+            return lambda X: torch.stack(f(*X))
+        return lane_rhs
+
+    rep = {}
+    refs = json.loads(PLANT_REFS.read_text())
+    for name, r in refs["plants"].items():
+        arm = Arm(ArmConfig(**r["arm"]), device="cuda")
+        lanes_rhs = arm.lane_rhs
+        for B in (B_GENERAL, REF_LANES):
+            X, U, W = plant_lanes(arm, B)
+            ms = {"soa": [], "lanes": []}
+            outs = {}
+            for rhs in ("soa", "lanes", "lanes", "soa"):
+                arm.lane_rhs = soa_rhs(arm) if rhs == "soa" else lanes_rhs
+                arm.clear_graphs()
+                outs[rhs] = arm.step(X, U, W)
+                ms[rhs].append(cuda_ms(lambda: arm.step(X, U, W), reps=5,
+                                       warmup=0))
+            d = (outs["lanes"] - outs["soa"]).abs().max().item()
+            rep[f"{name} B={B}"] = {"soa_ms": ms["soa"],
+                                    "lanes_ms": ms["lanes"],
+                                    "max_abs_lanes_vs_soa": d}
+            log(f"plant-rhs {name} B={B}: a period soa {ms['soa']} ms, "
+                f"lanes {ms['lanes']} ms; |lanes - soa| {d:.3e}")
+        arm.clear_graphs()
+    return rep
+
+
 def measure(argv) -> int:
     """``--measure NAME --out FILE [--device D] [--paths P ...]
     [--copies N | K0,K1] [--procs N] [--judge FILE ...]``: NAME one of
-    f32-band, cold-lanes, qp-trace, shadow, time-general (and band-chunk,
-    one process's copies of f32-band)."""
+    f32-band, cold-lanes, qp-trace, shadow, time-general, plant-rhs (and
+    band-chunk, one process's copies of f32-band)."""
     import argparse
     ap = argparse.ArgumentParser(prog="chip_smoke.py --measure")
     ap.add_argument("name", choices=("f32-band", "band-chunk", "cold-lanes",
-                                     "qp-trace", "shadow", "time-general"))
+                                     "qp-trace", "shadow", "time-general",
+                                     "plant-rhs"))
     ap.add_argument("--qps", help="qp-trace: cold-lanes' .npz")
     ap.add_argument("--plain", action="store_true",
                     help="cold-lanes: the loop on the plain version")
@@ -5452,6 +5956,8 @@ def measure(argv) -> int:
         rep = measure_qp_trace(out, Path(a.qps), a.device)
     elif a.name == "shadow":
         rep = measure_shadow(out, a.device, a.steps, a.paths)
+    elif a.name == "plant-rhs":
+        rep = measure_plant_rhs(out)
     else:
         rep = measure_time_general(out)
     smi = smi_line() if a.device == "cuda" and not a.judge else "cpu"

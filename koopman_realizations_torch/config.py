@@ -1,16 +1,18 @@
-"""Configuration dataclasses of the port (subset of the JAX package's).
+"""Configuration dataclasses of the port (the JAX package's
+``config.py``).
 
-``SysidConfig`` is the JAX package's (``koopman_realizations_tpu/
-config.py:17-58``) field for field, with the same checks; of
-``MpcConfig`` (:61, with the SQP fields of :80 and :126-164) and
-``ArmConfig`` (:170) only the fields that the port's closed loops read are
-carried over.  Names and defaults are the same, so a configuration
-translates field for field.
+``SysidConfig`` and ``ArmConfig`` (:17-58, :170-227) are the JAX
+package's field for field, with the same checks and derived sizes; of
+``MpcConfig`` (:61, with the SQP fields of :80 and :126-164) the fields
+that the port's controllers read.  Names and defaults are the same, so a
+configuration translates field for field, and ``to_json`` / ``from_json``
+write and read the same JSON (:230-236).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -93,20 +95,23 @@ class MpcConfig:
 class ArmConfig:
     """Planar N-link arm physical parameters (Arm_setup.m:12-52)."""
 
-    Nmods: int = 3
-    nlinks: int = 1
-    L: float = 1.0
-    k: float = -1e-5
-    d: float = 10.0
-    m: float = 0.1
+    Nmods: int = 3          # number of modules (actuated sections)
+    nlinks: int = 1         # links per module
+    L: float = 1.0          # total arm length (m)
+    k: float = -1e-5        # joint stiffness
+    d: float = 10.0         # joint viscous damping
+    m: float = 0.1          # link mass (kg)
     g: float = 9.81
-    ku: float = 10.0
-    Ts: float = 0.05
-    output_type: str = "markers"
+    ku: float = 10.0        # effective input stiffness
+    Ts: float = 0.05        # sampling time (20 Hz)
+    umax: float = math.pi / 2   # ramp-and-hold excitation amplitude
+    output_type: str = "markers"   # 'angles'|'markers'|'endeff'|'shape'
     substeps: int = 10
-    integrator: str = "sdirk2"
-    newton_iters: int = 3
-    jac_mode: str = "substep"
+    integrator: str = "sdirk2"      # 'sdirk2' | 'rk4' | 'rk45'
+    newton_iters: int = 3           # SDIRK2 stage Newton iterations
+    jac_mode: str = "substep"       # SDIRK2 Jacobian refresh: 'substep',
+                                    # 'step' (one a period) or 'stage'
+                                    # (exact Newton)
 
     @property
     def Nlinks(self) -> int:
@@ -118,6 +123,7 @@ class ArmConfig:
 
     @property
     def i(self) -> float:
+        # link inertia: (1/3) m l^2  (Arm_setup.m:35)
         return (1.0 / 3.0) * self.m * self.l ** 2
 
     @property
@@ -125,6 +131,30 @@ class ArmConfig:
         return self.Nlinks * 2
 
     @property
+    def nu(self) -> int:
+        return self.Nmods
+
+    @property
+    def nw(self) -> int:
+        return 2
+
+    @property
+    def markerPos(self) -> Tuple[float, ...]:
+        # Arm_setup.m:39
+        return tuple((i * self.l * self.nlinks) / self.L
+                     for i in range(self.Nmods + 1))
+
+    @property
     def ny(self) -> int:
-        return {"angles": self.Nlinks, "markers": 2 * self.Nmods}[
-            self.output_type]
+        return {"angles": self.Nlinks, "markers": 2 * self.Nmods,
+                "endeff": 2, "shape": 6}[self.output_type]
+
+
+def to_json(cfg) -> str:
+    """A configuration's fields as JSON (JAX ``config.py:230``)."""
+    return json.dumps(dataclasses.asdict(cfg), default=str, indent=2)
+
+
+def from_json(cls, s: str):
+    """The configuration of class ``cls`` that ``to_json`` wrote."""
+    return cls(**json.loads(s))

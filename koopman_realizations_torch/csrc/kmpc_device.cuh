@@ -431,7 +431,7 @@ __device__ __forceinline__ Dual tsqrt(const Dual& a) {
 }
 
 // Cholesky solve of the small SPD system L L^T x = rhs (chol_soa /
-// chol_solve_soa of models/arm_lanes.py, row-oriented).
+// chol_solve_soa of ops/batch_linalg.py, row-oriented).
 template <class T, int NN>
 __device__ __forceinline__ void chol_soa(const T (&M)[NN][NN], T (&L)[NN][NN]) {
 #pragma unroll

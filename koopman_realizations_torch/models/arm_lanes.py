@@ -11,13 +11,31 @@ numbers through the same ``rhs_soa``: each component carries its value
 (B,) and its n tangents (n, B), seeded with the unit basis, so the output
 tangents are the Jacobian's columns.  The CUDA step kernel
 (``csrc/kmpc_device.cuh``) does the same with a dual-number struct.
+
+``rhs_lanes`` is the same closed form on stacked tensors, the state
+(nx, B) at once: each term is one operation over all links (a, ad as
+(N, B), the pairwise angles as (N, N, B)), about half of
+``rhs_soa``'s launches a call.  The integrators that evaluate the RHS
+hundreds of times a control period (RK4, Dormand-Prince, SDIRK2 with
+exact Newton, ``models/arm.py``) take it: a replayed period of 'rk4' or
+'rk45' runs in 0.52-0.60 of the time it takes on ``rhs_soa`` (an H100,
+f32, B=65536; ``chip_smoke.py --measure plant-rhs``).  Exact Newton's
+Jacobian comes from ``rhs_soa``'s dual numbers (``jacobian_rows``),
+which the host dispatches faster than ``torch.func`` forward mode
+through ``rhs_lanes``.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["Dual", "rhs_soa", "sdirk2_rows", "chol_soa", "chol_solve_soa"]
+from koopman_realizations_torch.ops.batch_linalg import (
+    chol_soa,
+    chol_solve_soa,
+)
+
+__all__ = ["Dual", "rhs_soa", "rhs_lanes", "LaneTables", "LaneLoads",
+           "sdirk2_rows"]
 
 
 class Dual:
@@ -64,6 +82,10 @@ class Dual:
     def __rtruediv__(self, o):
         return Dual(o / self.v, (-self.d * o) * (1.0 / (self.v * self.v)))
 
+    def sqrt(self):
+        r = torch.sqrt(self.v)
+        return Dual(r, self.d * (0.5 / r))
+
 
 def _sin(x):
     if isinstance(x, Dual):
@@ -75,50 +97,6 @@ def _cos(x):
     if isinstance(x, Dual):
         return Dual(torch.cos(x.v), -(x.d * torch.sin(x.v)))
     return torch.cos(x)
-
-
-def _sqrt(x):
-    if isinstance(x, Dual):
-        r = torch.sqrt(x.v)
-        return Dual(r, x.d * (0.5 / r))
-    return torch.sqrt(x)
-
-
-# ------------------------------------------------------------- small solvers
-
-
-def chol_soa(M, n):
-    """Cholesky of an SPD matrix given as list-of-lists of (B,) entries."""
-    L = [[None] * n for _ in range(n)]
-    for j in range(n):
-        s = M[j][j]
-        for k in range(j):
-            s = s - L[j][k] * L[j][k]
-        d = _sqrt(s)
-        L[j][j] = d
-        for i in range(j + 1, n):
-            s = M[i][j]
-            for k in range(j):
-                s = s - L[i][k] * L[j][k]
-            L[i][j] = s / d
-    return L
-
-
-def chol_solve_soa(L, rhs, n):
-    """Solve L L^T x = rhs; rhs and result are lists of (B,) entries."""
-    y = [None] * n
-    for i in range(n):
-        s = rhs[i]
-        for j in range(i):
-            s = s - L[i][j] * y[j]
-        y[i] = s / L[i][i]
-    x = [None] * n
-    for i in reversed(range(n)):
-        s = y[i]
-        for j in range(i + 1, n):
-            s = s - L[j][i] * x[j]
-        x[i] = s / L[i][i]
-    return x
 
 
 # ------------------------------------------------------------------ dynamics
@@ -207,6 +185,59 @@ def rhs_soa(cfg, G, bvec, a, ad, u, w1, w2):
 
     L = chol_soa(Dq, N)
     return chol_solve_soa(L, rhs, N)
+
+
+class LaneTables:
+    """``rhs_lanes``' constant tables in one dtype on one device: the
+    inertia coefficients l^2 m G (N, N, 1), the rotor inertia on the
+    diagonal i I (N, N, 1) and the gravity levers m b (N, 1)."""
+
+    def __init__(self, cfg, G, bvec, dtype, device):
+        N = cfg.Nlinks
+        t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+        self.cfm = t(cfg.l ** 2 * (cfg.m * G))[..., None]
+        self.irot = (cfg.i * torch.eye(N, dtype=dtype, device=device))[
+            ..., None]
+        self.lev = t(cfg.m * bvec)[:, None]
+
+
+class LaneLoads:
+    """The terms of ``rhs_lanes`` that a control period holds fixed (the
+    inputs u (Nmods, B) and loads w1, w2 (B,)), made once a period: the
+    inertia coefficients cf = l^2 (m G + w1) (N, N, B), the gravity levers
+    m b + w1 (N, B), ku u on each link (N, B) and the tilt w2."""
+
+    def __init__(self, cfg, tables: LaneTables, u, w1, w2):
+        self.cf = tables.cfm + cfg.l ** 2 * w1
+        self.lever = tables.lev + w1
+        ur = u if cfg.nlinks == 1 else u.repeat_interleave(cfg.nlinks, 0)
+        self.kur = cfg.ku * ur
+        self.w2 = w2
+        self.irot = tables.irot
+
+
+def rhs_lanes(cfg, loads: LaneLoads, x):
+    """dx/dt of every lane: x (nx, B) = [a; ad] under the period's
+    ``loads``; ``rhs_soa``'s closed form on stacked tensors, returns
+    [ad; addot] (nx, B).  The suffix sums of the mass matrix run over both
+    axes reversed at once (Dq[i][j] is R[N-1-i][N-1-j]); the Coriolis and
+    gravity rows share one suffix sum, and the spring and input torques
+    one (k + ku) a term."""
+    N = cfg.Nlinks
+    a, ad = x[:N], x[N:]
+    thb = torch.cumsum(x.reshape(2, N, -1), 1)           # th, thd
+    th, thd = thb[0], thb[1]
+    dth = th[:, None] - th[None]                        # th_p - th_q
+    cf = loads.cf
+    R = (cf * torch.cos(dth) + loads.irot).flip((0, 1)).cumsum(0).cumsum(1)
+    s_row = (cf * torch.sin(dth) * (thd * thd)[None]).sum(1)
+    grav = loads.lever * torch.sin(th - loads.w2)
+    gen = (s_row + cfg.g * cfg.l * grav).flip(0).cumsum(0).flip(0)
+    rhs = -(gen + (cfg.k + cfg.ku) * a + cfg.d * ad - loads.kur)
+    L = chol_soa([[R[N - 1 - i, N - 1 - j] for j in range(N)]
+                  for i in range(N)], N)
+    addot = chol_solve_soa(L, [rhs[i] for i in range(N)], N)
+    return torch.cat([ad, torch.stack(addot)])
 
 
 def make_rhs_tuple(cfg, G, bvec, us, w1, w2):

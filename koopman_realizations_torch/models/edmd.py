@@ -22,9 +22,9 @@ device, ``ops/lasso.py``, with the delay pin mask), every observable
 family and mixed lists of them, with or without PCA, with delays, with
 loads (``cfg.loaded``: the lifted state [g; w1 g; ...], NL = N (nw + 1),
 from trials that carry ``w``; with delays, g of the delay-embedded zeta
-and each pair's load at its time) or without.  The pre-extracted
-snapshot pairs of a datafile raise ``NotImplementedError`` naming their
-ROADMAP item.
+and each pair's load at its time) or without, from the trials' snapshot
+pairs or from the pre-extracted pairs a datafile carries
+(``DataSet.snapshots``, JAX ``edmd.py:85-90``).
 """
 
 from __future__ import annotations
@@ -71,11 +71,6 @@ from koopman_realizations_torch.utils.timing import DeviceClock
 STAGES = ("data", "lift", "pca", "regression", "extraction", "validation")
 
 
-def _not_ported(what: str, item: int = 2):
-    raise NotImplementedError(f"{what} is not ported (ROADMAP.md queue 1, "
-                              f"item {item})")
-
-
 def _least_squares(lasso: float) -> bool:
     """True where the JAX trainer fits by plain least squares."""
     return lasso >= 1e6 or math.isinf(lasso)
@@ -120,8 +115,6 @@ class Ksysid:
 
     @_full_f32
     def __init__(self, data: DataSet, cfg: SysidConfig, device="cuda"):
-        if data.snapshots is not None:
-            _not_ported("pre-extracted snapshot pairs of a datafile", 10)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
@@ -145,8 +138,16 @@ class Ksysid:
             self.scaler: Scaler = fit_scaler(merged)
             self.traindata = self.scaler.trial_down(merged)
             self.valdata = [self.scaler.trial_down(tr) for tr in data.val]
-            self.snapshot_pairs = self.get_snapshot_pairs(self.traindata,
-                                                          cfg.snapshots)
+            # a datafile may carry pre-extracted pairs (Ksysid.m:931-938)
+            if data.snapshots is not None:
+                sp = data.snapshots
+                self.snapshot_pairs = SnapshotPairs(
+                    alpha=np.asarray(sp["alpha"]),
+                    beta=np.asarray(sp["beta"]), u=np.asarray(sp["u"]),
+                    w=np.asarray(sp["w"]) if "w" in sp else None)
+            else:
+                self.snapshot_pairs = self.get_snapshot_pairs(
+                    self.traindata, cfg.snapshots)
         self._lifted = None
 
         # PCA dimension reduction (Ksysid.m:137-142)

@@ -24,6 +24,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from koopman_realizations_torch import resolve_device
 from koopman_realizations_torch.ops.integrators import rk4
 from koopman_realizations_torch.ops.observables import (
     KoopmanBasis,
@@ -188,16 +189,17 @@ def as_discrete(model):
         "integrate with RK4 only")
 
 
-def zoh_step_bilinear(model, *, dtype=torch.float64, device="cpu"):
+def zoh_step_bilinear(model, *, dtype=torch.float64, device="cuda"):
     """The exact per-Ts step of a continuous bilinear model under a held
     input (JAX ``zoh_step_bilinear``, :162-196): over one sample z' =
     (A + sum_m u_m B[:, m, :]) z is linear time-invariant, so z+ =
     expm(Ts (A + sum_m u_m B[:, m, :])) z.  Lanes-minor z (NL, B), u
     (m, B); one NL x NL ``matrix_exp`` a lane and step, for validation
-    only."""
+    only; on the card unless ``device`` says otherwise."""
     meta = model.meta
     if meta.time_type != "continuous":
         raise ValueError("zoh_step_bilinear needs a continuous-time model")
+    device = resolve_device(device)
     A = torch.as_tensor(np.asarray(model.A), dtype=dtype, device=device)
     Bm = torch.as_tensor(np.asarray(model.B), dtype=dtype, device=device)
 

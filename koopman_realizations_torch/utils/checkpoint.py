@@ -1,7 +1,9 @@
 """Model persistence in the JAX package's ``.npz`` handoff format
 (``utils/checkpoint.py:35-72``: one JSON ``header`` entry plus the model,
 PCA and scaler arrays): the port's ``save_model`` writes what the JAX
-``load_model`` reads, and ``load_model`` reads both packages' files."""
+``load_model`` reads, and ``load_model`` reads both packages' files.
+``export_mat`` writes a model's matrices in the reference's ``.mat``
+model struct (:105-124)."""
 
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import numpy as np
 
 from koopman_realizations_torch.models.koopman import (
     MODEL_CLASSES,
+    BilinearModel,
     from_jax_arrays,
 )
 from koopman_realizations_torch.ops.scaling import Scaler
@@ -102,3 +105,24 @@ def load_model(path=BENCH_MODEL):
             f"(got {header.get('class')})")
     model, scaler = from_jax_arrays(header, arrays)
     return model, scaler, header
+
+
+def export_mat(path, model) -> str:
+    """Write the model's A, B, C, M, K, W that it has as the reference's
+    ``model`` struct (.mat, scipy): a bilinear B (NL, m, NL) goes back to
+    the reference's (NL, m*NL) column blocks, a C-order reshape.  Returns
+    the path written (``.mat`` appended when missing)."""
+    import scipy.io as sio
+
+    path = str(path)
+    if not path.endswith(".mat"):
+        path += ".mat"
+    out = {name: np.asarray(getattr(model, name))
+           for name in ("A", "C", "M", "K", "W")
+           if getattr(model, name, None) is not None}
+    if getattr(model, "B", None) is not None:
+        B = np.asarray(model.B)
+        out["B"] = B.reshape(B.shape[0], -1) \
+            if isinstance(model, BilinearModel) else B
+    sio.savemat(path, {"model": out})
+    return path

@@ -1,13 +1,13 @@
 """Reference trajectory generators (numpy; port of the JAX package's
-``utils/trajectories.py``: ``get_blockM``, ``get_circle`` and
-``make_trajectory``)."""
+``utils/trajectories.py``: ``get_blockM``, ``get_circle``,
+``get_pacman``, ``get_polygon`` and ``make_trajectory``)."""
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["get_blockM", "get_circle", "make_trajectory", "blockM_reference",
-           "circle_reference"]
+__all__ = ["get_blockM", "get_circle", "get_pacman", "get_polygon",
+           "make_trajectory", "blockM_reference", "circle_reference"]
 
 
 def get_blockM(center, width: float, height: float) -> np.ndarray:
@@ -54,6 +54,28 @@ def get_circle(center, radius: float) -> np.ndarray:
     t = np.arange(-np.pi / 2, 3 * np.pi / 2 + 1e-12, np.pi / 50)
     return np.stack([radius * np.cos(t) + center[0],
                      radius * np.sin(t) + center[1]], axis=1)
+
+
+def get_pacman(center, radius: float) -> np.ndarray:
+    """Pacman outline (``functions/get_pacman.m``): the upper jaw out
+    from the centre, the body from pi/6 to 2 pi - pi/6, the lower jaw
+    back in."""
+    center = np.asarray(center, float)
+    t1 = np.arange(0, 1 + 1e-12, 1 / 30)[:, None]
+    t2 = np.arange(np.pi / 6, 2 * np.pi - np.pi / 6 + 1e-12, np.pi / 50)
+    mouth = np.array([radius * np.cos(np.pi / 6),
+                      radius * np.sin(np.pi / 6)])
+    body = np.stack([radius * np.cos(t2) + center[0],
+                     radius * np.sin(t2) + center[1]], axis=1)
+    jaw = np.array([radius * np.cos(-np.pi / 6),
+                    radius * np.sin(-np.pi / 6)])
+    return np.concatenate([center + t1 * mouth, body,
+                           (center + jaw) - t1 * jaw], axis=0)
+
+
+def get_polygon(vertices) -> np.ndarray:
+    """The polygon's vertices as waypoints, (k, 2) floats."""
+    return np.asarray(vertices, float)
 
 
 def make_trajectory(waypoints: np.ndarray, T: float, Ts: float,

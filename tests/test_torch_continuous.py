@@ -111,7 +111,8 @@ def test_zoh_step_bilinear_matches_jax():
     rng = np.random.default_rng(1)
     NL, m = tm.A.shape[0], tm.B.shape[1]
     z, u = rng.standard_normal((NL, 3)), rng.uniform(-1, 1, (m, 3))
-    got = TK.zoh_step_bilinear(tm)(torch.from_numpy(z), torch.from_numpy(u))
+    got = TK.zoh_step_bilinear(tm, device="cpu")(torch.from_numpy(z),
+                                                torch.from_numpy(u))
     jstep = JK.zoh_step_bilinear(jm)
     for b in range(3):
         assert rel(got[:, b].numpy(),

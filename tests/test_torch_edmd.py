@@ -370,9 +370,10 @@ def test_save_model_reads_back_in_both_packages(kind, tmp_path):
     ("snapshots", 10),
 ])
 def test_what_is_not_ported_raises(change, item):
-    """Pre-extracted snapshot pairs raise (ROADMAP item 10); loads with
-    delays (item 7) are ported: the trainer takes them on the loaded
-    corpus (held to JAX in ``test_torch_loaded_delays.py``)."""
+    """Both cases the trainer once refused are ported now: loads with
+    delays (item 7; held to JAX in ``test_torch_loaded_delays.py``) and a
+    datafile's pre-extracted snapshot pairs (item 10; held to JAX in
+    ``test_torch_matio.py``), which replace the trials' own pairs."""
     full = corpus()
     ds = DataSet(train=full.train[:1], val=full.val[:1], params=full.params)
     kw = dict(model_type="linear", obs_degree=(2,))
@@ -385,12 +386,16 @@ def test_what_is_not_ported_raises(change, item):
                     device="cpu")
         assert (ks.nd, ks.nw) == (1, 2)
         return
-    if change == "snapshots":
-        ds = dataclasses.replace(ds, snapshots={"alpha": np.zeros((3, 6))})
-    else:
-        kw.update(change)
-    with pytest.raises(NotImplementedError, match=f"queue 1, item {item}"):
-        Ksysid(ds, SysidConfig(**kw), device="cpu")
+    rng = np.random.default_rng(0)
+    sp = {"alpha": rng.uniform(-1, 1, (40, 6)),
+          "beta": rng.uniform(-1, 1, (40, 6)),
+          "u": rng.uniform(-1, 1, (40, 3))}
+    ks = Ksysid(dataclasses.replace(ds, snapshots=sp), SysidConfig(**kw),
+                device="cpu")
+    for f in ("alpha", "beta", "u"):
+        np.testing.assert_array_equal(getattr(ks.snapshot_pairs, f), sp[f])
+    assert ks.snapshot_pairs.w is None
+    assert ks.train_models().model.A.shape == (ks.N, ks.N)
 
 
 def test_trainer_defaults_to_the_card():

@@ -53,7 +53,9 @@ linear poly-3 PCA f32 models on it with JAX
 writes ``assets/knob_refs.json``: the JAX x64 general runner in every
 controller knob of ``KNOB_PATHS`` with its f32 runs (a 96-copy band where
 the loop amplifies f32 rounding) and the lasso sweep at
-``bilinear_iters=2`` (``KNOB_LASSO``).
+``bilinear_iters=2`` (``KNOB_LASSO``).  ``--write-plants`` writes
+``assets/plant_refs.json``: the JAX x64 general runner of ``BENCH_MPC``
+on the arm's 'rk4', 'stage' and 'rk45' plants (``PLANT_ARMS``; ~35 s).
 
 The linear controller runs ``qp_iters=6`` with cold duals.  The JAX
 package's "verified linear floor" of 3 iterations
@@ -2417,6 +2419,72 @@ def test_lasso_candidates_asset_in_the_ports_basis():
         assert d < 1e-9, (i, d)
 
 
+
+# ---- the arm's other plants in the closed loop (``--write-plants``): the
+# bench's bilinear controller in the general runner on RK4 at 200
+# substeps (100 diverge), SDIRK2 with exact Newton ('stage', ArmConfig()'s
+# 10 substeps and 3 Newton iterations) and the adaptive Dormand-Prince
+# 'rk45' (ode45's tolerances), each from the bench's 16 initial states
+# over 301 blockM steps
+PLANT_ARMS = {
+    "rk4": dict(DEFAULT_ARM, integrator="rk4", substeps=200),
+    "stage": dict(DEFAULT_ARM, jac_mode="stage"),
+    "rk45": dict(DEFAULT_ARM, integrator="rk45"),
+}
+PLANT_REFS = ASSETS / "plant_refs.json"
+# the shorter depth the CPU tests may hold a plant to (rk45: ~0.4 s a
+# period at B=16 on one torch thread)
+PLANT_SHORT_STEPS = 101
+
+
+def jax_plant_run(plant: str, B: int = REF_B, steps: int = REF_STEPS):
+    """The JAX x64 general runner of ``BENCH_MPC`` on the bilinear asset
+    with the ``PLANT_ARMS`` plant: (Yp, alive) as numpy."""
+    from koopman_realizations_tpu.control import Ksim, make_kmpc
+    from koopman_realizations_tpu.models.arm import Arm
+    model, scaler = jax_model("bilinear")
+    sim = Ksim(Arm(ArmConfig(**PLANT_ARMS[plant])),
+               make_kmpc(model, scaler, MpcConfig(**BENCH_MPC)))
+    run = sim.batched_runner(blockM_y(), steps=steps, record=("Yp", "alive"))
+    out = jax.block_until_ready(run(bench_X0(B), np.zeros((B, 2),
+                                                           np.float32)))
+    return np.asarray(out["Yp"]), np.asarray(out["alive"])
+
+
+def write_plant_refs(path: Path = PLANT_REFS) -> dict:
+    """Write ``PLANT_REFS``: each ``PLANT_ARMS`` plant's JAX x64 general
+    runner over 16 lanes x 301 steps -- per-lane err_mean and alive at
+    the last step, and the same over the first ``PLANT_SHORT_STEPS``."""
+    import time as _time
+    plants = {}
+    for name, arm in PLANT_ARMS.items():
+        t0 = _time.perf_counter()
+        Yp, alive = jax_plant_run(name)
+        S = PLANT_SHORT_STEPS
+        e = lane_errors(Yp, blockM_y(), REF_STEPS)
+        es = lane_errors(Yp[:, : S - 1], blockM_y(), S)
+        plants[name] = {
+            "arm": arm, "err_mean": [float(v) for v in e],
+            "alive": [bool(v) for v in alive[:, -1]],
+            f"err_mean_{S}": [float(v) for v in es],
+            f"alive_{S}": [bool(v) for v in alive[:, S - 2]],
+            "seconds": _time.perf_counter() - t0}
+        print(name, float(e.mean()), float(alive[:, -1].mean()),
+              plants[name]["seconds"], flush=True)
+    refs = {
+        "runner": "koopman_realizations_tpu Ksim.batched_runner "
+                  "(jax_enable_x64, CPU)",
+        "written_by": "python tests/test_torch_oracle.py --write-plants",
+        "B": REF_B, "steps": REF_STEPS, "short_steps": PLANT_SHORT_STEPS,
+        "X0": "first joint spread over +-0.2 rad (bench_X0)",
+        "controller": "BENCH_MPC on arm3_bilinear_poly3.npz (make_kmpc)",
+        "reference": "blockM([0.45, -0.35], 0.5, 0.5), T=15, Ts=0.05",
+        "plants": plants}
+    path.write_text(json.dumps(refs, indent=1) + "\n")
+    return {k: {"err_mean": float(np.mean(v["err_mean"])),
+                "alive": float(np.mean(v["alive"])),
+                "seconds": v["seconds"]} for k, v in plants.items()}
+
 if __name__ == "__main__":
     import argparse
 
@@ -2478,6 +2546,9 @@ if __name__ == "__main__":
                     help="train the loaded delayed asset with JAX on the "
                          "committed loaded corpus and write "
                          "loaded_delays_refs.json")
+    ap.add_argument("--write-plants", action="store_true",
+                    help="record the JAX general runner on the arm's rk4, "
+                         "stage and rk45 plants (plant_refs.json)")
     ap.add_argument("--write-rand-refs", action="store_true",
                     help="record the JAX random-system sweep of RAND_MODELS"
                          " (rand_models_refs.json)")
@@ -2491,7 +2562,7 @@ if __name__ == "__main__":
             or args.write_knob_refs is not None
             or args.write_lost_lanes is not None
             or args.write_unblocked_refs is not None
-            or args.write_loaded_delays
+            or args.write_loaded_delays or args.write_plants
             or args.write_unblocked_band is not None
             or args.write_dictionary_full is not None):
         ap.error("nothing to do (pass --write-asset, --write-corpus, "
@@ -2501,10 +2572,12 @@ if __name__ == "__main__":
                  "--write-dictionary-refs, --write-dictionary-full, "
                  "--write-angles, --write-knob-refs, "
                  "--write-unblocked-refs, --write-unblocked-band, "
-                 "--write-loaded-delays or "
+                 "--write-loaded-delays, --write-plants or "
                  "--write-lost-lanes)")
     if args.write_corpus:
         print(json.dumps(write_corpus(), indent=1))
+    if args.write_plants:
+        print(json.dumps(write_plant_refs(), indent=1))
     if args.write_asset is not None:
         print(json.dumps(write_assets(tuple(args.write_asset)
                                       or tuple(MODELS)), indent=1))
